@@ -1,0 +1,65 @@
+"""Kernel-config resolution for the H100 kernels (tile sizes, split
+heuristic).
+
+Port of flash_attn_tpu/dispatch/config.py: ``normalize_window`` and
+``num_splits_heuristic`` are carried over as they are; the tile choices
+are new, because the Hopper kernels tile for shared memory and registers,
+not for VMEM (the TPU's VMEM budgeting helpers have no counterpart here).
+"""
+
+import dataclasses
+from typing import Optional, Tuple
+
+# Head dims the two CUDA kernels are compiled for.
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdConfig:
+    block_q: int
+    block_k: int
+
+
+# Tile of csrc/flash_fwd.cu: 64 query rows (16 per warp of 4, the
+# m16n8k16 tensor-core tile) by 64 keys. At head dim 128 the Q, K and V
+# tiles take 48 KB of shared memory, room for two blocks on one SM. The
+# kernel checks that the wrapper passes the tile it was compiled for.
+FWD_TILE = FwdConfig(block_q=64, block_k=64)
+
+# Split granularity of csrc/flash_decode.cu and of its plain version: a
+# split's share of the cache is a run of 64-key tiles (one pass of the
+# kernel's 4 warps' unrolled loads at head dim 128).
+DECODE_BLOCK_K = 64
+
+
+def normalize_window(
+    window_size: Tuple[Optional[int], Optional[int]],
+) -> Tuple[Optional[int], Optional[int]]:
+    """Accept both the FA2 (-1 = unlimited) and FA4 (None = unlimited)
+    window conventions."""
+    left, right = window_size
+    if left is not None and left < 0:
+        left = None
+    if right is not None and right < 0:
+        right = None
+    return (left, right)
+
+
+def num_splits_heuristic(
+    total_mblocks: int,
+    num_cores: int,
+    num_kv_blocks: int,
+    max_splits: int = 8,
+) -> int:
+    """How many KV splits for decode so that every core has work; on the
+    H100 a core is a streaming multiprocessor (132 of them)."""
+    if total_mblocks >= 0.8 * num_cores:
+        return 1
+    max_useful = max(1, min(max_splits, num_kv_blocks, num_cores))
+    best, best_eff = 1, 0.0
+    for s in range(1, max_useful + 1):
+        n_waves = (total_mblocks * s) / num_cores
+        eff = n_waves / float(int(n_waves) + 1) if n_waves < 1 else 1.0
+        if eff > best_eff * 1.05:
+            best, best_eff = s, eff
+    return best

@@ -1,0 +1,165 @@
+"""Split-KV decode attention over a linear cache: the CUDA kernel
+``csrc/flash_decode.cu``, its plain PyTorch version, and ``combine_splits``.
+
+Port of flash_attn_tpu/kernels/flash_decode.py ``flash_attention_decode``
+(linear cache, causal or not, GQA, ``num_splits`` >= 1). The cache keeps
+the JAX layout (b_c, h_k, s_max, d). Each split writes an fp32 partial
+(out, lse) for the sq * group query rows of one KV head (the GQA row
+packing of the TPU kernel); ``combine_splits`` merges them with torch ops,
+as the JAX package merges them outside its kernel. A tensor on the CPU
+takes the plain version; a CUDA tensor launches the kernel or raises.
+"""
+
+import math
+from typing import Optional
+
+import torch
+
+from flash_attn_tpu_torch.dispatch.config import (
+    DECODE_BLOCK_K,
+    KERNEL_HEAD_DIMS,
+)
+from flash_attn_tpu_torch.kernels import _build
+
+LOG2E = math.log2(math.e)
+
+launches = 0  # kernel launches since the last reset (plain calls not counted)
+
+
+def _split_bounds(cache_seqlens, num_splits: int, block_k: int):
+    """Per batch row, the key count of each split's contiguous run of
+    block_k tiles (the TPU kernel's partition, flash_decode.py:119-122)."""
+    tiles = (cache_seqlens + block_k - 1) // block_k
+    kps = (tiles + num_splits - 1) // num_splits
+    return kps * block_k  # (b,) keys per split
+
+
+def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
+                                          num_splits: int, block_k: int,
+                                          softmax_scale: float, causal: bool):
+    """fp32 matmul, mask and softmax per split. Returns (out_p (num_splits,
+    b, h_k, sq * group, dv), lse_p (num_splits, b, h_k, sq * group))."""
+    b, sq, h, d = q.shape
+    h_k, s_max = k_cache.shape[1], k_cache.shape[2]
+    group = h // h_k
+    rows = sq * group
+    qp = q.float().reshape(b, sq, h_k, group, d).transpose(1, 2).reshape(
+        b, h_k, rows, d)
+    kf = k_cache[:b].float()
+    vf = v_cache[:b].float()
+    s = torch.matmul(qp, kf.transpose(-1, -2)) * softmax_scale  # (b,h_k,R,S)
+    sk = cache_seqlens.long()
+    pos = torch.arange(s_max, device=q.device)
+    tok = torch.arange(rows, device=q.device) // group
+    if causal:
+        limit = tok[None, :] + (sk - sq)[:, None]              # (b, R)
+    else:
+        limit = (sk - 1)[:, None].expand(b, rows)
+    valid = (pos[None, None, :] <= limit[:, :, None]) \
+        & (pos[None, None, :] < sk[:, None, None])              # (b, R, S)
+    per_split = _split_bounds(sk, num_splits, block_k).clamp(min=1)
+    split_of = pos[None, :] // per_split[:, None]               # (b, S)
+    outs, lses = [], []
+    for sp in range(num_splits):
+        m = valid & (split_of == sp)[:, None, :]
+        ss = s.masked_fill(~m[:, None], float("-inf"))
+        lse = torch.logsumexp(ss, dim=-1)
+        p = torch.exp(ss - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
+        outs.append(torch.matmul(p, vf))
+        lses.append(lse)
+    return torch.stack(outs), torch.stack(lses)
+
+
+def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
+                                    num_splits: int, softmax_scale: float,
+                                    causal: bool):
+    """Split partials of decode attention; see
+    :func:`flash_attention_decode_partials_plain` for the shapes.
+    ``cache_seqlens`` (b,) int32 are the cache lengths after any append;
+    cache row i serves batch row i."""
+    if q.device.type == "cpu":
+        return flash_attention_decode_partials_plain(
+            q, k_cache, v_cache, cache_seqlens, num_splits, DECODE_BLOCK_K,
+            softmax_scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: unsupported device {q.device}")
+    b, sq, h, d = q.shape
+    b_c, h_k, s_max, dk = k_cache.shape
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"flash_decode kernel: dtype {q.dtype} (bf16/fp16)")
+    if d not in KERNEL_HEAD_DIMS or dk != d or v_cache.shape != k_cache.shape:
+        raise ValueError(
+            f"flash_decode kernel: head dims q {d}, cache {dk}, "
+            f"v {v_cache.shape[-1]}; needs equal dims in {KERNEL_HEAD_DIMS}")
+    if b > b_c or h % h_k or b * h_k > 2**31 - 1 or num_splits > 65535:
+        raise ValueError(f"flash_decode kernel: shapes q {tuple(q.shape)}, "
+                         f"cache {tuple(k_cache.shape)}, splits {num_splits}")
+    if (cache_seqlens.device != q.device or cache_seqlens.dtype != torch.int32
+            or cache_seqlens.shape != (b,) or not cache_seqlens.is_contiguous()):
+        raise ValueError("flash_decode kernel: cache_seqlens must be a "
+                         "contiguous (b,) int32 tensor on q's device")
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        _build.check_operand("flash_decode", name, x, q.dtype, q.device)
+    rows = sq * (h // h_k)
+    out_p = torch.empty((num_splits, b, h_k, rows, d), dtype=torch.float32,
+                        device=q.device)
+    lse_p = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32,
+                        device=q.device)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.fa_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            cache_seqlens.data_ptr(), out_p.data_ptr(), lse_p.data_ptr(),
+            b, sq, h, h_k, d, num_splits, DECODE_BLOCK_K,
+            q.stride(0), q.stride(1), q.stride(2),
+            k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+            v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+            softmax_scale * LOG2E, int(causal),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fa_decode")
+    global launches
+    launches += 1
+    return out_p, lse_p
+
+
+def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
+                           softmax_scale: Optional[float] = None,
+                           causal: bool = False, num_splits: int = 1):
+    """q (b, sq, h, d); caches (b_c, h_k, s_max, d); cache_seqlens (b,)
+    int32 cache lengths after any append. Returns (out (b, sq, h, d) in q's
+    type, lse (b, h, sq) fp32)."""
+    b, sq, h, d = q.shape
+    h_k, s_max = k_cache.shape[1], k_cache.shape[2]
+    group = h // h_k
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    num_splits = max(1, min(num_splits, -(-s_max // DECODE_BLOCK_K)))
+    out_p, lse_p = flash_attention_decode_partials(
+        q, k_cache, v_cache, cache_seqlens, num_splits, softmax_scale, causal)
+    if num_splits == 1:
+        out, lse = out_p[0], lse_p[0]
+    else:
+        out, lse = combine_splits(out_p, lse_p)
+    # (b, h_k, sq * group, d) rows -> (b, sq, h, d); lse -> (b, h, sq)
+    out = out.reshape(b, h_k, sq, group, -1).permute(0, 2, 1, 3, 4).reshape(
+        b, sq, h, -1).to(q.dtype)
+    lse = lse.reshape(b, h_k, sq, group).transpose(2, 3).reshape(b, h, sq)
+    return out, lse
+
+
+def combine_splits(out_partial, lse_partial):
+    """LSE-weighted merge of split-KV partials (flash_decode.py:708).
+
+    out_partial: (num_splits, ..., dv) fp32, each normalised per split;
+    lse_partial: (num_splits, ...) fp32, -inf for empty splits.
+    Returns (out, lse) without the leading splits axis."""
+    m = lse_partial.max(dim=0).values
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    w = torch.exp(lse_partial - m_safe)  # exp(-inf) = 0 for empty splits
+    denom = w.sum(dim=0)
+    out = (out_partial * w[..., None]).sum(dim=0)
+    denom_safe = torch.where(denom == 0.0, 1.0, denom)
+    out = out / denom_safe[..., None]
+    lse = torch.where(torch.isneginf(m), float("-inf"), m + torch.log(denom_safe))
+    return out, lse

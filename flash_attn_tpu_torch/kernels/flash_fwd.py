@@ -1,0 +1,93 @@
+"""Dense attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
+plain PyTorch version.
+
+Port of flash_attn_tpu/kernels/flash_fwd.py ``flash_attention_fwd`` (and of
+the causal split in flash_fwd_split.py, whose diagonal work the one CUDA
+kernel does in a masked phase). Layout (b, h, s, d) as in the JAX function.
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel or raises.
+"""
+
+import math
+from typing import Optional
+
+import torch
+
+from flash_attn_tpu_torch.dispatch.config import FWD_TILE, KERNEL_HEAD_DIMS
+from flash_attn_tpu_torch.kernels import _build
+
+LOG2E = math.log2(math.e)
+
+launches = 0  # kernel launches since the last reset (plain calls not counted)
+
+
+def flash_attention_fwd_plain(q, k, v, softmax_scale: Optional[float] = None,
+                              causal: bool = False):
+    """Matmul, mask and softmax in fp32. q (b, h, sq, d), k/v (b, h_k, sk,
+    d/dv). Returns out (b, h, sq, dv) in q's type and the natural-log lse
+    (b, h, sq) in fp32, -inf (and out 0) for rows that see no key."""
+    b, h, sq, d = q.shape
+    h_k, sk = k.shape[1], k.shape[2]
+    group = h // h_k
+    scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(cols > rows + (sk - sq), float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    seen = torch.isfinite(lse)
+    p = torch.exp(s - torch.where(seen, lse, 0.0)[..., None])
+    out = torch.matmul(p, vf).to(q.dtype)
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
+                        causal: bool = False):
+    """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
+    contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
+    fp32). CUDA: bf16/fp16, d in {64, 128}, h % h_k == 0."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, softmax_scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd: unsupported device {q.device}")
+    b, h, sq, d = q.shape
+    bk_, h_k, sk, dk = k.shape
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"flash_fwd kernel: dtype {q.dtype} (bf16/fp16 only)")
+    if d not in KERNEL_HEAD_DIMS or dk != d or v.shape != k.shape:
+        raise ValueError(
+            f"flash_fwd kernel: head dims q {d}, k {dk}, v {v.shape[-1]}; "
+            f"needs equal dims in {KERNEL_HEAD_DIMS}")
+    if bk_ != b or h % h_k:
+        raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if b > 65535 or h > 65535:
+        raise ValueError("flash_fwd kernel: batch and heads must be <= 65535")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _build.check_operand("flash_fwd", name, x, q.dtype, q.device)
+    scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
+    # out is allocated (b, sq, h, d) so that the public bshd result is
+    # contiguous; it is returned as its (b, h, sq, d) view.
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if sq == 0:
+        return out.transpose(1, 2), lse
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.fa_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, sq, sk, h, h_k, d,
+            FWD_TILE.block_q, FWD_TILE.block_k,
+            q.stride(0), q.stride(2), q.stride(1),
+            k.stride(0), k.stride(2), k.stride(1),
+            v.stride(0), v.stride(2), v.stride(1),
+            out.stride(0), out.stride(1), out.stride(2),
+            scale * LOG2E, int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fa_fwd")
+    global launches
+    launches += 1
+    return out.transpose(1, 2), lse

@@ -1,0 +1,267 @@
+"""GPT-family model (port of flash_attn_tpu/models/gpt.py ``GPTConfig``,
+``GPTModel``, ``GPTLMHeadModel``) for inference.
+
+The configuration carries the JAX package's fields; the port runs the ones
+of the serving slice (rotary, RMSNorm/LayerNorm, gated or plain MLP, GQA,
+tied or untied head, muP scalars) and raises NotImplementedError for the
+rest. Parameters mirror flax's: the Dense and embedding weights in the
+compute type (flax keeps them in fp32 and casts them to it at every call,
+which gives the same values), the norm weights in fp32.
+"""
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from flash_attn_tpu_torch.modules.block import Block
+from flash_attn_tpu_torch.modules.mha import MHA, KVCache
+from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
+from flash_attn_tpu_torch.ops.activations import gelu_approx, sqrelu
+from flash_attn_tpu_torch.ops.norm import layer_norm, rms_norm
+
+__all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "gpt_913m",
+           "load_jax_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50257
+    n_positions: int = 2048      # learned pos-emb length; 0 = none (rotary)
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    n_head_kv: Optional[int] = None
+    n_inner: Optional[int] = None
+    rotary_emb_fraction: float = 0.0
+    rotary_emb_base: float = 10000.0
+    rotary_emb_interleaved: bool = False
+    use_rms_norm: bool = False
+    glu_act: bool = False        # gated (SwiGLU) MLP
+    activation: str = "gelu_approx"  # gelu_approx | gelu | relu | sqrelu
+    parallel_block_tied_norm: bool = True
+    qkv_proj_bias: bool = True
+    out_proj_bias: bool = True
+    mlp_bias: bool = True
+    parallel_block: bool = False
+    use_alibi: bool = False
+    window_size: Tuple[int, int] = (-1, -1)
+    softcap: float = 0.0
+    embd_dropout: float = 0.0    # training only; inference is deterministic
+    resid_dropout: float = 0.0
+    norm_epsilon: float = 1e-5
+    tie_word_embeddings: bool = True
+    mup_width_scale: float = 1.0
+    mup_embeddings_multiplier: float = 1.0
+    mup_output_multiplier: float = 1.0
+    mup_scale_qk_dot_by_d: bool = False
+    norm_head: bool = False
+    max_decode_seqlen: int = 2048
+    paged_kv_num_pages: int = 0
+    paged_kv_page_size: int = 128
+    kv_cache_dtype: Optional[torch.dtype] = None
+    kv_cache_scale: float = 1.0
+    context_parallel: bool = False
+    sequence_parallel: bool = False
+    remat: bool = False          # training only
+    remat_policy: str = "full"
+    dtype: torch.dtype = torch.bfloat16
+
+
+def gpt_913m(max_decode_seqlen: int = 0, dtype=torch.bfloat16) -> GPTConfig:
+    """The flagship 913M GPT (the numbers of bench.py ``_gpt_913m``):
+    vocab 50304, width 2048, 16 layers of 16 heads of 128, rotary, RMSNorm,
+    SwiGLU, tied embeddings."""
+    return GPTConfig(
+        vocab_size=50304, n_positions=0, n_embd=2048, n_layer=16,
+        n_head=16, n_head_kv=16, rotary_emb_fraction=1.0,
+        use_rms_norm=True, glu_act=True, tie_word_embeddings=True,
+        max_decode_seqlen=max_decode_seqlen, dtype=dtype)
+
+
+def _check_ported(cfg: GPTConfig) -> None:
+    missing = {
+        "n_positions (learned position embeddings)": cfg.n_positions > 0,
+        "parallel_block": cfg.parallel_block,
+        "use_alibi": cfg.use_alibi,
+        "window_size": tuple(cfg.window_size) != (-1, -1),
+        "softcap": cfg.softcap > 0.0,
+        "norm_head": cfg.norm_head,
+        "paged_kv_num_pages": cfg.paged_kv_num_pages > 0,
+        "kv_cache_dtype": cfg.kv_cache_dtype is not None,
+        "context_parallel": cfg.context_parallel,
+        "sequence_parallel": cfg.sequence_parallel,
+    }
+    bad = [name for name, on in missing.items() if on]
+    if bad:
+        raise NotImplementedError(
+            f"GPTConfig options not ported yet: {', '.join(bad)}")
+
+
+def _make_mlp(cfg: GPTConfig, device):
+    if cfg.glu_act:
+        # n_inner is the exact gated width when given; else the 8/3 rule
+        # rounded up to a multiple of 128.
+        inner = cfg.n_inner or (4 * cfg.n_embd * 2 // 3)
+        mult = 1 if cfg.n_inner is not None else 128
+        return GatedMlp(cfg.n_embd, inner, bias1=cfg.mlp_bias,
+                        bias2=cfg.mlp_bias, multiple_of=mult, dtype=cfg.dtype,
+                        device=device)
+    act = {
+        "gelu_approx": gelu_approx,
+        "gelu": lambda x: F.gelu(x, approximate="none"),
+        "relu": torch.relu,
+        "sqrelu": sqrelu,
+    }[cfg.activation]
+    return Mlp(cfg.n_embd, cfg.n_inner or 4 * cfg.n_embd, activation=act,
+               bias1=cfg.mlp_bias, bias2=cfg.mlp_bias, dtype=cfg.dtype,
+               device=device)
+
+
+def _make_mixer(cfg: GPTConfig, device):
+    head_dim = cfg.n_embd // cfg.n_head
+    return MHA(
+        cfg.n_embd, cfg.n_head, num_heads_kv=cfg.n_head_kv,
+        qkv_proj_bias=cfg.qkv_proj_bias, out_proj_bias=cfg.out_proj_bias,
+        causal=True,
+        softmax_scale=1.0 / head_dim if cfg.mup_scale_qk_dot_by_d else None,
+        rotary_emb_dim=int(head_dim * cfg.rotary_emb_fraction),
+        rotary_emb_base=cfg.rotary_emb_base,
+        rotary_emb_interleaved=cfg.rotary_emb_interleaved,
+        max_decode_seqlen=cfg.max_decode_seqlen, dtype=cfg.dtype,
+        device=device)
+
+
+class GPTModel(nn.Module):
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        _check_ported(config)
+        cfg = self.config = config
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.n_embd,
+                                            dtype=cfg.dtype, device=device)
+        self.layers = nn.ModuleList(
+            Block(cfg.n_embd, _make_mixer(cfg, device), _make_mlp(cfg, device),
+                  use_rms_norm=cfg.use_rms_norm, norm_epsilon=cfg.norm_epsilon,
+                  device=device)
+            for _ in range(cfg.n_layer))
+        self.ln_f_weight = nn.Parameter(
+            torch.ones(cfg.n_embd, dtype=torch.float32, device=device))
+        self.ln_f_bias = (None if cfg.use_rms_norm else nn.Parameter(
+            torch.zeros(cfg.n_embd, dtype=torch.float32, device=device)))
+
+    def new_cache(self) -> List[KVCache]:
+        """Empty per-layer decode state, filled by a prefill."""
+        return [KVCache() for _ in self.layers]
+
+    def forward(self, input_ids, mode: str = "train",
+                cache: Optional[List[KVCache]] = None):
+        cfg = self.config
+        hidden = self.word_embeddings(input_ids)
+        if cfg.mup_embeddings_multiplier != 1.0:
+            hidden = hidden * cfg.mup_embeddings_multiplier
+        residual = None
+        for i, block in enumerate(self.layers):
+            hidden, residual = block(hidden, residual, mode=mode,
+                                     cache=None if cache is None else cache[i])
+        if residual is not None:
+            hidden = (hidden.float() + residual.float()).to(cfg.dtype)
+        if cfg.use_rms_norm:
+            return rms_norm(hidden, self.ln_f_weight, cfg.norm_epsilon)
+        return layer_norm(hidden, self.ln_f_weight, self.ln_f_bias,
+                          cfg.norm_epsilon)
+
+
+class GPTLMHeadModel(nn.Module):
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.transformer = GPTModel(config, device=device)
+        self.lm_head = (None if config.tie_word_embeddings else nn.Linear(
+            config.n_embd, config.vocab_size, bias=False, dtype=config.dtype,
+            device=device))
+
+    def new_cache(self) -> List[KVCache]:
+        return self.transformer.new_cache()
+
+    def forward(self, input_ids, mode: str = "train",
+                cache: Optional[List[KVCache]] = None, logits_positions=None):
+        """input_ids (b, s). ``mode`` is "train" (forward only), "prefill"
+        (fills ``cache``, from :meth:`new_cache`) or "decode" (updates it
+        in place). ``logits_positions`` (b,) computes the logits only at
+        those positions, returning (b, 1, vocab). Logits are fp32, computed
+        in the compute type."""
+        cfg = self.config
+        hidden = self.transformer(input_ids, mode=mode, cache=cache)
+        if logits_positions is not None:
+            idx = logits_positions.to(hidden.device, torch.long)
+            hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                            idx][:, None]
+        hidden = hidden.to(cfg.dtype)
+        if self.lm_head is None:
+            logits = F.linear(hidden, self.transformer.word_embeddings.weight)
+        else:
+            logits = self.lm_head(hidden)
+        logits = logits.float()
+        output_scale = cfg.mup_output_multiplier * cfg.mup_width_scale
+        if output_scale != 1.0:
+            logits = logits * output_scale
+        return logits
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random weights from ``generator`` with flax's default scales:
+        Dense kernels N(0, 1/fan_in) (lecun), embeddings N(0, 1/n_embd),
+        biases 0, norm weights 1."""
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
+                                   generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim),
+                                   generator=generator)
+        for name, p in self.named_parameters():
+            if "norm" in name or name.startswith("transformer.ln_f"):
+                p.fill_(0.0 if name.endswith("bias") else 1.0)
+
+
+def _t(x):
+    return torch.from_numpy(x.copy())
+
+
+@torch.no_grad()
+def load_jax_params(model: GPTLMHeadModel, params) -> GPTLMHeadModel:
+    """Fill ``model`` from a flax GPTLMHeadModel param tree given as nested
+    dicts of numpy arrays (flax Dense kernels are (in, out), torch Linear
+    weights (out, in)). Values are cast to each parameter's type."""
+    tr = params["transformer"]
+
+    def put(dst: torch.Tensor, src) -> None:
+        dst.copy_(_t(src).to(dst.dtype))
+
+    def dense(lin: nn.Linear, p) -> None:
+        put(lin.weight, p["kernel"].T)
+        if lin.bias is not None:
+            put(lin.bias, p["bias"])
+
+    gm = model.transformer
+    put(gm.word_embeddings.weight, tr["embeddings"]["word_embeddings"]["embedding"])
+    for i, block in enumerate(gm.layers):
+        lp = tr[f"layers_{i}"]
+        for name in ("norm1_weight", "norm2_weight", "norm1_bias", "norm2_bias"):
+            if getattr(block, name) is not None:
+                put(getattr(block, name), lp[name])
+        dense(block.mixer.Wqkv, lp["mixer"]["Wqkv"])
+        dense(block.mixer.out_proj, lp["mixer"]["out_proj"])
+        dense(block.mlp.fc1, lp["mlp"]["fc1"])
+        dense(block.mlp.fc2, lp["mlp"]["fc2"])
+    put(gm.ln_f_weight, tr["ln_f_weight"])
+    if gm.ln_f_bias is not None:
+        put(gm.ln_f_bias, tr["ln_f_bias"])
+    if model.lm_head is not None:
+        dense(model.lm_head, params["lm_head"])
+    return model

@@ -1,0 +1,54 @@
+"""Rotary position embeddings (port of flash_attn_tpu/ops/rotary.py).
+
+ - rotary_dim = 2 * cos.shape[-1]; only x[..., :rotary_dim] is rotated.
+ - non-interleaved (GPT-NeoX style): pairs are the two halves.
+ - interleaved (GPT-J style): pairs are even/odd lanes.
+ - seqlen_offsets shifts the position index, as an int or per batch row.
+cos/sin are cast to x's type before the rotation, as in the JAX package;
+the rotation itself is computed in fp32 and rounded once.
+"""
+
+from typing import Union
+
+import torch
+
+__all__ = ["apply_rotary_emb"]
+
+
+def _rotate(x, cos, sin, interleaved: bool):
+    """x (..., s, h, d); cos/sin (..., s, rot/2) already at x's positions."""
+    rot = cos.shape[-1] * 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    cos = cos.unsqueeze(-2).float()  # insert the head axis
+    sin = sin.unsqueeze(-2).float()
+    xf = x_rot.float()
+    if interleaved:
+        x1, x2 = xf[..., ::2], xf[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                          dim=-1).flatten(-2)
+    else:
+        x1, x2 = xf.chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    out = out.to(x.dtype)
+    return torch.cat([out, x_pass], dim=-1) if x_pass.shape[-1] else out
+
+
+def apply_rotary_emb(
+    x,    # (b, s, h, d)
+    cos,  # (s_max, rot_dim / 2)
+    sin,
+    interleaved: bool = False,
+    seqlen_offsets: Union[int, torch.Tensor] = 0,
+):
+    """Rotate x at positions offset + [0, s). Positions past the end of the
+    table take its last row, as the JAX gather does."""
+    cos = cos.to(x.dtype)
+    sin = sin.to(x.dtype)
+    s_len = x.shape[1]
+    pos = torch.arange(s_len, device=x.device)
+    if isinstance(seqlen_offsets, int):
+        pos = (pos + seqlen_offsets).clamp(max=cos.shape[0] - 1)
+        return _rotate(x, cos[pos], sin[pos], interleaved)
+    pos = pos[None, :] + seqlen_offsets.to(x.device, torch.long)[:, None]
+    pos = pos.clamp(max=cos.shape[0] - 1)
+    return _rotate(x, cos[pos], sin[pos], interleaved)

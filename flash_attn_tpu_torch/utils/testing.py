@@ -1,0 +1,79 @@
+"""Golden reference attention and the repo's numerics contract.
+
+Port of flash_attn_tpu/utils/testing.py ``attention_ref`` (:177) and
+``check_against_ref`` (:306), for the masks the port supports. The
+contract: a kernel's output, computed in bf16/fp16, must satisfy
+
+    max|out - ref_fp32| <= 2 * max|ref_lowprec - ref_fp32| + atol
+
+where ``ref_lowprec`` is the same full-matrix attention computed in the
+kernel's precision (``upcast=False``).
+"""
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = ["attention_ref", "check_against_ref"]
+
+
+def attention_ref(
+    q,  # (b, sq, h, d)
+    k,  # (b, sk, h_k, d)
+    v,  # (b, sk, h_k, dv)
+    key_padding_mask=None,  # (b, sk) bool, True = keep
+    causal: bool = False,
+    softmax_scale: Optional[float] = None,
+    upcast: bool = True,
+):
+    """Full-matrix attention, fp32 by default (``upcast``), else in the
+    inputs' type. Bottom-right aligned causal mask (over the unpadded key
+    count), GQA head replication, zero output for rows that see no key.
+    Returns (output (b, sq, h, dv), attention (b, h, sq, sk))."""
+    dtype_og = q.dtype
+    if upcast:
+        q, k, v = q.float(), k.float(), v.float()
+    g = q.shape[2] // k.shape[2]
+    k = k.repeat_interleave(g, dim=2)
+    v = v.repeat_interleave(g, dim=2)
+    seqlen_q, seqlen_k = q.shape[1], k.shape[1]
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bthd,bshd->bhts", q * softmax_scale, k)
+    neg_inf = float("-inf")
+    if key_padding_mask is not None:
+        scores = scores.masked_fill(~key_padding_mask[:, None, None, :], neg_inf)
+    if causal:
+        row = torch.arange(seqlen_q, device=q.device)[:, None]
+        col = torch.arange(seqlen_k, device=q.device)[None, :]
+        sk = (seqlen_k if key_padding_mask is None
+              else key_padding_mask.sum(-1).reshape(-1, 1, 1, 1))
+        scores = scores.masked_fill(col > row + sk - seqlen_q, neg_inf)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - torch.where(torch.isneginf(m), 0.0, m))
+    e = torch.where(torch.isneginf(scores), 0.0, e)
+    denom = e.sum(dim=-1, keepdim=True)
+    attention = (e / torch.where(denom == 0, 1.0, denom)).to(v.dtype)
+    output = torch.einsum("bhts,bshd->bthd", attention, v)
+    return output.to(dtype_og), attention.to(dtype_og)
+
+
+def check_against_ref(out, out_ref_fp32, out_ref_lowprec, *, mult: float = 2.0,
+                      atol: float = 1e-5, msg: str = ""):
+    """The reference numerics contract: kernel error <= mult x low-precision
+    reference error (+ a small absolute floor). Raises AssertionError;
+    returns (err, err_lowprec)."""
+    def f32(x):
+        return x.detach().float().cpu().numpy() if torch.is_tensor(x) \
+            else np.asarray(x, dtype=np.float32)
+
+    out, ref, ref_lp = f32(out), f32(out_ref_fp32), f32(out_ref_lowprec)
+    err = float(np.abs(out - ref).max())
+    err_lp = float(np.abs(ref_lp - ref).max())
+    if not err <= mult * err_lp + atol:
+        raise AssertionError(
+            f"{msg} kernel max err {err:.3e} > {mult} x lowprec ref err "
+            f"{err_lp:.3e} + {atol:.1e}")
+    return err, err_lp

@@ -1,0 +1,140 @@
+"""Package-level checks of the port (flash_attn_tpu_torch): what it
+imports, what it refuses, and, on a CUDA card, each kernel against its
+plain version."""
+
+import math
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import flash_attn_tpu_torch
+from flash_attn_tpu_torch import flash_attn_func, flash_attn_with_kvcache
+from flash_attn_tpu_torch.cache.kvcache import kv_cache_update
+from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
+from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+
+torch.set_num_threads(1)
+
+PKG = Path(flash_attn_tpu_torch.__file__).parent
+REPO = PKG.parent
+
+
+def test_import_pulls_in_no_jax_or_triton():
+    code = (
+        "import pkgutil, importlib, sys, flash_attn_tpu_torch as p\n"
+        "mods = [m.name for m in\n"
+        "        pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'triton', 'flash_attn_tpu')"
+        " if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout) >= 20  # every subpackage and module was imported
+
+
+def test_no_library_attention_in_the_package():
+    banned = re.compile(
+        r"scaled_dot_product_attention|torch\.compile|cudnn|cublas"
+        r"|^\s*(import|from)\s+(jax|flax|optax|triton|flash_attn_tpu)\b",
+        re.IGNORECASE)
+    sources = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    assert sources
+    hits = [f"{p.relative_to(REPO)}:{i}" for p in sources
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if banned.search(line.split("#")[0].split("//")[0])]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(dropout_p=0.1), dict(window_size=(8, 0)), dict(softcap=5.0),
+    dict(alibi_slopes=torch.ones(2)), dict(qv=torch.ones(1)),
+    dict(score_mod=lambda s, *a: s)])
+def test_flash_attn_func_rejects_unported_options(kwargs):
+    q = torch.randn(1, 8, 2, 64)
+    with pytest.raises(NotImplementedError):
+        flash_attn_func(q, q, q, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(block_table=torch.zeros(1, 1, dtype=torch.int32)),
+    dict(cache_batch_idx=torch.zeros(1, dtype=torch.int32)),
+    dict(cache_leftpad=torch.zeros(1, dtype=torch.int32)),
+    dict(k_descale=torch.ones(1, 2))])
+def test_flash_attn_with_kvcache_rejects_unported_options(kwargs):
+    q = torch.randn(1, 1, 2, 64)
+    cache = torch.zeros(1, 2, 128, 64)
+    with pytest.raises(NotImplementedError):
+        flash_attn_with_kvcache(q, cache, cache, **kwargs)
+
+
+def test_gradient_request_raises():
+    q = torch.randn(1, 8, 2, 64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        flash_attn_func(q, q, q, causal=True)
+    with torch.no_grad():
+        assert flash_attn_func(q, q, q, causal=True).shape == q.shape
+
+
+def test_unported_model_options_raise():
+    with pytest.raises(NotImplementedError, match="use_alibi"):
+        GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1, use_alibi=True))
+
+
+def test_kv_cache_update_in_place():
+    cache_k, cache_v = torch.zeros(3, 2, 16, 8), torch.zeros(3, 2, 16, 8)
+    ptrs = cache_k.data_ptr(), cache_v.data_ptr()
+    k_new = torch.randn(3, 2, 2, 8)
+    offs = torch.tensor([0, 5, 14], dtype=torch.int32)
+    out_k, out_v = kv_cache_update(cache_k, cache_v, k_new, -k_new, offs)
+    assert (out_k.data_ptr(), out_v.data_ptr()) == ptrs
+    for i, o in enumerate(offs.tolist()):
+        assert torch.equal(cache_k[i, :, o:o + 2], k_new[i].transpose(0, 1))
+        assert torch.equal(cache_v[i, :, o:o + 2], -k_new[i].transpose(0, 1))
+        cache_k[i, :, o:o + 2] = 0
+    assert not cache_k.any()  # nothing else was written
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there "
+                    "(python3 chip_smoke.py checks them on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_match_plain_versions_on_the_card(causal):
+    from flash_attn_tpu_torch.kernels import flash_decode, flash_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v = randn(2, 4, 200, 128), randn(2, 2, 300, 128), randn(2, 2, 300, 128)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+    qd = randn(3, 1, 8, 128)
+    kc, vc = randn(3, 2, 256, 128), randn(3, 2, 256, 128)
+    seqlens = torch.tensor([1, 100, 256], dtype=torch.int32, device="cuda")
+    out, lse = flash_decode.flash_attention_decode(qd, kc, vc, seqlens,
+                                                   causal=causal, num_splits=3)
+    parts = flash_decode.flash_attention_decode_partials_plain(
+        qd, kc, vc, seqlens, 3, DECODE_BLOCK_K, 1 / math.sqrt(128), causal)
+    ref, ref_lse = flash_decode.combine_splits(*parts)
+    ref = ref.reshape(3, 2, 1, 4, 128).permute(0, 2, 1, 3, 4).reshape(3, 1, 8, 128)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse.reshape(3, 8, 1), atol=1e-4, rtol=0)
