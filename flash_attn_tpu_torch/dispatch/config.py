@@ -26,6 +26,29 @@ class FwdConfig:
 # kernel checks that the wrapper passes the tile it was compiled for.
 FWD_TILE = FwdConfig(block_q=64, block_k=64)
 
+@dataclasses.dataclass(frozen=True)
+class BwdConfig:
+    block_q: int  # query rows of a tile
+    block_k: int  # KV rows of a tile
+
+
+def get_bwd_config(head_dim: int) -> Tuple[BwdConfig, BwdConfig]:
+    """Tiles of csrc/flash_bwd.cu: (the dK/dV kernel's, the dQ kernel's).
+
+    Both kernels run 4 warps of 16 rows (the m16n8k16 tile), so a dK/dV
+    block owns 64 KV rows and a dQ block 64 query rows. A dK/dV warp keeps
+    its rows' dK and dV in registers (128 fp32 a thread at head dim 128)
+    beside the S^T and dP^T tiles of the q tile, so the q tile is what
+    keeps the kernel within 255 registers without spilling: 64 rows at
+    head dim 64, 32 at 128 (csrc/flash_bwd.cu FA_BWD_BM_D128). The kernels
+    check that the wrapper passes the tiles they were compiled for."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_bwd: head dim {head_dim} not in "
+                         f"{KERNEL_HEAD_DIMS}")
+    dkdv = BwdConfig(block_q=32 if head_dim == 128 else 64, block_k=64)
+    return dkdv, BwdConfig(block_q=64, block_k=64)
+
+
 # Split granularity of csrc/flash_decode.cu and of its plain version: a
 # split's share of the cache is a run of 64-key tiles (one pass of the
 # kernel's 4 warps' unrolled loads at head dim 128).

@@ -29,6 +29,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "fa_fwd": [_P] * 5 + [_I] * 8 + [_L] * 12 + [_F, _I, _I, _P],
     "fa_decode": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_F, _I, _I, _P],
+    "fa_bwd_dkdv": [_P] * 9 + [_I] * 8 + [_L] * 18 + [_F, _I, _I, _I, _P],
+    "fa_bwd_dq": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_F, _I, _I, _P],
 }
 
 _lib = None

@@ -1,12 +1,14 @@
 """GPT-family model (port of flash_attn_tpu/models/gpt.py ``GPTConfig``,
-``GPTModel``, ``GPTLMHeadModel``) for inference.
+``GPTModel``, ``GPTLMHeadModel``, ``lm_head_weights``).
 
 The configuration carries the JAX package's fields; the port runs the ones
-of the serving slice (rotary, RMSNorm/LayerNorm, gated or plain MLP, GQA,
-tied or untied head, muP scalars) and raises NotImplementedError for the
-rest. Parameters mirror flax's: the Dense and embedding weights in the
-compute type (flax keeps them in fp32 and casts them to it at every call,
-which gives the same values), the norm weights in fp32.
+of the serving and training slices (rotary, RMSNorm/LayerNorm, gated or
+plain MLP, GQA, tied or untied head, muP scalars) and raises
+NotImplementedError for the rest. Parameters mirror flax's values: the
+Dense and embedding weights in the compute type (flax keeps them in fp32
+and casts them to it at every call, which gives the same values), the norm
+weights in fp32. Training keeps fp32 master copies beside them
+(training/trainer.py).
 """
 
 import dataclasses
@@ -24,7 +26,7 @@ from flash_attn_tpu_torch.ops.activations import gelu_approx, sqrelu
 from flash_attn_tpu_torch.ops.norm import layer_norm, rms_norm
 
 __all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "gpt_913m",
-           "load_jax_params"]
+           "jax_param_arrays", "lm_head_weights", "load_jax_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +68,7 @@ class GPTConfig:
     kv_cache_scale: float = 1.0
     context_parallel: bool = False
     sequence_parallel: bool = False
-    remat: bool = False          # training only
+    remat: bool = False          # not ported (raises)
     remat_policy: str = "full"
     dtype: torch.dtype = torch.bfloat16
 
@@ -94,6 +96,7 @@ def _check_ported(cfg: GPTConfig) -> None:
         "kv_cache_dtype": cfg.kv_cache_dtype is not None,
         "context_parallel": cfg.context_parallel,
         "sequence_parallel": cfg.sequence_parallel,
+        "remat (activation rematerialization)": cfg.remat,
     }
     bad = [name for name, on in missing.items() if on]
     if bad:
@@ -186,9 +189,14 @@ class GPTLMHeadModel(nn.Module):
     def new_cache(self) -> List[KVCache]:
         return self.transformer.new_cache()
 
+    def forward_hidden(self, input_ids):
+        """The trunk only: final hidden states (b, s, n_embd) in the compute
+        type, no lm_head (the input of the fused lm_head + CE loss)."""
+        return self.transformer(input_ids, mode="train")
+
     def forward(self, input_ids, mode: str = "train",
                 cache: Optional[List[KVCache]] = None, logits_positions=None):
-        """input_ids (b, s). ``mode`` is "train" (forward only), "prefill"
+        """input_ids (b, s). ``mode`` is "train" (differentiable), "prefill"
         (fills ``cache``, from :meth:`new_cache`) or "decode" (updates it
         in place). ``logits_positions`` (b,) computes the logits only at
         those positions, returning (b, 1, vocab). Logits are fp32, computed
@@ -229,39 +237,59 @@ class GPTLMHeadModel(nn.Module):
                 p.fill_(0.0 if name.endswith("bias") else 1.0)
 
 
-def _t(x):
-    return torch.from_numpy(x.copy())
+def lm_head_weights(model: GPTLMHeadModel):
+    """The lm_head weight as ``(kernel, transpose_kernel)`` for
+    :func:`flash_attn_tpu_torch.ops.cross_entropy.fused_linear_cross_entropy`:
+    logits = hidden @ kernel.T. Tied: the (vocab, d) embedding table; untied:
+    the (vocab, d) Linear weight. Either way transpose_kernel is True (JAX
+    returns the untied Dense kernel as (d, vocab) with False)."""
+    if model.lm_head is None:
+        return model.transformer.word_embeddings.weight, True
+    return model.lm_head.weight, True
+
+
+def jax_param_arrays(model: GPTLMHeadModel, params):
+    """The arrays of a flax GPTLMHeadModel param tree (nested dicts of
+    numpy arrays) by the names of ``model.named_parameters()``, in torch
+    layouts (flax Dense kernels are (in, out), torch Linear weights
+    (out, in)) and with their own values and types. Raises if the two do
+    not name the same parameters."""
+    tr = params["transformer"]
+    out = {"transformer.word_embeddings.weight":
+           tr["embeddings"]["word_embeddings"]["embedding"]}
+
+    def dense(name: str, lin: nn.Linear, p) -> None:
+        out[f"{name}.weight"] = p["kernel"].T
+        if lin.bias is not None:
+            out[f"{name}.bias"] = p["bias"]
+
+    gm = model.transformer
+    for i, block in enumerate(gm.layers):
+        lp, pre = tr[f"layers_{i}"], f"transformer.layers.{i}"
+        for name in ("norm1_weight", "norm2_weight", "norm1_bias", "norm2_bias"):
+            if getattr(block, name) is not None:
+                out[f"{pre}.{name}"] = lp[name]
+        dense(f"{pre}.mixer.Wqkv", block.mixer.Wqkv, lp["mixer"]["Wqkv"])
+        dense(f"{pre}.mixer.out_proj", block.mixer.out_proj,
+              lp["mixer"]["out_proj"])
+        dense(f"{pre}.mlp.fc1", block.mlp.fc1, lp["mlp"]["fc1"])
+        dense(f"{pre}.mlp.fc2", block.mlp.fc2, lp["mlp"]["fc2"])
+    out["transformer.ln_f_weight"] = tr["ln_f_weight"]
+    if gm.ln_f_bias is not None:
+        out["transformer.ln_f_bias"] = tr["ln_f_bias"]
+    if model.lm_head is not None:
+        dense("lm_head", model.lm_head, params["lm_head"])
+    names = {name for name, _ in model.named_parameters()}
+    if names != set(out):
+        raise ValueError(f"param tree and model differ: {names ^ set(out)}")
+    return out
 
 
 @torch.no_grad()
 def load_jax_params(model: GPTLMHeadModel, params) -> GPTLMHeadModel:
     """Fill ``model`` from a flax GPTLMHeadModel param tree given as nested
-    dicts of numpy arrays (flax Dense kernels are (in, out), torch Linear
-    weights (out, in)). Values are cast to each parameter's type."""
-    tr = params["transformer"]
-
-    def put(dst: torch.Tensor, src) -> None:
-        dst.copy_(_t(src).to(dst.dtype))
-
-    def dense(lin: nn.Linear, p) -> None:
-        put(lin.weight, p["kernel"].T)
-        if lin.bias is not None:
-            put(lin.bias, p["bias"])
-
-    gm = model.transformer
-    put(gm.word_embeddings.weight, tr["embeddings"]["word_embeddings"]["embedding"])
-    for i, block in enumerate(gm.layers):
-        lp = tr[f"layers_{i}"]
-        for name in ("norm1_weight", "norm2_weight", "norm1_bias", "norm2_bias"):
-            if getattr(block, name) is not None:
-                put(getattr(block, name), lp[name])
-        dense(block.mixer.Wqkv, lp["mixer"]["Wqkv"])
-        dense(block.mixer.out_proj, lp["mixer"]["out_proj"])
-        dense(block.mlp.fc1, lp["mlp"]["fc1"])
-        dense(block.mlp.fc2, lp["mlp"]["fc2"])
-    put(gm.ln_f_weight, tr["ln_f_weight"])
-    if gm.ln_f_bias is not None:
-        put(gm.ln_f_bias, tr["ln_f_bias"])
-    if model.lm_head is not None:
-        dense(model.lm_head, params["lm_head"])
+    dicts of numpy arrays. Values are cast to each parameter's type."""
+    named = dict(model.named_parameters())
+    for name, arr in jax_param_arrays(model, params).items():
+        named[name].copy_(torch.from_numpy(arr.copy()).to(named[name].dtype))
     return model

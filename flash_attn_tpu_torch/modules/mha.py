@@ -1,7 +1,8 @@
 """Multi-head attention (port of flash_attn_tpu/modules/mha.py ``MHA`` and
 ``RotaryEmbedding``) in three modes:
 
- - ``"train"``: causal or full attention over the sequence, forward only;
+ - ``"train"``: causal or full attention over the sequence, differentiable
+   (the rotary tables are cached constants, not parameters);
  - ``"prefill"``: the same, then the rotated keys and values are written
    into a new linear cache;
  - ``"decode"``: the new token(s) are appended to the cache in place and

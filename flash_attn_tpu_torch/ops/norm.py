@@ -5,8 +5,8 @@
 with the pre-norm sum optionally returned for the residual stream. The
 norm runs in fp32 with fp32 weights and is cast back to x's type; the
 residual sum is taken in fp32 and kept in fp32 when the residual is fp32,
-else in x0's type. Dropout is a training feature: p > 0 raises until the
-training slice lands.
+else in x0's type. Dropout p > 0 raises: the JAX trainer never turns it on
+(its model runs deterministic=True), and it is ROADMAP.md queue A, item 7.
 """
 
 import torch
@@ -38,8 +38,8 @@ def rms_norm(x, weight, eps: float = 1e-6):
 def _add(x0, residual, dropout_p: float, rowscale):
     if dropout_p > 0.0:
         raise NotImplementedError(
-            "dropout_add_*_norm: dropout_p > 0 lands with the training slice "
-            "(ROADMAP.md queue A, item 2)")
+            "dropout_add_*_norm: dropout_p > 0 is not ported yet: dropout "
+            "is ROADMAP.md queue A, item 7 (the JAX trainer runs without it)")
     pre = x0
     if rowscale is not None:
         pre = pre * rowscale[..., None].to(pre.dtype)

@@ -7,7 +7,8 @@ contract: a kernel's output, computed in bf16/fp16, must satisfy
     max|out - ref_fp32| <= 2 * max|ref_lowprec - ref_fp32| + atol
 
 where ``ref_lowprec`` is the same full-matrix attention computed in the
-kernel's precision (``upcast=False``).
+kernel's precision (``upcast=False``). Gradients are held the same way,
+against autograd through the reference (``attention_ref_grads``).
 """
 
 import math
@@ -16,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["attention_ref", "check_against_ref"]
+__all__ = ["attention_ref", "attention_ref_grads", "check_against_ref"]
 
 
 def attention_ref(
@@ -58,6 +59,19 @@ def attention_ref(
     attention = (e / torch.where(denom == 0, 1.0, denom)).to(v.dtype)
     output = torch.einsum("bhts,bshd->bthd", attention, v)
     return output.to(dtype_og), attention.to(dtype_og)
+
+
+def attention_ref_grads(q, k, v, dout, causal: bool = False,
+                        softmax_scale: Optional[float] = None,
+                        upcast: bool = True):
+    """(dq, dk, dv) of sum(attention_ref(q, k, v) * dout) by autograd: the
+    fp32 reference of a backward (``upcast``), or the low-precision one
+    computed in the inputs' type, for :func:`check_against_ref`."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out, _ = attention_ref(*leaves, causal=causal,
+                               softmax_scale=softmax_scale, upcast=upcast)
+        return torch.autograd.grad(out, leaves, dout.to(out.dtype))
 
 
 def check_against_ref(out, out_ref_fp32, out_ref_lowprec, *, mult: float = 2.0,

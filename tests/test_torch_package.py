@@ -76,11 +76,33 @@ def test_flash_attn_with_kvcache_rejects_unported_options(kwargs):
 
 
 def test_gradient_request_raises():
+    """flash_attn_func takes gradients; the decode path still refuses them,
+    as the JAX package has no gradient of a decode step either."""
     q = torch.randn(1, 8, 2, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attn_func(q, q, q, causal=True)
+    out = flash_attn_func(q, q, q, causal=True)
+    out.square().sum().backward()
+    assert q.grad.shape == q.shape and bool(torch.isfinite(q.grad).all())
+    assert q.grad.abs().sum() > 0
+    qd = torch.randn(1, 1, 2, 64, requires_grad=True)
+    cache = torch.zeros(1, 2, 128, 64)
+    with pytest.raises(NotImplementedError, match="queue A, item 3"):
+        flash_attn_with_kvcache(qd, cache, cache, cache_seqlens=4)
     with torch.no_grad():
-        assert flash_attn_func(q, q, q, causal=True).shape == q.shape
+        assert flash_attn_with_kvcache(qd, cache, cache,
+                                       cache_seqlens=4).shape == qd.shape
+
+
+def test_dropout_refusals_point_at_queue_a_7():
+    """The JAX trainer never turns dropout on, so training needs none;
+    dropout (B9) is queue A item 7."""
+    from flash_attn_tpu_torch.ops.norm import dropout_add_rms_norm
+
+    x = torch.randn(2, 3, 8)
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_attn_func(x[..., None, :], x[..., None, :], x[..., None, :],
+                        dropout_p=0.1)
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        dropout_add_rms_norm(x, None, torch.ones(8), dropout_p=0.1)
 
 
 def test_unported_model_options_raise():
@@ -138,3 +160,27 @@ def test_kernels_match_plain_versions_on_the_card(causal):
     ref = ref.reshape(3, 2, 1, 4, 128).permute(0, 2, 1, 3, 4).reshape(3, 1, 8, 128)
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)
     torch.testing.assert_close(lse, ref_lse.reshape(3, 8, 1), atol=1e-4, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_backward_kernels_match_plain_version_on_the_card(causal,
+                                                          deterministic):
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    q, do = randn(2, 4, 200, 128), randn(2, 4, 200, 128)
+    k, v = randn(2, 2, 300, 128), randn(2, 2, 300, 128)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal)
+    got = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
+                                        deterministic=deterministic)
+    ref = flash_bwd.flash_attention_bwd_plain(do, q, k, v, out, lse,
+                                              causal=causal)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(), atol=5e-2, rtol=0)
