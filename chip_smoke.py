@@ -3,12 +3,15 @@
     python3 chip_smoke.py
 
 1. builds the CUDA kernels from flash_attn_tpu_torch/csrc with nvcc
-   (sm_90a) and prints the build time;
+   (sm_90a, one process per source, all at once) and prints the build time;
 2. holds each kernel against its plain PyTorch version at the shapes of the
-   serving and training paths (the repo's 2x rule against an fp32
+   serving, engine and training paths (the repo's 2x rule against an fp32
    reference for out and for dq/dk/dv, an absolute bound for lse), checks
    that the deterministic backward gives the same bits twice, and times
-   kernels and plain versions with CUDA events;
+   kernels, plain versions and, where one PyTorch call computes the same
+   function, that call (scaled_dot_product_attention, a yardstick the port
+   never calls) with CUDA events, beside each kernel's bound (the larger of
+   its bytes over 3.35 TB/s and its flops over 989 TFLOP/s);
 3. calls flash_attn_func(...).backward() at the training shape, once with
    deterministic=True and once with False, and checks each run's launch
    counts and gradients;
@@ -23,7 +26,16 @@
    the launch counts, a finite and falling loss, and the first step's
    fused-CE loss against torch's cross-entropy over full fp32 logits; then
    prints the step time, tokens/s, TFLOP/s, peak memory and a split of one
-   training step's device time (torch.profiler and CUDA events).
+   training step's device time (torch.profiler and CUDA events);
+6. serves the same model through the continuous-batching InferenceEngine
+   over a paged cache at the shape of bench.py's engine trace (64 slots,
+   256-token pages, 96 seeded 512-token prompts arriving 8 at a time, 32
+   new tokens each, decode blocks of 8), then again with prefix caching (64
+   prompts sharing one 256-token page); checks the launch counts per
+   admission and decode block, that every request finishes and every page
+   returns, and that the engine's tokens agree with a teacher-forced static
+   decode of the same prompts; prints tokens/s, TTFT p50/p99 and the device
+   idle share of a decode block.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -31,6 +43,7 @@ launches, errors and times, and as its last line
 without one, and when run outside a checkout of the repo.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -40,7 +53,9 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 FWD_CASES = [  # (b, sq, sk, h, h_k, d, causal); the first is the prefill's
     (8, 512, 512, 16, 16, 128, True),
@@ -71,9 +86,50 @@ DEC_CASES = [  # (b, h, h_k, d, s_max, num_splits); the first is the decode's
     (8, 16, 16, 128, 640, 4),
     (8, 16, 4, 128, 640, 1),
 ]
+PAGED_DEC_CASES = [  # (b, h, h_k, d, page_size, max_len, num_splits); the
+    # first is the engine's decode: 64 slots, pages of 256, lengths 1..560
+    (64, 16, 16, 128, 256, 560, 1),
+    (16, 16, 4, 128, 16, 560, 1),
+    (16, 16, 4, 128, 64, 560, 3),
+]
+VARLEN_CASES = [  # (name, lens_q, lens_k, seqused_q, h, h_k, d, page, dtype,
+    # causal); the first is the prefix-cached admission's: 8 chunks of 256
+    # query tokens over 512 keys
+    ("prefix admission", [256] * 8, [512] * 8, None, 16, 16, 128, 256,
+     torch.bfloat16, True),
+    ("ragged", [300, 17, 128, 64], [812, 17, 400, 264], None, 16, 16, 128,
+     64, torch.bfloat16, True),
+    ("zero-length", [0, 50, 0, 200], [10, 50, 0, 700], None, 16, 16, 128,
+     256, torch.bfloat16, True),
+    ("seqused_q padding", [128] * 4, [384, 77, 0, 517], [128, 77, 0, 5], 16,
+     16, 128, 256, torch.bfloat16, True),
+    ("GQA 16/4", [256] * 4, [512] * 4, None, 16, 4, 128, 16, torch.bfloat16,
+     True),
+    ("d=64", [100, 200], [300, 200], None, 8, 8, 64, 64, torch.bfloat16,
+     False),
+    ("fp16", [256, 256], [600, 256], None, 16, 4, 128, 256, torch.float16,
+     True),
+]
 # lse is fp32 in the kernel and in the plain version, from the same bf16
 # inputs; they differ only in summation order (|scores| <~ 20 here).
 LSE_ATOL = 1e-3
+# The card's published peaks (H100 SXM, dense, at the 700 W limit): what a
+# kernel's bound divides by.
+PEAK_FLOPS = 989e12   # bf16 / fp16 tensor cores
+PEAK_BYTES = 3.35e12  # HBM3
+# The engine phases: bench.py bench_engine's trace (bench.py:493-541) with
+# max_decode_seqlen cut to what 512 + 32 tokens need.
+ENGINE_SLOTS, ENGINE_PAGE, ENGINE_MAX_LEN = 64, 256, 560
+ENGINE_PROMPT, ENGINE_NEW, ENGINE_REQUESTS, ENGINE_ARRIVAL = 512, 32, 96, 8
+ENGINE_BLOCK = 8
+PREFIX_REQUESTS, PREFIX_SHARED = 64, 256
+# Share of the engine's tokens that must be the argmax of a teacher-forced
+# static decode's logits over the same tokens (bf16 through other kernels
+# and matmul shapes; teacher forcing keeps one near-tie from cascading,
+# while a wrong page, offset or rotary position breaks agreement
+# everywhere). Where they differ, the engine's token must be within
+# LOGIT_BOUND of the top logit.
+MIN_ENGINE_AGREEMENT = 0.95
 PROMPT, NEW_TOKENS, BATCH = 512, 32, 8
 # Decode step logits against the teacher-forced forward over the same
 # tokens: both are bf16 all the way, through different kernels and matmul
@@ -97,6 +153,26 @@ MIN_LOSS_DROP = 0.5
 # full fp32 logits of a no-grad forward of the same weights and batch:
 # the same bf16 trunk and lm_head matmul, summed in other orders.
 CE_LOSS_ATOL = 2e-3
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for work of ``flops`` operations
+    over ``nbytes`` of device memory traffic, and which of the two binds."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attended_pairs(lens_q, lens_k, causal: bool) -> int:
+    """(query row, key) pairs that attention computes for these lengths,
+    bottom-right causal when ``causal``."""
+    total = 0
+    for lq, lk in zip(lens_q, lens_k):
+        if causal:
+            total += int(np.clip(np.arange(lq) + lk - lq + 1, 0, lk).sum())
+        else:
+            total += lq * lk
+    return total
 
 
 def require(ok: bool, what: str) -> None:
@@ -174,9 +250,19 @@ def check_fwd(gen):
                 qt, kt, vt, causal=causal))
             plain_ms = time_ms(lambda: flash_fwd.flash_attention_fwd_plain(
                 qt, kt, vt, causal=causal))
-            timing = (ms, plain_ms)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+            pairs = b * attended_pairs([sq], [sk], causal)
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library_call": "scaled_dot_product_attention(is_causal"
+                                      "=True)",
+                      **bound(4 * h * d * pairs,
+                              2 * (2 * b * sq * h * d + 2 * b * sk * h_k * d)
+                              + 4 * b * h * sq)}
             print(f"flash_fwd time at the prefill shape: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms (median of 25)")
+                  f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+                  f"{lib_ms:.4f} ms (median of 25); bound "
+                  f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
     return worst, timing
 
 
@@ -221,9 +307,169 @@ def check_decode(gen):
             plain_ms = time_ms(
                 lambda: flash_decode.flash_attention_decode_partials_plain(
                     q, kc, vc, seqlens, splits, DECODE_BLOCK_K, scale, True))
-            timing = (ms, plain_ms)
+            qh, mask = q.transpose(1, 2), keep[:, None, None, :]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kc, vc, attn_mask=mask))
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library_call": "scaled_dot_product_attention with a "
+                                      "boolean length mask over the linear "
+                                      "cache",
+                      **decode_bound(seqlens, b, h, h_k, d, splits, 0)}
             print(f"flash_decode time at the decode shape: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms (median of 25)")
+                  f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+                  f"{lib_ms:.4f} ms (median of 25); bound "
+                  f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    return worst, timing
+
+
+def decode_bound(seqlens, b, h, h_k, d, splits, table_entries):
+    """Bound of one decode call (sq = 1, bf16): every cached K and V row
+    read once, q read, the fp32 split partials and the lengths (and the
+    block table) read or written once."""
+    keys = int(seqlens.sum())
+    return bound(4 * h * d * keys,
+                 2 * 2 * keys * h_k * d + 2 * b * h * d
+                 + 4 * splits * b * h * (d + 1) + 4 * (b + table_entries))
+
+
+def paged_cache(gen, b, h_k, d, page_size, max_len, dtype):
+    """Random pages for b sequences of up to max_len positions, in a shuffled
+    block table (page 0, the null page, owned by none)."""
+    width = -(-max_len // page_size)
+    kp, vp = (torch.randn(b * width + 1, h_k, page_size, d, device="cuda",
+                          generator=gen).to(dtype) for _ in range(2))
+    table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+             ).reshape(b, width).to(torch.int32)
+    return kp, vp, table
+
+
+def check_decode_paged(gen):
+    """The paged decode kernel against its plain version at the engine's
+    decode shape and at pages of 16 and 64 with GQA 16/4."""
+    from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    worst, timing = 0.0, None
+    for b, h, h_k, d, page, max_len, splits in PAGED_DEC_CASES:
+        kp, vp, table = paged_cache(gen, b, h_k, d, page, max_len,
+                                    torch.bfloat16)
+        q = torch.randn(b, 1, h, d, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        seqlens = torch.linspace(1, max_len, b, device="cuda").round().to(
+            torch.int32)
+        out, lse = flash_decode.flash_attention_decode(
+            q, kp, vp, seqlens, causal=True, num_splits=splits,
+            block_table=table)
+        ref, ref_lse = flash_decode.flash_attention_decode(
+            q.float().cpu(), kp.float().cpu(), vp.float().cpu(),
+            seqlens.cpu(), causal=True, num_splits=splits,
+            block_table=table.cpu())
+        k_lin, v_lin = (paged_to_linear(x, table, seqlens).transpose(1, 2)
+                        for x in (kp, vp))
+        keep = torch.arange(k_lin.shape[1], device="cuda")[None] \
+            < seqlens[:, None]
+        ref_lp, _ = attention_ref(q, k_lin, v_lin, key_padding_mask=keep,
+                                  upcast=False)
+        torch.cuda.synchronize()
+        case = (f"b={b} h={h} h_k={h_k} d={d} page={page} lengths "
+                f"1..{max_len} num_splits={splits}")
+        err, err_lp = check_against_ref(out, ref, ref_lp,
+                                        msg=f"flash_decode_paged {case}")
+        lse_err = (lse.cpu() - ref_lse).abs().max().item()
+        require(lse_err <= LSE_ATOL, f"paged decode lse error {lse_err}")
+        worst = max(worst, err)
+        print(f"flash_decode_paged {case}: out max abs err {err:.3e} (bf16 "
+              f"reference {err_lp:.3e}), lse max abs err {lse_err:.3e}")
+        if timing is None:
+            scale = d ** -0.5
+            ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+                q, kp, vp, seqlens, splits, scale, True, block_table=table))
+            plain_ms = time_ms(
+                lambda: flash_decode.flash_attention_decode_paged_partials_plain(
+                    q, kp, vp, seqlens, table, splits, DECODE_BLOCK_K, scale,
+                    True))
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "library_call": "none: no single PyTorch call reads K/V "
+                                      "through a block table (a gather first)",
+                      **decode_bound(seqlens, b, h, h_k, d, splits,
+                                     table.numel())}
+            print(f"flash_decode_paged time at the engine's decode shape: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
+                  f"25); bound {timing['bound_ms']:.4f} ms "
+                  f"({timing['bound_by']})")
+    return worst, timing
+
+
+def check_varlen_paged(gen):
+    """The packed-varlen prefill kernel over the paged cache against its
+    plain version on the cases of VARLEN_CASES."""
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_varlen_paged_ref,
+        check_against_ref,
+    )
+
+    worst, timing = 0.0, None
+    for name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal in \
+            VARLEN_CASES:
+        b = len(lens_q)
+        cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                          dtype=torch.int32, device="cuda")
+        q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(
+            dtype)
+        kp, vp, table = paged_cache(gen, b, h_k, d, page, max(max(lens_k), 1),
+                                    dtype)
+        seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+        seqused = (None if used is None else
+                   torch.tensor(used, dtype=torch.int32, device="cuda"))
+        max_q = max(max(lens_q), 1)
+        args = (cu, max_q, seqlens_k, table)
+        out, lse = fvp.flash_attention_varlen_paged_fwd(
+            q, kp, vp, *args, seqused_q=seqused, causal=causal)
+        ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+            q.float(), kp.float(), vp.float(), *args, seqused_q=seqused,
+            causal=causal)
+        ref_lp = attention_varlen_paged_ref(
+            q, kp, vp, cu, seqlens_k, table, seqused_q=seqused,
+            causal=causal, upcast=False)
+        torch.cuda.synchronize()
+        case = (f"{name}: lens_q {lens_q} lens_k {lens_k} seqused_q {used} "
+                f"h={h} h_k={h_k} d={d} page={page} {str(dtype)[6:]} "
+                f"causal={causal}")
+        err, err_lp = check_against_ref(out, ref, ref_lp,
+                                        msg=f"flash_varlen_paged {case}")
+        fin = torch.isfinite(ref_lse)
+        require(torch.equal(torch.isfinite(lse), fin),
+                f"flash_varlen_paged {case}: rows without keys differ")
+        lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() \
+            if fin.any() else 0.0
+        require(lse_err <= LSE_ATOL, f"varlen paged lse error {lse_err}")
+        worst = max(worst, err)
+        print(f"flash_varlen_paged {case}: out max abs err {err:.3e} "
+              f"(low-precision reference {err_lp:.3e}), lse max abs err "
+              f"{lse_err:.3e}")
+        if timing is None:
+            ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd(
+                q, kp, vp, *args, seqused_q=seqused, causal=causal))
+            plain_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
+                q, kp, vp, *args, seqused_q=seqused, causal=causal))
+            total_q = int(cu[-1])
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "library_call": "none: no single PyTorch call reads K/V "
+                                      "through a block table (a gather first)",
+                      **bound(4 * h * d * attended_pairs(
+                          used or lens_q, lens_k, causal),
+                          2 * 2 * total_q * h * d
+                          + 2 * 2 * sum(lens_k) * h_k * d + 4 * h * total_q)}
+            print(f"flash_varlen_paged time at the prefix-admission shape: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
+                  f"25); bound {timing['bound_ms']:.4f} ms "
+                  f"({timing['bound_by']})")
     return worst, timing
 
 
@@ -285,11 +531,30 @@ def check_bwd(gen):
             fused_ms = time_ms(bwd(False), runs=10)
             plain_ms = time_ms(lambda: flash_bwd.flash_attention_bwd_plain(
                 dot, qt, kt, vt, out, lse, causal=causal), runs=10)
-            timing = {"flash_bwd": (ms, plain_ms),
-                      "flash_bwd_fused": (fused_ms, plain_ms)}
+            # the yardstick: the backward of scaled_dot_product_attention,
+            # its forward (and graph) made outside the timed window
+            leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves,
+                                                      is_causal=causal)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                sdpa_out, leaves, dot, retain_graph=True), runs=10)
+            del sdpa_out, leaves
+            # 5 products (S, dV, dP, dQ, dK) over the attended pairs; q, k,
+            # v, out, dout read and dq, dk, dv written once, lse read
+            common = {"plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library_call": "scaled_dot_product_attention(is_causal"
+                                      "=True) backward (torch.autograd.grad)",
+                      **bound(10 * b * h * d * attended_pairs([sq], [sk],
+                                                              causal),
+                              2 * (4 * b * sq * h * d + 4 * b * sk * h_k * d)
+                              + 4 * b * h * sq)}
+            timing = {"flash_bwd": {"ms": ms, **common},
+                      "flash_bwd_fused": {"ms": fused_ms, **common}}
             print(f"backward time at the training shape ({case}): "
                   f"deterministic {ms:.4f} ms, fused {fused_ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms (median of 10)")
+                  f"{plain_ms:.4f} ms, scaled_dot_product_attention backward "
+                  f"{lib_ms:.4f} ms (median of 10); bound "
+                  f"{common['bound_ms']:.4f} ms ({common['bound_by']})")
     return worst, timing
 
 
@@ -418,6 +683,249 @@ def run_slice(gen):
     t_full = wall(full, 3)
     tok_s = BATCH * steps / (t_full - ttft)
     return launches, ttft, tok_s
+
+
+def engine_model():
+    """The 913M GPT over the engine's page pool (64 slots x 3 pages of 256
+    + the null page), random weights from a seed, bf16."""
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel, gpt_913m
+
+    width = -(-ENGINE_MAX_LEN // ENGINE_PAGE)
+    cfg = dataclasses.replace(
+        gpt_913m(max_decode_seqlen=ENGINE_MAX_LEN),
+        paged_kv_num_pages=ENGINE_SLOTS * width + 1,
+        paged_kv_page_size=ENGINE_PAGE)
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(2))
+    model.requires_grad_(False)
+    return model
+
+
+def kernel_counts():
+    from flash_attn_tpu_torch.kernels import (
+        flash_decode,
+        flash_fwd,
+        flash_varlen_paged,
+    )
+
+    return {"flash_fwd": flash_fwd.launches,
+            "flash_decode": flash_decode.launches,
+            "flash_decode_paged": flash_decode.launches_paged,
+            "flash_varlen_paged": flash_varlen_paged.launches}
+
+
+def reset_kernel_counts():
+    from flash_attn_tpu_torch.kernels import (
+        flash_decode,
+        flash_fwd,
+        flash_varlen_paged,
+    )
+
+    flash_fwd.launches = flash_decode.launches = 0
+    flash_decode.launches_paged = flash_varlen_paged.launches = 0
+
+
+def run_engine(model, prompts, prefix_cache: bool, card: str):
+    """Serve ``prompts`` through an InferenceEngine over the paged cache,
+    submitted ENGINE_ARRIVAL at a time whenever the queue is empty (the
+    closed-loop trace of bench.py:516-541). The kernel counts are set to 0
+    just before the trace and read just after; returns them with the
+    generated tokens and the measurements."""
+    from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
+    from flash_attn_tpu_torch.serving.generation import GenerationConfig
+
+    cfg = model.config
+    width = -(-ENGINE_MAX_LEN // ENGINE_PAGE)
+    pool = PagePool(cfg.paged_kv_num_pages, ENGINE_PAGE, width, ENGINE_SLOTS)
+    eng = InferenceEngine(model, ENGINE_SLOTS, GenerationConfig(top_k=1),
+                          page_pool=pool,
+                          max_admit_tokens=ENGINE_ARRIVAL * ENGINE_PROMPT,
+                          decode_block_size=ENGINE_BLOCK,
+                          prefix_cache=prefix_cache)
+    t0 = time.perf_counter()
+    if not prefix_cache:
+        eng.warmup(prefill_shapes=[(ENGINE_ARRIVAL, ENGINE_PROMPT)])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    calls = {"prefill": 0, "decode_block": 0}
+
+    def counted(name, fn):
+        def run(*args):
+            calls[name] += 1
+            return fn(*args)
+        return run
+
+    eng._prefill = counted("prefill", eng._prefill)
+    eng._decode_block_fn = counted("decode_block", eng._decode_block_fn)
+
+    submit_t, first_t, ids = {}, {}, []
+    total_tokens, nxt = 0, 0
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    while True:
+        if nxt < len(prompts) and not eng.queue:
+            for p in prompts[nxt:nxt + ENGINE_ARRIVAL]:
+                rid = eng.submit(p, max_new_tokens=ENGINE_NEW)
+                submit_t[rid] = time.perf_counter()
+                ids.append(rid)
+            nxt += ENGINE_ARRIVAL
+        if nxt >= len(prompts) and not eng.queue and eng._pending is None \
+                and all(r is None for r in eng.slots):
+            break
+        emitted = eng.step()
+        now = time.perf_counter()
+        total_tokens += len(emitted)
+        for rid, _tok in emitted:
+            first_t.setdefault(rid, now)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = kernel_counts()
+    # back to the class's methods: the counting closures would hold the
+    # engine (and the model) in a reference cycle past close()
+    del eng._prefill, eng._decode_block_fn
+    tokens = [eng.requests[r].generated for r in ids]
+    ttfts = sorted(first_t[r] - submit_t[r] for r in ids)
+    name = "prefix-cache engine" if prefix_cache else "paged engine"
+    print(f"{name}: {len(prompts)} requests, {calls['prefill']} admission "
+          f"prefills, {calls['decode_block']} decode blocks of "
+          f"{ENGINE_BLOCK}; launches {launches}; stats {eng.stats()}")
+    n = cfg.n_layer
+    want = {"flash_fwd": 0 if prefix_cache else n * calls["prefill"],
+            "flash_decode": 0,
+            "flash_decode_paged": n * ENGINE_BLOCK * calls["decode_block"],
+            "flash_varlen_paged": n * calls["prefill"] if prefix_cache else 0}
+    require(launches == want, f"{name} launch counts {launches}, want {want}")
+    require(all(len(t) == ENGINE_NEW for t in tokens),
+            f"{name}: a request did not finish with {ENGINE_NEW} tokens")
+    require(len(pool.free) + len(pool.retained)
+            == cfg.paged_kv_num_pages - 1 and not pool.rc,
+            f"{name}: pages did not return to the pool")
+    if prefix_cache:
+        require(eng.prefix_hit_pages >= len(prompts) - ENGINE_ARRIVAL,
+                f"prefix hits {eng.prefix_hit_pages}")
+    else:
+        require(len(pool.free) == cfg.paged_kv_num_pages - 1,
+                f"{name}: free pages {len(pool.free)}")
+    result = {"tokens_per_s": total_tokens / elapsed,
+              "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
+              "ttft_p99_ms": ttfts[int(len(ttfts) * 0.99)] * 1e3,
+              "trace_s": elapsed, "warmup_s": warm_s}
+    print(f"{name}: {total_tokens} tokens in {elapsed:.3f} s, "
+          f"{result['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{result['ttft_p50_ms']:.1f} ms p99 {result['ttft_p99_ms']:.1f} ms "
+          f"(warm-up {warm_s:.1f} s) on {card}")
+    if not prefix_cache:
+        result.update(decode_block_idle(eng, prompts, card))
+    eng.close()
+    return launches, tokens, result
+
+
+def decode_block_idle(eng, prompts, card):
+    """Wall time and device time of one decode block with all slots busy
+    (contexts of 512 + a few tokens): the device's idle share of a block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.reset()
+    eng.max_admit_tokens = None  # one admission of every slot
+    for p in prompts[:ENGINE_SLOTS]:
+        eng.submit(p, max_new_tokens=ENGINE_NEW)
+    eng.step()
+    require(all(r is not None for r in eng.slots), "slots left idle")
+    toks = eng._upload(eng.slot_tok).long()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._decode_block_fn(toks)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._decode_block_fn(toks)
+        torch.cuda.synchronize()
+    dev_ms = sum(evt.device_time_total for evt in prof.key_averages()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    attn_ms = sum(evt.device_time_total for evt in prof.key_averages()
+                  if evt.device_type == torch.autograd.DeviceType.CUDA
+                  and "decode_kernel" in evt.key) / 1e3
+    idle = 1.0 - dev_ms / wall_ms
+    print(f"decode block of {ENGINE_BLOCK} steps at {ENGINE_SLOTS} busy slots: "
+          f"wall {wall_ms:.2f} ms, device {dev_ms:.2f} ms (paged decode "
+          f"kernel {attn_ms:.2f} ms), device idle share {idle:.3f} on {card}")
+    return {"block_wall_ms": wall_ms, "block_device_ms": dev_ms,
+            "block_attention_ms": attn_ms, "block_idle_share": idle}
+
+
+def engine_agreement(model, prompts, tokens, name):
+    """Hold the engine's tokens against a teacher-forced static decode of
+    the same prompts on the linear cache, in batches of 8: each token the
+    argmax of the static decode's logits at >= MIN_ENGINE_AGREEMENT of the
+    positions, and within LOGIT_BOUND of the top logit everywhere."""
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    lin = GPTLMHeadModel(dataclasses.replace(model.config,
+                                             paged_kv_num_pages=0),
+                         device="cuda")
+    lin.load_state_dict(model.state_dict(), assign=True)
+    agree = total = 0
+    gap = 0.0
+    for i in range(0, len(prompts), BATCH):
+        ids = torch.as_tensor(np.stack(prompts[i:i + BATCH]), device="cuda",
+                              dtype=torch.long)
+        gen = torch.as_tensor(tokens[i:i + BATCH], device="cuda",
+                              dtype=torch.long)
+        seqs = torch.cat([ids, gen], 1)
+        _, _, scores = decode(ids, lin, GenerationConfig(
+            max_length=seqs.shape[1]), output_scores=True,
+            teacher_outputs=seqs)                # (new tokens, b, vocab)
+        require(bool(torch.isfinite(scores).all()),
+                f"{name}: non-finite teacher-forced logits")
+        want = gen.T
+        agree += int((scores.argmax(-1) == want).sum())
+        total += want.numel()
+        tok_logit = scores.gather(-1, want[..., None])[..., 0]
+        gap = max(gap, float((scores.max(-1).values - tok_logit).max()))
+    share = agree / total
+    print(f"{name} vs teacher-forced static decode: argmax agreement "
+          f"{share:.4f} over {total} tokens (bound {MIN_ENGINE_AGREEMENT}); "
+          f"largest top-logit gap of an engine token {gap:.4f} (bound "
+          f"{LOGIT_BOUND})")
+    require(share >= MIN_ENGINE_AGREEMENT and gap <= LOGIT_BOUND,
+            f"{name}: tokens disagree with the teacher-forced decode")
+    return share, gap
+
+
+def run_engines(card):
+    """The paged engine on bench.py's trace, then the prefix-cached engine
+    over shared-prefix prompts; returns the launch counts of each run and
+    their measurements."""
+    model = engine_model()
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = list(rng.integers(0, vocab, (ENGINE_REQUESTS, ENGINE_PROMPT),
+                                dtype=np.int64))
+    t0 = time.perf_counter()
+    launches, tokens, paged = run_engine(model, prompts, False, card)
+    paged["agreement"], paged["logit_gap"] = engine_agreement(
+        model, prompts, tokens, "paged engine")
+    print(f"paged engine phase wall time {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    shared = rng.integers(0, vocab, PREFIX_SHARED, dtype=np.int64)
+    px_prompts = [np.concatenate([shared, rng.integers(
+        0, vocab, ENGINE_PROMPT - PREFIX_SHARED, dtype=np.int64)])
+        for _ in range(PREFIX_REQUESTS)]
+    t0 = time.perf_counter()
+    px_launches, px_tokens, prefix = run_engine(model, px_prompts, True, card)
+    prefix["agreement"], prefix["logit_gap"] = engine_agreement(
+        model, px_prompts, px_tokens, "prefix-cache engine")
+    print(f"prefix-cache engine phase wall time {time.perf_counter() - t0:.1f}"
+          f" s")
+    del model
+    torch.cuda.empty_cache()
+    return launches, paged, px_launches, prefix
 
 
 def write_token_file(path: str, vocab: int) -> None:
@@ -647,48 +1155,67 @@ def main() -> int:
           f"{lib.relative_to(_build.BUILD_DIR.parent.parent)}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    fwd_err, (fwd_ms, fwd_plain_ms) = check_fwd(gen)
-    dec_err, (dec_ms, dec_plain_ms) = check_decode(gen)
-    bwd_err, bwd_timing = check_bwd(gen)
-    api_launches = run_api_backward(gen)
-    torch.cuda.empty_cache()
-    launches, ttft, tok_s = run_slice(gen)
+    phases = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    fwd_err, fwd_t = phase("forward kernel checks", check_fwd, gen)
+    dec_err, dec_t = phase("decode kernel checks", check_decode, gen)
+    pdec_err, pdec_t = phase("paged decode kernel checks", check_decode_paged,
+                             gen)
+    vp_err, vp_t = phase("varlen-paged kernel checks", check_varlen_paged, gen)
+    bwd_err, bwd_timing = phase("backward kernel checks", check_bwd, gen)
+    api_launches = phase("flash_attn_func backward", run_api_backward, gen)
+    launches, ttft, tok_s = phase("static serving", run_slice, gen)
     print(f"time to first token (b={BATCH}, prompt {PROMPT}, median of 5): "
           f"{ttft * 1e3:.2f} ms; decode {tok_s:.1f} tokens/s at b={BATCH} "
           f"({NEW_TOKENS - 1} steps) on {card}")
-    torch.cuda.empty_cache()
-    train_launches, train = run_training()
+    eng_launches, paged, px_launches, prefix = phase("engines", run_engines,
+                                                     card)
+    print(f"paged engine (64 slots, {ENGINE_REQUESTS} x {ENGINE_PROMPT}-token "
+          f"prompts + {ENGINE_NEW} new): {paged['tokens_per_s']:.1f} tokens/s,"
+          f" TTFT p50 {paged['ttft_p50_ms']:.1f} ms, p99 "
+          f"{paged['ttft_p99_ms']:.1f} ms; prefix-cache engine "
+          f"({PREFIX_REQUESTS} prompts sharing {PREFIX_SHARED} tokens): "
+          f"{prefix['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{prefix['ttft_p50_ms']:.1f} ms, p99 {prefix['ttft_p99_ms']:.1f} ms"
+          f" on {card}")
+    train_launches, train = phase("training", run_training)
     print(f"training step (median of steps {TRAIN_WARM + 1}-{TRAIN_STEPS}): "
           f"{train['step_ms']:.1f} ms; {train['tokens_per_s']:.0f} tokens/s; "
           f"{train['tflops_per_s']:.1f} TFLOP/s (model_flops_per_token); peak "
           f"memory {train['peak_gb']:.2f} GB (max_memory_allocated) on {card}")
+    print("phase wall times: " + ", ".join(
+        f"{name} {sec:.1f} s" for name, sec in phases.items()))
+
+    def entry(name, source, replaces, n, err, timing):
+        return {"name": name, "route": "cuda",
+                "source": f"flash_attn_tpu_torch/csrc/{source}",
+                "replaces": f"flash_attn_tpu/kernels/{replaces}",
+                "launches": n, "max_abs_err": err, **timing}
+
     print(json.dumps({"kernels": [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "flash_attn_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "flash_attn_tpu/kernels/flash_fwd.py:59",
-         "launches": launches["flash_fwd"], "max_abs_err": fwd_err,
-         "ms": fwd_ms, "plain_ms": fwd_plain_ms},
-        {"name": "flash_decode", "route": "cuda",
-         "source": "flash_attn_tpu_torch/csrc/flash_decode.cu",
-         "replaces": "flash_attn_tpu/kernels/flash_decode.py:54",
-         "launches": launches["flash_decode"], "max_abs_err": dec_err,
-         "ms": dec_ms, "plain_ms": dec_plain_ms},
-        {"name": "flash_bwd", "route": "cuda",
-         "source": "flash_attn_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "flash_attn_tpu/kernels/flash_bwd.py:181",
-         "launches": train_launches["fa_bwd_dkdv"]
-         + train_launches["fa_bwd_dq"],
-         "max_abs_err": bwd_err["flash_bwd"],
-         "ms": bwd_timing["flash_bwd"][0],
-         "plain_ms": bwd_timing["flash_bwd"][1]},
-        {"name": "flash_bwd_fused", "route": "cuda",
-         "source": "flash_attn_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "flash_attn_tpu/kernels/flash_bwd_fused.py:64",
-         "launches": api_launches[False]["flash_bwd_fused"],
-         "max_abs_err": bwd_err["flash_bwd_fused"],
-         "ms": bwd_timing["flash_bwd_fused"][0],
-         "plain_ms": bwd_timing["flash_bwd_fused"][1]},
-    ]}))
+        entry("flash_fwd", "flash_fwd.cu", "flash_fwd.py:59",
+              launches["flash_fwd"], fwd_err, fwd_t),
+        entry("flash_decode", "flash_decode.cu", "flash_decode.py:54",
+              launches["flash_decode"], dec_err, dec_t),
+        entry("flash_decode_paged", "flash_decode.cu", "flash_decode.py:54",
+              eng_launches["flash_decode_paged"], pdec_err, pdec_t),
+        entry("flash_varlen_paged", "flash_varlen_paged.cu",
+              "flash_varlen_paged.py:69", px_launches["flash_varlen_paged"],
+              vp_err, vp_t),
+        entry("flash_bwd", "flash_bwd.cu", "flash_bwd.py:181",
+              train_launches["fa_bwd_dkdv"] + train_launches["fa_bwd_dq"],
+              bwd_err["flash_bwd"], bwd_timing["flash_bwd"]),
+        entry("flash_bwd_fused", "flash_bwd.cu", "flash_bwd_fused.py:64",
+              api_launches[False]["flash_bwd_fused"],
+              bwd_err["flash_bwd_fused"], bwd_timing["flash_bwd_fused"]),
+    ], "engines": {"paged": paged, "prefix_cache": prefix}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,14 @@ struct Elem<__half> {
   }
 };
 
+// Element offset of 16-byte chunk `chunk` of row `row` in a [rows][D] shared
+// tile, XOR-swizzled so that 8 consecutive rows put one logical chunk in 8
+// different bank groups (ldmatrix reads free of bank conflicts).
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * D + ((chunk ^ (row & 7)) << 3);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

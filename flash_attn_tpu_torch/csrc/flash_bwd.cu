@@ -87,11 +87,6 @@ struct BwdParams {
   int causal;
 };
 
-template <int D>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
-}
-
 // Copy rows [row0, row0 + ROWS) of one (batch, head) slice into a swizzled
 // shared tile; rows at or past `nrows` are zero-filled.
 template <typename T, int D, int ROWS>
@@ -108,7 +103,7 @@ __device__ __forceinline__ void load_tile(T* tile, const T* base,
     const int gr = row0 + r;
     const bool ok = gr < nrows;
     const T* src = ok ? base + (int64_t)gr * row_stride + ch * 8 : base;
-    fa::cp_async_16(fa::smem_addr(tile + swz<D>(r, ch)), src, ok ? 16 : 0);
+    fa::cp_async_16(fa::smem_addr(tile + fa::swz<D>(r, ch)), src, ok ? 16 : 0);
   }
 }
 
@@ -117,7 +112,7 @@ template <typename T, int D>
 __device__ __forceinline__ void frag_a(uint32_t* r, const T* tile, int m0,
                                        int k0, int lane) {
   const int row = m0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  fa::ldmatrix_x4(r, fa::smem_addr(tile + swz<D>(row, (k0 >> 3) + (lane >> 4))));
+  fa::ldmatrix_x4(r, fa::smem_addr(tile + fa::swz<D>(row, (k0 >> 3) + (lane >> 4))));
 }
 
 // B operands of the two n8 blocks n0..n0+15 at depth k0 of a tile stored
@@ -126,7 +121,7 @@ template <typename T, int D>
 __device__ __forceinline__ void frag_b(uint32_t* r, const T* tile, int n0,
                                        int k0, int lane) {
   const int row = n0 + (lane & 7) + (lane >> 4) * 8;
-  fa::ldmatrix_x4(r, fa::smem_addr(tile + swz<D>(row, (k0 >> 3) + ((lane >> 3) & 1))));
+  fa::ldmatrix_x4(r, fa::smem_addr(tile + fa::swz<D>(row, (k0 >> 3) + ((lane >> 3) & 1))));
 }
 
 // The same two B operands from a tile stored [k][n].
@@ -134,7 +129,7 @@ template <typename T, int D>
 __device__ __forceinline__ void frag_b_trans(uint32_t* r, const T* tile, int k0,
                                              int n0, int lane) {
   const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  fa::ldmatrix_x4_trans(r, fa::smem_addr(tile + swz<D>(row, (n0 >> 3) + (lane >> 4))));
+  fa::ldmatrix_x4_trans(r, fa::smem_addr(tile + fa::swz<D>(row, (n0 >> 3) + (lane >> 4))));
 }
 
 // A operand (16 x 16 at rows m0, depth k0) of a padded tile stored [k][m].

@@ -1,10 +1,10 @@
-// Split-KV decode attention over a linear KV cache for Hopper (sm_90a),
-// bf16 / fp16, head dim 64 or 128.
+// Split-KV decode attention over a linear or a paged KV cache for Hopper
+// (sm_90a), bf16 / fp16, head dim 64 or 128.
 //
 // Replaces the TPU kernel flash_attn_tpu/kernels/flash_decode.py:_decode_kernel
-// (linear cache, causal or not, GQA, any num_splits >= 1). The split
-// partials are merged by combine_splits in kernels/flash_decode.py, as the
-// JAX package merges them outside its kernel.
+// (linear and paged cache, causal or not, GQA, any num_splits >= 1). The
+// split partials are merged by combine_splits in kernels/flash_decode.py, as
+// the JAX package merges them outside its kernel.
 //
 // What bounds it on this card: a decode step has one (or a few) query rows
 // per head, so every cached key and value is read once and used for
@@ -25,8 +25,23 @@
 // shared memory across warps. Each block writes a normalised fp32 partial
 // out and lse for its split.
 //
+// The paged cache (num_pages, h_k, page_size, d) replaces the paged branch
+// of the same TPU kernel, which DMAs whole pages of a (b, max_pages) block
+// table into VMEM. Here each key position j resolves on its own, inside the
+// load, to row j % page_size of page table[b, j / page_size], so any page
+// size works (16 to 256 in the engine) and a block needs no staging buffer.
+// What bounds it is the same as for the linear cache: the K and V bytes of
+// each key, read once (2 * h_k * d * 2 bytes a key), plus one 4-byte table
+// read per key and lane that the L1 cache serves. Split boundaries stay on
+// DECODE_BLOCK_K tiles of positions, so paged and linear decode sum in the
+// same order. Left for later: TMA page copies into a
+// shared-memory ring (one per page instead of a 16-byte load per lane),
+// tensor-core products for the GQA group, and a persistent schedule.
+//
 // Masking is that of flash_decode.py for causal decode: with sk the cache
 // length after the append, query row t sees key positions <= t + sk - sq.
+// A length past the cache's capacity (s_max, or max_pages * page_size) is
+// cut to it; the caller poisons such rows.
 
 #include "common.cuh"
 
@@ -38,15 +53,18 @@ constexpr int DEC_UNROLL = 4;
 
 struct DecodeParams {
   const void* q;        // (b, sq, h, d) by strides
-  const void* kc;       // (b_c, h_k, s_max, d) by strides
+  const void* kc;       // (b_c, h_k, s_max, d) or pages (P, h_k, page_size, d)
   const void* vc;
   const int* seqlens;   // (b,) cache length after the append
+  const int* table;     // (b, table_width) page ids, paged cache only
   float* out_p;         // (num_splits, b, h_k, rows, d)
   float* lse_p;         // (num_splits, b, h_k, rows)
   int64_t q_sb, q_ss, q_sh;
-  int64_t k_sb, k_sh, k_ss;
+  int64_t k_sb, k_sh, k_ss;  // k_sb: the page stride for the paged cache
   int64_t v_sb, v_sh, v_ss;
+  int64_t t_sb;
   int b, sq, h_k, group, rows, num_splits, block_k;
+  int page_size, table_width, num_pages, cap;
   float scale_log2;
   int causal;
 };
@@ -69,8 +87,21 @@ __device__ __forceinline__ void merge_coeffs(float m, float m2, float& a,
   b2 = exp2f(m2 - ms);
 }
 
+// Element offset of key position `key`, at the lane's slice of the head
+// dim, from the start of the cache: row `key` of the batch row's linear
+// cache, or row key % page_size of the page the table names.
+template <bool PAGED>
+__device__ __forceinline__ int64_t key_offset(const DecodeParams& p, int bb,
+                                              int key, int64_t sb, int64_t ss) {
+  if (!PAGED) return bb * sb + key * ss;
+  const int col = key / p.page_size;
+  const int pg = min(max(p.table[bb * p.t_sb + min(col, p.table_width - 1)], 0),
+                     p.num_pages - 1);
+  return pg * sb + (key - col * p.page_size) * ss;
+}
+
 // RM: query rows held per block (grid.z covers rows beyond RM).
-template <typename T, int D, int RM>
+template <typename T, int D, int RM, bool PAGED>
 __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams p) {
   constexpr int LPK = D / 8;           // lanes per key, 8 elements each
   constexpr int KPW = 32 / LPK;        // keys per warp per load
@@ -93,7 +124,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
 
   // This split's key range: the cache is cut into block_k tiles and the
   // tiles are shared out in contiguous runs, as the TPU kernel does.
-  const int sk = p.seqlens[bb];
+  const int sk = min(p.seqlens[bb], p.cap);
   const int tiles = (sk + p.block_k - 1) / p.block_k;
   const int kps = (tiles + p.num_splits - 1) / p.num_splits;
   const int k_lo = min(sk, split * kps * p.block_k);
@@ -131,8 +162,8 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
     for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
   }
 
-  const T* kbase = reinterpret_cast<const T*>(p.kc) + bb * p.k_sb + kh * p.k_sh + dl * 8;
-  const T* vbase = reinterpret_cast<const T*>(p.vc) + bb * p.v_sb + kh * p.v_sh + dl * 8;
+  const T* kbase = reinterpret_cast<const T*>(p.kc) + kh * p.k_sh + dl * 8;
+  const T* vbase = reinterpret_cast<const T*>(p.vc) + kh * p.v_sh + dl * 8;
 
   for (int base = k_lo; base < k_hi; base += KEYS_PER_ITER) {
     uint4 kr[DEC_UNROLL], vr[DEC_UNROLL];
@@ -141,8 +172,10 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
     for (int u = 0; u < DEC_UNROLL; ++u) {
       key[u] = base + u * KEYS_PER_STEP + warp * KPW + kg;
       if (key[u] < k_hi) {
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(kbase + key[u] * p.k_ss));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(vbase + key[u] * p.v_ss));
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(
+            kbase + key_offset<PAGED>(p, bb, key[u], p.k_sb, p.k_ss)));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(
+            vbase + key_offset<PAGED>(p, bb, key[u], p.v_sb, p.v_ss)));
       } else {
         kr[u] = make_uint4(0, 0, 0, 0);
         vr[u] = make_uint4(0, 0, 0, 0);
@@ -230,7 +263,10 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
 template <typename T, int D, int RM>
 cudaError_t launch_rm(const DecodeParams& p, cudaStream_t stream) {
   dim3 grid(p.b * p.h_k, p.num_splits, (p.rows + RM - 1) / RM);
-  decode_kernel<T, D, RM><<<grid, DEC_THREADS, 0, stream>>>(p);
+  if (p.table != nullptr)
+    decode_kernel<T, D, RM, true><<<grid, DEC_THREADS, 0, stream>>>(p);
+  else
+    decode_kernel<T, D, RM, false><<<grid, DEC_THREADS, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -244,24 +280,35 @@ cudaError_t launch(const DecodeParams& p, cudaStream_t stream) {
 
 }  // namespace
 
-// Returns a cudaError_t (0 on success).
+// table == nullptr reads a linear cache (page_size, table_width, num_pages
+// and t_sb unused); otherwise kc/vc are pages and k_sb/v_sb their page
+// strides. cap is the cache's capacity in positions. Returns a cudaError_t
+// (0 on success).
 extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
-                         const int* seqlens, float* out_p, float* lse_p, int b,
-                         int sq, int h, int h_k, int d, int num_splits,
-                         int block_k, int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                         int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
-                         int64_t v_sh, int64_t v_ss, float scale_log2,
-                         int causal, int is_bf16, void* stream) {
+                         const int* seqlens, const int* table, float* out_p,
+                         float* lse_p, int b, int sq, int h, int h_k, int d,
+                         int num_splits, int block_k, int page_size,
+                         int table_width, int num_pages, int cap, int64_t q_sb,
+                         int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_sh,
+                         int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
+                         int64_t t_sb, float scale_log2, int causal,
+                         int is_bf16, void* stream) {
   DecodeParams p;
   p.q = q;
   p.kc = kc;
   p.vc = vc;
   p.seqlens = seqlens;
+  p.table = table;
   p.out_p = out_p;
   p.lse_p = lse_p;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.t_sb = t_sb;
+  p.page_size = page_size;
+  p.table_width = table_width;
+  p.num_pages = num_pages;
+  p.cap = cap;
   p.b = b;
   p.sq = sq;
   p.h_k = h_k;

@@ -54,14 +54,6 @@ struct FwdParams {
   int causal;
 };
 
-// Element offset of 16-byte chunk `chunk` of row `row` in a [rows][D] tile,
-// XOR-swizzled so that 8 consecutive rows put one logical chunk in 8
-// different bank groups.
-template <int D>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
-}
-
 // Copy rows [row0, row0 + 64) of one (batch, head) slice into a swizzled
 // shared tile; rows at or past `nrows` are zero-filled.
 template <typename T, int D>
@@ -78,7 +70,7 @@ __device__ __forceinline__ void load_tile(T* tile, const T* base,
     const int gr = row0 + r;
     const bool ok = gr < nrows;
     const T* src = ok ? base + (int64_t)gr * row_stride + ch * 8 : base;
-    fa::cp_async_16(fa::smem_addr(tile + swz<D>(r, ch)), src, ok ? 16 : 0);
+    fa::cp_async_16(fa::smem_addr(tile + fa::swz<D>(r, ch)), src, ok ? 16 : 0);
   }
 }
 
@@ -122,7 +114,7 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int r = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    fa::ldmatrix_x4(qa[kk], fa::smem_addr(Qs + swz<D>(r, kk * 2 + (lane >> 4))));
+    fa::ldmatrix_x4(qa[kk], fa::smem_addr(Qs + fa::swz<D>(r, kk * 2 + (lane >> 4))));
   }
 
   float o[D / 8][4];
@@ -151,7 +143,7 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
       for (int np = 0; np < BN / 16; ++np) {
         uint32_t kb[4];
         const int r = np * 16 + (lane & 7) + (lane >> 4) * 8;
-        fa::ldmatrix_x4(kb, fa::smem_addr(Ks + swz<D>(r, kk * 2 + ((lane >> 3) & 1))));
+        fa::ldmatrix_x4(kb, fa::smem_addr(Ks + fa::swz<D>(r, kk * 2 + ((lane >> 3) & 1))));
         E::mma(s[2 * np], qa[kk], kb[0], kb[1]);
         E::mma(s[2 * np + 1], qa[kk], kb[2], kb[3]);
       }
@@ -220,7 +212,7 @@ __global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t vb[4];
         const int r = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        fa::ldmatrix_x4_trans(vb, fa::smem_addr(Vs + swz<D>(r, dp * 2 + (lane >> 4))));
+        fa::ldmatrix_x4_trans(vb, fa::smem_addr(Vs + fa::swz<D>(r, dp * 2 + (lane >> 4))));
         E::mma(o[2 * dp], pa, vb[0], vb[1]);
         E::mma(o[2 * dp + 1], pa, vb[2], vb[3]);
       }

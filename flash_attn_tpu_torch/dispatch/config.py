@@ -52,7 +52,28 @@ def get_bwd_config(head_dim: int) -> Tuple[BwdConfig, BwdConfig]:
 # Split granularity of csrc/flash_decode.cu and of its plain version: a
 # split's share of the cache is a run of 64-key tiles (one pass of the
 # kernel's 4 warps' unrolled loads at head dim 128).
+#
+# The paged cache keeps this tile whatever the page size. The TPU kernel
+# sizes its KV tile from the page (flash_decode.py:484-489: pages_per_tile
+# pages of a ~512-row target, so that each DMA moves a whole page), because
+# a TPU tile is one DMA'd slab. The CUDA kernel resolves every key position
+# through the block table inside its 16-byte loads, so a tile may start and
+# end inside a page: page 16, 64 or 256 all split on 64-key tiles, and
+# paged decode sums in the same order as linear decode.
 DECODE_BLOCK_K = 64
+
+# Tile of csrc/flash_varlen_paged.cu (the packed-varlen prefill over the
+# paged cache): 64 query rows of one sequence by 64 keys, the tile of the
+# dense forward kernel whose loop it reuses. The JAX function picks
+# bq = min(512, next_pow2(max(max_seqlen_q, 128))) and bk = page_size *
+# min(8, 1024 // page_size) (flash_varlen_paged.py:369-376) to fill its
+# 128 x 128 matrix unit with tall tiles from a large VMEM and to move whole
+# pages per DMA. On the H100 a block of 4 warps holds 64 rows in mma.sync
+# fragments within the register budget, and small tiles give the 132 SMs
+# enough blocks: an admission of 8 chunks of 256 rows at 16 heads is 512
+# blocks. The K/V tile does not follow the page either: its rows load one
+# by one through the table, so any page size fits a 64-key tile.
+VARLEN_PAGED_TILE = FwdConfig(block_q=64, block_k=64)
 
 
 def normalize_window(

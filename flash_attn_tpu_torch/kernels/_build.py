@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 All ``csrc/*.cu`` files are compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The library lands in
+with a plain C interface, loaded with ``ctypes``: one ``nvcc`` process per
+source, all started together, then one link. The library lands in
 ``flash_attn_tpu_torch/build/`` under a name keyed by a hash of the sources,
 so an unchanged tree does not rebuild. Nothing here runs at import: the
 first CUDA call of a kernel wrapper calls :func:`load_library`.
@@ -28,7 +29,8 @@ _F = ctypes.c_float
 # c_void_p: ctypes would otherwise pass them as 32-bit ints).
 SIGNATURES = {
     "fa_fwd": [_P] * 5 + [_I] * 8 + [_L] * 12 + [_F, _I, _I, _P],
-    "fa_decode": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_F, _I, _I, _P],
+    "fa_decode": [_P] * 7 + [_I] * 11 + [_L] * 10 + [_F, _I, _I, _P],
+    "fa_varlen_paged": [_P] * 10 + [_I] * 10 + [_L] * 11 + [_F, _I, _I, _P],
     "fa_bwd_dkdv": [_P] * 9 + [_I] * 8 + [_L] * 18 + [_F, _I, _I, _I, _P],
     "fa_bwd_dq": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_F, _I, _I, _P],
 }
@@ -60,22 +62,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfa_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output once all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    objs = BUILD_DIR / f"{out.stem}.{os.getpid()}.objs"
+    objs.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    obj_files = [objs / f"{src.stem}.o" for src in cu]
+    _run_all([[nvcc, *flags, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(cu, obj_files)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp), *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, obj_files)]])
     os.replace(tmp, out)
+    shutil.rmtree(objs, ignore_errors=True)
     return out
 
 

@@ -1,9 +1,12 @@
-"""Split-KV decode attention over a linear cache: the CUDA kernel
-``csrc/flash_decode.cu``, its plain PyTorch version, and ``combine_splits``.
+"""Split-KV decode attention over a linear or a paged cache: the CUDA
+kernel ``csrc/flash_decode.cu``, its plain PyTorch version, and
+``combine_splits``.
 
 Port of flash_attn_tpu/kernels/flash_decode.py ``flash_attention_decode``
-(linear cache, causal or not, GQA, ``num_splits`` >= 1). The cache keeps
-the JAX layout (b_c, h_k, s_max, d). Each split writes an fp32 partial
+(linear and paged cache, causal or not, GQA, ``num_splits`` >= 1). The
+caches keep the JAX layouts: linear (b_c, h_k, s_max, d), paged (num_pages,
+h_k, page_size, d) with a (b, max_pages) int32 block table; a paged row's
+capacity is max_pages * page_size positions. Each split writes an fp32 partial
 (out, lse) for the sq * group query rows of one KV head (the GQA row
 packing of the TPU kernel); ``combine_splits`` merges them with torch ops,
 as the JAX package merges them outside its kernel. A tensor on the CPU
@@ -20,10 +23,22 @@ from flash_attn_tpu_torch.dispatch.config import (
     KERNEL_HEAD_DIMS,
 )
 from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
 LOG2E = math.log2(math.e)
 
-launches = 0  # kernel launches since the last reset (plain calls not counted)
+# Kernel launches since the last reset, over a linear and over a paged
+# cache (plain calls not counted).
+launches = 0
+launches_paged = 0
+
+
+def cache_capacity(k_cache, block_table=None) -> int:
+    """Positions a batch row's cache holds: s_max, or max_pages *
+    page_size for a paged cache."""
+    if block_table is None:
+        return k_cache.shape[2]
+    return block_table.shape[1] * k_cache.shape[2]
 
 
 def _split_bounds(cache_seqlens, num_splits: int, block_k: int):
@@ -48,7 +63,7 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
     kf = k_cache[:b].float()
     vf = v_cache[:b].float()
     s = torch.matmul(qp, kf.transpose(-1, -2)) * softmax_scale  # (b,h_k,R,S)
-    sk = cache_seqlens.long()
+    sk = cache_seqlens.long().clamp(max=s_max)  # the kernel cuts at capacity
     pos = torch.arange(s_max, device=q.device)
     tok = torch.arange(rows, device=q.device) // group
     if causal:
@@ -70,14 +85,32 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
     return torch.stack(outs), torch.stack(lses)
 
 
+def flash_attention_decode_paged_partials_plain(
+        q, k_pages, v_pages, cache_seqlens, block_table, num_splits: int,
+        block_k: int, softmax_scale: float, causal: bool):
+    """The paged cache's plain version: gather the pages into the linear
+    layout, then :func:`flash_attention_decode_partials_plain`."""
+    cap = cache_capacity(k_pages, block_table)
+    lengths = cache_seqlens.long().clamp(max=cap)
+    return flash_attention_decode_partials_plain(
+        q, paged_to_linear(k_pages, block_table, lengths),
+        paged_to_linear(v_pages, block_table, lengths), cache_seqlens,
+        num_splits, block_k, softmax_scale, causal)
+
+
 def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
                                     num_splits: int, softmax_scale: float,
-                                    causal: bool):
+                                    causal: bool, block_table=None):
     """Split partials of decode attention; see
     :func:`flash_attention_decode_partials_plain` for the shapes.
     ``cache_seqlens`` (b,) int32 are the cache lengths after any append;
-    cache row i serves batch row i."""
+    cache row i (or block-table row i) serves batch row i."""
+    paged = block_table is not None
     if q.device.type == "cpu":
+        if paged:
+            return flash_attention_decode_paged_partials_plain(
+                q, k_cache, v_cache, cache_seqlens, block_table, num_splits,
+                DECODE_BLOCK_K, softmax_scale, causal)
         return flash_attention_decode_partials_plain(
             q, k_cache, v_cache, cache_seqlens, num_splits, DECODE_BLOCK_K,
             softmax_scale, causal)
@@ -91,13 +124,20 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
         raise ValueError(
             f"flash_decode kernel: head dims q {d}, cache {dk}, "
             f"v {v_cache.shape[-1]}; needs equal dims in {KERNEL_HEAD_DIMS}")
-    if b > b_c or h % h_k or b * h_k > 2**31 - 1 or num_splits > 65535:
+    if ((not paged and b > b_c) or h % h_k or b * h_k > 2**31 - 1
+            or num_splits > 65535):
         raise ValueError(f"flash_decode kernel: shapes q {tuple(q.shape)}, "
                          f"cache {tuple(k_cache.shape)}, splits {num_splits}")
-    if (cache_seqlens.device != q.device or cache_seqlens.dtype != torch.int32
-            or cache_seqlens.shape != (b,) or not cache_seqlens.is_contiguous()):
+    for name, x in (("cache_seqlens", cache_seqlens),
+                    ("block_table", block_table)):
+        if x is not None and (x.device != q.device or x.dtype != torch.int32
+                              or x.shape[0] != b or x.stride(-1) != 1):
+            raise ValueError(
+                f"flash_decode kernel: {name} must be int32 on q's device "
+                f"with a row per batch row and a contiguous last dim")
+    if not cache_seqlens.is_contiguous() or cache_seqlens.dim() != 1:
         raise ValueError("flash_decode kernel: cache_seqlens must be a "
-                         "contiguous (b,) int32 tensor on q's device")
+                         "contiguous (b,) tensor")
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _build.check_operand("flash_decode", name, x, q.dtype, q.device)
     rows = sq * (h // h_k)
@@ -109,34 +149,46 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     with torch.cuda.device(q.device):
         err = lib.fa_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cache_seqlens.data_ptr(), out_p.data_ptr(), lse_p.data_ptr(),
+            cache_seqlens.data_ptr(),
+            block_table.data_ptr() if paged else None,
+            out_p.data_ptr(), lse_p.data_ptr(),
             b, sq, h, h_k, d, num_splits, DECODE_BLOCK_K,
+            s_max if paged else 0, block_table.shape[1] if paged else 0,
+            b_c if paged else 0, cache_capacity(k_cache, block_table),
             q.stride(0), q.stride(1), q.stride(2),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+            block_table.stride(0) if paged else 0,
             softmax_scale * LOG2E, int(causal),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_decode")
-    global launches
-    launches += 1
+    global launches, launches_paged
+    if paged:
+        launches_paged += 1
+    else:
+        launches += 1
     return out_p, lse_p
 
 
 def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
                            softmax_scale: Optional[float] = None,
-                           causal: bool = False, num_splits: int = 1):
-    """q (b, sq, h, d); caches (b_c, h_k, s_max, d); cache_seqlens (b,)
-    int32 cache lengths after any append. Returns (out (b, sq, h, d) in q's
-    type, lse (b, h, sq) fp32)."""
+                           causal: bool = False, num_splits: int = 1,
+                           block_table=None):
+    """q (b, sq, h, d); caches (b_c, h_k, s_max, d), or pages (num_pages,
+    h_k, page_size, d) with ``block_table`` (b, max_pages) int32;
+    cache_seqlens (b,) int32 cache lengths after any append. Returns (out
+    (b, sq, h, d) in q's type, lse (b, h, sq) fp32)."""
     b, sq, h, d = q.shape
-    h_k, s_max = k_cache.shape[1], k_cache.shape[2]
+    h_k = k_cache.shape[1]
     group = h // h_k
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
-    num_splits = max(1, min(num_splits, -(-s_max // DECODE_BLOCK_K)))
+    cap = cache_capacity(k_cache, block_table)
+    num_splits = max(1, min(num_splits, -(-cap // DECODE_BLOCK_K)))
     out_p, lse_p = flash_attention_decode_partials(
-        q, k_cache, v_cache, cache_seqlens, num_splits, softmax_scale, causal)
+        q, k_cache, v_cache, cache_seqlens, num_splits, softmax_scale, causal,
+        block_table=block_table)
     if num_splits == 1:
         out, lse = out_p[0], lse_p[0]
     else:

@@ -1,0 +1,168 @@
+"""Packed-varlen prefill over a paged KV cache: the CUDA kernel
+``csrc/flash_varlen_paged.cu`` and its plain PyTorch version.
+
+Port of flash_attn_tpu/kernels/flash_varlen_paged.py
+``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims 64 and 128, no
+window, softcap, descales, learnable sink or ``qv``). Query chunks are
+packed along one token axis by ``cu_seqlens_q``; ``seqused_q`` gives each
+sequence's true length when the layout pads every slot to one length (the
+padded-flat layout of the engine's prefix-cached prefill). The JAX function
+gathers q into a tile-aligned copy and walks a flat work list; here the
+wrapper builds a (tile, 2) array of (sequence, first local row) with torch
+ops, no host sync, and the kernel reads q and writes out in the packed
+layout directly. A tensor on the CPU takes the plain version; a CUDA tensor
+launches the kernel or raises.
+"""
+
+import math
+from typing import Optional
+
+import torch
+
+from flash_attn_tpu_torch.dispatch.config import (
+    KERNEL_HEAD_DIMS,
+    VARLEN_PAGED_TILE,
+)
+from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.utils.testing import paged_to_linear
+
+LOG2E = math.log2(math.e)
+
+launches = 0  # kernel launches since the last reset (plain calls not counted)
+
+
+def _lengths(cu_seqlens_q, seqused_q):
+    """(addressed rows per sequence, true query rows per sequence)."""
+    lens_addr = cu_seqlens_q[1:] - cu_seqlens_q[:-1]
+    return lens_addr, lens_addr if seqused_q is None else seqused_q
+
+
+def flash_attention_varlen_paged_fwd_plain(
+        q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
+        block_table, seqused_q=None, softmax_scale: Optional[float] = None,
+        causal: bool = False):
+    """Gather the pages into the linear layout, pad the packed queries per
+    sequence, and compute masked attention in fp32. Returns out (total_q, h,
+    dv) in q's type and lse (h, total_q) fp32, with zeros and -inf for the
+    rows that see no key."""
+    total_q, h, d = q.shape
+    h_k = k_pages.shape[1]
+    group = h // h_k
+    dev = q.device
+    scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
+    cu = cu_seqlens_q.to(dev, torch.long)
+    lens_addr, lens_q = _lengths(cu, None if seqused_q is None
+                                 else seqused_q.to(dev, torch.long))
+    lens_k = seqlens_k.to(dev, torch.long)
+    k_lin = paged_to_linear(k_pages, block_table, lens_k).float()
+    v_lin = paged_to_linear(v_pages, block_table, lens_k).float()
+    # (b, max_seqlen_q) packed row of each padded query row
+    pos_q = torch.arange(max_seqlen_q, device=dev)
+    rows = (cu[:-1, None] + pos_q[None]).clamp(0, max(total_q - 1, 0))
+    qd = q.float()[rows] if total_q else q.float().new_zeros(
+        rows.shape + (h, d))
+    qd = qd.reshape(-1, max_seqlen_q, h_k, group, d).permute(0, 2, 3, 1, 4)
+    s = torch.einsum("bkgmd,bksd->bkgms", qd, k_lin) * scale
+    pos_k = torch.arange(k_lin.shape[2], device=dev)
+    valid = (pos_q[None, :, None] < lens_q[:, None, None]) \
+        & (pos_k[None, None, :] < lens_k[:, None, None])
+    if causal:
+        shift = (lens_k - lens_q)[:, None, None]
+        valid = valid & (pos_k[None, None, :] <= pos_q[None, :, None] + shift)
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                        # (b, h_k, g, M)
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
+    out = torch.einsum("bkgms,bksd->bmkgd", p, v_lin).reshape(
+        -1, max_seqlen_q, h, v_pages.shape[-1])
+    lse = lse.reshape(-1, h, max_seqlen_q)
+    # back to the packed layout: token t is row t - cu[s] of its sequence s
+    tok = torch.arange(total_q, device=dev)
+    seq = torch.searchsorted(cu[1:], tok, right=True).clamp(max=cu.numel() - 2)
+    loc = tok - cu[seq]
+    live = loc < torch.minimum(lens_addr[seq],
+                               torch.full_like(loc, max_seqlen_q))
+    loc = loc.clamp(0, max_seqlen_q - 1)
+    out_p = torch.where(live[:, None, None], out[seq, loc], 0.0).to(q.dtype)
+    lse_p = torch.where(live[None], lse[seq, :, loc].T, float("-inf"))
+    return out_p, lse_p
+
+
+def varlen_tiles(cu_seqlens_q, max_seqlen_q: int, block_q: int):
+    """The kernel's work list: (b * ceil(max_seqlen_q / block_q), 2) int32
+    of (sequence, first local row) per query tile, sequence -1 past the last
+    tile of the batch. Built with torch ops on cu_seqlens_q's device."""
+    b = cu_seqlens_q.numel() - 1
+    cu = cu_seqlens_q.long()
+    ntiles = (cu[1:] - cu[:-1] + block_q - 1) // block_q
+    ends = torch.cumsum(ntiles, 0)
+    nq = b * -(-max_seqlen_q // block_q)
+    tidx = torch.arange(nq, device=cu.device)
+    seq = torch.searchsorted(ends, tidx, right=True).clamp(max=b - 1)
+    first = (tidx - (ends[seq] - ntiles[seq])) * block_q
+    seq = torch.where(tidx < ends[-1], seq, -1)
+    return torch.stack([seq, first], 1).to(torch.int32).contiguous()
+
+
+def flash_attention_varlen_paged_fwd(
+        q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
+        block_table, seqused_q=None, softmax_scale: Optional[float] = None,
+        causal: bool = False):
+    """q (total_q, h, d) packed by cu_seqlens_q (b + 1,); pages (num_pages,
+    h_k, page_size, d); seqlens_k (b,) key counts including the chunk;
+    block_table (b, max_pages); seqused_q (b,) true query lengths or None.
+    ``max_seqlen_q`` bounds cu_seqlens_q's deltas. Returns (out (total_q, h,
+    d) in q's type, lse (h, total_q) fp32)."""
+    if q.device.type == "cpu":
+        return flash_attention_varlen_paged_fwd_plain(
+            q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q, seqlens_k,
+            block_table, seqused_q, softmax_scale, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_varlen_paged: unsupported device {q.device}")
+    total_q, h, d = q.shape
+    num_pages, h_k, page_size, dk = k_pages.shape
+    b = cu_seqlens_q.numel() - 1
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"flash_varlen_paged kernel: dtype {q.dtype} "
+                         "(bf16/fp16 only)")
+    if d not in KERNEL_HEAD_DIMS or dk != d or v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"flash_varlen_paged kernel: head dims q {d}, k {dk}, v "
+            f"{v_pages.shape[-1]}; needs equal dims in {KERNEL_HEAD_DIMS}")
+    if h % h_k or h > 65535 or block_table.shape[0] != b or b < 1:
+        raise ValueError(f"flash_varlen_paged kernel: shapes q {tuple(q.shape)}"
+                         f", pages {tuple(k_pages.shape)}, table "
+                         f"{tuple(block_table.shape)}, {b} sequences")
+    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        _build.check_operand("flash_varlen_paged", name, x, q.dtype, q.device)
+
+    def as_int32(x):
+        return x.to(q.device, torch.int32).contiguous()
+
+    cu = as_int32(cu_seqlens_q)
+    _, lens_q = _lengths(cu, None if seqused_q is None else as_int32(seqused_q))
+    lens_q, lens_k, table = (as_int32(x) for x in (lens_q, seqlens_k,
+                                                   block_table))
+    tile = VARLEN_PAGED_TILE
+    tiles = varlen_tiles(cu, max_seqlen_q, tile.block_q)
+    scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
+    out = torch.zeros_like(q)
+    lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
+                     device=q.device)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.fa_varlen_paged(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            cu.data_ptr(), lens_q.data_ptr(), lens_k.data_ptr(),
+            table.data_ptr(), tiles.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            tiles.shape[0], total_q, h, h_k, d, page_size, table.shape[1],
+            num_pages, tile.block_q, tile.block_k,
+            q.stride(0), q.stride(1),
+            k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+            v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
+            out.stride(0), out.stride(1), table.stride(0),
+            scale * LOG2E, int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fa_varlen_paged")
+    global launches
+    launches += 1
+    return out, lse

@@ -2,9 +2,9 @@
 ``GPTModel``, ``GPTLMHeadModel``, ``lm_head_weights``).
 
 The configuration carries the JAX package's fields; the port runs the ones
-of the serving and training slices (rotary, RMSNorm/LayerNorm, gated or
-plain MLP, GQA, tied or untied head, muP scalars) and raises
-NotImplementedError for the rest. Parameters mirror flax's values: the
+of the serving, training and engine slices (rotary, RMSNorm/LayerNorm,
+gated or plain MLP, GQA, tied or untied head, muP scalars, the paged
+cache) and raises NotImplementedError for the rest. Parameters mirror flax's values: the
 Dense and embedding weights in the compute type (flax keeps them in fp32
 and casts them to it at every call, which gives the same values), the norm
 weights in fp32. Training keeps fp32 master copies beside them
@@ -24,6 +24,7 @@ from flash_attn_tpu_torch.modules.mha import MHA, KVCache
 from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
 from flash_attn_tpu_torch.ops.activations import gelu_approx, sqrelu
 from flash_attn_tpu_torch.ops.norm import layer_norm, rms_norm
+from flash_attn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "gpt_913m",
            "jax_param_arrays", "lm_head_weights", "load_jax_params"]
@@ -92,8 +93,8 @@ def _check_ported(cfg: GPTConfig) -> None:
         "window_size": tuple(cfg.window_size) != (-1, -1),
         "softcap": cfg.softcap > 0.0,
         "norm_head": cfg.norm_head,
-        "paged_kv_num_pages": cfg.paged_kv_num_pages > 0,
-        "kv_cache_dtype": cfg.kv_cache_dtype is not None,
+        "kv_cache_dtype (quantized caches, ROADMAP.md queue A item 7)":
+            cfg.kv_cache_dtype is not None,
         "context_parallel": cfg.context_parallel,
         "sequence_parallel": cfg.sequence_parallel,
         "remat (activation rematerialization)": cfg.remat,
@@ -134,7 +135,9 @@ def _make_mixer(cfg: GPTConfig, device):
         rotary_emb_dim=int(head_dim * cfg.rotary_emb_fraction),
         rotary_emb_base=cfg.rotary_emb_base,
         rotary_emb_interleaved=cfg.rotary_emb_interleaved,
-        max_decode_seqlen=cfg.max_decode_seqlen, dtype=cfg.dtype,
+        max_decode_seqlen=cfg.max_decode_seqlen,
+        paged_kv_num_pages=cfg.paged_kv_num_pages,
+        paged_kv_page_size=cfg.paged_kv_page_size, dtype=cfg.dtype,
         device=device)
 
 
@@ -142,6 +145,7 @@ class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         _check_ported(config)
+        device = resolve_device(device)
         cfg = self.config = config
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.n_embd,
                                             dtype=cfg.dtype, device=device)
@@ -159,8 +163,18 @@ class GPTModel(nn.Module):
         """Empty per-layer decode state, filled by a prefill."""
         return [KVCache() for _ in self.layers]
 
+    def allocate_cache(self, n_slots: int) -> List[KVCache]:
+        """Zeroed per-layer caches for ``n_slots`` sequences, made up front
+        (the serving engine's; the counterpart of the JAX engine's
+        _init_cache, engine.py:467-484): linear (n_slots, h_k, s_alloc, d),
+        or the page pool (paged_kv_num_pages, h_k, page_size, d) of a paged
+        configuration; the offsets (n_slots,) of every slot."""
+        return [block.mixer.allocate_cache(n_slots) for block in self.layers]
+
     def forward(self, input_ids, mode: str = "train",
-                cache: Optional[List[KVCache]] = None):
+                cache: Optional[List[KVCache]] = None, **mixer_kwargs):
+        """``mixer_kwargs`` go to every layer's MHA: slot_ids,
+        prefill_lengths, prefix_lengths, block_table."""
         cfg = self.config
         hidden = self.word_embeddings(input_ids)
         if cfg.mup_embeddings_multiplier != 1.0:
@@ -168,7 +182,8 @@ class GPTModel(nn.Module):
         residual = None
         for i, block in enumerate(self.layers):
             hidden, residual = block(hidden, residual, mode=mode,
-                                     cache=None if cache is None else cache[i])
+                                     cache=None if cache is None else cache[i],
+                                     **mixer_kwargs)
         if residual is not None:
             hidden = (hidden.float() + residual.float()).to(cfg.dtype)
         if cfg.use_rms_norm:
@@ -179,7 +194,11 @@ class GPTModel(nn.Module):
 
 class GPTLMHeadModel(nn.Module):
     def __init__(self, config: GPTConfig, device=None):
+        """``device`` defaults to the CUDA card and raises without one;
+        ``device="cpu"`` runs the kernels' plain versions."""
         super().__init__()
+        _check_ported(config)
+        device = resolve_device(device)
         self.config = config
         self.transformer = GPTModel(config, device=device)
         self.lm_head = (None if config.tie_word_embeddings else nn.Linear(
@@ -189,20 +208,32 @@ class GPTLMHeadModel(nn.Module):
     def new_cache(self) -> List[KVCache]:
         return self.transformer.new_cache()
 
+    def allocate_cache(self, n_slots: int) -> List[KVCache]:
+        return self.transformer.allocate_cache(n_slots)
+
     def forward_hidden(self, input_ids):
         """The trunk only: final hidden states (b, s, n_embd) in the compute
         type, no lm_head (the input of the fused lm_head + CE loss)."""
         return self.transformer(input_ids, mode="train")
 
     def forward(self, input_ids, mode: str = "train",
-                cache: Optional[List[KVCache]] = None, logits_positions=None):
+                cache: Optional[List[KVCache]] = None, logits_positions=None,
+                slot_ids=None, prefill_lengths=None, prefix_lengths=None,
+                block_table=None):
         """input_ids (b, s). ``mode`` is "train" (differentiable), "prefill"
-        (fills ``cache``, from :meth:`new_cache`) or "decode" (updates it
-        in place). ``logits_positions`` (b,) computes the logits only at
-        those positions, returning (b, 1, vocab). Logits are fp32, computed
-        in the compute type."""
+        (fills ``cache``, from :meth:`new_cache` or :meth:`allocate_cache`)
+        or "decode" (updates it in place). ``logits_positions`` (b,)
+        computes the logits only at those positions, returning (b, 1,
+        vocab). Logits are fp32, computed in the compute type. The serving
+        engine's ``slot_ids``, ``prefill_lengths``, ``prefix_lengths`` and
+        ``block_table`` go to every layer's MHA (see
+        :meth:`flash_attn_tpu_torch.modules.mha.MHA.forward`)."""
         cfg = self.config
-        hidden = self.transformer(input_ids, mode=mode, cache=cache)
+        kw = {name: val for name, val in (
+            ("slot_ids", slot_ids), ("prefill_lengths", prefill_lengths),
+            ("prefix_lengths", prefix_lengths), ("block_table", block_table))
+            if val is not None}
+        hidden = self.transformer(input_ids, mode=mode, cache=cache, **kw)
         if logits_positions is not None:
             idx = logits_positions.to(hidden.device, torch.long)
             hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device),

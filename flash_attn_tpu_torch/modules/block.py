@@ -12,6 +12,7 @@ from flash_attn_tpu_torch.ops.norm import (
     dropout_add_layer_norm,
     dropout_add_rms_norm,
 )
+from flash_attn_tpu_torch.utils.device import resolve_device
 
 
 class Block(nn.Module):
@@ -19,6 +20,7 @@ class Block(nn.Module):
                  prenorm: bool = True, use_rms_norm: bool = False,
                  norm_epsilon: float = 1e-5, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.mixer = mixer
         self.mlp = mlp
         self.prenorm = prenorm
@@ -38,19 +40,21 @@ class Block(nn.Module):
             self.norm2_bias = param(0.0)
 
     def forward(self, hidden_states, residual=None, mode: str = "train",
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None, **mixer_kwargs):
         """Returns (hidden_states, residual); the residual is None in the
-        post-norm form."""
+        post-norm form. ``mixer_kwargs`` (the serving engine's slot_ids,
+        prefill_lengths, prefix_lengths, block_table) go to the mixer."""
         norm = dropout_add_rms_norm if self.use_rms_norm else dropout_add_layer_norm
         eps = self.norm_epsilon
         if self.prenorm:
             normed, residual = norm(hidden_states, residual, self.norm1_weight,
                                     self.norm1_bias, epsilon=eps, prenorm=True)
-            attn_out = self.mixer(normed, mode=mode, cache=cache)
+            attn_out = self.mixer(normed, mode=mode, cache=cache, **mixer_kwargs)
             normed2, residual = norm(attn_out, residual, self.norm2_weight,
                                      self.norm2_bias, epsilon=eps, prenorm=True)
             return self.mlp(normed2), residual
-        attn_out = self.mixer(hidden_states, mode=mode, cache=cache)
+        attn_out = self.mixer(hidden_states, mode=mode, cache=cache,
+                              **mixer_kwargs)
         hidden_states = norm(attn_out, hidden_states, self.norm1_weight,
                              self.norm1_bias, epsilon=eps)
         mlp_out = self.mlp(hidden_states)

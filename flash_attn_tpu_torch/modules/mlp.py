@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from flash_attn_tpu_torch.ops.activations import gelu_approx, swiglu
+from flash_attn_tpu_torch.utils.device import resolve_device
 
 
 class Mlp(nn.Module):
@@ -16,6 +17,7 @@ class Mlp(nn.Module):
                  activation: Callable = gelu_approx, bias1: bool = True,
                  bias2: bool = True, dtype=torch.bfloat16, device=None):
         super().__init__()
+        device = resolve_device(device)
         out_features = out_features or in_features
         self.activation = activation
         self.fc1 = nn.Linear(in_features, hidden_features, bias=bias1,
@@ -37,6 +39,7 @@ class GatedMlp(nn.Module):
                  bias2: bool = False, multiple_of: int = 128,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
+        device = resolve_device(device)
         out_features = out_features or in_features
         hidden = -(-hidden_features // multiple_of) * multiple_of
         self.activation = activation

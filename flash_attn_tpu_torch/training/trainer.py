@@ -38,6 +38,7 @@ import torch
 from flash_attn_tpu_torch.models.gpt import (
     GPTConfig,
     GPTLMHeadModel,
+    _check_ported,
     jax_param_arrays,
     lm_head_weights,
 )
@@ -45,6 +46,7 @@ from flash_attn_tpu_torch.ops.cross_entropy import (
     cross_entropy_loss,
     fused_linear_cross_entropy,
 )
+from flash_attn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["TrainConfig", "Trainer", "model_flops_per_token", "make_schedule"]
 
@@ -201,8 +203,9 @@ class Trainer:
                     "ROADMAP.md queue A, item 8")
         if cfg.opt_state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"opt_state_dtype {cfg.opt_state_dtype!r}")
+        _check_ported(cfg.model)
         self.cfg = cfg
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.schedule = make_schedule(cfg)
         self.model = GPTLMHeadModel(cfg.model, device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)

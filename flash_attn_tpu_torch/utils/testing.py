@@ -1,8 +1,9 @@
 """Golden reference attention and the repo's numerics contract.
 
 Port of flash_attn_tpu/utils/testing.py ``attention_ref`` (:177) and
-``check_against_ref`` (:306), for the masks the port supports. The
-contract: a kernel's output, computed in bf16/fp16, must satisfy
+``check_against_ref`` (:306), for the masks the port supports, with the
+paged-cache references of the serving engine (``paged_to_linear``,
+``attention_varlen_paged_ref``). The contract: a kernel's output, computed in bf16/fp16, must satisfy
 
     max|out - ref_fp32| <= 2 * max|ref_lowprec - ref_fp32| + atol
 
@@ -17,7 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["attention_ref", "attention_ref_grads", "check_against_ref"]
+__all__ = ["attention_ref", "attention_ref_grads", "attention_varlen_paged_ref",
+           "check_against_ref", "paged_to_linear"]
 
 
 def attention_ref(
@@ -72,6 +74,49 @@ def attention_ref_grads(q, k, v, dout, causal: bool = False,
         out, _ = attention_ref(*leaves, causal=causal,
                                softmax_scale=softmax_scale, upcast=upcast)
         return torch.autograd.grad(out, leaves, dout.to(out.dtype))
+
+
+def paged_to_linear(k_pages, block_table, lengths):
+    """Gather a paged cache (num_pages, h_k, page_size, d) through its block
+    table (b, max_pages) into the linear layout (b, h_k, max_pages *
+    page_size, d), zero at positions >= lengths (b,). Table entries out of
+    range read the nearest page, as the kernels clamp them."""
+    num_pages, h_k, page_size, d = k_pages.shape
+    b, width = block_table.shape
+    table = block_table.to(k_pages.device, torch.long).clamp(0, num_pages - 1)
+    lin = k_pages[table].permute(0, 2, 1, 3, 4).reshape(
+        b, h_k, width * page_size, d)
+    pos = torch.arange(width * page_size, device=k_pages.device)
+    keep = pos[None, :] < lengths.to(k_pages.device, torch.long)[:, None]
+    return lin * keep[:, None, :, None].to(lin.dtype)
+
+
+def attention_varlen_paged_ref(q, k_pages, v_pages, cu_seqlens_q, seqlens_k,
+                               block_table, seqused_q=None,
+                               causal: bool = False,
+                               softmax_scale: Optional[float] = None,
+                               upcast: bool = True):
+    """Packed-varlen attention over a paged cache, one :func:`attention_ref`
+    call per sequence. Sequence i owns the packed rows cu_seqlens_q[i] ..
+    cu_seqlens_q[i + 1]; its first seqused_q[i] rows (all when seqused_q
+    is None) attend to its first seqlens_k[i] keys with bottom-right causal
+    alignment, the rest give zeros. Returns out (total_q, h, dv)."""
+    cu = cu_seqlens_q.tolist()
+    lens_k = seqlens_k.tolist()
+    used = (seqused_q.tolist() if seqused_q is not None
+            else [hi - lo for lo, hi in zip(cu[:-1], cu[1:])])
+    k_lin = paged_to_linear(k_pages, block_table, seqlens_k).transpose(1, 2)
+    v_lin = paged_to_linear(v_pages, block_table, seqlens_k).transpose(1, 2)
+    out = torch.zeros(q.shape[:2] + v_pages.shape[-1:], dtype=q.dtype,
+                      device=q.device)
+    for i, (lo, lq, lk) in enumerate(zip(cu[:-1], used, lens_k)):
+        if lq == 0 or lk == 0:
+            continue
+        o, _ = attention_ref(q[None, lo:lo + lq], k_lin[i:i + 1, :lk],
+                             v_lin[i:i + 1, :lk], causal=causal,
+                             softmax_scale=softmax_scale, upcast=upcast)
+        out[lo:lo + lq] = o[0]
+    return out
 
 
 def check_against_ref(out, out_ref_fp32, out_ref_lowprec, *, mult: float = 2.0,

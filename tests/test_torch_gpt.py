@@ -40,7 +40,8 @@ def models():
     params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(ids))["params"]
     fields = {f.name: getattr(jcfg, f.name)
               for f in dataclasses.fields(jcfg) if f.name != "dtype"}
-    tmodel = GPTLMHeadModel(GPTConfig(**fields, dtype=torch.float32))
+    tmodel = GPTLMHeadModel(GPTConfig(**fields, dtype=torch.float32),
+                            device="cpu")
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
     return jmodel, params, tmodel, ids
 

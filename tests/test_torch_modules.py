@@ -39,12 +39,16 @@ def _dense(lin, p):
 
 
 @pytest.mark.parametrize("interleaved", [False, True])
-@pytest.mark.parametrize("offsets", ["int", "per_batch"])
+@pytest.mark.parametrize("offsets", ["int", "per_batch", "per_batch_past_end"])
 def test_apply_rotary_emb_matches_jax(interleaved, offsets):
+    """Per-row offsets with s > 1 are the prefix-cached prefill's (q and k
+    rotated at each slot's prefix length); past the table's end both take
+    its last row."""
     rng = np.random.default_rng(0)
     x = _rand(rng, 3, 7, 2, 32)
     cos, sin = _rand(rng, 40, 12), _rand(rng, 40, 12)  # rotary dim 24 < 32
-    off = 5 if offsets == "int" else np.array([0, 9, 33], np.int32)
+    off = {"int": 5, "per_batch": np.array([0, 9, 33], np.int32),
+           "per_batch_past_end": np.array([16, 0, 37], np.int32)}[offsets]
     out_j = jax_apply_rotary_emb(jnp.asarray(x), jnp.asarray(cos),
                                  jnp.asarray(sin), interleaved,
                                  seqlen_offsets=off if offsets == "int"
@@ -92,10 +96,11 @@ def test_mlp_matches_jax(gated):
     x = _rand(rng, 2, 5, 48)
     if gated:
         jm = JaxGatedMlp(hidden_features=100, multiple_of=32, dtype=jnp.float32)
-        tm = GatedMlp(48, 100, multiple_of=32, dtype=torch.float32)
+        tm = GatedMlp(48, 100, multiple_of=32, dtype=torch.float32,
+                      device="cpu")
     else:
         jm = JaxMlp(hidden_features=96, dtype=jnp.float32)
-        tm = Mlp(48, 96, dtype=torch.float32)
+        tm = Mlp(48, 96, dtype=torch.float32, device="cpu")
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
     if gated:
         assert params["fc1"]["kernel"].shape == (48, 256)  # 100 -> 128, x2
@@ -112,7 +117,7 @@ def test_mha_prefill_then_decode_matches_jax():
     kw = dict(num_heads=4, num_heads_kv=2, causal=True, rotary_emb_dim=8,
               max_decode_seqlen=40)
     jm = JaxMHA(embed_dim=64, dtype=jnp.float32, **kw)
-    tm = MHA(64, dtype=torch.float32, **kw)
+    tm = MHA(64, dtype=torch.float32, device="cpu", **kw)
     x = _rand(rng, 2, 9, 64)
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
     _dense(tm.Wqkv, params["Wqkv"])

@@ -1,6 +1,7 @@
 """Package-level checks of the port (flash_attn_tpu_torch): what it
 imports, what it refuses, and, on a CUDA card, each kernel against its
-plain version."""
+plain version (this file imports no JAX, so that these run on the card:
+``python3 -m pytest --noconftest tests/test_torch_package.py``)."""
 
 import math
 import re
@@ -64,7 +65,7 @@ def test_flash_attn_func_rejects_unported_options(kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(block_table=torch.zeros(1, 1, dtype=torch.int32)),
+    dict(rotary_seqlens=torch.zeros(1, dtype=torch.int32)),
     dict(cache_batch_idx=torch.zeros(1, dtype=torch.int32)),
     dict(cache_leftpad=torch.zeros(1, dtype=torch.int32)),
     dict(k_descale=torch.ones(1, 2))])
@@ -85,7 +86,7 @@ def test_gradient_request_raises():
     assert q.grad.abs().sum() > 0
     qd = torch.randn(1, 1, 2, 64, requires_grad=True)
     cache = torch.zeros(1, 2, 128, 64)
-    with pytest.raises(NotImplementedError, match="queue A, item 3"):
+    with pytest.raises(NotImplementedError, match="forward only"):
         flash_attn_with_kvcache(qd, cache, cache, cache_seqlens=4)
     with torch.no_grad():
         assert flash_attn_with_kvcache(qd, cache, cache,
@@ -107,7 +108,30 @@ def test_dropout_refusals_point_at_queue_a_7():
 
 def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError, match="use_alibi"):
-        GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1, use_alibi=True))
+        GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1, use_alibi=True),
+                       device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """With no device the model and the trainer build on the CUDA card;
+    without one they raise (after the unported-option checks), never
+    silently taking the CPU."""
+    from flash_attn_tpu_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = GPTConfig(vocab_size=64, n_positions=0, n_embd=32, n_layer=1,
+                    n_head=2, rotary_emb_fraction=1.0, use_rms_norm=True,
+                    glu_act=True, max_decode_seqlen=16)
+    tcfg = TrainConfig(model=cfg, batch_size=1, seqlen=8)
+    if torch.cuda.is_available():
+        assert next(GPTLMHeadModel(cfg).parameters()).device.type == "cuda"
+        assert Trainer(tcfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTLMHeadModel(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(tcfg)
+    assert next(GPTLMHeadModel(cfg, device="cpu").parameters()).device.type \
+        == "cpu"
 
 
 def test_kv_cache_update_in_place():
@@ -184,3 +208,82 @@ def test_backward_kernels_match_plain_version_on_the_card(causal,
                                               causal=causal)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.float(), r.float(), atol=5e-2, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("page_size", [16, 256])
+def test_paged_decode_kernel_matches_plain_version_on_the_card(page_size):
+    from flash_attn_tpu_torch.kernels import flash_decode
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    b, h, h_k, d, width = 4, 8, 2, 128, -(-600 // page_size)
+    kp, vp = randn(b * width + 1, h_k, page_size, d), randn(
+        b * width + 1, h_k, page_size, d)
+    table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+             ).reshape(b, width).to(torch.int32)
+    seqlens = torch.tensor([1, 100, 333, 600], dtype=torch.int32, device="cuda")
+    q = randn(b, 1, h, d)
+    for splits in (1, 3):
+        out_p, lse_p = flash_decode.flash_attention_decode_partials(
+            q, kp, vp, seqlens, splits, 1 / math.sqrt(d), True,
+            block_table=table)
+        ref_p, ref_lse = flash_decode.flash_attention_decode_paged_partials_plain(
+            q, kp, vp, seqlens, table, splits, 64, 1 / math.sqrt(d), True)
+        fin = torch.isfinite(ref_lse)
+        torch.testing.assert_close(out_p, ref_p, atol=2e-2, rtol=0)
+        assert torch.equal(torch.isfinite(lse_p), fin)
+        torch.testing.assert_close(lse_p[fin], ref_lse[fin], atol=1e-4, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [False, True])
+def test_varlen_paged_kernel_matches_plain_version_on_the_card(causal):
+    import numpy as np
+
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    lens_q, lens_k = [100, 0, 256, 7], [300, 40, 256, 519]
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    q = randn(int(cu[-1]), 8, 128)
+    kp, vp = randn(40, 2, 64, 128), randn(40, 2, 64, 128)
+    table = (1 + torch.randperm(36, device="cuda", generator=gen)
+             ).reshape(4, 9).to(torch.int32)
+    seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    out, lse = flash_varlen_paged.flash_attention_varlen_paged_fwd(
+        q, kp, vp, cu, 256, seqlens_k, table, causal=causal)
+    ref, ref_lse = flash_varlen_paged.flash_attention_varlen_paged_fwd_plain(
+        q, kp, vp, cu, 256, seqlens_k, table, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-4, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_paged_overflow_poisons_rows_on_the_card():
+    """Lengths on the card that overflow the block table give NaN rows (as
+    JAX's do under jit) instead of a host read; the other rows are
+    finite."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kp = torch.randn(9, 2, 16, 64, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    table = torch.arange(1, 9, dtype=torch.int32, device="cuda").reshape(2, 4)
+    q = torch.randn(2, 1, 4, 64, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    lens = torch.tensor([10, 64], dtype=torch.int32, device="cuda")
+    out = flash_attn_with_kvcache(q, kp, kp, k=q[:, :, :2], v=q[:, :, :2],
+                                  cache_seqlens=lens, block_table=table,
+                                  causal=True)
+    assert bool(torch.isfinite(out[0]).all()) and bool(torch.isnan(out[1]).all())

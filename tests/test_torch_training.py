@@ -207,7 +207,7 @@ def test_loss_grads_match_jax():
             chunk_size=48)
 
     loss_j, grads_j = jax.value_and_grad(jloss)(params)
-    tr = Trainer(TrainConfig(model=CFG, **TRAIN))
+    tr = Trainer(TrainConfig(model=CFG, **TRAIN), device="cpu")
     tr.load_jax_params(_np_tree(params))
     loss_t, grads_t = tr._grads(torch.from_numpy(batch[:, :-1]).long(),
                                 torch.from_numpy(batch[:, 1:]).long())
@@ -222,8 +222,9 @@ def test_fused_and_full_logits_losses_agree():
     """fused_ce=False (full logits, cross_entropy_loss) takes the same loss
     and gradients as the fused chunked path."""
     b = torch.from_numpy(np.random.default_rng(9).integers(0, 512, (2, 65))).long()
-    fused = Trainer(TrainConfig(model=CFG, **TRAIN))
-    full = Trainer(TrainConfig(model=CFG, **dict(TRAIN, fused_ce=False)))
+    fused = Trainer(TrainConfig(model=CFG, **TRAIN), device="cpu")
+    full = Trainer(TrainConfig(model=CFG, **dict(TRAIN, fused_ce=False)),
+                   device="cpu")
     l1, g1 = fused._grads(b[:, :-1], b[:, 1:])
     l2, g2 = full._grads(b[:, :-1], b[:, 1:])
     np.testing.assert_allclose(float(l2), float(l1), rtol=1e-6)
@@ -235,7 +236,7 @@ def test_fused_and_full_logits_losses_agree():
 def test_trainer_matches_jax_trainer(opt_state_dtype):
     kw = dict(TRAIN, opt_state_dtype=opt_state_dtype)
     jtr = JaxTrainer(JaxTrainConfig(model=JCFG, **kw))
-    tr = Trainer(TrainConfig(model=CFG, **kw))
+    tr = Trainer(TrainConfig(model=CFG, **kw), device="cpu")
     tr.load_jax_params(_np_tree(jtr.params))
     rng = np.random.default_rng(5)
     for step in range(4):
@@ -271,8 +272,8 @@ def test_trainer_matches_jax_trainer(opt_state_dtype):
 
 def test_grad_accumulation_matches_full_batch():
     cfg = TrainConfig(model=CFG, **dict(TRAIN, batch_size=4))
-    full, acc = Trainer(cfg), Trainer(dataclasses.replace(cfg,
-                                                          accumulate_steps=2))
+    full = Trainer(cfg, device="cpu")
+    acc = Trainer(dataclasses.replace(cfg, accumulate_steps=2), device="cpu")
     rng = np.random.default_rng(7)
     for _ in range(3):
         b = torch.from_numpy(rng.integers(0, 512, (4, 65))).long()
@@ -295,13 +296,14 @@ def test_checkpoint_resume_is_exact(tmp_path, token_file):
         return data.LMDataLoader(data.TokenDataset(token_file, seqlen=32), 2,
                                  data.FaultTolerantSampler(600, seed=3))
 
-    straight = Trainer(cfg)
+    straight = Trainer(cfg, device="cpu")
     straight.fit(loader(), steps=4)
-    first = Trainer(cfg)
+    first = Trainer(cfg, device="cpu")
     first_loader = loader()
     first.fit(first_loader, steps=2)
     path = first.save_checkpoint(first_loader)
-    resumed, resumed_loader = Trainer(dataclasses.replace(cfg, seed=9)), loader()
+    resumed = Trainer(dataclasses.replace(cfg, seed=9), device="cpu")
+    resumed_loader = loader()
     resumed.load_checkpoint(path, resumed_loader)
     assert resumed.step_count == 2
     resumed.fit(resumed_loader, steps=2)
@@ -317,7 +319,7 @@ def test_checkpoint_resume_is_exact(tmp_path, token_file):
 
 def test_fit_logs_and_evaluate(token_file):
     cfg = TrainConfig(model=CFG, **dict(TRAIN, seqlen=32, log_every=2))
-    tr = Trainer(cfg)
+    tr = Trainer(cfg, device="cpu")
     ds = data.TokenDataset(token_file, seqlen=32)
     logs = []
     tr.fit(data.LMDataLoader(ds, 2), steps=4, log_fn=logs.append,
@@ -333,7 +335,8 @@ def test_fit_logs_and_evaluate(token_file):
 
 def test_loss_scaler_skips_non_finite_steps():
     tr = Trainer(TrainConfig(model=CFG, **dict(TRAIN, loss_scale_init=2.0 ** 130,
-                                                 loss_scale_growth_interval=2)))
+                                                 loss_scale_growth_interval=2)),
+                 device="cpu")
     b = torch.from_numpy(np.random.default_rng(8).integers(0, 512, (2, 65))).long()
     before = {n: m.clone() for n, m in tr.masters.items()}
     _, gnorm = tr.train_step(b[:, :-1], b[:, 1:])   # scale overflows fp32
@@ -350,9 +353,10 @@ def test_loss_scaler_skips_non_finite_steps():
 def test_unported_training_options_raise():
     for key in ("data_parallel", "model_parallel", "seq_parallel"):
         with pytest.raises(NotImplementedError, match="queue A, item 8"):
-            Trainer(TrainConfig(model=CFG, **{key: 2}))
+            Trainer(TrainConfig(model=CFG, **{key: 2}), device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
-        Trainer(TrainConfig(model=dataclasses.replace(CFG, remat=True)))
+        Trainer(TrainConfig(model=dataclasses.replace(CFG, remat=True)),
+                device="cpu")
 
 
 # -- (i) the data pipeline ------------------------------------------------------
