@@ -37,6 +37,23 @@
    decode of the same prompts; prints tokens/s, TTFT p50/p99 and the device
    idle share of a decode block.
 
+7. holds the four packed-varlen kernels (B6 forward, the persistent B7,
+   the B6 dK/dV and dQ backward) against their plain versions on four
+   shapes (BERT-large's packing, bench.py's mixed lengths, ragged GQA fp16
+   with seqused and a packed tail, GQA at d=64), requires B7's bits to equal
+   B6 forward's and the backward to repeat bitwise, and times kernels,
+   plain versions and an SDPA yardstick at the first two;
+8. runs bench.py's varlen section (bench.py:203-245): 4 x 8192 and 16
+   mixed-length causal sequences through flash_attn_varlen_func, the
+   backward from B6 residuals, and flash_attn_varlen_func(...).backward(),
+   with counted launches, and prints TFLOP/s of useful work;
+9. runs BERT-large (bert-large-uncased widths, 24 layers, random bf16
+   weights from a seed) on 32 rows padded to 512: a BertForMaskedLM forward
+   (24 B7 launches, none of B1), four rows alone through the dense path as
+   the oracle, and a BertForPreTraining MLM + NSP step (24 B7, 24 dK/dV, 24
+   dQ launches); prints forward and step times, valid tokens/s and peak
+   memory.
+
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
 {"ok": true, "device": {...}}. It needs a CUDA card and exits non-zero
@@ -153,6 +170,39 @@ MIN_LOSS_DROP = 0.5
 # full fp32 logits of a no-grad forward of the same weights and batch:
 # the same bf16 trunk and lm_head matmul, summed in other orders.
 CE_LOSS_ATOL = 2e-3
+
+# Packed varlen attention (B6 forward, B7, B6 backward). BERT-large's packing
+# in the BERT phase: 32 rows padded to 512, lengths seeded uniform in [256,
+# 512]; bench.py's mixed shape (bench.py:225-226): 16 sequences uniform in
+# [2048, 4096].
+BERT_BATCH, BERT_SEQ, BERT_MASKED = 32, 512, 76  # MLPerf phase 2's
+# max_predictions_per_seq
+BERT_LENS = [int(x) for x in np.random.default_rng(5).integers(
+    256, 513, BERT_BATCH)]
+BENCH_MIXED_LENS = [int(x) for x in np.random.default_rng(0).integers(
+    2048, 4097, size=16)]
+VARLEN_DENSE_CASES = [  # (name, lens_q, lens_k, seqused_q, seqused_k, packed
+    # tail rows, h, h_k, d, dtype, causal); the first two are timed
+    ("BERT-large packing", BERT_LENS, None, None, None,
+     BERT_BATCH * BERT_SEQ - sum(BERT_LENS), 16, 16, 64, torch.bfloat16,
+     False),
+    ("bench.py mixed", BENCH_MIXED_LENS, None, None, None, 0, 16, 16, 128,
+     torch.bfloat16, True),
+    ("ragged GQA 16/4 fp16", [300, 0, 17, 128, 513], [812, 40, 17, 0, 600],
+     [300, 0, 10, 128, 500], [700, 40, 17, 0, 600], 37, 16, 4, 128,
+     torch.float16, True),
+    ("GQA 16/4 d=64", [256, 100, 700], None, None, None, 0, 16, 4, 64,
+     torch.bfloat16, True),
+]
+# BERT-large's valid-token hidden states from the packed path (B7) against
+# each row run alone without a mask (B1): both bf16, through the same
+# attention tiles but matmuls of other shapes (cuBLAS may sum in other
+# orders), so they differ by bf16 rounding carried through 24 layers. The
+# LayerNorm outputs are of unit scale (|x| up to ~5, where a bf16 step is
+# 2^-5); 16 such steps at the extreme, and a mean far below one step, is
+# that noise. A wrong sequence origin, mask or tile would move states by
+# their own scale.
+BERT_HIDDEN_MAX, BERT_HIDDEN_MEAN = 0.5, 0.02
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -668,19 +718,10 @@ def run_slice(gen):
             return out
         return fn
 
-    def wall(fn, runs):
-        times = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
-
     prefill_only = served(PROMPT + 1)   # the prefill token, no decode step
     full = served(PROMPT + NEW_TOKENS)
-    prefill_only()
-    ttft = wall(prefill_only, 5)
-    t_full = wall(full, 3)
+    ttft = wall_ms(prefill_only, 5) / 1e3
+    t_full = wall_ms(full, 3) / 1e3
     tok_s = BATCH * steps / (t_full - ttft)
     return launches, ttft, tok_s
 
@@ -702,27 +743,45 @@ def engine_model():
 
 
 def kernel_counts():
+    """Launches of the forward, decode, paged and varlen kernels since the
+    last reset_kernel_counts()."""
     from flash_attn_tpu_torch.kernels import (
         flash_decode,
         flash_fwd,
+        flash_varlen,
         flash_varlen_paged,
+        flash_varlen_persistent,
     )
 
     return {"flash_fwd": flash_fwd.launches,
             "flash_decode": flash_decode.launches,
             "flash_decode_paged": flash_decode.launches_paged,
-            "flash_varlen_paged": flash_varlen_paged.launches}
+            "flash_varlen_paged": flash_varlen_paged.launches,
+            "flash_varlen_fwd": flash_varlen.launches_fwd,
+            "flash_varlen_fwd_persistent": flash_varlen_persistent.launches,
+            "fa_varlen_bwd_dkdv": flash_varlen.launches_dkdv,
+            "fa_varlen_bwd_dq": flash_varlen.launches_dq}
 
 
 def reset_kernel_counts():
     from flash_attn_tpu_torch.kernels import (
         flash_decode,
         flash_fwd,
+        flash_varlen,
         flash_varlen_paged,
+        flash_varlen_persistent,
     )
 
     flash_fwd.launches = flash_decode.launches = 0
     flash_decode.launches_paged = flash_varlen_paged.launches = 0
+    flash_varlen_persistent.launches = flash_varlen.launches_fwd = 0
+    flash_varlen.launches_dkdv = flash_varlen.launches_dq = 0
+
+
+def want_counts(**nonzero):
+    """kernel_counts() as a run should leave them: ``nonzero`` and 0 for
+    every other kernel."""
+    return {**dict.fromkeys(kernel_counts(), 0), **nonzero}
 
 
 def run_engine(model, prompts, prefix_cache: bool, card: str):
@@ -791,10 +850,10 @@ def run_engine(model, prompts, prefix_cache: bool, card: str):
           f"prefills, {calls['decode_block']} decode blocks of "
           f"{ENGINE_BLOCK}; launches {launches}; stats {eng.stats()}")
     n = cfg.n_layer
-    want = {"flash_fwd": 0 if prefix_cache else n * calls["prefill"],
-            "flash_decode": 0,
-            "flash_decode_paged": n * ENGINE_BLOCK * calls["decode_block"],
-            "flash_varlen_paged": n * calls["prefill"] if prefix_cache else 0}
+    want = want_counts(
+        flash_fwd=0 if prefix_cache else n * calls["prefill"],
+        flash_decode_paged=n * ENGINE_BLOCK * calls["decode_block"],
+        flash_varlen_paged=n * calls["prefill"] if prefix_cache else 0)
     require(launches == want, f"{name} launch counts {launches}, want {want}")
     require(all(len(t) == ENGINE_NEW for t in tokens),
             f"{name}: a request did not finish with {ENGINE_NEW} tokens")
@@ -1059,27 +1118,16 @@ def run_training():
                       "same_losses": same}
 
 
-def profile_step(trainer, loader):
-    """Device time of one training step by kernel family (torch.profiler),
-    and the phases of a step timed with CUDA events."""
+def device_families(fn, families, what: str) -> float:
+    """Device time of fn() by kernel family (torch.profiler): prints each
+    family's share and the 12 costliest kernels; returns the total ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    from flash_attn_tpu_torch.models.gpt import lm_head_weights
-    from flash_attn_tpu_torch.ops.cross_entropy import (
-        fused_linear_cross_entropy,
-    )
-
-    it = iter(loader)
-    ids, labels = map(trainer._batch, next(it))
-    trainer.train_step(ids, labels)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(ids, labels)
+        fn()
         torch.cuda.synchronize()
-    families = {"attention forward (flash_fwd)": ("fwd_kernel",),
-                "attention backward (dkdv + dq)": ("dkdv_kernel", "dq_kernel"),
-                "matmuls (cuBLAS)": ("gemm", "nvjet", "cutlass", "xmma"),
-                "copies and casts": ("copy", "Memcpy", "Memset", "cast")}
     totals = dict.fromkeys(list(families) + ["elementwise, reductions, other"], 0.0)
     kernels = []
     for evt in prof.key_averages():
@@ -1094,11 +1142,34 @@ def profile_step(trainer, loader):
         totals[fam] += dev
         kernels.append((dev, evt.count, evt.key))
     total = sum(totals.values())
-    print(f"profile: one training step, {total / 1e3:.2f} ms of device time")
+    print(f"profile: {what}, {total / 1e3:.2f} ms of device time")
     for fam, us in totals.items():
         print(f"profile:   {fam}: {us / 1e3:.2f} ms ({100 * us / total:.1f}%)")
     for dev, count, key in sorted(kernels, reverse=True)[:12]:
         print(f"profile:   {dev / 1e3:8.2f} ms  x{count:<5d} {key[:90]}")
+    return total / 1e3
+
+
+MATMULS = ("gemm", "nvjet", "cutlass", "xmma")
+COPIES = ("copy", "Memcpy", "Memset", "cast")
+
+
+def profile_step(trainer, loader):
+    """Device time of one training step by kernel family (torch.profiler),
+    and the phases of a step timed with CUDA events."""
+    from flash_attn_tpu_torch.models.gpt import lm_head_weights
+    from flash_attn_tpu_torch.ops.cross_entropy import (
+        fused_linear_cross_entropy,
+    )
+
+    it = iter(loader)
+    ids, labels = map(trainer._batch, next(it))
+    device_families(
+        lambda: trainer.train_step(ids, labels),
+        {"attention forward (flash_fwd)": ("fwd_kernel",),
+         "attention backward (dkdv + dq)": ("dkdv_kernel", "dq_kernel"),
+         "matmuls (cuBLAS)": MATMULS, "copies and casts": COPIES},
+        "one training step")
 
     def phase(fn):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1137,6 +1208,485 @@ def profile_step(trainer, loader):
           f"({mcfg.n_layer} layers, b={TRAIN_BATCH} x {TRAIN_SEQ})")
 
 
+def wall_ms(fn, runs: int = 3) -> float:
+    """Median host-clock time of fn() between synchronisations: for code
+    that reads the device back itself (the plain versions' per-sequence
+    loops), which time_ms's held stream would deadlock on."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sdpa_varlen(q, k, v, cu_q, cu_k, lens_q, lens_k, causal, dout):
+    """The library yardstick for packed attention, timed only:
+    scaled_dot_product_attention over nested jagged tensors when this
+    torch runs it (forward and backward), else over the batch padded to
+    its longest sequence with a boolean mask. Returns (forward fn,
+    backward fn, what was timed)."""
+    # one offsets tensor per ragged structure: nested tensors built on the
+    # same offsets share their ragged dimension
+    offsets = {"q": cu_q.long()}
+    offsets["k"] = offsets["q"] if torch.equal(cu_q, cu_k) else cu_k.long()
+
+    def njt(x, cu, lens):
+        side = "q" if cu is cu_q else "k"
+        return torch.nested.nested_tensor_from_jagged(
+            x[:sum(lens)], offsets=offsets[side]).transpose(1, 2)
+
+    def padded(x, cu, lens):
+        out = x.new_zeros((len(lens), max(lens)) + x.shape[1:])
+        for i, (lo, n) in enumerate(zip(cu.tolist()[:-1], lens)):
+            out[i, :n] = x[lo:lo + n]
+        return out.transpose(1, 2)
+
+    rows = torch.arange(max(lens_q), device=q.device)[:, None]
+    cols = torch.arange(max(lens_k), device=q.device)[None, :]
+    lq = torch.tensor(lens_q, device=q.device)[:, None, None, None]
+    lk = torch.tensor(lens_k, device=q.device)[:, None, None, None]
+    mask = cols < lk
+    if causal:
+        mask = mask & (cols <= rows + lk - lq)
+    for label, view, kw in (
+            ("scaled_dot_product_attention over nested jagged tensors",
+             njt, {"is_causal": causal}),
+            ("scaled_dot_product_attention over the padded batch with a "
+             "boolean mask", padded, {"attn_mask": mask})):
+        try:
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            args = [view(x, cu, n) for x, cu, n in zip(
+                leaves, (cu_q, cu_k, cu_k), (lens_q, lens_k, lens_k))]
+            out = F.scaled_dot_product_attention(*args, **kw)
+            grad = view(dout, cu_q, lens_q)
+            torch.autograd.grad(out, leaves, grad, retain_graph=True)
+        except (RuntimeError, NotImplementedError, TypeError) as exc:
+            print(f"library yardstick: {label} does not run here "
+                  f"({type(exc).__name__}: {str(exc)[:120]})")
+            continue
+        with torch.no_grad():
+            fargs = [a.detach() for a in args]
+
+        def fwd():
+            return F.scaled_dot_product_attention(*fargs, **kw)
+
+        def bwd():
+            return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+        return fwd, bwd, label
+    raise RuntimeError("no library yardstick for packed attention ran")
+
+
+def kernel_split_ms(fn, names, runs: int = 5):
+    """Device ms per call of each kernel whose name contains one of
+    ``names``, from torch.profiler over ``runs`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in evt.key:
+                total[name] += evt.device_time_total
+    return {name: us / runs / 1e3 for name, us in total.items()}
+
+
+def check_varlen(gen):
+    """The four packed-varlen kernels against their plain versions on
+    VARLEN_DENSE_CASES (the 2x rule against the fp32 plain versions, with
+    the per-sequence reference in the inputs' type as the low-precision
+    one; lse within LSE_ATOL); B7's bits against B6 forward's; the backward
+    twice, bitwise. Times kernels, plain versions and the library yardstick
+    at the first two cases. Returns the worst errors and the timings."""
+    from flash_attn_tpu_torch.dispatch.varlen_meta import compute_varlen_meta
+    from flash_attn_tpu_torch.kernels import flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_varlen_ref,
+        attention_varlen_ref_grads,
+        check_against_ref,
+    )
+
+    worst = dict.fromkeys(("flash_varlen_fwd", "flash_varlen_fwd_persistent",
+                           "fa_varlen_bwd_dkdv", "fa_varlen_bwd_dq"), 0.0)
+    timings = {}
+    for ci, (name, lens_q, lens_k, used_q, used_k, tail, h, h_k, d, dtype,
+             causal) in enumerate(VARLEN_DENSE_CASES):
+        lens_k = lens_k or lens_q
+        cu_q, cu_k = (torch.tensor(np.concatenate([[0], np.cumsum(x)]),
+                                   dtype=torch.int32, device="cuda")
+                      for x in (lens_q, lens_k))
+        tq, tk = sum(lens_q) + tail, sum(lens_k) + tail
+
+        def randn(*shape):
+            return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+        q, k, v, dout = randn(tq, h, d), randn(tk, h_k, d), randn(tk, h_k, d), \
+            randn(tq, h, d)
+        sq = (None if used_q is None else
+              torch.tensor(used_q, dtype=torch.int32, device="cuda"))
+        sk = (None if used_k is None else
+              torch.tensor(used_k, dtype=torch.int32, device="cuda"))
+        args = (cu_q, cu_k, max(lens_q), max(lens_k), sq, sk)
+        meta = compute_varlen_meta(cu_q, cu_k, max(lens_q), max(lens_k), tq,
+                                   tk, causal=causal, seqused_q=sq,
+                                   seqused_k=sk)
+        kw = dict(causal=causal, meta=meta)
+        out, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, *args, **kw)
+        out_p, lse_p = fvp.flash_attention_varlen_fwd_persistent(q, k, v, *args,
+                                                                 **kw)
+        grads = flash_varlen.flash_attention_varlen_bwd(dout, q, k, v, out, lse,
+                                                        *args, **kw)
+        again = flash_varlen.flash_attention_varlen_bwd(dout, q, k, v, out, lse,
+                                                        *args, **kw)
+        f32 = [x.float() for x in (q, k, v)]
+        ref, ref_lse = flash_varlen.flash_attention_varlen_fwd_plain(
+            *f32, *args, causal=causal)
+        ref_p, ref_p_lse = fvp.flash_attention_varlen_fwd_persistent_plain(
+            *f32, *args, **kw)
+        ref_lp = attention_varlen_ref(q, k, v, cu_q, cu_k, sq, sk,
+                                      causal=causal, upcast=False)
+        torch.cuda.synchronize()
+        case = (f"{name}: {len(lens_q)} sequences, rows {min(lens_q)}.."
+                f"{max(lens_q)}, keys {min(lens_k)}..{max(lens_k)}, seqused_q "
+                f"{used_q is not None}, seqused_k {used_k is not None}, tail "
+                f"{tail}, h={h} h_k={h_k} d={d} {str(dtype)[6:]} "
+                f"causal={causal}")
+        errs = []
+        for kname, got, got_lse, r, r_lse in (
+                ("flash_varlen_fwd", out, lse, ref, ref_lse),
+                ("flash_varlen_fwd_persistent", out_p, lse_p, ref_p, ref_p_lse)):
+            err, err_lp = check_against_ref(got, r, ref_lp,
+                                            msg=f"{kname} {case}")
+            fin = torch.isfinite(r_lse)
+            require(torch.equal(torch.isfinite(got_lse), fin),
+                    f"{kname} {case}: rows without keys differ")
+            lse_err = (got_lse[fin] - r_lse[fin]).abs().max().item() \
+                if fin.any() else 0.0
+            require(lse_err <= LSE_ATOL, f"{kname} lse error {lse_err}")
+            worst[kname] = max(worst[kname], err)
+            errs.append(f"{kname} out {err:.3e} (low-precision reference "
+                        f"{err_lp:.3e}), lse {lse_err:.3e}")
+        same = torch.equal(out_p, out) and torch.equal(lse_p, lse)
+        require(same, f"{case}: B7 and B6 forward differ")
+        require(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                f"{case}: the backward differs between runs")
+        ref_g = flash_varlen.flash_attention_varlen_bwd_plain(
+            dout.float(), *f32, ref, ref_lse, *args, causal=causal)
+        del f32, ref_p, ref_p_lse
+        lp_g = attention_varlen_ref_grads(q, k, v, dout, cu_q, cu_k, sq, sk,
+                                          causal=causal, upcast=False)
+        torch.cuda.synchronize()
+        for gname, got, r, lp in zip("qkv", grads, ref_g, lp_g):
+            kname = "fa_varlen_bwd_dq" if gname == "q" else "fa_varlen_bwd_dkdv"
+            err, err_lp = check_against_ref(got, r, lp, atol=BWD_ATOL,
+                                            msg=f"{kname} d{gname} {case}")
+            worst[kname] = max(worst[kname], err)
+            errs.append(f"d{gname} {err:.3e} (low-precision reference "
+                        f"{err_lp:.3e})")
+        del ref_g, lp_g, ref_lp
+        print(f"varlen {case}: {'; '.join(errs)}; B7 bitwise equal to B6 "
+              f"forward: {same}; backward bitwise equal over two runs: True")
+        if ci >= 2:
+            continue
+        # times at this shape
+        pairs = attended_pairs(used_q or lens_q, used_k or lens_k, causal)
+        rows_q, rows_k = sum(used_q or lens_q), sum(used_k or lens_k)
+        b6 = lambda: flash_varlen.flash_attention_varlen_fwd(q, k, v, *args, **kw)
+        b7 = lambda: fvp.flash_attention_varlen_fwd_persistent(q, k, v, *args,
+                                                              **kw)
+        bwd = lambda: flash_varlen.flash_attention_varlen_bwd(
+            dout, q, k, v, out, lse, *args, **kw)
+        lib_fwd, lib_bwd, lib_label = sdpa_varlen(
+            q, k, v, cu_q, cu_k, lens_q, lens_k, causal, dout)
+        t = {"flash_varlen_fwd": time_ms(b6), "flash_varlen_fwd_persistent":
+             time_ms(b7), "bwd": time_ms(bwd, runs=10)}
+        t.update(kernel_split_ms(bwd, ("varlen_dkdv_kernel",
+                                       "varlen_dq_kernel")))
+        plain_fwd = wall_ms(lambda: flash_varlen.flash_attention_varlen_fwd_plain(
+            q, k, v, *args, causal=causal))
+        plain_p = wall_ms(lambda: fvp.flash_attention_varlen_fwd_persistent_plain(
+            q, k, v, *args, **kw))
+        plain_bwd = wall_ms(lambda: flash_varlen.flash_attention_varlen_bwd_plain(
+            dout, q, k, v, out, lse, *args, causal=causal))
+        lib_f, lib_b = time_ms(lib_fwd), time_ms(lib_bwd, runs=10)
+        esz = q.element_size()
+        # forward: q, k, v read once, out and lse written (the packed tail's
+        # zeros included); 2 products over the attended pairs
+        fwd_bound = bound(4 * h * d * pairs,
+                          esz * (rows_q * h * d + 2 * rows_k * h_k * d
+                                 + tq * h * d) + 4 * h * tq)
+        # dK/dV: S, dP, dV and dK over the pairs; q, do, k, v, lse, delta
+        # read, dk and dv written. dQ: S, dP and dQ; q, do, k, v, lse,
+        # delta read, dq written.
+        qdo = esz * 2 * rows_q * h * d + 8 * h * rows_q
+        kv = esz * 2 * rows_k * h_k * d
+        dkdv_bound = bound(8 * h * d * pairs, qdo + kv + esz * 2 * tk * h_k * d)
+        dq_bound = bound(6 * h * d * pairs, qdo + kv + esz * tq * h * d)
+        lib_fwd_call = {"library_ms": lib_f, "library_call": lib_label}
+        lib_bwd_call = {"library_ms": lib_b,
+                        "library_call": f"{lib_label}, backward (the dK/dV "
+                                        f"and dQ kernels' pair)"}
+        timings[name] = {
+            "flash_varlen_fwd": {"ms": t["flash_varlen_fwd"],
+                                 "plain_ms": plain_fwd, **lib_fwd_call,
+                                 **fwd_bound},
+            "flash_varlen_fwd_persistent": {
+                "ms": t["flash_varlen_fwd_persistent"], "plain_ms": plain_p,
+                **lib_fwd_call, **fwd_bound},
+            "fa_varlen_bwd_dkdv": {"ms": t["varlen_dkdv_kernel"],
+                                   "plain_ms": plain_bwd, **lib_bwd_call,
+                                   **dkdv_bound},
+            "fa_varlen_bwd_dq": {"ms": t["varlen_dq_kernel"],
+                                 "plain_ms": plain_bwd, **lib_bwd_call,
+                                 **dq_bound},
+            "bwd_wrapper_ms": t["bwd"]}
+        print(f"varlen times at {name} ({pairs / 1e6:.1f}M attended pairs): "
+              f"B6 forward {t['flash_varlen_fwd']:.4f} ms, B7 "
+              f"{t['flash_varlen_fwd_persistent']:.4f} ms (grid "
+              f"{fvp.last_grid} blocks), bound {fwd_bound['bound_ms']:.4f} ms "
+              f"({fwd_bound['bound_by']}); backward {t['bwd']:.4f} ms (dK/dV "
+              f"kernel {t['varlen_dkdv_kernel']:.4f} ms, bound "
+              f"{dkdv_bound['bound_ms']:.4f}; dQ kernel "
+              f"{t['varlen_dq_kernel']:.4f} ms, bound "
+              f"{dq_bound['bound_ms']:.4f}); plain forward {plain_fwd:.2f} ms, "
+              f"persistent plain {plain_p:.2f} ms, plain backward "
+              f"{plain_bwd:.2f} ms (host clock, median of 3); {lib_label}: "
+              f"forward {lib_f:.4f} ms, backward {lib_b:.4f} ms")
+        del lib_fwd, lib_bwd
+    return worst, timings
+
+
+def run_bench_varlen(gen, card):
+    """bench.py's varlen section (bench.py:203-245) through the port: 4 x
+    8192 non-causal and 16 mixed-length causal sequences through
+    flash_attn_varlen_func (B7), the backward alone from residuals of
+    flash_attention_varlen_fwd (B6 forward), then
+    flash_attn_varlen_func(...).backward(). Each counted; returns the
+    launches of the first counted run and the rates."""
+    from flash_attn_tpu_torch import flash_attn_varlen_func
+    from flash_attn_tpu_torch.kernels import flash_varlen
+
+    h, d = 16, 128
+
+    def setup(lengths):
+        cu = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
+                          dtype=torch.int32, device="cuda")
+        q, k, v = (torch.randn(sum(lengths), h, d, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(3))
+        return q, k, v, cu
+
+    const = [8192] * 4
+    qc, kc, vc, cuc = setup(const)
+    qm, km, vm, cum = setup(BENCH_MIXED_LENS)
+    mx = max(BENCH_MIXED_LENS)
+    args_c = (cuc, cuc, 8192, 8192)
+    args_m = (cum, cum, mx, mx)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    out_c = flash_attn_varlen_func(qc, kc, vc, *args_c, causal=False)
+    out_m = flash_attn_varlen_func(qm, km, vm, *args_m, causal=True)
+    out_r, lse_r = flash_varlen.flash_attention_varlen_fwd(qm, km, vm, *args_m,
+                                                           causal=True)
+    ones = torch.ones_like(out_r)
+    grads_r = flash_varlen.flash_attention_varlen_bwd(ones, qm, km, vm, out_r,
+                                                      lse_r, *args_m,
+                                                      causal=True)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    want = want_counts(flash_varlen_fwd=1, flash_varlen_fwd_persistent=2,
+                       fa_varlen_bwd_dkdv=1, fa_varlen_bwd_dq=1)
+    require(launches == want, f"bench varlen launches {launches}, want {want}")
+    require(bool(torch.isfinite(out_c.float()).all()), "non-finite out (4 x 8192)")
+    require(torch.equal(out_m, out_r), "B7 and B6 forward differ (mixed)")
+
+    leaves = [x.detach().requires_grad_() for x in (qm, km, vm)]
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    flash_attn_varlen_func(*leaves, *args_m, causal=True).backward(ones)
+    torch.cuda.synchronize()
+    api = kernel_counts()
+    want = want_counts(flash_varlen_fwd_persistent=1, fa_varlen_bwd_dkdv=1,
+                       fa_varlen_bwd_dq=1)
+    require(api == want, f"flash_attn_varlen_func backward launches {api}, "
+                         f"want {want}")
+    require(all(torch.equal(leaf.grad, g) for leaf, g in zip(leaves, grads_r)),
+            "flash_attn_varlen_func gradients differ from the B6 backward's "
+            "on the same residuals")
+    print(f"bench varlen: launches {launches}; flash_attn_varlen_func(...)"
+          f".backward() launches {api}, gradients bitwise equal to the "
+          f"backward from B6 residuals")
+
+    t_const = time_ms(lambda: flash_attn_varlen_func(qc, kc, vc, *args_c,
+                                                     causal=False), runs=10)
+    t_mixed = time_ms(lambda: flash_attn_varlen_func(qm, km, vm, *args_m,
+                                                     causal=True), runs=10)
+    t_bwd = time_ms(lambda: flash_varlen.flash_attention_varlen_bwd(
+        ones, qm, km, vm, out_r, lse_r, *args_m, causal=True), runs=10)
+    useful = sum(4.0 * h * d * n * n / 2 for n in BENCH_MIXED_LENS)
+    rates = {"const_ms": t_const, "mixed_ms": t_mixed, "mixed_bwd_ms": t_bwd,
+             "const_tflops": sum(4.0 * h * d * n * n for n in const)
+             / t_const / 1e9,
+             "mixed_tflops": useful / t_mixed / 1e9,
+             "mixed_bwd_tflops": 2.5 * useful / t_bwd / 1e9}
+    print(f"bench varlen (bench.py:203-245) on {card}: 4 x 8192 non-causal "
+          f"{t_const:.4f} ms, {rates['const_tflops']:.1f} TFLOP/s; 16 x "
+          f"U[2048, 4096] causal {t_mixed:.4f} ms, {rates['mixed_tflops']:.1f}"
+          f" TFLOP/s of useful work; backward alone {t_bwd:.4f} ms, "
+          f"{rates['mixed_bwd_tflops']:.1f} TFLOP/s (2.5x convention); "
+          f"median of 10")
+    return launches, rates
+
+
+def bert_inputs(vocab: int):
+    """BERT_BATCH rows padded to BERT_SEQ with BERT_LENS valid tokens, token
+    types split at a seeded point inside each row, BERT_MASKED masked
+    positions per row inside its valid length, and MLM / NSP labels."""
+    rng = np.random.default_rng(1)
+    b, s = BERT_BATCH, BERT_SEQ
+    lens = np.array(BERT_LENS)
+    ids = rng.integers(0, vocab, (b, s))
+    mask = np.arange(s)[None] < lens[:, None]
+    split = np.array([rng.integers(1, n) for n in lens])
+    types = (np.arange(s)[None] >= split[:, None]) & mask
+    pos = np.stack([np.sort(rng.choice(np.arange(1, n), BERT_MASKED,
+                                       replace=False)) for n in lens])
+    labels = rng.integers(0, vocab, (b, BERT_MASKED))
+    nsp = rng.integers(0, 2, b)
+
+    def dev(x, dtype=torch.long):
+        return torch.as_tensor(x, device="cuda", dtype=dtype)
+
+    return (dev(ids), dev(mask, torch.bool), dev(types), dev(pos),
+            dev(labels), dev(nsp))
+
+
+def run_bert(card):
+    """BERT-large at full width and depth, bf16, random weights from a seed:
+    a BertForMaskedLM forward on BERT_BATCH x BERT_SEQ padded rows (every
+    layer through B7, none through B1), four rows alone without a mask
+    through the dense path (B1) as the oracle, then one BertForPreTraining
+    MLM + NSP cross-entropy forward and backward (B7, dK/dV and dQ per
+    layer). Returns the launch counts and the measurements."""
+    from flash_attn_tpu_torch.models.bert import (
+        BertForMaskedLM,
+        BertForPreTraining,
+        bert_large,
+    )
+
+    cfg = bert_large(torch.bfloat16)
+    n = cfg.num_hidden_layers
+    ids, mask, types, pos, labels, nsp = bert_inputs(cfg.vocab_size)
+    valid = int(mask.sum())
+    mlm = BertForMaskedLM(cfg, device="cuda")
+    mlm.reset_parameters(torch.Generator(device="cuda").manual_seed(3))
+    mlm.requires_grad_(False)
+    n_params = sum(p.numel() for p in mlm.parameters())
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        logits = mlm(ids, mask, types, pos)
+        torch.cuda.synchronize()
+        inf_launches = kernel_counts()
+        want = want_counts(flash_varlen_fwd_persistent=n)
+        require(inf_launches == want, f"BERT forward launches {inf_launches},"
+                                      f" want {want}")
+        require(logits.shape == (BERT_BATCH, BERT_MASKED, cfg.vocab_size)
+                and bool(torch.isfinite(logits).all()), "BERT MLM logits")
+        print(f"BERT-large: {n_params / 1e6:.1f}M parameters, {n} layers; "
+              f"BertForMaskedLM forward on {BERT_BATCH} x {BERT_SEQ} rows "
+              f"({valid} valid tokens, {BERT_MASKED} masked positions a row): "
+              f"launches {inf_launches}; logits {tuple(logits.shape)}, finite")
+        hidden = mlm.bert(ids, mask, types)
+        diffs = []
+        for i in range(4):
+            n_i = BERT_LENS[i]
+            alone = mlm.bert(ids[i:i + 1, :n_i], None, types[i:i + 1, :n_i])
+            diffs.append((hidden[i, :n_i].float() - alone[0].float()).abs())
+        d_max = max(x.max().item() for x in diffs)
+        d_mean = sum(x.sum().item() for x in diffs) / sum(x.numel()
+                                                          for x in diffs)
+        print(f"BERT-large oracle: rows 0-3 alone without a mask (dense B1) "
+              f"vs the packed path (B7): valid hidden states max abs diff "
+              f"{d_max:.4f} (bound {BERT_HIDDEN_MAX}), mean {d_mean:.5f} "
+              f"(bound {BERT_HIDDEN_MEAN}); hidden std "
+              f"{hidden[mask].float().std().item():.3f}")
+        require(d_max <= BERT_HIDDEN_MAX and d_mean <= BERT_HIDDEN_MEAN,
+                "packed BERT disagrees with per-row dense runs")
+        del hidden, diffs, logits
+        fwd_ms = wall_ms(lambda: mlm(ids, mask, types, pos), runs=5)
+    del mlm
+    torch.cuda.empty_cache()
+
+    model = BertForPreTraining(cfg, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(3))
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        mlm_logits, nsp_logits = model(ids, mask, types, pos)
+        mlm_loss = F.cross_entropy(mlm_logits.flatten(0, 1), labels.flatten())
+        loss = mlm_loss + F.cross_entropy(nsp_logits, nsp)
+        loss.backward()
+        return mlm_loss, loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    mlm_loss, loss = step()
+    torch.cuda.synchronize()
+    step_launches = kernel_counts()
+    want = want_counts(flash_varlen_fwd_persistent=n, fa_varlen_bwd_dkdv=n,
+                       fa_varlen_bwd_dq=n)
+    require(step_launches == want, f"BERT training step launches "
+                                   f"{step_launches}, want {want}")
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in model.parameters())
+    ln_v = math.log(cfg.vocab_size)
+    print(f"BERT-large BertForPreTraining MLM + NSP step: launches "
+          f"{step_launches}; MLM loss {mlm_loss.item():.4f} (ln vocab "
+          f"{ln_v:.4f}), total {loss.item():.4f}; every gradient finite: "
+          f"{finite}")
+    require(finite and math.isfinite(loss.item()), "non-finite BERT step")
+    require(abs(mlm_loss.item() - ln_v) <= FIRST_LOSS_BAND,
+            f"BERT MLM loss {mlm_loss.item()} not within {FIRST_LOSS_BAND} of "
+            f"ln(vocab)")
+    step_ms = wall_ms(step, runs=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dev_ms = device_families(
+        step, {"attention forward (B7)": ("varlen_fwd",),
+               "attention backward (B6 dK/dV + dQ)": ("varlen_dkdv",
+                                                      "varlen_dq"),
+               "matmuls (cuBLAS)": MATMULS, "copies and casts": COPIES},
+        "one BERT-large MLM + NSP step")
+    result = {"forward_ms": fwd_ms, "step_ms": step_ms, "peak_gb": peak_gb,
+              "forward_tokens_per_s": valid / fwd_ms * 1e3,
+              "step_tokens_per_s": valid / step_ms * 1e3,
+              "step_device_ms": dev_ms, "step_idle_share": 1 - dev_ms / step_ms}
+    print(f"BERT-large at {BERT_BATCH} x {BERT_SEQ} ({valid} valid tokens) on "
+          f"{card}: MLM forward {fwd_ms:.2f} ms ({result['forward_tokens_per_s']:.0f}"
+          f" valid tokens/s), MLM + NSP forward + backward {step_ms:.2f} ms "
+          f"({result['step_tokens_per_s']:.0f} valid tokens/s), median of 5; "
+          f"peak memory {peak_gb:.2f} GB (max_memory_allocated); a step's "
+          f"device time {dev_ms:.2f} ms, idle share "
+          f"{result['step_idle_share']:.3f}")
+    del model
+    torch.cuda.empty_cache()
+    launches = {k: inf_launches[k] + step_launches[k] for k in step_launches}
+    return launches, result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -1171,6 +1721,9 @@ def main() -> int:
     vp_err, vp_t = phase("varlen-paged kernel checks", check_varlen_paged, gen)
     bwd_err, bwd_timing = phase("backward kernel checks", check_bwd, gen)
     api_launches = phase("flash_attn_func backward", run_api_backward, gen)
+    vl_err, vl_t = phase("varlen kernel checks", check_varlen, gen)
+    bench_vl_launches, bench_vl = phase("bench varlen", run_bench_varlen, gen,
+                                        card)
     launches, ttft, tok_s = phase("static serving", run_slice, gen)
     print(f"time to first token (b={BATCH}, prompt {PROMPT}, median of 5): "
           f"{ttft * 1e3:.2f} ms; decode {tok_s:.1f} tokens/s at b={BATCH} "
@@ -1190,6 +1743,15 @@ def main() -> int:
           f"{train['step_ms']:.1f} ms; {train['tokens_per_s']:.0f} tokens/s; "
           f"{train['tflops_per_s']:.1f} TFLOP/s (model_flops_per_token); peak "
           f"memory {train['peak_gb']:.2f} GB (max_memory_allocated) on {card}")
+    bert_launches, bert = phase("BERT-large", run_bert, card)
+    print(f"BERT-large (bert-large-uncased widths, 24 layers) at "
+          f"{BERT_BATCH} x {BERT_SEQ}: MLM forward {bert['forward_ms']:.2f} ms,"
+          f" forward + backward {bert['step_ms']:.2f} ms, "
+          f"{bert['step_tokens_per_s']:.0f} valid tokens/s trained, peak "
+          f"{bert['peak_gb']:.2f} GB; varlen TFLOP/s (bench.py shapes): "
+          f"{bench_vl['const_tflops']:.1f} (4 x 8192), "
+          f"{bench_vl['mixed_tflops']:.1f} (mixed causal), "
+          f"{bench_vl['mixed_bwd_tflops']:.1f} (mixed backward) on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -1215,7 +1777,22 @@ def main() -> int:
         entry("flash_bwd_fused", "flash_bwd.cu", "flash_bwd_fused.py:64",
               api_launches[False]["flash_bwd_fused"],
               bwd_err["flash_bwd_fused"], bwd_timing["flash_bwd_fused"]),
-    ], "engines": {"paged": paged, "prefix_cache": prefix}}))
+        entry("flash_varlen_fwd", "flash_varlen.cu", "flash_varlen.py:79",
+              bench_vl_launches["flash_varlen_fwd"], vl_err["flash_varlen_fwd"],
+              vl_t["bench.py mixed"]["flash_varlen_fwd"]),
+        entry("flash_varlen_fwd_persistent", "flash_varlen.cu",
+              "flash_varlen_persistent.py:72",
+              bert_launches["flash_varlen_fwd_persistent"],
+              vl_err["flash_varlen_fwd_persistent"],
+              vl_t["BERT-large packing"]["flash_varlen_fwd_persistent"]),
+        entry("fa_varlen_bwd_dkdv", "flash_varlen.cu", "flash_varlen.py:462",
+              bert_launches["fa_varlen_bwd_dkdv"], vl_err["fa_varlen_bwd_dkdv"],
+              vl_t["BERT-large packing"]["fa_varlen_bwd_dkdv"]),
+        entry("fa_varlen_bwd_dq", "flash_varlen.cu", "flash_varlen.py:651",
+              bert_launches["fa_varlen_bwd_dq"], vl_err["fa_varlen_bwd_dq"],
+              vl_t["BERT-large packing"]["fa_varlen_bwd_dq"]),
+    ], "engines": {"paged": paged, "prefix_cache": prefix},
+        "varlen": {"timings": vl_t, "bench": bench_vl}, "bert": bert}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,10 @@ not for VMEM (the TPU's VMEM budgeting helpers have no counterpart here).
 """
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
+
+import torch
 
 # Head dims the two CUDA kernels are compiled for.
 KERNEL_HEAD_DIMS = (64, 128)
@@ -74,6 +77,24 @@ DECODE_BLOCK_K = 64
 # blocks. The K/V tile does not follow the page either: its rows load one
 # by one through the table, so any page size fits a 64-key tile.
 VARLEN_PAGED_TILE = FwdConfig(block_q=64, block_k=64)
+
+
+# Tiles of csrc/flash_varlen.cu. Its forwards (B6 and the persistent B7) run
+# the dense forward's tile loop (csrc/fwd_tile.cuh), so they take its 64 x 64
+# tile; its backward runs the dense backward's loops with the tiles of
+# get_bwd_config. The JAX kernels tile the flat token axis with blocks of up
+# to 512 rows (get_fwd_config) so that each DMA is large and aligned; here a
+# tile is 64 rows of one sequence, which keeps the ragged edge of each
+# sequence to one partial tile.
+VARLEN_FWD_TILE = FWD_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``device_index``, read once:
+    the persistent varlen forward's grid is this many times the blocks that
+    fit on one SM (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def normalize_window(

@@ -1,13 +1,17 @@
-"""Public attention API: ``flash_attn_func``, differentiable, and
-``flash_attn_varlen_func`` over a paged cache, forward only.
+"""Public attention API: ``flash_attn_func`` and ``flash_attn_varlen_func``,
+both differentiable, with their packed forms.
 
 Port of flash_attn_tpu/interface.py ``flash_attn_func`` (:208) and its
 ``jax.custom_vjp`` (:98-205) as a ``torch.autograd.Function``. Takes and
 returns (batch, seqlen, nheads, head_dim) tensors; the forward runs the
 kernel of kernels/flash_fwd.py, the backward those of kernels/flash_bwd.py
-(the plain versions for CPU tensors). ``flash_attn_varlen_func`` (:403) is
-ported for its ``block_table=`` route (:499-546), the chunked prefill of
-the serving engine, through kernels/flash_varlen_paged.py.
+(the plain versions for CPU tensors). ``flash_attn_varlen_func`` (:403-496,
+``custom_vjp`` :323-400) takes packed (total, nheads, head_dim) tensors: its
+dense route runs the persistent forward of kernels/flash_varlen_persistent.py
+and the backward of kernels/flash_varlen.py; its ``block_table=`` route
+(:499-546), the chunked prefill of the serving engine, runs
+kernels/flash_varlen_paged.py, forward only. The packed forms (:594-680)
+slice q, k and v out of one tensor.
 """
 
 import math
@@ -15,15 +19,28 @@ from typing import Optional, Tuple
 
 import torch
 
-from flash_attn_tpu_torch.dispatch.config import normalize_window
+from flash_attn_tpu_torch.dispatch.config import (
+    VARLEN_FWD_TILE,
+    normalize_window,
+)
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
+from flash_attn_tpu_torch.kernels.flash_varlen import (
+    flash_attention_varlen_bwd,
+    varlen_meta,
+)
 from flash_attn_tpu_torch.kernels.flash_varlen_paged import (
     flash_attention_varlen_paged_fwd,
 )
+from flash_attn_tpu_torch.kernels.flash_varlen_persistent import (
+    flash_attention_varlen_fwd_persistent,
+)
 
-__all__ = ["flash_attn_func", "flash_attn_varlen_func", "require_no_grad",
-           "reject_unsupported"]
+__all__ = ["flash_attn_func", "flash_attn_kvpacked_func",
+           "flash_attn_qkvpacked_func", "flash_attn_varlen_func",
+           "flash_attn_varlen_kvpacked_func",
+           "flash_attn_varlen_qkvpacked_func", "reject_unsupported",
+           "require_no_grad"]
 
 
 def require_no_grad(name: str, *tensors) -> None:
@@ -54,6 +71,15 @@ def reject_unsupported(name: str, roadmap_item: str = "", **args) -> None:
             f"{roadmap_item or 'lists the arguments still to port'})")
 
 
+def _kernel_layout(dout):
+    """dout as the kernels read it: 16-byte chunks along the head dim
+    (autograd may hand a cotangent in any layout)."""
+    if dout.stride(-1) != 1 or any(st % 8 for st in dout.stride()[:-1]) \
+            or dout.data_ptr() % 16:
+        return dout.contiguous()
+    return dout
+
+
 class _FlashAttn(torch.autograd.Function):
     """out, lse = attention(q, k, v) on (b, s, h, d) tensors; the lse is an
     inspection output whose cotangent is dropped, as in JAX."""
@@ -73,11 +99,7 @@ class _FlashAttn(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         softmax_scale, causal, deterministic = ctx.args
-        # The kernels read 16-byte chunks along the head dim; autograd may
-        # hand dout in any layout.
-        if dout.stride(-1) != 1 or any(st % 8 for st in dout.stride()[:-1]) \
-                or dout.data_ptr() % 16:
-            dout = dout.contiguous()
+        dout = _kernel_layout(dout)
         dq, dk, dv = flash_attention_bwd(
             dout.transpose(1, 2), q.transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), out.transpose(1, 2), lse,
@@ -134,12 +156,39 @@ def flash_attn_func(
     return (out, lse, None) if return_attn_probs else out
 
 
+class _FlashAttnVarlen(torch.autograd.Function):
+    """out, lse = packed varlen attention; the forward is the persistent
+    kernel (B7), the backward the dK/dV + dQ kernels (B6). ``meta`` holds
+    the work lists of both; the lse is an inspection output whose cotangent
+    is dropped, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q,
+                seqused_k, meta, max_seqlen_q, max_seqlen_k, softmax_scale,
+                causal):
+        args = (cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+                seqused_q, seqused_k, softmax_scale, causal)
+        out, lse = flash_attention_varlen_fwd_persistent(q, k, v, *args,
+                                                         meta=meta)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args, ctx.meta = args, meta
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_varlen_bwd(
+            _kernel_layout(dout), q, k, v, out, lse, *ctx.args, meta=ctx.meta)
+        return (dq, dk, dv) + (None,) * 9
+
+
 def flash_attn_varlen_func(
     q,  # (total_q, nheads, head_dim)
-    k,  # paged: (num_pages, nheads_k, page_size, head_dim)
+    k,  # (total_k, nheads_k, head_dim); paged: (num_pages, nheads_k, page_size, head_dim)
     v,
     cu_seqlens_q,  # (batch + 1,) int32
-    cu_seqlens_k,  # (batch + 1,) int32, or None with seqused_k
+    cu_seqlens_k,  # (batch + 1,) int32, or None with block_table and seqused_k
     max_seqlen_q: int,
     max_seqlen_k: int,
     dropout_p: float = 0.0,
@@ -162,36 +211,151 @@ def flash_attn_varlen_func(
     v_descale=None,
     scheduler_metadata=None,
 ):
-    """Packed varlen attention over a paged KV cache, forward only (as in
-    JAX, where paged attention has no backward).
+    """Packed varlen attention. Sequence i owns query rows cu_seqlens_q[i]
+    .. cu_seqlens_q[i + 1] (its first seqused_q[i] when given) and the same
+    range of keys; ``max_seqlen_q/k`` bound the sequences' lengths. Causal
+    masking is bottom-right aligned per sequence. Rows in no sequence (the
+    packed tail of ``unpad_input``) give zeros.
 
-    With ``block_table``, ``k``/``v`` are paged caches (num_pages, nheads_k,
-    page_size, head_dim), and each sequence's key count comes from
-    ``seqused_k`` (or the deltas of ``cu_seqlens_k``). Query rows are packed
-    by ``cu_seqlens_q``; ``seqused_q`` gives each sequence's true query
-    length inside a padded layout. Causal masking is bottom-right aligned.
-    Returns out (total_q, nheads, head_dim); with ``return_attn_probs``,
-    (out, lse (nheads, total_q) fp32). Window, softcap, ALiBi, chunking,
-    sinks, descales and ``qv`` raise NotImplementedError (ROADMAP.md queue
-    A, item 7); so does the dense varlen route without ``block_table``
-    (queue A, item 5)."""
-    if block_table is None:
-        raise NotImplementedError(
-            "flash_attn_varlen_func: only the paged route (block_table=) is "
-            "ported; dense packed varlen attention (the B6/B7 kernels) is "
-            "ROADMAP.md queue A, item 5")
+    Without ``block_table``: k/v are packed (total_k, nheads_k, head_dim),
+    differentiable in q, k and v; ``deterministic`` is accepted and changes
+    nothing (the backward always writes each gradient once, as in JAX);
+    ``scheduler_metadata`` from :func:`get_scheduler_metadata` reuses the
+    work lists. Returns out (total_q, nheads, head_dim); with
+    ``return_attn_probs``, (out, lse (nheads, total_q) fp32, None).
+
+    With ``block_table``: k/v are paged caches (num_pages, nheads_k,
+    page_size, head_dim), each sequence's key count from ``seqused_k`` (or
+    the deltas of ``cu_seqlens_k``), forward only (as in JAX, where paged
+    attention has no backward); with ``return_attn_probs``, (out, lse).
+
+    Window, softcap, ALiBi, chunking, sinks, dropout, descales and ``qv``
+    raise NotImplementedError (ROADMAP.md queue A, item 7)."""
     reject_unsupported(
         "flash_attn_varlen_func", roadmap_item="queue A, item 7",
         dropout_p=dropout_p,
         window_size=normalize_window(tuple(window_size)), softcap=softcap,
         alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
         learnable_sink=learnable_sink, qv=qv, dropout_rng=dropout_rng,
-        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
-        scheduler_metadata=scheduler_metadata)
-    require_no_grad("flash_attn_varlen_func", q, k, v)
-    if seqused_k is None:
-        seqused_k = cu_seqlens_k[1:] - cu_seqlens_k[:-1]
-    out, lse = flash_attention_varlen_paged_fwd(
-        q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k, block_table,
-        seqused_q=seqused_q, softmax_scale=softmax_scale, causal=causal)
-    return (out, lse) if return_attn_probs else out
+        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
+    if block_table is not None:
+        if scheduler_metadata is not None:
+            raise NotImplementedError(
+                "flash_attn_varlen_func: scheduler_metadata with block_table "
+                "is not ported yet (ROADMAP.md queue A, item 7)")
+        require_no_grad("flash_attn_varlen_func", q, k, v)
+        if seqused_k is None:
+            seqused_k = cu_seqlens_k[1:] - cu_seqlens_k[:-1]
+        out, lse = flash_attention_varlen_paged_fwd(
+            q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k, block_table,
+            seqused_q=seqused_q, softmax_scale=softmax_scale, causal=causal)
+        return (out, lse) if return_attn_probs else out
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
+    meta = None
+    if scheduler_metadata is not None:
+        if (scheduler_metadata.block_q, scheduler_metadata.block_k) != (
+                VARLEN_FWD_TILE.block_q, VARLEN_FWD_TILE.block_k):
+            raise ValueError(
+                "flash_attn_varlen_func: scheduler_metadata tiles "
+                f"{scheduler_metadata.block_q} x {scheduler_metadata.block_k}"
+                f", the kernels' are {VARLEN_FWD_TILE}")
+        meta = scheduler_metadata.meta
+    meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, int(max_seqlen_q),
+                       int(max_seqlen_k), seqused_q, seqused_k, causal, meta)
+    out, lse = _FlashAttnVarlen.apply(
+        q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k, meta,
+        int(max_seqlen_q), int(max_seqlen_k), softmax_scale, causal)
+    return (out, lse, None) if return_attn_probs else out
+
+
+def flash_attn_varlen_qkvpacked_func(
+    qkv,  # (total, 3, nheads, head_dim)
+    cu_seqlens,
+    max_seqlen: int,
+    dropout_p: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    window_size: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+    alibi_slopes=None,
+    deterministic: bool = True,
+    return_attn_probs: bool = False,
+):
+    """:func:`flash_attn_varlen_func` on q, k, v = qkv[:, 0], [:, 1], [:, 2]
+    with one cu_seqlens for both sides."""
+    return flash_attn_varlen_func(
+        qkv[:, 0], qkv[:, 1], qkv[:, 2], cu_seqlens, cu_seqlens,
+        max_seqlen, max_seqlen, dropout_p=dropout_p,
+        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
+        softcap=softcap, alibi_slopes=alibi_slopes,
+        deterministic=deterministic, return_attn_probs=return_attn_probs)
+
+
+def flash_attn_varlen_kvpacked_func(
+    q,  # (total_q, nheads, head_dim)
+    kv,  # (total_k, 2, nheads_k, head_dim)
+    cu_seqlens_q,
+    cu_seqlens_k,
+    max_seqlen_q: int,
+    max_seqlen_k: int,
+    dropout_p: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    window_size: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+    alibi_slopes=None,
+    deterministic: bool = True,
+    return_attn_probs: bool = False,
+):
+    """:func:`flash_attn_varlen_func` on k, v = kv[:, 0], kv[:, 1]."""
+    return flash_attn_varlen_func(
+        q, kv[:, 0], kv[:, 1], cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+        max_seqlen_k, dropout_p=dropout_p, softmax_scale=softmax_scale,
+        causal=causal, window_size=window_size, softcap=softcap,
+        alibi_slopes=alibi_slopes, deterministic=deterministic,
+        return_attn_probs=return_attn_probs)
+
+
+def flash_attn_qkvpacked_func(
+    qkv,  # (batch, seqlen, 3, nheads, head_dim)
+    dropout_p: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    window_size: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+    alibi_slopes=None,
+    deterministic: bool = True,
+    return_attn_probs: bool = False,
+    dropout_rng=None,
+):
+    """:func:`flash_attn_func` on q, k, v = qkv[:, :, 0], [:, :, 1],
+    [:, :, 2]."""
+    return flash_attn_func(
+        qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], dropout_p=dropout_p,
+        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
+        softcap=softcap, alibi_slopes=alibi_slopes,
+        deterministic=deterministic, return_attn_probs=return_attn_probs,
+        dropout_rng=dropout_rng)
+
+
+def flash_attn_kvpacked_func(
+    q,  # (batch, seqlen_q, nheads, head_dim)
+    kv,  # (batch, seqlen_k, 2, nheads_k, head_dim)
+    dropout_p: float = 0.0,
+    softmax_scale: Optional[float] = None,
+    causal: bool = False,
+    window_size: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+    alibi_slopes=None,
+    deterministic: bool = True,
+    return_attn_probs: bool = False,
+    dropout_rng=None,
+):
+    """:func:`flash_attn_func` on k, v = kv[:, :, 0], kv[:, :, 1]."""
+    return flash_attn_func(
+        q, kv[:, :, 0], kv[:, :, 1], dropout_p=dropout_p,
+        softmax_scale=softmax_scale, causal=causal, window_size=window_size,
+        softcap=softcap, alibi_slopes=alibi_slopes,
+        deterministic=deterministic, return_attn_probs=return_attn_probs,
+        dropout_rng=dropout_rng)

@@ -1,0 +1,263 @@
+"""Packed varlen attention, forward (B6) and backward: the CUDA kernels of
+``csrc/flash_varlen.cu`` and their plain PyTorch versions.
+
+Port of flash_attn_tpu/kernels/flash_varlen.py ``flash_attention_varlen_fwd``
+(:285) and ``flash_attention_varlen_bwd`` (:807): q (total_q, h, d) and k/v
+(total_k, h_k, d) packed by ``cu_seqlens``, ``seqused`` giving each
+sequence's true length inside its slot, bottom-right causal masking per
+sequence. Rows that see no key, rows past a sequence's length and rows past
+``cu_seqlens[-1]`` give out 0 and lse -inf, and zero gradients. The JAX
+kernels tile the flat token axis and mask by segment ids; here the wrapper
+builds per-sequence work lists with torch ops (dispatch/varlen_meta.py), so
+nothing is read back to the host. delta = rowsum(dO * O) stays a torch op,
+as it was an XLA op in JAX. A tensor on the CPU takes the plain version; a
+CUDA tensor launches the kernels or raises.
+"""
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from flash_attn_tpu_torch.dispatch.config import (
+    KERNEL_HEAD_DIMS,
+    VARLEN_FWD_TILE,
+    get_bwd_config,
+    num_sms,
+)
+from flash_attn_tpu_torch.dispatch.varlen_meta import compute_varlen_meta
+from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd_plain
+from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd_plain
+
+# Kernel launches since the last reset (plain calls not counted).
+launches_fwd = 0
+launches_dkdv = 0
+launches_dq = 0
+
+
+def _host_lengths(cu_seqlens, seqused):
+    """(offsets, lengths) of the sequences as host lists, the lengths cut
+    to the cu_seqlens deltas."""
+    cu = cu_seqlens.tolist()
+    lens = [hi - lo for lo, hi in zip(cu[:-1], cu[1:])]
+    if seqused is not None:
+        lens = [min(a, u) for a, u in zip(lens, seqused.tolist())]
+    return cu[:-1], lens
+
+
+def _heads_first(x):
+    """(s, h, d) rows of one sequence as a (1, h, s, d) view."""
+    return x.transpose(0, 1)[None]
+
+
+def flash_attention_varlen_fwd_plain(
+        q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
+        max_seqlen_k: int, seqused_q=None, seqused_k=None,
+        softmax_scale: Optional[float] = None, causal: bool = False):
+    """One sequence at a time through the dense plain forward (fp32).
+    Returns out (total_q, h, dv) in q's type and lse (h, total_q) fp32."""
+    total_q, h, _ = q.shape
+    out = q.new_zeros((total_q, h, v.shape[-1]))
+    lse = torch.full((h, total_q), float("-inf"), device=q.device)
+    for (q0, lq), (k0, lk) in zip(zip(*_host_lengths(cu_seqlens_q, seqused_q)),
+                                  zip(*_host_lengths(cu_seqlens_k, seqused_k))):
+        if lq == 0:
+            continue
+        o, l = flash_attention_fwd_plain(
+            _heads_first(q[q0:q0 + lq]), _heads_first(k[k0:k0 + lk]),
+            _heads_first(v[k0:k0 + lk]), softmax_scale, causal)
+        out[q0:q0 + lq] = o[0].transpose(0, 1)
+        lse[:, q0:q0 + lq] = l[0]
+    return out, lse
+
+
+def flash_attention_varlen_bwd_plain(
+        do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
+        max_seqlen_k: int, seqused_q=None, seqused_k=None,
+        softmax_scale: Optional[float] = None, causal: bool = False):
+    """One sequence at a time through the dense plain backward (fp32).
+    Returns (dq, dk, dv) in q's, k's and v's types, zero outside the
+    sequences; a GQA group's gradients sum into its KV head."""
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    for (q0, lq), (k0, lk) in zip(zip(*_host_lengths(cu_seqlens_q, seqused_q)),
+                                  zip(*_host_lengths(cu_seqlens_k, seqused_k))):
+        if lq == 0 or lk == 0:
+            continue
+        rows, keys = slice(q0, q0 + lq), slice(k0, k0 + lk)
+        g = flash_attention_bwd_plain(
+            _heads_first(do[rows]), _heads_first(q[rows]),
+            _heads_first(k[keys]), _heads_first(v[keys]),
+            _heads_first(out[rows]), lse[None, :, rows], softmax_scale, causal)
+        dq[rows] = g[0][0].transpose(0, 1)
+        dk[keys] = g[1][0].transpose(0, 1)
+        dv[keys] = g[2][0].transpose(0, 1)
+    return dq, dk, dv
+
+
+def check_kernel_inputs(name: str, q, k, v, cu_seqlens_q, cu_seqlens_k):
+    """What the varlen kernels take: bf16/fp16 (total, heads, d) tensors on
+    one card with equal head dims in KERNEL_HEAD_DIMS, h % h_k == 0, 16-byte
+    rows, and b + 1 offsets on both sides."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"{name} kernel: dtype {q.dtype} (bf16/fp16 only)")
+    d = q.shape[-1]
+    if q.dim() != 3 or k.dim() != 3 or d not in KERNEL_HEAD_DIMS \
+            or k.shape[-1] != d or v.shape != k.shape:
+        raise ValueError(
+            f"{name} kernel: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}; needs (total, heads, d) with equal head "
+            f"dims in {KERNEL_HEAD_DIMS}")
+    h, h_k = q.shape[1], k.shape[1]
+    if h % h_k or h > 65535 or cu_seqlens_q.numel() != cu_seqlens_k.numel() \
+            or cu_seqlens_q.numel() < 2:
+        raise ValueError(
+            f"{name} kernel: {h} heads over {h_k} KV heads, cu_seqlens of "
+            f"{cu_seqlens_q.numel()} and {cu_seqlens_k.numel()} offsets")
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        _build.check_operand(name, arg, x, q.dtype, q.device)
+
+
+def varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+                seqused_q, seqused_k, causal, meta):
+    """``meta`` if given (get_scheduler_metadata), else the work lists of
+    this call, on q's device."""
+    if meta is not None:
+        return meta
+    return compute_varlen_meta(
+        cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, q.shape[0],
+        k.shape[0], causal=causal, seqused_q=seqused_q, seqused_k=seqused_k,
+        device=q.device)
+
+
+def _as_int32(x, device):
+    return x.to(device, torch.int32).contiguous()
+
+
+def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
+               causal: bool, persistent: bool):
+    """Allocate out (zeros) and lse (-inf) and launch fa_varlen_fwd over
+    ``meta.q_tiles`` or, ``persistent``, fa_varlen_fwd_persistent over
+    ``meta.schedule``. Returns (out, lse, grid), grid 0 for the former."""
+    total_q, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
+    out = torch.zeros((total_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
+                     device=q.device)
+    tiles = meta.schedule if persistent else meta.q_tiles
+    cu_q, cu_k, lens_q, lens_k = (_as_int32(x, q.device) for x in (
+        cu_seqlens_q, cu_seqlens_k, meta.lens_q, meta.lens_k))
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), cu_q.data_ptr(), cu_k.data_ptr(),
+            lens_q.data_ptr(), lens_k.data_ptr(), tiles.data_ptr(),
+            tiles.shape[0], total_q, h, k.shape[1], d,
+            VARLEN_FWD_TILE.block_q, VARLEN_FWD_TILE.block_k,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            scale, int(causal), int(q.dtype == torch.bfloat16)]
+    lib = _build.load_library()
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if persistent:
+            err = lib.fa_varlen_fwd_persistent(
+                *args, num_sms(q.device.index),
+                ctypes.byref(grid), stream)
+        else:
+            err = lib.fa_varlen_fwd(*args, stream)
+    _build.check(err, "fa_varlen_fwd_persistent" if persistent
+                 else "fa_varlen_fwd")
+    return out, lse, grid.value
+
+
+def flash_attention_varlen_fwd(
+        q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
+        max_seqlen_k: int, seqused_q=None, seqused_k=None,
+        softmax_scale: Optional[float] = None, causal: bool = False,
+        meta=None):
+    """q (total_q, h, d), k/v (total_k, h_k, d) packed by cu_seqlens_q/k
+    (b + 1,); seqused_q/k (b,) true lengths or None; ``max_seqlen_q/k``
+    bound the sequences' lengths; ``meta`` a precomputed VarlenMeta.
+    Returns (out (total_q, h, d) in q's type, lse (h, total_q) fp32).
+    CUDA: one block per (q tile, head)."""
+    if q.device.type == "cpu":
+        return flash_attention_varlen_fwd_plain(
+            q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+            seqused_q, seqused_k, softmax_scale, causal)
+    check_kernel_inputs("flash_varlen_fwd", q, k, v, cu_seqlens_q,
+                        cu_seqlens_k)
+    meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                       max_seqlen_k, seqused_q, seqused_k, causal, meta)
+    out, lse, _ = launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta,
+                             softmax_scale, causal, persistent=False)
+    global launches_fwd
+    launches_fwd += 1
+    return out, lse
+
+
+def flash_attention_varlen_bwd(
+        do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
+        max_seqlen_k: int, seqused_q=None, seqused_k=None,
+        softmax_scale: Optional[float] = None, causal: bool = False,
+        meta=None):
+    """dq, dk, dv of packed varlen attention saved by a varlen forward.
+    do/out (total_q, h, d), lse (h, total_q); the rest as
+    :func:`flash_attention_varlen_fwd`. Returns (dq, dk, dv) in the inputs'
+    types. CUDA: the dK/dV kernel (one block per (k tile, KV head), the
+    group's heads summed in the block) then the dQ kernel (one block per
+    (q tile, head)), each writing its gradient once: deterministic."""
+    if q.device.type == "cpu":
+        return flash_attention_varlen_bwd_plain(
+            do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+            max_seqlen_k, seqused_q, seqused_k, softmax_scale, causal)
+    check_kernel_inputs("flash_varlen_bwd", q, k, v, cu_seqlens_q,
+                        cu_seqlens_k)
+    total_q, h, d = q.shape
+    total_k, h_k, _ = k.shape
+    if do.shape != q.shape or out.shape != q.shape \
+            or lse.shape != (h, total_q):
+        raise ValueError(
+            f"flash_varlen_bwd kernel: shapes q {tuple(q.shape)}, do "
+            f"{tuple(do.shape)}, out {tuple(out.shape)}, lse {tuple(lse.shape)}")
+    _build.check_operand("flash_varlen_bwd", "do", do, q.dtype, q.device)
+    meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                       max_seqlen_k, seqused_q, seqused_k, causal, meta)
+    scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
+    lse = lse.float().contiguous()
+    delta = (do.float() * out.float()).sum(-1).T.contiguous()  # (h, total_q)
+    dq = torch.zeros((total_q, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((total_k, h_k, d), dtype=k.dtype, device=q.device)
+    dv = torch.zeros((total_k, h_k, d), dtype=v.dtype, device=q.device)
+    cu_q, cu_k, lens_q, lens_k = (_as_int32(x, q.device) for x in (
+        cu_seqlens_q, cu_seqlens_k, meta.lens_q, meta.lens_k))
+    dkdv_tile, dq_tile = get_bwd_config(d)
+    strides = [q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+               v.stride(0), v.stride(1), do.stride(0), do.stride(1)]
+    common = [cu_q.data_ptr(), cu_k.data_ptr(), lens_q.data_ptr(),
+              lens_k.data_ptr()]
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    lib = _build.load_library()
+    global launches_dkdv, launches_dq
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.fa_varlen_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *common, meta.k_tiles.data_ptr(), meta.k_tiles.shape[0], total_q,
+            h, h_k, d, dkdv_tile.block_q, dkdv_tile.block_k, *strides,
+            dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1),
+            scale, int(causal), is_bf16, stream)
+        _build.check(err, "fa_varlen_bwd_dkdv")
+        launches_dkdv += 1
+        err = lib.fa_varlen_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common,
+            meta.q_tiles.data_ptr(), meta.q_tiles.shape[0], total_q, h, h_k,
+            d, dq_tile.block_q, dq_tile.block_k, *strides, dq.stride(0),
+            dq.stride(1), scale, int(causal), is_bf16, stream)
+        _build.check(err, "fa_varlen_bwd_dq")
+        launches_dq += 1
+    return dq, dk, dv

@@ -23,6 +23,10 @@ from flash_attn_tpu_torch.dispatch.config import (
     KERNEL_HEAD_DIMS,
     VARLEN_PAGED_TILE,
 )
+from flash_attn_tpu_torch.dispatch.varlen_meta import (
+    sequence_lengths,
+    varlen_tiles,
+)
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
@@ -87,22 +91,6 @@ def flash_attention_varlen_paged_fwd_plain(
     return out_p, lse_p
 
 
-def varlen_tiles(cu_seqlens_q, max_seqlen_q: int, block_q: int):
-    """The kernel's work list: (b * ceil(max_seqlen_q / block_q), 2) int32
-    of (sequence, first local row) per query tile, sequence -1 past the last
-    tile of the batch. Built with torch ops on cu_seqlens_q's device."""
-    b = cu_seqlens_q.numel() - 1
-    cu = cu_seqlens_q.long()
-    ntiles = (cu[1:] - cu[:-1] + block_q - 1) // block_q
-    ends = torch.cumsum(ntiles, 0)
-    nq = b * -(-max_seqlen_q // block_q)
-    tidx = torch.arange(nq, device=cu.device)
-    seq = torch.searchsorted(ends, tidx, right=True).clamp(max=b - 1)
-    first = (tidx - (ends[seq] - ntiles[seq])) * block_q
-    seq = torch.where(tidx < ends[-1], seq, -1)
-    return torch.stack([seq, first], 1).to(torch.int32).contiguous()
-
-
 def flash_attention_varlen_paged_fwd(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
@@ -139,11 +127,12 @@ def flash_attention_varlen_paged_fwd(
         return x.to(q.device, torch.int32).contiguous()
 
     cu = as_int32(cu_seqlens_q)
-    _, lens_q = _lengths(cu, None if seqused_q is None else as_int32(seqused_q))
-    lens_q, lens_k, table = (as_int32(x) for x in (lens_q, seqlens_k,
-                                                   block_table))
+    lens_q, lens_k, table = (as_int32(x) for x in (
+        sequence_lengths(cu, seqused_q), seqlens_k, block_table))
     tile = VARLEN_PAGED_TILE
-    tiles = varlen_tiles(cu, max_seqlen_q, tile.block_q)
+    # rows past seqused_q are in no tile: they keep out's zeros and lse's -inf
+    tiles = varlen_tiles(lens_q, b * -(-max_seqlen_q // tile.block_q),
+                         tile.block_q)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     out = torch.zeros_like(q)
     lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,

@@ -27,7 +27,8 @@ from flash_attn_tpu_torch.ops.norm import layer_norm, rms_norm
 from flash_attn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "gpt_913m",
-           "jax_param_arrays", "lm_head_weights", "load_jax_params"]
+           "jax_param_arrays", "lm_head_weights", "load_jax_params",
+           "reset_flax_defaults"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,23 +250,32 @@ class GPTLMHeadModel(nn.Module):
             logits = logits * output_scale
         return logits
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random weights from ``generator`` with flax's default scales:
-        Dense kernels N(0, 1/fan_in) (lecun), embeddings N(0, 1/n_embd),
-        biases 0, norm weights 1."""
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
-                                   generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.Embedding):
-                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim),
-                                   generator=generator)
-        for name, p in self.named_parameters():
-            if "norm" in name or name.startswith("transformer.ln_f"):
-                p.fill_(0.0 if name.endswith("bias") else 1.0)
+        """Random weights from ``generator`` with flax's default scales
+        (:func:`reset_flax_defaults`)."""
+        reset_flax_defaults(self, generator, lambda name: "norm" in name
+                            or name.startswith("transformer.ln_f"))
+
+
+@torch.no_grad()
+def reset_flax_defaults(model: nn.Module, generator: torch.Generator,
+                        is_norm) -> None:
+    """Random weights from ``generator`` with flax's default scales: Dense
+    kernels N(0, 1/fan_in) (lecun), embeddings N(0, 1/embedding width),
+    biases 0; the parameters whose names ``is_norm`` accepts are norm
+    weights (1) and biases (0)."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
+                               generator=generator)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.Embedding):
+            mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim),
+                               generator=generator)
+    for name, p in model.named_parameters():
+        if is_norm(name):
+            p.fill_(0.0 if name.endswith("bias") else 1.0)
 
 
 def lm_head_weights(model: GPTLMHeadModel):

@@ -1,5 +1,7 @@
 """Multi-head attention (port of flash_attn_tpu/modules/mha.py ``MHA`` and
-``RotaryEmbedding``) in three modes:
+``RotaryEmbedding``) over packed sequences (``cu_seqlens``: x is (total,
+embed_dim), rotary by each token's position in its sequence, attention
+through ``flash_attn_varlen_func``) or in three modes:
 
  - ``"train"``: causal or full attention over the sequence, differentiable
    (the rotary tables are cached constants, not parameters);
@@ -134,8 +136,11 @@ class MHA(nn.Module):
 
     def forward(self, x, mode: str = "train", cache: Optional[KVCache] = None,
                 slot_ids=None, prefill_lengths=None, block_table=None,
-                prefix_lengths=None):
-        """x (b, s, embed_dim). ``cache`` is required in prefill (it is
+                prefix_lengths=None, cu_seqlens=None, max_seqlen=None):
+        """x (b, s, embed_dim), or (total, embed_dim) packed by
+        ``cu_seqlens`` (b + 1,) with ``max_seqlen`` bounding the sequences
+        (then, as in JAX, no cache is read or written, whatever the mode).
+        ``cache`` is required in prefill (it is
         filled, and allocated when empty) and decode (it is updated in
         place). Prefill takes ``slot_ids`` (b,): the cache rows (or block-
         table rows) the batch rows fill; ``prefill_lengths`` (b,): the true
@@ -143,6 +148,8 @@ class MHA(nn.Module):
         already cached in each slot's shared pages, x carrying only the
         rest. A paged cache needs ``block_table`` (n_slots, max_pages) in
         prefill and decode."""
+        if cu_seqlens is not None:
+            return self._forward_packed(x, cu_seqlens, max_seqlen)
         if mode not in ("train", "prefill", "decode"):
             raise NotImplementedError(f"MHA mode {mode!r}")
         if mode != "train" and cache is None:
@@ -228,6 +235,26 @@ class MHA(nn.Module):
                                 cache_batch_idx=slot_ids)
             self._set_offsets(cache, slot_ids, lengths)
         return self.out_proj(ctx.reshape(b, s, h * d))
+
+    def _forward_packed(self, x, cu_seqlens, max_seqlen: int):
+        """The packed path of JAX mha.py:207-229."""
+        total = x.shape[0]
+        h, h_k, d = self.num_heads, self.num_heads_kv, self.head_dim
+        q, k, v = self.Wqkv(x).split([h * d, h_k * d, h_k * d], dim=-1)
+        q = q.unflatten(-1, (h, d))
+        k = k.unflatten(-1, (h_k, d))
+        v = v.unflatten(-1, (h_k, d))
+        rope = self.rotary
+        if rope is not None:
+            cos, sin = rope.cos_sin(max_seqlen, x.device)
+            q = apply_rotary_emb(q, cos, sin, rope.interleaved,
+                                 cu_seqlens=cu_seqlens, max_seqlen=max_seqlen)
+            k = apply_rotary_emb(k, cos, sin, rope.interleaved,
+                                 cu_seqlens=cu_seqlens, max_seqlen=max_seqlen)
+        ctx = flash_attn_varlen_func(
+            q, k, v, cu_seqlens, cu_seqlens, max_seqlen, max_seqlen,
+            causal=self.causal, softmax_scale=self.softmax_scale)
+        return self.out_proj(ctx.reshape(total, h * d))
 
     @staticmethod
     def _set_offsets(cache: KVCache, slot_ids, lengths) -> None:

@@ -4,11 +4,13 @@
  - non-interleaved (GPT-NeoX style): pairs are the two halves.
  - interleaved (GPT-J style): pairs are even/odd lanes.
  - seqlen_offsets shifts the position index, as an int or per batch row.
+ - with cu_seqlens, x is packed (total, h, d) and each token's position is
+   its index within its sequence.
 cos/sin are cast to x's type before the rotation, as in the JAX package;
 the rotation itself is computed in fp32 and rounded once.
 """
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -34,21 +36,40 @@ def _rotate(x, cos, sin, interleaved: bool):
 
 
 def apply_rotary_emb(
-    x,    # (b, s, h, d)
+    x,    # (b, s, h, d), or packed (total, h, d) with cu_seqlens
     cos,  # (s_max, rot_dim / 2)
     sin,
     interleaved: bool = False,
     seqlen_offsets: Union[int, torch.Tensor] = 0,
+    cu_seqlens=None,  # (b + 1,) int32
+    max_seqlen: Optional[int] = None,
 ):
-    """Rotate x at positions offset + [0, s). Positions past the end of the
-    table take its last row, as the JAX gather does."""
+    """Rotate x at positions offset + [0, s), or, packed, at each token's
+    position within its sequence (plus its sequence's offset). Positions
+    past the end of the table take its last row, as the JAX gather does;
+    so do the packed tail's tokens (past cu_seqlens[-1]), which JAX counts
+    in the last sequence. ``max_seqlen`` is accepted for the JAX signature;
+    the table's length bounds the positions."""
     cos = cos.to(x.dtype)
     sin = sin.to(x.dtype)
+    last = cos.shape[0] - 1
+    if cu_seqlens is not None:
+        cu = cu_seqlens.to(x.device, torch.long)
+        idx = torch.arange(x.shape[0], device=x.device)
+        seg = (torch.searchsorted(cu, idx, right=True) - 1).clamp(
+            0, cu.numel() - 2)
+        pos = idx - cu[seg]
+        if isinstance(seqlen_offsets, int):
+            pos = pos + seqlen_offsets
+        else:
+            pos = pos + seqlen_offsets.to(x.device, torch.long)[seg]
+        pos = pos.clamp(max=last)
+        return _rotate(x, cos[pos], sin[pos], interleaved)
     s_len = x.shape[1]
     pos = torch.arange(s_len, device=x.device)
     if isinstance(seqlen_offsets, int):
-        pos = (pos + seqlen_offsets).clamp(max=cos.shape[0] - 1)
+        pos = (pos + seqlen_offsets).clamp(max=last)
         return _rotate(x, cos[pos], sin[pos], interleaved)
     pos = pos[None, :] + seqlen_offsets.to(x.device, torch.long)[:, None]
-    pos = pos.clamp(max=cos.shape[0] - 1)
+    pos = pos.clamp(max=last)
     return _rotate(x, cos[pos], sin[pos], interleaved)

@@ -1,8 +1,10 @@
 """Golden reference attention and the repo's numerics contract.
 
-Port of flash_attn_tpu/utils/testing.py ``attention_ref`` (:177) and
+Port of flash_attn_tpu/utils/testing.py ``attention_ref`` (:177, with
+query and key padding masks), ``generate_random_padding_mask`` (:154) and
 ``check_against_ref`` (:306), for the masks the port supports, with the
-paged-cache references of the serving engine (``paged_to_linear``,
+packed-varlen references (``attention_varlen_ref`` and its gradients) and
+the paged-cache references of the serving engine (``paged_to_linear``,
 ``attention_varlen_paged_ref``). The contract: a kernel's output, computed in bf16/fp16, must satisfy
 
     max|out - ref_fp32| <= 2 * max|ref_lowprec - ref_fp32| + atol
@@ -19,7 +21,34 @@ import numpy as np
 import torch
 
 __all__ = ["attention_ref", "attention_ref_grads", "attention_varlen_paged_ref",
-           "check_against_ref", "paged_to_linear"]
+           "attention_varlen_ref", "attention_varlen_ref_grads",
+           "check_against_ref", "generate_random_padding_mask",
+           "paged_to_linear"]
+
+
+def generate_random_padding_mask(max_seqlen: int, batch_size: int, rng,
+                                 mode: str = "random",
+                                 zero_lengths: bool = False, device=None):
+    """(batch_size, max_seqlen) bool, True on each row's first length
+    tokens: lengths max_seqlen ("full"), uniform in [max_seqlen - 20,
+    max_seqlen] ("random", from 1 unless zero_lengths) or in [max_seqlen //
+    3, max_seqlen] ("third"), drawn from the numpy Generator ``rng``; with
+    ``zero_lengths``, rows 0, 5, 10, ... and the last have length 0."""
+    if mode == "full":
+        lengths = np.full(batch_size, max_seqlen)
+    elif mode == "random":
+        lo = max(0 if zero_lengths else 1, max_seqlen - 20)
+        lengths = rng.integers(lo, max_seqlen + 1, batch_size)
+    elif mode == "third":
+        lengths = rng.integers(max_seqlen // 3, max_seqlen + 1, batch_size)
+    else:
+        raise ValueError(f"mode {mode!r}")
+    if zero_lengths:
+        idx = np.arange(batch_size)
+        lengths = np.where((idx % 5 == 0) | (idx == batch_size - 1), 0,
+                           lengths)
+    mask = np.arange(max_seqlen)[None, :] < lengths[:, None]
+    return torch.from_numpy(mask).to(device)
 
 
 def attention_ref(
@@ -30,11 +59,13 @@ def attention_ref(
     causal: bool = False,
     softmax_scale: Optional[float] = None,
     upcast: bool = True,
+    query_padding_mask=None,  # (b, sq) bool, True = keep
 ):
     """Full-matrix attention, fp32 by default (``upcast``), else in the
-    inputs' type. Bottom-right aligned causal mask (over the unpadded key
-    count), GQA head replication, zero output for rows that see no key.
-    Returns (output (b, sq, h, dv), attention (b, h, sq, sk))."""
+    inputs' type. Bottom-right aligned causal mask (over the unpadded query
+    and key counts), GQA head replication, zero output for rows that see no
+    key and for padded query rows. Returns (output (b, sq, h, dv),
+    attention (b, h, sq, sk))."""
     dtype_og = q.dtype
     if upcast:
         q, k, v = q.float(), k.float(), v.float()
@@ -53,13 +84,20 @@ def attention_ref(
         col = torch.arange(seqlen_k, device=q.device)[None, :]
         sk = (seqlen_k if key_padding_mask is None
               else key_padding_mask.sum(-1).reshape(-1, 1, 1, 1))
-        scores = scores.masked_fill(col > row + sk - seqlen_q, neg_inf)
+        sq = (seqlen_q if query_padding_mask is None
+              else query_padding_mask.sum(-1).reshape(-1, 1, 1, 1))
+        scores = scores.masked_fill(col > row + sk - sq, neg_inf)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - torch.where(torch.isneginf(m), 0.0, m))
     e = torch.where(torch.isneginf(scores), 0.0, e)
     denom = e.sum(dim=-1, keepdim=True)
     attention = (e / torch.where(denom == 0, 1.0, denom)).to(v.dtype)
+    if query_padding_mask is not None:
+        attention = attention.masked_fill(
+            ~query_padding_mask[:, None, :, None], 0.0)
     output = torch.einsum("bhts,bshd->bthd", attention, v)
+    if query_padding_mask is not None:
+        output = output.masked_fill(~query_padding_mask[:, :, None, None], 0.0)
     return output.to(dtype_og), attention.to(dtype_og)
 
 
@@ -117,6 +155,68 @@ def attention_varlen_paged_ref(q, k_pages, v_pages, cu_seqlens_q, seqlens_k,
                              softmax_scale=softmax_scale, upcast=upcast)
         out[lo:lo + lq] = o[0]
     return out
+
+
+def _sequences(cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k):
+    """(first row, rows, first key, keys) of each packed sequence, the
+    lengths cut to the cu_seqlens deltas."""
+    def spans(cu, used):
+        cu = cu.tolist()
+        lens = [hi - lo for lo, hi in zip(cu[:-1], cu[1:])]
+        if used is not None:
+            lens = [min(a, u) for a, u in zip(lens, used.tolist())]
+        return zip(cu[:-1], lens)
+
+    return [(q0, lq, k0, lk) for (q0, lq), (k0, lk) in zip(
+        spans(cu_seqlens_q, seqused_q), spans(cu_seqlens_k, seqused_k))]
+
+
+def attention_varlen_ref(q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q=None,
+                         seqused_k=None, causal: bool = False,
+                         softmax_scale: Optional[float] = None,
+                         upcast: bool = True):
+    """Packed-varlen attention, one :func:`attention_ref` call per
+    sequence: sequence i's first seqused_q[i] rows from cu_seqlens_q[i]
+    (all of its rows when seqused_q is None) attend to its first
+    seqused_k[i] keys from cu_seqlens_k[i], bottom-right causal when
+    ``causal``; every other row is zero. Differentiable. Returns out
+    (total_q, h, dv) in q's type."""
+    parts, row = [], 0
+    for q0, lq, k0, lk in _sequences(cu_seqlens_q, cu_seqlens_k, seqused_q,
+                                     seqused_k):
+        if lk == 0:
+            continue  # its rows see no key: zeros
+        parts.append(q.new_zeros((q0 - row,) + q.shape[1:-1] + v.shape[-1:]))
+        o, _ = attention_ref(q[None, q0:q0 + lq], k[None, k0:k0 + lk],
+                             v[None, k0:k0 + lk], causal=causal,
+                             softmax_scale=softmax_scale, upcast=upcast)
+        parts.append(o[0])
+        row = q0 + lq
+    parts.append(q.new_zeros((q.shape[0] - row,) + q.shape[1:-1]
+                             + v.shape[-1:]))
+    return torch.cat(parts)
+
+
+def attention_varlen_ref_grads(q, k, v, dout, cu_seqlens_q, cu_seqlens_k,
+                               seqused_q=None, seqused_k=None,
+                               causal: bool = False,
+                               softmax_scale: Optional[float] = None,
+                               upcast: bool = True):
+    """(dq, dk, dv) of sum(attention_varlen_ref(q, k, v) * dout), one
+    sequence at a time (:func:`attention_ref_grads`), in the inputs' types;
+    zero outside the sequences."""
+    grads = [torch.zeros_like(x) for x in (q, k, v)]
+    for q0, lq, k0, lk in _sequences(cu_seqlens_q, cu_seqlens_k, seqused_q,
+                                     seqused_k):
+        if lq == 0 or lk == 0:
+            continue
+        rows, keys = slice(q0, q0 + lq), slice(k0, k0 + lk)
+        g = attention_ref_grads(q[None, rows], k[None, keys], v[None, keys],
+                                dout[None, rows], causal=causal,
+                                softmax_scale=softmax_scale, upcast=upcast)
+        for out, part, span in zip(grads, g, (rows, keys, keys)):
+            out[span] = part[0]
+    return tuple(grads)
 
 
 def check_against_ref(out, out_ref_fp32, out_ref_lowprec, *, mult: float = 2.0,

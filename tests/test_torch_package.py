@@ -287,3 +287,56 @@ def test_paged_overflow_poisons_rows_on_the_card():
                                   cache_seqlens=lens, block_table=table,
                                   causal=True)
     assert bool(torch.isfinite(out[0]).all()) and bool(torch.isnan(out[1]).all())
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_varlen_kernels_match_plain_versions_on_the_card(causal, d):
+    """B6 forward, B7 and the B6 backward against their plain versions with
+    a zero-length sequence, seqused_q/k, GQA and a packed tail; B7 gives B6
+    forward's bits; the backward gives the same bits twice."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.kernels import (
+        flash_varlen,
+        flash_varlen_persistent,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    lens_q, lens_k = [100, 0, 256, 7, 130], [300, 40, 256, 519, 0]
+    cu_q, cu_k = (torch.tensor(np.concatenate([[0], np.cumsum(x)]),
+                               dtype=torch.int32, device="cuda")
+                  for x in (lens_q, lens_k))
+    used_q = torch.tensor([100, 0, 200, 7, 130], dtype=torch.int32,
+                          device="cuda")
+    used_k = torch.tensor([300, 40, 256, 500, 0], dtype=torch.int32,
+                          device="cuda")
+    q, do = randn(int(cu_q[-1]) + 9, 8, d), randn(int(cu_q[-1]) + 9, 8, d)
+    k, v = randn(int(cu_k[-1]) + 3, 2, d), randn(int(cu_k[-1]) + 3, 2, d)
+    args = (cu_q, cu_k, 256, 519, used_q, used_k)
+    out, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, *args,
+                                                       causal=causal)
+    ref, ref_lse = flash_varlen.flash_attention_varlen_fwd_plain(
+        q, k, v, *args, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-4, rtol=0)
+    out_p, lse_p = flash_varlen_persistent.flash_attention_varlen_fwd_persistent(
+        q, k, v, *args, causal=causal)
+    assert torch.equal(out_p, out) and torch.equal(lse_p, lse)
+    got = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse, *args,
+                                                  causal=causal)
+    want = flash_varlen.flash_attention_varlen_bwd_plain(
+        do, q, k, v, out, lse, *args, causal=causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=5e-2, rtol=0)
+    again = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse,
+                                                    *args, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -171,12 +171,11 @@ def test_varlen_paged_matches_jax(case):
 
 
 def test_varlen_refusals_point_at_queue_a():
-    """Dense varlen (B6/B7) is queue A item 5; the paged route's window,
-    softcap, descales, sinks and qv are item 7."""
+    """Dense varlen (B6/B7, queue A item 5) is ported and runs; window,
+    softcap, descales, sinks and qv are item 7 on both routes."""
     q = torch.zeros(4, 2, 64)
     cu = torch.tensor([0, 4], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue A, item 5"):
-        flash_attn_varlen_func(q, q, q, cu, cu, 4, 4)
+    assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4).shape == q.shape
     kp = torch.zeros(12, 2, PAGE, 64)
     for kw in (dict(window_size=(8, 0)), dict(softcap=5.0),
                dict(k_descale=torch.ones(1, 2)), dict(qv=q)):
@@ -184,6 +183,8 @@ def test_varlen_refusals_point_at_queue_a():
             flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64,
                                    block_table=_t(TABLE[:1]),
                                    seqused_k=torch.tensor([4]), **kw)
+        with pytest.raises(NotImplementedError, match="queue A, item 7"):
+            flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, **kw)
 
 
 def test_paged_to_linear_gathers_pages():
@@ -299,7 +300,9 @@ def test_gpt_slot_prefill_then_decode_matches_jax():
 
 def test_varlen_tiles_cover_every_row_once():
     cu = torch.tensor([0, 5, 5, 150, 214], dtype=torch.int32)
-    tiles = flash_varlen_paged.varlen_tiles(cu, 145, 64)
+    # the paged prefill's list: b x ceil(max_seqlen_q / 64) tiles over the
+    # cu_seqlens deltas
+    tiles = flash_varlen_paged.varlen_tiles(cu[1:] - cu[:-1], 4 * 3, 64)
     assert tiles.shape == (4 * 3, 2)
     live = tiles[tiles[:, 0] >= 0].tolist()
     assert live == [[0, 0], [2, 0], [2, 64], [2, 128], [3, 0]]
