@@ -52,7 +52,29 @@
    (24 B7 launches, none of B1), four rows alone through the dense path as
    the oracle, and a BertForPreTraining MLM + NSP step (24 B7, 24 dK/dV, 24
    dQ launches); prints forward and step times, valid tokens/s and peak
-   memory.
+   memory;
+10. holds the two absorbed-MLA kernels against their plain versions: the
+   paged chunked prefill with qv (B8p) on 6 shapes (the serving phase's
+   8 x 512-row chunk over 2,048 keys, DeepSeek-V3's widths at 4 x 256,
+   ragged chunks over pages of 16 and 256, GQA 8/2 at 64 + 128 in fp16,
+   GQA 16/2 at 128 + 128) and the MLA decode route on 6 (qv over a paged
+   cache with lengths 1..2080 at 1 and the default splits, the 576/512
+   latent view over a linear cache, qv at 64 + 128 over a linear cache in
+   fp16, qv at 128 + 128 over pages of 16, b=32 x 8192): every form each
+   kernel is compiled for. The serving chunk and two decode shapes are
+   timed beside their bounds and an SDPA yardstick over a pre-gathered
+   linear cache (q || qv against k || v, the gather untimed);
+11. serves DeepSeek-V3's 61-layer absorbed attention stack at full width
+   (128 heads, 64-wide rope key + 512-wide latent, one KV head, pages of
+   64, seeded bf16 tensors, no weights): 8 sequences of 2048-token prompts
+   prefilled in 4 chunks of 512 through kv_cache_update +
+   flash_attn_varlen_func(block_table=, qv=), then 32 decode steps through
+   flash_attn_with_kvcache(k=, v=, qv=, block_table=); requires 244 B8p
+   and 1,952 MLA decode launches and nothing else, finite outputs, and one
+   layer's last decode step run again as a 1-token chunk through B8p in
+   agreement with it; prints prefill ms per layer-chunk, decode step ms,
+   tokens/s, peak memory and a profiler split of one layer-chunk and of
+   one decode step.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -203,6 +225,53 @@ VARLEN_DENSE_CASES = [  # (name, lens_q, lens_k, seqused_q, seqused_k, packed
 # that noise. A wrong sequence origin, mask or tile would move states by
 # their own scale.
 BERT_HIDDEN_MAX, BERT_HIDDEN_MEAN = 0.5, 0.02
+
+# Absorbed MLA at DeepSeek-V3's attention widths (Hugging Face
+# deepseek-ai/DeepSeek-V3 config.json: 61 layers, 128 heads, kv_lora_rank
+# 512, qk_rope_head_dim 64, qk_nope_head_dim 128, yarn factor 40 with
+# mscale_all_dim 1). Each layer caches a 512-wide latent (V) and a 64-wide
+# rope key (K) per token on one KV head; the absorbed q_nope . W_UK is qv.
+# The scale is 1/sqrt(128 + 64) times mscale^2, mscale = 0.1 ln 40 + 1.
+MLA_LAYERS, MLA_HEADS, MLA_ROPE, MLA_LATENT = 61, 128, 64, 512
+MLA_SCALE = (0.1 * math.log(40.0) + 1.0) ** 2 / math.sqrt(128 + 64)
+MLA_BATCH, MLA_PROMPT, MLA_CHUNK, MLA_NEW, MLA_PAGE = 8, 2048, 512, 32, 64
+MLA_PREFILL_CASES = [  # (name, lens_q, cached keys before the chunk, h, h_k,
+    # d, dv, page, dtype, causal); every form of PAGED_PREFILL_DIMS. The
+    # first, the timed one, is the serving phase's last and heaviest chunk:
+    # 8 x 512 rows over 2,048 keys.
+    ("serving chunk", [MLA_CHUNK] * MLA_BATCH,
+     [MLA_PROMPT - MLA_CHUNK] * MLA_BATCH, MLA_HEADS, 1, MLA_ROPE,
+     MLA_LATENT, MLA_PAGE, torch.bfloat16, True),
+    ("DeepSeek widths", [256] * 4, [1024] * 4, 128, 1, 64, 512, 64,
+     torch.bfloat16, True),
+    ("ragged, pages of 16", [1, 77, 256], [500, 0, 300], 128, 1, 64, 512,
+     16, torch.bfloat16, True),
+    ("ragged, pages of 256", [1, 77, 256], [500, 0, 300], 128, 1, 64, 512,
+     256, torch.bfloat16, True),
+    ("GQA 8/2, 64 + 128, fp16", [100, 200], [200, 50], 8, 2, 64, 128, 64,
+     torch.float16, False),
+    ("GQA 16/2, 128 + 128 (JAX's kv_concat_dim shape)", [64, 130], [100, 0],
+     16, 2, 128, 128, 16, torch.bfloat16, True),
+]
+MLA_DECODE_CASES = [  # (name, b, h, keys, d, dv, qv, page (0: linear),
+    # num_splits (0: the default), dtype, the key its timing is kept under
+    # (None: not timed)); every form of MLA_DECODE_DIMS. The first is the
+    # serving phase's step.
+    ("qv, paged, lengths 1..2080, default splits", 8, 128,
+     np.linspace(1, 2080, 8).round().astype(int).tolist(), 64, 512, True,
+     64, 0, torch.bfloat16, "flash_decode_mla"),
+    ("qv, paged, lengths 1..2080, 1 split", 8, 128,
+     np.linspace(1, 2080, 8).round().astype(int).tolist(), 64, 512, True,
+     64, 1, torch.bfloat16, None),
+    ("576/512 latent view, linear cache (s_max 1024)", 2, 128, [1000, 333],
+     576, 512, False, 0, 0, torch.bfloat16, None),
+    ("qv 64 + 128, linear cache, fp16", 4, 16, [300, 1, 64, 129], 64, 128,
+     True, 0, 3, torch.float16, None),
+    ("qv 128 + 128, pages of 16", 3, 16, [200, 17, 64], 128, 128, True, 16,
+     0, torch.bfloat16, None),
+    ("b=32 x 8192", 32, 128, [8192] * 32, 64, 512, True, 64, 0,
+     torch.bfloat16, "b=32 x 8192"),
+]
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -382,12 +451,13 @@ def decode_bound(seqlens, b, h, h_k, d, splits, table_entries):
                  + 4 * splits * b * h * (d + 1) + 4 * (b + table_entries))
 
 
-def paged_cache(gen, b, h_k, d, page_size, max_len, dtype):
-    """Random pages for b sequences of up to max_len positions, in a shuffled
-    block table (page 0, the null page, owned by none)."""
+def paged_cache(gen, b, h_k, d, page_size, max_len, dtype, dv=None):
+    """Random K and V pages (V dv wide, d by default) for b sequences of up
+    to max_len positions, in a shuffled block table (page 0, the null page,
+    owned by none)."""
     width = -(-max_len // page_size)
-    kp, vp = (torch.randn(b * width + 1, h_k, page_size, d, device="cuda",
-                          generator=gen).to(dtype) for _ in range(2))
+    kp, vp = (torch.randn(b * width + 1, h_k, page_size, w, device="cuda",
+                          generator=gen).to(dtype) for w in (d, dv or d))
     table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
              ).reshape(b, width).to(torch.int32)
     return kp, vp, table
@@ -748,6 +818,7 @@ def kernel_counts():
     from flash_attn_tpu_torch.kernels import (
         flash_decode,
         flash_fwd,
+        flash_paged_prefill,
         flash_varlen,
         flash_varlen_paged,
         flash_varlen_persistent,
@@ -756,6 +827,8 @@ def kernel_counts():
     return {"flash_fwd": flash_fwd.launches,
             "flash_decode": flash_decode.launches,
             "flash_decode_paged": flash_decode.launches_paged,
+            "flash_decode_mla": flash_decode.launches_mla,
+            "flash_paged_prefill": flash_paged_prefill.launches,
             "flash_varlen_paged": flash_varlen_paged.launches,
             "flash_varlen_fwd": flash_varlen.launches_fwd,
             "flash_varlen_fwd_persistent": flash_varlen_persistent.launches,
@@ -767,11 +840,13 @@ def reset_kernel_counts():
     from flash_attn_tpu_torch.kernels import (
         flash_decode,
         flash_fwd,
+        flash_paged_prefill,
         flash_varlen,
         flash_varlen_paged,
         flash_varlen_persistent,
     )
 
+    flash_decode.launches_mla = flash_paged_prefill.launches = 0
     flash_fwd.launches = flash_decode.launches = 0
     flash_decode.launches_paged = flash_varlen_paged.launches = 0
     flash_varlen_persistent.launches = flash_varlen.launches_fwd = 0
@@ -1687,6 +1762,399 @@ def run_bert(card):
     return launches, result
 
 
+def mla_flops_bytes(pairs, rows, keys, h, h_k, d, dv, qv, esz, out_bytes,
+                    table_entries):
+    """Work of one MLA call: per (query row, key) pair and head, a score of
+    depth d (+ dv with qv) and a dv-wide output row; q (and qv) read, the
+    output written, each key's K (and, with qv, its separate V) read once,
+    the table read. Returns (flops, bytes)."""
+    depth = d + dv if qv else d
+    flops = 2 * (depth + dv) * h * pairs
+    nbytes = (esz * rows * h * depth + out_bytes
+              + esz * keys * h_k * (d + dv if qv else d) + 4 * table_entries)
+    return flops, nbytes
+
+
+def mla_sdpa(q, qv, k_lin, v_lin, lens_q, lens_k, scale, causal):
+    """The library yardstick of an MLA call, over a pre-gathered linear
+    cache: scaled_dot_product_attention of q || qv against k || v (v alone
+    for the output), one KV head spread over the query heads as a view,
+    with a boolean mask for the lengths and the bottom-right causal band.
+    q (b, sq, h, d), qv (b, sq, h, dv) or None, k_lin/v_lin (b, S, h_k,
+    d/dv). Returns a function to time."""
+    b, sq, h, _ = q.shape
+    s_len, h_k = k_lin.shape[1], k_lin.shape[2]
+    qq = (q if qv is None else torch.cat([q, qv], -1)).transpose(1, 2)
+    kk = (k_lin if qv is None else torch.cat([k_lin, v_lin], -1))
+    kk = kk.transpose(1, 2).repeat_interleave(h // h_k, 1) if h_k > 1 else \
+        kk.transpose(1, 2).expand(b, h, s_len, kk.shape[-1])
+    vv = v_lin.transpose(1, 2).repeat_interleave(h // h_k, 1) if h_k > 1 \
+        else v_lin.transpose(1, 2).expand(b, h, s_len, v_lin.shape[-1])
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(s_len, device=q.device)[None, :]
+    lq = torch.as_tensor(lens_q, device=q.device)[:, None, None, None]
+    lk = torch.as_tensor(lens_k, device=q.device)[:, None, None, None]
+    mask = cols < lk
+    if causal:
+        mask = mask & (cols <= rows + lk - lq)
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask,
+                                                  scale=scale)
+
+
+def check_mla(gen, card):
+    """The two MLA kernels against their plain versions (the 2x rule against
+    the fp32 plain version, with the same attention in the inputs' type as
+    the low-precision reference; lse within LSE_ATOL), on
+    MLA_PREFILL_CASES and MLA_DECODE_CASES; times B8p's first case and
+    the decode cases that name a timing key beside the bound, the plain
+    version and the SDPA yardstick. Returns the worst errors and the
+    timings."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.kernels import flash_paged_prefill as fpp
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        attention_varlen_paged_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    worst = {"flash_paged_prefill": 0.0, "flash_decode_mla": 0.0}
+    timings = {}
+    yard = ("scaled_dot_product_attention of q || qv against k || v over a "
+            "pre-gathered linear cache (the gather untimed), boolean mask")
+    for ci, (name, lens_q, cached, h, h_k, d, dv, page, dtype, causal) in \
+            enumerate(MLA_PREFILL_CASES):
+        b = len(lens_q)
+        lens_k = [c + n for c, n in zip(cached, lens_q)]
+        cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                          dtype=torch.int32, device="cuda")
+        total = int(cu[-1])
+        q, qv = (torch.randn(total, h, w, device="cuda", generator=gen)
+                 .to(dtype) for w in (d, dv))
+        kp, vp, table = paged_cache(gen, b, h_k, d, page, max(lens_k), dtype,
+                                    dv)
+        seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+        args = (cu, max(lens_q), seqlens_k, table)
+        kw = dict(qv=qv, softmax_scale=MLA_SCALE, causal=causal)
+        out, lse = fpp.flash_attention_paged_prefill_varlen(q, kp, vp, *args,
+                                                            **kw)
+        ref, ref_lse = fpp.flash_attention_paged_prefill_varlen_plain(
+            q.float(), kp.float(), vp.float(), *args, qv=qv.float(),
+            softmax_scale=MLA_SCALE, causal=causal)
+        ref_lp = attention_varlen_paged_ref(
+            q, kp, vp, cu, seqlens_k, table, causal=causal,
+            softmax_scale=MLA_SCALE, upcast=False, qv=qv)
+        torch.cuda.synchronize()
+        case = (f"{name}: chunks {lens_q} over {lens_k} keys, h={h} h_k={h_k}"
+                f" d={d} + qv dv={dv}, pages of {page}, {str(dtype)[6:]}, "
+                f"causal={causal}")
+        err, err_lp = check_against_ref(out, ref, ref_lp,
+                                        msg=f"flash_paged_prefill {case}")
+        fin = torch.isfinite(ref_lse)
+        require(torch.equal(torch.isfinite(lse), fin),
+                f"flash_paged_prefill {case}: rows without keys differ")
+        lse_err = (lse[fin] - ref_lse[fin]).abs().max().item()
+        require(lse_err <= LSE_ATOL, f"flash_paged_prefill lse error {lse_err}")
+        worst["flash_paged_prefill"] = max(worst["flash_paged_prefill"], err)
+        print(f"flash_paged_prefill {case}: out max abs err {err:.3e} "
+              f"(low-precision reference {err_lp:.3e}), lse max abs err "
+              f"{lse_err:.3e}")
+        del ref, ref_lp
+        if ci:
+            continue
+        ms = time_ms(lambda: fpp.flash_attention_paged_prefill_varlen(
+            q, kp, vp, *args, **kw), runs=10)
+        plain_ms = wall_ms(lambda: fpp.flash_attention_paged_prefill_varlen_plain(
+            q, kp, vp, *args, **kw))
+        dense = lambda x: x.reshape(b, lens_q[0], h, x.shape[-1])
+        lin = [paged_to_linear(x, table, seqlens_k).transpose(1, 2)
+               for x in (kp, vp)]
+        lib_ms = time_ms(mla_sdpa(dense(q), dense(qv), *lin, lens_q, lens_k,
+                                  MLA_SCALE, causal), runs=10)
+        del lin
+        pairs = attended_pairs(lens_q, lens_k, causal)
+        flops, nbytes = mla_flops_bytes(
+            pairs, total, sum(lens_k), h, h_k, d, dv, True, 2,
+            2 * total * h * dv + 4 * total * h, table.numel())
+        timings["flash_paged_prefill"] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_call": yard, **bound(flops, nbytes)}
+        t = timings["flash_paged_prefill"]
+        print(f"flash_paged_prefill time at {name} ({flops / 1e12:.3f} "
+              f"TFLOP): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+              f"plain {plain_ms:.4f} ms (host clock), SDPA {lib_ms:.4f} ms; "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) on {card}")
+
+    for (name, b, h, keys, d, dv, has_qv, page, splits, dtype,
+         timed) in MLA_DECODE_CASES:
+        seqlens = torch.tensor(keys, dtype=torch.int32, device="cuda")
+        q = torch.randn(b, 1, h, d, device="cuda", generator=gen).to(dtype)
+        qv = (torch.randn(b, 1, h, dv, device="cuda", generator=gen).to(dtype)
+              if has_qv else None)
+        if page:
+            kc, vc, table = paged_cache(gen, b, 1, d, page, max(keys), dtype,
+                                        dv)
+            k_lin, v_lin = (paged_to_linear(x, table, seqlens).transpose(1, 2)
+                            for x in (kc, vc))
+        else:
+            table = None
+            s_max = -(-max(keys) // 64) * 64
+            kc = torch.randn(b, 1, s_max, d, device="cuda",
+                             generator=gen).to(dtype)
+            vc = (torch.randn(b, 1, s_max, dv, device="cuda", generator=gen)
+                  .to(dtype) if has_qv else kc[..., :dv])
+            k_lin, v_lin = kc.transpose(1, 2), vc.transpose(1, 2)
+        if splits == 0:
+            splits = _default_num_splits(q, kc, vc, table, has_qv)
+        splits = max(1, min(splits, -(-flash_decode.cache_capacity(kc, table)
+                                      // 64)))
+        call = lambda: flash_decode.flash_attention_decode_partials(
+            q, kc, vc, seqlens, splits, MLA_SCALE, True, block_table=table,
+            qv=qv)
+        out, lse = flash_decode.flash_attention_decode(
+            q, kc, vc, seqlens, MLA_SCALE, True, splits, block_table=table,
+            qv=qv)
+        f32 = lambda x: None if x is None else x.float()
+        ref_p = flash_decode.flash_attention_decode_partials_plain(
+            q.float(), k_lin.transpose(1, 2).float(),
+            v_lin.transpose(1, 2).float(), seqlens, splits, 64, MLA_SCALE,
+            True, qv=f32(qv))
+        ref, ref_lse = flash_decode.combine_splits(*ref_p)
+        ref = ref.reshape(b, 1, 1, h, dv)[:, :, 0]
+        ref_lse = ref_lse.reshape(b, h, 1)
+        keep = torch.arange(k_lin.shape[1], device="cuda")[None] \
+            < seqlens[:, None]
+        ref_lp, _ = attention_ref(q, k_lin, v_lin, key_padding_mask=keep,
+                                  softmax_scale=MLA_SCALE, upcast=False,
+                                  qv=qv)
+        torch.cuda.synchronize()
+        case = (f"{name}: b={b} h={h} d={d}{' + qv' if has_qv else ''} "
+                f"dv={dv}, keys {min(keys)}..{max(keys)}, "
+                f"{'pages of ' + str(page) if page else 'linear cache'}, "
+                f"{str(dtype)[6:]}, {splits} splits")
+        err, err_lp = check_against_ref(out, ref, ref_lp,
+                                        msg=f"flash_decode_mla {case}")
+        lse_err = (lse - ref_lse).abs().max().item()
+        require(lse_err <= LSE_ATOL, f"flash_decode_mla lse error {lse_err}")
+        worst["flash_decode_mla"] = max(worst["flash_decode_mla"], err)
+        print(f"flash_decode_mla {case}: out max abs err {err:.3e} "
+              f"(low-precision reference {err_lp:.3e}), lse max abs err "
+              f"{lse_err:.3e}")
+        del ref_p, ref, ref_lp
+        if timed is None:
+            continue
+        ms = time_ms(call)
+        plain_ms = wall_ms(lambda: (
+            flash_decode.flash_attention_decode_paged_partials_plain(
+                q, kc, vc, seqlens, table, splits, 64, MLA_SCALE, True, qv=qv)
+            if page else flash_decode.flash_attention_decode_partials_plain(
+                q, kc, vc, seqlens, splits, 64, MLA_SCALE, True, qv=qv)))
+        lib_ms = time_ms(mla_sdpa(q, qv, k_lin, v_lin, [1] * b, keys,
+                                  MLA_SCALE, True))
+        # The bound is the decode function's: q, qv, the cache, the table
+        # and lengths read, the combined output (in q's type) and lse
+        # written. The fp32 split partials the kernel writes (and the merge
+        # reads) follow from the wrapper's split count, not from the
+        # function, so they are reported beside the bound, not in it.
+        total_keys = sum(keys)
+        esz = torch.finfo(dtype).bits // 8
+        flops, nbytes = mla_flops_bytes(
+            total_keys, b, total_keys, h, 1, d, dv, has_qv, esz,
+            esz * b * h * dv + 4 * b * h,
+            0 if table is None else table.numel())
+        nbytes += 4 * b
+        partial_bytes = 4 * splits * b * h * (dv + 1)
+        timings[timed] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "library_call": yard,
+                          "num_splits": splits,
+                          "split_partial_bytes": partial_bytes,
+                          **bound(flops, nbytes)}
+        t = timings[timed]
+        print(f"flash_decode_mla time at {name} ({splits} splits): kernel "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of the function's "
+              f"{nbytes / 1e6:.2f} MB, {flops / ms / 1e9:.1f} TFLOP/s), "
+              f"plain {plain_ms:.4f} ms (host clock), SDPA {lib_ms:.4f} ms; "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); besides, the "
+              f"split partials {partial_bytes / 1e6:.2f} MB "
+              f"({partial_bytes / PEAK_BYTES * 1e3:.4f} ms at the memory "
+              f"rate) on {card}")
+    return worst, timings
+
+
+def run_mla_serving(gen, card):
+    """DeepSeek-V3's absorbed attention stack served through the public API
+    at full width and depth with seeded tensors: MLA_BATCH prompts of
+    MLA_PROMPT tokens prefilled in chunks of MLA_CHUNK (kv_cache_update +
+    flash_attn_varlen_func(block_table=, qv=)), then MLA_NEW decode steps
+    (flash_attn_with_kvcache(k=, v=, qv=, block_table=)), each of the
+    MLA_LAYERS layers over its own paged latent cache. The counted run
+    checks launches and finiteness; an oracle then runs the last layer's
+    last decode step again as a 1-token chunk through B8p; a second run is
+    timed. Returns the launch counts and the measurements."""
+    from flash_attn_tpu_torch import (
+        flash_attn_varlen_func,
+        flash_attn_with_kvcache,
+    )
+    from flash_attn_tpu_torch.cache.kvcache import kv_cache_update
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    n, h, d, dv = MLA_LAYERS, MLA_HEADS, MLA_ROPE, MLA_LATENT
+    b, chunks = MLA_BATCH, MLA_PROMPT // MLA_CHUNK
+    width = -(-(MLA_PROMPT + MLA_NEW) // MLA_PAGE)
+    dt = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dt)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pages = [(torch.zeros(b * width + 1, 1, MLA_PAGE, d, dtype=dt,
+                          device="cuda"),
+              torch.zeros(b * width + 1, 1, MLA_PAGE, dv, dtype=dt,
+                          device="cuda")) for _ in range(n)]
+    table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+             ).reshape(b, width).to(torch.int32)
+    # seeded inputs, made before the runs: per chunk the queries of every
+    # layer (shared), per layer and chunk the new rope keys and latents
+    chunk_q = [(randn(b * MLA_CHUNK, h, d), randn(b * MLA_CHUNK, h, dv))
+               for _ in range(chunks)]
+    chunk_kv = randn(n, chunks, b, MLA_CHUNK, 1, d + dv)
+    step_q = randn(MLA_NEW, n, b, 1, h, d + dv)
+    step_kv = randn(MLA_NEW, n, b, 1, 1, d + dv)
+    cu = torch.arange(b + 1, dtype=torch.int32, device="cuda") * MLA_CHUNK
+
+    def prefill(c, layer):
+        """Chunk c of every sequence through one layer: append its rope keys
+        and latents, then attend."""
+        kp, vp = pages[layer]
+        before = torch.full((b,), c * MLA_CHUNK, dtype=torch.int32,
+                            device="cuda")
+        kv = chunk_kv[layer, c]
+        kv_cache_update(kp, vp, kv[..., :d], kv[..., d:], before,
+                        block_table=table)
+        q, qv = chunk_q[c]
+        return flash_attn_varlen_func(
+            q, kp, vp, cu, None, MLA_CHUNK, (c + 1) * MLA_CHUNK,
+            softmax_scale=MLA_SCALE, causal=True, block_table=table,
+            seqused_k=before + MLA_CHUNK, qv=qv)
+
+    def decode(step, layer, lens):
+        """One decode step of one layer: append and attend."""
+        kp, vp = pages[layer]
+        qq, kv = step_q[step, layer], step_kv[step, layer]
+        return flash_attn_with_kvcache(
+            qq[..., :d], kp, vp, k=kv[..., :d], v=kv[..., d:],
+            qv=qq[..., d:], cache_seqlens=lens, block_table=table,
+            softmax_scale=MLA_SCALE, causal=True)
+
+    def serve(check: bool):
+        finite = torch.ones((), dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c in range(chunks):
+            for layer in range(n):
+                out = prefill(c, layer)
+                if check:
+                    finite &= torch.isfinite(out).all()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lens = torch.full((b,), MLA_PROMPT, dtype=torch.int32, device="cuda")
+        for step in range(MLA_NEW):
+            for layer in range(n):
+                out = decode(step, layer, lens)
+                if check:
+                    finite &= torch.isfinite(out).all()
+            lens = lens + 1
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        # out: the last layer's last decode step
+        return bool(finite), out, lens, t1 - t0, t2 - t1
+
+    reset_kernel_counts()
+    finite, dec_out, lens, _, _ = serve(True)
+    launches = kernel_counts()
+    want = want_counts(flash_paged_prefill=n * chunks,
+                       flash_decode_mla=n * MLA_NEW)
+    print(f"MLA serving: {n} layers x {h} heads, rope {d} + latent {dv}, "
+          f"scale {MLA_SCALE:.5f}; {b} x {MLA_PROMPT}-token prompts in "
+          f"{chunks} chunks of {MLA_CHUNK}, then {MLA_NEW} decode steps, "
+          f"pages of {MLA_PAGE}; launches {launches}; every output finite: "
+          f"{finite}")
+    require(launches == want, f"MLA serving launches {launches}, want {want}")
+    require(finite, "non-finite MLA serving output")
+
+    # The oracle: the last layer's last decode step as a 1-token chunk
+    # through B8p (not counted), both held to the 2x rule against the fp32
+    # reference over the gathered cache, and against each other.
+    kp, vp = pages[-1]
+    qq = step_q[-1, -1]
+    q1, qv1 = qq[..., :d].reshape(b, h, d), qq[..., d:].reshape(b, h, dv)
+    one = torch.arange(b + 1, dtype=torch.int32, device="cuda")
+    pf_out = flash_attn_varlen_func(
+        q1, kp, vp, one, None, 1, MLA_PROMPT + MLA_NEW,
+        softmax_scale=MLA_SCALE, causal=True, block_table=table,
+        seqused_k=lens, qv=qv1).reshape(b, 1, h, dv)
+    k_lin, v_lin = (paged_to_linear(x, table, lens).transpose(1, 2)
+                    for x in (kp, vp))
+    keep = torch.arange(k_lin.shape[1], device="cuda")[None] < lens[:, None]
+    refs = [attention_ref(qq[..., :d], k_lin, v_lin, key_padding_mask=keep,
+                          softmax_scale=MLA_SCALE, upcast=up,
+                          qv=qq[..., d:])[0] for up in (True, False)]
+    err_dec, err_lp = check_against_ref(dec_out, *refs,
+                                        msg="MLA decode vs reference")
+    err_pf, _ = check_against_ref(pf_out, *refs, msg="MLA B8p vs reference")
+    diff = (dec_out.float() - pf_out.float()).abs().max().item()
+    require(diff <= 2 * err_lp + 1e-5,
+            f"MLA decode and the 1-token B8p chunk differ by {diff}")
+    print(f"MLA oracle, layer {n}'s last decode step: decode max abs err "
+          f"{err_dec:.3e}, as a 1-token B8p chunk {err_pf:.3e} (bf16 "
+          f"reference {err_lp:.3e}); decode vs B8p {diff:.3e} (bound "
+          f"{2 * err_lp + 1e-5:.3e})")
+    del refs, k_lin, v_lin, pf_out
+
+    _, _, _, prefill_s, decode_s = serve(False)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # Where the time goes: the last chunk of layer 0 and the last decode
+    # step of every layer again (the same writes), by kernel family, beside
+    # their wall time.
+    last = torch.full((b,), MLA_PROMPT + MLA_NEW - 1, dtype=torch.int32,
+                      device="cuda")
+    families = {"MLA attention kernels": ("paged_prefill_kernel",
+                                          "decode_mla_kernel"),
+                "copies and fills": COPIES + ("fill",)}
+    split = {}
+    for what, fn in (
+            ("prefill layer-chunk", lambda: prefill(chunks - 1, 0)),
+            (f"decode step over {n} layers",
+             lambda: [decode(MLA_NEW - 1, layer, last) for layer in range(n)])):
+        dev_ms = device_families(fn, families, f"one MLA {what}")
+        wall = wall_ms(fn, runs=5)
+        split[what] = {"device_ms": dev_ms, "wall_ms": wall,
+                       "idle_share": 1 - dev_ms / wall}
+        print(f"MLA {what}: wall {wall:.3f} ms, device {dev_ms:.3f} ms, "
+              f"device idle share {1 - dev_ms / wall:.3f} on {card}")
+    result = {"prefill_ms_per_layer_chunk": prefill_s * 1e3 / (n * chunks),
+              "prefill_s": prefill_s,
+              "decode_step_ms": decode_s * 1e3 / MLA_NEW,
+              "decode_tokens_per_s": b * MLA_NEW / decode_s,
+              "peak_gb": peak_gb, "oracle_err": diff, "profile": split}
+    print(f"MLA serving on {card}: prefill {prefill_s:.3f} s "
+          f"({result['prefill_ms_per_layer_chunk']:.3f} ms per layer-chunk "
+          f"of {b} x {MLA_CHUNK} tokens), decode step over {n} layers "
+          f"{result['decode_step_ms']:.3f} ms, "
+          f"{result['decode_tokens_per_s']:.1f} tokens/s at b={b}; peak "
+          f"memory {peak_gb:.2f} GB (max_memory_allocated)")
+    del pages, chunk_q, chunk_kv, step_q, step_kv
+    torch.cuda.empty_cache()
+    return launches, result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -1752,6 +2220,13 @@ def main() -> int:
           f"{bench_vl['const_tflops']:.1f} (4 x 8192), "
           f"{bench_vl['mixed_tflops']:.1f} (mixed causal), "
           f"{bench_vl['mixed_bwd_tflops']:.1f} (mixed backward) on {card}")
+    mla_err, mla_t = phase("MLA kernel checks", check_mla, gen, card)
+    mla_launches, mla = phase("MLA serving", run_mla_serving, gen, card)
+    print(f"DeepSeek-V3 absorbed attention ({MLA_LAYERS} layers): prefill "
+          f"{mla['prefill_ms_per_layer_chunk']:.3f} ms per layer-chunk, "
+          f"decode step {mla['decode_step_ms']:.3f} ms, "
+          f"{mla['decode_tokens_per_s']:.1f} tokens/s at b={MLA_BATCH}, peak "
+          f"{mla['peak_gb']:.2f} GB on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -1791,8 +2266,16 @@ def main() -> int:
         entry("fa_varlen_bwd_dq", "flash_varlen.cu", "flash_varlen.py:651",
               bert_launches["fa_varlen_bwd_dq"], vl_err["fa_varlen_bwd_dq"],
               vl_t["BERT-large packing"]["fa_varlen_bwd_dq"]),
+        entry("flash_paged_prefill", "flash_paged_prefill.cu",
+              "flash_paged_prefill.py:60",
+              mla_launches["flash_paged_prefill"],
+              mla_err["flash_paged_prefill"], mla_t["flash_paged_prefill"]),
+        entry("flash_decode_mla", "flash_decode_mla.cu", "flash_decode.py:54",
+              mla_launches["flash_decode_mla"], mla_err["flash_decode_mla"],
+              mla_t["flash_decode_mla"]),
     ], "engines": {"paged": paged, "prefix_cache": prefix},
-        "varlen": {"timings": vl_t, "bench": bench_vl}, "bert": bert}))
+        "varlen": {"timings": vl_t, "bench": bench_vl}, "bert": bert,
+        "mla": {"serving": mla, "timings": mla_t}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """PyTorch + CUDA port of flash_attn_tpu for one NVIDIA H100.
 
-The serving, training, engine and varlen slices: ``flash_attn_func`` and
-``flash_attn_varlen_func`` (both differentiable; the latter also over a
-paged cache, forward only) with their packed forms,
-``get_scheduler_metadata``, ``flash_attn_with_kvcache`` over a linear or
-paged cache, and the modules, GPT and BERT models, greedy generation,
-continuous-batching engine, losses and single-GPU trainer above them.
+The serving, training, engine, varlen and absorbed-MLA slices:
+``flash_attn_func`` and ``flash_attn_varlen_func`` (both differentiable;
+the latter also over a paged cache, forward only, with the MLA second
+query ``qv``) with their packed forms, ``get_scheduler_metadata``,
+``flash_attn_with_kvcache`` over a linear or paged cache (with ``qv`` and
+a value width that differs from the key width), and the modules, GPT and
+BERT models, greedy generation, continuous-batching engine, losses and
+single-GPU trainer above them.
 Imports torch only; the CUDA kernels are built on first use. Entry points
 build on the CUDA card unless given ``device="cpu"``.
 """

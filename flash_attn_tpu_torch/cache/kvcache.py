@@ -8,13 +8,14 @@ table. Where the JAX functions return new caches, these update the given
 caches in place and return only the attention output.
 """
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
+    decode_rows_per_block,
+    default_scale,
     normalize_window,
     num_splits_heuristic,
 )
@@ -30,7 +31,8 @@ __all__ = ["flash_attn_with_kvcache", "kv_cache_update"]
 
 def kv_cache_update(k_cache, v_cache, k_new, v_new, cache_seqlens,
                     block_table=None, cache_batch_idx=None, new_lengths=None):
-    """Write k_new/v_new (b, s_new, h_k, d) into the caches at positions
+    """Write k_new (b, s_new, h_k, d) and v_new (b, s_new, h_k, dv) into the
+    caches at positions
     cache_seqlens[i] + [0, s_new), in place, and return the same (k_cache,
     v_cache).
 
@@ -74,15 +76,17 @@ def kv_cache_update(k_cache, v_cache, k_new, v_new, cache_seqlens,
     return k_cache, v_cache
 
 
-def _default_num_splits(q, k_cache, block_table) -> int:
+def _default_num_splits(q, k_cache, v_cache, block_table, has_qv) -> int:
     """Enough splits to give every SM of the card a block (one split on the
-    CPU, which has no such cores)."""
+    CPU, which has no such cores). A block holds 8 query rows on the d = dv
+    route and a 64-row tile on the MLA route."""
     if q.device.type != "cuda":
         return 1
     b, sq, h, d = q.shape
     h_k = k_cache.shape[1]
     rows = sq * (h // h_k)
-    blocks = b * h_k * -(-rows // 8)
+    per_block = decode_rows_per_block(d, v_cache.shape[-1], has_qv)
+    blocks = b * h_k * -(-rows // per_block)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     kv_tiles = -(-cache_capacity(k_cache, block_table) // DECODE_BLOCK_K)
     return num_splits_heuristic(blocks, sms, kv_tiles)
@@ -93,8 +97,8 @@ def flash_attn_with_kvcache(
     k_cache,  # (b_c, h_k, s_max, d) or pages (num_pages, h_k, page_size, d)
     v_cache,
     k=None,   # (b, s_new, h_k, d) new keys to append
-    v=None,
-    qv=None,
+    v=None,   # (b, s_new, h_k, dv)
+    qv=None,  # (b, sq, h, dv): the MLA second query, scored against V
     rotary_cos=None,  # (s_rot, rot_dim / 2)
     rotary_sin=None,
     cache_seqlens=None,  # (b,) int tensor or int: lengths before the append
@@ -120,11 +124,14 @@ def flash_attn_with_kvcache(
     With ``k``/``v`` given, they are rotated (when ``rotary_cos`` is given)
     at positions ``cache_seqlens`` and appended at those positions, IN
     PLACE: ``k_cache`` and ``v_cache`` are mutated, and the call returns
-    only ``out`` (b, sq, h, d), or ``(out, lse)`` with
+    only ``out`` (b, sq, h, dv), or ``(out, lse)`` with
     ``return_softmax_lse``. q is rotated at the same positions. Attention
     runs over the first ``cache_seqlens + s_new`` keys of each row; causal
     masking is bottom-right aligned. ``num_splits`` <= 0 picks a split
-    count that fills the card.
+    count that fills the card. With ``qv`` the scores are q k^T + qv v^T
+    and the scale defaults to 1/sqrt(d + dv) (DeepSeek's absorbed MLA:
+    K the 64-wide rope key, V the 512-wide latent, one KV head); V may
+    also be a view of K's first dv columns (the 576/512 latent cache).
 
     With ``block_table`` a row's capacity is max_pages * page_size. Lengths
     the host holds (an int, or a tensor on the CPU) that overflow it raise
@@ -132,18 +139,18 @@ def flash_attn_with_kvcache(
     the stream, the rows that overflow give NaN, as JAX's do under ``jit``.
     cache_batch_idx with a block table raises ValueError, as in JAX.
     cache_batch_idx, cache_leftpad, window, softcap, chunking, ALiBi,
-    descales, qv and rotary_seqlens are not ported and raise
+    descales and rotary_seqlens are not ported and raise
     NotImplementedError.
     """
     if block_table is not None and cache_batch_idx is not None:
         raise ValueError("Paged KVcache does not support cache_batch_idx")
     reject_unsupported(
-        "flash_attn_with_kvcache", qv=qv, rotary_seqlens=rotary_seqlens,
+        "flash_attn_with_kvcache", rotary_seqlens=rotary_seqlens,
         cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad,
         window_size=normalize_window(tuple(window_size)), softcap=softcap,
         attention_chunk=attention_chunk, alibi_slopes=alibi_slopes,
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
-    require_no_grad("flash_attn_with_kvcache", q, k, v)
+    require_no_grad("flash_attn_with_kvcache", q, k, v, qv)
     b, sq, h, d = q.shape
     on_host = not torch.is_tensor(cache_seqlens) or \
         cache_seqlens.device.type == "cpu"
@@ -155,7 +162,7 @@ def flash_attn_with_kvcache(
                                    device=q.device)
     cache_seqlens = cache_seqlens.to(q.device, torch.int32)
     if softmax_scale is None:
-        softmax_scale = 1.0 / math.sqrt(d)
+        softmax_scale = default_scale(d, v_cache.shape[-1], qv is not None)
 
     s_new = 0 if k is None else k.shape[1]
     sk_eff = cache_seqlens + s_new
@@ -185,10 +192,11 @@ def flash_attn_with_kvcache(
                              interleaved=rotary_interleaved,
                              seqlen_offsets=cache_seqlens)
     if num_splits <= 0:
-        num_splits = _default_num_splits(q, k_cache, block_table)
+        num_splits = _default_num_splits(q, k_cache, v_cache, block_table,
+                                         qv is not None)
     out, lse = flash_attention_decode(
         q, k_cache, v_cache, sk_eff, softmax_scale=softmax_scale,
-        causal=causal, num_splits=num_splits, block_table=block_table)
+        causal=causal, num_splits=num_splits, block_table=block_table, qv=qv)
     if overflow is not None:
         out = out.masked_fill(overflow[:, None, None, None], float("nan"))
     return (out, lse) if return_softmax_lse else out

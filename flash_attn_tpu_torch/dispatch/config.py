@@ -9,6 +9,7 @@ not for VMEM (the TPU's VMEM budgeting helpers have no counterpart here).
 
 import dataclasses
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -64,6 +65,49 @@ def get_bwd_config(head_dim: int) -> Tuple[BwdConfig, BwdConfig]:
 # end inside a page: page 16, 64 or 256 all split on 64-key tiles, and
 # paged decode sums in the same order as linear decode.
 DECODE_BLOCK_K = 64
+
+# Query rows a block of the d = dv decode route holds (csrc/flash_decode.cu:
+# up to 8, grid.z covers the rest): the split heuristic's row block there.
+DECODE_ROWS_PER_BLOCK = 8
+
+# Tile of csrc/mla_tile.cuh, the loop of the MLA decode route and of the
+# paged chunked prefill (B8p): 64 packed (position, head) rows, heads
+# fastest, by 64 keys. The TPU kernels pad d and dv to 128 lanes and size
+# the KV tile from the page (~512 rows); here 8 warps hold a 64 x 512 fp32
+# output in registers (a warp pair per 16 rows, each warp half the value
+# columns), and the Q tile plus two 64-key tiles at 576 columns take 216 KB
+# of shared memory. The split heuristic counts blocks of this tile.
+MLA_TILE = FwdConfig(block_q=64, block_k=64)
+
+# The (d, dv, qv given) forms each MLA kernel is compiled for (the form
+# list passed to mla_dispatch in its .cu). The decode route takes
+# DeepSeek's absorbed form (a 64-wide rope key, qv against the 512-wide
+# latent), the same latent cache stored as K 576 wide with V its first 512
+# columns (no qv), and two narrow qv forms: flash_attn_with_kvcache reaches
+# all four. B8p is reached only through flash_attn_varlen_func(qv=), so it
+# takes the three qv forms. Other forms raise on the card (ROADMAP.md queue
+# A, item 7).
+MLA_DECODE_DIMS = ((64, 512, True), (576, 512, False), (64, 128, True),
+                   (128, 128, True))
+PAGED_PREFILL_DIMS = ((64, 512, True), (64, 128, True), (128, 128, True))
+
+
+def default_scale(d: int, dv: int, has_qv: bool) -> float:
+    """The softmax scale when none is given: 1/sqrt(d), or 1/sqrt(d + dv)
+    with qv (the score depth of DeepSeek's absorbed MLA)."""
+    return 1.0 / math.sqrt(d + dv if has_qv else d)
+
+
+def is_mla_form(d: int, dv: int, has_qv: bool) -> bool:
+    """Whether a decode call takes the MLA route (a qv, or dv != d) rather
+    than the d = dv route of csrc/flash_decode.cu."""
+    return has_qv or d != dv
+
+
+def decode_rows_per_block(d: int, dv: int, has_qv: bool) -> int:
+    """Query rows one decode block holds, for the split heuristic."""
+    return MLA_TILE.block_q if is_mla_form(d, dv, has_qv) \
+        else DECODE_ROWS_PER_BLOCK
 
 # Tile of csrc/flash_varlen_paged.cu (the packed-varlen prefill over the
 # paged cache): 64 query rows of one sequence by 64 keys, the tile of the

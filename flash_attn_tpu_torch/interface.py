@@ -10,8 +10,11 @@ kernel of kernels/flash_fwd.py, the backward those of kernels/flash_bwd.py
 dense route runs the persistent forward of kernels/flash_varlen_persistent.py
 and the backward of kernels/flash_varlen.py; its ``block_table=`` route
 (:499-546), the chunked prefill of the serving engine, runs
-kernels/flash_varlen_paged.py, forward only. The packed forms (:594-680)
-slice q, k and v out of one tensor.
+kernels/flash_varlen_paged.py, forward only, or, with the MLA second query
+``qv``, kernels/flash_paged_prefill.py (JAX sends ``qv`` there only when d
+or dv is not a multiple of 128, :520-527, and otherwise concatenates q and
+qv for B8, :528-543: a split for the TPU's 128 lanes; the function is the
+same). The packed forms (:594-680) slice q, k and v out of one tensor.
 """
 
 import math
@@ -25,6 +28,9 @@ from flash_attn_tpu_torch.dispatch.config import (
 )
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
+from flash_attn_tpu_torch.kernels.flash_paged_prefill import (
+    flash_attention_paged_prefill_varlen,
+)
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     flash_attention_varlen_bwd,
     varlen_meta,
@@ -141,9 +147,9 @@ def flash_attn_func(
     in JAX) runs the dK/dV and dQ backward kernels, each writing its
     gradient once; False runs the fused backward with atomic dQ. Only dense
     causal/non-causal attention is ported; every other option raises
-    NotImplementedError."""
+    NotImplementedError (ROADMAP.md queue A, item 7)."""
     reject_unsupported(
-        "flash_attn_func", dropout_p=dropout_p,
+        "flash_attn_func", roadmap_item="queue A, item 7", dropout_p=dropout_p,
         window_size=normalize_window(tuple(window_size)), softcap=softcap,
         alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
         sink_token_length=sink_token_length, learnable_sink=learnable_sink,
@@ -228,24 +234,36 @@ def flash_attn_varlen_func(
     page_size, head_dim), each sequence's key count from ``seqused_k`` (or
     the deltas of ``cu_seqlens_k``), forward only (as in JAX, where paged
     attention has no backward); with ``return_attn_probs``, (out, lse).
+    ``qv`` (total_q, nheads, head_dim_v) is the MLA second query, scored
+    against v (DeepSeek's absorbed chunked prefill); out is then (total_q,
+    nheads, head_dim_v) and the scale defaults to 1/sqrt(head_dim +
+    head_dim_v).
 
-    Window, softcap, ALiBi, chunking, sinks, dropout, descales and ``qv``
-    raise NotImplementedError (ROADMAP.md queue A, item 7)."""
+    Window, softcap, ALiBi, chunking, sinks, dropout, descales, and ``qv``
+    without ``block_table``, raise NotImplementedError (ROADMAP.md queue A,
+    item 7)."""
     reject_unsupported(
         "flash_attn_varlen_func", roadmap_item="queue A, item 7",
         dropout_p=dropout_p,
         window_size=normalize_window(tuple(window_size)), softcap=softcap,
         alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
-        learnable_sink=learnable_sink, qv=qv, dropout_rng=dropout_rng,
+        learnable_sink=learnable_sink, dropout_rng=dropout_rng,
+        qv=qv if block_table is None else None,
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
     if block_table is not None:
         if scheduler_metadata is not None:
             raise NotImplementedError(
                 "flash_attn_varlen_func: scheduler_metadata with block_table "
                 "is not ported yet (ROADMAP.md queue A, item 7)")
-        require_no_grad("flash_attn_varlen_func", q, k, v)
+        require_no_grad("flash_attn_varlen_func", q, k, v, qv)
         if seqused_k is None:
             seqused_k = cu_seqlens_k[1:] - cu_seqlens_k[:-1]
+        if qv is not None:
+            out, lse = flash_attention_paged_prefill_varlen(
+                q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k,
+                block_table, seqused_q=seqused_q, qv=qv,
+                softmax_scale=softmax_scale, causal=causal)
+            return (out, lse) if return_attn_probs else out
         out, lse = flash_attention_varlen_paged_fwd(
             q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k, block_table,
             seqused_q=seqused_q, softmax_scale=softmax_scale, causal=causal)

@@ -1,16 +1,19 @@
 """Split-KV decode attention over a linear or a paged cache: the CUDA
-kernel ``csrc/flash_decode.cu``, its plain PyTorch version, and
-``combine_splits``.
+kernels ``csrc/flash_decode.cu`` (d = dv) and ``csrc/flash_decode_mla.cu``
+(the MLA route), their plain PyTorch version, and ``combine_splits``.
 
 Port of flash_attn_tpu/kernels/flash_decode.py ``flash_attention_decode``
-(linear and paged cache, causal or not, GQA, ``num_splits`` >= 1). The
-caches keep the JAX layouts: linear (b_c, h_k, s_max, d), paged (num_pages,
-h_k, page_size, d) with a (b, max_pages) int32 block table; a paged row's
-capacity is max_pages * page_size positions. Each split writes an fp32 partial
-(out, lse) for the sq * group query rows of one KV head (the GQA row
-packing of the TPU kernel); ``combine_splits`` merges them with torch ops,
-as the JAX package merges them outside its kernel. A tensor on the CPU
-takes the plain version; a CUDA tensor launches the kernel or raises.
+(linear and paged cache, causal or not, GQA, ``num_splits`` >= 1, the MLA
+second query ``qv`` and a value width dv != d). The caches keep the JAX
+layouts: linear (b_c, h_k, s_max, d), paged (num_pages, h_k, page_size, d)
+with a (b, max_pages) int32 block table, V the same with dv; a paged row's
+capacity is max_pages * page_size positions. Each split writes an fp32
+partial (out, lse) for the sq * group query rows of one KV head (the GQA
+row packing of the TPU kernel); ``combine_splits`` merges them with torch
+ops, as the JAX package merges them outside its kernel. The JAX function pads
+d and dv to 128 lanes for its DMAs; the kernels here take them as they are.
+A tensor on the CPU takes the plain version; a CUDA tensor launches a
+kernel or raises.
 """
 
 import math
@@ -21,16 +24,20 @@ import torch
 from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
     KERNEL_HEAD_DIMS,
+    MLA_DECODE_DIMS,
+    MLA_TILE,
+    is_mla_form,
 )
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
 LOG2E = math.log2(math.e)
 
-# Kernel launches since the last reset, over a linear and over a paged
-# cache (plain calls not counted).
+# Kernel launches since the last reset (plain calls not counted): the d = dv
+# route over a linear and over a paged cache, and the MLA route over either.
 launches = 0
 launches_paged = 0
+launches_mla = 0
 
 
 def cache_capacity(k_cache, block_table=None) -> int:
@@ -49,20 +56,31 @@ def _split_bounds(cache_seqlens, num_splits: int, block_k: int):
     return kps * block_k  # (b,) keys per split
 
 
+def _pack_rows(x, h_k):
+    """(b, sq, h, w) -> (b, h_k, sq * group, w) fp32: the rows of each KV
+    head, row t * group + j for token t and head h_k * group + j."""
+    b, sq, h, w = x.shape
+    return x.float().reshape(b, sq, h_k, h // h_k, w).transpose(1, 2).reshape(
+        b, h_k, -1, w)
+
+
 def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
                                           num_splits: int, block_k: int,
-                                          softmax_scale: float, causal: bool):
-    """fp32 matmul, mask and softmax per split. Returns (out_p (num_splits,
-    b, h_k, sq * group, dv), lse_p (num_splits, b, h_k, sq * group))."""
+                                          softmax_scale: float, causal: bool,
+                                          qv=None):
+    """fp32 matmul, mask and softmax per split; scores q k^T (+ qv v^T).
+    Returns (out_p (num_splits, b, h_k, sq * group, dv), lse_p (num_splits,
+    b, h_k, sq * group))."""
     b, sq, h, d = q.shape
     h_k, s_max = k_cache.shape[1], k_cache.shape[2]
     group = h // h_k
     rows = sq * group
-    qp = q.float().reshape(b, sq, h_k, group, d).transpose(1, 2).reshape(
-        b, h_k, rows, d)
     kf = k_cache[:b].float()
     vf = v_cache[:b].float()
-    s = torch.matmul(qp, kf.transpose(-1, -2)) * softmax_scale  # (b,h_k,R,S)
+    s = torch.matmul(_pack_rows(q, h_k), kf.transpose(-1, -2))  # (b,h_k,R,S)
+    if qv is not None:
+        s = s + torch.matmul(_pack_rows(qv, h_k), vf.transpose(-1, -2))
+    s = s * softmax_scale
     sk = cache_seqlens.long().clamp(max=s_max)  # the kernel cuts at capacity
     pos = torch.arange(s_max, device=q.device)
     tok = torch.arange(rows, device=q.device) // group
@@ -87,7 +105,7 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
 
 def flash_attention_decode_paged_partials_plain(
         q, k_pages, v_pages, cache_seqlens, block_table, num_splits: int,
-        block_k: int, softmax_scale: float, causal: bool):
+        block_k: int, softmax_scale: float, causal: bool, qv=None):
     """The paged cache's plain version: gather the pages into the linear
     layout, then :func:`flash_attention_decode_partials_plain`."""
     cap = cache_capacity(k_pages, block_table)
@@ -95,39 +113,39 @@ def flash_attention_decode_paged_partials_plain(
     return flash_attention_decode_partials_plain(
         q, paged_to_linear(k_pages, block_table, lengths),
         paged_to_linear(v_pages, block_table, lengths), cache_seqlens,
-        num_splits, block_k, softmax_scale, causal)
+        num_splits, block_k, softmax_scale, causal, qv=qv)
 
 
 def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
                                     num_splits: int, softmax_scale: float,
-                                    causal: bool, block_table=None):
+                                    causal: bool, block_table=None, qv=None):
     """Split partials of decode attention; see
     :func:`flash_attention_decode_partials_plain` for the shapes.
     ``cache_seqlens`` (b,) int32 are the cache lengths after any append;
-    cache row i (or block-table row i) serves batch row i."""
+    cache row i (or block-table row i) serves batch row i. ``qv`` (b, sq,
+    h, dv), or a value width dv != d, takes the MLA route
+    (:func:`_mla_partials`)."""
     paged = block_table is not None
     if q.device.type == "cpu":
         if paged:
             return flash_attention_decode_paged_partials_plain(
                 q, k_cache, v_cache, cache_seqlens, block_table, num_splits,
-                DECODE_BLOCK_K, softmax_scale, causal)
+                DECODE_BLOCK_K, softmax_scale, causal, qv=qv)
         return flash_attention_decode_partials_plain(
             q, k_cache, v_cache, cache_seqlens, num_splits, DECODE_BLOCK_K,
-            softmax_scale, causal)
+            softmax_scale, causal, qv=qv)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     b, sq, h, d = q.shape
     b_c, h_k, s_max, dk = k_cache.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_decode kernel: dtype {q.dtype} (bf16/fp16)")
-    if d not in KERNEL_HEAD_DIMS or dk != d or v_cache.shape != k_cache.shape:
-        raise ValueError(
-            f"flash_decode kernel: head dims q {d}, cache {dk}, "
-            f"v {v_cache.shape[-1]}; needs equal dims in {KERNEL_HEAD_DIMS}")
     if ((not paged and b > b_c) or h % h_k or b * h_k > 2**31 - 1
-            or num_splits > 65535):
+            or num_splits > 65535 or dk != d
+            or v_cache.shape[:-1] != k_cache.shape[:-1]):
         raise ValueError(f"flash_decode kernel: shapes q {tuple(q.shape)}, "
-                         f"cache {tuple(k_cache.shape)}, splits {num_splits}")
+                         f"cache {tuple(k_cache.shape)}, v "
+                         f"{tuple(v_cache.shape)}, splits {num_splits}")
     for name, x in (("cache_seqlens", cache_seqlens),
                     ("block_table", block_table)):
         if x is not None and (x.device != q.device or x.dtype != torch.int32
@@ -138,6 +156,13 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     if not cache_seqlens.is_contiguous() or cache_seqlens.dim() != 1:
         raise ValueError("flash_decode kernel: cache_seqlens must be a "
                          "contiguous (b,) tensor")
+    if is_mla_form(d, v_cache.shape[-1], qv is not None):
+        return _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
+                             softmax_scale, causal, block_table, qv)
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"flash_decode kernel: head dim {d}; the d = dv route takes "
+            f"{KERNEL_HEAD_DIMS}")
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _build.check_operand("flash_decode", name, x, q.dtype, q.device)
     rows = sq * (h // h_k)
@@ -171,14 +196,82 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     return out_p, lse_p
 
 
+def aliases_prefix(v, k) -> bool:
+    """Whether v is a view of k's first v.shape[-1] columns (DeepSeek's
+    latent cache: K 576 wide, V its first 512)."""
+    return (v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+            and v.shape[:-1] == k.shape[:-1] and v.shape[-1] <= k.shape[-1])
+
+
+def _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
+                  softmax_scale, causal, block_table, qv):
+    """The MLA route on the card (csrc/flash_decode_mla.cu): qv scores
+    against V; the d, dv and qv of MLA_DECODE_DIMS; without qv, V must be
+    K's first dv columns, read from the same tile."""
+    b, sq, h, d = q.shape
+    b_c, h_k, s_max, _ = k_cache.shape
+    dv = v_cache.shape[-1]
+    paged = block_table is not None
+    if (d, dv, qv is not None) not in MLA_DECODE_DIMS:
+        raise NotImplementedError(
+            f"flash_decode kernel: (d, dv, qv) = ({d}, {dv}, "
+            f"{qv is not None}) is not ported yet; the MLA route takes "
+            f"{MLA_DECODE_DIMS} (ROADMAP.md queue A, item 7)")
+    if qv is None and not aliases_prefix(v_cache, k_cache):
+        raise NotImplementedError(
+            f"flash_decode kernel: without qv, dv = {dv} needs v_cache to "
+            f"be k_cache[..., :{dv}] (the latent cache); separate V caches "
+            "of another width are not ported yet (ROADMAP.md queue A, "
+            "item 7)")
+    if qv is not None and qv.shape != (b, sq, h, dv):
+        raise ValueError(f"flash_decode kernel: qv {tuple(qv.shape)}, want "
+                         f"{(b, sq, h, dv)}")
+    operands = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache)]
+    if qv is not None:
+        operands.append(("qv", qv))
+    for name, x in operands:
+        _build.check_operand("flash_decode_mla", name, x, q.dtype, q.device)
+    rows = sq * (h // h_k)
+    if -(-rows // MLA_TILE.block_q) > 65535:
+        raise ValueError(f"flash_decode_mla kernel: {rows} rows a KV head")
+    out_p = torch.empty((num_splits, b, h_k, rows, dv), dtype=torch.float32,
+                        device=q.device)
+    lse_p = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32,
+                        device=q.device)
+    qvs = qv.stride() if qv is not None else (0, 0, 0, 0)
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        err = lib.fa_decode_mla(
+            q.data_ptr(), qv.data_ptr() if qv is not None else None,
+            k_cache.data_ptr(), v_cache.data_ptr(), cache_seqlens.data_ptr(),
+            block_table.data_ptr() if paged else None,
+            out_p.data_ptr(), lse_p.data_ptr(),
+            b, sq, h, h_k, d, dv, int(qv is not None), num_splits,
+            DECODE_BLOCK_K, s_max if paged else 0,
+            block_table.shape[1] if paged else 0, b_c if paged else 0,
+            cache_capacity(k_cache, block_table),
+            q.stride(0), q.stride(1), q.stride(2), qvs[0], qvs[1], qvs[2],
+            k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
+            v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
+            block_table.stride(0) if paged else 0,
+            softmax_scale * LOG2E, int(causal),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "fa_decode_mla")
+    global launches_mla
+    launches_mla += 1
+    return out_p, lse_p
+
+
 def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
                            softmax_scale: Optional[float] = None,
                            causal: bool = False, num_splits: int = 1,
-                           block_table=None):
-    """q (b, sq, h, d); caches (b_c, h_k, s_max, d), or pages (num_pages,
-    h_k, page_size, d) with ``block_table`` (b, max_pages) int32;
-    cache_seqlens (b,) int32 cache lengths after any append. Returns (out
-    (b, sq, h, d) in q's type, lse (b, h, sq) fp32)."""
+                           block_table=None, qv=None):
+    """q (b, sq, h, d); caches (b_c, h_k, s_max, d) and (b_c, h_k, s_max,
+    dv), or pages (num_pages, h_k, page_size, d / dv) with ``block_table``
+    (b, max_pages) int32; cache_seqlens (b,) int32 cache lengths after any
+    append; ``qv`` (b, sq, h, dv) adds qv v^T to the scores. Returns (out
+    (b, sq, h, dv) in q's type, lse (b, h, sq) fp32)."""
     b, sq, h, d = q.shape
     h_k = k_cache.shape[1]
     group = h // h_k
@@ -188,12 +281,12 @@ def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
     num_splits = max(1, min(num_splits, -(-cap // DECODE_BLOCK_K)))
     out_p, lse_p = flash_attention_decode_partials(
         q, k_cache, v_cache, cache_seqlens, num_splits, softmax_scale, causal,
-        block_table=block_table)
+        block_table=block_table, qv=qv)
     if num_splits == 1:
         out, lse = out_p[0], lse_p[0]
     else:
         out, lse = combine_splits(out_p, lse_p)
-    # (b, h_k, sq * group, d) rows -> (b, sq, h, d); lse -> (b, h, sq)
+    # (b, h_k, sq * group, dv) rows -> (b, sq, h, dv); lse -> (b, h, sq)
     out = out.reshape(b, h_k, sq, group, -1).permute(0, 2, 1, 3, 4).reshape(
         b, sq, h, -1).to(q.dtype)
     lse = lse.reshape(b, h_k, sq, group).transpose(2, 3).reshape(b, h, sq)

@@ -14,11 +14,12 @@ kernel's precision (``upcast=False``). Gradients are held the same way,
 against autograd through the reference (``attention_ref_grads``).
 """
 
-import math
 from typing import Optional
 
 import numpy as np
 import torch
+
+from flash_attn_tpu_torch.dispatch.config import default_scale
 
 __all__ = ["attention_ref", "attention_ref_grads", "attention_varlen_paged_ref",
            "attention_varlen_ref", "attention_varlen_ref_grads",
@@ -60,22 +61,33 @@ def attention_ref(
     softmax_scale: Optional[float] = None,
     upcast: bool = True,
     query_padding_mask=None,  # (b, sq) bool, True = keep
+    qv=None,  # (b, sq, h, dv): the MLA second query, scored against v
 ):
     """Full-matrix attention, fp32 by default (``upcast``), else in the
-    inputs' type. Bottom-right aligned causal mask (over the unpadded query
-    and key counts), GQA head replication, zero output for rows that see no
+    inputs' type. Scores are q k^T (+ qv v^T) times the scale, 1/sqrt(d)
+    (1/sqrt(d + dv) with ``qv``). Bottom-right aligned causal mask (over the
+    unpadded query and key counts), GQA by grouping the query heads of each
+    KV head (K and V are not repeated), zero output for rows that see no
     key and for padded query rows. Returns (output (b, sq, h, dv),
     attention (b, h, sq, sk))."""
     dtype_og = q.dtype
     if upcast:
         q, k, v = q.float(), k.float(), v.float()
-    g = q.shape[2] // k.shape[2]
-    k = k.repeat_interleave(g, dim=2)
-    v = v.repeat_interleave(g, dim=2)
-    seqlen_q, seqlen_k = q.shape[1], k.shape[1]
+        qv = None if qv is None else qv.float()
+    b, seqlen_q, h, d = q.shape
+    seqlen_k, h_k, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // h_k
     if softmax_scale is None:
-        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bthd,bshd->bhts", q * softmax_scale, k)
+        softmax_scale = default_scale(d, dv, qv is not None)
+
+    def grouped(x):
+        return x.reshape(b, seqlen_q, h_k, g, x.shape[-1])
+
+    scores = torch.einsum("btkgd,bskd->bkgts", grouped(q * softmax_scale), k)
+    if qv is not None:
+        scores = scores + torch.einsum("btkgd,bskd->bkgts",
+                                       grouped(qv * softmax_scale), v)
+    scores = scores.reshape(b, h, seqlen_q, seqlen_k)
     neg_inf = float("-inf")
     if key_padding_mask is not None:
         scores = scores.masked_fill(~key_padding_mask[:, None, None, :], neg_inf)
@@ -95,7 +107,10 @@ def attention_ref(
     if query_padding_mask is not None:
         attention = attention.masked_fill(
             ~query_padding_mask[:, None, :, None], 0.0)
-    output = torch.einsum("bhts,bshd->bthd", attention, v)
+    output = torch.einsum(
+        "bkgts,bskd->btkgd",
+        attention.reshape(b, h_k, g, seqlen_q, seqlen_k), v).reshape(
+            b, seqlen_q, h, dv)
     if query_padding_mask is not None:
         output = output.masked_fill(~query_padding_mask[:, :, None, None], 0.0)
     return output.to(dtype_og), attention.to(dtype_og)
@@ -133,12 +148,13 @@ def attention_varlen_paged_ref(q, k_pages, v_pages, cu_seqlens_q, seqlens_k,
                                block_table, seqused_q=None,
                                causal: bool = False,
                                softmax_scale: Optional[float] = None,
-                               upcast: bool = True):
+                               upcast: bool = True, qv=None):
     """Packed-varlen attention over a paged cache, one :func:`attention_ref`
     call per sequence. Sequence i owns the packed rows cu_seqlens_q[i] ..
     cu_seqlens_q[i + 1]; its first seqused_q[i] rows (all when seqused_q
     is None) attend to its first seqlens_k[i] keys with bottom-right causal
-    alignment, the rest give zeros. Returns out (total_q, h, dv)."""
+    alignment, the rest give zeros. ``qv`` (total_q, h, dv) adds qv v^T to
+    the scores. Returns out (total_q, h, dv)."""
     cu = cu_seqlens_q.tolist()
     lens_k = seqlens_k.tolist()
     used = (seqused_q.tolist() if seqused_q is not None
@@ -150,9 +166,10 @@ def attention_varlen_paged_ref(q, k_pages, v_pages, cu_seqlens_q, seqlens_k,
     for i, (lo, lq, lk) in enumerate(zip(cu[:-1], used, lens_k)):
         if lq == 0 or lk == 0:
             continue
-        o, _ = attention_ref(q[None, lo:lo + lq], k_lin[i:i + 1, :lk],
-                             v_lin[i:i + 1, :lk], causal=causal,
-                             softmax_scale=softmax_scale, upcast=upcast)
+        o, _ = attention_ref(
+            q[None, lo:lo + lq], k_lin[i:i + 1, :lk], v_lin[i:i + 1, :lk],
+            causal=causal, softmax_scale=softmax_scale, upcast=upcast,
+            qv=None if qv is None else qv[None, lo:lo + lq])
         out[lo:lo + lq] = o[0]
     return out
 

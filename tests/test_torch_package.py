@@ -340,3 +340,122 @@ def test_varlen_kernels_match_plain_versions_on_the_card(causal, d):
     again = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse,
                                                     *args, causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [False, True])
+def test_mla_kernels_match_plain_versions_on_the_card(causal):
+    """B8p (the paged chunked prefill with qv) and the MLA decode route
+    (qv, dv != d, the 576/512 latent view) against their plain versions."""
+    from flash_attn_tpu_torch.kernels import flash_decode, flash_paged_prefill
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    b, h, page = 3, 128, 64
+    table = (1 + torch.randperm(3 * 6, device="cuda", generator=gen)
+             ).reshape(3, 6).to(torch.int32)
+    kp, vp = randn(19, 1, page, 64), randn(19, 1, page, 512)
+    q, qv = randn(b, 40, h, 64), randn(b, 40, h, 512)
+    used = torch.tensor([40, 1, 17], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([300, 65, 384], dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, used, lens, table)
+    out, lse = flash_paged_prefill.flash_attention_paged_prefill(
+        *args, qv=qv, causal=causal)
+    ref, ref_lse = flash_paged_prefill.flash_attention_paged_prefill_plain(
+        *args, qv=qv, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+
+    scale = 1 / math.sqrt(576)
+    qd, qvd = randn(b, 1, h, 64), randn(b, 1, h, 512)
+    for splits in (1, 3):
+        got = flash_decode.flash_attention_decode_partials(
+            qd, kp, vp, lens, splits, scale, causal, block_table=table,
+            qv=qvd)
+        want = flash_decode.flash_attention_decode_paged_partials_plain(
+            qd, kp, vp, lens, table, splits, DECODE_BLOCK_K, scale, causal,
+            qv=qvd)
+        torch.testing.assert_close(got[0], want[0], atol=2e-2, rtol=0)
+        fin = torch.isfinite(want[1])
+        assert torch.equal(torch.isfinite(got[1]), fin)
+        torch.testing.assert_close(got[1][fin], want[1][fin], atol=1e-3,
+                                   rtol=0)
+    kc = randn(2, 1, 256, 576)
+    lat = torch.tensor([200, 33], dtype=torch.int32, device="cuda")
+    ql = randn(2, 1, 16, 576)
+    got = flash_decode.flash_attention_decode_partials(
+        ql, kc, kc[..., :512], lat, 2, scale, causal)
+    want = flash_decode.flash_attention_decode_partials_plain(
+        ql, kc, kc[..., :512], lat, 2, DECODE_BLOCK_K, scale, causal)
+    torch.testing.assert_close(got[0], want[0], atol=2e-2, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_mla_kernels_narrow_qv_forms_on_the_card(d, dtype):
+    """The narrow qv forms (d 64 or 128, dv 128) of both MLA kernels, GQA
+    16/2, against their plain versions."""
+    from flash_attn_tpu_torch.kernels import flash_decode, flash_paged_prefill
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    b, h, h_k, dv, page = 3, 16, 2, 128, 16
+    table = (1 + torch.randperm(3 * 10, device="cuda", generator=gen)
+             ).reshape(3, 10).to(torch.int32)
+    kp, vp = randn(31, h_k, page, d), randn(31, h_k, page, dv)
+    q, qv = randn(b, 33, h, d), randn(b, 33, h, dv)
+    used = torch.tensor([33, 1, 20], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([150, 16, 100], dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, used, lens, table)
+    out, lse = flash_paged_prefill.flash_attention_paged_prefill(*args, qv=qv)
+    ref, ref_lse = flash_paged_prefill.flash_attention_paged_prefill_plain(
+        *args, qv=qv)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+
+    scale = 1 / math.sqrt(d + dv)
+    qd, qvd = randn(b, 1, h, d), randn(b, 1, h, dv)
+    for splits in (1, 2):
+        got = flash_decode.flash_attention_decode_partials(
+            qd, kp, vp, lens, splits, scale, True, block_table=table,
+            qv=qvd)
+        want = flash_decode.flash_attention_decode_paged_partials_plain(
+            qd, kp, vp, lens, table, splits, DECODE_BLOCK_K, scale, True,
+            qv=qvd)
+        torch.testing.assert_close(got[0], want[0], atol=2e-2, rtol=0)
+        fin = torch.isfinite(want[1])
+        assert torch.equal(torch.isfinite(got[1]), fin)
+        torch.testing.assert_close(got[1][fin], want[1][fin], atol=1e-3,
+                                   rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_mla_kernels_refuse_other_forms_on_the_card():
+    from flash_attn_tpu_torch.kernels import flash_decode, flash_paged_prefill
+
+    q = torch.zeros(1, 1, 4, 576, dtype=torch.bfloat16, device="cuda")
+    kc = torch.zeros(1, 1, 64, 576, dtype=torch.bfloat16, device="cuda")
+    lens = torch.tensor([8], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        # a separate V cache of another width, without qv
+        flash_decode.flash_attention_decode(q, kc, kc[..., :512].clone(), lens)
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_decode.flash_attention_decode(q[..., :96], kc[..., :96],
+                                            kc[..., :32], lens)
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        # B8p takes only qv forms: the latent view without qv is decode's
+        flash_paged_prefill.flash_attention_paged_prefill(
+            q, kc, kc[..., :512], lens[:1], lens,
+            torch.ones(1, 1, dtype=torch.int32, device="cuda"))

@@ -171,18 +171,23 @@ def test_varlen_paged_matches_jax(case):
 
 
 def test_varlen_refusals_point_at_queue_a():
-    """Dense varlen (B6/B7, queue A item 5) is ported and runs; window,
-    softcap, descales, sinks and qv are item 7 on both routes."""
+    """Dense varlen (B6/B7, queue A item 5) is ported and runs; so is qv
+    over a paged cache (B8p, the MLA chunked prefill), while qv on the
+    dense route and window, softcap and descales on both routes are still
+    item 7."""
     q = torch.zeros(4, 2, 64)
     cu = torch.tensor([0, 4], dtype=torch.int32)
     assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4).shape == q.shape
     kp = torch.zeros(12, 2, PAGE, 64)
+    paged = dict(block_table=_t(TABLE[:1]), seqused_k=torch.tensor([4]))
+    assert flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, qv=q,
+                                  **paged).shape == q.shape
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, qv=q)
     for kw in (dict(window_size=(8, 0)), dict(softcap=5.0),
-               dict(k_descale=torch.ones(1, 2)), dict(qv=q)):
+               dict(k_descale=torch.ones(1, 2))):
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64,
-                                   block_table=_t(TABLE[:1]),
-                                   seqused_k=torch.tensor([4]), **kw)
+            flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged, **kw)
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
             flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, **kw)
 
