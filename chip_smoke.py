@@ -74,7 +74,22 @@
    layer's last decode step run again as a 1-token chunk through B8p in
    agreement with it; prints prefill ms per layer-chunk, decode step ms,
    tokens/s, peak memory and a profiler split of one layer-chunk and of
-   one decode step.
+   one decode step;
+12. drives block-sparse attention (B10), which no model path calls,
+   through its public functions at the 913M GPT's attention widths (16
+   heads of 128, bf16): the full causal block mask, a causal local window
+   of 4 tiles plus tile 0 (also at b=1 x 8192) and a seeded 50% random mask
+   with an empty row (tiles of 128, 128 and 512; b=4 x 2048). Each runs
+   flash_attention_blocksparse(...).backward() once as the counted path
+   (1 forward, 1 dK/dV, 1 dQ launch), then holds the forward and backward
+   kernels to the 2x rule against their plain versions, the backward
+   bitwise over two runs, the full causal mask bitwise against B1 and B3,
+   and times them beside their bounds and SDPA with the expanded boolean
+   mask;
+13. runs the two H100 probes (B13): the dynamic shared memory a block can
+   opt into (48 KB to 256 KB, the kernel's output against the plain
+   version at each accepted size) and whether an mma.sync chain and an
+   exp2 chain overlap in one block (us a step by trip-count slope).
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -273,6 +288,27 @@ MLA_DECODE_CASES = [  # (name, b, h, keys, d, dv, qv, page (0: linear),
      torch.bfloat16, "b=32 x 8192"),
 ]
 
+# Block-sparse attention (B10), which no model path of the JAX package
+# calls: driven through its own public functions at the 913M GPT's
+# attention widths (bench.py:334: 16 heads of 128, bf16) and its training
+# shape b=4 x 2048. Masks: (a) every tile at or below the diagonal, causal
+# (the dense causal band: the oracle against B1 and B3); (b) a causal
+# window of 4 tiles plus tile 0 (Longformer/BigBird's local + global
+# pattern), also at b=1 x 8192; (c) a seeded 50% random mask per batch
+# entry at JAX's default tile of 512, not causal, with one empty row. The
+# first (b) case is the one timed into the kernels line.
+BS_HEADS, BS_DIM, BS_WINDOW = 16, 128, 4
+BS_CASES = [  # (name, b, s, block, mask, causal)
+    ("full causal", 4, 2048, 128, "causal", True),
+    ("local 4 + global", 4, 2048, 128, "local", True),
+    ("local 4 + global, 8192", 1, 8192, 128, "local", True),
+    ("random 50%, one empty row", 4, 2048, 512, "random", False),
+]
+BS_TIMED = "local 4 + global"
+# The H100 probes (B13): dynamic shared memory sizes a block asks for, and
+# the largest the card should take (227 KB).
+SMEM_LIMIT_KB = 227
+
 
 def bound(flops: float, nbytes: float) -> dict:
     """The least time the card could take for work of ``flops`` operations
@@ -312,24 +348,31 @@ def time_ms(fn, runs: int = 25, batch: int = 5) -> float:
     enqueued, so the runs execute back to back and the events time the
     device, not the host's launch overhead. Batches are small because the
     launch queue is finite: a full queue blocks the host until the sleep
-    ends, and the device would then wait for the host again."""
+    ends, and the device would then wait for the host again. A batch whose
+    enqueueing outlasted the sleep (a call heavy on the host, such as
+    autograd over nested tensors, on a busy host) is thrown away and taken
+    again under a sleep twice as long."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(0, runs, batch):
+    times, sleep_cycles = [], 100_000_000
+    while len(times) < runs:
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
                   for _ in range(batch)]
-        torch.cuda._sleep(100_000_000)
+        torch.cuda._sleep(sleep_cycles)
         for start, end in events:
             start.record()
             fn()
             end.record()
-        if events[0][0].query():
-            raise RuntimeError("time_ms: the device caught up with the host "
-                               "while runs were enqueued")
+        caught_up = events[0][0].query()
         torch.cuda.synchronize()
+        if caught_up:
+            require(sleep_cycles < 6_400_000_000,
+                    "time_ms: the device caught up with the host while runs "
+                    "were enqueued, under a sleep of 6.4e9 cycles")
+            sleep_cycles *= 2
+            continue
         times += [s.elapsed_time(e) for s, e in events]
     return statistics.median(times)
 
@@ -813,9 +856,10 @@ def engine_model():
 
 
 def kernel_counts():
-    """Launches of the forward, decode, paged and varlen kernels since the
-    last reset_kernel_counts()."""
+    """Launches of the forward, decode, paged, varlen, MLA and block-sparse
+    kernels since the last reset_kernel_counts()."""
     from flash_attn_tpu_torch.kernels import (
+        flash_blocksparse,
         flash_decode,
         flash_fwd,
         flash_paged_prefill,
@@ -833,11 +877,15 @@ def kernel_counts():
             "flash_varlen_fwd": flash_varlen.launches_fwd,
             "flash_varlen_fwd_persistent": flash_varlen_persistent.launches,
             "fa_varlen_bwd_dkdv": flash_varlen.launches_dkdv,
-            "fa_varlen_bwd_dq": flash_varlen.launches_dq}
+            "fa_varlen_bwd_dq": flash_varlen.launches_dq,
+            "flash_blocksparse_fwd": flash_blocksparse.launches_fwd,
+            "fa_blocksparse_bwd_dkdv": flash_blocksparse.launches_dkdv,
+            "fa_blocksparse_bwd_dq": flash_blocksparse.launches_dq}
 
 
 def reset_kernel_counts():
     from flash_attn_tpu_torch.kernels import (
+        flash_blocksparse,
         flash_decode,
         flash_fwd,
         flash_paged_prefill,
@@ -851,6 +899,8 @@ def reset_kernel_counts():
     flash_decode.launches_paged = flash_varlen_paged.launches = 0
     flash_varlen_persistent.launches = flash_varlen.launches_fwd = 0
     flash_varlen.launches_dkdv = flash_varlen.launches_dq = 0
+    flash_blocksparse.launches_fwd = flash_blocksparse.launches_dkdv = 0
+    flash_blocksparse.launches_dq = 0
 
 
 def want_counts(**nonzero):
@@ -2155,6 +2205,276 @@ def run_mla_serving(gen, card):
     return launches, result
 
 
+def blocksparse_mask(kind: str, b: int, nq: int, nk: int) -> torch.Tensor:
+    """The (nq, nk) block mask of BS_CASES (per batch entry, (b, nq, nk),
+    for "random")."""
+    i = torch.arange(nq)[:, None]
+    j = torch.arange(nk)[None, :]
+    if kind == "causal":
+        return j <= i
+    if kind == "local":
+        return ((j <= i) & (j > i - BS_WINDOW)) | (j == 0)
+    gen = torch.Generator().manual_seed(6)
+    mask = torch.rand(b, nq, nk, generator=gen) < 0.5
+    empty = ~mask.any(-1)
+    mask[empty, torch.randint(nk, (int(empty.sum()),), generator=gen)] = True
+    mask[0, 1] = False  # the one empty row
+    return mask
+
+
+def blocksparse_pair_mask(mask, b, s, block, causal) -> torch.Tensor:
+    """(b, s, s) bool: the (row, key) pairs the block mask lists and the
+    causal mask keeps."""
+    w = mask.expand(b, *mask.shape[-2:]).repeat_interleave(block, 1)
+    w = w.repeat_interleave(block, 2)
+    if causal:
+        w &= torch.ones(s, s, dtype=torch.bool).tril()
+    return w
+
+
+def check_blocksparse(gen, card):
+    """B10 (csrc/flash_blocksparse.cu) on BS_CASES. Each case first drives
+    the public differentiable flash_attention_blocksparse(...).backward()
+    with the counts set to 0 just before and read just after (1 forward, 1
+    dK/dV and 1 dQ launch, nothing else); then holds the forward and the
+    fp32 backward to the 2x rule against the plain fp32 versions (the plain
+    forward in bf16, and autograd through it, as the low-precision
+    reference; lse within LSE_ATOL), requires the backward to give the same
+    bits twice, and on the full causal mask the bits of B1 and B3; times
+    kernel, plain and SDPA with the expanded boolean mask (forward and
+    backward; masks with no empty row) beside the bound: the listed,
+    unmasked pairs' 4 d flops (10 d backward) over 989 TFLOP/s, or the
+    bytes over 3.35 TB/s, with a profiler split of the backward's two
+    kernels. Returns the launches, worst errors and timings."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    h, d = BS_HEADS, BS_DIM
+    launches = {"flash_blocksparse_fwd": 0, "flash_blocksparse_bwd": 0}
+    worst = dict.fromkeys(launches, 0.0)
+    timings = {}
+    for name, b, s, block, kind, causal in BS_CASES:
+        nt = s // block
+        mask = blocksparse_mask(kind, b, nt, nt)
+        num, idx = (x.cuda() for x in bs.blockmask_to_kv_indices(mask))
+        q, k, v, dout = (torch.randn(b, h, s, d, device="cuda", generator=gen)
+                         .to(torch.bfloat16) for _ in range(4))
+        kw = dict(causal=causal, block_q=block, block_k=block)
+        case = f"{name} (b={b}, s={s}, tiles of {block})"
+
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        bs.flash_attention_blocksparse(*leaves, num, idx, **kw).backward(dout)
+        torch.cuda.synchronize()
+        got = kernel_counts()
+        require(got == want_counts(flash_blocksparse_fwd=1,
+                                   fa_blocksparse_bwd_dkdv=1,
+                                   fa_blocksparse_bwd_dq=1),
+                f"block-sparse {case}: launch counts {got}")
+        launches["flash_blocksparse_fwd"] += 1
+        launches["flash_blocksparse_bwd"] += 2
+        api_grads = [x.grad for x in leaves]
+        del leaves
+
+        out, lse = bs.flash_attention_blocksparse_fwd(q, k, v, num, idx, **kw)
+        grads = bs.flash_attention_blocksparse_bwd(dout, q, k, v, out, lse,
+                                                   num, idx, **kw)
+        again = bs.flash_attention_blocksparse_bwd(dout, q, k, v, out, lse,
+                                                   num, idx, **kw)
+        require(all(torch.equal(a, b_) for a, b_ in zip(grads, again)),
+                f"block-sparse backward differs between runs: {case}")
+        require(all(torch.equal(a, g.bfloat16())
+                    for a, g in zip(api_grads, grads)),
+                f"block-sparse autograd gradients are not the fp32 "
+                f"gradients in bf16: {case}")
+        del again, api_grads
+
+        f32 = [x.float() for x in (q, k, v)]
+        out32, lse32 = bs.flash_attention_blocksparse_fwd_plain(*f32, num, idx,
+                                                                **kw)
+        ref = bs.flash_attention_blocksparse_bwd_plain(
+            dout.float(), *f32, out32, lse32, num, idx, **kw)
+        lp_leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out_lp, _ = bs.flash_attention_blocksparse_fwd_plain(
+            *lp_leaves, num, idx, upcast=False, **kw)
+        ref_lp = torch.autograd.grad(out_lp, lp_leaves, dout)
+        err, err_lp = check_against_ref(out, out32, out_lp.detach(),
+                                        msg=f"block-sparse out {case}")
+        fin = torch.isfinite(lse32)
+        require(torch.equal(torch.isfinite(lse), fin),
+                f"block-sparse lse -inf pattern: {case}")
+        lse_err = float((lse[fin] - lse32[fin]).abs().max())
+        require(lse_err <= LSE_ATOL, f"block-sparse lse {lse_err}: {case}")
+        worst["flash_blocksparse_fwd"] = max(worst["flash_blocksparse_fwd"],
+                                             err)
+        errs = [f"out {err:.3e} (low-precision reference {err_lp:.3e}), lse "
+                f"{lse_err:.3e}"]
+        for gname, g, r, lp in zip("qkv", grads, ref, ref_lp):
+            e, e_lp = check_against_ref(g, r, lp, atol=BWD_ATOL,
+                                        msg=f"block-sparse d{gname} {case}")
+            worst["flash_blocksparse_bwd"] = max(
+                worst["flash_blocksparse_bwd"], e)
+            errs.append(f"d{gname} {e:.3e} ({e_lp:.3e})")
+        empty = ~mask.expand(b, nt, nt).any(-1)
+        if empty.any():
+            rows = empty.repeat_interleave(block, 1).cuda()  # (b, s)
+            require(not out.transpose(1, 2)[rows].any()
+                    and bool(lse.transpose(1, 2)[rows].isneginf().all())
+                    and not grads[0].transpose(1, 2)[rows].any(),
+                    f"block-sparse empty row: out 0, lse -inf, dq 0: {case}")
+        print(f"block-sparse {case}: launches 1/1/1 through autograd; "
+              f"backward bitwise equal over two runs; max abs err "
+              f"{', '.join(errs)}")
+        del out32, lse32, ref, lp_leaves, out_lp, ref_lp, f32
+
+        if kind == "causal":
+            # the dense causal band: B1 and B3 walk the same 64-key tiles
+            # in the same order, so the same bits
+            out1, lse1 = flash_fwd.flash_attention_fwd(q, k, v, causal=True)
+            dense = flash_bwd.flash_attention_bwd(dout, q, k, v, out, lse,
+                                                  causal=True)
+            same = torch.equal(out1, out) and torch.equal(lse1, lse) and all(
+                torch.equal(g.bfloat16(), g3) for g, g3 in zip(grads, dense))
+            require(same, f"block-sparse {case} differs from B1/B3")
+            print(f"block-sparse {case}: out and lse bitwise equal to B1 "
+                  f"(flash_attn_func causal), gradients to B3's")
+            del out1, lse1, dense
+
+        em = blocksparse_pair_mask(mask, b, s, block, causal)
+        pairs = int(em.sum()) * h
+        el = b * h * s * d
+        list_bytes = 4 * (num.numel() + idx.numel())
+        fwd_bound = bound(4 * d * pairs, 2 * 4 * el + 4 * b * h * s
+                          + list_bytes)
+        bwd_bound = bound(10 * d * pairs, 2 * 5 * el + 4 * 3 * el
+                          + 4 * b * h * s + list_bytes)
+        t = {"pairs": pairs, "density": pairs / (b * h * s * s)}
+        t["fwd_ms"] = time_ms(lambda: bs.flash_attention_blocksparse_fwd(
+            q, k, v, num, idx, **kw), runs=10)
+        t["bwd_ms"] = time_ms(lambda: bs.flash_attention_blocksparse_bwd(
+            dout, q, k, v, out, lse, num, idx, **kw), runs=10)
+        t["bwd_kernels_ms"] = kernel_split_ms(
+            lambda: bs.flash_attention_blocksparse_bwd(
+                dout, q, k, v, out, lse, num, idx, **kw),
+            ["bs_dkdv_kernel", "bs_dq_kernel"])
+        t["plain_fwd_ms"] = wall_ms(lambda: bs.flash_attention_blocksparse_fwd_plain(
+            q, k, v, num, idx, **kw))
+        t["plain_bwd_ms"] = wall_ms(lambda: bs.flash_attention_blocksparse_bwd_plain(
+            dout, q, k, v, out, lse, num, idx, **kw))
+        t["sdpa_fwd_ms"] = t["sdpa_bwd_ms"] = None
+        if not empty.any():
+            em = em[:, None].cuda()
+            t["sdpa_fwd_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=em), runs=10)
+            sl = [x.detach().requires_grad_() for x in (q, k, v)]
+            so = F.scaled_dot_product_attention(*sl, attn_mask=em)
+            t["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                so, sl, dout, retain_graph=True), runs=10)
+            del sl, so
+        del em
+        t["fwd_bound_ms"], t["fwd_bound_by"] = (fwd_bound["bound_ms"],
+                                                fwd_bound["bound_by"])
+        t["bwd_bound_ms"], t["bwd_bound_by"] = (bwd_bound["bound_ms"],
+                                                bwd_bound["bound_by"])
+        timings[name] = t
+        print(f"block-sparse {case}: {pairs / (b * h * s * s):.4f} of the "
+              f"pairs; forward {t['fwd_ms']:.4f} ms (bound "
+              f"{t['fwd_bound_ms']:.4f}, {t['fwd_bound_by']}; plain "
+              f"{t['plain_fwd_ms']:.4f}; masked SDPA {t['sdpa_fwd_ms']}), "
+              f"backward {t['bwd_ms']:.4f} ms (bound {t['bwd_bound_ms']:.4f},"
+              f" {t['bwd_bound_by']}; plain {t['plain_bwd_ms']:.4f}; masked "
+              f"SDPA {t['sdpa_bwd_ms']}; profiler: dK/dV kernel "
+              f"{t['bwd_kernels_ms']['bs_dkdv_kernel']:.4f}, dQ kernel "
+              f"{t['bwd_kernels_ms']['bs_dq_kernel']:.4f}) on {card}")
+        del q, k, v, dout, out, lse, grads
+        torch.cuda.empty_cache()
+    tb = timings[BS_TIMED]
+    timing = {
+        "flash_blocksparse_fwd": {
+            "ms": tb["fwd_ms"], "plain_ms": tb["plain_fwd_ms"],
+            "bound_ms": tb["fwd_bound_ms"], "bound_by": tb["fwd_bound_by"],
+            "library_ms": tb["sdpa_fwd_ms"],
+            "library_call": "scaled_dot_product_attention(attn_mask=the "
+                            "expanded boolean mask)"},
+        "flash_blocksparse_bwd": {
+            "ms": tb["bwd_ms"], "plain_ms": tb["plain_bwd_ms"],
+            "bound_ms": tb["bwd_bound_ms"], "bound_by": tb["bwd_bound_by"],
+            "library_ms": tb["sdpa_bwd_ms"],
+            "library_call": "its backward (torch.autograd.grad)"}}
+    return launches, worst, timing, timings
+
+
+def run_probes(card):
+    """The two H100 probes (B13), each with its count set to 0 just before
+    and read just after: the shared-memory probe at every size of
+    smem_probe.SIZES_KB (every size up to SMEM_LIMIT_KB accepted, every
+    larger one refused, outputs equal to the plain version) and the
+    mma/exp2 overlap probe (us a step of each mode by trip-count slope,
+    outputs against the plain version). Times each kernel beside its
+    plain version and bound. Returns launches, errors, timings and the
+    readings."""
+    from flash_attn_tpu_torch.probes import mma_exp2_overlap_probe as ov
+    from flash_attn_tpu_torch.probes import smem_probe as sm
+
+    sm.launches = 0
+    rows = sm.run()
+    smem_launches = sm.launches
+    for r in rows:
+        require(r["accepted"] == (r["kb"] <= SMEM_LIMIT_KB),
+                f"smem probe: {r['kb']} KB accepted={r['accepted']}")
+        require(not r["accepted"] or r["max_abs_err"] == 0.0,
+                f"smem probe: {r['kb']} KB error {r['max_abs_err']}")
+    require(smem_launches == sum(r["accepted"] for r in rows),
+            f"smem probe launches {smem_launches}")
+    for r in rows:
+        print(f"smem probe {r['kb']} KB: "
+              f"{'accepted' if r['accepted'] else 'refused'}, "
+              f"{r['blocks_per_sm']} block(s) an SM, max abs err "
+              f"{r['max_abs_err']} on {card}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(sm.SHAPE, device="cuda", generator=gen)
+    top = SMEM_LIMIT_KB * 1024
+    smem_t = {"ms": time_ms(lambda: sm.smem_probe(x, top)),
+              "plain_ms": time_ms(lambda: sm.smem_probe_plain(x)),
+              "library_ms": None,
+              # x read and o written once, fp32
+              **bound(x.numel(), 2 * 4 * x.numel())}
+
+    ov.launches = 0
+    res = ov.run()
+    ov_launches = ov.launches
+    for m in ov.MODES:
+        require(res[f"{m}_max_abs_err"] <= 1e-6,
+                f"overlap probe {m}: error {res[m + '_max_abs_err']}")
+    steps = ov.STEPS[1]
+    # per step: 4 rounds of 4 m16n8k16 products (4,096 flops) a warp over 4
+    # warps; 4 rounds of 16 exp2 chain steps (multiply, exp2, subtract) a
+    # thread over 128 threads, at the card's fp32 rate outside the tensor
+    # cores (67 TFLOP/s)
+    mma_flops = steps * ov.REPS * ov.CH * 4 * 4096
+    exp_ops = steps * ov.REPS * ov.NV * ov.THREADS * 3
+    t_mma, t_exp = mma_flops / PEAK_FLOPS, exp_ops / 67e12
+    ov_t = {"ms": ov._launch_ms("both", steps, 11),
+            "plain_ms": wall_ms(lambda: ov.overlap_probe_plain("both", steps)),
+            "library_ms": None,
+            "bound_ms": max(t_mma, t_exp) * 1e3,
+            "bound_by": "operations"}
+    print(f"mma/exp2 overlap probe (one block of {ov.THREADS} threads): mma "
+          f"{res['mma_us_per_step']:.4f}, exp2 {res['exp2_us_per_step']:.4f},"
+          f" both {res['both_us_per_step']:.4f} us a step (serial sum "
+          f"{res['serial_us_per_step']:.4f}, overlap max "
+          f"{res['overlap_us_per_step']:.4f}) on {card}")
+    errs = {"smem_probe": max(r["max_abs_err"] for r in rows if r["accepted"]),
+            "mma_exp2_overlap_probe": max(res[f"{m}_max_abs_err"]
+                                          for m in ov.MODES)}
+    return ({"smem_probe": smem_launches,
+             "mma_exp2_overlap_probe": ov_launches}, errs,
+            {"smem_probe": smem_t, "mma_exp2_overlap_probe": ov_t},
+            {"smem": rows, "overlap": res})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
@@ -2222,6 +2542,9 @@ def main() -> int:
           f"{bench_vl['mixed_bwd_tflops']:.1f} (mixed backward) on {card}")
     mla_err, mla_t = phase("MLA kernel checks", check_mla, gen, card)
     mla_launches, mla = phase("MLA serving", run_mla_serving, gen, card)
+    bs_launches, bs_err, bs_t, bs_all = phase("block-sparse",
+                                              check_blocksparse, gen, card)
+    pr_launches, pr_err, pr_t, probes = phase("probes", run_probes, card)
     print(f"DeepSeek-V3 absorbed attention ({MLA_LAYERS} layers): prefill "
           f"{mla['prefill_ms_per_layer_chunk']:.3f} ms per layer-chunk, "
           f"decode step {mla['decode_step_ms']:.3f} ms, "
@@ -2231,10 +2554,12 @@ def main() -> int:
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
     def entry(name, source, replaces, n, err, timing):
+        if not replaces.startswith("benchmarks/"):
+            replaces = f"flash_attn_tpu/kernels/{replaces}"
         return {"name": name, "route": "cuda",
                 "source": f"flash_attn_tpu_torch/csrc/{source}",
-                "replaces": f"flash_attn_tpu/kernels/{replaces}",
-                "launches": n, "max_abs_err": err, **timing}
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                **timing}
 
     print(json.dumps({"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "flash_fwd.py:59",
@@ -2273,9 +2598,24 @@ def main() -> int:
         entry("flash_decode_mla", "flash_decode_mla.cu", "flash_decode.py:54",
               mla_launches["flash_decode_mla"], mla_err["flash_decode_mla"],
               mla_t["flash_decode_mla"]),
+        entry("flash_blocksparse_fwd", "flash_blocksparse.cu",
+              "flash_blocksparse.py:46", bs_launches["flash_blocksparse_fwd"],
+              bs_err["flash_blocksparse_fwd"], bs_t["flash_blocksparse_fwd"]),
+        entry("flash_blocksparse_bwd", "flash_blocksparse.cu",
+              "flash_blocksparse.py:225", bs_launches["flash_blocksparse_bwd"],
+              bs_err["flash_blocksparse_bwd"], bs_t["flash_blocksparse_bwd"]),
+        entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
+              pr_launches["smem_probe"], pr_err["smem_probe"],
+              pr_t["smem_probe"]),
+        entry("mma_exp2_overlap_probe", "probes.cu",
+              "benchmarks/mxu_vpu_overlap_probe.py:31",
+              pr_launches["mma_exp2_overlap_probe"],
+              pr_err["mma_exp2_overlap_probe"],
+              pr_t["mma_exp2_overlap_probe"]),
     ], "engines": {"paged": paged, "prefix_cache": prefix},
         "varlen": {"timings": vl_t, "bench": bench_vl}, "bert": bert,
-        "mla": {"serving": mla, "timings": mla_t}}))
+        "mla": {"serving": mla, "timings": mla_t},
+        "blocksparse": bs_all, "probes": probes}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -117,6 +117,7 @@ def flash_attn_with_kvcache(
     k_descale=None,
     v_descale=None,
     num_splits: int = 0,
+    pack_gqa: Optional[bool] = None,
     return_softmax_lse: bool = False,
 ):
     """Decode attention against a linear or a paged KV cache.
@@ -132,6 +133,8 @@ def flash_attn_with_kvcache(
     and the scale defaults to 1/sqrt(d + dv) (DeepSeek's absorbed MLA:
     K the 64-wide rope key, V the 512-wide latent, one KV head); V may
     also be a view of K's first dv columns (the 576/512 latent cache).
+    ``pack_gqa`` is accepted and changes nothing, as in JAX: the decode
+    kernel always packs a KV head's query heads into one tile's rows.
 
     With ``block_table`` a row's capacity is max_pages * page_size. Lengths
     the host holds (an int, or a tensor on the CPU) that overflow it raise

@@ -8,6 +8,9 @@
 //  - dq_tile: 64 query rows of one sequence and head loop over the KV tiles
 //    of their band and write dQ once.
 //
+// Each loop takes its tiles from a walk policy: the dense band (QRange,
+// common.cuh KeyRange) or, for csrc/flash_blocksparse.cu, the listed tiles.
+//
 // The transposed scores S^T = K Q^T are computed with the KV rows as the M
 // dimension, so P^T and dS^T come out of the accumulators already in the
 // A-operand layout of dV += P^T dO and dK += dS^T Q (the reuse the forward
@@ -64,8 +67,9 @@ constexpr int dq_smem_bytes() {
 // sequence: q, dout, dq, lse, delta and dq_accum at the first query head the
 // tile works on, k, v, dk and dv at its KV head. Row strides are in
 // elements; lse and delta rows are consecutive floats, their heads lse_sh
-// apart; dq_accum rows are dqa_ss floats apart, its heads D apart.
-template <typename T>
+// apart; dq_accum rows are dqa_ss floats apart, its heads D apart. The
+// gradients are written in TG: the inputs' type, or fp32 (block-sparse).
+template <typename T, typename TG = T>
 struct BwdSeq {
   const T* q;
   const T* dout;
@@ -73,9 +77,9 @@ struct BwdSeq {
   const T* v;
   const float* lse;
   const float* delta;
-  T* dq;
-  T* dk;
-  T* dv;
+  TG* dq;
+  TG* dk;
+  TG* dv;
   float* dq_accum;
   int64_t q_ss, q_sh, do_ss, do_sh, k_ss, v_ss, dq_ss, dk_ss, dv_ss;
   int64_t lse_sh, dqa_ss;
@@ -153,6 +157,35 @@ __device__ __forceinline__ void acc_to_a(uint32_t* a, float (*c)[4], int kk) {
   a[3] = E::pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
+// Two adjacent gradient values, in the inputs' type or in fp32.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = Elem<T>::pack(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
+// The q tiles a dK/dV tile of keys [n0, n0 + 64) walks, in order: count()
+// of them, the n-th starting at row first_row(n), or at -1 for one the walk
+// skips (the same for every thread of the block). QRange is the dense walk:
+// every BM-row tile of the causal band.
+template <int BM>
+struct QRange {
+  int m_begin, n_tiles;
+  __device__ __forceinline__ QRange(int n0, int sq, int sk, bool causal) {
+    // the first row that sees key n0 is n0 - shift
+    const int shift = sk - sq;
+    m_begin = 0;
+    if (causal) m_begin = n0 - shift <= 0 ? 0 : (n0 - shift) / BM;
+    n_tiles = (sq + BM - 1) / BM - m_begin;
+  }
+  __device__ __forceinline__ int count() const { return n_tiles; }
+  __device__ __forceinline__ int first_row(int n) const {
+    return (m_begin + n) * BM;
+  }
+};
+
 // lse in base 2 for the exponent; +inf for a row that sees no key or lies
 // past the end, so that its P is exp2(-inf) = 0 and never NaN.
 __device__ __forceinline__ float lse_log2(const float* lse_row, int row, int sq) {
@@ -160,9 +193,12 @@ __device__ __forceinline__ float lse_log2(const float* lse_row, int row, int sq)
   return l == -INFINITY ? INFINITY : l * FA_LOG2E;
 }
 
-// dK and dV of KV rows [n0, n0 + 64) of one sequence and KV head.
-template <typename T, int D, int BM, bool ACCUM_DQ>
-__device__ __forceinline__ void dkdv_tile(const BwdSeq<T>& s, int n0,
+// dK and dV of KV rows [n0, n0 + 64) of one sequence and KV head, over the
+// q tiles of `walk` (QRange, or the block-sparse kernel's inverse list).
+template <typename T, int D, int BM, bool ACCUM_DQ, typename TG,
+          typename QWalk>
+__device__ __forceinline__ void dkdv_tile(const BwdSeq<T, TG>& s, int n0,
+                                          const QWalk& walk,
                                           const BwdScalars& c,
                                           unsigned char* smem) {
   using E = Elem<T>;
@@ -189,10 +225,7 @@ __device__ __forceinline__ void dkdv_tile(const BwdSeq<T>& s, int n0,
   load_rows<T, D, BN>(Vs, s.v, s.v_ss, n0, s.sk, tid);
   cp_async_commit();
 
-  // q tiles of the causal band: the first row that sees key n0 is n0 - shift.
-  int m_begin = 0;
-  if (c.causal) m_begin = n0 - shift <= 0 ? 0 : (n0 - shift) / BM;
-  const int m_tiles = (s.sq + BM - 1) / BM;
+  const int m_tiles = walk.count();
 
   float dk[D / 8][4];
   float dv[D / 8][4];
@@ -207,8 +240,9 @@ __device__ __forceinline__ void dkdv_tile(const BwdSeq<T>& s, int n0,
     const float* lse_g = s.lse + gi * s.lse_sh;
     const float* delta_g = s.delta + gi * s.lse_sh;
 
-    for (int mt = m_begin; mt < m_tiles; ++mt) {
-      const int m0 = mt * BM;
+    for (int mt = 0; mt < m_tiles; ++mt) {
+      const int m0 = walk.first_row(mt);
+      if (m0 < 0) continue;
       __syncthreads();  // every warp is done with the previous Q/dO/dS tiles
       load_rows<T, D, BM>(Qs, qg, s.q_ss, m0, s.sq, tid);
       cp_async_commit();
@@ -374,21 +408,31 @@ __device__ __forceinline__ void dkdv_tile(const BwdSeq<T>& s, int n0,
   for (int i = 0; i < 2; ++i) {
     const int row = kv_row0 + i * 8;
     if (row >= s.sk) continue;
-    T* dkg = s.dk + (int64_t)row * s.dk_ss;
-    T* dvg = s.dv + (int64_t)row * s.dv_ss;
+    TG* dkg = s.dk + (int64_t)row * s.dk_ss;
+    TG* dvg = s.dv + (int64_t)row * s.dv_ss;
 #pragma unroll
     for (int db = 0; db < D / 8; ++db) {
-      *reinterpret_cast<uint32_t*>(dkg + db * 8 + 2 * t4) =
-          E::pack(dk[db][2 * i] * c.scale, dk[db][2 * i + 1] * c.scale);
-      *reinterpret_cast<uint32_t*>(dvg + db * 8 + 2 * t4) =
-          E::pack(dv[db][2 * i], dv[db][2 * i + 1]);
+      store_pair(dkg + db * 8 + 2 * t4, dk[db][2 * i] * c.scale,
+                 dk[db][2 * i + 1] * c.scale);
+      store_pair(dvg + db * 8 + 2 * t4, dv[db][2 * i], dv[db][2 * i + 1]);
     }
   }
 }
 
-// dQ of query rows [m0, m0 + 64) of one sequence and head.
-template <typename T, int D>
-__device__ __forceinline__ void dq_tile(const BwdSeq<T>& s, int m0,
+// The dense walk: every q tile of the KV tile's causal band.
+template <typename T, int D, int BM, bool ACCUM_DQ>
+__device__ __forceinline__ void dkdv_tile(const BwdSeq<T>& s, int n0,
+                                          const BwdScalars& c,
+                                          unsigned char* smem) {
+  dkdv_tile<T, D, BM, ACCUM_DQ>(s, n0, QRange<BM>(n0, s.sq, s.sk, c.causal),
+                                c, smem);
+}
+
+// dQ of query rows [m0, m0 + 64) of one sequence and head, over the key
+// tiles of `walk` (common.cuh KeyRange, or the block-sparse kernel's list).
+template <typename T, int D, typename TG, typename Walk>
+__device__ __forceinline__ void dq_tile(const BwdSeq<T, TG>& s, int m0,
+                                        const Walk& walk,
                                         const BwdScalars& c,
                                         unsigned char* smem) {
   using E = Elem<T>;
@@ -419,18 +463,15 @@ __device__ __forceinline__ void dq_tile(const BwdSeq<T>& s, int m0,
     delta[i] = row < s.sq ? s.delta[row] : 0.f;
   }
 
-  int n_tiles = (s.sk + BN - 1) / BN;
-  if (c.causal) {
-    const int col_hi = min(m0 + BM, s.sq) - 1 + shift;
-    n_tiles = col_hi < 0 ? 0 : min(n_tiles, col_hi / BN + 1);
-  }
+  const int n_tiles = walk.count();
 
   float dq[D / 8][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
 
   for (int n = 0; n < n_tiles; ++n) {
-    const int n0 = n * BN;
+    const int n0 = walk.first_key(n);
+    if (n0 < 0) continue;
     __syncthreads();  // every warp is done with the previous K/V tile
     load_rows<T, D, BN>(Ks, s.k, s.k_ss, n0, s.sk, tid);
     cp_async_commit();
@@ -518,13 +559,22 @@ __device__ __forceinline__ void dq_tile(const BwdSeq<T>& s, int m0,
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + i * 8;
     if (row >= s.sq) continue;
-    T* dqg = s.dq + (int64_t)row * s.dq_ss;
+    TG* dqg = s.dq + (int64_t)row * s.dq_ss;
 #pragma unroll
     for (int db = 0; db < D / 8; ++db) {
-      *reinterpret_cast<uint32_t*>(dqg + db * 8 + 2 * t4) =
-          E::pack(dq[db][2 * i] * c.scale, dq[db][2 * i + 1] * c.scale);
+      store_pair(dqg + db * 8 + 2 * t4, dq[db][2 * i] * c.scale,
+                 dq[db][2 * i + 1] * c.scale);
     }
   }
+}
+
+// The dense walk: every key tile of the q tile's causal band.
+template <typename T, int D>
+__device__ __forceinline__ void dq_tile(const BwdSeq<T>& s, int m0,
+                                        const BwdScalars& c,
+                                        unsigned char* smem) {
+  dq_tile<T, D>(s, m0, KeyRange<DQ_BN>(m0, DQ_BM, s.sq, s.sk, c.causal), c,
+                smem);
 }
 
 }  // namespace fa

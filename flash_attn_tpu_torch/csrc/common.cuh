@@ -102,6 +102,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The key tiles a tile of query rows walks, in order: count() of them, the
+// n-th starting at key first_key(n), or at -1 for one the walk skips (the
+// same for every thread of the block). KeyRange is the dense walk: every
+// BN-key tile of the causal band of rows [m0, m0 + bm), all of them when
+// not causal, none for a tile past the last row.
+template <int BN>
+struct KeyRange {
+  int n_tiles;
+  __device__ __forceinline__ KeyRange(int m0, int bm, int sq, int sk,
+                                      bool causal) {
+    n_tiles = m0 < sq ? (sk + BN - 1) / BN : 0;
+    if (causal) {
+      const int col_hi = min(m0 + bm, sq) - 1 + sk - sq;
+      n_tiles = col_hi < 0 ? 0 : min(n_tiles, col_hi / BN + 1);
+    }
+  }
+  __device__ __forceinline__ int count() const { return n_tiles; }
+  __device__ __forceinline__ int first_key(int n) const { return n * BN; }
+};
+
 // Reductions over the 4 lanes of a quad (the lanes that share one row of an
 // mma accumulator tile).
 __device__ __forceinline__ float quad_max(float x) {

@@ -2,9 +2,10 @@
 // packed-varlen forwards (csrc/flash_varlen.cu) and the packed prefill over
 // a paged cache (csrc/flash_varlen_paged.cu): one block of 4 warps computes
 // 64 query rows of one sequence and head against the keys of its causal
-// band. The callers differ only in where a tile's sequence starts, how long
-// it is and how its K/V rows are found (a row stride, or a page table), so
-// the same tile gives the same bits in each.
+// band, or (csrc/flash_blocksparse.cu) against the key tiles of a list. The
+// callers differ only in where a tile's sequence starts, how long it is, how
+// its K/V rows are found (a row stride, or a page table) and which key tiles
+// it walks, so the same tile gives the same bits in each.
 //
 // Q stays in registers as mma fragments for the whole loop; 64-key K/V tiles
 // arrive with cp.async into XOR-swizzled shared memory so the ldmatrix reads
@@ -86,11 +87,13 @@ struct LinearKV {
 };
 
 // KV: load_k / load_v(tile, n0, nkeys, tid) copy key rows [n0, n0 + 64) into
-// a swizzled shared tile, zero-filling rows at or past nkeys.
-template <typename T, int D, typename KV>
+// a swizzled shared tile, zero-filling rows at or past nkeys. Walk: the key
+// tiles to visit (common.cuh KeyRange; the block-sparse kernel's list of
+// listed tiles), each masked as the dense loop masks it.
+template <typename T, int D, typename KV, typename Walk>
 __device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const KV& kv,
-                                         float scale_log2, bool causal,
-                                         unsigned char* smem) {
+                                         const Walk& walk, float scale_log2,
+                                         bool causal, unsigned char* smem) {
   using E = Elem<T>;
   constexpr int BM = FWD_BM;
   constexpr int BN = FWD_BN;
@@ -106,12 +109,7 @@ __device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const KV& kv,
   const int m0 = t.m0;
   const int shift = t.sk - t.sq;
 
-  // KV tiles of this tile's band: none for a tile past the sequence's rows.
-  int n_tiles = m0 < t.sq ? (t.sk + BN - 1) / BN : 0;
-  if (causal) {
-    const int col_hi = min(m0 + BM, t.sq) - 1 + shift;
-    n_tiles = col_hi < 0 ? 0 : min(n_tiles, col_hi / BN + 1);
-  }
+  const int n_tiles = walk.count();
 
   __syncthreads();  // a block that walks several tiles: the last is done
   load_rows64<T, D>(Qs, t.q, t.q_ss, m0, t.sq, tid);
@@ -134,7 +132,8 @@ __device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const KV& kv,
   const int row0 = m0 + warp * 16 + g;    // rows row0 and row0 + 8
 
   for (int n = 0; n < n_tiles; ++n) {
-    const int n0 = n * BN;
+    const int n0 = walk.first_key(n);
+    if (n0 < 0) continue;
     __syncthreads();  // every warp is done with the previous K/V tile
     kv.load_k(Ks, n0, t.sk, tid);
     cp_async_commit();
@@ -241,6 +240,15 @@ __device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const KV& kv,
     }
     if (t4 == 0) t.lse[row] = l == 0.f ? -INFINITY : __fmaf_rn(m_r[i], FA_LN2, logf(l));
   }
+}
+
+// The dense walk: every key tile of the tile's causal band.
+template <typename T, int D, typename KV>
+__device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const KV& kv,
+                                         float scale_log2, bool causal,
+                                         unsigned char* smem) {
+  fwd_tile<T, D>(t, kv, KeyRange<FWD_BN>(t.m0, FWD_BM, t.sq, t.sk, causal),
+                 scale_log2, causal, smem);
 }
 
 }  // namespace fa

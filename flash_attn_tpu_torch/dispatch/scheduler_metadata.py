@@ -17,6 +17,7 @@ from flash_attn_tpu_torch.dispatch.varlen_meta import (
     compute_varlen_meta,
     num_tiles_bound,
 )
+from flash_attn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["SchedulerMetadata", "get_scheduler_metadata"]
 
@@ -43,12 +44,15 @@ def get_scheduler_metadata(
     causal: bool = False,
     window_size: Tuple[int, int] = (-1, -1),
     headdim_v: Optional[int] = None,
+    device=None,
 ) -> SchedulerMetadata:
     """The work lists of ``batch_size`` sequences packed by cu_seqlens_q/k
     (by default every sequence at its max_seqlen), on cu_seqlens_q's
-    device. As in JAX, the packed layouts are taken to hold batch_size x
-    max_seqlen rows (unpad_input's). A window raises NotImplementedError
-    (ROADMAP.md queue A, item 7)."""
+    device; without cu_seqlens_q, on ``device``, which is the CUDA card
+    when None (raising without one, as the entry points do). As in JAX,
+    the packed layouts are taken to hold batch_size x max_seqlen rows
+    (unpad_input's). A window raises NotImplementedError (ROADMAP.md queue
+    A, item 7)."""
     if normalize_window(tuple(window_size)) != (None, None):
         raise NotImplementedError(
             f"get_scheduler_metadata: window_size={window_size!r} is not "
@@ -58,8 +62,9 @@ def get_scheduler_metadata(
             "get_scheduler_metadata: headdim_v != headdim is not ported yet "
             "(ROADMAP.md queue A, item 7)")
     if cu_seqlens_q is None:
-        cu_seqlens_q = torch.arange(batch_size + 1,
-                                    dtype=torch.int32) * max_seqlen_q
+        cu_seqlens_q = torch.arange(batch_size + 1, dtype=torch.int32,
+                                    device=resolve_device(device)) \
+            * max_seqlen_q
     if cu_seqlens_k is None:
         cu_seqlens_k = torch.arange(batch_size + 1, dtype=torch.int32,
                                     device=cu_seqlens_q.device) * max_seqlen_k

@@ -77,6 +77,27 @@ def reject_unsupported(name: str, roadmap_item: str = "", **args) -> None:
             f"{roadmap_item or 'lists the arguments still to port'})")
 
 
+def _reconstruct_s_dmask(q, k, lse, softmax_scale: float, causal: bool):
+    """The (b, h, sq, sk) fp32 attention probabilities that
+    ``return_attn_probs`` returns (JAX ``_reconstruct_s_dmask``,
+    flash_attn_tpu/interface.py:44): scores rebuilt with torch ops from q
+    and k (GQA by grouping query heads), bottom-right causal, normalised by
+    the kernel's own lse; 0 where masked and on rows that see no key. A
+    testing aid, not a kernel."""
+    b, sq, h, d = q.shape
+    sk, h_k = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, sq, h_k, h // h_k, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf * softmax_scale,
+                          k.float()).reshape(b, h, sq, sk)
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        scores = scores.masked_fill(cols > rows + (sk - sq), float("-inf"))
+    seen = torch.isfinite(lse)[..., None]
+    probs = torch.exp(scores - torch.where(seen, lse[..., None], 0.0))
+    return torch.where(seen & torch.isfinite(scores), probs, 0.0)
+
+
 def _kernel_layout(dout):
     """dout as the kernels read it: 16-byte chunks along the head dim
     (autograd may hand a cotangent in any layout)."""
@@ -143,11 +164,13 @@ def flash_attn_func(
     nheads_k, head_dim) with nheads % nheads_k == 0. Causal masking is
     bottom-right aligned. Returns out (batch, seqlen_q, nheads, head_dim);
     with ``return_attn_probs``, (out, lse (batch, nheads, seqlen_q) fp32,
-    None). Differentiable in q, k and v: ``deterministic`` (the default, as
-    in JAX) runs the dK/dV and dQ backward kernels, each writing its
-    gradient once; False runs the fused backward with atomic dQ. Only dense
-    causal/non-causal attention is ported; every other option raises
-    NotImplementedError (ROADMAP.md queue A, item 7)."""
+    S_dmask): the (batch, nheads, seqlen_q, seqlen_k) fp32 probabilities
+    normalised by lse, rebuilt with torch ops as JAX does (for tests, not
+    gradients). Differentiable in q, k and v: ``deterministic`` (the
+    default, as in JAX) runs the dK/dV and dQ backward kernels, each
+    writing its gradient once; False runs the fused backward with atomic
+    dQ. Only dense causal/non-causal attention is ported; every other
+    option raises NotImplementedError (ROADMAP.md queue A, item 7)."""
     reject_unsupported(
         "flash_attn_func", roadmap_item="queue A, item 7", dropout_p=dropout_p,
         window_size=normalize_window(tuple(window_size)), softcap=softcap,
@@ -159,7 +182,11 @@ def flash_attn_func(
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     out, lse = _FlashAttn.apply(q, k, v, softmax_scale, causal, deterministic)
-    return (out, lse, None) if return_attn_probs else out
+    if not return_attn_probs:
+        return out
+    with torch.no_grad():
+        s_dmask = _reconstruct_s_dmask(q, k, lse, softmax_scale, causal)
+    return out, lse, s_dmask
 
 
 class _FlashAttnVarlen(torch.autograd.Function):
@@ -279,6 +306,15 @@ def flash_attn_varlen_func(
                 f"{scheduler_metadata.block_q} x {scheduler_metadata.block_k}"
                 f", the kernels' are {VARLEN_FWD_TILE}")
         meta = scheduler_metadata.meta
+        away = [name for name, t in meta._asdict().items()
+                if t.device != q.device]
+        if away:
+            # the kernels would read these through host pointers
+            raise ValueError(
+                "flash_attn_varlen_func: scheduler_metadata tensors "
+                f"{away} are not on q's device {q.device} (build it with "
+                "cu_seqlens_q on that device, or get_scheduler_metadata("
+                "device=...))")
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, int(max_seqlen_q),
                        int(max_seqlen_k), seqused_q, seqused_k, causal, meta)
     out, lse = _FlashAttnVarlen.apply(

@@ -40,6 +40,12 @@ SIGNATURES = {
         [_P] * 10 + [_I] * 7 + [_L] * 8 + [_F, _I, _I, _I, _P, _P],
     "fa_varlen_bwd_dkdv": [_P] * 13 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P],
     "fa_varlen_bwd_dq": [_P] * 12 + [_I] * 7 + [_L] * 10 + [_F, _I, _I, _P],
+    "fa_blocksparse_fwd": [_P] * 7 + [_I] * 8 + [_L] * 9 + [_F, _I, _I, _P],
+    "fa_blocksparse_bwd_dkdv":
+        [_P] * 10 + [_I] * 8 + [_L] * 12 + [_F, _I, _I, _P],
+    "fa_blocksparse_bwd_dq": [_P] * 9 + [_I] * 8 + [_L] * 12 + [_F, _I, _I, _P],
+    "fa_smem_probe": [_P, _P, _I, _I, _P, _P],
+    "fa_overlap_probe": [_P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -410,11 +410,14 @@ class InferenceEngine:
                 margin = 2 * self.decode_block - 1
                 if shared_pages:
                     self.pool.share(slot, shared_pages)
-                    self.prefix_hit_pages += len(shared_pages)
                 if not self.pool.alloc(
                         slot, len(req.prompt) + req.max_new_tokens + margin):
                     self.pool.release(slot)
                     break  # out of pages: wait for completions
+                if shared_pages:
+                    # counted once the request is in: a failed alloc
+                    # retries the same hit next step
+                    self.prefix_hit_pages += len(shared_pages)
             free.pop(0)
             self.queue.popleft()
             admit.append((slot, req, n_shared, keys))

@@ -14,7 +14,11 @@ from flash_attn_tpu.interface import flash_attn_func as jax_flash_attn_func
 from flash_attn_tpu.kernels.flash_decode import (
     combine_splits as jax_combine_splits,
 )
-from flash_attn_tpu_torch import flash_attn_func, flash_attn_with_kvcache
+from flash_attn_tpu_torch import (
+    flash_attn_func,
+    flash_attn_varlen_func,
+    flash_attn_with_kvcache,
+)
 from flash_attn_tpu_torch.kernels.flash_decode import combine_splits
 from flash_attn_tpu_torch.utils.testing import attention_ref, check_against_ref
 
@@ -47,15 +51,42 @@ def test_flash_attn_func_matches_jax(sq, sk, h, h_k, d, causal):
     rng = np.random.default_rng(0)
     q, k, v = _rand(rng, 2, sq, h, d), _rand(rng, 2, sk, h_k, d), \
         _rand(rng, 2, sk, h_k, d)
-    out_j, lse_j, _ = jax_flash_attn_func(
+    out_j, lse_j, s_j = jax_flash_attn_func(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
         return_attn_probs=True)
-    out_t, lse_t, none = flash_attn_func(
+    out_t, lse_t, s_t = flash_attn_func(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal, return_attn_probs=True)
-    assert none is None and out_t.shape == (2, sq, h, d)
+    assert out_t.shape == (2, sq, h, d)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
     _assert_lse(lse_t, lse_j)
+    # S_dmask: the probabilities normalised by each side's own lse
+    assert s_t.shape == (2, h, sq, sk) and s_t.dtype == torch.float32
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_s_dmask_with_a_scale_matches_jax(causal):
+    """return_attn_probs' S_dmask with GQA, sq < sk and a softmax_scale
+    against JAX's; the dense varlen route returns None for it, as JAX's
+    does."""
+    rng = np.random.default_rng(3)
+    q, k, v = _rand(rng, 2, 24, 4, 64), _rand(rng, 2, 40, 2, 64), \
+        _rand(rng, 2, 40, 2, 64)
+    _, _, s_j = jax_flash_attn_func(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), softmax_scale=0.3,
+        causal=causal, return_attn_probs=True)
+    _, _, s_t = flash_attn_func(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        softmax_scale=0.3, causal=causal, return_attn_probs=True)
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), **TOL)
+    cu = torch.tensor([0, 24, 48], dtype=torch.int32)
+    cu_k = torch.tensor([0, 40, 80], dtype=torch.int32)
+    *_, none = flash_attn_varlen_func(
+        torch.from_numpy(q).flatten(0, 1), torch.from_numpy(k).flatten(0, 1),
+        torch.from_numpy(v).flatten(0, 1), cu, cu_k, 24, 40,
+        causal=causal, return_attn_probs=True)
+    assert none is None
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -117,6 +148,39 @@ def test_flash_attn_with_kvcache_matches_jax(s_new, num_splits):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
     np.testing.assert_allclose(kc_t.numpy(), np.asarray(kc_j), **TOL)
     np.testing.assert_allclose(vc_t.numpy(), np.asarray(vc_j), **TOL)
+
+
+def test_public_surface_holds_jax_s():
+    """The port exports what flash_attn_tpu exports, less
+    flash_attn_sparse_mla_func (ROADMAP.md queue A, item 7);
+    flash_attn_combine is JAX's combine_splits, empty splits included; and
+    flash_attn_with_kvcache takes JAX's pack_gqa as the no-op it is
+    there."""
+    import flash_attn_tpu
+    import flash_attn_tpu_torch
+
+    want = set(flash_attn_tpu.__all__) - {"flash_attn_sparse_mla_func"}
+    assert want <= set(flash_attn_tpu_torch.__all__)
+    assert all(callable(getattr(flash_attn_tpu_torch, n)) for n in want)
+
+    rng = np.random.default_rng(5)
+    out_p = _rand(rng, 4, 2, 3, 8)
+    lse_p = _rand(rng, 4, 2, 3) * 3
+    lse_p[2] = -np.inf             # an empty split
+    lse_p[:, 0, 1] = -np.inf       # rows with every split empty
+    out_j, lse_j = flash_attn_tpu.flash_attn_combine(jnp.asarray(out_p),
+                                                     jnp.asarray(lse_p))
+    out_t, lse_t = flash_attn_tpu_torch.flash_attn_combine(
+        torch.from_numpy(out_p), torch.from_numpy(lse_p))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    _assert_lse(lse_t, lse_j)
+
+    q = torch.from_numpy(_rand(rng, 2, 1, 4, 64))
+    kc, vc = (torch.from_numpy(_rand(rng, 2, 2, 128, 64)) for _ in range(2))
+    base = flash_attn_with_kvcache(q, kc, vc, cache_seqlens=9)
+    for pack_gqa in (True, False):
+        assert torch.equal(flash_attn_with_kvcache(
+            q, kc, vc, cache_seqlens=9, pack_gqa=pack_gqa), base)
 
 
 def test_combine_splits_matches_jax():

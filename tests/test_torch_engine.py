@@ -156,6 +156,32 @@ def test_prefix_cache_sharing_retention_and_eviction_match_jax(params):
     assert outs[3][0] == outs[0][0]
 
 
+def test_prefix_hit_is_counted_once_when_the_pool_is_full(params):
+    """A same-prefix request that the pool cannot take at once: it shares
+    the first request's two prefix pages, its alloc of a third fails while
+    the first request holds every other page, and it is retried each step
+    until the first finishes. Its hit counts once, when it is admitted.
+    The JAX engine counts it on every failed try
+    (flash_attn_tpu/serving/engine.py:544-551 adds to prefix_hit_pages
+    before alloc()); the port deliberately does not, so this runs the
+    port's engine alone."""
+    rng = np.random.default_rng(17)
+    common = rng.integers(0, 96, size=2 * PAGE).tolist()
+    jobs = [(common + [1, 2], 4), (common + [3, 4], 4)]
+    # 3 pages besides the null page: each request needs 3 (36 + 4 + 1)
+    _, teng = _engines(params, num_pages=4, prefix_cache=True)
+    ids = [teng.submit(p, max_new_tokens=m) for p, m in jobs]
+    tries = 0
+    while teng.queue or any(s is not None for s in teng.slots):
+        tries += bool(teng.queue)
+        teng.step()
+    res = teng.run()
+    assert tries > 2  # the second request waited through failed allocs
+    assert [len(res[i]) for i in ids] == [4, 4]
+    assert teng.stats()["prefix_hit_pages"] == 2
+    assert len(teng.pool.free) + len(teng.pool.retained) == 3
+
+
 def test_eos_early_release_and_cancel_match_jax(params):
     """A request ends at its eos token and frees its slot; a queued and an
     active request are cancelled; later requests take the freed slots."""

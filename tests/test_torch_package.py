@@ -459,3 +459,144 @@ def test_mla_kernels_refuse_other_forms_on_the_card():
         flash_paged_prefill.flash_attention_paged_prefill(
             q, kc, kc[..., :512], lens[:1], lens,
             torch.ones(1, 1, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_scheduler_metadata_without_cu_seqlens_on_the_card():
+    """get_scheduler_metadata without cu_seqlens builds on the card by
+    default, and the varlen kernels run with it; the same call with the
+    metadata on the CPU is refused."""
+    from flash_attn_tpu_torch import flash_attn_varlen_func, get_scheduler_metadata
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s, h, d = 3, 200, 4, 64
+    q, k, v = (torch.randn(b * s, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(3))
+    cu = torch.arange(b + 1, dtype=torch.int32, device="cuda") * s
+    md = get_scheduler_metadata(b, s, s, h, h, d, causal=True)
+    assert all(t.device.type == "cuda" for t in md.meta)
+    got = flash_attn_varlen_func(q, k, v, cu, cu, s, s, causal=True,
+                                 scheduler_metadata=md)
+    assert torch.equal(got, flash_attn_varlen_func(q, k, v, cu, cu, s, s,
+                                                   causal=True))
+    on_cpu = get_scheduler_metadata(b, s, s, h, h, d, causal=True,
+                                    device="cpu")
+    with pytest.raises(ValueError, match="not on q's device"):
+        flash_attn_varlen_func(q, k, v, cu, cu, s, s, causal=True,
+                               scheduler_metadata=on_cpu)
+
+
+def _blocksparse_inputs(gen, b, h, sq, sk, d, dtype, mask, bshd=False):
+    """q/do (b, h, sq, d), k/v (b, h, sk, d) on the card (with ``bshd``,
+    strided views of (b, s, h, d) tensors) and the mask's lists."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+
+    def randn(s):
+        x = torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
+        return x.transpose(1, 2) if bshd else x.transpose(1, 2).contiguous()
+
+    q, k, v, do = randn(sq), randn(sk), randn(sk), randn(sq)
+    num, idx = bs.blockmask_to_kv_indices(mask.cuda())
+    return q, k, v, do, num, idx
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_blocksparse_kernels_match_plain_versions_on_the_card(causal, d):
+    """B10 forward and backward against their plain versions on per-entry
+    random masks with an empty row and a duplicated list entry: tiles of
+    128 (two 64-key tiles a listed tile), of 64 x 256 in fp16, and sq=200
+    over sk=384 (a ragged last q tile, the causal shift) on strided (b, s,
+    h, d) views; the backward gives the same bits twice; autograd casts to
+    the inputs' type."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for dtype, sq, sk, bq, bk, bshd in (
+            (torch.bfloat16, 512, 512, 128, 128, False),
+            (torch.float16, 512, 512, 64, 256, False),
+            (torch.bfloat16, 200, 384, 64, 128, True)):
+        nq, nk = -(-sq // bq), sk // bk
+        mask = torch.rand(2, nq, nk, generator=torch.Generator().manual_seed(
+            d)) < 0.5
+        mask[:, :, 0] = True
+        mask[0, 0, -1] = False
+        mask[1, 1] = False  # an empty row
+        q, k, v, do, num, idx = _blocksparse_inputs(gen, 2, 4, sq, sk, d,
+                                                    dtype, mask, bshd)
+        idx[0, 0, num[0, 0]] = idx[0, 0, 0]  # listed twice
+        num[0, 0] += 1
+        kw = dict(causal=causal, block_q=bq, block_k=bk)
+        out, lse = bs.flash_attention_blocksparse_fwd(q, k, v, num, idx, **kw)
+        ref, ref_lse = bs.flash_attention_blocksparse_fwd_plain(
+            q, k, v, num, idx, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+        fin = torch.isfinite(ref_lse)
+        assert torch.equal(torch.isfinite(lse), fin)
+        torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+        assert not out[1, :, bq:2 * bq].any()
+        got = bs.flash_attention_blocksparse_bwd(do, q, k, v, out, lse, num,
+                                                 idx, **kw)
+        want = bs.flash_attention_blocksparse_bwd_plain(do, q, k, v, out, lse,
+                                                        num, idx, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            torch.testing.assert_close(g, w, atol=5e-2, rtol=0)
+        again = bs.flash_attention_blocksparse_bwd(do, q, k, v, out, lse, num,
+                                                   idx, **kw)
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        assert not got[0][1, :, bq:2 * bq].any()
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        bs.flash_attention_blocksparse(*leaves, num, idx, **kw).backward(do)
+        for leaf, g in zip(leaves, got):
+            assert leaf.grad.dtype == dtype
+            assert torch.equal(leaf.grad, g.to(dtype))
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_blocksparse_kernels_refuse_other_forms_on_the_card():
+    """d != dv, fp32 and tiles that are not multiples of 64 are forms JAX
+    takes and the kernels do not (queue A, item 7); lists on the CPU would
+    hand a kernel host pointers."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mask = torch.ones(2, 2, dtype=torch.bool)
+    q, k, v, _, num, idx = _blocksparse_inputs(gen, 1, 2, 256, 256, 64,
+                                               torch.bfloat16, mask)
+    kw = dict(block_q=128, block_k=128)
+    with pytest.raises(ValueError, match="queue A, item 7"):
+        bs.flash_attention_blocksparse_fwd(q, k, torch.cat([v, v], -1), num,
+                                           idx, **kw)
+    with pytest.raises(ValueError, match="queue A, item 7"):
+        bs.flash_attention_blocksparse_fwd(q.float(), k.float(), v.float(),
+                                           num, idx, **kw)
+    with pytest.raises(ValueError, match="queue A, item 7"):
+        bs.flash_attention_blocksparse_fwd(q[:, :, :40], k, v, num, idx,
+                                           block_q=32, block_k=128)
+    with pytest.raises(ValueError, match="int32 on q's device"):
+        bs.flash_attention_blocksparse_fwd(q, k, v, num.cpu(), idx, **kw)
+    out, lse = bs.flash_attention_blocksparse_fwd(q, k, v, num, idx, **kw)
+    with pytest.raises(ValueError, match="int32 on q's device"):
+        bs.flash_attention_blocksparse_bwd(q, q, k, v, out, lse, num,
+                                           idx.long(), **kw)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_probes_match_plain_versions_on_the_card():
+    """The shared-memory probe takes 227 KB and refuses more, and its
+    output is the plain one; the overlap probe's chains equal their plain
+    versions in every mode."""
+    from flash_attn_tpu_torch.probes import mma_exp2_overlap_probe as ov
+    from flash_attn_tpu_torch.probes import smem_probe as sm
+
+    rows = {r["kb"]: r for r in sm.run((48, 227, 228))}
+    assert rows[48]["accepted"] and rows[227]["accepted"]
+    assert not rows[228]["accepted"]
+    assert rows[48]["max_abs_err"] == rows[227]["max_abs_err"] == 0.0
+    assert rows[227]["blocks_per_sm"] == 1
+    for mode in ov.MODES:
+        for got, want in zip(ov.overlap_probe(mode, 64),
+                             ov.overlap_probe_plain(mode, 64)):
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=0)

@@ -311,6 +311,32 @@ def test_scheduler_metadata_matches_jax_and_gives_the_same_result():
     assert torch.equal(with_md, without)
 
 
+def test_scheduler_metadata_device_is_explicit():
+    """Without cu_seqlens_q the metadata is built on ``device`` (the card
+    by default, raising without one); flash_attn_varlen_func refuses
+    metadata that is not on q's device instead of handing its host
+    pointers to a kernel."""
+    md = get_scheduler_metadata(2, 32, 32, 4, 4, 64, causal=True,
+                                device="cpu")
+    assert all(t.device.type == "cpu" for t in md.meta)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_scheduler_metadata(2, 32, 32, 4, 4, 64)
+    rng = np.random.default_rng(2)
+    q, k, v = (_t(rng.standard_normal((64, 4, 64)).astype(np.float32))
+               for _ in range(3))
+    cu = torch.tensor([0, 32, 64], dtype=torch.int32)
+    with_md = flash_attn_varlen_func(q, k, v, cu, cu, 32, 32, causal=True,
+                                     scheduler_metadata=md)
+    assert torch.equal(with_md, flash_attn_varlen_func(
+        q, k, v, cu, cu, 32, 32, causal=True))
+    away = md._replace(meta=md.meta._replace(
+        q_tiles=md.meta.q_tiles.to("meta")))
+    with pytest.raises(ValueError, match="q_tiles"):
+        flash_attn_varlen_func(q, k, v, cu, cu, 32, 32, causal=True,
+                               scheduler_metadata=away)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_persistent_plain_equals_banded_plain(causal):
     """The persistent kernel's walk (tile by tile, longest band first)
