@@ -1,10 +1,11 @@
-// The backward tile loops shared by the dense backward (csrc/flash_bwd.cu)
-// and the packed-varlen backward (csrc/flash_varlen.cu):
+// The mma.sync backward tile loops of the packed-varlen backward
+// (csrc/flash_varlen.cu) and the block-sparse backward
+// (csrc/flash_blocksparse.cu); the dense backward runs on wgmma and TMA
+// (csrc/bwd_sm90.cuh):
 //
 //  - dkdv_tile: 64 KV rows of one sequence and KV head loop over the group's
-//    query heads and the q tiles of their causal band, keep dK and dV in
-//    registers and write them once; with ACCUM_DQ (the dense fused pass) dQ
-//    is also added into an fp32 buffer with atomics;
+//    query heads and the q tiles of their band, keep dK and dV in registers
+//    and write them once;
 //  - dq_tile: 64 query rows of one sequence and head loop over the KV tiles
 //    of their band and write dQ once.
 //
@@ -19,11 +20,9 @@
 // the other orientation), so no operand is held in registers across the
 // loop. Registers bound the tile: the dK and dV accumulators of a warp's 16
 // KV rows take 2 x D / 2 fp32 registers a thread (128 at D = 128), before S
-// and dP, so the q tile at D = 128 is 32 rows (FA_BWD_BM_D128). The fused
-// form stages dS^T in padded shared memory and reads dS back with
-// ldmatrix.trans for dQ = dS K. mma.sync.m16n8k16 with fp32 accumulation
-// throughout. Only the tiles that cross the causal diagonal or the ragged
-// end of the sequence run the mask.
+// and dP, so the q tile at D = 128 is 32 rows (FA_BWD_BM_D128).
+// mma.sync.m16n8k16 with fp32 accumulation throughout. Only the tiles that
+// cross the causal diagonal or the ragged end of the sequence run the mask.
 //
 // Conventions: softmax_scale is natural; lse is natural-log and -inf for a
 // row that sees no key (its P is 0); delta = rowsum(dO * O) in fp32. Causal
@@ -52,9 +51,8 @@ constexpr int dkdv_bm() {
 }
 
 template <typename T, int D, int BM>
-constexpr int dkdv_smem_bytes(bool accum_dq) {
-  return (2 * KV_BN + 2 * BM) * D * (int)sizeof(T) + 2 * BM * (int)sizeof(float) +
-         (accum_dq ? KV_BN * (BM + 8) * (int)sizeof(T) : 0);
+constexpr int dkdv_smem_bytes() {
+  return (2 * KV_BN + 2 * BM) * D * (int)sizeof(T) + 2 * BM * (int)sizeof(float);
 }
 
 template <typename T, int D>
@@ -62,12 +60,11 @@ constexpr int dq_smem_bytes() {
   return 2 * (DQ_BM + DQ_BN) * D * (int)sizeof(T);
 }
 
-// One sequence (a batch row of the dense backward, a packed sequence of the
-// varlen one) of sq query rows over sk keys. Pointers are at row 0 of the
-// sequence: q, dout, dq, lse, delta and dq_accum at the first query head the
-// tile works on, k, v, dk and dv at its KV head. Row strides are in
-// elements; lse and delta rows are consecutive floats, their heads lse_sh
-// apart; dq_accum rows are dqa_ss floats apart, its heads D apart. The
+// One sequence (a packed sequence of the varlen backward, a batch row of the
+// block-sparse one) of sq query rows over sk keys. Pointers are at row 0 of
+// the sequence: q, dout, dq, lse and delta at the first query head the tile
+// works on, k, v, dk and dv at its KV head. Row strides are in elements; lse
+// and delta rows are consecutive floats, their heads lse_sh apart. The
 // gradients are written in TG: the inputs' type, or fp32 (block-sparse).
 template <typename T, typename TG = T>
 struct BwdSeq {
@@ -80,9 +77,8 @@ struct BwdSeq {
   TG* dq;
   TG* dk;
   TG* dv;
-  float* dq_accum;
   int64_t q_ss, q_sh, do_ss, do_sh, k_ss, v_ss, dq_ss, dk_ss, dv_ss;
-  int64_t lse_sh, dqa_ss;
+  int64_t lse_sh;
   int sq, sk;
 };
 
@@ -136,16 +132,6 @@ __device__ __forceinline__ void frag_b_trans(uint32_t* r, const T* tile, int k0,
   ldmatrix_x4_trans(r, smem_addr(tile + swz<D>(row, (n0 >> 3) + (lane >> 4))));
 }
 
-// A operand (16 x 16 at rows m0, depth k0) of a padded tile stored [k][m].
-template <typename T>
-__device__ __forceinline__ void frag_a_trans(uint32_t* r, const T* tile,
-                                             int stride, int k0, int m0,
-                                             int lane) {
-  const int row = k0 + (lane & 7) + (lane >> 4) * 8;
-  const int col = m0 + ((lane >> 3) & 1) * 8;
-  ldmatrix_x4_trans(r, smem_addr(tile + row * stride + col));
-}
-
 // Pack accumulator n8 blocks 2kk and 2kk + 1 into the A operand of a product
 // over those 16 columns.
 template <typename T>
@@ -195,23 +181,19 @@ __device__ __forceinline__ float lse_log2(const float* lse_row, int row, int sq)
 
 // dK and dV of KV rows [n0, n0 + 64) of one sequence and KV head, over the
 // q tiles of `walk` (QRange, or the block-sparse kernel's inverse list).
-template <typename T, int D, int BM, bool ACCUM_DQ, typename TG,
-          typename QWalk>
+template <typename T, int D, int BM, typename TG, typename QWalk>
 __device__ __forceinline__ void dkdv_tile(const BwdSeq<T, TG>& s, int n0,
                                           const QWalk& walk,
                                           const BwdScalars& c,
                                           unsigned char* smem) {
   using E = Elem<T>;
   constexpr int BN = KV_BN;
-  constexpr int NWARPS = BWD_THREADS / 32;
-  constexpr int DS_STRIDE = BM + 8;  // padded rows: conflict-free ldmatrix
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + BN * D;
   T* Qs = Vs + BN * D;
   T* dOs = Qs + BM * D;
   float* lse_s = reinterpret_cast<float*>(dOs + BM * D);
   float* delta_s = lse_s + BM;
-  T* dSs = reinterpret_cast<T*>(delta_s + BM);  // dS^T [BN][DS_STRIDE]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -349,56 +331,6 @@ __device__ __forceinline__ void dkdv_tile(const BwdSeq<T, TG>& s, int n0,
           E::mma(dk[2 * dp + 1], da, qb[2], qb[3]);
         }
       }
-
-      if constexpr (ACCUM_DQ) {
-        // Stage dS^T in shared memory, then dQ[m0:m0+BM] += dS K * scale
-        // into the fp32 buffer: warps split the tile's rows (16 each) and,
-        // when BM < 64, the head dim.
-#pragma unroll
-        for (int nb = 0; nb < BM / 8; ++nb) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int row = warp * 16 + g + i * 8;
-            *reinterpret_cast<uint32_t*>(dSs + row * DS_STRIDE + nb * 8 + 2 * t4) =
-                E::pack(ds[nb][2 * i], ds[nb][2 * i + 1]);
-          }
-        }
-        __syncthreads();
-        constexpr int MW = BM / 16;
-        constexpr int DCOLS = D / (NWARPS / MW);
-        static_assert(NWARPS % MW == 0 && DCOLS % 32 == 0, "dQ warp split");
-        const int qr0 = (warp % MW) * 16;
-        const int c_begin = (warp / MW) * DCOLS;
-#pragma unroll
-        for (int c0 = c_begin; c0 < c_begin + DCOLS; c0 += 32) {
-          float acc[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < BN / 16; ++kk) {
-            uint32_t a[4];
-            frag_a_trans<T>(a, dSs, DS_STRIDE, kk * 16, qr0, lane);
-#pragma unroll
-            for (int np = 0; np < 2; ++np) {
-              uint32_t kb[4];
-              frag_b_trans<T, D>(kb, Ks, kk * 16, c0 + np * 16, lane);
-              E::mma(acc[2 * np], a, kb[0], kb[1]);
-              E::mma(acc[2 * np + 1], a, kb[2], kb[3]);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int row = m0 + qr0 + g + i * 8;
-            if (row >= s.sq) continue;
-            float* dst = s.dq_accum + gi * D + (int64_t)row * s.dqa_ss + c0 + 2 * t4;
-#pragma unroll
-            for (int nb = 0; nb < 4; ++nb) {
-              atomicAdd(dst + nb * 8, acc[nb][2 * i] * c.scale);
-              atomicAdd(dst + nb * 8 + 1, acc[nb][2 * i + 1] * c.scale);
-            }
-          }
-        }
-      }
     }
   }
   cp_async_wait<0>();  // no copy is left in flight when no q tile was walked
@@ -420,12 +352,11 @@ __device__ __forceinline__ void dkdv_tile(const BwdSeq<T, TG>& s, int n0,
 }
 
 // The dense walk: every q tile of the KV tile's causal band.
-template <typename T, int D, int BM, bool ACCUM_DQ>
+template <typename T, int D, int BM>
 __device__ __forceinline__ void dkdv_tile(const BwdSeq<T>& s, int n0,
                                           const BwdScalars& c,
                                           unsigned char* smem) {
-  dkdv_tile<T, D, BM, ACCUM_DQ>(s, n0, QRange<BM>(n0, s.sq, s.sk, c.causal),
-                                c, smem);
+  dkdv_tile<T, D, BM>(s, n0, QRange<BM>(n0, s.sq, s.sk, c.causal), c, smem);
 }
 
 // dQ of query rows [m0, m0 + 64) of one sequence and head, over the key

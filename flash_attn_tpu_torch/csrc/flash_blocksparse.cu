@@ -129,7 +129,6 @@ __device__ __forceinline__ fa::BwdSeq<T, float> bwd_seq(const BsParams& p,
   s.v = reinterpret_cast<const T*>(p.v) + bb * p.v_sb + hh * p.v_sh;
   s.lse = p.lse + bh * p.sq;
   s.delta = p.delta + bh * p.sq;
-  s.dq_accum = nullptr;
   s.q_ss = p.q_ss;
   s.q_sh = p.q_sh;
   s.do_ss = p.do_ss;
@@ -137,7 +136,6 @@ __device__ __forceinline__ fa::BwdSeq<T, float> bwd_seq(const BsParams& p,
   s.k_ss = p.k_ss;
   s.v_ss = p.v_ss;
   s.lse_sh = p.sq;
-  s.dqa_ss = 0;
   s.sq = p.sq;
   s.sk = p.sk;
   return s;
@@ -185,7 +183,7 @@ __global__ void __launch_bounds__(NTHREADS) bs_dkdv_kernel(const BsParams p) {
   const ListingQs walk{p.q_idx + col * p.ql, min(p.q_num[col], p.ql),
                        p.bq / BM, p.bq, BM, p.sq,
                        p.causal ? n0 - (p.sk - p.sq) : INT_MIN};
-  fa::dkdv_tile<T, D, BM, false>(s, n0, walk, scalars(p), smem_raw);
+  fa::dkdv_tile<T, D, BM>(s, n0, walk, scalars(p), smem_raw);
 }
 
 template <typename T, int D>
@@ -221,7 +219,7 @@ cudaError_t launch_dkdv(const BsParams& p, int b, cudaStream_t st) {
   constexpr int BM = fa::dkdv_bm<D>();
   const dim3 grid(p.sk / TILE, p.h, b);
   return launch(bs_dkdv_kernel<T, D, BM>, grid,
-                fa::dkdv_smem_bytes<T, D, BM>(false), p, st);
+                fa::dkdv_smem_bytes<T, D, BM>(), p, st);
 }
 
 template <typename T, int D>

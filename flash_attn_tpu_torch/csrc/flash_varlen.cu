@@ -143,7 +143,6 @@ __device__ __forceinline__ fa::BwdSeq<T> seq_view(const VarlenParams& p,
               : nullptr;
   s.dv = p.dv ? reinterpret_cast<T*>(p.dv) + (int64_t)k0 * p.dv_st + hk * p.dv_sh
               : nullptr;
-  s.dq_accum = nullptr;
   s.q_ss = p.q_st;
   s.q_sh = p.q_sh;
   s.do_ss = p.do_st;
@@ -154,7 +153,6 @@ __device__ __forceinline__ fa::BwdSeq<T> seq_view(const VarlenParams& p,
   s.dk_ss = p.dk_st;
   s.dv_ss = p.dv_st;
   s.lse_sh = p.total_q;
-  s.dqa_ss = 0;
   s.sq = p.lens_q[seq];
   s.sk = p.lens_k[seq];
   return s;
@@ -174,7 +172,7 @@ __global__ void __launch_bounds__(fa::BWD_THREADS)
   if (seq < 0) return;
   const int hk = blockIdx.y;
   const fa::BwdSeq<T> s = seq_view<T>(p, seq, hk * p.group, hk);
-  fa::dkdv_tile<T, D, BM, false>(s, p.tiles[2 * blockIdx.x + 1], scalars(p),
+  fa::dkdv_tile<T, D, BM>(s, p.tiles[2 * blockIdx.x + 1], scalars(p),
                                  smem_raw);
 }
 
@@ -223,7 +221,7 @@ cudaError_t launch_fwd(const VarlenParams& p, int persistent, int num_sms,
 template <typename T, int D>
 cudaError_t launch_dkdv(const VarlenParams& p, int h_k, cudaStream_t stream) {
   constexpr int BM = fa::dkdv_bm<D>();
-  constexpr int smem = fa::dkdv_smem_bytes<T, D, BM>(false);
+  constexpr int smem = fa::dkdv_smem_bytes<T, D, BM>();
   cudaError_t err = set_smem(varlen_dkdv_kernel<T, D, BM>, smem);
   if (err != cudaSuccess) return err;
   varlen_dkdv_kernel<T, D, BM><<<dim3(p.num_tiles, h_k), fa::BWD_THREADS, smem, stream>>>(p);

@@ -37,20 +37,39 @@ class BwdConfig:
 
 
 def get_bwd_config(head_dim: int) -> Tuple[BwdConfig, BwdConfig]:
-    """Tiles of csrc/flash_bwd.cu: (the dK/dV kernel's, the dQ kernel's).
+    """Tiles of csrc/bwd_tile.cuh, the mma.sync backward loops of the
+    packed-varlen (csrc/flash_varlen.cu) and block-sparse
+    (csrc/flash_blocksparse.cu) backward: (the dK/dV loop's, the dQ loop's).
 
-    Both kernels run 4 warps of 16 rows (the m16n8k16 tile), so a dK/dV
+    Both loops run 4 warps of 16 rows (the m16n8k16 tile), so a dK/dV
     block owns 64 KV rows and a dQ block 64 query rows. A dK/dV warp keeps
     its rows' dK and dV in registers (128 fp32 a thread at head dim 128)
     beside the S^T and dP^T tiles of the q tile, so the q tile is what
     keeps the kernel within 255 registers without spilling: 64 rows at
-    head dim 64, 32 at 128 (csrc/flash_bwd.cu FA_BWD_BM_D128). The kernels
+    head dim 64, 32 at 128 (csrc/bwd_tile.cuh FA_BWD_BM_D128). The kernels
     check that the wrapper passes the tiles they were compiled for."""
     if head_dim not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_bwd: head dim {head_dim} not in "
                          f"{KERNEL_HEAD_DIMS}")
     dkdv = BwdConfig(block_q=32 if head_dim == 128 else 64, block_k=64)
     return dkdv, BwdConfig(block_q=64, block_k=64)
+
+
+# Tiles of csrc/flash_bwd.cu, the dense backward on wgmma and TMA, at both
+# head dims: (the dK/dV kernel's, the dQ kernel's). A block runs two
+# warpgroups of 64 rows (wgmma's M): the dK/dV kernel owns 128 KV rows and
+# streams q tiles of 64 rows, the dQ kernel owns 128 query rows and streams
+# key tiles of 64. At head dim 128 a thread keeps 64 + 64 fp32 dK/dV
+# accumulators beside the 32 + 32 of S^T and dP^T, within the 255
+# registers a 256-thread block allows. The kernels check that the wrapper
+# passes these tiles.
+DENSE_BWD_TILES = (BwdConfig(block_q=64, block_k=128),
+                   BwdConfig(block_q=128, block_k=64))
+
+# Rows of the preprocess kernel's lse and delta buffers are padded to a
+# multiple of this (the larger q extent of the two dense backward tiles),
+# so every tile's bulk copy of them is whole and 16-byte aligned.
+DENSE_BWD_ROW_PAD = 128
 
 
 # Split granularity of csrc/flash_decode.cu and of its plain version: a

@@ -33,8 +33,9 @@ SIGNATURES = {
     "fa_decode_mla": [_P] * 8 + [_I] * 13 + [_L] * 13 + [_F, _I, _I, _P],
     "fa_paged_prefill": [_P] * 10 + [_I] * 10 + [_L] * 15 + [_F, _I, _I, _P],
     "fa_varlen_paged": [_P] * 10 + [_I] * 10 + [_L] * 11 + [_F, _I, _I, _P],
-    "fa_bwd_dkdv": [_P] * 9 + [_I] * 8 + [_L] * 18 + [_F, _I, _I, _I, _P],
-    "fa_bwd_dq": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_F, _I, _I, _P],
+    "fa_bwd_preprocess": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_I, _P],
+    "fa_bwd_dkdv": [_P] * 9 + [_I] * 9 + [_L] * 18 + [_F, _I, _I, _P],
+    "fa_bwd_dq": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_F, _I, _I, _P],
     "fa_varlen_fwd": [_P] * 10 + [_I] * 7 + [_L] * 8 + [_F, _I, _I, _P],
     "fa_varlen_fwd_persistent":
         [_P] * 10 + [_I] * 7 + [_L] * 8 + [_F, _I, _I, _I, _P, _P],

@@ -44,6 +44,14 @@ def _grads_jax(q, k, v, g, causal):
     (64, 160, 4, 2, 128, True),    # sq < sk, bottom-right causal
     (100, 100, 4, 4, 64, True),    # ragged length
     (72, 130, 4, 2, 128, False),   # ragged, non-causal, sq != sk
+    # the edges of the CUDA kernels' 64- and 128-row tiles
+    (1, 65, 4, 1, 64, True),       # one row, MQA 4/1
+    (1, 1, 4, 1, 128, False),      # one row over one key
+    (63, 65, 4, 1, 128, True),
+    (65, 63, 4, 2, 64, True),      # sq > sk: the first rows see no key
+    (127, 129, 4, 4, 64, False),
+    (129, 127, 4, 1, 128, True),   # sq > sk, MQA
+    (200, 200, 4, 2, 128, True),
 ])
 def test_flash_attn_func_grads_match_jax(sq, sk, h, h_k, d, causal):
     rng = np.random.default_rng(sq * 7 + sk)
@@ -99,11 +107,46 @@ def test_bf16_grads_two_times_rule():
         check_against_ref(leaf.grad, r, lp, atol=1e-4, msg=f"d{name}")
 
 
+def test_plain_preprocess_matches_jax_delta():
+    """bwd_preprocess_plain's delta against the JAX backward's delta, the
+    fp32 rowsum(dO * O) that flash_attn_tpu/kernels/flash_bwd.py:408-410
+    computes before its kernels (the expression written out here, since it
+    is not a function of its own there); its padding, and lse in base 2."""
+    rng = np.random.default_rng(5)
+    do, out = _rand(rng, 2, 4, 100, 64), _rand(rng, 2, 4, 100, 64)
+    lse = _rand(rng, 2, 4, 100)
+    lse[1, 2, 7] = -np.inf  # a row that sees no key
+    want = np.asarray(jnp.sum(jnp.asarray(do).astype(jnp.float32)
+                              * jnp.asarray(out).astype(jnp.float32), axis=-1))
+    delta, lse2 = flash_bwd.bwd_preprocess_plain(
+        torch.from_numpy(do), torch.from_numpy(out), torch.from_numpy(lse),
+        row_pad=128)
+    assert delta.shape == lse2.shape == (2, 4, 128)
+    np.testing.assert_allclose(delta[..., :100].numpy(), want, atol=1e-5,
+                               rtol=0)
+    assert not delta[..., 100:].any()
+    assert bool(torch.isinf(lse2[..., 100:]).all())
+    assert lse2[1, 2, 7] == float("inf")
+    fin = np.isfinite(lse)
+    np.testing.assert_allclose(lse2[..., :100].numpy()[fin],
+                               lse[fin] * np.log2(np.e), atol=1e-5, rtol=0)
+    # the wrapper takes the plain version for CPU tensors
+    got = flash_bwd.bwd_preprocess(torch.from_numpy(do),
+                                   torch.from_numpy(out),
+                                   torch.from_numpy(lse))
+    assert all(torch.equal(a, b) for a, b in zip(got, (delta, lse2)))
+
+
 def test_backward_wrapper_counts_no_plain_launches():
     rng = np.random.default_rng(4)
     q = torch.from_numpy(_rand(rng, 1, 16, 2, 64)).requires_grad_()
-    before = (flash_bwd.launches_dkdv, flash_bwd.launches_dq,
-              flash_bwd.launches_fused)
-    flash_attn_func(q, q, q, causal=True).sum().backward()
-    assert (flash_bwd.launches_dkdv, flash_bwd.launches_dq,
-            flash_bwd.launches_fused) == before
+    counts = ("launches_preprocess", "launches_dkdv", "launches_dq",
+              "launches_fused")
+    before = [getattr(flash_bwd, c) for c in counts]
+    for deterministic in (True, False):
+        flash_attn_func(q, q, q, causal=True,
+                        deterministic=deterministic).sum().backward()
+    flash_bwd.bwd_preprocess(q.detach().transpose(1, 2),
+                             q.detach().transpose(1, 2),
+                             torch.zeros(1, 2, 16))
+    assert [getattr(flash_bwd, c) for c in counts] == before

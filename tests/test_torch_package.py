@@ -210,6 +210,128 @@ def test_backward_kernels_match_plain_version_on_the_card(causal,
         torch.testing.assert_close(g.float(), r.float(), atol=5e-2, rtol=0)
 
 
+def _included_sources(path: Path) -> str:
+    """The text of a CUDA source and of every repo header it includes."""
+    text = path.read_text()
+    for name in re.findall(r'^#include "([^"]+)"', text, re.MULTILINE):
+        text += _included_sources(path.parent / name)
+    return text
+
+
+def test_dense_backward_sources_use_wgmma_and_tma():
+    """The dense backward (csrc/flash_bwd.cu and the headers it includes)
+    runs its products on wgmma and loads its tiles asynchronously by TMA,
+    and it no longer includes the mma.sync loops of bwd_tile.cuh."""
+    text = _included_sources(PKG / "csrc" / "flash_bwd.cu")
+    assert "wgmma.mma_async" in text
+    assert "cp.async.bulk.tensor" in text and "cp.async.bulk.shared" in text
+    assert "bwd_tile.cuh" not in text
+
+
+# Edge shapes of the dense backward's tiles (b, sq, sk, h, h_k, d, causal,
+# dtype): one row, lengths either side of the 64- and 128-row tiles, sq > sk
+# (the first rows see no key), MQA and GQA, both head dims, fp16.
+DENSE_BWD_EDGE_CASES = [
+    (1, 1, 1, 2, 1, 64, True, torch.bfloat16),
+    (2, 63, 65, 4, 1, 128, True, torch.bfloat16),
+    (2, 127, 129, 4, 4, 64, False, torch.float16),
+    (1, 200, 129, 4, 2, 128, True, torch.bfloat16),
+    (2, 129, 200, 8, 2, 128, True, torch.float16),
+    (1, 300, 300, 2, 2, 64, True, torch.bfloat16),
+]
+
+
+def _dense_bwd_inputs(case, seed=0):
+    """q, k, v, do as (b, h, s, d) views of (b, s, h, d) tensors on the card,
+    with the forward's out and lse."""
+    from flash_attn_tpu_torch.kernels import flash_fwd
+
+    b, sq, sk, h, h_k, d, causal, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(s, n):
+        return torch.randn(b, s, n, d, device="cuda", generator=gen).to(
+            dtype).transpose(1, 2)
+
+    q, k, v, do = randn(sq, h), randn(sk, h_k), randn(sk, h_k), randn(sq, h)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal)
+    return q, k, v, do, out, lse
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("deterministic", [True, False])
+@pytest.mark.parametrize("case", DENSE_BWD_EDGE_CASES)
+def test_dense_backward_edge_shapes_on_the_card(case, deterministic):
+    """Both backward paths against the plain fp32 backward under the 2x
+    rule (autograd through attention_ref in the inputs' type as the
+    low-precision reference), and the preprocess kernel against its plain
+    version."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref_grads,
+        check_against_ref,
+    )
+
+    causal = case[6]
+    q, k, v, do, out, lse = _dense_bwd_inputs(case)
+    got = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
+                                        deterministic=deterministic)
+    f32 = [x.float() for x in (q, k, v)]
+    out32, lse32 = flash_fwd.flash_attention_fwd_plain(*f32, causal=causal)
+    ref = flash_bwd.flash_attention_bwd_plain(do.float(), *f32, out32, lse32,
+                                              causal=causal)
+    ref_lp = attention_ref_grads(*(x.transpose(1, 2) for x in (q, k, v, do)),
+                                 causal=causal, upcast=False)
+    for name, g, r, lp in zip("qkv", got, ref, ref_lp):
+        assert g.dtype == q.dtype and g.shape == r.shape
+        check_against_ref(g.transpose(1, 2), r.transpose(1, 2), lp, atol=1e-4,
+                          msg=f"d{name} {case} deterministic={deterministic}")
+    delta, lse2 = flash_bwd.bwd_preprocess(do, out, lse)
+    want = flash_bwd.bwd_preprocess_plain(do, out, lse, delta.shape[-1])
+    torch.testing.assert_close(delta, want[0], atol=1e-3, rtol=1e-3)
+    assert torch.equal(torch.isinf(lse2), torch.isinf(want[1]))
+    fin = torch.isfinite(want[1])
+    torch.testing.assert_close(lse2[fin], want[1][fin], atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_dense_backward_is_bitwise_deterministic_on_the_card():
+    """The deterministic backward gives the same bits twice and launches
+    the preprocess, dK/dV and dQ kernels once each."""
+    from flash_attn_tpu_torch.kernels import flash_bwd
+
+    case = (2, 300, 300, 8, 2, 128, True, torch.bfloat16)
+    q, k, v, do, out, lse = _dense_bwd_inputs(case, seed=1)
+    before = (flash_bwd.launches_preprocess, flash_bwd.launches_dkdv,
+              flash_bwd.launches_dq, flash_bwd.launches_fused)
+    first = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=True)
+    after = (flash_bwd.launches_preprocess, flash_bwd.launches_dkdv,
+             flash_bwd.launches_dq, flash_bwd.launches_fused)
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 0]
+    again = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_dense_backward_refuses_misaligned_views_on_the_card():
+    """TMA needs 16-byte aligned starts and strides: a view that breaks
+    either raises ValueError, and nothing is copied quietly."""
+    from flash_attn_tpu_torch.kernels import flash_bwd
+
+    case = (1, 64, 64, 2, 2, 64, True, torch.bfloat16)
+    q, k, v, do, out, lse = _dense_bwd_inputs(case)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:]
+    shifted = shifted.view(1, 64, 2, 64).transpose(1, 2)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_bwd.flash_attention_bwd(do, shifted, k, v, out, lse, causal=True)
+    wide = torch.zeros(1, 64, 2, 68, dtype=q.dtype, device="cuda")
+    wide[..., :64] = k.transpose(1, 2)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_bwd.flash_attention_bwd(do, q, wide[..., :64].transpose(1, 2), v,
+                                      out, lse, causal=True)
+
+
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("page_size", [16, 256])
 def test_paged_decode_kernel_matches_plain_version_on_the_card(page_size):
