@@ -1,7 +1,7 @@
 // The mma.sync backward tile loops of the packed-varlen backward
 // (csrc/flash_varlen.cu) and the block-sparse backward
 // (csrc/flash_blocksparse.cu); the dense backward runs on wgmma and TMA
-// (csrc/bwd_sm90.cuh):
+// (csrc/sm90.cuh):
 //
 //  - dkdv_tile: 64 KV rows of one sequence and KV head loop over the group's
 //    query heads and the q tiles of their band, keep dK and dV in registers

@@ -8,9 +8,9 @@
 // wrapper, kernels/flash_blocksparse.py, resolves JAX's tile rule first).
 //
 //  - bs_fwd_kernel: one block of 4 warps per (64-row q tile, head, batch)
-//    runs the dense forward's tile loop (fwd_tile.cuh) over the listed
-//    tiles, each as bk / 64 key tiles of 64: the same tiles in the same
-//    order as the dense kernel where the list is the dense band, so the
+//    runs the tile loop of fwd_tile.cuh over the listed tiles, each as
+//    bk / 64 key tiles of 64: the same tiles in the same order as that
+//    loop's dense walk (B7's) where the list is the dense band, so the
 //    same bits;
 //  - bs_dkdv_kernel: one block per (64-key tile, head, batch) walks, in
 //    ascending order, the q tiles that list its caller tile (the inverse

@@ -30,7 +30,7 @@
 // h = 16, d = 128, causal) 172 GFLOP of useful products, 0.17 ms at 989
 // TFLOP/s, while its bytes take 0.04 ms at 3.35 TB/s.
 //
-// What the design does about it (csrc/bwd_sm90.cuh): every product is a
+// What the design does about it (csrc/sm90.cuh): every product is a
 // warpgroup wgmma, the only way to the card's full tensor-core rate. Two
 // warpgroups of 64 rows share a block; K and V (dK/dV kernel) or Q and dO
 // (dQ kernel) are loaded once by TMA and stay in shared memory, and the
@@ -65,7 +65,7 @@
 
 #include <cudaTypedefs.h>
 
-#include "bwd_sm90.cuh"
+#include "sm90.cuh"
 
 namespace {
 

@@ -1,4 +1,5 @@
-// Dense attention forward for Hopper (sm_90a), bf16 / fp16, head dim 64 or 128.
+// Dense attention forward for Hopper (sm_90a) on wgmma and TMA, bf16 / fp16,
+// head dim 64 or 128.
 //
 // Replaces the TPU kernel flash_attn_tpu/kernels/flash_fwd.py:_fwd_kernel,
 // together with the causal diagonal work of
@@ -10,91 +11,92 @@
 // What bounds it on this card: a causal call reads q, k, v and writes out
 // once (8 * b * s * h * d bytes in bf16) and does 2 * b * h * s^2 * d flops,
 // s / 4 flops per byte. Below s ~ 1200 (the card's 295 flops per byte) the
-// floor is memory traffic; above it, the tensor cores. A kernel as simple as
-// this one reaches neither floor: what limits it is how well it keeps the
-// tensor cores fed (operand loads into shared memory, and the softmax
-// between the two products, which runs on the ordinary ALUs).
+// floor is memory traffic; above it, the tensor cores.
 //
-// What the design does about it: each block of 4 warps owns 64 query rows
-// (16 per warp) of one (batch, head) and loops over 64-key K/V tiles of its
-// causal band, the tile loop of fwd_tile.cuh (shared with the packed-varlen
-// forwards of flash_varlen.cu). Q stays in registers as mma fragments for the whole loop;
-// K/V tiles arrive with cp.async into XOR-swizzled shared memory so the
-// ldmatrix reads are free of bank conflicts, and the V copy overlaps the
-// Q K^T product. Both products run on the tensor cores with
-// mma.sync.m16n8k16 (fp32 accumulation); P never leaves registers (the
-// accumulator layout of S is the A-operand layout of P V). The online
-// softmax keeps (m, l, acc) in fp32 registers and uses exp2 with
-// softmax_scale * log2(e) folded into one multiply, as the TPU kernel does.
-// wgmma, TMA and warp specialisation are left for later work.
+// What the design does about it: the forward tile of fwd_sm90.cuh, one
+// block of two warpgroups per (128 query rows, head, batch row), both
+// products on wgmma (the only way to the card's full tensor-core rate), Q
+// and a two-stage ring of 64-key K/V tiles loaded by TMA, so that tile t +
+// 1's load overlaps tile t's products and softmax. Blocks are launched
+// heaviest first (the last q tiles, under causal masking). Each output
+// element is written once, with no atomics: two runs give the same bits.
 //
-// Masking is bottom-right aligned (shift = sk - sq): query row r sees key
-// columns c <= r + shift. A row that sees no key gets out = 0, lse = -inf.
+// Conventions: q (b, sq, h, d), k/v (b, sk, h_k, d) by element strides, the
+// head dim contiguous, 16-byte aligned starts and strides (TMA); out in q's
+// type, lse (b, h, sq) natural-log. The tensor maps are 4D over (d, s, h, b)
+// with rows past s zero-filled, encoded on the host for every call.
 
-#include "fwd_tile.cuh"
+#include "fwd_sm90.cuh"
 
 namespace {
 
-constexpr int BM = fa::FWD_BM;  // query rows per block
-constexpr int BN = fa::FWD_BN;  // keys per K/V tile
-constexpr int NTHREADS = fa::FWD_THREADS;
+using namespace fa::sm90;
 
 struct FwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
   void* out;
   float* lse;  // (b, h, sq)
-  int64_t q_sb, q_ss, q_sh;
-  int64_t k_sb, k_ss, k_sh;
-  int64_t v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
-  int sq, sk, h, group;
+  int sq, h, group;
+  int sk;
   float scale_log2;
   int causal;
 };
 
-// One block per (64-row query tile, head, batch row): the tile loop of
-// fwd_tile.cuh over this batch row's keys.
+// Q rows of query head hq and K/V rows of KV head hk of batch row bb.
+struct DenseSrc {
+  const CUtensorMap* q;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  int hq, hk, bb;
+  __device__ __forceinline__ void load_q(void* dst, uint64_t* bar, int col, int row) const {
+    tma_load_4d(dst, q, bar, col, row, hq, bb);
+  }
+  __device__ __forceinline__ void load_k(void* dst, uint64_t* bar, int col, int row) const {
+    tma_load_4d(dst, k, bar, col, row, hk, bb);
+  }
+  __device__ __forceinline__ void load_v(void* dst, uint64_t* bar, int col, int row) const {
+    tma_load_4d(dst, v, bar, col, row, hk, bb);
+  }
+};
+
+// One block per (128-row query tile, head, batch row), the last q tile
+// (the heaviest under causal masking) first.
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) fwd_kernel(const FwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
-  const int kh = hh / p.group;
-  fa::FwdTile<T> t;
-  t.q = reinterpret_cast<const T*>(p.q) + bb * p.q_sb + hh * p.q_sh;
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+    fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int hh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const DenseSrc src{&maps.q, &maps.k, &maps.v, hh, hh / p.group, bb};
+  FwdRows<T> t;
   t.out = reinterpret_cast<T*>(p.out) + bb * p.o_sb + hh * p.o_sh;
   t.lse = p.lse + ((int64_t)bb * p.h + hh) * p.sq;
-  t.q_ss = p.q_ss;
   t.o_ss = p.o_ss;
   t.sq = p.sq;
   t.sk = p.sk;
-  t.m0 = blockIdx.x * BM;
-  const fa::LinearKV<T, D> kv{
-      reinterpret_cast<const T*>(p.k) + bb * p.k_sb + kh * p.k_sh,
-      reinterpret_cast<const T*>(p.v) + bb * p.v_sb + kh * p.v_sh, p.k_ss,
-      p.v_ss};
-  fa::fwd_tile<T, D>(t, kv, p.scale_log2, p.causal, smem_raw);
+  t.m0 = (gridDim.z - 1 - blockIdx.z) * FWD_M;
+  fwd_tile<T, D, false>(src, t, p.scale_log2, p.causal, smem);
 }
 
 template <typename T, int D>
-cudaError_t launch(const FwdParams& p, int b, cudaStream_t stream) {
-  const int smem = fa::fwd_smem_bytes<T, D>();
+cudaError_t launch(const FwdMaps& maps, const FwdParams& p, int b, cudaStream_t stream) {
+  constexpr int smem = FwdLayout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.sq + BM - 1) / BM, p.h, b);
-  fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(p);
+  const dim3 grid(p.h, b, (p.sq + FWD_M - 1) / FWD_M);
+  fwd_kernel<T, D><<<grid, FWD_THREADS, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (b, sq, h, d), k/v (b, sk, h_k, d) given by element strides, the head
-// dim contiguous; out has q's type and layout strides; lse (b, h, sq) fp32.
-// Returns a cudaError_t (0 on success); block_q/block_k must name the tile
-// the kernel is compiled for (dispatch/config.py get_fwd_config).
+// dim contiguous, 16-byte aligned starts and strides; out has q's type and
+// layout strides; lse (b, h, sq) fp32. Returns a cudaError_t (0 on
+// success); block_q/block_k must name the tile the kernel is compiled for
+// (dispatch/config.py FWD_TILE).
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, int b, int sq, int sk, int h, int h_k, int d,
                       int block_q, int block_k,
@@ -103,16 +105,21 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                       float scale_log2, int causal, int is_bf16,
                       void* stream) {
-  if (block_q != BM || block_k != BN) return (int)cudaErrorInvalidValue;
+  if (block_q != FWD_M || block_k != FWD_N || b < 1 || sq < 1 || sk < 1 || h_k < 1 ||
+      h % h_k != 0 || (d != 64 && d != 128))
+    return (int)cudaErrorInvalidValue;
+  FwdMaps maps;
+  cudaError_t err;
+  if ((err = make_tile_map<4>(&maps.q, q, is_bf16, {d, sq, h, b}, {q_ss, q_sh, q_sb},
+                              FWD_M)) ||
+      (err = make_tile_map<4>(&maps.k, k, is_bf16, {d, sk, h_k, b}, {k_ss, k_sh, k_sb},
+                              FWD_N)) ||
+      (err = make_tile_map<4>(&maps.v, v, is_bf16, {d, sk, h_k, b}, {v_ss, v_sh, v_sb},
+                              FWD_N)))
+    return (int)err;
   FwdParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
   p.out = out;
   p.lse = lse;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_ss = o_ss; p.o_sh = o_sh;
   p.sq = sq;
   p.sk = sk;
@@ -122,11 +129,9 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
   p.causal = causal;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (d == 64) return launch<__nv_bfloat16, 64>(p, b, st);
-    if (d == 128) return launch<__nv_bfloat16, 128>(p, b, st);
-  } else {
-    if (d == 64) return launch<__half, 64>(p, b, st);
-    if (d == 128) return launch<__half, 128>(p, b, st);
+    if (d == 64) return (int)launch<__nv_bfloat16, 64>(maps, p, b, st);
+    return (int)launch<__nv_bfloat16, 128>(maps, p, b, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (d == 64) return (int)launch<__half, 64>(maps, p, b, st);
+  return (int)launch<__half, 128>(maps, p, b, st);
 }

@@ -1,9 +1,8 @@
 // Packed varlen attention for Hopper (sm_90a), bf16 / fp16, head dim 64 or
-// 128: the forward (two schedules) and the deterministic backward.
+// 128: the persistent forward (B7) and the deterministic backward. The B6
+// forward runs the wgmma/TMA tile of fwd_sm90.cuh in flash_varlen_fwd.cu.
 //
 // Replaces the TPU kernels
-//  - flash_attn_tpu/kernels/flash_varlen.py:_varlen_fwd_stream_kernel (B6
-//    forward) as varlen_fwd_kernel: one block per (q tile, head);
 //  - flash_attn_tpu/kernels/flash_varlen_persistent.py:
 //    _varlen_fwd_persistent_kernel (B7) as varlen_fwd_persistent_kernel: a
 //    grid of (SM count x resident blocks per SM) blocks, each walking the
@@ -19,12 +18,13 @@
 // Here every tile belongs to one sequence: the wrapper builds work lists of
 // (sequence, first local row) with torch ops on the device
 // (dispatch/varlen_meta.py), and a block finds its sequence's origin in
-// cu_seqlens and its length (seqused where given). The tile loops are those
-// of the dense kernels (fwd_tile.cuh, bwd_tile.cuh), whose only masks are
-// the in-sequence causal mask and the ragged ends, so B6's and B7's forward
-// give the same bits for the same tile. Rows past a sequence's length and
-// rows past cu_seqlens[-1] (the packed tail of unpad_input) are in no tile:
-// the wrapper allocates them as zeros (out, dq, dk, dv) and -inf (lse).
+// cu_seqlens and its length (seqused where given). The tile loops are the
+// mma.sync loops of fwd_tile.cuh and bwd_tile.cuh, whose only masks are the
+// in-sequence causal mask and the ragged ends; B7's 64 x 64 tile is the one
+// the block-sparse forward and B8 walk too. Rows past a sequence's length
+// and rows past cu_seqlens[-1] (the packed tail of unpad_input) are in no
+// tile: the wrapper allocates them as zeros (out, dq, dk, dv) and -inf
+// (lse).
 //
 // What bounds it on this card: per head, a sequence of sq rows over sk keys
 // does 4 * sq * sk * d flops forward (about half under the causal mask) and
@@ -39,12 +39,12 @@
 // band, longest first (a stable sort on the device, so the schedule is
 // deterministic, as the TPU's precomputed one is), and block i takes items
 // i, i + grid, ... of the (q tile, head) list. On an H100 this walk is
-// slower than B6's one block per tile, which the hardware places on SMs as
+// slower than one block per tile, which the hardware places on SMs as
 // they free up (PERF.md); an atomic ticket in place of the stride
 // and a head-major order did not close the gap. What the persistent form
 // is for, a K/V ring that stays full across a block's tiles (the TPU
-// kernel's 4-deep DMA pipeline), is left for later, with wgmma, TMA and
-// one block for a GQA group's heads.
+// kernel's 4-deep DMA pipeline), is left for later, with one block for a
+// GQA group's heads.
 
 #include "bwd_tile.cuh"
 #include "fwd_tile.cuh"
@@ -98,15 +98,6 @@ __device__ __forceinline__ void fwd_item(const VarlenParams& p, int tile,
       reinterpret_cast<const T*>(p.v) + (int64_t)k0 * p.v_st + kh * p.v_sh,
       p.k_st, p.v_st};
   fa::fwd_tile<T, D>(t, kv, p.scale_log2, p.causal, smem);
-}
-
-// B6 forward: one block per (q tile, head); dead tiles exit.
-template <typename T, int D>
-__global__ void __launch_bounds__(fa::FWD_THREADS)
-    varlen_fwd_kernel(const VarlenParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  if (p.tiles[2 * blockIdx.x] < 0) return;
-  fwd_item<T, D>(p, blockIdx.x, blockIdx.y, smem_raw);
 }
 
 // B7: resident blocks walk the items (tile, head) = (w / h, w % h) of the
@@ -195,15 +186,9 @@ cudaError_t set_smem(Kernel kernel, int smem) {
 }
 
 template <typename T, int D>
-cudaError_t launch_fwd(const VarlenParams& p, int persistent, int num_sms,
-                       int* grid_out, cudaStream_t stream) {
+cudaError_t launch_fwd(const VarlenParams& p, int num_sms, int* grid_out,
+                       cudaStream_t stream) {
   constexpr int smem = fa::fwd_smem_bytes<T, D>();
-  if (!persistent) {
-    cudaError_t err = set_smem(varlen_fwd_kernel<T, D>, smem);
-    if (err != cudaSuccess) return err;
-    varlen_fwd_kernel<T, D><<<dim3(p.num_tiles, p.h), fa::FWD_THREADS, smem, stream>>>(p);
-    return cudaGetLastError();
-  }
   cudaError_t err = set_smem(varlen_fwd_persistent_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
@@ -271,9 +256,9 @@ int dispatch(int is_bf16, int d, Args&&... args) {
 
 template <typename T, int D>
 struct Fwd {
-  static cudaError_t run(const VarlenParams& p, int persistent, int num_sms,
-                         int* grid_out, cudaStream_t st) {
-    return launch_fwd<T, D>(p, persistent, num_sms, grid_out, st);
+  static cudaError_t run(const VarlenParams& p, int num_sms, int* grid_out,
+                         cudaStream_t st) {
+    return launch_fwd<T, D>(p, num_sms, grid_out, st);
   }
 };
 
@@ -291,15 +276,27 @@ struct Dq {
   }
 };
 
-int varlen_fwd(const void* q, const void* k, const void* v, void* out,
-               float* lse, const int* cu_q, const int* cu_k, const int* lens_q,
-               const int* lens_k, const int* tiles, int num_tiles, int total_q,
-               int h, int h_k, int d, int block_q, int block_k, int64_t q_st,
-               int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st,
-               int64_t v_sh, int64_t o_st, int64_t o_sh, float scale,
-               int causal, int is_bf16, int persistent, int num_sms,
-               int* grid_out, void* stream) {
-  if (block_q != fa::FWD_BM || block_k != fa::FWD_BN) return (int)cudaErrorInvalidValue;
+}  // namespace
+
+// B7 over the sorted work list, with a grid of num_sms x the blocks that
+// fit on one SM (at most one block per item); the grid is written to
+// *grid_out (host memory). q (total_q, h, d) and out by element strides
+// (token, head), k/v (total_k, h_k, d) likewise, the head dim contiguous;
+// lse (h, total_q) fp32; cu_q, cu_k (b + 1,), lens_q, lens_k (b,) and tiles
+// (num_tiles, 2) int32 from the wrapper; out zeroed and lse -inf-filled by
+// the wrapper. block_q/block_k must name the tile the kernel is compiled
+// for (dispatch/config.py VARLEN_FWD_TILE). Returns a cudaError_t (0 on
+// success).
+extern "C" int fa_varlen_fwd_persistent(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    const int* cu_q, const int* cu_k, const int* lens_q, const int* lens_k,
+    const int* tiles, int num_tiles, int total_q, int h, int h_k, int d,
+    int block_q, int block_k, int64_t q_st, int64_t q_sh, int64_t k_st,
+    int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t o_st, int64_t o_sh,
+    float scale, int causal, int is_bf16, int num_sms, int* grid_out,
+    void* stream) {
+  if (block_q != fa::FWD_BM || block_k != fa::FWD_BN || num_sms < 1)
+    return (int)cudaErrorInvalidValue;
   if (grid_out) *grid_out = 0;
   if (num_tiles == 0) return 0;
   VarlenParams p = make_params(cu_q, cu_k, lens_q, lens_k, tiles, num_tiles,
@@ -313,47 +310,8 @@ int varlen_fwd(const void* q, const void* k, const void* v, void* out,
   p.k_st = k_st; p.k_sh = k_sh;
   p.v_st = v_st; p.v_sh = v_sh;
   p.o_st = o_st; p.o_sh = o_sh;
-  return dispatch<Fwd>(is_bf16, d, p, persistent, num_sms, grid_out,
+  return dispatch<Fwd>(is_bf16, d, p, num_sms, grid_out,
                        reinterpret_cast<cudaStream_t>(stream));
-}
-
-}  // namespace
-
-// q (total_q, h, d) and out by element strides (token, head), k/v (total_k,
-// h_k, d) likewise, the head dim contiguous; lse (h, total_q) fp32; cu_q,
-// cu_k (b + 1,), lens_q, lens_k (b,) and tiles (num_tiles, 2) int32 from the
-// wrapper; out zeroed and lse -inf-filled by the wrapper. block_q/block_k
-// must name the tile the kernels are compiled for (dispatch/config.py
-// VARLEN_FWD_TILE). Returns a cudaError_t (0 on success).
-extern "C" int fa_varlen_fwd(
-    const void* q, const void* k, const void* v, void* out, float* lse,
-    const int* cu_q, const int* cu_k, const int* lens_q, const int* lens_k,
-    const int* tiles, int num_tiles, int total_q, int h, int h_k, int d,
-    int block_q, int block_k, int64_t q_st, int64_t q_sh, int64_t k_st,
-    int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t o_st, int64_t o_sh,
-    float scale, int causal, int is_bf16, void* stream) {
-  return varlen_fwd(q, k, v, out, lse, cu_q, cu_k, lens_q, lens_k, tiles,
-                    num_tiles, total_q, h, h_k, d, block_q, block_k, q_st,
-                    q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh, scale, causal,
-                    is_bf16, 0, 0, nullptr, stream);
-}
-
-// As fa_varlen_fwd over the sorted work list, with a grid of num_sms x the
-// blocks that fit on one SM (at most one block per item); the grid is
-// written to *grid_out (host memory).
-extern "C" int fa_varlen_fwd_persistent(
-    const void* q, const void* k, const void* v, void* out, float* lse,
-    const int* cu_q, const int* cu_k, const int* lens_q, const int* lens_k,
-    const int* tiles, int num_tiles, int total_q, int h, int h_k, int d,
-    int block_q, int block_k, int64_t q_st, int64_t q_sh, int64_t k_st,
-    int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t o_st, int64_t o_sh,
-    float scale, int causal, int is_bf16, int num_sms, int* grid_out,
-    void* stream) {
-  if (num_sms < 1) return (int)cudaErrorInvalidValue;
-  return varlen_fwd(q, k, v, out, lse, cu_q, cu_k, lens_q, lens_k, tiles,
-                    num_tiles, total_q, h, h_k, d, block_q, block_k, q_st,
-                    q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh, scale, causal,
-                    is_bf16, 1, num_sms, grid_out, stream);
 }
 
 // dK, dV (total_k, h_k, d) in k's type over the key-side work list; rows in

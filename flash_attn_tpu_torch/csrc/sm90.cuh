@@ -1,6 +1,7 @@
-// Hopper building blocks of the dense attention backward (csrc/flash_bwd.cu):
-// mbarriers, TMA tile loads and bulk copies, wgmma with its shared-memory
-// descriptors, and the layout of a tile in shared memory.
+// Hopper building blocks of the dense attention backward (csrc/flash_bwd.cu)
+// and of the forward tile (csrc/fwd_sm90.cuh): mbarriers, TMA tile loads and
+// bulk copies, wgmma with its shared-memory descriptors, and the layout of a
+// tile in shared memory.
 //
 // Tile layout. A tile of R rows by D columns (D = 64 or 128 elements of 2
 // bytes) is stored as D / 64 panels of 64 columns; a panel is R rows of 128

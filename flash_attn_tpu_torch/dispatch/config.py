@@ -24,11 +24,15 @@ class FwdConfig:
     block_k: int
 
 
-# Tile of csrc/flash_fwd.cu: 64 query rows (16 per warp of 4, the
-# m16n8k16 tensor-core tile) by 64 keys. At head dim 128 the Q, K and V
-# tiles take 48 KB of shared memory, room for two blocks on one SM. The
-# kernel checks that the wrapper passes the tile it was compiled for.
-FWD_TILE = FwdConfig(block_q=64, block_k=64)
+# Tile of csrc/fwd_sm90.cuh, the wgmma/TMA forward tile of the dense
+# forward (csrc/flash_fwd.cu, B1) and the packed-varlen forward
+# (csrc/flash_varlen_fwd.cu, B6): 128 query rows (two warpgroups of 64,
+# wgmma's M) by 64 keys. At head dim 128 the Q tile and two stages of K + V
+# take 97 KB of shared memory, and a thread keeps 64 fp32 accumulators of O
+# beside the 32 of S within 128 registers, so two blocks share an SM. The
+# kernels check that the wrapper passes the tile they were compiled for.
+FWD_TILE = FwdConfig(block_q=128, block_k=64)
+
 
 @dataclasses.dataclass(frozen=True)
 class BwdConfig:
@@ -130,7 +134,7 @@ def decode_rows_per_block(d: int, dv: int, has_qv: bool) -> int:
 
 # Tile of csrc/flash_varlen_paged.cu (the packed-varlen prefill over the
 # paged cache): 64 query rows of one sequence by 64 keys, the tile of the
-# dense forward kernel whose loop it reuses. The JAX function picks
+# mma.sync loop of csrc/fwd_tile.cuh, which it reuses. The JAX function picks
 # bq = min(512, next_pow2(max(max_seqlen_q, 128))) and bk = page_size *
 # min(8, 1024 // page_size) (flash_varlen_paged.py:369-376) to fill its
 # 128 x 128 matrix unit with tall tiles from a large VMEM and to move whole
@@ -142,14 +146,17 @@ def decode_rows_per_block(d: int, dv: int, has_qv: bool) -> int:
 VARLEN_PAGED_TILE = FwdConfig(block_q=64, block_k=64)
 
 
-# Tiles of csrc/flash_varlen.cu. Its forwards (B6 and the persistent B7) run
-# the dense forward's tile loop (csrc/fwd_tile.cuh), so they take its 64 x 64
-# tile; its backward runs the dense backward's loops with the tiles of
-# get_bwd_config. The JAX kernels tile the flat token axis with blocks of up
-# to 512 rows (get_fwd_config) so that each DMA is large and aligned; here a
-# tile is 64 rows of one sequence, which keeps the ragged edge of each
-# sequence to one partial tile.
-VARLEN_FWD_TILE = FWD_TILE
+# Tile of the mma.sync forward loop of csrc/fwd_tile.cuh, which the
+# persistent varlen forward (B7, csrc/flash_varlen.cu), the varlen-paged
+# prefill (B8) and the block-sparse forward (B10) walk: 64 query rows (16
+# per warp of 4, the m16n8k16 tensor-core tile) by 64 keys.
+# get_scheduler_metadata builds its work lists for this tile, and
+# flash_attn_varlen_func (B7) takes them. The JAX kernels tile the flat
+# token axis with blocks of up to 512 rows (get_fwd_config) so that each
+# DMA is large and aligned; here a tile is 64 rows of one sequence, which
+# keeps the ragged edge of each sequence to one partial tile. The B6
+# backward runs the tiles of get_bwd_config.
+VARLEN_FWD_TILE = FwdConfig(block_q=64, block_k=64)
 
 
 @functools.lru_cache(maxsize=None)

@@ -36,7 +36,7 @@ SIGNATURES = {
     "fa_bwd_preprocess": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_I, _P],
     "fa_bwd_dkdv": [_P] * 9 + [_I] * 9 + [_L] * 18 + [_F, _I, _I, _P],
     "fa_bwd_dq": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_F, _I, _I, _P],
-    "fa_varlen_fwd": [_P] * 10 + [_I] * 7 + [_L] * 8 + [_F, _I, _I, _P],
+    "fa_varlen_fwd": [_P] * 10 + [_I] * 8 + [_L] * 8 + [_F, _I, _I, _P],
     "fa_varlen_fwd_persistent":
         [_P] * 10 + [_I] * 7 + [_L] * 8 + [_F, _I, _I, _I, _P, _P],
     "fa_varlen_bwd_dkdv": [_P] * 13 + [_I] * 7 + [_L] * 12 + [_F, _I, _I, _P],

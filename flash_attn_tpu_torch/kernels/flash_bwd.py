@@ -1,5 +1,5 @@
 """Dense attention backward: the CUDA kernels of ``csrc/flash_bwd.cu`` (wgmma
-and TMA, csrc/bwd_sm90.cuh) and their plain PyTorch versions.
+and TMA, csrc/sm90.cuh) and their plain PyTorch versions.
 
 Port of flash_attn_tpu/kernels/flash_bwd.py ``flash_attention_bwd`` (:362,
 the deterministic dK/dV + dQ kernels) and flash_bwd_fused.py

@@ -1,11 +1,12 @@
-"""Dense attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain PyTorch version.
+"""Dense attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` (the
+wgmma/TMA tile of csrc/fwd_sm90.cuh) and its plain PyTorch version.
 
 Port of flash_attn_tpu/kernels/flash_fwd.py ``flash_attention_fwd`` (and of
 the causal split in flash_fwd_split.py, whose diagonal work the one CUDA
 kernel does in a masked phase). Layout (b, h, s, d) as in the JAX function.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises (TMA takes only 16-byte aligned starts and strides: any
+other view raises ValueError, nothing is copied).
 """
 
 import math
@@ -73,7 +74,11 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
     # contiguous; it is returned as its (b, h, sq, d) view.
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    if sq == 0:
+    if sq == 0 or b == 0:
+        return out.transpose(1, 2), lse
+    if sk == 0:  # no row sees a key: nothing to launch
+        out.zero_()
+        lse.fill_(float("-inf"))
         return out.transpose(1, 2), lse
     lib = _build.load_library()
     with torch.cuda.device(q.device):

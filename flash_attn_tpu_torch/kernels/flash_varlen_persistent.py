@@ -11,9 +11,11 @@ the work list holds the (q tile, head) items of every sequence, its q tiles
 ordered longest KV band first (a stable sort on the device,
 dispatch/varlen_meta.py ``schedule``), and a grid of SM count x resident
 blocks per SM walks the (q tile, head) items with a stride. Each item
-runs the tile loop of the B6 forward, so the two give the same bits. A
-tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises.
+runs the mma.sync tile loop of csrc/fwd_tile.cuh on 64-row tiles
+(VARLEN_FWD_TILE); the B6 forward runs the wgmma/TMA tile of
+csrc/fwd_sm90.cuh on 128-row tiles, so the two agree to rounding, not
+bitwise. A tensor on the CPU takes the plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from typing import Optional

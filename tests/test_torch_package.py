@@ -228,6 +228,43 @@ def test_dense_backward_sources_use_wgmma_and_tma():
     assert "bwd_tile.cuh" not in text
 
 
+@pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_varlen_fwd.cu"])
+def test_forward_sources_use_wgmma_and_tma(source):
+    """B1 and B6's forward (with the headers they include) run both products
+    on wgmma and load their tiles by TMA; neither includes the mma.sync
+    tile loop of fwd_tile.cuh."""
+    text = _included_sources(PKG / "csrc" / source)
+    assert "wgmma.mma_async" in text
+    assert "cp.async.bulk.tensor" in text
+    assert "fwd_tile.cuh" not in re.findall(r'^#include "([^"]+)"', text,
+                                            re.MULTILINE)
+
+
+@pytest.mark.parametrize("source", ["flash_varlen.cu", "flash_varlen_paged.cu",
+                                    "flash_blocksparse.cu"])
+def test_old_forward_tile_still_serves_b7_b8_and_b10(source):
+    """B7 (flash_varlen.cu), B8 and the block-sparse forward keep the
+    mma.sync tile loop of fwd_tile.cuh."""
+    text = (PKG / "csrc" / source).read_text()
+    assert "fwd_tile.cuh" in re.findall(r'^#include "([^"]+)"', text,
+                                        re.MULTILINE)
+
+
+def test_forward_tiles_in_the_config():
+    """FWD_TILE is the wgmma tile of B1 and B6's forward (128 rows by 64
+    keys); VARLEN_FWD_TILE and get_scheduler_metadata's work lists stay on
+    the 64 x 64 tile of fwd_tile.cuh that B7 walks."""
+    from flash_attn_tpu_torch import get_scheduler_metadata
+    from flash_attn_tpu_torch.dispatch.config import FWD_TILE, VARLEN_FWD_TILE
+
+    assert (FWD_TILE.block_q, FWD_TILE.block_k) == (128, 64)
+    assert (VARLEN_FWD_TILE.block_q, VARLEN_FWD_TILE.block_k) == (64, 64)
+    md = get_scheduler_metadata(3, 200, 200, 4, 2, 64, causal=True,
+                                device="cpu")
+    assert (md.block_q, md.block_k) == (64, 64)
+    assert md.num_q_tiles == 3 * 4 and md.meta.q_tiles.shape[0] == 12
+
+
 # Edge shapes of the dense backward's tiles (b, sq, sk, h, h_k, d, causal,
 # dtype): one row, lengths either side of the 64- and 128-row tiles, sq > sk
 # (the first rows see no key), MQA and GQA, both head dims, fp16.
@@ -256,6 +293,55 @@ def _dense_bwd_inputs(case, seed=0):
     q, k, v, do = randn(sq, h), randn(sk, h_k), randn(sk, h_k), randn(sq, h)
     out, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal)
     return q, k, v, do, out, lse
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", DENSE_BWD_EDGE_CASES)
+def test_dense_forward_edge_shapes_on_the_card(case):
+    """B1 on the edges of its 128-row and 64-key tiles against the plain
+    fp32 forward under the 2x rule (attention_ref in the inputs' type as
+    the low-precision reference), lse within 1e-3, and the same bits
+    twice."""
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+    )
+
+    causal = case[6]
+    q, k, v, _, out, lse = _dense_bwd_inputs(case)
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(
+        q.float(), k.float(), v.float(), causal=causal)
+    ref_lp, _ = attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
+                              causal=causal, upcast=False)
+    assert out.dtype == q.dtype and out.shape == ref.shape
+    check_against_ref(out.transpose(1, 2), ref.transpose(1, 2), ref_lp,
+                      msg=f"flash_fwd {case}")
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+    again = flash_fwd.flash_attention_fwd(q, k, v, causal=causal)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_dense_forward_refuses_misaligned_views_on_the_card():
+    """TMA needs 16-byte aligned starts and strides: a view that breaks
+    either raises ValueError, and nothing is copied quietly."""
+    from flash_attn_tpu_torch.kernels import flash_fwd
+
+    case = (1, 64, 64, 2, 2, 64, True, torch.bfloat16)
+    q, k, v, _, _, _ = _dense_bwd_inputs(case)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:]
+    shifted = shifted.view(1, 64, 2, 64).transpose(1, 2)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_fwd.flash_attention_fwd(shifted, k, v, causal=True)
+    wide = torch.zeros(1, 64, 2, 68, dtype=q.dtype, device="cuda")
+    wide[..., :64] = v.transpose(1, 2)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_fwd.flash_attention_fwd(q, k, wide[..., :64].transpose(1, 2),
+                                      causal=True)
 
 
 @pytest.mark.usefixtures("cuda_card")
@@ -416,8 +502,9 @@ def test_paged_overflow_poisons_rows_on_the_card():
 @pytest.mark.parametrize("d", [64, 128])
 def test_varlen_kernels_match_plain_versions_on_the_card(causal, d):
     """B6 forward, B7 and the B6 backward against their plain versions with
-    a zero-length sequence, seqused_q/k, GQA and a packed tail; B7 gives B6
-    forward's bits; the backward gives the same bits twice."""
+    a zero-length sequence, lengths either side of the forward's 128-row
+    tile, seqused_q/k, GQA and a packed tail; B6's forward and B7 each give
+    the same bits twice; the backward gives the same bits twice."""
     import numpy as np
 
     from flash_attn_tpu_torch.kernels import (
@@ -431,28 +518,30 @@ def test_varlen_kernels_match_plain_versions_on_the_card(causal, d):
         return torch.randn(*shape, device="cuda", generator=gen).to(
             torch.bfloat16)
 
-    lens_q, lens_k = [100, 0, 256, 7, 130], [300, 40, 256, 519, 0]
+    lens_q = [100, 0, 256, 7, 130, 127, 129]
+    lens_k = [300, 40, 256, 519, 0, 129, 127]
     cu_q, cu_k = (torch.tensor(np.concatenate([[0], np.cumsum(x)]),
                                dtype=torch.int32, device="cuda")
                   for x in (lens_q, lens_k))
-    used_q = torch.tensor([100, 0, 200, 7, 130], dtype=torch.int32,
+    used_q = torch.tensor([100, 0, 200, 7, 130, 127, 129], dtype=torch.int32,
                           device="cuda")
-    used_k = torch.tensor([300, 40, 256, 500, 0], dtype=torch.int32,
+    used_k = torch.tensor([300, 40, 256, 500, 0, 129, 127], dtype=torch.int32,
                           device="cuda")
     q, do = randn(int(cu_q[-1]) + 9, 8, d), randn(int(cu_q[-1]) + 9, 8, d)
     k, v = randn(int(cu_k[-1]) + 3, 2, d), randn(int(cu_k[-1]) + 3, 2, d)
     args = (cu_q, cu_k, 256, 519, used_q, used_k)
-    out, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, *args,
-                                                       causal=causal)
     ref, ref_lse = flash_varlen.flash_attention_varlen_fwd_plain(
         q, k, v, *args, causal=causal)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
     fin = torch.isfinite(ref_lse)
-    assert torch.equal(torch.isfinite(lse), fin)
-    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-4, rtol=0)
-    out_p, lse_p = flash_varlen_persistent.flash_attention_varlen_fwd_persistent(
-        q, k, v, *args, causal=causal)
-    assert torch.equal(out_p, out) and torch.equal(lse_p, lse)
+    for fwd in (flash_varlen.flash_attention_varlen_fwd,
+                flash_varlen_persistent.flash_attention_varlen_fwd_persistent):
+        out, lse = fwd(q, k, v, *args, causal=causal)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=0)
+        assert torch.equal(torch.isfinite(lse), fin)
+        torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-4, rtol=0)
+        again = fwd(q, k, v, *args, causal=causal)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
     got = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse, *args,
                                                   causal=causal)
     want = flash_varlen.flash_attention_varlen_bwd_plain(

@@ -7,6 +7,8 @@ versions, JAX its Pallas kernels in interpret mode. The CUDA kernels are
 held against their plain versions on the card (tests/test_torch_package.py,
 chip_smoke.py)."""
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,6 +154,50 @@ def test_varlen_meta_token_vectors_match_jax(causal):
         -(-int(used_k[s]) // 64),
         (min(r0 + 64, int(used_q[s])) - 1 + int(used_k[s] - used_q[s])) // 64
         + 1)) for s, r0 in live.tolist()]
+    assert bands == sorted(bands, reverse=True)
+
+
+# (lens, seqused_q, packed tail rows) of the B6 forward's 128-row work list:
+# zero-length sequences, seqused_q below the length, a packed tail, and
+# lengths either side of one and two tiles.
+WORK_LIST_128_CASES = [
+    ([0, 50, 0, 200], None, 0),
+    ([200, 130, 64], [150, 129, 0], 0),
+    ([100, 300], None, 40),
+    ([1, 127, 128, 129, 300], None, 0),
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", WORK_LIST_128_CASES)
+def test_varlen_work_list_at_128_rows_covers_each_row_once(case, causal):
+    """compute_varlen_meta(block_q=128), the B6 forward's work list: its
+    tiles start at multiples of 128 inside their sequence's used rows and,
+    clipped to those rows (the kernel stores no other), cover every valid
+    (sequence, row) exactly once, none past seqused or in the packed tail;
+    the schedule holds the same tiles, longest band first."""
+    lens, used, tail = case
+    cu = _cu(lens)
+    total = int(cu[-1]) + tail
+    meta = compute_varlen_meta(
+        _t(cu), _t(cu), max(lens), max(lens), total, total, causal=causal,
+        seqused_q=None if used is None else _t(np.array(used, np.int32)),
+        block_q=128)
+    used = lens if used is None else used
+    assert meta.lens_q.tolist() == [min(a, u) for a, u in zip(lens, used)]
+    for tiles in (meta.q_tiles, meta.schedule):
+        live = [(s, r0) for s, r0 in tiles.tolist() if s >= 0]
+        assert all(r0 % 128 == 0 and r0 < used[s] for s, r0 in live)
+        rows = collections.Counter(
+            (s, r) for s, r0 in live for r in range(r0, min(r0 + 128, used[s])))
+        assert set(rows.values()) <= {1}
+        assert sorted(rows) == [(s, r) for s in range(len(lens))
+                                for r in range(used[s])]
+    assert sorted(meta.schedule.tolist()) == sorted(meta.q_tiles.tolist())
+    # keys: the whole slot (no seqused_k), bottom-right causal
+    bands = [-(-lens[s] // 64) if not causal else min(-(-lens[s] // 64), max(
+        0, (min(r0 + 128, used[s]) - 1 + lens[s] - used[s]) // 64 + 1))
+        for s, r0 in meta.schedule.tolist() if s >= 0]
     assert bands == sorted(bands, reverse=True)
 
 
