@@ -61,9 +61,8 @@
 // -inf for a row that sees no key (its P is 0). Causal masking is
 // bottom-right aligned (shift = sk - sq). The tensor maps are encoded on the
 // host for every call by cuTensorMapEncodeTiled, a CUDA driver API function
-// reached with cudaGetDriverEntryPoint so that only the runtime is linked.
-
-#include <cudaTypedefs.h>
+// reached with cudaGetDriverEntryPoint so that only the runtime is linked
+// (sm90.cuh make_tile_map).
 
 #include "sm90.cuh"
 
@@ -571,36 +570,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---- host side --------------------------------------------------------------
 
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }
-  return fn;
-}
-
 // The tensor map of a (b, s, h, d) operand given by element strides (the
 // head dim contiguous): boxes of 64 columns by `rows` rows of one head,
 // 128-byte swizzle, rows past s zero-filled.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, bool bf16, int d, int s,
                      int h, int b, int64_t ss, int64_t sh, int64_t sb, int rows) {
-  auto encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      4, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return make_tile_map<4>(map, ptr, bf16, {d, s, h, b}, {ss, sh, sb}, rows);
 }
 
 struct Operands {

@@ -1,53 +1,34 @@
-// Packed varlen attention for Hopper (sm_90a), bf16 / fp16, head dim 64 or
-// 128: the persistent forward (B7) and the deterministic backward. The B6
-// forward runs the wgmma/TMA tile of fwd_sm90.cuh in flash_varlen_fwd.cu.
+// Packed varlen attention backward for Hopper (sm_90a), bf16 / fp16, head
+// dim 64 or 128: the deterministic dK/dV and dQ kernels of B6. The forward
+// (B6's and the persistent B7) runs the wgmma/TMA tile of fwd_sm90.cuh in
+// flash_varlen_fwd.cu.
 //
-// Replaces the TPU kernels
-//  - flash_attn_tpu/kernels/flash_varlen_persistent.py:
-//    _varlen_fwd_persistent_kernel (B7) as varlen_fwd_persistent_kernel: a
-//    grid of (SM count x resident blocks per SM) blocks, each walking the
-//    (q tile, head) work list with a stride;
-//  - flash_varlen.py:_varlen_dkdv_stream_kernel and _varlen_dq_stream_kernel
-//    (B6 backward) as varlen_dkdv_kernel, one block per (k tile, KV head)
-//    that walks its sequence's q band and sums the group's heads, and
-//    varlen_dq_kernel, one block per (q tile, head); each writes its
-//    gradient once, with no atomics, so the backward is deterministic.
+// Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:
+// _varlen_dkdv_stream_kernel and _varlen_dq_stream_kernel as
+// varlen_dkdv_kernel, one block per (k tile, KV head) that walks its
+// sequence's q band and sums the group's heads, and varlen_dq_kernel, one
+// block per (q tile, head); each writes its gradient once, with no atomics,
+// so the backward is deterministic.
 //
-// The TPU kernels tile the flat token axis with aligned blocks, because a
-// DMA must be aligned, and rebuild the sequences from per-token segment ids.
+// The TPU kernels tile the flat token axis with aligned blocks, because a DMA
+// must be aligned, and rebuild the sequences from per-token segment ids.
 // Here every tile belongs to one sequence: the wrapper builds work lists of
 // (sequence, first local row) with torch ops on the device
-// (dispatch/varlen_meta.py), and a block finds its sequence's origin in
-// cu_seqlens and its length (seqused where given). The tile loops are the
-// mma.sync loops of fwd_tile.cuh and bwd_tile.cuh, whose only masks are the
-// in-sequence causal mask and the ragged ends; B7's 64 x 64 tile is the one
-// the block-sparse forward and B8 walk too. Rows past a sequence's length
-// and rows past cu_seqlens[-1] (the packed tail of unpad_input) are in no
-// tile: the wrapper allocates them as zeros (out, dq, dk, dv) and -inf
-// (lse).
+// (dispatch/varlen_meta.py, q_tiles and k_tiles at 64 rows), and a block
+// finds its sequence's origin in cu_seqlens and its length (seqused where
+// given). The tile loops are the mma.sync loops of bwd_tile.cuh, whose only
+// masks are the in-sequence causal mask and the ragged ends. Rows past a
+// sequence's length and rows past cu_seqlens[-1] (the packed tail of
+// unpad_input) are in no tile: the wrapper allocates them as zeros (dq, dk,
+// dv).
 //
 // What bounds it on this card: per head, a sequence of sq rows over sk keys
-// does 4 * sq * sk * d flops forward (about half under the causal mask) and
-// moves q, k, v and out once. BERT-large's packing (32 sequences of 256-512
-// tokens, 16 heads of 64) is ~20 GFLOP against ~100 MB, about 200 flops a
-// byte, under the card's 295: memory bound at ~0.03 ms; longer sequences
-// (16 of 2048-4096 at d = 128, causal) are tensor-core bound at ~0.65 ms.
-// The backward does 2.5 x the forward's products. What limits these simple
-// kernels is how well they feed the tensor cores, as for the dense ones.
-//
-// The persistent schedule: the q tiles are sorted by the length of their KV
-// band, longest first (a stable sort on the device, so the schedule is
-// deterministic, as the TPU's precomputed one is), and block i takes items
-// i, i + grid, ... of the (q tile, head) list. On an H100 this walk is
-// slower than one block per tile, which the hardware places on SMs as
-// they free up (PERF.md); an atomic ticket in place of the stride
-// and a head-major order did not close the gap. What the persistent form
-// is for, a K/V ring that stays full across a block's tiles (the TPU
-// kernel's 4-deep DMA pipeline), is left for later, with one block for a
-// GQA group's heads.
+// does 10 * sq * sk * d flops (about half under the causal mask: 2.5 x the
+// forward's products) and moves q, k, v, dout, lse, delta and the three
+// gradients once. What limits these simple kernels is how well they feed
+// the tensor cores, as for the dense ones.
 
 #include "bwd_tile.cuh"
-#include "fwd_tile.cuh"
 
 namespace {
 
@@ -55,11 +36,9 @@ struct VarlenParams {
   const void* q;       // (total_q, h, d) by strides
   const void* k;       // (total_k, h_k, d) by strides
   const void* v;
-  const void* dout;    // backward: (total_q, h, d)
-  void* out;           // forward: (total_q, h, d), zeroed by the wrapper
-  float* lse;          // forward: (h, total_q), -inf-filled by the wrapper
-  const float* lse_in; // backward: (h, total_q)
-  const float* delta;  // backward: (h, total_q)
+  const void* dout;    // (total_q, h, d)
+  const float* lse_in; // (h, total_q)
+  const float* delta;  // (h, total_q)
   void* dq;
   void* dk;
   void* dv;
@@ -69,50 +48,12 @@ struct VarlenParams {
   const int* lens_k;   // (b,) keys of each sequence (seqused_k)
   const int* tiles;    // (num_tiles, 2): sequence (-1: no tile), first row
   int num_tiles;
-  int64_t q_st, q_sh, k_st, k_sh, v_st, v_sh, o_st, o_sh;
+  int64_t q_st, q_sh, k_st, k_sh, v_st, v_sh;
   int64_t do_st, do_sh, dq_st, dq_sh, dk_st, dk_sh, dv_st, dv_sh;
   int total_q, h, group;
   float scale, scale_log2;
   int causal;
 };
-
-// The forward of work item (tile, head).
-template <typename T, int D>
-__device__ __forceinline__ void fwd_item(const VarlenParams& p, int tile,
-                                         int hh, unsigned char* smem) {
-  const int seq = p.tiles[2 * tile];
-  const int kh = hh / p.group;
-  const int q0 = p.cu_q[seq];
-  const int k0 = p.cu_k[seq];
-  fa::FwdTile<T> t;
-  t.q = reinterpret_cast<const T*>(p.q) + (int64_t)q0 * p.q_st + hh * p.q_sh;
-  t.out = reinterpret_cast<T*>(p.out) + (int64_t)q0 * p.o_st + hh * p.o_sh;
-  t.lse = p.lse + (int64_t)hh * p.total_q + q0;
-  t.q_ss = p.q_st;
-  t.o_ss = p.o_st;
-  t.sq = p.lens_q[seq];
-  t.sk = p.lens_k[seq];
-  t.m0 = p.tiles[2 * tile + 1];
-  const fa::LinearKV<T, D> kv{
-      reinterpret_cast<const T*>(p.k) + (int64_t)k0 * p.k_st + kh * p.k_sh,
-      reinterpret_cast<const T*>(p.v) + (int64_t)k0 * p.v_st + kh * p.v_sh,
-      p.k_st, p.v_st};
-  fa::fwd_tile<T, D>(t, kv, p.scale_log2, p.causal, smem);
-}
-
-// B7: resident blocks walk the items (tile, head) = (w / h, w % h) of the
-// sorted work list with a stride of the grid; the dead tiles sort last.
-template <typename T, int D>
-__global__ void __launch_bounds__(fa::FWD_THREADS)
-    varlen_fwd_persistent_kernel(const VarlenParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int items = p.num_tiles * p.h;
-  for (int w = blockIdx.x; w < items; w += gridDim.x) {
-    const int tile = w / p.h;
-    if (p.tiles[2 * tile] < 0) break;
-    fwd_item<T, D>(p, tile, w - tile * p.h, smem_raw);
-  }
-}
 
 // Sequence `seq` as the tile loops see it: query-side pointers at head hq,
 // KV-side ones at KV head hk.
@@ -186,24 +127,6 @@ cudaError_t set_smem(Kernel kernel, int smem) {
 }
 
 template <typename T, int D>
-cudaError_t launch_fwd(const VarlenParams& p, int num_sms, int* grid_out,
-                       cudaStream_t stream) {
-  constexpr int smem = fa::fwd_smem_bytes<T, D>();
-  cudaError_t err = set_smem(varlen_fwd_persistent_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, varlen_fwd_persistent_kernel<T, D>, fa::FWD_THREADS, smem);
-  if (err != cudaSuccess) return err;
-  const int64_t items = (int64_t)p.num_tiles * p.h;
-  const int64_t resident = (int64_t)num_sms * (per_sm > 0 ? per_sm : 1);
-  const int grid = (int)(items < resident ? items : resident);
-  if (grid_out) *grid_out = grid;
-  varlen_fwd_persistent_kernel<T, D><<<grid, fa::FWD_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
 cudaError_t launch_dkdv(const VarlenParams& p, int h_k, cudaStream_t stream) {
   constexpr int BM = fa::dkdv_bm<D>();
   constexpr int smem = fa::dkdv_smem_bytes<T, D, BM>();
@@ -255,14 +178,6 @@ int dispatch(int is_bf16, int d, Args&&... args) {
 }
 
 template <typename T, int D>
-struct Fwd {
-  static cudaError_t run(const VarlenParams& p, int num_sms, int* grid_out,
-                         cudaStream_t st) {
-    return launch_fwd<T, D>(p, num_sms, grid_out, st);
-  }
-};
-
-template <typename T, int D>
 struct Dkdv {
   static cudaError_t run(const VarlenParams& p, int h_k, cudaStream_t st) {
     return launch_dkdv<T, D>(p, h_k, st);
@@ -278,46 +193,10 @@ struct Dq {
 
 }  // namespace
 
-// B7 over the sorted work list, with a grid of num_sms x the blocks that
-// fit on one SM (at most one block per item); the grid is written to
-// *grid_out (host memory). q (total_q, h, d) and out by element strides
-// (token, head), k/v (total_k, h_k, d) likewise, the head dim contiguous;
-// lse (h, total_q) fp32; cu_q, cu_k (b + 1,), lens_q, lens_k (b,) and tiles
-// (num_tiles, 2) int32 from the wrapper; out zeroed and lse -inf-filled by
-// the wrapper. block_q/block_k must name the tile the kernel is compiled
-// for (dispatch/config.py VARLEN_FWD_TILE). Returns a cudaError_t (0 on
-// success).
-extern "C" int fa_varlen_fwd_persistent(
-    const void* q, const void* k, const void* v, void* out, float* lse,
-    const int* cu_q, const int* cu_k, const int* lens_q, const int* lens_k,
-    const int* tiles, int num_tiles, int total_q, int h, int h_k, int d,
-    int block_q, int block_k, int64_t q_st, int64_t q_sh, int64_t k_st,
-    int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t o_st, int64_t o_sh,
-    float scale, int causal, int is_bf16, int num_sms, int* grid_out,
-    void* stream) {
-  if (block_q != fa::FWD_BM || block_k != fa::FWD_BN || num_sms < 1)
-    return (int)cudaErrorInvalidValue;
-  if (grid_out) *grid_out = 0;
-  if (num_tiles == 0) return 0;
-  VarlenParams p = make_params(cu_q, cu_k, lens_q, lens_k, tiles, num_tiles,
-                               total_q, h, h_k, scale, causal);
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  p.lse = lse;
-  p.q_st = q_st; p.q_sh = q_sh;
-  p.k_st = k_st; p.k_sh = k_sh;
-  p.v_st = v_st; p.v_sh = v_sh;
-  p.o_st = o_st; p.o_sh = o_sh;
-  return dispatch<Fwd>(is_bf16, d, p, num_sms, grid_out,
-                       reinterpret_cast<cudaStream_t>(stream));
-}
-
 // dK, dV (total_k, h_k, d) in k's type over the key-side work list; rows in
 // no tile are the wrapper's zeros. lse and delta (h, total_q) fp32. Layouts
-// as fa_varlen_fwd; block_q/block_k name the dK/dV tile (dispatch/config.py
-// get_bwd_config).
+// as fa_varlen_fwd (flash_varlen_fwd.cu); block_q/block_k name the dK/dV
+// tile (dispatch/config.py get_bwd_config).
 extern "C" int fa_varlen_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv, const int* cu_q,

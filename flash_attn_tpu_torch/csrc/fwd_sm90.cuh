@@ -1,9 +1,12 @@
 // The attention forward tile for Hopper (sm_90a) on wgmma and TMA, shared by
-// the dense forward (csrc/flash_fwd.cu, B1) and the packed-varlen forward
-// (csrc/flash_varlen_fwd.cu, B6): one block of two warpgroups computes 128
-// query rows of one sequence and head against the 64-key tiles of its
-// causal band. It is the sm_90a counterpart of the mma.sync tile loop of
-// fwd_tile.cuh, which B7, B8 and the block-sparse forward keep.
+// the dense forward (csrc/flash_fwd.cu, B1) and the packed-varlen forwards
+// (csrc/flash_varlen_fwd.cu, B6 and the persistent B7): one block of two
+// warpgroups computes 128 query rows of one sequence and head against the
+// 64-key tiles of its causal band. It is the sm_90a counterpart of the
+// mma.sync tile loop of fwd_tile.cuh, which B8 and the block-sparse forward
+// keep. fwd_tile runs one tile of rows in a block; B7 runs its pieces
+// (fwd_issue_q / fwd_issue_kv, fwd_step a K/V tile, fwd_epilogue) over
+// several tiles with the K/V ring carried across them.
 //
 // What it computes is what flash_attn_tpu/kernels/flash_fwd.py:_fwd_kernel
 // computes, with the causal diagonal of flash_fwd_split.py:_diag_kernel:
@@ -46,8 +49,6 @@
 // kernels that inline this tile give the same bits for the same rows.
 #pragma once
 
-#include <cudaTypedefs.h>
-
 #include "sm90.cuh"
 
 namespace fa {
@@ -58,15 +59,17 @@ constexpr int FWD_N = 64;   // keys a K/V tile
 constexpr int FWD_THREADS = 256;
 constexpr int FWD_STAGES = 2;
 
-template <int D>
+// QBUF Q tiles (the persistent varlen forward may keep a second one), then
+// the K/V stages, then the barriers: QBUF Q barriers, one a stage.
+template <int D, int QBUF = 1>
 struct FwdLayout {
   using QT = Tile<FWD_M, D>;
   using KT = Tile<FWD_N, D>;
   static constexpr int Q_OFF = 0;
-  static constexpr int STAGE_OFF = QT::BYTES;
+  static constexpr int STAGE_OFF = QBUF * QT::BYTES;
   static constexpr int STAGE_BYTES = 2 * KT::BYTES;  // K then V
   static constexpr int BAR_OFF = STAGE_OFF + FWD_STAGES * STAGE_BYTES;
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + FWD_STAGES);
+  static constexpr int BYTES = BAR_OFF + 8 * (QBUF + FWD_STAGES);
   // what a launch asks for: the base is rounded up to 1024 bytes
   static constexpr int SMEM = BYTES + 1024;
 };
@@ -82,27 +85,55 @@ struct FwdRows {
   int sq, sk, m0;
 };
 
-// 2^x on the special-function unit (subnormal results flush to 0).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+// What a thread carries through a tile's band: its share of O (the
+// accumulators of its two rows), and their running max and sum.
+template <int D>
+struct FwdAcc {
+  float o[D / 2];
+  float m_r[2];  // running max of the scaled scores
+  float l_r[2];  // this thread's share of the row sum
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    m_r[0] = m_r[1] = -INFINITY;
+    l_r[0] = l_r[1] = 0.f;
+  }
+};
+
+// Issue the TMA loads of K/V tile n (keys [64 n, 64 n + 64)) of `src` into
+// `stage`, counted on `bar`.
+template <int D, typename Src>
+__device__ __forceinline__ void fwd_issue_kv(const Src& src, unsigned char* stage,
+                                             uint64_t* bar, int n) {
+  using L = FwdLayout<D>;
+  mbar_expect_tx(bar, L::STAGE_BYTES);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) {
+    src.load_k(stage + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
+    src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
+  }
 }
 
-// Src: load_q / load_k / load_v(dst, bar, col, row) issue the TMA load of
-// the box of 64 columns from `col` and 128 (Q) or 64 (K, V) rows from the
-// sequence's row `row`, counted on `bar`. ZERO_TAIL: zero the V rows past
-// sk of the ragged tile (a packed tensor's neighbour rows).
-template <typename T, int D, bool ZERO_TAIL, typename Src>
-__device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
-                                         float scale_log2, bool causal,
-                                         unsigned char* smem) {
+// Issue the TMA loads of the Q tile at row m0 of `src` into Qs.
+template <int D, typename Src>
+__device__ __forceinline__ void fwd_issue_q(const Src& src, unsigned char* Qs,
+                                            uint64_t* bar, int m0) {
+  using L = FwdLayout<D>;
+  mbar_expect_tx(bar, L::QT::BYTES);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) src.load_q(Qs + c * L::QT::PANEL_BYTES, bar, c * 64, m0);
+}
+
+// One K/V tile (keys [n0, n0 + 64), landed in `stage`) of the band of the
+// rows of `t`, for the whole block: S = Q K^T, the masks, the online softmax
+// and O += P V, then the block barrier that frees the stage.
+template <typename T, int D, bool ZERO_TAIL>
+__device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
+                                         unsigned char* stage, int n0,
+                                         const FwdRows<T>& t, float scale_log2,
+                                         bool causal) {
   using L = FwdLayout<D>;
   constexpr int BN = FWD_N;
-  unsigned char* Qs = smem + L::Q_OFF;
-  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* full = q_bar + 1;
-
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3;
@@ -110,156 +141,127 @@ __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int shift = t.sk - t.sq;
-  const int total = KeyRange<BN>(t.m0, FWD_M, t.sq, t.sk, causal).count();
+  const int r0 = t.m0 + wg * 64;         // this warpgroup's rows
+  const int row_a = r0 + warp * 16 + g;  // this thread's rows: row_a, row_a + 8
+  const unsigned char* Ks = stage;
+  unsigned char* Vs = stage + L::KT::BYTES;
 
-  auto issue = [&](int n) {
-    const int st = n % FWD_STAGES;
-    unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
-    mbar_expect_tx(&full[st], L::STAGE_BYTES);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
-      src.load_k(stage + c * L::KT::PANEL_BYTES, &full[st], c * 64, n * BN);
-      src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, &full[st], c * 64,
-                 n * BN);
-    }
-  };
-
-  if (tid == 0) {
-    mbar_init(q_bar, 1);
-    for (int s = 0; s < FWD_STAGES; ++s) mbar_init(&full[s], 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (tid == 0 && total > 0) {
-    mbar_expect_tx(q_bar, L::QT::BYTES);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c)
-      src.load_q(Qs + c * L::QT::PANEL_BYTES, q_bar, c * 64, t.m0);
-    issue(0);
-  }
-
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};  // running max of the scaled scores
-  float l_r[2] = {0.f, 0.f};              // this thread's share of the row sum
-  const int r0 = t.m0 + wg * 64;          // this warpgroup's rows
-  const int row_a = r0 + warp * 16 + g;   // this thread's rows: row_a, row_a + 8
-
-  if (total > 0) mbar_wait(q_bar, 0);
-  for (int n = 0; n < total; ++n) {
-    const int st = n % FWD_STAGES;
-    if (tid == 0 && n + 1 < total) issue(n + 1);  // its stage was freed at n - 1
-    const unsigned char* Ks = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
-    unsigned char* Vs = smem + L::STAGE_OFF + st * L::STAGE_BYTES + L::KT::BYTES;
-    const int n0 = n * BN;
-    mbar_wait(&full[st], (n / FWD_STAGES) & 1);
-
-    if constexpr (ZERO_TAIL) {
-      if (n0 + BN > t.sk) {  // the same for the whole block
-        // whole 128-byte rows of each panel, so the swizzle does not matter
-        const int first = t.sk - n0;
-        const int per_panel = (BN - first) * 8;  // 16-byte chunks
-        for (int i = tid; i < per_panel * (D / 64); i += FWD_THREADS) {
-          const int c = i / per_panel;
-          const int r = first + (i - c * per_panel) / 8;
-          *reinterpret_cast<uint4*>(Vs + c * L::KT::PANEL_BYTES + r * 128 + (i & 7) * 16) =
-              make_uint4(0, 0, 0, 0);
-        }
-        fence_proxy_async();  // before wgmma reads them
-        __syncthreads();
+  if constexpr (ZERO_TAIL) {
+    if (n0 + BN > t.sk) {  // the same for the whole block
+      // whole 128-byte rows of each panel, so the swizzle does not matter
+      const int first = t.sk - n0;
+      const int per_panel = (BN - first) * 8;  // 16-byte chunks
+      for (int i = tid; i < per_panel * (D / 64); i += FWD_THREADS) {
+        const int c = i / per_panel;
+        const int r = first + (i - c * per_panel) / 8;
+        *reinterpret_cast<uint4*>(Vs + c * L::KT::PANEL_BYTES + r * 128 + (i & 7) * 16) =
+            make_uint4(0, 0, 0, 0);
       }
+      fence_proxy_async();  // before wgmma reads them
+      __syncthreads();
     }
+  }
 
-    // S = Q K^T over this warpgroup's 64 rows
-    float s[BN / 2];
+  // S = Q K^T over this warpgroup's 64 rows
+  float s[BN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
-    wgmma_fence();
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+  wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<T, BN, 0, 0>(s, L::QT::k_slice(Qs, wg * 64, kk), L::KT::k_slice(Ks, 0, kk),
-                            kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<T, BN, 0, 0>(s, L::QT::k_slice(Qs, wg * 64, kk), L::KT::k_slice(Ks, 0, kk),
+                          kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
 
-    // scale into base 2; mask the diagonal and the ragged end of the keys
-    const bool need_mask = (causal && n0 + BN - 1 > r0 + shift) || n0 + BN > t.sk;
+  // scale into base 2; mask the diagonal and the ragged end of the keys
+  const bool need_mask = (causal && n0 + BN - 1 > r0 + shift) || n0 + BN > t.sk;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = __fmul_rn(s[4 * j + e], scale_log2);
+      if (need_mask) {
+        const int col = n0 + 8 * j + 2 * t4 + (e & 1);
+        const int row = row_a + 8 * (e >> 1);
+        if (col >= t.sk || (causal && col > row + shift)) x = -INFINITY;
+      }
+      s[4 * j + e] = x;
+    }
+  }
+
+  // online softmax, one row pair at a time
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+    mx = quad_max(mx);
+    const float m_new = fmaxf(a.m_r[i], mx);
+    // a row that has seen no key yet keeps m = -inf; exponentiate against
+    // 0 so that it gives 0 and not NaN
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    const float corr = exp2_ftz(a.m_r[i] - m_safe);
+    a.m_r[i] = m_new;
+    float rs = 0.f;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = __fmul_rn(s[4 * j + e], scale_log2);
-        if (need_mask) {
-          const int col = n0 + 8 * j + 2 * t4 + (e & 1);
-          const int row = row_a + 8 * (e >> 1);
-          if (col >= t.sk || (causal && col > row + shift)) x = -INFINITY;
-        }
-        s[4 * j + e] = x;
-      }
+      s[4 * j + 2 * i] = exp2_ftz(s[4 * j + 2 * i] - m_safe);
+      s[4 * j + 2 * i + 1] = exp2_ftz(s[4 * j + 2 * i + 1] - m_safe);
+      rs += s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
     }
-
-    // online softmax, one row pair at a time
+    a.l_r[i] = __fmaf_rn(a.l_r[i], corr, rs);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
-      mx = quad_max(mx);
-      const float m_new = fmaxf(m_r[i], mx);
-      // a row that has seen no key yet keeps m = -inf; exponentiate against
-      // 0 so that it gives 0 and not NaN
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = exp2_ftz(m_r[i] - m_safe);
-      m_r[i] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        s[4 * j + 2 * i] = exp2_ftz(s[4 * j + 2 * i] - m_safe);
-        s[4 * j + 2 * i + 1] = exp2_ftz(s[4 * j + 2 * i + 1] - m_safe);
-        rs += s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
-      }
-      l_r[i] = __fmaf_rn(l_r[i], corr, rs);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j + 2 * i] = __fmul_rn(o[4 * j + 2 * i], corr);
-        o[4 * j + 2 * i + 1] = __fmul_rn(o[4 * j + 2 * i + 1], corr);
-      }
+    for (int j = 0; j < D / 8; ++j) {
+      a.o[4 * j + 2 * i] = __fmul_rn(a.o[4 * j + 2 * i], corr);
+      a.o[4 * j + 2 * i + 1] = __fmul_rn(a.o[4 * j + 2 * i + 1], corr);
     }
-
-    // O += P V, P packed from the S accumulators
-    uint32_t pa[BN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(pa[kk], s, kk);
-    fence_regs(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs<T, D, 1>(o, pa[kk], L::KT::mn_slice(Vs, 16 * kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    __syncthreads();  // both warpgroups are done with stage st
   }
 
-  // normalise; O in the input type goes through this warpgroup's rows of
-  // the Q tile (its last product has read them) and out in 16-byte chunks,
-  // rows past sq skipped; the natural-log lse
+  // O += P V, P packed from the S accumulators
+  uint32_t pa[BN / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(pa[kk], s, kk);
+  fence_regs(a.o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs<T, D, 1>(a.o, pa[kk], L::KT::mn_slice(Vs, 16 * kk), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(a.o);
+  __syncthreads();  // both warpgroups are done with the stage
+}
+
+// Normalise and write the rows of `t`: O in the input type goes through this
+// warpgroup's rows of the Q tile Qs (its last product has read them) and
+// out in 16-byte chunks, rows past sq skipped; the natural-log lse.
+template <typename T, int D>
+__device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* Qs,
+                                             const FwdRows<T>& t) {
+  using L = FwdLayout<D>;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int r0 = t.m0 + wg * 64;
   unsigned char* ow = Qs + wg * 64 * 128;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + g + 8 * i;
-    const float l = quad_sum(l_r[i]);
+    const float l = quad_sum(a.l_r[i]);
     const float inv = l == 0.f ? 0.f : 1.f / l;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(ow + (j / 8) * L::QT::PANEL_BYTES +
                                    swz128(r, 8 * (j % 8) + 2 * t4)) =
-          Elem<T>::pack(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+          Elem<T>::pack(a.o[4 * j + 2 * i] * inv, a.o[4 * j + 2 * i + 1] * inv);
     if (t4 == 0 && r0 + r < t.sq)
-      t.lse[r0 + r] = l == 0.f ? -INFINITY : __fmaf_rn(m_r[i], FA_LN2, logf(l));
+      t.lse[r0 + r] = l == 0.f ? -INFINITY : __fmaf_rn(a.m_r[i], FA_LN2, logf(l));
   }
   named_barrier(1 + wg, 128);
   for (int i = tid & 127; i < 64 * (D / 8); i += 128) {
@@ -272,46 +274,45 @@ __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
   }
 }
 
-// ---- host side --------------------------------------------------------------
+// Src: load_q / load_k / load_v(dst, bar, col, row) issue the TMA load of
+// the box of 64 columns from `col` and 128 (Q) or 64 (K, V) rows from the
+// sequence's row `row`, counted on `bar`. ZERO_TAIL: zero the V rows past
+// sk of the ragged tile (a packed tensor's neighbour rows). One block, one
+// tile of rows: the barriers are set up here and thread 0 issues tile
+// n + 1's loads as tile n starts (its stage was freed at n - 1).
+template <typename T, int D, bool ZERO_TAIL, typename Src>
+__device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
+                                         float scale_log2, bool causal,
+                                         unsigned char* smem) {
+  using L = FwdLayout<D>;
+  unsigned char* Qs = smem + L::Q_OFF;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_bar + 1;
+  const int tid = threadIdx.x;
+  const int total = KeyRange<FWD_N>(t.m0, FWD_M, t.sq, t.sk, causal).count();
+  auto stage = [&](int n) { return smem + L::STAGE_OFF + (n % FWD_STAGES) * L::STAGE_BYTES; };
 
-inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < FWD_STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
   }
-  return fn;
-}
+  __syncthreads();
+  if (tid == 0 && total > 0) {
+    fwd_issue_q<D>(src, Qs, q_bar, t.m0);
+    fwd_issue_kv<D>(src, stage(0), &full[0], 0);
+  }
 
-// The tensor map of a RANK-dimensional operand of 2-byte elements whose
-// innermost dim (the head dim, `dims[0]` elements) is contiguous: `dims`
-// innermost first, `strides` the element strides of dims 1 .. RANK - 1.
-// Boxes of 64 columns by `rows` rows (dim 1) of one index of every outer
-// dim, 128-byte swizzle, zero fill past each dim's end.
-template <int RANK>
-cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, bool bf16,
-                          const int64_t (&dims)[RANK], const int64_t (&strides)[RANK - 1],
-                          int rows) {
-  auto encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  cuuint64_t d[RANK], st[RANK - 1];
-  cuuint32_t box[RANK], elem[RANK];
-  for (int i = 0; i < RANK; ++i) {
-    d[i] = (cuuint64_t)dims[i];
-    box[i] = i == 0 ? 64 : i == 1 ? (cuuint32_t)rows : 1;
-    elem[i] = 1;
+  FwdAcc<D> a;
+  a.init();
+  if (total > 0) mbar_wait(q_bar, 0);
+  for (int n = 0; n < total; ++n) {
+    if (tid == 0 && n + 1 < total)
+      fwd_issue_kv<D>(src, stage(n + 1), &full[(n + 1) % FWD_STAGES], n + 1);
+    mbar_wait(&full[n % FWD_STAGES], (n / FWD_STAGES) & 1);
+    fwd_step<T, D, ZERO_TAIL>(a, Qs, stage(n), n * FWD_N, t, scale_log2, causal);
   }
-  for (int i = 0; i < RANK - 1; ++i) st[i] = (cuuint64_t)strides[i] * 2;
-  const CUresult r = encode(
-      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, RANK,
-      const_cast<void*>(ptr), d, st, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  fwd_epilogue<T, D>(a, Qs, t);
 }
 
 // The maps of one forward call.

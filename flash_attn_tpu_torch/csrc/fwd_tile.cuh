@@ -1,13 +1,12 @@
-// The mma.sync forward tile loop shared by the persistent packed-varlen
-// forward (B7, csrc/flash_varlen.cu), the packed prefill over a paged cache
-// (B8, csrc/flash_varlen_paged.cu) and the block-sparse forward (B10,
+// The mma.sync forward tile loop shared by the packed prefill over a paged
+// cache (B8, csrc/flash_varlen_paged.cu) and the block-sparse forward (B10,
 // csrc/flash_blocksparse.cu): one block of 4 warps computes 64 query rows of
 // one sequence and head against the keys of its causal band, or against the
 // key tiles of a list. The callers differ only in where a tile's sequence
 // starts, how long it is, how its K/V rows are found (a row stride, or a
 // page table) and which key tiles it walks, so the same tile gives the same
-// bits in each. The dense forward (B1) and the B6 forward run the wgmma/TMA
-// tile of fwd_sm90.cuh instead.
+// bits in each. The dense forward (B1) and the packed-varlen forwards (B6,
+// B7) run the wgmma/TMA tile of fwd_sm90.cuh instead.
 //
 // Q stays in registers as mma fragments for the whole loop; 64-key K/V tiles
 // arrive with cp.async into XOR-swizzled shared memory so the ldmatrix reads

@@ -1,7 +1,8 @@
-// Hopper building blocks of the dense attention backward (csrc/flash_bwd.cu)
-// and of the forward tile (csrc/fwd_sm90.cuh): mbarriers, TMA tile loads and
-// bulk copies, wgmma with its shared-memory descriptors, and the layout of a
-// tile in shared memory.
+// Hopper building blocks of the dense attention backward (csrc/flash_bwd.cu),
+// the forward tile (csrc/fwd_sm90.cuh) and the MLA paged prefill
+// (csrc/flash_paged_prefill.cu): mbarriers, TMA tile loads and bulk copies,
+// wgmma with its shared-memory descriptors, the layout of a tile in shared
+// memory, and the host-side encoding of the TMA tensor maps.
 //
 // Tile layout. A tile of R rows by D columns (D = 64 or 128 elements of 2
 // bytes) is stored as D / 64 panels of 64 columns; a panel is R rows of 128
@@ -27,6 +28,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include <type_traits>
 
@@ -57,6 +59,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
       : "memory");
 }
 
+// One plain arrival.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
 // Spin until the phase of parity `parity` has completed. A phase that does
 // not complete within about 10 s (a copy that was never issued) traps, so
 // that the launch fails instead of holding the card.
@@ -81,7 +88,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// 2^x on the special-function unit (subnormal results flush to 0).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- asynchronous copies ---------------------------------------------------
+
+// One box of a 3D tensor map (coordinates innermost first) into shared
+// memory; completion is counted on `bar` in bytes. Rows past the tensor's
+// end are zero-filled.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 
 // One box of a 4D tensor map (coordinates innermost first) into shared
 // memory; completion is counted on `bar` in bytes. Rows past the tensor's
@@ -174,7 +200,7 @@ __device__ __forceinline__ uint64_t desc_mn(const void* p, uint32_t group_bytes)
   "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x N, fp32) = A B + (scale_d ? d : 0), A and B from shared memory
-// (N = 64, the width of every shared-memory product here).
+// (N = 64, or 128 for the MLA prefill's P V).
 #define FA_WGMMA_SS(N, TY, REGS, ACC, IA, IB, ISC, ITA, ITB)                \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #ISC ", 0;\n"           \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
@@ -186,11 +212,20 @@ __device__ __forceinline__ uint64_t desc_mn(const void* p, uint32_t group_bytes)
 template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 64, "wgmma_ss: N");
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    FA_WGMMA_SS(64, "bf16", FA_R32, FA_ACC32(d, 0), 32, 33, 34, 35, 36);
+  static_assert(N == 64 || N == 128, "wgmma_ss: N");
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (N == 64) {
+    if constexpr (BF16) {
+      FA_WGMMA_SS(64, "bf16", FA_R32, FA_ACC32(d, 0), 32, 33, 34, 35, 36);
+    } else {
+      FA_WGMMA_SS(64, "f16", FA_R32, FA_ACC32(d, 0), 32, 33, 34, 35, 36);
+    }
   } else {
-    FA_WGMMA_SS(64, "f16", FA_R32, FA_ACC32(d, 0), 32, 33, 34, 35, 36);
+    if constexpr (BF16) {
+      FA_WGMMA_SS(128, "bf16", FA_R64, FA_ACC64(d), 64, 65, 66, 67, 68);
+    } else {
+      FA_WGMMA_SS(128, "f16", FA_R64, FA_ACC64(d), 64, 65, 66, 67, 68);
+    }
   }
 }
 
@@ -284,6 +319,51 @@ __device__ __forceinline__ int swz128(int row, int col) {
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   const uint32_t a = smem_addr(p);
   return p + (((a + 1023) & ~1023u) - a);
+}
+
+// ---- host side: TMA tensor maps --------------------------------------------
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// only the CUDA runtime is linked.
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// The tensor map of a RANK-dimensional operand of 2-byte elements whose
+// innermost dim (the head dim, `dims[0]` elements) is contiguous: `dims`
+// innermost first, `strides` the element strides of dims 1 .. RANK - 1.
+// Boxes of 64 columns by `rows` indices of dim 1 by `rows2` of dim 2 (RANK
+// >= 3) and one index of every outer dim, 128-byte swizzle, zero fill past
+// each dim's end.
+template <int RANK>
+cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, bool bf16,
+                          const int64_t (&dims)[RANK], const int64_t (&strides)[RANK - 1],
+                          int rows, int rows2 = 1) {
+  auto encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  cuuint64_t d[RANK], st[RANK - 1];
+  cuuint32_t box[RANK], elem[RANK];
+  for (int i = 0; i < RANK; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    box[i] = i == 0 ? 64 : i == 1 ? (cuuint32_t)rows : i == 2 ? (cuuint32_t)rows2 : 1;
+    elem[i] = 1;
+  }
+  for (int i = 0; i < RANK - 1; ++i) st[i] = (cuuint64_t)strides[i] * 2;
+  const CUresult r = encode(
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, RANK,
+      const_cast<void*>(ptr), d, st, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace sm90

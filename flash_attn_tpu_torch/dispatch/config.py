@@ -25,12 +25,14 @@ class FwdConfig:
 
 
 # Tile of csrc/fwd_sm90.cuh, the wgmma/TMA forward tile of the dense
-# forward (csrc/flash_fwd.cu, B1) and the packed-varlen forward
-# (csrc/flash_varlen_fwd.cu, B6): 128 query rows (two warpgroups of 64,
-# wgmma's M) by 64 keys. At head dim 128 the Q tile and two stages of K + V
-# take 97 KB of shared memory, and a thread keeps 64 fp32 accumulators of O
-# beside the 32 of S within 128 registers, so two blocks share an SM. The
-# kernels check that the wrapper passes the tile they were compiled for.
+# forward (csrc/flash_fwd.cu, B1) and the packed-varlen forwards
+# (csrc/flash_varlen_fwd.cu: B6 and the persistent B7): 128 query rows (two
+# warpgroups of 64, wgmma's M) by 64 keys. At head dim 128 the Q tile and two
+# stages of K + V take 97 KB of shared memory, and a thread keeps 64 fp32
+# accumulators of O beside the 32 of S within 128 registers, so two blocks
+# share an SM. get_scheduler_metadata builds its forward work list (the
+# schedule) for this tile. The kernels check that the wrapper passes the tile
+# they were compiled for.
 FWD_TILE = FwdConfig(block_q=128, block_k=64)
 
 
@@ -146,17 +148,12 @@ def decode_rows_per_block(d: int, dv: int, has_qv: bool) -> int:
 VARLEN_PAGED_TILE = FwdConfig(block_q=64, block_k=64)
 
 
-# Tile of the mma.sync forward loop of csrc/fwd_tile.cuh, which the
-# persistent varlen forward (B7, csrc/flash_varlen.cu), the varlen-paged
-# prefill (B8) and the block-sparse forward (B10) walk: 64 query rows (16
-# per warp of 4, the m16n8k16 tensor-core tile) by 64 keys.
-# get_scheduler_metadata builds its work lists for this tile, and
-# flash_attn_varlen_func (B7) takes them. The JAX kernels tile the flat
-# token axis with blocks of up to 512 rows (get_fwd_config) so that each
-# DMA is large and aligned; here a tile is 64 rows of one sequence, which
-# keeps the ragged edge of each sequence to one partial tile. The B6
-# backward runs the tiles of get_bwd_config.
-VARLEN_FWD_TILE = FwdConfig(block_q=64, block_k=64)
+# The backward work lists of packed varlen attention (csrc/flash_varlen.cu):
+# its dQ kernel walks 64-row query tiles and its dK/dV kernel 64-key tiles
+# (get_bwd_config), whatever the head dim. compute_varlen_meta builds them
+# (q_tiles, k_tiles) beside the forward's 128-row schedule (FWD_TILE), so
+# that one VarlenMeta serves flash_attn_varlen_func's forward and backward.
+VARLEN_BWD_TILE = FwdConfig(block_q=64, block_k=64)
 
 
 @functools.lru_cache(maxsize=None)

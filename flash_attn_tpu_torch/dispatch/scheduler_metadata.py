@@ -9,7 +9,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from flash_attn_tpu_torch.dispatch.config import (
-    VARLEN_FWD_TILE,
+    FWD_TILE,
+    VARLEN_BWD_TILE,
     normalize_window,
 )
 from flash_attn_tpu_torch.dispatch.varlen_meta import (
@@ -69,12 +70,14 @@ def get_scheduler_metadata(
         cu_seqlens_k = torch.arange(batch_size + 1, dtype=torch.int32,
                                     device=cu_seqlens_q.device) * max_seqlen_k
     total_q, total_k = batch_size * max_seqlen_q, batch_size * max_seqlen_k
-    bq, bk = VARLEN_FWD_TILE.block_q, VARLEN_FWD_TILE.block_k
+    bq, bk = FWD_TILE.block_q, FWD_TILE.block_k
     meta = compute_varlen_meta(
         cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, total_q,
         total_k, causal=causal, seqused_q=seqused_q, seqused_k=seqused_k,
-        block_q=bq, block_k=bk)
+        block_q=VARLEN_BWD_TILE.block_q, block_k=VARLEN_BWD_TILE.block_k,
+        schedule_block_q=bq)
     return SchedulerMetadata(
         meta=meta, block_q=bq, block_k=bk,
         num_q_tiles=num_tiles_bound(batch_size, max_seqlen_q, total_q, bq),
-        num_k_tiles=num_tiles_bound(batch_size, max_seqlen_k, total_k, bk))
+        num_k_tiles=num_tiles_bound(batch_size, max_seqlen_k, total_k,
+                                    VARLEN_BWD_TILE.block_k))

@@ -9,9 +9,12 @@ the packed token axis with aligned blocks and rebuild sequences from the
 segment ids, while on Hopper each tile belongs to one sequence. The kernels
 take work lists of per-sequence tile origins instead:
 
-  - ``q_tiles``: (sequence, first local row) of every 64-row query tile;
-  - ``k_tiles``: (sequence, first local key) of every 64-key tile (dK/dV);
-  - ``schedule``: ``q_tiles`` ordered longest KV band first, the persistent
+  - ``q_tiles``: (sequence, first local row) of every ``block_q``-row query
+    tile (dQ);
+  - ``k_tiles``: (sequence, first local key) of every ``block_k``-key tile
+    (dK/dV);
+  - ``schedule``: the query tiles of ``schedule_block_q`` rows (``block_q``
+    unless given; the forwards' 128) ordered longest KV band first, the
     forward's work list.
 
 Each list is sized by a static bound (``num_tiles_bound``), with sequence -1
@@ -120,11 +123,14 @@ def compute_varlen_meta(
     seqused_k=None,
     block_q: int = 64,
     block_k: int = 64,
+    schedule_block_q: Optional[int] = None,
     device: Optional[torch.device] = None,
 ) -> VarlenMeta:
     """The per-token vectors and the work lists of packed sequences, on
     ``device`` (cu_seqlens_q's by default). ``max_seqlen_q/k`` must bound
-    the sequences' lengths: they size the work lists."""
+    the sequences' lengths: they size the work lists. The schedule's tiles
+    have ``schedule_block_q`` rows (``block_q`` when None); its bands count
+    ``block_k``-key tiles."""
     device = device or cu_seqlens_q.device
     cu_q = cu_seqlens_q.to(device, torch.int32)
     cu_k = cu_seqlens_k.to(device, torch.int32)
@@ -146,11 +152,14 @@ def compute_varlen_meta(
         lens_q, num_tiles_bound(b, max_seqlen_q, total_q, block_q), block_q)
     k_tiles = varlen_tiles(
         lens_k, num_tiles_bound(b, max_seqlen_k, total_k, block_k), block_k)
-    band = _band_tiles(q_tiles, lens_q, lens_k, block_q, block_k, causal)
+    bq_s = schedule_block_q or block_q
+    s_tiles = q_tiles if bq_s == block_q else varlen_tiles(
+        lens_q, num_tiles_bound(b, max_seqlen_q, total_q, bq_s), bq_s)
+    band = _band_tiles(s_tiles, lens_q, lens_k, bq_s, block_k, causal)
     order = torch.sort(band, descending=True, stable=True).indices
     return VarlenMeta(
         seg_q=seg_q, pos_q=pos_q.to(torch.int32), seg_k=seg_k,
         pos_k=pos_k.to(torch.int32), sq_of_q=sq_of_q.to(torch.int32),
         sk_of_q=sk_of_q.to(torch.int32), lens_q=lens_q, lens_k=lens_k,
         q_tiles=q_tiles, k_tiles=k_tiles,
-        schedule=q_tiles[order].contiguous())
+        schedule=s_tiles[order].contiguous())

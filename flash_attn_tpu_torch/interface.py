@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from flash_attn_tpu_torch.dispatch.config import (
-    VARLEN_FWD_TILE,
+    FWD_TILE,
     normalize_window,
 )
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
@@ -300,11 +300,11 @@ def flash_attn_varlen_func(
     meta = None
     if scheduler_metadata is not None:
         if (scheduler_metadata.block_q, scheduler_metadata.block_k) != (
-                VARLEN_FWD_TILE.block_q, VARLEN_FWD_TILE.block_k):
+                FWD_TILE.block_q, FWD_TILE.block_k):
             raise ValueError(
                 "flash_attn_varlen_func: scheduler_metadata tiles "
                 f"{scheduler_metadata.block_q} x {scheduler_metadata.block_k}"
-                f", the kernels' are {VARLEN_FWD_TILE}")
+                f", the forward's are {FWD_TILE}")
         meta = scheduler_metadata.meta
         away = [name for name, t in meta._asdict().items()
                 if t.device != q.device]

@@ -12,7 +12,8 @@ width dv may differ from d. Rows at or past seqused_q give zeros and lse
 -inf. The JAX function pads d and dv to 128 lanes and batch-chunks its page
 table for the TPU compiler; neither is needed here.
 
-The kernel reads q, qv and out in the packed layout of
+The kernel (wgmma and TMA page copies, csrc/flash_paged_prefill.cu) reads
+q, qv and out in the packed layout of
 ``flash_attn_varlen_func`` through a start row per sequence, so
 :func:`flash_attention_paged_prefill_varlen` serves the varlen entry point
 without padding, and the dense signature views its batch as packed rows.
@@ -80,6 +81,14 @@ def flash_attention_paged_prefill_plain(
     return out, lse.reshape(b, h, sq_max)
 
 
+def prefill_row_tiles(max_rows_q: int, group: int) -> int:
+    """Row tiles of the kernel's grid for chunks of at most ``max_rows_q``
+    positions at ``group`` query heads a KV head: a tile is PB positions by
+    GB heads, GB = gcd(group, 64) and PB = 64 / GB."""
+    gb = math.gcd(group, MLA_TILE.block_q)
+    return -(-max_rows_q // (MLA_TILE.block_q // gb)) * (group // gb)
+
+
 def _launch(q, qv, k_cache, v_cache, starts, lens_q, lens_k, block_table,
             max_rows_q: int, softmax_scale: float, causal: bool, out, lse):
     """The kernel over packed q (total, h, d), qv (total, h, dv): sequence
@@ -98,7 +107,7 @@ def _launch(q, qv, k_cache, v_cache, starts, lens_q, lens_k, block_table,
             f"flash_paged_prefill kernel: (d, dv, qv) = ({d}, {dv}, "
             f"{qv is not None}) is not ported yet; it takes "
             f"{PAGED_PREFILL_DIMS} (ROADMAP.md queue A, item 7)")
-    row_tiles = -(-max_rows_q * (h // max(h_k, 1)) // MLA_TILE.block_q)
+    row_tiles = prefill_row_tiles(max_rows_q, h // max(h_k, 1))
     if (dk != d or h % h_k or v_cache.shape[:-1] != k_cache.shape[:-1]
             or block_table.shape[0] != b or b * h_k > 2**31 - 1
             or row_tiles > 65535
@@ -126,7 +135,7 @@ def _launch(q, qv, k_cache, v_cache, starts, lens_q, lens_k, block_table,
             q.data_ptr(), qv.data_ptr() if qv is not None else None,
             k_cache.data_ptr(), v_cache.data_ptr(), starts.data_ptr(),
             lens_q.data_ptr(), lens_k.data_ptr(), table.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, row_tiles, h, h_k, d, dv,
+            out.data_ptr(), lse.data_ptr(), b, total, row_tiles, h, h_k, d, dv,
             int(qv is not None), page_size, table.shape[1], num_pages,
             q.stride(0), q.stride(1), qvs[0], qvs[1],
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),

@@ -1,7 +1,8 @@
 """Packed varlen attention, forward (B6) and backward: the CUDA kernels of
 ``csrc/flash_varlen_fwd.cu`` (the wgmma/TMA forward tile of
-csrc/fwd_sm90.cuh) and ``csrc/flash_varlen.cu`` (the backward), and their
-plain PyTorch versions.
+csrc/fwd_sm90.cuh, which the persistent B7 of flash_varlen_persistent.py
+runs too) and ``csrc/flash_varlen.cu`` (the backward), and their plain
+PyTorch versions.
 
 Port of flash_attn_tpu/kernels/flash_varlen.py ``flash_attention_varlen_fwd``
 (:285) and ``flash_attention_varlen_bwd`` (:807): q (total_q, h, d) and k/v
@@ -11,8 +12,9 @@ sequence. Rows that see no key, rows past a sequence's length and rows past
 ``cu_seqlens[-1]`` give out 0 and lse -inf, and zero gradients. The JAX
 kernels tile the flat token axis and mask by segment ids; here the wrapper
 builds per-sequence work lists with torch ops (dispatch/varlen_meta.py), so
-nothing is read back to the host: tiles of 128 rows (FWD_TILE) for the
-forward, of 64 for the backward. delta = rowsum(dO * O) stays a torch op,
+nothing is read back to the host: one VarlenMeta holds the forward's
+schedule of 128-row tiles (FWD_TILE) and the backward's 64-row and 64-key
+lists (VARLEN_BWD_TILE). delta = rowsum(dO * O) stays a torch op,
 as it was an XLA op in JAX. A tensor on the CPU takes the plain version; a
 CUDA tensor launches the kernels or raises.
 """
@@ -26,7 +28,7 @@ import torch
 from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     KERNEL_HEAD_DIMS,
-    VARLEN_FWD_TILE,
+    VARLEN_BWD_TILE,
     get_bwd_config,
     num_sms,
 )
@@ -129,16 +131,41 @@ def check_kernel_inputs(name: str, q, k, v, cu_seqlens_q, cu_seqlens_k):
 
 
 def varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
-                seqused_q, seqused_k, causal, meta, tile=VARLEN_FWD_TILE):
+                seqused_q, seqused_k, causal, meta):
     """``meta`` if given (get_scheduler_metadata), else the work lists of
-    this call, on q's device, its query tiles and its schedule's bands of
-    ``tile`` (64 x 64: B7's, and the backward's)."""
+    this call on q's device: the forward's schedule of FWD_TILE's 128-row
+    tiles, and the backward's lists of VARLEN_BWD_TILE."""
     if meta is not None:
         return meta
     return compute_varlen_meta(
         cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, q.shape[0],
         k.shape[0], causal=causal, seqused_q=seqused_q, seqused_k=seqused_k,
-        block_q=tile.block_q, block_k=tile.block_k, device=q.device)
+        block_q=VARLEN_BWD_TILE.block_q, block_k=VARLEN_BWD_TILE.block_k,
+        schedule_block_q=FWD_TILE.block_q, device=q.device)
+
+
+def check_meta(name: str, meta, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+               max_seqlen_k, total_q: int, total_k: int, backward: bool):
+    """Raise ValueError unless ``meta``'s lists have the lengths of the
+    kernels' tiles: the forward's schedule of FWD_TILE rows, or the
+    backward's VARLEN_BWD_TILE lists, bounded over this call's packed rows
+    or over b x max_seqlen of them (get_scheduler_metadata's)."""
+    b = cu_seqlens_q.numel() - 1
+    if backward:
+        want = {"q_tiles": (VARLEN_BWD_TILE.block_q, max_seqlen_q, total_q),
+                "k_tiles": (VARLEN_BWD_TILE.block_k, max_seqlen_k, total_k)}
+    else:
+        want = {"schedule": (FWD_TILE.block_q, max_seqlen_q, total_q)}
+    for field, (block, max_seqlen, total) in want.items():
+        n = getattr(meta, field).shape[0]
+        if n not in (num_tiles_bound(b, max_seqlen, total, block),
+                     num_tiles_bound(b, max_seqlen, b * max_seqlen, block)):
+            raise ValueError(
+                f"{name}: meta.{field} holds {n} tiles, not the kernels' "
+                f"{block}-row ones (build it with get_scheduler_metadata, or "
+                f"compute_varlen_meta(block_q={VARLEN_BWD_TILE.block_q}, "
+                f"block_k={VARLEN_BWD_TILE.block_k}, schedule_block_q="
+                f"{FWD_TILE.block_q}))")
 
 
 def _as_int32(x, device):
@@ -146,40 +173,38 @@ def _as_int32(x, device):
 
 
 def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
-               causal: bool, persistent: bool):
+               causal: bool, persistent: bool = False):
     """Allocate out (zeros) and lse (-inf) and launch, over the sorted work
-    list ``meta.schedule``, fa_varlen_fwd (B6: tiles of FWD_TILE) or,
-    ``persistent``, fa_varlen_fwd_persistent (B7: tiles of
-    VARLEN_FWD_TILE). Returns (out, lse, grid), grid 0 for the former."""
+    list ``meta.schedule`` of FWD_TILE rows, fa_varlen_fwd (B6) or, with
+    ``persistent``, fa_varlen_fwd_persistent (B7). Returns (out, lse,
+    grid), grid 0 for the former."""
     total_q, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     out = torch.zeros((total_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
                      device=q.device)
-    tile = VARLEN_FWD_TILE if persistent else FWD_TILE
     tiles = meta.schedule
     cu_q, cu_k, lens_q, lens_k = (_as_int32(x, q.device) for x in (
         cu_seqlens_q, cu_seqlens_k, meta.lens_q, meta.lens_k))
-    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), cu_q.data_ptr(), cu_k.data_ptr(),
             lens_q.data_ptr(), lens_k.data_ptr(), tiles.data_ptr(),
-            tiles.shape[0], total_q]
-    tail = [h, k.shape[1], d, tile.block_q, tile.block_k,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-            scale, int(causal), int(q.dtype == torch.bfloat16)]
+            tiles.shape[0], total_q, k.shape[0], h, k.shape[1], d,
+            FWD_TILE.block_q, FWD_TILE.block_k, q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            out.stride(0), out.stride(1), scale, int(causal),
+            int(q.dtype == torch.bfloat16)]
     lib = _build.load_library()
     grid = ctypes.c_int(0)
+    name = "fa_varlen_fwd_persistent" if persistent else "fa_varlen_fwd"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if persistent:
             err = lib.fa_varlen_fwd_persistent(
-                *head, *tail, num_sms(q.device.index), ctypes.byref(grid),
-                stream)
+                *args, num_sms(q.device.index), ctypes.byref(grid), stream)
         else:
-            err = lib.fa_varlen_fwd(*head, k.shape[0], *tail, stream)
-    _build.check(err, "fa_varlen_fwd_persistent" if persistent
-                 else "fa_varlen_fwd")
+            err = lib.fa_varlen_fwd(*args, stream)
+    _build.check(err, name)
     return out, lse, grid.value
 
 
@@ -190,9 +215,9 @@ def flash_attention_varlen_fwd(
         meta=None):
     """q (total_q, h, d), k/v (total_k, h_k, d) packed by cu_seqlens_q/k
     (b + 1,); seqused_q/k (b,) true lengths or None; ``max_seqlen_q/k``
-    bound the sequences' lengths; ``meta`` a precomputed VarlenMeta of
-    ``compute_varlen_meta(block_q=FWD_TILE.block_q)`` (the kernel's 128-row
-    tiles). Returns (out (total_q, h, d) in q's type, lse (h, total_q)
+    bound the sequences' lengths; ``meta`` a precomputed VarlenMeta whose
+    schedule has the kernel's 128-row tiles (FWD_TILE; get_scheduler_metadata
+    builds one). Returns (out (total_q, h, d) in q's type, lse (h, total_q)
     fp32). CUDA: one block per (128-row q tile, head), the longest KV bands
     first."""
     if q.device.type == "cpu":
@@ -202,21 +227,16 @@ def flash_attention_varlen_fwd(
     check_kernel_inputs("flash_varlen_fwd", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
     if meta is not None:
-        want = num_tiles_bound(cu_seqlens_q.numel() - 1, max_seqlen_q,
-                               q.shape[0], FWD_TILE.block_q)
-        if meta.schedule.shape[0] != want:
-            raise ValueError(
-                f"flash_varlen_fwd: meta holds {meta.schedule.shape[0]} "
-                f"tiles; the kernel takes the {want} of compute_varlen_meta("
-                f"block_q={FWD_TILE.block_q})")
+        check_meta("flash_varlen_fwd", meta, cu_seqlens_q, cu_seqlens_k,
+                   max_seqlen_q, max_seqlen_k, q.shape[0], k.shape[0],
+                   backward=False)
     if q.shape[0] == 0 or k.shape[0] == 0:  # no row sees a key
         return (torch.zeros_like(q), torch.full(
             (q.shape[1], q.shape[0]), float("-inf"), device=q.device))
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
-                       max_seqlen_k, seqused_q, seqused_k, causal, meta,
-                       tile=FWD_TILE)
+                       max_seqlen_k, seqused_q, seqused_k, causal, meta)
     out, lse, _ = launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta,
-                             softmax_scale, causal, persistent=False)
+                             softmax_scale, causal)
     global launches_fwd
     launches_fwd += 1
     return out, lse
@@ -247,6 +267,10 @@ def flash_attention_varlen_bwd(
             f"flash_varlen_bwd kernel: shapes q {tuple(q.shape)}, do "
             f"{tuple(do.shape)}, out {tuple(out.shape)}, lse {tuple(lse.shape)}")
     _build.check_operand("flash_varlen_bwd", "do", do, q.dtype, q.device)
+    if meta is not None:
+        check_meta("flash_varlen_bwd", meta, cu_seqlens_q, cu_seqlens_k,
+                   max_seqlen_q, max_seqlen_k, total_q, total_k,
+                   backward=True)
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                        max_seqlen_k, seqused_q, seqused_k, causal, meta)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale

@@ -3,6 +3,7 @@ imports, what it refuses, and, on a CUDA card, each kernel against its
 plain version (this file imports no JAX, so that these run on the card:
 ``python3 -m pytest --noconftest tests/test_torch_package.py``)."""
 
+import itertools
 import math
 import re
 import subprocess
@@ -228,11 +229,12 @@ def test_dense_backward_sources_use_wgmma_and_tma():
     assert "bwd_tile.cuh" not in text
 
 
-@pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_varlen_fwd.cu"])
+@pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_varlen_fwd.cu",
+                                    "flash_paged_prefill.cu"])
 def test_forward_sources_use_wgmma_and_tma(source):
-    """B1 and B6's forward (with the headers they include) run both products
-    on wgmma and load their tiles by TMA; neither includes the mma.sync
-    tile loop of fwd_tile.cuh."""
+    """B1, B6's forward and B7, and B8p (with the headers they include) run
+    both products on wgmma and load their tiles by TMA; none includes the
+    mma.sync tile loop of fwd_tile.cuh."""
     text = _included_sources(PKG / "csrc" / source)
     assert "wgmma.mma_async" in text
     assert "cp.async.bulk.tensor" in text
@@ -240,29 +242,56 @@ def test_forward_sources_use_wgmma_and_tma(source):
                                             re.MULTILINE)
 
 
-@pytest.mark.parametrize("source", ["flash_varlen.cu", "flash_varlen_paged.cu",
-                                    "flash_blocksparse.cu"])
-def test_old_forward_tile_still_serves_b7_b8_and_b10(source):
-    """B7 (flash_varlen.cu), B8 and the block-sparse forward keep the
-    mma.sync tile loop of fwd_tile.cuh."""
+@pytest.mark.parametrize("source, header", [
+    ("flash_varlen_fwd.cu", "fwd_sm90.cuh"),
+    ("flash_varlen_paged.cu", "fwd_tile.cuh"),
+    ("flash_blocksparse.cu", "fwd_tile.cuh")])
+def test_old_forward_tile_still_serves_b7_b8_and_b10(source, header):
+    """B7 now sits beside B6's forward on the wgmma tile of fwd_sm90.cuh;
+    B8 and the block-sparse forward keep the mma.sync tile loop of
+    fwd_tile.cuh."""
     text = (PKG / "csrc" / source).read_text()
-    assert "fwd_tile.cuh" in re.findall(r'^#include "([^"]+)"', text,
-                                        re.MULTILINE)
+    assert header in re.findall(r'^#include "([^"]+)"', text, re.MULTILINE)
+    if source == "flash_varlen_fwd.cu":
+        assert "varlen_fwd_persistent_kernel" in text
+        assert "fa_varlen_fwd_persistent" not in (
+            PKG / "csrc" / "flash_varlen.cu").read_text()
+
+
+def test_paged_prefill_no_longer_includes_the_mla_tile():
+    """B8p runs its own wgmma loop; the MLA decode route keeps the
+    mma.sync loop of mla_tile.cuh."""
+    def includes(source):
+        return re.findall(r'^#include "([^"]+)"',
+                          (PKG / "csrc" / source).read_text(), re.MULTILINE)
+
+    assert "mla_tile.cuh" not in includes("flash_paged_prefill.cu")
+    assert "mla_tile.cuh" in includes("flash_decode_mla.cu")
+
+
+def test_host_tensor_map_helpers_have_one_copy():
+    """The driver's tensor-map encoder is looked up, and a tile map built,
+    in csrc/sm90.cuh alone."""
+    for needle in ("cudaGetDriverEntryPoint(", "cudaError_t make_tile_map("):
+        holders = [f.name for f in sorted((PKG / "csrc").iterdir())
+                   if f.suffix in (".cu", ".cuh") and needle in f.read_text()]
+        assert holders == ["sm90.cuh"], (needle, holders)
 
 
 def test_forward_tiles_in_the_config():
-    """FWD_TILE is the wgmma tile of B1 and B6's forward (128 rows by 64
-    keys); VARLEN_FWD_TILE and get_scheduler_metadata's work lists stay on
-    the 64 x 64 tile of fwd_tile.cuh that B7 walks."""
+    """FWD_TILE is the wgmma tile of B1, B6's forward and B7 (128 rows by 64
+    keys), and get_scheduler_metadata builds its schedule for it; the
+    backward's lists stay on VARLEN_BWD_TILE's 64-row and 64-key tiles."""
     from flash_attn_tpu_torch import get_scheduler_metadata
-    from flash_attn_tpu_torch.dispatch.config import FWD_TILE, VARLEN_FWD_TILE
+    from flash_attn_tpu_torch.dispatch.config import FWD_TILE, VARLEN_BWD_TILE
 
     assert (FWD_TILE.block_q, FWD_TILE.block_k) == (128, 64)
-    assert (VARLEN_FWD_TILE.block_q, VARLEN_FWD_TILE.block_k) == (64, 64)
+    assert (VARLEN_BWD_TILE.block_q, VARLEN_BWD_TILE.block_k) == (64, 64)
     md = get_scheduler_metadata(3, 200, 200, 4, 2, 64, causal=True,
                                 device="cpu")
-    assert (md.block_q, md.block_k) == (64, 64)
-    assert md.num_q_tiles == 3 * 4 and md.meta.q_tiles.shape[0] == 12
+    assert (md.block_q, md.block_k) == (128, 64)
+    assert md.num_q_tiles == 3 * 2 and md.meta.schedule.shape[0] == 6
+    assert md.meta.q_tiles.shape[0] == 12 and md.num_k_tiles == 12
 
 
 # Edge shapes of the dense backward's tiles (b, sq, sk, h, h_k, d, causal,
@@ -551,6 +580,130 @@ def test_varlen_kernels_match_plain_versions_on_the_card(causal, d):
     again = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse,
                                                     *args, causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_persistent_varlen_forward_equals_b6_on_the_card(causal, d):
+    """B7 against B6's forward bit for bit (two Q tiles a block at d = 64,
+    one at 128), over a work list of more than 3 x its grid's items (so that blocks walk three
+    or more items): lengths 1, 127, 129 and 0, seqused_q/k, GQA 16/4, a
+    packed tail; and against its plain version at B6's tolerance, twice
+    bitwise."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.kernels import (
+        flash_varlen,
+        flash_varlen_persistent,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(d + causal)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    lens_q = [1, 127, 129, 0, 700] + [300, 520, 64, 1000] * 3
+    lens_k = [1, 129, 127, 40, 700] + [300, 300, 900, 1000] * 3
+    used_q = list(lens_q)
+    used_q[4] = 650
+    used_k = list(lens_k)
+    used_k[5] = 250
+    cu_q, cu_k = (torch.tensor(np.concatenate([[0], np.cumsum(x)]),
+                               dtype=torch.int32, device="cuda")
+                  for x in (lens_q, lens_k))
+    used_q, used_k = (torch.tensor(x, dtype=torch.int32, device="cuda")
+                      for x in (used_q, used_k))
+    h, h_k = 16, 4
+    q = randn(int(cu_q[-1]) + 5, h, d)
+    k, v = randn(int(cu_k[-1]), h_k, d), randn(int(cu_k[-1]), h_k, d)
+    args = (cu_q, cu_k, max(lens_q), max(lens_k), used_q, used_k)
+    b6 = flash_varlen.flash_attention_varlen_fwd(q, k, v, *args,
+                                                 causal=causal)
+    b7 = flash_varlen_persistent.flash_attention_varlen_fwd_persistent(
+        q, k, v, *args, causal=causal)
+    grid = flash_varlen_persistent.last_grid
+    live = sum(-(-u // 128) for u in used_q.tolist()) * h
+    assert live > 3 * grid, (live, grid)
+    assert torch.equal(b7[0], b6[0]) and torch.equal(b7[1], b6[1])
+    again = flash_varlen_persistent.flash_attention_varlen_fwd_persistent(
+        q, k, v, *args, causal=causal)
+    assert torch.equal(again[0], b7[0]) and torch.equal(again[1], b7[1])
+    ref, ref_lse = flash_varlen_persistent.flash_attention_varlen_fwd_persistent_plain(
+        q, k, v, *args, causal=causal)
+    torch.testing.assert_close(b7[0].float(), ref.float(), atol=2e-2, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(b7[1]), fin)
+    torch.testing.assert_close(b7[1][fin], ref_lse[fin], atol=1e-4, rtol=0)
+
+
+# B8p edge cases (h, h_k, d, dv, page, chunk rows, seqused_q, cached keys
+# before the chunk, causal, dtype): pages of 16, 64 and 256 (and 4, under a
+# box of 4 rows), a one-row chunk, rows past seqused_q, GQA 8/2 whose tiles
+# span 16 positions, a chunk that starts mid-page, non-causal.
+PAGED_PREFILL_EDGE_CASES = [
+    (128, 1, 64, 512, 16, [1, 77, 200], [1, 60, 200], [500, 0, 300], True,
+     torch.bfloat16),
+    (128, 1, 64, 512, 64, [130, 3], [100, 3], [37, 64], True,
+     torch.bfloat16),
+    (128, 1, 64, 512, 256, [1, 256], [1, 256], [511, 100], False,
+     torch.bfloat16),
+    (8, 2, 64, 128, 64, [100, 37, 1], [90, 37, 1], [200, 5, 0], True,
+     torch.float16),
+    (16, 2, 128, 128, 16, [64, 130], [64, 129], [100, 0], True,
+     torch.bfloat16),
+    (8, 2, 128, 128, 4, [50, 9], [50, 9], [13, 70], True, torch.bfloat16),
+]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", PAGED_PREFILL_EDGE_CASES)
+def test_paged_prefill_edge_cases_on_the_card(case):
+    """B8p over packed rows against its plain version: every form, pages of
+    4 to 256, a one-row chunk, seqused_q below the chunk, GQA tiles that span
+    positions, and NaN in every page slot the sequences do not reference
+    (past cache_seqlens, and the pages the table points past), which must
+    not reach the output; the kernel gives the same bits twice."""
+    from flash_attn_tpu_torch.kernels import flash_paged_prefill as fpp
+
+    h, h_k, d, dv, page, chunk, used, cached, causal, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(len(chunk) + page)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    lens_k = [c + u for c, u in zip(cached, used)]
+    width = max(-(-(c + n) // page) for c, n in zip(cached, chunk)) + 2
+    num_pages = len(chunk) * width + 1
+    table = torch.randperm(num_pages - 1, device="cuda", generator=gen)[
+        :len(chunk) * width].reshape(len(chunk), width).to(torch.int32)
+    kp, vp = randn(num_pages, h_k, page, d), randn(num_pages, h_k, page, dv)
+    valid = torch.zeros(num_pages, page, dtype=torch.bool, device="cuda")
+    for s, n in enumerate(lens_k):
+        for key in range(n):
+            valid[table[s, key // page], key % page] = True
+    hole = ~valid[:, None, :, None]
+    kp, vp = (torch.where(hole, float("nan"), x) for x in (kp, vp))
+    table[:, -1] = num_pages - 1  # a page no sequence's keys reach
+    cu = torch.tensor([0] + list(itertools.accumulate(chunk)),
+                      dtype=torch.int32, device="cuda")
+    q, qv = randn(int(cu[-1]), h, d), randn(int(cu[-1]), h, dv)
+    seqused = torch.tensor(used, dtype=torch.int32, device="cuda")
+    seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    args = (q, kp, vp, cu, max(chunk), seqlens_k, table)
+    kw = dict(seqused_q=seqused, qv=qv, causal=causal)
+    out, lse = fpp.flash_attention_paged_prefill_varlen(*args, **kw)
+    again = fpp.flash_attention_paged_prefill_varlen(*args, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert bool(torch.isfinite(out).all())
+    kp_f, vp_f = (torch.nan_to_num(x) for x in (kp, vp))
+    ref, ref_lse = fpp.flash_attention_paged_prefill_varlen_plain(
+        q, kp_f, vp_f, cu, max(chunk), seqlens_k, table, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
 
 
 @pytest.mark.usefixtures("cuda_card")

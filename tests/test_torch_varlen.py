@@ -26,6 +26,9 @@ from flash_attn_tpu.dispatch.scheduler_metadata import (
 from flash_attn_tpu.dispatch.varlen_meta import (
     compute_varlen_meta as jax_compute_varlen_meta,
 )
+from flash_attn_tpu.kernels.flash_varlen_persistent import (
+    flash_attention_varlen_fwd_persistent as jax_varlen_fwd_persistent,
+)
 from flash_attn_tpu.modules.mha import MHA as JaxMHA
 from flash_attn_tpu.ops.rotary import apply_rotary_emb as jax_apply_rotary_emb
 from flash_attn_tpu.utils import padding as jax_padding
@@ -348,7 +351,8 @@ def test_scheduler_metadata_matches_jax_and_gives_the_same_result():
     for name in ("seg_q", "pos_q", "sq_of_q", "sk_of_q"):
         np.testing.assert_array_equal(getattr(md.meta, name).numpy(),
                                       np.asarray(getattr(jmd.meta, name))[:n])
-    assert (md.block_q, md.block_k) == (64, 64)
+    assert (md.block_q, md.block_k) == (128, 64)
+    assert md.meta.schedule.shape[0] == md.num_q_tiles
     args = (_t(cu_q), _t(cu_k), mq, mk)
     qt, kt, vt = _t(q[:n]), _t(k[:n]), _t(v[:n])
     with_md = flash_attn_varlen_func(qt, kt, vt, *args, causal=causal,
@@ -381,6 +385,43 @@ def test_scheduler_metadata_device_is_explicit():
     with pytest.raises(ValueError, match="q_tiles"):
         flash_attn_varlen_func(q, k, v, cu, cu, 32, 32, causal=True,
                                scheduler_metadata=away)
+
+
+# (name, lens_q, lens_k, seqused_q, seqused_k, tail rows, h, h_k, d,
+# causal) of B7's 128-row schedule: several items a sequence (up to 5),
+# seqused_q/k below the slots, a zero-length sequence and a packed tail.
+PERSISTENT_CASES = [
+    ("several_items", [600, 0, 129, 300], [600, 40, 200, 257],
+     [560, 0, 129, 257], [600, 40, 150, 257], 11, 2, 1, 64, True),
+    ("several_items_noncausal", [300, 130, 1], None, [300, 100, 1],
+     [260, 130, 1], 7, 2, 2, 64, False),
+]
+
+
+@pytest.mark.parametrize("case", PERSISTENT_CASES,
+                         ids=[c[0] for c in PERSISTENT_CASES])
+def test_persistent_plain_matches_jax_persistent(case):
+    """B7's plain version, walking the 128-row schedule item by item,
+    against JAX's persistent kernel (interpret mode) on the same inputs, in
+    fp32 (TOL: the two differ in summation order only); rows past seqused
+    and in the packed tail are zeros and -inf on both sides."""
+    (q, k, v, _), (cu_q, cu_k, mq, mk), extra, causal = _case_inputs(case, 4)
+    meta = compute_varlen_meta(
+        _t(cu_q), _t(cu_k), mq, mk, q.shape[0], k.shape[0], causal=causal,
+        seqused_q=_t(extra["seqused_q"]), seqused_k=_t(extra["seqused_k"]),
+        schedule_block_q=128)
+    assert meta.schedule.shape[0] > len(cu_q)  # several items a sequence
+    out_t, lse_t = flash_varlen_persistent.flash_attention_varlen_fwd_persistent_plain(
+        _t(q), _t(k), _t(v), _t(cu_q), _t(cu_k), mq, mk,
+        _t(extra["seqused_q"]), _t(extra["seqused_k"]), causal=causal,
+        meta=meta)
+    out_j, lse_j = jax_varlen_fwd_persistent(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(cu_q),
+        jnp.asarray(cu_k), mq, mk, seqused_q=jnp.asarray(extra["seqused_q"]),
+        seqused_k=jnp.asarray(extra["seqused_k"]), causal=causal,
+        interpret=True)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    _assert_lse(lse_t, lse_j)
 
 
 @pytest.mark.parametrize("causal", [False, True])

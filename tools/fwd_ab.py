@@ -1,5 +1,5 @@
-"""Device time of the attention forward kernels (B1 and B6's forward), for
-comparing trees of the port on one card.
+"""Device time of the attention forward kernels (B1, B6's forward and B7),
+for comparing trees of the port on one card.
 
     python3 tools/fwd_ab.py ROOT [ROOT ...]
 
@@ -7,14 +7,19 @@ For each ROOT (a directory holding a ``flash_attn_tpu_torch`` package, such
 as an unpacked archive of another commit), in a fresh process each, it
 builds that tree's kernels, checks B1 against the plain fp32 forward at the
 static prefill's shape (b=8 x 512) and the training shape (b=4 x 2048), both
-h=16, d=128, causal, bf16, and B6's forward at bench.py's mixed lengths (16
-causal sequences of U[2048, 4096], seed 0), then prints the device ms a
-call of each (CUDA events over a held stream, median of 25) beside B7 over
-the same rows packed (the mma.sync tile of fwd_tile.cuh) and
-scaled_dot_product_attention, twice. Give the roots in turns (A B B A) to
-compare two trees on the card they share.
+h=16, d=128, causal, bf16, and prints the device ms a call (CUDA events over
+a held stream, median of 25) beside scaled_dot_product_attention. Then, at
+BERT-large's packing (32 sequences of U[256, 512], seed 5, 16 heads of 64,
+not causal, the packed tail of 32 x 512 rows) and bench.py's mixed lengths
+(16 causal sequences of U[2048, 4096], seed 0, 16 heads of 128), it times
+B6's forward (one block per item) and B7 (the persistent walk over the same
+list, built beforehand by get_scheduler_metadata), and prints max |B6 - B7|.
+Each round runs twice. Give the roots in turns (A B B A) to compare two
+trees on the card they share; a variant of a kernel (another Q buffering of
+B7, say) is timed as a tree of its own.
 """
 
+import inspect
 import statistics
 import subprocess
 import sys
@@ -48,9 +53,17 @@ def time_ms(fn, runs: int = 25, batch: int = 5) -> float:
     return statistics.median(times)
 
 
+VARLEN = [  # (name, lengths, packed tail rows, h, d, causal)
+    ("BERT-large packing",
+     [int(x) for x in np.random.default_rng(5).integers(256, 513, 32)],
+     None, 16, 64, False),
+    ("bench.py mixed", MIXED, 0, 16, 128, True),
+]
+
+
 def measure(root: str) -> None:
     sys.path.insert(0, root)
-    from flash_attn_tpu_torch.dispatch.config import FWD_TILE
+    from flash_attn_tpu_torch import get_scheduler_metadata
     from flash_attn_tpu_torch.dispatch.varlen_meta import compute_varlen_meta
     from flash_attn_tpu_torch.kernels import _build, flash_fwd, flash_varlen
     from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
@@ -67,43 +80,42 @@ def measure(root: str) -> None:
         ref, _ = flash_fwd.flash_attention_fwd_plain(
             qt.float(), kt.float(), vt.float(), causal=True)
         err = float((out.float() - ref).abs().max())
-        cu = torch.arange(b + 1, dtype=torch.int32, device="cuda") * s
-        packed = [x.reshape(b * s, H, D) for x in (q, k, v)]
-        meta = compute_varlen_meta(cu, cu, s, s, b * s, b * s, causal=True)
-        cases.append((f"B1 b={b} x {s}", err,
-                      lambda qt=qt, kt=kt, vt=vt: flash_fwd.flash_attention_fwd(
-                          qt, kt, vt, causal=True),
-                      lambda p=packed, cu=cu, s=s, m=meta:
-                      fvp.flash_attention_varlen_fwd_persistent(
-                          *p, cu, cu, s, s, causal=True, meta=m),
-                      lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
-                          qt, kt, vt, is_causal=True)))
-    cu = torch.tensor(np.concatenate([[0], np.cumsum(MIXED)]),
-                      dtype=torch.int32, device="cuda")
-    n, mx = sum(MIXED), max(MIXED)
-    q, k, v = (torch.randn(n, H, D, device="cuda", generator=gen)
-               .to(torch.bfloat16) for _ in range(3))
-    meta128 = compute_varlen_meta(cu, cu, mx, mx, n, n, causal=True,
-                                  block_q=FWD_TILE.block_q,
-                                  block_k=FWD_TILE.block_k)
-    meta64 = compute_varlen_meta(cu, cu, mx, mx, n, n, causal=True)
-    out, _ = flash_varlen.flash_attention_varlen_fwd(
-        q, k, v, cu, cu, mx, mx, causal=True, meta=meta128)
-    ref, _ = fvp.flash_attention_varlen_fwd_persistent(
-        q, k, v, cu, cu, mx, mx, causal=True, meta=meta64)
-    cases.append(("B6 forward, bench.py mixed",
-                  float((out.float() - ref.float()).abs().max()),
-                  lambda: flash_varlen.flash_attention_varlen_fwd(
-                      q, k, v, cu, cu, mx, mx, causal=True, meta=meta128),
-                  lambda: fvp.flash_attention_varlen_fwd_persistent(
-                      q, k, v, cu, cu, mx, mx, causal=True, meta=meta64),
-                  None))
+        cases.append((f"B1 b={b} x {s} (max abs err {err:.3e})", {
+            "B1": lambda qt=qt, kt=kt, vt=vt: flash_fwd.flash_attention_fwd(
+                qt, kt, vt, causal=True),
+            "SDPA": lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)}))
+    for name, lens, tail, h, d, causal in VARLEN:
+        tail = len(lens) * 512 - sum(lens) if tail is None else tail
+        cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                          dtype=torch.int32, device="cuda")
+        n, mx = sum(lens) + tail, max(lens)
+        q, k, v = (torch.randn(n, h, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        # the work lists built once, as BERT's encoder builds them; a tree
+        # whose B7 walked 64-row tiles takes B6's 128-row list apart
+        meta = get_scheduler_metadata(len(lens), mx, mx, h, h, d,
+                                      cu_seqlens_q=cu, cu_seqlens_k=cu,
+                                      causal=causal).meta
+        meta6 = meta if "schedule_block_q" in inspect.signature(
+            compute_varlen_meta).parameters else compute_varlen_meta(
+                cu, cu, mx, mx, n, n, causal=causal, block_q=128, block_k=64)
+        args = (q, k, v, cu, cu, mx, mx)
+        b6 = flash_varlen.flash_attention_varlen_fwd(*args, causal=causal,
+                                                     meta=meta6)
+        b7 = fvp.flash_attention_varlen_fwd_persistent(*args, causal=causal,
+                                                       meta=meta)
+        diff = float((b6[0].float() - b7[0].float()).abs().max())
+        fns = {"B6": lambda a=args, c=causal, m=meta6:
+               flash_varlen.flash_attention_varlen_fwd(*a, causal=c, meta=m),
+               "B7": lambda a=args, c=causal, m=meta:
+               fvp.flash_attention_varlen_fwd_persistent(*a, causal=c, meta=m)}
+        cases.append((f"{name} (max |B6 - B7| {diff:.3e}, B7 grid "
+                      f"{fvp.last_grid})", fns))
     for _ in range(2):
-        for name, err, kernel, previous, sdpa in cases:
-            t = [time_ms(kernel), time_ms(previous)]
-            lib = f", SDPA {time_ms(sdpa):.4f}" if sdpa else ""
-            print(f"{name}: kernel {t[0]:.4f} ms, B7 packed {t[1]:.4f}{lib} "
-                  f"(max abs err {err:.3e})", flush=True)
+        for name, fns in cases:
+            times = ", ".join(f"{k} {time_ms(fn):.4f}" for k, fn in fns.items())
+            print(f"{name}: {times} ms", flush=True)
 
 
 def main() -> int:
