@@ -21,7 +21,11 @@
    training shape it splits each backward path into its kernels and the
    torch ops around them (torch.profiler) and times the previous design of
    the dense backward in the same run (B6's dK/dV + dQ of bwd_tile.cuh over
-   the same rows packed as 4 sequences);
+   the same rows packed as 4 sequences); the paged varlen prefill (B8, the
+   same tile with a paged K/V source) gives the same bits twice and B6's
+   forward's bits over the same rows packed, and at the prefix-cached
+   admission's shape its whole call and its kernel alone (torch.profiler)
+   are timed;
 3. calls flash_attn_func(...).backward() at the training shape, once with
    deterministic=True and once with False, and checks each run's launch
    counts (1 preprocess, then 1 dK/dV + 1 dQ, or 1 fused) and gradients;
@@ -73,13 +77,18 @@
    shapes (the serving phase's 8 x 512-row chunk over 2,048 keys,
    DeepSeek-V3's widths at 4 x 256, ragged chunks over pages of 16 and 256,
    GQA 8/2 at 64 + 128 in fp16, GQA 16/2 at 128 + 128, chunks that start
-   mid-page) and the MLA decode route on 6 (qv over a paged
-   cache with lengths 1..2080 at 1 and the default splits, the 576/512
-   latent view over a linear cache, qv at 64 + 128 over a linear cache in
-   fp16, qv at 128 + 128 over pages of 16, b=32 x 8192): every form each
-   kernel is compiled for. The serving chunk and two decode shapes are
-   timed beside their bounds and an SDPA yardstick over a pre-gathered
-   linear cache (q || qv against k || v, the gather untimed);
+   mid-page) and the MLA decode route (the same wgmma/TMA tile of
+   mla_sm90.cuh) on 7 (qv over a paged cache at the serving phase's last
+   step, 8 rows of 2,080 keys, and with lengths 1..2080 at 1 and the
+   default splits, the 576/512 latent view over a linear cache, qv at 64 +
+   128 over a linear cache in fp16, qv at 128 + 128 over pages of 16, b=32
+   x 8192): every form each kernel is compiled for. Each decode case gives
+   the same bits twice, and at one split B8p's bits over the same step as a
+   one-row chunk. The serving chunk and three decode shapes (the serving
+   step, lengths 1..2080, b=32 x 8192) are timed beside their bounds and an
+   SDPA yardstick over a pre-gathered linear cache (q || qv against k || v,
+   the gather untimed), with the key tiles of the busiest decode block
+   against the mean;
 11. serves DeepSeek-V3's 61-layer absorbed attention stack at full width
    (128 heads, 64-wide rope key + 512-wide latent, one KV head, pages of
    64, seeded bf16 tensors, no weights): 8 sequences of 2048-token prompts
@@ -164,24 +173,6 @@ PAGED_DEC_CASES = [  # (b, h, h_k, d, page_size, max_len, num_splits); the
     (64, 16, 16, 128, 256, 560, 1),
     (16, 16, 4, 128, 16, 560, 1),
     (16, 16, 4, 128, 64, 560, 3),
-]
-VARLEN_CASES = [  # (name, lens_q, lens_k, seqused_q, h, h_k, d, page, dtype,
-    # causal); the first is the prefix-cached admission's: 8 chunks of 256
-    # query tokens over 512 keys
-    ("prefix admission", [256] * 8, [512] * 8, None, 16, 16, 128, 256,
-     torch.bfloat16, True),
-    ("ragged", [300, 17, 128, 64], [812, 17, 400, 264], None, 16, 16, 128,
-     64, torch.bfloat16, True),
-    ("zero-length", [0, 50, 0, 200], [10, 50, 0, 700], None, 16, 16, 128,
-     256, torch.bfloat16, True),
-    ("seqused_q padding", [128] * 4, [384, 77, 0, 517], [128, 77, 0, 5], 16,
-     16, 128, 256, torch.bfloat16, True),
-    ("GQA 16/4", [256] * 4, [512] * 4, None, 16, 4, 128, 16, torch.bfloat16,
-     True),
-    ("d=64", [100, 200], [300, 200], None, 8, 8, 64, 64, torch.bfloat16,
-     False),
-    ("fp16", [256, 256], [600, 256], None, 16, 4, 128, 256, torch.float16,
-     True),
 ]
 # lse is fp32 in the kernel and in the plain version, from the same bf16
 # inputs; they differ only in summation order (|scores| <~ 20 here).
@@ -293,10 +284,15 @@ MLA_PREFILL_CASES = [  # (name, lens_q, cached keys before the chunk, h, h_k,
 MLA_DECODE_CASES = [  # (name, b, h, keys, d, dv, qv, page (0: linear),
     # num_splits (0: the default), dtype, the key its timing is kept under
     # (None: not timed)); every form of MLA_DECODE_DIMS. The first is the
-    # serving phase's step.
+    # serving phase's last step (every row at 2,048 + 32 keys), timed into
+    # the kernels line; the second spreads the same batch over lengths
+    # 1..2080, so that the splits of a row differ in length.
+    ("qv, paged, serving step (8 x 2080 keys), default splits", 8, 128,
+     [MLA_PROMPT + MLA_NEW] * MLA_BATCH, 64, 512, True, 64, 0,
+     torch.bfloat16, "flash_decode_mla"),
     ("qv, paged, lengths 1..2080, default splits", 8, 128,
      np.linspace(1, 2080, 8).round().astype(int).tolist(), 64, 512, True,
-     64, 0, torch.bfloat16, "flash_decode_mla"),
+     64, 0, torch.bfloat16, "lengths 1..2080"),
     ("qv, paged, lengths 1..2080, 1 split", 8, 128,
      np.linspace(1, 2080, 8).round().astype(int).tolist(), 64, 512, True,
      64, 1, torch.bfloat16, None),
@@ -655,12 +651,18 @@ def check_decode_paged(gen):
 
 
 def check_varlen_paged(gen):
-    """The packed-varlen prefill kernel over the paged cache against its
-    plain version on the cases of VARLEN_CASES."""
+    """The packed-varlen prefill kernel over the paged cache (B8) against
+    its plain version on the cases of VARLEN_CASES (utils/cases.py), bitwise equal over two
+    runs and to B6's forward over the same rows packed (the two run one
+    tile); times the first case's whole call and, by the profiler, its
+    kernel alone."""
+    from flash_attn_tpu_torch.kernels import flash_varlen
     from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.cases import VARLEN_CASES
     from flash_attn_tpu_torch.utils.testing import (
         attention_varlen_paged_ref,
         check_against_ref,
+        paged_to_linear,
     )
 
     worst, timing = 0.0, None
@@ -698,17 +700,38 @@ def check_varlen_paged(gen):
         lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() \
             if fin.any() else 0.0
         require(lse_err <= LSE_ATOL, f"varlen paged lse error {lse_err}")
+        again = fvp.flash_attention_varlen_paged_fwd(
+            q, kp, vp, *args, seqused_q=seqused, causal=causal)
+        require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                f"flash_varlen_paged {case}: two runs differ")
+        k, v = (torch.cat([lin[s, :, :n].transpose(0, 1)
+                           for s, n in enumerate(lens_k)]).contiguous()
+                for lin in (paged_to_linear(x, table, seqlens_k)
+                            for x in (kp, vp)))
+        cu_k = torch.tensor(np.concatenate([[0], np.cumsum(lens_k)]),
+                            dtype=torch.int32, device="cuda")
+        b6 = flash_varlen.flash_attention_varlen_fwd(
+            q, k, v, cu, cu_k, max_q, max(lens_k), seqused_q=seqused,
+            causal=causal)
+        require(torch.equal(out, b6[0]) and torch.equal(lse, b6[1]),
+                f"flash_varlen_paged {case}: differs from B6's forward over "
+                "the same rows packed")
         worst = max(worst, err)
         print(f"flash_varlen_paged {case}: out max abs err {err:.3e} "
               f"(low-precision reference {err_lp:.3e}), lse max abs err "
-              f"{lse_err:.3e}")
+              f"{lse_err:.3e}; bitwise equal twice and to B6's forward over "
+              "the same rows packed")
         if timing is None:
-            ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd(
-                q, kp, vp, *args, seqused_q=seqused, causal=causal))
+            call = lambda: fvp.flash_attention_varlen_paged_fwd(
+                q, kp, vp, *args, seqused_q=seqused, causal=causal)
+            ms = time_ms(call)
+            kernel_ms = kernel_split_ms(call, ("varlen_paged_kernel",))
             plain_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
                 q, kp, vp, *args, seqused_q=seqused, causal=causal))
             total_q = int(cu[-1])
-            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            timing = {"ms": ms, "kernel_ms": kernel_ms["varlen_paged_kernel"],
+                      "wrapper_ops_ms": kernel_ms["other"],
+                      "plain_ms": plain_ms, "library_ms": None,
                       "library_call": "none: no single PyTorch call reads K/V "
                                       "through a block table (a gather first)",
                       **bound(4 * h * d * attended_pairs(
@@ -716,9 +739,11 @@ def check_varlen_paged(gen):
                           2 * 2 * total_q * h * d
                           + 2 * 2 * sum(lens_k) * h_k * d + 4 * h * total_q)}
             print(f"flash_varlen_paged time at the prefix-admission shape: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
-                  f"25); bound {timing['bound_ms']:.4f} ms "
-                  f"({timing['bound_by']})")
+                  f"the whole call {ms:.4f} ms (median of 25), of which the "
+                  f"kernel {timing['kernel_ms']:.4f} ms and the wrapper's "
+                  f"torch ops {timing['wrapper_ops_ms']:.4f} ms (profiler, "
+                  f"device time); plain {plain_ms:.4f} ms; bound "
+                  f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
     return worst, timing
 
 
@@ -2169,6 +2194,24 @@ def check_mla(gen, card):
         out, lse = flash_decode.flash_attention_decode(
             q, kc, vc, seqlens, MLA_SCALE, True, splits, block_table=table,
             qv=qv)
+        again = flash_decode.flash_attention_decode(
+            q, kc, vc, seqlens, MLA_SCALE, True, splits, block_table=table,
+            qv=qv)
+        require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                f"flash_decode_mla {name}: two runs differ")
+        same_as_b8p = ""
+        if splits == 1 and page and has_qv:
+            # one split runs B8p's tile over the same keys: the step as a
+            # one-row chunk through B8p gives the same bits
+            one = torch.arange(b + 1, dtype=torch.int32, device="cuda")
+            pf, pf_lse = fpp.flash_attention_paged_prefill_varlen(
+                q.reshape(b, h, d), kc, vc, one, 1, seqlens, table,
+                qv=qv.reshape(b, h, dv), softmax_scale=MLA_SCALE, causal=True)
+            require(torch.equal(out.reshape(b, h, dv), pf)
+                    and torch.equal(lse.reshape(b, h), pf_lse.T),
+                    f"flash_decode_mla {name}: differs from B8p over the "
+                    "same step as a one-row chunk")
+            same_as_b8p = "; bitwise equal to B8p over the step as a chunk"
         f32 = lambda x: None if x is None else x.float()
         ref_p = flash_decode.flash_attention_decode_partials_plain(
             q.float(), k_lin.transpose(1, 2).float(),
@@ -2194,10 +2237,17 @@ def check_mla(gen, card):
         worst["flash_decode_mla"] = max(worst["flash_decode_mla"], err)
         print(f"flash_decode_mla {case}: out max abs err {err:.3e} "
               f"(low-precision reference {err_lp:.3e}), lse max abs err "
-              f"{lse_err:.3e}")
+              f"{lse_err:.3e}; bitwise equal twice{same_as_b8p}")
         del ref_p, ref, ref_lp
         if timed is None:
             continue
+        # the partition's balance, for the print line only: key tiles of
+        # the busiest (batch row, split) block against the mean, from the
+        # wrapper's own partition (sq = 1, so no causal cut shortens a run)
+        run = flash_decode._split_bounds(seqlens.long(), splits, 64)
+        blocks = [-(-max(0, min(r, n - sp * r)) // 64) for n, r in
+                  zip(seqlens.tolist(), run.tolist()) for sp in range(splits)]
+        busiest, mean_tiles = max(blocks), sum(blocks) / len(blocks)
         ms = time_ms(call)
         plain_ms = wall_ms(lambda: (
             flash_decode.flash_attention_decode_paged_partials_plain(
@@ -2232,7 +2282,8 @@ def check_mla(gen, card):
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); besides, the "
               f"split partials {partial_bytes / 1e6:.2f} MB "
               f"({partial_bytes / PEAK_BYTES * 1e3:.4f} ms at the memory "
-              f"rate) on {card}")
+              f"rate); the busiest block {busiest} key tiles, the mean "
+              f"{mean_tiles:.3f} on {card}")
     return worst, timings
 
 

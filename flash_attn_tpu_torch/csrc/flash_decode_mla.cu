@@ -1,6 +1,7 @@
-// The MLA route of split-KV decode attention for Hopper (sm_90a), bf16 /
-// fp16: a second query `qv` that scores against V, a value width dv that
-// differs from the key width d, and DeepSeek's 576/512 latent cache.
+// The MLA route of split-KV decode attention for Hopper (sm_90a) on wgmma
+// and TMA, bf16 / fp16: a second query `qv` that scores against V, a value
+// width dv that differs from the key width d, and DeepSeek's 576/512 latent
+// cache.
 //
 // Replaces the qv and dv != d branches of the TPU kernel
 // flash_attn_tpu/kernels/flash_decode.py:_decode_kernel (the qv term at
@@ -13,132 +14,159 @@
 // k_pe (the K), 1,152 bytes in bf16, and serves all 128 query heads from
 // that one KV head. Each (query row, key) pair costs 64 + 512 score MACs and
 // 512 output MACs: 2,176 flops a key and head, 278,528 a key at 128 heads,
-// against its 1,152 bytes, about 242 flops a byte. That is near the card's
-// ridge (295), not far below it as GQA decode is: at b = 8 and ~2,080 keys
-// a layer moves 19.2 MB (5.7 us) for 4.6 GFLOP (4.7 us); at the reference's
-// b = 32 and 8,192 keys, 302 MB (90 us) for 73 GFLOP (74 us). So the d = dv
-// route's design (fp32 dot products on the ordinary ALUs, 8 query rows a
-// block, each block re-reading the cache) would take 16 blocks per row to
-// cover 128 rows and read the cache 16 times.
+// against its 1,152 bytes, about 242 flops a byte, near the card's ridge
+// (295): at b = 8 and ~2,080 keys a step moves 19.2 MB (5.7 us) for 4.6
+// GFLOP (4.7 us); at b = 32 and 8,192 keys, 302 MB (90 us) for 73 GFLOP
+// (74 us). Beside the function's bytes, each block writes an fp32 split
+// partial of 64 x dv (128 KB at dv = 512) that combine_splits reads.
 //
 // What the design does about it: one block per (batch row, KV head, split,
-// 64-row tile) runs the tensor-core tile loop of mla_tile.cuh over its
-// split's keys, so the 128 heads of a token take two blocks, each reading
-// the split's keys once into shared memory. The splits, cut on
-// DECODE_BLOCK_K tiles as in the d = dv route (so paged and linear decode
-// sum in the same order), are what fill the 132 SMs at small batch: b = 8
-// gives 16 row tiles, and the wrapper's split count multiplies them. For
-// the 576/512 form without qv, V is K's first 512 columns and is read from
-// the same shared-memory tile. Left for later: wgmma with the row tile in
-// one warpgroup, TMA page copies, and splitting the row tile's keys across
-// SMs of a cluster instead of through the combine.
+// 64-row tile) runs the wgmma + TMA tile of mla_sm90.cuh (the one B8p runs)
+// over its split's keys, so the 128 heads of a token take two blocks, each
+// reading the split's keys once into shared memory and feeding both
+// products from them on the tensor cores. The splits, contiguous runs of
+// DECODE_BLOCK_K = 64-key tiles cut as in the d = dv route (so paged and
+// linear decode sum in the same order), fill the 132 SMs at small batch: b
+// = 8 gives 16 row tiles, and the wrapper's split count multiplies them. A
+// linear cache (b_c, h_k, s_max, d) is read as a paged one whose batch row
+// bb is one page of s_max rows, through the same 4D maps and boxes of
+// gcd(s_max, 64) rows. The 576/512 form without qv keeps V as K's first 512
+// columns in the same stage and puts P in the rope panel. The partial is
+// stored straight from the accumulators: 8-byte stores, each quad of a row
+// filling a 32-byte sector. A split with no key of a row tile writes zeros
+// and lse -inf (combine_splits gives it weight 0, and NaN x 0 would be NaN).
+// Left for later: a length-balanced partition that would give every block
+// the same number of key tiles (ROADMAP.md).
 
-#include "mla_tile.cuh"
+#include "mla_sm90.cuh"
 
 namespace {
 
+using namespace fa;
+using namespace fa::sm90;
+
 struct MlaDecodeParams {
-  const void* q;        // (b, sq, h, d) by strides
-  const void* qv;       // (b, sq, h, dv) by strides, or nullptr
-  const void* kc;       // (b_c, h_k, s_max, d) or pages (P, h_k, page_size, d)
-  const void* vc;       // the same with dv (unused without qv)
-  const int* seqlens;   // (b,) cache length after the append
-  const int* table;     // (b, table_width) page ids, paged cache only
-  float* out_p;         // (num_splits, b, h_k, rows, dv)
-  float* lse_p;         // (num_splits, b, h_k, rows)
-  int64_t q_sb, q_ss, q_sh, qv_sb, qv_ss, qv_sh;
-  int64_t k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;  // k_sb: page stride if paged
+  const int* seqlens;  // (b,) cache length after the append
+  const int* table;    // (b, table_width) page ids, or nullptr for a linear cache
+  float* out_p;        // (num_splits, b, h_k, rows, dv)
+  float* lse_p;        // (num_splits, b, h_k, rows)
   int64_t t_sb;
-  int b, sq, h_k, group, rows, num_splits, block_k;
-  int page_size, table_width, num_pages, cap;
+  int b, sq, h_k, group, gb, pb, head_blocks, rows, num_splits;
+  int page_size, box_rows, table_width, num_pages, cap;
   float scale_log2;
   int causal;
 };
 
-template <typename T, typename Dims>
-__global__ void __launch_bounds__(fa::MLA_THREADS, 1)
-    decode_mla_kernel(const MlaDecodeParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+struct DecodeMaps {
+  CUtensorMap q, qv, k, v;
+};
+
+// Panel c of a tile of positions from p0 and heads from head0 of batch row
+// bb of the (b, sq, h, d) and (b, sq, h, dv) tensors: q's panels, then qv's.
+template <int D>
+struct BatchQ {
+  const CUtensorMap* q;
+  const CUtensorMap* qv;
+  int head0, p0, bb;
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int c) const {
+    if (c < D / 64)
+      tma_load_4d(dst, q, bar, c * 64, head0, p0, bb);
+    else
+      tma_load_4d(dst, qv, bar, (c - D / 64) * 64, head0, p0, bb);
+  }
+};
+
+template <typename T, typename Dm>
+__global__ void __launch_bounds__(MLA_THREADS, 1)
+    decode_mla_kernel(const __grid_constant__ DecodeMaps maps, const MlaDecodeParams p) {
+  constexpr int DVH = Dm::DVH;
+  constexpr int NB = Dm::NB;
   const int bb = blockIdx.x / p.h_k;
-  const int kh = blockIdx.x % p.h_k;
+  const int kh = blockIdx.x - bb * p.h_k;
   const int split = blockIdx.y;
-  const int m0 = blockIdx.z * fa::MLA_BM;
-  if (m0 >= p.rows) return;
+  const int p0 = (blockIdx.z / p.head_blocks) * p.pb;  // first position of the tile
+  const int hb = (blockIdx.z % p.head_blocks) * p.gb;  // first head of the tile in the group
 
-  // This split's keys: the cache cut into block_k tiles, shared out in
-  // contiguous runs (the d = dv route's partition).
+  // This split's keys: the cache cut into 64-key tiles, shared out in
+  // contiguous runs (the d = dv route's partition), up to the causal limit
+  // of the tile's last position.
   const int sk = min(p.seqlens[bb], p.cap);
-  const int tiles = (sk + p.block_k - 1) / p.block_k;
+  const int tiles = (sk + MLA_BN - 1) / MLA_BN;
   const int kps = (tiles + p.num_splits - 1) / p.num_splits;
+  const int k_lo = min(sk, split * kps * MLA_BN);
+  const int k_hi = min(sk, (split + 1) * kps * MLA_BN);
+  const int k_end = p.causal ? min(k_hi, min(p0 + p.pb, p.sq) - 1 + sk - p.sq + 1) : k_hi;
 
-  fa::MlaTile<T> t;
-  t.q = reinterpret_cast<const T*>(p.q) + bb * p.q_sb + kh * p.group * p.q_sh;
-  t.qv = Dims::QV ? reinterpret_cast<const T*>(p.qv) + bb * p.qv_sb +
-                        kh * p.group * p.qv_sh
-                  : nullptr;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const MlaRows t{p0, p.gb, p.sq, sk, k_lo,
+                  k_end > k_lo ? (k_end - k_lo + MLA_BN - 1) / MLA_BN : 0, p.causal};
+  const MlaKeys keys{&maps.k, &maps.v,
+                     PagedRows{p.table == nullptr ? nullptr : p.table + (int64_t)bb * p.t_sb,
+                               bb, p.page_size, p.table_width, p.num_pages},
+                     kh, p.box_rows};
+  MlaAcc<Dm> a;
+  mla_mainloop<T, Dm>(a, BatchQ<Dm::D>{&maps.q, &maps.qv, kh * p.group + hb, p0, bb}, keys,
+                      t, p.scale_log2, smem);
+  float l[2];
+  mla_row_sums<Dm>(a, smem, l);
+
+  // The normalised fp32 partial of each live row (position < sq), row pos *
+  // group + head of the (split, batch row, KV head) slab.
   const int64_t part = ((int64_t)split * p.b + bb) * p.h_k + kh;
-  t.out = p.out_p + part * p.rows * Dims::DV;
-  t.lse = p.lse_p + part * p.rows;
-  t.q_st = p.q_ss;
-  t.q_sh = p.q_sh;
-  t.qv_st = p.qv_ss;
-  t.qv_sh = p.qv_sh;
-  t.o_st = (int64_t)p.group * Dims::DV;  // row = pos * group + j, dv apart
-  t.o_sh = Dims::DV;
-  t.l_st = p.group;
-  t.l_sh = 1;
-  t.group = p.group;
-  t.rows = p.rows;
-  t.m0 = m0;
-  t.shift = sk - p.sq;
-  t.causal = p.causal;
-  t.k_lo = min(sk, split * kps * p.block_k);
-  t.k_hi = min(sk, (split + 1) * kps * p.block_k);
-
-  fa::MlaCache<T> c;
-  c.k = reinterpret_cast<const T*>(p.kc) + kh * p.k_sh;
-  c.v = Dims::QV ? reinterpret_cast<const T*>(p.vc) + kh * p.v_sh : c.k;
-  c.k_sb = p.k_sb;
-  c.k_ss = p.k_ss;
-  c.v_sb = p.v_sb;
-  c.v_ss = p.v_ss;
-  c.table_row = p.table == nullptr ? nullptr : p.table + bb * p.t_sb;
-  c.bb = bb;
-  c.page_size = p.page_size;
-  c.table_width = p.table_width;
-  c.num_pages = p.num_pages;
-  fa::mla_tile<T, Dims, true>(t, c, p.scale_log2, smem_raw);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2;
+  const int t4 = tid & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + g + 8 * i;
+    const int pos = p0 + r / p.gb;
+    if (pos >= p.sq) continue;
+    const int64_t row = part * p.rows + (int64_t)pos * p.group + hb + r % p.gb;
+    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+    float* dst = p.out_p + row * Dm::DV + wg * DVH + 2 * t4;
+#pragma unroll
+    for (int b = 0; b < DVH / NB; ++b)
+#pragma unroll
+      for (int j = 0; j < NB / 8; ++j)
+        *reinterpret_cast<float2*>(dst + b * NB + 8 * j) =
+            make_float2(a.o[b][4 * j + 2 * i] * inv, a.o[b][4 * j + 2 * i + 1] * inv);
+    if (wg == 0 && t4 == 0)
+      p.lse_p[row] = l[i] == 0.f ? -INFINITY : __fmaf_rn(a.m_r[i], FA_LN2, logf(l[i]));
+  }
 }
 
 template <typename T>
-cudaError_t launch(const MlaDecodeParams& p, int d, int dv, bool has_qv,
-                   cudaStream_t stream) {
+cudaError_t launch(const DecodeMaps& maps, const MlaDecodeParams& p, int d, int dv, bool has_qv,
+                   int row_tiles, cudaStream_t stream) {
   // The forms of dispatch/config.py MLA_DECODE_DIMS.
-  return fa::mla_dispatch<fa::MlaDims<64, 512, true>,
-                          fa::MlaDims<576, 512, false>,
-                          fa::MlaDims<64, 128, true>,
-                          fa::MlaDims<128, 128, true>>(
-                              d, dv, has_qv, [&](auto dims) {
-    using Dims = decltype(dims);
-    const int smem = fa::mla_smem_bytes<Dims, T>();
+  return mla_dispatch<MlaDims<64, 512, true>, MlaDims<576, 512, false>, MlaDims<64, 128, true>,
+                      MlaDims<128, 128, true>>(d, dv, has_qv, [&](auto dims) {
+    using Dm = decltype(dims);
+    constexpr int smem = MlaLayout<Dm>::SMEM;
     cudaError_t err = cudaFuncSetAttribute(
-        decode_mla_kernel<T, Dims>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        decode_mla_kernel<T, Dm>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    dim3 grid(p.b * p.h_k, p.num_splits,
-              (p.rows + fa::MLA_BM - 1) / fa::MLA_BM);
-    decode_mla_kernel<T, Dims><<<grid, fa::MLA_THREADS, smem, stream>>>(p);
+    decode_mla_kernel<T, Dm>
+        <<<dim3(p.b * p.h_k, p.num_splits, row_tiles), MLA_THREADS, smem, stream>>>(maps, p);
     return cudaGetLastError();
   });
 }
 
 }  // namespace
 
-// The MLA route of fa_decode (csrc/flash_decode.cu): qv (nullptr without
-// it) and a value width dv; table == nullptr reads a linear cache. block_k
-// must be the split granularity of the wrapper (dispatch/config.py
-// DECODE_BLOCK_K, a multiple of the tile's 64 keys). Returns a cudaError_t
-// (0 on success).
+// The MLA route of fa_decode (csrc/flash_decode.cu): q (b, sq, h, d) and qv
+// (b, sq, h, dv; nullptr without it) by element strides (batch, position,
+// head); the caches (num_pages, h_k, page_size, d) and (..., dv) by strides
+// (page, head, row) with table (b, table_width), or, with table == nullptr,
+// linear (b_c, h_k, s_max, d) passed as num_pages = b_c pages of page_size
+// = s_max rows; without qv, V is K's first dv columns and vc is not read.
+// The head dims contiguous, every start and stride 16-byte aligned (TMA).
+// block_k must be the split granularity of the wrapper (dispatch/config.py
+// DECODE_BLOCK_K), the tile's 64 keys. Returns a cudaError_t (0 on
+// success).
 extern "C" int fa_decode_mla(
     const void* q, const void* qv, const void* kc, const void* vc,
     const int* seqlens, const int* table, float* out_p, float* lse_p, int b,
@@ -148,35 +176,47 @@ extern "C" int fa_decode_mla(
     int64_t qv_sh, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
     int64_t v_sh, int64_t v_ss, int64_t t_sb, float scale_log2, int causal,
     int is_bf16, void* stream) {
-  if (block_k % fa::MLA_BN != 0) return (int)cudaErrorInvalidValue;
+  if (block_k != MLA_BN || h_k < 1 || h % h_k != 0 || page_size < 1 || num_pages < 1 ||
+      num_splits < 1 || (table != nullptr && table_width < 1))
+    return (int)cudaErrorInvalidValue;
+  if (b == 0 || sq == 0) return 0;
   MlaDecodeParams p;
-  p.q = q;
-  p.qv = qv;
-  p.kc = kc;
-  p.vc = vc;
   p.seqlens = seqlens;
   p.table = table;
   p.out_p = out_p;
   p.lse_p = lse_p;
-  p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.qv_sb = qv_sb; p.qv_ss = qv_ss; p.qv_sh = qv_sh;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.t_sb = t_sb;
   p.b = b;
   p.sq = sq;
   p.h_k = h_k;
   p.group = h / h_k;
+  p.gb = gcd64(p.group);
+  p.pb = MLA_BM / p.gb;
+  p.head_blocks = p.group / p.gb;
   p.rows = sq * p.group;
   p.num_splits = num_splits;
-  p.block_k = block_k;
   p.page_size = page_size;
+  p.box_rows = gcd64(page_size);
   p.table_width = table_width;
   p.num_pages = num_pages;
   p.cap = cap;
   p.scale_log2 = scale_log2;
   p.causal = causal;
+  const int row_tiles = (sq + p.pb - 1) / p.pb * p.head_blocks;
+  DecodeMaps maps;
+  cudaError_t err;
+  if ((err = make_tile_map<4>(&maps.q, q, is_bf16, {d, h, sq, b}, {q_sh, q_ss, q_sb}, p.gb,
+                              p.pb)) ||
+      (err = make_tile_map<4>(&maps.k, kc, is_bf16, {d, page_size, h_k, num_pages},
+                              {k_ss, k_sh, k_sb}, p.box_rows)))
+    return (int)err;
+  if (has_qv &&
+      ((err = make_tile_map<4>(&maps.qv, qv, is_bf16, {dv, h, sq, b}, {qv_sh, qv_ss, qv_sb},
+                               p.gb, p.pb)) ||
+       (err = make_tile_map<4>(&maps.v, vc, is_bf16, {dv, page_size, h_k, num_pages},
+                               {v_ss, v_sh, v_sb}, p.box_rows))))
+    return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)launch<__nv_bfloat16>(p, d, dv, has_qv != 0, st);
-  return (int)launch<__half>(p, d, dv, has_qv != 0, st);
+  if (is_bf16) return (int)launch<__nv_bfloat16>(maps, p, d, dv, has_qv != 0, row_tiles, st);
+  return (int)launch<__half>(maps, p, d, dv, has_qv != 0, row_tiles, st);
 }

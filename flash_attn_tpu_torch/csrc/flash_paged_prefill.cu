@@ -18,96 +18,25 @@
 // 512-position chunk at b = 8 over 2,048 keys is about 1,000 flops a byte:
 // the tensor cores' rate bounds it (PERF.md).
 //
-// Rows. A block computes a tile of 64 query rows of one sequence and KV
-// head: PB positions by GB heads of the KV head's group, GB = gcd(group,
-// 64), PB = 64 / GB, row p GB + j being position p0 + p of head hb + j. At
-// DeepSeek's 128 heads on one KV head a tile is 64 heads of one position,
-// so it has one causal limit and only its last key tile is masked; at GQA
-// 8/2 it is 16 positions of 4 heads, masked per row on the tiles that cross
-// a limit. Q and QV come once by TMA as boxes of (64 columns, GB heads, PB
-// positions) over the packed (total, h, d) and (total, h, dv) tensors into
-// 128B-swizzled 64-column panels: (D + DV) / 64 panels (9 at 64 + 512).
-// TMA zero-fills only past a tensor's end, so rows past the chunk are
-// computed on the next sequence's rows and never stored.
-//
-// Keys. A key tile is 64 keys as [K | V] rows in the same panels. One
-// warp walks the block table (each page id clamped to the table
-// and the pool) and copies each page's part of a tile as TMA boxes of
-// gcd(page_size, 64) rows over 4D maps of the caches (num_pages, h_k,
-// page_size, d or dv): one box a panel at pages of 64 or more, 64 /
-// page_size at smaller pages. Two stages, each with a full and an empty
-// mbarrier. Keys at or past cache_seqlens are masked to -inf and their V
-// rows zeroed in shared memory, so that a NaN in a page the table points
-// past cannot reach the output.
-//
-// Products. Two consumer warpgroups take the key tiles in turn (FlashMLA's
-// alternating layout, deepseek-ai/FlashMLA): warpgroup w computes S of the
-// tiles n = w mod 2 once, at N = 64 with both operands K-major (SS wgmma),
-// runs the online softmax on it and publishes its row maxima, its rescale
-// factors and P (bf16, into the tile's K panel, whose keys it no longer
-// needs) behind a `ready` mbarrier. The softmax is a chain (tile n starts
-// from the maxima after tile n - 1, read from the other warpgroup), but
-// each warpgroup's score product runs while the other's softmax does. Each
-// warpgroup owns half of the DV output columns (a 64 x 256 fp32 half, 128
-// registers a thread at DV = 512) and applies every tile's P to it in
-// order, rescaling first: O += P V by SS wgmma with P K-major and V
-// MN-major through the transpose bit. Every wgmma sits on control flow that
-// is uniform across the block's consumers: a warpgroup with no tile left
-// in the last pair still runs its score product on the other's stage and
-// drops it. The epilogue exchanges the two warpgroups' row sums, stages
-// each normalised half in the Q panels (both are past their last score
-// product) and stores 16-byte chunks, rows past the chunk skipped.
-//
-// Shared memory at 64 + 512: Q 72 KB and two key stages of 72 KB, 218 KB
-// with the exchange arrays and barriers (and 1 KB to align the base).
-// 256 threads, the two warpgroups, at 221 registers a thread at DV = 512
-// without spills. A producer warpgroup (384 threads) would cap ptxas at 168
-// registers a thread, setmaxnreg notwithstanding, and spill O; so the
-// second warpgroup's first warp issues the copies between its products.
-// Grid: one block per (batch row, KV head, row tile), row tiles in reverse
-// so that the longest causal bands start first; the blocks of a sequence
-// read the same keys, which stay in the 50 MB L2.
+// What the design does about it: one block per (batch row, KV head, 64-row
+// tile) runs the wgmma + TMA tile of mla_sm90.cuh (which the MLA decode
+// route shares) over the tile's causal band of keys, from key 0, and writes
+// the normalised O in the input type: the two warpgroups add up their row
+// sums, stage each normalised half in the Q panels (both are past their last
+// score product) and store 16-byte chunks, rows past the chunk skipped. The
+// rows of a tile, the key copies, the two warpgroups' alternating layout,
+// the shared memory (218 KB at 64 + 512) and the register budget (221 a
+// thread at DV = 512, no spills) are described there. Grid: one block per
+// (batch row, KV head, row tile), row tiles in reverse so that the longest
+// causal bands start first; the blocks of a sequence read the same keys,
+// which stay in the 50 MB L2.
 
-#include <limits.h>
-
-#include "sm90.cuh"
+#include "mla_sm90.cuh"
 
 namespace {
 
 using namespace fa;
 using namespace fa::sm90;
-
-constexpr int BM = 64;  // query rows a tile
-constexpr int BN = 64;  // keys a key tile
-constexpr int THREADS = 256;  // two warpgroups
-constexpr int PANEL = BM * 128;  // one 64-column panel of 64 rows
-
-// The (D, DV) forms the kernel is compiled for, all with qv (dispatch/
-// config.py PAGED_PREFILL_DIMS).
-template <int D_, int DV_>
-struct Dims {
-  static constexpr int D = D_;
-  static constexpr int DV = DV_;
-  static constexpr int DQK = D + DV;        // score depth = key-tile row width
-  static constexpr int PANELS = DQK / 64;   // of Q and of a key tile
-  static constexpr int DVH = DV / 2;        // output columns a warpgroup
-  static constexpr int NB = DVH < 128 ? DVH : 128;  // width of one P V product
-  static_assert(D % 64 == 0 && DV % 128 == 0, "64-column panels, halves of 64");
-};
-
-template <typename Dm>
-struct Layout {
-  static constexpr int Q_OFF = 0;
-  static constexpr int STAGE_OFF = Dm::PANELS * PANEL;
-  static constexpr int STAGE_BYTES = Dm::PANELS * PANEL;  // K panels, then V
-  static constexpr int X_OFF = STAGE_OFF + 2 * STAGE_BYTES;
-  // m_buf[2][64], c_buf[2][64] (row maxima and rescale factors of the last
-  // tile of each stage), l_buf[2][64] (each warpgroup's row sums)
-  static constexpr int BAR_OFF = X_OFF + 6 * BM * 4;
-  // q_full, full[2], empty[2], ready[2]
-  static constexpr int BYTES = BAR_OFF + 7 * 8;
-  static constexpr int SMEM = BYTES + 1024;  // the base is rounded up to 1024
-};
 
 struct PrefillParams {
   const int* starts;   // (b,) first token of each sequence
@@ -126,11 +55,27 @@ struct PrefillMaps {
   CUtensorMap q, qv, k, v;
 };
 
+// Panel c of a tile of positions from token `token` and heads from `head0`
+// of the packed (total, h, d) and (total, h, dv) tensors: q's panels, then
+// qv's.
+template <int D>
+struct PackedQ {
+  const CUtensorMap* q;
+  const CUtensorMap* qv;
+  int head0, token;
+  __device__ __forceinline__ void load(void* dst, uint64_t* bar, int c) const {
+    if (c < D / 64)
+      tma_load_3d(dst, q, bar, c * 64, head0, token);
+    else
+      tma_load_3d(dst, qv, bar, (c - D / 64) * 64, head0, token);
+  }
+};
+
 template <typename T, typename Dm>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(MLA_THREADS, 1)
     paged_prefill_kernel(const __grid_constant__ PrefillMaps maps, const PrefillParams p) {
-  using L = Layout<Dm>;
-  constexpr int D = Dm::D;
+  constexpr int BM = MLA_BM;
+  constexpr int PANEL = MLA_PANEL;
   constexpr int DVH = Dm::DVH;
   constexpr int NB = Dm::NB;
   const int bb = blockIdx.x / p.h_k;
@@ -141,267 +86,46 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int sq = p.lens_q[bb];
   if (p0 >= sq) return;
   const int sk = p.lens_k[bb];
-  const int shift = sk - sq;
-  const int k_end = p.causal ? min(sk, min(p0 + p.pb, sq) - 1 + shift + 1) : sk;
+  const int k_end = p.causal ? min(sk, min(p0 + p.pb, sq) - 1 + sk - sq + 1) : sk;
   if (k_end <= 0) return;  // no row of the tile sees a key
-  const int n_tiles = (k_end + BN - 1) / BN;
   const int start = p.starts[bb];
   const int head0 = kh * p.group + hb;
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
-  unsigned char* Qs = smem + L::Q_OFF;
-  float* m_buf = reinterpret_cast<float*>(smem + L::X_OFF);
-  float* c_buf = m_buf + 2 * BM;
-  float* l_buf = c_buf + 2 * BM;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + 2;
-  uint64_t* ready = empty + 2;
-  auto stage = [&](int s) { return smem + L::STAGE_OFF + s * L::STAGE_BYTES; };
+  const MlaRows t{p0, p.gb, sq, sk, 0, (k_end + MLA_BN - 1) / MLA_BN, p.causal};
+  const MlaKeys keys{&maps.k, &maps.v,
+                     PagedRows{p.table + (int64_t)bb * p.t_sb, 0, p.page_size,
+                               p.table_width, p.num_pages},
+                     kh, p.box_rows};
+  MlaAcc<Dm> a;
+  mla_mainloop<T, Dm>(a, PackedQ<Dm::D>{&maps.q, &maps.qv, head0, start + p0}, keys, t,
+                      p.scale_log2, smem);
+  float l[2];
+  mla_row_sums<Dm>(a, smem, l);
 
   const int tid = threadIdx.x;
-  if (tid == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], THREADS);
-      mbar_init(&ready[s], 128);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
   const int wg = tid >> 7;
   const int warp = (tid >> 5) & 3;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  // The key copies are issued by warpgroup 1's first warp, which releases
-  // each stage last in the steady state: tile n + 2 goes into tile n's
-  // stage once both warpgroups have released it, one lane a box (each page
-  // id clamped to the table and to the pool).
-  const bool issuer = wg == 1 && warp == 0;
-  const int* table_row = p.table + (int64_t)bb * p.t_sb;
-  auto issue_keys = [&](int n) {
-    const int s = n & 1;
-    unsigned char* st = stage(s);
-    if (lane == 0) mbar_expect_tx(&full[s], L::STAGE_BYTES);
-    __syncwarp();
-    for (int j = lane; j < BN / p.box_rows; j += 32) {
-      const int key = n * BN + j * p.box_rows;
-      const int col = key / p.page_size;
-      const int pg = min(max(table_row[min(col, p.table_width - 1)], 0), p.num_pages - 1);
-      const int row = key - col * p.page_size;
-      unsigned char* dst = st + j * p.box_rows * 128;
-#pragma unroll
-      for (int c = 0; c < Dm::PANELS; ++c) {
-        if (c < D / 64)
-          tma_load_4d(dst + c * PANEL, &maps.k, &full[s], c * 64, row, kh, pg);
-        else
-          tma_load_4d(dst + c * PANEL, &maps.v, &full[s], (c - D / 64) * 64, row, kh, pg);
-      }
-    }
-  };
-  if (tid == 0) {
-    mbar_expect_tx(q_full, Dm::PANELS * PANEL);
-#pragma unroll
-    for (int c = 0; c < Dm::PANELS; ++c) {
-      if (c < D / 64)
-        tma_load_3d(Qs + c * PANEL, &maps.q, q_full, c * 64, head0, start + p0);
-      else
-        tma_load_3d(Qs + c * PANEL, &maps.qv, q_full, (c - D / 64) * 64, head0, start + p0);
-    }
-  }
-  if (issuer) {
-    issue_keys(0);
-    if (n_tiles > 1) issue_keys(1);
-  }
-
-  int lim[2];  // the last key each of this thread's two rows may see
+  const int g = (tid & 31) >> 2;
+  const int t4 = tid & 3;
+  unsigned char* ow = smem + MlaLayout<Dm>::Q_OFF + (wg * DVH / 64) * PANEL;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + g + 8 * i;
-    lim[i] = p.causal ? p0 + r / p.gb + shift : INT_MAX - 1;
-  }
-  const int lim_first = p.causal ? p0 + shift : INT_MAX - 1;  // the tile's smallest
-
-  float o[DVH / NB][NB / 2];
-#pragma unroll
-  for (int b = 0; b < DVH / NB; ++b)
-#pragma unroll
-    for (int i = 0; i < NB / 2; ++i) o[b][i] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};  // row maxima after the last tile applied
-  float l_r[2] = {0.f, 0.f};              // this thread's share of its own tiles' sums
-
-  mbar_wait(q_full, 0);
-  for (int n0 = 0; n0 < n_tiles; n0 += 2) {
-    const int own = n0 + wg;
-    const bool has_own = own < n_tiles;
-    // with no tile of its own, the score product runs on the even tile's
-    // stage, which is held until both warpgroups release it, and is dropped
-    const int st_s = has_own ? wg : 0;
-    unsigned char* Ks = stage(st_s);
-    mbar_wait(&full[st_s], (n0 >> 1) & 1);
-
-    // S = [Q | QV] [K | V]^T over the tile's 64 keys at the full depth
-    float s[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < Dm::DQK / 16; ++kk)
-      wgmma_ss<T, BN, 0, 0>(s, Tile<BM, Dm::DQK>::k_slice(Qs, 0, kk),
-                            Tile<BN, Dm::DQK>::k_slice(Ks, 0, kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    float own_c[2] = {1.f, 1.f}, own_rs[2] = {0.f, 0.f};
-    if (has_own) {
-      const int kn = own * BN;
-      // the maxima after tile own - 1 (published by the other warpgroup, or
-      // by this one two tiles ago and already applied)
-      float m_prev[2] = {-INFINITY, -INFINITY};
-      if (own > 0) {
-        mbar_wait(&ready[(own - 1) & 1], ((own - 1) >> 1) & 1);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) m_prev[i] = m_buf[((own - 1) & 1) * BM + warp * 16 + g + 8 * i];
-      }
-      const bool need_mask = kn + BN - 1 > lim_first || kn + BN > sk;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = __fmul_rn(s[4 * j + e], p.scale_log2);
-          if (need_mask) {
-            const int col = kn + 8 * j + 2 * t4 + (e & 1);
-            if (col >= sk || col > lim[e >> 1]) x = -INFINITY;
-          }
-          s[4 * j + e] = x;
-        }
-      }
-      float m_new[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
-        m_new[i] = fmaxf(m_prev[i], quad_max(mx));
-        // a row that has seen no key yet keeps m = -inf; exponentiate
-        // against 0 so that it gives 0 and not NaN
-        const float m_safe = m_new[i] == -INFINITY ? 0.f : m_new[i];
-        own_c[i] = exp2_ftz(m_prev[i] - m_safe);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          s[4 * j + 2 * i] = exp2_ftz(s[4 * j + 2 * i] - m_safe);
-          s[4 * j + 2 * i + 1] = exp2_ftz(s[4 * j + 2 * i + 1] - m_safe);
-          rs += s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
-        }
-        own_rs[i] = rs;
-      }
-      // V rows past the keys of the ragged tile: zeros (whole 128-byte rows
-      // of each V panel, so the swizzle does not matter)
-      if (kn + BN > sk) {
-        const int first = sk - kn;
-        const int per_panel = (BN - first) * 8;  // 16-byte chunks
-        for (int i = tid & 127; i < per_panel * (Dm::DV / 64); i += 128) {
-          const int c = i / per_panel;
-          const int r = first + (i - c * per_panel) / 8;
-          *reinterpret_cast<uint4*>(Ks + (D / 64 + c) * PANEL + r * 128 + (i & 7) * 16) =
-              make_uint4(0, 0, 0, 0);
-        }
-      }
-      // P into the tile's first K panel, the maxima and factors beside it
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = warp * 16 + g + 8 * i;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-          *reinterpret_cast<uint32_t*>(Ks + swz128(r, 8 * j + 2 * t4)) =
-              Elem<T>::pack(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]);
-        if (t4 == 0) {
-          m_buf[wg * BM + r] = m_new[i];
-          c_buf[wg * BM + r] = own_c[i];
-        }
-      }
-      fence_proxy_async();  // P and the zeroed rows before wgmma reads them
-      mbar_arrive(&ready[wg]);
-    }
-
-    // O += P V for the pair's tiles in order, each rescaled first
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int n = n0 + k;
-      if (n >= n_tiles) break;
-      unsigned char* Ps = stage(k);
-      mbar_wait(&ready[k], (n >> 1) & 1);
-      const bool mine = n == own;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = warp * 16 + g + 8 * i;
-        const float c = mine ? own_c[i] : c_buf[k * BM + r];
-        m_r[i] = m_buf[k * BM + r];
-        l_r[i] = __fmaf_rn(l_r[i], c, mine ? own_rs[i] : 0.f);
-#pragma unroll
-        for (int b = 0; b < DVH / NB; ++b)
-#pragma unroll
-          for (int j = 0; j < NB / 8; ++j) {
-            o[b][4 * j + 2 * i] = __fmul_rn(o[b][4 * j + 2 * i], c);
-            o[b][4 * j + 2 * i + 1] = __fmul_rn(o[b][4 * j + 2 * i + 1], c);
-          }
-      }
-#pragma unroll
-      for (int b = 0; b < DVH / NB; ++b) fence_regs(o[b]);
-      wgmma_fence();
-#pragma unroll
-      for (int b = 0; b < DVH / NB; ++b) {
-        const unsigned char* Vs = Ps + (D / 64 + (wg * DVH + b * NB) / 64) * PANEL;
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk)
-          wgmma_ss<T, NB, 0, 1>(o[b], Tile<BM, 64>::k_slice(Ps, 0, kk),
-                                desc_mn(Vs + 16 * kk * 128, PANEL), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-#pragma unroll
-      for (int b = 0; b < DVH / NB; ++b) fence_regs(o[b]);
-      mbar_arrive(&empty[k]);
-      if (issuer && n + 2 < n_tiles) {
-        mbar_wait(&empty[k], (n >> 1) & 1);  // both warpgroups are done with tile n
-        issue_keys(n + 2);
-      }
-    }
-  }
-
-  // the row sums over both warpgroups; both are then past their last score
-  // product, so O may be staged in the Q panels
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] = quad_sum(l_r[i]);
-    if (t4 == 0) l_buf[wg * BM + warp * 16 + g + 8 * i] = l_r[i];
-  }
-  __syncthreads();
-  unsigned char* ow = Qs + (wg * DVH / 64) * PANEL;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + g + 8 * i;
-    const float l = l_r[i] + l_buf[(wg ^ 1) * BM + r];
-    const float inv = l == 0.f ? 0.f : 1.f / l;
+    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
 #pragma unroll
     for (int b = 0; b < DVH / NB; ++b)
 #pragma unroll
       for (int j = 0; j < NB / 8; ++j) {
         const int col = b * NB + 8 * j + 2 * t4;  // within the half
         *reinterpret_cast<uint32_t*>(ow + (col / 64) * PANEL + swz128(r, col % 64)) =
-            Elem<T>::pack(o[b][4 * j + 2 * i] * inv, o[b][4 * j + 2 * i + 1] * inv);
+            Elem<T>::pack(a.o[b][4 * j + 2 * i] * inv, a.o[b][4 * j + 2 * i + 1] * inv);
       }
     const int pos = p0 + r / p.gb;
     if (wg == 0 && t4 == 0 && pos < sq)
       p.lse[(int64_t)(start + pos) * p.l_st + (int64_t)(head0 + r % p.gb) * p.l_sh] =
-          l == 0.f ? -INFINITY : __fmaf_rn(m_r[i], FA_LN2, logf(l));
+          l[i] == 0.f ? -INFINITY : __fmaf_rn(a.m_r[i], FA_LN2, logf(l[i]));
   }
   named_barrier(2 + wg, 128);
   for (int i = tid & 127; i < BM * (DVH / 8); i += 128) {
@@ -416,33 +140,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <typename T, typename Dm>
-cudaError_t launch(const PrefillMaps& maps, const PrefillParams& p, int b, int row_tiles,
-                   cudaStream_t stream) {
-  constexpr int smem = Layout<Dm>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<T, Dm>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  paged_prefill_kernel<T, Dm><<<dim3(b * p.h_k, row_tiles), THREADS, smem, stream>>>(maps, p);
-  return cudaGetLastError();
-}
-
 template <typename T>
-cudaError_t launch_form(const PrefillMaps& maps, const PrefillParams& p, int b,
-                        int row_tiles, int d, int dv, cudaStream_t stream) {
-  if (d == 64 && dv == 512) return launch<T, Dims<64, 512>>(maps, p, b, row_tiles, stream);
-  if (d == 64 && dv == 128) return launch<T, Dims<64, 128>>(maps, p, b, row_tiles, stream);
-  if (d == 128 && dv == 128) return launch<T, Dims<128, 128>>(maps, p, b, row_tiles, stream);
-  return cudaErrorInvalidValue;
-}
-
-int gcd(int a, int b) {
-  while (b) {
-    const int t = a % b;
-    a = b;
-    b = t;
-  }
-  return a;
+cudaError_t launch(const PrefillMaps& maps, const PrefillParams& p, int b, int row_tiles, int d,
+                   int dv, cudaStream_t stream) {
+  // The forms of dispatch/config.py PAGED_PREFILL_DIMS.
+  return mla_dispatch<MlaDims<64, 512, true>, MlaDims<64, 128, true>,
+                      MlaDims<128, 128, true>>(d, dv, true, [&](auto dims) {
+    using Dm = decltype(dims);
+    constexpr int smem = MlaLayout<Dm>::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_prefill_kernel<T, Dm>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    paged_prefill_kernel<T, Dm>
+        <<<dim3(b * p.h_k, row_tiles), MLA_THREADS, smem, stream>>>(maps, p);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -480,11 +192,11 @@ extern "C" int fa_paged_prefill(
   p.t_sb = t_sb;
   p.h_k = h_k;
   p.group = h / h_k;
-  p.gb = gcd(p.group, BM);
-  p.pb = BM / p.gb;
+  p.gb = gcd64(p.group);
+  p.pb = MLA_BM / p.gb;
   p.head_blocks = p.group / p.gb;
   p.page_size = page_size;
-  p.box_rows = gcd(page_size, BN);
+  p.box_rows = gcd64(page_size);
   p.table_width = table_width;
   p.num_pages = num_pages;
   p.scale_log2 = scale_log2;
@@ -500,6 +212,6 @@ extern "C" int fa_paged_prefill(
                               {v_ss, v_sh, v_sp}, p.box_rows)))
     return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)launch_form<__nv_bfloat16>(maps, p, b, row_tiles, d, dv, st);
-  return (int)launch_form<__half>(maps, p, b, row_tiles, d, dv, st);
+  if (is_bf16) return (int)launch<__nv_bfloat16>(maps, p, b, row_tiles, d, dv, st);
+  return (int)launch<__half>(maps, p, b, row_tiles, d, dv, st);
 }

@@ -1,6 +1,6 @@
-// Packed-varlen prefill attention over a paged KV cache for Hopper (sm_90a),
-// bf16 / fp16, head dim 64 or 128: the prefix-cached chunked prefill of the
-// serving engine.
+// Packed-varlen prefill attention over a paged KV cache for Hopper (sm_90a)
+// on wgmma and TMA, bf16 / fp16, head dim 64 or 128: the prefix-cached
+// chunked prefill of the serving engine.
 //
 // Replaces the TPU kernel
 // flash_attn_tpu/kernels/flash_varlen_paged.py:_varlen_paged_kernel (B8).
@@ -22,131 +22,130 @@
 // the floor is memory traffic, about 15 us. Longer chunks (more query rows
 // per key) move the floor to the tensor cores' rate.
 //
-// What the design does about it: not the TPU's persistent grid of one step
-// per KV head walking a flat work list (blocks run in parallel on Hopper,
-// with no order between them), but one block per (64-row query tile of one
-// sequence, query head), with the forward tile loop of fwd_tile.cuh (Q in
-// registers as mma.sync fragments, 64-key K/V tiles through cp.async into
-// swizzled shared memory, both products on the tensor cores, the online
-// softmax in fp32 registers). Each block reads its (sequence, first local
-// row) from a per-tile array the wrapper builds with torch ops (the
-// counterpart of the JAX function's seq_of / qloc), so nothing is read back
-// to the host. K/V tiles load row by row through the page table (PagedKV):
-// key position j is row j % page_size of page table[s, j / page_size], so
-// any page size works. Rows past seqused_q are in no tile; the wrapper
-// fills them with zeros and lse -inf. Left for later: wgmma and TMA page
-// copies, a shared-memory ring that keeps loads in flight across tiles,
-// one block for the GQA group's query heads (each head's block reads its
-// K/V tiles again here), and a persistent schedule.
+// What the design does about it: B6's forward (csrc/flash_varlen_fwd.cu)
+// with a paged K/V source. One block per item, a 128-row query tile of one
+// sequence and query head, walked head by head so that the blocks in flight
+// read one head's pages from L2, and in a head sequence by sequence, each
+// sequence's last tile (its longest causal band) first. The work list is a
+// running count of each sequence's tiles, built by the wrapper with torch
+// ops on the device; a block finds its sequence by binary search. (B6's
+// list of (sequence, row) pairs sorted by band takes some 40 small torch
+// ops a call, which added 0.13 ms to the call at the prefix admission,
+// against the kernel's 0.028: PERF.md.) Each block runs the forward tile
+// of fwd_sm90.cuh: Q once by TMA from the packed (total_q, h, d) tensor,
+// 64-key K/V tiles through a two-stage TMA ring, both products on wgmma,
+// two blocks an SM. The K/V
+// tiles come from the pages through this file's fwd_issue_kv: the issuing
+// thread resolves each box's page once a tile (PagedRows, sm90.cuh: the
+// table entry clamped to the table and the page to the pool) and copies it
+// as a TMA box of gcd(page_size, 64) rows over 4D maps of the caches, so any
+// page size works. Keys past seqlens_k in the last page may hold anything:
+// their scores are masked to -inf and their V rows zeroed in shared memory
+// (ZERO_TAIL). Query rows past the sequence (a neighbour's, in the packed
+// tensor) are computed and never stored; rows past seqused_q are in no tile
+// and keep the wrapper's zeros and -inf. Over pages it gives B6's forward's
+// bits over the same rows packed. Left for later: one block for a GQA
+// group's query heads (each head's block reads its K/V tiles again) and a
+// persistent walk.
 
-#include "fwd_tile.cuh"
+#include "fwd_sm90.cuh"
 
 namespace {
 
-constexpr int BM = fa::FWD_BM;  // query rows per block
-constexpr int BN = fa::FWD_BN;  // keys per K/V tile
-constexpr int NTHREADS = fa::FWD_THREADS;
+using namespace fa;
+using namespace fa::sm90;
 
 struct VarlenPagedParams {
-  const void* q;       // (total_q, h, d) by strides
-  const void* kp;      // (num_pages, h_k, page_size, d) by strides
-  const void* vp;
+  void* out;           // (total_q, h, d), zeroed by the wrapper
+  float* lse;          // (h, total_q), -inf-filled by the wrapper
   const int* cu_q;     // (b + 1,) token offsets of the packed layout
-  const int* lens_q;   // (b,) true query lengths (seqused_q, or cu deltas)
+  const int* lens_q;   // (b,) true query lengths (seqused_q, cut to cu deltas)
   const int* lens_k;   // (b,) key counts, the chunk included
   const int* table;    // (b, table_width) page ids
-  const int* tiles;    // (num_tiles, 2): sequence (-1: no tile), first row
-  void* out;           // (total_q, h, d) by strides
-  float* lse;          // (h, total_q)
-  int64_t q_st, q_sh;
-  int64_t k_sp, k_sh, k_ss;
-  int64_t v_sp, v_sh, v_ss;
-  int64_t o_st, o_sh;
-  int64_t t_sb;
-  int total_q, h, group, page_size, table_width, num_pages;
+  const int* tile_ends;  // (b,) inclusive prefix sums of each sequence's tiles
+  int64_t o_st, o_sh, t_sb;
+  int b, num_tiles, total_q, h, group, page_size, box_rows, table_width, num_pages;
   float scale_log2;
   int causal;
 };
 
-// K and V rows of one sequence and KV head through its row of the page
-// table (fwd_tile.cuh's loader interface); positions at or past nkeys are
-// zero-filled, table entries out of range read the nearest page.
-template <typename T, int D>
-struct PagedKV {
-  const T* k;  // page 0 of this KV head
-  const T* v;
-  const int* table_row;
-  int64_t k_sp, k_ss, v_sp, v_ss;  // page and row strides
-  int page_size, table_width, num_pages;
-
-  __device__ __forceinline__ void load(T* tile, const T* head_base,
-                                       int64_t page_stride, int64_t row_stride,
-                                       int n0, int nkeys, int tid) const {
-    constexpr int CHUNKS = D / 8;
-#pragma unroll
-    for (int i = 0; i < BN * CHUNKS / NTHREADS; ++i) {
-      const int c = tid + i * NTHREADS;
-      const int r = c / CHUNKS;
-      const int ch = c % CHUNKS;
-      const int key = n0 + r;
-      const bool ok = key < nkeys;
-      const T* src = head_base;
-      if (ok) {
-        const int col = key / page_size;
-        const int pg = min(max(table_row[min(col, table_width - 1)], 0),
-                           num_pages - 1);
-        src = head_base + pg * page_stride +
-              (int64_t)(key - col * page_size) * row_stride + ch * 8;
-      }
-      fa::cp_async_16(fa::smem_addr(tile + fa::swz<D>(r, ch)), src, ok ? 16 : 0);
-    }
-  }
-  __device__ __forceinline__ void load_k(T* tile, int n0, int nkeys,
-                                         int tid) const {
-    load(tile, k, k_sp, k_ss, n0, nkeys, tid);
-  }
-  __device__ __forceinline__ void load_v(T* tile, int n0, int nkeys,
-                                         int tid) const {
-    load(tile, v, v_sp, v_ss, n0, nkeys, tid);
+// Q rows of one sequence from token q0 of the packed tensor at head hq; K/V
+// rows of KV head hk through the sequence's pages.
+struct PagedSrc {
+  const CUtensorMap* q;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  PagedRows pages;
+  int q0, hq, hk, box_rows;
+  __device__ __forceinline__ void load_q(void* dst, uint64_t* bar, int col, int row) const {
+    tma_load_3d(dst, q, bar, col, q0 + row, hq);
   }
 };
 
+// fwd_sm90.cuh's fwd_issue_kv for the paged source (the more specialised
+// overload, found by argument-dependent lookup from fwd_tile): K/V tile n
+// as boxes of box_rows keys, each box's page resolved once for K's and V's
+// panels.
+template <int D>
+__device__ __forceinline__ void fwd_issue_kv(const PagedSrc& src, unsigned char* stage,
+                                             uint64_t* bar, int n) {
+  using L = FwdLayout<D>;
+  mbar_expect_tx(bar, L::STAGE_BYTES);
+  for (int j = 0; j < FWD_N / src.box_rows; ++j) {
+    int pg, row;
+    src.pages.locate(n * FWD_N + j * src.box_rows, pg, row);
+    unsigned char* dst = stage + j * src.box_rows * 128;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      tma_load_4d(dst + c * L::KT::PANEL_BYTES, src.k, bar, c * 64, row, src.hk, pg);
+      tma_load_4d(dst + L::KT::BYTES + c * L::KT::PANEL_BYTES, src.v, bar, c * 64, row, src.hk,
+                  pg);
+    }
+  }
+}
+
+// Item w = (head, i) = (w / num_tiles, w % num_tiles): head by head, and in
+// a head the sequences' tiles in order, sequence s owning i in
+// [tile_ends[s - 1], tile_ends[s]), its last tile (the longest causal band)
+// first. Items past the last tile exit.
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-    varlen_paged_kernel(const VarlenPagedParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int seq = p.tiles[2 * blockIdx.x];
-  if (seq < 0) return;  // past the last tile of the batch
-  const int hh = blockIdx.y;
-  const int kh = hh / p.group;
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+    varlen_paged_kernel(const __grid_constant__ FwdMaps maps, const VarlenPagedParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const int hh = blockIdx.x / p.num_tiles;
+  const int i = blockIdx.x - hh * p.num_tiles;
+  if (i >= p.tile_ends[p.b - 1]) return;
+  int seq = 0;  // the first sequence whose tiles end past i
+  for (int hi = p.b - 1; seq < hi;) {
+    const int mid = (seq + hi) >> 1;
+    if (p.tile_ends[mid] > i)
+      hi = mid;
+    else
+      seq = mid + 1;
+  }
+  unsigned char* smem = align_1024(smem_raw);
   const int q0 = p.cu_q[seq];
-  fa::FwdTile<T> t;
-  t.q = reinterpret_cast<const T*>(p.q) + (int64_t)q0 * p.q_st + hh * p.q_sh;
+  const PagedSrc src{&maps.q, &maps.k, &maps.v,
+                     PagedRows{p.table + (int64_t)seq * p.t_sb, 0, p.page_size,
+                               p.table_width, p.num_pages},
+                     q0, hh, hh / p.group, p.box_rows};
+  FwdRows<T> t;
   t.out = reinterpret_cast<T*>(p.out) + (int64_t)q0 * p.o_st + hh * p.o_sh;
   t.lse = p.lse + (int64_t)hh * p.total_q + q0;
-  t.q_ss = p.q_st;
   t.o_ss = p.o_st;
   t.sq = p.lens_q[seq];
   t.sk = p.lens_k[seq];
-  t.m0 = p.tiles[2 * blockIdx.x + 1];
-  const PagedKV<T, D> kv{reinterpret_cast<const T*>(p.kp) + kh * p.k_sh,
-                         reinterpret_cast<const T*>(p.vp) + kh * p.v_sh,
-                         p.table + seq * p.t_sb,
-                         p.k_sp, p.k_ss, p.v_sp, p.v_ss,
-                         p.page_size, p.table_width, p.num_pages};
-  fa::fwd_tile<T, D>(t, kv, p.scale_log2, p.causal, smem_raw);
+  t.m0 = (p.tile_ends[seq] - 1 - i) * FWD_M;
+  fwd_tile<T, D, true>(src, t, p.scale_log2, p.causal, smem);
 }
 
 template <typename T, int D>
-cudaError_t launch(const VarlenPagedParams& p, int num_tiles,
-                   cudaStream_t stream) {
-  const int smem = fa::fwd_smem_bytes<T, D>();
+cudaError_t launch(const FwdMaps& maps, const VarlenPagedParams& p, cudaStream_t stream) {
+  constexpr int smem = FwdLayout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      varlen_paged_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      varlen_paged_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(num_tiles, p.h);
-  varlen_paged_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(p);
+  varlen_paged_kernel<T, D><<<p.num_tiles * p.h, FWD_THREADS, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -154,51 +153,60 @@ cudaError_t launch(const VarlenPagedParams& p, int num_tiles,
 
 // q (total_q, h, d) and out by element strides (token, head), the head dim
 // contiguous; pages (num_pages, h_k, page_size, d) by strides (page, head,
-// row); lse (h, total_q) fp32; tiles (num_tiles, 2) int32 from the wrapper.
-// block_q/block_k must name the tile the kernel is compiled for
-// (dispatch/config.py VARLEN_PAGED_TILE). Returns a cudaError_t (0 on
-// success).
+// row); every start and stride 16-byte aligned (TMA); lse (h, total_q)
+// fp32; out zeroed and lse -inf-filled by the wrapper; tile_ends (b,) int32
+// from the wrapper, the running count of tiles of block_q rows over the b
+// sequences, num_tiles at least its last entry. block_q/block_k must name
+// the tile the kernel is compiled for (dispatch/config.py FWD_TILE).
+// Returns a cudaError_t (0 on success).
 extern "C" int fa_varlen_paged(
     const void* q, const void* kp, const void* vp, const int* cu_q,
-    const int* lens_q, const int* lens_k, const int* table, const int* tiles,
-    void* out, float* lse, int num_tiles, int total_q, int h, int h_k, int d,
+    const int* lens_q, const int* lens_k, const int* table, const int* tile_ends,
+    void* out, float* lse, int b, int num_tiles, int total_q, int h, int h_k, int d,
     int page_size, int table_width, int num_pages, int block_q, int block_k,
     int64_t q_st, int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_ss,
     int64_t v_sp, int64_t v_sh, int64_t v_ss, int64_t o_st, int64_t o_sh,
     int64_t t_sb, float scale_log2, int causal, int is_bf16, void* stream) {
-  if (block_q != BM || block_k != BN) return (int)cudaErrorInvalidValue;
-  if (num_tiles == 0) return 0;
+  if (block_q != FWD_M || block_k != FWD_N || h_k < 1 || h % h_k != 0 || (d != 64 && d != 128) ||
+      page_size < 1 || table_width < 1 || num_pages < 1 || b < 1 ||
+      (int64_t)num_tiles * h > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  if (num_tiles == 0 || total_q == 0) return 0;
   VarlenPagedParams p;
-  p.q = q;
-  p.kp = kp;
-  p.vp = vp;
+  p.out = out;
+  p.lse = lse;
   p.cu_q = cu_q;
   p.lens_q = lens_q;
   p.lens_k = lens_k;
   p.table = table;
-  p.tiles = tiles;
-  p.out = out;
-  p.lse = lse;
-  p.q_st = q_st; p.q_sh = q_sh;
-  p.k_sp = k_sp; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sp = v_sp; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.o_st = o_st; p.o_sh = o_sh;
+  p.tile_ends = tile_ends;
+  p.o_st = o_st;
+  p.o_sh = o_sh;
   p.t_sb = t_sb;
+  p.b = b;
+  p.num_tiles = num_tiles;
   p.total_q = total_q;
   p.h = h;
   p.group = h / h_k;
   p.page_size = page_size;
+  p.box_rows = gcd64(page_size);
   p.table_width = table_width;
   p.num_pages = num_pages;
   p.scale_log2 = scale_log2;
   p.causal = causal;
+  FwdMaps maps;
+  cudaError_t err;
+  if ((err = make_tile_map<3>(&maps.q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, FWD_M)) ||
+      (err = make_tile_map<4>(&maps.k, kp, is_bf16, {d, page_size, h_k, num_pages},
+                              {k_ss, k_sh, k_sp}, p.box_rows)) ||
+      (err = make_tile_map<4>(&maps.v, vp, is_bf16, {d, page_size, h_k, num_pages},
+                              {v_ss, v_sh, v_sp}, p.box_rows)))
+    return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (d == 64) return launch<__nv_bfloat16, 64>(p, num_tiles, st);
-    if (d == 128) return launch<__nv_bfloat16, 128>(p, num_tiles, st);
-  } else {
-    if (d == 64) return launch<__half, 64>(p, num_tiles, st);
-    if (d == 128) return launch<__half, 128>(p, num_tiles, st);
+    if (d == 64) return (int)launch<__nv_bfloat16, 64>(maps, p, st);
+    return (int)launch<__nv_bfloat16, 128>(maps, p, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (d == 64) return (int)launch<__half, 64>(maps, p, st);
+  return (int)launch<__half, 128>(maps, p, st);
 }

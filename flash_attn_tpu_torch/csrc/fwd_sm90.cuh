@@ -1,12 +1,13 @@
 // The attention forward tile for Hopper (sm_90a) on wgmma and TMA, shared by
-// the dense forward (csrc/flash_fwd.cu, B1) and the packed-varlen forwards
-// (csrc/flash_varlen_fwd.cu, B6 and the persistent B7): one block of two
-// warpgroups computes 128 query rows of one sequence and head against the
-// 64-key tiles of its causal band. It is the sm_90a counterpart of the
-// mma.sync tile loop of fwd_tile.cuh, which B8 and the block-sparse forward
-// keep. fwd_tile runs one tile of rows in a block; B7 runs its pieces
-// (fwd_issue_q / fwd_issue_kv, fwd_step a K/V tile, fwd_epilogue) over
-// several tiles with the K/V ring carried across them.
+// the dense forward (csrc/flash_fwd.cu, B1), the packed-varlen forwards
+// (csrc/flash_varlen_fwd.cu, B6 and the persistent B7) and the paged varlen
+// prefill (csrc/flash_varlen_paged.cu, B8): one block of two warpgroups
+// computes 128 query rows of one sequence and head against the 64-key tiles
+// of its causal band. It is the sm_90a counterpart of the mma.sync tile loop
+// of fwd_tile.cuh, which the block-sparse forward keeps. fwd_tile runs one
+// tile of rows in a block; B7 runs its pieces (fwd_issue_q / fwd_issue_kv,
+// fwd_step a K/V tile, fwd_epilogue) over several tiles with the K/V ring
+// carried across them.
 //
 // What it computes is what flash_attn_tpu/kernels/flash_fwd.py:_fwd_kernel
 // computes, with the causal diagonal of flash_fwd_split.py:_diag_kernel:
@@ -101,7 +102,10 @@ struct FwdAcc {
 };
 
 // Issue the TMA loads of K/V tile n (keys [64 n, 64 n + 64)) of `src` into
-// `stage`, counted on `bar`.
+// `stage`, counted on `bar`: one box a panel. A source whose tiles are not
+// one box a panel overloads fwd_issue_kv for its own type, found by
+// argument-dependent lookup (B8's paged source copies a tile as boxes of one
+// page's rows).
 template <int D, typename Src>
 __device__ __forceinline__ void fwd_issue_kv(const Src& src, unsigned char* stage,
                                              uint64_t* bar, int n) {

@@ -1,12 +1,10 @@
-// The mma.sync forward tile loop shared by the packed prefill over a paged
-// cache (B8, csrc/flash_varlen_paged.cu) and the block-sparse forward (B10,
+// The mma.sync forward tile loop of the block-sparse forward (B10,
 // csrc/flash_blocksparse.cu): one block of 4 warps computes 64 query rows of
-// one sequence and head against the keys of its causal band, or against the
-// key tiles of a list. The callers differ only in where a tile's sequence
-// starts, how long it is, how its K/V rows are found (a row stride, or a
-// page table) and which key tiles it walks, so the same tile gives the same
-// bits in each. The dense forward (B1) and the packed-varlen forwards (B6,
-// B7) run the wgmma/TMA tile of fwd_sm90.cuh instead.
+// one sequence and head against the key tiles of a list (a walk policy; the
+// dense causal band is common.cuh's KeyRange), with K/V rows a row stride
+// apart (LinearKV). The dense forward (B1), the packed-varlen forwards (B6,
+// B7) and the paged varlen prefill (B8) run the wgmma/TMA tile of
+// fwd_sm90.cuh instead.
 //
 // Q stays in registers as mma fragments for the whole loop; 64-key K/V tiles
 // arrive with cp.async into XOR-swizzled shared memory so the ldmatrix reads
@@ -87,12 +85,12 @@ struct LinearKV {
   }
 };
 
-// KV: load_k / load_v(tile, n0, nkeys, tid) copy key rows [n0, n0 + 64) into
+// kv.load_k / load_v(tile, n0, nkeys, tid) copy key rows [n0, n0 + 64) into
 // a swizzled shared tile, zero-filling rows at or past nkeys. Walk: the key
-// tiles to visit (common.cuh KeyRange; the block-sparse kernel's list of
-// listed tiles), each masked as the dense loop masks it.
-template <typename T, int D, typename KV, typename Walk>
-__device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const KV& kv,
+// tiles to visit (the block-sparse kernel's list of listed tiles; common.cuh
+// KeyRange is the dense band), each masked as the dense loop masks it.
+template <typename T, int D, typename Walk>
+__device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const LinearKV<T, D>& kv,
                                          const Walk& walk, float scale_log2,
                                          bool causal, unsigned char* smem) {
   using E = Elem<T>;
@@ -241,15 +239,6 @@ __device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const KV& kv,
     }
     if (t4 == 0) t.lse[row] = l == 0.f ? -INFINITY : __fmaf_rn(m_r[i], FA_LN2, logf(l));
   }
-}
-
-// The dense walk: every key tile of the tile's causal band.
-template <typename T, int D, typename KV>
-__device__ __forceinline__ void fwd_tile(const FwdTile<T>& t, const KV& kv,
-                                         float scale_log2, bool causal,
-                                         unsigned char* smem) {
-  fwd_tile<T, D>(t, kv, KeyRange<FWD_BN>(t.m0, FWD_BM, t.sq, t.sk, causal),
-                 scale_log2, causal, smem);
 }
 
 }  // namespace fa

@@ -1,8 +1,8 @@
 // Hopper building blocks of the dense attention backward (csrc/flash_bwd.cu),
-// the forward tile (csrc/fwd_sm90.cuh) and the MLA paged prefill
-// (csrc/flash_paged_prefill.cu): mbarriers, TMA tile loads and bulk copies,
-// wgmma with its shared-memory descriptors, the layout of a tile in shared
-// memory, and the host-side encoding of the TMA tensor maps.
+// the forward tile (csrc/fwd_sm90.cuh) and the MLA tile (csrc/mla_sm90.cuh):
+// mbarriers, TMA tile loads and bulk copies, wgmma with its shared-memory
+// descriptors, the layout of a tile in shared memory, where a paged cache
+// keeps a key, and the host-side encoding of the TMA tensor maps.
 //
 // Tile layout. A tile of R rows by D columns (D = 64 or 128 elements of 2
 // bytes) is stored as D / 64 panels of 64 columns; a panel is R rows of 128
@@ -200,7 +200,7 @@ __device__ __forceinline__ uint64_t desc_mn(const void* p, uint32_t group_bytes)
   "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x N, fp32) = A B + (scale_d ? d : 0), A and B from shared memory
-// (N = 64, or 128 for the MLA prefill's P V).
+// (N = 64, or 128 for the MLA tile's P V).
 #define FA_WGMMA_SS(N, TY, REGS, ACC, IA, IB, ISC, ITA, ITB)                \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #ISC ", 0;\n"           \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
@@ -312,6 +312,41 @@ struct Tile {
 // panel of 64 columns.
 __device__ __forceinline__ int swz128(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// ---- paged caches ----------------------------------------------------------
+
+// Where the keys of one sequence live in a paged cache (num_pages, h_k,
+// page_size, d): key `key` is row key % page_size of page table_row[key /
+// page_size], the table column clamped to the table and the page id to the
+// pool. A linear cache (b_c, h_k, s_max, d) is the same layout with one page
+// of s_max rows a batch row: table_row is nullptr and every key is on page
+// `page`. A copy of gcd64(page_size) keys that starts at a multiple of that
+// count stays within one page, so a 64-key tile is 64 / that many TMA boxes
+// over a 4D map of the cache, each box's page resolved once.
+struct PagedRows {
+  const int* table_row;  // this sequence's row of the block table, or nullptr
+  int page;              // the page of a linear cache (its batch row)
+  int page_size, table_width, num_pages;
+  __device__ __forceinline__ void locate(int key, int& pg, int& row) const {
+    const int col = key / page_size;
+    pg = table_row == nullptr
+             ? page
+             : min(max(table_row[min(col, table_width - 1)], 0), num_pages - 1);
+    row = key - col * page_size;
+  }
+};
+
+// gcd(x, 64): the rows of one TMA box of a paged cache of pages of x rows,
+// and the heads of one position in an MLA tile of a group of x heads.
+inline int gcd64(int x) {
+  int a = x, b = 64;
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
 }
 
 // Rounds the dynamic shared-memory base up to 1024 bytes (the swizzle's

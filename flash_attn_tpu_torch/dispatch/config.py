@@ -25,14 +25,19 @@ class FwdConfig:
 
 
 # Tile of csrc/fwd_sm90.cuh, the wgmma/TMA forward tile of the dense
-# forward (csrc/flash_fwd.cu, B1) and the packed-varlen forwards
-# (csrc/flash_varlen_fwd.cu: B6 and the persistent B7): 128 query rows (two
+# forward (csrc/flash_fwd.cu, B1), the packed-varlen forwards
+# (csrc/flash_varlen_fwd.cu: B6 and the persistent B7) and the paged varlen
+# prefill (csrc/flash_varlen_paged.cu, B8): 128 query rows (two
 # warpgroups of 64, wgmma's M) by 64 keys. At head dim 128 the Q tile and two
 # stages of K + V take 97 KB of shared memory, and a thread keeps 64 fp32
 # accumulators of O beside the 32 of S within 128 registers, so two blocks
 # share an SM. get_scheduler_metadata builds its forward work list (the
-# schedule) for this tile. The kernels check that the wrapper passes the tile
-# they were compiled for.
+# schedule) for this tile, and B8's wrapper counts each sequence's tiles of
+# it (kernels/flash_varlen_paged.py tile_ends). The JAX B8 picks bq =
+# min(512, next_pow2(max(max_seqlen_q, 128))) and a key tile of whole pages
+# (flash_varlen_paged.py:369-376) to move whole pages per DMA; here a 64-key
+# tile is boxes of gcd(page_size, 64) rows, so any page size fits it. The
+# kernels check that the wrapper passes the tile they were compiled for.
 FWD_TILE = FwdConfig(block_q=128, block_k=64)
 
 
@@ -95,13 +100,14 @@ DECODE_BLOCK_K = 64
 # up to 8, grid.z covers the rest): the split heuristic's row block there.
 DECODE_ROWS_PER_BLOCK = 8
 
-# Tile of csrc/mla_tile.cuh, the loop of the MLA decode route and of the
-# paged chunked prefill (B8p): 64 packed (position, head) rows, heads
-# fastest, by 64 keys. The TPU kernels pad d and dv to 128 lanes and size
-# the KV tile from the page (~512 rows); here 8 warps hold a 64 x 512 fp32
-# output in registers (a warp pair per 16 rows, each warp half the value
-# columns), and the Q tile plus two 64-key tiles at 576 columns take 216 KB
-# of shared memory. The split heuristic counts blocks of this tile.
+# Tile of csrc/mla_sm90.cuh, which the MLA decode route and the paged
+# chunked prefill (B8p) both run on wgmma and TMA: 64 packed (position,
+# head) rows, heads fastest (gcd(group, 64) heads of 64 / that many
+# positions), by 64 keys. The TPU kernels pad d and dv to 128 lanes and size
+# the KV tile from the page (~512 rows); here two warpgroups hold a 64 x 512
+# fp32 output in registers (each half the value columns), and the Q tile
+# plus two 64-key stages at 576 columns take 218 KB of shared memory. The
+# split heuristic counts blocks of this tile.
 MLA_TILE = FwdConfig(block_q=64, block_k=64)
 
 # The (d, dv, qv given) forms each MLA kernel is compiled for (the form
@@ -133,19 +139,6 @@ def decode_rows_per_block(d: int, dv: int, has_qv: bool) -> int:
     """Query rows one decode block holds, for the split heuristic."""
     return MLA_TILE.block_q if is_mla_form(d, dv, has_qv) \
         else DECODE_ROWS_PER_BLOCK
-
-# Tile of csrc/flash_varlen_paged.cu (the packed-varlen prefill over the
-# paged cache): 64 query rows of one sequence by 64 keys, the tile of the
-# mma.sync loop of csrc/fwd_tile.cuh, which it reuses. The JAX function picks
-# bq = min(512, next_pow2(max(max_seqlen_q, 128))) and bk = page_size *
-# min(8, 1024 // page_size) (flash_varlen_paged.py:369-376) to fill its
-# 128 x 128 matrix unit with tall tiles from a large VMEM and to move whole
-# pages per DMA. On the H100 a block of 4 warps holds 64 rows in mma.sync
-# fragments within the register budget, and small tiles give the 132 SMs
-# enough blocks: an admission of 8 chunks of 256 rows at 16 heads is 512
-# blocks. The K/V tile does not follow the page either: its rows load one
-# by one through the table, so any page size fits a 64-key tile.
-VARLEN_PAGED_TILE = FwdConfig(block_q=64, block_k=64)
 
 
 # The backward work lists of packed varlen attention (csrc/flash_varlen.cu):

@@ -205,9 +205,13 @@ def aliases_prefix(v, k) -> bool:
 
 def _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
                   softmax_scale, causal, block_table, qv):
-    """The MLA route on the card (csrc/flash_decode_mla.cu): qv scores
-    against V; the d, dv and qv of MLA_DECODE_DIMS; without qv, V must be
-    K's first dv columns, read from the same tile."""
+    """The MLA route on the card (csrc/flash_decode_mla.cu, on the wgmma +
+    TMA tile of csrc/mla_sm90.cuh): qv scores against V; the d, dv and qv of
+    MLA_DECODE_DIMS; without qv, V must be K's first dv columns, read from
+    the same tile. A linear cache goes to the kernel as b_c pages of s_max
+    rows. The operands are read by TMA: a view whose strides are not
+    multiples of 16 bytes, or whose start is not 16-byte aligned, raises
+    ValueError."""
     b, sq, h, d = q.shape
     b_c, h_k, s_max, _ = k_cache.shape
     dv = v_cache.shape[-1]
@@ -231,9 +235,12 @@ def _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
         operands.append(("qv", qv))
     for name, x in operands:
         _build.check_operand("flash_decode_mla", name, x, q.dtype, q.device)
-    rows = sq * (h // h_k)
-    if -(-rows // MLA_TILE.block_q) > 65535:
-        raise ValueError(f"flash_decode_mla kernel: {rows} rows a KV head")
+    group = h // h_k
+    gb = math.gcd(group, MLA_TILE.block_q)  # heads of one position in a tile
+    if -(-sq // (MLA_TILE.block_q // gb)) * (group // gb) > 65535:
+        raise ValueError(f"flash_decode_mla kernel: {sq * group} rows a KV "
+                         "head")
+    rows = sq * group
     out_p = torch.empty((num_splits, b, h_k, rows, dv), dtype=torch.float32,
                         device=q.device)
     lse_p = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32,
@@ -247,8 +254,7 @@ def _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
             block_table.data_ptr() if paged else None,
             out_p.data_ptr(), lse_p.data_ptr(),
             b, sq, h, h_k, d, dv, int(qv is not None), num_splits,
-            DECODE_BLOCK_K, s_max if paged else 0,
-            block_table.shape[1] if paged else 0, b_c if paged else 0,
+            DECODE_BLOCK_K, s_max, block_table.shape[1] if paged else 0, b_c,
             cache_capacity(k_cache, block_table),
             q.stride(0), q.stride(1), q.stride(2), qvs[0], qvs[1], qvs[2],
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),

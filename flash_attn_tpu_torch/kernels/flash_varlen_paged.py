@@ -8,10 +8,13 @@ packed along one token axis by ``cu_seqlens_q``; ``seqused_q`` gives each
 sequence's true length when the layout pads every slot to one length (the
 padded-flat layout of the engine's prefix-cached prefill). The JAX function
 gathers q into a tile-aligned copy and walks a flat work list; here the
-wrapper builds a (tile, 2) array of (sequence, first local row) with torch
-ops, no host sync, and the kernel reads q and writes out in the packed
-layout directly. A tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel or raises.
+wrapper counts each sequence's tiles of FWD_TILE's 128 rows
+(:func:`tile_ends`) with torch ops and no host sync, the kernel walks them
+head by head, and it reads q and writes out in the packed layout directly.
+The operands are read by TMA: a view whose strides are not multiples of 16
+bytes, or whose start is not 16-byte aligned, raises ValueError. A tensor
+on the CPU takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 import math
@@ -19,13 +22,10 @@ from typing import Optional
 
 import torch
 
-from flash_attn_tpu_torch.dispatch.config import (
-    KERNEL_HEAD_DIMS,
-    VARLEN_PAGED_TILE,
-)
+from flash_attn_tpu_torch.dispatch.config import FWD_TILE, KERNEL_HEAD_DIMS
 from flash_attn_tpu_torch.dispatch.varlen_meta import (
+    num_tiles_bound,
     sequence_lengths,
-    varlen_tiles,
 )
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.utils.testing import paged_to_linear
@@ -33,6 +33,14 @@ from flash_attn_tpu_torch.utils.testing import paged_to_linear
 LOG2E = math.log2(math.e)
 
 launches = 0  # kernel launches since the last reset (plain calls not counted)
+
+
+def tile_ends(lens_q, block_q: int):
+    """(b,) int32 running count of the tiles of ``block_q`` rows over
+    sequences of ``lens_q`` rows: sequence s owns tiles tile_ends[s - 1]
+    .. tile_ends[s] - 1, the kernel's work list."""
+    return torch.cumsum((lens_q + block_q - 1) // block_q, 0,
+                        dtype=torch.int32)
 
 
 def _lengths(cu_seqlens_q, seqused_q):
@@ -116,7 +124,7 @@ def flash_attention_varlen_paged_fwd(
         raise ValueError(
             f"flash_varlen_paged kernel: head dims q {d}, k {dk}, v "
             f"{v_pages.shape[-1]}; needs equal dims in {KERNEL_HEAD_DIMS}")
-    if h % h_k or h > 65535 or block_table.shape[0] != b or b < 1:
+    if h % h_k or block_table.shape[0] != b or b < 1:
         raise ValueError(f"flash_varlen_paged kernel: shapes q {tuple(q.shape)}"
                          f", pages {tuple(k_pages.shape)}, table "
                          f"{tuple(block_table.shape)}, {b} sequences")
@@ -129,10 +137,10 @@ def flash_attention_varlen_paged_fwd(
     cu = as_int32(cu_seqlens_q)
     lens_q, lens_k, table = (as_int32(x) for x in (
         sequence_lengths(cu, seqused_q), seqlens_k, block_table))
-    tile = VARLEN_PAGED_TILE
+    tile = FWD_TILE
     # rows past seqused_q are in no tile: they keep out's zeros and lse's -inf
-    tiles = varlen_tiles(lens_q, b * -(-max_seqlen_q // tile.block_q),
-                         tile.block_q)
+    ends = tile_ends(lens_q, tile.block_q)
+    num_tiles = num_tiles_bound(b, max_seqlen_q, total_q, tile.block_q)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     out = torch.zeros_like(q)
     lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
@@ -142,8 +150,8 @@ def flash_attention_varlen_paged_fwd(
         err = lib.fa_varlen_paged(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             cu.data_ptr(), lens_q.data_ptr(), lens_k.data_ptr(),
-            table.data_ptr(), tiles.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            tiles.shape[0], total_q, h, h_k, d, page_size, table.shape[1],
+            table.data_ptr(), ends.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, num_tiles, total_q, h, h_k, d, page_size, table.shape[1],
             num_pages, tile.block_q, tile.block_k,
             q.stride(0), q.stride(1),
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),

@@ -240,3 +240,73 @@ def test_mla_refusals_name_queue_a_7():
                dict(learnable_sink=torch.zeros(2))):
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
             flash_attention_paged_prefill(*args, **kw)
+
+
+DECODE_PARTIAL_FORMS = {
+    # DeepSeek's latent cache: K 576 wide, V its first 512 columns, no qv,
+    # over a linear cache whose s_max is not a multiple of 64
+    "latent_576_512_linear": dict(d=576, dv=512, qv=False, page=0),
+    # the absorbed form: a 64-wide rope key and qv against the 512-wide
+    # latent, over pages of 16
+    "qv_64_512_paged": dict(d=64, dv=512, qv=True, page=16),
+}
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("form", list(DECODE_PARTIAL_FORMS))
+def test_mla_decode_partials_combine_to_jax(form, splits):
+    """The contract the MLA decode kernel keeps: the plain split partials
+    (out_p (splits, b, h_k, sq * group, dv), lse_p), cut in runs of 64-key
+    tiles, merged by combine_splits, equal JAX's flash_attention_decode at
+    sq = 2, causal, with a row of length 1 (so that, at 3 and 8 splits,
+    splits are empty: zeros and lse -inf)."""
+    from flash_attn_tpu.kernels.flash_decode import (
+        flash_attention_decode as jax_decode,
+    )
+    from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
+    from flash_attn_tpu_torch.kernels import flash_decode
+
+    f = DECODE_PARTIAL_FORMS[form]
+    d, dv = f["d"], f["dv"]
+    rng = np.random.default_rng(splits)
+    b, sq, h, h_k = 2, 2, 4, 1
+    seqlens = np.array([1, 581], np.int32)
+    q = _rand(rng, b, sq, h, d)
+    qv = _rand(rng, b, sq, h, dv) if f["qv"] else None
+    if f["page"]:
+        width = -(-600 // f["page"])
+        table = rng.permutation(b * width).reshape(b, width).astype(np.int32)
+        kc = _rand(rng, b * width, h_k, f["page"], d)
+        vc = _rand(rng, b * width, h_k, f["page"], dv)
+    else:
+        table = None
+        kc = _rand(rng, b, h_k, 600, d)
+        vc = None
+    scale = 1.0 / math.sqrt(d + dv if f["qv"] else d)
+    kc_t = _t(kc)
+    vc_t = kc_t[..., :dv] if vc is None else _t(vc)
+    kc_j = jnp.asarray(kc)
+    vc_j = kc_j[..., :dv] if vc is None else jnp.asarray(vc)
+    out_j, lse_j = jax_decode(
+        _j(q), kc_j, vc_j, _j(seqlens), block_table=_j(table), qv=_j(qv),
+        softmax_scale=scale, causal=True, num_splits=splits, interpret=True)
+    args = (_t(q), kc_t, vc_t, _t(seqlens))
+    if table is None:
+        out_p, lse_p = flash_decode.flash_attention_decode_partials_plain(
+            *args, splits, DECODE_BLOCK_K, scale, True,
+            qv=None if qv is None else _t(qv))
+    else:
+        out_p, lse_p = flash_decode.flash_attention_decode_paged_partials_plain(
+            *args, _t(table), splits, DECODE_BLOCK_K, scale, True,
+            qv=None if qv is None else _t(qv))
+    assert out_p.shape == (splits, b, h_k, sq * h, dv)
+    empty = torch.isneginf(lse_p)
+    assert bool((out_p[empty] == 0).all())
+    # the row of one key: its splits past the first hold none
+    assert bool(empty[1:, 0].all())
+    out, lse = flash_decode.combine_splits(out_p, lse_p)
+    out = out.reshape(b, h_k, sq, h, dv).permute(0, 2, 1, 3, 4).reshape(
+        b, sq, h, dv)
+    lse = lse.reshape(b, h_k, sq, h).transpose(2, 3).reshape(b, h, sq)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), **TOL)
+    _assert_lse(lse, lse_j)

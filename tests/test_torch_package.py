@@ -18,6 +18,7 @@ from flash_attn_tpu_torch import flash_attn_func, flash_attn_with_kvcache
 from flash_attn_tpu_torch.cache.kvcache import kv_cache_update
 from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
 from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
+from flash_attn_tpu_torch.utils.cases import VARLEN_CASES
 
 torch.set_num_threads(1)
 
@@ -230,11 +231,13 @@ def test_dense_backward_sources_use_wgmma_and_tma():
 
 
 @pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_varlen_fwd.cu",
-                                    "flash_paged_prefill.cu"])
+                                    "flash_paged_prefill.cu",
+                                    "flash_decode_mla.cu",
+                                    "flash_varlen_paged.cu"])
 def test_forward_sources_use_wgmma_and_tma(source):
-    """B1, B6's forward and B7, and B8p (with the headers they include) run
-    both products on wgmma and load their tiles by TMA; none includes the
-    mma.sync tile loop of fwd_tile.cuh."""
+    """B1, B6's forward and B7, B8p, the MLA decode route and B8 (with the
+    headers they include) run both products on wgmma and load their tiles
+    by TMA; none includes the mma.sync tile loop of fwd_tile.cuh."""
     text = _included_sources(PKG / "csrc" / source)
     assert "wgmma.mma_async" in text
     assert "cp.async.bulk.tensor" in text
@@ -244,12 +247,12 @@ def test_forward_sources_use_wgmma_and_tma(source):
 
 @pytest.mark.parametrize("source, header", [
     ("flash_varlen_fwd.cu", "fwd_sm90.cuh"),
-    ("flash_varlen_paged.cu", "fwd_tile.cuh"),
+    ("flash_varlen_paged.cu", "fwd_sm90.cuh"),
     ("flash_blocksparse.cu", "fwd_tile.cuh")])
 def test_old_forward_tile_still_serves_b7_b8_and_b10(source, header):
-    """B7 now sits beside B6's forward on the wgmma tile of fwd_sm90.cuh;
-    B8 and the block-sparse forward keep the mma.sync tile loop of
-    fwd_tile.cuh."""
+    """B7 sits beside B6's forward on the wgmma tile of fwd_sm90.cuh, and so
+    does B8 with its paged source; the block-sparse forward alone keeps the
+    mma.sync tile loop of fwd_tile.cuh."""
     text = (PKG / "csrc" / source).read_text()
     assert header in re.findall(r'^#include "([^"]+)"', text, re.MULTILINE)
     if source == "flash_varlen_fwd.cu":
@@ -259,14 +262,17 @@ def test_old_forward_tile_still_serves_b7_b8_and_b10(source, header):
 
 
 def test_paged_prefill_no_longer_includes_the_mla_tile():
-    """B8p runs its own wgmma loop; the MLA decode route keeps the
-    mma.sync loop of mla_tile.cuh."""
-    def includes(source):
-        return re.findall(r'^#include "([^"]+)"',
-                          (PKG / "csrc" / source).read_text(), re.MULTILINE)
-
-    assert "mla_tile.cuh" not in includes("flash_paged_prefill.cu")
-    assert "mla_tile.cuh" in includes("flash_decode_mla.cu")
+    """B8p and the MLA decode route share the wgmma tile of mla_sm90.cuh;
+    the mma.sync loop of mla_tile.cuh is gone and no source includes it."""
+    sources = sorted((PKG / "csrc").glob("*.cu*"))
+    for f in sources:
+        assert "mla_tile.cuh" not in re.findall(
+            r'^#include "([^"]+)"', f.read_text(), re.MULTILINE), f.name
+    assert not (PKG / "csrc" / "mla_tile.cuh").exists()
+    for source in ("flash_paged_prefill.cu", "flash_decode_mla.cu"):
+        assert "mla_sm90.cuh" in re.findall(
+            r'^#include "([^"]+)"', (PKG / "csrc" / source).read_text(),
+            re.MULTILINE)
 
 
 def test_host_tensor_map_helpers_have_one_copy():
@@ -803,6 +809,255 @@ def test_mla_kernels_narrow_qv_forms_on_the_card(d, dtype):
         assert torch.equal(torch.isfinite(got[1]), fin)
         torch.testing.assert_close(got[1][fin], want[1][fin], atol=1e-3,
                                    rtol=0)
+
+
+def _holed_pages(gen, lens_k, h_k, widths, page, dtype):
+    """Pages (num_pages, h_k, page, w) for each width in ``widths`` and a
+    shuffled block table (one column more than the lengths need, pointing at
+    a page no sequence reaches), with NaN in every slot the sequences do not
+    reference: a kernel that reads past a sequence's keys shows it."""
+    width = max(-(-max(n, 1) // page) for n in lens_k) + 1
+    num_pages = len(lens_k) * width + 1
+    table = torch.randperm(num_pages - 1, device="cuda", generator=gen)[
+        :len(lens_k) * width].reshape(len(lens_k), width).to(torch.int32)
+    valid = torch.zeros(num_pages, page, dtype=torch.bool, device="cuda")
+    for s, n in enumerate(lens_k):
+        for key in range(n):
+            valid[table[s, key // page], key % page] = True
+    table[:, -1] = num_pages - 1
+    pages = [torch.where(valid[:, None, :, None],
+                         torch.randn(num_pages, h_k, page, w, device="cuda",
+                                     generator=gen).to(dtype), float("nan"))
+             for w in widths]
+    return pages, table
+
+
+# The MLA decode route's edge cases (name, h, h_k, d, dv, qv, page (0: a
+# linear cache), s_max of a linear cache, sq, dtype): every form of
+# MLA_DECODE_DIMS, pages of 16, 64 and 256, linear caches with s_max not a
+# multiple of 64, sq = 3 under the causal mask, GQA tiles over several
+# positions (16/2) and a group that 64 does not divide (48 heads: tiles of 4
+# positions by 16 heads).
+MLA_DECODE_EDGE_CASES = [
+    ("qv 64 + 512, pages of 16", 128, 1, 64, 512, True, 16, 0, 1,
+     torch.bfloat16),
+    ("qv 64 + 512, pages of 64, sq=3", 128, 1, 64, 512, True, 64, 0, 3,
+     torch.bfloat16),
+    ("qv 64 + 512, pages of 256, fp16", 128, 1, 64, 512, True, 256, 0, 1,
+     torch.float16),
+    ("576/512 latent view, linear s_max 1000", 128, 1, 576, 512, False, 0,
+     1000, 1, torch.bfloat16),
+    ("576/512 latent view, linear s_max 640, sq=3", 16, 1, 576, 512, False, 0,
+     640, 3, torch.bfloat16),
+    ("qv 64 + 128, linear s_max 200, GQA 16/2, sq=3, fp16", 16, 2, 64, 128,
+     True, 0, 200, 3, torch.float16),
+    ("qv 128 + 128, pages of 64, 48 heads, sq=2", 48, 1, 128, 128, True, 64,
+     0, 2, torch.bfloat16),
+]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", MLA_DECODE_EDGE_CASES, ids=lambda c: c[0])
+def test_mla_decode_route_edge_cases_on_the_card(case):
+    """The MLA decode route's split partials against their plain version at
+    1, 3 and 8 splits (a row of one key: its later splits are empty, zeros
+    and lse -inf), with NaN in every cache slot past cache_seqlens, which
+    must not reach the output; the kernel gives the same bits twice."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+
+    name, h, h_k, d, dv, has_qv, page, s_max, sq, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(d + dv + page + sq)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    b = 4
+    lens = [1, 64, 333, 600] if page else [1, 64, s_max // 3, s_max]
+    seqlens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if page:
+        (kc, vc), table = _holed_pages(gen, lens, h_k, (d, dv), page, dtype)
+        kw = dict(block_table=table)
+    else:
+        keep = torch.arange(s_max, device="cuda")[None, :] < seqlens[:, None]
+        kc = torch.where(keep[:, None, :, None], randn(b, h_k, s_max, d),
+                         float("nan")).to(dtype)
+        vc = (torch.where(keep[:, None, :, None], randn(b, h_k, s_max, dv),
+                          float("nan")).to(dtype) if has_qv else None)
+        table, kw = None, {}
+    if not has_qv:
+        vc = kc[..., :dv]
+    q = randn(b, sq, h, d)
+    qv = randn(b, sq, h, dv) if has_qv else None
+    scale = 1 / math.sqrt(d + dv if has_qv else d)
+    kc_f = torch.nan_to_num(kc)
+    vc_f = kc_f[..., :dv] if not has_qv else torch.nan_to_num(vc)
+    for splits in (1, 3, 8):
+        got = flash_decode.flash_attention_decode_partials(
+            q, kc, vc, seqlens, splits, scale, True, qv=qv, **kw)
+        again = flash_decode.flash_attention_decode_partials(
+            q, kc, vc, seqlens, splits, scale, True, qv=qv, **kw)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        assert bool(torch.isfinite(got[0]).all())
+        if page:
+            want = flash_decode.flash_attention_decode_paged_partials_plain(
+                q, kc_f, vc_f, seqlens, table, splits, DECODE_BLOCK_K, scale,
+                True, qv=qv)
+        else:
+            want = flash_decode.flash_attention_decode_partials_plain(
+                q, kc_f, vc_f, seqlens, splits, DECODE_BLOCK_K, scale, True,
+                qv=qv)
+        torch.testing.assert_close(got[0], want[0], atol=2e-2, rtol=0)
+        fin = torch.isfinite(want[1])
+        assert torch.equal(torch.isfinite(got[1]), fin)
+        torch.testing.assert_close(got[1][fin], want[1][fin], atol=1e-3,
+                                   rtol=0)
+        if splits > 1:  # the row of one key: its later splits are empty
+            assert bool(torch.isneginf(got[1][1:, 0]).all())
+            assert bool((got[0][1:, 0] == 0).all())
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("form", [(128, 1, 64, 512), (16, 2, 64, 128)])
+def test_mla_decode_equals_paged_prefill_on_the_card(form):
+    """At one split the MLA decode route runs B8p's tile over the same keys:
+    a decode step equals the same step as a one-row chunk through B8p, bit
+    for bit (out and lse)."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.kernels import flash_paged_prefill as fpp
+
+    h, h_k, d, dv = form
+    gen = torch.Generator(device="cuda").manual_seed(h)
+    b, page = 4, 64
+    lens = [1, 64, 333, 600]
+    (kp, vp), table = _holed_pages(gen, lens, h_k, (d, dv), page,
+                                   torch.bfloat16)
+    q, qv = (torch.randn(b, 1, h, w, device="cuda", generator=gen).to(
+        torch.bfloat16) for w in (d, dv))
+    seqlens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(d + dv)
+    out, lse = flash_decode.flash_attention_decode(
+        q, kp, vp, seqlens, scale, True, 1, block_table=table, qv=qv)
+    one = torch.arange(b + 1, dtype=torch.int32, device="cuda")
+    pf, pf_lse = fpp.flash_attention_paged_prefill_varlen(
+        q.reshape(b, h, d), kp, vp, one, 1, seqlens, table,
+        qv=qv.reshape(b, h, dv), softmax_scale=scale, causal=True)
+    assert torch.equal(out.reshape(b, h, dv), pf)
+    assert torch.equal(lse.reshape(b, h), pf_lse.T)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_mla_decode_refuses_views_tma_cannot_take_on_the_card():
+    """A view whose start is not 16-byte aligned, or whose strides are not
+    multiples of 16 bytes, raises ValueError: the kernel reads by TMA and
+    never falls back."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+
+    kp = torch.zeros(9, 1, 64, 64, dtype=torch.bfloat16, device="cuda")
+    vp = torch.zeros(9, 1, 64, 512, dtype=torch.bfloat16, device="cuda")
+    table = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
+    lens = torch.tensor([10, 200], dtype=torch.int32, device="cuda")
+    q = torch.zeros(2, 1, 128, 64, dtype=torch.bfloat16, device="cuda")
+    qv = torch.zeros(2, 1, 128, 512, dtype=torch.bfloat16, device="cuda")
+    wide = torch.zeros(2, 1, 128, 65, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_decode.flash_attention_decode(wide[..., 1:], kp, vp, lens,
+                                            block_table=table, qv=qv)
+    kp_wide = torch.zeros(9, 1, 64, 68, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_decode.flash_attention_decode(q, kp_wide[..., :64], vp, lens,
+                                            block_table=table, qv=qv)
+
+
+def _varlen_paged_inputs(case, seed):
+    """q, the holed pages, the table and the lengths of one B8 case in
+    VARLEN_CASES' form."""
+    import numpy as np
+
+    name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    (kp, vp), table = _holed_pages(gen, lens_k, h_k, (d, d), page, dtype)
+    seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    seqused = (None if used is None else
+               torch.tensor(used, dtype=torch.int32, device="cuda"))
+    return q, kp, vp, cu, max(max(lens_q), 1), seqlens_k, table, seqused
+
+
+# B8 beyond chip_smoke.py's shapes: a page size that is not a power of two
+# (48: boxes of 16 rows), a chunk that starts mid-page over pages of 100
+# (boxes of 4), and GQA 16/4 at d = 64 in fp16 with seqused_q padding.
+VARLEN_PAGED_EDGE_CASES = [
+    ("pages of 48", [100, 37, 129], [300, 37, 129], None, 8, 2, 128, 48,
+     torch.bfloat16, True),
+    ("pages of 100, mid-page chunks", [70, 1, 130], [170, 99, 333], None, 8,
+     8, 128, 100, torch.bfloat16, True),
+    ("GQA 16/4, d=64, fp16, seqused_q", [128, 64, 128], [200, 64, 700],
+     [100, 0, 128], 16, 4, 64, 64, torch.float16, True),
+    ("GQA 16/4, d=64, fp16, not causal", [50, 200], [60, 190], None, 16, 4,
+     64, 16, torch.float16, False),
+]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", VARLEN_CASES + VARLEN_PAGED_EDGE_CASES,
+                         ids=lambda c: c[0])
+def test_varlen_paged_kernel_cases_on_the_card(case):
+    """B8 against its plain version on chip_smoke.py's shapes and the edge
+    cases above, with NaN in every page slot past seqlens_k (and in the
+    page the table points past), which must not reach the output; rows past
+    seqused_q keep zeros and lse -inf; the same bits twice."""
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+
+    q, kp, vp, cu, max_q, seqlens_k, table, seqused = _varlen_paged_inputs(
+        case, len(case[1]) + case[7])
+    causal = case[-1]
+    args = (q, kp, vp, cu, max_q, seqlens_k, table)
+    out, lse = fvp.flash_attention_varlen_paged_fwd(*args, seqused_q=seqused,
+                                                   causal=causal)
+    again = fvp.flash_attention_varlen_paged_fwd(*args, seqused_q=seqused,
+                                                 causal=causal)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert bool(torch.isfinite(out).all())
+    ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+        q, torch.nan_to_num(kp), torch.nan_to_num(vp), cu, max_q, seqlens_k,
+        table, seqused_q=seqused, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", VARLEN_CASES + VARLEN_PAGED_EDGE_CASES,
+                         ids=lambda c: c[0])
+def test_varlen_paged_equals_b6_forward_on_the_card(case):
+    """B8 runs B6's forward tile with a paged source: over pages it gives
+    B6's forward's bits over the same rows packed (cu_seqlens_k in place of
+    the block table)."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.kernels import flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.testing import paged_to_linear
+
+    q, kp, vp, cu, max_q, seqlens_k, table, seqused = _varlen_paged_inputs(
+        case, len(case[1]) + case[7])
+    causal = case[-1]
+    lens_k = case[2]
+    out, lse = fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, cu, max_q, seqlens_k, table, seqused_q=seqused,
+        causal=causal)
+    k, v = (torch.cat([lin[s, :, :n].transpose(0, 1)
+                       for s, n in enumerate(lens_k)])
+            for lin in (paged_to_linear(x, table, seqlens_k) for x in (kp, vp)))
+    cu_k = torch.tensor(np.concatenate([[0], np.cumsum(lens_k)]),
+                        dtype=torch.int32, device="cuda")
+    b6, b6_lse = flash_varlen.flash_attention_varlen_fwd(
+        q, k.contiguous(), v.contiguous(), cu, cu_k, max_q, max(lens_k),
+        seqused_q=seqused, causal=causal)
+    assert torch.equal(out, b6) and torch.equal(lse, b6_lse)
 
 
 @pytest.mark.usefixtures("cuda_card")

@@ -23,6 +23,7 @@ from flash_attn_tpu.models.gpt import GPTLMHeadModel as JaxGPTLMHeadModel
 from flash_attn_tpu.modules.mha import MHA as JaxMHA
 from flash_attn_tpu_torch import flash_attn_varlen_func, flash_attn_with_kvcache
 from flash_attn_tpu_torch.cache.kvcache import kv_cache_update
+from flash_attn_tpu_torch.dispatch.varlen_meta import varlen_tiles
 from flash_attn_tpu_torch.kernels import flash_varlen_paged
 from flash_attn_tpu_torch.models.gpt import (
     GPTConfig,
@@ -303,11 +304,22 @@ def test_gpt_slot_prefill_then_decode_matches_jax():
                                    rtol=0)
 
 
-def test_varlen_tiles_cover_every_row_once():
+@pytest.mark.parametrize("block, want", [
+    (64, [[0, 0], [2, 0], [2, 64], [2, 128], [3, 0]]),
+    (128, [[0, 0], [2, 0], [2, 128], [3, 0]])])
+def test_varlen_tiles_cover_every_row_once(block, want):
+    """The tiles of ``block`` rows over the cu_seqlens deltas, b x
+    ceil(max_seqlen_q / block) of them, cover every row once (the backward's
+    64-row and the forward's 128-row lists); the paged prefill's running
+    count of FWD_TILE's 128-row tiles (tile_ends) gives each sequence as
+    many tiles."""
     cu = torch.tensor([0, 5, 5, 150, 214], dtype=torch.int32)
-    # the paged prefill's list: b x ceil(max_seqlen_q / 64) tiles over the
-    # cu_seqlens deltas
-    tiles = flash_varlen_paged.varlen_tiles(cu[1:] - cu[:-1], 4 * 3, 64)
-    assert tiles.shape == (4 * 3, 2)
+    lens = cu[1:] - cu[:-1]
+    n = 4 * -(-150 // block)
+    tiles = varlen_tiles(lens, n, block)
+    assert tiles.shape == (n, 2)
     live = tiles[tiles[:, 0] >= 0].tolist()
-    assert live == [[0, 0], [2, 0], [2, 64], [2, 128], [3, 0]]
+    assert live == want
+    ends = flash_varlen_paged.tile_ends(lens, block).tolist()
+    counts = [e - s for s, e in zip([0] + ends[:-1], ends)]
+    assert counts == [sum(t[0] == s for t in live) for s in range(4)]

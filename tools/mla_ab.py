@@ -1,25 +1,36 @@
-"""Device time of the MLA paged chunked prefill (B8p), for comparing trees
-of the port on one card.
+"""Device time of the two absorbed-MLA kernels, B8p (the paged chunked
+prefill) and the MLA route of split-KV decode, for comparing trees of the
+port on one card.
 
     python3 tools/mla_ab.py ROOT [ROOT ...]
 
 For each ROOT (a directory holding a ``flash_attn_tpu_torch`` package, such
 as an unpacked archive of another commit), in a fresh process each, it
-builds that tree's kernels and runs ``flash_attention_paged_prefill_varlen``
-at DeepSeek-V3's absorbed widths (128 heads on one KV head, d 64 + qv 512,
-scale 0.13523, bf16, causal, pages of 64 in a shuffled pool): the serving
-chunk of chip_smoke.py (8 chunks of 512 rows at the end of 2,048 keys) and
-4 chunks of 256 over 1,280 keys. It checks each against the plain fp32
-version (max abs err) and prints the device ms a call (CUDA events over a
-held stream, median of 10), twice. Give the roots in turns (A B B A) to
-compare two trees on the card they share.
+builds that tree's kernels and runs them at DeepSeek-V3's absorbed widths
+(128 heads on one KV head, d 64 + qv 512, scale 0.13523, bf16, causal, pages
+of 64 in a shuffled pool). B8p: on every shape of chip_smoke.py's
+MLA_PREFILL_CASES (from this script's own checkout, seeded the same way in
+every process) it prints a SHA-256 of out and lse, and at the end whether
+every tree gave the same bits; it times the serving chunk of chip_smoke.py
+(8 chunks of 512 rows at the end of 2,048 keys) and 4 chunks of 256 over
+1,280 keys against the plain fp32 version (max abs err). Decode: the split
+partials at the default split count, at the serving phase's last step (8
+rows of 2,080 keys), at lengths 1..2080 and at b=32 x 8192, against the
+plain version's (max abs err). Each time is
+the device ms a call (CUDA events over a held stream, median of 10), taken
+twice. Give the roots in turns (A B B A) to compare two trees on the card
+they share.
 """
 
+import hashlib
+import importlib.util
 import math
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
+import numpy as np
 import torch
 
 H, D, DV, PAGE = 128, 64, 512, 64
@@ -28,6 +39,13 @@ CASES = [  # (name, chunk rows a sequence, sequences, keys before the chunk)
     ("serving chunk, 8 x 512 over 2,048 keys", 512, 8, 1536),
     ("4 x 256 over 1,280 keys", 256, 4, 1024),
 ]
+DECODE = [  # (name, keys of each batch row)
+    ("decode, serving step, 8 x 2,080 keys", [2080] * 8),
+    ("decode, lengths 1..2080", np.linspace(1, 2080, 8).round().astype(int)
+     .tolist()),
+    ("decode, b=32 x 8192", [8192] * 32),
+]
+SMOKE = Path(__file__).resolve().parent.parent / "chip_smoke.py"
 
 
 def time_ms(fn, runs: int = 10, batch: int = 5) -> float:
@@ -50,14 +68,39 @@ def time_ms(fn, runs: int = 10, batch: int = 5) -> float:
     return statistics.median(times)
 
 
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def measure(root: str) -> None:
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     sys.path.insert(0, root)
-    from flash_attn_tpu_torch.kernels import _build
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.kernels import _build, flash_decode
     from flash_attn_tpu_torch.kernels import flash_paged_prefill as fpp
 
     print(f"package {fpp.__file__}")
     _build.load_library()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, lens_q, cached, h, h_k, d, dv, page, dtype, causal in \
+            smoke.MLA_PREFILL_CASES:
+        lens_k = [c + n for c, n in zip(cached, lens_q)]
+        cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                          dtype=torch.int32, device="cuda")
+        q, qv = (torch.randn(int(cu[-1]), h, w, device="cuda", generator=gen)
+                 .to(dtype) for w in (d, dv))
+        kp, vp, table = smoke.paged_cache(gen, len(lens_q), h_k, d, page,
+                                          max(lens_k), dtype, dv)
+        seqlens = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+        out, lse = fpp.flash_attention_paged_prefill_varlen(
+            q, kp, vp, cu, max(lens_q), seqlens, table, qv=qv,
+            softmax_scale=smoke.MLA_SCALE, causal=causal)
+        print(f"B8p digest {name}: {digest(out, lse)}", flush=True)
     calls = []
     for name, rows, b, cached in CASES:
         keys = cached + rows
@@ -79,12 +122,33 @@ def measure(root: str) -> None:
             qv=qv.float(), softmax_scale=SCALE, causal=True)
         err = float((out.float() - ref).abs().max())
         del ref
-        calls.append((f"{name} (max abs err {err:.3e})",
+        calls.append((f"B8p {name} (max abs err {err:.3e})",
                       lambda a=args, k=kw:
                       fpp.flash_attention_paged_prefill_varlen(*a, **k)))
+    for name, keys in DECODE:
+        b = len(keys)
+        kc, vc, table = smoke.paged_cache(gen, b, 1, D, PAGE, max(keys),
+                                          torch.bfloat16, DV)
+        q, qv = (torch.randn(b, 1, H, w, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for w in (D, DV))
+        seqlens = torch.tensor(keys, dtype=torch.int32, device="cuda")
+        splits = _default_num_splits(q, kc, vc, table, True)
+        splits = max(1, min(splits, -(-flash_decode.cache_capacity(kc, table)
+                                      // 64)))
+        out_p, _ = flash_decode.flash_attention_decode_partials(
+            q, kc, vc, seqlens, splits, SCALE, True, block_table=table, qv=qv)
+        ref_p, _ = flash_decode.flash_attention_decode_paged_partials_plain(
+            q, kc, vc, seqlens, table, splits, 64, SCALE, True, qv=qv)
+        err = float((out_p - ref_p).abs().max())
+        del out_p, ref_p
+        calls.append((f"{name} ({splits} splits, max abs err {err:.3e})",
+                      lambda a=(q, kc, vc, seqlens, splits, SCALE, True),
+                      t=table, qv=qv:
+                      flash_decode.flash_attention_decode_partials(
+                          *a, block_table=t, qv=qv)))
     for _ in range(2):
         for name, fn in calls:
-            print(f"B8p {name}: {time_ms(fn):.4f} ms", flush=True)
+            print(f"{name}: {time_ms(fn):.4f} ms", flush=True)
 
 
 def main() -> int:
@@ -97,12 +161,23 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
+    digests = {}
     for root in sys.argv[1:]:
         print(f"== {root}", flush=True)
-        rc = subprocess.run([sys.executable, __file__, "--one", root]).returncode
-        if rc:
-            return rc
-    return 0
+        run = subprocess.run([sys.executable, __file__, "--one", root],
+                             stdout=subprocess.PIPE, text=True)
+        print(run.stdout, end="", flush=True)
+        if run.returncode:
+            return run.returncode
+        for line in run.stdout.splitlines():
+            if line.startswith("B8p digest "):
+                name, value = line[len("B8p digest "):].rsplit(": ", 1)
+                digests.setdefault(name, set()).add(value)
+    for name, values in digests.items():
+        same = len(values) == 1
+        print(f"B8p {name}: "
+              f"{'the same bits in every tree' if same else 'DIFFERENT bits'}")
+    return 0 if all(len(v) == 1 for v in digests.values()) else 1
 
 
 if __name__ == "__main__":
