@@ -20,8 +20,10 @@
    gives the same bits twice; at the
    training shape it splits each backward path into its kernels and the
    torch ops around them (torch.profiler) and times the previous design of
-   the dense backward in the same run (B6's dK/dV + dQ of bwd_tile.cuh over
-   the same rows packed as 4 sequences); the paged varlen prefill (B8, the
+   the dense backward in the same run (B10's dK/dV + dQ of bwd_tile.cuh
+   over the full causal block mask); on every backward shape B6's backward
+   over the same rows packed gives B3's bits (both run the tiles of
+   bwd_sm90.cuh); the paged varlen prefill (B8, the
    same tile with a paged K/V source) gives the same bits twice and B6's
    forward's bits over the same rows packed, and at the prefix-cached
    admission's shape its whole call and its kernel alone (torch.profiler)
@@ -52,25 +54,28 @@
    decode of the same prompts; prints tokens/s, TTFT p50/p99 and the device
    idle share of a decode block.
 
-7. holds the four packed-varlen kernels (B6's forward and the persistent
+7. holds the five packed-varlen kernels (B6's forward and the persistent
    B7, both on the wgmma/TMA tile of fwd_sm90.cuh over the same 128-row
-   work list, the B6 dK/dV and dQ backward) against their plain versions on
-   four shapes (BERT-large's packing, bench.py's mixed lengths, ragged GQA
-   fp16 with seqused and a packed tail, GQA at d=64), requires B7 to equal
-   B6's forward bitwise and B6's forward, B7 and the backward each to
-   repeat bitwise, and times kernels, plain versions and an SDPA yardstick
-   at the first two;
+   work list, and B6's backward preprocess, dK/dV and dQ, on the wgmma/TMA
+   tiles of bwd_sm90.cuh) against their plain versions on four shapes
+   (BERT-large's packing, bench.py's mixed lengths, ragged GQA fp16 with
+   seqused and a packed tail, GQA at d=64), requires B7 to equal B6's
+   forward bitwise and B6's forward, B7 and the backward each to repeat
+   bitwise, and times kernels (the backward's three by the profiler),
+   plain versions and an SDPA yardstick at the first two;
 8. runs bench.py's varlen section (bench.py:203-245): 4 x 8192 and 16
    mixed-length causal sequences through flash_attn_varlen_func (B7), B6's
    forward on the mixed lengths (bitwise equal to B7), the backward from
-   B7's residuals, and flash_attn_varlen_func(...).backward() (its
+   B7's residuals (1 preprocess, 1 dK/dV, 1 dQ launch), and
+   flash_attn_varlen_func(...).backward() (its
    gradients bitwise equal to that backward's), with counted launches, and
    prints TFLOP/s of useful work;
 9. runs BERT-large (bert-large-uncased widths, 24 layers, random bf16
    weights from a seed) on 32 rows padded to 512: a BertForMaskedLM forward
    (24 B7 launches, none of B1), four rows alone through the dense path as
-   the oracle, and a BertForPreTraining MLM + NSP step (24 B7, 24 dK/dV, 24
-   dQ launches); prints forward and step times, valid tokens/s and peak
+   the oracle, and a BertForPreTraining MLM + NSP step (24 B7, 24
+   preprocess, 24 dK/dV, 24 dQ launches); prints forward and step times,
+   valid tokens/s and peak
    memory;
 10. holds the two absorbed-MLA kernels against their plain versions: the
    paged chunked prefill with qv (B8p, wgmma and TMA page copies) on 7
@@ -416,6 +421,45 @@ def blocksparse_previous_forward(q, k, v, causal):
         qt, kt, vt, num, idx, causal=causal, block_q=bq, block_k=bk)
 
 
+def blocksparse_previous_backward(qt, kt, vt, dot, out, lse, causal):
+    """B3's previous design as a function of (b, h, s, d) views with sq = sk
+    and h = h_k: the block-sparse backward (B10) over the full block mask,
+    whose dK/dV and dQ kernels walk the mma.sync loops of bwd_tile.cuh over
+    the same band, with its lists built beforehand."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+
+    s = qt.shape[2]
+    bq, bk = bs.effective_tiles(s, s, 128, 128)
+    i = torch.arange(s // bq)[:, None]
+    j = torch.arange(s // bk)[None, :]
+    mask = j * bk <= i * bq + bq - 1 if causal else (i >= 0) & (j >= 0)
+    num, idx = (x.cuda() for x in bs.blockmask_to_kv_indices(mask))
+    return lambda: bs.flash_attention_blocksparse_bwd(
+        dot, qt, kt, vt, out, lse, num, idx, causal=causal, block_q=bq,
+        block_k=bk)
+
+
+def packed_b6_backward(dot, qt, kt, vt, out, lse, causal):
+    """B6's backward as a function of the (b, h, s, d) views that B3 takes:
+    the same rows packed as b sequences. Returns a function giving (dq, dk,
+    dv) in B3's (b, h, s, d) layout."""
+    from flash_attn_tpu_torch.kernels import flash_varlen
+
+    b, h, sq, d = qt.shape
+    sk = kt.shape[2]
+    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    packed = [x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+              for x in (dot, qt, kt, vt, out)]
+    lse_p = lse.permute(1, 0, 2).reshape(h, b * sq)
+
+    def run():
+        g = flash_varlen.flash_attention_varlen_bwd(
+            *packed, lse_p, cu_q, cu_k, sq, sk, causal=causal)
+        return [x.reshape(b, -1, x.shape[1], d).transpose(1, 2) for x in g]
+    return run
+
+
 def packed_b7_forward(q, k, v, causal):
     """B7 as a function of (b, s, h, d) q, k, v with sq = sk: the same rows
     packed as b sequences, with its work list built beforehand. Returns a
@@ -559,11 +603,38 @@ def check_decode(gen):
                                       "boolean length mask over the linear "
                                       "cache",
                       **decode_bound(seqlens, b, h, h_k, d, splits, 0)}
+            cluster, busiest, mean = decode_block_tiles(seqlens, h_k, splits)
             print(f"flash_decode time at the decode shape: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
                   f"{lib_ms:.4f} ms (median of 25); bound "
-                  f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+                  f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}); "
+                  f"clusters of {cluster} blocks, the busiest block {busiest} "
+                  f"key tiles, the mean {mean:.2f}")
     return worst, timing
+
+
+def decode_block_tiles(seqlens, h_k, splits):
+    """The d = dv decode route's cluster size and its blocks' 64-key tiles
+    (the busiest block's, the mean over blocks) for these lengths: each
+    split's contiguous run of tiles (the wrapper's _split_bounds) dealt out
+    in contiguous shares to a cluster's blocks."""
+    from flash_attn_tpu_torch.dispatch.config import (
+        DECODE_BLOCK_K,
+        decode_cluster,
+        num_sms,
+    )
+
+    b = seqlens.numel()
+    cluster = decode_cluster(b * h_k * splits, num_sms(0))
+    shares = []
+    for n in seqlens.tolist():
+        tiles = -(-n // DECODE_BLOCK_K)
+        kps = -(-tiles // splits)
+        for sp in range(splits):
+            t = max(0, min(tiles, (sp + 1) * kps) - sp * kps)
+            per = -(-t // cluster)
+            shares += [max(0, min(t - c * per, per)) for c in range(cluster)]
+    return cluster, max(shares), sum(shares) / len(shares)
 
 
 def decode_bound(seqlens, b, h, h_k, d, splits, table_entries):
@@ -643,10 +714,12 @@ def check_decode_paged(gen):
                                       "through a block table (a gather first)",
                       **decode_bound(seqlens, b, h, h_k, d, splits,
                                      table.numel())}
+            cluster, busiest, mean = decode_block_tiles(seqlens, h_k, splits)
             print(f"flash_decode_paged time at the engine's decode shape: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
                   f"25); bound {timing['bound_ms']:.4f} ms "
-                  f"({timing['bound_by']})")
+                  f"({timing['bound_by']}); clusters of {cluster} blocks, the "
+                  f"busiest block {busiest} key tiles, the mean {mean:.2f}")
     return worst, timing
 
 
@@ -751,13 +824,14 @@ def check_bwd(gen):
     """Both backward paths against the plain fp32 backward on every case
     (the 2x rule, with autograd through attention_ref in the inputs' type
     as the low-precision reference), and the preprocess kernel against its
-    plain version; deterministic grads bitwise equal over two runs. At the
-    training shape: kernel, plain and library times beside the bounds, a
-    profiler split of each path into its kernels and the torch ops around
-    them, and the previous design in the same run (B6's dK/dV + dQ of
-    bwd_tile.cuh over the same rows packed as b sequences, its two kernels'
-    device time)."""
-    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+    plain version; deterministic grads bitwise equal over two runs and to
+    B6's backward over the same rows packed as b sequences (the two run the
+    tiles of bwd_sm90.cuh). At the training shape: kernel, plain and library
+    times beside the bounds, a profiler split of each path into its kernels
+    and the torch ops around them, and the previous design in the same run
+    (B10's dK/dV + dQ of bwd_tile.cuh over the full causal block mask, its
+    two kernels' device time)."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
     from flash_attn_tpu_torch.utils.testing import (
         attention_ref_grads,
         check_against_ref,
@@ -786,6 +860,8 @@ def check_bwd(gen):
             grads = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
                                                   causal=causal,
                                                   deterministic=det)
+            if det:
+                b3 = grads
             torch.cuda.synchronize()
             errs = []
             for gname, got, r, lp in zip("qkv", grads, ref, ref_lp):
@@ -802,6 +878,13 @@ def check_bwd(gen):
                 same = all(torch.equal(a, b_) for a, b_ in zip(grads, again))
                 require(same, f"deterministic backward differs between runs: "
                               f"{case}")
+        # B6 runs B3's tiles (bwd_sm90.cuh): the same rows packed as b
+        # sequences give the same bits
+        b6 = packed_b6_backward(dot, qt, kt, vt, out, lse, causal)()
+        require(all(torch.equal(a, b_) for a, b_ in zip(b3, b6)),
+                f"B6's backward over the same rows packed differs from "
+                f"B3's: {case}")
+        del b3, b6
         delta, lse2 = flash_bwd.bwd_preprocess(dot, out, lse)
         want_delta, want_lse2 = flash_bwd.bwd_preprocess_plain(
             dot, out, lse, delta.shape[-1])
@@ -812,8 +895,9 @@ def check_bwd(gen):
         err = float((delta - want_delta).abs().max())
         require(err <= 1e-3, f"preprocess delta err {err}: {case}")
         worst["flash_bwd_preprocess"] = max(worst["flash_bwd_preprocess"], err)
-        print(f"{case}: deterministic backward bitwise equal over two runs; "
-              f"preprocess delta max abs err {err:.3e}, lse2 within 1e-5")
+        print(f"{case}: deterministic backward bitwise equal over two runs "
+              f"and to B6's over the same rows packed; preprocess delta max "
+              f"abs err {err:.3e}, lse2 within 1e-5")
         if timing is None:
             timing = time_bwd(qt, kt, vt, dot, out, lse, causal, case)
         del grads, again, ref, ref_lp, f32, out32, lse32
@@ -823,9 +907,9 @@ def check_bwd(gen):
 def time_bwd(qt, kt, vt, dot, out, lse, causal, case):
     """Times at the training shape: the preprocess, B3 and B2 beside their
     bounds, plain versions and one library call each; a profiler split of
-    each path; the previous design (B6's two bwd_tile.cuh kernels over the
-    same rows packed as b sequences) by its kernels' device time."""
-    from flash_attn_tpu_torch.kernels import flash_bwd, flash_varlen
+    each path; the previous design (B10's two bwd_tile.cuh kernels over the
+    full causal block mask) by its kernels' device time."""
+    from flash_attn_tpu_torch.kernels import flash_bwd
 
     b, h, sq, d = qt.shape
     h_k, sk = kt.shape[1], kt.shape[2]
@@ -852,26 +936,22 @@ def time_bwd(qt, kt, vt, dot, out, lse, causal, case):
                  bwd(True), ["preprocess_kernel", "dkdv_kernel", "dq_kernel"]),
              "flash_bwd_fused": kernel_split_ms(
                  bwd(False), ["preprocess_kernel", "dkdv_kernel"])}
-    # the previous design: the same rows as b packed sequences through
-    # B6's backward, which walks bwd_tile.cuh's dense band
-    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
-                  for n in (sq, sk))
-    packed = [x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
-              for x in (dot, qt, kt, vt, out)]
-    lse_p = lse.permute(1, 0, 2).reshape(h, b * sq)
-    old = kernel_split_ms(lambda: flash_varlen.flash_attention_varlen_bwd(
-        *packed, lse_p, cu_q, cu_k, sq, sk, causal=causal),
-        ["varlen_dkdv_kernel", "varlen_dq_kernel"])
-    old_ms = old["varlen_dkdv_kernel"] + old["varlen_dq_kernel"]
+    # the previous design: B10 over the full causal block mask, whose
+    # kernels walk bwd_tile.cuh's mma.sync loops over the same band
+    old = kernel_split_ms(
+        blocksparse_previous_backward(qt, kt, vt, dot, out, lse, causal),
+        ["bs_dkdv_kernel", "bs_dq_kernel"])
+    old_ms = old["bs_dkdv_kernel"] + old["bs_dq_kernel"]
     # 5 products (S, dV, dP, dQ, dK) over the attended pairs; q, k, v,
     # out, dout read and dq, dk, dv written once, lse read
     common = {"plain_ms": plain_ms, "library_ms": lib_ms,
               "library_call": "scaled_dot_product_attention(is_causal"
                               "=True) backward (torch.autograd.grad)",
               "previous_design_ms": old_ms,
-              "previous_design": "fa_varlen_bwd_dkdv + fa_varlen_bwd_dq "
-                                 "(bwd_tile.cuh) over the same rows packed, "
-                                 "profiler device time",
+              "previous_design": "fa_blocksparse_bwd_dkdv + "
+                                 "fa_blocksparse_bwd_dq (bwd_tile.cuh) over "
+                                 "the full causal block mask, profiler "
+                                 "device time",
               **bound(10 * b * h * d * attended_pairs([sq], [sk], causal),
                       2 * (4 * b * sq * h * d + 4 * b * sk * h_k * d)
                       + 4 * b * h * sq)}
@@ -1070,6 +1150,7 @@ def kernel_counts():
             "flash_varlen_paged": flash_varlen_paged.launches,
             "flash_varlen_fwd": flash_varlen.launches_fwd,
             "flash_varlen_fwd_persistent": flash_varlen_persistent.launches,
+            "fa_varlen_bwd_preprocess": flash_varlen.launches_preprocess,
             "fa_varlen_bwd_dkdv": flash_varlen.launches_dkdv,
             "fa_varlen_bwd_dq": flash_varlen.launches_dq,
             "flash_blocksparse_fwd": flash_blocksparse.launches_fwd,
@@ -1093,6 +1174,7 @@ def reset_kernel_counts():
     flash_decode.launches_paged = flash_varlen_paged.launches = 0
     flash_varlen_persistent.launches = flash_varlen.launches_fwd = 0
     flash_varlen.launches_dkdv = flash_varlen.launches_dq = 0
+    flash_varlen.launches_preprocess = 0
     flash_blocksparse.launches_fwd = flash_blocksparse.launches_dkdv = 0
     flash_blocksparse.launches_dq = 0
 
@@ -1649,7 +1731,8 @@ def check_varlen(gen):
     )
 
     worst = dict.fromkeys(("flash_varlen_fwd", "flash_varlen_fwd_persistent",
-                           "fa_varlen_bwd_dkdv", "fa_varlen_bwd_dq"), 0.0)
+                           "flash_varlen_bwd_preprocess", "fa_varlen_bwd_dkdv",
+                           "fa_varlen_bwd_dq"), 0.0)
     timings = {}
     for ci, (name, lens_q, lens_k, used_q, used_k, tail, h, h_k, d, dtype,
              causal) in enumerate(VARLEN_DENSE_CASES):
@@ -1726,6 +1809,28 @@ def check_varlen(gen):
         del twice
         require(all(torch.equal(a, b) for a, b in zip(grads, again)),
                 f"{case}: the backward differs between runs")
+        # the preprocess alone against its plain version, on the rows of
+        # each sequence's whole 128-row tiles (the kernel writes no other)
+        meta_b = flash_varlen.varlen_meta(q, k, *args[:4], sq, sk, causal,
+                                          meta)
+        delta, lse2 = flash_varlen.varlen_bwd_preprocess(
+            dout, out, lse, cu_q, cu_k, meta_b, *(torch.empty_like(x)
+                                                  for x in (q, k, v)))
+        want_delta, want_lse2 = flash_varlen.varlen_bwd_preprocess_plain(
+            dout, out, lse, cu_q, sq)
+        rows = torch.zeros(delta.shape[1], dtype=torch.bool, device="cuda")
+        for i, n in enumerate((used_q or lens_q)):
+            p0 = flash_varlen.padded_row(int(cu_q[i]), i)
+            rows[p0:p0 + -(-n // 128) * 128] = True
+        fin = torch.isfinite(want_lse2[:, rows])
+        pre_err = float((delta[:, rows] - want_delta[:, rows]).abs().max())
+        require(torch.equal(torch.isfinite(lse2[:, rows]), fin)
+                and float((lse2[:, rows][fin] - want_lse2[:, rows][fin])
+                          .abs().max()) <= 1e-5 and pre_err <= 1e-3,
+                f"{case}: varlen preprocess delta err {pre_err} or lse2")
+        worst["flash_varlen_bwd_preprocess"] = max(
+            worst["flash_varlen_bwd_preprocess"], pre_err)
+        del delta, lse2, want_delta, want_lse2
         ref_g = flash_varlen.flash_attention_varlen_bwd_plain(
             dout.float(), *f32, ref, ref_lse, *args, causal=causal)
         del f32, ref_p, ref_p_lse
@@ -1758,8 +1863,12 @@ def check_varlen(gen):
             q, k, v, cu_q, cu_k, lens_q, lens_k, causal, dout)
         t = {"flash_varlen_fwd": time_ms(b6), "flash_varlen_fwd_persistent":
              time_ms(b7), "bwd": time_ms(bwd, runs=10)}
-        t.update(kernel_split_ms(bwd, ("varlen_dkdv_kernel",
+        t.update(kernel_split_ms(bwd, ("varlen_preprocess_kernel",
+                                       "varlen_dkdv_kernel",
                                        "varlen_dq_kernel")))
+        pre_plain = wall_ms(lambda: flash_varlen.varlen_bwd_preprocess_plain(
+            dout, out, lse, cu_q, sq))
+        pre_lib = time_ms(lambda: torch.linalg.vecdot(dout, out))
         plain_fwd = wall_ms(lambda: flash_varlen.flash_attention_varlen_fwd_plain(
             q, k, v, *args, causal=causal))
         plain_p = wall_ms(lambda: fvp.flash_attention_varlen_fwd_persistent_plain(
@@ -1780,6 +1889,10 @@ def check_varlen(gen):
         kv = esz * 2 * rows_k * h_k * d
         dkdv_bound = bound(8 * h * d * pairs, qdo + kv + esz * 2 * tk * h_k * d)
         dq_bound = bound(6 * h * d * pairs, qdo + kv + esz * tq * h * d)
+        # preprocess: dO and O read once, lse read, delta and lse2 written
+        # in fp32; a multiply-add a head-dim element at the fp32 rate
+        pre_bound = bound(2 * h * rows_q * d, esz * 2 * rows_q * h * d
+                          + 4 * h * rows_q + 2 * 4 * h * rows_q, PEAK_FP32)
         lib_fwd_call = {"library_ms": lib_f, "library_call": lib_label}
         lib_bwd_call = {"library_ms": lib_b,
                         "library_call": f"{lib_label}, backward (the dK/dV "
@@ -1797,19 +1910,28 @@ def check_varlen(gen):
             "fa_varlen_bwd_dq": {"ms": t["varlen_dq_kernel"],
                                  "plain_ms": plain_bwd, **lib_bwd_call,
                                  **dq_bound},
+            "flash_varlen_bwd_preprocess": {
+                "ms": t["varlen_preprocess_kernel"], "plain_ms": pre_plain,
+                "library_ms": pre_lib,
+                "library_call": "torch.linalg.vecdot(dO, O) (in the inputs' "
+                                "type)", **pre_bound},
             "bwd_wrapper_ms": t["bwd"]}
         print(f"varlen times at {name} ({pairs / 1e6:.1f}M attended pairs): "
               f"B6 forward {t['flash_varlen_fwd']:.4f} ms, B7 "
               f"{t['flash_varlen_fwd_persistent']:.4f} ms (grid "
               f"{fvp.last_grid} blocks), bound {fwd_bound['bound_ms']:.4f} ms "
-              f"({fwd_bound['bound_by']}); backward {t['bwd']:.4f} ms (dK/dV "
-              f"kernel {t['varlen_dkdv_kernel']:.4f} ms, bound "
-              f"{dkdv_bound['bound_ms']:.4f}; dQ kernel "
-              f"{t['varlen_dq_kernel']:.4f} ms, bound "
-              f"{dq_bound['bound_ms']:.4f}); plain forward {plain_fwd:.2f} ms, "
+              f"({fwd_bound['bound_by']}); backward {t['bwd']:.4f} ms "
+              f"(preprocess {t['varlen_preprocess_kernel']:.4f} ms, bound "
+              f"{pre_bound['bound_ms']:.4f}; dK/dV kernel "
+              f"{t['varlen_dkdv_kernel']:.4f} ms, bound "
+              f"{dkdv_bound['bound_ms']:.4f} ({dkdv_bound['bound_by']}); dQ "
+              f"kernel {t['varlen_dq_kernel']:.4f} ms, bound "
+              f"{dq_bound['bound_ms']:.4f} ({dq_bound['bound_by']}); torch "
+              f"ops {t['other']:.4f}); plain forward {plain_fwd:.2f} ms, "
               f"persistent plain {plain_p:.2f} ms, plain backward "
-              f"{plain_bwd:.2f} ms (host clock, median of 3); {lib_label}: "
-              f"forward {lib_f:.4f} ms, backward {lib_b:.4f} ms")
+              f"{plain_bwd:.2f} ms, plain preprocess {pre_plain:.2f} ms "
+              f"(host clock, median of 3); {lib_label}: forward {lib_f:.4f} "
+              f"ms, backward {lib_b:.4f} ms; vecdot {pre_lib:.4f} ms")
         del lib_fwd, lib_bwd
     return worst, timings
 
@@ -1857,7 +1979,8 @@ def run_bench_varlen(gen, card):
     torch.cuda.synchronize()
     launches = kernel_counts()
     want = want_counts(flash_varlen_fwd=1, flash_varlen_fwd_persistent=2,
-                       fa_varlen_bwd_dkdv=1, fa_varlen_bwd_dq=1)
+                       fa_varlen_bwd_preprocess=1, fa_varlen_bwd_dkdv=1,
+                       fa_varlen_bwd_dq=1)
     require(launches == want, f"bench varlen launches {launches}, want {want}")
     require(bool(torch.isfinite(out_c.float()).all()), "non-finite out (4 x 8192)")
     require(bool(torch.isfinite(out_6.float()).all()), "non-finite B6 out (mixed)")
@@ -1871,7 +1994,8 @@ def run_bench_varlen(gen, card):
     flash_attn_varlen_func(*leaves, *args_m, causal=True).backward(ones)
     torch.cuda.synchronize()
     api = kernel_counts()
-    want = want_counts(flash_varlen_fwd_persistent=1, fa_varlen_bwd_dkdv=1,
+    want = want_counts(flash_varlen_fwd_persistent=1,
+                       fa_varlen_bwd_preprocess=1, fa_varlen_bwd_dkdv=1,
                        fa_varlen_bwd_dq=1)
     require(api == want, f"flash_attn_varlen_func backward launches {api}, "
                          f"want {want}")
@@ -2001,7 +2125,8 @@ def run_bert(card):
     mlm_loss, loss = step()
     torch.cuda.synchronize()
     step_launches = kernel_counts()
-    want = want_counts(flash_varlen_fwd_persistent=n, fa_varlen_bwd_dkdv=n,
+    want = want_counts(flash_varlen_fwd_persistent=n,
+                       fa_varlen_bwd_preprocess=n, fa_varlen_bwd_dkdv=n,
                        fa_varlen_bwd_dq=n)
     require(step_launches == want, f"BERT training step launches "
                                    f"{step_launches}, want {want}")
@@ -2020,8 +2145,8 @@ def run_bert(card):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     dev_ms = device_families(
         step, {"attention forward (B7)": ("varlen_fwd",),
-               "attention backward (B6 dK/dV + dQ)": ("varlen_dkdv",
-                                                      "varlen_dq"),
+               "attention backward (B6 preprocess, dK/dV, dQ)": (
+                   "varlen_preprocess", "varlen_dkdv", "varlen_dq"),
                "matmuls (cuBLAS)": MATMULS, "copies and casts": COPIES},
         "one BERT-large MLM + NSP step")
     result = {"forward_ms": fwd_ms, "step_ms": step_ms, "peak_gb": peak_gb,
@@ -2493,9 +2618,11 @@ def blocksparse_dense_oracle(q, k, v, dout, out, lse, grads, ref, ref_lp,
     rows packed as b sequences: out and lse against B7's, which walks the
     same band on the wgmma tile of fwd_sm90.cuh (bitwise where the two tiles
     agree; else B7 holds the 2x rule against the plain fp32 forward and the
-    difference is printed); the gradients against B6's backward, which walks
-    the same tiles of bwd_tile.cuh (bitwise, or else the 2x rule against the
-    plain fp32 backward, reported)."""
+    difference is printed); the gradients against B6's backward over the
+    same band (bitwise where they agree; B6 runs the wgmma tiles of
+    bwd_sm90.cuh and B10 the mma.sync loops of bwd_tile.cuh, so they sum in
+    other orders, and then B6 holds the 2x rule against the plain fp32
+    backward, reported)."""
     from flash_attn_tpu_torch.kernels import flash_fwd, flash_varlen
     from flash_attn_tpu_torch.utils.testing import attention_ref, check_against_ref
 
@@ -2532,8 +2659,13 @@ def blocksparse_dense_oracle(q, k, v, dout, out, lse, grads, ref, ref_lp,
     print(f"block-sparse {case}: {fwd_note} over the same rows packed; "
           f"gradients "
           + ("bitwise equal to B6's over the same rows packed" if bitwise
-             else "not bitwise equal to B6's over the same rows packed; B6 "
-                  "holds the 2x rule against the plain fp32 backward"))
+             else "not bitwise equal to B6's over the same rows packed (B6 "
+                  "runs bwd_sm90.cuh's wgmma tiles, B10 bwd_tile.cuh's "
+                  "mma.sync loops; max |B10 - B6| "
+                  + ", ".join(f"d{n} {(g.float() - g6.float()).abs().max().item():.3e}"
+                              for n, g, g6 in zip("qkv", grads, dense))
+                  + "); B6 holds the 2x rule against the plain fp32 "
+                    "backward"))
 
 
 def check_blocksparse(gen, card):
@@ -2544,8 +2676,8 @@ def check_blocksparse(gen, card):
     fp32 backward to the 2x rule against the plain fp32 versions (the plain
     forward in bf16, and autograd through it, as the low-precision
     reference; lse within LSE_ATOL), requires the backward to give the same
-    bits twice, and on the full causal mask the bits of B1 (out, lse) and
-    of B6's backward over the same rows (blocksparse_dense_oracle); times
+    bits twice, and on the full causal mask B7's bits (out, lse) and B6's
+    backward over the same rows (blocksparse_dense_oracle); times
     kernel, plain and SDPA with the expanded boolean mask (forward and
     backward; masks with no empty row) beside the bound: the listed,
     unmasked pairs' 4 d flops (10 d backward) over 989 TFLOP/s, or the
@@ -2847,6 +2979,12 @@ def main() -> int:
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
+    def varlen_both(name):
+        """A varlen kernel's timing at BERT's packing, with bench.py's mixed
+        shape's under "bench_mixed"."""
+        return {**vl_t["BERT-large packing"][name],
+                "bench_mixed": vl_t["bench.py mixed"][name]}
+
     def entry(name, source, replaces, n, err, timing):
         if not replaces.startswith("benchmarks/"):
             replaces = f"flash_attn_tpu/kernels/{replaces}"
@@ -2883,12 +3021,16 @@ def main() -> int:
               bert_launches["flash_varlen_fwd_persistent"],
               vl_err["flash_varlen_fwd_persistent"],
               vl_t["BERT-large packing"]["flash_varlen_fwd_persistent"]),
+        entry("flash_varlen_bwd_preprocess", "flash_varlen.cu",
+              "flash_varlen.py:854", bert_launches["fa_varlen_bwd_preprocess"],
+              vl_err["flash_varlen_bwd_preprocess"],
+              varlen_both("flash_varlen_bwd_preprocess")),
         entry("fa_varlen_bwd_dkdv", "flash_varlen.cu", "flash_varlen.py:462",
               bert_launches["fa_varlen_bwd_dkdv"], vl_err["fa_varlen_bwd_dkdv"],
-              vl_t["BERT-large packing"]["fa_varlen_bwd_dkdv"]),
+              varlen_both("fa_varlen_bwd_dkdv")),
         entry("fa_varlen_bwd_dq", "flash_varlen.cu", "flash_varlen.py:651",
               bert_launches["fa_varlen_bwd_dq"], vl_err["fa_varlen_bwd_dq"],
-              vl_t["BERT-large packing"]["fa_varlen_bwd_dq"]),
+              varlen_both("fa_varlen_bwd_dq")),
         entry("flash_paged_prefill", "flash_paged_prefill.cu",
               "flash_paged_prefill.py:60",
               mla_launches["flash_paged_prefill"],

@@ -1,0 +1,545 @@
+// The attention backward tiles for Hopper (sm_90a) on wgmma and TMA, shared
+// by the dense backward (csrc/flash_bwd.cu: B3's dK/dV and dQ kernels and
+// B2's fused pass) and the packed-varlen backward (csrc/flash_varlen.cu, B6):
+//
+//  - bwd_preprocess_row: delta = rowsum(dO * O) of one row in fp32, a warp a
+//    row, the sum that both preprocess kernels take;
+//  - bwd_dkdv: 128 KV rows of one sequence and KV head walk the group's
+//    query heads and the 64-row q tiles of their causal band, keep dK and dV
+//    in registers and write them once; with ACCUM_DQ (B2's fused pass) each
+//    q tile also adds its dQ = dS K over the block's 128 keys into an fp32
+//    buffer;
+//  - bwd_dq: 128 query rows of one sequence and head walk the 64-key tiles
+//    of their band and write dQ once.
+//
+// What the tiles compute is what flash_attn_tpu/kernels/flash_bwd.py
+// (_dkdv_kernel, _dq_kernel) and flash_varlen.py (_varlen_dkdv_stream_kernel,
+// _varlen_dq_stream_kernel) compute: with P = exp(scale S - lse) and
+// dS = P (dP - delta), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K, under
+// bottom-right causal masking (shift = sk - sq). lse arrives in base 2
+// (lse2, +inf for a row that sees no key or lies past sq: its P is 0) and
+// delta beside it, both from a preprocess kernel, in buffers padded per
+// sequence to whole 128-row tiles so that each tile's bulk copies of them
+// are whole and 16-byte aligned.
+//
+// Layout (csrc/sm90.cuh): every product is a warpgroup wgmma. Two
+// warpgroups of 64 rows share a block; K and V (dK/dV) or Q and dO (dQ) are
+// loaded once by TMA and stay in shared memory, and the streamed tiles run
+// through a two-stage ring: one thread issues the TMA loads (and the bulk
+// copies of lse2 and delta) of tile t + 1 as tile t starts. The transposed
+// scores S^T = K Q^T put the KV rows in wgmma's M, so P^T and dS^T pack from
+// the accumulators straight into the register A operand of dV += P^T dO and
+// dK += dS^T Q (dQ += dS K likewise), and Q, dO and K are read transposed
+// through the descriptors' transpose bit. One block barrier a tile keeps
+// the warpgroups in step and frees the stage.
+//
+// The source (Src) says where a sequence's rows are: a batch row of (b, s,
+// h, d) tensors (4D maps, the dense policy) or a sequence of the packed
+// (total, h, d) tensors at cu_seqlens (3D maps, the varlen policy). It
+// gives sq and sk; load_q / load_do (dst, bar, col, row, query head) and
+// load_k / load_v (dst, bar, col, row, KV head), TMA boxes at the
+// sequence's local row; lse2 / delta (query head, row), the padded buffers'
+// rows; dk / dv (row, KV head) and dq (row, query head), the gradients'
+// rows in T; dq_accum (row, query head), the fused pass's fp32 row. TMA
+// zero-fills rows past a tensor's end: a dense box past sq or sk is zeros,
+// a packed box past a sequence holds the next sequence's rows (a NaN even).
+// With Src::ZERO_TAIL the tiles zero those rows in shared memory (the q
+// rows past sq of a streamed dK/dV tile, the keys past sk of a streamed dQ
+// tile), so that the products sum what the dense policy sums and two
+// policies over the same rows give the same bits. The KV rows past sk of a
+// dK/dV block and the q rows past sq of a dQ block are output rows of their
+// own: they are computed on whatever arrived and never stored.
+//
+// Every product sits on uniform control flow (ptxas crashed on a wgmma
+// behind a warpgroup-divergent branch): a warpgroup whose rows see nothing
+// of a tile skips its products as a whole, and the fused pass's dQ product
+// runs on dS^T = 0 for it.
+#pragma once
+
+#include "sm90.cuh"
+
+namespace fa {
+namespace sm90 {
+
+constexpr int BWD_THREADS = 256;  // two consumer warpgroups
+constexpr int BWD_STAGES = 2;
+constexpr int BWD_KV_ROWS = 128;  // dK/dV block: KV rows (64 a warpgroup)
+constexpr int BWD_KV_BM = 64;     // dK/dV block: q rows of a streamed tile
+constexpr int BWD_Q_ROWS = 128;   // dQ block: q rows (64 a warpgroup)
+constexpr int BWD_Q_BN = 64;      // dQ block: keys of a streamed tile
+constexpr int BWD_ROW_PAD = 128;  // lse2 / delta rows are padded to this
+
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// The scalars of a call.
+struct BwdArgs {
+  float scale, scale_log2;
+  int causal, group;
+};
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = Elem<T>::pack(lo, hi);
+}
+
+// delta of one row: the lanes of a warp take D / 32 elements each of dO and
+// O (rows `dr` and `orow`, at the lane's first element) and sum across the
+// warp; every lane returns the row's sum.
+template <typename T, int D>
+__device__ __forceinline__ float bwd_preprocess_row(const T* dr, const T* orow) {
+  constexpr int PER = D / 32;  // elements a lane
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; i += 2) {
+    const float2 a = Elem<T>::unpack(*reinterpret_cast<const uint32_t*>(dr + i));
+    const float2 o = Elem<T>::unpack(*reinterpret_cast<const uint32_t*>(orow + i));
+    acc = fmaf(a.x, o.x, acc);
+    acc = fmaf(a.y, o.y, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffff, acc, off);
+  return acc;
+}
+
+// lse in base 2 as the tiles take it: +inf for a row that sees no key.
+__device__ __forceinline__ float bwd_lse2(float lse) {
+  return lse == -INFINITY ? INFINITY : lse * FA_LOG2E;
+}
+
+// ---- dK / dV (and the fused dQ) --------------------------------------------
+
+template <int D, bool ACCUM_DQ>
+struct DkdvLayout {
+  using KV = Tile<BWD_KV_ROWS, D>;
+  using QT = Tile<BWD_KV_BM, D>;
+  using DS = Tile<64, BWD_KV_BM>;  // one warpgroup's dS^T: 64 KV rows x KV_BM q
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV::BYTES;
+  static constexpr int STAGE_OFF = 2 * KV::BYTES;
+  static constexpr int STAGE_BYTES = 2 * QT::BYTES;  // Q then dO
+  static constexpr int DS_OFF = STAGE_OFF + BWD_STAGES * STAGE_BYTES;
+  static constexpr int DS_BYTES = ACCUM_DQ ? 2 * DS::BYTES : 0;
+  static constexpr int VEC_OFF = DS_OFF + DS_BYTES;  // lse2 then delta a stage
+  static constexpr int BAR_OFF = VEC_OFF + BWD_STAGES * 2 * BWD_KV_BM * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + BWD_STAGES);
+  // what a launch asks for: the base is rounded up to 1024 bytes
+  static constexpr int SMEM = BYTES + 1024;
+  static constexpr uint32_t KV_TX = 2 * KV::BYTES;
+  static constexpr uint32_t STAGE_TX = STAGE_BYTES + 2 * BWD_KV_BM * 4;
+};
+
+// dK and dV (and, with ACCUM_DQ, dQ * scale added into src.dq_accum) of KV
+// rows [n0, n0 + 128) of KV head hk of the sequence `src`. `smem` is the
+// 1024-aligned base of DkdvLayout<D, ACCUM_DQ>::BYTES.
+template <typename T, int D, bool ACCUM_DQ, typename Src>
+__device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
+                                         int n0, unsigned char* smem) {
+  using L = DkdvLayout<D, ACCUM_DQ>;
+  constexpr int BM = BWD_KV_BM;
+  unsigned char* Ks = smem + L::K_OFF;
+  unsigned char* Vs = smem + L::V_OFF;
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = kv_bar + 1;
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int sq = src.sq;
+  const int sk = src.sk;
+  const int shift = sk - sq;
+
+  // the causal band: the first q row that sees key n0 is n0 - shift
+  const int m_begin = a.causal && n0 - shift > 0 ? (n0 - shift) / BM : 0;
+  const int n_m = max(0, (sq + BM - 1) / BM - m_begin);
+  const int total = n_m * a.group;  // (query head, q tile) pairs in order
+
+  auto issue = [&](int t) {
+    const int st = t % BWD_STAGES;
+    unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
+    float* vec = reinterpret_cast<float*>(smem + L::VEC_OFF) + st * 2 * BM;
+    const int hq = hk * a.group + t / n_m;
+    const int m0 = (m_begin + t % n_m) * BM;
+    mbar_expect_tx(&full[st], L::STAGE_TX);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      src.load_q(stage + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
+      src.load_do(stage + L::QT::BYTES + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
+    }
+    bulk_load(vec, src.lse2(hq, m0), BM * 4, &full[st]);
+    bulk_load(vec + BM, src.delta(hq, m0), BM * 4, &full[st]);
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, L::KV_TX);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      src.load_k(Ks + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
+      src.load_v(Vs + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
+    }
+    if (total > 0) issue(0);
+  }
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  const int kv0 = n0 + wg * 64;  // this warpgroup's KV rows
+  mbar_wait(kv_bar, 0);
+  for (int t = 0; t < total; ++t) {
+    const int st = t % BWD_STAGES;
+    if (tid == 0 && t + 1 < total) issue(t + 1);  // its stage was freed at t - 1
+    unsigned char* Qs = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
+    unsigned char* dOs = Qs + L::QT::BYTES;
+    const float* lse_s = reinterpret_cast<const float*>(smem + L::VEC_OFF) + st * 2 * BM;
+    const float* delta_s = lse_s + BM;
+    const int m0 = (m_begin + t % n_m) * BM;
+    const int hq = hk * a.group + t / n_m;
+    mbar_wait(&full[st], (t / BWD_STAGES) & 1);
+    if constexpr (Src::ZERO_TAIL) {
+      if (m0 + BM > sq) {  // the same for the whole block
+        zero_tile_rows<BM, D>(Qs, sq - m0, BWD_THREADS);
+        zero_tile_rows<BM, D>(dOs, sq - m0, BWD_THREADS);
+        fence_proxy_async();  // before wgmma reads them
+        __syncthreads();
+      }
+    }
+
+    // does any key of this warpgroup see any row of the tile?
+    const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift);
+    if (active) {
+      float s[BM / 2], dp[BM / 2];
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) s[i] = dp[i] = 0.f;
+      // S^T = K Q^T and dP^T = V dO^T (KV rows as M)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, BM, 0, 0>(s, L::KV::k_slice(Ks, wg * 64, kk),
+                              L::QT::k_slice(Qs, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, BM, 0, 0>(dp, L::KV::k_slice(Vs, wg * 64, kk),
+                              L::QT::k_slice(dOs, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // P^T = exp2(S^T * scale_log2 - lse2), masked on the diagonal and the
+      // ragged end of the keys; rows past sq have lse2 = +inf
+      const bool need_mask = (a.causal && kv0 + 63 > m0 + shift) || kv0 + 64 > sk;
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
+          if (need_mask) {
+            const int kv = kv0 + warp * 16 + g + 8 * (e >> 1);
+            const int qrow = m0 + 8 * j + 2 * t4 + (e & 1);
+            if (kv >= sk || (a.causal && kv > qrow + shift)) x = -INFINITY;
+          }
+          s[4 * j + e] = exp2f(x);
+        }
+      }
+      uint32_t pa[BM / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) pack_a<T>(pa[kk], s, kk);
+
+      // dV += P^T dO
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        wgmma_rs<T, D, 1>(dv, pa[kk], L::QT::mn_slice(dOs, 16 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T is in; dV may still run
+      fence_regs(dp);
+
+      // dS^T = P^T (dP^T - delta)
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] *= dp[4 * j + e] - ((e & 1) ? dl.y : dl.x);
+      }
+      uint32_t da[BM / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) pack_a<T>(da[kk], s, kk);
+
+      // dK += dS^T Q (scaled once at the end)
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        wgmma_rs<T, D, 1>(dk, da[kk], L::QT::mn_slice(Qs, 16 * kk), 1);
+      wgmma_commit();
+
+      if constexpr (ACCUM_DQ) {
+        // this warpgroup's dS^T goes to shared memory, the transposed A
+        // operand of dQ = dS K below
+        unsigned char* dsw = smem + L::DS_OFF + wg * L::DS::BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            // da[kk][i]: row g + 8 (i & 1), columns 16 kk + 8 (i >> 1) + 2 t4
+            const int row = warp * 16 + g + 8 * (i & 1);
+            const int col = 16 * kk + 8 * (i >> 1) + 2 * t4;
+            *reinterpret_cast<uint32_t*>(dsw + swz128(row, col)) = da[kk][i];
+          }
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dk);
+      fence_regs(dv);
+    } else if (ACCUM_DQ) {
+      // a warpgroup whose keys see no row of the tile adds dS^T = 0
+      uint4* dsw = reinterpret_cast<uint4*>(smem + L::DS_OFF + wg * L::DS::BYTES);
+      for (int i = tid & 127; i < L::DS::BYTES / 16; i += 128) dsw[i] = make_uint4(0, 0, 0, 0);
+    }
+    if constexpr (ACCUM_DQ) {
+      // dQ[m0 : m0 + BM] += dS K over the block's 128 keys, each warpgroup
+      // one 64-column group of dQ (at d = 64 the first alone), so that the
+      // block adds each dQ element of the tile once
+      fence_proxy_async();
+      named_barrier(1, BWD_THREADS);  // both dS^T halves are in shared memory
+      if (wg < D / 64) {
+        const unsigned char* kcol = Ks + wg * L::KV::PANEL_BYTES;
+        float dq[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_ss<T, 64, 1, 1>(dq, L::DS::mn_slice(smem + L::DS_OFF + (kk / 4) * L::DS::BYTES,
+                                                    16 * (kk % 4)),
+                                L::KV::mn_slice(kcol, 16 * kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = m0 + warp * 16 + g + 8 * i;
+          if (row >= sq) continue;
+          float* dst = src.dq_accum(row, hq) + wg * 64 + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
+                      make_float2(dq[4 * j + 2 * i] * a.scale,
+                                  dq[4 * j + 2 * i + 1] * a.scale));
+        }
+      }
+    }
+    __syncthreads();  // both warpgroups are done with stage st
+  }
+
+  // dK (scaled) and dV in the inputs' type, rows past sk skipped
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = kv0 + warp * 16 + g + 8 * i;
+    if (row >= sk) continue;
+    T* dkg = src.dk(row, hk);
+    T* dvg = src.dv(row, hk);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      store_pair(dkg + 8 * j + 2 * t4, dk[4 * j + 2 * i] * a.scale,
+                 dk[4 * j + 2 * i + 1] * a.scale);
+      store_pair(dvg + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// ---- dQ ---------------------------------------------------------------------
+
+template <int D>
+struct DqLayout {
+  using QT = Tile<BWD_Q_ROWS, D>;
+  using KT = Tile<BWD_Q_BN, D>;
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = QT::BYTES;
+  static constexpr int STAGE_OFF = 2 * QT::BYTES;
+  static constexpr int STAGE_BYTES = 2 * KT::BYTES;  // K then V
+  static constexpr int VEC_OFF = STAGE_OFF + BWD_STAGES * STAGE_BYTES;  // lse2, delta
+  static constexpr int BAR_OFF = VEC_OFF + 2 * BWD_Q_ROWS * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + BWD_STAGES);
+  static constexpr int SMEM = BYTES + 1024;
+  static constexpr uint32_t Q_TX = 2 * QT::BYTES + 2 * BWD_Q_ROWS * 4;
+  static constexpr uint32_t STAGE_TX = STAGE_BYTES;
+};
+
+// dQ of query rows [m0, m0 + 128) of query head hh of the sequence `src`,
+// written once. `smem` is the 1024-aligned base of DqLayout<D>::BYTES.
+template <typename T, int D, typename Src>
+__device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
+                                       unsigned char* smem) {
+  using L = DqLayout<D>;
+  constexpr int BN = BWD_Q_BN;
+  constexpr int ROWS = BWD_Q_ROWS;
+  unsigned char* Qs = smem + L::Q_OFF;
+  unsigned char* dOs = smem + L::DO_OFF;
+  float* lse_s = reinterpret_cast<float*>(smem + L::VEC_OFF);
+  float* delta_s = lse_s + ROWS;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_bar + 1;
+
+  const int hk = hh / a.group;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int sq = src.sq;
+  const int sk = src.sk;
+  const int shift = sk - sq;
+
+  // the key tiles of the causal band of rows [m0, m0 + ROWS)
+  int total = (sk + BN - 1) / BN;
+  if (a.causal) {
+    const int col_hi = min(m0 + ROWS, sq) - 1 + shift;
+    total = col_hi < 0 ? 0 : min(total, col_hi / BN + 1);
+  }
+
+  auto issue = [&](int t) {
+    const int st = t % BWD_STAGES;
+    unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
+    mbar_expect_tx(&full[st], L::STAGE_TX);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      src.load_k(stage + c * L::KT::PANEL_BYTES, &full[st], c * 64, t * BN, hk);
+      src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, &full[st], c * 64, t * BN,
+                 hk);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < BWD_STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, L::Q_TX);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      src.load_q(Qs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
+      src.load_do(dOs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
+    }
+    bulk_load(lse_s, src.lse2(hh, m0), ROWS * 4, q_bar);
+    bulk_load(delta_s, src.delta(hh, m0), ROWS * 4, q_bar);
+    if (total > 0) issue(0);
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  const int r0 = m0 + wg * 64;  // this warpgroup's q rows
+  mbar_wait(q_bar, 0);
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = lse_s[wg * 64 + warp * 16 + g + 8 * i];
+    delta[i] = delta_s[wg * 64 + warp * 16 + g + 8 * i];
+  }
+  for (int t = 0; t < total; ++t) {
+    const int st = t % BWD_STAGES;
+    if (tid == 0 && t + 1 < total) issue(t + 1);  // its stage was freed at t - 1
+    unsigned char* Ks = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
+    unsigned char* Vs = Ks + L::KT::BYTES;
+    const int n0 = t * BN;
+    mbar_wait(&full[st], (t / BWD_STAGES) & 1);
+    if constexpr (Src::ZERO_TAIL) {
+      if (n0 + BN > sk) {  // the same for the whole block
+        zero_tile_rows<BN, D>(Ks, sk - n0, BWD_THREADS);
+        zero_tile_rows<BN, D>(Vs, sk - n0, BWD_THREADS);
+        fence_proxy_async();  // before wgmma reads them
+        __syncthreads();
+      }
+    }
+
+    // does any row of this warpgroup see any key of the tile?
+    const bool active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift);
+    if (active) {
+      float s[BN / 2], dp[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+      // S = Q K^T and dP = dO V^T
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, BN, 0, 0>(s, L::QT::k_slice(Qs, wg * 64, kk),
+                              L::KT::k_slice(Ks, 0, kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, BN, 0, 0>(dp, L::QT::k_slice(dOs, wg * 64, kk),
+                              L::KT::k_slice(Vs, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // P = exp2(S * scale_log2 - lse2), masked on the diagonal and the
+      // ragged end of the keys
+      const bool need_mask = (a.causal && n0 + BN - 1 > r0 + shift) || n0 + BN > sk;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = fmaf(s[4 * j + e], a.scale_log2, -lse2[e >> 1]);
+          if (need_mask) {
+            const int col = n0 + 8 * j + 2 * t4 + (e & 1);
+            const int row = r0 + warp * 16 + g + 8 * (e >> 1);
+            if (col >= sk || (a.causal && col > row + shift)) x = -INFINITY;
+          }
+          s[4 * j + e] = exp2f(x);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+
+      // dS = P (dP - delta); dQ += dS K (scaled once at the end)
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] *= dp[i] - delta[(i >> 1) & 1];
+      uint32_t da[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(da[kk], s, kk);
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<T, D, 1>(dq, da[kk], L::KT::mn_slice(Ks, 16 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+    }
+    __syncthreads();  // both warpgroups are done with stage st
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + warp * 16 + g + 8 * i;
+    if (row >= sq) continue;
+    T* dqg = src.dq(row, hh);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store_pair(dqg + 8 * j + 2 * t4, dq[4 * j + 2 * i] * a.scale,
+                 dq[4 * j + 2 * i + 1] * a.scale);
+  }
+}
+
+}  // namespace sm90
+}  // namespace fa

@@ -1,16 +1,15 @@
-// The mma.sync backward tile loops of the packed-varlen backward
-// (csrc/flash_varlen.cu) and the block-sparse backward
-// (csrc/flash_blocksparse.cu); the dense backward runs on wgmma and TMA
-// (csrc/sm90.cuh):
+// The mma.sync backward tile loops of the block-sparse backward
+// (csrc/flash_blocksparse.cu, B10); the dense and packed-varlen backward run
+// on wgmma and TMA (csrc/bwd_sm90.cuh):
 //
-//  - dkdv_tile: 64 KV rows of one sequence and KV head loop over the group's
-//    query heads and the q tiles of their band, keep dK and dV in registers
-//    and write them once;
-//  - dq_tile: 64 query rows of one sequence and head loop over the KV tiles
-//    of their band and write dQ once.
+//  - dkdv_tile: 64 KV rows of one batch row and KV head loop over the
+//    group's query heads and the q tiles of their listed band, keep dK and
+//    dV in registers and write them once;
+//  - dq_tile: 64 query rows of one batch row and head loop over the KV
+//    tiles of their listed band and write dQ once.
 //
-// Each loop takes its tiles from a walk policy: the dense band (QRange,
-// common.cuh KeyRange) or, for csrc/flash_blocksparse.cu, the listed tiles.
+// Each loop takes its tiles from a walk policy: the block-sparse kernel's
+// lists.
 //
 // The transposed scores S^T = K Q^T are computed with the KV rows as the M
 // dimension, so P^T and dS^T come out of the accumulators already in the
@@ -60,12 +59,11 @@ constexpr int dq_smem_bytes() {
   return 2 * (DQ_BM + DQ_BN) * D * (int)sizeof(T);
 }
 
-// One sequence (a packed sequence of the varlen backward, a batch row of the
-// block-sparse one) of sq query rows over sk keys. Pointers are at row 0 of
-// the sequence: q, dout, dq, lse and delta at the first query head the tile
+// One batch row of sq query rows over sk keys. Pointers are at row 0 of
+// the row: q, dout, dq, lse and delta at the first query head the tile
 // works on, k, v, dk and dv at its KV head. Row strides are in elements; lse
 // and delta rows are consecutive floats, their heads lse_sh apart. The
-// gradients are written in TG: the inputs' type, or fp32 (block-sparse).
+// gradients are written in TG (fp32 for the block-sparse backward).
 template <typename T, typename TG = T>
 struct BwdSeq {
   const T* q;
@@ -152,25 +150,9 @@ __device__ __forceinline__ void store_pair(float* dst, float lo, float hi) {
   *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
 }
 
-// The q tiles a dK/dV tile of keys [n0, n0 + 64) walks, in order: count()
-// of them, the n-th starting at row first_row(n), or at -1 for one the walk
-// skips (the same for every thread of the block). QRange is the dense walk:
-// every BM-row tile of the causal band.
-template <int BM>
-struct QRange {
-  int m_begin, n_tiles;
-  __device__ __forceinline__ QRange(int n0, int sq, int sk, bool causal) {
-    // the first row that sees key n0 is n0 - shift
-    const int shift = sk - sq;
-    m_begin = 0;
-    if (causal) m_begin = n0 - shift <= 0 ? 0 : (n0 - shift) / BM;
-    n_tiles = (sq + BM - 1) / BM - m_begin;
-  }
-  __device__ __forceinline__ int count() const { return n_tiles; }
-  __device__ __forceinline__ int first_row(int n) const {
-    return (m_begin + n) * BM;
-  }
-};
+// A q-tile walk (the block-sparse kernel's inverse list) gives count() q
+// tiles in order, the n-th starting at row first_row(n), or at -1 for one
+// the walk skips (the same for every thread of the block).
 
 // lse in base 2 for the exponent; +inf for a row that sees no key or lies
 // past the end, so that its P is exp2(-inf) = 0 and never NaN.
@@ -180,7 +162,7 @@ __device__ __forceinline__ float lse_log2(const float* lse_row, int row, int sq)
 }
 
 // dK and dV of KV rows [n0, n0 + 64) of one sequence and KV head, over the
-// q tiles of `walk` (QRange, or the block-sparse kernel's inverse list).
+// q tiles of `walk` (the block-sparse kernel's inverse list).
 template <typename T, int D, int BM, typename TG, typename QWalk>
 __device__ __forceinline__ void dkdv_tile(const BwdSeq<T, TG>& s, int n0,
                                           const QWalk& walk,
@@ -351,16 +333,8 @@ __device__ __forceinline__ void dkdv_tile(const BwdSeq<T, TG>& s, int n0,
   }
 }
 
-// The dense walk: every q tile of the KV tile's causal band.
-template <typename T, int D, int BM>
-__device__ __forceinline__ void dkdv_tile(const BwdSeq<T>& s, int n0,
-                                          const BwdScalars& c,
-                                          unsigned char* smem) {
-  dkdv_tile<T, D, BM>(s, n0, QRange<BM>(n0, s.sq, s.sk, c.causal), c, smem);
-}
-
 // dQ of query rows [m0, m0 + 64) of one sequence and head, over the key
-// tiles of `walk` (common.cuh KeyRange, or the block-sparse kernel's list).
+// tiles of `walk` (the block-sparse kernel's list).
 template <typename T, int D, typename TG, typename Walk>
 __device__ __forceinline__ void dq_tile(const BwdSeq<T, TG>& s, int m0,
                                         const Walk& walk,
@@ -497,15 +471,6 @@ __device__ __forceinline__ void dq_tile(const BwdSeq<T, TG>& s, int m0,
                  dq[db][2 * i + 1] * c.scale);
     }
   }
-}
-
-// The dense walk: every key tile of the q tile's causal band.
-template <typename T, int D>
-__device__ __forceinline__ void dq_tile(const BwdSeq<T>& s, int m0,
-                                        const BwdScalars& c,
-                                        unsigned char* smem) {
-  dq_tile<T, D>(s, m0, KeyRange<DQ_BN>(m0, DQ_BM, s.sq, s.sk, c.causal), c,
-                smem);
 }
 
 }  // namespace fa

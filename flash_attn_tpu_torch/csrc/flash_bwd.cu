@@ -30,19 +30,13 @@
 // h = 16, d = 128, causal) 172 GFLOP of useful products, 0.17 ms at 989
 // TFLOP/s, while its bytes take 0.04 ms at 3.35 TB/s.
 //
-// What the design does about it (csrc/sm90.cuh): every product is a
-// warpgroup wgmma, the only way to the card's full tensor-core rate. Two
-// warpgroups of 64 rows share a block; K and V (dK/dV kernel) or Q and dO
-// (dQ kernel) are loaded once by TMA and stay in shared memory, and the
-// streamed tiles run through a two-stage ring: one thread issues the TMA
-// loads (and the bulk copies of lse and delta) of tile t + 1 as tile t
-// starts, so no tile waits for its own load. The transposed scores
-// S^T = K Q^T put the KV rows in wgmma's M, so P^T and dS^T pack from the
-// accumulators straight into the register A operand of dV += P^T dO and
-// dK += dS^T Q (dQ += dS K likewise in the dQ kernel), and Q, dO and K are
-// read transposed through the descriptors' transpose bit. Each thread keeps
-// 64 + 64 fp32 accumulators of dK and dV at d = 128 within the 255 registers
-// that a 256-thread block allows, so no register rebalancing
+// What the design does about it: the dK/dV and dQ kernels run the
+// backward tiles of csrc/bwd_sm90.cuh (every product a warpgroup wgmma, the
+// resident K/V or Q/dO tiles and a two-stage TMA ring of the streamed ones;
+// see its note) with the dense source below: 4D tensor maps over (b, s, h,
+// d), whose boxes past sq or sk TMA fills with zeros. Each thread keeps
+// 64 + 64 fp32 accumulators of dK and dV at d = 128 within the 255
+// registers that a 256-thread block allows, so no register rebalancing
 // (setmaxnreg) or separate producer warp is needed. One block barrier a
 // tile keeps the two warpgroups in step: freeing each stage by mbarrier
 // arrivals instead, a third stage, or issuing the next tile's products
@@ -64,24 +58,13 @@
 // reached with cudaGetDriverEntryPoint so that only the runtime is linked
 // (sm90.cuh make_tile_map).
 
-#include "sm90.cuh"
+#include "bwd_sm90.cuh"
 
 namespace {
 
 using namespace fa::sm90;
 
-constexpr int THREADS = 256;  // two consumer warpgroups
-constexpr int STAGES = 2;
-constexpr int KV_ROWS = 128;  // dK/dV block: KV rows (64 a warpgroup)
-constexpr int KV_BM = 64;     // dK/dV block: q rows of a streamed tile
-constexpr int Q_ROWS = 128;   // dQ block: q rows (64 a warpgroup)
-constexpr int Q_BN = 64;      // dQ block: keys of a streamed tile
-constexpr int ROW_PAD = 128;  // lse2 / delta rows are padded to this
-constexpr int PRE_ROWS = 8;   // preprocess: rows (warps) a block
-
-struct BwdMaps {
-  CUtensorMap q, k, v, dout;
-};
+constexpr int PRE_ROWS = 8;  // preprocess: rows (warps) a block
 
 struct BwdParams {
   const float* lse2;   // (b, h, sq_pad): lse * log2(e), +inf for P = 0
@@ -93,15 +76,9 @@ struct BwdParams {
   int64_t dq_sb, dq_ss, dq_sh;
   int64_t dk_sb, dk_ss, dk_sh;
   int64_t dv_sb, dv_ss, dv_sh;
-  int sq, sk, sq_pad, h, group;
-  float scale, scale_log2;
-  int causal;
+  int sq, sk, sq_pad, h, d;
+  BwdArgs a;
 };
-
-template <typename T>
-__device__ __forceinline__ void store_pair(T* dst, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(dst) = fa::Elem<T>::pack(lo, hi);
-}
 
 // ---- preprocess -------------------------------------------------------------
 
@@ -126,22 +103,12 @@ __global__ void __launch_bounds__(PRE_ROWS * 32)
     }
     return;
   }
-  const T* dr = dout + bb * do_sb + row * do_ss + hh * do_sh + lane * PER;
-  const T* orow = out + bb * o_sb + row * o_ss + hh * o_sh + lane * PER;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; i += 2) {
-    const float2 a = fa::Elem<T>::unpack(*reinterpret_cast<const uint32_t*>(dr + i));
-    const float2 o = fa::Elem<T>::unpack(*reinterpret_cast<const uint32_t*>(orow + i));
-    acc = fmaf(a.x, o.x, acc);
-    acc = fmaf(a.y, o.y, acc);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffff, acc, off);
+  const float acc = bwd_preprocess_row<T, D>(
+      dout + bb * do_sb + row * do_ss + hh * do_sh + lane * PER,
+      out + bb * o_sb + row * o_ss + hh * o_sh + lane * PER);
   if (lane == 0) {
     delta[idx] = acc;
-    const float l = lse[((int64_t)bb * h + hh) * sq + row];
-    lse2[idx] = l == -INFINITY ? INFINITY : l * FA_LOG2E;
+    lse2[idx] = bwd_lse2(lse[((int64_t)bb * h + hh) * sq + row]);
   }
   if (dq_accum != nullptr) {
     float* dst = dq_accum + (((int64_t)bb * sq + row) * h + hh) * D + lane * PER;
@@ -150,422 +117,74 @@ __global__ void __launch_bounds__(PRE_ROWS * 32)
   }
 }
 
-// ---- dK / dV (and the fused dQ) --------------------------------------------
+// ---- the dense source -------------------------------------------------------
 
-template <int D, bool ACCUM_DQ>
-struct DkdvLayout {
-  using KV = Tile<KV_ROWS, D>;
-  using QT = Tile<KV_BM, D>;
-  using DS = Tile<64, KV_BM>;  // one warpgroup's dS^T: 64 KV rows x KV_BM q
-  static constexpr int K_OFF = 0;
-  static constexpr int V_OFF = KV::BYTES;
-  static constexpr int STAGE_OFF = 2 * KV::BYTES;
-  static constexpr int STAGE_BYTES = 2 * QT::BYTES;  // Q then dO
-  static constexpr int DS_OFF = STAGE_OFF + STAGES * STAGE_BYTES;
-  static constexpr int DS_BYTES = ACCUM_DQ ? 2 * DS::BYTES : 0;
-  static constexpr int VEC_OFF = DS_OFF + DS_BYTES;  // lse2 then delta a stage
-  static constexpr int BAR_OFF = VEC_OFF + STAGES * 2 * KV_BM * 4;
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + STAGES);
-  static constexpr uint32_t KV_TX = 2 * KV::BYTES;
-  static constexpr uint32_t STAGE_TX = STAGE_BYTES + 2 * KV_BM * 4;
+// Batch row bb of the (b, s, h, d) operands: 4D maps, the padded (b, h,
+// sq_pad) lse2 / delta, the gradients by element strides.
+template <typename T>
+struct DenseSrc {
+  static constexpr bool ZERO_TAIL = false;  // TMA zero-fills past sq and sk
+  const BwdMaps* maps;
+  const BwdParams* p;
+  int bb, sq, sk;
+  __device__ __forceinline__ DenseSrc(const BwdMaps& m, const BwdParams& prm, int b)
+      : maps(&m), p(&prm), bb(b), sq(prm.sq), sk(prm.sk) {}
+  __device__ __forceinline__ void load_q(void* dst, uint64_t* bar, int col, int row,
+                                         int hq) const {
+    tma_load_4d(dst, &maps->q, bar, col, row, hq, bb);
+  }
+  __device__ __forceinline__ void load_do(void* dst, uint64_t* bar, int col, int row,
+                                          int hq) const {
+    tma_load_4d(dst, &maps->dout, bar, col, row, hq, bb);
+  }
+  __device__ __forceinline__ void load_k(void* dst, uint64_t* bar, int col, int row,
+                                         int hk) const {
+    tma_load_4d(dst, &maps->k, bar, col, row, hk, bb);
+  }
+  __device__ __forceinline__ void load_v(void* dst, uint64_t* bar, int col, int row,
+                                         int hk) const {
+    tma_load_4d(dst, &maps->v, bar, col, row, hk, bb);
+  }
+  __device__ __forceinline__ const float* lse2(int hq, int row) const {
+    return p->lse2 + ((int64_t)bb * p->h + hq) * p->sq_pad + row;
+  }
+  __device__ __forceinline__ const float* delta(int hq, int row) const {
+    return p->delta + ((int64_t)bb * p->h + hq) * p->sq_pad + row;
+  }
+  __device__ __forceinline__ T* dk(int row, int hk) const {
+    return reinterpret_cast<T*>(p->dk) + bb * p->dk_sb + row * p->dk_ss + hk * p->dk_sh;
+  }
+  __device__ __forceinline__ T* dv(int row, int hk) const {
+    return reinterpret_cast<T*>(p->dv) + bb * p->dv_sb + row * p->dv_ss + hk * p->dv_sh;
+  }
+  __device__ __forceinline__ T* dq(int row, int hq) const {
+    return reinterpret_cast<T*>(p->dq) + bb * p->dq_sb + row * p->dq_ss + hq * p->dq_sh;
+  }
+  __device__ __forceinline__ float* dq_accum(int row, int hq) const {
+    return p->dq_accum + (((int64_t)bb * p->sq + row) * p->h + hq) * p->d;
+  }
 };
 
+// ---- the kernels ------------------------------------------------------------
+
+// dK/dV (and the fused dQ): one block per (KV head, batch row, 128 KV rows),
+// KV tile 0 (the heaviest under causal masking) first.
 template <typename T, int D, bool ACCUM_DQ>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BWD_THREADS, 1)
     dkdv_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
-  using L = DkdvLayout<D, ACCUM_DQ>;
-  constexpr int BM = KV_BM;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align_1024(smem_raw);
-  unsigned char* Ks = smem + L::K_OFF;
-  unsigned char* Vs = smem + L::V_OFF;
-  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* full = kv_bar + 1;
-
-  const int hk = blockIdx.x;
-  const int bb = blockIdx.y;
-  const int n0 = blockIdx.z * KV_ROWS;  // KV tile 0 (the heaviest) first
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const int warp = (tid >> 5) & 3;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int shift = p.sk - p.sq;
-
-  // the causal band: the first q row that sees key n0 is n0 - shift
-  const int m_begin = p.causal && n0 - shift > 0 ? (n0 - shift) / BM : 0;
-  const int n_m = max(0, (p.sq + BM - 1) / BM - m_begin);
-  const int total = n_m * p.group;  // (query head, q tile) pairs in order
-
-  auto issue = [&](int t) {
-    const int st = t % STAGES;
-    unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
-    float* vec = reinterpret_cast<float*>(smem + L::VEC_OFF) + st * 2 * BM;
-    const int hq = hk * p.group + t / n_m;
-    const int m0 = (m_begin + t % n_m) * BM;
-    mbar_expect_tx(&full[st], L::STAGE_TX);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
-      tma_load_4d(stage + c * L::QT::PANEL_BYTES, &maps.q, &full[st], c * 64, m0, hq, bb);
-      tma_load_4d(stage + L::QT::BYTES + c * L::QT::PANEL_BYTES, &maps.dout, &full[st],
-                  c * 64, m0, hq, bb);
-    }
-    const int64_t row = ((int64_t)bb * p.h + hq) * p.sq_pad + m0;
-    bulk_load(vec, p.lse2 + row, BM * 4, &full[st]);
-    bulk_load(vec + BM, p.delta + row, BM * 4, &full[st]);
-  };
-
-  if (tid == 0) {
-    mbar_init(kv_bar, 1);
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(kv_bar, L::KV_TX);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
-      tma_load_4d(Ks + c * L::KV::PANEL_BYTES, &maps.k, kv_bar, c * 64, n0, hk, bb);
-      tma_load_4d(Vs + c * L::KV::PANEL_BYTES, &maps.v, kv_bar, c * 64, n0, hk, bb);
-    }
-    if (total > 0) issue(0);
-  }
-
-  float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-
-  const int kv0 = n0 + wg * 64;  // this warpgroup's KV rows
-  mbar_wait(kv_bar, 0);
-  for (int t = 0; t < total; ++t) {
-    const int st = t % STAGES;
-    if (tid == 0 && t + 1 < total) issue(t + 1);  // its stage was freed at t - 1
-    const unsigned char* Qs = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
-    const unsigned char* dOs = Qs + L::QT::BYTES;
-    const float* lse_s = reinterpret_cast<const float*>(smem + L::VEC_OFF) + st * 2 * BM;
-    const float* delta_s = lse_s + BM;
-    const int m0 = (m_begin + t % n_m) * BM;
-    const int hq = hk * p.group + t / n_m;
-    mbar_wait(&full[st], (t / STAGES) & 1);
-
-    // does any key of this warpgroup see any row of the tile?
-    const bool active = kv0 < p.sk && (!p.causal || kv0 <= m0 + BM - 1 + shift);
-    if (active) {
-      float s[BM / 2], dp[BM / 2];
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) s[i] = dp[i] = 0.f;
-      // S^T = K Q^T and dP^T = V dO^T (KV rows as M)
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BM, 0, 0>(s, L::KV::k_slice(Ks, wg * 64, kk),
-                              L::QT::k_slice(Qs, 0, kk), kk > 0);
-      wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BM, 0, 0>(dp, L::KV::k_slice(Vs, wg * 64, kk),
-                              L::QT::k_slice(dOs, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(s);
-
-      // P^T = exp2(S^T * scale_log2 - lse2), masked on the diagonal and the
-      // ragged end of the keys; rows past sq have lse2 = +inf
-      const bool need_mask = (p.causal && kv0 + 63 > m0 + shift) || kv0 + 64 > p.sk;
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = fmaf(s[4 * j + e], p.scale_log2, -((e & 1) ? l.y : l.x));
-          if (need_mask) {
-            const int kv = kv0 + warp * 16 + g + 8 * (e >> 1);
-            const int qrow = m0 + 8 * j + 2 * t4 + (e & 1);
-            if (kv >= p.sk || (p.causal && kv > qrow + shift)) x = -INFINITY;
-          }
-          s[4 * j + e] = exp2f(x);
-        }
-      }
-      uint32_t pa[BM / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk) pack_a<T>(pa[kk], s, kk);
-
-      // dV += P^T dO
-      fence_regs(dv);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_rs<T, D, 1>(dv, pa[kk], L::QT::mn_slice(dOs, 16 * kk), 1);
-      wgmma_commit();
-      wgmma_wait<1>();  // dP^T is in; dV may still run
-      fence_regs(dp);
-
-      // dS^T = P^T (dP^T - delta)
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-        const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[4 * j + e] *= dp[4 * j + e] - ((e & 1) ? dl.y : dl.x);
-      }
-      uint32_t da[BM / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk) pack_a<T>(da[kk], s, kk);
-
-      // dK += dS^T Q (scaled once at the end)
-      fence_regs(dk);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_rs<T, D, 1>(dk, da[kk], L::QT::mn_slice(Qs, 16 * kk), 1);
-      wgmma_commit();
-
-      if constexpr (ACCUM_DQ) {
-        // this warpgroup's dS^T goes to shared memory, the transposed A
-        // operand of dQ = dS K below
-        unsigned char* dsw = smem + L::DS_OFF + wg * L::DS::BYTES;
-#pragma unroll
-        for (int kk = 0; kk < BM / 16; ++kk) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            // da[kk][i]: row g + 8 (i & 1), columns 16 kk + 8 (i >> 1) + 2 t4
-            const int row = warp * 16 + g + 8 * (i & 1);
-            const int col = 16 * kk + 8 * (i >> 1) + 2 * t4;
-            *reinterpret_cast<uint32_t*>(dsw + swz128(row, col)) = da[kk][i];
-          }
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-    } else if (ACCUM_DQ) {
-      // a warpgroup whose keys see no row of the tile adds dS^T = 0
-      uint4* dsw = reinterpret_cast<uint4*>(smem + L::DS_OFF + wg * L::DS::BYTES);
-      for (int i = tid & 127; i < L::DS::BYTES / 16; i += 128) dsw[i] = make_uint4(0, 0, 0, 0);
-    }
-    if constexpr (ACCUM_DQ) {
-      // dQ[m0 : m0 + BM] += dS K over the block's 128 keys, each warpgroup
-      // one 64-column group of dQ (at d = 64 the first alone), so that the
-      // block adds each dQ element of the tile once
-      fence_proxy_async();
-      named_barrier(1, THREADS);  // both dS^T halves are in shared memory
-      if (wg < D / 64) {
-        const unsigned char* kcol = Ks + wg * L::KV::PANEL_BYTES;
-        float dq[32];
-#pragma unroll
-        for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          wgmma_ss<T, 64, 1, 1>(dq, L::DS::mn_slice(smem + L::DS_OFF + (kk / 4) * L::DS::BYTES,
-                                                    16 * (kk % 4)),
-                                L::KV::mn_slice(kcol, 16 * kk), kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dq);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = m0 + warp * 16 + g + 8 * i;
-          if (row >= p.sq) continue;
-          float* dst = p.dq_accum + (((int64_t)bb * p.sq + row) * p.h + hq) * D +
-                       wg * 64 + 2 * t4;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
-                      make_float2(dq[4 * j + 2 * i] * p.scale,
-                                  dq[4 * j + 2 * i + 1] * p.scale));
-        }
-      }
-    }
-    __syncthreads();  // both warpgroups are done with stage st
-  }
-
-  // dK (scaled) and dV in the inputs' type, rows past sk skipped
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = kv0 + warp * 16 + g + 8 * i;
-    if (row >= p.sk) continue;
-    T* dkg = reinterpret_cast<T*>(p.dk) + bb * p.dk_sb + row * p.dk_ss + hk * p.dk_sh;
-    T* dvg = reinterpret_cast<T*>(p.dv) + bb * p.dv_sb + row * p.dv_ss + hk * p.dv_sh;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      store_pair(dkg + 8 * j + 2 * t4, dk[4 * j + 2 * i] * p.scale,
-                 dk[4 * j + 2 * i + 1] * p.scale);
-      store_pair(dvg + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
-    }
-  }
+  bwd_dkdv<T, D, ACCUM_DQ>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                           blockIdx.z * BWD_KV_ROWS, align_1024(smem_raw));
 }
 
-// ---- dQ ---------------------------------------------------------------------
-
-template <int D>
-struct DqLayout {
-  using QT = Tile<Q_ROWS, D>;
-  using KT = Tile<Q_BN, D>;
-  static constexpr int Q_OFF = 0;
-  static constexpr int DO_OFF = QT::BYTES;
-  static constexpr int STAGE_OFF = 2 * QT::BYTES;
-  static constexpr int STAGE_BYTES = 2 * KT::BYTES;  // K then V
-  static constexpr int VEC_OFF = STAGE_OFF + STAGES * STAGE_BYTES;  // lse2, delta
-  static constexpr int BAR_OFF = VEC_OFF + 2 * Q_ROWS * 4;
-  static constexpr int BYTES = BAR_OFF + 8 * (1 + STAGES);
-  static constexpr uint32_t Q_TX = 2 * QT::BYTES + 2 * Q_ROWS * 4;
-  static constexpr uint32_t STAGE_TX = STAGE_BYTES;
-};
-
+// dQ: one block per (head, batch row, 128 q rows), the last (heaviest)
+// q tile first.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BWD_THREADS, 1)
     dq_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
-  using L = DqLayout<D>;
-  constexpr int BN = Q_BN;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align_1024(smem_raw);
-  unsigned char* Qs = smem + L::Q_OFF;
-  unsigned char* dOs = smem + L::DO_OFF;
-  float* lse_s = reinterpret_cast<float*>(smem + L::VEC_OFF);
-  float* delta_s = lse_s + Q_ROWS;
-  uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t* full = q_bar + 1;
-
-  const int hh = blockIdx.x;
-  const int bb = blockIdx.y;
-  const int m0 = (gridDim.z - 1 - blockIdx.z) * Q_ROWS;  // the last (heaviest) first
-  const int hk = hh / p.group;
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7;
-  const int warp = (tid >> 5) & 3;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int shift = p.sk - p.sq;
-
-  // the key tiles of the causal band of rows [m0, m0 + Q_ROWS)
-  int total = (p.sk + BN - 1) / BN;
-  if (p.causal) {
-    const int col_hi = min(m0 + Q_ROWS, p.sq) - 1 + shift;
-    total = col_hi < 0 ? 0 : min(total, col_hi / BN + 1);
-  }
-
-  auto issue = [&](int t) {
-    const int st = t % STAGES;
-    unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
-    mbar_expect_tx(&full[st], L::STAGE_TX);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
-      tma_load_4d(stage + c * L::KT::PANEL_BYTES, &maps.k, &full[st], c * 64, t * BN, hk, bb);
-      tma_load_4d(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, &maps.v, &full[st],
-                  c * 64, t * BN, hk, bb);
-    }
-  };
-
-  if (tid == 0) {
-    mbar_init(q_bar, 1);
-    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    mbar_expect_tx(q_bar, L::Q_TX);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
-      tma_load_4d(Qs + c * L::QT::PANEL_BYTES, &maps.q, q_bar, c * 64, m0, hh, bb);
-      tma_load_4d(dOs + c * L::QT::PANEL_BYTES, &maps.dout, q_bar, c * 64, m0, hh, bb);
-    }
-    const int64_t row = ((int64_t)bb * p.h + hh) * p.sq_pad + m0;
-    bulk_load(lse_s, p.lse2 + row, Q_ROWS * 4, q_bar);
-    bulk_load(delta_s, p.delta + row, Q_ROWS * 4, q_bar);
-    if (total > 0) issue(0);
-  }
-
-  float dq[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
-
-  const int r0 = m0 + wg * 64;  // this warpgroup's q rows
-  mbar_wait(q_bar, 0);
-  float lse2[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    lse2[i] = lse_s[wg * 64 + warp * 16 + g + 8 * i];
-    delta[i] = delta_s[wg * 64 + warp * 16 + g + 8 * i];
-  }
-  for (int t = 0; t < total; ++t) {
-    const int st = t % STAGES;
-    if (tid == 0 && t + 1 < total) issue(t + 1);  // its stage was freed at t - 1
-    const unsigned char* Ks = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
-    const unsigned char* Vs = Ks + L::KT::BYTES;
-    const int n0 = t * BN;
-    mbar_wait(&full[st], (t / STAGES) & 1);
-
-    // does any row of this warpgroup see any key of the tile?
-    const bool active = r0 < p.sq && (!p.causal || n0 <= r0 + 63 + shift);
-    if (active) {
-      float s[BN / 2], dp[BN / 2];
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
-      // S = Q K^T and dP = dO V^T
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BN, 0, 0>(s, L::QT::k_slice(Qs, wg * 64, kk),
-                              L::KT::k_slice(Ks, 0, kk), kk > 0);
-      wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BN, 0, 0>(dp, L::QT::k_slice(dOs, wg * 64, kk),
-                              L::KT::k_slice(Vs, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(s);
-
-      // P = exp2(S * scale_log2 - lse2), masked on the diagonal and the
-      // ragged end of the keys
-      const bool need_mask = (p.causal && n0 + BN - 1 > r0 + shift) || n0 + BN > p.sk;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = fmaf(s[4 * j + e], p.scale_log2, -lse2[e >> 1]);
-          if (need_mask) {
-            const int col = n0 + 8 * j + 2 * t4 + (e & 1);
-            const int row = r0 + warp * 16 + g + 8 * (e >> 1);
-            if (col >= p.sk || (p.causal && col > row + shift)) x = -INFINITY;
-          }
-          s[4 * j + e] = exp2f(x);
-        }
-      }
-      wgmma_wait<0>();
-      fence_regs(dp);
-
-      // dS = P (dP - delta); dQ += dS K (scaled once at the end)
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) s[i] *= dp[i] - delta[(i >> 1) & 1];
-      uint32_t da[BN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(da[kk], s, kk);
-      fence_regs(dq);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<T, D, 1>(dq, da[kk], L::KT::mn_slice(Ks, 16 * kk), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dq);
-    }
-    __syncthreads();  // both warpgroups are done with stage st
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + warp * 16 + g + 8 * i;
-    if (row >= p.sq) continue;
-    T* dqg = reinterpret_cast<T*>(p.dq) + bb * p.dq_sb + row * p.dq_ss + hh * p.dq_sh;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store_pair(dqg + 8 * j + 2 * t4, dq[4 * j + 2 * i] * p.scale,
-                 dq[4 * j + 2 * i + 1] * p.scale);
-  }
+  bwd_dq<T, D>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+               (gridDim.z - 1 - blockIdx.z) * BWD_Q_ROWS, align_1024(smem_raw));
 }
 
 // ---- host side --------------------------------------------------------------
@@ -605,30 +224,28 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, const BwdMaps& maps,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, smem, stream>>>(maps, p);
+  kernel<<<grid, BWD_THREADS, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkdv(const BwdMaps& maps, const BwdParams& p, int b, int h_k,
                         cudaStream_t stream) {
-  const dim3 grid(h_k, b, (p.sk + KV_ROWS - 1) / KV_ROWS);
+  const dim3 grid(h_k, b, (p.sk + BWD_KV_ROWS - 1) / BWD_KV_ROWS);
   if (p.dq_accum != nullptr)
-    return launch(dkdv_kernel<T, D, true>, grid, DkdvLayout<D, true>::BYTES + 1024, maps,
-                  p, stream);
-  return launch(dkdv_kernel<T, D, false>, grid, DkdvLayout<D, false>::BYTES + 1024, maps,
-                p, stream);
+    return launch(dkdv_kernel<T, D, true>, grid, DkdvLayout<D, true>::SMEM, maps, p, stream);
+  return launch(dkdv_kernel<T, D, false>, grid, DkdvLayout<D, false>::SMEM, maps, p, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const BwdMaps& maps, const BwdParams& p, int b,
                       cudaStream_t stream) {
-  const dim3 grid(p.h, b, (p.sq + Q_ROWS - 1) / Q_ROWS);
-  return launch(dq_kernel<T, D>, grid, DqLayout<D>::BYTES + 1024, maps, p, stream);
+  const dim3 grid(p.h, b, (p.sq + BWD_Q_ROWS - 1) / BWD_Q_ROWS);
+  return launch(dq_kernel<T, D>, grid, DqLayout<D>::SMEM, maps, p, stream);
 }
 
 BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int sq_pad,
-                      int h, int h_k, float scale, int causal) {
+                      int h, int h_k, int d, float scale, int causal) {
   BwdParams p = {};
   p.lse2 = lse2;
   p.delta = delta;
@@ -636,16 +253,14 @@ BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int
   p.sk = sk;
   p.sq_pad = sq_pad;
   p.h = h;
-  p.group = h / h_k;
-  p.scale = scale;
-  p.scale_log2 = scale * FA_LOG2E;
-  p.causal = causal;
+  p.d = d;
+  p.a = {scale, scale * FA_LOG2E, causal, h / h_k};
   return p;
 }
 
 bool valid(int b, int sq, int sk, int sq_pad, int h, int h_k, int d) {
   return b > 0 && sq > 0 && sk > 0 && h_k > 0 && h % h_k == 0 && (d == 64 || d == 128) &&
-         sq_pad % ROW_PAD == 0 && sq_pad >= sq;
+         sq_pad % BWD_ROW_PAD == 0 && sq_pad >= sq;
 }
 
 }  // namespace
@@ -696,14 +311,14 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
                            int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
                            float scale, int causal, int is_bf16, void* stream) {
-  if (block_q != KV_BM || block_k != KV_ROWS || !valid(b, sq, sk, sq_pad, h, h_k, d))
+  if (block_q != BWD_KV_BM || block_k != BWD_KV_ROWS || !valid(b, sq, sk, sq_pad, h, h_k, d))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   BwdMaps maps;
-  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, KV_BM, KV_ROWS);
+  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, BWD_KV_BM, BWD_KV_ROWS);
   if (err != cudaSuccess) return (int)err;
-  BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, scale, causal);
+  BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal);
   p.dk = dk;
   p.dv = dv;
   p.dq_accum = dq_accum;
@@ -729,14 +344,14 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          int64_t do_sb, int64_t do_ss, int64_t do_sh,
                          int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
                          float scale, int causal, int is_bf16, void* stream) {
-  if (block_q != Q_ROWS || block_k != Q_BN || !valid(b, sq, sk, sq_pad, h, h_k, d))
+  if (block_q != BWD_Q_ROWS || block_k != BWD_Q_BN || !valid(b, sq, sk, sq_pad, h, h_k, d))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   BwdMaps maps;
-  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, Q_ROWS, Q_BN);
+  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, BWD_Q_ROWS, BWD_Q_BN);
   if (err != cudaSuccess) return (int)err;
-  BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, scale, causal);
+  BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal);
   p.dq = dq;
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

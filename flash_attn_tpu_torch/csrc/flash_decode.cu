@@ -1,5 +1,6 @@
 // Split-KV decode attention over a linear or a paged KV cache for Hopper
-// (sm_90a), bf16 / fp16, head dim 64 or 128.
+// (sm_90a), bf16 / fp16, head dim 64 or 128: the d = dv route (the MLA
+// route is csrc/flash_decode_mla.cu).
 //
 // Replaces the TPU kernel flash_attn_tpu/kernels/flash_decode.py:_decode_kernel
 // (linear and paged cache, causal or not, GQA, any num_splits >= 1). The
@@ -10,64 +11,118 @@
 // per head, so every cached key and value is read once and used for
 // 2 * rows flops per element: the kernel is bound by device-memory bandwidth
 // (b * h_k * seqlen * d * 2 * 2 bytes per call), and the tensor cores have
-// nothing to do.
+// nothing to do. At small batch the grid is a wave or less (b = 8, 16 KV
+// heads, one split: 128 blocks on 132 SMs) and the rows differ in length,
+// so the block of the longest row sets the time: its keys must stream
+// through one SM with enough bytes in flight to cover memory latency.
 //
 // What the design does about it: one block per (batch row, KV head, split)
 // handles all sq * group query rows of that KV head (the TPU kernel's GQA row
 // packing), so each K/V row is read from memory once for the whole group.
-// The block streams its split's share of the cache with 16-byte loads: a
-// key is split across D / 8 lanes, a warp covers 32 / (D / 8) keys at once,
-// and each lane keeps DEC_UNROLL keys' K and V loads in flight before it
-// computes, so enough bytes are in flight to cover memory latency. The dot
-// products and the online softmax run in fp32 on the ordinary ALUs, each
-// key group with its own (m, l, acc) state and no barrier in the loop; the
-// states are merged once at the end, by shuffles inside a warp and through
-// shared memory across warps. Each block writes a normalised fp32 partial
-// out and lse for its split.
+// The split's keys, contiguous runs of DECODE_BLOCK_K = 64-key tiles (the
+// partition of the wrapper's _split_bounds, so paged and linear decode sum
+// in the same order), stream through a ring of shared-memory stages: one
+// thread issues each staged tile's TMA copies (cp.async.bulk.tensor over 4D
+// maps of the cache, no swizzle, rows stored one after another) and an
+// mbarrier completes each stage, so the next tiles load while the block
+// computes on the oldest. The dot products and the online softmax run in
+// fp32 on the ordinary ALUs (at group 1 a decode row has no M dimension for
+// the tensor cores): a key is split across D / 8 lanes, each lane reads its
+// 16 bytes of K and V from the stage, and a tile's scores of a lane's keys
+// are reduced across their lanes together and folded into the lane's (m, l,
+// acc) state in one step (one rescale a tile, one exp2 a key), with one
+// block barrier a tile, which frees the stage for the next copy. The states
+// are merged once at the end, by shuffles inside a warp and through shared
+// memory across warps. A paged cache (num_pages, h_k, page_size, d) and a
+// linear one (b_c, h_k, s_max, d), read as b_c pages of s_max rows, go
+// through the same maps: a staged tile is boxes of gcd(page_size, tile)
+// rows, each box's page resolved once (sm90.cuh PagedRows), so any page
+// size works (16 to 256 in the engine).
 //
-// The paged cache (num_pages, h_k, page_size, d) replaces the paged branch
-// of the same TPU kernel, which DMAs whole pages of a (b, max_pages) block
-// table into VMEM. Here each key position j resolves on its own, inside the
-// load, to row j % page_size of page table[b, j / page_size], so any page
-// size works (16 to 256 in the engine) and a block needs no staging buffer.
-// What bounds it is the same as for the linear cache: the K and V bytes of
-// each key, read once (2 * h_k * d * 2 bytes a key), plus one 4-byte table
-// read per key and lane that the L1 cache serves. Split boundaries stay on
-// DECODE_BLOCK_K tiles of positions, so paged and linear decode sum in the
-// same order. Left for later: TMA page copies into a
-// shared-memory ring (one per page instead of a 16-byte load per lane),
-// tensor-core products for the GQA group, and a persistent schedule.
+// Small grids and full ones take two rings of the same kernel. A small grid
+// (b = 8: 128 blocks on 132 SMs) runs thread-block clusters of CLUSTER
+// blocks (2 or 4, the wrapper's choice: the most whose grid still fits the
+// card's resident blocks) that share one (batch row, KV head, split): block
+// rank c takes the c-th contiguous share of the split's tiles, and after
+// the loop rank 0 merges the blocks' states, in rank order, through
+// distributed shared memory into the split's one normalised fp32 partial
+// (out, lse), the layout of the plain version; their ring is deep (3 stages
+// of 64 keys, 96 KB at d = 128), for the long runs of the longest rows. A
+// full grid (the engine's 64 slots: 1,024 blocks) runs one block a split on
+// a shallow ring (2 stages of 16 keys, 16 KB), so that many blocks an SM
+// cover each block's first copies: the deep ring there, or a persistent
+// grid whose ring runs on across items, were slower (PERF.md PR 11).
 //
 // Masking is that of flash_decode.py for causal decode: with sk the cache
 // length after the append, query row t sees key positions <= t + sk - sq.
 // A length past the cache's capacity (s_max, or max_pages * page_size) is
-// cut to it; the caller poisons such rows.
+// cut to it; the caller poisons such rows. Keys past the split's end or the
+// length are staged (a page's other slots, a NaN even) but never reach a
+// sum: their state update is skipped, not multiplied by 0.
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "sm90.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+using namespace fa;
+using namespace fa::sm90;
+
 constexpr int DEC_WARPS = 4;
 constexpr int DEC_THREADS = DEC_WARPS * 32;
-constexpr int DEC_UNROLL = 4;
+constexpr int DEC_BN = 64;  // the split granularity (DECODE_BLOCK_K)
+constexpr int MAX_CLUSTER = 4;
 
 struct DecodeParams {
   const void* q;        // (b, sq, h, d) by strides
-  const void* kc;       // (b_c, h_k, s_max, d) or pages (P, h_k, page_size, d)
-  const void* vc;
   const int* seqlens;   // (b,) cache length after the append
-  const int* table;     // (b, table_width) page ids, paged cache only
+  const int* table;     // (b, table_width) page ids, or nullptr (linear cache)
   float* out_p;         // (num_splits, b, h_k, rows, d)
   float* lse_p;         // (num_splits, b, h_k, rows)
-  int64_t q_sb, q_ss, q_sh;
-  int64_t k_sb, k_sh, k_ss;  // k_sb: the page stride for the paged cache
-  int64_t v_sb, v_sh, v_ss;
-  int64_t t_sb;
-  int b, sq, h_k, group, rows, num_splits, block_k;
-  int page_size, table_width, num_pages, cap;
+  int64_t q_sb, q_ss, q_sh, t_sb;
+  int b, sq, h_k, group, rows, num_splits;
+  int page_size, box_rows, table_width, num_pages, cap;  // box_rows: set by the ring
   float scale_log2;
   int causal;
 };
+
+struct DecodeMaps {
+  CUtensorMap k, v;
+};
+
+// The K and V caches as the host sees them: (num_pages, h_k, page_size, d)
+// by element strides (page, head, row).
+struct CacheView {
+  const void* k;
+  const void* v;
+  int64_t k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  int d, is_bf16;
+};
+
+// The ring: S stages of a K tile then a V tile (TK rows of D elements, row
+// after row), then the warps' (m, l, acc) states for the merge, then a
+// barrier a stage.
+template <int D, int RM, int TK, int S>
+struct DecLayout {
+  static constexpr int TILE_BYTES = TK * D * 2;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr int MERGE_OFF = S * STAGE_BYTES;  // the warps' states
+  static constexpr int BAR_OFF = MERGE_OFF + DEC_WARPS * RM * (D + 2) * 4;
+  static constexpr int BYTES = BAR_OFF + 8 * S;
+  static constexpr int SMEM = BYTES + 1024;
+};
+
+// The two rings (TK keys a staged tile, S stages): a deep one of 64-key
+// tiles, 96 KB at head dim 128, for grids of clusters, which leave SMs
+// idle and give each block a long run of tiles; a shallow one of 16-key
+// tiles, 16 KB, for a full grid (the engine's 64 slots), where more blocks
+// an SM cover each block's first copies (PERF.md PR 11 timed 16- and
+// 32-key tiles of 2 to 4 stages there).
+constexpr int WIDE_TK = 64, NARROW_TK = 16, NARROW_S = 2;
+template <int D>
+constexpr int wide_stages() { return D == 128 ? 3 : 4; }
 
 template <typename T>
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
@@ -87,68 +142,106 @@ __device__ __forceinline__ void merge_coeffs(float m, float m2, float& a,
   b2 = exp2f(m2 - ms);
 }
 
-// Element offset of key position `key`, at the lane's slice of the head
-// dim, from the start of the cache: row `key` of the batch row's linear
-// cache, or row key % page_size of the page the table names.
-template <bool PAGED>
-__device__ __forceinline__ int64_t key_offset(const DecodeParams& p, int bb,
-                                              int key, int64_t sb, int64_t ss) {
-  if (!PAGED) return bb * sb + key * ss;
-  const int col = key / p.page_size;
-  const int pg = min(max(p.table[bb * p.t_sb + min(col, p.table_width - 1)], 0),
-                     p.num_pages - 1);
-  return pg * sb + (key - col * p.page_size) * ss;
-}
+// A block's item: a (batch row, KV head, split, block of RM rows) and the
+// block's share of the split's 64-key tiles, keys from k_lo in n staged
+// tiles of TK keys (the last may end past k_hi).
+struct DecItem {
+  int bb, kh, split, r_base, sk, k_hi, k_lo, n;
+  __device__ __forceinline__ DecItem(const DecodeParams& p, int item, int rm, int tk,
+                                     int csize, int rank) {
+    const int heads = p.b * p.h_k;
+    const int x = item % heads;
+    const int yz = item / heads;
+    bb = x / p.h_k;
+    kh = x - bb * p.h_k;
+    split = yz % p.num_splits;
+    r_base = (yz / p.num_splits) * rm;
+    // the cache cut into 64-key tiles, shared out to the splits in
+    // contiguous runs (as the TPU kernel does), a split's run to the
+    // cluster's blocks in contiguous shares
+    sk = min(p.seqlens[bb], p.cap);
+    const int tiles = (sk + DEC_BN - 1) / DEC_BN;
+    const int kps = (tiles + p.num_splits - 1) / p.num_splits;
+    const int t_lo = min(tiles, split * kps);
+    const int t_hi = min(tiles, t_lo + kps);
+    k_hi = min(sk, t_hi * DEC_BN);
+    const int per = (t_hi - t_lo + csize - 1) / csize;
+    const int c_lo = min(t_hi, t_lo + rank * per);
+    const int c_hi = min(t_hi, c_lo + per);
+    k_lo = c_lo * DEC_BN;
+    n = c_hi > c_lo ? (min(k_hi, c_hi * DEC_BN) - k_lo + tk - 1) / tk : 0;
+  }
+};
 
-// RM: query rows held per block (grid.z covers rows beyond RM).
-template <typename T, int D, int RM, bool PAGED>
-__global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams p) {
-  constexpr int LPK = D / 8;           // lanes per key, 8 elements each
-  constexpr int KPW = 32 / LPK;        // keys per warp per load
-  constexpr int KEYS_PER_STEP = DEC_WARPS * KPW;
-  constexpr int KEYS_PER_ITER = KEYS_PER_STEP * DEC_UNROLL;
+// RM: query rows an item holds (the items cover the rest in row blocks).
+// Item blockIdx.x / CLUSTER, block rank blockIdx.x % CLUSTER of its
+// cluster. TK, S: the ring.
+template <typename T, int D, int RM, int TK, int S>
+__global__ void __launch_bounds__(DEC_THREADS)
+    decode_kernel(const __grid_constant__ DecodeMaps maps, const DecodeParams p) {
+  using L = DecLayout<D, RM, TK, S>;
+  constexpr int LPK = D / 8;            // lanes per key, 8 elements each
+  constexpr int KPW = 32 / LPK;         // keys per warp per step
+  constexpr int KEYS_PER_WARP = TK / DEC_WARPS;
+  constexpr int U = KEYS_PER_WARP / KPW;  // keys of a lane's group a tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  float* sm_m = reinterpret_cast<float*>(smem + L::MERGE_OFF);  // [DEC_WARPS][RM]
+  float* sm_l = sm_m + DEC_WARPS * RM;                           // [DEC_WARPS][RM]
+  float* sm_acc = sm_l + DEC_WARPS * RM;                         // [DEC_WARPS][RM][D]
 
-  __shared__ float sm_m[DEC_WARPS][RM];
-  __shared__ float sm_l[DEC_WARPS][RM];
-  __shared__ float sm_acc[DEC_WARPS][RM][D];
-
-  const int bb = blockIdx.x / p.h_k;
-  const int kh = blockIdx.x % p.h_k;
-  const int split = blockIdx.y;
-  const int r_base = blockIdx.z * RM;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const DecItem it(p, blockIdx.x / csize, RM, TK, csize, rank);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int kg = lane / LPK;  // key slot within the warp
   const int dl = lane % LPK;  // which 8 elements of the head dim
 
-  // This split's key range: the cache is cut into block_k tiles and the
-  // tiles are shared out in contiguous runs, as the TPU kernel does.
-  const int sk = min(p.seqlens[bb], p.cap);
-  const int tiles = (sk + p.block_k - 1) / p.block_k;
-  const int kps = (tiles + p.num_splits - 1) / p.num_splits;
-  const int k_lo = min(sk, split * kps * p.block_k);
-  const int k_hi = min(sk, (split + 1) * kps * p.block_k);
+  const PagedRows pages{p.table == nullptr ? nullptr : p.table + (int64_t)it.bb * p.t_sb,
+                        it.bb, p.page_size, p.table_width, p.num_pages};
+  auto issue = [&](int i) {  // tile i into stage i % S (one thread)
+    unsigned char* dst = smem + (i % S) * L::STAGE_BYTES;
+    const int key0 = it.k_lo + i * TK;
+    mbar_expect_tx(&full[i % S], L::STAGE_BYTES);
+    for (int r = 0; r < TK; r += p.box_rows) {
+      int pg, row;
+      pages.locate(key0 + r, pg, row);
+      tma_load_4d(dst + r * D * 2, &maps.k, &full[i % S], 0, row, it.kh, pg);
+      tma_load_4d(dst + L::TILE_BYTES + r * D * 2, &maps.v, &full[i % S], 0, row, it.kh, pg);
+    }
+  };
 
-  // The block's query rows (row = t * group + j is query token t of head
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < S && i < it.n; ++i) issue(i);
+
+  // The item's query rows (row = t * group + j is query token t of head
   // kh * group + j), pre-scaled by softmax_scale * log2(e).
   float q[RM][8];
   int limit[RM];  // last key position the row may see
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
-    const int row = r_base + r;
+    const int row = it.r_base + r;
     if (row < p.rows) {
       const int t = row / p.group;
-      const int hq = kh * p.group + row % p.group;
-      const T* qp = reinterpret_cast<const T*>(p.q) + bb * p.q_sb + t * p.q_ss +
+      const int hq = it.kh * p.group + row % p.group;
+      const T* qp = reinterpret_cast<const T*>(p.q) + it.bb * p.q_sb + t * p.q_ss +
                     hq * p.q_sh + dl * 8;
       unpack8<T>(*reinterpret_cast<const uint4*>(qp), q[r]);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) q[r][i] *= p.scale_log2;
-      limit[r] = p.causal ? t + sk - p.sq : sk - 1;
+      for (int e = 0; e < 8; ++e) q[r][e] *= p.scale_log2;
+      limit[r] = min(it.k_hi - 1, p.causal ? t + it.sk - p.sq : it.sk - 1);
     } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) q[r][i] = 0.f;
+      for (int e = 0; e < 8; ++e) q[r][e] = 0.f;
       limit[r] = -1;
     }
   }
@@ -159,51 +252,60 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
   }
 
-  const T* kbase = reinterpret_cast<const T*>(p.kc) + kh * p.k_sh + dl * 8;
-  const T* vbase = reinterpret_cast<const T*>(p.vc) + kh * p.v_sh + dl * 8;
-
-  for (int base = k_lo; base < k_hi; base += KEYS_PER_ITER) {
-    uint4 kr[DEC_UNROLL], vr[DEC_UNROLL];
-    int key[DEC_UNROLL];
+  // Each tile: for each row, the scores of this lane's U keys (U
+  // independent dot products, reduced across their LPK lanes together),
+  // then one online-softmax step over them: one rescale of the row's state
+  // a tile, one exp2 a key.
+  for (int i = 0; i < it.n; ++i) {
+    const unsigned char* Kt = smem + (i % S) * L::STAGE_BYTES + dl * 16;
+    const unsigned char* Vt = Kt + L::TILE_BYTES;
+    const int kl0 = warp * KEYS_PER_WARP + kg;  // the lane's first key in the tile
+    const int key0 = it.k_lo + i * TK + kl0;
+    mbar_wait(&full[i % S], (i / S) & 1);
 #pragma unroll
-    for (int u = 0; u < DEC_UNROLL; ++u) {
-      key[u] = base + u * KEYS_PER_STEP + warp * KPW + kg;
-      if (key[u] < k_hi) {
-        kr[u] = __ldg(reinterpret_cast<const uint4*>(
-            kbase + key_offset<PAGED>(p, bb, key[u], p.k_sb, p.k_ss)));
-        vr[u] = __ldg(reinterpret_cast<const uint4*>(
-            vbase + key_offset<PAGED>(p, bb, key[u], p.v_sb, p.v_ss)));
-      } else {
-        kr[u] = make_uint4(0, 0, 0, 0);
-        vr[u] = make_uint4(0, 0, 0, 0);
+    for (int r = 0; r < RM; ++r) {
+      float s[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[8];
+        unpack8<T>(*reinterpret_cast<const uint4*>(Kt + (kl0 + u * KPW) * D * 2), kf);
+        s[u] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[u] += q[r][e] * kf[e];
+      }
+#pragma unroll
+      for (int off = LPK / 2; off >= 1; off >>= 1)
+#pragma unroll
+        for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(0xffffffff, s[u], off);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (key0 + u * KPW > limit[r]) s[u] = -INFINITY;  // the same for the key's lanes
+        mx = fmaxf(mx, s[u]);
+      }
+      const float m_new = fmaxf(m[r], mx);
+      const float ms = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = exp2f(m[r] - ms);
+      m[r] = m_new;
+      l[r] *= corr;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[r][e] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (s[u] == -INFINITY) continue;  // a masked key's V may be NaN
+        const float pb = exp2f(s[u] - ms);
+        float vf[8];
+        unpack8<T>(*reinterpret_cast<const uint4*>(Vt + (kl0 + u * KPW) * D * 2), vf);
+        l[r] += pb;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] += pb * vf[e];
       }
     }
-#pragma unroll
-    for (int u = 0; u < DEC_UNROLL; ++u) {
-      float kf[8], vf[8];
-      unpack8<T>(kr[u], kf);
-      unpack8<T>(vr[u], vf);
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) s += q[r][i] * kf[i];
-#pragma unroll
-        for (int off = LPK / 2; off >= 1; off >>= 1)
-          s += __shfl_xor_sync(0xffffffff, s, off);
-        const bool ok = key[u] < k_hi && key[u] <= limit[r];
-        s = ok ? s : -INFINITY;
-        float a, pb, m_new;
-        merge_coeffs(m[r], s, a, pb, m_new);
-        m[r] = m_new;
-        l[r] = l[r] * a + pb;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r][i] = acc[r][i] * a + pb * vf[i];
-      }
-    }
+    __syncthreads();  // every warp is done with stage i % S
+    if (tid == 0 && i + S < it.n) issue(i + S);
   }
 
   // Merge the key groups of the warp (lanes that hold the same head slice).
@@ -218,113 +320,204 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
       m[r] = m_new;
       l[r] = l[r] * a + l2 * b2;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        acc[r][i] = acc[r][i] * a + __shfl_xor_sync(0xffffffff, acc[r][i], off) * b2;
+      for (int e = 0; e < 8; ++e)
+        acc[r][e] = acc[r][e] * a + __shfl_xor_sync(0xffffffff, acc[r][e], off) * b2;
     }
   }
 
-  // Merge the warps through shared memory and write the split's partial.
+  // Each warp's state into the merge area; the block merges its warps (an
+  // element a thread) into the area's first slot, then rank 0 merges the
+  // cluster's blocks, rank by rank, and writes the split's partial.
   if (kg == 0) {
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sm_acc[warp][r][dl * 8 + i] = acc[r][i];
+      for (int e = 0; e < 8; ++e) sm_acc[(warp * RM + r) * D + dl * 8 + e] = acc[r][e];
       if (dl == 0) {
-        sm_m[warp][r] = m[r];
-        sm_l[warp][r] = l[r];
+        sm_m[warp * RM + r] = m[r];
+        sm_l[warp * RM + r] = l[r];
       }
     }
   }
   __syncthreads();
-
-  const int64_t part = ((int64_t)split * p.b + bb) * p.h_k + kh;
-  for (int idx = tid; idx < RM * D; idx += DEC_THREADS) {
+  constexpr int EPT = (RM * D + DEC_THREADS - 1) / DEC_THREADS;  // elements a thread
+  float bm[EPT], bl[EPT], ba[EPT];
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int idx = min(tid + j * DEC_THREADS, RM * D - 1);
     const int r = idx / D;
-    const int dd = idx % D;
-    const int row = r_base + r;
-    if (row >= p.rows) continue;
     float mm = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) mm = fmaxf(mm, sm_m[w][r]);
+    for (int w = 0; w < DEC_WARPS; ++w) mm = fmaxf(mm, sm_m[w * RM + r]);
     const float ms = mm == -INFINITY ? 0.f : mm;
     float ll = 0.f, aa = 0.f;
 #pragma unroll
     for (int w = 0; w < DEC_WARPS; ++w) {
-      const float f = exp2f(sm_m[w][r] - ms);
-      ll += sm_l[w][r] * f;
-      aa += sm_acc[w][r][dd] * f;
+      const float f = exp2f(sm_m[w * RM + r] - ms);
+      ll += sm_l[w * RM + r] * f;
+      aa += sm_acc[(w * RM + r) * D + idx % D] * f;
     }
-    p.out_p[(part * p.rows + row) * D + dd] = ll == 0.f ? 0.f : aa / ll;
-    if (dd == 0)
-      p.lse_p[part * p.rows + row] = ll == 0.f ? -INFINITY : mm * FA_LN2 + logf(ll);
+    bm[j] = mm;
+    bl[j] = ll;
+    ba[j] = aa;
   }
+  __syncthreads();  // every warp state has been read
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int idx = tid + j * DEC_THREADS;
+    if (idx >= RM * D) break;
+    sm_acc[idx] = ba[j];
+    if (idx % D == 0) {
+      sm_m[idx / D] = bm[j];
+      sm_l[idx / D] = bl[j];
+    }
+  }
+  cluster.sync();
+  if (rank == 0) {
+    const int64_t part = ((int64_t)it.split * p.b + it.bb) * p.h_k + it.kh;
+#pragma unroll
+    for (int j = 0; j < EPT; ++j) {
+      const int idx = tid + j * DEC_THREADS;
+      if (idx >= RM * D) break;
+      const int r = idx / D;
+      const int row = it.r_base + r;
+      // the cluster's blocks' states, read together (at most MAX_CLUSTER)
+      float cm[MAX_CLUSTER], cl[MAX_CLUSTER], ca[MAX_CLUSTER];
+#pragma unroll
+      for (int c = 0; c < MAX_CLUSTER; ++c) {
+        if (c < csize) {
+          cm[c] = *cluster.map_shared_rank(sm_m + r, c);
+          cl[c] = *cluster.map_shared_rank(sm_l + r, c);
+          ca[c] = *cluster.map_shared_rank(sm_acc + idx, c);
+        }
+      }
+      float mm = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < MAX_CLUSTER; ++c)
+        if (c < csize) mm = fmaxf(mm, cm[c]);
+      const float ms = mm == -INFINITY ? 0.f : mm;
+      float ll = 0.f, aa = 0.f;
+#pragma unroll
+      for (int c = 0; c < MAX_CLUSTER; ++c) {
+        if (c < csize) {
+          const float f = exp2f(cm[c] - ms);
+          ll += cl[c] * f;
+          aa += ca[c] * f;
+        }
+      }
+      if (row >= p.rows) continue;
+      p.out_p[(part * p.rows + row) * D + idx % D] = ll == 0.f ? 0.f : aa / ll;
+      if (idx % D == 0)
+        p.lse_p[part * p.rows + row] = ll == 0.f ? -INFINITY : mm * FA_LN2 + logf(ll);
+    }
+  }
+  cluster.sync();  // the merge areas stay until rank 0 has read them
 }
 
-template <typename T, int D, int RM>
-cudaError_t launch_rm(const DecodeParams& p, cudaStream_t stream) {
-  dim3 grid(p.b * p.h_k, p.num_splits, (p.rows + RM - 1) / RM);
-  if (p.table != nullptr)
-    decode_kernel<T, D, RM, true><<<grid, DEC_THREADS, 0, stream>>>(p);
-  else
-    decode_kernel<T, D, RM, false><<<grid, DEC_THREADS, 0, stream>>>(p);
+// The maps with boxes of gcd(page_size, TK) rows (a box stays within a page
+// and a staged tile), and the launch.
+template <typename T, int D, int RM, int TK, int S>
+cudaError_t launch_ring(const CacheView& c, DecodeParams p, int cluster, cudaStream_t stream) {
+  constexpr int smem = DecLayout<D, RM, TK, S>::SMEM;
+  p.box_rows = min(gcd64(p.page_size), TK);  // powers of two, so gcd(page_size, TK)
+  DecodeMaps maps;
+  cudaError_t err;
+  if ((err = make_tile_map<4>(&maps.k, c.k, c.is_bf16, {D, p.page_size, p.h_k, p.num_pages},
+                              {c.k_ss, c.k_sh, c.k_sb}, p.box_rows, 1, D, false)) ||
+      (err = make_tile_map<4>(&maps.v, c.v, c.is_bf16, {D, p.page_size, p.h_k, p.num_pages},
+                              {c.v_ss, c.v_sh, c.v_sb}, p.box_rows, 1, D, false)))
+    return err;
+  auto kernel = decode_kernel<T, D, RM, TK, S>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim =
+      dim3((unsigned)((int64_t)p.b * p.h_k * p.num_splits * ((p.rows + RM - 1) / RM) * cluster));
+  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, p);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// Clusters take the deep ring, one block a split the shallow one.
+template <typename T, int D, int RM>
+cudaError_t launch_rm(const CacheView& c, const DecodeParams& p, int cluster,
+                      cudaStream_t stream) {
+  if (cluster > 1)
+    return launch_ring<T, D, RM, WIDE_TK, wide_stages<D>()>(c, p, cluster, stream);
+  return launch_ring<T, D, RM, NARROW_TK, NARROW_S>(c, p, cluster, stream);
+}
+
 template <typename T, int D>
-cudaError_t launch(const DecodeParams& p, cudaStream_t stream) {
-  if (p.rows <= 1) return launch_rm<T, D, 1>(p, stream);
-  if (p.rows <= 2) return launch_rm<T, D, 2>(p, stream);
-  if (p.rows <= 4) return launch_rm<T, D, 4>(p, stream);
-  return launch_rm<T, D, 8>(p, stream);
+cudaError_t launch(const CacheView& c, const DecodeParams& p, int cluster,
+                   cudaStream_t stream) {
+  if (p.rows <= 1) return launch_rm<T, D, 1>(c, p, cluster, stream);
+  if (p.rows <= 2) return launch_rm<T, D, 2>(c, p, cluster, stream);
+  if (p.rows <= 4) return launch_rm<T, D, 4>(c, p, cluster, stream);
+  return launch_rm<T, D, 8>(c, p, cluster, stream);
 }
 
 }  // namespace
 
-// table == nullptr reads a linear cache (page_size, table_width, num_pages
-// and t_sb unused); otherwise kc/vc are pages and k_sb/v_sb their page
-// strides. cap is the cache's capacity in positions. Returns a cudaError_t
+// q (b, sq, h, d) by element strides (batch, position, head); the caches
+// (num_pages, h_k, page_size, d) by strides (page, head, row) with table (b,
+// table_width), or, with table == nullptr, linear (b_c, h_k, s_max, d)
+// passed as num_pages = b_c pages of page_size = s_max rows; the head dim
+// contiguous, every start and stride 16-byte aligned (TMA). cap is the
+// cache's capacity in positions; block_k must be the split granularity of
+// the wrapper (dispatch/config.py DECODE_BLOCK_K), the staged tile's 64
+// keys; cluster (1, 2 or 4) blocks share each split. Returns a cudaError_t
 // (0 on success).
 extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
                          const int* seqlens, const int* table, float* out_p,
                          float* lse_p, int b, int sq, int h, int h_k, int d,
                          int num_splits, int block_k, int page_size,
-                         int table_width, int num_pages, int cap, int64_t q_sb,
-                         int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_sh,
-                         int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
-                         int64_t t_sb, float scale_log2, int causal,
+                         int table_width, int num_pages, int cap, int cluster,
+                         int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+                         int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
+                         int64_t v_ss, int64_t t_sb, float scale_log2, int causal,
                          int is_bf16, void* stream) {
+  if (block_k != DEC_BN || h_k < 1 || h % h_k != 0 || page_size < 1 || num_pages < 1 ||
+      num_splits < 1 || (table != nullptr && table_width < 1) ||
+      (cluster != 1 && cluster != 2 && cluster != 4) ||
+      (d != 64 && d != 128))
+    return (int)cudaErrorInvalidValue;
+  if (b == 0 || sq == 0) return 0;
   DecodeParams p;
   p.q = q;
-  p.kc = kc;
-  p.vc = vc;
   p.seqlens = seqlens;
   p.table = table;
   p.out_p = out_p;
   p.lse_p = lse_p;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.t_sb = t_sb;
-  p.page_size = page_size;
-  p.table_width = table_width;
-  p.num_pages = num_pages;
-  p.cap = cap;
   p.b = b;
   p.sq = sq;
   p.h_k = h_k;
   p.group = h / h_k;
   p.rows = sq * p.group;
   p.num_splits = num_splits;
-  p.block_k = block_k;
+  p.page_size = page_size;
+  p.table_width = table_width;
+  p.num_pages = num_pages;
+  p.cap = cap;
   p.scale_log2 = scale_log2;
   p.causal = causal;
+  const CacheView c = {kc, vc, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, d, is_bf16};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (d == 64) return launch<__nv_bfloat16, 64>(p, st);
-    if (d == 128) return launch<__nv_bfloat16, 128>(p, st);
-  } else {
-    if (d == 64) return launch<__half, 64>(p, st);
-    if (d == 128) return launch<__half, 128>(p, st);
+    if (d == 64) return (int)launch<__nv_bfloat16, 64>(c, p, cluster, st);
+    return (int)launch<__nv_bfloat16, 128>(c, p, cluster, st);
   }
-  return (int)cudaErrorInvalidValue;
+  if (d == 64) return (int)launch<__half, 64>(c, p, cluster, st);
+  return (int)launch<__half, 128>(c, p, cluster, st);
 }

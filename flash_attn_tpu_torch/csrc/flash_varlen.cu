@@ -1,170 +1,303 @@
-// Packed varlen attention backward for Hopper (sm_90a), bf16 / fp16, head
-// dim 64 or 128: the deterministic dK/dV and dQ kernels of B6. The forward
-// (B6's and the persistent B7) runs the wgmma/TMA tile of fwd_sm90.cuh in
-// flash_varlen_fwd.cu.
+// Packed varlen attention backward for Hopper (sm_90a) on wgmma and TMA,
+// bf16 / fp16, head dim 64 or 128: B6's preprocess, dK/dV and dQ kernels.
+// The forward (B6's and the persistent B7) runs the wgmma/TMA tile of
+// fwd_sm90.cuh in flash_varlen_fwd.cu.
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:
-// _varlen_dkdv_stream_kernel and _varlen_dq_stream_kernel as
-// varlen_dkdv_kernel, one block per (k tile, KV head) that walks its
-// sequence's q band and sums the group's heads, and varlen_dq_kernel, one
-// block per (q tile, head); each writes its gradient once, with no atomics,
-// so the backward is deterministic.
+// _varlen_dkdv_stream_kernel and _varlen_dq_stream_kernel, and the XLA op
+// that computed delta before them (flash_varlen.py:854-855):
 //
-// The TPU kernels tile the flat token axis with aligned blocks, because a DMA
-// must be aligned, and rebuild the sequences from per-token segment ids.
-// Here every tile belongs to one sequence: the wrapper builds work lists of
-// (sequence, first local row) with torch ops on the device
-// (dispatch/varlen_meta.py, q_tiles and k_tiles at 64 rows), and a block
-// finds its sequence's origin in cu_seqlens and its length (seqused where
-// given). The tile loops are the mma.sync loops of bwd_tile.cuh, whose only
-// masks are the in-sequence causal mask and the ragged ends. Rows past a
-// sequence's length and rows past cu_seqlens[-1] (the packed tail of
-// unpad_input) are in no tile: the wrapper allocates them as zeros (dq, dk,
-// dv).
+//  - varlen_preprocess_kernel: delta = rowsum(dO * O) in fp32 and lse in
+//    base 2, a warp a row, into (h, rows_pad) buffers padded per sequence
+//    to whole 128-row tiles (delta 0 and lse2 +inf past the sequence's
+//    rows); its other blocks zero the gradient rows that no tile writes
+//    (rows past seqused, the packed tail past cu_seqlens[-1]);
+//  - varlen_dkdv_kernel: one block per (128-key tile of a sequence, KV
+//    head) walks the group's query heads and the 64-row q tiles of the
+//    sequence's causal band in a fixed order and writes dK and dV once;
+//  - varlen_dq_kernel: one block per (128-row q tile of a sequence, head)
+//    walks the 64-key tiles of its band and writes dQ once.
+//
+// No atomics: each gradient element is written once, so two runs give the
+// same bits.
 //
 // What bounds it on this card: per head, a sequence of sq rows over sk keys
-// does 10 * sq * sk * d flops (about half under the causal mask: 2.5 x the
-// forward's products) and moves q, k, v, dout, lse, delta and the three
-// gradients once. What limits these simple kernels is how well they feed
-// the tensor cores, as for the dense ones.
+// runs 8 (dK/dV: S, dP, dV, dK) + 6 (dQ: S, dP, dQ) flops per (row, key)
+// pair and head-dim element, about half of them under the causal mask, and
+// moves q, k, v, dout, lse, delta and the three gradients once. bench.py's
+// mixed lengths (16 sequences of 2048-4096 at d = 128, causal) are tensor-
+// core bound (2.3 ms at 989 TFLOP/s); BERT-large's packing (d = 64, 256-512
+// rows, not causal) is near the line between the two (~0.05 ms of bytes).
+//
+// What the design does about it: the kernels run B3's tiles
+// (csrc/bwd_sm90.cuh: every product a warpgroup wgmma, the resident K/V or
+// Q/dO tiles and a two-stage TMA ring of the streamed ones) with the
+// packed source below. The TPU kernels tile the flat token axis with
+// aligned blocks, because a DMA must be aligned, and rebuild the sequences
+// from per-token segment ids. Here every tile belongs to one sequence: the
+// wrapper's work lists (dispatch/varlen_meta.py: k_schedule of 128-key
+// tiles ordered by the q rows that see them, the schedule of 128-row q
+// tiles ordered by their key band, heaviest first, as B3 launches its
+// grid) give (sequence, first local row), and a block finds its sequence's
+// origin in cu_seqlens and its lengths (seqused where given).
+//
+// What TMA changes for packed rows: the maps are 3D over the packed (total,
+// h, d) tensors, so a box that runs past a sequence's rows loads the next
+// sequence's (TMA zero-fills only past the tensor's end). The tiles zero
+// those rows in shared memory where they would reach a sum (ZERO_TAIL: the
+// q rows past sq of a streamed dK/dV tile, the keys past sk of a streamed
+// dQ tile), lse2 is +inf and delta 0 on the padded rows, and no row outside
+// the sequence is stored: the sums are those of B3 over the same rows, so
+// b equal-length sequences packed give B3's bits. A sequence's lse2 and
+// delta rows start at padded_row(cu_q[s], s), a multiple of 4 floats (the
+// bulk copies' 16-byte alignment) that leaves each sequence room for whole
+// 128-row tiles before the next.
 
-#include "bwd_tile.cuh"
+#include "bwd_sm90.cuh"
 
 namespace {
 
+using namespace fa::sm90;
+
+constexpr int PRE_WARPS = 8;        // preprocess: rows (warps) a block
+constexpr int PRE_ROWS = 128;       // preprocess: rows of a q tile
+constexpr int ZERO_ROWS = 128;      // zero-fill: packed rows a block
+constexpr int SEQ_GAP = 132;        // padded rows a sequence adds (see padded_row)
+
+// The first row of sequence `seq` in the padded (h, rows_pad) lse2 / delta
+// buffers: cu rounded up to 4 rows, plus SEQ_GAP a sequence before it. The
+// next sequence starts at least its length + 129 rows later, so whole
+// 128-row tiles of each fit; the buffers hold total_q + SEQ_GAP * b rows.
+__device__ __forceinline__ int64_t padded_row(int cu, int seq) {
+  return (int64_t)((cu + 3) & ~3) + (int64_t)SEQ_GAP * seq;
+}
+
 struct VarlenParams {
-  const void* q;       // (total_q, h, d) by strides
-  const void* k;       // (total_k, h_k, d) by strides
-  const void* v;
-  const void* dout;    // (total_q, h, d)
-  const float* lse_in; // (h, total_q)
-  const float* delta;  // (h, total_q)
-  void* dq;
-  void* dk;
+  const float* lse2;   // (h, rows_pad)
+  const float* delta;  // (h, rows_pad)
+  void* dq;            // (total_q, h, d) by strides
+  void* dk;            // (total_k, h_k, d)
   void* dv;
   const int* cu_q;     // (b + 1,) token offsets of the packed layouts
   const int* cu_k;
   const int* lens_q;   // (b,) query rows of each sequence (seqused_q)
   const int* lens_k;   // (b,) keys of each sequence (seqused_k)
   const int* tiles;    // (num_tiles, 2): sequence (-1: no tile), first row
-  int num_tiles;
-  int64_t q_st, q_sh, k_st, k_sh, v_st, v_sh;
-  int64_t do_st, do_sh, dq_st, dq_sh, dk_st, dk_sh, dv_st, dv_sh;
-  int total_q, h, group;
-  float scale, scale_log2;
-  int causal;
+  int64_t dq_st, dq_sh, dk_st, dk_sh, dv_st, dv_sh, rows_pad;
+  int num_tiles, h, h_k;
+  BwdArgs a;
 };
 
-// Sequence `seq` as the tile loops see it: query-side pointers at head hq,
-// KV-side ones at KV head hk.
+// Sequence `seq` of the packed operands: 3D maps, the padded lse2 / delta
+// rows, the gradients by element strides.
 template <typename T>
-__device__ __forceinline__ fa::BwdSeq<T> seq_view(const VarlenParams& p,
-                                                  int seq, int hq, int hk) {
-  const int q0 = p.cu_q[seq];
-  const int k0 = p.cu_k[seq];
-  fa::BwdSeq<T> s;
-  s.q = reinterpret_cast<const T*>(p.q) + (int64_t)q0 * p.q_st + hq * p.q_sh;
-  s.dout = reinterpret_cast<const T*>(p.dout) + (int64_t)q0 * p.do_st + hq * p.do_sh;
-  s.k = reinterpret_cast<const T*>(p.k) + (int64_t)k0 * p.k_st + hk * p.k_sh;
-  s.v = reinterpret_cast<const T*>(p.v) + (int64_t)k0 * p.v_st + hk * p.v_sh;
-  s.lse = p.lse_in + (int64_t)hq * p.total_q + q0;
-  s.delta = p.delta + (int64_t)hq * p.total_q + q0;
-  s.dq = p.dq ? reinterpret_cast<T*>(p.dq) + (int64_t)q0 * p.dq_st + hq * p.dq_sh
-              : nullptr;
-  s.dk = p.dk ? reinterpret_cast<T*>(p.dk) + (int64_t)k0 * p.dk_st + hk * p.dk_sh
-              : nullptr;
-  s.dv = p.dv ? reinterpret_cast<T*>(p.dv) + (int64_t)k0 * p.dv_st + hk * p.dv_sh
-              : nullptr;
-  s.q_ss = p.q_st;
-  s.q_sh = p.q_sh;
-  s.do_ss = p.do_st;
-  s.do_sh = p.do_sh;
-  s.k_ss = p.k_st;
-  s.v_ss = p.v_st;
-  s.dq_ss = p.dq_st;
-  s.dk_ss = p.dk_st;
-  s.dv_ss = p.dv_st;
-  s.lse_sh = p.total_q;
-  s.sq = p.lens_q[seq];
-  s.sk = p.lens_k[seq];
-  return s;
+struct PackedSrc {
+  static constexpr bool ZERO_TAIL = true;  // a box past the sequence holds its neighbour's rows
+  const BwdMaps* maps;
+  const VarlenParams* p;
+  int q0, k0, sq, sk;
+  int64_t pad;  // the sequence's first padded lse2 / delta row
+  __device__ __forceinline__ PackedSrc(const BwdMaps& m, const VarlenParams& prm, int seq)
+      : maps(&m),
+        p(&prm),
+        q0(prm.cu_q[seq]),
+        k0(prm.cu_k[seq]),
+        sq(prm.lens_q[seq]),
+        sk(prm.lens_k[seq]),
+        pad(padded_row(prm.cu_q[seq], seq)) {}
+  __device__ __forceinline__ void load_q(void* dst, uint64_t* bar, int col, int row,
+                                         int hq) const {
+    tma_load_3d(dst, &maps->q, bar, col, q0 + row, hq);
+  }
+  __device__ __forceinline__ void load_do(void* dst, uint64_t* bar, int col, int row,
+                                          int hq) const {
+    tma_load_3d(dst, &maps->dout, bar, col, q0 + row, hq);
+  }
+  __device__ __forceinline__ void load_k(void* dst, uint64_t* bar, int col, int row,
+                                         int hk) const {
+    tma_load_3d(dst, &maps->k, bar, col, k0 + row, hk);
+  }
+  __device__ __forceinline__ void load_v(void* dst, uint64_t* bar, int col, int row,
+                                         int hk) const {
+    tma_load_3d(dst, &maps->v, bar, col, k0 + row, hk);
+  }
+  __device__ __forceinline__ const float* lse2(int hq, int row) const {
+    return p->lse2 + hq * p->rows_pad + pad + row;
+  }
+  __device__ __forceinline__ const float* delta(int hq, int row) const {
+    return p->delta + hq * p->rows_pad + pad + row;
+  }
+  __device__ __forceinline__ T* dk(int row, int hk) const {
+    return reinterpret_cast<T*>(p->dk) + (int64_t)(k0 + row) * p->dk_st + hk * p->dk_sh;
+  }
+  __device__ __forceinline__ T* dv(int row, int hk) const {
+    return reinterpret_cast<T*>(p->dv) + (int64_t)(k0 + row) * p->dv_st + hk * p->dv_sh;
+  }
+  __device__ __forceinline__ T* dq(int row, int hq) const {
+    return reinterpret_cast<T*>(p->dq) + (int64_t)(q0 + row) * p->dq_st + hq * p->dq_sh;
+  }
+};
+
+// ---- preprocess -------------------------------------------------------------
+
+struct PreParams {
+  const void* dout;    // (total_q, h, d) by strides
+  const void* out;
+  const float* lse;    // (h, total_q) natural-log
+  float* lse2;         // (h, rows_pad)
+  float* delta;
+  void* dq;            // (total_q, h, d), (total_k, h_k, d): contiguous rows
+  void* dk;
+  void* dv;
+  const int* cu_q;
+  const int* cu_k;
+  const int* lens_q;
+  const int* lens_k;
+  const int* tiles;    // the 128-row q tiles
+  int64_t do_st, do_sh, o_st, o_sh, rows_pad;
+  int num_tiles, b, total_q, total_k, h, h_k;
+};
+
+// Whether packed row t of one side (offsets cu (b + 1), lengths lens (b))
+// lies in no sequence: before cu[0], past cu[b], or past its sequence's
+// length (seqused) inside its slot.
+__device__ __forceinline__ bool dead_row(const int* cu, const int* lens, int b, int t) {
+  if (t < cu[0] || t >= cu[b]) return true;
+  int lo = 0, hi = b;  // the last sequence s < b with cu[s] <= t
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (cu[mid] <= t) lo = mid;
+    else hi = mid;
+  }
+  return t - cu[lo] >= lens[lo];
 }
 
-__device__ __forceinline__ fa::BwdScalars scalars(const VarlenParams& p) {
-  return {p.scale, p.scale_log2, p.causal, p.group};
+// Zeroes `elems` 2-byte elements (a multiple of 8) from `row` with the lanes
+// of a warp.
+__device__ __forceinline__ void zero_row(void* row, int elems, int lane) {
+  uint4* r = reinterpret_cast<uint4*>(row);
+  for (int c = lane; c < elems / 8; c += 32) r[c] = make_uint4(0, 0, 0, 0);
 }
 
-// B6 dK/dV: one block per (k tile of a sequence, KV head); `tiles` is the
-// key-side work list.
-template <typename T, int D, int BM>
-__global__ void __launch_bounds__(fa::BWD_THREADS)
-    varlen_dkdv_kernel(const VarlenParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int seq = p.tiles[2 * blockIdx.x];
-  if (seq < 0) return;
-  const int hk = blockIdx.y;
-  const fa::BwdSeq<T> s = seq_view<T>(p, seq, hk * p.group, hk);
-  fa::dkdv_tile<T, D, BM>(s, p.tiles[2 * blockIdx.x + 1], scalars(p),
-                                 smem_raw);
-}
-
-// B6 dQ: one block per (q tile, head).
+// Blocks [0, num_tiles * h): q tile blockIdx.x / h of head blockIdx.x % h,
+// a warp a row (PRE_ROWS / PRE_WARPS rows each); the rest: ZERO_ROWS packed
+// rows each of dq, dk and dv. (A block of PRE_WARPS rows, a warp a row,
+// took 1.3-1.5x as long at BERT-large's packing and bench.py's mixed
+// lengths: PERF.md PR 11.)
 template <typename T, int D>
-__global__ void __launch_bounds__(fa::BWD_THREADS)
-    varlen_dq_kernel(const VarlenParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int seq = p.tiles[2 * blockIdx.x];
+__global__ void __launch_bounds__(PRE_WARPS * 32)
+    varlen_preprocess_kernel(const PreParams p) {
+  constexpr int PER = D / 32;  // elements a lane
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int work = p.num_tiles * p.h;
+  if ((int)blockIdx.x >= work) {
+    const int r0 = (blockIdx.x - work) * ZERO_ROWS;
+    for (int t = r0 + warp; t < r0 + ZERO_ROWS; t += PRE_WARPS) {
+      if (t < p.total_q && dead_row(p.cu_q, p.lens_q, p.b, t))
+        zero_row(reinterpret_cast<T*>(p.dq) + (int64_t)t * p.h * D, p.h * D, lane);
+      if (t < p.total_k && dead_row(p.cu_k, p.lens_k, p.b, t)) {
+        zero_row(reinterpret_cast<T*>(p.dk) + (int64_t)t * p.h_k * D, p.h_k * D, lane);
+        zero_row(reinterpret_cast<T*>(p.dv) + (int64_t)t * p.h_k * D, p.h_k * D, lane);
+      }
+    }
+    return;
+  }
+  const int tile = blockIdx.x / p.h;
+  const int hh = blockIdx.x - tile * p.h;
+  const int seq = p.tiles[2 * tile];
   if (seq < 0) return;
-  const int hh = blockIdx.y;
-  const fa::BwdSeq<T> s = seq_view<T>(p, seq, hh, hh / p.group);
-  fa::dq_tile<T, D>(s, p.tiles[2 * blockIdx.x + 1], scalars(p), smem_raw);
+  const int m0 = p.tiles[2 * tile + 1];
+  const int q0 = p.cu_q[seq];
+  const int sq = p.lens_q[seq];
+  const int64_t base = hh * p.rows_pad + padded_row(q0, seq) + m0;
+  for (int r = warp; r < PRE_ROWS; r += PRE_WARPS) {
+    const int row = m0 + r;
+    if (row >= sq) {
+      if (lane == 0) {
+        p.delta[base + r] = 0.f;
+        p.lse2[base + r] = INFINITY;
+      }
+      continue;
+    }
+    const int64_t tok = q0 + row;
+    const float acc = bwd_preprocess_row<T, D>(
+        reinterpret_cast<const T*>(p.dout) + tok * p.do_st + hh * p.do_sh + lane * PER,
+        reinterpret_cast<const T*>(p.out) + tok * p.o_st + hh * p.o_sh + lane * PER);
+    if (lane == 0) {
+      p.delta[base + r] = acc;
+      p.lse2[base + r] = bwd_lse2(p.lse[hh * (int64_t)p.total_q + tok]);
+    }
+  }
 }
+
+// ---- dK / dV and dQ ---------------------------------------------------------
+
+// Item x = (tile, KV head) = (x / h_k, x % h_k) of the key-side schedule,
+// the heaviest tiles first; dead tiles (sorted last) exit.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    varlen_dkdv_kernel(const __grid_constant__ BwdMaps maps, const VarlenParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const int tile = blockIdx.x / p.h_k;
+  const int seq = p.tiles[2 * tile];
+  if (seq < 0) return;
+  bwd_dkdv<T, D, false>(PackedSrc<T>(maps, p, seq), p.a, blockIdx.x - tile * p.h_k,
+                        p.tiles[2 * tile + 1], align_1024(smem_raw));
+}
+
+// Item x = (tile, head) = (x / h, x % h) of the query-side schedule.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    varlen_dq_kernel(const __grid_constant__ BwdMaps maps, const VarlenParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  const int tile = blockIdx.x / p.h;
+  const int seq = p.tiles[2 * tile];
+  if (seq < 0) return;
+  bwd_dq<T, D>(PackedSrc<T>(maps, p, seq), p.a, blockIdx.x - tile * p.h,
+               p.tiles[2 * tile + 1], align_1024(smem_raw));
+}
+
+// ---- host side --------------------------------------------------------------
 
 template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
-}
-
-template <typename T, int D>
-cudaError_t launch_dkdv(const VarlenParams& p, int h_k, cudaStream_t stream) {
-  constexpr int BM = fa::dkdv_bm<D>();
-  constexpr int smem = fa::dkdv_smem_bytes<T, D, BM>();
-  cudaError_t err = set_smem(varlen_dkdv_kernel<T, D, BM>, smem);
+cudaError_t launch(Kernel kernel, int64_t blocks, int threads, int smem, cudaStream_t stream,
+                   const BwdMaps& maps, const VarlenParams& p) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
   if (err != cudaSuccess) return err;
-  varlen_dkdv_kernel<T, D, BM><<<dim3(p.num_tiles, h_k), fa::BWD_THREADS, smem, stream>>>(p);
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_dq(const VarlenParams& p, cudaStream_t stream) {
-  constexpr int smem = fa::dq_smem_bytes<T, D>();
-  cudaError_t err = set_smem(varlen_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  varlen_dq_kernel<T, D><<<dim3(p.num_tiles, p.h), fa::BWD_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
+struct Dkdv {
+  static cudaError_t run(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
+    return launch(varlen_dkdv_kernel<T, D>, (int64_t)p.num_tiles * p.h_k, BWD_THREADS,
+                  DkdvLayout<D, false>::SMEM, st, maps, p);
+  }
+};
 
-VarlenParams make_params(const int* cu_q, const int* cu_k, const int* lens_q,
-                         const int* lens_k, const int* tiles, int num_tiles,
-                         int total_q, int h, int h_k, float scale, int causal) {
-  VarlenParams p = {};
-  p.cu_q = cu_q;
-  p.cu_k = cu_k;
-  p.lens_q = lens_q;
-  p.lens_k = lens_k;
-  p.tiles = tiles;
-  p.num_tiles = num_tiles;
-  p.total_q = total_q;
-  p.h = h;
-  p.group = h / h_k;
-  p.scale = scale;
-  p.scale_log2 = scale * FA_LOG2E;
-  p.causal = causal;
-  return p;
-}
+template <typename T, int D>
+struct Dq {
+  static cudaError_t run(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
+    return launch(varlen_dq_kernel<T, D>, (int64_t)p.num_tiles * p.h, BWD_THREADS,
+                  DqLayout<D>::SMEM, st, maps, p);
+  }
+};
 
-// Run f<T, D>() for the element type and head dim of a call.
+template <typename T, int D>
+struct Pre {
+  static cudaError_t run(const PreParams& p, cudaStream_t st) {
+    const int64_t zero_blocks =
+        ((p.total_q > p.total_k ? p.total_q : p.total_k) + ZERO_ROWS - 1) / ZERO_ROWS;
+    varlen_preprocess_kernel<T, D>
+        <<<(unsigned)((int64_t)p.num_tiles * p.h + zero_blocks), PRE_WARPS * 32, 0, st>>>(p);
+    return cudaGetLastError();
+  }
+};
+
+// Run F<T, D>::run(args...) for the element type and head dim of a call.
 template <template <typename, int> class F, typename... Args>
 int dispatch(int is_bf16, int d, Args&&... args) {
   if (is_bf16) {
@@ -177,84 +310,131 @@ int dispatch(int is_bf16, int d, Args&&... args) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int D>
-struct Dkdv {
-  static cudaError_t run(const VarlenParams& p, int h_k, cudaStream_t st) {
-    return launch_dkdv<T, D>(p, h_k, st);
-  }
-};
+// Whether the kernels take a call's shapes: rows_pad whole 4-row groups
+// that hold the padded rows of b sequences.
+bool takes(int b, int total_q, int total_k, int h, int h_k, int d, int num_tiles,
+           int64_t rows_pad) {
+  return b > 0 && total_q > 0 && total_k > 0 && h_k > 0 && h % h_k == 0 &&
+         (d == 64 || d == 128) && rows_pad % 4 == 0 &&
+         rows_pad >= (int64_t)total_q + (int64_t)SEQ_GAP * b &&
+         (int64_t)num_tiles * h <= 0x7fffffff;
+}
 
-template <typename T, int D>
-struct Dq {
-  static cudaError_t run(const VarlenParams& p, cudaStream_t st) {
-    return launch_dq<T, D>(p, st);
-  }
-};
+// The maps (q/dout boxes of q_rows rows, k/v boxes of kv_rows) and the
+// parameters of one kernel's launch; see fa_varlen_bwd_dkdv.
+cudaError_t setup(BwdMaps* maps, VarlenParams* p, const void* q, const void* k,
+                  const void* v, const void* dout, const float* lse2, const float* delta,
+                  const int* cu_q, const int* cu_k, const int* lens_q, const int* lens_k,
+                  const int* tiles, int num_tiles, int b, int total_q, int total_k, int h,
+                  int h_k, int d, int64_t rows_pad, int64_t q_st, int64_t q_sh,
+                  int64_t k_st, int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t do_st,
+                  int64_t do_sh, float scale, int causal, int is_bf16, int q_rows,
+                  int kv_rows) {
+  if (!takes(b, total_q, total_k, h, h_k, d, num_tiles, rows_pad) ||
+      (int64_t)num_tiles * h_k > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if ((err = make_tile_map<3>(&maps->q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, q_rows)) ||
+      (err = make_tile_map<3>(&maps->dout, dout, is_bf16, {d, total_q, h}, {do_st, do_sh},
+                              q_rows)) ||
+      (err = make_tile_map<3>(&maps->k, k, is_bf16, {d, total_k, h_k}, {k_st, k_sh},
+                              kv_rows)) ||
+      (err = make_tile_map<3>(&maps->v, v, is_bf16, {d, total_k, h_k}, {v_st, v_sh},
+                              kv_rows)))
+    return err;
+  *p = {};
+  p->lse2 = lse2;
+  p->delta = delta;
+  p->cu_q = cu_q;
+  p->cu_k = cu_k;
+  p->lens_q = lens_q;
+  p->lens_k = lens_k;
+  p->tiles = tiles;
+  p->rows_pad = rows_pad;
+  p->num_tiles = num_tiles;
+  p->h = h;
+  p->h_k = h_k;
+  p->a = {scale, scale * FA_LOG2E, causal, h / h_k};
+  return cudaSuccess;
+}
 
 }  // namespace
 
-// dK, dV (total_k, h_k, d) in k's type over the key-side work list; rows in
-// no tile are the wrapper's zeros. lse and delta (h, total_q) fp32. Layouts
-// as fa_varlen_fwd (flash_varlen_fwd.cu); block_q/block_k name the dK/dV
-// tile (dispatch/config.py get_bwd_config).
-extern "C" int fa_varlen_bwd_dkdv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv, const int* cu_q,
-    const int* cu_k, const int* lens_q, const int* lens_k, const int* tiles,
-    int num_tiles, int total_q, int h, int h_k, int d, int block_q,
-    int block_k, int64_t q_st, int64_t q_sh, int64_t k_st, int64_t k_sh,
-    int64_t v_st, int64_t v_sh, int64_t do_st, int64_t do_sh, int64_t dk_st,
-    int64_t dk_sh, int64_t dv_st, int64_t dv_sh, float scale, int causal,
-    int is_bf16, void* stream) {
-  if (block_k != fa::KV_BN) return (int)cudaErrorInvalidValue;
-  if (d == 64 && block_q != fa::dkdv_bm<64>()) return (int)cudaErrorInvalidValue;
-  if (d == 128 && block_q != fa::dkdv_bm<128>()) return (int)cudaErrorInvalidValue;
-  if (num_tiles == 0) return 0;
-  VarlenParams p = make_params(cu_q, cu_k, lens_q, lens_k, tiles, num_tiles,
-                               total_q, h, h_k, scale, causal);
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.lse_in = lse;
-  p.delta = delta;
-  p.dk = dk;
-  p.dv = dv;
-  p.q_st = q_st; p.q_sh = q_sh;
-  p.k_st = k_st; p.k_sh = k_sh;
-  p.v_st = v_st; p.v_sh = v_sh;
-  p.do_st = do_st; p.do_sh = do_sh;
-  p.dk_st = dk_st; p.dk_sh = dk_sh;
-  p.dv_st = dv_st; p.dv_sh = dv_sh;
-  return dispatch<Dkdv>(is_bf16, d, p, h_k,
-                        reinterpret_cast<cudaStream_t>(stream));
+// delta = rowsum(dout * out) and lse2 = lse * log2(e) (+inf where lse is
+// -inf) into (h, rows_pad) fp32 buffers, each sequence's rows from
+// padded_row in whole 128-row tiles of the q-side work list `tiles` (delta
+// 0, lse2 +inf past the sequence); zeroes the rows of dq (total_q, h, d)
+// and dk, dv (total_k, h_k, d), all contiguous, that lie in no sequence.
+// dout/out (total_q, h, d) by element strides, the head dim contiguous; lse
+// (h, total_q) contiguous fp32; cu_q, cu_k (b + 1,), lens_q, lens_k (b,)
+// and tiles (num_tiles, 2) int32; rows_pad >= total_q + 132 b, a multiple
+// of 4. Returns a cudaError_t (0 on success).
+extern "C" int fa_varlen_bwd_preprocess(
+    const void* dout, const void* out, const float* lse, float* lse2, float* delta,
+    void* dq, void* dk, void* dv, const int* cu_q, const int* cu_k, const int* lens_q,
+    const int* lens_k, const int* tiles, int num_tiles, int b, int total_q, int total_k,
+    int h, int h_k, int d, int64_t rows_pad, int64_t do_st, int64_t do_sh, int64_t o_st,
+    int64_t o_sh, int is_bf16, void* stream) {
+  if (!takes(b, total_q, total_k, h, h_k, d, num_tiles, rows_pad))
+    return (int)cudaErrorInvalidValue;
+  const PreParams p = {dout,   out,    lse,     lse2,    delta,   dq,      dk,
+                       dv,     cu_q,   cu_k,    lens_q,  lens_k,  tiles,   do_st,
+                       do_sh,  o_st,   o_sh,    rows_pad, num_tiles, b,    total_q,
+                       total_k, h,     h_k};
+  return dispatch<Pre>(is_bf16, d, p, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// dQ (total_q, h, d) in q's type over the query-side work list, written
-// once. Layouts as fa_varlen_bwd_dkdv.
+// dK, dV (total_k, h_k, d) in k's type over the key-side work list `tiles`
+// (num_tiles, 2) of block_k-key tiles; rows in no tile are zeroed by
+// fa_varlen_bwd_preprocess. q/dout (total_q, h, d) and k/v (total_k, h_k,
+// d) by element strides (token, head), the head dim contiguous, 16-byte
+// aligned starts and strides (TMA); lse2 and delta (h, rows_pad) from
+// fa_varlen_bwd_preprocess; cu_q, cu_k (b + 1,) and lens_q, lens_k (b,)
+// int32. block_q/block_k must name the tiles the kernels are compiled for
+// (dispatch/config.py VARLEN_BWD_TILE). Returns a cudaError_t (0 on
+// success).
+extern "C" int fa_varlen_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* dout, const float* lse2,
+    const float* delta, void* dk, void* dv, const int* cu_q, const int* cu_k,
+    const int* lens_q, const int* lens_k, const int* tiles, int num_tiles, int b,
+    int total_q, int total_k, int h, int h_k, int d, int block_q, int block_k,
+    int64_t rows_pad, int64_t q_st, int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st,
+    int64_t v_sh, int64_t do_st, int64_t do_sh, int64_t dk_st, int64_t dk_sh, int64_t dv_st,
+    int64_t dv_sh, float scale, int causal, int is_bf16, void* stream) {
+  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS) return (int)cudaErrorInvalidValue;
+  BwdMaps maps;
+  VarlenParams p;
+  cudaError_t err = setup(&maps, &p, q, k, v, dout, lse2, delta, cu_q, cu_k, lens_q, lens_k,
+                          tiles, num_tiles, b, total_q, total_k, h, h_k, d, rows_pad, q_st,
+                          q_sh, k_st, k_sh, v_st, v_sh, do_st, do_sh, scale, causal, is_bf16,
+                          BWD_KV_BM, BWD_KV_ROWS);
+  if (err != cudaSuccess) return (int)err;
+  p.dk = dk;
+  p.dv = dv;
+  p.dk_st = dk_st; p.dk_sh = dk_sh;
+  p.dv_st = dv_st; p.dv_sh = dv_sh;
+  return dispatch<Dkdv>(is_bf16, d, maps, p, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// dQ (total_q, h, d) in q's type over the query-side work list `tiles` of
+// block_q-row tiles, written once. Layouts as fa_varlen_bwd_dkdv.
 extern "C" int fa_varlen_bwd_dq(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, const int* cu_q,
-    const int* cu_k, const int* lens_q, const int* lens_k, const int* tiles,
-    int num_tiles, int total_q, int h, int h_k, int d, int block_q,
-    int block_k, int64_t q_st, int64_t q_sh, int64_t k_st, int64_t k_sh,
-    int64_t v_st, int64_t v_sh, int64_t do_st, int64_t do_sh, int64_t dq_st,
-    int64_t dq_sh, float scale, int causal, int is_bf16, void* stream) {
-  if (block_q != fa::DQ_BM || block_k != fa::DQ_BN) return (int)cudaErrorInvalidValue;
-  if (num_tiles == 0) return 0;
-  VarlenParams p = make_params(cu_q, cu_k, lens_q, lens_k, tiles, num_tiles,
-                               total_q, h, h_k, scale, causal);
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.lse_in = lse;
-  p.delta = delta;
+    const void* q, const void* k, const void* v, const void* dout, const float* lse2,
+    const float* delta, void* dq, const int* cu_q, const int* cu_k, const int* lens_q,
+    const int* lens_k, const int* tiles, int num_tiles, int b, int total_q, int total_k,
+    int h, int h_k, int d, int block_q, int block_k, int64_t rows_pad, int64_t q_st,
+    int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t do_st,
+    int64_t do_sh, int64_t dq_st, int64_t dq_sh, float scale, int causal, int is_bf16,
+    void* stream) {
+  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS) return (int)cudaErrorInvalidValue;
+  BwdMaps maps;
+  VarlenParams p;
+  cudaError_t err = setup(&maps, &p, q, k, v, dout, lse2, delta, cu_q, cu_k, lens_q, lens_k,
+                          tiles, num_tiles, b, total_q, total_k, h, h_k, d, rows_pad, q_st,
+                          q_sh, k_st, k_sh, v_st, v_sh, do_st, do_sh, scale, causal, is_bf16,
+                          BWD_Q_ROWS, BWD_Q_BN);
+  if (err != cudaSuccess) return (int)err;
   p.dq = dq;
-  p.q_st = q_st; p.q_sh = q_sh;
-  p.k_st = k_st; p.k_sh = k_sh;
-  p.v_st = v_st; p.v_sh = v_sh;
-  p.do_st = do_st; p.do_sh = do_sh;
   p.dq_st = dq_st; p.dq_sh = dq_sh;
-  return dispatch<Dq>(is_bf16, d, p, reinterpret_cast<cudaStream_t>(stream));
+  return dispatch<Dq>(is_bf16, d, maps, p, reinterpret_cast<cudaStream_t>(stream));
 }

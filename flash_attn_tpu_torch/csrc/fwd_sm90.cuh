@@ -152,15 +152,7 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
 
   if constexpr (ZERO_TAIL) {
     if (n0 + BN > t.sk) {  // the same for the whole block
-      // whole 128-byte rows of each panel, so the swizzle does not matter
-      const int first = t.sk - n0;
-      const int per_panel = (BN - first) * 8;  // 16-byte chunks
-      for (int i = tid; i < per_panel * (D / 64); i += FWD_THREADS) {
-        const int c = i / per_panel;
-        const int r = first + (i - c * per_panel) / 8;
-        *reinterpret_cast<uint4*>(Vs + c * L::KT::PANEL_BYTES + r * 128 + (i & 7) * 16) =
-            make_uint4(0, 0, 0, 0);
-      }
+      zero_tile_rows<BN, D>(Vs, t.sk - n0, FWD_THREADS);
       fence_proxy_async();  // before wgmma reads them
       __syncthreads();
     }

@@ -1,8 +1,9 @@
-// Hopper building blocks of the dense attention backward (csrc/flash_bwd.cu),
-// the forward tile (csrc/fwd_sm90.cuh) and the MLA tile (csrc/mla_sm90.cuh):
-// mbarriers, TMA tile loads and bulk copies, wgmma with its shared-memory
-// descriptors, the layout of a tile in shared memory, where a paged cache
-// keeps a key, and the host-side encoding of the TMA tensor maps.
+// Hopper building blocks of the forward tile (csrc/fwd_sm90.cuh), the
+// backward tiles (csrc/bwd_sm90.cuh), the MLA tile (csrc/mla_sm90.cuh) and
+// the d = dv decode route's ring (csrc/flash_decode.cu): mbarriers, TMA tile
+// loads and bulk copies, wgmma with its shared-memory descriptors, the
+// layout of a tile in shared memory, where a paged cache keeps a key, and
+// the host-side encoding of the TMA tensor maps.
 //
 // Tile layout. A tile of R rows by D columns (D = 64 or 128 elements of 2
 // bytes) is stored as D / 64 panels of 64 columns; a panel is R rows of 128
@@ -349,6 +350,21 @@ inline int gcd64(int x) {
   return a;
 }
 
+// Zeroes rows [first, ROWS) of a tile of ROWS rows by D columns in the panel
+// layout (whole 128-byte rows of each panel, so the swizzle does not
+// matter), the block's `threads` threads sharing the stores. The caller
+// fences (fence_proxy_async) and synchronises before wgmma reads them.
+template <int ROWS, int D>
+__device__ __forceinline__ void zero_tile_rows(unsigned char* tile, int first, int threads) {
+  const int per_panel = (ROWS - first) * 8;  // 16-byte chunks
+  for (int i = threadIdx.x; i < per_panel * (D / 64); i += threads) {
+    const int c = i / per_panel;
+    const int r = first + (i - c * per_panel) / 8;
+    *reinterpret_cast<uint4*>(tile + c * Tile<ROWS, D>::PANEL_BYTES + r * 128 + (i & 7) * 16) =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
 // Rounds the dynamic shared-memory base up to 1024 bytes (the swizzle's
 // period); the launch asks for 1024 bytes more than the layout needs.
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
@@ -376,27 +392,29 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
 // The tensor map of a RANK-dimensional operand of 2-byte elements whose
 // innermost dim (the head dim, `dims[0]` elements) is contiguous: `dims`
 // innermost first, `strides` the element strides of dims 1 .. RANK - 1.
-// Boxes of 64 columns by `rows` indices of dim 1 by `rows2` of dim 2 (RANK
-// >= 3) and one index of every outer dim, 128-byte swizzle, zero fill past
-// each dim's end.
+// Boxes of `cols` columns by `rows` indices of dim 1 by `rows2` of dim 2
+// (RANK >= 3) and one index of every outer dim, zero fill past each dim's
+// end; 64 columns with the 128-byte swizzle (the panel layout above), or,
+// with `swizzle` false, up to 256 columns stored row after row.
 template <int RANK>
 cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, bool bf16,
                           const int64_t (&dims)[RANK], const int64_t (&strides)[RANK - 1],
-                          int rows, int rows2 = 1) {
+                          int rows, int rows2 = 1, int cols = 64, bool swizzle = true) {
   auto encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[RANK], st[RANK - 1];
   cuuint32_t box[RANK], elem[RANK];
   for (int i = 0; i < RANK; ++i) {
     d[i] = (cuuint64_t)dims[i];
-    box[i] = i == 0 ? 64 : i == 1 ? (cuuint32_t)rows : i == 2 ? (cuuint32_t)rows2 : 1;
+    box[i] = i == 0 ? (cuuint32_t)cols : i == 1 ? (cuuint32_t)rows : i == 2 ? (cuuint32_t)rows2 : 1;
     elem[i] = 1;
   }
   for (int i = 0; i < RANK - 1; ++i) st[i] = (cuuint64_t)strides[i] * 2;
   const CUresult r = encode(
       map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, RANK,
       const_cast<void*>(ptr), d, st, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -47,27 +47,10 @@ class BwdConfig:
     block_k: int  # KV rows of a tile
 
 
-def get_bwd_config(head_dim: int) -> Tuple[BwdConfig, BwdConfig]:
-    """Tiles of csrc/bwd_tile.cuh, the mma.sync backward loops of the
-    packed-varlen (csrc/flash_varlen.cu) and block-sparse
-    (csrc/flash_blocksparse.cu) backward: (the dK/dV loop's, the dQ loop's).
-
-    Both loops run 4 warps of 16 rows (the m16n8k16 tile), so a dK/dV
-    block owns 64 KV rows and a dQ block 64 query rows. A dK/dV warp keeps
-    its rows' dK and dV in registers (128 fp32 a thread at head dim 128)
-    beside the S^T and dP^T tiles of the q tile, so the q tile is what
-    keeps the kernel within 255 registers without spilling: 64 rows at
-    head dim 64, 32 at 128 (csrc/bwd_tile.cuh FA_BWD_BM_D128). The kernels
-    check that the wrapper passes the tiles they were compiled for."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_bwd: head dim {head_dim} not in "
-                         f"{KERNEL_HEAD_DIMS}")
-    dkdv = BwdConfig(block_q=32 if head_dim == 128 else 64, block_k=64)
-    return dkdv, BwdConfig(block_q=64, block_k=64)
-
-
-# Tiles of csrc/flash_bwd.cu, the dense backward on wgmma and TMA, at both
-# head dims: (the dK/dV kernel's, the dQ kernel's). A block runs two
+# Tiles of csrc/bwd_sm90.cuh, the backward on wgmma and TMA of the dense
+# backward (csrc/flash_bwd.cu) and of the packed-varlen one
+# (csrc/flash_varlen.cu, VARLEN_BWD_TILE), at both head dims: (the dK/dV
+# kernel's, the dQ kernel's). A block runs two
 # warpgroups of 64 rows (wgmma's M): the dK/dV kernel owns 128 KV rows and
 # streams q tiles of 64 rows, the dQ kernel owns 128 query rows and streams
 # key tiles of 64. At head dim 128 a thread keeps 64 + 64 fp32 dK/dV
@@ -84,21 +67,39 @@ DENSE_BWD_ROW_PAD = 128
 
 
 # Split granularity of csrc/flash_decode.cu and of its plain version: a
-# split's share of the cache is a run of 64-key tiles (one pass of the
-# kernel's 4 warps' unrolled loads at head dim 128).
+# split's share of the cache is a run of 64-key tiles, which the kernel
+# stages in its shared-memory ring whole or in quarters (TMA copies of K and
+# V in boxes of gcd(page_size, staged tile) rows).
 #
 # The paged cache keeps this tile whatever the page size. The TPU kernel
 # sizes its KV tile from the page (flash_decode.py:484-489: pages_per_tile
 # pages of a ~512-row target, so that each DMA moves a whole page), because
-# a TPU tile is one DMA'd slab. The CUDA kernel resolves every key position
-# through the block table inside its 16-byte loads, so a tile may start and
-# end inside a page: page 16, 64 or 256 all split on 64-key tiles, and
-# paged decode sums in the same order as linear decode.
+# a TPU tile is one DMA'd slab. The CUDA kernel resolves each box's page
+# through the block table, so a tile may start and end inside a page: page
+# 16, 64 or 256 all split on 64-key tiles, and paged decode sums in the
+# same order as linear decode.
 DECODE_BLOCK_K = 64
 
 # Query rows a block of the d = dv decode route holds (csrc/flash_decode.cu:
 # up to 8, grid.z covers the rest): the split heuristic's row block there.
 DECODE_ROWS_PER_BLOCK = 8
+
+# Blocks of the d = dv decode route's deep ring (csrc/flash_decode.cu: 3
+# stages of 64 keys, 97 KB of shared memory at head dim 128) an SM holds.
+DECODE_BLOCKS_PER_SM = 2
+
+
+def decode_cluster(blocks: int, sms: int) -> int:
+    """Blocks of a thread-block cluster that share one split of the d = dv
+    decode route (csrc/flash_decode.cu): the most of 1, 2 and 4 whose grid
+    of ``blocks`` x that many still fits the card's resident blocks of the
+    deep ring, so that the longest rows spread over idle SMs at small
+    batch, and a full grid runs one block a split (on the shallow ring)."""
+    cluster = 1
+    while cluster < 4 and blocks * cluster * 2 <= sms * DECODE_BLOCKS_PER_SM:
+        cluster *= 2
+    return cluster
+
 
 # Tile of csrc/mla_sm90.cuh, which the MLA decode route and the paged
 # chunked prefill (B8p) both run on wgmma and TMA: 64 packed (position,
@@ -141,12 +142,18 @@ def decode_rows_per_block(d: int, dv: int, has_qv: bool) -> int:
         else DECODE_ROWS_PER_BLOCK
 
 
-# The backward work lists of packed varlen attention (csrc/flash_varlen.cu):
-# its dQ kernel walks 64-row query tiles and its dK/dV kernel 64-key tiles
-# (get_bwd_config), whatever the head dim. compute_varlen_meta builds them
-# (q_tiles, k_tiles) beside the forward's 128-row schedule (FWD_TILE), so
-# that one VarlenMeta serves flash_attn_varlen_func's forward and backward.
-VARLEN_BWD_TILE = FwdConfig(block_q=64, block_k=64)
+# The backward work lists of packed varlen attention (csrc/flash_varlen.cu,
+# B6 on the wgmma/TMA tiles of csrc/bwd_sm90.cuh that the dense backward B3
+# runs, DENSE_BWD_TILES): its dK/dV kernel owns 128-key tiles (k_tiles,
+# walked in k_schedule's order) and streams 64-row q tiles, its dQ kernel
+# owns 128-row q tiles (q_tiles; walked in the order of the forward's
+# schedule, whose tiles are FWD_TILE's 128 rows too) and streams 64-key
+# tiles, whatever the head dim. compute_varlen_meta builds them beside the
+# forward's schedule, so that one VarlenMeta serves flash_attn_varlen_func's
+# forward and backward; the preprocess kernel pads lse and delta per
+# sequence to whole 128-row tiles of q_tiles. The kernels check that the
+# wrapper passes these tiles.
+VARLEN_BWD_TILE = FwdConfig(block_q=128, block_k=128)
 
 
 @functools.lru_cache(maxsize=None)

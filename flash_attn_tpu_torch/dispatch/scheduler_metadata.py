@@ -75,7 +75,7 @@ def get_scheduler_metadata(
         cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, total_q,
         total_k, causal=causal, seqused_q=seqused_q, seqused_k=seqused_k,
         block_q=VARLEN_BWD_TILE.block_q, block_k=VARLEN_BWD_TILE.block_k,
-        schedule_block_q=bq)
+        schedule_block_q=bq, schedule_block_k=bk)
     return SchedulerMetadata(
         meta=meta, block_q=bq, block_k=bk,
         num_q_tiles=num_tiles_bound(batch_size, max_seqlen_q, total_q, bq),

@@ -11,11 +11,13 @@ take work lists of per-sequence tile origins instead:
 
   - ``q_tiles``: (sequence, first local row) of every ``block_q``-row query
     tile (dQ);
-  - ``k_tiles``: (sequence, first local key) of every ``block_k``-key tile
-    (dK/dV);
+  - ``k_tiles``: (sequence, first local key) of every ``block_k``-key tile;
+  - ``k_schedule``: the same key tiles ordered by the query rows that see
+    them, most first (the dK/dV kernel's work list);
   - ``schedule``: the query tiles of ``schedule_block_q`` rows (``block_q``
-    unless given; the forwards' 128) ordered longest KV band first, the
-    forward's work list.
+    unless given; the forwards' 128) ordered longest KV band (in
+    ``schedule_block_k``-key tiles) first, the forward's and the dQ
+    kernel's work list.
 
 Each list is sized by a static bound (``num_tiles_bound``), with sequence -1
 past the last live tile, so building it reads nothing back to the host. A
@@ -49,6 +51,7 @@ class VarlenMeta(NamedTuple):
     q_tiles: torch.Tensor
     k_tiles: torch.Tensor
     schedule: torch.Tensor
+    k_schedule: torch.Tensor
 
 
 def sequence_lengths(cu_seqlens, seqused=None):
@@ -110,6 +113,18 @@ def _band_tiles(q_tiles, lens_q, lens_k, block_q: int, block_k: int,
     return torch.where(seq >= 0, band, -1)
 
 
+def _key_band(k_tiles, lens_q, lens_k, causal: bool):
+    """Query rows that see each key tile's first key (bottom-right causal),
+    -1 for a dead tile."""
+    seq = k_tiles[:, 0].long()
+    s = seq.clamp(min=0)
+    lq, lk = lens_q.long()[s], lens_k.long()[s]
+    rows = lq
+    if causal:  # row r sees key n0 when n0 <= r + lk - lq
+        rows = (lq - (k_tiles[:, 1].long() - (lk - lq)).clamp(min=0)).clamp(min=0)
+    return torch.where(seq >= 0, rows, -1)
+
+
 def compute_varlen_meta(
     cu_seqlens_q,  # (b+1,) int32
     cu_seqlens_k,  # (b+1,) int32
@@ -124,13 +139,14 @@ def compute_varlen_meta(
     block_q: int = 64,
     block_k: int = 64,
     schedule_block_q: Optional[int] = None,
+    schedule_block_k: Optional[int] = None,
     device: Optional[torch.device] = None,
 ) -> VarlenMeta:
     """The per-token vectors and the work lists of packed sequences, on
     ``device`` (cu_seqlens_q's by default). ``max_seqlen_q/k`` must bound
     the sequences' lengths: they size the work lists. The schedule's tiles
     have ``schedule_block_q`` rows (``block_q`` when None); its bands count
-    ``block_k``-key tiles."""
+    ``schedule_block_k``-key tiles (``block_k`` when None)."""
     device = device or cu_seqlens_q.device
     cu_q = cu_seqlens_q.to(device, torch.int32)
     cu_k = cu_seqlens_k.to(device, torch.int32)
@@ -155,11 +171,15 @@ def compute_varlen_meta(
     bq_s = schedule_block_q or block_q
     s_tiles = q_tiles if bq_s == block_q else varlen_tiles(
         lens_q, num_tiles_bound(b, max_seqlen_q, total_q, bq_s), bq_s)
-    band = _band_tiles(s_tiles, lens_q, lens_k, bq_s, block_k, causal)
+    band = _band_tiles(s_tiles, lens_q, lens_k, bq_s,
+                       schedule_block_k or block_k, causal)
     order = torch.sort(band, descending=True, stable=True).indices
+    k_order = torch.sort(_key_band(k_tiles, lens_q, lens_k, causal),
+                         descending=True, stable=True).indices
     return VarlenMeta(
         seg_q=seg_q, pos_q=pos_q.to(torch.int32), seg_k=seg_k,
         pos_k=pos_k.to(torch.int32), sq_of_q=sq_of_q.to(torch.int32),
         sk_of_q=sk_of_q.to(torch.int32), lens_q=lens_q, lens_k=lens_k,
         q_tiles=q_tiles, k_tiles=k_tiles,
-        schedule=s_tiles[order].contiguous())
+        schedule=s_tiles[order].contiguous(),
+        k_schedule=k_tiles[k_order].contiguous())

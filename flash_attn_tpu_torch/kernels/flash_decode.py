@@ -23,10 +23,13 @@ import torch
 
 from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
+    DECODE_ROWS_PER_BLOCK,
     KERNEL_HEAD_DIMS,
     MLA_DECODE_DIMS,
     MLA_TILE,
+    decode_cluster,
     is_mla_form,
+    num_sms,
 )
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.utils.testing import paged_to_linear
@@ -124,7 +127,11 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     ``cache_seqlens`` (b,) int32 are the cache lengths after any append;
     cache row i (or block-table row i) serves batch row i. ``qv`` (b, sq,
     h, dv), or a value width dv != d, takes the MLA route
-    (:func:`_mla_partials`)."""
+    (:func:`_mla_partials`). The d = dv route on the card reads the cache
+    by TMA (a linear cache as b_c pages of s_max rows) and shares each split
+    among a cluster of decode_cluster's blocks: a view whose strides are not
+    multiples of 16 bytes, or whose start is not 16-byte aligned, raises
+    ValueError."""
     paged = block_table is not None
     if q.device.type == "cpu":
         if paged:
@@ -170,6 +177,7 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
                         device=q.device)
     lse_p = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32,
                         device=q.device)
+    blocks = b * h_k * num_splits * -(-rows // DECODE_ROWS_PER_BLOCK)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.fa_decode(
@@ -177,9 +185,10 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
             cache_seqlens.data_ptr(),
             block_table.data_ptr() if paged else None,
             out_p.data_ptr(), lse_p.data_ptr(),
-            b, sq, h, h_k, d, num_splits, DECODE_BLOCK_K,
-            s_max if paged else 0, block_table.shape[1] if paged else 0,
-            b_c if paged else 0, cache_capacity(k_cache, block_table),
+            b, sq, h, h_k, d, num_splits, DECODE_BLOCK_K, s_max,
+            block_table.shape[1] if paged else 0, b_c,
+            cache_capacity(k_cache, block_table),
+            decode_cluster(blocks, num_sms(q.device.index)),
             q.stride(0), q.stride(1), q.stride(2),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),

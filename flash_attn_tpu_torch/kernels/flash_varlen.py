@@ -1,8 +1,9 @@
 """Packed varlen attention, forward (B6) and backward: the CUDA kernels of
 ``csrc/flash_varlen_fwd.cu`` (the wgmma/TMA forward tile of
 csrc/fwd_sm90.cuh, which the persistent B7 of flash_varlen_persistent.py
-runs too) and ``csrc/flash_varlen.cu`` (the backward), and their plain
-PyTorch versions.
+runs too) and ``csrc/flash_varlen.cu`` (the backward's preprocess, dK/dV
+and dQ kernels on the wgmma/TMA tiles of csrc/bwd_sm90.cuh, which the dense
+backward B3 runs too), and their plain PyTorch versions.
 
 Port of flash_attn_tpu/kernels/flash_varlen.py ``flash_attention_varlen_fwd``
 (:285) and ``flash_attention_varlen_bwd`` (:807): q (total_q, h, d) and k/v
@@ -13,10 +14,12 @@ sequence. Rows that see no key, rows past a sequence's length and rows past
 kernels tile the flat token axis and mask by segment ids; here the wrapper
 builds per-sequence work lists with torch ops (dispatch/varlen_meta.py), so
 nothing is read back to the host: one VarlenMeta holds the forward's
-schedule of 128-row tiles (FWD_TILE) and the backward's 64-row and 64-key
-lists (VARLEN_BWD_TILE). delta = rowsum(dO * O) stays a torch op,
-as it was an XLA op in JAX. A tensor on the CPU takes the plain version; a
-CUDA tensor launches the kernels or raises.
+schedule of 128-row tiles (FWD_TILE) and the backward's 128-row and 128-key
+lists (VARLEN_BWD_TILE). delta = rowsum(dO * O), an XLA op in JAX
+(flash_varlen.py:854), is the backward's preprocess kernel here, which
+also takes lse to base 2 and zeroes the gradient rows that no tile writes.
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernels or raises.
 """
 
 import ctypes
@@ -29,7 +32,6 @@ from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     KERNEL_HEAD_DIMS,
     VARLEN_BWD_TILE,
-    get_bwd_config,
     num_sms,
 )
 from flash_attn_tpu_torch.dispatch.varlen_meta import (
@@ -40,10 +42,17 @@ from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd_plain
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd_plain
 
-# Kernel launches since the last reset (plain calls not counted).
+# Kernel launches since the last reset (plain calls not counted): the
+# forward, and the backward's preprocess, dK/dV and dQ kernels.
 launches_fwd = 0
+launches_preprocess = 0
 launches_dkdv = 0
 launches_dq = 0
+
+LOG2E = math.log2(math.e)
+# Rows the backward's padded lse2 / delta buffers give each sequence beyond
+# its own (csrc/flash_varlen.cu SEQ_GAP): room for whole 128-row tiles.
+SEQ_GAP = 132
 
 
 def _host_lengths(cu_seqlens, seqused):
@@ -105,6 +114,42 @@ def flash_attention_varlen_bwd_plain(
     return dq, dk, dv
 
 
+def padded_rows(total_q: int, b: int) -> int:
+    """Rows (a head) of the backward's padded lse2 / delta buffers for b
+    sequences over total_q packed rows."""
+    return -(-(total_q + SEQ_GAP * b) // 4) * 4
+
+
+def padded_row(cu: int, seq: int) -> int:
+    """The first padded row of sequence ``seq``, whose packed rows start at
+    ``cu`` (csrc/flash_varlen.cu padded_row): a multiple of 4, so that each
+    tile's bulk copy of lse2 and delta is 16-byte aligned."""
+    return -(-cu // 4) * 4 + SEQ_GAP * seq
+
+
+def varlen_bwd_preprocess_plain(do, out, lse, cu_seqlens_q, seqused_q=None):
+    """What the preprocess kernel computes: delta = rowsum(dO * O) in fp32
+    and lse2 = lse * log2(e) (+inf where lse is -inf, so that the tiles'
+    P = 2^(S * scale * log2(e) - lse2) is 0 there), each (h,
+    padded_rows(total_q, b)), sequence s's rows from padded_row(cu[s], s);
+    every other row holds delta 0 and lse2 +inf (the kernel writes those
+    of its sequences' whole 128-row tiles only). do/out (total_q, h, d), lse
+    (h, total_q) natural-log."""
+    total_q, h, _ = do.shape
+    starts, lens = _host_lengths(cu_seqlens_q, seqused_q)
+    delta = torch.zeros((h, padded_rows(total_q, len(lens))),
+                        device=do.device)
+    lse2 = torch.full_like(delta, float("inf"))
+    row_delta = (do.float() * out.float()).sum(-1).T
+    row_lse2 = torch.where(lse == float("-inf"), float("inf"),
+                           lse.float() * LOG2E)
+    for s, (c, n) in enumerate(zip(starts, lens)):
+        p0 = padded_row(c, s)
+        delta[:, p0:p0 + n] = row_delta[:, c:c + n]
+        lse2[:, p0:p0 + n] = row_lse2[:, c:c + n]
+    return delta, lse2
+
+
 def check_kernel_inputs(name: str, q, k, v, cu_seqlens_q, cu_seqlens_k):
     """What the varlen kernels take: bf16/fp16 (total, heads, d) tensors on
     one card with equal head dims in KERNEL_HEAD_DIMS, h % h_k == 0, 16-byte
@@ -134,14 +179,16 @@ def varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
                 seqused_q, seqused_k, causal, meta):
     """``meta`` if given (get_scheduler_metadata), else the work lists of
     this call on q's device: the forward's schedule of FWD_TILE's 128-row
-    tiles, and the backward's lists of VARLEN_BWD_TILE."""
+    tiles (also the dQ kernel's), and the backward's lists of
+    VARLEN_BWD_TILE."""
     if meta is not None:
         return meta
     return compute_varlen_meta(
         cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, q.shape[0],
         k.shape[0], causal=causal, seqused_q=seqused_q, seqused_k=seqused_k,
         block_q=VARLEN_BWD_TILE.block_q, block_k=VARLEN_BWD_TILE.block_k,
-        schedule_block_q=FWD_TILE.block_q, device=q.device)
+        schedule_block_q=FWD_TILE.block_q, schedule_block_k=FWD_TILE.block_k,
+        device=q.device)
 
 
 def check_meta(name: str, meta, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
@@ -154,6 +201,8 @@ def check_meta(name: str, meta, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
     if backward:
         want = {"q_tiles": (VARLEN_BWD_TILE.block_q, max_seqlen_q, total_q),
                 "k_tiles": (VARLEN_BWD_TILE.block_k, max_seqlen_k, total_k)}
+        want["schedule"] = want["q_tiles"]  # the dQ kernel's order
+        want["k_schedule"] = want["k_tiles"]
     else:
         want = {"schedule": (FWD_TILE.block_q, max_seqlen_q, total_q)}
     for field, (block, max_seqlen, total) in want.items():
@@ -165,7 +214,7 @@ def check_meta(name: str, meta, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                 f"{block}-row ones (build it with get_scheduler_metadata, or "
                 f"compute_varlen_meta(block_q={VARLEN_BWD_TILE.block_q}, "
                 f"block_k={VARLEN_BWD_TILE.block_k}, schedule_block_q="
-                f"{FWD_TILE.block_q}))")
+                f"{FWD_TILE.block_q}, schedule_block_k={FWD_TILE.block_k}))")
 
 
 def _as_int32(x, device):
@@ -242,6 +291,54 @@ def flash_attention_varlen_fwd(
     return out, lse
 
 
+def varlen_bwd_preprocess(do, out, lse, cu_seqlens_q, cu_seqlens_k, meta,
+                          dq, dk, dv):
+    """The preprocess kernel: (delta, lse2) as varlen_bwd_preprocess_plain
+    on the rows of ``meta.q_tiles``' 128-row tiles (the other rows are left
+    unwritten), reading dO and O once in their own type; it also zeroes the
+    rows of dq (total_q, h, d) and dk, dv (total_k, h_k, d), contiguous
+    tensors on the card, that lie in no sequence. do/out (total_q, h, d)
+    with the head dim contiguous, lse (h, total_q) fp32 contiguous. A
+    tensor on the CPU takes the plain version (and zeroes dq, dk, dv)."""
+    seqused_q = meta.lens_q
+    if do.device.type == "cpu":
+        for g in (dq, dk, dv):
+            g.zero_()
+        return varlen_bwd_preprocess_plain(do, out, lse, cu_seqlens_q,
+                                           seqused_q)
+    total_q, h, d = do.shape
+    total_k, h_k, _ = dk.shape
+    b = cu_seqlens_q.numel() - 1
+    for name, x in (("do", do), ("out", out)):
+        _build.check_operand("flash_varlen_bwd_preprocess", name, x, do.dtype,
+                             do.device)
+    if lse.shape != (h, total_q) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or not all(
+                g.is_contiguous() for g in (dq, dk, dv)):
+        raise ValueError("flash_varlen_bwd_preprocess kernel: lse must be a "
+                         "contiguous (h, total_q) fp32 tensor and the "
+                         "gradients contiguous")
+    rows = padded_rows(total_q, b)
+    delta = torch.empty((h, rows), dtype=torch.float32, device=do.device)
+    lse2 = torch.empty_like(delta)
+    cu_q, cu_k, lens_q, lens_k = (_as_int32(x, do.device) for x in (
+        cu_seqlens_q, cu_seqlens_k, meta.lens_q, meta.lens_k))
+    global launches_preprocess
+    with torch.cuda.device(do.device):
+        err = _build.load_library().fa_varlen_bwd_preprocess(
+            do.data_ptr(), out.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            cu_q.data_ptr(), cu_k.data_ptr(), lens_q.data_ptr(),
+            lens_k.data_ptr(), meta.q_tiles.data_ptr(),
+            meta.q_tiles.shape[0], b, total_q, total_k, h, h_k, d, rows,
+            do.stride(0), do.stride(1), out.stride(0), out.stride(1),
+            int(do.dtype == torch.bfloat16),
+            torch.cuda.current_stream(do.device).cuda_stream)
+        _build.check(err, "fa_varlen_bwd_preprocess")
+        launches_preprocess += 1
+    return delta, lse2
+
+
 def flash_attention_varlen_bwd(
         do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
@@ -250,9 +347,13 @@ def flash_attention_varlen_bwd(
     """dq, dk, dv of packed varlen attention saved by a varlen forward.
     do/out (total_q, h, d), lse (h, total_q); the rest as
     :func:`flash_attention_varlen_fwd`. Returns (dq, dk, dv) in the inputs'
-    types. CUDA: the dK/dV kernel (one block per (k tile, KV head), the
-    group's heads summed in the block) then the dQ kernel (one block per
-    (q tile, head)), each writing its gradient once: deterministic."""
+    types. CUDA: the preprocess kernel (delta, lse in base 2, the rows in
+    no sequence zeroed), then the dK/dV kernel (one block per (128-key
+    tile, KV head), the group's heads summed in the block) and the dQ
+    kernel (one block per (128-row q tile, head)), each writing its
+    gradient once: deterministic. The operands are read by TMA: a view
+    whose strides are not multiples of 16 bytes, or whose start is not
+    16-byte aligned, raises ValueError."""
     if q.device.type == "cpu":
         return flash_attention_varlen_bwd_plain(
             do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
@@ -271,41 +372,44 @@ def flash_attention_varlen_bwd(
         check_meta("flash_varlen_bwd", meta, cu_seqlens_q, cu_seqlens_k,
                    max_seqlen_q, max_seqlen_k, total_q, total_k,
                    backward=True)
+    if total_q == 0 or total_k == 0:  # no row sees a key
+        return tuple(torch.zeros_like(x) for x in (q, k, v))
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                        max_seqlen_k, seqused_q, seqused_k, causal, meta)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
-    lse = lse.float().contiguous()
-    delta = (do.float() * out.float()).sum(-1).T.contiguous()  # (h, total_q)
-    dq = torch.zeros((total_q, h, d), dtype=q.dtype, device=q.device)
-    dk = torch.zeros((total_k, h_k, d), dtype=k.dtype, device=q.device)
-    dv = torch.zeros((total_k, h_k, d), dtype=v.dtype, device=q.device)
+    dq = torch.empty((total_q, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((total_k, h_k, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((total_k, h_k, d), dtype=v.dtype, device=q.device)
+    delta, lse2 = varlen_bwd_preprocess(do, out, lse.float().contiguous(),
+                                        cu_seqlens_q, cu_seqlens_k, meta,
+                                        dq, dk, dv)
     cu_q, cu_k, lens_q, lens_k = (_as_int32(x, q.device) for x in (
         cu_seqlens_q, cu_seqlens_k, meta.lens_q, meta.lens_k))
-    dkdv_tile, dq_tile = get_bwd_config(d)
-    strides = [q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-               v.stride(0), v.stride(1), do.stride(0), do.stride(1)]
+    tile = VARLEN_BWD_TILE
     common = [cu_q.data_ptr(), cu_k.data_ptr(), lens_q.data_ptr(),
               lens_k.data_ptr()]
-    is_bf16 = int(q.dtype == torch.bfloat16)
+    shape = [cu_seqlens_q.numel() - 1, total_q, total_k, h, h_k, d,
+             tile.block_q, tile.block_k, delta.shape[1], q.stride(0),
+             q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+             do.stride(0), do.stride(1)]
+    operands = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse2.data_ptr(), delta.data_ptr()]
+    tail = [scale, int(causal), int(q.dtype == torch.bfloat16)]
     lib = _build.load_library()
     global launches_dkdv, launches_dq
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_varlen_bwd_dkdv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *common, meta.k_tiles.data_ptr(), meta.k_tiles.shape[0], total_q,
-            h, h_k, d, dkdv_tile.block_q, dkdv_tile.block_k, *strides,
-            dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1),
-            scale, int(causal), is_bf16, stream)
+            *operands, dk.data_ptr(), dv.data_ptr(), *common,
+            meta.k_schedule.data_ptr(), meta.k_schedule.shape[0], *shape,
+            dk.stride(0), dk.stride(1), dv.stride(0), dv.stride(1), *tail,
+            stream)
         _build.check(err, "fa_varlen_bwd_dkdv")
         launches_dkdv += 1
         err = lib.fa_varlen_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *common,
-            meta.q_tiles.data_ptr(), meta.q_tiles.shape[0], total_q, h, h_k,
-            d, dq_tile.block_q, dq_tile.block_k, *strides, dq.stride(0),
-            dq.stride(1), scale, int(causal), is_bf16, stream)
+            *operands, dq.data_ptr(), *common, meta.schedule.data_ptr(),
+            meta.schedule.shape[0], *shape, dq.stride(0), dq.stride(1),
+            *tail, stream)
         _build.check(err, "fa_varlen_bwd_dq")
         launches_dq += 1
     return dq, dk, dv

@@ -220,14 +220,42 @@ def _included_sources(path: Path) -> str:
     return text
 
 
-def test_dense_backward_sources_use_wgmma_and_tma():
-    """The dense backward (csrc/flash_bwd.cu and the headers it includes)
-    runs its products on wgmma and loads its tiles asynchronously by TMA,
-    and it no longer includes the mma.sync loops of bwd_tile.cuh."""
-    text = _included_sources(PKG / "csrc" / "flash_bwd.cu")
+@pytest.mark.parametrize("source", ["flash_bwd.cu", "flash_varlen.cu"])
+def test_dense_backward_sources_use_wgmma_and_tma(source):
+    """The dense backward (csrc/flash_bwd.cu) and the packed-varlen backward
+    (csrc/flash_varlen.cu), with the headers they include, run their
+    products on wgmma and load their tiles asynchronously by TMA (the shared
+    tiles of bwd_sm90.cuh), and neither includes the mma.sync loops of
+    bwd_tile.cuh."""
+    text = _included_sources(PKG / "csrc" / source)
     assert "wgmma.mma_async" in text
     assert "cp.async.bulk.tensor" in text and "cp.async.bulk.shared" in text
+    assert "bwd_sm90.cuh" in re.findall(r'^#include "([^"]+)"', text,
+                                        re.MULTILINE)
     assert "bwd_tile.cuh" not in text
+
+
+def test_decode_source_copies_tiles_by_bulk_copies_under_mbarriers():
+    """The d = dv decode route (csrc/flash_decode.cu with its headers) moves
+    its K/V tiles by cp.async.bulk into shared memory, each stage completed
+    by an mbarrier (expect_tx, then a wait on its phase), not by loads of
+    its threads."""
+    text = _included_sources(PKG / "csrc" / "flash_decode.cu")
+    assert "cp.async.bulk" in text
+    assert "mbarrier.arrive.expect_tx" in text and "mbarrier.try_wait" in text
+    own = (PKG / "csrc" / "flash_decode.cu").read_text()
+    assert "tma_load_4d(" in own and "mbar_wait(" in own
+    assert "__ldg(" not in own
+
+
+def test_only_the_blocksparse_backward_keeps_bwd_tile():
+    """The mma.sync loops of bwd_tile.cuh serve the block-sparse backward
+    (B10) alone: no other source includes them."""
+    assert (PKG / "csrc" / "bwd_tile.cuh").exists()
+    holders = [f.name for f in sorted((PKG / "csrc").glob("*.cu*"))
+               if "bwd_tile.cuh" in re.findall(
+                   r'^#include "([^"]+)"', f.read_text(), re.MULTILINE)]
+    assert holders == ["flash_blocksparse.cu"]
 
 
 @pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_varlen_fwd.cu",
@@ -287,17 +315,25 @@ def test_host_tensor_map_helpers_have_one_copy():
 def test_forward_tiles_in_the_config():
     """FWD_TILE is the wgmma tile of B1, B6's forward and B7 (128 rows by 64
     keys), and get_scheduler_metadata builds its schedule for it; the
-    backward's lists stay on VARLEN_BWD_TILE's 64-row and 64-key tiles."""
+    backward's lists are on VARLEN_BWD_TILE's 128-row and 128-key tiles (B3's
+    wgmma tiles, DENSE_BWD_TILES), the dQ kernel walking the schedule."""
     from flash_attn_tpu_torch import get_scheduler_metadata
-    from flash_attn_tpu_torch.dispatch.config import FWD_TILE, VARLEN_BWD_TILE
+    from flash_attn_tpu_torch.dispatch.config import (
+        DENSE_BWD_TILES,
+        FWD_TILE,
+        VARLEN_BWD_TILE,
+    )
 
     assert (FWD_TILE.block_q, FWD_TILE.block_k) == (128, 64)
-    assert (VARLEN_BWD_TILE.block_q, VARLEN_BWD_TILE.block_k) == (64, 64)
+    assert (VARLEN_BWD_TILE.block_q, VARLEN_BWD_TILE.block_k) == (128, 128)
+    assert VARLEN_BWD_TILE.block_q == DENSE_BWD_TILES[1].block_q == FWD_TILE.block_q
+    assert VARLEN_BWD_TILE.block_k == DENSE_BWD_TILES[0].block_k
     md = get_scheduler_metadata(3, 200, 200, 4, 2, 64, causal=True,
                                 device="cpu")
     assert (md.block_q, md.block_k) == (128, 64)
     assert md.num_q_tiles == 3 * 2 and md.meta.schedule.shape[0] == 6
-    assert md.meta.q_tiles.shape[0] == 12 and md.num_k_tiles == 12
+    assert md.meta.q_tiles.shape[0] == 6 and md.num_k_tiles == 6
+    assert md.meta.k_schedule.shape[0] == 6
 
 
 # Edge shapes of the dense backward's tiles (b, sq, sk, h, h_k, d, causal,
@@ -533,38 +569,50 @@ def test_paged_overflow_poisons_rows_on_the_card():
 
 
 @pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [64, 128])
-def test_varlen_kernels_match_plain_versions_on_the_card(causal, d):
+def test_varlen_kernels_match_plain_versions_on_the_card(causal, d, dtype):
     """B6 forward, B7 and the B6 backward against their plain versions with
-    a zero-length sequence, lengths either side of the forward's 128-row
-    tile, seqused_q/k, GQA and a packed tail; B6's forward and B7 each give
-    the same bits twice; the backward gives the same bits twice."""
+    a zero-length sequence, a sequence with no keys, lengths either side of
+    the 128-row tiles, seqused_q/k, GQA 16/4 and a packed tail, with NaN in
+    every row outside the sequences (no tile may sum them); B6's forward and
+    B7 each give the same bits twice; the backward gives the same bits
+    twice and zeros in the rows outside the sequences."""
     import numpy as np
 
     from flash_attn_tpu_torch.kernels import (
         flash_varlen,
         flash_varlen_persistent,
     )
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_varlen_ref_grads,
+        check_against_ref,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen).to(
-            torch.bfloat16)
-
     lens_q = [100, 0, 256, 7, 130, 127, 129]
     lens_k = [300, 40, 256, 519, 0, 129, 127]
+    used_q = [100, 0, 200, 7, 130, 127, 129]
+    used_k = [300, 40, 256, 500, 0, 129, 127]
+
+    def packed(lens, used, tail, h):
+        """Rows of the packed sequences, NaN past each one's used rows and
+        in the tail."""
+        live = torch.zeros(sum(lens) + tail, dtype=torch.bool, device="cuda")
+        for lo, n in zip(np.concatenate([[0], np.cumsum(lens)]), used):
+            live[lo:lo + n] = True
+        x = torch.randn(live.numel(), h, d, device="cuda", generator=gen)
+        return torch.where(live[:, None, None], x, float("nan")).to(dtype), live
+
+    (q, live_q), (do, _) = packed(lens_q, used_q, 9, 16), packed(lens_q, used_q, 9, 16)
+    (k, live_k), (v, _) = packed(lens_k, used_k, 3, 4), packed(lens_k, used_k, 3, 4)
     cu_q, cu_k = (torch.tensor(np.concatenate([[0], np.cumsum(x)]),
                                dtype=torch.int32, device="cuda")
                   for x in (lens_q, lens_k))
-    used_q = torch.tensor([100, 0, 200, 7, 130, 127, 129], dtype=torch.int32,
-                          device="cuda")
-    used_k = torch.tensor([300, 40, 256, 500, 0, 129, 127], dtype=torch.int32,
-                          device="cuda")
-    q, do = randn(int(cu_q[-1]) + 9, 8, d), randn(int(cu_q[-1]) + 9, 8, d)
-    k, v = randn(int(cu_k[-1]) + 3, 2, d), randn(int(cu_k[-1]) + 3, 2, d)
-    args = (cu_q, cu_k, 256, 519, used_q, used_k)
+    args = (cu_q, cu_k, 256, 519,
+            torch.tensor(used_q, dtype=torch.int32, device="cuda"),
+            torch.tensor(used_k, dtype=torch.int32, device="cuda"))
     ref, ref_lse = flash_varlen.flash_attention_varlen_fwd_plain(
         q, k, v, *args, causal=causal)
     fin = torch.isfinite(ref_lse)
@@ -579,13 +627,93 @@ def test_varlen_kernels_match_plain_versions_on_the_card(causal, d):
         assert torch.equal(again[0], out) and torch.equal(again[1], lse)
     got = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse, *args,
                                                   causal=causal)
+    # the 2x rule (utils/testing.py): against the plain fp32 backward, with
+    # autograd through the per-sequence reference in the inputs' type as the
+    # low-precision one
     want = flash_varlen.flash_attention_varlen_bwd_plain(
-        do, q, k, v, out, lse, *args, causal=causal)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g.float(), w.float(), atol=5e-2, rtol=0)
+        do.float(), q.float(), k.float(), v.float(), out.float(), lse, *args,
+        causal=causal)
+    lp = attention_varlen_ref_grads(q, k, v, do, cu_q, cu_k, *args[4:],
+                                    causal=causal, upcast=False)
+    for name, g, w, r in zip("qkv", got, want, lp):
+        check_against_ref(g, w, r, atol=1e-4, msg=f"d{name}")
+    for g, live in zip(got, (live_q, live_k, live_k)):
+        assert not g[~live].any()
     again = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse,
                                                     *args, causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# B6's backward against B3 over the same rows (b, s, h, h_k, d, causal,
+# dtype): b equal-length sequences packed run the tiles of bwd_sm90.cuh over
+# the same rows as the dense batch, so the bits must agree: lengths either
+# side of the 64- and 128-row tiles, GQA, both head dims, fp16.
+VARLEN_DENSE_BWD_CASES = [
+    (3, 300, 16, 4, 128, True, torch.bfloat16),
+    (2, 256, 8, 8, 64, False, torch.float16),
+    (4, 129, 4, 2, 128, True, torch.bfloat16),
+    (2, 63, 16, 16, 64, True, torch.bfloat16),
+]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", VARLEN_DENSE_BWD_CASES)
+def test_varlen_backward_equals_dense_backward_on_the_card(case):
+    """B6's backward over b equal-length sequences packed gives B3's dq, dk
+    and dv over the same (b, s) rows, bit for bit, and its preprocess the
+    dense preprocess's delta and lse2 on every row of the sequences."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_varlen
+
+    b, s, h, h_k, d, causal, dtype = case
+    q, k, v, do, out, lse = _dense_bwd_inputs(
+        (b, s, s, h, h_k, d, causal, dtype), seed=s)
+    dense = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse,
+                                          causal=causal, deterministic=True)
+    cu = torch.arange(b + 1, dtype=torch.int32, device="cuda") * s
+    packed = [x.transpose(1, 2).reshape(b * s, x.shape[1], d)
+              for x in (do, q, k, v, out)]
+    lse_p = lse.permute(1, 0, 2).reshape(h, b * s)
+    varlen = flash_varlen.flash_attention_varlen_bwd(
+        *packed, lse_p, cu, cu, s, s, causal=causal)
+    for name, g, g6 in zip("qkv", dense, varlen):
+        assert torch.equal(g.transpose(1, 2).reshape(g6.shape), g6), name
+    meta = flash_varlen.varlen_meta(packed[1], packed[2], cu, cu, s, s, None,
+                                    None, causal, None)
+    grads = [torch.empty_like(x) for x in packed[1:4]]
+    delta, lse2 = flash_varlen.varlen_bwd_preprocess(
+        packed[0], packed[4], lse_p.contiguous(), cu, cu, meta, *grads)
+    want_delta, want_lse2 = flash_bwd.bwd_preprocess(do, out, lse)
+    for i in range(b):
+        p0 = flash_varlen.padded_row(i * s, i)
+        assert torch.equal(delta[:, p0:p0 + s], want_delta[i, :, :s])
+        assert torch.equal(lse2[:, p0:p0 + s], want_lse2[i, :, :s])
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_varlen_backward_refuses_views_tma_cannot_take_on_the_card():
+    """The varlen backward reads by TMA: a view whose start is not 16-byte
+    aligned, or whose strides are not multiples of 16 bytes, raises
+    ValueError."""
+    from flash_attn_tpu_torch.kernels import flash_varlen
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(128, 4, 64, device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(4))
+    cu = torch.tensor([0, 50, 128], dtype=torch.int32, device="cuda")
+    out, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, cu, cu, 78,
+                                                       78, causal=True)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")[1:]
+    shifted = shifted.view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_varlen.flash_attention_varlen_bwd(do, shifted, k, v, out, lse,
+                                                cu, cu, 78, 78, causal=True)
+    wide = torch.zeros(128, 4, 68, dtype=q.dtype, device="cuda")
+    wide[..., :64] = k
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_varlen.flash_attention_varlen_bwd(do, q, wide[..., :64], v, out,
+                                                lse, cu, cu, 78, 78,
+                                                causal=True)
 
 
 @pytest.mark.usefixtures("cuda_card")
@@ -914,6 +1042,100 @@ def test_mla_decode_route_edge_cases_on_the_card(case):
         if splits > 1:  # the row of one key: its later splits are empty
             assert bool(torch.isneginf(got[1][1:, 0]).all())
             assert bool((got[0][1:, 0] == 0).all())
+
+
+# The d = dv decode route's edge cases (name, h, h_k, d, page (0: a linear
+# cache), s_max of a linear cache, sq, dtype): linear caches of s_max 200,
+# 640 and 1000, pages of 16, 48, 100 and 256, sq 1-3 under the causal mask,
+# GQA 16/4 (up to 12 rows a KV head: two row blocks), both head dims, fp16.
+DECODE_EDGE_CASES = [
+    ("linear s_max 640", 16, 16, 128, 0, 640, 1, torch.bfloat16),
+    ("linear s_max 200, GQA 16/4, sq=3", 16, 4, 128, 0, 200, 3,
+     torch.bfloat16),
+    ("linear s_max 1000, d=64, sq=2, fp16", 8, 8, 64, 0, 1000, 2,
+     torch.float16),
+    ("pages of 16, GQA 16/4", 16, 4, 128, 16, 0, 1, torch.bfloat16),
+    ("pages of 48, sq=3", 8, 8, 128, 48, 0, 3, torch.bfloat16),
+    ("pages of 100, d=64, GQA 16/4, fp16", 16, 4, 64, 100, 0, 2,
+     torch.float16),
+    ("pages of 256", 16, 16, 128, 256, 0, 1, torch.bfloat16),
+]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", DECODE_EDGE_CASES, ids=lambda c: c[0])
+def test_decode_edge_cases_on_the_card(case):
+    """The d = dv decode route's split partials against their plain version
+    at 1, 3 and 8 splits (a row of one key: its later splits are empty,
+    zeros and lse -inf), at b = 4 (clusters of blocks that share a split,
+    on the deep ring) and b = 64 (one block a split, on the shallow ring),
+    with NaN in every cache slot past cache_seqlens,
+    which must not reach the output; the kernel gives the same bits
+    twice."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+
+    name, h, h_k, d, page, s_max, sq, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(d + page + sq)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    top = s_max or 600
+    for b in (4, 64):
+        lens = ([1, 64, top // 3, top] * (b // 4))[:b]
+        seqlens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        if page:
+            (kc, vc), table = _holed_pages(gen, lens, h_k, (d, d), page, dtype)
+            kw = dict(block_table=table)
+        else:
+            keep = torch.arange(s_max, device="cuda")[None, :] < seqlens[:, None]
+            kc, vc = (torch.where(keep[:, None, :, None],
+                                  randn(b, h_k, s_max, d), float("nan")).to(dtype)
+                      for _ in range(2))
+            table, kw = None, {}
+        q = randn(b, sq, h, d)
+        scale = 1 / math.sqrt(d)
+        kc_f, vc_f = torch.nan_to_num(kc), torch.nan_to_num(vc)
+        for splits in (1, 3, 8):
+            got = flash_decode.flash_attention_decode_partials(
+                q, kc, vc, seqlens, splits, scale, True, **kw)
+            again = flash_decode.flash_attention_decode_partials(
+                q, kc, vc, seqlens, splits, scale, True, **kw)
+            assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+            assert bool(torch.isfinite(got[0]).all())
+            if page:
+                want = flash_decode.flash_attention_decode_paged_partials_plain(
+                    q, kc_f, vc_f, seqlens, table, splits, DECODE_BLOCK_K, scale,
+                    True)
+            else:
+                want = flash_decode.flash_attention_decode_partials_plain(
+                    q, kc_f, vc_f, seqlens, splits, DECODE_BLOCK_K, scale, True)
+            torch.testing.assert_close(got[0], want[0], atol=2e-2, rtol=0)
+            fin = torch.isfinite(want[1])
+            assert torch.equal(torch.isfinite(got[1]), fin)
+            torch.testing.assert_close(got[1][fin], want[1][fin], atol=1e-3,
+                                       rtol=0)
+            if splits > 1:  # the row of one key: its later splits are empty
+                assert bool(torch.isneginf(got[1][1:, 0]).all())
+                assert bool((got[0][1:, 0] == 0).all())
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_decode_refuses_views_tma_cannot_take_on_the_card():
+    """The d = dv decode route reads the cache by TMA: a view whose start is
+    not 16-byte aligned, or whose strides are not multiples of 16 bytes,
+    raises ValueError."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+
+    kc = torch.zeros(2, 4, 256, 128, dtype=torch.bfloat16, device="cuda")
+    lens = torch.tensor([10, 200], dtype=torch.int32, device="cuda")
+    q = torch.zeros(2, 1, 4, 128, dtype=torch.bfloat16, device="cuda")
+    wide = torch.zeros(2, 1, 4, 129, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_decode.flash_attention_decode(wide[..., 1:], kc, kc, lens)
+    kc_wide = torch.zeros(2, 4, 256, 132, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_decode.flash_attention_decode(q, kc_wide[..., :128], kc, lens)
 
 
 @pytest.mark.usefixtures("cuda_card")

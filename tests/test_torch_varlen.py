@@ -185,7 +185,7 @@ def test_varlen_work_list_at_128_rows_covers_each_row_once(case, causal):
     meta = compute_varlen_meta(
         _t(cu), _t(cu), max(lens), max(lens), total, total, causal=causal,
         seqused_q=None if used is None else _t(np.array(used, np.int32)),
-        block_q=128)
+        block_q=128, block_k=128, schedule_block_k=64)
     used = lens if used is None else used
     assert meta.lens_q.tolist() == [min(a, u) for a, u in zip(lens, used)]
     for tiles in (meta.q_tiles, meta.schedule):
@@ -202,6 +202,24 @@ def test_varlen_work_list_at_128_rows_covers_each_row_once(case, causal):
         0, (min(r0 + 128, used[s]) - 1 + lens[s] - used[s]) // 64 + 1))
         for s, r0 in meta.schedule.tolist() if s >= 0]
     assert bands == sorted(bands, reverse=True)
+    # the key side at the dK/dV kernel's 128-key tile: every key of each
+    # sequence (the whole slot: no seqused_k) once; k_schedule holds the same
+    # tiles, most query rows first (bottom-right causal)
+    for tiles in (meta.k_tiles, meta.k_schedule):
+        live = [(s, n0) for s, n0 in tiles.tolist() if s >= 0]
+        assert all(n0 % 128 == 0 and n0 < lens[s] for s, n0 in live)
+        keys = collections.Counter(
+            (s, n) for s, n0 in live for n in range(n0, min(n0 + 128, lens[s])))
+        assert set(keys.values()) <= {1}
+        assert sorted(keys) == [(s, n) for s in range(len(lens))
+                                for n in range(lens[s])]
+    assert sorted(meta.k_schedule.tolist()) == sorted(meta.k_tiles.tolist())
+    rows = [used[s] if not causal else max(0, used[s] - max(
+        0, n0 - (lens[s] - used[s]))) for s, n0 in meta.k_schedule.tolist()
+        if s >= 0]
+    assert rows == sorted(rows, reverse=True)
+    dead = meta.k_schedule[:, 0] < 0
+    assert not dead[:len(rows)].any() and dead[len(rows):].all()
 
 
 # ------------------------------ attention -------------------------------
@@ -263,6 +281,48 @@ def test_varlen_func_out_lse_and_grads_match_jax(case):
     for name, leaf, gj in zip("qkv", leaves, grads_j):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(gj),
                                    err_msg=f"d{name}", **GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_varlen_bwd_preprocess_plain_matches_jax_delta(case):
+    """The backward's preprocess (its plain version): delta equals JAX's
+    jnp.sum(do * out, -1).T (flash_varlen.py:854) and lse2 = lse * log2(e)
+    on every row of every sequence, each sequence's rows from its padded
+    row; every other row holds delta 0 and lse2 +inf."""
+    (q, k, v, g), (cu_q, cu_k, mq, mk), extra, causal = _case_inputs(case, 7)
+    used_q = extra.get("seqused_q")
+    out, lse = flash_varlen.flash_attention_varlen_fwd_plain(
+        _t(q), _t(k), _t(v), _t(cu_q), _t(cu_k), mq, mk,
+        None if used_q is None else _t(used_q),
+        None if "seqused_k" not in extra else _t(extra["seqused_k"]),
+        causal=causal)
+    delta, lse2 = flash_varlen.varlen_bwd_preprocess_plain(
+        _t(g), out, lse, _t(cu_q), None if used_q is None else _t(used_q))
+    want = np.asarray(jnp.sum(jnp.asarray(g) * jnp.asarray(out.numpy()),
+                              axis=-1).T)
+    lens = np.diff(cu_q) if used_q is None else np.minimum(np.diff(cu_q),
+                                                           used_q)
+    b = len(lens)
+    assert delta.shape == lse2.shape == (
+        q.shape[1], flash_varlen.padded_rows(q.shape[0], b))
+    rest = np.ones(delta.shape[1], bool)  # rows of no sequence
+    tiles = np.zeros(delta.shape[1], bool)  # rows of the sequences' tiles
+    for s in range(b):
+        p0, c, n = (flash_varlen.padded_row(int(cu_q[s]), s), int(cu_q[s]),
+                    int(lens[s]))
+        span = slice(p0, p0 + -(-n // 128) * 128)
+        assert p0 % 4 == 0 and not tiles[span].any()
+        tiles[span] = True
+        rest[p0:p0 + n] = False
+        np.testing.assert_allclose(delta[:, p0:p0 + n].numpy(),
+                                   want[:, c:c + n], **TOL)
+        lse_s = lse[:, c:c + n].numpy()
+        fin = np.isfinite(lse_s)
+        np.testing.assert_allclose(lse2[:, p0:p0 + n].numpy()[fin],
+                                   lse_s[fin] * np.log2(np.e), rtol=1e-6)
+        assert np.isposinf(lse2[:, p0:p0 + n].numpy()[~fin]).all()
+    assert not delta.numpy()[:, rest].any()
+    assert np.isposinf(lse2.numpy()[:, rest]).all()
 
 
 @pytest.mark.parametrize("case", [CASES[1], CASES[3]], ids=["gqa_shift",
