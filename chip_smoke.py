@@ -14,14 +14,14 @@
    CUDA events, beside each kernel's bound (the larger of its bytes over
    3.35 TB/s and its flops over 989 TFLOP/s, 67 TFLOP/s for fp32 outside the
    tensor cores); the forward (B1, the wgmma/TMA tile of fwd_sm90.cuh) is
-   timed at the prefill's shape and the training shape beside SDPA and its
-   previous design (the block-sparse forward B10 over the full causal
-   block mask: the mma.sync tile of fwd_tile.cuh over the same band), and
-   gives the same bits twice; at the
+   timed at the prefill's shape and the training shape beside SDPA, gives
+   the same bits twice, and at both shapes the block-sparse forward B10
+   over the full causal block mask (the same tile over the same band) gives
+   its out and lse bitwise; at the
    training shape it splits each backward path into its kernels and the
-   torch ops around them (torch.profiler) and times the previous design of
-   the dense backward in the same run (B10's dK/dV + dQ of bwd_tile.cuh
-   over the full causal block mask); on every backward shape B6's backward
+   torch ops around them (torch.profiler), and B10's backward over the full
+   causal block mask (B3's tiles over the same band) gives B3's gradients
+   bitwise once rounded to bf16; on every backward shape B6's backward
    over the same rows packed gives B3's bits (both run the tiles of
    bwd_sm90.cuh); the paged varlen prefill (B8, the
    same tile with a paged K/V source) gives the same bits twice and B6's
@@ -109,16 +109,18 @@
    through its public functions at the 913M GPT's attention widths (16
    heads of 128, bf16): the full causal block mask, a causal local window
    of 4 tiles plus tile 0 (also at b=1 x 8192) and a seeded 50% random mask
-   with an empty row (tiles of 128, 128 and 512; b=4 x 2048). Each runs
+   with an empty row (tiles of 128, 128 and 512; b=4 x 2048), all on the
+   wgmma/TMA tiles of fwd_sm90.cuh and bwd_sm90.cuh. Each runs
    flash_attention_blocksparse(...).backward() once as the counted path
-   (1 forward, 1 dK/dV, 1 dQ launch), then holds the forward and backward
-   kernels to the 2x rule against their plain versions, the backward
-   bitwise over two runs, the full causal mask's out and lse against B7
-   over the same rows packed as 4 sequences (bitwise where the two tiles
-   agree, or else B7 under the 2x rule with the difference printed) and
-   its gradients against B6's backward over the same rows (bitwise, or
-   else the 2x rule, reported), and times them
-   beside their bounds and SDPA with the expanded boolean mask;
+   (1 forward, 1 preprocess, 1 dK/dV, 1 dQ launch), then holds the forward
+   and backward kernels to the 2x rule against their plain versions and
+   the backward's preprocess (delta, lse in base 2, the inverse lists) to
+   its plain version, requires the backward bitwise over two runs and, on
+   the full causal mask, out and lse bitwise equal to B7's over the same
+   rows packed as 4 sequences and the gradients bitwise equal to B6's
+   backward over the same rows, and times them beside their bounds and
+   SDPA with the expanded boolean mask, with a profiler split of the
+   backward's kernels and the torch ops around them;
 13. runs the two H100 probes (B13): the dynamic shared memory a block can
    opt into (48 KB to 256 KB, the kernel's output against the plain
    version at each accepted size) and whether an mma.sync chain and an
@@ -401,42 +403,39 @@ def time_ms(fn, runs: int = 25, batch: int = 5) -> float:
     return statistics.median(times)
 
 
-def blocksparse_previous_forward(q, k, v, causal):
-    """B1's previous design as a function of (b, s, h, d) q, k, v with sq =
-    sk and h = h_k: the block-sparse forward (B10) over the full block mask
-    (causal: every tile that reaches the diagonal), which walks the mma.sync
-    tile of fwd_tile.cuh (64 rows by 64 keys) over the same band, with its
-    lists built beforehand. Returns a function giving (out (b, h, s, d), lse
-    (b, h, s)), as B1 does."""
+def blocksparse_full_mask(s: int, causal: bool):
+    """B10's lists (on the card) over the full block mask of s rows and keys
+    at tiles of 128 (causal: every tile that reaches the diagonal), and the
+    tile sizes."""
     from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
 
-    s = q.shape[1]
     bq, bk = bs.effective_tiles(s, s, 128, 128)
-    i = torch.arange(s // bq)[:, None]
+    i = torch.arange(-(-s // bq))[:, None]
     j = torch.arange(s // bk)[None, :]
     mask = j * bk <= i * bq + bq - 1 if causal else (i >= 0) & (j >= 0)
     num, idx = (x.cuda() for x in bs.blockmask_to_kv_indices(mask))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return lambda: bs.flash_attention_blocksparse_fwd(
-        qt, kt, vt, num, idx, causal=causal, block_q=bq, block_k=bk)
+    return num, idx, dict(causal=causal, block_q=bq, block_k=bk)
 
 
-def blocksparse_previous_backward(qt, kt, vt, dot, out, lse, causal):
-    """B3's previous design as a function of (b, h, s, d) views with sq = sk
-    and h = h_k: the block-sparse backward (B10) over the full block mask,
-    whose dK/dV and dQ kernels walk the mma.sync loops of bwd_tile.cuh over
-    the same band, with its lists built beforehand."""
+def blocksparse_full_mask_forward(qt, kt, vt, causal):
+    """B10 over the full block mask on B1's (b, h, s, d) views with sq = sk
+    and h = h_k: it walks fwd_sm90.cuh's tile over B1's band in B1's order.
+    Returns (out (b, h, s, d), lse (b, h, s)), as B1 does."""
     from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
 
-    s = qt.shape[2]
-    bq, bk = bs.effective_tiles(s, s, 128, 128)
-    i = torch.arange(s // bq)[:, None]
-    j = torch.arange(s // bk)[None, :]
-    mask = j * bk <= i * bq + bq - 1 if causal else (i >= 0) & (j >= 0)
-    num, idx = (x.cuda() for x in bs.blockmask_to_kv_indices(mask))
-    return lambda: bs.flash_attention_blocksparse_bwd(
-        dot, qt, kt, vt, out, lse, num, idx, causal=causal, block_q=bq,
-        block_k=bk)
+    num, idx, kw = blocksparse_full_mask(qt.shape[2], causal)
+    return bs.flash_attention_blocksparse_fwd(qt, kt, vt, num, idx, **kw)
+
+
+def blocksparse_full_mask_backward(qt, kt, vt, dot, out, lse, causal):
+    """B10's backward over the full block mask on B3's (b, h, s, d) views
+    with sq = sk and h = h_k: its dK/dV and dQ kernels walk bwd_sm90.cuh's
+    tiles over B3's band in B3's order. Returns the fp32 (dq, dk, dv)."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+
+    num, idx, kw = blocksparse_full_mask(qt.shape[2], causal)
+    return bs.flash_attention_blocksparse_bwd(dot, qt, kt, vt, out, lse, num,
+                                              idx, **kw)
 
 
 def packed_b6_backward(dot, qt, kt, vt, out, lse, causal):
@@ -485,8 +484,9 @@ def check_fwd(gen):
     """B1 against its plain version on FWD_CASES (the 2x rule, lse within
     LSE_ATOL, the same bits twice); times it at the prefill's shape (the
     first case) and the training shape (the last) beside its bound, the
-    plain version, SDPA and the previous design (B10 over the full block
-    mask, on fwd_tile.cuh). Returns the worst error and the prefill shape's
+    plain version and SDPA, and at both requires B10 over the full block
+    mask to give B1's out and lse bitwise (the same tile over the same band
+    in the same order). Returns the worst error and the prefill shape's
     timing, with the training shape's under "training_shape"."""
     from flash_attn_tpu_torch.kernels import flash_fwd
     from flash_attn_tpu_torch.utils.testing import (
@@ -523,12 +523,13 @@ def check_fwd(gen):
               f"over two runs")
         if ci not in (0, len(FWD_CASES) - 1):
             continue
-        previous = blocksparse_previous_forward(q, k, v, causal)
-        prev_out, prev_lse = previous()
-        prev_diff = (prev_out.float() - out.float()).abs().max().item()
+        bs_out, bs_lse = blocksparse_full_mask_forward(qt, kt, vt, causal)
+        require(torch.equal(bs_out, out) and torch.equal(bs_lse, lse),
+                f"B10 over the full causal block mask differs from B1: "
+                f"{b, sq, sk, h, h_k, d, causal}")
+        del bs_out, bs_lse
         ms = time_ms(lambda: flash_fwd.flash_attention_fwd(
             qt, kt, vt, causal=causal))
-        prev_ms = time_ms(previous)
         plain_ms = time_ms(lambda: flash_fwd.flash_attention_fwd_plain(
             qt, kt, vt, causal=causal), runs=10)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
@@ -537,9 +538,6 @@ def check_fwd(gen):
         timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "library_call": "scaled_dot_product_attention(is_causal"
                                   "=True)",
-                  "previous_ms": prev_ms,
-                  "previous": "B10 over the full causal block mask "
-                              "(fwd_tile.cuh)",
                   **bound(4 * h * d * pairs,
                           2 * (2 * b * sq * h * d + 2 * b * sk * h_k * d)
                           + 4 * b * h * sq)}
@@ -547,10 +545,11 @@ def check_fwd(gen):
         shape = "prefill" if ci == 0 else "training"
         print(f"flash_fwd time at the {shape} shape (b={b} x {sq}): kernel "
               f"{ms:.4f} ms ({4 * h * d * pairs / ms / 1e9:.1f} TFLOP/s), "
-              f"previous design {prev_ms:.4f} ms (max |B1 - previous| "
-              f"{prev_diff:.3e}), plain {plain_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, "
               f"scaled_dot_product_attention {lib_ms:.4f} ms (median of 25); "
-              f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+              f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}); "
+              f"B10 over the full causal block mask: out and lse bitwise "
+              f"equal to B1's")
     return worst, {**timings[0], "training_shape": timings[1]}
 
 
@@ -828,9 +827,8 @@ def check_bwd(gen):
     B6's backward over the same rows packed as b sequences (the two run the
     tiles of bwd_sm90.cuh). At the training shape: kernel, plain and library
     times beside the bounds, a profiler split of each path into its kernels
-    and the torch ops around them, and the previous design in the same run
-    (B10's dK/dV + dQ of bwd_tile.cuh over the full causal block mask, its
-    two kernels' device time)."""
+    and the torch ops around them, and B10's backward over the full causal
+    block mask bitwise equal to B3's gradients once rounded to bf16."""
     from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
     from flash_attn_tpu_torch.utils.testing import (
         attention_ref_grads,
@@ -907,8 +905,9 @@ def check_bwd(gen):
 def time_bwd(qt, kt, vt, dot, out, lse, causal, case):
     """Times at the training shape: the preprocess, B3 and B2 beside their
     bounds, plain versions and one library call each; a profiler split of
-    each path; the previous design (B10's two bwd_tile.cuh kernels over the
-    full causal block mask) by its kernels' device time."""
+    each path. Requires B10's backward over the full causal block mask,
+    which walks B3's tiles over the same band, to give B3's gradients
+    bitwise once rounded to the inputs' type."""
     from flash_attn_tpu_torch.kernels import flash_bwd
 
     b, h, sq, d = qt.shape
@@ -936,22 +935,21 @@ def time_bwd(qt, kt, vt, dot, out, lse, causal, case):
                  bwd(True), ["preprocess_kernel", "dkdv_kernel", "dq_kernel"]),
              "flash_bwd_fused": kernel_split_ms(
                  bwd(False), ["preprocess_kernel", "dkdv_kernel"])}
-    # the previous design: B10 over the full causal block mask, whose
-    # kernels walk bwd_tile.cuh's mma.sync loops over the same band
-    old = kernel_split_ms(
-        blocksparse_previous_backward(qt, kt, vt, dot, out, lse, causal),
-        ["bs_dkdv_kernel", "bs_dq_kernel"])
-    old_ms = old["bs_dkdv_kernel"] + old["bs_dq_kernel"]
+    if h == h_k:
+        b3 = bwd(True)()
+        b10 = blocksparse_full_mask_backward(qt, kt, vt, dot, out, lse,
+                                             causal)
+        require(all(torch.equal(g.to(w.dtype), w) for g, w in zip(b10, b3)),
+                f"B10's backward over the full causal block mask differs "
+                f"from B3's: {case}")
+        print(f"B10's backward over the full causal block mask ({case}): "
+              f"gradients bitwise equal to B3's once rounded to bf16")
+        del b3, b10
     # 5 products (S, dV, dP, dQ, dK) over the attended pairs; q, k, v,
     # out, dout read and dq, dk, dv written once, lse read
     common = {"plain_ms": plain_ms, "library_ms": lib_ms,
               "library_call": "scaled_dot_product_attention(is_causal"
                               "=True) backward (torch.autograd.grad)",
-              "previous_design_ms": old_ms,
-              "previous_design": "fa_blocksparse_bwd_dkdv + "
-                                 "fa_blocksparse_bwd_dq (bwd_tile.cuh) over "
-                                 "the full causal block mask, profiler "
-                                 "device time",
               **bound(10 * b * h * d * attended_pairs([sq], [sk], causal),
                       2 * (4 * b * sq * h * d + 4 * b * sk * h_k * d)
                       + 4 * b * h * sq)}
@@ -962,7 +960,6 @@ def time_bwd(qt, kt, vt, dot, out, lse, causal, case):
         t["kernel_split_ms"] = split[name]
         t["kernels_device_ms"] = sum(v for n, v in split[name].items()
                                      if n != "other")
-        t["to_previous_design"] = t["kernels_device_ms"] / old_ms
         t["to_library"] = t["ms"] / lib_ms
         t["to_bound"] = t["bound_ms"] / t["ms"]
     # dO and O read once in bf16, lse read, delta and lse2 written in fp32;
@@ -983,9 +980,7 @@ def time_bwd(qt, kt, vt, dot, out, lse, causal, case):
               f"{plain_ms:.4f} ms; profiler split (ms a call) "
               + ", ".join(f"{n} {v:.4f}" for n, v in t["kernel_split_ms"]
                           .items())
-              + f"; its kernels {t['kernels_device_ms']:.4f} ms against the "
-              f"previous design's {old_ms:.4f} ms ({old}): "
-              f"{t['to_previous_design']:.3f}x")
+              + f"; its kernels {t['kernels_device_ms']:.4f} ms")
     tp = timing["flash_bwd_preprocess"]
     print(f"flash_bwd_preprocess at the training shape: {pre_ms:.4f} ms, "
           f"bound {tp['bound_ms']:.4f} ms ({tp['bound_by']}), plain "
@@ -1154,6 +1149,8 @@ def kernel_counts():
             "fa_varlen_bwd_dkdv": flash_varlen.launches_dkdv,
             "fa_varlen_bwd_dq": flash_varlen.launches_dq,
             "flash_blocksparse_fwd": flash_blocksparse.launches_fwd,
+            "fa_blocksparse_bwd_preprocess":
+                flash_blocksparse.launches_preprocess,
             "fa_blocksparse_bwd_dkdv": flash_blocksparse.launches_dkdv,
             "fa_blocksparse_bwd_dq": flash_blocksparse.launches_dq}
 
@@ -1176,7 +1173,7 @@ def reset_kernel_counts():
     flash_varlen.launches_dkdv = flash_varlen.launches_dq = 0
     flash_varlen.launches_preprocess = 0
     flash_blocksparse.launches_fwd = flash_blocksparse.launches_dkdv = 0
-    flash_blocksparse.launches_dq = 0
+    flash_blocksparse.launches_dq = flash_blocksparse.launches_preprocess = 0
 
 
 def want_counts(**nonzero):
@@ -2612,37 +2609,21 @@ def blocksparse_pair_mask(mask, b, s, block, causal) -> torch.Tensor:
     return w
 
 
-def blocksparse_dense_oracle(q, k, v, dout, out, lse, grads, ref, ref_lp,
-                             case):
+def blocksparse_dense_oracle(q, k, v, dout, out, lse, grads, case):
     """The full causal block mask against the varlen kernels over the same
-    rows packed as b sequences: out and lse against B7's, which walks the
-    same band on the wgmma tile of fwd_sm90.cuh (bitwise where the two tiles
-    agree; else B7 holds the 2x rule against the plain fp32 forward and the
-    difference is printed); the gradients against B6's backward over the
-    same band (bitwise where they agree; B6 runs the wgmma tiles of
-    bwd_sm90.cuh and B10 the mma.sync loops of bwd_tile.cuh, so they sum in
-    other orders, and then B6 holds the 2x rule against the plain fp32
-    backward, reported)."""
-    from flash_attn_tpu_torch.kernels import flash_fwd, flash_varlen
-    from flash_attn_tpu_torch.utils.testing import attention_ref, check_against_ref
+    rows packed as b sequences: out and lse must equal B7's bitwise (both
+    walk the same band on the wgmma tile of fwd_sm90.cuh in the same
+    order), and the gradients, rounded to the inputs' type, B6's backward's
+    (both walk it on the tiles of bwd_sm90.cuh)."""
+    from flash_attn_tpu_torch.kernels import flash_varlen
 
     b, h, s, d = q.shape
     out7, lse7 = packed_b7_forward(
         *(x.transpose(1, 2) for x in (q, k, v)), causal=True)()
-    fwd_bitwise = torch.equal(out7, out) and torch.equal(lse7, lse)
-    if fwd_bitwise:
-        fwd_note = "out and lse bitwise equal to B7's"
-    else:
-        ref_o, _ = flash_fwd.flash_attention_fwd_plain(
-            q.float(), k.float(), v.float(), causal=True)
-        lp_o, _ = attention_ref(*(x.transpose(1, 2) for x in (q, k, v)),
-                                causal=True, upcast=False)
-        check_against_ref(out7.transpose(1, 2), ref_o.transpose(1, 2), lp_o,
-                          msg=f"B7 as the oracle of {case}")
-        fwd_note = (f"out not bitwise equal to B7's (max |B10 - B7| "
-                    f"{(out.float() - out7.float()).abs().max().item():.3e}, "
-                    f"lse {(lse - lse7).abs().max().item():.3e}); B7 holds "
-                    f"the 2x rule against the plain fp32 forward")
+    require(torch.equal(out7, out) and torch.equal(lse7, lse),
+            f"block-sparse {case}: out and lse differ from B7's over the "
+            f"same rows packed (max |B10 - B7| "
+            f"{(out.float() - out7.float()).abs().max().item():.3e})")
     cu = torch.arange(b + 1, dtype=torch.int32, device="cuda") * s
     packed = [x.transpose(1, 2).reshape(b * s, h, d)
               for x in (dout, q, k, v, out)]
@@ -2650,45 +2631,42 @@ def blocksparse_dense_oracle(q, k, v, dout, out, lse, grads, ref, ref_lp,
         *packed, lse.permute(1, 0, 2).reshape(h, b * s), cu, cu, s, s,
         causal=True)
     dense = [g.reshape(b, s, h, d).transpose(1, 2) for g in dense]
-    bitwise = all(torch.equal(g.to(g6.dtype), g6)
-                  for g, g6 in zip(grads, dense))
-    if not bitwise:
-        for gname, g6, r, lp in zip("qkv", dense, ref, ref_lp):
-            check_against_ref(g6, r, lp, atol=BWD_ATOL,
-                              msg=f"B6 d{gname} as the oracle of {case}")
-    print(f"block-sparse {case}: {fwd_note} over the same rows packed; "
-          f"gradients "
-          + ("bitwise equal to B6's over the same rows packed" if bitwise
-             else "not bitwise equal to B6's over the same rows packed (B6 "
-                  "runs bwd_sm90.cuh's wgmma tiles, B10 bwd_tile.cuh's "
-                  "mma.sync loops; max |B10 - B6| "
-                  + ", ".join(f"d{n} {(g.float() - g6.float()).abs().max().item():.3e}"
-                              for n, g, g6 in zip("qkv", grads, dense))
-                  + "); B6 holds the 2x rule against the plain fp32 "
-                    "backward"))
+    require(all(torch.equal(g.to(g6.dtype), g6)
+                for g, g6 in zip(grads, dense)),
+            f"block-sparse {case}: gradients differ from B6's over the same "
+            f"rows packed (max |B10 - B6| "
+            + ", ".join(f"d{n} {(g.float() - g6.float()).abs().max().item():.3e}"
+                        for n, g, g6 in zip("qkv", grads, dense)) + ")")
+    print(f"block-sparse {case}: out and lse bitwise equal to B7's, "
+          f"gradients bitwise equal to B6's over the same rows packed")
 
 
 def check_blocksparse(gen, card):
     """B10 (csrc/flash_blocksparse.cu) on BS_CASES. Each case first drives
     the public differentiable flash_attention_blocksparse(...).backward()
     with the counts set to 0 just before and read just after (1 forward, 1
-    dK/dV and 1 dQ launch, nothing else); then holds the forward and the
-    fp32 backward to the 2x rule against the plain fp32 versions (the plain
-    forward in bf16, and autograd through it, as the low-precision
-    reference; lse within LSE_ATOL), requires the backward to give the same
-    bits twice, and on the full causal mask B7's bits (out, lse) and B6's
-    backward over the same rows (blocksparse_dense_oracle); times
-    kernel, plain and SDPA with the expanded boolean mask (forward and
-    backward; masks with no empty row) beside the bound: the listed,
-    unmasked pairs' 4 d flops (10 d backward) over 989 TFLOP/s, or the
-    bytes over 3.35 TB/s, with a profiler split of the backward's two
-    kernels. Returns the launches, worst errors and timings."""
+    preprocess, 1 dK/dV and 1 dQ launch, nothing else); then holds the
+    forward and the fp32 backward to the 2x rule against the plain fp32
+    versions (the plain forward in bf16, and autograd through it, as the
+    low-precision reference; lse within LSE_ATOL) and the backward's
+    preprocess to its plain version (delta within 1e-3, lse2 within 1e-5,
+    the inverse lists equal), requires the backward to give the same bits
+    twice, and on the full causal mask B7's bits (out, lse) and B6's
+    backward's (blocksparse_dense_oracle); times kernel, plain and SDPA
+    with the expanded boolean mask (forward and backward; masks with no
+    empty row) beside the bound: the listed, unmasked pairs' 4 d flops (10
+    d backward) over 989 TFLOP/s, or the bytes over 3.35 TB/s, with a
+    profiler split of the backward into its three kernels and each torch op
+    around them. Returns the launches, worst errors and timings."""
     from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
     from flash_attn_tpu_torch.utils.testing import check_against_ref
 
     h, d = BS_HEADS, BS_DIM
-    launches = {"flash_blocksparse_fwd": 0, "flash_blocksparse_bwd": 0}
+    launches = {"flash_blocksparse_fwd": 0,
+                "flash_blocksparse_bwd_preprocess": 0,
+                "flash_blocksparse_bwd": 0}
     worst = dict.fromkeys(launches, 0.0)
+    bwd_kernels = ["bs_preprocess_kernel", "bs_dkdv_kernel", "bs_dq_kernel"]
     timings = {}
     for name, b, s, block, kind, causal in BS_CASES:
         nt = s // block
@@ -2706,10 +2684,12 @@ def check_blocksparse(gen, card):
         torch.cuda.synchronize()
         got = kernel_counts()
         require(got == want_counts(flash_blocksparse_fwd=1,
+                                   fa_blocksparse_bwd_preprocess=1,
                                    fa_blocksparse_bwd_dkdv=1,
                                    fa_blocksparse_bwd_dq=1),
                 f"block-sparse {case}: launch counts {got}")
         launches["flash_blocksparse_fwd"] += 1
+        launches["flash_blocksparse_bwd_preprocess"] += 1
         launches["flash_blocksparse_bwd"] += 2
         api_grads = [x.grad for x in leaves]
         del leaves
@@ -2760,12 +2740,30 @@ def check_blocksparse(gen, card):
                     and bool(lse.transpose(1, 2)[rows].isneginf().all())
                     and not grads[0].transpose(1, 2)[rows].any(),
                     f"block-sparse empty row: out 0, lse -inf, dq 0: {case}")
-        print(f"block-sparse {case}: launches 1/1/1 through autograd; "
+        # the preprocess kernel against its plain version
+        nk = s // block
+        numb = num.expand(b, num.shape[-1]).contiguous()
+        idxb = idx.expand(b, *idx.shape[-2:]).contiguous()
+        pre_args = (dout, out, lse, numb, idxb, nk)
+        pre = bs.blocksparse_bwd_preprocess(*pre_args, block, block)
+        want = bs.blocksparse_bwd_preprocess_plain(*pre_args)
+        pre_err = float((pre[0] - want[0]).abs().max())
+        fin = torch.isfinite(want[1])
+        listed = (torch.arange(pre[3].shape[-1], device="cuda")
+                  < want[2][..., None])
+        require(pre_err <= 1e-3 and torch.equal(torch.isfinite(pre[1]), fin)
+                and float((pre[1][fin] - want[1][fin]).abs().max()) <= 1e-5
+                and torch.equal(pre[2], want[2])
+                and torch.equal(pre[3][listed], want[3][listed]),
+                f"block-sparse preprocess (delta err {pre_err}): {case}")
+        worst["flash_blocksparse_bwd_preprocess"] = max(
+            worst["flash_blocksparse_bwd_preprocess"], pre_err)
+        print(f"block-sparse {case}: launches 1/1/1/1 through autograd; "
               f"backward bitwise equal over two runs; max abs err "
-              f"{', '.join(errs)}")
+              f"{', '.join(errs)}; preprocess delta {pre_err:.3e}, lse2 "
+              f"within 1e-5, inverse lists equal to the plain version's")
         if kind == "causal":
-            blocksparse_dense_oracle(q, k, v, dout, out, lse, grads, ref,
-                                     ref_lp, case)
+            blocksparse_dense_oracle(q, k, v, dout, out, lse, grads, case)
         del out32, lse32, ref, lp_leaves, out_lp, ref_lp, f32
 
         em = blocksparse_pair_mask(mask, b, s, block, causal)
@@ -2781,10 +2779,28 @@ def check_blocksparse(gen, card):
             q, k, v, num, idx, **kw), runs=10)
         t["bwd_ms"] = time_ms(lambda: bs.flash_attention_blocksparse_bwd(
             dout, q, k, v, out, lse, num, idx, **kw), runs=10)
-        t["bwd_kernels_ms"] = kernel_split_ms(
-            lambda: bs.flash_attention_blocksparse_bwd(
-                dout, q, k, v, out, lse, num, idx, **kw),
-            ["bs_dkdv_kernel", "bs_dq_kernel"])
+        t["bwd_split_ms"] = {}
+        for evt in device_events(lambda: bs.flash_attention_blocksparse_bwd(
+                dout, q, k, v, out, lse, num, idx, **kw), 5):
+            key = next((n for n in bwd_kernels if n in evt.key), evt.key[:60])
+            t["bwd_split_ms"][key] = (t["bwd_split_ms"].get(key, 0.0)
+                                      + evt.device_time_total / 5 / 1e3)
+        t["pre_ms"] = time_ms(lambda: bs.blocksparse_bwd_preprocess(
+            *pre_args, block, block), runs=10)
+        t["plain_pre_ms"] = time_ms(lambda: bs.blocksparse_bwd_preprocess_plain(
+            *pre_args), runs=10)
+        # dO and O read once, lse and the kv lists read; delta and lse2
+        # written in fp32 over the padded rows, the inverse lists' used
+        # entries and their counts written; a multiply-add a head-dim
+        # element of a row at the fp32 rate
+        s_pad = -(-s // 128) * 128
+        pre_bound = bound(2 * b * h * s * d,
+                          2 * 2 * el + 4 * b * h * s + 2 * 4 * b * h * s_pad
+                          + list_bytes + 4 * (int(want[2].sum()) + b * nk),
+                          PEAK_FP32)
+        t["pre_bound_ms"], t["pre_bound_by"] = (pre_bound["bound_ms"],
+                                                pre_bound["bound_by"])
+        del pre, want, numb, idxb, pre_args
         t["plain_fwd_ms"] = wall_ms(lambda: bs.flash_attention_blocksparse_fwd_plain(
             q, k, v, num, idx, **kw))
         t["plain_bwd_ms"] = wall_ms(lambda: bs.flash_attention_blocksparse_bwd_plain(
@@ -2811,9 +2827,11 @@ def check_blocksparse(gen, card):
               f"{t['plain_fwd_ms']:.4f}; masked SDPA {t['sdpa_fwd_ms']}), "
               f"backward {t['bwd_ms']:.4f} ms (bound {t['bwd_bound_ms']:.4f},"
               f" {t['bwd_bound_by']}; plain {t['plain_bwd_ms']:.4f}; masked "
-              f"SDPA {t['sdpa_bwd_ms']}; profiler: dK/dV kernel "
-              f"{t['bwd_kernels_ms']['bs_dkdv_kernel']:.4f}, dQ kernel "
-              f"{t['bwd_kernels_ms']['bs_dq_kernel']:.4f}) on {card}")
+              f"SDPA {t['sdpa_bwd_ms']}; profiler split, ms a call: "
+              + ", ".join(f"{n} {v:.4f}" for n, v in t["bwd_split_ms"].items())
+              + f"), preprocess {t['pre_ms']:.4f} ms (bound "
+              f"{t['pre_bound_ms']:.4f}, {t['pre_bound_by']}; plain "
+              f"{t['plain_pre_ms']:.4f}) on {card}")
         del q, k, v, dout, out, lse, grads
         torch.cuda.empty_cache()
     tb = timings[BS_TIMED]
@@ -2824,6 +2842,12 @@ def check_blocksparse(gen, card):
             "library_ms": tb["sdpa_fwd_ms"],
             "library_call": "scaled_dot_product_attention(attn_mask=the "
                             "expanded boolean mask)"},
+        "flash_blocksparse_bwd_preprocess": {
+            "ms": tb["pre_ms"], "plain_ms": tb["plain_pre_ms"],
+            "bound_ms": tb["pre_bound_ms"], "bound_by": tb["pre_bound_by"],
+            "library_ms": None,
+            "library_call": "none: no one call computes delta, lse2 and the "
+                            "inverse lists"},
         "flash_blocksparse_bwd": {
             "ms": tb["bwd_ms"], "plain_ms": tb["plain_bwd_ms"],
             "bound_ms": tb["bwd_bound_ms"], "bound_by": tb["bwd_bound_by"],
@@ -3041,6 +3065,11 @@ def main() -> int:
         entry("flash_blocksparse_fwd", "flash_blocksparse.cu",
               "flash_blocksparse.py:46", bs_launches["flash_blocksparse_fwd"],
               bs_err["flash_blocksparse_fwd"], bs_t["flash_blocksparse_fwd"]),
+        entry("flash_blocksparse_bwd_preprocess", "flash_blocksparse.cu",
+              "flash_blocksparse.py:403",
+              bs_launches["flash_blocksparse_bwd_preprocess"],
+              bs_err["flash_blocksparse_bwd_preprocess"],
+              bs_t["flash_blocksparse_bwd_preprocess"]),
         entry("flash_blocksparse_bwd", "flash_blocksparse.cu",
               "flash_blocksparse.py:225", bs_launches["flash_blocksparse_bwd"],
               bs_err["flash_blocksparse_bwd"], bs_t["flash_blocksparse_bwd"]),

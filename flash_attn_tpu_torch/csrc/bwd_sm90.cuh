@@ -12,6 +12,15 @@
 //  - bwd_dq: 128 query rows of one sequence and head walk the 64-key tiles
 //    of their band and write dQ once.
 //
+// The block-sparse backward (csrc/flash_blocksparse.cu, B10) runs the same
+// two tiles over its lists with a walk policy (Walk): count() streamed
+// tiles, the t-th at next(t, stage) for the thread that issues its loads
+// and at at(t, stage) for every thread once its stage has landed (a
+// WalkStep: its first row, its query head, and the warpgroup whose tile it
+// is alone, or -1 for both). The dense walks (BandQWalk, BandKWalk) compute
+// the causal band from t; a list walk reads its steps from shared memory.
+// A warpgroup skips, as a whole, a tile that belongs to the other one.
+//
 // What the tiles compute is what flash_attn_tpu/kernels/flash_bwd.py
 // (_dkdv_kernel, _dq_kernel) and flash_varlen.py (_varlen_dkdv_stream_kernel,
 // _varlen_dq_stream_kernel) compute: with P = exp(scale S - lse) and
@@ -84,6 +93,52 @@ __device__ __forceinline__ void store_pair(T* dst, float lo, float hi) {
   *reinterpret_cast<uint32_t*>(dst) = Elem<T>::pack(lo, hi);
 }
 
+// fp32 gradients (the block-sparse backward's) are stored unrounded.
+__device__ __forceinline__ void store_pair(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
+// Step t of a walk: the first row of its streamed tile (a q row for dK/dV,
+// a key for dQ), its query head, and the warpgroup whose tile it is alone
+// (-1: both warpgroups').
+struct WalkStep {
+  int row, head, owner;
+};
+
+// dK/dV's dense walk: the group's query heads in turn, each over the 64-row
+// q tiles of the causal band of KV rows [n0, n0 + 128).
+struct BandQWalk {
+  int m_begin, n_m, group, hk;
+  __device__ __forceinline__ BandQWalk(int sq, int sk, int n0, int causal, int grp, int h)
+      : group(grp), hk(h) {
+    // the first q row that sees key n0 is n0 - shift
+    const int shift = sk - sq;
+    m_begin = causal && n0 - shift > 0 ? (n0 - shift) / BWD_KV_BM : 0;
+    n_m = max(0, (sq + BWD_KV_BM - 1) / BWD_KV_BM - m_begin);
+  }
+  __device__ __forceinline__ int count() const { return n_m * group; }
+  __device__ __forceinline__ WalkStep at(int t, int) const {
+    return {(m_begin + t % n_m) * BWD_KV_BM, hk * group + t / n_m, -1};
+  }
+  __device__ __forceinline__ WalkStep next(int t, int st) const { return at(t, st); }
+};
+
+// dQ's dense walk: the 64-key tiles of the causal band of q rows
+// [m0, m0 + 128).
+struct BandKWalk {
+  int total, hh;
+  __device__ __forceinline__ BandKWalk(int sq, int sk, int m0, int causal, int h) : hh(h) {
+    total = (sk + BWD_Q_BN - 1) / BWD_Q_BN;
+    if (causal) {
+      const int col_hi = min(m0 + BWD_Q_ROWS, sq) - 1 + sk - sq;
+      total = col_hi < 0 ? 0 : min(total, col_hi / BWD_Q_BN + 1);
+    }
+  }
+  __device__ __forceinline__ int count() const { return total; }
+  __device__ __forceinline__ WalkStep at(int t, int) const { return {t * BWD_Q_BN, hh, -1}; }
+  __device__ __forceinline__ WalkStep next(int t, int st) const { return at(t, st); }
+};
+
 // delta of one row: the lanes of a warp take D / 32 elements each of dO and
 // O (rows `dr` and `orow`, at the lane's first element) and sum across the
 // warp; every lane returns the row's sum.
@@ -131,11 +186,12 @@ struct DkdvLayout {
 };
 
 // dK and dV (and, with ACCUM_DQ, dQ * scale added into src.dq_accum) of KV
-// rows [n0, n0 + 128) of KV head hk of the sequence `src`. `smem` is the
-// 1024-aligned base of DkdvLayout<D, ACCUM_DQ>::BYTES.
-template <typename T, int D, bool ACCUM_DQ, typename Src>
+// rows [n0, n0 + 128) of KV head hk of the sequence `src` over the q tiles
+// of `walk`. `smem` is the 1024-aligned base of DkdvLayout<D,
+// ACCUM_DQ>::BYTES.
+template <typename T, int D, bool ACCUM_DQ, typename Src, typename Walk>
 __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
-                                         int n0, unsigned char* smem) {
+                                         int n0, unsigned char* smem, const Walk& walk) {
   using L = DkdvLayout<D, ACCUM_DQ>;
   constexpr int BM = BWD_KV_BM;
   unsigned char* Ks = smem + L::K_OFF;
@@ -152,18 +208,15 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
   const int sq = src.sq;
   const int sk = src.sk;
   const int shift = sk - sq;
-
-  // the causal band: the first q row that sees key n0 is n0 - shift
-  const int m_begin = a.causal && n0 - shift > 0 ? (n0 - shift) / BM : 0;
-  const int n_m = max(0, (sq + BM - 1) / BM - m_begin);
-  const int total = n_m * a.group;  // (query head, q tile) pairs in order
+  const int total = walk.count();  // (query head, q tile) pairs in order
 
   auto issue = [&](int t) {
     const int st = t % BWD_STAGES;
     unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
     float* vec = reinterpret_cast<float*>(smem + L::VEC_OFF) + st * 2 * BM;
-    const int hq = hk * a.group + t / n_m;
-    const int m0 = (m_begin + t % n_m) * BM;
+    const WalkStep w = walk.next(t, st);
+    const int hq = w.head;
+    const int m0 = w.row;
     mbar_expect_tx(&full[st], L::STAGE_TX);
 #pragma unroll
     for (int c = 0; c < D / 64; ++c) {
@@ -203,9 +256,10 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
     unsigned char* dOs = Qs + L::QT::BYTES;
     const float* lse_s = reinterpret_cast<const float*>(smem + L::VEC_OFF) + st * 2 * BM;
     const float* delta_s = lse_s + BM;
-    const int m0 = (m_begin + t % n_m) * BM;
-    const int hq = hk * a.group + t / n_m;
     mbar_wait(&full[st], (t / BWD_STAGES) & 1);
+    const WalkStep w = walk.at(t, st);
+    const int m0 = w.row;
+    const int hq = w.head;
     if constexpr (Src::ZERO_TAIL) {
       if (m0 + BM > sq) {  // the same for the whole block
         zero_tile_rows<BM, D>(Qs, sq - m0, BWD_THREADS);
@@ -215,8 +269,10 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
       }
     }
 
-    // does any key of this warpgroup see any row of the tile?
-    const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift);
+    // does any key of this warpgroup see any row of the tile, and is it
+    // this warpgroup's?
+    const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift) &&
+                        (w.owner < 0 || w.owner == wg);
     if (active) {
       float s[BM / 2], dp[BM / 2];
 #pragma unroll
@@ -351,8 +407,8 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
   for (int i = 0; i < 2; ++i) {
     const int row = kv0 + warp * 16 + g + 8 * i;
     if (row >= sk) continue;
-    T* dkg = src.dk(row, hk);
-    T* dvg = src.dv(row, hk);
+    auto* dkg = src.dk(row, hk);
+    auto* dvg = src.dv(row, hk);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       store_pair(dkg + 8 * j + 2 * t4, dk[4 * j + 2 * i] * a.scale,
@@ -360,6 +416,14 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
       store_pair(dvg + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
     }
   }
+}
+
+// bwd_dkdv over the dense walk: the causal band of the group's query heads.
+template <typename T, int D, bool ACCUM_DQ, typename Src>
+__device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
+                                         int n0, unsigned char* smem) {
+  bwd_dkdv<T, D, ACCUM_DQ>(src, a, hk, n0, smem,
+                           BandQWalk(src.sq, src.sk, n0, a.causal, a.group, hk));
 }
 
 // ---- dQ ---------------------------------------------------------------------
@@ -380,11 +444,12 @@ struct DqLayout {
   static constexpr uint32_t STAGE_TX = STAGE_BYTES;
 };
 
-// dQ of query rows [m0, m0 + 128) of query head hh of the sequence `src`,
-// written once. `smem` is the 1024-aligned base of DqLayout<D>::BYTES.
-template <typename T, int D, typename Src>
+// dQ of query rows [m0, m0 + 128) of query head hh of the sequence `src`
+// over the key tiles of `walk`, written once. `smem` is the 1024-aligned
+// base of DqLayout<D>::BYTES.
+template <typename T, int D, typename Src, typename Walk>
 __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
-                                       unsigned char* smem) {
+                                       unsigned char* smem, const Walk& walk) {
   using L = DqLayout<D>;
   constexpr int BN = BWD_Q_BN;
   constexpr int ROWS = BWD_Q_ROWS;
@@ -405,23 +470,17 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
   const int sq = src.sq;
   const int sk = src.sk;
   const int shift = sk - sq;
-
-  // the key tiles of the causal band of rows [m0, m0 + ROWS)
-  int total = (sk + BN - 1) / BN;
-  if (a.causal) {
-    const int col_hi = min(m0 + ROWS, sq) - 1 + shift;
-    total = col_hi < 0 ? 0 : min(total, col_hi / BN + 1);
-  }
+  const int total = walk.count();
 
   auto issue = [&](int t) {
     const int st = t % BWD_STAGES;
     unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
+    const int n0 = walk.next(t, st).row;
     mbar_expect_tx(&full[st], L::STAGE_TX);
 #pragma unroll
     for (int c = 0; c < D / 64; ++c) {
-      src.load_k(stage + c * L::KT::PANEL_BYTES, &full[st], c * 64, t * BN, hk);
-      src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, &full[st], c * 64, t * BN,
-                 hk);
+      src.load_k(stage + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
+      src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
     }
   };
 
@@ -460,8 +519,9 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
     if (tid == 0 && t + 1 < total) issue(t + 1);  // its stage was freed at t - 1
     unsigned char* Ks = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
     unsigned char* Vs = Ks + L::KT::BYTES;
-    const int n0 = t * BN;
     mbar_wait(&full[st], (t / BWD_STAGES) & 1);
+    const WalkStep w = walk.at(t, st);
+    const int n0 = w.row;
     if constexpr (Src::ZERO_TAIL) {
       if (n0 + BN > sk) {  // the same for the whole block
         zero_tile_rows<BN, D>(Ks, sk - n0, BWD_THREADS);
@@ -471,8 +531,10 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
       }
     }
 
-    // does any row of this warpgroup see any key of the tile?
-    const bool active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift);
+    // does any row of this warpgroup see any key of the tile, and is it
+    // this warpgroup's?
+    const bool active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift) &&
+                        (w.owner < 0 || w.owner == wg);
     if (active) {
       float s[BN / 2], dp[BN / 2];
 #pragma unroll
@@ -533,12 +595,19 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + warp * 16 + g + 8 * i;
     if (row >= sq) continue;
-    T* dqg = src.dq(row, hh);
+    auto* dqg = src.dq(row, hh);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       store_pair(dqg + 8 * j + 2 * t4, dq[4 * j + 2 * i] * a.scale,
                  dq[4 * j + 2 * i + 1] * a.scale);
   }
+}
+
+// bwd_dq over the dense walk: the key tiles of the causal band.
+template <typename T, int D, typename Src>
+__device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
+                                       unsigned char* smem) {
+  bwd_dq<T, D>(src, a, hh, m0, smem, BandKWalk(src.sq, src.sk, m0, a.causal, hh));
 }
 
 }  // namespace sm90

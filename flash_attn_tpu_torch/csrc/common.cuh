@@ -1,6 +1,8 @@
 // Shared device helpers for the hand-written Hopper attention kernels:
-// element-type traits (bf16 / fp16), the m16n8k16 tensor-core product,
-// ldmatrix and cp.async wrappers, and quad reductions.
+// element-type traits (bf16 / fp16; their m16n8k16 mma.sync product serves
+// the mma/exp2 overlap probe alone, csrc/probes.cu), the shared-memory
+// address of a pointer, the dense causal band's key tiles and quad
+// reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,54 +61,12 @@ struct Elem<__half> {
   }
 };
 
-// Element offset of 16-byte chunk `chunk` of row `row` in a [rows][D] shared
-// tile, XOR-swizzled so that 8 consecutive rows put one logical chunk in 8
-// different bank groups (ldmatrix reads free of bank conflicts).
-template <int D>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte global->shared copy; src_bytes == 0 fills the destination with
-// zeros (rows past the end of a sequence).
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The key tiles a tile of query rows walks, in order: count() of them, the
-// n-th starting at key first_key(n), or at -1 for one the walk skips (the
-// same for every thread of the block). KeyRange is the dense walk: every
-// BN-key tile of the causal band of rows [m0, m0 + bm), all of them when
-// not causal, none for a tile past the last row.
+// The BN-key tiles of the causal band of rows [m0, m0 + bm), in order from
+// key 0: all of them when not causal, none for a tile past the last row.
 template <int BN>
 struct KeyRange {
   int n_tiles;
@@ -119,7 +79,6 @@ struct KeyRange {
     }
   }
   __device__ __forceinline__ int count() const { return n_tiles; }
-  __device__ __forceinline__ int first_key(int n) const { return n * BN; }
 };
 
 // Reductions over the 4 lanes of a quad (the lanes that share one row of an

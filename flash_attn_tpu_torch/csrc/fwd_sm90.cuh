@@ -3,11 +3,12 @@
 // (csrc/flash_varlen_fwd.cu, B6 and the persistent B7) and the paged varlen
 // prefill (csrc/flash_varlen_paged.cu, B8): one block of two warpgroups
 // computes 128 query rows of one sequence and head against the 64-key tiles
-// of its causal band. It is the sm_90a counterpart of the mma.sync tile loop
-// of fwd_tile.cuh, which the block-sparse forward keeps. fwd_tile runs one
-// tile of rows in a block; B7 runs its pieces (fwd_issue_q / fwd_issue_kv,
-// fwd_step a K/V tile, fwd_epilogue) over several tiles with the K/V ring
-// carried across them.
+// of its causal band. fwd_tile runs one tile of rows in a block; B7 runs
+// its pieces (fwd_issue_q / fwd_issue_kv, fwd_step a K/V tile,
+// fwd_epilogue) over several tiles with the K/V ring carried across them,
+// and the block-sparse forward (csrc/flash_blocksparse.cu, B10) over the
+// key tiles of its lists, where a tile may belong to one warpgroup's rows
+// alone (fwd_step's `owner`: the other warpgroup masks all of it).
 //
 // What it computes is what flash_attn_tpu/kernels/flash_fwd.py:_fwd_kernel
 // computes, with the causal diagonal of flash_fwd_split.py:_diag_kernel:
@@ -130,12 +131,14 @@ __device__ __forceinline__ void fwd_issue_q(const Src& src, unsigned char* Qs,
 
 // One K/V tile (keys [n0, n0 + 64), landed in `stage`) of the band of the
 // rows of `t`, for the whole block: S = Q K^T, the masks, the online softmax
-// and O += P V, then the block barrier that frees the stage.
+// and O += P V, then the block barrier that frees the stage. With owner >= 0
+// the tile is warpgroup `owner`'s alone: the other one masks every score,
+// which leaves its O, max and sum bitwise as they were.
 template <typename T, int D, bool ZERO_TAIL>
 __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
                                          unsigned char* stage, int n0,
                                          const FwdRows<T>& t, float scale_log2,
-                                         bool causal) {
+                                         bool causal, int owner = -1) {
   using L = FwdLayout<D>;
   constexpr int BN = FWD_N;
   const int tid = threadIdx.x;
@@ -171,8 +174,10 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
   wgmma_wait<0>();
   fence_regs(s);
 
-  // scale into base 2; mask the diagonal and the ragged end of the keys
-  const bool need_mask = (causal && n0 + BN - 1 > r0 + shift) || n0 + BN > t.sk;
+  // scale into base 2; mask the diagonal and the ragged end of the keys,
+  // and the other warpgroup's tile whole (its keys all count as past sk)
+  const int sk = owner >= 0 && owner != wg ? n0 : t.sk;
+  const bool need_mask = (causal && n0 + BN - 1 > r0 + shift) || n0 + BN > sk;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -181,7 +186,7 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
       if (need_mask) {
         const int col = n0 + 8 * j + 2 * t4 + (e & 1);
         const int row = row_a + 8 * (e >> 1);
-        if (col >= t.sk || (causal && col > row + shift)) x = -INFINITY;
+        if (col >= sk || (causal && col > row + shift)) x = -INFINITY;
       }
       s[4 * j + e] = x;
     }

@@ -23,7 +23,7 @@
 // wgmma accumulators (m64nN, fp32): thread t of the warpgroup holds, for
 // n8 block j and e in 0..3, element [4 j + e] at row 16 (t / 32) + (t % 32)
 // / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2. The A operand of the
-// register form (m64k16) has the m16n8k16 A layout of mma.sync per warp, so
+// register form (m64k16) has the m16n8k16 A layout of a warp's product, so
 // an accumulator's n8 blocks 2 kk and 2 kk + 1 pack straight into the A
 // operand of a product over those 16 columns (pack_a).
 #pragma once

@@ -24,9 +24,11 @@ ctypes launch, so the batch is a leading dim, the mask either shared
 ((nq,), (nq, nk): JAX's ``in_axes=(0, 0, 0, None, None)``) or per entry
 ((b, nq), (b, nq, nk)). There is no ``interpret``: a tensor on the CPU
 takes the plain version, a CUDA tensor launches the kernels or raises.
-delta = rowsum(dO * O) and the dK/dV kernel's inverse lists are built with
-torch ops on the device (JAX's delta is an XLA op, :403), with no read
-back to the host.
+The backward's preprocess kernel computes delta = rowsum(dO * O) (JAX's is
+an XLA op, :403) and lse in base 2, and builds the dK/dV kernel's inverse
+lists; the order of the dK/dV blocks, heaviest first, is built from them
+with torch ops on the device (:func:`dkdv_order`). Nothing is read back to
+the host.
 """
 
 import math
@@ -34,18 +36,24 @@ from typing import Optional, Tuple
 
 import torch
 
-from flash_attn_tpu_torch.dispatch.config import KERNEL_HEAD_DIMS
+from flash_attn_tpu_torch.dispatch.config import (
+    DENSE_BWD_ROW_PAD,
+    KERNEL_HEAD_DIMS,
+)
 from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.kernels.flash_bwd import bwd_preprocess_plain
 
 __all__ = ["blockmask_to_kv_indices", "flash_attention_blocksparse",
            "flash_attention_blocksparse_bwd", "flash_attention_blocksparse_fwd"]
 
 # Kernel launches since the last reset (plain calls not counted).
 launches_fwd = 0
+launches_preprocess = 0
 launches_dkdv = 0
 launches_dq = 0
 
-_TILE = 64  # rows and keys of the kernels' tiles (fwd_tile.cuh, bwd_tile.cuh)
+_TILE = 64  # rows and keys of the kernels' walked tiles
+_KV_BLOCK = 128  # keys of a dK/dV block (bwd_sm90.cuh BWD_KV_ROWS)
 _ITEM7 = "ROADMAP.md queue A, item 7"
 
 
@@ -220,6 +228,65 @@ def kv_to_q_lists(kv_num, kv_indices, nk: int):
             q_idx.clamp(max=nq - 1).to(torch.int32).contiguous())
 
 
+def dkdv_order(q_num, bk: int, sk: int):
+    """The dK/dV kernel's blocks of 128 keys, heaviest first: q_num (b, nk)
+    int32 (the q tiles that list each key tile of bk keys) -> (b * sk /
+    128,) int32 block indices bb * sk / 128 + n0 / 128, by the q tiles a
+    block walks (both key tiles' at bk = 64), ties in index order. Torch
+    ops on q_num's device, no read back to the host."""
+    b = q_num.shape[0]
+    w = q_num.long()
+    if bk >= _KV_BLOCK:
+        w = w.repeat_interleave(bk // _KV_BLOCK, dim=1)
+    else:
+        w = w.reshape(b, sk // _KV_BLOCK, _KV_BLOCK // bk).sum(-1)
+    return torch.argsort(w.reshape(-1), descending=True,
+                         stable=True).to(torch.int32)
+
+
+def blocksparse_bwd_preprocess_plain(do, out, lse, kv_num, kv_indices, nk: int):
+    """What the preprocess kernel computes, with torch ops: (delta, lse2)
+    (b, h, sq_pad) as the dense backward's (flash_bwd.bwd_preprocess_plain
+    with rows padded to 128) and the inverse lists (q_num, q_indices) of
+    :func:`kv_to_q_lists`. do/out (b, h, sq, d), lse (b, h, sq), kv_num
+    (b, nq), kv_indices (b, nq, nl)."""
+    delta, lse2 = bwd_preprocess_plain(do, out, lse, DENSE_BWD_ROW_PAD)
+    return (delta, lse2, *kv_to_q_lists(kv_num, kv_indices, nk))
+
+
+def blocksparse_bwd_preprocess(do, out, lse, kv_num, kv_indices, nk: int,
+                               bq: int, bk: int):
+    """The preprocess kernel: (delta, lse2, q_num, q_indices) as
+    :func:`blocksparse_bwd_preprocess_plain`, where q_indices (b, nk, nq *
+    nl) holds each key tile's list in its first q_num entries and nothing
+    defined past them. A tensor on the CPU takes the plain version. CUDA:
+    what flash_attention_blocksparse_bwd takes; kv_num and kv_indices int32
+    contiguous on do's device."""
+    if do.device.type == "cpu":
+        return blocksparse_bwd_preprocess_plain(do, out, lse, kv_num,
+                                                kv_indices, nk)
+    b, h, sq, d = do.shape
+    nq, nl = kv_indices.shape[1:]
+    sq_pad = -(-sq // DENSE_BWD_ROW_PAD) * DENSE_BWD_ROW_PAD
+    lse = lse.float().contiguous()
+    delta = torch.empty((b, h, sq_pad), dtype=torch.float32, device=do.device)
+    lse2 = torch.empty_like(delta)
+    q_num = torch.empty((b, nk), dtype=torch.int32, device=do.device)
+    q_idx = torch.empty((b, nk, nq * nl), dtype=torch.int32, device=do.device)
+    global launches_preprocess
+    with torch.cuda.device(do.device):
+        err = _build.load_library().fa_blocksparse_bwd_preprocess(
+            do.data_ptr(), out.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr(), kv_num.data_ptr(), kv_indices.data_ptr(),
+            q_num.data_ptr(), q_idx.data_ptr(), b, h, sq, nk * bk, sq_pad, d,
+            bq, bk, nl, nq * nl, *_strides(do), *_strides(out),
+            int(do.dtype == torch.bfloat16),
+            torch.cuda.current_stream(do.device).cuda_stream)
+        _build.check(err, "fa_blocksparse_bwd_preprocess")
+        launches_preprocess += 1
+    return delta, lse2, q_num, q_idx
+
+
 def _check_kernel(name, q, k, v, kv_num, kv_indices, bq, bk):
     """What the kernels take; ValueError for the rest, naming ROADMAP.md
     queue A item 7 where JAX takes the form."""
@@ -301,10 +368,11 @@ def flash_attention_blocksparse_bwd(
         block_q: int = 512, block_k: int = 512):
     """Deterministic block-sparse backward: (dq, dk, dv) fp32 in q's, k's
     and v's layouts. Needs seqlen_k % 128 == 0 and head dims that are
-    multiples of 8, as JAX. CUDA: what the forward takes; the dK/dV kernel
-    (one block per 64 keys, over the q tiles that list them) and then the
-    dQ kernel (one block per 64 rows, over their kv list), each writing its
-    gradient once."""
+    multiples of 8, as JAX. CUDA: what the forward takes; the preprocess
+    kernel (delta, lse in base 2, the inverse lists), the dK/dV kernel (one
+    block per 128 keys, over the q tiles that list them, the heaviest
+    blocks first) and then the dQ kernel (one block per 128 rows, over
+    their kv list), each writing its gradient once."""
     sq, sk = q.shape[-2], k.shape[-2]
     _check_bwd_shapes(sk, q.shape[-1], v.shape[-1])
     if q.device.type == "cpu":
@@ -325,8 +393,9 @@ def flash_attention_blocksparse_bwd(
         raise ValueError(
             f"flash_blocksparse_bwd kernel: shapes do {tuple(do.shape)}, out "
             f"{tuple(out.shape)}, lse {tuple(lse.shape)}")
-    lse4 = lse.reshape(b, h, sq).float().contiguous()
-    delta = (do4.float() * out.reshape(q4.shape).float()).sum(-1).contiguous()
+    out4 = out.reshape(q4.shape)
+    _build.check_operand("flash_blocksparse_bwd", "out", out4, q.dtype,
+                         q.device)
     # the kernels write every row; with no keys dq is 0 and nothing runs
     alloc = torch.empty if sq and sk else torch.zeros
     dq = alloc((b, h, sq, d), dtype=torch.float32, device=q.device)
@@ -334,9 +403,11 @@ def flash_attention_blocksparse_bwd(
     dv = alloc((b, h, sk, d), dtype=torch.float32, device=q.device)
     if sq and sk:
         num, idx = num.contiguous(), idx.contiguous()
-        q_num, q_idx = kv_to_q_lists(num, idx, sk // bk)
+        delta, lse2, q_num, q_idx = blocksparse_bwd_preprocess(
+            do4, out4, lse.reshape(b, h, sq), num, idx, sk // bk, bq, bk)
+        order = dkdv_order(q_num, bk, sk)
         lib = _build.load_library()
-        common = (b, h, sq, sk, d, bq, bk)
+        common = (b, h, sq, sk, delta.shape[-1], d, bq, bk)
         strides = (*_strides(q4), *_strides(k4), *_strides(v4),
                    *_strides(do4))
         tail = (_scale(q, softmax_scale), int(causal),
@@ -346,14 +417,15 @@ def flash_attention_blocksparse_bwd(
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.fa_blocksparse_bwd_dkdv(
                 q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
-                lse4.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), q_num.data_ptr(), q_idx.data_ptr(), *common,
-                q_idx.shape[-1], *strides, *tail, stream)
+                lse2.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), q_num.data_ptr(), q_idx.data_ptr(),
+                order.data_ptr(), *common, q_idx.shape[-1], *strides, *tail,
+                stream)
             _build.check(err, "fa_blocksparse_bwd_dkdv")
             launches_dkdv += 1
             err = lib.fa_blocksparse_bwd_dq(
                 q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), do4.data_ptr(),
-                lse4.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                lse2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 num.data_ptr(), idx.data_ptr(), *common, idx.shape[-1],
                 *strides, *tail, stream)
             _build.check(err, "fa_blocksparse_bwd_dq")

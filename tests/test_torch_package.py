@@ -220,12 +220,14 @@ def _included_sources(path: Path) -> str:
     return text
 
 
-@pytest.mark.parametrize("source", ["flash_bwd.cu", "flash_varlen.cu"])
+@pytest.mark.parametrize("source", ["flash_bwd.cu", "flash_varlen.cu",
+                                    "flash_blocksparse.cu"])
 def test_dense_backward_sources_use_wgmma_and_tma(source):
-    """The dense backward (csrc/flash_bwd.cu) and the packed-varlen backward
-    (csrc/flash_varlen.cu), with the headers they include, run their
+    """The dense backward (csrc/flash_bwd.cu), the packed-varlen backward
+    (csrc/flash_varlen.cu) and the block-sparse backward
+    (csrc/flash_blocksparse.cu), with the headers they include, run their
     products on wgmma and load their tiles asynchronously by TMA (the shared
-    tiles of bwd_sm90.cuh), and neither includes the mma.sync loops of
+    tiles of bwd_sm90.cuh), and none names the retired mma.sync loops of
     bwd_tile.cuh."""
     text = _included_sources(PKG / "csrc" / source)
     assert "wgmma.mma_async" in text
@@ -249,23 +251,45 @@ def test_decode_source_copies_tiles_by_bulk_copies_under_mbarriers():
 
 
 def test_only_the_blocksparse_backward_keeps_bwd_tile():
-    """The mma.sync loops of bwd_tile.cuh serve the block-sparse backward
-    (B10) alone: no other source includes them."""
-    assert (PKG / "csrc" / "bwd_tile.cuh").exists()
-    holders = [f.name for f in sorted((PKG / "csrc").glob("*.cu*"))
-               if "bwd_tile.cuh" in re.findall(
-                   r'^#include "([^"]+)"', f.read_text(), re.MULTILINE)]
-    assert holders == ["flash_blocksparse.cu"]
+    """The block-sparse backward (B10), the last holder of bwd_tile.cuh's
+    mma.sync loops, now includes the wgmma tiles of bwd_sm90.cuh and drives
+    both of them (bwd_dkdv, bwd_dq) with its list walk: bwd_tile.cuh is
+    gone and nothing keeps it."""
+    assert not (PKG / "csrc" / "bwd_tile.cuh").exists()
+    text = (PKG / "csrc" / "flash_blocksparse.cu").read_text()
+    assert "bwd_sm90.cuh" in re.findall(r'^#include "([^"]+)"', text,
+                                        re.MULTILINE)
+    assert "bwd_dkdv<" in text and "bwd_dq<" in text
+    assert "ListWalk{" in text
+
+
+@pytest.mark.parametrize("header", ["fwd_tile.cuh", "bwd_tile.cuh"])
+def test_mma_sync_tiles_are_retired(header):
+    """Neither old mma.sync tile header exists or is included (or named) by
+    any source; mma.sync itself is left only in the overlap probe
+    (probes.cu) and the common.cuh it includes."""
+    csrc = PKG / "csrc"
+    assert not (csrc / header).exists()
+    sources = sorted(f for f in csrc.iterdir() if f.suffix in (".cu", ".cuh"))
+    assert sources
+    assert not [f.name for f in sources if header in f.read_text()]
+    holders = [f.name for f in sources if "mma.sync" in f.read_text()]
+    assert holders == ["common.cuh", "probes.cu"], holders
+    assert "common.cuh" in re.findall(r'^#include "([^"]+)"',
+                                      (csrc / "probes.cu").read_text(),
+                                      re.MULTILINE)
 
 
 @pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_varlen_fwd.cu",
                                     "flash_paged_prefill.cu",
                                     "flash_decode_mla.cu",
-                                    "flash_varlen_paged.cu"])
+                                    "flash_varlen_paged.cu",
+                                    "flash_blocksparse.cu"])
 def test_forward_sources_use_wgmma_and_tma(source):
-    """B1, B6's forward and B7, B8p, the MLA decode route and B8 (with the
-    headers they include) run both products on wgmma and load their tiles
-    by TMA; none includes the mma.sync tile loop of fwd_tile.cuh."""
+    """B1, B6's forward and B7, B8p, the MLA decode route, B8 and B10 (with
+    the headers they include) run both products on wgmma and load their
+    tiles by TMA; none includes the retired mma.sync tile loop of
+    fwd_tile.cuh."""
     text = _included_sources(PKG / "csrc" / source)
     assert "wgmma.mma_async" in text
     assert "cp.async.bulk.tensor" in text
@@ -276,17 +300,20 @@ def test_forward_sources_use_wgmma_and_tma(source):
 @pytest.mark.parametrize("source, header", [
     ("flash_varlen_fwd.cu", "fwd_sm90.cuh"),
     ("flash_varlen_paged.cu", "fwd_sm90.cuh"),
-    ("flash_blocksparse.cu", "fwd_tile.cuh")])
+    ("flash_blocksparse.cu", "fwd_sm90.cuh")])
 def test_old_forward_tile_still_serves_b7_b8_and_b10(source, header):
     """B7 sits beside B6's forward on the wgmma tile of fwd_sm90.cuh, and so
-    does B8 with its paged source; the block-sparse forward alone keeps the
-    mma.sync tile loop of fwd_tile.cuh."""
+    do B8 with its paged source and the block-sparse forward (B10), which
+    runs the tile's pieces over its list walk: the old mma.sync tile loop of
+    fwd_tile.cuh serves none of them any more."""
     text = (PKG / "csrc" / source).read_text()
     assert header in re.findall(r'^#include "([^"]+)"', text, re.MULTILINE)
     if source == "flash_varlen_fwd.cu":
         assert "varlen_fwd_persistent_kernel" in text
         assert "fa_varlen_fwd_persistent" not in (
             PKG / "csrc" / "flash_varlen.cu").read_text()
+    if source == "flash_blocksparse.cu":
+        assert "fwd_step<" in text and "fwd_epilogue<" in text
 
 
 def test_paged_prefill_no_longer_includes_the_mla_tile():
@@ -301,6 +328,56 @@ def test_paged_prefill_no_longer_includes_the_mla_tile():
         assert "mla_sm90.cuh" in re.findall(
             r'^#include "([^"]+)"', (PKG / "csrc" / source).read_text(),
             re.MULTILINE)
+
+
+@pytest.mark.parametrize("bq, bk, kind", [
+    (128, 128, "causal"), (128, 128, "local"), (128, 64, "random"),
+    (64, 256, "random"), (192, 128, "causal")])
+def test_blocksparse_dkdv_order_covers_each_pair_once_heaviest_first(
+        bq, bk, kind):
+    """dkdv_order over the inverse lists (the preprocess kernel's plain
+    version): every 128-key block once, so that each (64-key half, q tile
+    that lists its caller tile) pair is walked once, the q tiles ascending
+    within a half, the blocks by the q tiles they walk, heaviest first (ties
+    in index order); the full causal mask's column 0 leads and no block is
+    split or repeated."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+
+    b, sq, sk = 2, 512, 1024
+    nq, nk = -(-sq // bq), sk // bk
+    i = torch.arange(nq)[:, None] * bq
+    j = torch.arange(nk)[None, :] * bk
+    if kind == "causal":
+        mask = (j <= i + bq - 1).expand(b, nq, nk)
+    elif kind == "local":
+        mask = (((j <= i + bq - 1) & (j > i - 4 * bk)) | (j == 0)).expand(
+            b, nq, nk)
+    else:
+        mask = torch.rand(b, nq, nk, generator=torch.Generator().manual_seed(
+            bk)) < 0.4
+    num, idx = bs.blockmask_to_kv_indices(mask)
+    q_num, q_idx = bs.kv_to_q_lists(num, idx, nk)
+    order = bs.dkdv_order(q_num, bk, sk)
+    blocks = sk // 128
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(b * blocks))
+    weights = []
+    for blk in order.tolist():
+        bb, kb = divmod(blk, blocks)
+        cols = sorted({(kb * 128 + 64 * half) // bk for half in (0, 1)})
+        walked = 0
+        for c in cols:
+            listed = q_idx[bb, c, :q_num[bb, c]]
+            assert torch.equal(listed, listed.sort().values)
+            assert listed.tolist() == mask[bb, :, c].nonzero()[:, 0].tolist()
+            walked += len(listed)
+        weights.append(walked)
+    assert weights == sorted(weights, reverse=True)
+    ranked = list(zip(weights, order.tolist()))
+    assert all(o1 < o2 for (w1, o1), (w2, o2) in zip(ranked, ranked[1:])
+               if w1 == w2)
+    if kind == "causal":
+        assert order[0] == 0
 
 
 def test_host_tensor_map_helpers_have_one_copy():
@@ -1347,17 +1424,22 @@ def _blocksparse_inputs(gen, b, h, sq, sk, d, dtype, mask, bshd=False):
 def test_blocksparse_kernels_match_plain_versions_on_the_card(causal, d):
     """B10 forward and backward against their plain versions on per-entry
     random masks with an empty row and a duplicated list entry: tiles of
-    128 (two 64-key tiles a listed tile), of 64 x 256 in fp16, and sq=200
-    over sk=384 (a ragged last q tile, the causal shift) on strided (b, s,
-    h, d) views; the backward gives the same bits twice; autograd casts to
-    the inputs' type."""
+    128 (two 64-key tiles a listed tile), of 64 x 256 in fp16, sq=200 over
+    sk=384 (a ragged last q tile, the causal shift) on strided (b, s, h, d)
+    views, keys in tiles of 64 (a dK/dV block walks two caller tiles' lists)
+    and q tiles of 192 (a block's halves in two caller tiles); the backward
+    gives the same bits twice; autograd casts to the inputs' type."""
     from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
 
     gen = torch.Generator(device="cuda").manual_seed(d)
     for dtype, sq, sk, bq, bk, bshd in (
             (torch.bfloat16, 512, 512, 128, 128, False),
             (torch.float16, 512, 512, 64, 256, False),
-            (torch.bfloat16, 200, 384, 64, 128, True)):
+            (torch.bfloat16, 200, 384, 64, 128, True),
+            # a dK/dV block over two caller key tiles
+            (torch.bfloat16, 512, 512, 128, 64, False),
+            # a 128-row block over two caller q tiles of 192 rows
+            (torch.bfloat16, 512, 512, 192, 128, True)):
         nq, nk = -(-sq // bq), sk // bk
         mask = torch.rand(2, nq, nk, generator=torch.Generator().manual_seed(
             d)) < 0.5
@@ -1393,6 +1475,103 @@ def test_blocksparse_kernels_match_plain_versions_on_the_card(causal, d):
         for leaf, g in zip(leaves, got):
             assert leaf.grad.dtype == dtype
             assert torch.equal(leaf.grad, g.to(dtype))
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_blocksparse_full_mask_equals_the_dense_kernels_on_the_card(causal,
+                                                                   d):
+    """Over the full block mask (causal: every tile at or below the
+    diagonal) at tiles of 128, B10 walks the dense kernels' tiles in their
+    order: out and lse equal B1's bitwise, and the gradients rounded to
+    bf16 equal B3's."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    nt = 1024 // 128
+    mask = torch.ones(nt, nt, dtype=torch.bool)
+    if causal:
+        mask = mask.tril()
+    q, k, v, do, num, idx = _blocksparse_inputs(gen, 2, 4, 1024, 1024, d,
+                                                torch.bfloat16, mask,
+                                                bshd=True)
+    kw = dict(causal=causal, block_q=128, block_k=128)
+    out, lse = bs.flash_attention_blocksparse_fwd(q, k, v, num, idx, **kw)
+    out1, lse1 = flash_fwd.flash_attention_fwd(q, k, v, causal=causal)
+    assert torch.equal(out, out1) and torch.equal(lse, lse1)
+    got = bs.flash_attention_blocksparse_bwd(do, q, k, v, out, lse, num, idx,
+                                             **kw)
+    want = flash_bwd.flash_attention_bwd(do, q, k, v, out1, lse1,
+                                         causal=causal)
+    for g, w in zip(got, want):
+        assert torch.equal(g.to(w.dtype), w)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_blocksparse_local_window_at_8192_on_the_card():
+    """A causal window of 4 tiles plus the global tile 0 at 1 x 8192 (tiles
+    of 128; column 0's dK/dV block walks every q tile): forward and
+    backward against the plain versions, the backward bitwise twice."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nt = 8192 // 128
+    i = torch.arange(nt)[:, None]
+    j = torch.arange(nt)[None, :]
+    mask = ((j <= i) & (j > i - 4)) | (j == 0)
+    q, k, v, do, num, idx = _blocksparse_inputs(gen, 1, 4, 8192, 8192, 128,
+                                                torch.bfloat16, mask)
+    kw = dict(causal=True, block_q=128, block_k=128)
+    out, lse = bs.flash_attention_blocksparse_fwd(q, k, v, num, idx, **kw)
+    ref, ref_lse = bs.flash_attention_blocksparse_fwd_plain(q, k, v, num, idx,
+                                                            **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    got = bs.flash_attention_blocksparse_bwd(do, q, k, v, out, lse, num, idx,
+                                             **kw)
+    want = bs.flash_attention_blocksparse_bwd_plain(do, q, k, v, out, lse,
+                                                    num, idx, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=5e-2, rtol=0)
+    again = bs.flash_attention_blocksparse_bwd(do, q, k, v, out, lse, num,
+                                               idx, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("bq, bk", [(128, 128), (64, 256), (192, 64)])
+def test_blocksparse_preprocess_matches_plain_version_on_the_card(bq, bk):
+    """The backward's preprocess kernel: delta and lse2 against the plain
+    version (padded rows included), and the inverse lists equal to
+    kv_to_q_lists's over their first q_num entries, on a random mask with a
+    duplicated entry, an empty row and entries past kv_num."""
+    from flash_attn_tpu_torch.kernels import flash_blocksparse as bs
+
+    gen = torch.Generator(device="cuda").manual_seed(bq)
+    sq, sk = 456, 512
+    nq, nk = -(-sq // bq), sk // bk
+    mask = torch.rand(2, nq, nk, generator=torch.Generator().manual_seed(bk)) < 0.5
+    mask[1, 0] = False
+    mask[0, 1, 0], mask[0, 1, -1] = True, False  # room for a second entry
+    q, k, v, do, num, idx = _blocksparse_inputs(gen, 2, 4, sq, sk, 64,
+                                                torch.bfloat16, mask, True)
+    idx[0, 1, num[0, 1]] = idx[0, 1, 0]  # listed twice
+    num[0, 1] += 1
+    kw = dict(causal=True, block_q=bq, block_k=bk)
+    out, lse = bs.flash_attention_blocksparse_fwd(q, k, v, num, idx, **kw)
+    got = bs.blocksparse_bwd_preprocess(do, out, lse, num, idx, nk, bq, bk)
+    want = bs.blocksparse_bwd_preprocess_plain(do, out, lse, num, idx, nk)
+    torch.testing.assert_close(got[0], want[0], atol=1e-3, rtol=0)
+    fin = torch.isfinite(want[1])
+    assert torch.equal(torch.isfinite(got[1]), fin)
+    torch.testing.assert_close(got[1][fin], want[1][fin], atol=1e-5, rtol=0)
+    assert torch.equal(got[2], want[2])
+    for bb in range(2):
+        for c in range(nk):
+            n = int(want[2][bb, c])
+            assert torch.equal(got[3][bb, c, :n], want[3][bb, c, :n])
 
 
 @pytest.mark.usefixtures("cuda_card")
