@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch + CUDA port (flash_attn_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --spec-readings 5
 
 1. builds the CUDA kernels from flash_attn_tpu_torch/csrc with nvcc
    (sm_90a, one process per source, all at once) and prints the build time;
@@ -33,9 +34,11 @@
    counts (1 preprocess, then 1 dK/dV + 1 dQ, or 1 fused) and gradients;
 4. serves 8 seeded 512-token prompts with the flagship 913M GPT (random
    weights from a seed, bf16) through serving.generation.decode for 32 new
-   tokens, checks that the kernels carried it (launch counts), that the
-   logits are finite and that the decode steps agree with one teacher-forced
-   forward; then times the first token and the decode rate;
+   tokens, with its decode step replayed as a CUDA graph and then eagerly
+   (tokens and logits bitwise equal, the same launch counts), checks that
+   the kernels carried it (launch counts), that the logits are finite and
+   that the decode steps agree with one teacher-forced forward; then times
+   the first token and the graphed and eager decode rates;
 5. trains the same model (random weights from a seed, bf16 weights with
    fp32 masters, bf16 Adam moments, fused CE) at b=4 x 2048 for 10 steps
    with Trainer.fit over an LMDataLoader of a seeded token file, checks
@@ -51,8 +54,15 @@
    prompts sharing one 256-token page); checks the launch counts per
    admission and decode block, that every request finishes and every page
    returns, and that the engine's tokens agree with a teacher-forced static
-   decode of the same prompts; prints tokens/s, TTFT p50/p99 and the device
-   idle share of a decode block.
+   decode of the same prompts; each engine runs with its decode block
+   captured as a CUDA graph and then eagerly, the tokens bitwise equal;
+   then the speculative engine (k = 4 proposals a round, graphed) on the
+   paged cache over 32 of the prompts, with the target as its own draft
+   and with a seeded 4-layer draft of its widths (also eagerly): its tokens
+   equal the plain engine's or part from them only at a bf16 near-tie,
+   every page returns, and the self-draft accepts no less than its bound;
+   prints tokens/s, TTFT p50/p99 and the device idle share of a decode
+   block, graphed and eager.
 
 7. holds the five packed-varlen kernels (B6's forward and the persistent
    B7, both on the wgmma/TMA tile of fwd_sm90.cuh over the same 128-row
@@ -99,7 +109,9 @@
    64, seeded bf16 tensors, no weights): 8 sequences of 2048-token prompts
    prefilled in 4 chunks of 512 through kv_cache_update +
    flash_attn_varlen_func(block_table=, qv=), then 32 decode steps through
-   flash_attn_with_kvcache(k=, v=, qv=, block_table=); requires 244 B8p
+   flash_attn_with_kvcache(k=, v=, qv=, block_table=), each step's 61
+   layers replayed as one CUDA graph and then run eagerly (the outputs
+   bitwise equal); requires 244 B8p
    and 1,952 MLA decode launches and nothing else, finite outputs, and one
    layer's last decode step run again as a 1-token chunk through B8p in
    agreement with it; prints prefill ms per layer-chunk, decode step ms,
@@ -128,10 +140,14 @@
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
-{"ok": true, "device": {...}}. It needs a CUDA card and exits non-zero
+{"ok": true, "device": {...}}. With --spec-readings N it builds the
+kernels and then only serves N seeded prompt sets through the speculative
+engine with the target as its own draft, printing each set's share of
+examined proposals rejected (the readings behind SPEC_MISMATCH_READ). It needs a CUDA card and exits non-zero
 without one, and when run outside a checkout of the repo.
 """
 
+import argparse
 import dataclasses
 import json
 import math
@@ -202,6 +218,28 @@ PREFIX_REQUESTS, PREFIX_SHARED = 64, 256
 # everywhere). Where they differ, the engine's token must be within
 # LOGIT_BOUND of the top logit.
 MIN_ENGINE_AGREEMENT = 0.95
+# The speculative engine: SPEC_K proposals a round over the first
+# SPEC_REQUESTS prompts of the engine trace; a seeded draft of
+# SPEC_DRAFT_LAYERS layers of the target's widths. With the target as its
+# own draft the draft's decode (sq = 2 then 1, a linear cache) and the
+# verify (sq = SPEC_K + 1, the paged cache) run other matmul shapes, so
+# the two differ by bf16 rounding and a near-tie may reject a proposal.
+# SPEC_MISMATCH_READ is the largest share of examined proposals so
+# rejected over five seeded prompt sets (chip_smoke.py --spec-readings 5 on
+# an H100 80GB HBM3 at 700 W: 0.0250, 0.0460, 0.0277, 0.0321, 0.0343);
+# MIN_SELF_ACCEPTED (3.16 of 4) is what a round accepts on average when
+# each proposal is rejected at twice that rate. A wrong cache offset or
+# rewind rejects nearly every proposal.
+SPEC_K, SPEC_REQUESTS, SPEC_DRAFT_LAYERS = 4, 32, 4
+SPEC_MISMATCH_READ = 0.046
+MIN_SELF_ACCEPTED = sum((1 - 2 * SPEC_MISMATCH_READ) ** i
+                        for i in range(1, SPEC_K + 1))
+# Where a speculative engine's greedy tokens part from the plain engine's,
+# both tokens lie within TIE_STEPS bf16 steps (at the top logit's
+# magnitude) of the top logit: a near-tie that the two engines' matmul
+# shapes round apart. A verify step that kept a token other than the
+# target's argmax would miss by the logits' own spread (~1).
+TIE_STEPS = 4
 PROMPT, NEW_TOKENS, BATCH = 512, 32, 8
 # Decode step logits against the teacher-forced forward over the same
 # tokens: both are bf16 all the way, through different kernels and matmul
@@ -636,14 +674,17 @@ def decode_block_tiles(seqlens, h_k, splits):
     return cluster, max(shares), sum(shares) / len(shares)
 
 
-def decode_bound(seqlens, b, h, h_k, d, splits, table_entries):
-    """Bound of one decode call (sq = 1, bf16): every cached K and V row
-    read once, q read, the fp32 split partials and the lengths (and the
-    block table) read or written once."""
+def decode_bound(seqlens, b, h, h_k, d, splits, table_entries, sq=1):
+    """Bound of one decode call of sq query rows a sequence (bf16, causal
+    bottom-right: row t of a sequence of n keys sees n - sq + 1 + t): every
+    cached K and V row read once, q read, the fp32 split partials and the
+    lengths (and the block table) read or written once."""
     keys = int(seqlens.sum())
-    return bound(4 * h * d * keys,
-                 2 * 2 * keys * h_k * d + 2 * b * h * d
-                 + 4 * splits * b * h * (d + 1) + 4 * (b + table_entries))
+    pairs = sq * keys - b * sq * (sq - 1) // 2
+    return bound(4 * h * d * pairs,
+                 2 * 2 * keys * h_k * d + 2 * b * sq * h * d
+                 + 4 * splits * b * sq * h * (d + 1)
+                 + 4 * (b + table_entries))
 
 
 def paged_cache(gen, b, h_k, d, page_size, max_len, dtype, dv=None):
@@ -719,6 +760,94 @@ def check_decode_paged(gen):
                   f"25); bound {timing['bound_ms']:.4f} ms "
                   f"({timing['bound_by']}); clusters of {cluster} blocks, the "
                   f"busiest block {busiest} key tiles, the mean {mean:.2f}")
+    return worst, timing
+
+
+def check_decode_verify(gen):
+    """The paged decode kernel at a speculative round's verify step (sq =
+    SPEC_K + 1, causal bottom-right over the appended rows) against its
+    plain version: the speculative engine's shape (64 slots, 16 heads,
+    pages of 256, contexts of the engine trace after an append) and GQA
+    16/4 over pages of 64 at 3 splits ((k + 1) x 4 = 20 rows, three 8-row
+    blocks a KV head). The first is timed beside its bound, the plain
+    version and SDPA with a boolean mask over the cache gathered first
+    (the gather untimed)."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    sq = SPEC_K + 1
+    worst, timing = 0.0, None
+    for b, h, h_k, page, splits in ((ENGINE_SLOTS, 16, 16, ENGINE_PAGE, 0),
+                                    (16, 16, 4, 64, 3)):
+        d = 128
+        kp, vp, table = paged_cache(gen, b, h_k, d, page, ENGINE_MAX_LEN,
+                                    torch.bfloat16)
+        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        seqlens = torch.randint(ENGINE_PROMPT + sq, ENGINE_MAX_LEN - 8, (b,),
+                                device="cuda", generator=gen,
+                                dtype=torch.int32)
+        if not splits:  # the split count the engine's verify call takes
+            splits = _default_num_splits(q, kp, vp, table, False)
+        out, lse = flash_decode.flash_attention_decode(
+            q, kp, vp, seqlens, causal=True, num_splits=splits,
+            block_table=table)
+        ref, ref_lse = flash_decode.flash_attention_decode(
+            q.float().cpu(), kp.float().cpu(), vp.float().cpu(),
+            seqlens.cpu(), causal=True, num_splits=splits,
+            block_table=table.cpu())
+        k_lin, v_lin = (paged_to_linear(x, table, seqlens).transpose(1, 2)
+                        for x in (kp, vp))
+        keep = torch.arange(k_lin.shape[1], device="cuda")[None] \
+            < seqlens[:, None]
+        ref_lp, _ = attention_ref(q, k_lin, v_lin, key_padding_mask=keep,
+                                  causal=True, upcast=False)
+        torch.cuda.synchronize()
+        case = (f"b={b} sq={sq} h={h} h_k={h_k} d={d} page={page} lengths "
+                f"{int(seqlens.min())}..{int(seqlens.max())} "
+                f"num_splits={splits}")
+        err, err_lp = check_against_ref(out, ref, ref_lp,
+                                        msg=f"flash_decode_paged {case}")
+        lse_err = (lse.cpu() - ref_lse).abs().max().item()
+        require(lse_err <= LSE_ATOL, f"verify-step lse error {lse_err}")
+        worst = max(worst, err)
+        print(f"flash_decode_paged (verify) {case}: out max abs err "
+              f"{err:.3e} (bf16 reference {err_lp:.3e}), lse max abs err "
+              f"{lse_err:.3e}")
+        if timing is None:
+            scale = d ** -0.5
+            ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+                q, kp, vp, seqlens, splits, scale, True, block_table=table))
+            plain_ms = time_ms(
+                lambda: flash_decode.flash_attention_decode_paged_partials_plain(
+                    q, kp, vp, seqlens, table, splits, DECODE_BLOCK_K, scale,
+                    True))
+            s_k = k_lin.shape[1]
+            row = torch.arange(sq, device="cuda")[:, None]
+            col = torch.arange(s_k, device="cuda")[None, :]
+            mask = (col[None] <= row[None] + (seqlens - sq)[:, None, None])
+            mask = mask[:, None]                           # (b, 1, sq, s_k)
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k_lin, v_lin))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask))
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library_call": "scaled_dot_product_attention with a "
+                                      "boolean causal length mask over the "
+                                      "cache gathered to the linear layout "
+                                      "(the gather untimed)",
+                      **decode_bound(seqlens, b, h, h_k, d, splits,
+                                     table.numel(), sq)}
+            print(f"flash_decode_paged time at the verify step (sq={sq}): "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, masked "
+                  f"scaled_dot_product_attention {lib_ms:.4f} ms (median of "
+                  f"25); bound {timing['bound_ms']:.4f} ms "
+                  f"({timing['bound_by']})")
     return worst, timing
 
 
@@ -1063,22 +1192,37 @@ def run_slice(gen):
     gen_cfg = GenerationConfig(max_length=PROMPT + NEW_TOKENS)
     torch.cuda.synchronize()
 
-    flash_fwd.launches = 0
-    flash_decode.launches = 0
-    seqs, length, scores = decode(ids, model, gen_cfg, output_scores=True)
-    torch.cuda.synchronize()
-    launches = {"flash_fwd": flash_fwd.launches,
-                "flash_decode": flash_decode.launches}
     steps = NEW_TOKENS - 1
-    print(f"slice: {n_params / 1e6:.1f}M parameters, {cfg.n_layer} layers; "
-          f"served {BATCH} x {PROMPT}-token prompts to length {length}; "
-          f"launches {launches}")
-    require(launches == {"flash_fwd": cfg.n_layer,
-                         "flash_decode": cfg.n_layer * steps},
-            f"launch counts {launches}")
-    require(length == PROMPT + NEW_TOKENS and seqs.shape == (BATCH, length)
-            and torch.equal(seqs[:, :PROMPT], ids), "sequences")
-    require(bool(torch.isfinite(scores).all()), "non-finite decode logits")
+    runs = {}
+    for cg in (True, False):  # the captured decode step, then eagerly
+        flash_fwd.launches = 0
+        flash_decode.launches = 0
+        seqs, length, scores = decode(ids, model, gen_cfg, output_scores=True,
+                                      cg=cg)
+        torch.cuda.synchronize()
+        launches = {"flash_fwd": flash_fwd.launches,
+                    "flash_decode": flash_decode.launches}
+        runs[cg] = seqs, scores, launches
+        print(f"slice ({'graphed' if cg else 'eager'}): {n_params / 1e6:.1f}M "
+              f"parameters, {cfg.n_layer} layers; served {BATCH} x "
+              f"{PROMPT}-token prompts to length {length}; launches "
+              f"{launches}")
+        require(launches == {"flash_fwd": cfg.n_layer,
+                             "flash_decode": cfg.n_layer * steps},
+                f"launch counts {launches}")
+        require(length == PROMPT + NEW_TOKENS
+                and seqs.shape == (BATCH, length)
+                and torch.equal(seqs[:, :PROMPT], ids), "sequences")
+        require(bool(torch.isfinite(scores).all()), "non-finite decode logits")
+    seqs, scores, launches = runs[True]
+    same_scores = torch.equal(scores, runs[False][1])
+    print(f"slice: graphed and eager tokens bitwise equal: "
+          f"{torch.equal(seqs, runs[False][0])}; logits bitwise equal: "
+          f"{same_scores} (max abs diff "
+          f"{(scores - runs[False][1]).abs().max().item():.3e})")
+    require(torch.equal(seqs, runs[False][0]),
+            "graphed and eager static decode tokens differ")
+    del runs
 
     with torch.inference_mode():
         tf = model(seqs[:, :-1])  # teacher-forced forward, same kernels
@@ -1093,19 +1237,25 @@ def run_slice(gen):
             "decode steps disagree with the teacher-forced forward")
     del tf, scores
 
-    def served(max_length):
+    def served(max_length, cg=True):
         def fn():
-            out = decode(ids, model, GenerationConfig(max_length=max_length))
+            out = decode(ids, model, GenerationConfig(max_length=max_length),
+                         cg=cg)
             torch.cuda.synchronize()
             return out
         return fn
 
     prefill_only = served(PROMPT + 1)   # the prefill token, no decode step
-    full = served(PROMPT + NEW_TOKENS)
     ttft = wall_ms(prefill_only, 5) / 1e3
-    t_full = wall_ms(full, 3) / 1e3
-    tok_s = BATCH * steps / (t_full - ttft)
-    return launches, ttft, tok_s
+    tok_s = {}
+    for cg in (True, False, True, False):  # in turns
+        t_full = wall_ms(served(PROMPT + NEW_TOKENS, cg), 3) / 1e3
+        tok_s.setdefault(cg, []).append(BATCH * steps / (t_full - ttft))
+    print(f"static decode tokens/s at b={BATCH} ({steps} steps), in turns: "
+          f"graphed {tok_s[True][0]:.1f}, {tok_s[True][1]:.1f}; eager "
+          f"{tok_s[False][0]:.1f}, {tok_s[False][1]:.1f}")
+    return launches, ttft, {"graphed": statistics.mean(tok_s[True]),
+                            "eager": statistics.mean(tok_s[False])}
 
 
 def engine_model():
@@ -1156,24 +1306,9 @@ def kernel_counts():
 
 
 def reset_kernel_counts():
-    from flash_attn_tpu_torch.kernels import (
-        flash_blocksparse,
-        flash_decode,
-        flash_fwd,
-        flash_paged_prefill,
-        flash_varlen,
-        flash_varlen_paged,
-        flash_varlen_persistent,
-    )
+    from flash_attn_tpu_torch.kernels import reset_launch_counters
 
-    flash_decode.launches_mla = flash_paged_prefill.launches = 0
-    flash_fwd.launches = flash_decode.launches = 0
-    flash_decode.launches_paged = flash_varlen_paged.launches = 0
-    flash_varlen_persistent.launches = flash_varlen.launches_fwd = 0
-    flash_varlen.launches_dkdv = flash_varlen.launches_dq = 0
-    flash_varlen.launches_preprocess = 0
-    flash_blocksparse.launches_fwd = flash_blocksparse.launches_dkdv = 0
-    flash_blocksparse.launches_dq = flash_blocksparse.launches_preprocess = 0
+    reset_launch_counters()
 
 
 def want_counts(**nonzero):
@@ -1182,12 +1317,16 @@ def want_counts(**nonzero):
     return {**dict.fromkeys(kernel_counts(), 0), **nonzero}
 
 
-def run_engine(model, prompts, prefix_cache: bool, card: str):
+def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
+               draft=None):
     """Serve ``prompts`` through an InferenceEngine over the paged cache,
     submitted ENGINE_ARRIVAL at a time whenever the queue is empty (the
-    closed-loop trace of bench.py:516-541). The kernel counts are set to 0
-    just before the trace and read just after; returns them with the
-    generated tokens and the measurements."""
+    closed-loop trace of bench.py:516-541), after warmup(), which captures
+    the engine's decode program (with ``cg``; eagerly without). ``draft``
+    (a model on a linear cache) makes every step a speculative round of
+    SPEC_K proposals. The kernel counts are set to 0 just before the trace
+    and read just after; returns them with the generated tokens and the
+    measurements."""
     from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
     from flash_attn_tpu_torch.serving.generation import GenerationConfig
 
@@ -1198,22 +1337,27 @@ def run_engine(model, prompts, prefix_cache: bool, card: str):
                           page_pool=pool,
                           max_admit_tokens=ENGINE_ARRIVAL * ENGINE_PROMPT,
                           decode_block_size=ENGINE_BLOCK,
-                          prefix_cache=prefix_cache)
+                          prefix_cache=prefix_cache, draft_model=draft,
+                          speculative_k=SPEC_K, cg=cg)
     t0 = time.perf_counter()
-    if not prefix_cache:
-        eng.warmup(prefill_shapes=[(ENGINE_ARRIVAL, ENGINE_PROMPT)])
+    eng.warmup(prefill_shapes=[(ENGINE_ARRIVAL, ENGINE_PROMPT)])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    calls = {"prefill": 0, "decode_block": 0}
+    calls = {"prefill": 0, "decode_block": 0, "spec_round": 0}
+    accepted = []  # per speculative round: accepted proposals of each slot
 
     def counted(name, fn):
         def run(*args):
             calls[name] += 1
-            return fn(*args)
+            out = fn(*args)
+            if name == "spec_round":
+                accepted.append((out[1] - 1)[args[2]].cpu())
+            return out
         return run
 
     eng._prefill = counted("prefill", eng._prefill)
     eng._decode_block_fn = counted("decode_block", eng._decode_block_fn)
+    eng._spec_round = counted("spec_round", eng._spec_round)
 
     submit_t, first_t, ids = {}, {}, []
     total_tokens, nxt = 0, 0
@@ -1240,18 +1384,28 @@ def run_engine(model, prompts, prefix_cache: bool, card: str):
     launches = kernel_counts()
     # back to the class's methods: the counting closures would hold the
     # engine (and the model) in a reference cycle past close()
-    del eng._prefill, eng._decode_block_fn
+    del eng._prefill, eng._decode_block_fn, eng._spec_round
     tokens = [eng.requests[r].generated for r in ids]
     ttfts = sorted(first_t[r] - submit_t[r] for r in ids)
-    name = "prefix-cache engine" if prefix_cache else "paged engine"
+    name = ("prefix-cache engine" if prefix_cache else
+            f"speculative engine (draft: {draft.config.n_layer} layers)"
+            if draft is not None else "paged engine")
+    name += " (graphed)" if cg else " (eager)"
     print(f"{name}: {len(prompts)} requests, {calls['prefill']} admission "
           f"prefills, {calls['decode_block']} decode blocks of "
-          f"{ENGINE_BLOCK}; launches {launches}; stats {eng.stats()}")
+          f"{ENGINE_BLOCK}, {calls['spec_round']} speculative rounds of "
+          f"{SPEC_K}; launches {launches}; stats {eng.stats()}")
     n = cfg.n_layer
-    want = want_counts(
-        flash_fwd=0 if prefix_cache else n * calls["prefill"],
-        flash_decode_paged=n * ENGINE_BLOCK * calls["decode_block"],
-        flash_varlen_paged=n * calls["prefill"] if prefix_cache else 0)
+    if draft is None:
+        want = want_counts(
+            flash_fwd=0 if prefix_cache else n * calls["prefill"],
+            flash_decode_paged=n * ENGINE_BLOCK * calls["decode_block"],
+            flash_varlen_paged=n * calls["prefill"] if prefix_cache else 0)
+    else:
+        nd = draft.config.n_layer
+        want = want_counts(flash_fwd=(n + nd) * calls["prefill"],
+                           flash_decode=nd * SPEC_K * calls["spec_round"],
+                           flash_decode_paged=n * calls["spec_round"])
     require(launches == want, f"{name} launch counts {launches}, want {want}")
     require(all(len(t) == ENGINE_NEW for t in tokens),
             f"{name}: a request did not finish with {ENGINE_NEW} tokens")
@@ -1268,19 +1422,35 @@ def run_engine(model, prompts, prefix_cache: bool, card: str):
               "ttft_p50_ms": ttfts[len(ttfts) // 2] * 1e3,
               "ttft_p99_ms": ttfts[int(len(ttfts) * 0.99)] * 1e3,
               "trace_s": elapsed, "warmup_s": warm_s}
+    if draft is not None:
+        acc = torch.cat(accepted).float()
+        # a slot-round examines proposals up to its first rejection
+        examined = float(torch.clamp(acc + 1, max=SPEC_K).sum())
+        result.update(rounds=calls["spec_round"],
+                      mean_accepted=acc.mean().item(),
+                      full_accept_share=(acc == SPEC_K).float().mean().item(),
+                      mismatch_rate=float((acc < SPEC_K).sum()) / examined)
+        print(f"{name}: {calls['spec_round']} rounds, {acc.numel()} slot-"
+              f"rounds, mean accepted proposals {result['mean_accepted']:.3f} "
+              f"of {SPEC_K}, all {SPEC_K} accepted in "
+              f"{result['full_accept_share']:.3f} of them; "
+              f"{result['mismatch_rate']:.4f} of {examined:.0f} examined "
+              f"proposals rejected")
     print(f"{name}: {total_tokens} tokens in {elapsed:.3f} s, "
           f"{result['tokens_per_s']:.1f} tokens/s, TTFT p50 "
           f"{result['ttft_p50_ms']:.1f} ms p99 {result['ttft_p99_ms']:.1f} ms "
           f"(warm-up {warm_s:.1f} s) on {card}")
-    if not prefix_cache:
+    if not prefix_cache and draft is None:
         result.update(decode_block_idle(eng, prompts, card))
     eng.close()
     return launches, tokens, result
 
 
 def decode_block_idle(eng, prompts, card):
-    """Wall time and device time of one decode block with all slots busy
-    (contexts of 512 + a few tokens): the device's idle share of a block."""
+    """Wall time and device time (the profiler's sum over its kernels) of
+    one decode block with all slots busy (contexts of 512 + a few tokens),
+    through the engine's own block (the graph's replay, or the eager
+    block): the device's idle share of a block."""
     from torch.profiler import ProfilerActivity, profile
 
     eng.reset()
@@ -1304,12 +1474,62 @@ def decode_block_idle(eng, prompts, card):
     attn_ms = sum(evt.device_time_total for evt in prof.key_averages()
                   if evt.device_type == torch.autograd.DeviceType.CUDA
                   and "decode_kernel" in evt.key) / 1e3
+    require(attn_ms > 0, "the profiler saw no decode kernel in the block")
     idle = 1.0 - dev_ms / wall_ms
-    print(f"decode block of {ENGINE_BLOCK} steps at {ENGINE_SLOTS} busy slots: "
-          f"wall {wall_ms:.2f} ms, device {dev_ms:.2f} ms (paged decode "
-          f"kernel {attn_ms:.2f} ms), device idle share {idle:.3f} on {card}")
+    mode = "graphed" if eng.cg else "eager"
+    print(f"decode block of {ENGINE_BLOCK} steps at {ENGINE_SLOTS} busy slots "
+          f"({mode}): wall {wall_ms:.2f} ms, device {dev_ms:.2f} ms (paged "
+          f"decode kernel {attn_ms:.2f} ms), device idle share {idle:.3f} on "
+          f"{card}")
     return {"block_wall_ms": wall_ms, "block_device_ms": dev_ms,
             "block_attention_ms": attn_ms, "block_idle_share": idle}
+
+
+def linear_view(model):
+    """The same weights (shared, not copied) in a model on a linear cache."""
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
+
+    lin = GPTLMHeadModel(dataclasses.replace(model.config,
+                                             paged_kv_num_pages=0),
+                         device="cuda")
+    lin.load_state_dict(model.state_dict(), assign=True)
+    return lin.requires_grad_(False)
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at magnitude |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def spec_vs_plain(model, prompts, spec, plain, name):
+    """Hold a speculative engine's greedy tokens to the plain engine's:
+    equal, or, from the first position where they part, both within
+    TIE_STEPS bf16 steps of the top logit of one forward over the prompt
+    and the tokens they share (a near-tie that the verify step's other
+    matmul shapes round the other way in bf16). Returns the share of
+    requests with equal tokens."""
+    equal, worst, worst_gap, worst_top = 0, 0.0, 0.0, 0.0
+    for p, a, b in zip(prompts, spec, plain):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            equal += 1
+            continue
+        seq = torch.as_tensor(np.concatenate([p, a[:j]]), device="cuda",
+                              dtype=torch.long)[None]
+        with torch.inference_mode():
+            logits = model(seq)[0, -1].float()
+        top = float(logits.max())
+        gap = max(top - float(logits[a[j]]), top - float(logits[b[j]]))
+        if gap / bf16_step(top) >= worst:
+            worst, worst_gap, worst_top = gap / bf16_step(top), gap, top
+    share = equal / len(spec)
+    print(f"{name} vs the plain greedy engine: {equal} of {len(spec)} "
+          f"requests equal; where they part, the largest top-logit gap of "
+          f"either token {worst:.1f} bf16 steps ({worst_gap:.4f} below a top "
+          f"of {worst_top:.4f}; bound {TIE_STEPS} steps)")
+    require(worst <= TIE_STEPS,
+            f"{name}: a token parts from the plain engine's beyond a tie")
+    return share
 
 
 def engine_agreement(model, prompts, tokens, name):
@@ -1317,16 +1537,12 @@ def engine_agreement(model, prompts, tokens, name):
     the same prompts on the linear cache, in batches of 8: each token the
     argmax of the static decode's logits at >= MIN_ENGINE_AGREEMENT of the
     positions, and within LOGIT_BOUND of the top logit everywhere."""
-    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
     from flash_attn_tpu_torch.serving.generation import (
         GenerationConfig,
         decode,
     )
 
-    lin = GPTLMHeadModel(dataclasses.replace(model.config,
-                                             paged_kv_num_pages=0),
-                         device="cuda")
-    lin.load_state_dict(model.state_dict(), assign=True)
+    lin = linear_view(model)
     agree = total = 0
     gap = 0.0
     for i in range(0, len(prompts), BATCH):
@@ -1357,32 +1573,89 @@ def engine_agreement(model, prompts, tokens, name):
 
 def run_engines(card):
     """The paged engine on bench.py's trace, then the prefix-cached engine
-    over shared-prefix prompts; returns the launch counts of each run and
-    their measurements."""
+    over shared-prefix prompts, each with its decode block captured and
+    then eagerly (the tokens bitwise equal), then the speculative engine
+    (SPEC_K proposals a round) on the paged cache over the first
+    SPEC_REQUESTS prompts of the trace, with the target as its own draft
+    and with a seeded SPEC_DRAFT_LAYERS-layer draft of the same widths
+    (also eagerly); returns the launch counts of each graphed run and the
+    measurements."""
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
+
     model = engine_model()
     vocab = model.config.vocab_size
     rng = np.random.default_rng(0)
     prompts = list(rng.integers(0, vocab, (ENGINE_REQUESTS, ENGINE_PROMPT),
                                 dtype=np.int64))
-    t0 = time.perf_counter()
-    launches, tokens, paged = run_engine(model, prompts, False, card)
-    paged["agreement"], paged["logit_gap"] = engine_agreement(
-        model, prompts, tokens, "paged engine")
-    print(f"paged engine phase wall time {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
     shared = rng.integers(0, vocab, PREFIX_SHARED, dtype=np.int64)
     px_prompts = [np.concatenate([shared, rng.integers(
         0, vocab, ENGINE_PROMPT - PREFIX_SHARED, dtype=np.int64)])
         for _ in range(PREFIX_REQUESTS)]
+    out, launches, tokens = {}, {}, {}
+    for name, trace, prefix in (("paged", prompts, False),
+                                ("prefix_cache", px_prompts, True)):
+        t0 = time.perf_counter()
+        launches[name], tokens[name], out[name] = run_engine(
+            model, trace, prefix, card)
+        _, eager_tokens, out[name + "_eager"] = run_engine(
+            model, trace, prefix, card, cg=False)
+        require(eager_tokens == tokens[name],
+                f"{name} engine: graphed and eager tokens differ")
+        out[name]["agreement"], out[name]["logit_gap"] = engine_agreement(
+            model, trace, tokens[name], f"{name} engine")
+        print(f"{name} engine: graphed and eager tokens bitwise equal; phase "
+              f"wall time {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
-    px_launches, px_tokens, prefix = run_engine(model, px_prompts, True, card)
-    prefix["agreement"], prefix["logit_gap"] = engine_agreement(
-        model, px_prompts, px_tokens, "prefix-cache engine")
-    print(f"prefix-cache engine phase wall time {time.perf_counter() - t0:.1f}"
-          f" s")
-    del model
+    spec_prompts = prompts[:SPEC_REQUESTS]
+    plain = tokens["paged"][:SPEC_REQUESTS]
+    draft = GPTLMHeadModel(dataclasses.replace(
+        model.config, n_layer=SPEC_DRAFT_LAYERS, paged_kv_num_pages=0),
+        device="cuda")
+    draft.reset_parameters(torch.Generator(device="cuda").manual_seed(3))
+    draft.requires_grad_(False)
+    for name, dm in (("speculative_self", linear_view(model)),
+                     ("speculative_draft", draft)):
+        launches[name], spec, out[name] = run_engine(
+            model, spec_prompts, False, card, draft=dm)
+        out[name]["equal_to_plain"] = spec_vs_plain(
+            model, spec_prompts, spec, plain, name)
+        if dm is draft:
+            _, eager_spec, out[name + "_eager"] = run_engine(
+                model, spec_prompts, False, card, cg=False, draft=dm)
+            require(eager_spec == spec,
+                    f"{name}: graphed and eager tokens differ")
+        tokens[name] = spec
+    require(out["speculative_self"]["mean_accepted"] >= MIN_SELF_ACCEPTED,
+            "the target as its own draft: proposals rejected "
+            f"({out['speculative_self']['mean_accepted']:.3f} accepted of "
+            f"{SPEC_K} a round, bound {MIN_SELF_ACCEPTED:.3f})")
+    print(f"speculative engines phase wall time "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model, draft
     torch.cuda.empty_cache()
-    return launches, paged, px_launches, prefix
+    return launches, out
+
+
+def spec_readings(card, n: int) -> int:
+    """The speculative engine with the target as its own draft over n
+    seeded sets of SPEC_REQUESTS prompts (seeds 1..n; the default run's are
+    the trace's, seed 0): prints each set's share of examined proposals
+    rejected, the reading that SPEC_MISMATCH_READ is taken from."""
+    model = engine_model()
+    vocab = model.config.vocab_size
+    rates = []
+    for seed in range(1, n + 1):
+        prompts = list(np.random.default_rng(seed).integers(
+            0, vocab, (SPEC_REQUESTS, ENGINE_PROMPT), dtype=np.int64))
+        _, _, res = run_engine(model, prompts, False, card,
+                               draft=linear_view(model))
+        rates.append(res["mismatch_rate"])
+        print(f"prompt seed {seed}: mean accepted {res['mean_accepted']:.4f} "
+              f"of {SPEC_K}, mismatch rate {res['mismatch_rate']:.4f}")
+    print(json.dumps({"spec_mismatch_rates": rates, "card": card}))
+    return 0
 
 
 def write_token_file(path: str, vocab: int) -> None:
@@ -2424,6 +2697,7 @@ def run_mla_serving(gen, card):
         flash_attn_with_kvcache,
     )
     from flash_attn_tpu_torch.cache.kvcache import kv_cache_update
+    from flash_attn_tpu_torch.serving.graphs import CapturedProgram
     from flash_attn_tpu_torch.utils.testing import (
         attention_ref,
         check_against_ref,
@@ -2470,50 +2744,66 @@ def run_mla_serving(gen, card):
             softmax_scale=MLA_SCALE, causal=True, block_table=table,
             seqused_k=before + MLA_CHUNK, qv=qv)
 
-    def decode(step, layer, lens):
-        """One decode step of one layer: append and attend."""
-        kp, vp = pages[layer]
-        qq, kv = step_q[step, layer], step_kv[step, layer]
-        return flash_attn_with_kvcache(
-            qq[..., :d], kp, vp, k=kv[..., :d], v=kv[..., d:],
-            qv=qq[..., d:], cache_seqlens=lens, block_table=table,
-            softmax_scale=MLA_SCALE, causal=True)
+    def decode_step(qs, kvs, lens):
+        """One decode step of every layer (append and attend): the last
+        layer's output and whether every layer's output is finite."""
+        finite = torch.ones((), dtype=torch.bool, device="cuda")
+        for layer in range(n):
+            kp, vp = pages[layer]
+            qq, kv = qs[layer], kvs[layer]
+            out = flash_attn_with_kvcache(
+                qq[..., :d], kp, vp, k=kv[..., :d], v=kv[..., d:],
+                qv=qq[..., d:], cache_seqlens=lens, block_table=table,
+                softmax_scale=MLA_SCALE, causal=True)
+            finite &= torch.isfinite(out).all()
+        return out, finite
 
-    def serve(check: bool):
+    # the decode step as one CUDA graph (one step shape: b rows of one
+    # token), captured at its first call; each step's q, kv and lengths
+    # are copied into its static inputs
+    graph = CapturedProgram()
+
+    def serve(graphed: bool, keep: bool):
+        """Prefill every chunk, then MLA_NEW decode steps through the graph
+        or eagerly; with ``keep``, every prefill output's finiteness and
+        each step's last-layer output."""
         finite = torch.ones((), dtype=torch.bool, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for c in range(chunks):
             for layer in range(n):
                 out = prefill(c, layer)
-                if check:
+                if keep:
                     finite &= torch.isfinite(out).all()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         lens = torch.full((b,), MLA_PROMPT, dtype=torch.int32, device="cuda")
+        outs = []
         for step in range(MLA_NEW):
-            for layer in range(n):
-                out = decode(step, layer, lens)
-                if check:
-                    finite &= torch.isfinite(out).all()
+            args = (step_q[step], step_kv[step], lens)
+            out, fin = graph(decode_step, *args) if graphed \
+                else decode_step(*args)
+            finite &= fin
+            if keep:
+                outs.append(out.clone())
             lens = lens + 1
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        # out: the last layer's last decode step
-        return bool(finite), out, lens, t1 - t0, t2 - t1
+        return bool(finite), outs, lens, t1 - t0, t2 - t1
 
     reset_kernel_counts()
-    finite, dec_out, lens, _, _ = serve(True)
+    finite, outs, lens, _, _ = serve(True, True)
     launches = kernel_counts()
     want = want_counts(flash_paged_prefill=n * chunks,
                        flash_decode_mla=n * MLA_NEW)
     print(f"MLA serving: {n} layers x {h} heads, rope {d} + latent {dv}, "
           f"scale {MLA_SCALE:.5f}; {b} x {MLA_PROMPT}-token prompts in "
-          f"{chunks} chunks of {MLA_CHUNK}, then {MLA_NEW} decode steps, "
-          f"pages of {MLA_PAGE}; launches {launches}; every output finite: "
-          f"{finite}")
+          f"{chunks} chunks of {MLA_CHUNK}, then {MLA_NEW} decode steps "
+          f"(graphed), pages of {MLA_PAGE}; launches {launches}; every "
+          f"output finite: {finite}")
     require(launches == want, f"MLA serving launches {launches}, want {want}")
     require(finite, "non-finite MLA serving output")
+    dec_out = outs[-1]  # the last layer's last decode step
 
     # The oracle: the last layer's last decode step as a 1-token chunk
     # through B8p (not counted), both held to the 2x rule against the fp32
@@ -2544,7 +2834,26 @@ def run_mla_serving(gen, card):
           f"{2 * err_lp + 1e-5:.3e})")
     del refs, k_lin, v_lin, pf_out
 
-    _, _, _, prefill_s, decode_s = serve(False)
+    # the eager decode steps over the same inputs: bitwise the graph's
+    _, eager_outs, _, _, _ = serve(False, True)
+    same = all(torch.equal(x, y) for x, y in zip(outs, eager_outs))
+    print(f"MLA decode: graphed and eager outputs of every step's last layer "
+          f"bitwise equal: {same}")
+    require(same, "MLA decode: graphed and eager outputs differ")
+    del outs, eager_outs
+
+    timed = {True: [], False: []}
+    for graphed in (True, False, False, True):  # in turns
+        _, _, _, prefill_s, decode_s = serve(graphed, False)
+        timed[graphed].append((prefill_s, decode_s))
+    prefill_s = statistics.mean(t[0] for t in timed[True] + timed[False])
+    decode_s = statistics.mean(t[1] for t in timed[True])
+    eager_s = statistics.mean(t[1] for t in timed[False])
+    print(f"MLA decode step over {n} layers, in turns: graphed "
+          f"{timed[True][0][1] * 1e3 / MLA_NEW:.3f}, "
+          f"{timed[True][1][1] * 1e3 / MLA_NEW:.3f} ms; eager "
+          f"{timed[False][0][1] * 1e3 / MLA_NEW:.3f}, "
+          f"{timed[False][1][1] * 1e3 / MLA_NEW:.3f} ms on {card}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # Where the time goes: the last chunk of layer 0 and the last decode
@@ -2556,25 +2865,36 @@ def run_mla_serving(gen, card):
                                           "decode_mla_kernel"),
                 "copies and fills": COPIES + ("fill",)}
     split = {}
-    for what, fn in (
-            ("prefill layer-chunk", lambda: prefill(chunks - 1, 0)),
+    last_step = (step_q[-1], step_kv[-1], last)
+    for what, fn, graphed_fn in (
+            ("prefill layer-chunk", lambda: prefill(chunks - 1, 0), None),
             (f"decode step over {n} layers",
-             lambda: [decode(MLA_NEW - 1, layer, last) for layer in range(n)])):
+             lambda: decode_step(*last_step),
+             lambda: graph(decode_step, *last_step))):
         dev_ms = device_families(fn, families, f"one MLA {what}")
         wall = wall_ms(fn, runs=5)
         split[what] = {"device_ms": dev_ms, "wall_ms": wall,
                        "idle_share": 1 - dev_ms / wall}
         print(f"MLA {what}: wall {wall:.3f} ms, device {dev_ms:.3f} ms, "
               f"device idle share {1 - dev_ms / wall:.3f} on {card}")
+        if graphed_fn is not None:
+            g_wall = wall_ms(graphed_fn, runs=5)
+            split[what].update(graphed_wall_ms=g_wall,
+                               graphed_idle_share=1 - dev_ms / g_wall)
+            print(f"MLA {what} (graphed): wall {g_wall:.3f} ms, device "
+                  f"idle share {1 - dev_ms / g_wall:.3f} on {card}")
     result = {"prefill_ms_per_layer_chunk": prefill_s * 1e3 / (n * chunks),
               "prefill_s": prefill_s,
               "decode_step_ms": decode_s * 1e3 / MLA_NEW,
+              "decode_step_ms_eager": eager_s * 1e3 / MLA_NEW,
               "decode_tokens_per_s": b * MLA_NEW / decode_s,
+              "decode_tokens_per_s_eager": b * MLA_NEW / eager_s,
               "peak_gb": peak_gb, "oracle_err": diff, "profile": split}
     print(f"MLA serving on {card}: prefill {prefill_s:.3f} s "
           f"({result['prefill_ms_per_layer_chunk']:.3f} ms per layer-chunk "
           f"of {b} x {MLA_CHUNK} tokens), decode step over {n} layers "
-          f"{result['decode_step_ms']:.3f} ms, "
+          f"{result['decode_step_ms']:.3f} ms graphed, "
+          f"{result['decode_step_ms_eager']:.3f} ms eager, "
           f"{result['decode_tokens_per_s']:.1f} tokens/s at b={b}; peak "
           f"memory {peak_gb:.2f} GB (max_memory_allocated)")
     del pages, chunk_q, chunk_kv, step_q, step_kv
@@ -2926,6 +3246,13 @@ def run_probes(card):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--spec-readings", type=int, default=0, metavar="N",
+        help="build the kernels, then only read the speculative engine's "
+             "per-proposal mismatch rate with the target as its own draft "
+             "over N seeded prompt sets")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the GPU",
               file=sys.stderr)
@@ -2942,6 +3269,8 @@ def main() -> int:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(_build.BUILD_DIR.parent.parent)}")
 
+    if args.spec_readings:
+        return spec_readings(card, args.spec_readings)
     gen = torch.Generator(device="cuda").manual_seed(0)
     phases = {}
 
@@ -2956,6 +3285,8 @@ def main() -> int:
     dec_err, dec_t = phase("decode kernel checks", check_decode, gen)
     pdec_err, pdec_t = phase("paged decode kernel checks", check_decode_paged,
                              gen)
+    vdec_err, vdec_t = phase("verify-step decode kernel checks",
+                             check_decode_verify, gen)
     vp_err, vp_t = phase("varlen-paged kernel checks", check_varlen_paged, gen)
     bwd_err, bwd_timing = phase("backward kernel checks", check_bwd, gen)
     api_launches = phase("flash_attn_func backward", run_api_backward, gen)
@@ -2964,10 +3295,12 @@ def main() -> int:
                                         card)
     launches, ttft, tok_s = phase("static serving", run_slice, gen)
     print(f"time to first token (b={BATCH}, prompt {PROMPT}, median of 5): "
-          f"{ttft * 1e3:.2f} ms; decode {tok_s:.1f} tokens/s at b={BATCH} "
+          f"{ttft * 1e3:.2f} ms; decode {tok_s['graphed']:.1f} tokens/s "
+          f"graphed, {tok_s['eager']:.1f} eager at b={BATCH} "
           f"({NEW_TOKENS - 1} steps) on {card}")
-    eng_launches, paged, px_launches, prefix = phase("engines", run_engines,
-                                                     card)
+    eng_launches, engines = phase("engines", run_engines, card)
+    paged, prefix = engines["paged"], engines["prefix_cache"]
+    spec, spec_d = engines["speculative_self"], engines["speculative_draft"]
     print(f"paged engine (64 slots, {ENGINE_REQUESTS} x {ENGINE_PROMPT}-token "
           f"prompts + {ENGINE_NEW} new): {paged['tokens_per_s']:.1f} tokens/s,"
           f" TTFT p50 {paged['ttft_p50_ms']:.1f} ms, p99 "
@@ -2975,7 +3308,15 @@ def main() -> int:
           f"({PREFIX_REQUESTS} prompts sharing {PREFIX_SHARED} tokens): "
           f"{prefix['tokens_per_s']:.1f} tokens/s, TTFT p50 "
           f"{prefix['ttft_p50_ms']:.1f} ms, p99 {prefix['ttft_p99_ms']:.1f} ms"
-          f" on {card}")
+          f" (eager: {engines['paged_eager']['tokens_per_s']:.1f} and "
+          f"{engines['prefix_cache_eager']['tokens_per_s']:.1f} tokens/s); "
+          f"decode-block idle share {paged['block_idle_share']:.3f} graphed, "
+          f"{engines['paged_eager']['block_idle_share']:.3f} eager; "
+          f"speculative engine (k={SPEC_K}, {SPEC_REQUESTS} requests): "
+          f"{spec['tokens_per_s']:.1f} tokens/s with the target as its own "
+          f"draft ({spec['mean_accepted']:.3f} accepted a round), "
+          f"{spec_d['tokens_per_s']:.1f} with a {SPEC_DRAFT_LAYERS}-layer "
+          f"draft ({spec_d['mean_accepted']:.3f}) on {card}")
     train_launches, train = phase("training", run_training)
     print(f"training step (median of steps {TRAIN_WARM + 1}-{TRAIN_STEPS}): "
           f"{train['step_ms']:.1f} ms; {train['tokens_per_s']:.0f} tokens/s; "
@@ -2997,7 +3338,8 @@ def main() -> int:
     pr_launches, pr_err, pr_t, probes = phase("probes", run_probes, card)
     print(f"DeepSeek-V3 absorbed attention ({MLA_LAYERS} layers): prefill "
           f"{mla['prefill_ms_per_layer_chunk']:.3f} ms per layer-chunk, "
-          f"decode step {mla['decode_step_ms']:.3f} ms, "
+          f"decode step {mla['decode_step_ms']:.3f} ms graphed "
+          f"({mla['decode_step_ms_eager']:.3f} eager), "
           f"{mla['decode_tokens_per_s']:.1f} tokens/s at b={MLA_BATCH}, peak "
           f"{mla['peak_gb']:.2f} GB on {card}")
     print("phase wall times: " + ", ".join(
@@ -3023,10 +3365,15 @@ def main() -> int:
         entry("flash_decode", "flash_decode.cu", "flash_decode.py:54",
               launches["flash_decode"], dec_err, dec_t),
         entry("flash_decode_paged", "flash_decode.cu", "flash_decode.py:54",
-              eng_launches["flash_decode_paged"], pdec_err, pdec_t),
+              eng_launches["paged"]["flash_decode_paged"], pdec_err, pdec_t),
+        entry("flash_decode_paged_verify", "flash_decode.cu",
+              "flash_decode.py:54",
+              eng_launches["speculative_self"]["flash_decode_paged"],
+              vdec_err, vdec_t),
         entry("flash_varlen_paged", "flash_varlen_paged.cu",
-              "flash_varlen_paged.py:69", px_launches["flash_varlen_paged"],
-              vp_err, vp_t),
+              "flash_varlen_paged.py:69",
+              eng_launches["prefix_cache"]["flash_varlen_paged"], vp_err,
+              vp_t),
         entry("flash_bwd_preprocess", "flash_bwd.cu", "flash_bwd.py:408",
               train_launches["flash_bwd_preprocess"],
               bwd_err["flash_bwd_preprocess"],
@@ -3081,7 +3428,7 @@ def main() -> int:
               pr_launches["mma_exp2_overlap_probe"],
               pr_err["mma_exp2_overlap_probe"],
               pr_t["mma_exp2_overlap_probe"]),
-    ], "engines": {"paged": paged, "prefix_cache": prefix},
+    ], "engines": engines,
         "varlen": {"timings": vl_t, "bench": bench_vl}, "bert": bert,
         "mla": {"serving": mla, "timings": mla_t},
         "blocksparse": bs_all, "probes": probes}))

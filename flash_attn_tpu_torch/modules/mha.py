@@ -258,7 +258,9 @@ class MHA(nn.Module):
 
     @staticmethod
     def _set_offsets(cache: KVCache, slot_ids, lengths) -> None:
+        """In place, so that the offsets keep their storage (a captured
+        decode graph reads them there)."""
         if slot_ids is None:
-            cache.offset = lengths.clone()
+            cache.offset.copy_(lengths)
         else:
             cache.offset[slot_ids.to(cache.offset.device, torch.long)] = lengths

@@ -10,9 +10,18 @@ on the device with no host sync inside a block. Over a paged cache a
 ``PagePool`` hands out pages (page 0 is the null page), and with
 ``prefix_cache`` full prompt pages are chain-hashed and shared, so that
 admission prefills only each prompt's suffix through the paged-varlen
-kernel. Where the JAX engine jits its prefill and its decode block, this
-one runs them eagerly; capturing the decode block in a CUDA graph is
-ROADMAP.md queue A, item 3b.
+kernel. With a ``draft_model`` every step is one speculative round instead
+(serving/speculative.py): the draft proposes ``speculative_k`` tokens, the
+target verifies them in one decode call, and each slot's caches are
+rewound past what it rejected.
+
+Where the JAX engine jits its decode block and its speculative round, this
+one captures each in a CUDA graph on the card (serving/graphs.py) at its
+first run, ``warmup`` or the first step that needs it, and replays it; the
+block table lives in one static device buffer that admissions and releases
+refresh in place. Admission prefills run eagerly (the JAX engine jits them
+per bucket: ROADMAP.md queue A, item 3b). ``cg=False`` runs every program
+eagerly, the graphs' oracle; the CPU path is always eager.
 """
 
 import dataclasses
@@ -27,6 +36,8 @@ from flash_attn_tpu_torch.serving.generation import (
     GenerationConfig,
     sample_token,
 )
+from flash_attn_tpu_torch.serving.graphs import CapturedProgram
+from flash_attn_tpu_torch.serving.speculative import speculative_round
 from flash_attn_tpu_torch.utils.device import resolve_device
 
 __all__ = ["InferenceEngine", "PagePool", "Request"]
@@ -134,8 +145,12 @@ class InferenceEngine:
     the shapes in ``prefill_shapes``. ``decode_block_size`` n decodes n
     tokens per host round trip. ``generator`` drives sampling (greedy needs
     none). ``device`` defaults to the CUDA card and raises without one; the
-    model must live there. A draft model (speculative rounds) is not ported
-    yet and raises NotImplementedError."""
+    model must live there. ``draft_model`` (a GPTLMHeadModel on a linear
+    cache, over the same vocabulary) turns each step into one speculative
+    round of ``speculative_k`` proposals; it excludes ``prefix_cache``, as
+    in JAX (the draft cache holds no shared pages). ``cg`` (default: on the
+    card) captures the decode block and the speculative round as CUDA
+    graphs; ``cg=False`` runs them eagerly."""
 
     def __init__(self, model, max_batch: int, gen_cfg: GenerationConfig,
                  generator: Optional[torch.Generator] = None,
@@ -143,12 +158,9 @@ class InferenceEngine:
                  max_admit_tokens: Optional[int] = None,
                  bucket_admission: bool = True,
                  decode_block_size: int = 1,
-                 prefix_cache: bool = False, draft_model=None, device=None):
-        if draft_model is not None:
-            raise NotImplementedError(
-                "InferenceEngine: speculative rounds (draft_model=) and "
-                "serving/speculative.py are not ported yet: ROADMAP.md "
-                "queue A, item 3a")
+                 prefix_cache: bool = False, draft_model=None,
+                 speculative_k: int = 4, device=None,
+                 cg: Optional[bool] = None):
         self.device = resolve_device(device)
         weights = next(model.parameters())
         if weights.device.type != self.device.type:
@@ -162,6 +174,15 @@ class InferenceEngine:
                 "InferenceEngine: a page pool needs a model configured for "
                 "the same paged cache (paged_kv_num_pages, "
                 "paged_kv_page_size), and a paged model needs a pool")
+        if draft_model is not None and (
+                prefix_cache or draft_model.config.paged_kv_num_pages > 0):
+            raise ValueError(
+                "InferenceEngine: a draft model needs a linear cache of its "
+                "own and excludes prefix_cache (the draft cache holds no "
+                "shared pages)")
+        self.cg = self.device.type == "cuda" if cg is None else cg
+        if self.cg and self.device.type != "cuda":
+            raise ValueError("InferenceEngine(cg=True) needs the CUDA card")
         self.model = model
         self.B = max_batch
         self.cfg = gen_cfg
@@ -186,7 +207,18 @@ class InferenceEngine:
         # host copy, the event that completes it, the slot -> request
         # snapshot at dispatch).
         self._pending = None
-        self._table_dev = None  # device copy of pool.table (see _table)
+        # the device copy of pool.table, refreshed in place when dirty, and
+        # the captured programs: both made with the cache, dropped with it
+        self._table_buf = None
+        self._table_dirty = True
+        self._graphs: Dict[str, CapturedProgram] = {}
+        # speculative rounds: the draft's cache holds each slot's committed
+        # tokens but the last two, the second-to-last is slot_prev2
+        self.spec = draft_model is not None
+        self.draft_model = draft_model
+        self.speculative_k = speculative_k
+        self.draft_cache = None
+        self.slot_prev2 = np.zeros((max_batch,), np.int32)
         self.prefix_cache = prefix_cache
         if prefix_cache:
             if page_pool is None:
@@ -258,26 +290,70 @@ class InferenceEngine:
         return sample_token(logits[:, 0], self.generator, self.cfg)
 
     @torch.no_grad()
+    def _draft_prefill(self, ids, slot_ids, lengths):
+        """Fill the admitted slots' draft cache with each prompt but its
+        last token (no logits: the draft's first proposal comes from the
+        round, which feeds the last two committed tokens)."""
+        self.draft_model.transformer(
+            self._upload(ids), mode="prefill", cache=self.draft_cache,
+            slot_ids=self._upload(slot_ids),
+            prefill_lengths=self._upload(np.maximum(lengths - 1, 0)))
+
+    def _run(self, name: str, fn, *args):
+        """``fn(*args)``: through the captured program ``name`` with graphs
+        on (captured at its first call), else eagerly. The block table is
+        refreshed first, outside any capture."""
+        self._table()
+        if not self.cg:
+            return fn(*args)
+        if name not in self._graphs:
+            gens = ([self.generator] if self.generator is not None
+                    and self.generator.device.type == "cuda" else [])
+            self._graphs[name] = CapturedProgram(gens)
+        return self._graphs[name](fn, *args)
+
     def _decode_block_fn(self, toks):
         """decode_block_size decode steps of every slot, each step's token
-        fed to the next on the device; returns the tokens (n, B)."""
-        table = self._table()
+        fed to the next on the device; returns the tokens (n, B). With
+        graphs on, the returned tensor is the graph's output, which the
+        next block overwrites."""
+        return self._run("decode_block", self._decode_block_body, toks)
+
+    @torch.no_grad()
+    def _decode_block_body(self, toks):
         ys = []
         for _ in range(self.decode_block):
             logits = self.model(toks[:, None], mode="decode", cache=self.cache,
-                                block_table=table)
+                                block_table=self._table_buf)
             toks = sample_token(logits[:, -1], self.generator, self.cfg)
             ys.append(toks)
         return torch.stack(ys)
 
+    def _spec_round(self, cur, prev2, active):
+        """One speculative round of every slot: returns (tokens (B, k+1),
+        num (B,)), the first num of a row committed; rows inactive at
+        dispatch rewind all they appended."""
+        return self._run("spec_round", self._spec_round_body, cur, prev2,
+                         active)
+
+    @torch.no_grad()
+    def _spec_round_body(self, cur, prev2, active):
+        return speculative_round(
+            self.model, self.draft_model, self.cache, self.draft_cache, cur,
+            prev2, active, self.speculative_k, self.cfg, self.generator,
+            block_table=self._table_buf)
+
     def warmup(self, prefill_shapes=None):
         """Run the admission prefill at the given (rows, padded_len) shapes
-        and one decode block before traffic, on zero-length dummy rows of
-        free slots, leaving the engine's state as it was (offsets re-zeroed
-        afterwards). The default shape is the full-budget one that bucketed
-        admission gives under ``max_admit_tokens``. Eagerly run, this warms
-        the kernels' build and PyTorch's allocator; graph capture per shape
-        is ROADMAP.md queue A, item 3b."""
+        (with the prefix-cache engine's suffix path, and the draft's
+        prefill) and the decode program of this engine's mode (the decode
+        block, or the speculative round) before traffic, on zero-length
+        dummy rows of free slots, leaving the engine's state as it was
+        (offsets re-zeroed afterwards). The default shape is the
+        full-budget one that bucketed admission gives under
+        ``max_admit_tokens``. The decode program is captured here, in every
+        mode, as the reference's ``capture_graph`` does before traffic;
+        admission prefills stay eager."""
         if self.cache is None:
             self._init_cache()
         if prefill_shapes is None:
@@ -290,13 +366,22 @@ class InferenceEngine:
             rows = min(_next_pow2(rows), self.B)
             prefill_shapes = [(rows, plen)]
         for rows, plen in prefill_shapes:
-            self._prefill(np.zeros((rows, plen), np.int32),
-                          np.arange(rows, dtype=np.int32),
-                          np.zeros((rows,), np.int32), None)
+            ids = np.zeros((rows, plen), np.int32)
+            slot_ids = np.arange(rows, dtype=np.int32)
+            lengths = np.zeros((rows,), np.int32)
+            self._prefill(ids, slot_ids, lengths,
+                          lengths if self.prefix_cache else None)
+            if self.spec:
+                self._draft_prefill(ids, slot_ids, lengths)
             self.prefill_shapes.add((rows, plen))
-        # decode block: the appends land on inactive slots (the null page,
-        # or position 0), which any real admission overwrites
-        self._decode_block_fn(self._upload(self.slot_tok))
+        # the decode program: the appends land on inactive slots (the null
+        # page, or position 0), which any real admission overwrites
+        toks = self._upload(self.slot_tok).long()
+        if self.spec:
+            self._spec_round(toks, toks,
+                             torch.zeros_like(toks, dtype=torch.bool))
+        else:
+            self._decode_block_fn(toks)
         self._set_inactive_offsets_zero()
 
     def reset(self):
@@ -304,7 +389,7 @@ class InferenceEngine:
         if self.pool is not None:
             for slot in list(self.pool.pages_of):
                 self.pool.release(slot)
-            self._table_dev = None
+            self._table_dirty = True
         self.queue.clear()
         self.requests.clear()
         self._pending = None
@@ -315,8 +400,10 @@ class InferenceEngine:
             self._set_inactive_offsets_zero()
 
     def close(self):
-        """Release the KV cache."""
-        self.cache = None
+        """Release the KV caches and the captured programs over them: new
+        traffic allocates and captures again."""
+        self.cache = self.draft_cache = self._table_buf = None
+        self._graphs = {}
         self.reset()
 
     # ------------------------------------------------------------------
@@ -337,20 +424,30 @@ class InferenceEngine:
     @torch.no_grad()
     def _set_inactive_offsets_zero(self):
         active = self._upload(np.array([r is not None for r in self.slots]))
-        for layer in self.cache:
+        for layer in self.cache + (self.draft_cache or []):
             layer.offset.masked_fill_(~active, 0)
 
     def _table(self):
-        # device table cached between admission and release events: a
-        # fresh upload per step would put a copy on the decode path
+        """The block table's static device buffer, refreshed in place (on
+        the stream, behind the programs that read it) after an admission
+        or a release: a fresh upload per step would put a copy on the
+        decode path, and a graph reads the table where it was captured."""
         if self.pool is None:
             return None
-        if self._table_dev is None:
-            self._table_dev = self._upload(self.pool.table)
-        return self._table_dev
+        if self._table_dirty:
+            self._table_buf.copy_(self._upload(self.pool.table))
+            self._table_dirty = False
+        return self._table_buf
 
     def _init_cache(self):
         self.cache = self.model.allocate_cache(self.B)
+        if self.spec:
+            self.draft_cache = self.draft_model.allocate_cache(self.B)
+        if self.pool is not None:
+            self._table_buf = torch.zeros(self.pool.table.shape,
+                                          dtype=torch.int32,
+                                          device=self.device)
+            self._table_dirty = True
 
     # ------------------------------------------------------------------
     def step(self) -> List[Tuple[int, int]]:
@@ -406,8 +503,9 @@ class InferenceEngine:
             if self.pool is not None:
                 # a request that finishes mid-block decodes on until the
                 # next dispatch sees it gone: n - 1 wasted steps plus one
-                # stale block
-                margin = 2 * self.decode_block - 1
+                # stale block; a speculative round appends k + 1 at once
+                margin = (self.speculative_k + 1 if self.spec
+                          else 2 * self.decode_block - 1)
                 if shared_pages:
                     self.pool.share(slot, shared_pages)
                 if not self.pool.alloc(
@@ -421,7 +519,7 @@ class InferenceEngine:
             free.pop(0)
             self.queue.popleft()
             admit.append((slot, req, n_shared, keys))
-            self._table_dev = None
+            self._table_dirty = True
             if self.prefix_cache:
                 pages = self.pool.pages_of.get(slot, [])
                 for i, key in enumerate(keys):
@@ -464,6 +562,10 @@ class InferenceEngine:
                 # register this batch's FULL prompt pages for future reuse
                 for slot, req, _n, keys in admit:
                     self._register_prefix(slot, keys)
+            if self.spec:
+                self._draft_prefill(ids, slot_ids, lengths)
+                for slot, req, _n, _k in admit:
+                    self.slot_prev2[slot] = int(req.prompt[-1])
             nxt = nxt.cpu().numpy()
             for j, (slot, req, _n, _keys) in enumerate(admit):
                 tok = int(nxt[j])
@@ -472,6 +574,10 @@ class InferenceEngine:
                 self.slot_new[slot] = 1
                 emitted.append((req.req_id, tok))
                 self._maybe_finish(slot, req, tok)
+
+        if self.spec:
+            self._spec_step(emitted)
+            return emitted
 
         # ---- dispatch this step's decode block BEFORE reading the
         # previous one: block k's last tokens feed block k + 1 on the
@@ -525,12 +631,45 @@ class InferenceEngine:
                     self.slots[slot] = None
                     if self.pool is not None:
                         self.pool.release(slot)
-                        self._table_dev = None
+                        self._table_dirty = True
                 # offsets of freed slots are reset before any reuse; steps
                 # where nothing finishes skip it
                 self._set_inactive_offsets_zero()
         self._pending = new_pending
         return emitted
+
+    def _spec_step(self, emitted: List[Tuple[int, int]]) -> None:
+        """One synchronous speculative round of the active slots: commit
+        each slot's accepted tokens (a tail past eos or max_new_tokens is
+        dropped) and release the slots that finished."""
+        active = np.array([r is not None for r in self.slots])
+        if not active.any():
+            return
+        tokens, num = self._spec_round(
+            self._upload(self.slot_tok).long(),
+            self._upload(self.slot_prev2).long(), self._upload(active))
+        tokens, num = tokens.cpu().numpy(), num.cpu().numpy()
+        finished: List[int] = []
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            for tok in tokens[slot, :int(num[slot])]:
+                if req.done:
+                    break
+                tok = int(tok)
+                req.generated.append(tok)
+                self.slot_prev2[slot] = self.slot_tok[slot]
+                self.slot_tok[slot] = tok
+                self.slot_new[slot] += 1
+                emitted.append((req.req_id, tok))
+                self._maybe_finish(slot, req, tok, defer=finished)
+        if finished:
+            for slot in finished:
+                self.slots[slot] = None
+                if self.pool is not None:
+                    self.pool.release(slot)
+                    self._table_dirty = True
+            self._set_inactive_offsets_zero()
 
     def _maybe_finish(self, slot: int, req: "Request", tok: int, defer=None):
         eos = self.cfg.eos_token_id
@@ -543,7 +682,7 @@ class InferenceEngine:
             self.slots[slot] = None
             if self.pool is not None:
                 self.pool.release(slot)
-                self._table_dev = None
+                self._table_dirty = True
 
     def cancel(self, req_id: int) -> bool:
         """Cancel a request: drop it from the queue, or release its slot
@@ -562,7 +701,7 @@ class InferenceEngine:
                 self.slots[slot] = None
                 if self.pool is not None:
                     self.pool.release(slot)
-                    self._table_dev = None
+                    self._table_dirty = True
                 self._set_inactive_offsets_zero()
                 break
         return True

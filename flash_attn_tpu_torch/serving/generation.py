@@ -1,11 +1,27 @@
-"""Static-batch generation: prefill, then a Python token loop of decode
-steps (port of flash_attn_tpu/serving/generation.py). Each step runs the
-model eagerly; capturing the step in a CUDA graph is later work."""
+"""Static-batch generation: prefill, then a token loop of decode steps
+(port of flash_attn_tpu/serving/generation.py).
+
+The JAX package runs the token loop as one jitted ``lax.while_loop``; the
+port's counterpart on the card captures one decode step (the model
+forward, ``sample_token``, the eos masking, the writes of the token and of
+the scores) in a CUDA graph and replays it for every remaining position
+(:mod:`flash_attn_tpu_torch.serving.graphs`; the reference's
+``decode(cg=True)``). The step reads and writes only static buffers: the
+KV caches, the current token, the position and the prompt length as device
+scalars, the sequences, scores, eos flags and forced tokens. The model
+keeps one such set and its graph, for one (batch, sampling config with
+max_length, output_scores, teacher forcing), and replaces it when a call
+changes them, as the reference's ``update_graph_cache`` does; each call's
+prefill writes into those caches in place. On the CPU, or with
+``cg=False``, the same step runs eagerly on fresh caches that the call
+frees: the plain path and the graph's oracle."""
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
+
+from flash_attn_tpu_torch.serving.graphs import CapturedProgram
 
 __all__ = ["GenerationConfig", "decode", "sample_token"]
 
@@ -48,11 +64,83 @@ def sample_token(logits, generator: Optional[torch.Generator],
     return torch.multinomial(probs, 1, generator=generator).squeeze(-1)
 
 
+@dataclasses.dataclass
+class _DecodeState:
+    """The static buffers of one decode shape and the graph over them."""
+    key: tuple                   # (b, cfg, output_scores, forced)
+    cache: List                  # per-layer KVCache, filled by each prefill
+    tok: torch.Tensor            # (b,) int64, the last token
+    pos: torch.Tensor            # (1,) int64, the position it is written at
+    prompt_len: torch.Tensor     # (1,) int64
+    seqs: torch.Tensor           # (b, max_length) int64
+    scores: Optional[torch.Tensor]   # (rows, b, vocab) fp32
+    done: Optional[torch.Tensor]     # (b,) bool, eos reached
+    teacher: Optional[torch.Tensor]  # (b, max_length) int64, forced tokens
+    generator: Optional[torch.Generator]
+    graph: Optional[CapturedProgram]
+
+
+def _new_state(model, key, cache, score_rows: int, sampled: bool,
+               graphed: bool, device) -> _DecodeState:
+    b, cfg, output_scores, forced = key
+    max_len = cfg.max_length
+
+    def zeros(*shape, dtype=torch.long):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    gen = torch.Generator(device=device) if sampled and graphed else None
+    return _DecodeState(
+        key=key, cache=cache, tok=zeros(b), pos=zeros(1),
+        prompt_len=zeros(1), seqs=zeros(b, max_len),
+        scores=(zeros(score_rows, b, model.config.vocab_size,
+                      dtype=torch.float32) if output_scores else None),
+        done=zeros(b, dtype=torch.bool) if cfg.eos_token_id is not None
+        else None,
+        teacher=zeros(b, max_len) if forced else None, generator=gen,
+        graph=CapturedProgram(() if gen is None else (gen,))
+        if graphed else None)
+
+
+def _graphed_state(model, key, sampled: bool, device) -> _DecodeState:
+    """The model's one graphed decode state: kept while calls keep its key,
+    replaced, the old buffers and graph freed first, when the key changes
+    (the reference's ``update_graph_cache``). The prompt length is not in
+    the key: it is a device scalar that each prefill writes."""
+    st = getattr(model, "_decode_state", None)
+    if st is not None and st.key == key:
+        return st
+    model._decode_state = st = None
+    st = _new_state(model, key, model.allocate_cache(key[0]),
+                    key[1].max_length - 1, sampled, True, device)
+    model._decode_state = st
+    return st
+
+
+def _decode_step(model, st: _DecodeState, cfg: GenerationConfig,
+                 generator: Optional[torch.Generator]) -> None:
+    """One token of every row, in place on ``st``'s buffers, with no host
+    read: the step that a graph captures."""
+    logits = model(st.tok[:, None], mode="decode", cache=st.cache)[:, -1]
+    nxt = sample_token(logits, generator, cfg)
+    if st.teacher is not None:
+        nxt = st.teacher.index_select(1, st.pos)[:, 0]
+    if st.done is not None:
+        nxt = torch.where(st.done, cfg.eos_token_id, nxt)
+        st.done |= nxt == cfg.eos_token_id
+    st.seqs.index_copy_(1, st.pos, nxt[:, None])
+    if st.scores is not None:
+        st.scores.index_copy_(0, st.pos - st.prompt_len, logits[None])
+    st.tok.copy_(nxt)
+    st.pos += 1
+
+
 @torch.inference_mode()
 def decode(input_ids, model, cfg: GenerationConfig,
            generator: Optional[torch.Generator] = None,
-           output_scores: bool = False, teacher_outputs=None):
-    """Prefill + token loop over ``model`` (a GPTLMHeadModel).
+           output_scores: bool = False, teacher_outputs=None,
+           cg: Optional[bool] = None):
+    """Prefill + token loop over ``model`` (a GPTLMHeadModel on a linear
+    cache).
 
     Returns (sequences (b, max_length) int64, final length); with
     ``output_scores`` also the per-step logits (max_new_tokens, b, vocab)
@@ -60,45 +148,68 @@ def decode(input_ids, model, cfg: GenerationConfig,
     (unreached steps are zero). ``teacher_outputs`` (b, >= max_length)
     forces the tokens. After the prefill token there are
     max_length - prompt_len - 1 decode steps, fewer when every row has
-    emitted ``eos_token_id``."""
+    emitted ``eos_token_id`` (read on the host after each step).
+
+    ``cg`` (default: on the card) replays a CUDA graph of the decode step;
+    ``cg=False`` runs the same step eagerly on fresh caches, the graph's
+    oracle. The graph and its static buffers (a full KV cache) stay on the
+    model for the next call with the same batch, config, output_scores and
+    teacher forcing, whatever its prompt length; a call with another of
+    these replaces them. The graph reads the model's weights where they lay
+    when it was captured: after rebinding them
+    (``load_state_dict(assign=True)``), set ``model._decode_state = None``.
+    A sampling ``generator`` advances as it would eagerly; without one,
+    sampling draws from a generator seeded with 0 at each call."""
     b, prompt_len = input_ids.shape
     max_len = cfg.max_length
     device = input_ids.device
-    if generator is None and not (cfg.top_k == 1 and cfg.top_p == 0.0):
+    graphed = device.type == "cuda" if cg is None else cg
+    if graphed and device.type != "cuda":
+        raise ValueError("decode(cg=True) needs the input on the CUDA card")
+    sampled = not (cfg.top_k == 1 and cfg.top_p == 0.0)
+    if sampled and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    key = (b, cfg, output_scores, teacher_outputs is not None)
+    if graphed:
+        st = _graphed_state(model, key, sampled, device)
+    else:  # fresh caches and buffers, freed when the call returns
+        st = _new_state(model, key, model.new_cache(), max_len - prompt_len,
+                        sampled, False, device)
+    gen = generator
+    if st.generator is not None:
+        # the graph's registered generator takes over the caller's stream
+        st.generator.set_state(generator.get_state())
+        gen = st.generator
 
-    cache = model.new_cache()
     last = torch.full((b,), prompt_len - 1, dtype=torch.long, device=device)
-    logits = model(input_ids, mode="prefill", cache=cache,
+    logits = model(input_ids, mode="prefill", cache=st.cache,
                    logits_positions=last)[:, -1]
-    tok = sample_token(logits, generator, cfg)
+    tok = sample_token(logits, gen, cfg)
     if teacher_outputs is not None:
-        tok = teacher_outputs[:, prompt_len].to(device, torch.long)
-    seqs = torch.zeros((b, max_len), dtype=torch.long, device=device)
-    seqs[:, :prompt_len] = input_ids
-    seqs[:, prompt_len] = tok
-    scores = None
+        st.teacher.copy_(teacher_outputs[:, :max_len])
+        tok = st.teacher[:, prompt_len]
+    st.seqs.zero_()
+    st.seqs[:, :prompt_len] = input_ids
+    st.seqs[:, prompt_len] = tok
     if output_scores:
-        scores = torch.zeros((max_len - prompt_len, b, logits.shape[-1]),
-                             dtype=torch.float32, device=device)
-        scores[0] = logits
+        st.scores.zero_()
+        st.scores[0] = logits
     eos = cfg.eos_token_id
-    done = (tok == eos) if eos is not None else None
+    if eos is not None:
+        st.done.copy_(tok == eos)
+    st.tok.copy_(tok)
+    st.pos.fill_(prompt_len + 1)
+    st.prompt_len.fill_(prompt_len)
 
     pos = prompt_len + 1
-    while pos < max_len and not (eos is not None and bool(done.all())):
-        logits = model(tok[:, None], mode="decode", cache=cache)[:, -1]
-        nxt = sample_token(logits, generator, cfg)
-        if teacher_outputs is not None:
-            nxt = teacher_outputs[:, pos].to(device, torch.long)
-        if eos is not None:
-            nxt = torch.where(done, eos, nxt)
-            done = done | (nxt == eos)
-        seqs[:, pos] = nxt
-        if output_scores:
-            scores[pos - prompt_len] = logits
-        tok = nxt
+    while pos < max_len and not (eos is not None and bool(st.done.all())):
+        if graphed:
+            st.graph(lambda: _decode_step(model, st, cfg, gen))
+        else:
+            _decode_step(model, st, cfg, gen)
         pos += 1
+    if st.generator is not None:
+        generator.set_state(st.generator.get_state())
     if output_scores:
-        return seqs, pos, scores
-    return seqs, pos
+        return st.seqs.clone(), pos, st.scores[:max_len - prompt_len].clone()
+    return st.seqs.clone(), pos

@@ -41,26 +41,34 @@ def params():
                       jnp.zeros((1, 8), jnp.int32))["params"]
 
 
-def _engines(params, num_pages=0, max_batch=2, eos=None, **kw):
-    """A JAX engine and the port's over the same weights and options:
-    linear with num_pages 0, else paged over pools of num_pages pages."""
+def _port_engine(params, num_pages=0, max_batch=2, eos=None, **kw):
+    """The port's engine over JAX's weights: linear with num_pages 0, else
+    paged over a pool of num_pages pages."""
     fields = dict(FIELDS)
     if num_pages:
         fields.update(paged_kv_num_pages=num_pages, paged_kv_page_size=PAGE)
     tmodel = GPTLMHeadModel(GPTConfig(dtype=torch.float32, **fields),
                             device="cpu")
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
+    return InferenceEngine(tmodel, max_batch,
+                           GenerationConfig(top_k=1, eos_token_id=eos),
+                           page_pool=(PagePool(num_pages, PAGE, MPPS, max_batch)
+                                      if num_pages else None),
+                           device="cpu", **kw)
+
+
+def _engines(params, num_pages=0, max_batch=2, eos=None, **kw):
+    """A JAX engine and the port's over the same weights and options:
+    linear with num_pages 0, else paged over pools of num_pages pages."""
+    fields = dict(FIELDS)
+    if num_pages:
+        fields.update(paged_kv_num_pages=num_pages, paged_kv_page_size=PAGE)
     jeng = JaxEngine(JaxGPTLMHeadModel(JaxGPTConfig(dtype=jnp.float32,
                                                     **fields)),
                      params, max_batch, JaxGenConfig(top_k=1, eos_token_id=eos),
                      page_pool=(JaxPagePool(num_pages, PAGE, MPPS, max_batch)
                                 if num_pages else None), **kw)
-    teng = InferenceEngine(tmodel, max_batch,
-                           GenerationConfig(top_k=1, eos_token_id=eos),
-                           page_pool=(PagePool(num_pages, PAGE, MPPS, max_batch)
-                                      if num_pages else None),
-                           device="cpu", **kw)
-    return jeng, teng
+    return jeng, _port_engine(params, num_pages, max_batch, eos, **kw)
 
 
 def _pool_state(pool):
@@ -271,13 +279,10 @@ def test_engine_is_freed_by_refcount(params):
 
 
 def test_engine_refusals(params):
-    """Speculative rounds are not ported; a pool and a model must agree on
-    the paged cache; the default device is the card."""
+    """A pool and a model must agree on the paged cache; the default device
+    is the card."""
     tmodel = GPTLMHeadModel(GPTConfig(dtype=torch.float32, **FIELDS),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A, item 3a"):
-        InferenceEngine(tmodel, 2, GenerationConfig(), draft_model=tmodel,
-                        device="cpu")
     with pytest.raises(ValueError, match="page pool"):
         InferenceEngine(tmodel, 2, GenerationConfig(),
                         page_pool=PagePool(10, PAGE, MPPS, 2), device="cpu")
@@ -289,3 +294,102 @@ def test_engine_refusals(params):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             InferenceEngine(tmodel, 2, GenerationConfig())
+
+
+DRAFT_FIELDS = dict(FIELDS, n_embd=32, n_layer=1, n_head=2)
+
+
+@pytest.fixture(scope="module")
+def draft_params():
+    model = JaxGPTLMHeadModel(JaxGPTConfig(dtype=jnp.float32,
+                                           **DRAFT_FIELDS))
+    return model.init(jax.random.PRNGKey(42),
+                      jnp.zeros((1, 8), jnp.int32))["params"]
+
+
+def _draft(draft_params):
+    """The JAX draft (model, params) and the port's over the same
+    weights: 1 layer of half the target's width, so that it proposes
+    tokens the target rejects."""
+    jdraft = JaxGPTLMHeadModel(JaxGPTConfig(dtype=jnp.float32,
+                                            **DRAFT_FIELDS))
+    tdraft = GPTLMHeadModel(GPTConfig(dtype=torch.float32, **DRAFT_FIELDS),
+                            device="cpu")
+    load_jax_params(tdraft, jax.tree_util.tree_map(np.asarray, draft_params))
+    return jdraft, tdraft
+
+
+@pytest.mark.parametrize("num_pages", [0, 2 * MPPS + 8],
+                         ids=["linear", "paged"])
+def test_speculative_engine_matches_jax(params, draft_params, num_pages):
+    """Speculative rounds (k = 3) over a linear or a paged target cache,
+    with staggered admissions and slot reuse: the JAX engine's tokens and
+    page accounting (the k + 1 page margin), and the port's plain greedy
+    engine's tokens (the acceptance test is lossless under greedy)."""
+    jdraft, tdraft = _draft(draft_params)
+    jobs = _jobs(29, [(6, 9), (4, 5), (8, 12), (3, 7), (5, 3)])
+    fields = dict(FIELDS)
+    if num_pages:
+        fields.update(paged_kv_num_pages=num_pages, paged_kv_page_size=PAGE)
+    jeng_spec = JaxEngine(
+        JaxGPTLMHeadModel(JaxGPTConfig(dtype=jnp.float32, **fields)), params,
+        2, JaxGenConfig(top_k=1),
+        page_pool=JaxPagePool(num_pages, PAGE, MPPS, 2) if num_pages else None,
+        draft_model=jdraft, draft_params=draft_params, speculative_k=3)
+    teng_spec = _port_engine(params, num_pages, draft_model=tdraft,
+                             speculative_k=3)
+    want = _submit_and_run(jeng_spec, jobs)
+    got = _submit_and_run(teng_spec, jobs)
+    assert got == want
+    assert got == _submit_and_run(_port_engine(params, num_pages), jobs)
+    _assert_same_state(jeng_spec, teng_spec)
+    if num_pages:
+        assert len(teng_spec.pool.free) == num_pages - 1
+    assert not teng_spec._offsets().any()
+    assert not teng_spec.draft_cache[0].offset.any()
+
+
+def test_speculative_engine_with_the_target_as_draft(params):
+    """The target as its own draft (its weights, a linear cache of its
+    own): every round of a lone request commits k + 1 tokens, and the
+    tokens are the plain engine's, with warmup() run first and an eos that
+    ends a request inside a round."""
+    jobs = _jobs(30, [(5, 11), (7, 6)])
+    plain = _port_engine(params)
+    want = _submit_and_run(plain, jobs)
+    spec = _port_engine(params, draft_model=plain.model, speculative_k=4)
+    spec.warmup(prefill_shapes=[(2, 16)])
+    assert not spec._offsets().any()
+    rounds = []
+    spec._spec_round = lambda *a, f=spec._spec_round: rounds.append(1) or f(*a)
+    ids = [spec.submit(p, max_new_tokens=m) for p, m in jobs[:1]]
+    spec.step()  # admission: the prefill token, then one round
+    assert len(spec.requests[ids[0]].generated) == 1 + 5
+    res = spec.run()
+    assert res[ids[0]] == want[0] and len(rounds) == 2  # 1 + 5 + 5 = 11
+    del spec._spec_round
+    eos = want[1][3]
+    plain_eos = _port_engine(params, eos=eos)
+    spec_eos = _port_engine(params, eos=eos, draft_model=plain.model,
+                            speculative_k=4)
+    assert _submit_and_run(spec_eos, jobs) == _submit_and_run(plain_eos, jobs)
+    assert spec_eos.requests[1].generated[-1] == eos
+
+
+def test_speculative_engine_refusals(params):
+    """A draft needs a linear cache of its own and excludes prefix
+    caching; graphs need the card."""
+    tmodel = GPTLMHeadModel(GPTConfig(dtype=torch.float32, **FIELDS),
+                            device="cpu")
+    paged = GPTLMHeadModel(GPTConfig(dtype=torch.float32, **dict(
+        FIELDS, paged_kv_num_pages=10, paged_kv_page_size=PAGE)),
+        device="cpu")
+    with pytest.raises(ValueError, match="draft model"):
+        InferenceEngine(paged, 2, GenerationConfig(),
+                        page_pool=PagePool(10, PAGE, MPPS, 2),
+                        prefix_cache=True, draft_model=tmodel, device="cpu")
+    with pytest.raises(ValueError, match="draft model"):
+        InferenceEngine(tmodel, 2, GenerationConfig(), draft_model=paged,
+                        device="cpu")
+    with pytest.raises(ValueError, match="cg=True"):
+        InferenceEngine(tmodel, 2, GenerationConfig(), device="cpu", cg=True)

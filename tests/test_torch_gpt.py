@@ -104,3 +104,65 @@ def test_top_k_sampling_properties(models):
     picks = torch.stack([sample_token(logits, torch.Generator().manual_seed(s),
                                       cfg) for s in range(20)])
     assert (logits.topk(5).indices[None] == picks[..., None]).any(-1).all()
+
+
+def test_eos_decode_matches_jax(models):
+    """With eos_token_id, a row that emits it is padded with it and the
+    loop stops when every row has: the same sequences and final length as
+    JAX's while_loop. The eos is a token the first row emits early."""
+    jmodel, params, tmodel, ids = models
+    probe, _ = decode(torch.from_numpy(ids).long(), tmodel,
+                      GenerationConfig(max_length=MAX_LEN))
+    eos = int(probe[0, PROMPT + 2])
+    seqs_j, len_j = jax_decode(jnp.asarray(ids), jmodel, params,
+                               JaxGenConfig(max_length=MAX_LEN,
+                                            eos_token_id=eos))
+    seqs_t, len_t = decode(torch.from_numpy(ids).long(), tmodel,
+                           GenerationConfig(max_length=MAX_LEN,
+                                            eos_token_id=eos))
+    np.testing.assert_array_equal(seqs_t.numpy(), np.asarray(seqs_j))
+    assert len_t == int(len_j)
+    assert (seqs_t[0, PROMPT + 2:] == eos).all()
+
+
+def test_decode_state_is_static_across_calls(models):
+    """The graphed decode keeps one set of static buffers on the model: a
+    later call with the same batch and config reuses it (the same caches,
+    by data_ptr) whatever its prompt length, and a call with another
+    config replaces it, so at most one set remains. The eager path (the
+    CPU's) keeps none: at two prompt lengths it prefills fresh caches and
+    gives JAX's tokens and scores (atol 1e-4, fp32) in tensors of the
+    caller's own. cg=True on the CPU raises."""
+    from flash_attn_tpu_torch.serving.generation import _graphed_state
+
+    jmodel, params, tmodel, ids = models
+    cfg = GenerationConfig(max_length=MAX_LEN)
+    tmodel._decode_state = None
+    st = _graphed_state(tmodel, (2, cfg, True, False), False, "cpu")
+    ptrs = [c.k.data_ptr() for c in st.cache] + [st.seqs.data_ptr()]
+    assert _graphed_state(tmodel, (2, cfg, True, False), False, "cpu") is st
+    assert [c.k.data_ptr() for c in st.cache] + [st.seqs.data_ptr()] == ptrs
+    assert st.scores.shape[0] == MAX_LEN - 1  # any prompt length fits
+    eos_cfg = dataclasses.replace(cfg, eos_token_id=3)
+    other = _graphed_state(tmodel, (2, eos_cfg, False, False), False, "cpu")
+    assert other is not st and tmodel._decode_state is other
+    tmodel._decode_state = None
+
+    results = []
+    for plen in (PROMPT, PROMPT - 3):
+        ids2 = np.random.default_rng(plen).integers(
+            0, 512, (2, plen)).astype(np.int32)
+        seqs_j, _, scores_j = jax_decode(jnp.asarray(ids2), jmodel, params,
+                                         JaxGenConfig(max_length=MAX_LEN),
+                                         output_scores=True)
+        seqs_t, _, scores_t = decode(torch.from_numpy(ids2).long(), tmodel,
+                                     cfg, output_scores=True)
+        assert getattr(tmodel, "_decode_state") is None
+        np.testing.assert_array_equal(seqs_t.numpy(), np.asarray(seqs_j))
+        assert scores_t.shape == (MAX_LEN - plen, 2, 512)
+        np.testing.assert_allclose(scores_t.numpy(), np.asarray(scores_j),
+                                   atol=1e-4, rtol=0)
+        results.append(seqs_t)
+    assert results[0].data_ptr() != results[1].data_ptr()
+    with pytest.raises(ValueError, match="cg=True"):
+        decode(torch.from_numpy(ids).long(), tmodel, cfg, cg=True)

@@ -142,3 +142,41 @@ def test_mha_prefill_then_decode_matches_jax():
     np.testing.assert_allclose(cache.k.numpy(), np.asarray(jc["k"]), **TOL)
     np.testing.assert_allclose(cache.v.numpy(), np.asarray(jc["v"]), **TOL)
     np.testing.assert_array_equal(cache.offset.numpy(), np.asarray(jc["offset"]))
+
+
+def test_mha_prefill_into_preallocated_cache_keeps_its_tensors():
+    """A prefill into a cache made up front (allocate_cache) writes the
+    keys, values and offsets in place: the cache keeps its tensors (a
+    captured decode graph reads them there), and prefill and decode give
+    JAX's outputs, twice over the same cache."""
+    rng = np.random.default_rng(4)
+    kw = dict(num_heads=4, num_heads_kv=2, causal=True, rotary_emb_dim=8,
+              max_decode_seqlen=40)
+    jm = JaxMHA(embed_dim=64, dtype=jnp.float32, **kw)
+    tm = MHA(64, dtype=torch.float32, device="cpu", **kw)
+    params = jm.init(jax.random.PRNGKey(1),
+                     jnp.asarray(_rand(rng, 2, 5, 64)))["params"]
+    _dense(tm.Wqkv, params["Wqkv"])
+    _dense(tm.out_proj, params["out_proj"])
+    cache = tm.allocate_cache(2)
+    ptrs = [t.data_ptr() for t in (cache.k, cache.v, cache.offset)]
+    for s in (9, 6):  # the second prefill is shorter than the first
+        x = _rand(rng, 2, s, 64)
+        out_j, state = jm.apply({"params": params}, jnp.asarray(x),
+                                mode="prefill", mutable=["cache"])
+        with torch.no_grad():
+            out_t = tm(_t(x), mode="prefill", cache=cache)
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+        for _ in range(2):
+            xt = _rand(rng, 2, 1, 64)
+            out_j, state = jm.apply(
+                {"params": params, "cache": state["cache"]}, jnp.asarray(xt),
+                mode="decode", mutable=["cache"])
+            with torch.no_grad():
+                out_t = tm(_t(xt), mode="decode", cache=cache)
+            np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                                       **TOL)
+        np.testing.assert_array_equal(cache.offset.numpy(),
+                                      np.asarray(state["cache"]["offset"]))
+        assert [t.data_ptr() for t in (cache.k, cache.v, cache.offset)] \
+            == ptrs

@@ -1620,3 +1620,273 @@ def test_probes_match_plain_versions_on_the_card():
         for got, want in zip(ov.overlap_probe(mode, 64),
                              ov.overlap_probe_plain(mode, 64)):
             torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_decode_at_speculative_widths_on_the_card(k, paged):
+    """B4 at sq = k + 1 (a speculative round's verify step) with GQA 16/4:
+    (k + 1) x 4 rows a KV head, more than one 8-row block from k = 3 on,
+    causal bottom-right, the appended keys included, against the fp32
+    plain version under the 2x rule (a bf16 reference's error)."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    b, h, h_k, d, sq = 4, 16, 4, 128, k + 1
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    lens = [sq, 37, 300, 511]
+    seqlens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if paged:
+        (kc, vc), table = _holed_pages(gen, lens, h_k, (d, d), 64,
+                                       torch.bfloat16)
+        kc, vc = torch.nan_to_num(kc), torch.nan_to_num(vc)
+        k_lin, v_lin = (paged_to_linear(x, table, seqlens) for x in (kc, vc))
+    else:
+        table = None
+        kc, vc = (torch.randn(b, h_k, 512, d, device="cuda", generator=gen)
+                  .to(torch.bfloat16) for _ in range(2))
+        k_lin, v_lin = kc, vc
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    for splits in (1, 3):
+        out, _ = flash_decode.flash_attention_decode(
+            q, kc, vc, seqlens, causal=True, num_splits=splits,
+            block_table=table)
+        ref, _ = flash_decode.flash_attention_decode(
+            q.float().cpu(), k_lin.float().cpu(), v_lin.float().cpu(),
+            seqlens.cpu(), causal=True, num_splits=splits)
+        keep = (torch.arange(k_lin.shape[2], device="cuda")[None]
+                < seqlens[:, None])
+        ref_lp, _ = attention_ref(q, k_lin.transpose(1, 2),
+                                  v_lin.transpose(1, 2),
+                                  key_padding_mask=keep, causal=True,
+                                  upcast=False)
+        check_against_ref(out, ref, ref_lp, msg=f"B4 sq={sq} paged={paged}")
+
+
+def _graph_model(paged: bool, seed: int = 0, n_layer: int = 2):
+    """A small GPT on the card with the kernels' widths (GQA 4/2, head dim
+    64, bf16), random weights from a seed; paged over 40 pages of 32."""
+    cfg = GPTConfig(vocab_size=512, n_positions=0, n_embd=256,
+                    n_layer=n_layer, n_head=4, n_head_kv=2,
+                    rotary_emb_fraction=1.0, use_rms_norm=True, glu_act=True,
+                    max_decode_seqlen=128, dtype=torch.bfloat16,
+                    paged_kv_num_pages=40 if paged else 0,
+                    paged_kv_page_size=32)
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(seed))
+    return model.requires_grad_(False)
+
+
+def _counts():
+    from flash_attn_tpu_torch.kernels import launch_counters
+
+    return {f"{mod.__name__}.{attr}": n
+            for (mod, attr), n in launch_counters().items()}
+
+
+def _counted(fn):
+    """fn()'s result and the kernel launches it counted."""
+    before = _counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {key: n - before[key] for key, n in _counts().items()
+                 if n != before[key]}
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("eos, scores, sampled", [
+    (False, False, False), (False, True, False), (True, True, False),
+    (False, False, True)], ids=["greedy", "scores", "eos+scores", "sampled"])
+def test_graphed_static_decode_equals_eager_on_the_card(eos, scores,
+                                                        sampled):
+    """decode() replaying its captured step gives the eager step's tokens
+    and scores bitwise, and counts the same launches (the graph adds what
+    capture recorded at each replay); a second call replays the same graph
+    over the same static buffers. Sampling draws from a seeded generator,
+    registered with the graph, in the same order as eagerly."""
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    model = _graph_model(False)
+    ids = torch.randint(0, 512, (3, 20), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    eos_id = None
+    if eos:  # a token that row 0 emits early
+        probe, _ = decode(ids, model, GenerationConfig(max_length=48))
+        eos_id = int(probe[0, 23])
+    cfg = GenerationConfig(max_length=48, eos_token_id=eos_id,
+                           top_k=8 if sampled else 1, temperature=0.8)
+
+    def run(cg):
+        gen = (torch.Generator(device="cuda").manual_seed(5) if sampled
+               else None)
+        return decode(ids, model, cfg, generator=gen, output_scores=scores,
+                      cg=cg)
+
+    want, n_eager = _counted(lambda: run(False))
+    got, n_graph = _counted(lambda: run(True))
+    again, n_again = _counted(lambda: run(True))
+    assert n_eager == n_graph == n_again and n_eager
+    for x, y, z in zip(want, got, again):
+        assert x == y == z if isinstance(x, int) else (
+            torch.equal(x, y) and torch.equal(x, z))
+    st = model._decode_state  # the eos probe's was replaced
+    assert st.key[1] == cfg and st.graph.captured
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_graphed_decode_keeps_one_state_on_the_card():
+    """Graphed decode at several prompt lengths keeps one state on the
+    model and replays one graph (captured once): the allocated memory after
+    each later call is what the first left, and a call with another config
+    replaces the state instead of adding one. Each call's tokens equal the
+    eager decode's."""
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    model = _graph_model(False)
+    gen = torch.Generator().manual_seed(1)
+    cfg = GenerationConfig(max_length=48)
+    base = None
+    for plen in (20, 7, 33, 20):
+        # the prompts stay on the host, so that only decode's own memory
+        # is counted
+        ids = torch.randint(0, 512, (3, plen), generator=gen)
+        got = decode(ids.cuda(), model, cfg, output_scores=True)
+        want = decode(ids.cuda(), model, cfg, output_scores=True, cg=False)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        del got, want
+        torch.cuda.synchronize()
+        st = model._decode_state
+        if base is None:
+            base, graph = torch.cuda.memory_allocated(), st.graph.graph
+        assert st.graph.graph is graph
+        assert torch.cuda.memory_allocated() <= base
+    del st, graph  # the replaced state must be free to go
+    decode(ids.cuda(), model, GenerationConfig(max_length=48,
+                                               eos_token_id=5))
+    torch.cuda.synchronize()
+    assert model._decode_state.key[1].eos_token_id == 5
+    assert torch.cuda.memory_allocated() <= base
+
+
+def _engine(model, cg, prefix=False, draft=None, k=3):
+    from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
+    from flash_attn_tpu_torch.serving.generation import GenerationConfig
+
+    cfg = model.config
+    pool = (PagePool(cfg.paged_kv_num_pages, cfg.paged_kv_page_size, 4, 4)
+            if cfg.paged_kv_num_pages else None)
+    return InferenceEngine(model, 4, GenerationConfig(top_k=1), page_pool=pool,
+                           decode_block_size=4, prefix_cache=prefix,
+                           draft_model=draft, speculative_k=k, cg=cg)
+
+
+def _engine_jobs(seed, shared=0):
+    rng = torch.Generator().manual_seed(seed)
+    common = torch.randint(0, 512, (shared,), generator=rng).tolist()
+    return [(common + torch.randint(0, 512, (int(n),), generator=rng).tolist(),
+             int(m)) for n, m in [(9, 12), (40, 7), (17, 20), (5, 9), (33, 11),
+                                  (12, 6)]]
+
+
+def _serve(eng, jobs, warm=True):
+    def run():
+        if warm:
+            eng.warmup(prefill_shapes=[(4, 64)])
+        ids = [eng.submit(p, max_new_tokens=m) for p, m in jobs]
+        res = eng.run()
+        return [res[i] for i in ids]
+    return _counted(run)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("mode", ["linear", "paged", "prefix"])
+def test_graphed_engine_blocks_equal_eager_on_the_card(mode):
+    """The engine's decode block captured by warmup() and replayed gives the
+    eager block's tokens and launch counts, over a linear cache, a paged
+    one and a prefix-cached one (whose admissions share a 32-token page
+    and run B8), with slot reuse and requests ending mid-block; every page
+    returns."""
+    model = _graph_model(mode != "linear")
+    jobs = _engine_jobs(2, shared=40 if mode == "prefix" else 0)
+    runs = []
+    for cg in (False, True):
+        eng = _engine(model, cg, prefix=mode == "prefix")
+        runs.append(_serve(eng, jobs))
+        if cg:
+            assert set(eng._graphs) == {"decode_block"}
+            assert eng._graphs["decode_block"].captured
+        if eng.pool is not None:
+            pool = eng.pool
+            assert not pool.rc and len(pool.free) + len(pool.retained) == 39
+    (want, n_eager), (got, n_graph) = runs
+    assert got == want and n_graph == n_eager
+    assert [len(t) for t in got] == [m for _, m in jobs]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+def test_graphed_speculative_round_equals_eager_on_the_card(paged):
+    """The speculative round (k = 3 draft steps, the first at sq = 2, a
+    verify at sq = 4 through B4, the acceptance and both caches' rewinds)
+    captured by warmup() and replayed gives the eager round's tokens and
+    launches, and the plain greedy engine's tokens."""
+    model = _graph_model(paged)
+    draft = _graph_model(False, seed=7, n_layer=1)
+    jobs = _engine_jobs(3)
+    plain, _ = _serve(_engine(model, True), jobs)
+    runs = []
+    for cg in (False, True):
+        eng = _engine(model, cg, draft=draft)
+        runs.append(_serve(eng, jobs))
+        if cg:
+            assert set(eng._graphs) == {"spec_round"}
+    (want, n_eager), (got, n_graph) = runs
+    assert got == want == plain and n_graph == n_eager
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_close_then_new_traffic_recaptures_on_the_card():
+    """close() drops the caches and the graphs over them: the next traffic
+    allocates new caches and captures a new graph (no replay of the old
+    one over freed buffers), with the same tokens."""
+    model = _graph_model(True)
+    eng = _engine(model, True)
+    jobs = _engine_jobs(4)
+    first, _ = _serve(eng, jobs, warm=False)
+    old = eng._graphs["decode_block"]
+    eng.close()
+    assert eng.cache is None and not eng._graphs
+    second, _ = _serve(eng, jobs, warm=False)
+    assert eng._graphs["decode_block"] is not old and second == first
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_capture_failure_raises_on_the_card():
+    """A program that reads the device from the host cannot be captured:
+    the capture raises (nothing falls back to eager), the caller's stream
+    is the current one again, and a later program captures and replays on
+    the same capture stream."""
+    from flash_attn_tpu_torch.serving.graphs import CapturedProgram
+
+    x = torch.ones(4, device="cuda")
+    stream = torch.cuda.current_stream()
+    prog = CapturedProgram()
+    with pytest.raises(RuntimeError):
+        prog(lambda t: t * float(t.sum()), x)
+    assert not prog.captured and torch.cuda.current_stream() == stream
+    assert float((x * 2).sum()) == 8.0
+    again = CapturedProgram()  # the shared capture stream is usable again
+    for _ in range(2):  # captured, then replayed
+        assert torch.equal(again(lambda t: t * 2, x), x * 2)
