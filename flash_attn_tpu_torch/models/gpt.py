@@ -1,14 +1,16 @@
 """GPT-family model (port of flash_attn_tpu/models/gpt.py ``GPTConfig``,
-``GPTModel``, ``GPTLMHeadModel``, ``lm_head_weights``).
+``GPTModel``, ``GPTLMHeadModel``, ``_NormHead``, ``lm_head_weights``).
 
-The configuration carries the JAX package's fields; the port runs the ones
-of the serving, training and engine slices (rotary, RMSNorm/LayerNorm,
-gated or plain MLP, GQA, tied or untied head, muP scalars, the paged
-cache) and raises NotImplementedError for the rest. Parameters mirror flax's values: the
+The configuration carries the JAX package's fields; the port runs rotary
+or learned positions, RMSNorm/LayerNorm, gated or plain MLP, GQA, the
+sequential and the parallel block (tied or untied norms), a tied, untied
+or NormHead head, the muP scalars and the paged cache, and raises
+NotImplementedError for the rest. Parameters mirror flax's values: the
 Dense and embedding weights in the compute type (flax keeps them in fp32
 and casts them to it at every call, which gives the same values), the norm
 weights in fp32. Training keeps fp32 master copies beside them
-(training/trainer.py).
+(training/trainer.py). The HF checkpoint remaps of models/llama.py and
+models/hf_adapters.py give state dicts in this model's parameter names.
 """
 
 import dataclasses
@@ -19,14 +21,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flash_attn_tpu_torch.modules.block import Block
+from flash_attn_tpu_torch.modules.block import Block, ParallelBlock
+from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
 from flash_attn_tpu_torch.modules.mha import MHA, KVCache
 from flash_attn_tpu_torch.modules.mlp import GatedMlp, Mlp
 from flash_attn_tpu_torch.ops.activations import gelu_approx, sqrelu
 from flash_attn_tpu_torch.ops.norm import layer_norm, rms_norm
 from flash_attn_tpu_torch.utils.device import resolve_device
 
-__all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "gpt_913m",
+__all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "NormHead", "gpt_913m",
            "jax_param_arrays", "lm_head_weights", "load_jax_params",
            "reset_flax_defaults"]
 
@@ -88,22 +91,25 @@ def gpt_913m(max_decode_seqlen: int = 0, dtype=torch.bfloat16) -> GPTConfig:
 
 def _check_ported(cfg: GPTConfig) -> None:
     missing = {
-        "n_positions (learned position embeddings)": cfg.n_positions > 0,
-        "parallel_block": cfg.parallel_block,
-        "use_alibi": cfg.use_alibi,
-        "window_size": tuple(cfg.window_size) != (-1, -1),
-        "softcap": cfg.softcap > 0.0,
-        "norm_head": cfg.norm_head,
+        "use_alibi (ROADMAP.md queue A item 7)": cfg.use_alibi,
+        "window_size (queue A item 7)": tuple(cfg.window_size) != (-1, -1),
+        "softcap (queue A item 7)": cfg.softcap > 0.0,
         "kv_cache_dtype (quantized caches, ROADMAP.md queue A item 7)":
             cfg.kv_cache_dtype is not None,
-        "context_parallel": cfg.context_parallel,
-        "sequence_parallel": cfg.sequence_parallel,
-        "remat (activation rematerialization)": cfg.remat,
+        "context_parallel (queue A item 8)": cfg.context_parallel,
+        "sequence_parallel (queue A item 8)": cfg.sequence_parallel,
+        "remat (activation rematerialization, queue A item 2b)": cfg.remat,
     }
     bad = [name for name, on in missing.items() if on]
     if bad:
         raise NotImplementedError(
             f"GPTConfig options not ported yet: {', '.join(bad)}")
+    if cfg.n_positions > 0 and cfg.max_decode_seqlen > cfg.n_positions:
+        # JAX would read past the position table (ROADMAP.md, the
+        # differences from the reference)
+        raise ValueError(
+            f"GPTConfig: max_decode_seqlen {cfg.max_decode_seqlen} exceeds "
+            f"the {cfg.n_positions} learned positions")
 
 
 def _make_mlp(cfg: GPTConfig, device):
@@ -142,19 +148,29 @@ def _make_mixer(cfg: GPTConfig, device):
         device=device)
 
 
+def _make_block(cfg: GPTConfig, device):
+    mixer, mlp = _make_mixer(cfg, device), _make_mlp(cfg, device)
+    if cfg.parallel_block:
+        return ParallelBlock(cfg.n_embd, mixer, mlp,
+                             use_rms_norm=cfg.use_rms_norm,
+                             norm_epsilon=cfg.norm_epsilon,
+                             tied_norm=cfg.parallel_block_tied_norm,
+                             device=device)
+    return Block(cfg.n_embd, mixer, mlp, use_rms_norm=cfg.use_rms_norm,
+                 norm_epsilon=cfg.norm_epsilon, device=device)
+
+
 class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         _check_ported(config)
         device = resolve_device(device)
         cfg = self.config = config
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.n_embd,
-                                            dtype=cfg.dtype, device=device)
-        self.layers = nn.ModuleList(
-            Block(cfg.n_embd, _make_mixer(cfg, device), _make_mlp(cfg, device),
-                  use_rms_norm=cfg.use_rms_norm, norm_epsilon=cfg.norm_epsilon,
-                  device=device)
-            for _ in range(cfg.n_layer))
+        self.embeddings = GPT2Embeddings(cfg.n_embd, cfg.vocab_size,
+                                         cfg.n_positions, dtype=cfg.dtype,
+                                         device=device)
+        self.layers = nn.ModuleList(_make_block(cfg, device)
+                                    for _ in range(cfg.n_layer))
         self.ln_f_weight = nn.Parameter(
             torch.ones(cfg.n_embd, dtype=torch.float32, device=device))
         self.ln_f_bias = (None if cfg.use_rms_norm else nn.Parameter(
@@ -172,12 +188,42 @@ class GPTModel(nn.Module):
         configuration; the offsets (n_slots,) of every slot."""
         return [block.mixer.allocate_cache(n_slots) for block in self.layers]
 
+    def positions(self, input_ids, mode: str,
+                  cache: Optional[List[KVCache]] = None, prefix_lengths=None):
+        """The learned-position ids of ``input_ids`` (b, s), from device
+        tensors only, so that a captured decode program recomputes them at
+        every replay: ``arange(s)`` in train mode and a plain prefill;
+        prefix_lengths + arange(s) in a prefix-cached admission; the
+        cache offsets (layer 0's, before this call appends) + arange(s) in
+        decode (JAX embeds every decoded token at position 0,
+        models/gpt.py:120). Positions that come from the device are
+        clamped to the table: only rows whose cache is full or unused reach
+        past it, and an index past the table would fault the card."""
+        s = input_ids.shape[1]
+        n = self.config.n_positions
+        pos = torch.arange(s, device=input_ids.device)
+        if mode == "decode":
+            start = cache[0].offset
+        elif prefix_lengths is not None:
+            start = prefix_lengths
+        else:
+            if s > n:
+                raise ValueError(f"GPTModel: {s} tokens exceed the {n} "
+                                 "learned positions")
+            return pos[None]
+        start = start.to(input_ids.device, torch.long)
+        return (start[:, None] + pos).clamp_(max=n - 1)
+
     def forward(self, input_ids, mode: str = "train",
                 cache: Optional[List[KVCache]] = None, **mixer_kwargs):
         """``mixer_kwargs`` go to every layer's MHA: slot_ids,
         prefill_lengths, prefix_lengths, block_table."""
         cfg = self.config
-        hidden = self.word_embeddings(input_ids)
+        position_ids = None
+        if cfg.n_positions > 0:
+            position_ids = self.positions(input_ids, mode, cache,
+                                          mixer_kwargs.get("prefix_lengths"))
+        hidden = self.embeddings(input_ids, position_ids)
         if cfg.mup_embeddings_multiplier != 1.0:
             hidden = hidden * cfg.mup_embeddings_multiplier
         residual = None
@@ -202,9 +248,11 @@ class GPTLMHeadModel(nn.Module):
         device = resolve_device(device)
         self.config = config
         self.transformer = GPTModel(config, device=device)
-        self.lm_head = (None if config.tie_word_embeddings else nn.Linear(
-            config.n_embd, config.vocab_size, bias=False, dtype=config.dtype,
-            device=device))
+        self.lm_head = None
+        if not config.tie_word_embeddings:
+            head = NormHead if config.norm_head else nn.Linear
+            self.lm_head = head(config.n_embd, config.vocab_size, bias=False,
+                                dtype=config.dtype, device=device)
 
     def new_cache(self) -> List[KVCache]:
         return self.transformer.new_cache()
@@ -229,7 +277,6 @@ class GPTLMHeadModel(nn.Module):
         engine's ``slot_ids``, ``prefill_lengths``, ``prefix_lengths`` and
         ``block_table`` go to every layer's MHA (see
         :meth:`flash_attn_tpu_torch.modules.mha.MHA.forward`)."""
-        cfg = self.config
         kw = {name: val for name, val in (
             ("slot_ids", slot_ids), ("prefill_lengths", prefill_lengths),
             ("prefix_lengths", prefix_lengths), ("block_table", block_table))
@@ -239,9 +286,16 @@ class GPTLMHeadModel(nn.Module):
             idx = logits_positions.to(hidden.device, torch.long)
             hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device),
                             idx][:, None]
+        return self.logits(hidden)
+
+    def logits(self, hidden):
+        """fp32 logits of final hidden states (:meth:`forward_hidden`'s, or
+        a selection of them), computed in the compute type."""
+        cfg = self.config
         hidden = hidden.to(cfg.dtype)
         if self.lm_head is None:
-            logits = F.linear(hidden, self.transformer.word_embeddings.weight)
+            logits = F.linear(hidden,
+                              self.transformer.embeddings.word_embeddings.weight)
         else:
             logits = self.lm_head(hidden)
         logits = logits.float()
@@ -255,6 +309,21 @@ class GPTLMHeadModel(nn.Module):
         (:func:`reset_flax_defaults`)."""
         reset_flax_defaults(self, generator, lambda name: "norm" in name
                             or name.startswith("transformer.ln_f"))
+
+
+class NormHead(nn.Linear):
+    """An untied lm_head whose rows (one a vocabulary entry) are scaled to
+    unit L2 norm, in fp32, at every call (Baichuan-2's NormHead; JAX
+    ``_NormHead``, models/gpt.py:266, normalises its (d, vocab) kernel's
+    columns)."""
+
+    def normalized_weight(self):
+        w = self.weight.float()
+        return (w / w.norm(dim=1, keepdim=True).clamp_min(1e-12)).to(
+            self.weight.dtype)
+
+    def forward(self, x):
+        return F.linear(x, self.normalized_weight())
 
 
 @torch.no_grad()
@@ -282,10 +351,13 @@ def lm_head_weights(model: GPTLMHeadModel):
     """The lm_head weight as ``(kernel, transpose_kernel)`` for
     :func:`flash_attn_tpu_torch.ops.cross_entropy.fused_linear_cross_entropy`:
     logits = hidden @ kernel.T. Tied: the (vocab, d) embedding table; untied:
-    the (vocab, d) Linear weight. Either way transpose_kernel is True (JAX
-    returns the untied Dense kernel as (d, vocab) with False)."""
+    the (vocab, d) Linear weight, normalised for a NormHead. Either way
+    transpose_kernel is True (JAX returns the untied Dense kernel as (d,
+    vocab) with False)."""
     if model.lm_head is None:
-        return model.transformer.word_embeddings.weight, True
+        return model.transformer.embeddings.word_embeddings.weight, True
+    if isinstance(model.lm_head, NormHead):
+        return model.lm_head.normalized_weight(), True
     return model.lm_head.weight, True
 
 
@@ -296,8 +368,12 @@ def jax_param_arrays(model: GPTLMHeadModel, params):
     (out, in)) and with their own values and types. Raises if the two do
     not name the same parameters."""
     tr = params["transformer"]
-    out = {"transformer.word_embeddings.weight":
-           tr["embeddings"]["word_embeddings"]["embedding"]}
+    emb = tr["embeddings"]
+    out = {"transformer.embeddings.word_embeddings.weight":
+           emb["word_embeddings"]["embedding"]}
+    if "position_embeddings" in emb:
+        out["transformer.embeddings.position_embeddings.weight"] = \
+            emb["position_embeddings"]["embedding"]
 
     def dense(name: str, lin: nn.Linear, p) -> None:
         out[f"{name}.weight"] = p["kernel"].T
@@ -307,8 +383,9 @@ def jax_param_arrays(model: GPTLMHeadModel, params):
     gm = model.transformer
     for i, block in enumerate(gm.layers):
         lp, pre = tr[f"layers_{i}"], f"transformer.layers.{i}"
-        for name in ("norm1_weight", "norm2_weight", "norm1_bias", "norm2_bias"):
-            if getattr(block, name) is not None:
+        for name in ("norm1_weight", "norm2_weight", "norm1_bias", "norm2_bias",
+                     "norm_weight", "norm_bias"):
+            if getattr(block, name, None) is not None:
                 out[f"{pre}.{name}"] = lp[name]
         dense(f"{pre}.mixer.Wqkv", block.mixer.Wqkv, lp["mixer"]["Wqkv"])
         dense(f"{pre}.mixer.out_proj", block.mixer.out_proj,

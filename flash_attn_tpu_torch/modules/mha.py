@@ -32,6 +32,7 @@ from flash_attn_tpu_torch.cache.kvcache import (
     flash_attn_with_kvcache,
     kv_cache_update,
 )
+from flash_attn_tpu_torch.dispatch.config import KERNEL_HEAD_DIMS
 from flash_attn_tpu_torch.interface import (
     flash_attn_func,
     flash_attn_varlen_func,
@@ -148,6 +149,12 @@ class MHA(nn.Module):
         already cached in each slot's shared pages, x carrying only the
         rest. A paged cache needs ``block_table`` (n_slots, max_pages) in
         prefill and decode."""
+        if x.is_cuda and self.head_dim not in KERNEL_HEAD_DIMS:
+            raise NotImplementedError(
+                f"MHA: head dim {self.head_dim} on the card; the kernels take "
+                f"{KERNEL_HEAD_DIMS} (others, such as GPT-J's 256 and "
+                "GPT-NeoX-20B's 96, are ROADMAP.md queue A, item 7; the CPU "
+                "runs any head dim)")
         if cu_seqlens is not None:
             return self._forward_packed(x, cu_seqlens, max_seqlen)
         if mode not in ("train", "prefill", "decode"):

@@ -1669,15 +1669,16 @@ def test_decode_at_speculative_widths_on_the_card(k, paged):
         check_against_ref(out, ref, ref_lp, msg=f"B4 sq={sq} paged={paged}")
 
 
-def _graph_model(paged: bool, seed: int = 0, n_layer: int = 2):
+def _graph_model(paged: bool, seed: int = 0, n_layer: int = 2, **fields):
     """A small GPT on the card with the kernels' widths (GQA 4/2, head dim
-    64, bf16), random weights from a seed; paged over 40 pages of 32."""
-    cfg = GPTConfig(vocab_size=512, n_positions=0, n_embd=256,
-                    n_layer=n_layer, n_head=4, n_head_kv=2,
-                    rotary_emb_fraction=1.0, use_rms_norm=True, glu_act=True,
-                    max_decode_seqlen=128, dtype=torch.bfloat16,
-                    paged_kv_num_pages=40 if paged else 0,
-                    paged_kv_page_size=32)
+    64, bf16), random weights from a seed; paged over 40 pages of 32.
+    ``fields`` replace the config's."""
+    cfg = GPTConfig(**{**dict(
+        vocab_size=512, n_positions=0, n_embd=256, n_layer=n_layer, n_head=4,
+        n_head_kv=2, rotary_emb_fraction=1.0, use_rms_norm=True,
+        glu_act=True, max_decode_seqlen=128, dtype=torch.bfloat16,
+        paged_kv_num_pages=40 if paged else 0, paged_kv_page_size=32),
+        **fields})
     model = GPTLMHeadModel(cfg, device="cuda")
     model.reset_parameters(torch.Generator(device="cuda").manual_seed(seed))
     return model.requires_grad_(False)
@@ -1890,3 +1891,116 @@ def test_capture_failure_raises_on_the_card():
     again = CapturedProgram()  # the shared capture stream is usable again
     for _ in range(2):  # captured, then replayed
         assert torch.equal(again(lambda t: t * 2, x), x * 2)
+
+
+# An OPT-shaped block: learned positions, LayerNorm, ReLU, no rotary
+LEARNED_POSITIONS = dict(n_positions=128, rotary_emb_fraction=0.0,
+                         use_rms_norm=False, glu_act=False, activation="relu")
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_graphed_decode_with_learned_positions_equals_eager_on_the_card():
+    """With learned positions the decode step embeds each token at its
+    cache offset, computed on the device, so the captured step replays the
+    right positions: graphed tokens and scores equal the eager ones
+    bitwise, at two prompt lengths over one graph, and the steps' logits
+    stay within bf16 noise of a teacher-forced forward over the decoded
+    tokens (a token embedded at position 0, as JAX's decode does, moves
+    them by their own scale)."""
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    model = _graph_model(False, **LEARNED_POSITIONS)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cfg = GenerationConfig(max_length=48)
+    for plen in (20, 9):
+        ids = torch.randint(0, 512, (3, plen), device="cuda", generator=gen)
+        want, n_eager = _counted(lambda: decode(ids, model, cfg,
+                                                output_scores=True, cg=False))
+        got, n_graph = _counted(lambda: decode(ids, model, cfg,
+                                               output_scores=True))
+        assert n_graph == n_eager and torch.equal(got[0], want[0])
+        assert torch.equal(got[2], want[2])
+        with torch.inference_mode():
+            tf = model(got[0][:, :-1])[:, plen - 1:].transpose(0, 1)
+        assert (tf - got[2]).abs().max() < 0.25
+        assert (tf.argmax(-1) == got[0][:, plen:].T).float().mean() > 0.9
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("mode", ["paged", "prefix"])
+def test_graphed_engine_with_learned_positions_equals_eager_on_the_card(mode):
+    """The engine with learned positions: admissions (with prefix caching,
+    a suffix at positions after its shared pages) and the captured decode
+    block give the eager engine's tokens and launches."""
+    model = _graph_model(True, **LEARNED_POSITIONS)
+    jobs = _engine_jobs(5, shared=40 if mode == "prefix" else 0)
+    runs = [_serve(_engine(model, cg, prefix=mode == "prefix"), jobs)
+            for cg in (False, True)]
+    (want, n_eager), (got, n_graph) = runs
+    assert got == want and n_graph == n_eager
+    assert [len(t) for t in got] == [m for _, m in jobs]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("h, d", [(71, 64), (48, 128)],
+                         ids=["falcon_7b", "starcoder"])
+def test_decode_at_large_groups_on_the_card(h, d):
+    """B4's d = dv route with one KV head for 71 (Falcon-7B) or 48
+    (StarCoder) query heads, a KV head's rows spread over blocks of 8, at
+    static decode's lengths: out against the plain fp32 version under the
+    2x rule (attention_ref in bf16 as the low-precision reference) and lse
+    within 1e-3, at 1 and 4 splits."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(h)
+    b, s_max = 8, 640
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    q, kc, vc = randn(b, 1, h, d), randn(b, 1, s_max, d), randn(b, 1, s_max, d)
+    seqlens = torch.linspace(513, 544, b, device="cuda").round().to(
+        torch.int32)
+    keep = torch.arange(s_max, device="cuda")[None] < seqlens[:, None]
+    ref_lp, _ = attention_ref(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                              key_padding_mask=keep, upcast=False)
+    for splits in (1, 4):
+        out, lse = flash_decode.flash_attention_decode(
+            q, kc, vc, seqlens, causal=True, num_splits=splits)
+        ref, ref_lse = flash_decode.flash_attention_decode(
+            q.float().cpu(), kc.float().cpu(), vc.float().cpu(),
+            seqlens.cpu(), causal=True, num_splits=splits)
+        check_against_ref(out, ref, ref_lp,
+                          msg=f"flash_decode h={h} d={d} splits={splits}")
+        torch.testing.assert_close(lse.cpu(), ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("n_embd, n_head", [(512, 2), (192, 2)],
+                         ids=["gptj_256", "neox_20b_96"])
+def test_unported_head_dims_raise_naming_item_7_on_the_card(n_embd, n_head):
+    """GPT-J's head dim 256 and GPT-NeoX-20B's 96 are outside the kernels'
+    (64, 128): on the card the model raises naming queue A item 7 (the CPU
+    runs them)."""
+    from types import SimpleNamespace
+
+    from flash_attn_tpu_torch.models.hf_adapters import (
+        gptj_config_to_gpt_config,
+    )
+
+    hf = SimpleNamespace(vocab_size=512, n_embd=n_embd, n_layer=1,
+                         n_head=n_head, rotary_dim=32, n_inner=None,
+                         layer_norm_epsilon=1e-5,
+                         activation_function="gelu_new")
+    model = GPTLMHeadModel(gptj_config_to_gpt_config(
+        hf, dtype=torch.bfloat16, max_decode_seqlen=64))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        model(torch.zeros((1, 8), dtype=torch.long, device="cuda"))
