@@ -46,7 +46,14 @@
    a finite and falling loss, and the first step's
    fused-CE loss against torch's cross-entropy over full fp32 logits; then
    prints the step time, tokens/s, TFLOP/s, peak memory and a split of one
-   training step's device time (torch.profiler and CUDA events);
+   training step's device time (torch.profiler and CUDA events); then
+   takes REMAT_STEPS steps of the same model without remat and with
+   GPTConfig(remat=True) under 'full' and 'dots' over the same batches
+   (losses bitwise equal, B1 launched once more a layer under remat, peak
+   memory lower under both policies; step times and peaks printed), and
+   runs an MHA(dwconv=True) at the model's attention widths: a prefill
+   then decode steps against its train mode over the same tokens, both
+   held to an fp32 copy of the module by the 2x rule;
 6. serves the same model through the continuous-batching InferenceEngine
    over a paged cache at the shape of bench.py's engine trace (64 slots,
    256-token pages, 96 seeded 512-token prompts arriving 8 at a time, 32
@@ -152,7 +159,19 @@
    (learned positions, MQA at group 48) at full width and 4 layers; each
    freed before the next; then ViT-L/16 at full depth on 32 images (24 B1
    launches), its logits held to the 2x rule against the model run on the
-   plain versions in fp32.
+   plain versions in fp32;
+15. head dims 96 and 256: holds B1 (b=8 x 512, causal and not), B4 over
+   a linear cache (static decode's lengths), over the engine's 16 slots of
+   pages of 256 (and the verify step, sq = 5, at 96) and B8 (the prefix
+   admission's shape) at GPT-NeoX-20B's 64 heads of 96 and GPT-J-6B's 16
+   heads of 256 against their plain versions, timed beside their bounds
+   and SDPA; then builds GPT-NeoX-20B and GPT-J-6B at full width and depth
+   from their config.json numbers with seeded HF checkpoints remapped a
+   layer at a time (the peak printed), serves each as Llama-3-8B (graphed
+   and eager, the teacher-forced check), then through the engines on 16
+   slots (GPT-NeoX-20B the paged and the prefix-cached, GPT-J-6B the
+   prefix-cached, each held to a teacher-forced static decode), and prints
+   each decode step beside the time to read its weights once.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -169,6 +188,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -441,6 +461,34 @@ BREADTH_DEC_CASES = [
     ("flash_decode_group71", BATCH, 71, 1, 64),
     ("flash_decode_group48", BATCH, 48, 1, 128),
 ]
+# Head dims 96 and 256, which B1, B8 and B4 (d = dv) take and the backward
+# kernels do not yet: GPT-NeoX-20B and GPT-J-6B at full width and depth
+# from their published config.json numbers, served as Llama-3-8B is
+# (static, then BREADTH_REQUESTS requests on BREADTH_SLOTS slots: GPT-NeoX
+# through the paged engine, GPT-J through the prefix-cached one, whose
+# admissions run B8 at 256). The seeded GPT-J checkpoint's lm_head.bias is
+# zeros: the port has no place for a nonzero one (models/hf_adapters.py).
+NEOX_20B = SimpleNamespace(  # EleutherAI/gpt-neox-20b config.json
+    vocab_size=50432, hidden_size=6144, num_hidden_layers=44,
+    num_attention_heads=64, intermediate_size=24576, rotary_pct=0.25,
+    rotary_emb_base=10000, use_parallel_residual=True, layer_norm_eps=1e-5,
+    tie_word_embeddings=False)
+GPTJ_6B = SimpleNamespace(  # EleutherAI/gpt-j-6b config.json
+    vocab_size=50400, n_embd=4096, n_layer=28, n_head=16, rotary_dim=64,
+    n_inner=None, n_positions=2048, layer_norm_epsilon=1e-5,
+    activation_function="gelu_new")
+# The kernels at the shapes the two families give them, each against its
+# plain version and timed: (family, head dim, heads). B1 at the prefill
+# (b=8 x 512, causal and not), B4 over a linear cache at static decode's
+# lengths, over the engine's 16 slots of pages of 256 (and, at
+# WIDE_VERIFY_D, a speculative verify step of sq = SPEC_K + 1), B8 at the
+# prefix admission's shape of VARLEN_CASES.
+WIDE_FAMILIES = [("GPT-NeoX-20B", 96, 64), ("GPT-J-6B", 256, 16)]
+WIDE_VERIFY_D = 96
+# remat: the 913M GPT's training step at b=4 x 2048 without remat and with
+# GPTConfig(remat=True) under each policy, REMAT_STEPS steps each over the
+# same batches (the step time is the median of all but the first).
+REMAT_STEPS = 4
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> dict:
@@ -886,145 +934,73 @@ def check_decode_paged(gen):
 def check_decode_verify(gen):
     """The paged decode kernel at a speculative round's verify step (sq =
     SPEC_K + 1, causal bottom-right over the appended rows) against its
-    plain version: the speculative engine's shape (64 slots, 16 heads,
-    pages of 256, contexts of the engine trace after an append) and GQA
-    16/4 over pages of 64 at 3 splits ((k + 1) x 4 = 20 rows, three 8-row
-    blocks a KV head). The first is timed beside its bound, the plain
-    version and SDPA with a boolean mask over the cache gathered first
-    (the gather untimed)."""
-    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
-    from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
-    from flash_attn_tpu_torch.kernels import flash_decode
-    from flash_attn_tpu_torch.utils.testing import (
-        attention_ref,
-        check_against_ref,
-        paged_to_linear,
-    )
-
-    sq = SPEC_K + 1
+    plain version (paged_decode_case): the speculative engine's shape (64
+    slots, 16 heads of 128, pages of 256, contexts of the engine trace
+    after an append, the split count the engine takes) and GQA 16/4 over
+    pages of 64 at 3 splits ((k + 1) x 4 = 20 rows, three 8-row blocks a
+    KV head). The first is timed."""
     worst, timing = 0.0, None
     for b, h, h_k, page, splits in ((ENGINE_SLOTS, 16, 16, ENGINE_PAGE, 0),
                                     (16, 16, 4, 64, 3)):
-        d = 128
-        kp, vp, table = paged_cache(gen, b, h_k, d, page, ENGINE_MAX_LEN,
-                                    torch.bfloat16)
-        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(
-            torch.bfloat16)
-        seqlens = torch.randint(ENGINE_PROMPT + sq, ENGINE_MAX_LEN - 8, (b,),
-                                device="cuda", generator=gen,
-                                dtype=torch.int32)
-        if not splits:  # the split count the engine's verify call takes
-            splits = _default_num_splits(q, kp, vp, table, False)
-        out, lse = flash_decode.flash_attention_decode(
-            q, kp, vp, seqlens, causal=True, num_splits=splits,
-            block_table=table)
-        ref, ref_lse = flash_decode.flash_attention_decode(
-            q.float().cpu(), kp.float().cpu(), vp.float().cpu(),
-            seqlens.cpu(), causal=True, num_splits=splits,
-            block_table=table.cpu())
-        k_lin, v_lin = (paged_to_linear(x, table, seqlens).transpose(1, 2)
-                        for x in (kp, vp))
-        keep = torch.arange(k_lin.shape[1], device="cuda")[None] \
-            < seqlens[:, None]
-        ref_lp, _ = attention_ref(q, k_lin, v_lin, key_padding_mask=keep,
-                                  causal=True, upcast=False)
-        torch.cuda.synchronize()
-        case = (f"b={b} sq={sq} h={h} h_k={h_k} d={d} page={page} lengths "
-                f"{int(seqlens.min())}..{int(seqlens.max())} "
-                f"num_splits={splits}")
-        err, err_lp = check_against_ref(out, ref, ref_lp,
-                                        msg=f"flash_decode_paged {case}")
-        lse_err = (lse.cpu() - ref_lse).abs().max().item()
-        require(lse_err <= LSE_ATOL, f"verify-step lse error {lse_err}")
-        worst = max(worst, err)
-        print(f"flash_decode_paged (verify) {case}: out max abs err "
-              f"{err:.3e} (bf16 reference {err_lp:.3e}), lse max abs err "
-              f"{lse_err:.3e}")
-        if timing is None:
-            scale = d ** -0.5
-            ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
-                q, kp, vp, seqlens, splits, scale, True, block_table=table))
-            plain_ms = time_ms(
-                lambda: flash_decode.flash_attention_decode_paged_partials_plain(
-                    q, kp, vp, seqlens, table, splits, DECODE_BLOCK_K, scale,
-                    True))
-            s_k = k_lin.shape[1]
-            row = torch.arange(sq, device="cuda")[:, None]
-            col = torch.arange(s_k, device="cuda")[None, :]
-            mask = (col[None] <= row[None] + (seqlens - sq)[:, None, None])
-            mask = mask[:, None]                           # (b, 1, sq, s_k)
-            qh, kh, vh = (x.transpose(1, 2) for x in (q, k_lin, v_lin))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask))
-            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "library_call": "scaled_dot_product_attention with a "
-                                      "boolean causal length mask over the "
-                                      "cache gathered to the linear layout "
-                                      "(the gather untimed)",
-                      **decode_bound(seqlens, b, h, h_k, d, splits,
-                                     table.numel(), sq)}
-            print(f"flash_decode_paged time at the verify step (sq={sq}): "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, masked "
-                  f"scaled_dot_product_attention {lib_ms:.4f} ms (median of "
-                  f"25); bound {timing['bound_ms']:.4f} ms "
-                  f"({timing['bound_by']})")
+        err, t = paged_decode_case(gen, b, h, h_k, 128, page, SPEC_K + 1,
+                                   "the verify step", splits,
+                                   timed=timing is None)
+        worst, timing = max(worst, err), timing or t
     return worst, timing
 
 
-def check_varlen_paged(gen):
-    """The packed-varlen prefill kernel over the paged cache (B8) against
-    its plain version on the cases of VARLEN_CASES (utils/cases.py), bitwise equal over two
-    runs and to B6's forward over the same rows packed (the two run one
-    tile); times the first case's whole call and, by the profiler, its
-    kernel alone."""
+def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
+    """B8 on one case of VARLEN_CASES' form against its plain version (the
+    2x rule, lse within LSE_ATOL), bitwise equal over two runs and, where
+    B6 takes the head dim (``with_b6``), to B6's forward over the same rows
+    packed (the two run one tile); with ``timed``, its whole call and, by
+    the profiler, its kernel alone beside the bound and the plain version.
+    Returns the error and the timing (None untimed)."""
     from flash_attn_tpu_torch.kernels import flash_varlen
     from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
-    from flash_attn_tpu_torch.utils.cases import VARLEN_CASES
     from flash_attn_tpu_torch.utils.testing import (
         attention_varlen_paged_ref,
         check_against_ref,
         paged_to_linear,
     )
 
-    worst, timing = 0.0, None
-    for name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal in \
-            VARLEN_CASES:
-        b = len(lens_q)
-        cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
-                          dtype=torch.int32, device="cuda")
-        q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(
-            dtype)
-        kp, vp, table = paged_cache(gen, b, h_k, d, page, max(max(lens_k), 1),
-                                    dtype)
-        seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
-        seqused = (None if used is None else
-                   torch.tensor(used, dtype=torch.int32, device="cuda"))
-        max_q = max(max(lens_q), 1)
-        args = (cu, max_q, seqlens_k, table)
-        out, lse = fvp.flash_attention_varlen_paged_fwd(
-            q, kp, vp, *args, seqused_q=seqused, causal=causal)
-        ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
-            q.float(), kp.float(), vp.float(), *args, seqused_q=seqused,
-            causal=causal)
-        ref_lp = attention_varlen_paged_ref(
-            q, kp, vp, cu, seqlens_k, table, seqused_q=seqused,
-            causal=causal, upcast=False)
-        torch.cuda.synchronize()
-        case = (f"{name}: lens_q {lens_q} lens_k {lens_k} seqused_q {used} "
-                f"h={h} h_k={h_k} d={d} page={page} {str(dtype)[6:]} "
-                f"causal={causal}")
-        err, err_lp = check_against_ref(out, ref, ref_lp,
-                                        msg=f"flash_varlen_paged {case}")
-        fin = torch.isfinite(ref_lse)
-        require(torch.equal(torch.isfinite(lse), fin),
-                f"flash_varlen_paged {case}: rows without keys differ")
-        lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() \
-            if fin.any() else 0.0
-        require(lse_err <= LSE_ATOL, f"varlen paged lse error {lse_err}")
-        again = fvp.flash_attention_varlen_paged_fwd(
-            q, kp, vp, *args, seqused_q=seqused, causal=causal)
-        require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
-                f"flash_varlen_paged {case}: two runs differ")
+    name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal = case
+    b = len(lens_q)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    kp, vp, table = paged_cache(gen, b, h_k, d, page, max(max(lens_k), 1),
+                                dtype)
+    seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    seqused = (None if used is None else
+               torch.tensor(used, dtype=torch.int32, device="cuda"))
+    max_q = max(max(lens_q), 1)
+    args = (cu, max_q, seqlens_k, table)
+    out, lse = fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, *args, seqused_q=seqused, causal=causal)
+    ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+        q.float(), kp.float(), vp.float(), *args, seqused_q=seqused,
+        causal=causal)
+    ref_lp = attention_varlen_paged_ref(
+        q, kp, vp, cu, seqlens_k, table, seqused_q=seqused,
+        causal=causal, upcast=False)
+    torch.cuda.synchronize()
+    desc = (f"{name}: lens_q {lens_q} lens_k {lens_k} seqused_q {used} "
+            f"h={h} h_k={h_k} d={d} page={page} {str(dtype)[6:]} "
+            f"causal={causal}")
+    err, err_lp = check_against_ref(out, ref, ref_lp,
+                                    msg=f"flash_varlen_paged {desc}")
+    fin = torch.isfinite(ref_lse)
+    require(torch.equal(torch.isfinite(lse), fin),
+            f"flash_varlen_paged {desc}: rows without keys differ")
+    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() \
+        if fin.any() else 0.0
+    require(lse_err <= LSE_ATOL, f"varlen paged lse error {lse_err}")
+    again = fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, *args, seqused_q=seqused, causal=causal)
+    require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+            f"flash_varlen_paged {desc}: two runs differ")
+    if with_b6:
         k, v = (torch.cat([lin[s, :, :n].transpose(0, 1)
                            for s, n in enumerate(lens_k)]).contiguous()
                 for lin in (paged_to_linear(x, table, seqlens_k)
@@ -1035,36 +1011,50 @@ def check_varlen_paged(gen):
             q, k, v, cu, cu_k, max_q, max(lens_k), seqused_q=seqused,
             causal=causal)
         require(torch.equal(out, b6[0]) and torch.equal(lse, b6[1]),
-                f"flash_varlen_paged {case}: differs from B6's forward over "
+                f"flash_varlen_paged {desc}: differs from B6's forward over "
                 "the same rows packed")
-        worst = max(worst, err)
-        print(f"flash_varlen_paged {case}: out max abs err {err:.3e} "
-              f"(low-precision reference {err_lp:.3e}), lse max abs err "
-              f"{lse_err:.3e}; bitwise equal twice and to B6's forward over "
-              "the same rows packed")
-        if timing is None:
-            call = lambda: fvp.flash_attention_varlen_paged_fwd(
-                q, kp, vp, *args, seqused_q=seqused, causal=causal)
-            ms = time_ms(call)
-            kernel_ms = kernel_split_ms(call, ("varlen_paged_kernel",))
-            plain_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
-                q, kp, vp, *args, seqused_q=seqused, causal=causal))
-            total_q = int(cu[-1])
-            timing = {"ms": ms, "kernel_ms": kernel_ms["varlen_paged_kernel"],
-                      "wrapper_ops_ms": kernel_ms["other"],
-                      "plain_ms": plain_ms, "library_ms": None,
-                      "library_call": "none: no single PyTorch call reads K/V "
-                                      "through a block table (a gather first)",
-                      **bound(4 * h * d * attended_pairs(
-                          used or lens_q, lens_k, causal),
-                          2 * 2 * total_q * h * d
-                          + 2 * 2 * sum(lens_k) * h_k * d + 4 * h * total_q)}
-            print(f"flash_varlen_paged time at the prefix-admission shape: "
-                  f"the whole call {ms:.4f} ms (median of 25), of which the "
-                  f"kernel {timing['kernel_ms']:.4f} ms and the wrapper's "
-                  f"torch ops {timing['wrapper_ops_ms']:.4f} ms (profiler, "
-                  f"device time); plain {plain_ms:.4f} ms; bound "
-                  f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    print(f"flash_varlen_paged {desc}: out max abs err {err:.3e} "
+          f"(low-precision reference {err_lp:.3e}), lse max abs err "
+          f"{lse_err:.3e}; bitwise equal twice"
+          + (" and to B6's forward over the same rows packed" if with_b6
+             else ""))
+    if not timed:
+        return err, None
+    call = lambda: fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, *args, seqused_q=seqused, causal=causal)
+    ms = time_ms(call)
+    kernel_ms = kernel_split_ms(call, ("varlen_paged_kernel",))
+    plain_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
+        q, kp, vp, *args, seqused_q=seqused, causal=causal))
+    total_q = int(cu[-1])
+    timing = {"ms": ms, "kernel_ms": kernel_ms["varlen_paged_kernel"],
+              "wrapper_ops_ms": kernel_ms["other"],
+              "plain_ms": plain_ms, "library_ms": None,
+              "library_call": "none: no single PyTorch call reads K/V "
+                              "through a block table (a gather first)",
+              **bound(4 * h * d * attended_pairs(
+                  used or lens_q, lens_k, causal),
+                  2 * 2 * total_q * h * d
+                  + 2 * 2 * sum(lens_k) * h_k * d + 4 * h * total_q)}
+    print(f"flash_varlen_paged time at {name} (h={h}, d={d}): the whole "
+          f"call {ms:.4f} ms (median of 25), of which the kernel "
+          f"{timing['kernel_ms']:.4f} ms and the wrapper's torch ops "
+          f"{timing['wrapper_ops_ms']:.4f} ms (profiler, device time); "
+          f"plain {plain_ms:.4f} ms; bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bound_by']})")
+    return err, timing
+
+
+def check_varlen_paged(gen):
+    """The packed-varlen prefill kernel over the paged cache (B8) on the
+    cases of VARLEN_CASES (utils/cases.py) by varlen_paged_case; times the
+    first, the prefix-cached admission's shape."""
+    from flash_attn_tpu_torch.utils.cases import VARLEN_CASES
+
+    worst, timing = 0.0, None
+    for i, case in enumerate(VARLEN_CASES):
+        err, t = varlen_paged_case(gen, case, timed=i == 0)
+        worst, timing = max(worst, err), timing or t
     return worst, timing
 
 
@@ -1834,10 +1824,10 @@ def make_trainer(**overrides):
     from flash_attn_tpu_torch.models.gpt import gpt_913m
     from flash_attn_tpu_torch.training.trainer import TrainConfig, Trainer
 
-    cfg = TrainConfig(
+    cfg = TrainConfig(**{**dict(
         model=gpt_913m(), batch_size=TRAIN_BATCH, seqlen=TRAIN_SEQ, lr=1e-3,
         warmup_steps=TRAIN_WARM, total_steps=100, opt_state_dtype="bfloat16",
-        zero1=False, fused_ce=True, log_every=1, **overrides)
+        zero1=False, fused_ce=True, log_every=1), **overrides})
     return Trainer(cfg, device="cuda")
 
 
@@ -3497,6 +3487,24 @@ def neox_spec(c) -> HFSpec:
     return spec
 
 
+def gptj_spec(c) -> HFSpec:
+    e, i_f = c.n_embd, c.n_inner or 4 * c.n_embd
+    spec = HFSpec()
+    spec.embedding("transformer.wte", c.vocab_size, e)
+    for i in range(c.n_layer):
+        p = f"transformer.h.{i}."
+        spec.norm(p + "ln_1", e)
+        for name in ("q", "k", "v", "out"):
+            spec.linear(p + f"attn.{name}_proj", e, e)
+        spec.linear(p + "mlp.fc_in", i_f, e, bias=True)
+        spec.linear(p + "mlp.fc_out", e, i_f, bias=True)
+    spec.norm("transformer.ln_f", e)
+    spec.linear("lm_head", c.vocab_size, e)
+    # zeros: the port raises for a nonzero lm_head.bias (hf_adapters.py)
+    spec["lm_head.bias"] = ((c.vocab_size,), "zeros")
+    return spec
+
+
 def opt_spec(c) -> HFSpec:
     e, f = c.hidden_size, c.ffn_dim
     dec = "model.decoder."
@@ -3559,24 +3567,77 @@ def vit_spec(c, num_classes: int) -> HFSpec:
     return spec
 
 
+# A HF checkpoint's per-layer tensor names: "...layers.<i>." or "...h.<i>."
+HF_LAYER = re.compile(r"\.(?:layers|h)\.(\d+)\.")
+
+
 def hf_model(family: str, hf_cfg, spec_fn, seed: int):
     """A GPTLMHeadModel (bf16, on the card, max_decode_seqlen
-    ENGINE_MAX_LEN) of ``hf_cfg`` through the port's adapter
-    ``family``, its weights a seeded HF checkpoint loaded through the port's
-    remap."""
+    ENGINE_MAX_LEN) of ``hf_cfg`` through the port's adapter ``family``,
+    its weights a seeded HF checkpoint (the values of hf_weights(spec,
+    seed)) made and remapped a layer at a time through the port's own
+    remap, each part freed before the next: a layer's tensors under layer
+    0's names through the remap of a 1-layer config, then the tensors
+    outside the layers through that of a 0-layer config. So the checkpoint
+    never sits whole on the card beside the model (GPT-NeoX-20B's 41 GB of
+    bf16 weights twice would not fit). Returns the model and the peak
+    device memory of the build (GB, max_memory_allocated)."""
     from flash_attn_tpu_torch.models import hf_adapters, llama
     from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
 
     mod = llama if family == "llama" else hf_adapters
     cfg = getattr(mod, f"{family}_config_to_gpt_config")(
         hf_cfg, dtype=torch.bfloat16, max_decode_seqlen=ENGINE_MAX_LEN)
-    model = GPTLMHeadModel(cfg, device="cuda")
-    sd = hf_weights(spec_fn(hf_cfg), seed)
-    model.load_state_dict(getattr(mod, f"remap_state_dict_hf_{family}")(
-        sd, cfg))
-    del sd
+    remap = getattr(mod, f"remap_state_dict_hf_{family}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTLMHeadModel(cfg, device="cuda").requires_grad_(False)
+    params = dict(model.named_parameters())
+    spec = spec_fn(hf_cfg)
+    layer_of = {name: HF_LAYER.search(name) for name in spec}
+    outer = {name: torch.empty(0, dtype=torch.bfloat16, device="cuda")
+             for name, m in layer_of.items() if m is None}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    done = set()
+
+    def load(sd, n_layer, layer):
+        out = remap(sd, dataclasses.replace(cfg, n_layer=n_layer))
+        for name, t in out.items():
+            if layer is not None:
+                if not name.startswith("transformer.layers.0."):
+                    continue  # an outer tensor's placeholder
+                name = name.replace(".0.", f".{layer}.", 1)
+            params[name].copy_(t)
+            done.add(name)
+
+    part, part_layer = {}, None
+    for name, (shape, init) in spec.items():  # hf_weights' order and draws
+        m = layer_of[name]
+        layer = None if m is None else int(m.group(1))
+        if part and layer != part_layer:
+            load({**outer, **part}, 1, part_layer)
+            part = {}
+        if init in ("ones", "zeros"):
+            fill = torch.ones if init == "ones" else torch.zeros
+            t = fill(shape, dtype=torch.bfloat16, device="cuda")
+        else:
+            t = torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.bfloat16).mul_(init)
+        if m is None:
+            outer[name] = t
+        else:
+            part[name[:m.start(1)] + "0" + name[m.end(1):]] = t
+            part_layer = layer
+    if part:
+        load({**outer, **part}, 1, part_layer)
+    load(outer, 0, None)
+    require(done == set(params), f"{family}: the remap left parameters "
+            f"unset: {sorted(set(params) - done)[:4]}")
+    del outer, part
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
-    return model.requires_grad_(False)
+    return model, peak
 
 
 def check_breadth_kernels(gen):
@@ -3596,6 +3657,127 @@ def check_breadth_kernels(gen):
     return errs, timings
 
 
+def paged_decode_case(gen, b, h, h_k, d, page, sq, name, splits=0,
+                      timed=True):
+    """B4's d = dv route over a page pool of b slots of ENGINE_MAX_LEN
+    positions (pages of ``page``, h / h_k heads of d, bf16; ``splits`` 0
+    takes the split count flash_attn_with_kvcache picks) at static decode's
+    lengths (sq = 1) or a verify step's (sq > 1: contexts of the engine
+    trace after an append, causal bottom-right over the appended rows),
+    against its plain version (the 2x rule, lse within LSE_ATOL); with
+    ``timed``, timed beside its bound, the plain version and SDPA with a
+    boolean causal length mask over the cache gathered to the linear
+    layout (the gather untimed). Returns the error and the timing (None
+    untimed)."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    kp, vp, table = paged_cache(gen, b, h_k, d, page, ENGINE_MAX_LEN,
+                                torch.bfloat16)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    if sq == 1:
+        seqlens = torch.linspace(PROMPT + 1, PROMPT + NEW_TOKENS, b,
+                                 device="cuda").round().to(torch.int32)
+    else:
+        seqlens = torch.randint(ENGINE_PROMPT + sq, ENGINE_MAX_LEN - 8, (b,),
+                                device="cuda", generator=gen,
+                                dtype=torch.int32)
+    splits = splits or _default_num_splits(q, kp, vp, table, False)
+    out, lse = flash_decode.flash_attention_decode(
+        q, kp, vp, seqlens, causal=True, num_splits=splits,
+        block_table=table)
+    ref, ref_lse = flash_decode.flash_attention_decode(
+        q.float().cpu(), kp.float().cpu(), vp.float().cpu(), seqlens.cpu(),
+        causal=True, num_splits=splits, block_table=table.cpu())
+    k_lin, v_lin = (paged_to_linear(x, table, seqlens).transpose(1, 2)
+                    for x in (kp, vp))
+    keep = torch.arange(k_lin.shape[1], device="cuda")[None] \
+        < seqlens[:, None]
+    ref_lp, _ = attention_ref(q, k_lin, v_lin, key_padding_mask=keep,
+                              causal=True, upcast=False)
+    torch.cuda.synchronize()
+    desc = (f"b={b} sq={sq} h={h} h_k={h_k} d={d} page={page} lengths "
+            f"{int(seqlens.min())}..{int(seqlens.max())} num_splits={splits}")
+    err, err_lp = check_against_ref(out, ref, ref_lp,
+                                    msg=f"flash_decode_paged {desc}")
+    lse_err = (lse.cpu() - ref_lse).abs().max().item()
+    require(lse_err <= LSE_ATOL, f"{name} lse error {lse_err}")
+    print(f"flash_decode_paged {desc}: out max abs err {err:.3e} (bf16 "
+          f"reference {err_lp:.3e}), lse max abs err {lse_err:.3e}")
+    if not timed:
+        return err, None
+    scale = d ** -0.5
+    ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+        q, kp, vp, seqlens, splits, scale, True, block_table=table))
+    plain_ms = time_ms(
+        lambda: flash_decode.flash_attention_decode_paged_partials_plain(
+            q, kp, vp, seqlens, table, splits, DECODE_BLOCK_K, scale, True))
+    row = torch.arange(sq, device="cuda")[:, None]
+    col = torch.arange(k_lin.shape[1], device="cuda")[None, :]
+    mask = (col[None] <= row[None] + (seqlens - sq)[:, None, None])[:, None]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k_lin, v_lin))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=h != h_k))
+    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library_call": "scaled_dot_product_attention with a boolean "
+                              "causal length mask over the cache gathered "
+                              "to the linear layout (the gather untimed)",
+              **decode_bound(seqlens, b, h, h_k, d, splits, table.numel(),
+                             sq)}
+    print(f"flash_decode_paged time at {name}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, masked scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms (median of 25); bound {timing['bound_ms']:.4f} "
+          f"ms ({timing['bound_by']})")
+    return err, timing
+
+
+def check_wide_kernels(gen):
+    """B1, B4 (linear, paged and, at WIDE_VERIFY_D, the verify step) and B8
+    at head dims 96 and 256, at the shapes WIDE_FAMILIES give them, against
+    their plain versions and timed beside their bounds, the plain versions
+    and SDPA. Returns errors and timings by row name (B1's non-causal case
+    under its causal row's "noncausal")."""
+    errs, timings = {}, {}
+    for fam, d, h in WIDE_FAMILIES:
+        name = f"flash_fwd_d{d}"
+        for causal in (True, False):
+            case = (BATCH, PROMPT, PROMPT, h, h, d, causal)
+            (qt, kt, vt), _, _, err = fwd_case(gen, case)
+            t = fwd_timing(qt, kt, vt, case, f"{fam}'s prefill")
+            errs[name] = max(errs.get(name, 0.0), err)
+            if causal:
+                timings[name] = t
+            else:
+                timings[name]["noncausal"] = t
+            del qt, kt, vt
+        name = f"flash_decode_d{d}"
+        inputs, keep, splits, errs[name] = decode_case(
+            gen, BATCH, h, h, d, 640, 0, (PROMPT + 1, PROMPT + NEW_TOKENS))
+        timings[name] = decode_timing(*inputs, keep, splits,
+                                      f"{fam}'s decode step")
+        del inputs, keep
+        for sq in (1, SPEC_K + 1) if d == WIDE_VERIFY_D else (1,):
+            name = f"flash_decode_paged_d{d}" + ("_verify" if sq > 1 else "")
+            errs[name], timings[name] = paged_decode_case(
+                gen, BREADTH_SLOTS, h, h, d, ENGINE_PAGE, sq,
+                f"{fam}'s engine " + ("verify step" if sq > 1
+                                      else "decode step"))
+        name = f"flash_varlen_paged_d{d}"
+        errs[name], timings[name] = varlen_paged_case(
+            gen, ("prefix admission", [256] * 8, [512] * 8, None, h, h, d,
+                  ENGINE_PAGE, torch.bfloat16, True),
+            with_b6=False, timed=True)
+        torch.cuda.empty_cache()
+    return errs, timings
+
+
 def serve_family(name, model, card, rng, rate_runs: int = 3):
     """serve_static and the graphed decode rate of one family; returns its
     launches and measurements."""
@@ -3607,12 +3789,20 @@ def serve_family(name, model, card, rng, rate_runs: int = 3):
     ttft, tok_s = static_rates(model, ids, modes=(True,), runs=rate_runs)
     model._decode_state = None  # its caches and graph
     torch.cuda.empty_cache()
+    # a decode step reads every weight once at least
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
     res = {"params_b": n_params / 1e9, "layers": cfg.n_layer,
-           "ttft_ms": ttft * 1e3, "decode_tokens_per_s": tok_s[True][0]}
+           "ttft_ms": ttft * 1e3, "decode_tokens_per_s": tok_s[True][0],
+           "decode_step_ms": BATCH / tok_s[True][0] * 1e3,
+           "weight_read_ms": weight_bytes / PEAK_BYTES * 1e3}
     print(f"{name} ({n_params / 1e9:.2f}B parameters, {cfg.n_layer} layers, "
           f"width {cfg.n_embd}, {cfg.n_head}/{cfg.n_head_kv or cfg.n_head} "
           f"heads): TTFT {ttft * 1e3:.2f} ms (b={BATCH} x {PROMPT}), decode "
-          f"{tok_s[True][0]:.1f} tokens/s graphed on {card}")
+          f"{tok_s[True][0]:.1f} tokens/s graphed, a step "
+          f"{res['decode_step_ms']:.3f} ms against {res['weight_read_ms']:.3f} "
+          f"ms to read its {weight_bytes / 1e9:.2f} GB of weights once at "
+          f"3.35 TB/s, on {card}")
     return launches, res
 
 
@@ -3627,9 +3817,9 @@ def run_breadth(card):
     rng = np.random.default_rng(21)
     launches, out = {}, {}
     t0 = time.perf_counter()
-    model = hf_model("llama", LLAMA3_8B, llama_spec, 10)
+    model, peak = hf_model("llama", LLAMA3_8B, llama_spec, 10)
     print(f"Llama-3-8B built from its config and a seeded HF checkpoint in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s (peak {peak:.2f} GB)")
     launches["Llama-3-8B"], out["Llama-3-8B"] = serve_family(
         "Llama-3-8B", model, card, rng)
     prompts = list(rng.integers(0, model.config.vocab_size,
@@ -3656,7 +3846,7 @@ def run_breadth(card):
             ("StarCoder", STARCODER, "bigcode", starcoder_spec, 14)):
         hf_cut = SimpleNamespace(**{**vars(hf_cfg),
                                     cut[family]: BREADTH_LAYERS})
-        model = hf_model(family, hf_cut, spec_fn, seed)
+        model, _ = hf_model(family, hf_cut, spec_fn, seed)
         launches[name], out[name] = serve_family(name, model, card, rng)
         if family == "opt":
             # learned positions from the prefix length: the suffix of a
@@ -3675,6 +3865,196 @@ def run_breadth(card):
         del model
         torch.cuda.empty_cache()
     return launches, out
+
+
+def run_wide_families(card):
+    """GPT-NeoX-20B (64 heads of 96) and GPT-J-6B (16 heads of 256) at full
+    width and depth from their published configs with seeded HF
+    checkpoints loaded through the port's remap (hf_model), each served as
+    Llama-3-8B is (serve_family: graphed and eager, the teacher-forced
+    check, TTFT and the graphed decode rate), then through the engines on
+    BREADTH_SLOTS slots: GPT-NeoX through the paged engine
+    (BREADTH_REQUESTS prompts) and the prefix-cached one, GPT-J through
+    the prefix-cached one (BREADTH_REQUESTS prompts sharing PREFIX_SHARED
+    tokens, admissions through B8), each engine's tokens held to a
+    teacher-forced static decode (engine_agreement at
+    MIN_ARGMAX_AGREEMENT, as Llama-3-8B's); each model freed before the
+    next. Returns the launches of each run and the measurements."""
+    rng = np.random.default_rng(22)
+    launches, out = {}, {}
+    for name, hf_cfg, family, spec_fn, seed, engines in (
+            ("GPT-NeoX-20B", NEOX_20B, "gpt_neox", neox_spec, 15,
+             (False, True)),
+            ("GPT-J-6B", GPTJ_6B, "gptj", gptj_spec, 16, (True,))):
+        t0 = time.perf_counter()
+        model, peak = hf_model(family, hf_cfg, spec_fn, seed)
+        build_s = time.perf_counter() - t0
+        print(f"{name} built from its config and a seeded HF checkpoint, "
+              f"remapped a layer at a time, in {build_s:.1f} s; peak "
+              f"{peak:.2f} GB while building (max_memory_allocated) on "
+              f"{card}")
+        launches[name], out[name] = serve_family(name, model, card, rng)
+        out[name].update(build_s=build_s, build_peak_gb=peak)
+        vocab = model.config.vocab_size
+        paged = paged_view(model, BREADTH_SLOTS)
+        for prefix in engines:
+            if prefix:
+                shared = rng.integers(0, vocab, PREFIX_SHARED)
+                prompts = [np.concatenate([shared, rng.integers(
+                    0, vocab, ENGINE_PROMPT - PREFIX_SHARED)])
+                    for _ in range(BREADTH_REQUESTS)]
+            else:
+                prompts = list(rng.integers(
+                    0, vocab, (BREADTH_REQUESTS, ENGINE_PROMPT)))
+            ename = f"{name} {'prefix-cache' if prefix else 'paged'} engine"
+            torch.cuda.reset_peak_memory_stats()
+            launches[ename], tokens, out[ename] = run_engine(
+                paged, prompts, prefix, card, slots=BREADTH_SLOTS,
+                name=ename)
+            out[ename]["agreement"], out[ename]["logit_gap"] = \
+                engine_agreement(paged, prompts, tokens, ename,
+                                 MIN_ARGMAX_AGREEMENT)
+            out[ename]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            print(f"{ename}: peak {out[ename]['peak_gb']:.2f} GB "
+                  f"(max_memory_allocated) with the agreement check")
+            torch.cuda.empty_cache()
+        del model, paged
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def run_remat():
+    """The 913M GPT's training step (Trainer.train_step, b=4 x 2048, the
+    training phase's settings) without remat and with GPTConfig(remat=True)
+    under 'full' and 'dots', REMAT_STEPS steps each over the same batches:
+    the losses must be bitwise equal across the three (the recompute runs
+    the same deterministic kernels on the same inputs), the recompute must
+    launch B1 once more a layer (32 a step, 16 without remat), and the peak
+    memory (max_memory_allocated over the steps) must fall under both
+    policies. Then one more forward reads what remat cuts: the memory the
+    forward leaves held for the backward (its saved activations), and the
+    peak over that forward and its backward, both above the memory held
+    before it (the weights, masters and moments). Returns the readings."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.models.gpt import gpt_913m
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens.bin")
+        write_token_file(path, gpt_913m().vocab_size)
+        for label, fields in (("off", {}),
+                              ("full", dict(remat=True, remat_policy="full")),
+                              ("dots", dict(remat=True, remat_policy="dots"))):
+            torch.cuda.empty_cache()
+            tr = make_trainer(model=dataclasses.replace(gpt_913m(), **fields))
+            it = iter(make_loader(path))
+            batches = [tuple(map(tr._batch, next(it)))
+                       for _ in range(REMAT_STEPS)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = (flash_fwd.launches, flash_bwd.launches_dkdv,
+                      flash_bwd.launches_dq)
+            losses, times = [], []
+            for inp, lab in batches:
+                t0 = time.perf_counter()
+                losses.append(tr.train_step(inp, lab)[0].item())
+                times.append(time.perf_counter() - t0)
+            n_fwd, n_dkdv, n_dq = (a - b for a, b in zip(
+                (flash_fwd.launches, flash_bwd.launches_dkdv,
+                 flash_bwd.launches_dq), before))
+            step_peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss = tr.compute_loss(*batches[0])
+            held = (torch.cuda.memory_allocated() - base) / 1e9
+            loss.backward()
+            torch.cuda.synchronize()
+            fwd_bwd_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            for p in tr.params.values():
+                p.grad = None
+            del loss
+            res[label] = {
+                "losses": losses,
+                "step_ms": statistics.median(times[1:]) * 1e3,
+                "peak_gb": step_peak, "activations_gb": held,
+                "fwd_bwd_peak_gb": fwd_bwd_peak,
+                "launches_per_step": {
+                    "flash_fwd": n_fwd / REMAT_STEPS,
+                    "fa_bwd_dkdv": n_dkdv / REMAT_STEPS,
+                    "fa_bwd_dq": n_dq / REMAT_STEPS}}
+            print(f"remat {label}: losses " + " ".join(
+                f"{x:.6f}" for x in losses) + f"; step "
+                f"{res[label]['step_ms']:.1f} ms (median of steps 2-"
+                f"{REMAT_STEPS}); peak {res[label]['peak_gb']:.2f} GB "
+                f"(max_memory_allocated); a forward holds "
+                f"{held:.2f} GB for its backward, which peak "
+                f"{fwd_bwd_peak:.2f} GB above the weights and optimizer "
+                f"state; launches a step {res[label]['launches_per_step']}")
+            del tr, it, batches
+    n = gpt_913m().n_layer
+    for label, fwd in (("off", n), ("full", 2 * n), ("dots", 2 * n)):
+        require(res[label]["launches_per_step"] == {
+            "flash_fwd": fwd, "fa_bwd_dkdv": n, "fa_bwd_dq": n},
+            f"remat {label}: launches {res[label]['launches_per_step']}")
+    for label in ("full", "dots"):
+        require(res[label]["losses"] == res["off"]["losses"],
+                f"remat {label}: losses {res[label]['losses']} differ from "
+                f"the step without remat's {res['off']['losses']}")
+        require(res[label]["peak_gb"] < res["off"]["peak_gb"],
+                f"remat {label}: peak {res[label]['peak_gb']:.2f} GB not "
+                f"below {res['off']['peak_gb']:.2f} GB without remat")
+    return res
+
+
+def run_dwconv(gen):
+    """MHA(dwconv=True) at the 913M GPT's attention widths (2048, 16 heads
+    of 128, full rotary, bf16, seeded weights and conv) on the card: a
+    5-token prefill then 7 decode steps (B1, then B4 over the linear cache
+    with the conv state rolled in place) against the module's train mode
+    over the same 12 tokens (JAX tests/test_models_misc.py:187), both held
+    to an fp32 copy of the module on the CPU by the 2x rule: the served
+    outputs' error within twice train mode's (plus 1e-5). Returns the
+    errors."""
+    import copy
+
+    from flash_attn_tpu_torch.kernels import flash_decode, flash_fwd
+    from flash_attn_tpu_torch.models.gpt import reset_flax_defaults
+    from flash_attn_tpu_torch.modules.mha import MHA, KVCache
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    b, s, t0 = 2, 12, 5
+    mha = MHA(2048, 16, causal=True, rotary_emb_dim=128, dwconv=True,
+              max_decode_seqlen=64, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    reset_flax_defaults(mha, g, lambda name: False)
+    with torch.no_grad():
+        mha.dwconv_kernel.normal_(0.0, 0.02, generator=g)
+        mha.dwconv_bias.normal_(0.0, 0.02, generator=g)
+    ref_mha = copy.deepcopy(mha).to("cpu", torch.float32)
+    x = torch.randn(b, s, 2048, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    f0, d0 = flash_fwd.launches, flash_decode.launches
+    with torch.inference_mode():
+        train = mha(x)
+        cache = KVCache()
+        outs = [mha(x[:, :t0], mode="prefill", cache=cache)]
+        outs += [mha(x[:, t:t + 1], mode="decode", cache=cache)
+                 for t in range(t0, s)]
+        served = torch.cat(outs, 1)
+        ref = ref_mha(x.float().cpu())
+    torch.cuda.synchronize()
+    require((flash_fwd.launches - f0, flash_decode.launches - d0)
+            == (2, s - t0), "dwconv MHA: launches")
+    err, err_train = check_against_ref(served, ref, train,
+                                       msg="dwconv MHA prefill + decode")
+    diff = (served - train).abs().max().item()
+    print(f"dwconv MHA (2048 wide, 16 heads of 128, bf16): prefill {t0} + "
+          f"decode {s - t0} tokens against the fp32 module: max abs err "
+          f"{err:.3e}, train mode's {err_train:.3e} (2x rule); served vs "
+          f"train mode max abs diff {diff:.3e}")
+    return {"max_abs_err": err, "train_max_abs_err": err_train,
+            "served_vs_train": diff}
 
 
 @contextlib.contextmanager
@@ -3845,6 +4225,12 @@ def main() -> int:
           f"{train['step_ms']:.1f} ms; {train['tokens_per_s']:.0f} tokens/s; "
           f"{train['tflops_per_s']:.1f} TFLOP/s (model_flops_per_token); peak "
           f"memory {train['peak_gb']:.2f} GB (max_memory_allocated) on {card}")
+    remat = phase("remat", run_remat)
+    print("remat (913M GPT, b=4 x 2048): " + "; ".join(
+        f"{label} {r['step_ms']:.1f} ms a step, peak {r['peak_gb']:.2f} GB, "
+        f"activations {r['activations_gb']:.2f} GB"
+        for label, r in remat.items()) + f"; losses bitwise equal on {card}")
+    dwconv = phase("dwconv", run_dwconv, gen)
     bert_launches, bert = phase("BERT-large", run_bert, card)
     print(f"BERT-large (bert-large-uncased widths, 24 layers) at "
           f"{BERT_BATCH} x {BERT_SEQ}: MLM forward {bert['forward_ms']:.2f} ms,"
@@ -3863,6 +4249,22 @@ def main() -> int:
                          gen)
     br_launches, breadth = phase("model breadth", run_breadth, card)
     vit_launches, breadth["ViT-L/16"] = phase("ViT-L/16", run_vit, gen, card)
+    wk_err, wk_t = phase("head dims 96 and 256 kernel checks",
+                         check_wide_kernels, gen)
+    wide_launches, wide = phase("GPT-NeoX-20B and GPT-J-6B",
+                                run_wide_families, card)
+    for name, d in (("GPT-NeoX-20B", 96), ("GPT-J-6B", 256)):
+        fam = wide[name]
+        engs = [k for k in wide if k.startswith(name + " ")]
+        print(f"{name} (full width and depth, head dim {d}, b={BATCH} x "
+              f"{PROMPT} + {NEW_TOKENS}): TTFT {fam['ttft_ms']:.2f} ms, decode "
+              f"{fam['decode_tokens_per_s']:.1f} tokens/s graphed (a step "
+              f"{fam['decode_step_ms']:.3f} ms, the weights' read "
+              f"{fam['weight_read_ms']:.3f} ms); " + "; ".join(
+                  f"{k[len(name) + 1:]} ({BREADTH_REQUESTS} requests on "
+                  f"{BREADTH_SLOTS} slots) {wide[k]['tokens_per_s']:.1f} "
+                  f"tokens/s, TTFT p50 {wide[k]['ttft_p50_ms']:.1f} ms"
+                  for k in engs) + f" on {card}")
     print(f"DeepSeek-V3 absorbed attention ({MLA_LAYERS} layers): prefill "
           f"{mla['prefill_ms_per_layer_chunk']:.3f} ms per layer-chunk, "
           f"decode step {mla['decode_step_ms']:.3f} ms graphed "
@@ -3979,6 +4381,30 @@ def main() -> int:
         entry("flash_decode_group48", "flash_decode.cu", "flash_decode.py:54",
               br_launches["StarCoder"]["flash_decode"],
               bk_err["flash_decode_group48"], bk_t["flash_decode_group48"]),
+        *(entry(f"flash_fwd_d{d}", "flash_fwd.cu", "flash_fwd.py:59",
+                wide_launches[fam]["flash_fwd"], wk_err[f"flash_fwd_d{d}"],
+                wk_t[f"flash_fwd_d{d}"])
+          for fam, d, _ in WIDE_FAMILIES),
+        *(entry(f"flash_decode_d{d}", "flash_decode.cu", "flash_decode.py:54",
+                wide_launches[fam]["flash_decode"],
+                wk_err[f"flash_decode_d{d}"], wk_t[f"flash_decode_d{d}"])
+          for fam, d, _ in WIDE_FAMILIES),
+        # the paged route's launches at its head dim in the family's
+        # prefix-cached engine; the verify step's row counts them too (no
+        # model path at that head dim runs sq = SPEC_K + 1)
+        *(entry(name, "flash_decode.cu", "flash_decode.py:54",
+                wide_launches[f"{fam} prefix-cache engine"]
+                ["flash_decode_paged"], wk_err[name], wk_t[name])
+          for fam, d, _ in WIDE_FAMILIES
+          for name in (f"flash_decode_paged_d{d}",)
+          + ((f"flash_decode_paged_d{d}_verify",) if d == WIDE_VERIFY_D
+             else ())),
+        *(entry(f"flash_varlen_paged_d{d}", "flash_varlen_paged.cu",
+                "flash_varlen_paged.py:69",
+                wide_launches[f"{fam} prefix-cache engine"]
+                ["flash_varlen_paged"], wk_err[f"flash_varlen_paged_d{d}"],
+                wk_t[f"flash_varlen_paged_d{d}"])
+          for fam, d, _ in WIDE_FAMILIES),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -3990,7 +4416,8 @@ def main() -> int:
     ], "engines": engines,
         "varlen": {"timings": vl_t, "bench": bench_vl}, "bert": bert,
         "mla": {"serving": mla, "timings": mla_t},
-        "blocksparse": bs_all, "probes": probes, "breadth": breadth}))
+        "blocksparse": bs_all, "probes": probes, "breadth": breadth,
+        "wide_head_dims": wide, "remat": remat, "dwconv": dwconv}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 // Split-KV decode attention over a linear or a paged KV cache for Hopper
-// (sm_90a), bf16 / fp16, head dim 64 or 128: the d = dv route (the MLA
-// route is csrc/flash_decode_mla.cu).
+// (sm_90a), bf16 / fp16, head dim 64, 96, 128 or 256: the d = dv route (the
+// MLA route is csrc/flash_decode_mla.cu).
 //
 // Replaces the TPU kernel flash_attn_tpu/kernels/flash_decode.py:_decode_kernel
 // (linear and paged cache, causal or not, GQA, any num_splits >= 1). The
@@ -27,7 +27,10 @@
 // mbarrier completes each stage, so the next tiles load while the block
 // computes on the oldest. The dot products and the online softmax run in
 // fp32 on the ordinary ALUs (at group 1 a decode row has no M dimension for
-// the tensor cores): a key is split across D / 8 lanes, each lane reads its
+// the tensor cores): a staged row of DS = staged_dim(D) columns (a head dim
+// of 96 is staged as 128: the TMA box past the cache's 96 columns fills
+// zeros, which add nothing to a score, and their output columns are never
+// written) is split across DS / 8 lanes, each lane reads its
 // 16 bytes of K and V from the stage, and a tile's scores of a lane's keys
 // are reduced across their lanes together and folded into the lane's (m, l,
 // acc) state in one step (one rescale a tile, one exp2 a key), with one
@@ -120,9 +123,21 @@ struct DecLayout {
 // tiles, 16 KB, for a full grid (the engine's 64 slots), where more blocks
 // an SM cover each block's first copies (PERF.md PR 11 timed 16- and
 // 32-key tiles of 2 to 4 stages there).
-constexpr int WIDE_TK = 64, NARROW_TK = 16, NARROW_S = 2;
+// The deep ring by staged width: 4 stages of 64 keys at 64 (64 KB), 3 at
+// 128 (96 KB), 2 stages of 32 keys at 256 (64 KB and a merge area of up to
+// 33 KB), so that two blocks share an SM at every width
+// (dispatch/config.py DECODE_BLOCKS_PER_SM) and a thread's keys of a tile
+// (16 a warp of 64 keys at 256, one a warp step) do not spill at 8 rows.
+constexpr int NARROW_TK = 16, NARROW_S = 2;
+template <int DS>
+constexpr int wide_tk() { return DS == 256 ? 32 : 64; }
+template <int DS>
+constexpr int wide_stages() { return DS == 64 ? 4 : DS == 128 ? 3 : 2; }
+
+// Columns a staged K or V row takes: the head dim, 96 padded to 128 so that
+// a key's lanes divide a warp.
 template <int D>
-constexpr int wide_stages() { return D == 128 ? 3 : 4; }
+__host__ __device__ constexpr int staged_dim() { return D == 96 ? 128 : D; }
 
 template <typename T>
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
@@ -179,8 +194,9 @@ struct DecItem {
 template <typename T, int D, int RM, int TK, int S>
 __global__ void __launch_bounds__(DEC_THREADS)
     decode_kernel(const __grid_constant__ DecodeMaps maps, const DecodeParams p) {
-  using L = DecLayout<D, RM, TK, S>;
-  constexpr int LPK = D / 8;            // lanes per key, 8 elements each
+  constexpr int DS = staged_dim<D>();
+  using L = DecLayout<DS, RM, TK, S>;
+  constexpr int LPK = DS / 8;           // lanes per key, 8 elements each
   constexpr int KPW = 32 / LPK;         // keys per warp per step
   constexpr int KEYS_PER_WARP = TK / DEC_WARPS;
   constexpr int U = KEYS_PER_WARP / KPW;  // keys of a lane's group a tile
@@ -189,7 +205,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   float* sm_m = reinterpret_cast<float*>(smem + L::MERGE_OFF);  // [DEC_WARPS][RM]
   float* sm_l = sm_m + DEC_WARPS * RM;                           // [DEC_WARPS][RM]
-  float* sm_acc = sm_l + DEC_WARPS * RM;                         // [DEC_WARPS][RM][D]
+  float* sm_acc = sm_l + DEC_WARPS * RM;                         // [DEC_WARPS][RM][DS]
 
   const cg::cluster_group cluster = cg::this_cluster();
   const int csize = (int)cluster.num_blocks();
@@ -199,7 +215,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int kg = lane / LPK;  // key slot within the warp
-  const int dl = lane % LPK;  // which 8 elements of the head dim
+  const int dl = lane % LPK;  // which 8 elements of the staged row
 
   const PagedRows pages{p.table == nullptr ? nullptr : p.table + (int64_t)it.bb * p.t_sb,
                         it.bb, p.page_size, p.table_width, p.num_pages};
@@ -210,8 +226,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
     for (int r = 0; r < TK; r += p.box_rows) {
       int pg, row;
       pages.locate(key0 + r, pg, row);
-      tma_load_4d(dst + r * D * 2, &maps.k, &full[i % S], 0, row, it.kh, pg);
-      tma_load_4d(dst + L::TILE_BYTES + r * D * 2, &maps.v, &full[i % S], 0, row, it.kh, pg);
+      tma_load_4d(dst + r * DS * 2, &maps.k, &full[i % S], 0, row, it.kh, pg);
+      tma_load_4d(dst + L::TILE_BYTES + r * DS * 2, &maps.v, &full[i % S], 0, row, it.kh, pg);
     }
   };
 
@@ -224,7 +240,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
     for (int i = 0; i < S && i < it.n; ++i) issue(i);
 
   // The item's query rows (row = t * group + j is query token t of head
-  // kh * group + j), pre-scaled by softmax_scale * log2(e).
+  // kh * group + j), pre-scaled by softmax_scale * log2(e); the lanes of a
+  // staged row's padding hold zeros.
   float q[RM][8];
   int limit[RM];  // last key position the row may see
 #pragma unroll
@@ -235,9 +252,14 @@ __global__ void __launch_bounds__(DEC_THREADS)
       const int hq = it.kh * p.group + row % p.group;
       const T* qp = reinterpret_cast<const T*>(p.q) + it.bb * p.q_sb + t * p.q_ss +
                     hq * p.q_sh + dl * 8;
-      unpack8<T>(*reinterpret_cast<const uint4*>(qp), q[r]);
+      if (DS == D || dl * 8 < D) {
+        unpack8<T>(*reinterpret_cast<const uint4*>(qp), q[r]);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) q[r][e] *= p.scale_log2;
+        for (int e = 0; e < 8; ++e) q[r][e] *= p.scale_log2;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) q[r][e] = 0.f;
+      }
       limit[r] = min(it.k_hi - 1, p.causal ? t + it.sk - p.sq : it.sk - 1);
     } else {
 #pragma unroll
@@ -271,7 +293,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         float kf[8];
-        unpack8<T>(*reinterpret_cast<const uint4*>(Kt + (kl0 + u * KPW) * D * 2), kf);
+        unpack8<T>(*reinterpret_cast<const uint4*>(Kt + (kl0 + u * KPW) * DS * 2), kf);
         s[u] = 0.f;
 #pragma unroll
         for (int e = 0; e < 8; ++e) s[u] += q[r][e] * kf[e];
@@ -298,7 +320,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
         if (s[u] == -INFINITY) continue;  // a masked key's V may be NaN
         const float pb = exp2f(s[u] - ms);
         float vf[8];
-        unpack8<T>(*reinterpret_cast<const uint4*>(Vt + (kl0 + u * KPW) * D * 2), vf);
+        unpack8<T>(*reinterpret_cast<const uint4*>(Vt + (kl0 + u * KPW) * DS * 2), vf);
         l[r] += pb;
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[r][e] += pb * vf[e];
@@ -332,7 +354,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) sm_acc[(warp * RM + r) * D + dl * 8 + e] = acc[r][e];
+      for (int e = 0; e < 8; ++e) sm_acc[(warp * RM + r) * DS + dl * 8 + e] = acc[r][e];
       if (dl == 0) {
         sm_m[warp * RM + r] = m[r];
         sm_l[warp * RM + r] = l[r];
@@ -340,12 +362,12 @@ __global__ void __launch_bounds__(DEC_THREADS)
     }
   }
   __syncthreads();
-  constexpr int EPT = (RM * D + DEC_THREADS - 1) / DEC_THREADS;  // elements a thread
+  constexpr int EPT = (RM * DS + DEC_THREADS - 1) / DEC_THREADS;  // elements a thread
   float bm[EPT], bl[EPT], ba[EPT];
 #pragma unroll
   for (int j = 0; j < EPT; ++j) {
-    const int idx = min(tid + j * DEC_THREADS, RM * D - 1);
-    const int r = idx / D;
+    const int idx = min(tid + j * DEC_THREADS, RM * DS - 1);
+    const int r = idx / DS;
     float mm = -INFINITY;
 #pragma unroll
     for (int w = 0; w < DEC_WARPS; ++w) mm = fmaxf(mm, sm_m[w * RM + r]);
@@ -355,7 +377,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
     for (int w = 0; w < DEC_WARPS; ++w) {
       const float f = exp2f(sm_m[w * RM + r] - ms);
       ll += sm_l[w * RM + r] * f;
-      aa += sm_acc[(w * RM + r) * D + idx % D] * f;
+      aa += sm_acc[(w * RM + r) * DS + idx % DS] * f;
     }
     bm[j] = mm;
     bl[j] = ll;
@@ -365,11 +387,11 @@ __global__ void __launch_bounds__(DEC_THREADS)
 #pragma unroll
   for (int j = 0; j < EPT; ++j) {
     const int idx = tid + j * DEC_THREADS;
-    if (idx >= RM * D) break;
+    if (idx >= RM * DS) break;
     sm_acc[idx] = ba[j];
-    if (idx % D == 0) {
-      sm_m[idx / D] = bm[j];
-      sm_l[idx / D] = bl[j];
+    if (idx % DS == 0) {
+      sm_m[idx / DS] = bm[j];
+      sm_l[idx / DS] = bl[j];
     }
   }
   cluster.sync();
@@ -378,8 +400,9 @@ __global__ void __launch_bounds__(DEC_THREADS)
 #pragma unroll
     for (int j = 0; j < EPT; ++j) {
       const int idx = tid + j * DEC_THREADS;
-      if (idx >= RM * D) break;
-      const int r = idx / D;
+      if (idx >= RM * DS) break;
+      const int r = idx / DS;
+      const int col = idx % DS;
       const int row = it.r_base + r;
       // the cluster's blocks' states, read together (at most MAX_CLUSTER)
       float cm[MAX_CLUSTER], cl[MAX_CLUSTER], ca[MAX_CLUSTER];
@@ -406,8 +429,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
         }
       }
       if (row >= p.rows) continue;
-      p.out_p[(part * p.rows + row) * D + idx % D] = ll == 0.f ? 0.f : aa / ll;
-      if (idx % D == 0)
+      if (col < D) p.out_p[(part * p.rows + row) * D + col] = ll == 0.f ? 0.f : aa / ll;
+      if (col == 0)
         p.lse_p[part * p.rows + row] = ll == 0.f ? -INFINITY : mm * FA_LN2 + logf(ll);
     }
   }
@@ -415,17 +438,18 @@ __global__ void __launch_bounds__(DEC_THREADS)
 }
 
 // The maps with boxes of gcd(page_size, TK) rows (a box stays within a page
-// and a staged tile), and the launch.
+// and a staged tile) by the staged row's columns, and the launch.
 template <typename T, int D, int RM, int TK, int S>
 cudaError_t launch_ring(const CacheView& c, DecodeParams p, int cluster, cudaStream_t stream) {
-  constexpr int smem = DecLayout<D, RM, TK, S>::SMEM;
+  constexpr int DS = staged_dim<D>();
+  constexpr int smem = DecLayout<DS, RM, TK, S>::SMEM;
   p.box_rows = min(gcd64(p.page_size), TK);  // powers of two, so gcd(page_size, TK)
   DecodeMaps maps;
   cudaError_t err;
   if ((err = make_tile_map<4>(&maps.k, c.k, c.is_bf16, {D, p.page_size, p.h_k, p.num_pages},
-                              {c.k_ss, c.k_sh, c.k_sb}, p.box_rows, 1, D, false)) ||
+                              {c.k_ss, c.k_sh, c.k_sb}, p.box_rows, 1, DS, false)) ||
       (err = make_tile_map<4>(&maps.v, c.v, c.is_bf16, {D, p.page_size, p.h_k, p.num_pages},
-                              {c.v_ss, c.v_sh, c.v_sb}, p.box_rows, 1, D, false)))
+                              {c.v_ss, c.v_sh, c.v_sb}, p.box_rows, 1, DS, false)))
     return err;
   auto kernel = decode_kernel<T, D, RM, TK, S>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -453,7 +477,8 @@ template <typename T, int D, int RM>
 cudaError_t launch_rm(const CacheView& c, const DecodeParams& p, int cluster,
                       cudaStream_t stream) {
   if (cluster > 1)
-    return launch_ring<T, D, RM, WIDE_TK, wide_stages<D>()>(c, p, cluster, stream);
+    return launch_ring<T, D, RM, wide_tk<staged_dim<D>()>(), wide_stages<staged_dim<D>()>()>(
+        c, p, cluster, stream);
   return launch_ring<T, D, RM, NARROW_TK, NARROW_S>(c, p, cluster, stream);
 }
 
@@ -464,6 +489,16 @@ cudaError_t launch(const CacheView& c, const DecodeParams& p, int cluster,
   if (p.rows <= 2) return launch_rm<T, D, 2>(c, p, cluster, stream);
   if (p.rows <= 4) return launch_rm<T, D, 4>(c, p, cluster, stream);
   return launch_rm<T, D, 8>(c, p, cluster, stream);
+}
+
+template <typename T>
+cudaError_t launch_d(const CacheView& c, const DecodeParams& p, int cluster, cudaStream_t st) {
+  switch (c.d) {
+    case 64: return launch<T, 64>(c, p, cluster, st);
+    case 96: return launch<T, 96>(c, p, cluster, st);
+    case 128: return launch<T, 128>(c, p, cluster, st);
+    default: return launch<T, 256>(c, p, cluster, st);
+  }
 }
 
 }  // namespace
@@ -489,7 +524,7 @@ extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
   if (block_k != DEC_BN || h_k < 1 || h % h_k != 0 || page_size < 1 || num_pages < 1 ||
       num_splits < 1 || (table != nullptr && table_width < 1) ||
       (cluster != 1 && cluster != 2 && cluster != 4) ||
-      (d != 64 && d != 128))
+      (d != 64 && d != 96 && d != 128 && d != 256))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   DecodeParams p;
@@ -514,10 +549,6 @@ extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
   p.causal = causal;
   const CacheView c = {kc, vc, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, d, is_bf16};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 64) return (int)launch<__nv_bfloat16, 64>(c, p, cluster, st);
-    return (int)launch<__nv_bfloat16, 128>(c, p, cluster, st);
-  }
-  if (d == 64) return (int)launch<__half, 64>(c, p, cluster, st);
-  return (int)launch<__half, 128>(c, p, cluster, st);
+  return (int)(is_bf16 ? launch_d<__nv_bfloat16>(c, p, cluster, st)
+                       : launch_d<__half>(c, p, cluster, st));
 }

@@ -1,5 +1,5 @@
 // Dense attention forward for Hopper (sm_90a) on wgmma and TMA, bf16 / fp16,
-// head dim 64 or 128.
+// head dim 64, 96, 128 or 256.
 //
 // Replaces the TPU kernel flash_attn_tpu/kernels/flash_fwd.py:_fwd_kernel,
 // together with the causal diagonal work of
@@ -62,7 +62,7 @@ struct DenseSrc {
 // One block per (128-row query tile, head, batch row), the last q tile
 // (the heaviest under causal masking) first.
 template <typename T, int D>
-__global__ void __launch_bounds__(FWD_THREADS, 2)
+__global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParams p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
@@ -90,6 +90,16 @@ cudaError_t launch(const FwdMaps& maps, const FwdParams& p, int b, cudaStream_t 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_d(const FwdMaps& maps, const FwdParams& p, int b, int d, cudaStream_t st) {
+  switch (d) {
+    case 64: return launch<T, 64>(maps, p, b, st);
+    case 96: return launch<T, 96>(maps, p, b, st);
+    case 128: return launch<T, 128>(maps, p, b, st);
+    default: return launch<T, 256>(maps, p, b, st);
+  }
+}
+
 }  // namespace
 
 // q (b, sq, h, d), k/v (b, sk, h_k, d) given by element strides, the head
@@ -106,7 +116,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       float scale_log2, int causal, int is_bf16,
                       void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || b < 1 || sq < 1 || sk < 1 || h_k < 1 ||
-      h % h_k != 0 || (d != 64 && d != 128))
+      h % h_k != 0 || (d != 64 && d != 96 && d != 128 && d != 256))
     return (int)cudaErrorInvalidValue;
   FwdMaps maps;
   cudaError_t err;
@@ -128,10 +138,6 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
   p.scale_log2 = scale_log2;
   p.causal = causal;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 64) return (int)launch<__nv_bfloat16, 64>(maps, p, b, st);
-    return (int)launch<__nv_bfloat16, 128>(maps, p, b, st);
-  }
-  if (d == 64) return (int)launch<__half, 64>(maps, p, b, st);
-  return (int)launch<__half, 128>(maps, p, b, st);
+  return (int)(is_bf16 ? launch_d<__nv_bfloat16>(maps, p, b, d, st)
+                       : launch_d<__half>(maps, p, b, d, st));
 }

@@ -1,5 +1,5 @@
 // Packed-varlen prefill attention over a paged KV cache for Hopper (sm_90a)
-// on wgmma and TMA, bf16 / fp16, head dim 64 or 128: the prefix-cached
+// on wgmma and TMA, bf16 / fp16, head dim 64, 96, 128 or 256: the prefix-cached
 // chunked prefill of the serving engine.
 //
 // Replaces the TPU kernel
@@ -34,7 +34,7 @@
 // against the kernel's 0.028: PERF.md.) Each block runs the forward tile
 // of fwd_sm90.cuh: Q once by TMA from the packed (total_q, h, d) tensor,
 // 64-key K/V tiles through a two-stage TMA ring, both products on wgmma,
-// two blocks an SM. The K/V
+// two blocks an SM (one at head dim 256). The K/V
 // tiles come from the pages through this file's fwd_issue_kv: the issuing
 // thread resolves each box's page once a tile (PagedRows, sm90.cuh: the
 // table entry clamped to the table and the page to the pool) and copies it
@@ -96,7 +96,7 @@ __device__ __forceinline__ void fwd_issue_kv(const PagedSrc& src, unsigned char*
     src.pages.locate(n * FWD_N + j * src.box_rows, pg, row);
     unsigned char* dst = stage + j * src.box_rows * 128;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < L::KT::PANELS; ++c) {
       tma_load_4d(dst + c * L::KT::PANEL_BYTES, src.k, bar, c * 64, row, src.hk, pg);
       tma_load_4d(dst + L::KT::BYTES + c * L::KT::PANEL_BYTES, src.v, bar, c * 64, row, src.hk,
                   pg);
@@ -109,7 +109,7 @@ __device__ __forceinline__ void fwd_issue_kv(const PagedSrc& src, unsigned char*
 // [tile_ends[s - 1], tile_ends[s]), its last tile (the longest causal band)
 // first. Items past the last tile exit.
 template <typename T, int D>
-__global__ void __launch_bounds__(FWD_THREADS, 2)
+__global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     varlen_paged_kernel(const __grid_constant__ FwdMaps maps, const VarlenPagedParams p) {
   extern __shared__ unsigned char smem_raw[];
   const int hh = blockIdx.x / p.num_tiles;
@@ -149,6 +149,16 @@ cudaError_t launch(const FwdMaps& maps, const VarlenPagedParams& p, cudaStream_t
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_d(const FwdMaps& maps, const VarlenPagedParams& p, int d, cudaStream_t st) {
+  switch (d) {
+    case 64: return launch<T, 64>(maps, p, st);
+    case 96: return launch<T, 96>(maps, p, st);
+    case 128: return launch<T, 128>(maps, p, st);
+    default: return launch<T, 256>(maps, p, st);
+  }
+}
+
 }  // namespace
 
 // q (total_q, h, d) and out by element strides (token, head), the head dim
@@ -167,7 +177,8 @@ extern "C" int fa_varlen_paged(
     int64_t q_st, int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_ss,
     int64_t v_sp, int64_t v_sh, int64_t v_ss, int64_t o_st, int64_t o_sh,
     int64_t t_sb, float scale_log2, int causal, int is_bf16, void* stream) {
-  if (block_q != FWD_M || block_k != FWD_N || h_k < 1 || h % h_k != 0 || (d != 64 && d != 128) ||
+  if (block_q != FWD_M || block_k != FWD_N || h_k < 1 || h % h_k != 0 ||
+      (d != 64 && d != 96 && d != 128 && d != 256) ||
       page_size < 1 || table_width < 1 || num_pages < 1 || b < 1 ||
       (int64_t)num_tiles * h > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
@@ -203,10 +214,6 @@ extern "C" int fa_varlen_paged(
                               {v_ss, v_sh, v_sp}, p.box_rows)))
     return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 64) return (int)launch<__nv_bfloat16, 64>(maps, p, st);
-    return (int)launch<__nv_bfloat16, 128>(maps, p, st);
-  }
-  if (d == 64) return (int)launch<__half, 64>(maps, p, st);
-  return (int)launch<__half, 128>(maps, p, st);
+  return (int)(is_bf16 ? launch_d<__nv_bfloat16>(maps, p, d, st)
+                       : launch_d<__half>(maps, p, d, st));
 }

@@ -61,6 +61,12 @@ constexpr int FWD_N = 64;   // keys a K/V tile
 constexpr int FWD_THREADS = 256;
 constexpr int FWD_STAGES = 2;
 
+// Blocks an SM holds at head dim D (the kernels' __launch_bounds__): two up
+// to d = 128 (128 registers a thread), one at d = 256, whose 128 fp32 O
+// accumulators a thread and 193 KB of shared memory leave room for one.
+template <int D>
+constexpr int fwd_min_blocks() { return D > 128 ? 1 : 2; }
+
 // QBUF Q tiles (the persistent varlen forward may keep a second one), then
 // the K/V stages, then the barriers: QBUF Q barriers, one a stage.
 template <int D, int QBUF = 1>
@@ -88,17 +94,31 @@ struct FwdRows {
 };
 
 // What a thread carries through a tile's band: its share of O (the
-// accumulators of its two rows), and their running max and sum.
+// accumulators of its two rows), and their running max and sum. O spans
+// the head dim in whole panels (DP columns: 128 at d = 96, whose last 32
+// come from V's zero-filled columns and are never stored), as NBLK
+// accumulator blocks of one P V product each (N = 64 at d = 64, else 128:
+// wgmma_rs's widths); element i of the flat order at(i) sits at column
+// 8 (i / 4) + 2 (lane % 4) + i % 2, the layout of one product over DP.
 template <int D>
 struct FwdAcc {
-  float o[D / 2];
+  static constexpr int DP = Tile<FWD_M, D>::PANELS * 64;
+  static constexpr int NB = DP == 64 ? 64 : 128;
+  static constexpr int NBLK = DP / NB;
+  float o[NBLK][NB / 2];
   float m_r[2];  // running max of the scaled scores
   float l_r[2];  // this thread's share of the row sum
+  __device__ __forceinline__ float& at(int i) { return o[i / (NB / 2)][i % (NB / 2)]; }
+  __device__ __forceinline__ float at(int i) const { return o[i / (NB / 2)][i % (NB / 2)]; }
   __device__ __forceinline__ void init() {
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) at(i) = 0.f;
     m_r[0] = m_r[1] = -INFINITY;
     l_r[0] = l_r[1] = 0.f;
+  }
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int b = 0; b < NBLK; ++b) fence_regs(o[b]);
   }
 };
 
@@ -113,7 +133,7 @@ __device__ __forceinline__ void fwd_issue_kv(const Src& src, unsigned char* stag
   using L = FwdLayout<D>;
   mbar_expect_tx(bar, L::STAGE_BYTES);
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) {
+  for (int c = 0; c < L::KT::PANELS; ++c) {
     src.load_k(stage + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
     src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
   }
@@ -126,7 +146,7 @@ __device__ __forceinline__ void fwd_issue_q(const Src& src, unsigned char* Qs,
   using L = FwdLayout<D>;
   mbar_expect_tx(bar, L::QT::BYTES);
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) src.load_q(Qs + c * L::QT::PANEL_BYTES, bar, c * 64, m0);
+  for (int c = 0; c < L::QT::PANELS; ++c) src.load_q(Qs + c * L::QT::PANEL_BYTES, bar, c * 64, m0);
 }
 
 // One K/V tile (keys [n0, n0 + 64), landed in `stage`) of the band of the
@@ -161,7 +181,8 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
     }
   }
 
-  // S = Q K^T over this warpgroup's 64 rows
+  // S = Q K^T over this warpgroup's 64 rows (the head dim's own columns:
+  // at d = 96 the zero-filled ones would add nothing)
   float s[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
@@ -215,30 +236,36 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
     }
     a.l_r[i] = __fmaf_rn(a.l_r[i], corr, rs);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      a.o[4 * j + 2 * i] = __fmul_rn(a.o[4 * j + 2 * i], corr);
-      a.o[4 * j + 2 * i + 1] = __fmul_rn(a.o[4 * j + 2 * i + 1], corr);
+    for (int j = 0; j < FwdAcc<D>::DP / 8; ++j) {
+      a.at(4 * j + 2 * i) = __fmul_rn(a.at(4 * j + 2 * i), corr);
+      a.at(4 * j + 2 * i + 1) = __fmul_rn(a.at(4 * j + 2 * i + 1), corr);
     }
   }
 
-  // O += P V, P packed from the S accumulators
+  // O += P V, P packed from the S accumulators; one product a block of O's
+  // columns (V's panels 2 b and 2 b + 1 at N = 128)
+  using A = FwdAcc<D>;
   uint32_t pa[BN / 16][4];
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(pa[kk], s, kk);
-  fence_regs(a.o);
+  a.fence();
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<T, D, 1>(a.o, pa[kk], L::KT::mn_slice(Vs, 16 * kk), 1);
+#pragma unroll
+    for (int b = 0; b < A::NBLK; ++b)
+      wgmma_rs<T, A::NB, 1>(a.o[b], pa[kk],
+                            L::KT::mn_slice(Vs + b * (A::NB / 64) * L::KT::PANEL_BYTES, 16 * kk), 1);
   wgmma_commit();
   wgmma_wait<0>();
-  fence_regs(a.o);
+  a.fence();
   __syncthreads();  // both warpgroups are done with the stage
 }
 
 // Normalise and write the rows of `t`: O in the input type goes through this
 // warpgroup's rows of the Q tile Qs (its last product has read them) and
-// out in 16-byte chunks, rows past sq skipped; the natural-log lse.
+// out in 16-byte chunks of the head dim's D columns, rows past sq skipped;
+// the natural-log lse.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* Qs,
                                              const FwdRows<T>& t) {
@@ -260,7 +287,7 @@ __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* 
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(ow + (j / 8) * L::QT::PANEL_BYTES +
                                    swz128(r, 8 * (j % 8) + 2 * t4)) =
-          Elem<T>::pack(a.o[4 * j + 2 * i] * inv, a.o[4 * j + 2 * i + 1] * inv);
+          Elem<T>::pack(a.at(4 * j + 2 * i) * inv, a.at(4 * j + 2 * i + 1) * inv);
     if (t4 == 0 && r0 + r < t.sq)
       t.lse[r0 + r] = l == 0.f ? -INFINITY : __fmaf_rn(a.m_r[i], FA_LN2, logf(l));
   }

@@ -5,9 +5,10 @@
 // layout of a tile in shared memory, where a paged cache keeps a key, and
 // the host-side encoding of the TMA tensor maps.
 //
-// Tile layout. A tile of R rows by D columns (D = 64 or 128 elements of 2
-// bytes) is stored as D / 64 panels of 64 columns; a panel is R rows of 128
-// bytes with the 128-byte swizzle (16-byte chunk c of row r at chunk
+// Tile layout. A tile of R rows by D columns (elements of 2 bytes) is
+// stored as ceil(D / 64) panels of 64 columns (a head dim of 96 takes two:
+// the TMA box past the tensor's 96 columns fills zeros); a panel is R rows
+// of 128 bytes with the 128-byte swizzle (16-byte chunk c of row r at chunk
 // c ^ (r % 8)), panels R * 128 bytes apart, every tile 1024-byte aligned.
 // That is what one TMA load per panel with a {64, R} box and
 // CU_TENSOR_MAP_SWIZZLE_128B writes, and what wgmma reads through a
@@ -294,8 +295,9 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[N],
 // A tile of ROWS rows by D columns of 2-byte elements in the panel layout.
 template <int ROWS, int D>
 struct Tile {
+  static constexpr int PANELS = (D + 63) / 64;
   static constexpr int PANEL_BYTES = ROWS * 128;
-  static constexpr int BYTES = PANEL_BYTES * (D / 64);
+  static constexpr int BYTES = PANEL_BYTES * PANELS;
 
   // K-major operand: rows [row0, row0 + 64 or N), depth slice [16 kk, +16).
   static __device__ __forceinline__ uint64_t k_slice(const unsigned char* t,
@@ -357,7 +359,7 @@ inline int gcd64(int x) {
 template <int ROWS, int D>
 __device__ __forceinline__ void zero_tile_rows(unsigned char* tile, int first, int threads) {
   const int per_panel = (ROWS - first) * 8;  // 16-byte chunks
-  for (int i = threadIdx.x; i < per_panel * (D / 64); i += threads) {
+  for (int i = threadIdx.x; i < per_panel * Tile<ROWS, D>::PANELS; i += threads) {
     const int c = i / per_panel;
     const int r = first + (i - c * per_panel) / 8;
     *reinterpret_cast<uint4*>(tile + c * Tile<ROWS, D>::PANEL_BYTES + r * 128 + (i & 7) * 16) =

@@ -14,8 +14,28 @@ from typing import Optional, Tuple
 
 import torch
 
-# Head dims the two CUDA kernels are compiled for.
+# Head dims the serving kernels are compiled for: the dense forward B1
+# (csrc/flash_fwd.cu), the paged varlen prefill B8
+# (csrc/flash_varlen_paged.cu), both on the forward tile of fwd_sm90.cuh,
+# and the d = dv decode route B4 (csrc/flash_decode.cu, linear and paged).
+# 96 (GPT-NeoX-20B) and 256 (GPT-J) run there in whole 64-column panels
+# (96 as 128 with TMA's zero fill past the tensor's columns).
+FWD_DECODE_HEAD_DIMS = (64, 96, 128, 256)
+
+# Head dims every other kernel is compiled for: the packed-varlen forwards
+# B6 and B7, the backwards B2, B3 and B6, the block-sparse kernels B10 and
+# the MLA route. The rest (and the backward at 96 and 256, which
+# flash_attn_func refuses before its forward) is ROADMAP.md queue A, item 7.
 KERNEL_HEAD_DIMS = (64, 128)
+
+
+def check_head_dims(kernel: str, d: int, dk: int, dv: int, dims) -> None:
+    """Raise ValueError unless q, k and v share one head dim in ``dims``,
+    the set ``kernel`` is compiled for."""
+    if d not in dims or dk != d or dv != d:
+        raise ValueError(
+            f"{kernel} kernel: head dims q {d}, k {dk}, v {dv}; it takes "
+            f"equal dims in {dims} (others are ROADMAP.md queue A, item 7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +105,8 @@ DECODE_BLOCK_K = 64
 DECODE_ROWS_PER_BLOCK = 8
 
 # Blocks of the d = dv decode route's deep ring (csrc/flash_decode.cu: 3
-# stages of 64 keys, 97 KB of shared memory at head dim 128) an SM holds.
+# stages of 64 keys, 97 KB of shared memory at head dim 128, 96 staged as
+# 128; 2 stages of 32 keys at 256) an SM holds.
 DECODE_BLOCKS_PER_SM = 2
 
 

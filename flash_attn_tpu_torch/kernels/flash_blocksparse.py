@@ -39,6 +39,7 @@ import torch
 from flash_attn_tpu_torch.dispatch.config import (
     DENSE_BWD_ROW_PAD,
     KERNEL_HEAD_DIMS,
+    check_head_dims,
 )
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.flash_bwd import bwd_preprocess_plain
@@ -295,10 +296,7 @@ def _check_kernel(name, q, k, v, kv_num, kv_indices, bq, bk):
                          f"bf16/fp16 ({_ITEM7})")
     b, h, sq, d = q.shape
     dv = v.shape[-1]
-    if d != dv or k.shape[-1] != d or d not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"{name} kernel: head dims q {d}, k {k.shape[-1]}, v {dv}; the "
-            f"kernels take equal dims in {KERNEL_HEAD_DIMS} ({_ITEM7})")
+    check_head_dims(name, d, k.shape[-1], dv, KERNEL_HEAD_DIMS)
     if bq % _TILE or bk % _TILE:
         raise ValueError(
             f"{name} kernel: tiles {bq} x {bk} (after JAX's rule); the "

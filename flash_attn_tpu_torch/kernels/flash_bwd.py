@@ -21,6 +21,7 @@ from flash_attn_tpu_torch.dispatch.config import (
     DENSE_BWD_ROW_PAD,
     DENSE_BWD_TILES,
     KERNEL_HEAD_DIMS,
+    check_head_dims,
 )
 from flash_attn_tpu_torch.kernels import _build
 
@@ -99,12 +100,12 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
         return bwd_preprocess_plain(do, out, lse, DENSE_BWD_ROW_PAD)
     b, h, sq, d = do.shape
     if do.dtype not in (torch.bfloat16, torch.float16) \
-            or d not in KERNEL_HEAD_DIMS or out.shape != do.shape \
-            or lse.shape != (b, h, sq) or sq == 0:
+            or out.shape != do.shape or lse.shape != (b, h, sq) or sq == 0:
         raise ValueError(
             f"bwd_preprocess kernel: do {tuple(do.shape)} {do.dtype}, out "
-            f"{tuple(out.shape)}, lse {tuple(lse.shape)}; needs bf16/fp16, "
-            f"d in {KERNEL_HEAD_DIMS} and sq > 0")
+            f"{tuple(out.shape)}, lse {tuple(lse.shape)}; needs bf16/fp16 "
+            f"and sq > 0")
+    check_head_dims("bwd_preprocess", d, d, d, KERNEL_HEAD_DIMS)
     for name, x in (("do", do), ("out", out)):
         _build.check_operand("bwd_preprocess", name, x, do.dtype, do.device)
     if dq_accum is not None and (dq_accum.shape != (b, sq, h, d)
@@ -130,6 +131,21 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
     return delta, lse2
 
 
+def check_backward_head_dim(name: str, d: int, *tensors) -> None:
+    """Raise NotImplementedError, naming ROADMAP.md queue A item 7, when
+    autograd would need the backward at a head dim its kernels are not
+    compiled for (the forward takes 96 and 256, the backward only
+    KERNEL_HEAD_DIMS): the caller checks this before its forward runs, so
+    that the refusal does not come from inside backward()."""
+    if d not in KERNEL_HEAD_DIMS and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: head dim {d} has a forward kernel but no backward one "
+            f"yet (the backward takes {KERNEL_HEAD_DIMS}; 96 and 256 are "
+            "ROADMAP.md queue A, item 7). Call it under torch.no_grad() or "
+            "on inputs that do not require grad.")
+
+
 def flash_attention_bwd(do, q, k, v, out, lse,
                         softmax_scale: Optional[float] = None,
                         causal: bool = False, deterministic: bool = True):
@@ -151,11 +167,9 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     bk_, h_k, sk, dk_ = k.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_bwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    if d not in KERNEL_HEAD_DIMS or dk_ != d or v.shape != k.shape:
-        raise ValueError(
-            f"flash_bwd kernel: head dims q {d}, k {dk_}, v {v.shape[-1]}; "
-            f"needs equal dims in {KERNEL_HEAD_DIMS}")
-    if bk_ != b or h % h_k or do.shape != q.shape or out.shape != q.shape \
+    check_head_dims("flash_bwd", d, dk_, v.shape[-1], KERNEL_HEAD_DIMS)
+    if bk_ != b or h % h_k or v.shape != k.shape or do.shape != q.shape \
+            or out.shape != q.shape \
             or lse.shape != (b, h, sq):
         raise ValueError(
             f"flash_bwd kernel: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "

@@ -24,9 +24,10 @@ import torch
 from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
     DECODE_ROWS_PER_BLOCK,
-    KERNEL_HEAD_DIMS,
+    FWD_DECODE_HEAD_DIMS,
     MLA_DECODE_DIMS,
     MLA_TILE,
+    check_head_dims,
     decode_cluster,
     is_mla_form,
     num_sms,
@@ -166,10 +167,8 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     if is_mla_form(d, v_cache.shape[-1], qv is not None):
         return _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
                              softmax_scale, causal, block_table, qv)
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"flash_decode kernel: head dim {d}; the d = dv route takes "
-            f"{KERNEL_HEAD_DIMS}")
+    check_head_dims("flash_decode (the d = dv route)", d, dk,
+                    v_cache.shape[-1], FWD_DECODE_HEAD_DIMS)
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _build.check_operand("flash_decode", name, x, q.dtype, q.device)
     rows = sq * (h // h_k)

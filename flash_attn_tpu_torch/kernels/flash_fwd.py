@@ -14,7 +14,11 @@ from typing import Optional
 
 import torch
 
-from flash_attn_tpu_torch.dispatch.config import FWD_TILE, KERNEL_HEAD_DIMS
+from flash_attn_tpu_torch.dispatch.config import (
+    FWD_DECODE_HEAD_DIMS,
+    FWD_TILE,
+    check_head_dims,
+)
 from flash_attn_tpu_torch.kernels import _build
 
 LOG2E = math.log2(math.e)
@@ -49,7 +53,8 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
                         causal: bool = False):
     """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
     contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
-    fp32). CUDA: bf16/fp16, d in {64, 128}, h % h_k == 0."""
+    fp32). CUDA: bf16/fp16, d in FWD_DECODE_HEAD_DIMS (64, 96, 128, 256),
+    h % h_k == 0."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, softmax_scale, causal)
     if q.device.type != "cuda":
@@ -58,11 +63,8 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
     bk_, h_k, sk, dk = k.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_fwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    if d not in KERNEL_HEAD_DIMS or dk != d or v.shape != k.shape:
-        raise ValueError(
-            f"flash_fwd kernel: head dims q {d}, k {dk}, v {v.shape[-1]}; "
-            f"needs equal dims in {KERNEL_HEAD_DIMS}")
-    if bk_ != b or h % h_k:
+    check_head_dims("flash_fwd", d, dk, v.shape[-1], FWD_DECODE_HEAD_DIMS)
+    if bk_ != b or h % h_k or v.shape != k.shape:
         raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
     if b > 65535 or h > 65535:

@@ -32,6 +32,7 @@ from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     KERNEL_HEAD_DIMS,
     VARLEN_BWD_TILE,
+    check_head_dims,
     num_sms,
 )
 from flash_attn_tpu_torch.dispatch.varlen_meta import (
@@ -158,13 +159,12 @@ def check_kernel_inputs(name: str, q, k, v, cu_seqlens_q, cu_seqlens_k):
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"{name} kernel: dtype {q.dtype} (bf16/fp16 only)")
-    d = q.shape[-1]
-    if q.dim() != 3 or k.dim() != 3 or d not in KERNEL_HEAD_DIMS \
-            or k.shape[-1] != d or v.shape != k.shape:
+    if q.dim() != 3 or k.dim() != 3 or v.shape[:-1] != k.shape[:-1]:
         raise ValueError(
             f"{name} kernel: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}; needs (total, heads, d) with equal head "
-            f"dims in {KERNEL_HEAD_DIMS}")
+            f"v {tuple(v.shape)}; needs (total, heads, d)")
+    check_head_dims(name, q.shape[-1], k.shape[-1], v.shape[-1],
+                    KERNEL_HEAD_DIMS)
     h, h_k = q.shape[1], k.shape[1]
     if h % h_k or h > 65535 or cu_seqlens_q.numel() != cu_seqlens_k.numel() \
             or cu_seqlens_q.numel() < 2:

@@ -22,7 +22,11 @@ from typing import Optional
 
 import torch
 
-from flash_attn_tpu_torch.dispatch.config import FWD_TILE, KERNEL_HEAD_DIMS
+from flash_attn_tpu_torch.dispatch.config import (
+    FWD_DECODE_HEAD_DIMS,
+    FWD_TILE,
+    check_head_dims,
+)
 from flash_attn_tpu_torch.dispatch.varlen_meta import (
     num_tiles_bound,
     sequence_lengths,
@@ -120,11 +124,10 @@ def flash_attention_varlen_paged_fwd(
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_varlen_paged kernel: dtype {q.dtype} "
                          "(bf16/fp16 only)")
-    if d not in KERNEL_HEAD_DIMS or dk != d or v_pages.shape != k_pages.shape:
-        raise ValueError(
-            f"flash_varlen_paged kernel: head dims q {d}, k {dk}, v "
-            f"{v_pages.shape[-1]}; needs equal dims in {KERNEL_HEAD_DIMS}")
-    if h % h_k or block_table.shape[0] != b or b < 1:
+    check_head_dims("flash_varlen_paged", d, dk, v_pages.shape[-1],
+                    FWD_DECODE_HEAD_DIMS)
+    if h % h_k or block_table.shape[0] != b or b < 1 \
+            or v_pages.shape != k_pages.shape:
         raise ValueError(f"flash_varlen_paged kernel: shapes q {tuple(q.shape)}"
                          f", pages {tuple(k_pages.shape)}, table "
                          f"{tuple(block_table.shape)}, {b} sequences")

@@ -4,7 +4,8 @@
 The configuration carries the JAX package's fields; the port runs rotary
 or learned positions, RMSNorm/LayerNorm, gated or plain MLP, GQA, the
 sequential and the parallel block (tied or untied norms), a tied, untied
-or NormHead head, the muP scalars and the paged cache, and raises
+or NormHead head, the muP scalars, the paged cache and per-block
+activation rematerialization in train mode (``remat``), and raises
 NotImplementedError for the rest. Parameters mirror flax's values: the
 Dense and embedding weights in the compute type (flax keeps them in fp32
 and casts them to it at every call, which gives the same values), the norm
@@ -14,12 +15,18 @@ models/hf_adapters.py give state dicts in this model's parameter names.
 """
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from flash_attn_tpu_torch.modules.block import Block, ParallelBlock
 from flash_attn_tpu_torch.modules.embedding import GPT2Embeddings
@@ -73,7 +80,11 @@ class GPTConfig:
     kv_cache_scale: float = 1.0
     context_parallel: bool = False
     sequence_parallel: bool = False
-    remat: bool = False          # not ported (raises)
+    # Per-block activation rematerialization in train mode: each block's
+    # activations are recomputed in the backward. 'dots' keeps the matmul
+    # outputs without batch dims (JAX's checkpoint_dots_with_no_batch_dims);
+    # any other policy recomputes the whole block, as in JAX.
+    remat: bool = False
     remat_policy: str = "full"
     dtype: torch.dtype = torch.bfloat16
 
@@ -98,7 +109,6 @@ def _check_ported(cfg: GPTConfig) -> None:
             cfg.kv_cache_dtype is not None,
         "context_parallel (queue A item 8)": cfg.context_parallel,
         "sequence_parallel (queue A item 8)": cfg.sequence_parallel,
-        "remat (activation rematerialization, queue A item 2b)": cfg.remat,
     }
     bad = [name for name, on in missing.items() if on]
     if bad:
@@ -110,6 +120,19 @@ def _check_ported(cfg: GPTConfig) -> None:
         raise ValueError(
             f"GPTConfig: max_decode_seqlen {cfg.max_decode_seqlen} exceeds "
             f"the {cfg.n_positions} learned positions")
+
+
+# The matmuls without batch dims that the 'dots' policy keeps: the Dense
+# (nn.Linear) products, which reach the dispatcher as aten.mm, or aten.addmm
+# with a bias (aten.linear decomposes into them). Attention's products have
+# batch dims (or are a kernel) and are recomputed, as JAX's policy
+# recomputes the Pallas call.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _make_mlp(cfg: GPTConfig, device):
@@ -227,16 +250,33 @@ class GPTModel(nn.Module):
         if cfg.mup_embeddings_multiplier != 1.0:
             hidden = hidden * cfg.mup_embeddings_multiplier
         residual = None
+        run = self._block_runner(mode)
         for i, block in enumerate(self.layers):
-            hidden, residual = block(hidden, residual, mode=mode,
-                                     cache=None if cache is None else cache[i],
-                                     **mixer_kwargs)
+            hidden, residual = run(block, hidden, residual, mode=mode,
+                                   cache=None if cache is None else cache[i],
+                                   **mixer_kwargs)
         if residual is not None:
             hidden = (hidden.float() + residual.float()).to(cfg.dtype)
         if cfg.use_rms_norm:
             return rms_norm(hidden, self.ln_f_weight, cfg.norm_epsilon)
         return layer_norm(hidden, self.ln_f_weight, self.ln_f_bias,
                           cfg.norm_epsilon)
+
+    def _block_runner(self, mode: str):
+        """How a block is called: as it is, or, with remat in train mode
+        (prefill, decode and eval never remat, as in JAX), through
+        non-reentrant checkpoint, which recomputes the block's forward in
+        the backward (its attention kernel launches again) and keeps only
+        what the policy saves."""
+        cfg = self.config
+        if not (cfg.remat and mode == "train"):
+            return lambda block, *args, **kw: block(*args, **kw)
+        extra = {}
+        if cfg.remat_policy == "dots":  # JAX models/gpt.py:227-231
+            extra["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)
+        return lambda block, *args, **kw: checkpoint(
+            block, *args, use_reentrant=False, **extra, **kw)
 
 
 class GPTLMHeadModel(nn.Module):
@@ -387,9 +427,8 @@ def jax_param_arrays(model: GPTLMHeadModel, params):
                      "norm_weight", "norm_bias"):
             if getattr(block, name, None) is not None:
                 out[f"{pre}.{name}"] = lp[name]
-        dense(f"{pre}.mixer.Wqkv", block.mixer.Wqkv, lp["mixer"]["Wqkv"])
-        dense(f"{pre}.mixer.out_proj", block.mixer.out_proj,
-              lp["mixer"]["out_proj"])
+        for name, arr in block.mixer.jax_param_arrays(lp["mixer"]).items():
+            out[f"{pre}.mixer.{name}"] = arr
         dense(f"{pre}.mlp.fc1", block.mlp.fc1, lp["mlp"]["fc1"])
         dense(f"{pre}.mlp.fc2", block.mlp.fc2, lp["mlp"]["fc2"])
     out["transformer.ln_f_weight"] = tr["ln_f_weight"]

@@ -13,6 +13,17 @@ through ``flash_attn_varlen_func``) or in three modes:
  - ``"decode"``: the new token(s) are appended to the cache in place and
    attend to it through ``flash_attn_with_kvcache``.
 
+With ``dwconv`` a causal depthwise convolution of width 3 runs over the
+pre-attention qkv in fp32 (JAX mha.py:154-203): train and prefill pad two
+rows on the left, prefill keeps the last two pre-conv rows of each row's
+true length in the cache's ``dwconv_state``, and decode convolves them with
+the new rows and rolls them on, so that prefill then decode gives train
+mode's outputs. JAX computes it with lax.conv_general_dilated, an XLA op
+outside any Pallas kernel; here it is three fp32 multiply-adds over shifted
+rows: conv1d(groups=qkv_dim)'s arithmetic, without the TF32 rounding that
+a float32 convolution takes on the card by default. Not with packed
+sequences or prefix caching, as in JAX.
+
 The cache lives in a :class:`KVCache` the caller passes in (the JAX
 module's flax "cache" collection), in the JAX layouts: linear (n_slots,
 h_k, s_alloc, d) with s_alloc = max_decode_seqlen rounded up to a multiple
@@ -26,13 +37,17 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from flash_attn_tpu_torch.cache.kvcache import (
     flash_attn_with_kvcache,
     kv_cache_update,
 )
-from flash_attn_tpu_torch.dispatch.config import KERNEL_HEAD_DIMS
+from flash_attn_tpu_torch.dispatch.config import (
+    FWD_DECODE_HEAD_DIMS,
+    KERNEL_HEAD_DIMS,
+)
 from flash_attn_tpu_torch.interface import (
     flash_attn_func,
     flash_attn_varlen_func,
@@ -43,12 +58,15 @@ from flash_attn_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass
 class KVCache:
-    """One layer's decode state: the caches (linear or paged) and the
-    lengths (n_slots,) int32 of every slot. Filled by a prefill, or
-    allocated up front by :meth:`MHA.allocate_cache`."""
+    """One layer's decode state: the caches (linear or paged), the
+    lengths (n_slots,) int32 of every slot and, for a module with dwconv,
+    the last two pre-conv qkv rows of every slot (n_slots, 2, qkv_dim).
+    Filled by a prefill, or allocated up front by
+    :meth:`MHA.allocate_cache`; prefill and decode update them in place."""
     k: Optional[torch.Tensor] = None
     v: Optional[torch.Tensor] = None
     offset: Optional[torch.Tensor] = None
+    dwconv_state: Optional[torch.Tensor] = None
 
 
 class RotaryEmbedding:
@@ -81,7 +99,7 @@ class MHA(nn.Module):
                  out_proj_bias: bool = True, causal: bool = False,
                  softmax_scale: Optional[float] = None,
                  rotary_emb_dim: int = 0, rotary_emb_base: float = 10000.0,
-                 rotary_emb_interleaved: bool = False,
+                 rotary_emb_interleaved: bool = False, dwconv: bool = False,
                  max_decode_seqlen: int = 2048, paged_kv_num_pages: int = 0,
                  paged_kv_page_size: int = 128, dtype=torch.bfloat16,
                  device=None):
@@ -104,6 +122,16 @@ class MHA(nn.Module):
         self.out_proj = nn.Linear(self.num_heads * self.head_dim, embed_dim,
                                   bias=out_proj_bias, dtype=dtype,
                                   device=device)
+        self.dwconv = dwconv
+        if dwconv:
+            # conv1d's layout (qkv_dim, 1, 3) of flax's (3, 1, qkv_dim)
+            # kernel, and its initial scales (normal 0.02, bias 0), in fp32
+            self.dwconv_kernel = nn.Parameter(torch.empty(
+                qkv_dim, 1, 3, dtype=torch.float32, device=device))
+            self.dwconv_bias = nn.Parameter(torch.zeros(
+                qkv_dim, dtype=torch.float32, device=device))
+            with torch.no_grad():
+                self.dwconv_kernel.normal_(0.0, 0.02)
 
     @property
     def paged(self) -> bool:
@@ -123,10 +151,44 @@ class MHA(nn.Module):
         else:
             # 128-multiple allocation, as in the JAX module (mha.py:261)
             shape = (n_slots, h_k, -(-self.max_decode_seqlen // 128) * 128, d)
+        dw = None
+        if self.dwconv:
+            dw = torch.zeros((n_slots, 2, self.Wqkv.out_features),
+                             dtype=dtype, device=device)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros((n_slots,), dtype=torch.int32,
-                                   device=device))
+                                   device=device), dw)
+
+    def _conv(self, x):
+        """The width-3 causal depthwise conv over rows already padded by
+        two on the left (b, s + 2, qkv_dim) -> (b, s, qkv_dim), in fp32,
+        returned in x's type."""
+        xf, w = x.float(), self.dwconv_kernel[:, 0].T  # (3, qkv_dim)
+        s = x.shape[1] - 2
+        y = xf[:, :s] * w[0] + xf[:, 1:s + 1] * w[1] + xf[:, 2:] * w[2]
+        return (y + self.dwconv_bias).to(x.dtype)
+
+    def _dwconv(self, qkv, mode: str, cache, slot_ids, lengths):
+        """qkv after the conv; in prefill and decode the cache's
+        dwconv_state is read and written in place (JAX mha.py:175-202)."""
+        if mode == "decode":
+            ext = torch.cat([cache.dwconv_state.to(qkv.dtype), qkv], 1)
+            cache.dwconv_state.copy_(ext[:, -2:])
+            return self._conv(ext)
+        padded = F.pad(qkv, (0, 0, 2, 0))
+        if mode == "prefill":
+            # padded[:, n + i] is x[n - 2 + i]: the last two rows of each
+            # row's true length n (zeros where n < 2)
+            idx = torch.stack([lengths, lengths + 1], 1).long()
+            new = padded.gather(1, idx[:, :, None].expand(
+                -1, -1, padded.shape[-1]))
+            if slot_ids is None:
+                cache.dwconv_state.copy_(new)
+            else:
+                cache.dwconv_state[slot_ids.to(new.device, torch.long)] = \
+                    new.to(cache.dwconv_state.dtype)
+        return self._conv(padded)
 
     def _table_rows(self, block_table, slot_ids):
         if not self.paged:
@@ -149,22 +211,45 @@ class MHA(nn.Module):
         already cached in each slot's shared pages, x carrying only the
         rest. A paged cache needs ``block_table`` (n_slots, max_pages) in
         prefill and decode."""
-        if x.is_cuda and self.head_dim not in KERNEL_HEAD_DIMS:
+        dims = (KERNEL_HEAD_DIMS if cu_seqlens is not None
+                else FWD_DECODE_HEAD_DIMS)
+        if x.is_cuda and self.head_dim not in dims:
             raise NotImplementedError(
-                f"MHA: head dim {self.head_dim} on the card; the kernels take "
-                f"{KERNEL_HEAD_DIMS} (others, such as GPT-J's 256 and "
-                "GPT-NeoX-20B's 96, are ROADMAP.md queue A, item 7; the CPU "
-                "runs any head dim)")
+                f"MHA: head dim {self.head_dim} on the card; its kernels "
+                f"take {dims} (others are ROADMAP.md queue A, item 7; the "
+                "CPU runs any head dim)")
         if cu_seqlens is not None:
+            if self.dwconv:
+                raise ValueError("MHA: dwconv takes non-packed input only "
+                                 "(as JAX asserts)")
             return self._forward_packed(x, cu_seqlens, max_seqlen)
         if mode not in ("train", "prefill", "decode"):
             raise NotImplementedError(f"MHA mode {mode!r}")
         if mode != "train" and cache is None:
             raise ValueError(f"MHA mode {mode!r} needs a KVCache")
+        if self.dwconv and mode == "prefill" and prefix_lengths is not None:
+            raise NotImplementedError(
+                "MHA: prefix caching with dwconv is unsupported (as in JAX)")
         b, s = x.shape[:2]
         dev = x.device
         h, h_k, d = self.num_heads, self.num_heads_kv, self.head_dim
-        q, k, v = self.Wqkv(x).split([h * d, h_k * d, h_k * d], dim=-1)
+        prefill = mode == "prefill"
+        lengths = None
+        if prefill:
+            if cache.k is None:
+                n_slots = (block_table.shape[0]
+                           if self.paged and block_table is not None else b)
+                fresh = self.allocate_cache(n_slots, self.Wqkv.weight.dtype,
+                                            dev)
+                cache.k, cache.v, cache.offset = fresh.k, fresh.v, fresh.offset
+                cache.dwconv_state = fresh.dwconv_state
+            lengths = (torch.full((b,), s, dtype=torch.int32, device=dev)
+                       if prefill_lengths is None
+                       else prefill_lengths.to(dev, torch.int32))
+        qkv = self.Wqkv(x)
+        if self.dwconv:
+            qkv = self._dwconv(qkv, mode, cache, slot_ids, lengths)
+        q, k, v = qkv.split([h * d, h_k * d, h_k * d], dim=-1)
         q = q.unflatten(-1, (h, d))
         k = k.unflatten(-1, (h_k, d))
         v = v.unflatten(-1, (h_k, d))
@@ -183,17 +268,6 @@ class MHA(nn.Module):
             cache.offset += s
             return self.out_proj(ctx.reshape(b, s, h * d))
 
-        prefill = mode == "prefill"
-        lengths = None
-        if prefill:
-            if cache.k is None:
-                n_slots = (block_table.shape[0]
-                           if self.paged and block_table is not None else b)
-                fresh = self.allocate_cache(n_slots, k.dtype, dev)
-                cache.k, cache.v, cache.offset = fresh.k, fresh.v, fresh.offset
-            lengths = (torch.full((b,), s, dtype=torch.int32, device=dev)
-                       if prefill_lengths is None
-                       else prefill_lengths.to(dev, torch.int32))
         if prefill and prefix_lengths is not None:
             # prefix-cached chunked prefill: the suffix is written at offset
             # prefix (only full pages are ever shared, so the writes land
@@ -262,6 +336,21 @@ class MHA(nn.Module):
             q, k, v, cu_seqlens, cu_seqlens, max_seqlen, max_seqlen,
             causal=self.causal, softmax_scale=self.softmax_scale)
         return self.out_proj(ctx.reshape(total, h * d))
+
+    def jax_param_arrays(self, params) -> Dict[str, object]:
+        """The arrays of a flax MHA param dict (numpy arrays) by the names
+        of ``self.named_parameters()``, in torch layouts: Dense kernels
+        (in, out) as Linear weights (out, in), the dwconv kernel (3, 1,
+        qkv_dim) as conv1d's (qkv_dim, 1, 3)."""
+        out = {}
+        for name, lin in (("Wqkv", self.Wqkv), ("out_proj", self.out_proj)):
+            out[f"{name}.weight"] = params[name]["kernel"].T
+            if lin.bias is not None:
+                out[f"{name}.bias"] = params[name]["bias"]
+        if self.dwconv:
+            out["dwconv_kernel"] = params["dwconv_kernel"].transpose(2, 1, 0)
+            out["dwconv_bias"] = params["dwconv_bias"]
+        return out
 
     @staticmethod
     def _set_offsets(cache: KVCache, slot_ids, lengths) -> None:

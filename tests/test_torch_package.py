@@ -443,13 +443,24 @@ def _dense_bwd_inputs(case, seed=0):
     return q, k, v, do, out, lse
 
 
+# B1 at the head dims only the forward and decode kernels take (GPT-NeoX-20B's
+# 96, GPT-J's 256): the edges of the tiles, MQA and GQA, fp16.
+FWD_WIDE_DIM_CASES = [
+    (2, 200, 300, 4, 2, 96, True, torch.bfloat16),
+    (1, 129, 129, 4, 4, 96, False, torch.float16),
+    (2, 63, 65, 4, 1, 256, True, torch.bfloat16),
+    (1, 200, 129, 2, 2, 256, True, torch.float16),
+    (1, 300, 300, 2, 2, 256, False, torch.bfloat16),
+]
+
+
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", DENSE_BWD_EDGE_CASES)
+@pytest.mark.parametrize("case", DENSE_BWD_EDGE_CASES + FWD_WIDE_DIM_CASES)
 def test_dense_forward_edge_shapes_on_the_card(case):
-    """B1 on the edges of its 128-row and 64-key tiles against the plain
-    fp32 forward under the 2x rule (attention_ref in the inputs' type as
-    the low-precision reference), lse within 1e-3, and the same bits
-    twice."""
+    """B1 on the edges of its 128-row and 64-key tiles, at every head dim
+    it takes, against the plain fp32 forward under the 2x rule
+    (attention_ref in the inputs' type as the low-precision reference),
+    lse within 1e-3, and the same bits twice."""
     from flash_attn_tpu_torch.kernels import flash_fwd
     from flash_attn_tpu_torch.utils.testing import (
         attention_ref,
@@ -1136,6 +1147,13 @@ DECODE_EDGE_CASES = [
     ("pages of 100, d=64, GQA 16/4, fp16", 16, 4, 64, 100, 0, 2,
      torch.float16),
     ("pages of 256", 16, 16, 128, 256, 0, 1, torch.bfloat16),
+    # GPT-NeoX-20B's 96 (staged as 128 columns) and GPT-J's 256
+    ("linear s_max 640, d=96", 8, 8, 96, 0, 640, 1, torch.bfloat16),
+    ("pages of 48, d=96, GQA 16/4, sq=3, fp16", 16, 4, 96, 48, 0, 3,
+     torch.float16),
+    ("linear s_max 200, d=256, sq=2", 4, 4, 256, 0, 200, 2, torch.bfloat16),
+    ("pages of 256, d=256, GQA 16/4, sq=5", 16, 4, 256, 256, 0, 5,
+     torch.bfloat16),
 ]
 
 
@@ -1299,9 +1317,20 @@ VARLEN_PAGED_EDGE_CASES = [
 ]
 
 
+# B8 at 96 and 256 (B6, its packed twin, takes 64 and 128 only).
+VARLEN_PAGED_WIDE_CASES = [
+    ("d=96, pages of 256", [256, 77, 1], [512, 300, 90], None, 8, 8, 96,
+     256, torch.bfloat16, True),
+    ("d=256, GQA 8/2, pages of 48, fp16", [100, 37, 129], [300, 37, 129],
+     [100, 20, 129], 8, 2, 256, 48, torch.float16, True),
+    ("d=256, not causal, pages of 16", [50, 200], [60, 190], None, 4, 4,
+     256, 16, torch.bfloat16, False),
+]
+
+
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", VARLEN_CASES + VARLEN_PAGED_EDGE_CASES,
-                         ids=lambda c: c[0])
+@pytest.mark.parametrize("case", VARLEN_CASES + VARLEN_PAGED_EDGE_CASES
+                         + VARLEN_PAGED_WIDE_CASES, ids=lambda c: c[0])
 def test_varlen_paged_kernel_cases_on_the_card(case):
     """B8 against its plain version on chip_smoke.py's shapes and the edge
     cases above, with NaN in every page slot past seqlens_k (and in the
@@ -1987,9 +2016,10 @@ def test_decode_at_large_groups_on_the_card(h, d):
 @pytest.mark.parametrize("n_embd, n_head", [(512, 2), (192, 2)],
                          ids=["gptj_256", "neox_20b_96"])
 def test_unported_head_dims_raise_naming_item_7_on_the_card(n_embd, n_head):
-    """GPT-J's head dim 256 and GPT-NeoX-20B's 96 are outside the kernels'
-    (64, 128): on the card the model raises naming queue A item 7 (the CPU
-    runs them)."""
+    """GPT-J's head dim 256 and GPT-NeoX-20B's 96 have forward and decode
+    kernels but no backward yet: on the card a model whose weights require
+    grad raises naming queue A item 7 before its forward runs (the CPU
+    runs them; without grad the card serves them)."""
     from types import SimpleNamespace
 
     from flash_attn_tpu_torch.models.hf_adapters import (
@@ -2004,3 +2034,113 @@ def test_unported_head_dims_raise_naming_item_7_on_the_card(n_embd, n_head):
         hf, dtype=torch.bfloat16, max_decode_seqlen=64))
     with pytest.raises(NotImplementedError, match="item 7"):
         model(torch.zeros((1, 8), dtype=torch.long, device="cuda"))
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_wide_head_dim_refusals_on_the_card():
+    """At 96 and 256 flash_attn_func refuses inputs that require grad before
+    any launch and serves them without grad; B6/B7 (flash_attn_varlen_func)
+    still take 64 and 128 only, and 192 and d != dv raise: each names queue
+    A item 7."""
+    from flash_attn_tpu_torch import flash_attn_varlen_func
+    from flash_attn_tpu_torch.kernels import flash_fwd
+
+    def randn(*shape, **kw):
+        return torch.randn(*shape, device="cuda", dtype=torch.bfloat16, **kw)
+
+    for d in (96, 256):
+        q = randn(1, 64, 2, d, requires_grad=True)
+        before = flash_fwd.launches
+        with pytest.raises(NotImplementedError, match="queue A, item 7"):
+            flash_attn_func(q, q, q, causal=True)
+        assert flash_fwd.launches == before
+        with torch.no_grad():
+            out = flash_attn_func(q, q, q, causal=True)
+        assert flash_fwd.launches == before + 1 and out.shape == q.shape
+        x = randn(64, 2, d)
+        cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
+        with pytest.raises(ValueError, match="queue A, item 7"):
+            flash_attn_varlen_func(x, x, x, cu, cu, 64, 64, causal=True)
+    y = randn(1, 64, 2, 192)
+    with pytest.raises(ValueError, match="queue A, item 7"):
+        flash_attn_func(y, y, y)
+    q, v = randn(1, 64, 2, 256), randn(1, 64, 2, 128)
+    with pytest.raises(ValueError, match="queue A, item 7"):
+        flash_attn_func(q, q, v)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("mode", ["static", "paged", "prefix"])
+@pytest.mark.parametrize("n_embd, n_head", [(384, 4), (512, 2)],
+                         ids=["d96", "d256"])
+def test_graphed_decode_at_wide_head_dims_equals_eager_on_the_card(
+        n_embd, n_head, mode):
+    """A 2-layer GPT at head dim 96 and 256 serves on the card: static
+    decode replaying its captured step (B1, then B4 over a linear cache)
+    gives the eager step's tokens and scores bitwise, and the engine's
+    captured decode block (B4 over pages; admissions through B1, or B8
+    under prefix caching) gives the eager block's tokens, with the same
+    launches."""
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    model = _graph_model(mode != "static", n_embd=n_embd, n_head=n_head,
+                         n_head_kv=n_head)
+    if mode == "static":
+        ids = torch.randint(0, 512, (3, 20), device="cuda", generator=torch.
+                            Generator(device="cuda").manual_seed(1))
+        cfg = GenerationConfig(max_length=48)
+        want, n_eager = _counted(
+            lambda: decode(ids, model, cfg, output_scores=True, cg=False))
+        got, n_graph = _counted(
+            lambda: decode(ids, model, cfg, output_scores=True, cg=True))
+        assert n_eager == n_graph and n_eager
+        assert torch.equal(want[0], got[0]) and torch.equal(want[2], got[2])
+        return
+    jobs = _engine_jobs(2, shared=40 if mode == "prefix" else 0)
+    (want, n_eager), (got, n_graph) = (
+        _serve(_engine(model, cg, prefix=mode == "prefix"), jobs)
+        for cg in (False, True))
+    assert got == want and n_graph == n_eager and n_eager
+    assert [len(t) for t in got] == [m for _, m in jobs]
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_remat_losses_equal_across_policies_on_the_card():
+    """GPTConfig(remat=True) on the card: a training step under 'full' and
+    'dots' gives the loss and every gradient of the step without remat
+    bitwise (the recompute runs the same deterministic kernels on the same
+    inputs), and the recompute launches B1 once more a layer."""
+    import dataclasses
+
+    from flash_attn_tpu_torch.kernels import flash_fwd
+
+    base = dict(vocab_size=512, n_positions=0, n_embd=256, n_layer=2,
+                n_head=2, rotary_emb_fraction=1.0, use_rms_norm=True,
+                glu_act=True, dtype=torch.bfloat16)
+    ids = torch.randint(0, 512, (2, 257), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+    results = {}
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        cfg = dataclasses.replace(GPTConfig(**base), remat=remat,
+                                  remat_policy=policy)
+        model = GPTLMHeadModel(cfg, device="cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+        before = flash_fwd.launches
+        logits = model(ids[:, :-1])
+        loss = torch.nn.functional.cross_entropy(logits.flatten(0, 1),
+                                                 ids[:, 1:].flatten())
+        loss.backward()
+        torch.cuda.synchronize()
+        results[(remat, policy)] = (
+            loss.detach(), [p.grad for p in model.parameters()],
+            flash_fwd.launches - before)
+    want_loss, want_grads, n_plain = results[(False, "full")]
+    assert n_plain == 2
+    for key in ((True, "full"), (True, "dots")):
+        loss, grads, n = results[key]
+        assert torch.equal(loss, want_loss), key
+        assert all(torch.equal(g, w) for g, w in zip(grads, want_grads)), key
+        assert n == 4, key

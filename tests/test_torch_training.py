@@ -351,12 +351,19 @@ def test_loss_scaler_skips_non_finite_steps():
 
 
 def test_unported_training_options_raise():
+    """Data, model and sequence parallelism still raise (queue A item 8);
+    remat, once refused here too, is ported: a Trainer over
+    GPTConfig(remat=True) builds and takes a step
+    (tests/test_torch_remat_dwconv.py holds its gradients to JAX's)."""
     for key in ("data_parallel", "model_parallel", "seq_parallel"):
         with pytest.raises(NotImplementedError, match="queue A, item 8"):
             Trainer(TrainConfig(model=CFG, **{key: 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        Trainer(TrainConfig(model=dataclasses.replace(CFG, remat=True)),
-                device="cpu")
+    tr = Trainer(TrainConfig(model=dataclasses.replace(CFG, remat=True),
+                             **{**TRAIN, "seqlen": 16}), device="cpu")
+    assert tr.model.config.remat
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, 512, (2, 17)))
+    loss, gnorm = tr.train_step(ids[:, :-1], ids[:, 1:])
+    assert math.isfinite(float(loss)) and math.isfinite(float(gnorm))
 
 
 # -- (i) the data pipeline ------------------------------------------------------

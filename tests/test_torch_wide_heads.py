@@ -1,0 +1,196 @@
+"""Head dims 96 (GPT-NeoX-20B) and 256 (GPT-J), which the port's forward and
+decode kernels (B1, B8, B4 d = dv) take and its backward kernels do not
+yet, against the JAX package on the same numpy inputs, on the CPU: the port
+runs the plain versions of its kernels, JAX its Pallas kernels in interpret
+mode.
+
+Each attention function is held to JAX twice: in fp32 (the two differ only
+in summation order, atol/rtol 1e-5) and in bf16 under the 2x rule, the
+port's bf16 output against JAX's fp32 output on the same bf16-rounded
+inputs, within twice JAX's own bf16 output's error (plus 1e-5). The
+models at these head dims are in tests/test_torch_wide_models.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flash_attn_tpu.cache.kvcache import (
+    flash_attn_with_kvcache as jax_flash_attn_with_kvcache,
+)
+from flash_attn_tpu.interface import flash_attn_func as jax_flash_attn_func
+from flash_attn_tpu.interface import (
+    flash_attn_varlen_func as jax_flash_attn_varlen_func,
+)
+from flash_attn_tpu_torch import (
+    flash_attn_func,
+    flash_attn_varlen_func,
+    flash_attn_with_kvcache,
+)
+from flash_attn_tpu_torch.dispatch.config import (
+    FWD_DECODE_HEAD_DIMS,
+    KERNEL_HEAD_DIMS,
+    check_head_dims,
+)
+from flash_attn_tpu_torch.kernels.flash_bwd import check_backward_head_dim
+from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+torch.set_num_threads(1)
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+PAGE = 16
+# Three sequences over 12 pages of 16 with 4 table columns; unused columns
+# point at the null page 0.
+TABLE = np.array([[3, 0, 0, 0], [7, 1, 0, 0], [2, 9, 11, 0]], np.int32)
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _bf16(*arrays):
+    """The arrays rounded to bf16: (torch bf16 tensors, their fp32 values as
+    numpy)."""
+    ts = [torch.from_numpy(a).bfloat16() for a in arrays]
+    return ts, [t.float().numpy() for t in ts]
+
+
+def _assert_lse(lse_t, lse_j):
+    lse_t, lse_j = lse_t.numpy(), np.asarray(lse_j)
+    np.testing.assert_array_equal(np.isneginf(lse_t), np.isneginf(lse_j))
+    fin = np.isfinite(lse_j)
+    np.testing.assert_allclose(lse_t[fin], lse_j[fin], **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [96, 256])
+def test_flash_attn_func_matches_jax(d, causal):
+    rng = np.random.default_rng(d)
+    q, k, v = _rand(rng, 2, 37, 4, d), _rand(rng, 2, 70, 2, d), \
+        _rand(rng, 2, 70, 2, d)
+    out_j, lse_j, _ = jax_flash_attn_func(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        return_attn_probs=True)
+    out_t, lse_t, _ = flash_attn_func(_t(q), _t(k), _t(v), causal=causal,
+                                      return_attn_probs=True)
+    assert out_t.shape == (2, 37, 4, d)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    _assert_lse(lse_t, lse_j)
+
+    (qb, kb, vb), f32 = _bf16(q, k, v)
+    ref = jax_flash_attn_func(*map(jnp.asarray, f32), causal=causal)
+    ref_lp = jax_flash_attn_func(
+        *(jnp.asarray(x, jnp.bfloat16) for x in f32), causal=causal)
+    check_against_ref(flash_attn_func(qb, kb, vb, causal=causal), ref,
+                      np.asarray(ref_lp, np.float32),
+                      msg=f"flash_attn_func d={d}")
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+@pytest.mark.parametrize("d", [96, 256])
+def test_flash_attn_with_kvcache_matches_jax(d, paged):
+    """Decode with an append (sq = 2, GQA 4/2, 2 splits) over a linear and
+    a paged cache: the output and the mutated caches."""
+    rng = np.random.default_rng(d + paged)
+    b, h, h_k = 3, 4, 2
+    q = _rand(rng, b, 2, h, d)
+    k_new, v_new = _rand(rng, b, 2, h_k, d), _rand(rng, b, 2, h_k, d)
+    shape = (12, h_k, PAGE, d) if paged else (b, h_k, 64, d)
+    kc, vc = _rand(rng, *shape), _rand(rng, *shape)
+    seqlens = np.array([5, 30, 46], np.int32)  # before the append
+    table = dict(block_table=TABLE) if paged else {}
+
+    def jax_run(dtype, q, k_new, v_new, kc, vc):
+        return jax_flash_attn_with_kvcache(
+            *(jnp.asarray(x, dtype) for x in (q, kc, vc)),
+            k=jnp.asarray(k_new, dtype), v=jnp.asarray(v_new, dtype),
+            cache_seqlens=jnp.asarray(seqlens), causal=True, num_splits=2,
+            **{n: jnp.asarray(x) for n, x in table.items()})
+
+    def port_run(q, k_new, v_new, kc, vc):
+        return flash_attn_with_kvcache(
+            q, kc, vc, k=k_new, v=v_new, cache_seqlens=_t(seqlens),
+            causal=True, num_splits=2,
+            **{n: _t(x) for n, x in table.items()})
+
+    out_j, kc_j, vc_j = jax_run(jnp.float32, q, k_new, v_new, kc, vc)
+    kc_t, vc_t = _t(kc), _t(vc)
+    out_t = port_run(_t(q), _t(k_new), _t(v_new), kc_t, vc_t)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    np.testing.assert_allclose(kc_t.numpy(), np.asarray(kc_j), **TOL)
+    np.testing.assert_allclose(vc_t.numpy(), np.asarray(vc_j), **TOL)
+
+    bf, f32 = _bf16(q, k_new, v_new, kc, vc)
+    ref, _, _ = jax_run(jnp.float32, *f32)
+    ref_lp, _, _ = jax_run(jnp.bfloat16, *f32)
+    check_against_ref(port_run(*bf), ref, np.asarray(ref_lp, np.float32),
+                      msg=f"flash_attn_with_kvcache d={d} paged={paged}")
+
+
+@pytest.mark.parametrize("d", [96, 256])
+def test_varlen_paged_matches_jax(d):
+    """flash_attn_varlen_func(block_table=) (B8's route): ragged chunks,
+    one of them padded by seqused_q, over cached keys, causal."""
+    rng = np.random.default_rng(d)
+    lens_q, lens_k, used = [9, 1, 20], [12, 17, 47], [9, 1, 14]
+    cu = np.concatenate([[0], np.cumsum(lens_q)]).astype(np.int32)
+    q = _rand(rng, int(cu[-1]), 4, d)
+    kp, vp = _rand(rng, 12, 2, PAGE, d), _rand(rng, 12, 2, PAGE, d)
+    lens_k, used = np.array(lens_k, np.int32), np.array(used, np.int32)
+
+    def jax_run(dtype, q, kp, vp):
+        return jax_flash_attn_varlen_func(
+            *(jnp.asarray(x, dtype) for x in (q, kp, vp)), jnp.asarray(cu),
+            None, max(lens_q), 64, causal=True, block_table=jnp.asarray(TABLE),
+            seqused_k=jnp.asarray(lens_k), seqused_q=jnp.asarray(used),
+            return_attn_probs=True)
+
+    def port_run(q, kp, vp):
+        return flash_attn_varlen_func(
+            q, kp, vp, _t(cu), None, max(lens_q), 64, causal=True,
+            block_table=_t(TABLE), seqused_k=_t(lens_k), seqused_q=_t(used),
+            return_attn_probs=True)
+
+    out_j, lse_j = jax_run(jnp.float32, q, kp, vp)
+    out_t, lse_t = port_run(_t(q), _t(kp), _t(vp))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    _assert_lse(lse_t, lse_j)
+    bf, f32 = _bf16(q, kp, vp)
+    ref, _ = jax_run(jnp.float32, *f32)
+    ref_lp, _ = jax_run(jnp.bfloat16, *f32)
+    check_against_ref(port_run(*bf)[0], ref, np.asarray(ref_lp, np.float32),
+                      msg=f"flash_attn_varlen_func(block_table=) d={d}")
+
+
+def test_head_dim_refusals_name_item_7():
+    """The wrappers' checks (a kernel cannot launch here): B1, B8 and B4 take
+    96 and 256, B6/B7, the backward, B10 and the MLA route 64 and 128 only;
+    flash_attn_func refuses a gradient at 96 or 256 before its forward
+    (check_backward_head_dim); 192 and d != dv are refused everywhere. Each
+    refusal names queue A item 7; the CPU runs any head dim."""
+    assert FWD_DECODE_HEAD_DIMS == (64, 96, 128, 256)
+    assert KERNEL_HEAD_DIMS == (64, 128)
+    for d in (96, 256):
+        check_head_dims("flash_fwd", d, d, d, FWD_DECODE_HEAD_DIMS)
+        with pytest.raises(ValueError, match="queue A, item 7"):
+            check_head_dims("flash_varlen_fwd", d, d, d, KERNEL_HEAD_DIMS)
+        q = torch.zeros(1, 8, 2, d, requires_grad=True)
+        with pytest.raises(NotImplementedError, match="queue A, item 7"):
+            check_backward_head_dim("flash_attn_func", d, q, q, q)
+        with torch.no_grad():
+            check_backward_head_dim("flash_attn_func", d, q, q, q)
+        check_backward_head_dim("flash_attn_func", d, q.detach())
+        out = flash_attn_func(q, q, q, causal=True)  # the CPU takes grads
+        out.sum().backward()
+        assert q.grad.shape == q.shape
+    check_backward_head_dim("flash_attn_func", 128,
+                            torch.zeros(1, requires_grad=True))
+    for dims in (FWD_DECODE_HEAD_DIMS, KERNEL_HEAD_DIMS):
+        with pytest.raises(ValueError, match="queue A, item 7"):
+            check_head_dims("kernel", 192, 192, 192, dims)
+        with pytest.raises(ValueError, match="queue A, item 7"):
+            check_head_dims("kernel", 256, 256, 128, dims)
