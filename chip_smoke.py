@@ -171,7 +171,23 @@
    and eager, the teacher-forced check), then through the engines on 16
    slots (GPT-NeoX-20B the paged and the prefix-cached, GPT-J-6B the
    prefix-cached, each held to a teacher-forced static decode), and prints
-   each decode step beside the time to read its weights once.
+   each decode step beside the time to read its weights once;
+16. training at head dims 96 and 256: holds B3, B2 and the preprocess at
+   GPT-NeoX-20B's 64 heads of 96 and GPT-J-6B's 16 of 256 (b=4 x 2048
+   causal, b=2 x 1024 non-causal, 1000 rows over 1300 keys) against the
+   plain fp32 backward (the 2x rule, references a batch row at a time), B3
+   bitwise twice, B6's backward over the same rows packed bitwise equal to
+   B3's and B6's forward and B7 to B1's, counts
+   flash_attn_func(...).backward() both ways, times each kernel beside its
+   bound, its plain version and SDPA (over nested tensors for the packed
+   ones) and reads each kernel's registers and spills (cuobjdump
+   -res-usage); runs the packed path at the training shape (B7, B6's
+   forward, the backward, counted) and the packed MHA at each family's
+   widths against the same module on the CPU (fp32, and bf16 for the 2x
+   rule); then trains GPT-J-6B (8 of 28 layers) and GPT-NeoX-20B (4 of 44)
+   at full width with Trainer.fit as in 5. (launches per step and layer,
+   a falling loss, the fused-CE check) and prints their step time,
+   tokens/s, TFLOP/s and peak memory.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -485,6 +501,23 @@ GPTJ_6B = SimpleNamespace(  # EleutherAI/gpt-j-6b config.json
 # prefix admission's shape of VARLEN_CASES.
 WIDE_FAMILIES = [("GPT-NeoX-20B", 96, 64), ("GPT-J-6B", 256, 16)]
 WIDE_VERIFY_D = 96
+# Training at those head dims. The backward kernels (B3, B2 and their
+# preprocess; B6's backward and the packed forwards B6 and B7 over the same
+# rows packed) at each family's heads on WIDE_BWD_CASES (b, sq, sk,
+# causal): the training shape first, then non-causal, then sq != sk with a
+# key count that is not a multiple of the 64-key tile.
+WIDE_BWD_CASES = [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True),
+                  (2, 1024, 1024, False), (2, 1000, 1300, True)]
+# Each family trained at full width from its config with the depth cut so
+# that the trainer's state (bf16 weights and gradients, fp32 masters, bf16
+# Adam moments: ~12 bytes a parameter, plus the update's fp32 transients)
+# and the activations at b = 4 x 2048 (~2-3 GB a layer) fit 80 GB: GPT-J-6B
+# at 8 of 28 layers (2.0B parameters), GPT-NeoX-20B at 4 of 44 (2.4B).
+WIDE_TRAIN_LAYERS = {"GPT-J-6B": 8, "GPT-NeoX-20B": 4}
+# The packed MHA at each family's widths on the card, against the same
+# module on the CPU (plain versions; fp32, and bf16 for the 2x rule): ragged
+# sequences whose key counts are not multiples of the 64-key tile.
+WIDE_MHA_LENS = [200, 129, 183]
 # remat: the 913M GPT's training step at b=4 x 2048 without remat and with
 # GPTConfig(remat=True) under each policy, REMAT_STEPS steps each over the
 # same batches (the step time is the median of all but the first).
@@ -917,15 +950,23 @@ def check_decode_paged(gen):
                 lambda: flash_decode.flash_attention_decode_paged_partials_plain(
                     q, kp, vp, seqlens, table, splits, DECODE_BLOCK_K, scale,
                     True))
-            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                      "library_call": "none: no single PyTorch call reads K/V "
-                                      "through a block table (a gather first)",
+            gathered, sdpa_only = paged_sdpa(q, kp, vp, table, seqlens)
+            lib_ms, sdpa_ms = time_ms(gathered), time_ms(sdpa_only)
+            timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "library_call": "the cache gathered through the block "
+                                      "table to the linear layout, then "
+                                      "scaled_dot_product_attention with a "
+                                      "boolean length mask (the gather "
+                                      "included)",
+                      "library_sdpa_only_ms": sdpa_ms,
                       **decode_bound(seqlens, b, h, h_k, d, splits,
                                      table.numel())}
             cluster, busiest, mean = decode_block_tiles(seqlens, h_k, splits)
             print(f"flash_decode_paged time at the engine's decode shape: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of "
-                  f"25); bound {timing['bound_ms']:.4f} ms "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, gather + "
+                  f"masked scaled_dot_product_attention {lib_ms:.4f} ms "
+                  f"({sdpa_ms:.4f} ms without the gather; median of 25); "
+                  f"bound {timing['bound_ms']:.4f} ms "
                   f"({timing['bound_by']}); clusters of {cluster} blocks, the "
                   f"busiest block {busiest} key tiles, the mean {mean:.2f}")
     return worst, timing
@@ -1026,12 +1067,32 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
     kernel_ms = kernel_split_ms(call, ("varlen_paged_kernel",))
     plain_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
         q, kp, vp, *args, seqused_q=seqused, causal=causal))
+    # the yardstick: the packed rows padded to (b, max_q) and the cache
+    # gathered (paged_sdpa), the output packed again; rows past seqused_q
+    # attend as the others (their output is not read)
+    seq = torch.repeat_interleave(torch.arange(b, device="cuda"),
+                                  torch.tensor(lens_q, device="cuda"))
+    pos = torch.arange(int(cu[-1]), device="cuda") - cu[seq].long()
+    qpad = q.new_zeros(b, max_q, h, d)
+    qpad[seq, pos] = q
+    gathered, sdpa_only = paged_sdpa(qpad, kp, vp, table, seqlens_k, causal,
+                                     lens_q)
+
+    def packed_lib():
+        qpad.zero_()
+        qpad[seq, pos] = q
+        return gathered().transpose(1, 2)[seq, pos]
+    lib_ms, sdpa_ms = time_ms(packed_lib), time_ms(sdpa_only)
     total_q = int(cu[-1])
     timing = {"ms": ms, "kernel_ms": kernel_ms["varlen_paged_kernel"],
               "wrapper_ops_ms": kernel_ms["other"],
-              "plain_ms": plain_ms, "library_ms": None,
-              "library_call": "none: no single PyTorch call reads K/V "
-                              "through a block table (a gather first)",
+              "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library_sdpa_only_ms": sdpa_ms,
+              "library_call": "the packed rows padded, the cache gathered "
+                              "through the block table to the linear "
+                              "layout, scaled_dot_product_attention with a "
+                              "boolean causal length mask, the rows packed "
+                              "again (the gather and the packing included)",
               **bound(4 * h * d * attended_pairs(
                   used or lens_q, lens_k, causal),
                   2 * 2 * total_q * h * d
@@ -1040,8 +1101,10 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
           f"call {ms:.4f} ms (median of 25), of which the kernel "
           f"{timing['kernel_ms']:.4f} ms and the wrapper's torch ops "
           f"{timing['wrapper_ops_ms']:.4f} ms (profiler, device time); "
-          f"plain {plain_ms:.4f} ms; bound {timing['bound_ms']:.4f} ms "
-          f"({timing['bound_by']})")
+          f"plain {plain_ms:.4f} ms; padding, gather and masked "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms (SDPA alone "
+          f"{sdpa_ms:.4f} ms); bound "
+          f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
     return err, timing
 
 
@@ -1842,87 +1905,105 @@ def make_loader(path: str):
     return LMDataLoader(ds, TRAIN_BATCH, FaultTolerantSampler(len(ds), seed=0))
 
 
-def run_training():
-    """Trainer.fit of the 913M GPT at the repo's training shape; returns
-    the launch counts of the run and its measurements."""
-    import torch.nn.functional as F
-
+def fit_checked(label, mcfg, path):
+    """Trainer.fit of the model of ``mcfg`` at the repo's training shape
+    (TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps over the token file at
+    ``path``), with the checks of every training phase: per step and
+    layer 1 forward, 1 preprocess, 1 dK/dV and 1 dQ launch; a finite loss
+    near ln(vocab) that falls; the first step's fused-CE loss against
+    torch's cross-entropy over the full fp32 logits of the same batch.
+    Returns the launch counts, the measurements, the trainer and its
+    loader."""
     from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
     from flash_attn_tpu_torch.training.trainer import model_flops_per_token
 
+    trainer = make_trainer(model=mcfg)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+
+    # The first batch of the run, through torch's cross-entropy over the
+    # full fp32 logits of a no-grad forward.
+    inp, lab = next(iter(make_loader(path)))
+    with torch.no_grad():
+        logits = trainer.model(trainer._batch(inp))
+        ce_ref = F.cross_entropy(logits.flatten(0, 1).float(),
+                                 trainer._batch(lab).flatten()).item()
+    del logits
+
+    def counts():
+        return {"flash_fwd": flash_fwd.launches,
+                "flash_bwd_preprocess": flash_bwd.launches_preprocess,
+                "fa_bwd_dkdv": flash_bwd.launches_dkdv,
+                "fa_bwd_dq": flash_bwd.launches_dq,
+                "flash_bwd_fused": flash_bwd.launches_fused}
+
+    logs, per_step = [], []
+
+    def log(metrics):  # called after every step (log_every=1)
+        logs.append(metrics)
+        per_step.append(counts())
+
+    loader = make_loader(path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_fwd.launches = flash_bwd.launches_preprocess = 0
+    flash_bwd.launches_dkdv = flash_bwd.launches_dq = 0
+    flash_bwd.launches_fused = 0
+    trainer.fit(loader, steps=TRAIN_STEPS, log_fn=log)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label}: {n_params / 1e6:.1f}M parameters, {mcfg.n_layer} "
+          f"layers, b={TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps of "
+          f"Trainer.fit; launches {launches}")
+    n = mcfg.n_layer
+    for i, c in enumerate(per_step):
+        require(c == {"flash_fwd": n * (i + 1),
+                      "flash_bwd_preprocess": n * (i + 1),
+                      "fa_bwd_dkdv": n * (i + 1),
+                      "fa_bwd_dq": n * (i + 1), "flash_bwd_fused": 0},
+                f"{label}: launch counts after training step {i + 1}: {c}")
+    require(len(per_step) == TRAIN_STEPS and launches == per_step[-1],
+            f"{label}: training launch counts {launches}")
+    losses = [m["loss"] for m in logs]
+    norms = [m["grad_norm"] for m in logs]
+    print(f"{label} losses " + " ".join(f"{x:.4f}" for x in losses))
+    print(f"{label} grad norms " + " ".join(f"{x:.4f}" for x in norms))
+    require(len(losses) == TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses + norms), f"{label}: non-finite loss")
+    ln_v = math.log(mcfg.vocab_size)
+    require(abs(losses[0] - ln_v) <= FIRST_LOSS_BAND,
+            f"{label}: first loss {losses[0]} not within {FIRST_LOSS_BAND} "
+            f"of ln(vocab) {ln_v:.4f}")
+    tail = statistics.mean(losses[-3:])
+    require(tail <= losses[0] - MIN_LOSS_DROP,
+            f"{label}: loss did not fall: first {losses[0]}, last 3 {tail}")
+    print(f"{label}: first-step loss {losses[0]:.4f} (ln vocab {ln_v:.4f}); "
+          f"mean of the last 3 {tail:.4f}; torch cross-entropy over full fp32 "
+          f"logits {ce_ref:.4f}")
+    require(abs(losses[0] - ce_ref) <= CE_LOSS_ATOL,
+            f"{label}: fused CE {losses[0]} vs full-logits CE {ce_ref}")
+    step_s = statistics.median(TRAIN_BATCH * TRAIN_SEQ / m["tokens_per_s"]
+                               for m in logs[TRAIN_WARM:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    tflops = tok_s * model_flops_per_token(mcfg, TRAIN_SEQ) / 1e12
+    return launches, {"params_b": n_params / 1e9, "layers": n,
+                      "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+                      "tflops_per_s": tflops, "peak_gb": peak_gb,
+                      "first_loss": losses[0], "last3_loss": tail,
+                      "ce_ref": ce_ref}, trainer, loader
+
+
+def run_training():
+    """Trainer.fit of the 913M GPT at the repo's training shape
+    (fit_checked), a profile of one step, and two short runs from one
+    seed; returns the launch counts of the fit and its measurements."""
+    from flash_attn_tpu_torch.models.gpt import gpt_913m
+
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "tokens.bin")
-        trainer = make_trainer()
-        mcfg = trainer.cfg.model
+        mcfg = gpt_913m()
         write_token_file(path, mcfg.vocab_size)
-        n_params = sum(p.numel() for p in trainer.model.parameters())
-
-        # The first batch of the run, through torch's cross-entropy over the
-        # full fp32 logits of a no-grad forward.
-        inp, lab = next(iter(make_loader(path)))
-        with torch.no_grad():
-            logits = trainer.model(trainer._batch(inp))
-            ce_ref = F.cross_entropy(logits.flatten(0, 1),
-                                     trainer._batch(lab).flatten()).item()
-        del logits
-
-        def counts():
-            return {"flash_fwd": flash_fwd.launches,
-                    "flash_bwd_preprocess": flash_bwd.launches_preprocess,
-                    "fa_bwd_dkdv": flash_bwd.launches_dkdv,
-                    "fa_bwd_dq": flash_bwd.launches_dq,
-                    "flash_bwd_fused": flash_bwd.launches_fused}
-
-        logs, per_step = [], []
-
-        def log(metrics):  # called after every step (log_every=1)
-            logs.append(metrics)
-            per_step.append(counts())
-
-        loader = make_loader(path)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        flash_fwd.launches = flash_bwd.launches_preprocess = 0
-        flash_bwd.launches_dkdv = flash_bwd.launches_dq = 0
-        flash_bwd.launches_fused = 0
-        trainer.fit(loader, steps=TRAIN_STEPS, log_fn=log)
-        torch.cuda.synchronize()
-        launches = counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        print(f"training: {n_params / 1e6:.1f}M parameters, {mcfg.n_layer} "
-              f"layers, b={TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps of "
-              f"Trainer.fit; launches {launches}")
-        n = mcfg.n_layer
-        for i, c in enumerate(per_step):
-            require(c == {"flash_fwd": n * (i + 1),
-                          "flash_bwd_preprocess": n * (i + 1),
-                          "fa_bwd_dkdv": n * (i + 1),
-                          "fa_bwd_dq": n * (i + 1), "flash_bwd_fused": 0},
-                    f"launch counts after training step {i + 1}: {c}")
-        require(len(per_step) == TRAIN_STEPS and launches == per_step[-1],
-                f"training launch counts {launches}")
-        losses = [m["loss"] for m in logs]
-        norms = [m["grad_norm"] for m in logs]
-        print("training losses " + " ".join(f"{x:.4f}" for x in losses))
-        print("training grad norms " + " ".join(f"{x:.4f}" for x in norms))
-        require(len(losses) == TRAIN_STEPS and all(
-            math.isfinite(x) for x in losses + norms), "non-finite loss")
-        ln_v = math.log(mcfg.vocab_size)
-        require(abs(losses[0] - ln_v) <= FIRST_LOSS_BAND,
-                f"first loss {losses[0]} not within {FIRST_LOSS_BAND} of "
-                f"ln(vocab) {ln_v:.4f}")
-        tail = statistics.mean(losses[-3:])
-        require(tail <= losses[0] - MIN_LOSS_DROP,
-                f"loss did not fall: first {losses[0]}, last 3 {tail}")
-        print(f"first-step loss {losses[0]:.4f} (ln vocab {ln_v:.4f}); mean of "
-              f"the last 3 {tail:.4f}; torch cross-entropy over full fp32 "
-              f"logits {ce_ref:.4f}")
-        require(abs(losses[0] - ce_ref) <= CE_LOSS_ATOL,
-                f"fused CE {losses[0]} vs full-logits CE {ce_ref}")
-        step_s = statistics.median(TRAIN_BATCH * TRAIN_SEQ / m["tokens_per_s"]
-                                   for m in logs[TRAIN_WARM:])
-        tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
-        tflops = tok_s * model_flops_per_token(mcfg, TRAIN_SEQ) / 1e12
+        launches, res, trainer, loader = fit_checked("training", mcfg, path)
         profile_step(trainer, loader)
         del trainer, loader
 
@@ -1940,9 +2021,10 @@ def run_training():
         same = runs[0] == runs[1]
         print(f"two 3-step runs from one seed: losses {runs[0]} and {runs[1]}"
               f" ({'identical' if same else 'different'})")
-    return launches, {"step_ms": step_s * 1e3, "tokens_per_s": tok_s,
-                      "tflops_per_s": tflops, "peak_gb": peak_gb,
-                      "same_losses": same}
+    return launches, {"step_ms": res["step_ms"],
+                      "tokens_per_s": res["tokens_per_s"],
+                      "tflops_per_s": res["tflops_per_s"],
+                      "peak_gb": res["peak_gb"], "same_losses": same}
 
 
 def device_events(fn, runs: int = 1, tries: int = 3):
@@ -1996,7 +2078,7 @@ MATMULS = ("gemm", "nvjet", "cutlass", "xmma")
 COPIES = ("copy", "Memcpy", "Memset", "cast")
 
 
-def profile_step(trainer, loader):
+def profile_step(trainer, loader, what: str = "one training step"):
     """Device time of one training step by kernel family (torch.profiler),
     and the phases of a step timed with CUDA events."""
     from flash_attn_tpu_torch.models.gpt import lm_head_weights
@@ -2012,7 +2094,7 @@ def profile_step(trainer, loader):
          "attention backward (preprocess + dkdv + dq)": (
              "preprocess_kernel", "dkdv_kernel", "dq_kernel"),
          "matmuls (cuBLAS)": MATMULS, "copies and casts": COPIES},
-        "one training step")
+        what)
 
     def phase(fn):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3657,6 +3739,42 @@ def check_breadth_kernels(gen):
     return errs, timings
 
 
+def paged_sdpa(q, kp, vp, table, seqlens, causal=True, lens_q=None):
+    """The library yardstick of attention over a paged cache: the cache
+    gathered to the linear layout through its block table (paged_to_linear,
+    torch ops) and one scaled_dot_product_attention with a boolean length
+    (and bottom-right causal) mask. q (b, sq, h, d), each row's first
+    lens_q (b,) rows its own (all sq by default). Returns (gather + SDPA,
+    SDPA over the cache gathered beforehand): the first computes the
+    kernel's function from the kernel's inputs."""
+    from flash_attn_tpu_torch.utils.testing import paged_to_linear
+
+    b, sq, h, d = q.shape
+    qh = q.transpose(1, 2)
+    gqa = h != kp.shape[1]
+    width = table.shape[1] * kp.shape[2]
+    row = torch.arange(sq, device=q.device)[:, None]
+    col = torch.arange(width, device=q.device)[None, :]
+    lens = seqlens.to(q.device, torch.long)[:, None, None]
+    rows = sq if lens_q is None else torch.as_tensor(
+        lens_q, device=q.device)[:, None, None]
+    mask = col[None] < lens
+    if causal:
+        mask = mask & (col[None] <= row[None] + lens - rows)
+    mask = mask[:, None]
+    kl, vl = (paged_to_linear(x, table, seqlens) for x in (kp, vp))
+
+    def gathered():
+        return F.scaled_dot_product_attention(
+            qh, *(paged_to_linear(x, table, seqlens) for x in (kp, vp)),
+            attn_mask=mask, enable_gqa=gqa)
+
+    def sdpa_only():
+        return F.scaled_dot_product_attention(qh, kl, vl, attn_mask=mask,
+                                              enable_gqa=gqa)
+    return gathered, sdpa_only
+
+
 def paged_decode_case(gen, b, h, h_k, d, page, sq, name, splits=0,
                       timed=True):
     """B4's d = dv route over a page pool of b slots of ENGINE_MAX_LEN
@@ -3719,22 +3837,20 @@ def paged_decode_case(gen, b, h, h_k, d, page, sq, name, splits=0,
     plain_ms = time_ms(
         lambda: flash_decode.flash_attention_decode_paged_partials_plain(
             q, kp, vp, seqlens, table, splits, DECODE_BLOCK_K, scale, True))
-    row = torch.arange(sq, device="cuda")[:, None]
-    col = torch.arange(k_lin.shape[1], device="cuda")[None, :]
-    mask = (col[None] <= row[None] + (seqlens - sq)[:, None, None])[:, None]
-    qh, kh, vh = (x.transpose(1, 2) for x in (q, k_lin, v_lin))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, enable_gqa=h != h_k))
+    gathered, sdpa_only = paged_sdpa(q, kp, vp, table, seqlens)
+    lib_ms, sdpa_ms = time_ms(gathered), time_ms(sdpa_only)
     timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-              "library_call": "scaled_dot_product_attention with a boolean "
-                              "causal length mask over the cache gathered "
-                              "to the linear layout (the gather untimed)",
+              "library_call": "the cache gathered through the block table "
+                              "to the linear layout, then "
+                              "scaled_dot_product_attention with a boolean "
+                              "causal length mask (the gather included)",
+              "library_sdpa_only_ms": sdpa_ms,
               **decode_bound(seqlens, b, h, h_k, d, splits, table.numel(),
                              sq)}
     print(f"flash_decode_paged time at {name}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, masked scaled_dot_product_attention "
-          f"{lib_ms:.4f} ms (median of 25); bound {timing['bound_ms']:.4f} "
-          f"ms ({timing['bound_by']})")
+          f"{plain_ms:.4f} ms, gather + masked scaled_dot_product_attention "
+          f"{lib_ms:.4f} ms ({sdpa_ms:.4f} ms without the gather; median of "
+          f"25); bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
     return err, timing
 
 
@@ -3920,6 +4036,513 @@ def run_wide_families(card):
             torch.cuda.empty_cache()
         del model, paged
         torch.cuda.empty_cache()
+    return launches, out
+
+
+def plain_bwd_refs(qt, kt, vt, dot, causal):
+    """The 2x rule's references of a backward, one batch row at a time so
+    that 64 heads' (sq, sk) fp32 scores fit beside the rest: the plain fp32
+    forward (out) and backward (dq, dk, dv) from fp32 copies of the
+    inputs, and the low-precision ones (attention_ref and autograd through
+    it in the inputs' type). Inputs (b, h, s, d) views; returns (out32,
+    out_lp, grads32, grads_lp) with out32 and grads32 (b, h, s, d), out_lp
+    and grads_lp (b, s, h, d)."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        attention_ref_grads,
+    )
+
+    parts = [[] for _ in range(8)]
+    for i in range(qt.shape[0]):
+        q, k, v, do = (x[i:i + 1] for x in (qt, kt, vt, dot))
+        f32 = [x.float() for x in (q, k, v)]
+        out32, lse32 = flash_fwd.flash_attention_fwd_plain(*f32, causal=causal)
+        g32 = flash_bwd.flash_attention_bwd_plain(do.float(), *f32, out32,
+                                                  lse32, causal=causal)
+        bshd = [x.transpose(1, 2) for x in (q, k, v, do)]
+        out_lp, _ = attention_ref(*bshd[:3], causal=causal, upcast=False)
+        g_lp = attention_ref_grads(*bshd, causal=causal, upcast=False)
+        for j, x in enumerate((out32, out_lp, *g32, *g_lp)):
+            parts[j].append(x)
+        del f32, out32, lse32, g32, g_lp
+    cat = [torch.cat(p) for p in parts]
+    return cat[0], cat[1], cat[2:5], cat[5:8]
+
+
+def packed_forwards(qt, kt, vt, causal):
+    """B6's forward and B7 over the rows of B1's (b, h, s, d) views packed
+    as b sequences (sq != sk allowed): [(out, lse) of each] in B1's layout,
+    out (b, h, sq, d) and lse (b, h, sq)."""
+    from flash_attn_tpu_torch.kernels import flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+
+    b, h, sq, d = qt.shape
+    sk = kt.shape[2]
+    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    packed = [x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+              for x in (qt, kt, vt)]
+    res = []
+    for fwd in (flash_varlen.flash_attention_varlen_fwd,
+                fvp.flash_attention_varlen_fwd_persistent):
+        out, lse = fwd(*packed, cu_q, cu_k, sq, sk, causal=causal)
+        res.append((out.reshape(b, sq, h, d).transpose(1, 2),
+                    lse.reshape(h, b, sq).transpose(0, 1)))
+    return res
+
+
+def kernel_resources(lib, marks):
+    """Registers, stack and local (spilled) bytes a thread of each kernel of
+    the built library whose mangled name holds every string of one entry of
+    ``marks`` (label -> strings), read by cuobjdump -res-usage."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-res-usage", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    found = {}
+    for name, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:.*)", text):
+        for label, parts in marks.items():
+            if all(p in name for p in parts):
+                fields = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", usage))
+                found.setdefault(label, []).append(
+                    {k: int(v) for k, v in fields.items()})
+    require(set(found) == set(marks),
+            f"cuobjdump found no kernel for {sorted(set(marks) - set(found))}")
+    return found
+
+
+def wide_bwd_timing(qt, kt, vt, dot, out, lse, causal, case):
+    """At a family's training shape: B3, B2 and the preprocess, B6's forward,
+    B7 and B6's backward (its three kernels by the profiler) over the same
+    rows packed, each beside its bound, its plain version and a library
+    call (SDPA's backward; SDPA's forward and backward over nested tensors
+    for the packed ones). Returns the timings by row suffix."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+
+    b, h, sq, d = qt.shape
+    h_k, sk = kt.shape[1], kt.shape[2]
+    pairs = b * attended_pairs([sq], [sk], causal)
+
+    def bwd(det):
+        return lambda: flash_bwd.flash_attention_bwd(
+            dot, qt, kt, vt, out, lse, causal=causal, deterministic=det)
+    ms, fused_ms = time_ms(bwd(True), runs=10), time_ms(bwd(False), runs=10)
+    split = kernel_split_ms(bwd(True), ["preprocess_kernel", "dkdv_kernel",
+                                        "dq_kernel"])
+    plain_ms = time_ms(lambda: flash_bwd.flash_attention_bwd_plain(
+        dot, qt, kt, vt, out, lse, causal=causal), runs=3, batch=1)
+    pre_ms = time_ms(lambda: flash_bwd.bwd_preprocess(dot, out, lse))
+    pre_plain_ms = time_ms(lambda: flash_bwd.bwd_preprocess_plain(
+        dot, out, lse, 128))
+    pre_lib_ms = time_ms(lambda: torch.linalg.vecdot(dot, out))
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, dot, retain_graph=True), runs=10)
+    del sdpa_out, leaves
+    # as time_bwd: 5 products over the pairs; q, k, v, out, dout read and
+    # dq, dk, dv written once, lse read
+    esz = qt.element_size()
+    bwd_bound = bound(10 * h * d * pairs,
+                      esz * (4 * b * sq * h * d + 4 * b * sk * h_k * d)
+                      + 4 * b * h * sq)
+    sq_pad = -(-sq // 128) * 128
+    pre_bound = bound(2 * b * h * sq * d, esz * 2 * b * h * sq * d
+                      + 4 * b * h * sq + 2 * 4 * b * h * sq_pad, PEAK_FP32)
+    sdpa_bwd = {"library_ms": lib_ms,
+                "library_call": "scaled_dot_product_attention backward "
+                                "(torch.autograd.grad)"}
+    t = {"flash_bwd": {"ms": ms, "plain_ms": plain_ms, **sdpa_bwd,
+                       **bwd_bound, "kernel_split_ms": split},
+         "flash_bwd_fused": {"ms": fused_ms, "plain_ms": plain_ms,
+                             **sdpa_bwd, **bwd_bound},
+         "flash_bwd_preprocess": {
+             "ms": pre_ms, "plain_ms": pre_plain_ms, "library_ms": pre_lib_ms,
+             "library_call": "torch.linalg.vecdot(dO, O) (in bf16)",
+             **pre_bound}}
+
+    # the same rows packed as b sequences: B6's forward, B7, B6's backward
+    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    q, k, v, do, o = (x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+                      for x in (qt, kt, vt, dot, out))
+    lse_p = lse.permute(1, 0, 2).reshape(h, b * sq)
+    args = (cu_q, cu_k, sq, sk)
+    b6 = lambda: flash_varlen.flash_attention_varlen_fwd(q, k, v, *args,
+                                                         causal=causal)
+    b7 = lambda: fvp.flash_attention_varlen_fwd_persistent(q, k, v, *args,
+                                                          causal=causal)
+    vbwd = lambda: flash_varlen.flash_attention_varlen_bwd(
+        do, q, k, v, o, lse_p, *args, causal=causal)
+    lib_fwd, lib_bwd, lib_label = sdpa_varlen(
+        q, k, v, cu_q, cu_k, [sq] * b, [sk] * b, causal, do)
+    tv = {"fwd": time_ms(b6, runs=10), "persistent": time_ms(b7, runs=10),
+          "bwd": time_ms(vbwd, runs=10), "lib_fwd": time_ms(lib_fwd, runs=10),
+          "lib_bwd": time_ms(lib_bwd, runs=10)}
+    vsplit = kernel_split_ms(vbwd, ("varlen_preprocess_kernel",
+                                    "varlen_dkdv_kernel", "varlen_dq_kernel"))
+    plain_f = wall_ms(lambda: flash_varlen.flash_attention_varlen_fwd_plain(
+        q, k, v, *args, causal=causal))
+    plain_p = wall_ms(lambda: fvp.flash_attention_varlen_fwd_persistent_plain(
+        q, k, v, *args, causal=causal))
+    plain_b = wall_ms(lambda: flash_varlen.flash_attention_varlen_bwd_plain(
+        do, q, k, v, o, lse_p, *args, causal=causal))
+    pre_plain = wall_ms(lambda: flash_varlen.varlen_bwd_preprocess_plain(
+        do, o, lse_p, cu_q, None))
+    del lib_fwd, lib_bwd
+    # the bounds of check_varlen's rows
+    rows_q, rows_k = b * sq, b * sk
+    fwd_bound = bound(4 * h * d * pairs, esz * (2 * rows_q * h * d
+                                                + 2 * rows_k * h_k * d)
+                      + 4 * h * rows_q)
+    qdo = esz * 2 * rows_q * h * d + 8 * h * rows_q
+    kv = esz * 2 * rows_k * h_k * d
+    lib_f = {"library_ms": tv["lib_fwd"], "library_call": lib_label}
+    lib_b = {"library_ms": tv["lib_bwd"],
+             "library_call": f"{lib_label}, backward (the dK/dV and dQ "
+                             f"kernels' pair)"}
+    t.update({
+        "flash_varlen_fwd": {"ms": tv["fwd"], "plain_ms": plain_f, **lib_f,
+                             **fwd_bound},
+        "flash_varlen_fwd_persistent": {"ms": tv["persistent"],
+                                        "plain_ms": plain_p, **lib_f,
+                                        **fwd_bound},
+        "fa_varlen_bwd_dkdv": {"ms": vsplit["varlen_dkdv_kernel"],
+                               "plain_ms": plain_b, **lib_b,
+                               **bound(8 * h * d * pairs,
+                                       qdo + kv + 2 * esz * rows_k * h_k * d)},
+        "fa_varlen_bwd_dq": {"ms": vsplit["varlen_dq_kernel"],
+                             "plain_ms": plain_b, **lib_b,
+                             **bound(6 * h * d * pairs,
+                                     qdo + kv + esz * rows_q * h * d)},
+        "flash_varlen_bwd_preprocess": {
+            "ms": vsplit["varlen_preprocess_kernel"], "plain_ms": pre_plain,
+            "library_ms": pre_lib_ms,
+            "library_call": "torch.linalg.vecdot(dO, O) (in bf16)",
+            **bound(2 * h * rows_q * d, esz * 2 * rows_q * h * d
+                    + 4 * h * rows_q + 2 * 4 * h * rows_q, PEAK_FP32)}})
+    for name, r in t.items():
+        print(f"{name} d={d} at {case}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%), plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.4f} ms")
+    print(f"flash_bwd d={d} profiler split (ms a call): " + ", ".join(
+        f"{n} {v:.4f}" for n, v in split.items()) + "; B6 backward "
+        f"{tv['bwd']:.4f} ms a call: " + ", ".join(
+            f"{n} {v:.4f}" for n, v in vsplit.items()))
+    return t
+
+
+def check_wide_backward(gen, lib):
+    """The backward kernels and the packed forwards at head dims 96 and 256
+    (WIDE_FAMILIES' heads, WIDE_BWD_CASES): B3 and B2 against the plain fp32
+    backward and the preprocess against its plain version (the 2x rule,
+    plain_bwd_refs), B1 against the plain forward; B3 bitwise equal over two
+    runs, B6's backward over the same rows packed bitwise equal to B3, B6's
+    forward and B7 over them bitwise equal to B1, B6's preprocess to the
+    dense one's rows. At the training shape: flash_attn_func(...).backward()
+    with deterministic True and False (the counted run of B2), the timings
+    (wide_bwd_timing), and the kernels' registers and spills. Returns the
+    errors and timings by row name and the counted runs' launches."""
+    from flash_attn_tpu_torch import flash_attn_func
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    errs, timings, api = {}, {}, {}
+    for fam, d, h in WIDE_FAMILIES:
+        for ci, (b, sq, sk, causal) in enumerate(WIDE_BWD_CASES):
+            q, k, v, dout = (torch.randn(b, s, h, d, device="cuda",
+                                         generator=gen).to(torch.bfloat16)
+                             for s in (sq, sk, sk, sq))
+            qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
+            out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal)
+            out32, out_lp, ref, ref_lp = plain_bwd_refs(qt, kt, vt, dot,
+                                                        causal)
+            case = (f"{fam}'s b={b} sq={sq} sk={sk} h={h} d={d} "
+                    f"causal={causal}")
+            err_f, _ = check_against_ref(out.transpose(1, 2),
+                                         out32.transpose(1, 2), out_lp,
+                                         msg=f"flash_fwd {case}")
+            line = []
+            for name, det in ((f"flash_bwd_d{d}", True),
+                              (f"flash_bwd_fused_d{d}", False)):
+                grads = flash_bwd.flash_attention_bwd(
+                    dot, qt, kt, vt, out, lse, causal=causal,
+                    deterministic=det)
+                for gname, got, r, lp in zip("qkv", grads, ref, ref_lp):
+                    err, err_lp = check_against_ref(
+                        got.transpose(1, 2), r.transpose(1, 2), lp,
+                        atol=BWD_ATOL, msg=f"{name} d{gname} {case}")
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    line.append(f"{'B3' if det else 'B2'} d{gname} {err:.3e} "
+                                f"(low-precision {err_lp:.3e})")
+                if det:
+                    b3 = grads
+            again = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                                  causal=causal)
+            require(all(torch.equal(a, c) for a, c in zip(b3, again)),
+                    f"B3 differs between runs: {case}")
+            b6 = packed_b6_backward(dot, qt, kt, vt, out, lse, causal)()
+            require(all(torch.equal(a, c) for a, c in zip(b3, b6)),
+                    f"B6's backward over the same rows packed differs from "
+                    f"B3's: {case}")
+            for label, (o, l) in zip(("B6's forward", "B7"),
+                                     packed_forwards(qt, kt, vt, causal)):
+                require(torch.equal(o, out) and torch.equal(l, lse),
+                        f"{label} over the same rows packed differs from "
+                        f"B1's: {case}")
+            delta, lse2 = flash_bwd.bwd_preprocess(dot, out, lse)
+            want_delta, want_lse2 = flash_bwd.bwd_preprocess_plain(
+                dot, out, lse, delta.shape[-1])
+            fin = torch.isfinite(want_lse2)
+            require(torch.equal(torch.isfinite(lse2), fin)
+                    and float((lse2[fin] - want_lse2[fin]).abs().max())
+                    <= 1e-5, f"preprocess lse2: {case}")
+            err = float((delta - want_delta).abs().max())
+            require(err <= 1e-3, f"preprocess delta err {err}: {case}")
+            # B6's preprocess over the same rows packed: the dense one's rows
+            cu_q = torch.arange(b + 1, dtype=torch.int32, device="cuda") * sq
+            cu_k = torch.arange(b + 1, dtype=torch.int32, device="cuda") * sk
+            pk = [x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+                  for x in (dot, qt, kt, vt, out)]
+            lse_p = lse.permute(1, 0, 2).reshape(h, b * sq).contiguous()
+            meta = flash_varlen.varlen_meta(pk[1], pk[2], cu_q, cu_k, sq, sk,
+                                            None, None, causal, None)
+            vdelta, vlse2 = flash_varlen.varlen_bwd_preprocess(
+                pk[0], pk[4], lse_p, cu_q, cu_k, meta,
+                *(torch.empty_like(x) for x in pk[1:4]))
+            for i in range(b):
+                p0 = flash_varlen.padded_row(i * sq, i)
+                require(torch.equal(vdelta[:, p0:p0 + sq], delta[i, :, :sq])
+                        and torch.equal(vlse2[:, p0:p0 + sq],
+                                        lse2[i, :, :sq]),
+                        f"B6's preprocess differs from the dense one's: "
+                        f"{case}")
+            for name, e in ((f"flash_bwd_preprocess_d{d}", err),
+                            (f"flash_varlen_bwd_preprocess_d{d}", err),
+                            (f"fa_varlen_bwd_dkdv_d{d}", errs[f"flash_bwd_d{d}"]),
+                            (f"fa_varlen_bwd_dq_d{d}", errs[f"flash_bwd_d{d}"]),
+                            (f"flash_varlen_fwd_d{d}", err_f),
+                            (f"flash_varlen_fwd_persistent_d{d}", err_f)):
+                errs[name] = max(errs.get(name, 0.0), e)
+            print(f"{case}: B1 out max abs err {err_f:.3e}; " + ", ".join(line)
+                  + f"; B3 bitwise equal over two runs, B6's backward over "
+                  f"the same rows packed bitwise equal to B3's, B6's forward "
+                  f"and B7 to B1's, B6's preprocess to the dense one's; "
+                  f"preprocess delta max abs err {err:.3e}, lse2 within 1e-5")
+            if ci == 0:
+                api[d] = {}
+                for det in (True, False):
+                    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                    torch.cuda.synchronize()
+                    reset_kernel_counts()
+                    flash_attn_func(*leaves, causal=causal,
+                                    deterministic=det).backward(dout)
+                    torch.cuda.synchronize()
+                    got = {"flash_fwd": flash_fwd.launches,
+                           "flash_bwd_preprocess":
+                               flash_bwd.launches_preprocess,
+                           "fa_bwd_dkdv": flash_bwd.launches_dkdv,
+                           "fa_bwd_dq": flash_bwd.launches_dq,
+                           "flash_bwd_fused": flash_bwd.launches_fused}
+                    want = {"flash_fwd": 1, "flash_bwd_preprocess": 1,
+                            "fa_bwd_dkdv": int(det), "fa_bwd_dq": int(det),
+                            "flash_bwd_fused": int(not det)}
+                    require(got == want, f"flash_attn_func backward at d={d} "
+                                         f"(deterministic={det}): {got}")
+                    if det:
+                        require(all(torch.equal(leaf.grad, g.transpose(1, 2))
+                                    for leaf, g in zip(leaves, b3)),
+                                f"flash_attn_func's gradients at d={d} differ "
+                                f"from B3's")
+                    api[d][det] = got
+                    del leaves
+                print(f"flash_attn_func(...).backward() at {case}: launches "
+                      f"{api[d][True]} (deterministic, gradients bitwise "
+                      f"B3's) and {api[d][False]} (fused)")
+                for suffix, r in wide_bwd_timing(qt, kt, vt, dot, out, lse,
+                                                 causal, case).items():
+                    timings[f"{suffix}_d{d}"] = r
+            del q, k, v, dout, qt, kt, vt, dot, out, lse, out32, out_lp
+            del ref, ref_lp, b3, b6, again, grads
+            torch.cuda.empty_cache()
+    marks = {}
+    for d in (96, 256):
+        for t, ty in (("bf16", "13__nv_bfloat16"), ("fp16", "6__half")):
+            marks.update({
+                f"dkdv d={d} {t}": ("dense_bwd11dkdv_kernel", ty, f"Li{d}ELb0"),
+                f"dkdv fused d={d} {t}": ("dense_bwd11dkdv_kernel", ty,
+                                          f"Li{d}ELb1"),
+                f"dq d={d} {t}": ("dense_bwd9dq_kernel", ty, f"Li{d}E"),
+                f"preprocess d={d} {t}": ("dense_bwd17preprocess_kernel", ty,
+                                          f"Li{d}E"),
+                f"varlen dkdv d={d} {t}": ("varlen_dkdv_kernel", ty, f"Li{d}E"),
+                f"varlen dq d={d} {t}": ("varlen_dq_kernel", ty, f"Li{d}E"),
+                f"B6 forward d={d} {t}": ("17varlen_fwd_kernel", ty, f"Li{d}E"),
+                f"B7 d={d} {t}": ("varlen_fwd_persistent_kernel", ty,
+                                  f"Li{d}E")})
+    res = kernel_resources(lib, marks)
+    print("registers / stack / local bytes a thread (cuobjdump -res-usage): "
+          + "; ".join(f"{label} " + ", ".join(
+              f"{u.get('REG')}/{u.get('STACK')}/{u.get('LOCAL')}" for u in us)
+              for label, us in res.items()))
+    return errs, timings, api, res
+
+
+def run_packed_wide(gen, card):
+    """Packed attention at head dims 96 and 256 on WIDE_FAMILIES' heads: a
+    counted run at the training shape packed as TRAIN_BATCH sequences of
+    TRAIN_SEQ (bench.py's varlen section's calls: flash_attn_varlen_func's
+    B7, B6's forward, the backward from B7's residuals; B6 bitwise B7,
+    then flash_attn_varlen_func(...).backward() bitwise that backward),
+    then the packed MHA at the family's widths (WIDE_MHA_LENS, rotary as the
+    family has it) forward and backward on the card against the same
+    module on the CPU (the plain versions; fp32, and bf16 for the 2x rule)
+    on its output and the gradients of x and both weights. Returns the
+    counted runs' launches and the MHA errors."""
+    from flash_attn_tpu_torch import flash_attn_varlen_func
+    from flash_attn_tpu_torch.kernels import flash_varlen
+    from flash_attn_tpu_torch.modules.mha import MHA
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    launches, errs = {}, {}
+    for fam, d, h in WIDE_FAMILIES:
+        n = TRAIN_BATCH * TRAIN_SEQ
+        cu = torch.arange(TRAIN_BATCH + 1, dtype=torch.int32,
+                          device="cuda") * TRAIN_SEQ
+        q, k, v, dout = (torch.randn(n, h, d, device="cuda", generator=gen)
+                         .to(torch.bfloat16) for _ in range(4))
+        args = (cu, cu, TRAIN_SEQ, TRAIN_SEQ)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        out_r, lse_r, _ = flash_attn_varlen_func(q, k, v, *args, causal=True,
+                                                 return_attn_probs=True)
+        out_6, _ = flash_varlen.flash_attention_varlen_fwd(q, k, v, *args,
+                                                           causal=True)
+        grads = flash_varlen.flash_attention_varlen_bwd(
+            dout, q, k, v, out_r, lse_r, *args, causal=True)
+        torch.cuda.synchronize()
+        got = kernel_counts()
+        want = want_counts(flash_varlen_fwd=1, flash_varlen_fwd_persistent=1,
+                           fa_varlen_bwd_preprocess=1, fa_varlen_bwd_dkdv=1,
+                           fa_varlen_bwd_dq=1)
+        require(got == want, f"{fam}'s packed run: launches {got}")
+        require(torch.equal(out_6, out_r), f"{fam}: B7 differs from B6")
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        reset_kernel_counts()
+        flash_attn_varlen_func(*leaves, *args, causal=True).backward(dout)
+        torch.cuda.synchronize()
+        api = kernel_counts()
+        require(api == want_counts(flash_varlen_fwd_persistent=1,
+                                   fa_varlen_bwd_preprocess=1,
+                                   fa_varlen_bwd_dkdv=1, fa_varlen_bwd_dq=1),
+                f"{fam}'s flash_attn_varlen_func backward launches {api}")
+        require(all(torch.equal(leaf.grad, g)
+                    for leaf, g in zip(leaves, grads)),
+                f"{fam}: flash_attn_varlen_func's gradients differ from the "
+                f"backward's on B7's residuals")
+        launches[fam] = got
+        print(f"{fam}'s heads ({h} of {d}) packed as {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}: launches {got}; B7 bitwise B6's forward; "
+              f"flash_attn_varlen_func(...).backward() launches {api}, its "
+              f"gradients bitwise those of the backward on B7's residuals")
+        del q, k, v, dout, out_r, lse_r, out_6, grads, leaves
+
+        # the packed MHA at the family's widths
+        rot = {96: 24, 256: 64}[d]
+        kw = dict(num_heads=h, causal=True, rotary_emb_dim=rot,
+                  rotary_emb_interleaved=d == 256)
+        mods = {dev: MHA(h * d, dtype=dt, device=dev, **kw)
+                for dev, dt in (("cuda", torch.bfloat16),
+                                ("cpu", torch.float32))}
+        mods["cpu_bf16"] = MHA(h * d, dtype=torch.bfloat16, device="cpu",
+                               **kw)
+        with torch.no_grad():
+            for name, prm in mods["cuda"].named_parameters():
+                prm.normal_(0.0, 0.02 if name.endswith("bias")
+                            else (h * d) ** -0.5, generator=gen)
+        for key in ("cpu", "cpu_bf16"):
+            mods[key].load_state_dict({n_: t.cpu() for n_, t in
+                                       mods["cuda"].state_dict().items()})
+        lens = WIDE_MHA_LENS
+        cu_m = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                            dtype=torch.int32)
+        x = torch.randn(sum(lens), h * d, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        g = torch.randn(sum(lens), h * d, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        results = {}
+        for key, mod in mods.items():
+            dev = "cuda" if key == "cuda" else "cpu"
+            xi = x.detach().to(dev, mod.Wqkv.weight.dtype).requires_grad_()
+            if key == "cuda":
+                torch.cuda.synchronize()
+                reset_kernel_counts()
+            out = mod(xi, cu_seqlens=cu_m.to(dev), max_seqlen=max(lens))
+            out.backward(g.to(dev, out.dtype))
+            if key == "cuda":
+                torch.cuda.synchronize()
+                mha_launches = kernel_counts()
+                require(mha_launches == want_counts(
+                    flash_varlen_fwd_persistent=1, fa_varlen_bwd_preprocess=1,
+                    fa_varlen_bwd_dkdv=1, fa_varlen_bwd_dq=1),
+                    f"{fam}'s packed MHA launches {mha_launches}")
+            results[key] = [out.detach(), xi.grad, mod.Wqkv.weight.grad,
+                            mod.out_proj.weight.grad]
+        line = []
+        for i, what in enumerate(("out", "dx", "dWqkv", "dWout")):
+            err, err_lp = check_against_ref(
+                results["cuda"][i], results["cpu"][i], results["cpu_bf16"][i],
+                atol=BWD_ATOL, msg=f"{fam}'s packed MHA {what}")
+            errs[f"{fam} {what}"] = err
+            line.append(f"{what} {err:.3e} (bf16 plain {err_lp:.3e})")
+        print(f"{fam}'s packed MHA (width {h * d}, {h} heads of {d}, rotary "
+              f"{rot}{' interleaved' if d == 256 else ''}, lengths {lens}) on "
+              f"{card}: launches {mha_launches}; max abs err against the "
+              f"plain fp32 module on the CPU " + ", ".join(line))
+        del mods, results, x, g
+        torch.cuda.empty_cache()
+    return launches, errs
+
+
+def run_wide_training(card):
+    """GPT-J-6B and GPT-NeoX-20B trained at full width from their published
+    config.json numbers (GPTJ_6B, NEOX_20B) with the depth cut to
+    WIDE_TRAIN_LAYERS, seeded weights (the trainer's initialisation from
+    its seed) and bf16 training state, each by fit_checked over a seeded
+    token file of its vocabulary and a profile of one step (profile_step),
+    then freed. Returns each run's launches and measurements."""
+    from flash_attn_tpu_torch.models.hf_adapters import (
+        gpt_neox_config_to_gpt_config,
+        gptj_config_to_gpt_config,
+    )
+
+    launches, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, hf_cfg, convert, depth in (
+                ("GPT-J-6B", GPTJ_6B, gptj_config_to_gpt_config, "n_layer"),
+                ("GPT-NeoX-20B", NEOX_20B, gpt_neox_config_to_gpt_config,
+                 "num_hidden_layers")):
+            cut = SimpleNamespace(**{**vars(hf_cfg),
+                                     depth: WIDE_TRAIN_LAYERS[name]})
+            mcfg = convert(cut, dtype=torch.bfloat16)
+            path = os.path.join(tmp, f"{name}.bin")
+            write_token_file(path, mcfg.vocab_size)
+            label = f"{name} training ({WIDE_TRAIN_LAYERS[name]} of " \
+                    f"{getattr(hf_cfg, depth)} layers)"
+            launches[name], out[name], trainer, loader = fit_checked(
+                label, mcfg, path)
+            profile_step(trainer, loader, f"one {label} step")
+            r = out[name]
+            print(f"{label}: step {r['step_ms']:.1f} ms (median of steps "
+                  f"{TRAIN_WARM + 1}-{TRAIN_STEPS}), {r['tokens_per_s']:.0f} "
+                  f"tokens/s, {r['tflops_per_s']:.1f} TFLOP/s "
+                  f"(model_flops_per_token), peak {r['peak_gb']:.2f} GB "
+                  f"(max_memory_allocated) on {card}")
+            del trainer, loader
+            torch.cuda.empty_cache()
     return launches, out
 
 
@@ -4253,6 +4876,21 @@ def main() -> int:
                          check_wide_kernels, gen)
     wide_launches, wide = phase("GPT-NeoX-20B and GPT-J-6B",
                                 run_wide_families, card)
+    wb_err, wb_t, wb_api, wb_res = phase(
+        "head dims 96 and 256 backward kernel checks", check_wide_backward,
+        gen, lib)
+    wp_launches, wp_err = phase("packed attention at 96 and 256",
+                                run_packed_wide, gen, card)
+    wt_launches, wide_train = phase("GPT-J-6B and GPT-NeoX-20B training",
+                                    run_wide_training, card)
+    for name, r in wide_train.items():
+        print(f"{name} trained at full width, {r['layers']} layers "
+              f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}: step {r['step_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.0f} tokens/s, {r['tflops_per_s']:.1f} "
+              f"TFLOP/s, peak {r['peak_gb']:.2f} GB; loss {r['first_loss']:.4f}"
+              f" -> {r['last3_loss']:.4f} (fused CE {r['first_loss']:.4f}, "
+              f"full-logits CE {r['ce_ref']:.4f}) on {card}")
     for name, d in (("GPT-NeoX-20B", 96), ("GPT-J-6B", 256)):
         fam = wide[name]
         engs = [k for k in wide if k.startswith(name + " ")]
@@ -4405,6 +5043,38 @@ def main() -> int:
                 ["flash_varlen_paged"], wk_err[f"flash_varlen_paged_d{d}"],
                 wk_t[f"flash_varlen_paged_d{d}"])
           for fam, d, _ in WIDE_FAMILIES),
+        # the backwards and the packed forwards at 96 and 256: B3's and
+        # the preprocess's launches in the family's training, B2's in the
+        # counted flash_attn_func(deterministic=False).backward(), the
+        # packed ones' in the counted packed run at the training shape
+        *(row for fam, d, _ in WIDE_FAMILIES for row in (
+            entry(f"flash_bwd_preprocess_d{d}", "flash_bwd_wide.cu",
+                  "flash_bwd.py:408",
+                  wt_launches[fam]["flash_bwd_preprocess"],
+                  wb_err[f"flash_bwd_preprocess_d{d}"],
+                  wb_t[f"flash_bwd_preprocess_d{d}"]),
+            entry(f"flash_bwd_d{d}", "flash_bwd_wide.cu", "flash_bwd.py:181",
+                  wt_launches[fam]["fa_bwd_dkdv"]
+                  + wt_launches[fam]["fa_bwd_dq"],
+                  wb_err[f"flash_bwd_d{d}"], wb_t[f"flash_bwd_d{d}"]),
+            entry(f"flash_bwd_fused_d{d}", "flash_bwd_wide.cu",
+                  "flash_bwd_fused.py:64", wb_api[d][False]["flash_bwd_fused"],
+                  wb_err[f"flash_bwd_fused_d{d}"],
+                  wb_t[f"flash_bwd_fused_d{d}"]),
+            *(entry(f"{name}_d{d}", source, replaces, wp_launches[fam][count],
+                    wb_err[f"{name}_d{d}"], wb_t[f"{name}_d{d}"])
+              for name, source, replaces, count in (
+                  ("flash_varlen_fwd", "flash_varlen_fwd.cu",
+                   "flash_varlen.py:79", "flash_varlen_fwd"),
+                  ("flash_varlen_fwd_persistent", "flash_varlen_fwd.cu",
+                   "flash_varlen_persistent.py:72",
+                   "flash_varlen_fwd_persistent"),
+                  ("flash_varlen_bwd_preprocess", "flash_varlen_wide.cu",
+                   "flash_varlen.py:854", "fa_varlen_bwd_preprocess"),
+                  ("fa_varlen_bwd_dkdv", "flash_varlen_wide.cu",
+                   "flash_varlen.py:462", "fa_varlen_bwd_dkdv"),
+                  ("fa_varlen_bwd_dq", "flash_varlen_wide.cu",
+                   "flash_varlen.py:651", "fa_varlen_bwd_dq"))))),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -4417,7 +5087,9 @@ def main() -> int:
         "varlen": {"timings": vl_t, "bench": bench_vl}, "bert": bert,
         "mla": {"serving": mla, "timings": mla_t},
         "blocksparse": bs_all, "probes": probes, "breadth": breadth,
-        "wide_head_dims": wide, "remat": remat, "dwconv": dwconv}))
+        "wide_head_dims": wide, "remat": remat, "dwconv": dwconv,
+        "wide_training": {"models": wide_train, "packed_mha_err": wp_err,
+                          "kernel_resources": wb_res}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

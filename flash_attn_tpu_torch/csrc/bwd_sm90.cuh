@@ -4,13 +4,13 @@
 //
 //  - bwd_preprocess_row: delta = rowsum(dO * O) of one row in fp32, a warp a
 //    row, the sum that both preprocess kernels take;
-//  - bwd_dkdv: 128 KV rows of one sequence and KV head walk the group's
-//    query heads and the 64-row q tiles of their causal band, keep dK and dV
-//    in registers and write them once; with ACCUM_DQ (B2's fused pass) each
-//    q tile also adds its dQ = dS K over the block's 128 keys into an fp32
-//    buffer;
-//  - bwd_dq: 128 query rows of one sequence and head walk the 64-key tiles
-//    of their band and write dQ once.
+//  - bwd_dkdv: 128 KV rows (64 at d = 256, BwdPlan) of one sequence and KV
+//    head walk the group's query heads and the 64-row q tiles of their
+//    causal band, keep dK and dV in registers and write them once; with
+//    ACCUM_DQ (B2's fused pass) each q tile also adds its dQ = dS K over the
+//    block's keys into an fp32 buffer;
+//  - bwd_dq: 128 query rows (64 at d = 256) of one sequence and head walk
+//    the 64-key tiles of their band and write dQ once.
 //
 // The block-sparse backward (csrc/flash_blocksparse.cu, B10) runs the same
 // two tiles over its lists with a walk policy (Walk): count() streamed
@@ -31,8 +31,8 @@
 // sequence to whole 128-row tiles so that each tile's bulk copies of them
 // are whole and 16-byte aligned.
 //
-// Layout (csrc/sm90.cuh): every product is a warpgroup wgmma. Two
-// warpgroups of 64 rows share a block; K and V (dK/dV) or Q and dO (dQ) are
+// Layout (csrc/sm90.cuh): every product is a warpgroup wgmma. Up to head
+// dim 128 two warpgroups of 64 rows share a block; K and V (dK/dV) or Q and dO (dQ) are
 // loaded once by TMA and stay in shared memory, and the streamed tiles run
 // through a two-stage ring: one thread issues the TMA loads (and the bulk
 // copies of lse2 and delta) of tile t + 1 as tile t starts. The transposed
@@ -59,6 +59,30 @@
 // dK/dV block and the q rows past sq of a dQ block are output rows of their
 // own: they are computed on whatever arrived and never stored.
 //
+// Head dims (BwdPlan): a tile spans the head dim in whole 64-column panels.
+// At d = 96 the maps keep the tensors' 96 columns and TMA fills the second
+// panel's last 32 with zeros: S^T and dP^T run over the 96 true columns
+// (6 slices of 16), dV, dK and dQ over both panels as at d = 128 (their
+// columns 96-127 sum those zeros and are never stored), so the register
+// plan is d = 128's. At d = 256 a 128-row block does not fit: 64 + 64 KV
+// rows a block would hold 2 x 64 x 256 fp32 accumulators a warpgroup (256
+// registers a thread before S^T and dP^T), and resident K and V of 128
+// rows (128 KB) beside two stages of 64-row Q + dO (128 KB) exceed the
+// 227 KB a block may use. So at 256 a block owns 64 rows (COL_SPLIT) and
+// both warpgroups work on them: each computes S^T and dP^T (dQ: S and dP)
+// over half of the streamed tile's 32 rows (wgmma N = 32), turns its half
+// into P^T and dS^T and stores them in bf16 as shared A tiles of 64 x 64
+// (8 KB each); after one barrier each warpgroup adds its own 128 columns
+// of dV += P^T dO and dK += dS^T Q (dQ += dS K) over the whole tile from
+// those tiles. So the block runs the four products of a (q tile, KV tile)
+// pair once (dQ: three), as at d = 128, with 64 + 64 fp32 accumulators a
+// thread for dK and dV (64 for dQ) beside 16 + 16 for the halves of S and
+// dP. K and V of 64 rows (64 KB), two stages of Q + dO (128 KB), the two
+// A tiles (16 KB) and lse2 / delta take 209 KB of shared memory (dQ: Q +
+// dO 64 KB, two K + V stages 128 KB, one A tile: 201 KB), with one block
+// an SM. B10's walks, whose
+// tiles may be one warpgroup's alone, stay at d <= 128.
+//
 // Every product sits on uniform control flow (ptxas crashed on a wgmma
 // behind a warpgroup-divergent branch): a warpgroup whose rows see nothing
 // of a tile skips its products as a whole, and the fused pass's dQ product
@@ -72,11 +96,30 @@ namespace sm90 {
 
 constexpr int BWD_THREADS = 256;  // two consumer warpgroups
 constexpr int BWD_STAGES = 2;
-constexpr int BWD_KV_ROWS = 128;  // dK/dV block: KV rows (64 a warpgroup)
+constexpr int BWD_KV_ROWS = 128;  // dK/dV block up to d = 128: KV rows (64 a warpgroup)
 constexpr int BWD_KV_BM = 64;     // dK/dV block: q rows of a streamed tile
-constexpr int BWD_Q_ROWS = 128;   // dQ block: q rows (64 a warpgroup)
+constexpr int BWD_Q_ROWS = 128;   // dQ block up to d = 128: q rows (64 a warpgroup)
 constexpr int BWD_Q_BN = 64;      // dQ block: keys of a streamed tile
 constexpr int BWD_ROW_PAD = 128;  // lse2 / delta rows are padded to this
+
+// The block plan at head dim D (see the note above): ROWS rows a block (KV
+// rows of dK/dV, q rows of dQ), and the accumulator columns of a
+// warpgroup, NACC (D's whole panels, or half of them under COL_SPLIT),
+// of which it stores STORE from column col0(wg).
+// Rows a dK/dV or dQ block owns at head dim d (host and device).
+__host__ __device__ constexpr int bwd_block_rows(int d) { return d > 128 ? 64 : 128; }
+
+template <int D>
+struct BwdPlan {
+  static constexpr bool COL_SPLIT = D > 128;
+  static constexpr int ROWS = bwd_block_rows(D);
+  static constexpr int DP = Tile<64, D>::PANELS * 64;
+  static constexpr int NACC = COL_SPLIT ? DP / 2 : DP;
+  static constexpr int STORE = COL_SPLIT ? NACC : D;
+  // this warpgroup's first row in the block, and first column
+  static __device__ __forceinline__ int row0(int wg) { return COL_SPLIT ? 0 : wg * 64; }
+  static __device__ __forceinline__ int col0(int wg) { return COL_SPLIT ? wg * NACC : 0; }
+};
 
 struct BwdMaps {
   CUtensorMap q, k, v, dout;
@@ -124,13 +167,14 @@ struct BandQWalk {
 };
 
 // dQ's dense walk: the 64-key tiles of the causal band of q rows
-// [m0, m0 + 128).
+// [m0, m0 + rows).
 struct BandKWalk {
   int total, hh;
-  __device__ __forceinline__ BandKWalk(int sq, int sk, int m0, int causal, int h) : hh(h) {
+  __device__ __forceinline__ BandKWalk(int sq, int sk, int m0, int causal, int h, int rows)
+      : hh(h) {
     total = (sk + BWD_Q_BN - 1) / BWD_Q_BN;
     if (causal) {
-      const int col_hi = min(m0 + BWD_Q_ROWS, sq) - 1 + sk - sq;
+      const int col_hi = min(m0 + rows, sq) - 1 + sk - sq;
       total = col_hi < 0 ? 0 : min(total, col_hi / BWD_Q_BN + 1);
     }
   }
@@ -139,19 +183,33 @@ struct BandKWalk {
   __device__ __forceinline__ WalkStep next(int t, int st) const { return at(t, st); }
 };
 
-// delta of one row: the lanes of a warp take D / 32 elements each of dO and
-// O (rows `dr` and `orow`, at the lane's first element) and sum across the
-// warp; every lane returns the row's sum.
+// The first element of a row that a lane takes in bwd_preprocess_row:
+// D / 32 consecutive elements a lane, or at d = 96 the pair 2 lane and,
+// for lanes below 16, the pair 64 + 2 lane.
+template <int D>
+__device__ __forceinline__ int bwd_lane_elem(int lane) {
+  return D % 64 == 0 ? lane * (D / 32) : 2 * lane;
+}
+
+// delta of one row: the lanes of a warp take their elements of dO and O
+// (rows `dr` and `orow`, at the lane's first element, bwd_lane_elem) and
+// sum across the warp; every lane returns the row's sum.
 template <typename T, int D>
 __device__ __forceinline__ float bwd_preprocess_row(const T* dr, const T* orow) {
-  constexpr int PER = D / 32;  // elements a lane
   float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; i += 2) {
+  auto pair = [&](int i) {
     const float2 a = Elem<T>::unpack(*reinterpret_cast<const uint32_t*>(dr + i));
     const float2 o = Elem<T>::unpack(*reinterpret_cast<const uint32_t*>(orow + i));
     acc = fmaf(a.x, o.x, acc);
     acc = fmaf(a.y, o.y, acc);
+  };
+  if constexpr (D % 64 == 0) {
+#pragma unroll
+    for (int i = 0; i < D / 32; i += 2) pair(i);
+  } else {
+    static_assert(D == 96, "bwd_preprocess_row: head dim");
+    pair(0);
+    if ((threadIdx.x & 31) < 16) pair(64);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffff, acc, off);
@@ -167,16 +225,20 @@ __device__ __forceinline__ float bwd_lse2(float lse) {
 
 template <int D, bool ACCUM_DQ>
 struct DkdvLayout {
-  using KV = Tile<BWD_KV_ROWS, D>;
+  using KV = Tile<BwdPlan<D>::ROWS, D>;
   using QT = Tile<BWD_KV_BM, D>;
-  using DS = Tile<64, BWD_KV_BM>;  // one warpgroup's dS^T: 64 KV rows x KV_BM q
+  using DS = Tile<64, BWD_KV_BM>;  // 64 KV rows' dS^T (or P^T) x KV_BM q
+  static constexpr bool SPLIT = BwdPlan<D>::COL_SPLIT;
+  // dS^T tiles: the fused pass's, one a warpgroup; under COL_SPLIT one
+  // that both warpgroups fill, and beside it P^T's
+  static constexpr int DS_TILES = SPLIT ? 1 : ACCUM_DQ ? 2 : 0;
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = KV::BYTES;
   static constexpr int STAGE_OFF = 2 * KV::BYTES;
   static constexpr int STAGE_BYTES = 2 * QT::BYTES;  // Q then dO
   static constexpr int DS_OFF = STAGE_OFF + BWD_STAGES * STAGE_BYTES;
-  static constexpr int DS_BYTES = ACCUM_DQ ? 2 * DS::BYTES : 0;
-  static constexpr int VEC_OFF = DS_OFF + DS_BYTES;  // lse2 then delta a stage
+  static constexpr int PT_OFF = DS_OFF + DS_TILES * DS::BYTES;
+  static constexpr int VEC_OFF = PT_OFF + (SPLIT ? DS::BYTES : 0);  // lse2 then delta a stage
   static constexpr int BAR_OFF = VEC_OFF + BWD_STAGES * 2 * BWD_KV_BM * 4;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + BWD_STAGES);
   // what a launch asks for: the base is rounded up to 1024 bytes
@@ -186,13 +248,14 @@ struct DkdvLayout {
 };
 
 // dK and dV (and, with ACCUM_DQ, dQ * scale added into src.dq_accum) of KV
-// rows [n0, n0 + 128) of KV head hk of the sequence `src` over the q tiles
+// rows [n0, n0 + BwdPlan<D>::ROWS) of KV head hk of the sequence `src` over the q tiles
 // of `walk`. `smem` is the 1024-aligned base of DkdvLayout<D,
 // ACCUM_DQ>::BYTES.
 template <typename T, int D, bool ACCUM_DQ, typename Src, typename Walk>
 __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
                                          int n0, unsigned char* smem, const Walk& walk) {
   using L = DkdvLayout<D, ACCUM_DQ>;
+  using P = BwdPlan<D>;
   constexpr int BM = BWD_KV_BM;
   unsigned char* Ks = smem + L::K_OFF;
   unsigned char* Vs = smem + L::V_OFF;
@@ -219,7 +282,7 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
     const int m0 = w.row;
     mbar_expect_tx(&full[st], L::STAGE_TX);
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < L::QT::PANELS; ++c) {
       src.load_q(stage + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
       src.load_do(stage + L::QT::BYTES + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
     }
@@ -236,18 +299,21 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
   if (tid == 0) {
     mbar_expect_tx(kv_bar, L::KV_TX);
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < L::KV::PANELS; ++c) {
       src.load_k(Ks + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
       src.load_v(Vs + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
     }
     if (total > 0) issue(0);
   }
 
-  float dk[D / 2], dv[D / 2];
+  float dk[P::NACC / 2], dv[P::NACC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < P::NACC / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  const int kv0 = n0 + wg * 64;  // this warpgroup's KV rows
+  const int kr = P::row0(wg);  // this warpgroup's KV rows in the block
+  const int kv0 = n0 + kr;
+  // this warpgroup's dK/dV columns: Q's and dO's panels from col0 / 64
+  const int cpanel = P::col0(wg) / 64;
   mbar_wait(kv_bar, 0);
   for (int t = 0; t < total; ++t) {
     const int st = t % BWD_STAGES;
@@ -269,148 +335,245 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
       }
     }
 
-    // does any key of this warpgroup see any row of the tile, and is it
-    // this warpgroup's?
-    const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift) &&
-                        (w.owner < 0 || w.owner == wg);
-    if (active) {
-      float s[BM / 2], dp[BM / 2];
-#pragma unroll
-      for (int i = 0; i < BM / 2; ++i) s[i] = dp[i] = 0.f;
-      // S^T = K Q^T and dP^T = V dO^T (KV rows as M)
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BM, 0, 0>(s, L::KV::k_slice(Ks, wg * 64, kk),
-                              L::QT::k_slice(Qs, 0, kk), kk > 0);
-      wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BM, 0, 0>(dp, L::KV::k_slice(Vs, wg * 64, kk),
-                              L::QT::k_slice(dOs, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(s);
-
-      // P^T = exp2(S^T * scale_log2 - lse2), masked on the diagonal and the
-      // ragged end of the keys; rows past sq have lse2 = +inf
-      const bool need_mask = (a.causal && kv0 + 63 > m0 + shift) || kv0 + 64 > sk;
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-        const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
-          if (need_mask) {
-            const int kv = kv0 + warp * 16 + g + 8 * (e >> 1);
-            const int qrow = m0 + 8 * j + 2 * t4 + (e & 1);
-            if (kv >= sk || (a.causal && kv > qrow + shift)) x = -INFINITY;
-          }
-          s[4 * j + e] = exp2f(x);
-        }
-      }
-      uint32_t pa[BM / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk) pack_a<T>(pa[kk], s, kk);
-
-      // dV += P^T dO
-      fence_regs(dv);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_rs<T, D, 1>(dv, pa[kk], L::QT::mn_slice(dOs, 16 * kk), 1);
-      wgmma_commit();
-      wgmma_wait<1>();  // dP^T is in; dV may still run
-      fence_regs(dp);
-
-      // dS^T = P^T (dP^T - delta)
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-        const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t4);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[4 * j + e] *= dp[4 * j + e] - ((e & 1) ? dl.y : dl.x);
-      }
-      uint32_t da[BM / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk) pack_a<T>(da[kk], s, kk);
-
-      // dK += dS^T Q (scaled once at the end)
-      fence_regs(dk);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_rs<T, D, 1>(dk, da[kk], L::QT::mn_slice(Qs, 16 * kk), 1);
-      wgmma_commit();
-
+    // the fused pass: dQ[m0 : m0 + BM] += dS K over the block's keys, one
+    // 64-column panel of dQ at a time, the warpgroups taking alternate
+    // panels (at d = 64 the first alone), so that the block adds each dQ
+    // element of the tile once; dS^T is in the DS tiles
+    auto add_dq = [&]() {
       if constexpr (ACCUM_DQ) {
-        // this warpgroup's dS^T goes to shared memory, the transposed A
-        // operand of dQ = dS K below
-        unsigned char* dsw = smem + L::DS_OFF + wg * L::DS::BYTES;
+        for (int pn = wg; pn < L::KV::PANELS; pn += 2) {
+          const unsigned char* kcol = Ks + pn * L::KV::PANEL_BYTES;
+          float dq[32];
 #pragma unroll
-        for (int kk = 0; kk < BM / 16; ++kk) {
+          for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+          wgmma_fence();
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            // da[kk][i]: row g + 8 (i & 1), columns 16 kk + 8 (i >> 1) + 2 t4
-            const int row = warp * 16 + g + 8 * (i & 1);
-            const int col = 16 * kk + 8 * (i >> 1) + 2 * t4;
-            *reinterpret_cast<uint32_t*>(dsw + swz128(row, col)) = da[kk][i];
+          for (int kk = 0; kk < P::ROWS / 16; ++kk)
+            wgmma_ss<T, 64, 1, 1>(dq, L::DS::mn_slice(smem + L::DS_OFF + (kk / 4) * L::DS::BYTES,
+                                                      16 * (kk % 4)),
+                                  L::KV::mn_slice(kcol, 16 * kk), kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq);
+          // the panel's columns that the head dim holds
+          const int cols = min(64, D - pn * 64);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = m0 + warp * 16 + g + 8 * i;
+            if (row >= sq) continue;
+            float* dst = src.dq_accum(row, hq) + pn * 64 + 2 * t4;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (8 * j < cols)
+                atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
+                          make_float2(dq[4 * j + 2 * i] * a.scale,
+                                      dq[4 * j + 2 * i + 1] * a.scale));
           }
         }
       }
-      wgmma_wait<0>();
-      fence_regs(dk);
-      fence_regs(dv);
-    } else if (ACCUM_DQ) {
-      // a warpgroup whose keys see no row of the tile adds dS^T = 0
-      uint4* dsw = reinterpret_cast<uint4*>(smem + L::DS_OFF + wg * L::DS::BYTES);
-      for (int i = tid & 127; i < L::DS::BYTES / 16; i += 128) dsw[i] = make_uint4(0, 0, 0, 0);
-    }
-    if constexpr (ACCUM_DQ) {
-      // dQ[m0 : m0 + BM] += dS K over the block's 128 keys, each warpgroup
-      // one 64-column group of dQ (at d = 64 the first alone), so that the
-      // block adds each dQ element of the tile once
-      fence_proxy_async();
-      named_barrier(1, BWD_THREADS);  // both dS^T halves are in shared memory
-      if (wg < D / 64) {
-        const unsigned char* kcol = Ks + wg * L::KV::PANEL_BYTES;
-        float dq[32];
+    };
+    if constexpr (P::COL_SPLIT) {
+      // both warpgroups own the block's 64 KV rows (the same for both, so
+      // `active` is the block's): each computes S^T and dP^T over its 32
+      // of the tile's q rows (N = 32) and writes its half of P^T and dS^T
+      // into the shared A tiles; then each adds its 128 columns of
+      // dV += P^T dO and dK += dS^T Q over all 64 q rows
+      constexpr int HQ = BM / 2;
+      const int q_off = wg * HQ;
+      unsigned char* PTs = smem + L::PT_OFF;
+      unsigned char* DSs = smem + L::DS_OFF;
+      const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift);
+      if (active) {
+        float s[HQ / 2], dp[HQ / 2];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+        for (int i = 0; i < HQ / 2; ++i) s[i] = dp[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          wgmma_ss<T, 64, 1, 1>(dq, L::DS::mn_slice(smem + L::DS_OFF + (kk / 4) * L::DS::BYTES,
-                                                    16 * (kk % 4)),
-                                L::KV::mn_slice(kcol, 16 * kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, HQ, 0, 0>(s, L::KV::k_slice(Ks, 0, kk), L::QT::k_slice(Qs, q_off, kk),
+                                kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, HQ, 0, 0>(dp, L::KV::k_slice(Vs, 0, kk), L::QT::k_slice(dOs, q_off, kk),
+                                kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        const bool need_mask = (a.causal && kv0 + 63 > m0 + q_off + shift) || kv0 + 64 > sk;
+#pragma unroll
+        for (int j = 0; j < HQ / 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + q_off + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
+            if (need_mask) {
+              const int kv = kv0 + warp * 16 + g + 8 * (e >> 1);
+              const int qrow = m0 + q_off + 8 * j + 2 * t4 + (e & 1);
+              if (kv >= sk || (a.causal && kv > qrow + shift)) x = -INFINITY;
+            }
+            s[4 * j + e] = exp2f(x);
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < HQ / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(delta_s + q_off + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          // accumulator pairs (e = 0, 1) and (2, 3) at KV rows g and
+          // g + 8 of the warp, q columns q_off + 8 j + 2 t4
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi) {
+            const int off = swz128(warp * 16 + g + 8 * hi, q_off + 8 * j + 2 * t4);
+            *reinterpret_cast<uint32_t*>(PTs + off) =
+                Elem<T>::pack(s[4 * j + 2 * hi], s[4 * j + 2 * hi + 1]);
+            *reinterpret_cast<uint32_t*>(DSs + off) =
+                Elem<T>::pack(dp[4 * j + 2 * hi], dp[4 * j + 2 * hi + 1]);
+          }
+        }
+        fence_proxy_async();
+        named_barrier(1, BWD_THREADS);  // both halves of P^T and dS^T are in
+        fence_regs(dv);
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+          wgmma_ss<T, P::NACC, 0, 1>(dv, L::DS::k_slice(PTs, 0, kk),
+                                     L::QT::mn_slice(dOs + cpanel * L::QT::PANEL_BYTES, 16 * kk),
+                                     1);
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+          wgmma_ss<T, P::NACC, 0, 1>(dk, L::DS::k_slice(DSs, 0, kk),
+                                     L::QT::mn_slice(Qs + cpanel * L::QT::PANEL_BYTES, 16 * kk),
+                                     1);
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs(dq);
+        fence_regs(dk);
+        fence_regs(dv);
+        if constexpr (ACCUM_DQ) add_dq();
+      }
+    } else {
+      // does any key of this warpgroup see any row of the tile, and is it
+      // this warpgroup's?
+      const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift) &&
+                          (w.owner < 0 || w.owner == wg);
+      if (active) {
+        float s[BM / 2], dp[BM / 2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = m0 + warp * 16 + g + 8 * i;
-          if (row >= sq) continue;
-          float* dst = src.dq_accum(row, hq) + wg * 64 + 2 * t4;
+        for (int i = 0; i < BM / 2; ++i) s[i] = dp[i] = 0.f;
+        // S^T = K Q^T and dP^T = V dO^T (KV rows as M)
+        wgmma_fence();
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            atomicAdd(reinterpret_cast<float2*>(dst + 8 * j),
-                      make_float2(dq[4 * j + 2 * i] * a.scale,
-                                  dq[4 * j + 2 * i + 1] * a.scale));
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, BM, 0, 0>(s, L::KV::k_slice(Ks, kr, kk),
+                                L::QT::k_slice(Qs, 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, BM, 0, 0>(dp, L::KV::k_slice(Vs, kr, kk),
+                                L::QT::k_slice(dOs, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+
+        // P^T = exp2(S^T * scale_log2 - lse2), masked on the diagonal and the
+        // ragged end of the keys; rows past sq have lse2 = +inf
+        const bool need_mask = (a.causal && kv0 + 63 > m0 + shift) || kv0 + 64 > sk;
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
+            if (need_mask) {
+              const int kv = kv0 + warp * 16 + g + 8 * (e >> 1);
+              const int qrow = m0 + 8 * j + 2 * t4 + (e & 1);
+              if (kv >= sk || (a.causal && kv > qrow + shift)) x = -INFINITY;
+            }
+            s[4 * j + e] = exp2f(x);
+          }
         }
+        uint32_t pa[BM / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) pack_a<T>(pa[kk], s, kk);
+
+        // dV += P^T dO
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+          wgmma_rs<T, P::NACC, 1>(
+              dv, pa[kk], L::QT::mn_slice(dOs + cpanel * L::QT::PANEL_BYTES, 16 * kk), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T is in; dV may still run
+        fence_regs(dp);
+
+        // dS^T = P^T (dP^T - delta)
+#pragma unroll
+        for (int j = 0; j < BM / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * j + e] *= dp[4 * j + e] - ((e & 1) ? dl.y : dl.x);
+        }
+        uint32_t da[BM / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) pack_a<T>(da[kk], s, kk);
+
+        // dK += dS^T Q (scaled once at the end)
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+          wgmma_rs<T, P::NACC, 1>(
+              dk, da[kk], L::QT::mn_slice(Qs + cpanel * L::QT::PANEL_BYTES, 16 * kk), 1);
+        wgmma_commit();
+
+        if constexpr (ACCUM_DQ) {
+          // this warpgroup's dS^T goes to shared memory, the transposed A
+          // operand of dQ = dS K (add_dq)
+          unsigned char* dsw = smem + L::DS_OFF + wg * L::DS::BYTES;
+#pragma unroll
+          for (int kk = 0; kk < BM / 16; ++kk) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              // da[kk][i]: row g + 8 (i & 1), columns 16 kk + 8 (i >> 1) + 2 t4
+              const int row = warp * 16 + g + 8 * (i & 1);
+              const int col = 16 * kk + 8 * (i >> 1) + 2 * t4;
+              *reinterpret_cast<uint32_t*>(dsw + swz128(row, col)) = da[kk][i];
+            }
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+      } else if (ACCUM_DQ) {
+        // a warpgroup whose keys see no row of the tile adds dS^T = 0
+        uint4* dsw = reinterpret_cast<uint4*>(smem + L::DS_OFF + wg * L::DS::BYTES);
+        for (int i = tid & 127; i < L::DS::BYTES / 16; i += 128) dsw[i] = make_uint4(0, 0, 0, 0);
+      }
+      if constexpr (ACCUM_DQ) {
+        fence_proxy_async();
+        named_barrier(1, BWD_THREADS);  // the dS^T slots are in shared memory
+        add_dq();
       }
     }
     __syncthreads();  // both warpgroups are done with stage st
   }
 
-  // dK (scaled) and dV in the inputs' type, rows past sk skipped
+  // dK (scaled) and dV in the inputs' type, this warpgroup's STORE columns
+  // from col0, rows past sk skipped
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = kv0 + warp * 16 + g + 8 * i;
     if (row >= sk) continue;
-    auto* dkg = src.dk(row, hk);
-    auto* dvg = src.dv(row, hk);
+    auto* dkg = src.dk(row, hk) + P::col0(wg);
+    auto* dvg = src.dv(row, hk) + P::col0(wg);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < P::STORE / 8; ++j) {
       store_pair(dkg + 8 * j + 2 * t4, dk[4 * j + 2 * i] * a.scale,
                  dk[4 * j + 2 * i + 1] * a.scale);
       store_pair(dvg + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
@@ -430,29 +593,34 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
 
 template <int D>
 struct DqLayout {
-  using QT = Tile<BWD_Q_ROWS, D>;
+  static constexpr int ROWS = BwdPlan<D>::ROWS;
+  using QT = Tile<ROWS, D>;
   using KT = Tile<BWD_Q_BN, D>;
+  using DS = Tile<64, BWD_Q_BN>;  // under COL_SPLIT: dS, 64 q rows x the keys
   static constexpr int Q_OFF = 0;
   static constexpr int DO_OFF = QT::BYTES;
   static constexpr int STAGE_OFF = 2 * QT::BYTES;
   static constexpr int STAGE_BYTES = 2 * KT::BYTES;  // K then V
-  static constexpr int VEC_OFF = STAGE_OFF + BWD_STAGES * STAGE_BYTES;  // lse2, delta
-  static constexpr int BAR_OFF = VEC_OFF + 2 * BWD_Q_ROWS * 4;
+  static constexpr int DS_OFF = STAGE_OFF + BWD_STAGES * STAGE_BYTES;
+  static constexpr int VEC_OFF =
+      DS_OFF + (BwdPlan<D>::COL_SPLIT ? DS::BYTES : 0);  // lse2, delta
+  static constexpr int BAR_OFF = VEC_OFF + 2 * ROWS * 4;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + BWD_STAGES);
   static constexpr int SMEM = BYTES + 1024;
-  static constexpr uint32_t Q_TX = 2 * QT::BYTES + 2 * BWD_Q_ROWS * 4;
+  static constexpr uint32_t Q_TX = 2 * QT::BYTES + 2 * ROWS * 4;
   static constexpr uint32_t STAGE_TX = STAGE_BYTES;
 };
 
-// dQ of query rows [m0, m0 + 128) of query head hh of the sequence `src`
+// dQ of query rows [m0, m0 + BwdPlan<D>::ROWS) of query head hh of the sequence `src`
 // over the key tiles of `walk`, written once. `smem` is the 1024-aligned
 // base of DqLayout<D>::BYTES.
 template <typename T, int D, typename Src, typename Walk>
 __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
                                        unsigned char* smem, const Walk& walk) {
   using L = DqLayout<D>;
+  using P = BwdPlan<D>;
   constexpr int BN = BWD_Q_BN;
-  constexpr int ROWS = BWD_Q_ROWS;
+  constexpr int ROWS = P::ROWS;
   unsigned char* Qs = smem + L::Q_OFF;
   unsigned char* dOs = smem + L::DO_OFF;
   float* lse_s = reinterpret_cast<float*>(smem + L::VEC_OFF);
@@ -478,7 +646,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
     const int n0 = walk.next(t, st).row;
     mbar_expect_tx(&full[st], L::STAGE_TX);
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < L::KT::PANELS; ++c) {
       src.load_k(stage + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
       src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
     }
@@ -493,7 +661,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
   if (tid == 0) {
     mbar_expect_tx(q_bar, L::Q_TX);
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < L::QT::PANELS; ++c) {
       src.load_q(Qs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
       src.load_do(dOs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
     }
@@ -502,17 +670,20 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
     if (total > 0) issue(0);
   }
 
-  float dq[D / 2];
+  float dq[P::NACC / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < P::NACC / 2; ++i) dq[i] = 0.f;
 
-  const int r0 = m0 + wg * 64;  // this warpgroup's q rows
+  const int qr = P::row0(wg);  // this warpgroup's q rows in the block
+  const int r0 = m0 + qr;
+  // this warpgroup's dQ columns: K's panels from col0 / 64
+  const int cpanel = P::col0(wg) / 64;
   mbar_wait(q_bar, 0);
   float lse2[2], delta[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    lse2[i] = lse_s[wg * 64 + warp * 16 + g + 8 * i];
-    delta[i] = delta_s[wg * 64 + warp * 16 + g + 8 * i];
+    lse2[i] = lse_s[qr + warp * 16 + g + 8 * i];
+    delta[i] = delta_s[qr + warp * 16 + g + 8 * i];
   }
   for (int t = 0; t < total; ++t) {
     const int st = t % BWD_STAGES;
@@ -531,62 +702,130 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
       }
     }
 
-    // does any row of this warpgroup see any key of the tile, and is it
-    // this warpgroup's?
-    const bool active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift) &&
-                        (w.owner < 0 || w.owner == wg);
-    if (active) {
-      float s[BN / 2], dp[BN / 2];
+    if constexpr (P::COL_SPLIT) {
+      // both warpgroups own the block's 64 q rows (`active` is the
+      // block's): each computes S and dP over its 32 of the tile's keys
+      // (N = 32) and writes its half of dS into the shared A tile; then
+      // each adds its 128 columns of dQ += dS K over all 64 keys
+      constexpr int HK = BN / 2;
+      const int k_off = wg * HK;
+      unsigned char* DSs = smem + L::DS_OFF;
+      const bool active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift);
+      if (active) {
+        float s[HK / 2], dp[HK / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
-      // S = Q K^T and dP = dO V^T
-      wgmma_fence();
+        for (int i = 0; i < HK / 2; ++i) s[i] = dp[i] = 0.f;
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BN, 0, 0>(s, L::QT::k_slice(Qs, wg * 64, kk),
-                              L::KT::k_slice(Ks, 0, kk), kk > 0);
-      wgmma_commit();
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, HK, 0, 0>(s, L::QT::k_slice(Qs, 0, kk), L::KT::k_slice(Ks, k_off, kk),
+                                kk > 0);
+        wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BN, 0, 0>(dp, L::QT::k_slice(dOs, wg * 64, kk),
-                              L::KT::k_slice(Vs, 0, kk), kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(s);
-
-      // P = exp2(S * scale_log2 - lse2), masked on the diagonal and the
-      // ragged end of the keys
-      const bool need_mask = (a.causal && n0 + BN - 1 > r0 + shift) || n0 + BN > sk;
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, HK, 0, 0>(dp, L::QT::k_slice(dOs, 0, kk), L::KT::k_slice(Vs, k_off, kk),
+                                kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        const int c0 = n0 + k_off;  // this warpgroup's first key
+        const bool need_mask = (a.causal && c0 + HK - 1 > r0 + shift) || c0 + HK > sk;
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
+        for (int j = 0; j < HK / 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = fmaf(s[4 * j + e], a.scale_log2, -lse2[e >> 1]);
-          if (need_mask) {
-            const int col = n0 + 8 * j + 2 * t4 + (e & 1);
-            const int row = r0 + warp * 16 + g + 8 * (e >> 1);
-            if (col >= sk || (a.causal && col > row + shift)) x = -INFINITY;
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(s[4 * j + e], a.scale_log2, -lse2[e >> 1]);
+            if (need_mask) {
+              const int col = c0 + 8 * j + 2 * t4 + (e & 1);
+              const int row = r0 + warp * 16 + g + 8 * (e >> 1);
+              if (col >= sk || (a.causal && col > row + shift)) x = -INFINITY;
+            }
+            s[4 * j + e] = exp2f(x);
           }
-          s[4 * j + e] = exp2f(x);
         }
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < HK / 8; ++j) {
+#pragma unroll
+          for (int hi = 0; hi < 2; ++hi)
+            *reinterpret_cast<uint32_t*>(
+                DSs + swz128(warp * 16 + g + 8 * hi, k_off + 8 * j + 2 * t4)) =
+                Elem<T>::pack(s[4 * j + 2 * hi] * (dp[4 * j + 2 * hi] - delta[hi]),
+                              s[4 * j + 2 * hi + 1] * (dp[4 * j + 2 * hi + 1] - delta[hi]));
+        }
+        fence_proxy_async();
+        named_barrier(1, BWD_THREADS);  // both halves of dS are in
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_ss<T, P::NACC, 0, 1>(dq, L::DS::k_slice(DSs, 0, kk),
+                                     L::KT::mn_slice(Ks + cpanel * L::KT::PANEL_BYTES, 16 * kk),
+                                     1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
       }
-      wgmma_wait<0>();
-      fence_regs(dp);
+    } else {
+      // does any row of this warpgroup see any key of the tile, and is it
+      // this warpgroup's?
+      const bool active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift) &&
+                          (w.owner < 0 || w.owner == wg);
+      if (active) {
+        float s[BN / 2], dp[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+        // S = Q K^T and dP = dO V^T
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, BN, 0, 0>(s, L::QT::k_slice(Qs, qr, kk),
+                                L::KT::k_slice(Ks, 0, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, BN, 0, 0>(dp, L::QT::k_slice(dOs, qr, kk),
+                                L::KT::k_slice(Vs, 0, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
 
-      // dS = P (dP - delta); dQ += dS K (scaled once at the end)
+        // P = exp2(S * scale_log2 - lse2), masked on the diagonal and the
+        // ragged end of the keys
+        const bool need_mask = (a.causal && n0 + BN - 1 > r0 + shift) || n0 + BN > sk;
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) s[i] *= dp[i] - delta[(i >> 1) & 1];
-      uint32_t da[BN / 16][4];
+        for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(da[kk], s, kk);
-      fence_regs(dq);
-      wgmma_fence();
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(s[4 * j + e], a.scale_log2, -lse2[e >> 1]);
+            if (need_mask) {
+              const int col = n0 + 8 * j + 2 * t4 + (e & 1);
+              const int row = r0 + warp * 16 + g + 8 * (e >> 1);
+              if (col >= sk || (a.causal && col > row + shift)) x = -INFINITY;
+            }
+            s[4 * j + e] = exp2f(x);
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+
+        // dS = P (dP - delta); dQ += dS K (scaled once at the end)
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<T, D, 1>(dq, da[kk], L::KT::mn_slice(Ks, 16 * kk), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dq);
+        for (int i = 0; i < BN / 2; ++i) s[i] *= dp[i] - delta[(i >> 1) & 1];
+        uint32_t da[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(da[kk], s, kk);
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs<T, P::NACC, 1>(
+              dq, da[kk], L::KT::mn_slice(Ks + cpanel * L::KT::PANEL_BYTES, 16 * kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+      }
     }
     __syncthreads();  // both warpgroups are done with stage st
   }
@@ -595,9 +834,9 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + warp * 16 + g + 8 * i;
     if (row >= sq) continue;
-    auto* dqg = src.dq(row, hh);
+    auto* dqg = src.dq(row, hh) + P::col0(wg);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < P::STORE / 8; ++j)
       store_pair(dqg + 8 * j + 2 * t4, dq[4 * j + 2 * i] * a.scale,
                  dq[4 * j + 2 * i + 1] * a.scale);
   }
@@ -607,7 +846,8 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
 template <typename T, int D, typename Src>
 __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
                                        unsigned char* smem) {
-  bwd_dq<T, D>(src, a, hh, m0, smem, BandKWalk(src.sq, src.sk, m0, a.causal, hh));
+  bwd_dq<T, D>(src, a, hh, m0, smem,
+               BandKWalk(src.sq, src.sk, m0, a.causal, hh, BwdPlan<D>::ROWS));
 }
 
 }  // namespace sm90

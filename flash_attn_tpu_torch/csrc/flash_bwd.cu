@@ -1,5 +1,7 @@
 // Dense attention backward for Hopper (sm_90a) on wgmma and TMA, bf16 /
-// fp16, head dim 64 or 128.
+// fp16, head dims 64, 96, 128 and 256 (the kernels are in flash_bwd.cuh;
+// this source compiles 64 and 128 and holds the C entry points,
+// flash_bwd_wide.cu compiles 96 and 256).
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_bwd.py:_dkdv_kernel
 // and :_dq_kernel (the deterministic two-kernel backward),
@@ -37,7 +39,11 @@
 // d), whose boxes past sq or sk TMA fills with zeros. Each thread keeps
 // 64 + 64 fp32 accumulators of dK and dV at d = 128 within the 255
 // registers that a 256-thread block allows, so no register rebalancing
-// (setmaxnreg) or separate producer warp is needed. One block barrier a
+// (setmaxnreg) or separate producer warp is needed. At d = 96 the tiles
+// run as at 128 over TMA's zero-filled columns past 96; at d = 256 a block
+// owns 64 rows, its warpgroups split S and dP by rows of the streamed tile
+// and then the gradients' columns (bwd_sm90.cuh's note has the register
+// and shared-memory plan). One block barrier a
 // tile keeps the two warpgroups in step: freeing each stage by mbarrier
 // arrivals instead, a third stage, or issuing the next tile's products
 // before the last one's end let them drift and made both kernels slower on
@@ -58,134 +64,12 @@
 // reached with cudaGetDriverEntryPoint so that only the runtime is linked
 // (sm90.cuh make_tile_map).
 
-#include "bwd_sm90.cuh"
+#include "flash_bwd.cuh"
 
 namespace {
 
 using namespace fa::sm90;
-
-constexpr int PRE_ROWS = 8;  // preprocess: rows (warps) a block
-
-struct BwdParams {
-  const float* lse2;   // (b, h, sq_pad): lse * log2(e), +inf for P = 0
-  const float* delta;  // (b, h, sq_pad)
-  void* dq;            // dq kernel: (b, sq, h, d) in q's type
-  void* dk;
-  void* dv;
-  float* dq_accum;  // fused dkdv: (b, sq, h, d) fp32, zeroed
-  int64_t dq_sb, dq_ss, dq_sh;
-  int64_t dk_sb, dk_ss, dk_sh;
-  int64_t dv_sb, dv_ss, dv_sh;
-  int sq, sk, sq_pad, h, d;
-  BwdArgs a;
-};
-
-// ---- preprocess -------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(PRE_ROWS * 32)
-    preprocess_kernel(const T* __restrict__ dout, const T* __restrict__ out,
-                      const float* __restrict__ lse, float* __restrict__ lse2,
-                      float* __restrict__ delta, float* __restrict__ dq_accum,
-                      int sq, int sq_pad, int h, int64_t do_sb, int64_t do_ss,
-                      int64_t do_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh) {
-  constexpr int PER = D / 32;  // elements a lane
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * PRE_ROWS + (threadIdx.x >> 5);
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
-  if (row >= sq_pad) return;
-  const int64_t idx = ((int64_t)bb * h + hh) * sq_pad + row;
-  if (row >= sq) {
-    if (lane == 0) {
-      delta[idx] = 0.f;
-      lse2[idx] = INFINITY;
-    }
-    return;
-  }
-  const float acc = bwd_preprocess_row<T, D>(
-      dout + bb * do_sb + row * do_ss + hh * do_sh + lane * PER,
-      out + bb * o_sb + row * o_ss + hh * o_sh + lane * PER);
-  if (lane == 0) {
-    delta[idx] = acc;
-    lse2[idx] = bwd_lse2(lse[((int64_t)bb * h + hh) * sq + row]);
-  }
-  if (dq_accum != nullptr) {
-    float* dst = dq_accum + (((int64_t)bb * sq + row) * h + hh) * D + lane * PER;
-#pragma unroll
-    for (int i = 0; i < PER; i += 2) *reinterpret_cast<float2*>(dst + i) = make_float2(0.f, 0.f);
-  }
-}
-
-// ---- the dense source -------------------------------------------------------
-
-// Batch row bb of the (b, s, h, d) operands: 4D maps, the padded (b, h,
-// sq_pad) lse2 / delta, the gradients by element strides.
-template <typename T>
-struct DenseSrc {
-  static constexpr bool ZERO_TAIL = false;  // TMA zero-fills past sq and sk
-  const BwdMaps* maps;
-  const BwdParams* p;
-  int bb, sq, sk;
-  __device__ __forceinline__ DenseSrc(const BwdMaps& m, const BwdParams& prm, int b)
-      : maps(&m), p(&prm), bb(b), sq(prm.sq), sk(prm.sk) {}
-  __device__ __forceinline__ void load_q(void* dst, uint64_t* bar, int col, int row,
-                                         int hq) const {
-    tma_load_4d(dst, &maps->q, bar, col, row, hq, bb);
-  }
-  __device__ __forceinline__ void load_do(void* dst, uint64_t* bar, int col, int row,
-                                          int hq) const {
-    tma_load_4d(dst, &maps->dout, bar, col, row, hq, bb);
-  }
-  __device__ __forceinline__ void load_k(void* dst, uint64_t* bar, int col, int row,
-                                         int hk) const {
-    tma_load_4d(dst, &maps->k, bar, col, row, hk, bb);
-  }
-  __device__ __forceinline__ void load_v(void* dst, uint64_t* bar, int col, int row,
-                                         int hk) const {
-    tma_load_4d(dst, &maps->v, bar, col, row, hk, bb);
-  }
-  __device__ __forceinline__ const float* lse2(int hq, int row) const {
-    return p->lse2 + ((int64_t)bb * p->h + hq) * p->sq_pad + row;
-  }
-  __device__ __forceinline__ const float* delta(int hq, int row) const {
-    return p->delta + ((int64_t)bb * p->h + hq) * p->sq_pad + row;
-  }
-  __device__ __forceinline__ T* dk(int row, int hk) const {
-    return reinterpret_cast<T*>(p->dk) + bb * p->dk_sb + row * p->dk_ss + hk * p->dk_sh;
-  }
-  __device__ __forceinline__ T* dv(int row, int hk) const {
-    return reinterpret_cast<T*>(p->dv) + bb * p->dv_sb + row * p->dv_ss + hk * p->dv_sh;
-  }
-  __device__ __forceinline__ T* dq(int row, int hq) const {
-    return reinterpret_cast<T*>(p->dq) + bb * p->dq_sb + row * p->dq_ss + hq * p->dq_sh;
-  }
-  __device__ __forceinline__ float* dq_accum(int row, int hq) const {
-    return p->dq_accum + (((int64_t)bb * p->sq + row) * p->h + hq) * p->d;
-  }
-};
-
-// ---- the kernels ------------------------------------------------------------
-
-// dK/dV (and the fused dQ): one block per (KV head, batch row, 128 KV rows),
-// KV tile 0 (the heaviest under causal masking) first.
-template <typename T, int D, bool ACCUM_DQ>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
-    dkdv_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
-  extern __shared__ unsigned char smem_raw[];
-  bwd_dkdv<T, D, ACCUM_DQ>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
-                           blockIdx.z * BWD_KV_ROWS, align_1024(smem_raw));
-}
-
-// dQ: one block per (head, batch row, 128 q rows), the last (heaviest)
-// q tile first.
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
-    dq_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
-  extern __shared__ unsigned char smem_raw[];
-  bwd_dq<T, D>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
-               (gridDim.z - 1 - blockIdx.z) * BWD_Q_ROWS, align_1024(smem_raw));
-}
+using namespace fa::dense_bwd;
 
 // ---- host side --------------------------------------------------------------
 
@@ -218,32 +102,6 @@ cudaError_t make_maps(BwdMaps* m, const Operands& o, bool bf16, int b, int sq, i
   return cudaSuccess;
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, const BwdMaps& maps,
-                   const BwdParams& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, BWD_THREADS, smem, stream>>>(maps, p);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkdv(const BwdMaps& maps, const BwdParams& p, int b, int h_k,
-                        cudaStream_t stream) {
-  const dim3 grid(h_k, b, (p.sk + BWD_KV_ROWS - 1) / BWD_KV_ROWS);
-  if (p.dq_accum != nullptr)
-    return launch(dkdv_kernel<T, D, true>, grid, DkdvLayout<D, true>::SMEM, maps, p, stream);
-  return launch(dkdv_kernel<T, D, false>, grid, DkdvLayout<D, false>::SMEM, maps, p, stream);
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(const BwdMaps& maps, const BwdParams& p, int b,
-                      cudaStream_t stream) {
-  const dim3 grid(p.h, b, (p.sq + BWD_Q_ROWS - 1) / BWD_Q_ROWS);
-  return launch(dq_kernel<T, D>, grid, DqLayout<D>::SMEM, maps, p, stream);
-}
-
 BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int sq_pad,
                       int h, int h_k, int d, float scale, int causal) {
   BwdParams p = {};
@@ -259,9 +117,14 @@ BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int
 }
 
 bool valid(int b, int sq, int sk, int sq_pad, int h, int h_k, int d) {
-  return b > 0 && sq > 0 && sk > 0 && h_k > 0 && h % h_k == 0 && (d == 64 || d == 128) &&
-         sq_pad % BWD_ROW_PAD == 0 && sq_pad >= sq;
+  return b > 0 && sq > 0 && sk > 0 && h_k > 0 && h % h_k == 0 &&
+         (d == 64 || d == 96 || d == 128 || d == 256) && sq_pad % BWD_ROW_PAD == 0 &&
+         sq_pad >= sq;
 }
+
+// The head dims this source compiles; the others go to flash_bwd_wide.cu.
+using NarrowDims = Dims<64, 128>;
+bool wide(int d) { return d == 96 || d == 256; }
 
 }  // namespace
 
@@ -276,21 +139,11 @@ extern "C" int fa_bwd_preprocess(const void* dout, const void* out, const float*
                                  int64_t do_ss, int64_t do_sh, int64_t o_sb,
                                  int64_t o_ss, int64_t o_sh, int is_bf16, void* stream) {
   if (!valid(b, sq, 1, sq_pad, h, 1, d)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((sq_pad + PRE_ROWS - 1) / PRE_ROWS, h, b);
+  const PreParams p = {dout, out, lse, lse2, delta, dq_accum, b, sq, sq_pad, h,
+                       do_sb, do_ss, do_sh, o_sb, o_ss, o_sh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-#define FA_PRE(T, D)                                                              \
-  preprocess_kernel<T, D><<<grid, PRE_ROWS * 32, 0, st>>>(                         \
-      reinterpret_cast<const T*>(dout), reinterpret_cast<const T*>(out), lse, lse2, \
-      delta, dq_accum, sq, sq_pad, h, do_sb, do_ss, do_sh, o_sb, o_ss, o_sh)
-  if (is_bf16) {
-    if (d == 64) FA_PRE(__nv_bfloat16, 64);
-    else FA_PRE(__nv_bfloat16, 128);
-  } else {
-    if (d == 64) FA_PRE(__half, 64);
-    else FA_PRE(__half, 128);
-  }
-#undef FA_PRE
-  return (int)cudaGetLastError();
+  return (int)(wide(d) ? run_pre_wide(is_bf16, d, p, st)
+                       : dispatch_dims<Pre>(NarrowDims{}, is_bf16, d, p, st));
 }
 
 // dK and dV (and, with dq_accum given, dQ * scale added into it). q/dout
@@ -298,7 +151,8 @@ extern "C" int fa_bwd_preprocess(const void* dout, const void* out, const float*
 // the head dim contiguous, 16-byte aligned starts and strides (TMA); lse2 and
 // delta (b, h, sq_pad) from fa_bwd_preprocess; dq_accum (b, sq, h, d)
 // contiguous fp32, zeroed. block_q/block_k must name the tile the kernel is
-// compiled for (dispatch/config.py DENSE_BWD_TILES). Returns a cudaError_t.
+// compiled for at head dim d (dispatch/config.py dense_bwd_tiles). Returns a
+// cudaError_t.
 extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse2,
                            const float* delta, void* dk, void* dv,
@@ -311,12 +165,14 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
                            int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
                            float scale, int causal, int is_bf16, void* stream) {
-  if (block_q != BWD_KV_BM || block_k != BWD_KV_ROWS || !valid(b, sq, sk, sq_pad, h, h_k, d))
+  if (block_q != BWD_KV_BM || block_k != bwd_block_rows(d) ||
+      !valid(b, sq, sk, sq_pad, h, h_k, d))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   BwdMaps maps;
-  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, BWD_KV_BM, BWD_KV_ROWS);
+  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, BWD_KV_BM,
+                              bwd_block_rows(d));
   if (err != cudaSuccess) return (int)err;
   BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal);
   p.dk = dk;
@@ -325,12 +181,8 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
   p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 64) return launch_dkdv<__nv_bfloat16, 64>(maps, p, b, h_k, st);
-    return launch_dkdv<__nv_bfloat16, 128>(maps, p, b, h_k, st);
-  }
-  if (d == 64) return launch_dkdv<__half, 64>(maps, p, b, h_k, st);
-  return launch_dkdv<__half, 128>(maps, p, b, h_k, st);
+  return (int)(wide(d) ? run_dkdv_wide(is_bf16, d, maps, p, b, h_k, st)
+                       : dispatch_dims<Dkdv>(NarrowDims{}, is_bf16, d, maps, p, b, h_k, st));
 }
 
 // dQ (b, sq, h, d) in q's type, written once. Layouts as fa_bwd_dkdv.
@@ -344,21 +196,19 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          int64_t do_sb, int64_t do_ss, int64_t do_sh,
                          int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
                          float scale, int causal, int is_bf16, void* stream) {
-  if (block_q != BWD_Q_ROWS || block_k != BWD_Q_BN || !valid(b, sq, sk, sq_pad, h, h_k, d))
+  if (block_q != bwd_block_rows(d) || block_k != BWD_Q_BN ||
+      !valid(b, sq, sk, sq_pad, h, h_k, d))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   BwdMaps maps;
-  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, BWD_Q_ROWS, BWD_Q_BN);
+  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, bwd_block_rows(d),
+                              BWD_Q_BN);
   if (err != cudaSuccess) return (int)err;
   BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal);
   p.dq = dq;
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 64) return launch_dq<__nv_bfloat16, 64>(maps, p, b, st);
-    return launch_dq<__nv_bfloat16, 128>(maps, p, b, st);
-  }
-  if (d == 64) return launch_dq<__half, 64>(maps, p, b, st);
-  return launch_dq<__half, 128>(maps, p, b, st);
+  return (int)(wide(d) ? run_dq_wide(is_bf16, d, maps, p, b, st)
+                       : dispatch_dims<Dq>(NarrowDims{}, is_bf16, d, maps, p, b, st));
 }

@@ -1,6 +1,8 @@
 // Packed varlen attention forward for Hopper (sm_90a) on wgmma and TMA,
-// bf16 / fp16, head dim 64 or 128: B6's forward (one block per work item)
-// and B7 (a persistent grid that walks the same items).
+// bf16 / fp16, head dims 64, 96, 128 and 256: B6's forward (one block per
+// work item) and B7 (a persistent grid that walks the same items), on the
+// forward tile that B1 runs at the same head dims (fwd_sm90.cuh: 96 as two
+// zero-filled panels, 256 with one block an SM).
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:
 // _varlen_fwd_stream_kernel (B6) and flash_attn_tpu/kernels/
@@ -90,7 +92,7 @@ struct PackedSrc {
 // work list: head by head, each head's longest bands first; dead tiles
 // (sorted last) exit.
 template <typename T, int D>
-__global__ void __launch_bounds__(FWD_THREADS, 2)
+__global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     varlen_fwd_kernel(const __grid_constant__ FwdMaps maps, const VarlenFwdParams p) {
   extern __shared__ unsigned char smem_raw[];
   const int hh = blockIdx.x / p.num_tiles;
@@ -143,12 +145,13 @@ __device__ __forceinline__ Item next_item(const VarlenFwdParams& p, int w) {
 
 // Q tiles a B7 block keeps: with two, the next item's Q loads under this
 // item's last K/V tile; at head dim 128 a second 32 KB Q tile would leave
-// one block an SM (tools/fwd_ab.py timed it 10-12% slower there, PERF.md).
+// one block an SM (tools/fwd_ab.py timed it 10-12% slower there, PERF.md),
+// and at 256 it would not fit beside the two 64 KB K/V stages.
 __host__ __device__ constexpr int persistent_q_buffers(int d) { return d == 64 ? 2 : 1; }
 
 // B7: a persistent block walks its items with a stride of the grid.
 template <typename T, int D>
-__global__ void __launch_bounds__(FWD_THREADS, 2)
+__global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     varlen_fwd_persistent_kernel(const __grid_constant__ FwdMaps maps,
                                  const VarlenFwdParams p) {
   constexpr int QBUF = persistent_q_buffers(D);
@@ -220,34 +223,39 @@ __global__ void __launch_bounds__(FWD_THREADS, 2)
 }
 
 template <typename T, int D>
-cudaError_t launch(const FwdMaps& maps, const VarlenFwdParams& p, int num_tiles,
-                   cudaStream_t stream) {
-  constexpr int smem = FwdLayout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      varlen_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  varlen_fwd_kernel<T, D><<<num_tiles * p.h, FWD_THREADS, smem, stream>>>(maps, p);
-  return cudaGetLastError();
-}
+struct Launch {
+  static cudaError_t run(const FwdMaps& maps, const VarlenFwdParams& p, cudaStream_t stream) {
+    constexpr int smem = FwdLayout<D>::SMEM;
+    cudaError_t err = cudaFuncSetAttribute(
+        varlen_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    varlen_fwd_kernel<T, D><<<p.num_tiles * p.h, FWD_THREADS, smem, stream>>>(maps, p);
+    return cudaGetLastError();
+  }
+};
 
 template <typename T, int D>
-cudaError_t launch_persistent(const FwdMaps& maps, const VarlenFwdParams& p, int num_sms,
-                              int* grid_out, cudaStream_t stream) {
-  constexpr int smem = FwdLayout<D, persistent_q_buffers(D)>::SMEM;
-  auto kernel = varlen_fwd_persistent_kernel<T, D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FWD_THREADS, smem);
-  if (err != cudaSuccess) return err;
-  const int64_t items = (int64_t)p.num_tiles * p.h;
-  const int64_t resident = (int64_t)num_sms * (per_sm > 0 ? per_sm : 1);
-  const int grid = (int)(items < resident ? items : resident);
-  if (grid_out) *grid_out = grid;
-  kernel<<<grid, FWD_THREADS, smem, stream>>>(maps, p);
-  return cudaGetLastError();
-}
+struct LaunchPersistent {
+  static cudaError_t run(const FwdMaps& maps, const VarlenFwdParams& p, int num_sms,
+                         int* grid_out, cudaStream_t stream) {
+    constexpr int smem = FwdLayout<D, persistent_q_buffers(D)>::SMEM;
+    auto kernel = varlen_fwd_persistent_kernel<T, D>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FWD_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    const int64_t items = (int64_t)p.num_tiles * p.h;
+    const int64_t resident = (int64_t)num_sms * (per_sm > 0 ? per_sm : 1);
+    const int grid = (int)(items < resident ? items : resident);
+    if (grid_out) *grid_out = grid;
+    kernel<<<grid, FWD_THREADS, smem, stream>>>(maps, p);
+    return cudaGetLastError();
+  }
+};
+
+using VarlenDims = Dims<64, 96, 128, 256>;
 
 // The maps and parameters of one call (see fa_varlen_fwd).
 cudaError_t setup(FwdMaps* maps, VarlenFwdParams* p, const void* q, const void* k,
@@ -282,7 +290,7 @@ cudaError_t setup(FwdMaps* maps, VarlenFwdParams* p, const void* q, const void* 
 // Whether the kernels take a call's tile and shapes.
 bool takes(int block_q, int block_k, int h, int h_k, int d, int num_tiles) {
   return block_q == FWD_M && block_k == FWD_N && h_k >= 1 && h % h_k == 0 &&
-         (d == 64 || d == 128) && (int64_t)num_tiles * h <= 0x7fffffff;
+         (d == 64 || d == 96 || d == 128 || d == 256) && (int64_t)num_tiles * h <= 0x7fffffff;
 }
 
 }  // namespace
@@ -309,13 +317,8 @@ extern "C" int fa_varlen_fwd(
                           num_tiles, total_q, total_k, h, h_k, d, q_st, q_sh, k_st, k_sh,
                           v_st, v_sh, o_st, o_sh, scale, causal, is_bf16);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 64) return (int)launch<__nv_bfloat16, 64>(maps, p, num_tiles, st);
-    return (int)launch<__nv_bfloat16, 128>(maps, p, num_tiles, st);
-  }
-  if (d == 64) return (int)launch<__half, 64>(maps, p, num_tiles, st);
-  return (int)launch<__half, 128>(maps, p, num_tiles, st);
+  return (int)dispatch_dims<Launch>(VarlenDims{}, is_bf16, d, maps, p,
+                                    reinterpret_cast<cudaStream_t>(stream));
 }
 
 // B7 over the same work list and arguments as fa_varlen_fwd, with a grid of
@@ -338,11 +341,6 @@ extern "C" int fa_varlen_fwd_persistent(
                           num_tiles, total_q, total_k, h, h_k, d, q_st, q_sh, k_st, k_sh,
                           v_st, v_sh, o_st, o_sh, scale, causal, is_bf16);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 64) return (int)launch_persistent<__nv_bfloat16, 64>(maps, p, num_sms, grid_out, st);
-    return (int)launch_persistent<__nv_bfloat16, 128>(maps, p, num_sms, grid_out, st);
-  }
-  if (d == 64) return (int)launch_persistent<__half, 64>(maps, p, num_sms, grid_out, st);
-  return (int)launch_persistent<__half, 128>(maps, p, num_sms, grid_out, st);
+  return (int)dispatch_dims<LaunchPersistent>(VarlenDims{}, is_bf16, d, maps, p, num_sms,
+                                              grid_out, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -190,6 +190,8 @@ __device__ __forceinline__ uint64_t desc_mn(const void* p, uint32_t group_bytes)
 #define FA_ACC32(d, i) FA_ACC16(d, i), FA_ACC16(d, i + 16)
 #define FA_ACC64(d) FA_ACC32(d, 0), FA_ACC32(d, 32)
 
+#define FA_R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define FA_R32                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -202,7 +204,8 @@ __device__ __forceinline__ uint64_t desc_mn(const void* p, uint32_t group_bytes)
   "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x N, fp32) = A B + (scale_d ? d : 0), A and B from shared memory
-// (N = 64, or 128 for the MLA tile's P V).
+// (N = 64; 128 for the MLA tile's P V and the 256-wide backward's dV, dK
+// and dQ; 32 for that backward's halves of S and dP).
 #define FA_WGMMA_SS(N, TY, REGS, ACC, IA, IB, ISC, ITA, ITB)                \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #ISC ", 0;\n"           \
                "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
@@ -214,9 +217,15 @@ __device__ __forceinline__ uint64_t desc_mn(const void* p, uint32_t group_bytes)
 template <typename T, int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N");
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    if constexpr (BF16) {
+      FA_WGMMA_SS(32, "bf16", FA_R16, FA_ACC16(d, 0), 16, 17, 18, 19, 20);
+    } else {
+      FA_WGMMA_SS(32, "f16", FA_R16, FA_ACC16(d, 0), 16, 17, 18, 19, 20);
+    }
+  } else if constexpr (N == 64) {
     if constexpr (BF16) {
       FA_WGMMA_SS(64, "bf16", FA_R32, FA_ACC32(d, 0), 32, 33, 34, 35, 36);
     } else {
@@ -372,6 +381,24 @@ __device__ __forceinline__ void zero_tile_rows(unsigned char* tile, int first, i
 __device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
   const uint32_t a = smem_addr(p);
   return p + (((a + 1023) & ~1023u) - a);
+}
+
+// ---- host side: dispatch ---------------------------------------------------
+
+// The head dims a source compiles, for dispatch_dims.
+template <int... Ds>
+struct Dims {};
+
+// F<T, D>::run(args...) for the element type (bf16, else fp16) and the head
+// dim d of a call, if d is one of Ds; cudaErrorInvalidValue otherwise.
+template <template <typename, int> class F, int... Ds, typename... Args>
+cudaError_t dispatch_dims(Dims<Ds...>, bool bf16, int d, const Args&... args) {
+  cudaError_t err = cudaErrorInvalidValue;
+  ((d == Ds ? (void)(err = bf16 ? F<__nv_bfloat16, Ds>::run(args...)
+                                : F<__half, Ds>::run(args...))
+            : (void)0),
+   ...);
+  return err;
 }
 
 // ---- host side: TMA tensor maps --------------------------------------------

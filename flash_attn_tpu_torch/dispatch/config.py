@@ -14,19 +14,23 @@ from typing import Optional, Tuple
 
 import torch
 
-# Head dims the serving kernels are compiled for: the dense forward B1
-# (csrc/flash_fwd.cu), the paged varlen prefill B8
-# (csrc/flash_varlen_paged.cu), both on the forward tile of fwd_sm90.cuh,
-# and the d = dv decode route B4 (csrc/flash_decode.cu, linear and paged).
-# 96 (GPT-NeoX-20B) and 256 (GPT-J) run there in whole 64-column panels
-# (96 as 128 with TMA's zero fill past the tensor's columns).
-FWD_DECODE_HEAD_DIMS = (64, 96, 128, 256)
+# Head dims (q, k and v alike) the attention kernels are compiled for: the
+# dense forward B1 (csrc/flash_fwd.cu), the packed-varlen forwards B6 and
+# B7 (csrc/flash_varlen_fwd.cu) and the paged varlen prefill B8
+# (csrc/flash_varlen_paged.cu), all on the forward tile of fwd_sm90.cuh;
+# the d = dv decode route B4 (csrc/flash_decode.cu, linear and paged); the
+# backwards B2, B3 (csrc/flash_bwd.cu, flash_bwd_wide.cu) and B6
+# (csrc/flash_varlen.cu, flash_varlen_wide.cu) on the tiles of
+# bwd_sm90.cuh. 96 (GPT-NeoX-20B) and 256 (GPT-J) run there in whole
+# 64-column panels (96 as 128 with TMA's zero fill past the tensor's
+# columns; the backward at 256 on blocks of 64 rows whose warpgroups split
+# the columns).
+HEAD_DIMS = (64, 96, 128, 256)
 
-# Head dims every other kernel is compiled for: the packed-varlen forwards
-# B6 and B7, the backwards B2, B3 and B6, the block-sparse kernels B10 and
-# the MLA route. The rest (and the backward at 96 and 256, which
-# flash_attn_func refuses before its forward) is ROADMAP.md queue A, item 7.
-KERNEL_HEAD_DIMS = (64, 128)
+# Head dims of the block-sparse kernels B10 (csrc/flash_blocksparse.cu).
+# The rest (and d != dv, and every head dim of the MLA route but its
+# compiled forms, MLA_DECODE_DIMS) is ROADMAP.md queue A, item 7.
+BLOCKSPARSE_HEAD_DIMS = (64, 128)
 
 
 def check_head_dims(kernel: str, d: int, dk: int, dv: int, dims) -> None:
@@ -69,16 +73,28 @@ class BwdConfig:
 
 # Tiles of csrc/bwd_sm90.cuh, the backward on wgmma and TMA of the dense
 # backward (csrc/flash_bwd.cu) and of the packed-varlen one
-# (csrc/flash_varlen.cu, VARLEN_BWD_TILE), at both head dims: (the dK/dV
+# (csrc/flash_varlen.cu, VARLEN_BWD_TILE), up to head dim 128: (the dK/dV
 # kernel's, the dQ kernel's). A block runs two
 # warpgroups of 64 rows (wgmma's M): the dK/dV kernel owns 128 KV rows and
 # streams q tiles of 64 rows, the dQ kernel owns 128 query rows and streams
 # key tiles of 64. At head dim 128 a thread keeps 64 + 64 fp32 dK/dV
 # accumulators beside the 32 + 32 of S^T and dP^T, within the 255
 # registers a 256-thread block allows. The kernels check that the wrapper
-# passes these tiles.
+# passes these tiles (dense_bwd_tiles).
 DENSE_BWD_TILES = (BwdConfig(block_q=64, block_k=128),
                    BwdConfig(block_q=128, block_k=64))
+
+# The same at head dim 256: a block owns 64 rows (KV rows of dK/dV, q rows
+# of dQ), both warpgroups on them, each keeping 128 of the 256 columns of
+# dK and dV (or dQ) in 64 + 64 registers; 128-row blocks would need 256
+# accumulator registers a thread and more shared memory than a block has.
+DENSE_BWD_TILES_256 = (BwdConfig(block_q=64, block_k=64),
+                       BwdConfig(block_q=64, block_k=64))
+
+
+def dense_bwd_tiles(d: int) -> Tuple[BwdConfig, BwdConfig]:
+    """The dense backward's (dK/dV, dQ) tiles at head dim ``d``."""
+    return DENSE_BWD_TILES_256 if d > 128 else DENSE_BWD_TILES
 
 # Rows of the preprocess kernel's lse and delta buffers are padded to a
 # multiple of this (the larger q extent of the two dense backward tiles),
@@ -169,9 +185,10 @@ def decode_rows_per_block(d: int, dv: int, has_qv: bool) -> int:
 # walked in k_schedule's order) and streams 64-row q tiles, its dQ kernel
 # owns 128-row q tiles (q_tiles; walked in the order of the forward's
 # schedule, whose tiles are FWD_TILE's 128 rows too) and streams 64-key
-# tiles, whatever the head dim. compute_varlen_meta builds them beside the
-# forward's schedule, so that one VarlenMeta serves flash_attn_varlen_func's
-# forward and backward; the preprocess kernel pads lse and delta per
+# tiles, whatever the head dim (at 256 the kernels run a list tile as two
+# blocks of 64 rows, DENSE_BWD_TILES_256). compute_varlen_meta builds them
+# beside the forward's schedule, so that one VarlenMeta serves
+# flash_attn_varlen_func's forward and backward; the preprocess kernel pads lse and delta per
 # sequence to whole 128-row tiles of q_tiles. The kernels check that the
 # wrapper passes these tiles.
 VARLEN_BWD_TILE = FwdConfig(block_q=128, block_k=128)

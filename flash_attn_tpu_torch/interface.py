@@ -26,10 +26,7 @@ from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     normalize_window,
 )
-from flash_attn_tpu_torch.kernels.flash_bwd import (
-    check_backward_head_dim,
-    flash_attention_bwd,
-)
+from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
 from flash_attn_tpu_torch.kernels.flash_paged_prefill import (
     flash_attention_paged_prefill_varlen,
@@ -172,9 +169,8 @@ def flash_attn_func(
     gradients). Differentiable in q, k and v: ``deterministic`` (the
     default, as in JAX) runs the dK/dV and dQ backward kernels, each
     writing its gradient once; False runs the fused backward with atomic
-    dQ. On the card the forward takes head dims 64, 96, 128 and 256 and
-    the backward 64 and 128: inputs at 96 or 256 that require grad raise
-    NotImplementedError before the forward runs. Only dense
+    dQ. On the card forward and backward take head dims 64, 96, 128 and
+    256 (HEAD_DIMS; others raise before the forward runs). Only dense
     causal/non-causal attention is ported; every other option raises
     NotImplementedError (ROADMAP.md queue A, item 7)."""
     reject_unsupported(
@@ -185,8 +181,6 @@ def flash_attn_func(
         dropout_rng=dropout_rng, q_descale=q_descale, k_descale=k_descale,
         v_descale=v_descale, qv=qv, score_mod=score_mod, mask_mod=mask_mod,
         aux_tensors=aux_tensors)
-    if q.is_cuda:
-        check_backward_head_dim("flash_attn_func", q.shape[-1], q, k, v)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     out, lse = _FlashAttn.apply(q, k, v, softmax_scale, causal, deterministic)

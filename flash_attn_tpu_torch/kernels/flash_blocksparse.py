@@ -38,7 +38,7 @@ import torch
 
 from flash_attn_tpu_torch.dispatch.config import (
     DENSE_BWD_ROW_PAD,
-    KERNEL_HEAD_DIMS,
+    BLOCKSPARSE_HEAD_DIMS,
     check_head_dims,
 )
 from flash_attn_tpu_torch.kernels import _build
@@ -296,7 +296,7 @@ def _check_kernel(name, q, k, v, kv_num, kv_indices, bq, bk):
                          f"bf16/fp16 ({_ITEM7})")
     b, h, sq, d = q.shape
     dv = v.shape[-1]
-    check_head_dims(name, d, k.shape[-1], dv, KERNEL_HEAD_DIMS)
+    check_head_dims(name, d, k.shape[-1], dv, BLOCKSPARSE_HEAD_DIMS)
     if bq % _TILE or bk % _TILE:
         raise ValueError(
             f"{name} kernel: tiles {bq} x {bk} (after JAX's rule); the "

@@ -19,9 +19,9 @@ import torch
 
 from flash_attn_tpu_torch.dispatch.config import (
     DENSE_BWD_ROW_PAD,
-    DENSE_BWD_TILES,
-    KERNEL_HEAD_DIMS,
+    HEAD_DIMS,
     check_head_dims,
+    dense_bwd_tiles,
 )
 from flash_attn_tpu_torch.kernels import _build
 
@@ -93,7 +93,7 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
     and O once in their own type; with ``dq_accum`` ((b, sq, h, d) fp32,
     contiguous) given, it also zeroes it for the fused backward. do/out
     (b, h, sq, d) with the head dim contiguous, lse (b, h, sq). A tensor on
-    the CPU takes the plain version. CUDA: bf16/fp16, d in {64, 128}."""
+    the CPU takes the plain version. CUDA: bf16/fp16, d in HEAD_DIMS."""
     if do.device.type == "cpu":
         if dq_accum is not None:
             dq_accum.zero_()
@@ -105,7 +105,7 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
             f"bwd_preprocess kernel: do {tuple(do.shape)} {do.dtype}, out "
             f"{tuple(out.shape)}, lse {tuple(lse.shape)}; needs bf16/fp16 "
             f"and sq > 0")
-    check_head_dims("bwd_preprocess", d, d, d, KERNEL_HEAD_DIMS)
+    check_head_dims("bwd_preprocess", d, d, d, HEAD_DIMS)
     for name, x in (("do", do), ("out", out)):
         _build.check_operand("bwd_preprocess", name, x, do.dtype, do.device)
     if dq_accum is not None and (dq_accum.shape != (b, sq, h, d)
@@ -131,21 +131,6 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
     return delta, lse2
 
 
-def check_backward_head_dim(name: str, d: int, *tensors) -> None:
-    """Raise NotImplementedError, naming ROADMAP.md queue A item 7, when
-    autograd would need the backward at a head dim its kernels are not
-    compiled for (the forward takes 96 and 256, the backward only
-    KERNEL_HEAD_DIMS): the caller checks this before its forward runs, so
-    that the refusal does not come from inside backward()."""
-    if d not in KERNEL_HEAD_DIMS and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: head dim {d} has a forward kernel but no backward one "
-            f"yet (the backward takes {KERNEL_HEAD_DIMS}; 96 and 256 are "
-            "ROADMAP.md queue A, item 7). Call it under torch.no_grad() or "
-            "on inputs that do not require grad.")
-
-
 def flash_attention_bwd(do, q, k, v, out, lse,
                         softmax_scale: Optional[float] = None,
                         causal: bool = False, deterministic: bool = True):
@@ -157,7 +142,8 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     its gradient once; otherwise one fused launch adds dQ into an fp32
     buffer with atomics (run-to-run bits may differ). Returns (b, h, s, d)
     views of (b, s, h, d) tensors in the inputs' type. CUDA: bf16/fp16, d
-    in {64, 128}, h % h_k == 0."""
+    in HEAD_DIMS (at 256 on blocks of 64 rows, dense_bwd_tiles), h % h_k ==
+    0."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(do, q, k, v, out, lse,
                                          softmax_scale, causal)
@@ -167,7 +153,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     bk_, h_k, sk, dk_ = k.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_bwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    check_head_dims("flash_bwd", d, dk_, v.shape[-1], KERNEL_HEAD_DIMS)
+    check_head_dims("flash_bwd", d, dk_, v.shape[-1], HEAD_DIMS)
     if bk_ != b or h % h_k or v.shape != k.shape or do.shape != q.shape \
             or out.shape != q.shape \
             or lse.shape != (b, h, sq):
@@ -193,7 +179,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
         (b, sq, h, d), dtype=torch.float32, device=q.device)
     delta, lse2 = bwd_preprocess(do, out, lse, dq_accum)
     sq_pad = delta.shape[-1]
-    dkdv_tile, dq_tile = DENSE_BWD_TILES
+    dkdv_tile, dq_tile = dense_bwd_tiles(d)
     lib = _build.load_library()
     is_bf16 = int(q.dtype == torch.bfloat16)
     operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),

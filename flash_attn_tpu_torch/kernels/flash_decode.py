@@ -24,7 +24,7 @@ import torch
 from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
     DECODE_ROWS_PER_BLOCK,
-    FWD_DECODE_HEAD_DIMS,
+    HEAD_DIMS,
     MLA_DECODE_DIMS,
     MLA_TILE,
     check_head_dims,
@@ -168,7 +168,7 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
         return _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
                              softmax_scale, causal, block_table, qv)
     check_head_dims("flash_decode (the d = dv route)", d, dk,
-                    v_cache.shape[-1], FWD_DECODE_HEAD_DIMS)
+                    v_cache.shape[-1], HEAD_DIMS)
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         _build.check_operand("flash_decode", name, x, q.dtype, q.device)
     rows = sq * (h // h_k)

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 
 from flash_attn_tpu_torch.dispatch.config import (
-    FWD_DECODE_HEAD_DIMS,
+    HEAD_DIMS,
     FWD_TILE,
     check_head_dims,
 )
@@ -53,7 +53,7 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
                         causal: bool = False):
     """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
     contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
-    fp32). CUDA: bf16/fp16, d in FWD_DECODE_HEAD_DIMS (64, 96, 128, 256),
+    fp32). CUDA: bf16/fp16, d in HEAD_DIMS (64, 96, 128, 256),
     h % h_k == 0."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, softmax_scale, causal)
@@ -63,7 +63,7 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
     bk_, h_k, sk, dk = k.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_fwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    check_head_dims("flash_fwd", d, dk, v.shape[-1], FWD_DECODE_HEAD_DIMS)
+    check_head_dims("flash_fwd", d, dk, v.shape[-1], HEAD_DIMS)
     if bk_ != b or h % h_k or v.shape != k.shape:
         raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")

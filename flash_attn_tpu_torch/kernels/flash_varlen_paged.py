@@ -2,8 +2,8 @@
 ``csrc/flash_varlen_paged.cu`` and its plain PyTorch version.
 
 Port of flash_attn_tpu/kernels/flash_varlen_paged.py
-``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims 64 and 128, no
-window, softcap, descales, learnable sink or ``qv``). Query chunks are
+``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in HEAD_DIMS,
+no window, softcap, descales, learnable sink or ``qv``). Query chunks are
 packed along one token axis by ``cu_seqlens_q``; ``seqused_q`` gives each
 sequence's true length when the layout pads every slot to one length (the
 padded-flat layout of the engine's prefix-cached prefill). The JAX function
@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from flash_attn_tpu_torch.dispatch.config import (
-    FWD_DECODE_HEAD_DIMS,
+    HEAD_DIMS,
     FWD_TILE,
     check_head_dims,
 )
@@ -125,7 +125,7 @@ def flash_attention_varlen_paged_fwd(
         raise ValueError(f"flash_varlen_paged kernel: dtype {q.dtype} "
                          "(bf16/fp16 only)")
     check_head_dims("flash_varlen_paged", d, dk, v_pages.shape[-1],
-                    FWD_DECODE_HEAD_DIMS)
+                    HEAD_DIMS)
     if h % h_k or block_table.shape[0] != b or b < 1 \
             or v_pages.shape != k_pages.shape:
         raise ValueError(f"flash_varlen_paged kernel: shapes q {tuple(q.shape)}"

@@ -44,10 +44,7 @@ from flash_attn_tpu_torch.cache.kvcache import (
     flash_attn_with_kvcache,
     kv_cache_update,
 )
-from flash_attn_tpu_torch.dispatch.config import (
-    FWD_DECODE_HEAD_DIMS,
-    KERNEL_HEAD_DIMS,
-)
+from flash_attn_tpu_torch.dispatch.config import HEAD_DIMS
 from flash_attn_tpu_torch.interface import (
     flash_attn_func,
     flash_attn_varlen_func,
@@ -71,25 +68,58 @@ class KVCache:
 
 class RotaryEmbedding:
     """Rotary cos/sin tables (base theta), computed in fp32 and kept per
-    (seqlen, device)."""
+    (seqlen, device): optional xPos decay (``scale_base``: cos_sin_scaled
+    gives q's scaled pair and k's inverse-scaled one) and dynamic NTK base
+    rescaling past ``ntk_orig_len`` (the base grows with the table's
+    length, so each length's table has its own base; the cache is keyed by
+    the length)."""
 
     def __init__(self, dim: int, base: float = 10000.0,
-                 interleaved: bool = False):
+                 interleaved: bool = False,
+                 scale_base: Optional[float] = None,
+                 ntk_orig_len: Optional[int] = None):
         self.dim = dim
         self.base = base
         self.interleaved = interleaved
+        self.scale_base = scale_base
+        self.ntk_orig_len = ntk_orig_len
         self._tables: Dict[Tuple[int, torch.device], Tuple] = {}
+
+    def _base_for(self, seqlen: int) -> float:
+        """The base at a table of ``seqlen`` rows: past ntk_orig_len,
+        base * (alpha * len / orig - (alpha - 1)) ** (d / (d - 2)) with
+        alpha = len / orig, in float64 as the JAX package computes it."""
+        if self.ntk_orig_len is not None and seqlen > self.ntk_orig_len:
+            alpha = seqlen / self.ntk_orig_len
+            return float(self.base * (
+                (alpha * seqlen / self.ntk_orig_len - (alpha - 1))
+                ** (self.dim / (self.dim - 2))))
+        return self.base
 
     def cos_sin(self, seqlen: int, device=None):
         key = (seqlen, torch.device(device or "cpu"))
         if key not in self._tables:
-            inv_freq = 1.0 / (self.base ** (
+            inv_freq = 1.0 / (self._base_for(seqlen) ** (
                 torch.arange(0, self.dim, 2, dtype=torch.float32,
                              device=device) / self.dim))
             t = torch.arange(seqlen, dtype=torch.float32, device=device)
             freqs = torch.outer(t, inv_freq)
             self._tables[key] = (torch.cos(freqs), torch.sin(freqs))
         return self._tables[key]
+
+    def cos_sin_scaled(self, seqlen: int, device=None):
+        """(cos, sin, cos_k, sin_k): with xPos (scale_base) q's pair scaled
+        by scale ** ((t - seqlen // 2) / scale_base) and k's by its inverse;
+        without it, the plain pair twice."""
+        cos, sin = self.cos_sin(seqlen, device)
+        if self.scale_base is None:
+            return cos, sin, cos, sin
+        scale = ((torch.arange(0, self.dim, 2, dtype=torch.float32,
+                               device=device) + 0.4 * self.dim)
+                 / (1.4 * self.dim))
+        t = torch.arange(seqlen, dtype=torch.float32, device=device)
+        sc = scale[None, :] ** ((t - seqlen // 2) / self.scale_base)[:, None]
+        return cos * sc, sin * sc, cos / sc, sin / sc
 
 
 class MHA(nn.Module):
@@ -211,13 +241,11 @@ class MHA(nn.Module):
         already cached in each slot's shared pages, x carrying only the
         rest. A paged cache needs ``block_table`` (n_slots, max_pages) in
         prefill and decode."""
-        dims = (KERNEL_HEAD_DIMS if cu_seqlens is not None
-                else FWD_DECODE_HEAD_DIMS)
-        if x.is_cuda and self.head_dim not in dims:
+        if x.is_cuda and self.head_dim not in HEAD_DIMS:
             raise NotImplementedError(
                 f"MHA: head dim {self.head_dim} on the card; its kernels "
-                f"take {dims} (others are ROADMAP.md queue A, item 7; the "
-                "CPU runs any head dim)")
+                f"take {HEAD_DIMS} (others are ROADMAP.md queue A, item 7; "
+                "the CPU runs any head dim)")
         if cu_seqlens is not None:
             if self.dwconv:
                 raise ValueError("MHA: dwconv takes non-packed input only "

@@ -3,12 +3,17 @@
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gelu_approx", "sqrelu", "swiglu"]
+__all__ = ["bias_gelu", "gelu_approx", "sqrelu", "swiglu"]
 
 
 def gelu_approx(x):
     """tanh-approximated GELU."""
     return F.gelu(x, approximate="tanh")
+
+
+def bias_gelu(y, bias):
+    """gelu_approx(y + bias)."""
+    return gelu_approx(y + bias)
 
 
 def sqrelu(x):

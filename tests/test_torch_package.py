@@ -503,9 +503,25 @@ def test_dense_forward_refuses_misaligned_views_on_the_card():
                                       causal=True)
 
 
+# The backward's tiles at 96 (two panels, the second zero-filled past
+# column 96) and 256 (64-row blocks whose warpgroups split the columns):
+# key counts that are not a multiple of the 64-key tile (a stale panel where
+# TMA should fill zeros would show in columns 64-95), sq > sk, sq != sk,
+# one row, MQA and GQA, fp16.
+BWD_WIDE_DIM_CASES = [
+    (2, 200, 300, 4, 2, 96, True, torch.bfloat16),
+    (1, 129, 129, 4, 4, 96, False, torch.float16),
+    (1, 1, 1, 2, 1, 96, True, torch.bfloat16),
+    (2, 63, 65, 4, 1, 256, True, torch.bfloat16),
+    (1, 200, 129, 2, 2, 256, True, torch.float16),
+    (1, 300, 300, 2, 2, 256, False, torch.bfloat16),
+    (2, 129, 200, 8, 2, 256, True, torch.bfloat16),
+]
+
+
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("deterministic", [True, False])
-@pytest.mark.parametrize("case", DENSE_BWD_EDGE_CASES)
+@pytest.mark.parametrize("case", DENSE_BWD_EDGE_CASES + BWD_WIDE_DIM_CASES)
 def test_dense_backward_edge_shapes_on_the_card(case, deterministic):
     """Both backward paths against the plain fp32 backward under the 2x
     rule (autograd through attention_ref in the inputs' type as the
@@ -555,6 +571,37 @@ def test_dense_backward_is_bitwise_deterministic_on_the_card():
     assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 0]
     again = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=True)
     assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("d", [96, 256])
+def test_wide_dense_backward_is_bitwise_deterministic_on_the_card(d):
+    """B3 at 96 and 256 gives the same bits twice, and flash_attn_func's
+    backward there launches one forward, preprocess, dK/dV and dQ (or, not
+    deterministic, one fused pass), with the gradients of B3 itself."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    case = (2, 300, 300, 8, 2, d, True, torch.bfloat16)
+    q, k, v, do, out, lse = _dense_bwd_inputs(case, seed=d)
+    first = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=True)
+    again = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=True)
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+    for det in (True, False):
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+        counts = (flash_fwd.launches, flash_bwd.launches_preprocess,
+                  flash_bwd.launches_dkdv, flash_bwd.launches_dq,
+                  flash_bwd.launches_fused)
+        flash_attn_func(*leaves, causal=True,
+                        deterministic=det).backward(do.transpose(1, 2))
+        after = (flash_fwd.launches, flash_bwd.launches_preprocess,
+                 flash_bwd.launches_dkdv, flash_bwd.launches_dq,
+                 flash_bwd.launches_fused)
+        assert [a - b_ for a, b_ in zip(after, counts)] == \
+            [1, 1, int(det), int(det), int(not det)]
+        if det:
+            for leaf, g in zip(leaves, first):
+                assert torch.equal(leaf.grad, g.transpose(1, 2))
 
 
 @pytest.mark.usefixtures("cuda_card")
@@ -659,7 +706,7 @@ def test_paged_overflow_poisons_rows_on_the_card():
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_varlen_kernels_match_plain_versions_on_the_card(causal, d, dtype):
     """B6 forward, B7 and the B6 backward against their plain versions with
     a zero-length sequence, a sequence with no keys, lengths either side of
@@ -741,6 +788,10 @@ VARLEN_DENSE_BWD_CASES = [
     (2, 256, 8, 8, 64, False, torch.float16),
     (4, 129, 4, 2, 128, True, torch.bfloat16),
     (2, 63, 16, 16, 64, True, torch.bfloat16),
+    (3, 300, 8, 4, 96, True, torch.bfloat16),
+    (2, 129, 4, 4, 96, False, torch.float16),
+    (3, 200, 4, 2, 256, True, torch.bfloat16),
+    (2, 129, 4, 4, 256, False, torch.float16),
 ]
 
 
@@ -806,7 +857,7 @@ def test_varlen_backward_refuses_views_tma_cannot_take_on_the_card():
 
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 def test_persistent_varlen_forward_equals_b6_on_the_card(causal, d):
     """B7 against B6's forward bit for bit (two Q tiles a block at d = 64,
     one at 128), over a work list of more than 3 x its grid's items (so that blocks walk three
@@ -858,6 +909,34 @@ def test_persistent_varlen_forward_equals_b6_on_the_card(causal, d):
     fin = torch.isfinite(ref_lse)
     assert torch.equal(torch.isfinite(b7[1]), fin)
     torch.testing.assert_close(b7[1][fin], ref_lse[fin], atol=1e-4, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
+def test_varlen_forwards_equal_dense_forward_on_the_card(causal, d):
+    """B6's forward and B7 over b equal-length sequences packed give B1's
+    out and lse over the same (b, s) rows, bit for bit (the three run the
+    tile of fwd_sm90.cuh over the same rows), at a length that is not a
+    multiple of the 64-key tile."""
+    from flash_attn_tpu_torch.kernels import (
+        flash_fwd,
+        flash_varlen,
+        flash_varlen_persistent,
+    )
+
+    b, s, h, h_k = 3, 300, 8, 4
+    q, k, v, _, out, lse = _dense_bwd_inputs(
+        (b, s, s, h, h_k, d, causal, torch.bfloat16), seed=d)
+    cu = torch.arange(b + 1, dtype=torch.int32, device="cuda") * s
+    packed = [x.transpose(1, 2).reshape(b * s, x.shape[1], d)
+              for x in (q, k, v)]
+    for fwd in (flash_varlen.flash_attention_varlen_fwd,
+                flash_varlen_persistent.flash_attention_varlen_fwd_persistent):
+        o6, l6 = fwd(*packed, cu, cu, s, s, causal=causal)
+        assert torch.equal(o6, out.transpose(1, 2).reshape(b * s, h, d))
+        assert torch.equal(l6, lse.transpose(0, 1).reshape(h, b * s))
+    assert flash_fwd.launches > 0
 
 
 # B8p edge cases (h, h_k, d, dv, page, chunk rows, seqused_q, cached keys
@@ -2016,57 +2095,77 @@ def test_decode_at_large_groups_on_the_card(h, d):
 @pytest.mark.parametrize("n_embd, n_head", [(512, 2), (192, 2)],
                          ids=["gptj_256", "neox_20b_96"])
 def test_unported_head_dims_raise_naming_item_7_on_the_card(n_embd, n_head):
-    """GPT-J's head dim 256 and GPT-NeoX-20B's 96 have forward and decode
-    kernels but no backward yet: on the card a model whose weights require
-    grad raises naming queue A item 7 before its forward runs (the CPU
-    runs them; without grad the card serves them)."""
+    """GPT-J's head dim 256 and GPT-NeoX-20B's 96 now have backward kernels:
+    on the card a model whose weights require grad runs forward and
+    backward there (finite gradients). A head dim that no kernel is
+    compiled for (192: 384 wide over 2 heads) still raises naming queue A
+    item 7 before its forward runs."""
     from types import SimpleNamespace
 
+    from flash_attn_tpu_torch.kernels import flash_fwd
     from flash_attn_tpu_torch.models.hf_adapters import (
         gptj_config_to_gpt_config,
     )
 
-    hf = SimpleNamespace(vocab_size=512, n_embd=n_embd, n_layer=1,
-                         n_head=n_head, rotary_dim=32, n_inner=None,
-                         layer_norm_epsilon=1e-5,
-                         activation_function="gelu_new")
-    model = GPTLMHeadModel(gptj_config_to_gpt_config(
-        hf, dtype=torch.bfloat16, max_decode_seqlen=64))
+    def model_of(width, heads):
+        hf = SimpleNamespace(vocab_size=512, n_embd=width, n_layer=1,
+                             n_head=heads, rotary_dim=32, n_inner=None,
+                             layer_norm_epsilon=1e-5,
+                             activation_function="gelu_new")
+        return GPTLMHeadModel(gptj_config_to_gpt_config(
+            hf, dtype=torch.bfloat16, max_decode_seqlen=64))
+
+    ids = torch.zeros((1, 8), dtype=torch.long, device="cuda")
+    model = model_of(n_embd, n_head)
+    model(ids).float().square().mean().backward()
+    grads = [p.grad for p in model.parameters()]
+    assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+    before = flash_fwd.launches
     with pytest.raises(NotImplementedError, match="item 7"):
-        model(torch.zeros((1, 8), dtype=torch.long, device="cuda"))
+        model_of(384, 2)(ids)
+    assert flash_fwd.launches == before
 
 
 @pytest.mark.usefixtures("cuda_card")
 def test_wide_head_dim_refusals_on_the_card():
-    """At 96 and 256 flash_attn_func refuses inputs that require grad before
-    any launch and serves them without grad; B6/B7 (flash_attn_varlen_func)
-    still take 64 and 128 only, and 192 and d != dv raise: each names queue
-    A item 7."""
+    """At 96 and 256 flash_attn_func and the dense flash_attn_varlen_func
+    run forward and backward on the card (one forward launch each, then the
+    backward's); 192 and d != dv raise before any launch, naming queue A
+    item 7."""
     from flash_attn_tpu_torch import flash_attn_varlen_func
-    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.kernels import (
+        flash_bwd,
+        flash_fwd,
+        flash_varlen,
+        flash_varlen_persistent,
+    )
 
     def randn(*shape, **kw):
         return torch.randn(*shape, device="cuda", dtype=torch.bfloat16, **kw)
 
     for d in (96, 256):
         q = randn(1, 64, 2, d, requires_grad=True)
-        before = flash_fwd.launches
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            flash_attn_func(q, q, q, causal=True)
-        assert flash_fwd.launches == before
-        with torch.no_grad():
-            out = flash_attn_func(q, q, q, causal=True)
-        assert flash_fwd.launches == before + 1 and out.shape == q.shape
-        x = randn(64, 2, d)
+        before = (flash_fwd.launches, flash_bwd.launches_dkdv)
+        flash_attn_func(q, q, q, causal=True).sum().backward()
+        assert (flash_fwd.launches, flash_bwd.launches_dkdv) == \
+            (before[0] + 1, before[1] + 1)
+        assert bool(torch.isfinite(q.grad).all())
+        x = randn(64, 2, d, requires_grad=True)
         cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
-        with pytest.raises(ValueError, match="queue A, item 7"):
-            flash_attn_varlen_func(x, x, x, cu, cu, 64, 64, causal=True)
-    y = randn(1, 64, 2, 192)
+        before = (flash_varlen_persistent.launches, flash_varlen.launches_dkdv)
+        flash_attn_varlen_func(x, x, x, cu, cu, 64, 64,
+                               causal=True).sum().backward()
+        assert (flash_varlen_persistent.launches,
+                flash_varlen.launches_dkdv) == (before[0] + 1, before[1] + 1)
+        assert bool(torch.isfinite(x.grad).all())
+    before = flash_fwd.launches
+    y = randn(1, 64, 2, 192, requires_grad=True)
     with pytest.raises(ValueError, match="queue A, item 7"):
         flash_attn_func(y, y, y)
     q, v = randn(1, 64, 2, 256), randn(1, 64, 2, 128)
     with pytest.raises(ValueError, match="queue A, item 7"):
         flash_attn_func(q, q, v)
+    assert flash_fwd.launches == before
 
 
 @pytest.mark.usefixtures("cuda_card")

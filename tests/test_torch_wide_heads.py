@@ -1,8 +1,8 @@
 """Head dims 96 (GPT-NeoX-20B) and 256 (GPT-J), which the port's forward and
-decode kernels (B1, B8, B4 d = dv) take and its backward kernels do not
-yet, against the JAX package on the same numpy inputs, on the CPU: the port
-runs the plain versions of its kernels, JAX its Pallas kernels in interpret
-mode.
+decode kernels (B1, B8, B4 d = dv) take, against the JAX package on the
+same numpy inputs, on the CPU: the port runs the plain versions of its
+kernels, JAX its Pallas kernels in interpret mode. The backwards and the
+packed forwards at these head dims are in tests/test_torch_wide_backward.py.
 
 Each attention function is held to JAX twice: in fp32 (the two differ only
 in summation order, atol/rtol 1e-5) and in bf16 under the 2x rule, the
@@ -28,11 +28,11 @@ from flash_attn_tpu_torch import (
     flash_attn_with_kvcache,
 )
 from flash_attn_tpu_torch.dispatch.config import (
-    FWD_DECODE_HEAD_DIMS,
-    KERNEL_HEAD_DIMS,
+    BLOCKSPARSE_HEAD_DIMS,
+    HEAD_DIMS,
     check_head_dims,
 )
-from flash_attn_tpu_torch.kernels.flash_bwd import check_backward_head_dim
+from flash_attn_tpu_torch.kernels import flash_bwd
 from flash_attn_tpu_torch.utils.testing import check_against_ref
 
 torch.set_num_threads(1)
@@ -167,29 +167,27 @@ def test_varlen_paged_matches_jax(d):
 
 
 def test_head_dim_refusals_name_item_7():
-    """The wrappers' checks (a kernel cannot launch here): B1, B8 and B4 take
-    96 and 256, B6/B7, the backward, B10 and the MLA route 64 and 128 only;
-    flash_attn_func refuses a gradient at 96 or 256 before its forward
-    (check_backward_head_dim); 192 and d != dv are refused everywhere. Each
-    refusal names queue A item 7; the CPU runs any head dim."""
-    assert FWD_DECODE_HEAD_DIMS == (64, 96, 128, 256)
-    assert KERNEL_HEAD_DIMS == (64, 128)
+    """The wrappers' checks (a kernel cannot launch here): B1, B6/B7, B8, B4
+    and the backwards B2, B3 and B6 take 96 and 256 (HEAD_DIMS), so
+    flash_attn_func no longer refuses a gradient there (its old check,
+    check_backward_head_dim, is gone); B10 takes 64 and 128 only; 192 and
+    d != dv are refused everywhere, by the forward's check before anything
+    runs. Each refusal names queue A item 7; the CPU runs any head dim."""
+    assert HEAD_DIMS == (64, 96, 128, 256)
+    assert BLOCKSPARSE_HEAD_DIMS == (64, 128)
+    assert not hasattr(flash_bwd, "check_backward_head_dim")
     for d in (96, 256):
-        check_head_dims("flash_fwd", d, d, d, FWD_DECODE_HEAD_DIMS)
+        for kernel in ("flash_fwd", "flash_varlen_fwd", "flash_bwd",
+                       "bwd_preprocess"):
+            check_head_dims(kernel, d, d, d, HEAD_DIMS)
         with pytest.raises(ValueError, match="queue A, item 7"):
-            check_head_dims("flash_varlen_fwd", d, d, d, KERNEL_HEAD_DIMS)
+            check_head_dims("flash_blocksparse", d, d, d,
+                            BLOCKSPARSE_HEAD_DIMS)
         q = torch.zeros(1, 8, 2, d, requires_grad=True)
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            check_backward_head_dim("flash_attn_func", d, q, q, q)
-        with torch.no_grad():
-            check_backward_head_dim("flash_attn_func", d, q, q, q)
-        check_backward_head_dim("flash_attn_func", d, q.detach())
         out = flash_attn_func(q, q, q, causal=True)  # the CPU takes grads
         out.sum().backward()
         assert q.grad.shape == q.shape
-    check_backward_head_dim("flash_attn_func", 128,
-                            torch.zeros(1, requires_grad=True))
-    for dims in (FWD_DECODE_HEAD_DIMS, KERNEL_HEAD_DIMS):
+    for dims in (HEAD_DIMS, BLOCKSPARSE_HEAD_DIMS):
         with pytest.raises(ValueError, match="queue A, item 7"):
             check_head_dims("kernel", 192, 192, 192, dims)
         with pytest.raises(ValueError, match="queue A, item 7"):
