@@ -189,6 +189,34 @@
    a falling loss, the fused-CE check) and prints their step time,
    tokens/s, TFLOP/s and peak memory.
 
+17. the band masks (sliding window, chunked attention, sink tokens;
+   utils/cases.py's BAND_* lists): B1's band instantiation on 10 shapes
+   (Mistral-7B's prefill, b=2 x 6144 at 32/8 heads of 128 under a window
+   of 4096; a window both ways at d=64; a window narrower than a tile; sq
+   < sk; sq > sk causal and not, with rows that see no key; a chunk of
+   1024; 4 sinks under a window of 1024; windows at d = 96 and 256), B4 on
+   8 (Mistral-7B's static decode step at 6,208 keys with the default, 1
+   and 8 splits, a verify step whose first split lies wholly below its
+   later tokens' windows, a chunk; the engine's decode and verify steps
+   over pages of 256; a chunk at the verify step over pages of 64) and B8
+   at Mistral-7B's prefix-cached admission (8 x 512 rows over 5,120 keys,
+   the window's edge inside the shared pages) against their plain versions
+   (the 2x rule, lse, the same bits twice, each launch counted as the
+   band's), each timed beside the band-free kernel at the same shape, SDPA
+   with the band as a boolean mask and a bound that counts only the pairs
+   inside the band;
+18. Mistral-7B-v0.1 at full width and depth from its config.json numbers
+   (the Llama adapter plus window_size = (4095, 0), a seeded checkpoint
+   remapped a layer at a time): static serving of b=2 x 6144 tokens to 64
+   new ones (graphed and eager, bitwise equal tokens, the teacher-forced
+   check, every attention launch the band's), the window in force (the
+   same weights without it give last-position logits that differ by more
+   than the decode's own bf16 noise; both TTFTs printed), the paged engine
+   (8 requests of 5120 tokens on 8 slots, 32 new each), the prefix-cached
+   engine (prompts sharing 4608 tokens: admissions through B8 with the
+   window) and the speculative engine with the target as its own draft,
+   each held to a teacher-forced static decode or to the plain engine.
+
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
 {"ok": true, "device": {...}}. With --spec-readings N it builds the
@@ -518,6 +546,25 @@ WIDE_TRAIN_LAYERS = {"GPT-J-6B": 8, "GPT-NeoX-20B": 4}
 # module on the CPU (plain versions; fp32, and bf16 for the 2x rule): ragged
 # sequences whose key counts are not multiples of the 64-key tile.
 WIDE_MHA_LENS = [200, 129, 183]
+# Mistral-7B-v0.1 (mistralai/Mistral-7B-v0.1 config.json): Llama's shape
+# with a sliding window of 4096 keys, served at full width and depth
+# through the port's Llama adapter with window_size = (4095, 0) set on its
+# config (the JAX package's adapter reads no sliding_window either):
+# static serving of MISTRAL_BATCH prompts of MISTRAL_PROMPT tokens (past
+# the window) to MISTRAL_NEW new tokens; the paged engine with
+# MISTRAL_SLOTS requests of MISTRAL_ENGINE_PROMPT tokens on as many slots
+# (pages of ENGINE_PAGE, MISTRAL_ENGINE_NEW new tokens each: 5,152 of
+# MISTRAL_ENGINE_MAX_LEN positions, the rest the decode block's margin);
+# the prefix-cached engine with prompts sharing MISTRAL_PREFIX tokens.
+MISTRAL_7B = SimpleNamespace(
+    vocab_size=32000, hidden_size=4096, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=8, intermediate_size=14336,
+    rope_theta=10000.0, rms_norm_eps=1e-5, tie_word_embeddings=False,
+    sliding_window=4096, max_position_embeddings=32768,
+    attention_bias=False, mlp_bias=False)
+MISTRAL_BATCH, MISTRAL_PROMPT, MISTRAL_NEW = 2, 6144, 64
+MISTRAL_SLOTS, MISTRAL_ENGINE_PROMPT, MISTRAL_ENGINE_NEW = 8, 5120, 32
+MISTRAL_PREFIX, MISTRAL_ENGINE_MAX_LEN = 4608, 5376
 # remat: the 913M GPT's training step at b=4 x 2048 without remat and with
 # GPTConfig(remat=True) under each policy, REMAT_STEPS steps each over the
 # same batches (the step time is the median of all but the first).
@@ -533,16 +580,40 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def attended_pairs(lens_q, lens_k, causal: bool) -> int:
+def attended_pairs(lens_q, lens_k, causal: bool, window=(None, None)) -> int:
     """(query row, key) pairs that attention computes for these lengths,
-    bottom-right causal when ``causal``."""
+    bottom-right causal when ``causal``, inside ``window`` when given."""
     total = 0
     for lq, lk in zip(lens_q, lens_k):
-        if causal:
+        if window != (None, None):
+            total += int(band_mask(lq, lk, causal, window).sum())
+        elif causal:
             total += int(np.clip(np.arange(lq) + lk - lq + 1, 0, lk).sum())
         else:
             total += lq * lk
     return total
+
+
+def band_mask(sq: int, sk: int, causal: bool, window=(None, None),
+              sink: int = 0, chunk: int = 0, chunk_upper: bool = True,
+              shift=None):
+    """(sq, sk) bool on the card: the pairs inside the causal bound and
+    the band (dispatch/band.py's semantics), bottom-right aligned (shift sk
+    - sq) unless ``shift`` is given."""
+    from flash_attn_tpu_torch.dispatch.band import band_valid
+
+    rows = torch.arange(sq, device="cuda")[:, None]
+    cols = torch.arange(sk, device="cuda")[None, :]
+    return band_valid(rows, cols, sk - sq if shift is None else shift,
+                      causal, window, sink, chunk, chunk_upper)
+
+
+def band_keys(lens_q, lens_k, causal: bool, window=(None, None)) -> int:
+    """Keys that some query row of each sequence sees: what a kernel that
+    skips the rest must read."""
+    return sum(int(band_mask(lq, lk, causal, window).any(0).sum())
+               if window != (None, None) else lk
+               for lq, lk in zip(lens_q, lens_k))
 
 
 def require(ok: bool, what: str) -> None:
@@ -990,13 +1061,17 @@ def check_decode_verify(gen):
     return worst, timing
 
 
-def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
+def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
+                      window=(None, None)):
     """B8 on one case of VARLEN_CASES' form against its plain version (the
     2x rule, lse within LSE_ATOL), bitwise equal over two runs and, where
     B6 takes the head dim (``with_b6``), to B6's forward over the same rows
     packed (the two run one tile); with ``timed``, its whole call and, by
     the profiler, its kernel alone beside the bound and the plain version.
-    Returns the error and the timing (None untimed)."""
+    With a ``window`` the band instantiation must run (its launch counted),
+    the bound counts the pairs inside the window, and the band-free kernel
+    is timed at the same shape. Returns the error and the timing (None
+    untimed)."""
     from flash_attn_tpu_torch.kernels import flash_varlen
     from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
     from flash_attn_tpu_torch.utils.testing import (
@@ -1017,18 +1092,24 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
                torch.tensor(used, dtype=torch.int32, device="cuda"))
     max_q = max(max(lens_q), 1)
     args = (cu, max_q, seqlens_k, table)
+    banded = window != (None, None)
+    band_launches = fvp.launches_band
     out, lse = fvp.flash_attention_varlen_paged_fwd(
-        q, kp, vp, *args, seqused_q=seqused, causal=causal)
+        q, kp, vp, *args, seqused_q=seqused, causal=causal,
+        window_size=window)
     ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
         q.float(), kp.float(), vp.float(), *args, seqused_q=seqused,
-        causal=causal)
+        causal=causal, window_size=window)
     ref_lp = attention_varlen_paged_ref(
         q, kp, vp, cu, seqlens_k, table, seqused_q=seqused,
-        causal=causal, upcast=False)
+        causal=causal, upcast=False, window_size=window)
     torch.cuda.synchronize()
     desc = (f"{name}: lens_q {lens_q} lens_k {lens_k} seqused_q {used} "
             f"h={h} h_k={h_k} d={d} page={page} {str(dtype)[6:]} "
-            f"causal={causal}")
+            f"causal={causal}" + (f" window {window}" if banded else ""))
+    require(fvp.launches_band == band_launches + banded,
+            f"flash_varlen_paged {desc}: the band instantiation ran "
+            f"{fvp.launches_band - band_launches} times")
     err, err_lp = check_against_ref(out, ref, ref_lp,
                                     msg=f"flash_varlen_paged {desc}")
     fin = torch.isfinite(ref_lse)
@@ -1038,7 +1119,8 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
         if fin.any() else 0.0
     require(lse_err <= LSE_ATOL, f"varlen paged lse error {lse_err}")
     again = fvp.flash_attention_varlen_paged_fwd(
-        q, kp, vp, *args, seqused_q=seqused, causal=causal)
+        q, kp, vp, *args, seqused_q=seqused, causal=causal,
+        window_size=window)
     require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
             f"flash_varlen_paged {desc}: two runs differ")
     if with_b6:
@@ -1062,11 +1144,13 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
     if not timed:
         return err, None
     call = lambda: fvp.flash_attention_varlen_paged_fwd(
-        q, kp, vp, *args, seqused_q=seqused, causal=causal)
+        q, kp, vp, *args, seqused_q=seqused, causal=causal,
+        window_size=window)
     ms = time_ms(call)
     kernel_ms = kernel_split_ms(call, ("varlen_paged_kernel",))
     plain_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
-        q, kp, vp, *args, seqused_q=seqused, causal=causal))
+        q, kp, vp, *args, seqused_q=seqused, causal=causal,
+        window_size=window))
     # the yardstick: the packed rows padded to (b, max_q) and the cache
     # gathered (paged_sdpa), the output packed again; rows past seqused_q
     # attend as the others (their output is not read)
@@ -1076,7 +1160,7 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
     qpad = q.new_zeros(b, max_q, h, d)
     qpad[seq, pos] = q
     gathered, sdpa_only = paged_sdpa(qpad, kp, vp, table, seqlens_k, causal,
-                                     lens_q)
+                                     lens_q, window)
 
     def packed_lib():
         qpad.zero_()
@@ -1092,11 +1176,20 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False):
                               "through the block table to the linear "
                               "layout, scaled_dot_product_attention with a "
                               "boolean causal length mask, the rows packed "
-                              "again (the gather and the packing included)",
+                              "again (the gather and the packing included)"
+                              + (" and the window in the mask" if banded
+                                 else ""),
               **bound(4 * h * d * attended_pairs(
-                  used or lens_q, lens_k, causal),
+                  used or lens_q, lens_k, causal, window),
                   2 * 2 * total_q * h * d
-                  + 2 * 2 * sum(lens_k) * h_k * d + 4 * h * total_q)}
+                  + 2 * 2 * band_keys(used or lens_q, lens_k, causal, window)
+                  * h_k * d + 4 * h * total_q)}
+    if banded:
+        timing["band_free_ms"] = time_ms(
+            lambda: fvp.flash_attention_varlen_paged_fwd(
+                q, kp, vp, *args, seqused_q=seqused, causal=causal))
+        print(f"flash_varlen_paged at {name} without the window (the "
+              f"band-free kernel): {timing['band_free_ms']:.4f} ms")
     print(f"flash_varlen_paged time at {name} (h={h}, d={d}): the whole "
           f"call {ms:.4f} ms (median of 25), of which the kernel "
           f"{timing['kernel_ms']:.4f} ms and the wrapper's torch ops "
@@ -1347,24 +1440,31 @@ def run_api_backward(gen):
     return launches
 
 
-def serve_static(model, ids, name: str):
-    """Serve ``ids`` (BATCH prompts of PROMPT tokens) to PROMPT + NEW_TOKENS
-    through serving.generation.decode, with the decode step captured as a
-    CUDA graph and then eagerly: each run launches n_layer B1 and n_layer x
-    (NEW_TOKENS - 1) B4 (counts at 0 just before it), the tokens of both
-    bitwise equal, the logits finite; then the decode steps' logits against
-    one teacher-forced forward over the same tokens, taken at the decoded
-    positions only (LOGIT_BOUND, MIN_ARGMAX_AGREEMENT). Returns the graphed
-    run's launches and sequences."""
+def serve_static(model, ids, name: str, new_tokens: int = NEW_TOKENS,
+                 band: bool = False):
+    """Serve ``ids`` (BATCH prompts of PROMPT tokens, or any (b, prompt)) to
+    prompt + ``new_tokens`` through serving.generation.decode, with the
+    decode step captured as a CUDA graph and then eagerly: each run
+    launches n_layer B1 and n_layer x (new_tokens - 1) B4 (counts at 0 just
+    before it; with ``band``, every launch that of the band masks), the
+    tokens of both bitwise equal, the logits finite; then the decode steps'
+    logits against one teacher-forced forward over the same tokens, taken
+    at the decoded positions only (LOGIT_BOUND, MIN_ARGMAX_AGREEMENT).
+    Returns the graphed run's launches and sequences and the largest
+    logit difference of that check."""
     from flash_attn_tpu_torch.serving.generation import (
         GenerationConfig,
         decode,
     )
 
     n = model.config.n_layer
-    gen_cfg = GenerationConfig(max_length=PROMPT + NEW_TOKENS)
+    batch, prompt = ids.shape
+    gen_cfg = GenerationConfig(max_length=prompt + new_tokens)
     torch.cuda.synchronize()
-    steps = NEW_TOKENS - 1
+    steps = new_tokens - 1
+    want = dict(flash_fwd=n, flash_decode=n * steps)
+    if band:
+        want.update(flash_fwd_band=n, flash_decode_band=n * steps)
     runs = {}
     for cg in (True, False):  # the captured decode step, then eagerly
         reset_kernel_counts()
@@ -1374,13 +1474,13 @@ def serve_static(model, ids, name: str):
         launches = kernel_counts()
         runs[cg] = seqs, scores, launches
         print(f"{name} ({'graphed' if cg else 'eager'}): {n} layers; served "
-              f"{BATCH} x {PROMPT}-token prompts to length {length}; "
+              f"{batch} x {prompt}-token prompts to length {length}; "
               f"launches {launches}")
-        require(launches == want_counts(flash_fwd=n, flash_decode=n * steps),
+        require(launches == want_counts(**want),
                 f"{name}: launch counts {launches}")
-        require(length == PROMPT + NEW_TOKENS
-                and seqs.shape == (BATCH, length)
-                and torch.equal(seqs[:, :PROMPT], ids), f"{name}: sequences")
+        require(length == prompt + new_tokens
+                and seqs.shape == (batch, length)
+                and torch.equal(seqs[:, :prompt], ids), f"{name}: sequences")
         require(bool(torch.isfinite(scores).all()),
                 f"{name}: non-finite decode logits")
     seqs, scores, launches = runs[True]
@@ -1394,26 +1494,27 @@ def serve_static(model, ids, name: str):
     del runs
 
     with torch.inference_mode():  # teacher-forced forward, same kernels
-        hidden = model.forward_hidden(seqs[:, :-1])[:, PROMPT - 1:]
-        tf = model.logits(hidden).transpose(0, 1)  # (NEW_TOKENS, b, vocab)
+        hidden = model.forward_hidden(seqs[:, :-1])[:, prompt - 1:]
+        tf = model.logits(hidden).transpose(0, 1)  # (new tokens, b, vocab)
     del hidden
     require(bool(torch.isfinite(tf).all()), f"{name}: non-finite forward "
             "logits")
     diff = (tf - scores).abs().max().item()
-    agree = (tf.argmax(-1) == seqs[:, PROMPT:].T).float().mean().item()
+    agree = (tf.argmax(-1) == seqs[:, prompt:].T).float().mean().item()
     print(f"{name}: decode vs teacher-forced logits: max abs diff "
           f"{diff:.4f} (bound {LOGIT_BOUND}), argmax agreement {agree:.4f} "
           f"(bound {MIN_ARGMAX_AGREEMENT}; logit std {scores.std().item():.3f})")
     require(diff <= LOGIT_BOUND and agree >= MIN_ARGMAX_AGREEMENT,
             f"{name}: decode steps disagree with the teacher-forced forward")
-    return launches, seqs
+    return launches, seqs, diff
 
 
 def static_rates(model, ids, modes=(True, False, True, False),
-                 runs: int = 3):
+                 runs: int = 3, new_tokens: int = NEW_TOKENS):
     """TTFT (the prefill token alone, median of 5) and the decode rate of
-    the remaining NEW_TOKENS - 1 steps for each run in ``modes`` (graphed
-    or eager, in turns; median of ``runs`` whole calls less TTFT)."""
+    the remaining ``new_tokens`` - 1 steps for each run in ``modes``
+    (graphed or eager, in turns; median of ``runs`` whole calls less
+    TTFT)."""
     from flash_attn_tpu_torch.serving.generation import (
         GenerationConfig,
         decode,
@@ -1427,12 +1528,13 @@ def static_rates(model, ids, modes=(True, False, True, False),
             return out
         return fn
 
-    steps = NEW_TOKENS - 1
-    ttft = wall_ms(served(PROMPT + 1), 5) / 1e3  # no decode step
+    batch, prompt = ids.shape
+    steps = new_tokens - 1
+    ttft = wall_ms(served(prompt + 1), 5) / 1e3  # no decode step
     tok_s = {}
     for cg in modes:
-        t_full = wall_ms(served(PROMPT + NEW_TOKENS, cg), runs) / 1e3
-        tok_s.setdefault(cg, []).append(BATCH * steps / (t_full - ttft))
+        t_full = wall_ms(served(prompt + new_tokens, cg), runs) / 1e3
+        tok_s.setdefault(cg, []).append(batch * steps / (t_full - ttft))
     return ttft, tok_s
 
 
@@ -1447,7 +1549,7 @@ def run_slice(gen):
     print(f"slice: {n_params / 1e6:.1f}M parameters")
     ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda",
                         generator=gen)
-    launches, _ = serve_static(model, ids, "slice")
+    launches, _, _ = serve_static(model, ids, "slice")
     ttft, tok_s = static_rates(model, ids)
     steps = NEW_TOKENS - 1
     print(f"static decode tokens/s at b={BATCH} ({steps} steps), in turns: "
@@ -1487,8 +1589,12 @@ def kernel_counts():
     )
 
     return {"flash_fwd": flash_fwd.launches,
+            "flash_fwd_band": flash_fwd.launches_band,
             "flash_decode": flash_decode.launches,
+            "flash_decode_band": flash_decode.launches_band,
             "flash_decode_paged": flash_decode.launches_paged,
+            "flash_decode_paged_band": flash_decode.launches_paged_band,
+            "flash_varlen_paged_band": flash_varlen_paged.launches_band,
             "flash_decode_mla": flash_decode.launches_mla,
             "flash_paged_prefill": flash_paged_prefill.launches,
             "flash_varlen_paged": flash_varlen_paged.launches,
@@ -1517,7 +1623,10 @@ def want_counts(**nonzero):
 
 
 def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
-               draft=None, slots: int = ENGINE_SLOTS, name=None):
+               draft=None, slots: int = ENGINE_SLOTS, name=None,
+               max_len: int = ENGINE_MAX_LEN, new_tokens: int = ENGINE_NEW,
+               admit_tokens: int = ENGINE_ARRIVAL * ENGINE_PROMPT,
+               warm_prompt: int = ENGINE_PROMPT, band: bool = False):
     """Serve ``prompts`` through an InferenceEngine over the paged cache,
     submitted ENGINE_ARRIVAL at a time whenever the queue is empty (the
     closed-loop trace of bench.py:516-541), after warmup(), which captures
@@ -1526,21 +1635,24 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
     SPEC_K proposals. The kernel counts are set to 0 just before the trace
     and read just after; returns them with the generated tokens and the
     measurements. ``slots`` is the engine's batch (its pool holds that many
-    sequences); ``name`` heads its printed lines."""
+    sequences of ``max_len`` positions); ``name`` heads its printed lines;
+    each request asks ``new_tokens``, an admission takes up to
+    ``admit_tokens`` padded tokens (warm-up prefills ENGINE_ARRIVAL rows
+    of ``warm_prompt``); with ``band`` every attention launch must be that
+    of the band masks."""
     from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
     from flash_attn_tpu_torch.serving.generation import GenerationConfig
 
     cfg = model.config
-    width = -(-ENGINE_MAX_LEN // ENGINE_PAGE)
+    width = -(-max_len // ENGINE_PAGE)
     pool = PagePool(cfg.paged_kv_num_pages, ENGINE_PAGE, width, slots)
     eng = InferenceEngine(model, slots, GenerationConfig(top_k=1),
-                          page_pool=pool,
-                          max_admit_tokens=ENGINE_ARRIVAL * ENGINE_PROMPT,
+                          page_pool=pool, max_admit_tokens=admit_tokens,
                           decode_block_size=ENGINE_BLOCK,
                           prefix_cache=prefix_cache, draft_model=draft,
                           speculative_k=SPEC_K, cg=cg)
     t0 = time.perf_counter()
-    eng.warmup(prefill_shapes=[(ENGINE_ARRIVAL, ENGINE_PROMPT)])
+    eng.warmup(prefill_shapes=[(ENGINE_ARRIVAL, warm_prompt)])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     calls = {"prefill": 0, "decode_block": 0, "spec_round": 0}
@@ -1567,7 +1679,7 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
     while True:
         if nxt < len(prompts) and not eng.queue:
             for p in prompts[nxt:nxt + ENGINE_ARRIVAL]:
-                rid = eng.submit(p, max_new_tokens=ENGINE_NEW)
+                rid = eng.submit(p, max_new_tokens=new_tokens)
                 submit_t[rid] = time.perf_counter()
                 ids.append(rid)
             nxt += ENGINE_ARRIVAL
@@ -1606,9 +1718,13 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
         want = want_counts(flash_fwd=(n + nd) * calls["prefill"],
                            flash_decode=nd * SPEC_K * calls["spec_round"],
                            flash_decode_paged=n * calls["spec_round"])
+    if band:
+        want.update({f"{k}_band": want[k] for k in (
+            "flash_fwd", "flash_decode", "flash_decode_paged",
+            "flash_varlen_paged")})
     require(launches == want, f"{name} launch counts {launches}, want {want}")
-    require(all(len(t) == ENGINE_NEW for t in tokens),
-            f"{name}: a request did not finish with {ENGINE_NEW} tokens")
+    require(all(len(t) == new_tokens for t in tokens),
+            f"{name}: a request did not finish with {new_tokens} tokens")
     require(len(pool.free) + len(pool.retained)
             == cfg.paged_kv_num_pages - 1 and not pool.rc,
             f"{name}: pages did not return to the pool")
@@ -1702,13 +1818,13 @@ def linear_view(model):
     return model_view(model, paged_kv_num_pages=0)
 
 
-def paged_view(model, slots: int):
+def paged_view(model, slots: int, max_len: int = ENGINE_MAX_LEN):
     """The same weights in a model over a page pool of ``slots`` sequences
-    of ENGINE_MAX_LEN tokens in pages of ENGINE_PAGE (and the null page)."""
-    width = -(-ENGINE_MAX_LEN // ENGINE_PAGE)
+    of ``max_len`` tokens in pages of ENGINE_PAGE (and the null page)."""
+    width = -(-max_len // ENGINE_PAGE)
     return model_view(model, paged_kv_num_pages=slots * width + 1,
                       paged_kv_page_size=ENGINE_PAGE,
-                      max_decode_seqlen=ENGINE_MAX_LEN)
+                      max_decode_seqlen=max_len)
 
 
 def bf16_step(x: float) -> float:
@@ -3653,9 +3769,12 @@ def vit_spec(c, num_classes: int) -> HFSpec:
 HF_LAYER = re.compile(r"\.(?:layers|h)\.(\d+)\.")
 
 
-def hf_model(family: str, hf_cfg, spec_fn, seed: int):
-    """A GPTLMHeadModel (bf16, on the card, max_decode_seqlen
-    ENGINE_MAX_LEN) of ``hf_cfg`` through the port's adapter ``family``,
+def hf_model(family: str, hf_cfg, spec_fn, seed: int,
+             max_decode_seqlen: int = ENGINE_MAX_LEN, **fields):
+    """A GPTLMHeadModel (bf16, on the card, ``max_decode_seqlen``; the
+    config's ``fields`` replaced, as the JAX package sets Mistral's window
+    on the Llama adapter's config) of ``hf_cfg`` through the port's adapter
+    ``family``,
     its weights a seeded HF checkpoint (the values of hf_weights(spec,
     seed)) made and remapped a layer at a time through the port's own
     remap, each part freed before the next: a layer's tensors under layer
@@ -3668,8 +3787,9 @@ def hf_model(family: str, hf_cfg, spec_fn, seed: int):
     from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
 
     mod = llama if family == "llama" else hf_adapters
-    cfg = getattr(mod, f"{family}_config_to_gpt_config")(
-        hf_cfg, dtype=torch.bfloat16, max_decode_seqlen=ENGINE_MAX_LEN)
+    cfg = dataclasses.replace(getattr(mod, f"{family}_config_to_gpt_config")(
+        hf_cfg, dtype=torch.bfloat16, max_decode_seqlen=max_decode_seqlen),
+        **fields)
     remap = getattr(mod, f"remap_state_dict_hf_{family}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3739,14 +3859,19 @@ def check_breadth_kernels(gen):
     return errs, timings
 
 
-def paged_sdpa(q, kp, vp, table, seqlens, causal=True, lens_q=None):
+def paged_sdpa(q, kp, vp, table, seqlens, causal=True, lens_q=None,
+               window=(None, None), attention_chunk: int = 0):
     """The library yardstick of attention over a paged cache: the cache
     gathered to the linear layout through its block table (paged_to_linear,
     torch ops) and one scaled_dot_product_attention with a boolean length
-    (and bottom-right causal) mask. q (b, sq, h, d), each row's first
-    lens_q (b,) rows its own (all sq by default). Returns (gather + SDPA,
-    SDPA over the cache gathered beforehand): the first computes the
-    kernel's function from the kernel's inputs."""
+    (and bottom-right causal, and band: ``window``, ``attention_chunk``
+    with no upper chunk bound, as the decode kernel masks it) mask. q (b,
+    sq, h, d), each row's first lens_q (b,) rows its own (all sq by
+    default). Returns (gather + SDPA, SDPA over the cache gathered
+    beforehand): the first computes the kernel's function from the
+    kernel's inputs."""
+    from flash_attn_tpu_torch.dispatch.band import band_valid
+
     from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
     b, sq, h, d = q.shape
@@ -3759,8 +3884,10 @@ def paged_sdpa(q, kp, vp, table, seqlens, causal=True, lens_q=None):
     rows = sq if lens_q is None else torch.as_tensor(
         lens_q, device=q.device)[:, None, None]
     mask = col[None] < lens
-    if causal:
-        mask = mask & (col[None] <= row[None] + lens - rows)
+    if causal or window != (None, None) or attention_chunk:
+        mask = mask & band_valid(row[None], col[None], lens - rows, causal,
+                                 window, attention_chunk=attention_chunk,
+                                 chunk_upper=False)
     mask = mask[:, None]
     kl, vl = (paged_to_linear(x, table, seqlens) for x in (kp, vp))
 
@@ -3901,7 +4028,7 @@ def serve_family(name, model, card, rng, rate_runs: int = 3):
     n_params = sum(p.numel() for p in model.parameters())
     ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)),
                           device="cuda")
-    launches, _ = serve_static(model, ids, name)
+    launches, _, _ = serve_static(model, ids, name)
     ttft, tok_s = static_rates(model, ids, modes=(True,), runs=rate_runs)
     model._decode_state = None  # its caches and graph
     torch.cuda.empty_cache()
@@ -4771,6 +4898,412 @@ def run_vit(gen, card):
                       "logit_err": err, "logit_err_bf16_plain": err_lp}
 
 
+def band_fwd_refs(q, k, v, causal, band, heads_bytes: float = 2e9):
+    """The fp32 plain forward (out, lse) and the bf16 reference
+    (attention_ref, upcast=False) of (b, s, h, d) q, k, v under ``band``,
+    computed a batch row and a few KV heads at a time so that no score
+    matrix passes ``heads_bytes``. Returns (ref (b, h, sq, d), lse (b, h,
+    sq), ref_lp (b, sq, h, d))."""
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import attention_ref
+
+    b, sq, h, d = q.shape
+    sk, h_k = k.shape[1], k.shape[2]
+    group = h // h_k
+    per = max(1, int(heads_bytes // (group * sq * sk * 4)))
+    ref = torch.empty(b, h, sq, d, device="cuda")
+    lse = torch.empty(b, h, sq, device="cuda")
+    ref_lp = torch.empty_like(q)
+    for bi in range(b):
+        for k0 in range(0, h_k, per):
+            ks, qs = slice(k0, k0 + per), slice(k0 * group,
+                                                (k0 + per) * group)
+            qc, kc, vc = (x[bi:bi + 1, :, hs] for x, hs in
+                          ((q, qs), (k, ks), (v, ks)))
+            o, l = flash_fwd.flash_attention_fwd_plain(
+                *(x.transpose(1, 2).float() for x in (qc, kc, vc)),
+                causal=causal, **band)
+            ref[bi, qs], lse[bi, qs] = o[0], l[0]
+            o_lp, _ = attention_ref(qc, kc, vc, causal=causal, upcast=False,
+                                    **band)
+            ref_lp[bi, :, qs] = o_lp[0]
+            del o, l, o_lp
+    return ref, lse, ref_lp
+
+
+def band_fwd_case(gen, case, timed: bool):
+    """B1's band instantiation on one BAND_FWD_CASES case against its plain
+    version (the 2x rule against the fp32 plain forward with a bf16
+    reference, lse within LSE_ATOL on the rows that see a key and -inf on
+    the same rows), its launch counted as the band's, the same bits twice;
+    timed beside the band-free kernel at the same shape, SDPA with the same
+    boolean mask and a bound that counts only the pairs inside the band
+    (with ``timed``, also the plain version). Returns the error and the
+    timing."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    name, b, sq, sk, h, h_k, d, causal, window, chunk, sink = case
+    band = dict(window_size=normalize_window(window), sink_token_length=sink,
+                attention_chunk=chunk)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v = randn(b, sq, h, d), randn(b, sk, h_k, d), randn(b, sk, h_k, d)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    before = flash_fwd.launches_band
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal, **band)
+    again = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal, **band)
+    torch.cuda.synchronize()
+    require(flash_fwd.launches_band == before + 2,
+            f"flash_fwd {name}: the band instantiation did not run")
+    ref, ref_lse, ref_lp = band_fwd_refs(q, k, v, causal, band)
+    err, err_lp = check_against_ref(out.transpose(1, 2), ref.transpose(1, 2),
+                                    ref_lp, msg=f"flash_fwd band {name}")
+    fin = torch.isfinite(ref_lse)
+    require(torch.equal(torch.isfinite(lse), fin),
+            f"flash_fwd {name}: the rows that see no key differ")
+    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item()
+    require(lse_err <= LSE_ATOL, f"flash_fwd {name}: lse error {lse_err}")
+    require(torch.equal(again[0], out) and torch.equal(again[1], lse),
+            f"flash_fwd {name}: two runs differ")
+    no_key = int((~fin).sum())
+    del ref, ref_lse, ref_lp, again
+    mask = band_mask(sq, sk, causal, band["window_size"], sink, chunk)
+    pairs = b * int(mask.sum())
+    full = b * attended_pairs([sq], [sk], causal)
+    ms = time_ms(lambda: flash_fwd.flash_attention_fwd(
+        qt, kt, vt, causal=causal, **band))
+    free_ms = time_ms(lambda: flash_fwd.flash_attention_fwd(
+        qt, kt, vt, causal=causal))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=h != h_k), runs=10)
+    timing = {"ms": ms, "band_free_ms": free_ms, "library_ms": lib_ms,
+              "library_call": "scaled_dot_product_attention with the band "
+                              "as a boolean mask"
+                              + ", enable_gqa=True" * (h != h_k),
+              "band_pairs": pairs, "causal_pairs": full,
+              **bound(4 * h * d * pairs,
+                      2 * (2 * b * sq * h * d + 2 * b * sk * h_k * d)
+                      + 4 * b * h * sq)}
+    if timed:
+        timing["plain_ms"] = time_ms(
+            lambda: flash_fwd.flash_attention_fwd_plain(
+                qt, kt, vt, causal=causal, **band), runs=3, batch=1)
+    print(f"flash_fwd band {name} (b={b}, sq={sq}, sk={sk}, {h}/{h_k} heads "
+          f"of {d}, causal={causal}, window {band['window_size']}, chunk "
+          f"{chunk}, sinks {sink}): out max abs err {err:.3e} (bf16 "
+          f"reference {err_lp:.3e}), lse max abs err {lse_err:.3e}, "
+          f"{no_key} rows with no key, bitwise equal twice; "
+          f"{ms:.4f} ms, band-free kernel {free_ms:.4f} ms ("
+          f"{'causal' if causal else 'all'} pairs: the band holds "
+          f"{pairs / full:.3f} of them), masked "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms"
+          + (f", plain {timing['plain_ms']:.2f} ms" if timed else "")
+          + f"; bound {timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    return err, timing
+
+
+def band_decode_case(gen, case, timed: bool):
+    """B4's d = dv route under the band on one BAND_DECODE_CASES case,
+    linear or paged, against its plain version (the 2x rule against the
+    fp32 plain decode run on the CPU with a bf16 reference, lse within
+    LSE_ATOL), the split partials' lse -inf on the same (split, row)s as
+    the plain version's, the same bits twice and the launch counted as the
+    band's; timed beside
+    the band-free kernel at the same lengths, SDPA with the band as a
+    boolean mask over the (gathered) cache and a bound that counts only the
+    keys and pairs inside the band (with ``timed``, also the plain
+    version). Returns the error, the timing and the splits whose lse is
+    -inf for some rows and finite for others."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.dispatch.band import band_span
+    from flash_attn_tpu_torch.dispatch.config import (
+        DECODE_BLOCK_K,
+        normalize_window,
+    )
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    name, b, sq, h, h_k, d, page, keys, window, chunk, splits = case
+    window = normalize_window(window)
+    band = dict(window_size=window, attention_chunk=chunk)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    if page:
+        kc, vc, table = paged_cache(gen, b, h_k, d, page, keys,
+                                    torch.bfloat16)
+    else:
+        s_max = -(-keys // 128) * 128
+        kc, vc = (torch.randn(b, h_k, s_max, d, device="cuda",
+                              generator=gen).to(torch.bfloat16)
+                  for _ in range(2))
+        table = None
+    seqlens = torch.full((b,), keys, dtype=torch.int32, device="cuda")
+    splits = splits or _default_num_splits(
+        q, kc, vc, table, False, band_span(True, window, chunk, sq))
+    counter = "launches_paged_band" if page else "launches_band"
+    before = getattr(flash_decode, counter)
+    out, lse = flash_decode.flash_attention_decode(
+        q, kc, vc, seqlens, causal=True, num_splits=splits,
+        block_table=table, **band)
+    cpu = dict(block_table=None if table is None else table.cpu())
+    ref, ref_lse = flash_decode.flash_attention_decode(
+        q.float().cpu(), kc.float().cpu(), vc.float().cpu(), seqlens.cpu(),
+        causal=True, num_splits=splits, **cpu, **band)
+    scale = d ** -0.5
+    part = flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, True, block_table=table, **band)
+    again = flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, True, block_table=table, **band)
+    part_ref = flash_decode.flash_attention_decode_partials(
+        q.float().cpu(), kc.float().cpu(), vc.float().cpu(), seqlens.cpu(),
+        splits, scale, True, **cpu, **band)
+    torch.cuda.synchronize()
+    require(getattr(flash_decode, counter) == before + 3,
+            f"{name}: the band did not run")
+    require(torch.equal(part[0], again[0]) and torch.equal(part[1], again[1]),
+            f"{name}: two runs differ")
+    empty = torch.isneginf(part[1]).cpu()
+    require(torch.equal(empty, torch.isneginf(part_ref[1])),
+            f"{name}: the splits without keys differ from the plain "
+            "version's")
+    lin = [x if table is None else
+           paged_to_linear(x, table, seqlens) for x in (kc, vc)]
+    keep = torch.arange(lin[0].shape[2], device="cuda")[None] \
+        < seqlens[:, None]
+    ref_lp, _ = attention_ref(q, lin[0].transpose(1, 2),
+                              lin[1].transpose(1, 2), key_padding_mask=keep,
+                              causal=True, upcast=False, **band)
+    err, err_lp = check_against_ref(out, ref, ref_lp,
+                                    msg=f"flash_decode band {name}")
+    lse_err = (lse.cpu() - ref_lse).abs().max().item()
+    require(lse_err <= LSE_ATOL, f"{name}: lse error {lse_err}")
+    # (split, batch row, KV head) items with lse -inf on some rows only
+    partial = int((empty.any(-1) & ~empty.all(-1)).sum())
+    mask = band_mask(sq, keys, True, window, chunk=chunk, chunk_upper=False)
+    pairs, read = b * int(mask.sum()), b * int(mask.any(0).sum())
+    call = dict(block_table=table)
+    ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, True, **call, **band))
+    free_ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, True, **call))
+    if table is None:
+        qh = q.transpose(1, 2)
+        lib_mask = (keep[:, None, None, :]
+                    & band_mask(sq, kc.shape[2], True, window, chunk=chunk,
+                                chunk_upper=False,
+                                shift=keys - sq)[None, None])
+        lib = lambda: F.scaled_dot_product_attention(
+            qh, kc, vc, attn_mask=lib_mask, enable_gqa=h != h_k)
+        lib_call = ("scaled_dot_product_attention with the band and the "
+                    "lengths as a boolean mask over the linear cache")
+    else:
+        lib, _ = paged_sdpa(q, kc, vc, table, seqlens, True, None, window,
+                            chunk)
+        lib_call = ("the cache gathered through the block table to the "
+                    "linear layout, then scaled_dot_product_attention with "
+                    "the band and the lengths as a boolean mask (the gather "
+                    "included)")
+    timing = {"ms": ms, "band_free_ms": free_ms, "library_ms": time_ms(lib),
+              "library_call": lib_call + ", enable_gqa=True" * (h != h_k),
+              "num_splits": splits, "band_keys_read": read,
+              **bound(4 * h * d * pairs,
+                      2 * 2 * read * h_k * d + 2 * b * sq * h * d
+                      + 4 * splits * b * sq * h * (d + 1)
+                      + 4 * (b + (0 if table is None else table.numel())))}
+    if timed:
+        plain = (flash_decode.flash_attention_decode_partials_plain
+                 if table is None else
+                 flash_decode.flash_attention_decode_paged_partials_plain)
+        extra = () if table is None else (table,)
+        # host clock between synchronisations: under time_ms's held stream
+        # the device caught up with this many small ops at every sleep
+        timing["plain_ms"] = wall_ms(lambda: plain(
+            q, kc, vc, seqlens, *extra, splits, DECODE_BLOCK_K, scale, True,
+            **band), runs=5)
+        timing["plain_clock"] = "host, between synchronisations"
+    print(f"flash_decode{'_paged' if page else ''} band {name} (b={b}, "
+          f"sq={sq}, {h}/{h_k} heads of {d}, {keys} keys, window {window}, "
+          f"chunk {chunk}, {splits} splits): out max abs err {err:.3e} (bf16 "
+          f"reference {err_lp:.3e}), lse max abs err {lse_err:.3e}, the "
+          f"partials bitwise equal twice; "
+          f"{int(empty.all(-1).sum())} split items without keys, {partial} "
+          f"with keys for some rows only; {ms:.4f} ms, band-free kernel "
+          f"{free_ms:.4f} ms, {timing['library_ms']:.4f} ms the yardstick"
+          + (f", plain {timing['plain_ms']:.4f} ms" if timed else "")
+          + f"; reads {read // b} of {keys} keys a row; bound "
+          f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+    return err, timing, partial
+
+
+def check_band_kernels(gen):
+    """The band masks on the card: B1 on BAND_FWD_CASES, B4 (linear, paged
+    and the verify step) on BAND_DECODE_CASES and B8 at Mistral-7B's
+    prefix-cached admission (BAND_VARLEN_CASE, whose window edge falls
+    inside the shared pages) against their plain versions, each timed
+    beside the band-free kernel, SDPA with the band's mask and a bound of
+    the band's pairs. Returns errors and timings by kernels-line name."""
+    from flash_attn_tpu_torch.utils.cases import (
+        BAND_DECODE_CASES,
+        BAND_FWD_CASES,
+        BAND_VARLEN_CASE,
+        MISTRAL_WINDOW,
+    )
+
+    errs, timings = {"flash_fwd_band": 0.0}, {"flash_fwd_band": {}}
+    for i, case in enumerate(BAND_FWD_CASES):
+        err, t = band_fwd_case(gen, case, timed=i == 0)
+        errs["flash_fwd_band"] = max(errs["flash_fwd_band"], err)
+        if i == 0:
+            timings["flash_fwd_band"].update(t)
+        else:
+            timings["flash_fwd_band"].setdefault("cases", {})[case[0]] = t
+        torch.cuda.empty_cache()
+    timed = {"Mistral-7B decode step": "flash_decode_band",
+             "Mistral-7B engine decode step": "flash_decode_paged_band",
+             "Mistral-7B engine verify step":
+                 "flash_decode_paged_band_verify"}
+    below = 0
+    for case in BAND_DECODE_CASES:
+        row = timed.get(case[0], "flash_decode_paged_band" if case[6]
+                        else "flash_decode_band")
+        err, t, partial = band_decode_case(gen, case, case[0] in timed)
+        errs[row] = max(errs.get(row, 0.0), err)
+        if case[0] in timed:
+            timings.setdefault(row, {}).update(t)
+        else:
+            timings.setdefault(row, {}).setdefault("cases", {})[case[0]] = t
+        if case[0].startswith("a split below"):
+            below = partial
+    require(below > 0, "no split lay wholly below a later token's window")
+    errs["flash_varlen_paged_band"], timings["flash_varlen_paged_band"] = \
+        varlen_paged_case(gen, BAND_VARLEN_CASE, with_b6=False, timed=True,
+                          window=MISTRAL_WINDOW)
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+def run_mistral(card):
+    """Mistral-7B-v0.1 at full width and depth (MISTRAL_7B, its published
+    config.json numbers), a seeded checkpoint in the HF names remapped a
+    layer at a time through the port's Llama adapter, its window set on the
+    adapter's config as the JAX package sets it (window_size = (4095, 0)):
+    static serving of MISTRAL_BATCH x MISTRAL_PROMPT tokens to
+    MISTRAL_NEW new ones, graphed and eager (serve_static: bitwise equal
+    tokens, the teacher-forced check, every launch the band's), TTFT and
+    the decode rate beside the weights' read; the window in force (the
+    same weights without it give last-position logits that differ by more
+    than the decode's own bf16 noise, both TTFTs printed); then the paged
+    engine (MISTRAL_SLOTS requests of MISTRAL_ENGINE_PROMPT tokens on as
+    many slots), the prefix-cached engine (prompts sharing MISTRAL_PREFIX
+    tokens: admissions through B8 with the window's edge inside the shared
+    pages) and the speculative engine with the target as its own draft,
+    each held to a teacher-forced static decode (engine_agreement) or to
+    the plain engine (spec_vs_plain). Returns launches and measurements."""
+    from flash_attn_tpu_torch.utils.cases import MISTRAL_WINDOW
+
+    rng = np.random.default_rng(23)
+    launches, out = {}, {}
+    window = (MISTRAL_7B.sliding_window - 1, 0)
+    require(window == MISTRAL_WINDOW, "Mistral-7B's window")
+    t0 = time.perf_counter()
+    model, peak = hf_model("llama", MISTRAL_7B, llama_spec, 17,
+                           max_decode_seqlen=MISTRAL_PROMPT + MISTRAL_NEW,
+                           window_size=window)
+    build_s = time.perf_counter() - t0
+    cfg = model.config
+    print(f"Mistral-7B built from its config (the Llama adapter, window "
+          f"{cfg.window_size}) and a seeded HF checkpoint in {build_s:.1f} s "
+          f"(peak {peak:.2f} GB) on {card}")
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (MISTRAL_BATCH, MISTRAL_PROMPT)),
+                          device="cuda")
+    name = "Mistral-7B"
+    launches[name], _, noise = serve_static(model, ids, name, MISTRAL_NEW,
+                                            band=True)
+    ttft, tok_s = static_rates(model, ids, modes=(True, False),
+                               new_tokens=MISTRAL_NEW)
+    model._decode_state = None
+    full = model_view(model, window_size=(-1, -1))
+    ttft_full, _ = static_rates(full, ids, modes=(), new_tokens=MISTRAL_NEW)
+    with torch.inference_mode():
+        last = model.logits(model.forward_hidden(ids)[:, -1:]).float()
+        last_full = full.logits(full.forward_hidden(ids)[:, -1:]).float()
+    gap = (last - last_full).abs().max().item()
+    same_top = (last.argmax(-1) == last_full.argmax(-1)).float().mean().item()
+    print(f"{name}: the window in force: last-position logits with and "
+          f"without it differ by {gap:.4f} at most (the decode's own bf16 "
+          f"noise against the teacher-forced forward: {noise:.4f}), the same "
+          f"top token in {same_top:.2f} of the rows; TTFT {ttft * 1e3:.2f} ms "
+          f"with the window (the band kernel), {ttft_full * 1e3:.2f} ms "
+          f"without (b={MISTRAL_BATCH} x {MISTRAL_PROMPT})")
+    require(gap > noise, f"{name}: the window changes the logits by no more "
+            "than the bf16 noise")
+    del full
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    out[name] = {"params_b": n_params / 1e9, "layers": cfg.n_layer,
+                 "build_s": build_s, "build_peak_gb": peak,
+                 "ttft_ms": ttft * 1e3, "ttft_without_window_ms":
+                     ttft_full * 1e3,
+                 "decode_tokens_per_s": tok_s[True][0],
+                 "decode_tokens_per_s_eager": tok_s[False][0],
+                 "decode_step_ms": MISTRAL_BATCH / tok_s[True][0] * 1e3,
+                 "weight_read_ms": weight_bytes / PEAK_BYTES * 1e3,
+                 "window_logit_gap": gap, "decode_noise": noise}
+    print(f"{name} ({n_params / 1e9:.2f}B parameters, {cfg.n_layer} layers, "
+          f"width {cfg.n_embd}, {cfg.n_head}/{cfg.n_head_kv} heads, window "
+          f"{window}): TTFT {ttft * 1e3:.2f} ms, decode "
+          f"{tok_s[True][0]:.1f} tokens/s graphed ({tok_s[False][0]:.1f} "
+          f"eager), a step {out[name]['decode_step_ms']:.3f} ms against "
+          f"{out[name]['weight_read_ms']:.3f} ms to read its "
+          f"{weight_bytes / 1e9:.2f} GB of weights once at 3.35 TB/s, on "
+          f"{card}")
+    torch.cuda.empty_cache()
+
+    vocab = cfg.vocab_size
+    paged = paged_view(model, MISTRAL_SLOTS, MISTRAL_ENGINE_MAX_LEN)
+    kw = dict(slots=MISTRAL_SLOTS, max_len=MISTRAL_ENGINE_MAX_LEN,
+              new_tokens=MISTRAL_ENGINE_NEW,
+              admit_tokens=MISTRAL_SLOTS * 8192,
+              warm_prompt=MISTRAL_ENGINE_PROMPT, band=True)
+    prompts = list(rng.integers(0, vocab,
+                                (MISTRAL_SLOTS, MISTRAL_ENGINE_PROMPT)))
+    shared = rng.integers(0, vocab, MISTRAL_PREFIX)
+    px = [np.concatenate([shared, rng.integers(
+        0, vocab, MISTRAL_ENGINE_PROMPT - MISTRAL_PREFIX)])
+        for _ in range(MISTRAL_SLOTS)]
+    tokens = {}
+    for ename, trace, prefix in (("paged engine", prompts, False),
+                                 ("prefix-cache engine", px, True)):
+        ename = f"{name} {ename}"
+        torch.cuda.reset_peak_memory_stats()
+        launches[ename], tokens[ename], out[ename] = run_engine(
+            paged, trace, prefix, card, name=ename, **kw)
+        out[ename]["agreement"], out[ename]["logit_gap"] = engine_agreement(
+            paged, trace, tokens[ename], ename, MIN_ARGMAX_AGREEMENT)
+        out[ename]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    ename = f"{name} speculative engine"
+    launches[ename], spec, out[ename] = run_engine(
+        paged, prompts, False, card, name=ename, draft=linear_view(paged),
+        **kw)
+    out[ename]["equal_to_plain"] = spec_vs_plain(
+        paged, prompts, spec, tokens[f"{name} paged engine"], ename)
+    del model, paged
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -4883,6 +5416,8 @@ def main() -> int:
                                 run_packed_wide, gen, card)
     wt_launches, wide_train = phase("GPT-J-6B and GPT-NeoX-20B training",
                                     run_wide_training, card)
+    bd_err, bd_t = phase("band kernel checks", check_band_kernels, gen)
+    ms_launches, mistral = phase("Mistral-7B", run_mistral, card)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -4926,6 +5461,19 @@ def main() -> int:
           f"{breadth['OPT-6.7B prefix-cache engine']['tokens_per_s']:.1f} "
           f"tokens/s; ViT-L/16 {breadth['ViT-L/16']['images_per_s']:.0f} "
           f"images/s at b={VIT_BATCH} on {card}")
+    mis, mis_eng = mistral["Mistral-7B"], [
+        k for k in mistral if k.startswith("Mistral-7B ")]
+    print(f"Mistral-7B (full width and depth, window {MISTRAL_7B.sliding_window}"
+          f", b={MISTRAL_BATCH} x {MISTRAL_PROMPT} + {MISTRAL_NEW}): TTFT "
+          f"{mis['ttft_ms']:.2f} ms ({mis['ttft_without_window_ms']:.2f} ms "
+          f"without the window), decode {mis['decode_tokens_per_s']:.1f} "
+          f"tokens/s graphed (a step {mis['decode_step_ms']:.3f} ms, the "
+          f"weights' read {mis['weight_read_ms']:.3f} ms); " + "; ".join(
+              f"{k[len('Mistral-7B '):]} ({MISTRAL_SLOTS} x "
+              f"{MISTRAL_ENGINE_PROMPT} + {MISTRAL_ENGINE_NEW}) "
+              f"{mistral[k]['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+              f"{mistral[k]['ttft_p50_ms']:.1f} ms" for k in mis_eng)
+          + f" on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -5075,6 +5623,32 @@ def main() -> int:
                    "flash_varlen.py:462", "fa_varlen_bwd_dkdv"),
                   ("fa_varlen_bwd_dq", "flash_varlen_wide.cu",
                    "flash_varlen.py:651", "fa_varlen_bwd_dq"))))),
+        # the band masks: B1's band instantiation at Mistral-7B's prefill,
+        # B4 under the window at its static and engine decode steps and
+        # its verify step, B8's band instantiation at its prefix-cached
+        # admission; the launches those of the Mistral-7B runs
+        entry("flash_fwd_band", "flash_fwd.cu", "flash_fwd.py:59",
+              ms_launches["Mistral-7B"]["flash_fwd_band"],
+              bd_err["flash_fwd_band"], bd_t["flash_fwd_band"]),
+        entry("flash_decode_band", "flash_decode.cu", "flash_decode.py:54",
+              ms_launches["Mistral-7B"]["flash_decode_band"],
+              bd_err["flash_decode_band"], bd_t["flash_decode_band"]),
+        entry("flash_decode_paged_band", "flash_decode.cu",
+              "flash_decode.py:54",
+              ms_launches["Mistral-7B paged engine"]
+              ["flash_decode_paged_band"], bd_err["flash_decode_paged_band"],
+              bd_t["flash_decode_paged_band"]),
+        entry("flash_decode_paged_band_verify", "flash_decode.cu",
+              "flash_decode.py:54",
+              ms_launches["Mistral-7B speculative engine"]
+              ["flash_decode_paged_band"],
+              bd_err["flash_decode_paged_band_verify"],
+              bd_t["flash_decode_paged_band_verify"]),
+        entry("flash_varlen_paged_band", "flash_varlen_paged.cu",
+              "flash_varlen_paged.py:69",
+              ms_launches["Mistral-7B prefix-cache engine"]
+              ["flash_varlen_paged_band"], bd_err["flash_varlen_paged_band"],
+              bd_t["flash_varlen_paged_band"]),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -5089,7 +5663,8 @@ def main() -> int:
         "blocksparse": bs_all, "probes": probes, "breadth": breadth,
         "wide_head_dims": wide, "remat": remat, "dwconv": dwconv,
         "wide_training": {"models": wide_train, "packed_mha_err": wp_err,
-                          "kernel_resources": wb_res}}))
+                          "kernel_resources": wb_res},
+        "band": bd_t, "mistral": mistral}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.dispatch.band import band_span
 from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
     decode_rows_per_block,
@@ -76,10 +77,12 @@ def kv_cache_update(k_cache, v_cache, k_new, v_new, cache_seqlens,
     return k_cache, v_cache
 
 
-def _default_num_splits(q, k_cache, v_cache, block_table, has_qv) -> int:
+def _default_num_splits(q, k_cache, v_cache, block_table, has_qv,
+                        band_keys: Optional[int] = None) -> int:
     """Enough splits to give every SM of the card a block (one split on the
     CPU, which has no such cores). A block holds 8 query rows on the d = dv
-    route and a 64-row tile on the MLA route."""
+    route and a 64-row tile on the MLA route. ``band_keys`` bounds the keys
+    a row's band spans (the splits share out only those)."""
     if q.device.type != "cuda":
         return 1
     b, sq, h, d = q.shape
@@ -88,8 +91,10 @@ def _default_num_splits(q, k_cache, v_cache, block_table, has_qv) -> int:
     per_block = decode_rows_per_block(d, v_cache.shape[-1], has_qv)
     blocks = b * h_k * -(-rows // per_block)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    kv_tiles = -(-cache_capacity(k_cache, block_table) // DECODE_BLOCK_K)
-    return num_splits_heuristic(blocks, sms, kv_tiles)
+    keys = cache_capacity(k_cache, block_table)
+    if band_keys is not None:
+        keys = min(keys, band_keys + DECODE_BLOCK_K)  # a misaligned start
+    return num_splits_heuristic(blocks, sms, -(-keys // DECODE_BLOCK_K))
 
 
 def flash_attn_with_kvcache(
@@ -141,8 +146,13 @@ def flash_attn_with_kvcache(
     ValueError, as in JAX; on the card, where reading them back would stall
     the stream, the rows that overflow give NaN, as JAX's do under ``jit``.
     cache_batch_idx with a block table raises ValueError, as in JAX.
-    cache_batch_idx, cache_leftpad, window, softcap, chunking, ALiBi,
-    descales and rotary_seqlens are not ported and raise
+
+    ``window_size`` (left, right; -1 or None for no bound) and
+    ``attention_chunk`` mask as in JAX's decode kernel (dispatch/band.py;
+    the chunk bounds keys below only): query token t (of sq) sees positions
+    within [t + shift - left, t + shift + right], shift = cache_seqlens +
+    s_new - sq, right 0 under ``causal``. cache_batch_idx, cache_leftpad,
+    softcap, ALiBi, descales and rotary_seqlens are not ported and raise
     NotImplementedError.
     """
     if block_table is not None and cache_batch_idx is not None:
@@ -150,9 +160,9 @@ def flash_attn_with_kvcache(
     reject_unsupported(
         "flash_attn_with_kvcache", rotary_seqlens=rotary_seqlens,
         cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad,
-        window_size=normalize_window(tuple(window_size)), softcap=softcap,
-        attention_chunk=attention_chunk, alibi_slopes=alibi_slopes,
+        softcap=softcap, alibi_slopes=alibi_slopes,
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
+    window_size = normalize_window(tuple(window_size))
     require_no_grad("flash_attn_with_kvcache", q, k, v, qv)
     b, sq, h, d = q.shape
     on_host = not torch.is_tensor(cache_seqlens) or \
@@ -195,11 +205,13 @@ def flash_attn_with_kvcache(
                              interleaved=rotary_interleaved,
                              seqlen_offsets=cache_seqlens)
     if num_splits <= 0:
-        num_splits = _default_num_splits(q, k_cache, v_cache, block_table,
-                                         qv is not None)
+        num_splits = _default_num_splits(
+            q, k_cache, v_cache, block_table, qv is not None,
+            band_span(causal, window_size, attention_chunk, sq))
     out, lse = flash_attention_decode(
         q, k_cache, v_cache, sk_eff, softmax_scale=softmax_scale,
-        causal=causal, num_splits=num_splits, block_table=block_table, qv=qv)
+        causal=causal, num_splits=num_splits, block_table=block_table, qv=qv,
+        window_size=window_size, attention_chunk=attention_chunk)
     if overflow is not None:
         out = out.masked_fill(overflow[:, None, None, None], float("nan"))
     return (out, lse) if return_softmax_lse else out

@@ -56,9 +56,20 @@
 // cover each block's first copies: the deep ring there, or a persistent
 // grid whose ring runs on across items, were slower (PERF.md PR 11).
 //
-// Masking is that of flash_decode.py for causal decode: with sk the cache
-// length after the append, query row t sees key positions <= t + sk - sq.
-// A length past the cache's capacity (s_max, or max_pages * page_size) is
+// Masking is that of flash_decode.py:197-214: with sk the cache length
+// after the append and shift = sk - sq, query row t sees key positions
+// <= t + shift + right (right 0 for causal decode, the window's right
+// extent otherwise, no bound without one), and, with a band, positions
+// >= t + shift - left (a sliding window) and >= the first key of t +
+// shift's chunk (attention_chunk; the decode kernel masks no upper chunk
+// bound, as JAX's). The splits share out only the tiles from the band's
+// first, the tile of the lowest key the item's first query token sees,
+// computed from cache_seqlens on the device (so that a graphed decode step
+// replays the right bound at every length): the tiles below it are masked
+// for every row, and JAX's kernel, which reads them and masks them, gives
+// the same result. A split whose keys are all below a row's band writes
+// that row an lse of -inf and out 0, which combine_splits weighs 0. A
+// length past the cache's capacity (s_max, or max_pages * page_size) is
 // cut to it; the caller poisons such rows. Keys past the split's end or the
 // length are staged (a page's other slots, a NaN even) but never reach a
 // sum: their state update is skipped, not multiplied by 0.
@@ -88,7 +99,7 @@ struct DecodeParams {
   int b, sq, h_k, group, rows, num_splits;
   int page_size, box_rows, table_width, num_pages, cap;  // box_rows: set by the ring
   float scale_log2;
-  int causal;
+  Band band;  // right 0 for causal decode; sink unused
 };
 
 struct DecodeMaps {
@@ -157,6 +168,13 @@ __device__ __forceinline__ void merge_coeffs(float m, float m2, float& a,
   b2 = exp2f(m2 - ms);
 }
 
+// The lowest key query position rs = t + sk - sq may see under the band's
+// lower bounds (negative: none).
+__device__ __forceinline__ int band_first_key(const Band& b, int rs) {
+  const int lo = rs - b.left;
+  return b.chunk > 0 ? max(lo, b.chunk_lo(rs)) : lo;
+}
+
 // A block's item: a (batch row, KV head, split, block of RM rows) and the
 // block's share of the split's 64-key tiles, keys from k_lo in n staged
 // tiles of TK keys (the last may end past k_hi).
@@ -174,10 +192,12 @@ struct DecItem {
     // the cache cut into 64-key tiles, shared out to the splits in
     // contiguous runs (as the TPU kernel does), a split's run to the
     // cluster's blocks in contiguous shares
+    // (from the band's first tile: the lowest key query token 0 sees)
     sk = min(p.seqlens[bb], p.cap);
     const int tiles = (sk + DEC_BN - 1) / DEC_BN;
-    const int kps = (tiles + p.num_splits - 1) / p.num_splits;
-    const int t_lo = min(tiles, split * kps);
+    const int t0 = min(tiles, max(0, band_first_key(p.band, sk - p.sq)) / DEC_BN);
+    const int kps = (tiles - t0 + p.num_splits - 1) / p.num_splits;
+    const int t_lo = min(tiles, t0 + split * kps);
     const int t_hi = min(tiles, t_lo + kps);
     k_hi = min(sk, t_hi * DEC_BN);
     const int per = (t_hi - t_lo + csize - 1) / csize;
@@ -244,6 +264,7 @@ __global__ void __launch_bounds__(DEC_THREADS)
   // staged row's padding hold zeros.
   float q[RM][8];
   int limit[RM];  // last key position the row may see
+  int first[RM];  // first key position the row may see
 #pragma unroll
   for (int r = 0; r < RM; ++r) {
     const int row = it.r_base + r;
@@ -260,11 +281,13 @@ __global__ void __launch_bounds__(DEC_THREADS)
 #pragma unroll
         for (int e = 0; e < 8; ++e) q[r][e] = 0.f;
       }
-      limit[r] = min(it.k_hi - 1, p.causal ? t + it.sk - p.sq : it.sk - 1);
+      limit[r] = min(it.k_hi - 1, min(it.sk - 1, t + it.sk - p.sq + p.band.right));
+      first[r] = band_first_key(p.band, t + it.sk - p.sq);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e) q[r][e] = 0.f;
       limit[r] = -1;
+      first[r] = 0;
     }
   }
 
@@ -305,7 +328,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
       float mx = -INFINITY;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        if (key0 + u * KPW > limit[r]) s[u] = -INFINITY;  // the same for the key's lanes
+        const int key = key0 + u * KPW;
+        if (key > limit[r] || key < first[r]) s[u] = -INFINITY;  // the same for the key's lanes
         mx = fmaxf(mx, s[u]);
       }
       const float m_new = fmaxf(m[r], mx);
@@ -510,8 +534,10 @@ cudaError_t launch_d(const CacheView& c, const DecodeParams& p, int cluster, cud
 // contiguous, every start and stride 16-byte aligned (TMA). cap is the
 // cache's capacity in positions; block_k must be the split granularity of
 // the wrapper (dispatch/config.py DECODE_BLOCK_K), the staged tile's 64
-// keys; cluster (1, 2 or 4) blocks share each split. Returns a cudaError_t
-// (0 on success).
+// keys; cluster (1, 2 or 4) blocks share each split. The band
+// (dispatch/band.py band_args): window extents left and right (-1: no
+// bound; right 0 under causal masking) and the chunk (0: none). Returns a
+// cudaError_t (0 on success).
 extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
                          const int* seqlens, const int* table, float* out_p,
                          float* lse_p, int b, int sq, int h, int h_k, int d,
@@ -520,8 +546,9 @@ extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
                          int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                          int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                          int64_t v_ss, int64_t t_sb, float scale_log2, int causal,
-                         int is_bf16, void* stream) {
+                         int left, int right, int chunk, int is_bf16, void* stream) {
   if (block_k != DEC_BN || h_k < 1 || h % h_k != 0 || page_size < 1 || num_pages < 1 ||
+      (causal && right != 0) || chunk < 0 ||
       num_splits < 1 || (table != nullptr && table_width < 1) ||
       (cluster != 1 && cluster != 2 && cluster != 4) ||
       (d != 64 && d != 96 && d != 128 && d != 256))
@@ -546,7 +573,9 @@ extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
   p.num_pages = num_pages;
   p.cap = cap;
   p.scale_log2 = scale_log2;
-  p.causal = causal;
+  p.band.left = left < 0 ? BAND_NONE : left;
+  p.band.right = right < 0 ? BAND_NONE : right;
+  p.band.chunk = chunk;
   const CacheView c = {kc, vc, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, d, is_bf16};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? launch_d<__nv_bfloat16>(c, p, cluster, st)

@@ -21,6 +21,13 @@
 // heaviest first (the last q tiles, under causal masking). Each output
 // element is written once, with no atomics: two runs give the same bits.
 //
+// The band masks (window, chunk, sinks; B1's part of
+// flash_fwd.py:270-287) run in their own instantiation (BAND), whose blocks
+// walk only the key tiles their rows' band reaches: a 4096-key window over
+// 6144 causal keys reads about 89% of the causal band's pairs. A call
+// without a band runs the band-free instantiation, the kernel of the
+// earlier releases, with the same bits and time.
+//
 // Conventions: q (b, sq, h, d), k/v (b, sk, h_k, d) by element strides, the
 // head dim contiguous, 16-byte aligned starts and strides (TMA); out in q's
 // type, lse (b, h, sq) natural-log. The tensor maps are 4D over (d, s, h, b)
@@ -30,6 +37,7 @@
 
 namespace {
 
+using namespace fa;
 using namespace fa::sm90;
 
 struct FwdParams {
@@ -40,6 +48,7 @@ struct FwdParams {
   int sk;
   float scale_log2;
   int causal;
+  Band band;  // read by the BAND instantiation alone
 };
 
 // Q rows of query head hq and K/V rows of KV head hk of batch row bb.
@@ -60,8 +69,9 @@ struct DenseSrc {
 };
 
 // One block per (128-row query tile, head, batch row), the last q tile
-// (the heaviest under causal masking) first.
-template <typename T, int D>
+// (the heaviest under causal masking) first. BAND: the band's key tiles
+// alone, masked by p.band.
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -76,47 +86,56 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
   t.sq = p.sq;
   t.sk = p.sk;
   t.m0 = (gridDim.z - 1 - blockIdx.z) * FWD_M;
-  fwd_tile<T, D, false>(src, t, p.scale_log2, p.causal, smem);
+  fwd_tile<T, D, false, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BAND>
 cudaError_t launch(const FwdMaps& maps, const FwdParams& p, int b, cudaStream_t stream) {
   constexpr int smem = FwdLayout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fwd_kernel<T, D, BAND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.h, b, (p.sq + FWD_M - 1) / FWD_M);
-  fwd_kernel<T, D><<<grid, FWD_THREADS, smem, stream>>>(maps, p);
+  fwd_kernel<T, D, BAND><<<grid, FWD_THREADS, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool BAND>
 cudaError_t launch_d(const FwdMaps& maps, const FwdParams& p, int b, int d, cudaStream_t st) {
   switch (d) {
-    case 64: return launch<T, 64>(maps, p, b, st);
-    case 96: return launch<T, 96>(maps, p, b, st);
-    case 128: return launch<T, 128>(maps, p, b, st);
-    default: return launch<T, 256>(maps, p, b, st);
+    case 64: return launch<T, 64, BAND>(maps, p, b, st);
+    case 96: return launch<T, 96, BAND>(maps, p, b, st);
+    case 128: return launch<T, 128, BAND>(maps, p, b, st);
+    default: return launch<T, 256, BAND>(maps, p, b, st);
   }
+}
+
+template <typename T>
+cudaError_t launch_band(const FwdMaps& maps, const FwdParams& p, int b, int d, bool band,
+                        cudaStream_t st) {
+  return band ? launch_d<T, true>(maps, p, b, d, st) : launch_d<T, false>(maps, p, b, d, st);
 }
 
 }  // namespace
 
 // q (b, sq, h, d), k/v (b, sk, h_k, d) given by element strides, the head
 // dim contiguous, 16-byte aligned starts and strides; out has q's type and
-// layout strides; lse (b, h, sq) fp32. Returns a cudaError_t (0 on
-// success); block_q/block_k must name the tile the kernel is compiled for
-// (dispatch/config.py FWD_TILE).
+// layout strides; lse (b, h, sq) fp32. The band (dispatch/band.py
+// band_args): window extents left and right (-1: no bound; right 0 under
+// causal masking), sink tokens and the chunk, read when `band` is set.
+// Returns a cudaError_t (0 on success); block_q/block_k must name the tile
+// the kernel is compiled for (dispatch/config.py FWD_TILE).
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, int b, int sq, int sk, int h, int h_k, int d,
                       int block_q, int block_k,
                       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                       int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                       int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                      float scale_log2, int causal, int is_bf16,
-                      void* stream) {
+                      float scale_log2, int causal, int left, int right,
+                      int sink, int chunk, int band, int is_bf16, void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || b < 1 || sq < 1 || sk < 1 || h_k < 1 ||
-      h % h_k != 0 || (d != 64 && d != 96 && d != 128 && d != 256))
+      h % h_k != 0 || (d != 64 && d != 96 && d != 128 && d != 256) || sink < 0 ||
+      chunk < 0 || (causal && right != 0 && band))
     return (int)cudaErrorInvalidValue;
   FwdMaps maps;
   cudaError_t err;
@@ -137,7 +156,11 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
   p.group = h / h_k;
   p.scale_log2 = scale_log2;
   p.causal = causal;
+  p.band.left = left < 0 ? BAND_NONE : left;
+  p.band.right = right < 0 ? BAND_NONE : right;
+  p.band.sink = sink;
+  p.band.chunk = chunk;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_d<__nv_bfloat16>(maps, p, b, d, st)
-                       : launch_d<__half>(maps, p, b, d, st));
+  return (int)(is_bf16 ? launch_band<__nv_bfloat16>(maps, p, b, d, band, st)
+                       : launch_band<__half>(maps, p, b, d, band, st));
 }

@@ -10,8 +10,12 @@
 // the cache (num_pages, h_k, page_size, d) named by its row of the block
 // table, and its key count seqlens_k includes the chunk. Masking is bottom-
 // right causal: local query row r of a sequence sees key positions
-// <= r + seqlens_k - seqused_q. Rows past seqused_q, and rows that see no
-// key, give out = 0 and lse = -inf, as the TPU kernel's do.
+// <= r + seqlens_k - seqused_q; with a sliding window (flash_varlen_paged.py
+// :249-254, the forward tile's BAND instantiation) also >= r + seqlens_k -
+// seqused_q - left, and a block reads only the pages of its rows' band
+// (the list bounds of :408-417): pages wholly below the window are not
+// read. Rows past seqused_q, and rows that see no key, give out = 0 and
+// lse = -inf, as the TPU kernel's do.
 //
 // What bounds it on this card: a chunk of sq query rows over sk keys does
 // 4 * sq * sk * d flops per head (about half that under the causal mask)
@@ -67,6 +71,7 @@ struct VarlenPagedParams {
   int b, num_tiles, total_q, h, group, page_size, box_rows, table_width, num_pages;
   float scale_log2;
   int causal;
+  Band band;  // the window (left, right), read by the BAND instantiation alone
 };
 
 // Q rows of one sequence from token q0 of the packed tensor at head hq; K/V
@@ -107,8 +112,8 @@ __device__ __forceinline__ void fwd_issue_kv(const PagedSrc& src, unsigned char*
 // Item w = (head, i) = (w / num_tiles, w % num_tiles): head by head, and in
 // a head the sequences' tiles in order, sequence s owning i in
 // [tile_ends[s - 1], tile_ends[s]), its last tile (the longest causal band)
-// first. Items past the last tile exit.
-template <typename T, int D>
+// first. Items past the last tile exit. BAND: the window's key tiles alone.
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     varlen_paged_kernel(const __grid_constant__ FwdMaps maps, const VarlenPagedParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -136,27 +141,33 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
   t.sq = p.lens_q[seq];
   t.sk = p.lens_k[seq];
   t.m0 = (p.tile_ends[seq] - 1 - i) * FWD_M;
-  fwd_tile<T, D, true>(src, t, p.scale_log2, p.causal, smem);
+  fwd_tile<T, D, true, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool BAND>
 cudaError_t launch(const FwdMaps& maps, const VarlenPagedParams& p, cudaStream_t stream) {
   constexpr int smem = FwdLayout<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      varlen_paged_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      varlen_paged_kernel<T, D, BAND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  varlen_paged_kernel<T, D><<<p.num_tiles * p.h, FWD_THREADS, smem, stream>>>(maps, p);
+  varlen_paged_kernel<T, D, BAND><<<p.num_tiles * p.h, FWD_THREADS, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool BAND>
 cudaError_t launch_d(const FwdMaps& maps, const VarlenPagedParams& p, int d, cudaStream_t st) {
   switch (d) {
-    case 64: return launch<T, 64>(maps, p, st);
-    case 96: return launch<T, 96>(maps, p, st);
-    case 128: return launch<T, 128>(maps, p, st);
-    default: return launch<T, 256>(maps, p, st);
+    case 64: return launch<T, 64, BAND>(maps, p, st);
+    case 96: return launch<T, 96, BAND>(maps, p, st);
+    case 128: return launch<T, 128, BAND>(maps, p, st);
+    default: return launch<T, 256, BAND>(maps, p, st);
   }
+}
+
+template <typename T>
+cudaError_t launch_band(const FwdMaps& maps, const VarlenPagedParams& p, int d, bool band,
+                        cudaStream_t st) {
+  return band ? launch_d<T, true>(maps, p, d, st) : launch_d<T, false>(maps, p, d, st);
 }
 
 }  // namespace
@@ -167,8 +178,10 @@ cudaError_t launch_d(const FwdMaps& maps, const VarlenPagedParams& p, int d, cud
 // fp32; out zeroed and lse -inf-filled by the wrapper; tile_ends (b,) int32
 // from the wrapper, the running count of tiles of block_q rows over the b
 // sequences, num_tiles at least its last entry. block_q/block_k must name
-// the tile the kernel is compiled for (dispatch/config.py FWD_TILE).
-// Returns a cudaError_t (0 on success).
+// the tile the kernel is compiled for (dispatch/config.py FWD_TILE). The
+// window's extents left and right (-1: no bound; right 0 under causal
+// masking) are read when `band` is set. Returns a cudaError_t (0 on
+// success).
 extern "C" int fa_varlen_paged(
     const void* q, const void* kp, const void* vp, const int* cu_q,
     const int* lens_q, const int* lens_k, const int* table, const int* tile_ends,
@@ -176,8 +189,10 @@ extern "C" int fa_varlen_paged(
     int page_size, int table_width, int num_pages, int block_q, int block_k,
     int64_t q_st, int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_ss,
     int64_t v_sp, int64_t v_sh, int64_t v_ss, int64_t o_st, int64_t o_sh,
-    int64_t t_sb, float scale_log2, int causal, int is_bf16, void* stream) {
+    int64_t t_sb, float scale_log2, int causal, int left, int right, int band,
+    int is_bf16, void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || h_k < 1 || h % h_k != 0 ||
+      (causal && right != 0 && band) ||
       (d != 64 && d != 96 && d != 128 && d != 256) ||
       page_size < 1 || table_width < 1 || num_pages < 1 || b < 1 ||
       (int64_t)num_tiles * h > 0x7fffffff)
@@ -205,6 +220,8 @@ extern "C" int fa_varlen_paged(
   p.num_pages = num_pages;
   p.scale_log2 = scale_log2;
   p.causal = causal;
+  p.band.left = left < 0 ? BAND_NONE : left;
+  p.band.right = right < 0 ? BAND_NONE : right;
   FwdMaps maps;
   cudaError_t err;
   if ((err = make_tile_map<3>(&maps.q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, FWD_M)) ||
@@ -214,6 +231,6 @@ extern "C" int fa_varlen_paged(
                               {v_ss, v_sh, v_sp}, p.box_rows)))
     return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_d<__nv_bfloat16>(maps, p, d, st)
-                       : launch_d<__half>(maps, p, d, st));
+  return (int)(is_bf16 ? launch_band<__nv_bfloat16>(maps, p, d, band, st)
+                       : launch_band<__half>(maps, p, d, band, st));
 }

@@ -14,7 +14,11 @@
 // computes, with the causal diagonal of flash_fwd_split.py:_diag_kernel:
 // out = softmax(scale Q K^T) V per row under bottom-right causal masking
 // (shift = sk - sq: row r sees key c <= r + shift), and the natural-log lse;
-// a row that sees no key gets out 0 and lse -inf. The softmax runs in base 2
+// a row that sees no key gets out 0 and lse -inf. The band instantiation
+// (BAND, B1 and B8 with a window, a chunk or sinks: common.cuh's Band, the
+// masks of flash_fwd.py:270-287) walks only the key tiles of its rows'
+// band (KeyRange from the band's first tile, as _kv_block_bounds :360
+// bounds the TPU grid) and masks the tiles that cross an edge of it. The softmax runs in base 2
 // with scale * log2(e) folded into one multiply.
 //
 // Layout (csrc/sm90.cuh): Q comes once by TMA into a 128-row tile of
@@ -153,12 +157,15 @@ __device__ __forceinline__ void fwd_issue_q(const Src& src, unsigned char* Qs,
 // rows of `t`, for the whole block: S = Q K^T, the masks, the online softmax
 // and O += P V, then the block barrier that frees the stage. With owner >= 0
 // the tile is warpgroup `owner`'s alone: the other one masks every score,
-// which leaves its O, max and sum bitwise as they were.
-template <typename T, int D, bool ZERO_TAIL>
+// which leaves its O, max and sum bitwise as they were. BAND: mask by
+// `band` (common.cuh; its right bound stands for `causal`) instead of the
+// causal bound; the band-free instantiation compiles to the code it was.
+template <typename T, int D, bool ZERO_TAIL, bool BAND = false>
 __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
                                          unsigned char* stage, int n0,
                                          const FwdRows<T>& t, float scale_log2,
-                                         bool causal, int owner = -1) {
+                                         bool causal, int owner = -1,
+                                         const Band& band = Band{}) {
   using L = FwdLayout<D>;
   constexpr int BN = FWD_N;
   const int tid = threadIdx.x;
@@ -198,18 +205,61 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
   // scale into base 2; mask the diagonal and the ragged end of the keys,
   // and the other warpgroup's tile whole (its keys all count as past sk)
   const int sk = owner >= 0 && owner != wg ? n0 : t.sk;
-  const bool need_mask = (causal && n0 + BN - 1 > r0 + shift) || n0 + BN > sk;
+  if constexpr (BAND) {
+    // the tile crosses the band's upper edge at the warpgroup's first row,
+    // its lower edge at the last (sinks aside: a mask too many changes no
+    // score), a chunk boundary of some row, or the end of the keys. The
+    // masked and the unmasked tile take separate loops; a masked one tests
+    // each score against its row's bounds, made once a tile: keys [lo, hi]
+    // (the upper edge, the keys' end and the chunk) and the window's lower
+    // edge wlo, which the first `sink` keys pass.
+    const int lo0 = band.chunk > 0 ? band.chunk_lo(r0 + shift) : 0;
+    const bool need_mask =
+        n0 + BN > sk || n0 + BN - 1 > r0 + shift + band.right ||
+        n0 < r0 + 63 + shift - band.left ||
+        (band.chunk > 0 && (band.chunk_lo(r0 + 63 + shift) != lo0 || n0 < lo0 ||
+                            n0 + BN > lo0 + band.chunk));
+    if (need_mask) {
+      int lo[2], hi[2], wlo[2];
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = __fmul_rn(s[4 * j + e], scale_log2);
-      if (need_mask) {
-        const int col = n0 + 8 * j + 2 * t4 + (e & 1);
-        const int row = row_a + 8 * (e >> 1);
-        if (col >= sk || (causal && col > row + shift)) x = -INFINITY;
+      for (int i = 0; i < 2; ++i) {
+        const int rs = row_a + 8 * i + shift;
+        hi[i] = min(sk - 1, rs + band.right);
+        lo[i] = INT_MIN;
+        if (band.chunk > 0) {
+          lo[i] = band.chunk_lo(rs);
+          hi[i] = min(hi[i], lo[i] + band.chunk - 1);
+        }
+        wlo[i] = rs - band.left;
       }
-      s[4 * j + e] = x;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = n0 + 8 * j + 2 * t4 + (e & 1);
+          const int i = e >> 1;
+          const bool out = col > hi[i] || col < lo[i] || (col < wlo[i] && col >= band.sink);
+          s[4 * j + e] = out ? -INFINITY : __fmul_rn(s[4 * j + e], scale_log2);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = __fmul_rn(s[i], scale_log2);
+    }
+  } else {
+    const bool need_mask = (causal && n0 + BN - 1 > r0 + shift) || n0 + BN > sk;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = __fmul_rn(s[4 * j + e], scale_log2);
+        if (need_mask) {
+          const int col = n0 + 8 * j + 2 * t4 + (e & 1);
+          const int row = row_a + 8 * (e >> 1);
+          if (col >= sk || (causal && col > row + shift)) x = -INFINITY;
+        }
+        s[4 * j + e] = x;
+      }
     }
   }
 
@@ -306,19 +356,28 @@ __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* 
 // the box of 64 columns from `col` and 128 (Q) or 64 (K, V) rows from the
 // sequence's row `row`, counted on `bar`. ZERO_TAIL: zero the V rows past
 // sk of the ragged tile (a packed tensor's neighbour rows). One block, one
-// tile of rows: the barriers are set up here and thread 0 issues tile
-// n + 1's loads as tile n starts (its stage was freed at n - 1).
-template <typename T, int D, bool ZERO_TAIL, typename Src>
+// tile of rows: the barriers are set up here and thread 0 issues the
+// band's i + 1-th tile's loads as its i-th starts (its stage was freed at
+// i - 1). BAND: the key tiles of `band` (KeyRange), from the first tile that
+// holds a key some row sees; no tile at all (out 0, lse -inf) when no row
+// sees any.
+template <typename T, int D, bool ZERO_TAIL, bool BAND = false, typename Src>
 __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
                                          float scale_log2, bool causal,
-                                         unsigned char* smem) {
+                                         unsigned char* smem,
+                                         const Band& band = Band{}) {
   using L = FwdLayout<D>;
   unsigned char* Qs = smem + L::Q_OFF;
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* full = q_bar + 1;
   const int tid = threadIdx.x;
-  const int total = KeyRange<FWD_N>(t.m0, FWD_M, t.sq, t.sk, causal).count();
-  auto stage = [&](int n) { return smem + L::STAGE_OFF + (n % FWD_STAGES) * L::STAGE_BYTES; };
+  const KeyRange<FWD_N> keys = [&] {
+    if constexpr (BAND) return KeyRange<FWD_N>(t.m0, FWD_M, t.sq, t.sk, band);
+    else return KeyRange<FWD_N>(t.m0, FWD_M, t.sq, t.sk, causal);
+  }();
+  const int n_lo = BAND ? keys.lo : 0;
+  const int total = keys.count();
+  auto stage = [&](int i) { return smem + L::STAGE_OFF + (i % FWD_STAGES) * L::STAGE_BYTES; };
 
   if (tid == 0) {
     mbar_init(q_bar, 1);
@@ -328,17 +387,18 @@ __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
   __syncthreads();
   if (tid == 0 && total > 0) {
     fwd_issue_q<D>(src, Qs, q_bar, t.m0);
-    fwd_issue_kv<D>(src, stage(0), &full[0], 0);
+    fwd_issue_kv<D>(src, stage(0), &full[0], n_lo);
   }
 
   FwdAcc<D> a;
   a.init();
   if (total > 0) mbar_wait(q_bar, 0);
-  for (int n = 0; n < total; ++n) {
-    if (tid == 0 && n + 1 < total)
-      fwd_issue_kv<D>(src, stage(n + 1), &full[(n + 1) % FWD_STAGES], n + 1);
-    mbar_wait(&full[n % FWD_STAGES], (n / FWD_STAGES) & 1);
-    fwd_step<T, D, ZERO_TAIL>(a, Qs, stage(n), n * FWD_N, t, scale_log2, causal);
+  for (int i = 0; i < total; ++i) {
+    if (tid == 0 && i + 1 < total)
+      fwd_issue_kv<D>(src, stage(i + 1), &full[(i + 1) % FWD_STAGES], n_lo + i + 1);
+    mbar_wait(&full[i % FWD_STAGES], (i / FWD_STAGES) & 1);
+    fwd_step<T, D, ZERO_TAIL, BAND>(a, Qs, stage(i), (n_lo + i) * FWD_N, t, scale_log2,
+                                    causal, -1, band);
   }
   fwd_epilogue<T, D>(a, Qs, t);
 }

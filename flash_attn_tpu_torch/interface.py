@@ -10,7 +10,8 @@ kernel of kernels/flash_fwd.py, the backward those of kernels/flash_bwd.py
 dense route runs the persistent forward of kernels/flash_varlen_persistent.py
 and the backward of kernels/flash_varlen.py; its ``block_table=`` route
 (:499-546), the chunked prefill of the serving engine, runs
-kernels/flash_varlen_paged.py, forward only, or, with the MLA second query
+kernels/flash_varlen_paged.py, forward only (with a sliding window), or,
+with the MLA second query
 ``qv``, kernels/flash_paged_prefill.py (JAX sends ``qv`` there only when d
 or dv is not a multiple of 128, :520-527, and otherwise concatenates q and
 qv for B8, :528-543: a split for the TPU's 128 lanes; the function is the
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.dispatch.band import band_valid, has_band
 from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     normalize_window,
@@ -49,9 +51,18 @@ __all__ = ["flash_attn_func", "flash_attn_kvpacked_func",
            "require_no_grad"]
 
 
-def require_no_grad(name: str, *tensors) -> None:
+def require_no_grad(name: str, *tensors, band: bool = False) -> None:
+    """Raise before any kernel runs when a gradient is asked of a call that
+    has none: a forward-only route, or (``band``) a band mask, whose
+    backward is not ported."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
+        if band:
+            raise NotImplementedError(
+                f"{name}: a window, attention_chunk or sink_token_length is "
+                "forward only so far: the band masks of the backward kernels "
+                "are ROADMAP.md queue A, item 7. Call it under "
+                "torch.no_grad() or torch.inference_mode().")
         raise NotImplementedError(
             f"{name}: forward only; it serves the engine's prefill and decode "
             "steps, which take no gradient in the JAX package either. Call "
@@ -77,22 +88,26 @@ def reject_unsupported(name: str, roadmap_item: str = "", **args) -> None:
             f"{roadmap_item or 'lists the arguments still to port'})")
 
 
-def _reconstruct_s_dmask(q, k, lse, softmax_scale: float, causal: bool):
+def _reconstruct_s_dmask(q, k, lse, softmax_scale: float, causal: bool,
+                         window_size=(None, None), sink_token_length: int = 0,
+                         attention_chunk: int = 0):
     """The (b, h, sq, sk) fp32 attention probabilities that
     ``return_attn_probs`` returns (JAX ``_reconstruct_s_dmask``,
     flash_attn_tpu/interface.py:44): scores rebuilt with torch ops from q
-    and k (GQA by grouping query heads), bottom-right causal, normalised by
-    the kernel's own lse; 0 where masked and on rows that see no key. A
-    testing aid, not a kernel."""
+    and k (GQA by grouping query heads), bottom-right causal and under the
+    band, normalised by the kernel's own lse; 0 where masked and on rows
+    that see no key. A testing aid, not a kernel."""
     b, sq, h, d = q.shape
     sk, h_k = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, sq, h_k, h // h_k, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf * softmax_scale,
                           k.float()).reshape(b, h, sq, sk)
-    if causal:
+    if causal or has_band(causal, window_size, attention_chunk):
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
-        scores = scores.masked_fill(cols > rows + (sk - sq), float("-inf"))
+        valid = band_valid(rows, cols, sk - sq, causal, window_size,
+                           sink_token_length, attention_chunk)
+        scores = scores.masked_fill(~valid, float("-inf"))
     seen = torch.isfinite(lse)[..., None]
     probs = torch.exp(scores - torch.where(seen, lse[..., None], 0.0))
     return torch.where(seen & torch.isfinite(scores), probs, 0.0)
@@ -170,24 +185,38 @@ def flash_attn_func(
     default, as in JAX) runs the dK/dV and dQ backward kernels, each
     writing its gradient once; False runs the fused backward with atomic
     dQ. On the card forward and backward take head dims 64, 96, 128 and
-    256 (HEAD_DIMS; others raise before the forward runs). Only dense
-    causal/non-causal attention is ported; every other option raises
-    NotImplementedError (ROADMAP.md queue A, item 7)."""
+    256 (HEAD_DIMS; others raise before the forward runs).
+    ``window_size`` (left, right; -1 or None for no bound),
+    ``attention_chunk`` and ``sink_token_length`` mask as in JAX
+    (dispatch/band.py), forward only: with a band, a tensor that requires
+    a gradient raises NotImplementedError before the forward runs. Every
+    other option raises NotImplementedError (ROADMAP.md queue A, item
+    7)."""
     reject_unsupported(
         "flash_attn_func", roadmap_item="queue A, item 7", dropout_p=dropout_p,
-        window_size=normalize_window(tuple(window_size)), softcap=softcap,
-        alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
-        sink_token_length=sink_token_length, learnable_sink=learnable_sink,
-        dropout_rng=dropout_rng, q_descale=q_descale, k_descale=k_descale,
-        v_descale=v_descale, qv=qv, score_mod=score_mod, mask_mod=mask_mod,
-        aux_tensors=aux_tensors)
+        softcap=softcap, alibi_slopes=alibi_slopes,
+        learnable_sink=learnable_sink, dropout_rng=dropout_rng,
+        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale, qv=qv,
+        score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
-    out, lse = _FlashAttn.apply(q, k, v, softmax_scale, causal, deterministic)
+    window_size = normalize_window(tuple(window_size))
+    band = dict(window_size=window_size, sink_token_length=sink_token_length,
+                attention_chunk=attention_chunk)
+    if has_band(causal, window_size, attention_chunk):
+        require_no_grad("flash_attn_func", q, k, v, band=True)
+        out_t, lse = flash_attention_fwd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            softmax_scale=softmax_scale, causal=causal, **band)
+        out = out_t.transpose(1, 2)
+    else:
+        out, lse = _FlashAttn.apply(q, k, v, softmax_scale, causal,
+                                    deterministic)
     if not return_attn_probs:
         return out
     with torch.no_grad():
-        s_dmask = _reconstruct_s_dmask(q, k, lse, softmax_scale, causal)
+        s_dmask = _reconstruct_s_dmask(q, k, lse, softmax_scale, causal,
+                                       **band)
     return out, lse, s_dmask
 
 
@@ -268,13 +297,19 @@ def flash_attn_varlen_func(
     nheads, head_dim_v) and the scale defaults to 1/sqrt(head_dim +
     head_dim_v).
 
-    Window, softcap, ALiBi, chunking, sinks, dropout, descales, and ``qv``
-    without ``block_table``, raise NotImplementedError (ROADMAP.md queue A,
-    item 7)."""
+    ``window_size`` (left, right; -1 or None for no bound) masks the
+    ``block_table`` route (B8) as in JAX. A window without ``block_table``
+    (the packed kernels B6 and B7), or with ``qv``, softcap, ALiBi,
+    chunking, sinks, dropout, descales, and ``qv`` without
+    ``block_table``, raise NotImplementedError (ROADMAP.md queue A, item 7).
+    JAX's paged route drops ``attention_chunk`` without a word
+    (flash_attn_tpu/interface.py:447-456); here it raises."""
+    window_size = normalize_window(tuple(window_size))
     reject_unsupported(
         "flash_attn_varlen_func", roadmap_item="queue A, item 7",
         dropout_p=dropout_p,
-        window_size=normalize_window(tuple(window_size)), softcap=softcap,
+        window_size=window_size if block_table is None or qv is not None
+        else (None, None), softcap=softcap,
         alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
         learnable_sink=learnable_sink, dropout_rng=dropout_rng,
         qv=qv if block_table is None else None,
@@ -295,7 +330,8 @@ def flash_attn_varlen_func(
             return (out, lse) if return_attn_probs else out
         out, lse = flash_attention_varlen_paged_fwd(
             q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k, block_table,
-            seqused_q=seqused_q, softmax_scale=softmax_scale, causal=causal)
+            seqused_q=seqused_q, softmax_scale=softmax_scale, causal=causal,
+            window_size=window_size)
         return (out, lse) if return_attn_probs else out
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])

@@ -4,7 +4,12 @@ kernels ``csrc/flash_decode.cu`` (d = dv) and ``csrc/flash_decode_mla.cu``
 
 Port of flash_attn_tpu/kernels/flash_decode.py ``flash_attention_decode``
 (linear and paged cache, causal or not, GQA, ``num_splits`` >= 1, the MLA
-second query ``qv`` and a value width dv != d). The caches keep the JAX
+second query ``qv`` and a value width dv != d), with the band masks of its
+d = dv route: ``window_size`` and ``attention_chunk`` (the kernel masks
+:202-214; JAX's decode has no sink tokens). With a band the splits share
+out only the key tiles from the band's first (:func:`band_first_tile`);
+the tiles below it are masked for every row, so the merged result is
+JAX's, which reads and masks them. The MLA route refuses a band. The caches keep the JAX
 layouts: linear (b_c, h_k, s_max, d), paged (num_pages, h_k, page_size, d)
 with a (b, max_pages) int32 block table, V the same with dv; a paged row's
 capacity is max_pages * page_size positions. Each split writes an fp32
@@ -21,6 +26,12 @@ from typing import Optional
 
 import torch
 
+from flash_attn_tpu_torch.dispatch.band import (
+    band_args,
+    band_valid,
+    has_band,
+    reach_window,
+)
 from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
     DECODE_ROWS_PER_BLOCK,
@@ -38,9 +49,12 @@ from flash_attn_tpu_torch.utils.testing import paged_to_linear
 LOG2E = math.log2(math.e)
 
 # Kernel launches since the last reset (plain calls not counted): the d = dv
-# route over a linear and over a paged cache, and the MLA route over either.
+# route over a linear and over a paged cache, those of them with a band,
+# and the MLA route over either.
 launches = 0
 launches_paged = 0
+launches_band = 0
+launches_paged_band = 0
 launches_mla = 0
 
 
@@ -52,10 +66,28 @@ def cache_capacity(k_cache, block_table=None) -> int:
     return block_table.shape[1] * k_cache.shape[2]
 
 
-def _split_bounds(cache_seqlens, num_splits: int, block_k: int):
-    """Per batch row, the key count of each split's contiguous run of
-    block_k tiles (the TPU kernel's partition, flash_decode.py:119-122)."""
+def band_first_tile(cache_seqlens, sq: int, window_left, attention_chunk,
+                    block_k: int):
+    """(b,) the first key tile of each batch row's band: the tile of the
+    lowest key its first query token (position cache_seqlens - sq) sees
+    under the window's left extent and the chunk; 0 without either. The
+    kernel computes the same from cache_seqlens on the card."""
+    rs = cache_seqlens - sq
+    lo = torch.zeros_like(cache_seqlens)
+    if window_left is not None:
+        lo = torch.maximum(lo, rs - window_left)
+    if attention_chunk > 0:
+        lo = torch.maximum(lo, rs - rs % attention_chunk)
     tiles = (cache_seqlens + block_k - 1) // block_k
+    return torch.minimum(lo // block_k, tiles)
+
+
+def _split_bounds(cache_seqlens, num_splits: int, block_k: int,
+                  first_tile=0):
+    """Per batch row, the key count of each split's contiguous run of
+    block_k tiles from ``first_tile`` (the TPU kernel's partition,
+    flash_decode.py:119-122, over the band's tiles)."""
+    tiles = (cache_seqlens + block_k - 1) // block_k - first_tile
     kps = (tiles + num_splits - 1) // num_splits
     return kps * block_k  # (b,) keys per split
 
@@ -71,7 +103,9 @@ def _pack_rows(x, h_k):
 def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
                                           num_splits: int, block_k: int,
                                           softmax_scale: float, causal: bool,
-                                          qv=None):
+                                          qv=None,
+                                          window_size=(None, None),
+                                          attention_chunk: int = 0):
     """fp32 matmul, mask and softmax per split; scores q k^T (+ qv v^T).
     Returns (out_p (num_splits, b, h_k, sq * group, dv), lse_p (num_splits,
     b, h_k, sq * group))."""
@@ -88,14 +122,14 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
     sk = cache_seqlens.long().clamp(max=s_max)  # the kernel cuts at capacity
     pos = torch.arange(s_max, device=q.device)
     tok = torch.arange(rows, device=q.device) // group
-    if causal:
-        limit = tok[None, :] + (sk - sq)[:, None]              # (b, R)
-    else:
-        limit = (sk - 1)[:, None].expand(b, rows)
-    valid = (pos[None, None, :] <= limit[:, :, None]) \
+    valid = band_valid(tok[None, :, None], pos[None, None, :],
+                       (sk - sq)[:, None, None], causal, window_size,
+                       attention_chunk=attention_chunk, chunk_upper=False) \
         & (pos[None, None, :] < sk[:, None, None])              # (b, R, S)
-    per_split = _split_bounds(sk, num_splits, block_k).clamp(min=1)
-    split_of = pos[None, :] // per_split[:, None]               # (b, S)
+    first = band_first_tile(sk, sq, window_size[0], attention_chunk, block_k)
+    per_split = _split_bounds(sk, num_splits, block_k, first).clamp(min=1)
+    split_of = (pos[None, :] - (first * block_k)[:, None]).div(
+        per_split[:, None], rounding_mode="floor")              # (b, S)
     outs, lses = [], []
     for sp in range(num_splits):
         m = valid & (split_of == sp)[:, None, :]
@@ -109,7 +143,8 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
 
 def flash_attention_decode_paged_partials_plain(
         q, k_pages, v_pages, cache_seqlens, block_table, num_splits: int,
-        block_k: int, softmax_scale: float, causal: bool, qv=None):
+        block_k: int, softmax_scale: float, causal: bool, qv=None,
+        window_size=(None, None), attention_chunk: int = 0):
     """The paged cache's plain version: gather the pages into the linear
     layout, then :func:`flash_attention_decode_partials_plain`."""
     cap = cache_capacity(k_pages, block_table)
@@ -117,12 +152,15 @@ def flash_attention_decode_paged_partials_plain(
     return flash_attention_decode_partials_plain(
         q, paged_to_linear(k_pages, block_table, lengths),
         paged_to_linear(v_pages, block_table, lengths), cache_seqlens,
-        num_splits, block_k, softmax_scale, causal, qv=qv)
+        num_splits, block_k, softmax_scale, causal, qv=qv,
+        window_size=window_size, attention_chunk=attention_chunk)
 
 
 def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
                                     num_splits: int, softmax_scale: float,
-                                    causal: bool, block_table=None, qv=None):
+                                    causal: bool, block_table=None, qv=None,
+                                    window_size=(None, None),
+                                    attention_chunk: int = 0):
     """Split partials of decode attention; see
     :func:`flash_attention_decode_partials_plain` for the shapes.
     ``cache_seqlens`` (b,) int32 are the cache lengths after any append;
@@ -134,14 +172,15 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     multiples of 16 bytes, or whose start is not 16-byte aligned, raises
     ValueError."""
     paged = block_table is not None
+    band = dict(window_size=window_size, attention_chunk=attention_chunk)
     if q.device.type == "cpu":
         if paged:
             return flash_attention_decode_paged_partials_plain(
                 q, k_cache, v_cache, cache_seqlens, block_table, num_splits,
-                DECODE_BLOCK_K, softmax_scale, causal, qv=qv)
+                DECODE_BLOCK_K, softmax_scale, causal, qv=qv, **band)
         return flash_attention_decode_partials_plain(
             q, k_cache, v_cache, cache_seqlens, num_splits, DECODE_BLOCK_K,
-            softmax_scale, causal, qv=qv)
+            softmax_scale, causal, qv=qv, **band)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     b, sq, h, d = q.shape
@@ -165,6 +204,10 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
         raise ValueError("flash_decode kernel: cache_seqlens must be a "
                          "contiguous (b,) tensor")
     if is_mla_form(d, v_cache.shape[-1], qv is not None):
+        if has_band(causal, window_size, attention_chunk):
+            raise NotImplementedError(
+                "flash_decode kernel: a window or attention_chunk on the MLA "
+                "route is not ported yet (ROADMAP.md queue A, item 7)")
         return _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
                              softmax_scale, causal, block_table, qv)
     check_head_dims("flash_decode (the d = dv route)", d, dk,
@@ -193,14 +236,18 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
             block_table.stride(0) if paged else 0,
             softmax_scale * LOG2E, int(causal),
-            int(q.dtype == torch.bfloat16),
+            *band_args(causal, window_size, 0, attention_chunk)[:2],
+            attention_chunk, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_decode")
-    global launches, launches_paged
+    global launches, launches_paged, launches_band, launches_paged_band
+    band = has_band(causal, window_size, attention_chunk)
     if paged:
         launches_paged += 1
+        launches_paged_band += band
     else:
         launches += 1
+        launches_band += band
     return out_p, lse_p
 
 
@@ -280,12 +327,16 @@ def _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
 def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
                            softmax_scale: Optional[float] = None,
                            causal: bool = False, num_splits: int = 1,
-                           block_table=None, qv=None):
+                           block_table=None, qv=None,
+                           window_size=(None, None),
+                           attention_chunk: int = 0):
     """q (b, sq, h, d); caches (b_c, h_k, s_max, d) and (b_c, h_k, s_max,
     dv), or pages (num_pages, h_k, page_size, d / dv) with ``block_table``
     (b, max_pages) int32; cache_seqlens (b,) int32 cache lengths after any
-    append; ``qv`` (b, sq, h, dv) adds qv v^T to the scores. Returns (out
-    (b, sq, h, dv) in q's type, lse (b, h, sq) fp32)."""
+    append; ``qv`` (b, sq, h, dv) adds qv v^T to the scores;
+    ``window_size`` (left, right) with None for no bound and
+    ``attention_chunk`` as in the JAX function. Returns (out (b, sq, h, dv)
+    in q's type, lse (b, h, sq) fp32)."""
     b, sq, h, d = q.shape
     h_k = k_cache.shape[1]
     group = h // h_k
@@ -295,7 +346,9 @@ def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
     num_splits = max(1, min(num_splits, -(-cap // DECODE_BLOCK_K)))
     out_p, lse_p = flash_attention_decode_partials(
         q, k_cache, v_cache, cache_seqlens, num_splits, softmax_scale, causal,
-        block_table=block_table, qv=qv)
+        block_table=block_table, qv=qv,
+        window_size=reach_window(window_size, causal, sq, cap),
+        attention_chunk=attention_chunk)
     if num_splits == 1:
         out, lse = out_p[0], lse_p[0]
     else:

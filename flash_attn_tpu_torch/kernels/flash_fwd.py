@@ -3,17 +3,28 @@ wgmma/TMA tile of csrc/fwd_sm90.cuh) and its plain PyTorch version.
 
 Port of flash_attn_tpu/kernels/flash_fwd.py ``flash_attention_fwd`` (and of
 the causal split in flash_fwd_split.py, whose diagonal work the one CUDA
-kernel does in a masked phase). Layout (b, h, s, d) as in the JAX function.
+kernel does in a masked phase), with its band masks: ``window_size``,
+``attention_chunk`` and ``sink_token_length`` (dispatch/band.py). A call
+with a band launches the kernel's band instantiation, which walks only the
+key tiles of the band; one without launches the band-free one, which is
+the kernel of the earlier releases bit for bit. Layout (b, h, s, d) as in
+the JAX function.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises (TMA takes only 16-byte aligned starts and strides: any
 other view raises ValueError, nothing is copied).
 """
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.dispatch.band import (
+    band_args,
+    band_valid,
+    has_band,
+    reach_window,
+)
 from flash_attn_tpu_torch.dispatch.config import (
     HEAD_DIMS,
     FWD_TILE,
@@ -23,11 +34,19 @@ from flash_attn_tpu_torch.kernels import _build
 
 LOG2E = math.log2(math.e)
 
-launches = 0  # kernel launches since the last reset (plain calls not counted)
+# Kernel launches since the last reset (plain calls not counted): all of
+# them, and those of the band instantiation among them.
+launches = 0
+launches_band = 0
+
+Window = Tuple[Optional[int], Optional[int]]
 
 
 def flash_attention_fwd_plain(q, k, v, softmax_scale: Optional[float] = None,
-                              causal: bool = False):
+                              causal: bool = False,
+                              window_size: Window = (None, None),
+                              sink_token_length: int = 0,
+                              attention_chunk: int = 0):
     """Matmul, mask and softmax in fp32. q (b, h, sq, d), k/v (b, h_k, sk,
     d/dv). Returns out (b, h, sq, dv) in q's type and the natural-log lse
     (b, h, sq) in fp32, -inf (and out 0) for rows that see no key."""
@@ -38,10 +57,12 @@ def flash_attention_fwd_plain(q, k, v, softmax_scale: Optional[float] = None,
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
-    if causal:
+    if causal or has_band(causal, window_size, attention_chunk):
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows + (sk - sq), float("-inf"))
+        valid = band_valid(rows, cols, sk - sq, causal, window_size,
+                           sink_token_length, attention_chunk)
+        s = s.masked_fill(~valid, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     seen = torch.isfinite(lse)
     p = torch.exp(s - torch.where(seen, lse, 0.0)[..., None])
@@ -50,13 +71,20 @@ def flash_attention_fwd_plain(q, k, v, softmax_scale: Optional[float] = None,
 
 
 def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
-                        causal: bool = False):
+                        causal: bool = False,
+                        window_size: Window = (None, None),
+                        sink_token_length: int = 0,
+                        attention_chunk: int = 0):
     """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
     contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
     fp32). CUDA: bf16/fp16, d in HEAD_DIMS (64, 96, 128, 256),
-    h % h_k == 0."""
+    h % h_k == 0. ``window_size`` (left, right) with None for no bound,
+    ``sink_token_length`` and ``attention_chunk`` as in the JAX function
+    (dispatch/band.py)."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, softmax_scale, causal)
+        return flash_attention_fwd_plain(
+            q, k, v, softmax_scale, causal, window_size, sink_token_length,
+            attention_chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -82,6 +110,8 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
         out.zero_()
         lse.fill_(float("-inf"))
         return out.transpose(1, 2), lse
+    window = reach_window(window_size, causal, sq, sk)
+    band = has_band(causal, window, attention_chunk)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.fa_fwd(
@@ -92,9 +122,12 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
             k.stride(0), k.stride(2), k.stride(1),
             v.stride(0), v.stride(2), v.stride(1),
             out.stride(0), out.stride(1), out.stride(2),
-            scale * LOG2E, int(causal), int(q.dtype == torch.bfloat16),
+            scale * LOG2E, int(causal),
+            *band_args(causal, window, sink_token_length, attention_chunk),
+            int(band), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_fwd")
-    global launches
+    global launches, launches_band
     launches += 1
+    launches_band += band
     return out.transpose(1, 2), lse

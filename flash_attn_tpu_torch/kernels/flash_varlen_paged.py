@@ -3,7 +3,10 @@
 
 Port of flash_attn_tpu/kernels/flash_varlen_paged.py
 ``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in HEAD_DIMS,
-no window, softcap, descales, learnable sink or ``qv``). Query chunks are
+with its sliding window, :249-254; no softcap, descales, learnable sink or
+``qv``: the JAX kernel has no chunk or sink tokens either). A call with a
+window launches the kernel's band instantiation, whose blocks read only
+the pages of their rows' window. Query chunks are
 packed along one token axis by ``cu_seqlens_q``; ``seqused_q`` gives each
 sequence's true length when the layout pads every slot to one length (the
 padded-flat layout of the engine's prefix-cached prefill). The JAX function
@@ -22,6 +25,12 @@ from typing import Optional
 
 import torch
 
+from flash_attn_tpu_torch.dispatch.band import (
+    band_args,
+    band_valid,
+    has_band,
+    reach_window,
+)
 from flash_attn_tpu_torch.dispatch.config import (
     HEAD_DIMS,
     FWD_TILE,
@@ -36,7 +45,10 @@ from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
 LOG2E = math.log2(math.e)
 
-launches = 0  # kernel launches since the last reset (plain calls not counted)
+# Kernel launches since the last reset (plain calls not counted): all of
+# them, and those of the band instantiation among them.
+launches = 0
+launches_band = 0
 
 
 def tile_ends(lens_q, block_q: int):
@@ -56,7 +68,7 @@ def _lengths(cu_seqlens_q, seqused_q):
 def flash_attention_varlen_paged_fwd_plain(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
-        causal: bool = False):
+        causal: bool = False, window_size=(None, None)):
     """Gather the pages into the linear layout, pad the packed queries per
     sequence, and compute masked attention in fp32. Returns out (total_q, h,
     dv) in q's type and lse (h, total_q) fp32, with zeros and -inf for the
@@ -82,9 +94,10 @@ def flash_attention_varlen_paged_fwd_plain(
     pos_k = torch.arange(k_lin.shape[2], device=dev)
     valid = (pos_q[None, :, None] < lens_q[:, None, None]) \
         & (pos_k[None, None, :] < lens_k[:, None, None])
-    if causal:
+    if causal or has_band(causal, window_size):
         shift = (lens_k - lens_q)[:, None, None]
-        valid = valid & (pos_k[None, None, :] <= pos_q[None, :, None] + shift)
+        valid = valid & band_valid(pos_q[None, :, None], pos_k[None, None, :],
+                                   shift, causal, window_size)
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
     lse = torch.logsumexp(s, dim=-1)                        # (b, h_k, g, M)
     p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
@@ -106,16 +119,17 @@ def flash_attention_varlen_paged_fwd_plain(
 def flash_attention_varlen_paged_fwd(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
-        causal: bool = False):
+        causal: bool = False, window_size=(None, None)):
     """q (total_q, h, d) packed by cu_seqlens_q (b + 1,); pages (num_pages,
     h_k, page_size, d); seqlens_k (b,) key counts including the chunk;
     block_table (b, max_pages); seqused_q (b,) true query lengths or None.
-    ``max_seqlen_q`` bounds cu_seqlens_q's deltas. Returns (out (total_q, h,
-    d) in q's type, lse (h, total_q) fp32)."""
+    ``max_seqlen_q`` bounds cu_seqlens_q's deltas; ``window_size`` (left,
+    right) with None for no bound. Returns (out (total_q, h, d) in q's
+    type, lse (h, total_q) fp32)."""
     if q.device.type == "cpu":
         return flash_attention_varlen_paged_fwd_plain(
             q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q, seqlens_k,
-            block_table, seqused_q, softmax_scale, causal)
+            block_table, seqused_q, softmax_scale, causal, window_size)
     if q.device.type != "cuda":
         raise ValueError(f"flash_varlen_paged: unsupported device {q.device}")
     total_q, h, d = q.shape
@@ -148,6 +162,10 @@ def flash_attention_varlen_paged_fwd(
     out = torch.zeros_like(q)
     lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
                      device=q.device)
+    # keys a sequence can hold: its pages
+    window = reach_window(window_size, causal, max_seqlen_q,
+                          table.shape[1] * page_size)
+    band = has_band(causal, window)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.fa_varlen_paged(
@@ -160,9 +178,11 @@ def flash_attention_varlen_paged_fwd(
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
             v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
             out.stride(0), out.stride(1), table.stride(0),
-            scale * LOG2E, int(causal), int(q.dtype == torch.bfloat16),
+            scale * LOG2E, int(causal), *band_args(causal, window)[:2],
+            int(band), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_varlen_paged")
-    global launches
+    global launches, launches_band
     launches += 1
+    launches_band += band
     return out, lse

@@ -4,8 +4,10 @@
 The configuration carries the JAX package's fields; the port runs rotary
 or learned positions, RMSNorm/LayerNorm, gated or plain MLP, GQA, the
 sequential and the parallel block (tied or untied norms), a tied, untied
-or NormHead head, the muP scalars, the paged cache and per-block
-activation rematerialization in train mode (``remat``), and raises
+or NormHead head, the muP scalars, the paged cache, per-block
+activation rematerialization in train mode (``remat``) and, for serving,
+a sliding window (``window_size``, passed to every attention call; its
+gradient is not ported, and a Trainer on such a config raises), and raises
 NotImplementedError for the rest. Parameters mirror flax's values: the
 Dense and embedding weights in the compute type (flax keeps them in fp32
 and casts them to it at every call, which gives the same values), the norm
@@ -103,7 +105,6 @@ def gpt_913m(max_decode_seqlen: int = 0, dtype=torch.bfloat16) -> GPTConfig:
 def _check_ported(cfg: GPTConfig) -> None:
     missing = {
         "use_alibi (ROADMAP.md queue A item 7)": cfg.use_alibi,
-        "window_size (queue A item 7)": tuple(cfg.window_size) != (-1, -1),
         "softcap (queue A item 7)": cfg.softcap > 0.0,
         "kv_cache_dtype (quantized caches, ROADMAP.md queue A item 7)":
             cfg.kv_cache_dtype is not None,
@@ -167,8 +168,8 @@ def _make_mixer(cfg: GPTConfig, device):
         rotary_emb_interleaved=cfg.rotary_emb_interleaved,
         max_decode_seqlen=cfg.max_decode_seqlen,
         paged_kv_num_pages=cfg.paged_kv_num_pages,
-        paged_kv_page_size=cfg.paged_kv_page_size, dtype=cfg.dtype,
-        device=device)
+        paged_kv_page_size=cfg.paged_kv_page_size,
+        window_size=cfg.window_size, dtype=cfg.dtype, device=device)
 
 
 def _make_block(cfg: GPTConfig, device):

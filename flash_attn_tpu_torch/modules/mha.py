@@ -24,6 +24,13 @@ rows: conv1d(groups=qkv_dim)'s arithmetic, without the TF32 rounding that
 a float32 convolution takes on the card by default. Not with packed
 sequences or prefix caching, as in JAX.
 
+``window_size`` (JAX mha.py:85; -1 for no bound) is passed to every
+attention call, as JAX's :225, :289, :352 and :381 pass it: the dense
+prefill and train mode (B1), decode (B4, linear and paged), the
+prefix-cached admission (B8) and the packed path, whose kernels (B6 and
+B7) take no band yet and raise. A window with a gradient raises too
+(interface.py): the backward kernels take no band yet.
+
 The cache lives in a :class:`KVCache` the caller passes in (the JAX
 module's flax "cache" collection), in the JAX layouts: linear (n_slots,
 h_k, s_alloc, d) with s_alloc = max_decode_seqlen rounded up to a multiple
@@ -131,14 +138,16 @@ class MHA(nn.Module):
                  rotary_emb_dim: int = 0, rotary_emb_base: float = 10000.0,
                  rotary_emb_interleaved: bool = False, dwconv: bool = False,
                  max_decode_seqlen: int = 2048, paged_kv_num_pages: int = 0,
-                 paged_kv_page_size: int = 128, dtype=torch.bfloat16,
-                 device=None):
+                 paged_kv_page_size: int = 128,
+                 window_size: Tuple[int, int] = (-1, -1),
+                 dtype=torch.bfloat16, device=None):
         super().__init__()
         device = resolve_device(device)
         self.num_heads = num_heads
         self.num_heads_kv = num_heads_kv or num_heads
         self.head_dim = head_dim or embed_dim // num_heads
         self.causal = causal
+        self.window_size = tuple(window_size)
         self.softmax_scale = softmax_scale
         self.max_decode_seqlen = max_decode_seqlen
         self.paged_kv_num_pages = paged_kv_num_pages
@@ -291,6 +300,7 @@ class MHA(nn.Module):
                 rotary_sin=sin,
                 rotary_interleaved=rope is not None and rope.interleaved,
                 cache_seqlens=cache.offset, causal=self.causal,
+                window_size=self.window_size,
                 softmax_scale=self.softmax_scale,
                 block_table=self._table_rows(block_table, None))
             cache.offset += s
@@ -320,6 +330,7 @@ class MHA(nn.Module):
             ctx = flash_attn_varlen_func(
                 q.reshape(b * s, h, d), cache.k, cache.v, cu, None, s,
                 self.max_decode_seqlen, causal=self.causal,
+                window_size=self.window_size,
                 softmax_scale=self.softmax_scale, block_table=table,
                 seqused_k=total_k, seqused_q=lengths)
             return self.out_proj(ctx.reshape(b, s, h * d))
@@ -330,6 +341,7 @@ class MHA(nn.Module):
             q = apply_rotary_emb(q, cos, sin, rope.interleaved)
             k = apply_rotary_emb(k, cos, sin, rope.interleaved)
         ctx = flash_attn_func(q, k, v, causal=self.causal,
+                              window_size=self.window_size,
                               softmax_scale=self.softmax_scale)
         if prefill:
             zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -362,7 +374,8 @@ class MHA(nn.Module):
                                  cu_seqlens=cu_seqlens, max_seqlen=max_seqlen)
         ctx = flash_attn_varlen_func(
             q, k, v, cu_seqlens, cu_seqlens, max_seqlen, max_seqlen,
-            causal=self.causal, softmax_scale=self.softmax_scale)
+            causal=self.causal, window_size=self.window_size,
+            softmax_scale=self.softmax_scale)
         return self.out_proj(ctx.reshape(total, h * d))
 
     def jax_param_arrays(self, params) -> Dict[str, object]:

@@ -1,8 +1,10 @@
 """Golden reference attention and the repo's numerics contract.
 
 Port of flash_attn_tpu/utils/testing.py ``attention_ref`` (:177, with
-query and key padding masks), ``generate_random_padding_mask`` (:154) and
-``check_against_ref`` (:306), for the masks the port supports, with the
+query and key padding masks, the sliding window, sink tokens and chunks),
+``construct_local_mask`` (:34), ``construct_chunk_mask`` (:81),
+``generate_random_padding_mask`` (:154) and ``check_against_ref`` (:306),
+for the masks the port supports, with the
 packed-varlen references (``attention_varlen_ref`` and its gradients) and
 the paged-cache references of the serving engine (``paged_to_linear``,
 ``attention_varlen_paged_ref``). The contract: a kernel's output, computed in bf16/fp16, must satisfy
@@ -23,7 +25,8 @@ from flash_attn_tpu_torch.dispatch.config import default_scale
 
 __all__ = ["attention_ref", "attention_ref_grads", "attention_varlen_paged_ref",
            "attention_varlen_ref", "attention_varlen_ref_grads",
-           "check_against_ref", "generate_random_padding_mask",
+           "check_against_ref", "construct_chunk_mask",
+           "construct_local_mask", "generate_random_padding_mask",
            "paged_to_linear"]
 
 
@@ -52,6 +55,62 @@ def generate_random_padding_mask(max_seqlen: int, batch_size: int, rng,
     return torch.from_numpy(mask).to(device)
 
 
+def _unpadded_lengths(seqlen_q, seqlen_k, query_padding_mask,
+                      key_padding_mask):
+    """(sq, sk): the query and key counts, per batch row (b, 1, 1, 1) where
+    a padding mask is given."""
+    sk = (seqlen_k if key_padding_mask is None
+          else key_padding_mask.sum(-1).reshape(-1, 1, 1, 1))
+    sq = (seqlen_q if query_padding_mask is None
+          else query_padding_mask.sum(-1).reshape(-1, 1, 1, 1))
+    return sq, sk
+
+
+def construct_local_mask(seqlen_q: int, seqlen_k: int,
+                         window_size=(None, None),
+                         sink_token_length: int = 0,
+                         query_padding_mask=None, key_padding_mask=None,
+                         device=None):
+    """True where a (query row, key) pair is MASKED OUT by the local window,
+    bottom-right aligned over the unpadded counts (shift = sk - sq): row i
+    sees keys i + shift - left .. i + shift + right, and the first
+    ``sink_token_length`` keys whatever the left extent. A None extent is
+    no bound (JAX's function needs a right extent). (sq, sk), or (b, 1, sq,
+    sk) with a padding mask."""
+    row = torch.arange(seqlen_q, device=device)[:, None]
+    col = torch.arange(seqlen_k, device=device)[None, :]
+    sq, sk = _unpadded_lengths(seqlen_q, seqlen_k, query_padding_mask,
+                               key_padding_mask)
+    shift = sk - sq
+    left, right = window_size
+    masked = torch.zeros(torch.broadcast_shapes(
+        getattr(shift, "shape", ()), (seqlen_q, seqlen_k)), dtype=torch.bool,
+        device=device)
+    if right is not None:
+        masked = masked | (col > torch.minimum(
+            row + shift + right, torch.as_tensor(sk, device=device)))
+    if left is not None:
+        masked = masked | ((col < row + shift - left)
+                           & (col >= sink_token_length))
+    return masked
+
+
+def construct_chunk_mask(seqlen_q: int, seqlen_k: int, attention_chunk: int,
+                         query_padding_mask=None, key_padding_mask=None,
+                         device=None):
+    """True where a pair is MASKED OUT by chunked attention (llama4's): row
+    i sees only the keys of the chunk of i + shift, [lo, lo +
+    attention_chunk) with lo that position rounded down (floor) to a
+    multiple of the chunk."""
+    row = torch.arange(seqlen_q, device=device)[:, None]
+    col = torch.arange(seqlen_k, device=device)[None, :]
+    sq, sk = _unpadded_lengths(seqlen_q, seqlen_k, query_padding_mask,
+                               key_padding_mask)
+    pos = row + sk - sq
+    lo = pos - pos % attention_chunk
+    return (col < lo) | (col >= lo + attention_chunk)
+
+
 def attention_ref(
     q,  # (b, sq, h, d)
     k,  # (b, sk, h_k, d)
@@ -62,14 +121,19 @@ def attention_ref(
     upcast: bool = True,
     query_padding_mask=None,  # (b, sq) bool, True = keep
     qv=None,  # (b, sq, h, dv): the MLA second query, scored against v
+    window_size=(None, None),
+    sink_token_length: int = 0,
+    attention_chunk: int = 0,
 ):
     """Full-matrix attention, fp32 by default (``upcast``), else in the
     inputs' type. Scores are q k^T (+ qv v^T) times the scale, 1/sqrt(d)
-    (1/sqrt(d + dv) with ``qv``). Bottom-right aligned causal mask (over the
-    unpadded query and key counts), GQA by grouping the query heads of each
-    KV head (K and V are not repeated), zero output for rows that see no
-    key and for padded query rows. Returns (output (b, sq, h, dv),
-    attention (b, h, sq, sk))."""
+    (1/sqrt(d + dv) with ``qv``). Bottom-right aligned causal, local
+    (``window_size`` (left, right), None for no bound, with
+    ``sink_token_length`` sink keys) and chunk masks (over the unpadded
+    query and key counts), GQA by grouping the query heads of each KV head
+    (K and V are not repeated), zero output for rows that see no key and
+    for padded query rows. Returns (output (b, sq, h, dv), attention (b, h,
+    sq, sk))."""
     dtype_og = q.dtype
     if upcast:
         q, k, v = q.float(), k.float(), v.float()
@@ -92,13 +156,15 @@ def attention_ref(
     if key_padding_mask is not None:
         scores = scores.masked_fill(~key_padding_mask[:, None, None, :], neg_inf)
     if causal:
-        row = torch.arange(seqlen_q, device=q.device)[:, None]
-        col = torch.arange(seqlen_k, device=q.device)[None, :]
-        sk = (seqlen_k if key_padding_mask is None
-              else key_padding_mask.sum(-1).reshape(-1, 1, 1, 1))
-        sq = (seqlen_q if query_padding_mask is None
-              else query_padding_mask.sum(-1).reshape(-1, 1, 1, 1))
-        scores = scores.masked_fill(col > row + sk - sq, neg_inf)
+        window_size = (window_size[0], 0)
+    if window_size != (None, None):
+        scores = scores.masked_fill(construct_local_mask(
+            seqlen_q, seqlen_k, window_size, sink_token_length,
+            query_padding_mask, key_padding_mask, q.device), neg_inf)
+    if attention_chunk > 0:
+        scores = scores.masked_fill(construct_chunk_mask(
+            seqlen_q, seqlen_k, attention_chunk, query_padding_mask,
+            key_padding_mask, q.device), neg_inf)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - torch.where(torch.isneginf(m), 0.0, m))
     e = torch.where(torch.isneginf(scores), 0.0, e)
@@ -148,13 +214,14 @@ def attention_varlen_paged_ref(q, k_pages, v_pages, cu_seqlens_q, seqlens_k,
                                block_table, seqused_q=None,
                                causal: bool = False,
                                softmax_scale: Optional[float] = None,
-                               upcast: bool = True, qv=None):
+                               upcast: bool = True, qv=None,
+                               window_size=(None, None)):
     """Packed-varlen attention over a paged cache, one :func:`attention_ref`
     call per sequence. Sequence i owns the packed rows cu_seqlens_q[i] ..
     cu_seqlens_q[i + 1]; its first seqused_q[i] rows (all when seqused_q
     is None) attend to its first seqlens_k[i] keys with bottom-right causal
-    alignment, the rest give zeros. ``qv`` (total_q, h, dv) adds qv v^T to
-    the scores. Returns out (total_q, h, dv)."""
+    alignment (and ``window_size``), the rest give zeros. ``qv`` (total_q,
+    h, dv) adds qv v^T to the scores. Returns out (total_q, h, dv)."""
     cu = cu_seqlens_q.tolist()
     lens_k = seqlens_k.tolist()
     used = (seqused_q.tolist() if seqused_q is not None
@@ -169,7 +236,8 @@ def attention_varlen_paged_ref(q, k_pages, v_pages, cu_seqlens_q, seqlens_k,
         o, _ = attention_ref(
             q[None, lo:lo + lq], k_lin[i:i + 1, :lk], v_lin[i:i + 1, :lk],
             causal=causal, softmax_scale=softmax_scale, upcast=upcast,
-            qv=None if qv is None else qv[None, lo:lo + lq])
+            qv=None if qv is None else qv[None, lo:lo + lq],
+            window_size=window_size)
         out[lo:lo + lq] = o[0]
     return out
 

@@ -18,7 +18,13 @@ from flash_attn_tpu_torch import flash_attn_func, flash_attn_with_kvcache
 from flash_attn_tpu_torch.cache.kvcache import kv_cache_update
 from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
 from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
-from flash_attn_tpu_torch.utils.cases import VARLEN_CASES
+from flash_attn_tpu_torch.utils.cases import (
+    BAND_DECODE_CASES,
+    BAND_FWD_CASES,
+    BAND_VARLEN_CASE,
+    MISTRAL_WINDOW,
+    VARLEN_CASES,
+)
 
 torch.set_num_threads(1)
 
@@ -61,7 +67,9 @@ def test_no_library_attention_in_the_package():
     dict(alibi_slopes=torch.ones(2)), dict(qv=torch.ones(1)),
     dict(score_mod=lambda s, *a: s)])
 def test_flash_attn_func_rejects_unported_options(kwargs):
-    q = torch.randn(1, 8, 2, 64)
+    """Each raises before the forward runs; the window only with a gradient
+    (its backward is not ported; the forward is: tests/test_torch_band.py)."""
+    q = torch.randn(1, 8, 2, 64, requires_grad=True)
     with pytest.raises(NotImplementedError):
         flash_attn_func(q, q, q, **kwargs)
 
@@ -2243,3 +2251,264 @@ def test_remat_losses_equal_across_policies_on_the_card():
         assert torch.equal(loss, want_loss), key
         assert all(torch.equal(g, w) for g, w in zip(grads, want_grads)), key
         assert n == 4, key
+
+
+def _band_refs(q, k, v, causal, band):
+    """The fp32 plain forward (out (b, sq, h, d), lse (b, h, sq)) and the
+    bf16 reference (attention_ref, upcast=False) of (b, s, h, d) q, k, v
+    under ``band``, a batch row and a KV head at a time (no score matrix
+    past one KV head's group)."""
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import attention_ref
+
+    b, sq, h, d = q.shape
+    h_k = k.shape[2]
+    g = h // h_k
+    ref = torch.empty(b, sq, h, d, device=q.device)
+    lse = torch.empty(b, h, sq, device=q.device)
+    ref_lp = torch.empty_like(q)
+    for bi in range(b):
+        for kh in range(h_k):
+            qs = slice(kh * g, kh * g + g)
+            qc, kc, vc = (q[bi:bi + 1, :, qs], k[bi:bi + 1, :, kh:kh + 1],
+                          v[bi:bi + 1, :, kh:kh + 1])
+            o, l = flash_fwd.flash_attention_fwd_plain(
+                *(x.transpose(1, 2).float() for x in (qc, kc, vc)),
+                causal=causal, **band)
+            ref[bi, :, qs], lse[bi, qs] = o[0].transpose(0, 1), l[0]
+            ref_lp[bi, :, qs] = attention_ref(qc, kc, vc, causal=causal,
+                                              upcast=False, **band)[0][0]
+    return ref, lse, ref_lp
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", BAND_FWD_CASES, ids=lambda c: c[0])
+def test_band_forward_kernel_matches_plain_version_on_the_card(case):
+    """B1's band instantiation on every BAND_FWD_CASES case (one batch row
+    of it): the 2x rule against the fp32 plain forward with a bf16
+    reference, lse within 1e-3 on the rows that see a key and -inf on the
+    same rows, the same bits twice, counted as the band's launches."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    name, _, sq, sk, h, h_k, d, causal, window, chunk, sink = case
+    band = dict(window_size=normalize_window(window), sink_token_length=sink,
+                attention_chunk=chunk)
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    q, k, v = (torch.randn(1, n, heads, d, device="cuda", generator=gen)
+               .bfloat16() for n, heads in ((sq, h), (sk, h_k), (sk, h_k)))
+    args = [x.transpose(1, 2) for x in (q, k, v)]
+    before = flash_fwd.launches_band
+    out, lse = flash_fwd.flash_attention_fwd(*args, causal=causal, **band)
+    again = flash_fwd.flash_attention_fwd(*args, causal=causal, **band)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches_band == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse, ref_lp = _band_refs(q, k, v, causal, band)
+    check_against_ref(out.transpose(1, 2), ref, ref_lp, msg=name)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", BAND_DECODE_CASES, ids=lambda c: c[0])
+def test_band_decode_kernel_matches_plain_version_on_the_card(case):
+    """B4 under the band on every BAND_DECODE_CASES case, linear and paged:
+    the split partials against the plain version's on the CPU (lse -inf
+    on the same (split, row)s, lse within 1e-3, out within 1e-3: both
+    fp32 over the same bf16 inputs), the same bits twice, the merged
+    output by the 2x rule, counted as the band's launches."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.dispatch.band import band_span
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    name, b, sq, h, h_k, d, page, keys, window, chunk, splits = case
+    band = dict(window_size=normalize_window(window), attention_chunk=chunk)
+    gen = torch.Generator(device="cuda").manual_seed(keys + sq)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).bfloat16()
+    if page:
+        width = -(-keys // page)
+        kc, vc = (torch.randn(b * width + 1, h_k, page, d, device="cuda",
+                              generator=gen).bfloat16() for _ in range(2))
+        table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+                 ).reshape(b, width).int()
+    else:
+        kc, vc = (torch.randn(b, h_k, -(-keys // 128) * 128, d, device="cuda",
+                              generator=gen).bfloat16() for _ in range(2))
+        table = None
+    lens = torch.full((b,), keys, dtype=torch.int32, device="cuda")
+    splits = splits or _default_num_splits(
+        q, kc, vc, table, False, band_span(True, band["window_size"], chunk,
+                                           sq))
+    counter = "launches_paged_band" if page else "launches_band"
+    before = getattr(flash_decode, counter)
+    out_p, lse_p = flash_decode.flash_attention_decode_partials(
+        q, kc, vc, lens, splits, d ** -0.5, True, block_table=table, **band)
+    again = flash_decode.flash_attention_decode_partials(
+        q, kc, vc, lens, splits, d ** -0.5, True, block_table=table, **band)
+    out, _ = flash_decode.flash_attention_decode(
+        q, kc, vc, lens, causal=True, num_splits=splits, block_table=table,
+        **band)
+    torch.cuda.synchronize()
+    assert getattr(flash_decode, counter) == before + 3
+    assert torch.equal(out_p, again[0]) and torch.equal(lse_p, again[1])
+    cpu = [x.float().cpu() for x in (q, kc, vc)]
+    ref_p, ref_lse_p = flash_decode.flash_attention_decode_partials(
+        *cpu, lens.cpu(), splits, d ** -0.5, True,
+        block_table=None if table is None else table.cpu(), **band)
+    empty = torch.isneginf(ref_lse_p)
+    assert torch.equal(torch.isneginf(lse_p.cpu()), empty)
+    torch.testing.assert_close(lse_p.cpu()[~empty], ref_lse_p[~empty],
+                               atol=1e-3, rtol=0)
+    torch.testing.assert_close(out_p.cpu(), ref_p, atol=1e-3, rtol=0)
+    ref, _ = flash_decode.flash_attention_decode(
+        *cpu, lens.cpu(), causal=True, num_splits=splits,
+        block_table=None if table is None else table.cpu(), **band)
+    lin = [x if table is None else paged_to_linear(x, table, lens)
+           for x in (kc, vc)]
+    keep = torch.arange(lin[0].shape[2], device="cuda")[None] < lens[:, None]
+    ref_lp, _ = attention_ref(q, lin[0].transpose(1, 2),
+                              lin[1].transpose(1, 2), key_padding_mask=keep,
+                              causal=True, upcast=False, **band)
+    check_against_ref(out, ref, ref_lp, msg=name)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", [
+    BAND_VARLEN_CASE,
+    ("ragged, window both ways", [300, 17, 128, 64], [812, 17, 400, 264],
+     [300, 10, 128, 64], 16, 4, 128, 64, torch.bfloat16, False),
+    ("d=64, pages of 16", [100, 200], [300, 200], None, 8, 8, 64, 16,
+     torch.bfloat16, True)], ids=lambda c: c[0])
+def test_band_varlen_paged_kernel_matches_plain_version_on_the_card(case):
+    """B8's band instantiation (the window) against its plain version:
+    Mistral-7B's prefix admission (window (4095, 0)), ragged chunks with
+    seqused_q and a window both ways, pages of 16 at d = 64 (window (40,
+    0)): the 2x rule, lse within 1e-3 and -inf on the same rows, the same
+    bits twice, counted as the band's launches."""
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_varlen_paged_ref,
+        check_against_ref,
+    )
+
+    name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal = case
+    window = {BAND_VARLEN_CASE[0]: MISTRAL_WINDOW,
+              "ragged, window both ways": (100, 20)}.get(name, (40, 0))
+    b = len(lens_q)
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    cu = torch.tensor([0] + list(itertools.accumulate(lens_q)),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    width = -(-max(lens_k) // page)
+    kp, vp = (torch.randn(b * width + 1, h_k, page, d, device="cuda",
+                          generator=gen).to(dtype) for _ in range(2))
+    table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+             ).reshape(b, width).int()
+    lens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    used = None if used is None else torch.tensor(used, dtype=torch.int32,
+                                                  device="cuda")
+    args = (q, kp, vp, cu, max(lens_q), lens_k, table)
+    kw = dict(seqused_q=used, causal=causal, window_size=window)
+    before = fvp.launches_band
+    out, lse = fvp.flash_attention_varlen_paged_fwd(*args, **kw)
+    again = fvp.flash_attention_varlen_paged_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert fvp.launches_band == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+        q.float(), kp.float(), vp.float(), *args[3:], **kw)
+    ref_lp = attention_varlen_paged_ref(q, kp, vp, cu, lens_k, table,
+                                        seqused_q=used, causal=causal,
+                                        upcast=False, window_size=window)
+    check_against_ref(out, ref, ref_lp, msg=name)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_windows_that_reach_every_key_keep_the_band_free_kernels_on_the_card():
+    """A window that reaches every key masks nothing: B1, B8 and B4 run
+    their band-free kernels (no band launch counted) and give the bits of
+    the call without a window."""
+    from flash_attn_tpu_torch.kernels import (
+        flash_decode,
+        flash_fwd,
+        flash_varlen_paged,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = (torch.randn(2, 8, 300, 128, device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    kp = torch.randn(10, 8, 64, 128, device="cuda", generator=gen).bfloat16()
+    table = torch.arange(10, dtype=torch.int32, device="cuda").reshape(2, 5)
+    lens = torch.tensor([300, 250], dtype=torch.int32, device="cuda")
+    cu = torch.tensor([0, 64, 128], dtype=torch.int32, device="cuda")
+    qv = q.transpose(1, 2)[:, :64].reshape(128, 8, 128)
+
+    def calls(wide):  # keys 300 (B1) and a capacity of 320 (B4, B8)
+        return (flash_fwd.flash_attention_fwd(
+                    q, k, v, causal=True,
+                    window_size=(299, 0) if wide else (None, None)),
+                flash_decode.flash_attention_decode(
+                    q.transpose(1, 2)[:, -1:], kp, kp, lens, causal=True,
+                    num_splits=2, block_table=table,
+                    window_size=(319, 0) if wide else (None, None)),
+                flash_varlen_paged.flash_attention_varlen_paged_fwd(
+                    qv, kp, kp, cu, 64, lens, table, causal=True,
+                    window_size=(319, 0) if wide else (None, None)))
+
+    base = calls(False)
+    wide, n = _counted(lambda: calls(True))
+    assert n and not any("band" in key for key in n), n
+    for a, b in zip(base, wide):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("mode", ["static", "paged", "prefix"])
+def test_graphed_decode_with_a_window_equals_eager_on_the_card(mode):
+    """A windowed model (window (15, 0), prompts and decode past it):
+    static decode and the engine's decode block, replayed from their
+    graphs, give the eager run's tokens and launches, and every attention
+    launch is the band's."""
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    model = _graph_model(mode != "static", window_size=(15, 0))
+    if mode == "static":
+        ids = torch.randint(0, 512, (3, 40), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(1))
+        cfg = GenerationConfig(max_length=80)
+        runs = [_counted(lambda: decode(ids, model, cfg, output_scores=True,
+                                        cg=cg)) for cg in (False, True)]
+        (want, n_eager), (got, n_graph) = runs
+        assert all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+                   for x, y in zip(want, got))
+    else:
+        jobs = _engine_jobs(2, shared=40 if mode == "prefix" else 0)
+        runs = [_serve(_engine(model, cg, prefix=mode == "prefix"), jobs)
+                for cg in (False, True)]
+        (want, n_eager), (got, n_graph) = runs
+        assert got == want
+    assert n_graph == n_eager
+    # every decode launch is the band's (the caches hold more than the
+    # window); the admissions' too where their padded rows pass it
+    pre = "flash_attn_tpu_torch.kernels.flash_decode."
+    for kernel, band in (("launches", "launches_band"),
+                         ("launches_paged", "launches_paged_band")):
+        assert n_eager.get(pre + kernel, 0) == n_eager.get(pre + band, 0)
+    assert sum(n for key, n in n_eager.items()
+               if "band" in key and "decode" not in key) > 0
