@@ -165,8 +165,9 @@
    pages of 256 (and the verify step, sq = 5, at 96) and B8 (the prefix
    admission's shape) at GPT-NeoX-20B's 64 heads of 96 and GPT-J-6B's 16
    heads of 256 against their plain versions, timed beside their bounds
-   and SDPA; then builds GPT-NeoX-20B and GPT-J-6B at full width and depth
-   from their config.json numbers with seeded HF checkpoints remapped a
+   and SDPA; then builds GPT-NeoX-20B (22 of 44 layers) and GPT-J-6B (all
+   28) at full width from their config.json numbers with seeded HF
+   checkpoints remapped a
    layer at a time (the peak printed), serves each as Llama-3-8B (graphed
    and eager, the teacher-forced check), then through the engines on 16
    slots (GPT-NeoX-20B the paged and the prefix-cached, GPT-J-6B the
@@ -205,8 +206,8 @@
    band's), each timed beside the band-free kernel at the same shape, SDPA
    with the band as a boolean mask and a bound that counts only the pairs
    inside the band;
-18. Mistral-7B-v0.1 at full width and depth from its config.json numbers
-   (the Llama adapter plus window_size = (4095, 0), a seeded checkpoint
+18. Mistral-7B-v0.1 at full width and 16 of 32 layers from its config.json
+   numbers (the Llama adapter plus window_size = (4095, 0), a seeded checkpoint
    remapped a layer at a time): static serving of b=2 x 6144 tokens to 64
    new ones (graphed and eager, bitwise equal tokens, the teacher-forced
    check, every attention launch the band's), the window in force (the
@@ -216,6 +217,32 @@
    engine (prompts sharing 4608 tokens: admissions through B8 with the
    window) and the speculative engine with the target as its own draft,
    each held to a teacher-forced static decode or to the plain engine.
+19. the band masks in training (utils/cases.py BAND_BWD_CASES): B3's and
+   B2's band instantiations and the preprocess on 8 shapes (Mistral-7B's
+   training shape, b=1 x 8192 at 32/8 heads of 128 under the window of
+   4096; a chunk of 1024; 4 sinks under a window with sq < sk and a key
+   count off the 64-key tile; a window both ways; sq > sk with rows that
+   see no key; windows at d = 64, 96 and 256) against the plain fp32 band
+   backward (the 2x rule), each launch counted as the band's, B3 bitwise
+   twice, B6's band backward over the same rows packed bitwise B3's and
+   B6's band forward and B7's bitwise B1's (no sinks: the varlen route
+   takes none); at Mistral-7B's shape B3's gradients lie BAND_GAP times
+   farther (L2) from the plain band-free backward's than from the plain
+   band backward's (the window is in force),
+   flash_attn_func(...).backward() is counted both ways and each
+   band kernel is timed beside the band-free pair, its bound (the band's
+   pairs), its plain version and SDPA with the band as a boolean mask; a
+   window that reaches every key launches the band-free kernels with
+   their bits; the band instantiations' registers;
+20. the windowed MHA at Mistral-7B's widths (window BAND_MHA_WINDOW),
+   unpacked and packed, forward and backward, against the same module on
+   the CPU, every attention launch the band's;
+21. Mistral-7B-v0.1 trained at full width (8 of 32 layers, the Llama
+   adapter plus window_size = (4095, 0)) at b=1 x 8192 with Trainer.fit as
+   in 5. (per step and layer one band forward, one preprocess, one band
+   dK/dV and one band dQ launch, no band-free one; a falling loss, the
+   fused-CE check) and a profiled step; prints the step time, tokens/s,
+   TFLOP/s and peak memory.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -506,8 +533,9 @@ BREADTH_DEC_CASES = [
     ("flash_decode_group48", BATCH, 48, 1, 128),
 ]
 # Head dims 96 and 256, which B1, B8 and B4 (d = dv) take and the backward
-# kernels do not yet: GPT-NeoX-20B and GPT-J-6B at full width and depth
-# from their published config.json numbers, served as Llama-3-8B is
+# kernels do not yet: GPT-NeoX-20B and GPT-J-6B at full width from their
+# published config.json numbers (GPT-NeoX-20B at SERVE_LAYERS of its 44
+# layers, GPT-J-6B at its full depth), served as Llama-3-8B is
 # (static, then BREADTH_REQUESTS requests on BREADTH_SLOTS slots: GPT-NeoX
 # through the paged engine, GPT-J through the prefix-cached one, whose
 # admissions run B8 at 256). The seeded GPT-J checkpoint's lm_head.bias is
@@ -547,7 +575,8 @@ WIDE_TRAIN_LAYERS = {"GPT-J-6B": 8, "GPT-NeoX-20B": 4}
 # sequences whose key counts are not multiples of the 64-key tile.
 WIDE_MHA_LENS = [200, 129, 183]
 # Mistral-7B-v0.1 (mistralai/Mistral-7B-v0.1 config.json): Llama's shape
-# with a sliding window of 4096 keys, served at full width and depth
+# with a sliding window of 4096 keys, served at full width and
+# SERVE_LAYERS of its 32 layers
 # through the port's Llama adapter with window_size = (4095, 0) set on its
 # config (the JAX package's adapter reads no sliding_window either):
 # static serving of MISTRAL_BATCH prompts of MISTRAL_PROMPT tokens (past
@@ -565,6 +594,32 @@ MISTRAL_7B = SimpleNamespace(
 MISTRAL_BATCH, MISTRAL_PROMPT, MISTRAL_NEW = 2, 6144, 64
 MISTRAL_SLOTS, MISTRAL_ENGINE_PROMPT, MISTRAL_ENGINE_NEW = 8, 5120, 32
 MISTRAL_PREFIX, MISTRAL_ENGINE_MAX_LEN = 4608, 5376
+# The depth at which the serving phases run GPT-NeoX-20B (44 layers) and
+# Mistral-7B (32), at full width: halved to keep the whole script near
+# half its time limit as it grows; every kernel and shape of those
+# paths is the same at any depth, and each phase's launch checks count its
+# layers.
+SERVE_LAYERS = {"GPT-NeoX-20B": 22, "Mistral-7B": 16}
+# The band in training: Mistral-7B-v0.1 (MISTRAL_7B) trained at full width
+# through the Llama adapter with window_size = (4095, 0) and the depth cut
+# to MISTRAL_TRAIN_LAYERS of 32 (2.0B parameters, as GPT-J-6B's 8 of 28),
+# at MISTRAL_TRAIN_BATCH x MISTRAL_TRAIN_SEQ: the tokens of the repo's
+# 4 x 2048 step in one sequence, long enough for the window to mask (it
+# keeps 0.750 of the causal pairs).
+MISTRAL_TRAIN_LAYERS, MISTRAL_TRAIN_BATCH, MISTRAL_TRAIN_SEQ = 8, 1, 8192
+# The windowed MHA at Mistral-7B's widths (4096 wide, 32/8 heads of 128,
+# rotary over the whole head) on the card against the same module on the
+# CPU: a window of BAND_MHA_WINDOW keys over BAND_MHA_LENS packed and
+# BAND_MHA_BATCH rows of their longest unpacked, so that the band bites at
+# lengths the CPU reference runs in seconds.
+BAND_MHA_WINDOW, BAND_MHA_LENS, BAND_MHA_BATCH = (127, 0), [300, 129, 183], 2
+# The band backward's gradients at Mistral-7B's training shape against the
+# plain band-free backward's must differ by this many times their
+# difference from the plain band backward's, both in the L2 norm over all
+# of dq, dk and dv: the window is in force. (The max-abs ratio depends on
+# the draw: 17x and 7.5x in two runs on different seeds; the L2 norm sums
+# the window's systematic change against the rounding's noise.)
+BAND_GAP = 4.0
 # remat: the 913M GPT's training step at b=4 x 2048 without remat and with
 # GPTConfig(remat=True) under each policy, REMAT_STEPS steps each over the
 # same batches (the step time is the median of all but the first).
@@ -698,10 +753,11 @@ def blocksparse_full_mask_backward(qt, kt, vt, dot, out, lse, causal):
                                               idx, **kw)
 
 
-def packed_b6_backward(dot, qt, kt, vt, out, lse, causal):
+def packed_b6_backward(dot, qt, kt, vt, out, lse, causal, **band):
     """B6's backward as a function of the (b, h, s, d) views that B3 takes:
-    the same rows packed as b sequences. Returns a function giving (dq, dk,
-    dv) in B3's (b, h, s, d) layout."""
+    the same rows packed as b sequences, under ``band`` (window_size,
+    attention_chunk) when given. Returns a function giving (dq, dk, dv) in
+    B3's (b, h, s, d) layout."""
     from flash_attn_tpu_torch.kernels import flash_varlen
 
     b, h, sq, d = qt.shape
@@ -714,7 +770,7 @@ def packed_b6_backward(dot, qt, kt, vt, out, lse, causal):
 
     def run():
         g = flash_varlen.flash_attention_varlen_bwd(
-            *packed, lse_p, cu_q, cu_k, sq, sk, causal=causal)
+            *packed, lse_p, cu_q, cu_k, sq, sk, causal=causal, **band)
         return [x.reshape(b, -1, x.shape[1], d).transpose(1, 2) for x in g]
     return run
 
@@ -1577,7 +1633,8 @@ def engine_model():
 
 def kernel_counts():
     """Launches of the forward, decode, paged, varlen, MLA and block-sparse
-    kernels since the last reset_kernel_counts()."""
+    kernels since the last reset_kernel_counts() (bwd_counts() has the
+    dense backward's)."""
     from flash_attn_tpu_torch.kernels import (
         flash_blocksparse,
         flash_decode,
@@ -1603,11 +1660,32 @@ def kernel_counts():
             "fa_varlen_bwd_preprocess": flash_varlen.launches_preprocess,
             "fa_varlen_bwd_dkdv": flash_varlen.launches_dkdv,
             "fa_varlen_bwd_dq": flash_varlen.launches_dq,
+            "flash_varlen_fwd_band": flash_varlen.launches_fwd_band,
+            "flash_varlen_fwd_persistent_band":
+                flash_varlen_persistent.launches_band,
+            "fa_varlen_bwd_dkdv_band": flash_varlen.launches_dkdv_band,
+            "fa_varlen_bwd_dq_band": flash_varlen.launches_dq_band,
             "flash_blocksparse_fwd": flash_blocksparse.launches_fwd,
             "fa_blocksparse_bwd_preprocess":
                 flash_blocksparse.launches_preprocess,
             "fa_blocksparse_bwd_dkdv": flash_blocksparse.launches_dkdv,
             "fa_blocksparse_bwd_dq": flash_blocksparse.launches_dq}
+
+
+def bwd_counts():
+    """Launches of the dense forward and backward kernels since the last
+    reset_kernel_counts(), the band instantiations' among them."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    return {"flash_fwd": flash_fwd.launches,
+            "flash_fwd_band": flash_fwd.launches_band,
+            "flash_bwd_preprocess": flash_bwd.launches_preprocess,
+            "fa_bwd_dkdv": flash_bwd.launches_dkdv,
+            "fa_bwd_dq": flash_bwd.launches_dq,
+            "flash_bwd_fused": flash_bwd.launches_fused,
+            "fa_bwd_dkdv_band": flash_bwd.launches_dkdv_band,
+            "fa_bwd_dq_band": flash_bwd.launches_dq_band,
+            "flash_bwd_fused_band": flash_bwd.launches_fused_band}
 
 
 def reset_kernel_counts():
@@ -2010,73 +2088,68 @@ def make_trainer(**overrides):
     return Trainer(cfg, device="cuda")
 
 
-def make_loader(path: str):
+def make_loader(path: str, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
     from flash_attn_tpu_torch.training.data import (
         FaultTolerantSampler,
         LMDataLoader,
         TokenDataset,
     )
 
-    ds = TokenDataset(path, seqlen=TRAIN_SEQ)
-    return LMDataLoader(ds, TRAIN_BATCH, FaultTolerantSampler(len(ds), seed=0))
+    ds = TokenDataset(path, seqlen=seq)
+    return LMDataLoader(ds, batch, FaultTolerantSampler(len(ds), seed=0))
 
 
-def fit_checked(label, mcfg, path):
-    """Trainer.fit of the model of ``mcfg`` at the repo's training shape
-    (TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps over the token file at
-    ``path``), with the checks of every training phase: per step and
-    layer 1 forward, 1 preprocess, 1 dK/dV and 1 dQ launch; a finite loss
-    near ln(vocab) that falls; the first step's fused-CE loss against
-    torch's cross-entropy over the full fp32 logits of the same batch.
-    Returns the launch counts, the measurements, the trainer and its
+def fit_checked(label, mcfg, path, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ, band: bool = False):
+    """Trainer.fit of the model of ``mcfg`` at batch x seq tokens a step
+    (the repo's training shape, TRAIN_BATCH x TRAIN_SEQ, by default),
+    TRAIN_STEPS steps over the token file at ``path``, with the checks of
+    every training phase: per step and layer 1 forward, 1 preprocess, 1
+    dK/dV and 1 dQ launch (with ``band``, every one of the forward's and
+    the backward's that of the band instantiation, none band-free); a
+    finite loss near ln(vocab) that falls; the first step's fused-CE loss
+    against torch's cross-entropy over the full fp32 logits of the same
+    batch. Returns the launch counts, the measurements, the trainer and its
     loader."""
-    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
     from flash_attn_tpu_torch.training.trainer import model_flops_per_token
 
-    trainer = make_trainer(model=mcfg)
+    trainer = make_trainer(model=mcfg, batch_size=batch, seqlen=seq)
     n_params = sum(p.numel() for p in trainer.model.parameters())
 
     # The first batch of the run, through torch's cross-entropy over the
     # full fp32 logits of a no-grad forward.
-    inp, lab = next(iter(make_loader(path)))
+    inp, lab = next(iter(make_loader(path, batch, seq)))
     with torch.no_grad():
         logits = trainer.model(trainer._batch(inp))
         ce_ref = F.cross_entropy(logits.flatten(0, 1).float(),
                                  trainer._batch(lab).flatten()).item()
     del logits
 
-    def counts():
-        return {"flash_fwd": flash_fwd.launches,
-                "flash_bwd_preprocess": flash_bwd.launches_preprocess,
-                "fa_bwd_dkdv": flash_bwd.launches_dkdv,
-                "fa_bwd_dq": flash_bwd.launches_dq,
-                "flash_bwd_fused": flash_bwd.launches_fused}
-
     logs, per_step = [], []
 
     def log(metrics):  # called after every step (log_every=1)
         logs.append(metrics)
-        per_step.append(counts())
+        per_step.append(bwd_counts())
 
-    loader = make_loader(path)
+    loader = make_loader(path, batch, seq)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_fwd.launches = flash_bwd.launches_preprocess = 0
-    flash_bwd.launches_dkdv = flash_bwd.launches_dq = 0
-    flash_bwd.launches_fused = 0
+    reset_kernel_counts()
     trainer.fit(loader, steps=TRAIN_STEPS, log_fn=log)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = bwd_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{label}: {n_params / 1e6:.1f}M parameters, {mcfg.n_layer} "
-          f"layers, b={TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps of "
+          f"layers, b={batch} x {seq}, {TRAIN_STEPS} steps of "
           f"Trainer.fit; launches {launches}")
     n = mcfg.n_layer
     for i, c in enumerate(per_step):
-        require(c == {"flash_fwd": n * (i + 1),
-                      "flash_bwd_preprocess": n * (i + 1),
-                      "fa_bwd_dkdv": n * (i + 1),
-                      "fa_bwd_dq": n * (i + 1), "flash_bwd_fused": 0},
+        m = n * (i + 1)
+        want = {"flash_fwd": m, "flash_bwd_preprocess": m, "fa_bwd_dkdv": m,
+                "fa_bwd_dq": m, "flash_bwd_fused": 0,
+                "flash_fwd_band": m * band, "fa_bwd_dkdv_band": m * band,
+                "fa_bwd_dq_band": m * band, "flash_bwd_fused_band": 0}
+        require(c == want,
                 f"{label}: launch counts after training step {i + 1}: {c}")
     require(len(per_step) == TRAIN_STEPS and launches == per_step[-1],
             f"{label}: training launch counts {launches}")
@@ -2098,10 +2171,10 @@ def fit_checked(label, mcfg, path):
           f"logits {ce_ref:.4f}")
     require(abs(losses[0] - ce_ref) <= CE_LOSS_ATOL,
             f"{label}: fused CE {losses[0]} vs full-logits CE {ce_ref}")
-    step_s = statistics.median(TRAIN_BATCH * TRAIN_SEQ / m["tokens_per_s"]
+    step_s = statistics.median(batch * seq / m["tokens_per_s"]
                                for m in logs[TRAIN_WARM:])
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
-    tflops = tok_s * model_flops_per_token(mcfg, TRAIN_SEQ) / 1e12
+    tok_s = batch * seq / step_s
+    tflops = tok_s * model_flops_per_token(mcfg, seq) / 1e12
     return launches, {"params_b": n_params / 1e9, "layers": n,
                       "step_ms": step_s * 1e3, "tokens_per_s": tok_s,
                       "tflops_per_s": tflops, "peak_gb": peak_gb,
@@ -2194,9 +2267,11 @@ MATMULS = ("gemm", "nvjet", "cutlass", "xmma")
 COPIES = ("copy", "Memcpy", "Memset", "cast")
 
 
-def profile_step(trainer, loader, what: str = "one training step"):
-    """Device time of one training step by kernel family (torch.profiler),
-    and the phases of a step timed with CUDA events."""
+def profile_step(trainer, loader, what: str = "one training step",
+                 batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
+    """Device time of one training step (batch x seq tokens) by kernel
+    family (torch.profiler), and the phases of a step timed with CUDA
+    events."""
     from flash_attn_tpu_torch.models.gpt import lm_head_weights
     from flash_attn_tpu_torch.ops.cross_entropy import (
         fused_linear_cross_entropy,
@@ -2246,7 +2321,7 @@ def profile_step(trainer, loader, what: str = "one training step"):
           f"{t_trunk:.2f} ms, fused CE forward {t_ce:.2f} ms, backward "
           f"{t_bwd:.2f} ms (of which fused CE backward {t_ce_bwd:.2f} ms), "
           f"optimizer + weight write-back {t_opt:.2f} ms "
-          f"({mcfg.n_layer} layers, b={TRAIN_BATCH} x {TRAIN_SEQ})")
+          f"({mcfg.n_layer} layers, b={batch} x {seq})")
 
 
 def wall_ms(fn, runs: int = 3) -> float:
@@ -4111,8 +4186,9 @@ def run_breadth(card):
 
 
 def run_wide_families(card):
-    """GPT-NeoX-20B (64 heads of 96) and GPT-J-6B (16 heads of 256) at full
-    width and depth from their published configs with seeded HF
+    """GPT-NeoX-20B (64 heads of 96, SERVE_LAYERS of its 44 layers) and
+    GPT-J-6B (16 heads of 256, all 28) at full width from their published
+    configs with seeded HF
     checkpoints loaded through the port's remap (hf_model), each served as
     Llama-3-8B is (serve_family: graphed and eager, the teacher-forced
     check, TTFT and the graphed decode rate), then through the engines on
@@ -4129,6 +4205,9 @@ def run_wide_families(card):
             ("GPT-NeoX-20B", NEOX_20B, "gpt_neox", neox_spec, 15,
              (False, True)),
             ("GPT-J-6B", GPTJ_6B, "gptj", gptj_spec, 16, (True,))):
+        if name in SERVE_LAYERS:
+            hf_cfg = SimpleNamespace(
+                **{**vars(hf_cfg), "num_hidden_layers": SERVE_LAYERS[name]})
         t0 = time.perf_counter()
         model, peak = hf_model(family, hf_cfg, spec_fn, seed)
         build_s = time.perf_counter() - t0
@@ -4166,41 +4245,64 @@ def run_wide_families(card):
     return launches, out
 
 
-def plain_bwd_refs(qt, kt, vt, dot, causal):
-    """The 2x rule's references of a backward, one batch row at a time so
-    that 64 heads' (sq, sk) fp32 scores fit beside the rest: the plain fp32
-    forward (out) and backward (dq, dk, dv) from fp32 copies of the
-    inputs, and the low-precision ones (attention_ref and autograd through
-    it in the inputs' type). Inputs (b, h, s, d) views; returns (out32,
-    out_lp, grads32, grads_lp) with out32 and grads32 (b, h, s, d), out_lp
-    and grads_lp (b, s, h, d)."""
+def plain_bwd_refs(qt, kt, vt, dot, causal, lowprec: bool = True,
+                   heads_bytes: float = 1.1e9, **band):
+    """The 2x rule's references of a backward under the causal bound and
+    ``band`` (window_size, sink_token_length, attention_chunk), a batch row
+    and as many KV heads at a time as keep each fp32 score matrix within
+    ``heads_bytes`` (64 heads' 2048 x 2048 fit at once; Mistral-7B's 8192 x
+    8192 take a KV head's group): the plain fp32 forward (out) and backward
+    (dq, dk, dv) from fp32 copies of the inputs, and with ``lowprec`` the
+    low-precision ones (attention_ref and autograd through it in the
+    inputs' type). Inputs (b, h, s, d) views; returns (out32, out_lp,
+    grads32, grads_lp) with out32 and grads32 (b, h, s, d), out_lp and
+    grads_lp (b, s, h, d) (left empty without ``lowprec``)."""
     from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
     from flash_attn_tpu_torch.utils.testing import (
         attention_ref,
         attention_ref_grads,
     )
 
-    parts = [[] for _ in range(8)]
-    for i in range(qt.shape[0]):
-        q, k, v, do = (x[i:i + 1] for x in (qt, kt, vt, dot))
-        f32 = [x.float() for x in (q, k, v)]
-        out32, lse32 = flash_fwd.flash_attention_fwd_plain(*f32, causal=causal)
-        g32 = flash_bwd.flash_attention_bwd_plain(do.float(), *f32, out32,
-                                                  lse32, causal=causal)
-        bshd = [x.transpose(1, 2) for x in (q, k, v, do)]
-        out_lp, _ = attention_ref(*bshd[:3], causal=causal, upcast=False)
-        g_lp = attention_ref_grads(*bshd, causal=causal, upcast=False)
-        for j, x in enumerate((out32, out_lp, *g32, *g_lp)):
-            parts[j].append(x)
-        del f32, out32, lse32, g32, g_lp
-    cat = [torch.cat(p) for p in parts]
-    return cat[0], cat[1], cat[2:5], cat[5:8]
+    b, h, sq, d = qt.shape
+    h_k, sk = kt.shape[1], kt.shape[2]
+    group = h // h_k
+    per = max(1, int(heads_bytes // (group * sq * sk * 4)))
+    out32 = torch.empty(qt.shape, device="cuda")
+    g32 = [torch.empty(x.shape, device="cuda") for x in (qt, kt, vt)]
+    out_lp = torch.empty_like(qt.transpose(1, 2))
+    glp = [torch.empty_like(x.transpose(1, 2)) for x in (qt, kt, vt)]
+    for bi in range(b):
+        for k0 in range(0, h_k, per):
+            ks = slice(k0, min(k0 + per, h_k))
+            qs = slice(ks.start * group, ks.stop * group)
+            chunk = [x[bi:bi + 1, hs] for x, hs in
+                     ((qt, qs), (kt, ks), (vt, ks), (dot, qs))]
+            f32 = [x.float() for x in chunk[:3]]
+            o, l = flash_fwd.flash_attention_fwd_plain(*f32, causal=causal,
+                                                       **band)
+            r = flash_bwd.flash_attention_bwd_plain(chunk[3].float(), *f32, o,
+                                                    l, causal=causal, **band)
+            out32[bi:bi + 1, qs] = o
+            for i, hs in enumerate((qs, ks, ks)):
+                g32[i][bi:bi + 1, hs] = r[i]
+            del f32, o, l, r
+            if lowprec:
+                bshd = [x.transpose(1, 2) for x in chunk]
+                out_lp[bi:bi + 1, :, qs] = attention_ref(
+                    *bshd[:3], causal=causal, upcast=False, **band)[0]
+                lp = attention_ref_grads(*bshd, causal=causal, upcast=False,
+                                         **band)
+                for i, hs in enumerate((qs, ks, ks)):
+                    glp[i][bi:bi + 1, :, hs] = lp[i]
+                del lp
+    return out32, out_lp, g32, glp
 
 
-def packed_forwards(qt, kt, vt, causal):
+def packed_forwards(qt, kt, vt, causal, **band):
     """B6's forward and B7 over the rows of B1's (b, h, s, d) views packed
-    as b sequences (sq != sk allowed): [(out, lse) of each] in B1's layout,
-    out (b, h, sq, d) and lse (b, h, sq)."""
+    as b sequences (sq != sk allowed), under ``band`` (window_size,
+    attention_chunk) when given: [(out, lse) of each] in B1's layout, out
+    (b, h, sq, d) and lse (b, h, sq)."""
     from flash_attn_tpu_torch.kernels import flash_varlen
     from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
 
@@ -4213,7 +4315,7 @@ def packed_forwards(qt, kt, vt, causal):
     res = []
     for fwd in (flash_varlen.flash_attention_varlen_fwd,
                 fvp.flash_attention_varlen_fwd_persistent):
-        out, lse = fwd(*packed, cu_q, cu_k, sq, sk, causal=causal)
+        out, lse = fwd(*packed, cu_q, cu_k, sq, sk, causal=causal, **band)
         res.append((out.reshape(b, sq, h, d).transpose(1, 2),
                     lse.reshape(h, b, sq).transpose(0, 1)))
     return res
@@ -4499,17 +4601,21 @@ def check_wide_backward(gen, lib):
     for d in (96, 256):
         for t, ty in (("bf16", "13__nv_bfloat16"), ("fp16", "6__half")):
             marks.update({
-                f"dkdv d={d} {t}": ("dense_bwd11dkdv_kernel", ty, f"Li{d}ELb0"),
+                f"dkdv d={d} {t}": ("dense_bwd11dkdv_kernel", ty,
+                                    f"Li{d}ELb0ELb0E"),
                 f"dkdv fused d={d} {t}": ("dense_bwd11dkdv_kernel", ty,
-                                          f"Li{d}ELb1"),
-                f"dq d={d} {t}": ("dense_bwd9dq_kernel", ty, f"Li{d}E"),
+                                          f"Li{d}ELb1ELb0E"),
+                f"dq d={d} {t}": ("dense_bwd9dq_kernel", ty, f"Li{d}ELb0E"),
                 f"preprocess d={d} {t}": ("dense_bwd17preprocess_kernel", ty,
                                           f"Li{d}E"),
-                f"varlen dkdv d={d} {t}": ("varlen_dkdv_kernel", ty, f"Li{d}E"),
-                f"varlen dq d={d} {t}": ("varlen_dq_kernel", ty, f"Li{d}E"),
-                f"B6 forward d={d} {t}": ("17varlen_fwd_kernel", ty, f"Li{d}E"),
+                f"varlen dkdv d={d} {t}": ("varlen_dkdv_kernel", ty,
+                                           f"Li{d}ELb0E"),
+                f"varlen dq d={d} {t}": ("varlen_dq_kernel", ty,
+                                         f"Li{d}ELb0E"),
+                f"B6 forward d={d} {t}": ("17varlen_fwd_kernel", ty,
+                                          f"Li{d}ELb0E"),
                 f"B7 d={d} {t}": ("varlen_fwd_persistent_kernel", ty,
-                                  f"Li{d}E")})
+                                  f"Li{d}ELb0E")})
     res = kernel_resources(lib, marks)
     print("registers / stack / local bytes a thread (cuobjdump -res-usage): "
           + "; ".join(f"{label} " + ", ".join(
@@ -5192,8 +5298,9 @@ def check_band_kernels(gen):
 
 
 def run_mistral(card):
-    """Mistral-7B-v0.1 at full width and depth (MISTRAL_7B, its published
-    config.json numbers), a seeded checkpoint in the HF names remapped a
+    """Mistral-7B-v0.1 at full width and SERVE_LAYERS of its 32 layers
+    (MISTRAL_7B, its published config.json numbers), a seeded checkpoint
+    in the HF names remapped a
     layer at a time through the port's Llama adapter, its window set on the
     adapter's config as the JAX package sets it (window_size = (4095, 0)):
     static serving of MISTRAL_BATCH x MISTRAL_PROMPT tokens to
@@ -5215,7 +5322,9 @@ def run_mistral(card):
     window = (MISTRAL_7B.sliding_window - 1, 0)
     require(window == MISTRAL_WINDOW, "Mistral-7B's window")
     t0 = time.perf_counter()
-    model, peak = hf_model("llama", MISTRAL_7B, llama_spec, 17,
+    cut = SimpleNamespace(**{**vars(MISTRAL_7B),
+                             "num_hidden_layers": SERVE_LAYERS["Mistral-7B"]})
+    model, peak = hf_model("llama", cut, llama_spec, 17,
                            max_decode_seqlen=MISTRAL_PROMPT + MISTRAL_NEW,
                            window_size=window)
     build_s = time.perf_counter() - t0
@@ -5302,6 +5411,534 @@ def run_mistral(card):
     del model, paged
     torch.cuda.empty_cache()
     return launches, out
+
+
+def plain_band_chunks(qt, kt, vt, dot, out, lse, causal, band,
+                      heads_bytes: float = 4.4e9):
+    """Functions running the plain fp32 band forward and backward over (b,
+    h, s, d) views a few KV heads at a time (no fp32 score matrix past
+    ``heads_bytes``): the plain versions' work at a shape whose whole
+    score matrices would not fit beside one another, for timing."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    b, h, sq, d = qt.shape
+    h_k, sk = kt.shape[1], kt.shape[2]
+    group = h // h_k
+    per = max(1, int(heads_bytes // (group * sq * sk * 4)))
+    parts = [(slice(k0 * group, min(k0 + per, h_k) * group),
+              slice(k0, min(k0 + per, h_k))) for k0 in range(0, h_k, per)]
+
+    def fwd():
+        for qs, ks in parts:
+            flash_fwd.flash_attention_fwd_plain(qt[:, qs], kt[:, ks],
+                                                vt[:, ks], causal=causal,
+                                                **band)
+
+    def bwd():
+        for qs, ks in parts:
+            flash_bwd.flash_attention_bwd_plain(
+                dot[:, qs], qt[:, qs], kt[:, ks], vt[:, ks], out[:, qs],
+                lse[:, qs], causal=causal, **band)
+    return fwd, bwd, len(parts)
+
+
+def band_bwd_timing(qt, kt, vt, dot, out, lse, causal, band, case):
+    """At Mistral-7B's training shape: B3's and B2's band instantiations
+    beside the band-free pair at the same shape, and B6's band forward, B7's
+    and B6's band backward (its kernels by the profiler) over the same rows
+    packed, each beside its bound (counting only the pairs inside the band),
+    its plain version (a KV head's group at a time) and SDPA with the band
+    as a boolean mask (K and V repeated to the query heads). Returns the
+    timings by kernels-line row."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+
+    b, h, sq, d = qt.shape
+    h_k, sk = kt.shape[1], kt.shape[2]
+    group = h // h_k
+    esz = qt.element_size()
+    mask = band_mask(sq, sk, causal, band["window_size"],
+                     band["sink_token_length"], band["attention_chunk"])
+    pairs = b * int(mask.sum())
+    causal_pairs = b * attended_pairs([sq], [sk], causal)
+
+    def bwd(det):
+        return lambda: flash_bwd.flash_attention_bwd(
+            dot, qt, kt, vt, out, lse, causal=causal, deterministic=det,
+            **band)
+    ms, fused_ms = time_ms(bwd(True), runs=10), time_ms(bwd(False), runs=10)
+    split = kernel_split_ms(bwd(True), ["preprocess_kernel", "dkdv_kernel",
+                                        "dq_kernel"])
+    fused_split = kernel_split_ms(bwd(False), ["preprocess_kernel",
+                                               "dkdv_kernel"])
+    out_f, lse_f = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal)
+    free_ms = time_ms(lambda: flash_bwd.flash_attention_bwd(
+        dot, qt, kt, vt, out_f, lse_f, causal=causal), runs=10)
+    free_split = kernel_split_ms(lambda: flash_bwd.flash_attention_bwd(
+        dot, qt, kt, vt, out_f, lse_f, causal=causal),
+        ["preprocess_kernel", "dkdv_kernel", "dq_kernel"])
+    del out_f, lse_f
+    plain_fwd, plain_bwd, n_parts = plain_band_chunks(qt, kt, vt, dot, out,
+                                                      lse, causal, band)
+    plain_ms = time_ms(plain_bwd, runs=3, batch=1)
+    plain_fwd_ms = time_ms(plain_fwd, runs=3, batch=1)
+    plain_label = (f"the plain fp32 band version, {n_parts} calls of "
+                   f"{h // n_parts} query heads")
+    rep = [x.repeat_interleave(group, dim=1) for x in (kt, vt)]
+    leaves = [x.detach().requires_grad_() for x in (qt, *rep)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, dot, retain_graph=True), runs=10)
+    del sdpa_out, leaves
+    lib_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, *rep, attn_mask=mask), runs=10)
+    del rep
+    lib = ("scaled_dot_product_attention with the band as a boolean mask, "
+           "K and V repeated to the query heads")
+    # 5 products over the band's pairs; q, k, v, out, dout read and dq, dk,
+    # dv written once, lse read
+    bwd_bound = bound(10 * h * d * pairs,
+                      esz * (4 * b * sq * h * d + 4 * b * sk * h_k * d)
+                      + 4 * b * h * sq)
+    common = {"plain_ms": plain_ms, "plain_call": plain_label,
+              "library_ms": lib_ms, "library_call": lib + ", backward "
+              "(torch.autograd.grad)", "band_pairs": pairs,
+              "causal_pairs": causal_pairs, **bwd_bound}
+    t = {"flash_bwd_band": {"ms": ms, "band_free_ms": free_ms,
+                            "kernel_split_ms": split,
+                            "band_free_kernel_split_ms": free_split,
+                            **common},
+         "flash_bwd_fused_band": {"ms": fused_ms, "kernel_split_ms":
+                                  fused_split, **common}}
+
+    # the same rows packed as b sequences
+    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    q, k, v, do, o = (x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+                      for x in (qt, kt, vt, dot, out))
+    lse_p = lse.permute(1, 0, 2).reshape(h, b * sq).contiguous()
+    args = (cu_q, cu_k, sq, sk)
+    vband = dict(window_size=band["window_size"],
+                 attention_chunk=band["attention_chunk"])
+    b6 = lambda: flash_varlen.flash_attention_varlen_fwd(
+        q, k, v, *args, causal=causal, **vband)
+    b7 = lambda: fvp.flash_attention_varlen_fwd_persistent(
+        q, k, v, *args, causal=causal, **vband)
+    vbwd = lambda: flash_varlen.flash_attention_varlen_bwd(
+        do, q, k, v, o, lse_p, *args, causal=causal, **vband)
+    vsplit = kernel_split_ms(vbwd, ("varlen_preprocess_kernel",
+                                    "varlen_dkdv_kernel", "varlen_dq_kernel"))
+    fwd_bound = bound(4 * h * d * pairs,
+                      esz * (2 * b * sq * h * d + 2 * b * sk * h_k * d)
+                      + 4 * b * h * sq)
+    qdo = esz * 2 * b * sq * h * d + 8 * b * h * sq
+    kv = esz * 2 * b * sk * h_k * d
+    lib_f = {"library_ms": lib_fwd_ms, "library_call": lib,
+             "plain_ms": plain_fwd_ms, "plain_call": plain_label,
+             "band_pairs": pairs}
+    lib_b = {"library_ms": lib_ms, "library_call": lib + ", backward (the "
+             "dK/dV and dQ kernels' pair)", "plain_ms": plain_ms,
+             "plain_call": plain_label, "band_pairs": pairs}
+    t.update({
+        "flash_varlen_fwd_band": {"ms": time_ms(b6, runs=10), **lib_f,
+                                  **fwd_bound},
+        "flash_varlen_fwd_persistent_band": {"ms": time_ms(b7, runs=10),
+                                             **lib_f, **fwd_bound},
+        "fa_varlen_bwd_dkdv_band": {
+            "ms": vsplit["varlen_dkdv_kernel"], **lib_b,
+            **bound(8 * h * d * pairs, qdo + kv + 2 * esz * b * sk * h_k * d)},
+        "fa_varlen_bwd_dq_band": {
+            "ms": vsplit["varlen_dq_kernel"], **lib_b,
+            **bound(6 * h * d * pairs, qdo + kv + esz * b * sq * h * d)}})
+    for name, r in t.items():
+        print(f"{name} at {case}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%), plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.4f} ms"
+              + (f", band-free pair {r['band_free_ms']:.4f} ms"
+                 if "band_free_ms" in r else ""))
+
+    def ms_list(d):
+        return ", ".join(f"{n} {x:.4f}" for n, x in d.items())
+    print(f"flash_bwd_band profiler split at {case} (ms a call): "
+          f"{ms_list(split)}; band-free: {ms_list(free_split)}; the band "
+          f"holds {pairs / causal_pairs:.3f} of the causal pairs; B6's band "
+          f"backward a call: {ms_list(vsplit)}")
+    return t
+
+
+def band_bwd_case(gen, case, timed: bool):
+    """B3's and B2's band instantiations and the preprocess on one
+    BAND_BWD_CASES case: dq, dk, dv by the 2x rule against the plain fp32
+    band backward (plain_bwd_refs), each launch counted as the band's, B3
+    the same bits twice, the preprocess against its plain version; without
+    sinks (the varlen route takes none) B6's band backward over the same
+    rows packed gives B3's bits and B6's band forward and B7's give B1's.
+    With ``timed`` (Mistral-7B's training shape): B3's gradients must lie
+    BAND_GAP times farther (L2) from the plain band-free backward's than
+    from the plain band backward's, flash_attn_func(...).backward() is
+    counted both ways, and
+    band_bwd_timing times the kernels. Returns the errors by kernels-line
+    row, the timings and the counted runs' launches."""
+    from flash_attn_tpu_torch import flash_attn_func
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    name, b, sq, sk, h, h_k, d, causal, window, chunk, sink = case
+    band = dict(window_size=normalize_window(window), sink_token_length=sink,
+                attention_chunk=chunk)
+    q, k, v, dout = (torch.randn(b, s, n, d, device="cuda",
+                                 generator=gen).to(torch.bfloat16)
+                     for s, n in ((sq, h), (sk, h_k), (sk, h_k), (sq, h)))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal, **band)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    b3 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                       causal=causal, **band)
+    again = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                          causal=causal, **band)
+    b2 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                       causal=causal, deterministic=False,
+                                       **band)
+    torch.cuda.synchronize()
+    got = bwd_counts()
+    require(got == {"flash_fwd": 0, "flash_fwd_band": 0,
+                    "flash_bwd_preprocess": 3, "fa_bwd_dkdv": 2,
+                    "fa_bwd_dq": 2, "flash_bwd_fused": 1,
+                    "fa_bwd_dkdv_band": 2, "fa_bwd_dq_band": 2,
+                    "flash_bwd_fused_band": 1},
+            f"band backward launches at {name}: {got}")
+    require(all(torch.equal(a, c) for a, c in zip(b3, again)),
+            f"B3's band instantiation differs between runs: {name}")
+    _, _, ref, ref_lp = plain_bwd_refs(qt, kt, vt, dot, causal, **band)
+    errs, line = {}, []
+    for row, grads in (("flash_bwd_band", b3), ("flash_bwd_fused_band", b2)):
+        for gname, g, r, lp in zip("qkv", grads, ref, ref_lp):
+            err, err_lp = check_against_ref(
+                g.transpose(1, 2), r.transpose(1, 2), lp, atol=BWD_ATOL,
+                msg=f"{row} d{gname} {name}")
+            errs[row] = max(errs.get(row, 0.0), err)
+            line.append(f"{'B3' if row == 'flash_bwd_band' else 'B2'} "
+                        f"d{gname} {err:.3e} (bf16 {err_lp:.3e})")
+    del ref_lp, b2, again
+    delta, lse2 = flash_bwd.bwd_preprocess(dot, out, lse)
+    want_delta, want_lse2 = flash_bwd.bwd_preprocess_plain(
+        dot, out, lse, delta.shape[-1])
+    fin = torch.isfinite(want_lse2)
+    require(torch.equal(torch.isfinite(lse2), fin)
+            and float((lse2[fin] - want_lse2[fin]).abs().max()) <= 1e-5,
+            f"preprocess lse2 at {name}")
+    pre_err = float((delta - want_delta).abs().max())
+    require(pre_err <= 1e-3, f"preprocess delta err {pre_err} at {name}")
+    no_key = int((~torch.isfinite(lse)).sum())
+    extra = ""
+    if timed:
+        _, _, free, _ = plain_bwd_refs(qt, kt, vt, dot, causal,
+                                       lowprec=False)
+
+        def l2(refs):
+            return math.sqrt(sum(float((g.float() - r).square().sum())
+                                 for g, r in zip(b3, refs)))
+        gap, own = l2(free), l2(ref)
+        gap_max = max(float((g - r).abs().max()) for g, r in zip(b3, free))
+        require(gap > BAND_GAP * own,
+                f"{name}: B3's band gradients differ from the plain band-free "
+                f"backward's by {gap} (L2), not {BAND_GAP}x their "
+                f"difference {own} from the plain band backward's")
+        extra = (f"; L2 distance to the plain band-free backward {gap:.3e}, "
+                 f"{gap / own:.1f}x its distance to the plain band backward "
+                 f"{own:.3e} (max abs {gap_max:.3e} against "
+                 f"{errs['flash_bwd_band']:.3e}): the window is in force")
+        del free
+    del ref
+    if sink == 0:
+        vband = dict(window_size=band["window_size"], attention_chunk=chunk)
+        reset_kernel_counts()
+        b6 = packed_b6_backward(dot, qt, kt, vt, out, lse, causal, **vband)()
+        require(all(torch.equal(a, c) for a, c in zip(b3, b6)),
+                f"B6's band backward over the same rows packed differs from "
+                f"B3's: {name}")
+        for label, (o, l) in zip(("B6's band forward", "B7's"),
+                                 packed_forwards(qt, kt, vt, causal,
+                                                 **vband)):
+            require(torch.equal(o, out) and torch.equal(l, lse),
+                    f"{label} over the same rows packed differs from B1's "
+                    f"band instantiation: {name}")
+        torch.cuda.synchronize()
+        packed = got = kernel_counts()
+        require(got == want_counts(
+            flash_varlen_fwd=1, flash_varlen_fwd_band=1,
+            flash_varlen_fwd_persistent=1,
+            flash_varlen_fwd_persistent_band=1, fa_varlen_bwd_preprocess=1,
+            fa_varlen_bwd_dkdv=1, fa_varlen_bwd_dkdv_band=1,
+            fa_varlen_bwd_dq=1, fa_varlen_bwd_dq_band=1),
+            f"packed band launches at {name}: {got}")
+        ref_f, _, ref_f_lp = band_fwd_refs(q, k, v, causal, band)
+        err_f, _ = check_against_ref(out.transpose(1, 2),
+                                     ref_f.transpose(1, 2), ref_f_lp,
+                                     msg=f"flash_fwd band {name}")
+        del ref_f, ref_f_lp, b6
+        for row, e in (("fa_varlen_bwd_dkdv_band", errs["flash_bwd_band"]),
+                       ("fa_varlen_bwd_dq_band", errs["flash_bwd_band"]),
+                       ("flash_varlen_fwd_band", err_f),
+                       ("flash_varlen_fwd_persistent_band", err_f)):
+            errs[row] = e
+        extra += ("; B6's band backward over the same rows packed bitwise "
+                  "B3's, B6's band forward and B7's bitwise B1's")
+    print(f"band backward {name} (b={b}, sq={sq}, sk={sk}, {h}/{h_k} heads "
+          f"of {d}, causal={causal}, window {band['window_size']}, chunk "
+          f"{chunk}, sinks {sink}; {no_key} rows with no key): "
+          + ", ".join(line) + f"; B3 bitwise equal twice; preprocess delta "
+          f"max abs err {pre_err:.3e}, lse2 within 1e-5" + extra)
+    timings, api = {}, {}
+    if timed:
+        api["packed"] = packed
+        for det in (True, False):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            torch.cuda.synchronize()
+            reset_kernel_counts()
+            flash_attn_func(*leaves, causal=causal, deterministic=det,
+                            **band).backward(dout)
+            torch.cuda.synchronize()
+            got = bwd_counts()
+            require(got == {"flash_fwd": 1, "flash_fwd_band": 1,
+                            "flash_bwd_preprocess": 1,
+                            "fa_bwd_dkdv": int(det), "fa_bwd_dq": int(det),
+                            "flash_bwd_fused": int(not det),
+                            "fa_bwd_dkdv_band": int(det),
+                            "fa_bwd_dq_band": int(det),
+                            "flash_bwd_fused_band": int(not det)},
+                    f"flash_attn_func band backward at {name} "
+                    f"(deterministic={det}): {got}")
+            if det:
+                require(all(torch.equal(leaf.grad, g.transpose(1, 2))
+                            for leaf, g in zip(leaves, b3)),
+                        f"flash_attn_func's band gradients at {name} differ "
+                        f"from B3's")
+            api[det] = got
+            del leaves
+        print(f"flash_attn_func(..., window_size={window}).backward() at "
+              f"{name}: launches {api[True]} (deterministic, gradients "
+              f"bitwise B3's) and {api[False]} (fused)")
+        timings = band_bwd_timing(qt, kt, vt, dot, out, lse, causal, band,
+                                  name)
+    return errs, timings, api
+
+
+def band_reach_check(gen):
+    """A window that reaches every key masks nothing: the dense backward
+    (both modes), B6's forward, B7 and B6's backward run their band-free
+    kernels (no band launch counted) and give the bits of the call
+    without a window."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    b, s, h, d = 2, 1000, 16, 128
+    q, k, v, dout = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=True)
+
+    def calls(window):
+        res = [flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                             causal=True, deterministic=det,
+                                             window_size=window)
+               for det in (True, False)]
+        res += packed_forwards(qt, kt, vt, True, window_size=window)
+        res.append(packed_b6_backward(dot, qt, kt, vt, out, lse, True,
+                                      window_size=window)())
+        return res
+
+    base = calls((None, None))
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    wide = calls((s - 1, 0))
+    torch.cuda.synchronize()
+    counts = {**kernel_counts(), **bwd_counts()}
+    bands = {n: c for n, c in counts.items() if "band" in n and c}
+    require(not bands and counts["fa_bwd_dkdv"] == 1 and
+            counts["flash_bwd_fused"] == 1 and
+            counts["flash_varlen_fwd_persistent"] == 1,
+            f"a window that reaches every key launched {bands or counts}")
+    for i, (x, y) in enumerate(zip(base, wide)):
+        same = [torch.equal(a, c) for a, c in zip(x, y)]
+        # B2's dq sums with atomics: its bits may vary from run to run
+        require(all(same if i != 1 else same[1:]),
+                f"a window that reaches every key changed call {i}'s bits")
+    print(f"window ({s - 1}, 0) over {s} keys (b={b}, {h} heads of {d}): the "
+          f"band-free kernels ran (B3, B2, B6's forward, B7, B6's backward; "
+          f"no band launch) with the bits of the call without a window")
+
+
+def check_band_backward(gen, lib):
+    """The band masks in training on the card: band_bwd_case on every
+    BAND_BWD_CASES case (Mistral-7B's training shape timed), a window that
+    reaches every key (band_reach_check), and the band instantiations'
+    registers and spills (cuobjdump -res-usage). Returns the errors and
+    timings by kernels-line row, the counted flash_attn_func runs'
+    launches and the registers."""
+    from flash_attn_tpu_torch.utils.cases import BAND_BWD_CASES
+
+    errs, timings, api = {}, {}, {}
+    for i, case in enumerate(BAND_BWD_CASES):
+        e, t, a = band_bwd_case(gen, case, timed=i == 0)
+        for row, x in e.items():
+            errs[row] = max(errs.get(row, 0.0), x)
+        timings.update(t)
+        api.update(a)
+        torch.cuda.empty_cache()
+    band_reach_check(gen)
+    marks = {}
+    for d in (64, 96, 128, 256):
+        ty = "13__nv_bfloat16"
+        marks.update({
+            f"band dkdv d={d}": ("dense_bwd11dkdv_kernel", ty,
+                                 f"Li{d}ELb0ELb1E"),
+            f"band dkdv fused d={d}": ("dense_bwd11dkdv_kernel", ty,
+                                       f"Li{d}ELb1ELb1E"),
+            f"band dq d={d}": ("dense_bwd9dq_kernel", ty, f"Li{d}ELb1E"),
+            f"band varlen dkdv d={d}": ("varlen_dkdv_kernel", ty,
+                                        f"Li{d}ELb1E"),
+            f"band varlen dq d={d}": ("varlen_dq_kernel", ty, f"Li{d}ELb1E"),
+            f"band B6 forward d={d}": ("17varlen_fwd_kernel", ty,
+                                       f"Li{d}ELb1E"),
+            f"band B7 d={d}": ("varlen_fwd_persistent_kernel", ty,
+                               f"Li{d}ELb1E")})
+    res = kernel_resources(lib, marks)
+    print("band instantiations' registers / stack / local bytes a thread "
+          "(bf16; cuobjdump -res-usage): " + "; ".join(
+              f"{label} " + ", ".join(
+                  f"{u.get('REG')}/{u.get('STACK')}/{u.get('LOCAL')}"
+                  for u in us) for label, us in res.items()))
+    return errs, timings, api, res
+
+
+def run_band_mha(gen, card):
+    """The windowed MHA at Mistral-7B's widths (BAND_MHA_WINDOW), unpacked
+    (BAND_MHA_BATCH rows: B1's band forward, B3's band backward) and packed
+    (BAND_MHA_LENS: B7's band forward, B6's band backward), forward and
+    backward on the card against the same module on the CPU (the plain
+    versions; fp32, and bf16 for the 2x rule) on its output and the
+    gradients of x and both weights, each run's launches counted (every
+    attention launch the band's). Returns the launches and the errors."""
+    from flash_attn_tpu_torch.modules.mha import MHA
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    h, h_k, d = (MISTRAL_7B.num_attention_heads,
+                 MISTRAL_7B.num_key_value_heads,
+                 MISTRAL_7B.hidden_size // MISTRAL_7B.num_attention_heads)
+    width = h * d
+    kw = dict(num_heads=h, num_heads_kv=h_k, causal=True, rotary_emb_dim=d,
+              window_size=BAND_MHA_WINDOW, qkv_proj_bias=False,
+              out_proj_bias=False)
+    mods = {"cuda": MHA(width, dtype=torch.bfloat16, device="cuda", **kw),
+            "cpu": MHA(width, dtype=torch.float32, device="cpu", **kw),
+            "cpu_bf16": MHA(width, dtype=torch.bfloat16, device="cpu", **kw)}
+    with torch.no_grad():
+        for prm in mods["cuda"].parameters():
+            prm.normal_(0.0, width ** -0.5, generator=gen)
+    for key in ("cpu", "cpu_bf16"):
+        mods[key].load_state_dict({n: t.cpu() for n, t in
+                                   mods["cuda"].state_dict().items()})
+    lens = BAND_MHA_LENS
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      dtype=torch.int32)
+    launches, errs = {}, {}
+    for form in ("unpacked", "packed"):
+        shape = ((BAND_MHA_BATCH, max(lens), width) if form == "unpacked"
+                 else (sum(lens), width))
+        x = torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        g = torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        results = {}
+        for key, mod in mods.items():
+            dev = "cuda" if key == "cuda" else "cpu"
+            xi = x.detach().to(dev, mod.Wqkv.weight.dtype).requires_grad_()
+            if key == "cuda":
+                torch.cuda.synchronize()
+                reset_kernel_counts()
+            extra = ({} if form == "unpacked" else
+                     dict(cu_seqlens=cu.to(dev), max_seqlen=max(lens)))
+            out = mod(xi, **extra)
+            out.backward(g.to(dev, out.dtype))
+            if key == "cuda":
+                torch.cuda.synchronize()
+                got = {**kernel_counts(), **bwd_counts()}
+                launches[form] = {n: c for n, c in got.items() if c}
+                want = ({"flash_fwd": 1, "flash_fwd_band": 1,
+                         "flash_bwd_preprocess": 1, "fa_bwd_dkdv": 1,
+                         "fa_bwd_dkdv_band": 1, "fa_bwd_dq": 1,
+                         "fa_bwd_dq_band": 1} if form == "unpacked" else
+                        {"flash_varlen_fwd_persistent": 1,
+                         "flash_varlen_fwd_persistent_band": 1,
+                         "fa_varlen_bwd_preprocess": 1,
+                         "fa_varlen_bwd_dkdv": 1,
+                         "fa_varlen_bwd_dkdv_band": 1, "fa_varlen_bwd_dq": 1,
+                         "fa_varlen_bwd_dq_band": 1})
+                require(launches[form] == want,
+                        f"windowed MHA ({form}) launches {launches[form]}")
+            results[key] = [out.detach(), xi.grad, mod.Wqkv.weight.grad,
+                            mod.out_proj.weight.grad]
+            for prm in mod.parameters():
+                prm.grad = None
+        line = []
+        for i, what in enumerate(("out", "dx", "dWqkv", "dWout")):
+            err, err_lp = check_against_ref(
+                results["cuda"][i], results["cpu"][i],
+                results["cpu_bf16"][i], atol=BWD_ATOL,
+                msg=f"windowed MHA ({form}) {what}")
+            errs[f"{form} {what}"] = err
+            line.append(f"{what} {err:.3e} (bf16 plain {err_lp:.3e})")
+        rows = (f"lengths {lens}" if form == "packed"
+                else f"b={BAND_MHA_BATCH} x {max(lens)}")
+        print(f"windowed MHA at Mistral-7B's widths ({width} wide, {h}/{h_k} "
+              f"heads of {d}, window {BAND_MHA_WINDOW}, {form}: {rows}"
+              f") on {card}: launches {launches[form]}; max abs err against "
+              f"the plain fp32 module on the CPU " + ", ".join(line))
+        del results, x, g
+    del mods
+    torch.cuda.empty_cache()
+    return launches, errs
+
+
+def run_mistral_training(card):
+    """Mistral-7B-v0.1 trained at full width from its config.json numbers
+    (MISTRAL_7B through the Llama adapter, window_size = (4095, 0) set on
+    its config as the JAX package sets it) with the depth cut to
+    MISTRAL_TRAIN_LAYERS, seeded weights (the trainer's initialisation) and
+    bf16 training state, by fit_checked at MISTRAL_TRAIN_BATCH x
+    MISTRAL_TRAIN_SEQ with band=True (per step and layer one band forward,
+    one preprocess, one band dK/dV and one band dQ, no band-free launch)
+    and a profile of one step. Returns the launches and measurements."""
+    from flash_attn_tpu_torch.models.llama import llama_config_to_gpt_config
+    from flash_attn_tpu_torch.utils.cases import MISTRAL_WINDOW
+
+    cut = SimpleNamespace(**{**vars(MISTRAL_7B),
+                             "num_hidden_layers": MISTRAL_TRAIN_LAYERS})
+    mcfg = dataclasses.replace(
+        llama_config_to_gpt_config(cut, dtype=torch.bfloat16),
+        window_size=MISTRAL_WINDOW)
+    label = (f"Mistral-7B training ({MISTRAL_TRAIN_LAYERS} of "
+             f"{MISTRAL_7B.num_hidden_layers} layers, window "
+             f"{MISTRAL_WINDOW})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mistral.bin")
+        write_token_file(path, mcfg.vocab_size)
+        launches, res, trainer, loader = fit_checked(
+            label, mcfg, path, MISTRAL_TRAIN_BATCH, MISTRAL_TRAIN_SEQ,
+            band=True)
+        profile_step(trainer, loader, f"one {label} step",
+                     MISTRAL_TRAIN_BATCH, MISTRAL_TRAIN_SEQ)
+        print(f"{label}: step {res['step_ms']:.1f} ms (median of steps "
+              f"{TRAIN_WARM + 1}-{TRAIN_STEPS}), {res['tokens_per_s']:.0f} "
+              f"tokens/s, {res['tflops_per_s']:.1f} TFLOP/s "
+              f"(model_flops_per_token, which counts all causal pairs), peak "
+              f"{res['peak_gb']:.2f} GB (max_memory_allocated) on {card}")
+        del trainer, loader
+    torch.cuda.empty_cache()
+    return launches, res
 
 
 def main() -> int:
@@ -5418,6 +6055,11 @@ def main() -> int:
                                     run_wide_training, card)
     bd_err, bd_t = phase("band kernel checks", check_band_kernels, gen)
     ms_launches, mistral = phase("Mistral-7B", run_mistral, card)
+    bb_err, bb_t, bb_api, bb_res = phase("band backward kernel checks",
+                                         check_band_backward, gen, lib)
+    bm_launches, bm_err = phase("windowed MHA", run_band_mha, gen, card)
+    mt_launches, mistral_train = phase("Mistral-7B training",
+                                       run_mistral_training, card)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -5429,7 +6071,8 @@ def main() -> int:
     for name, d in (("GPT-NeoX-20B", 96), ("GPT-J-6B", 256)):
         fam = wide[name]
         engs = [k for k in wide if k.startswith(name + " ")]
-        print(f"{name} (full width and depth, head dim {d}, b={BATCH} x "
+        print(f"{name} (full width, {wide[name]['layers']} layers, head dim "
+              f"{d}, b={BATCH} x "
               f"{PROMPT} + {NEW_TOKENS}): TTFT {fam['ttft_ms']:.2f} ms, decode "
               f"{fam['decode_tokens_per_s']:.1f} tokens/s graphed (a step "
               f"{fam['decode_step_ms']:.3f} ms, the weights' read "
@@ -5463,7 +6106,8 @@ def main() -> int:
           f"images/s at b={VIT_BATCH} on {card}")
     mis, mis_eng = mistral["Mistral-7B"], [
         k for k in mistral if k.startswith("Mistral-7B ")]
-    print(f"Mistral-7B (full width and depth, window {MISTRAL_7B.sliding_window}"
+    print(f"Mistral-7B (full width, {mis['layers']} layers, window "
+          f"{MISTRAL_7B.sliding_window}"
           f", b={MISTRAL_BATCH} x {MISTRAL_PROMPT} + {MISTRAL_NEW}): TTFT "
           f"{mis['ttft_ms']:.2f} ms ({mis['ttft_without_window_ms']:.2f} ms "
           f"without the window), decode {mis['decode_tokens_per_s']:.1f} "
@@ -5474,6 +6118,19 @@ def main() -> int:
               f"{mistral[k]['tokens_per_s']:.1f} tokens/s, TTFT p50 "
               f"{mistral[k]['ttft_p50_ms']:.1f} ms" for k in mis_eng)
           + f" on {card}")
+    mtr, b3b = mistral_train, bb_t["flash_bwd_band"]
+    print(f"Mistral-7B trained at full width, {MISTRAL_TRAIN_LAYERS} layers "
+          f"({mtr['params_b']:.2f}B parameters), window "
+          f"{MISTRAL_7B.sliding_window}, b={MISTRAL_TRAIN_BATCH} x "
+          f"{MISTRAL_TRAIN_SEQ}: step {mtr['step_ms']:.1f} ms, "
+          f"{mtr['tokens_per_s']:.0f} tokens/s, {mtr['tflops_per_s']:.1f} "
+          f"TFLOP/s, peak {mtr['peak_gb']:.2f} GB; loss "
+          f"{mtr['first_loss']:.4f} -> {mtr['last3_loss']:.4f} (full-logits "
+          f"CE {mtr['ce_ref']:.4f}); B3's band pair at its shape (one layer) "
+          f"{b3b['ms']:.4f} ms beside the band-free pair "
+          f"{b3b['band_free_ms']:.4f} ms, SDPA's masked backward "
+          f"{b3b['library_ms']:.4f} ms and the bound {b3b['bound_ms']:.4f} ms "
+          f"on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -5649,6 +6306,34 @@ def main() -> int:
               ms_launches["Mistral-7B prefix-cache engine"]
               ["flash_varlen_paged_band"], bd_err["flash_varlen_paged_band"],
               bd_t["flash_varlen_paged_band"]),
+        # the band in training: B3's band pair in the Mistral-7B training
+        # run, B2's in the counted flash_attn_func(deterministic=False)
+        # .backward() at its shape, B7's and B6's band backward in the
+        # windowed packed MHA, B6's band forward in band_bwd_case's counted
+        # packed run at the timed shape
+        entry("flash_bwd_band", "flash_bwd_band.cu", "flash_bwd.py:181",
+              mt_launches["fa_bwd_dkdv_band"] + mt_launches["fa_bwd_dq_band"],
+              bb_err["flash_bwd_band"], bb_t["flash_bwd_band"]),
+        entry("flash_bwd_fused_band", "flash_bwd_band.cu",
+              "flash_bwd_fused.py:64", bb_api[False]["flash_bwd_fused_band"],
+              bb_err["flash_bwd_fused_band"], bb_t["flash_bwd_fused_band"]),
+        entry("flash_varlen_fwd_band", "flash_varlen_fwd_band.cu",
+              "flash_varlen.py:79", bb_api["packed"]["flash_varlen_fwd_band"],
+              bb_err["flash_varlen_fwd_band"], bb_t["flash_varlen_fwd_band"]),
+        entry("flash_varlen_fwd_persistent_band", "flash_varlen_fwd_band.cu",
+              "flash_varlen_persistent.py:72",
+              bm_launches["packed"]["flash_varlen_fwd_persistent_band"],
+              bb_err["flash_varlen_fwd_persistent_band"],
+              bb_t["flash_varlen_fwd_persistent_band"]),
+        entry("fa_varlen_bwd_dkdv_band", "flash_varlen_band.cu",
+              "flash_varlen.py:462",
+              bm_launches["packed"]["fa_varlen_bwd_dkdv_band"],
+              bb_err["fa_varlen_bwd_dkdv_band"],
+              bb_t["fa_varlen_bwd_dkdv_band"]),
+        entry("fa_varlen_bwd_dq_band", "flash_varlen_band.cu",
+              "flash_varlen.py:651",
+              bm_launches["packed"]["fa_varlen_bwd_dq_band"],
+              bb_err["fa_varlen_bwd_dq_band"], bb_t["fa_varlen_bwd_dq_band"]),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -5664,7 +6349,10 @@ def main() -> int:
         "wide_head_dims": wide, "remat": remat, "dwconv": dwconv,
         "wide_training": {"models": wide_train, "packed_mha_err": wp_err,
                           "kernel_resources": wb_res},
-        "band": bd_t, "mistral": mistral}))
+        "band": bd_t, "mistral": mistral,
+        "band_training": {"mistral": mistral_train, "mha_err": bm_err,
+                          "mha_launches": bm_launches,
+                          "kernel_resources": bb_res}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -87,6 +87,20 @@
 // behind a warpgroup-divergent branch): a warpgroup whose rows see nothing
 // of a tile skips its products as a whole, and the fused pass's dQ product
 // runs on dS^T = 0 for it.
+//
+// The band masks (window, chunk, sinks: common.cuh's Band, the masks of
+// flash_bwd.py:103-139 and flash_bwd_fused.py:363-383) run in the tiles'
+// BAND instantiations, over the band walks (BandRangeQWalk, BandRangeKWalk,
+// which carry the Band): a dK/dV block walks the q tiles of its keys' band
+// (QueryRange) and a dQ block the key tiles of its rows' band (KeyRange),
+// so a block whose band is empty writes zeros; a warpgroup skips a tile in
+// which no pair of its rows and keys may lie inside the band (band_meets:
+// a chunk's edge, a window's far edge), and a tile that crosses an edge of
+// the band tests each score against per-key (dK/dV) or per-row (dQ) bounds
+// made once a tile, in a loop of its own (one loop with the test behind a
+// flag cost every tile: the band instantiation ran 1.21x the band-free
+// kernels over the same causal tiles, PERF.md §6). The band-free
+// instantiations take the walks above and compile to the code they were.
 #pragma once
 
 #include "sm90.cuh"
@@ -166,6 +180,25 @@ struct BandQWalk {
   __device__ __forceinline__ WalkStep next(int t, int st) const { return at(t, st); }
 };
 
+// dK/dV's band walk: as BandQWalk over the q tiles of the QueryRange of KV
+// rows [n0, n0 + rows) under `band`, which the BAND tiles read from it.
+struct BandRangeQWalk {
+  int m_begin, n_m, group, hk;
+  Band band;
+  __device__ __forceinline__ BandRangeQWalk(int sq, int sk, int n0, int rows, const Band& b,
+                                            int grp, int h)
+      : group(grp), hk(h), band(b) {
+    const QueryRange<BWD_KV_BM> r(n0, rows, sq, sk, b);
+    m_begin = r.lo;
+    n_m = r.hi - r.lo;
+  }
+  __device__ __forceinline__ int count() const { return n_m * group; }
+  __device__ __forceinline__ WalkStep at(int t, int) const {
+    return {(m_begin + t % n_m) * BWD_KV_BM, hk * group + t / n_m, -1};
+  }
+  __device__ __forceinline__ WalkStep next(int t, int st) const { return at(t, st); }
+};
+
 // dQ's dense walk: the 64-key tiles of the causal band of q rows
 // [m0, m0 + rows).
 struct BandKWalk {
@@ -180,6 +213,25 @@ struct BandKWalk {
   }
   __device__ __forceinline__ int count() const { return total; }
   __device__ __forceinline__ WalkStep at(int t, int) const { return {t * BWD_Q_BN, hh, -1}; }
+  __device__ __forceinline__ WalkStep next(int t, int st) const { return at(t, st); }
+};
+
+// dQ's band walk: the 64-key tiles of the KeyRange of q rows [m0, m0 +
+// rows) under `band`, from the band's first, which the BAND tiles read.
+struct BandRangeKWalk {
+  int lo, total, hh;
+  Band band;
+  __device__ __forceinline__ BandRangeKWalk(int sq, int sk, int m0, int rows, const Band& b,
+                                            int h)
+      : hh(h), band(b) {
+    const KeyRange<BWD_Q_BN> r(m0, rows, sq, sk, b);
+    lo = r.lo;
+    total = r.count();
+  }
+  __device__ __forceinline__ int count() const { return total; }
+  __device__ __forceinline__ WalkStep at(int t, int) const {
+    return {(lo + t) * BWD_Q_BN, hh, -1};
+  }
   __device__ __forceinline__ WalkStep next(int t, int st) const { return at(t, st); }
 };
 
@@ -250,8 +302,9 @@ struct DkdvLayout {
 // dK and dV (and, with ACCUM_DQ, dQ * scale added into src.dq_accum) of KV
 // rows [n0, n0 + BwdPlan<D>::ROWS) of KV head hk of the sequence `src` over the q tiles
 // of `walk`. `smem` is the 1024-aligned base of DkdvLayout<D,
-// ACCUM_DQ>::BYTES.
-template <typename T, int D, bool ACCUM_DQ, typename Src, typename Walk>
+// ACCUM_DQ>::BYTES. BAND: mask by walk.band (its right bound stands for
+// a.causal; a BandRangeQWalk) instead of the causal bound.
+template <typename T, int D, bool ACCUM_DQ, bool BAND = false, typename Src, typename Walk>
 __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
                                          int n0, unsigned char* smem, const Walk& walk) {
   using L = DkdvLayout<D, ACCUM_DQ>;
@@ -382,7 +435,12 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
       const int q_off = wg * HQ;
       unsigned char* PTs = smem + L::PT_OFF;
       unsigned char* DSs = smem + L::DS_OFF;
-      const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift);
+      bool active;
+      if constexpr (BAND)
+        active = kv0 < sk && band_meets(walk.band, m0, min(m0 + BM, sq) - 1, kv0,
+                                        min(kv0 + 64, sk) - 1, shift);
+      else
+        active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift);
       if (active) {
         float s[HQ / 2], dp[HQ / 2];
 #pragma unroll
@@ -400,6 +458,37 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
+        if constexpr (BAND) {
+          const bool need_mask =
+              band_cuts(walk.band, m0 + q_off, m0 + q_off + HQ - 1, kv0, kv0 + 63, shift) ||
+              kv0 + 64 > sk;
+          if (need_mask) {
+            // the q rows [rlo, rhi] that see each of this thread's two keys
+            int rlo[2], rhi[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              band_key_rows(walk.band, kv0 + warp * 16 + g + 8 * i, sk, shift, rlo[i], rhi[i]);
+#pragma unroll
+            for (int j = 0; j < HQ / 8; ++j) {
+              const float2 l = *reinterpret_cast<const float2*>(lse_s + q_off + 8 * j + 2 * t4);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
+                const int qrow = m0 + q_off + 8 * j + 2 * t4 + (e & 1);
+                if (qrow < rlo[e >> 1] || qrow > rhi[e >> 1]) x = -INFINITY;
+                s[4 * j + e] = exp2f(x);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < HQ / 8; ++j) {
+              const float2 l = *reinterpret_cast<const float2*>(lse_s + q_off + 8 * j + 2 * t4);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[4 * j + e] = exp2f(fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x)));
+            }
+          }
+        } else {
         const bool need_mask = (a.causal && kv0 + 63 > m0 + q_off + shift) || kv0 + 64 > sk;
 #pragma unroll
         for (int j = 0; j < HQ / 8; ++j) {
@@ -414,6 +503,7 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
             }
             s[4 * j + e] = exp2f(x);
           }
+        }
         }
         wgmma_wait<0>();
         fence_regs(dp);
@@ -458,8 +548,13 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
     } else {
       // does any key of this warpgroup see any row of the tile, and is it
       // this warpgroup's?
-      const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift) &&
-                          (w.owner < 0 || w.owner == wg);
+      bool active;
+      if constexpr (BAND)
+        active = kv0 < sk && band_meets(walk.band, m0, min(m0 + BM, sq) - 1, kv0,
+                                        min(kv0 + 64, sk) - 1, shift);
+      else
+        active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift) &&
+                 (w.owner < 0 || w.owner == wg);
       if (active) {
         float s[BM / 2], dp[BM / 2];
 #pragma unroll
@@ -481,6 +576,36 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
 
         // P^T = exp2(S^T * scale_log2 - lse2), masked on the diagonal and the
         // ragged end of the keys; rows past sq have lse2 = +inf
+        if constexpr (BAND) {
+          const bool need_mask =
+              band_cuts(walk.band, m0, m0 + BM - 1, kv0, kv0 + 63, shift) || kv0 + 64 > sk;
+          if (need_mask) {
+            // the q rows [rlo, rhi] that see each of this thread's two keys
+            int rlo[2], rhi[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              band_key_rows(walk.band, kv0 + warp * 16 + g + 8 * i, sk, shift, rlo[i], rhi[i]);
+#pragma unroll
+            for (int j = 0; j < BM / 8; ++j) {
+              const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
+                const int qrow = m0 + 8 * j + 2 * t4 + (e & 1);
+                if (qrow < rlo[e >> 1] || qrow > rhi[e >> 1]) x = -INFINITY;
+                s[4 * j + e] = exp2f(x);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < BM / 8; ++j) {
+              const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                s[4 * j + e] = exp2f(fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x)));
+            }
+          }
+        } else {
         const bool need_mask = (a.causal && kv0 + 63 > m0 + shift) || kv0 + 64 > sk;
 #pragma unroll
         for (int j = 0; j < BM / 8; ++j) {
@@ -495,6 +620,7 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
             }
             s[4 * j + e] = exp2f(x);
           }
+        }
         }
         uint32_t pa[BM / 16][4];
 #pragma unroll
@@ -589,6 +715,15 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
                            BandQWalk(src.sq, src.sk, n0, a.causal, a.group, hk));
 }
 
+// bwd_dkdv's BAND instantiation over the band walk of `band`.
+template <typename T, int D, bool ACCUM_DQ, typename Src>
+__device__ __forceinline__ void bwd_dkdv_band(const Src& src, BwdArgs a, int hk, int n0,
+                                              unsigned char* smem, Band band) {
+  bwd_dkdv<T, D, ACCUM_DQ, true>(
+      src, a, hk, n0, smem,
+      BandRangeQWalk(src.sq, src.sk, n0, BwdPlan<D>::ROWS, band, a.group, hk));
+}
+
 // ---- dQ ---------------------------------------------------------------------
 
 template <int D>
@@ -613,8 +748,9 @@ struct DqLayout {
 
 // dQ of query rows [m0, m0 + BwdPlan<D>::ROWS) of query head hh of the sequence `src`
 // over the key tiles of `walk`, written once. `smem` is the 1024-aligned
-// base of DqLayout<D>::BYTES.
-template <typename T, int D, typename Src, typename Walk>
+// base of DqLayout<D>::BYTES. BAND: mask by walk.band (a BandRangeKWalk),
+// as bwd_dkdv.
+template <typename T, int D, bool BAND = false, typename Src, typename Walk>
 __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
                                        unsigned char* smem, const Walk& walk) {
   using L = DqLayout<D>;
@@ -710,7 +846,12 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
       constexpr int HK = BN / 2;
       const int k_off = wg * HK;
       unsigned char* DSs = smem + L::DS_OFF;
-      const bool active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift);
+      bool active;
+      if constexpr (BAND)
+        active = r0 < sq && band_meets(walk.band, r0, min(r0 + 64, sq) - 1, n0,
+                                       min(n0 + BN, sk) - 1, shift);
+      else
+        active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift);
       if (active) {
         float s[HK / 2], dp[HK / 2];
 #pragma unroll
@@ -729,6 +870,35 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
         wgmma_wait<1>();
         fence_regs(s);
         const int c0 = n0 + k_off;  // this warpgroup's first key
+        if constexpr (BAND) {
+          const bool need_mask =
+              band_cuts(walk.band, r0, r0 + 63, c0, c0 + HK - 1, shift) || c0 + HK > sk;
+          if (need_mask) {
+            // the keys [klo, khi] this thread's two rows see, bar the
+            // window's lower edge kwlo, which the first band.sink keys pass
+            int klo[2], khi[2], kwlo[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              band_row_keys(walk.band, r0 + warp * 16 + g + 8 * i + shift, sk, klo[i], khi[i],
+                            kwlo[i]);
+#pragma unroll
+            for (int j = 0; j < HK / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float x = fmaf(s[4 * j + e], a.scale_log2, -lse2[e >> 1]);
+                const int col = c0 + 8 * j + 2 * t4 + (e & 1);
+                const int i = e >> 1;
+                if (col > khi[i] || col < klo[i] || (col < kwlo[i] && col >= walk.band.sink))
+                  x = -INFINITY;
+                s[4 * j + e] = exp2f(x);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < HK / 2; ++i)
+              s[i] = exp2f(fmaf(s[i], a.scale_log2, -lse2[(i >> 1) & 1]));
+          }
+        } else {
         const bool need_mask = (a.causal && c0 + HK - 1 > r0 + shift) || c0 + HK > sk;
 #pragma unroll
         for (int j = 0; j < HK / 8; ++j) {
@@ -742,6 +912,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
             }
             s[4 * j + e] = exp2f(x);
           }
+        }
         }
         wgmma_wait<0>();
         fence_regs(dp);
@@ -770,8 +941,13 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
     } else {
       // does any row of this warpgroup see any key of the tile, and is it
       // this warpgroup's?
-      const bool active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift) &&
-                          (w.owner < 0 || w.owner == wg);
+      bool active;
+      if constexpr (BAND)
+        active = r0 < sq && band_meets(walk.band, r0, min(r0 + 64, sq) - 1, n0,
+                                       min(n0 + BN, sk) - 1, shift);
+      else
+        active = r0 < sq && (!a.causal || n0 <= r0 + 63 + shift) &&
+                 (w.owner < 0 || w.owner == wg);
       if (active) {
         float s[BN / 2], dp[BN / 2];
 #pragma unroll
@@ -793,6 +969,35 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
 
         // P = exp2(S * scale_log2 - lse2), masked on the diagonal and the
         // ragged end of the keys
+        if constexpr (BAND) {
+          const bool need_mask =
+              band_cuts(walk.band, r0, r0 + 63, n0, n0 + BN - 1, shift) || n0 + BN > sk;
+          if (need_mask) {
+            // the keys [klo, khi] this thread's two rows see, bar the
+            // window's lower edge kwlo, which the first band.sink keys pass
+            int klo[2], khi[2], kwlo[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              band_row_keys(walk.band, r0 + warp * 16 + g + 8 * i + shift, sk, klo[i], khi[i],
+                            kwlo[i]);
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                float x = fmaf(s[4 * j + e], a.scale_log2, -lse2[e >> 1]);
+                const int col = n0 + 8 * j + 2 * t4 + (e & 1);
+                const int i = e >> 1;
+                if (col > khi[i] || col < klo[i] || (col < kwlo[i] && col >= walk.band.sink))
+                  x = -INFINITY;
+                s[4 * j + e] = exp2f(x);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i)
+              s[i] = exp2f(fmaf(s[i], a.scale_log2, -lse2[(i >> 1) & 1]));
+          }
+        } else {
         const bool need_mask = (a.causal && n0 + BN - 1 > r0 + shift) || n0 + BN > sk;
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
@@ -806,6 +1011,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
             }
             s[4 * j + e] = exp2f(x);
           }
+        }
         }
         wgmma_wait<0>();
         fence_regs(dp);
@@ -848,6 +1054,14 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
                                        unsigned char* smem) {
   bwd_dq<T, D>(src, a, hh, m0, smem,
                BandKWalk(src.sq, src.sk, m0, a.causal, hh, BwdPlan<D>::ROWS));
+}
+
+// bwd_dq's BAND instantiation over the band walk of `band`.
+template <typename T, int D, typename Src>
+__device__ __forceinline__ void bwd_dq_band(const Src& src, BwdArgs a, int hh, int m0,
+                                            unsigned char* smem, Band band) {
+  bwd_dq<T, D, true>(src, a, hh, m0, smem,
+                     BandRangeKWalk(src.sq, src.sk, m0, BwdPlan<D>::ROWS, band, hh));
 }
 
 }  // namespace sm90

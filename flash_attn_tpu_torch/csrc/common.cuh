@@ -2,7 +2,8 @@
 // element-type traits (bf16 / fp16; their m16n8k16 mma.sync product serves
 // the mma/exp2 overlap probe alone, csrc/probes.cu), the shared-memory
 // address of a pointer, the band masks, the key tiles of a row tile's
-// band and quad reductions.
+// band, the query tiles of a key tile's band, the band's tile tests and
+// per-key and per-row bounds, and quad reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -121,6 +122,97 @@ struct KeyRange {
   }
   __device__ __forceinline__ int count() const { return hi - lo; }
 };
+
+// The BM-row query tiles [lo, hi) of a Band that see some key of [n0, n0 +
+// bn) (the mirror of KeyRange by rows, flash_bwd.py:157 _q_block_bounds):
+// rows below the first are past the right extent (0 under causal masking)
+// of every key of the tile, rows past the last past the left extent of its
+// last key (no bound when the tile holds a sink key) or past its chunk.
+// Empty (lo = hi = 0) when no row sees any key; a tile outside it is fully
+// masked for every key, so skipping it changes no sum.
+template <int BM>
+struct QueryRange {
+  int lo = 0, hi = 0;
+  __device__ __forceinline__ QueryRange(int n0, int bn, int sq, int sk, const Band& b) {
+    if (n0 >= sk) return;
+    const int shift = sk - sq;
+    const int c_hi = min(n0 + bn, sk) - 1;
+    int r_lo = 0, r_hi = sq - 1;
+    if (b.right != BAND_NONE) r_lo = max(r_lo, n0 - shift - b.right);
+    if (b.left != BAND_NONE && n0 >= b.sink) r_hi = min(r_hi, c_hi - shift + b.left);
+    if (b.chunk > 0) {
+      r_lo = max(r_lo, b.chunk_lo(n0) - shift);
+      r_hi = min(r_hi, b.chunk_lo(c_hi) + b.chunk - 1 - shift);
+    }
+    if (r_hi < r_lo) return;  // r_lo >= 0: no row sees a key of the tile
+    lo = r_lo / BM;
+    hi = r_hi / BM + 1;
+  }
+};
+
+// Under a Band, for a tile of query rows [ra, rb] by keys [ca, cb] (shift =
+// sk - sq): band_meets, whether some pair of them may lie inside the band
+// (each edge tested alone: a tile that passes and holds none is masked
+// whole, which adds nothing); band_cuts, whether some pair lies outside it
+// (the tile runs the mask; sinks aside: a mask too many changes no score).
+__device__ __forceinline__ bool band_meets(const Band& b, int ra, int rb, int ca, int cb,
+                                           int shift) {
+  if (ca > rb + shift + b.right) return false;
+  if (cb < ra + shift - b.left && ca >= b.sink) return false;
+  if (b.chunk > 0 &&
+      (cb < b.chunk_lo(ra + shift) || ca > b.chunk_lo(rb + shift) + b.chunk - 1))
+    return false;
+  return true;
+}
+
+__device__ __forceinline__ bool band_cuts(const Band& b, int ra, int rb, int ca, int cb,
+                                          int shift) {
+  if (cb > ra + shift + b.right || ca < rb + shift - b.left) return true;
+  if (b.chunk > 0) {
+    const int lo = b.chunk_lo(ra + shift);
+    return b.chunk_lo(rb + shift) != lo || ca < lo || cb > lo + b.chunk - 1;
+  }
+  return false;
+}
+
+// Under a Band: the query rows [lo, hi] that see key c of sk (empty, hi <
+// lo, for a key past sk), the per-key bounds of a transposed score tile.
+__device__ __forceinline__ void band_key_rows(const Band& b, int c, int sk, int shift, int& lo,
+                                              int& hi) {
+  lo = c - shift - b.right;
+  hi = c < b.sink ? INT_MAX : c - shift + b.left;
+  if (b.chunk > 0) {
+    const int r0 = b.chunk_lo(c) - shift;
+    lo = max(lo, r0);
+    hi = min(hi, r0 + b.chunk - 1);
+  }
+  if (c >= sk) hi = INT_MIN;
+}
+
+// Under a Band: the keys [lo, hi] of sk that row r sees (rs = r + shift),
+// bar the window's lower edge wlo, which the first b.sink keys pass: the
+// per-row bounds of a score tile (the forward's, and the backward's dQ).
+__device__ __forceinline__ void band_row_keys(const Band& b, int rs, int sk, int& lo, int& hi,
+                                              int& wlo) {
+  hi = min(sk - 1, rs + b.right);
+  lo = INT_MIN;
+  if (b.chunk > 0) {
+    lo = b.chunk_lo(rs);
+    hi = min(hi, lo + b.chunk - 1);
+  }
+  wlo = rs - b.left;
+}
+
+// The Band of a C entry point's arguments (dispatch/band.py band_args: -1
+// for a missing window extent, right 0 under causal masking).
+inline Band band_from_args(int left, int right, int sink, int chunk) {
+  Band b;
+  b.left = left < 0 ? BAND_NONE : left;
+  b.right = right < 0 ? BAND_NONE : right;
+  b.sink = sink;
+  b.chunk = chunk;
+  return b;
+}
 
 // Reductions over the 4 lanes of a quad (the lanes that share one row of an
 // mma accumulator tile).

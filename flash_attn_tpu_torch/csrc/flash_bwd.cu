@@ -1,7 +1,8 @@
 // Dense attention backward for Hopper (sm_90a) on wgmma and TMA, bf16 /
 // fp16, head dims 64, 96, 128 and 256 (the kernels are in flash_bwd.cuh;
 // this source compiles 64 and 128 and holds the C entry points,
-// flash_bwd_wide.cu compiles 96 and 256).
+// flash_bwd_wide.cu compiles 96 and 256, flash_bwd_band.cu and
+// flash_bwd_band_wide.cu the band instantiations).
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_bwd.py:_dkdv_kernel
 // and :_dq_kernel (the deterministic two-kernel backward),
@@ -57,6 +58,20 @@
 // launched heaviest first (the first KV tiles, the last q tiles, under
 // causal masking).
 //
+// The band masks (window, chunk and sinks; flash_bwd.py:103-139, the same
+// in flash_bwd_fused.py:363-383) run in their own instantiations (BAND)
+// of all three products' kernels: a dK/dV block walks only the q tiles of
+// its keys' band (common.cuh QueryRange, the mirror of flash_bwd.py:157
+// _q_block_bounds, also past the TPU's sink rule: a key tile wholly past
+// the sinks is bounded too) and a dQ block only the key tiles of its rows'
+// band (KeyRange, as the forward); the tiles that cross an edge of the
+// band test each score against per-key (dK/dV) or per-row (dQ) bounds made
+// once a tile, in a loop apart from the unmasked tiles'. A 4096-key window
+// over 8192 causal keys keeps 0.750 of the pairs, and the pair runs in
+// about that share of the band-free pair's time. A call without a band
+// runs the band-free instantiations, the kernels of the earlier releases,
+// with the same bits and machine code.
+//
 // Conventions: softmax_scale is natural; lse is natural-log (b, h, sq) and
 // -inf for a row that sees no key (its P is 0). Causal masking is
 // bottom-right aligned (shift = sk - sq). The tensor maps are encoded on the
@@ -103,7 +118,7 @@ cudaError_t make_maps(BwdMaps* m, const Operands& o, bool bf16, int b, int sq, i
 }
 
 BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int sq_pad,
-                      int h, int h_k, int d, float scale, int causal) {
+                      int h, int h_k, int d, float scale, int causal, const fa::Band& band) {
   BwdParams p = {};
   p.lse2 = lse2;
   p.delta = delta;
@@ -113,6 +128,7 @@ BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int
   p.h = h;
   p.d = d;
   p.a = {scale, scale * FA_LOG2E, causal, h / h_k};
+  p.band = band;
   return p;
 }
 
@@ -120,6 +136,11 @@ bool valid(int b, int sq, int sk, int sq_pad, int h, int h_k, int d) {
   return b > 0 && sq > 0 && sk > 0 && h_k > 0 && h % h_k == 0 &&
          (d == 64 || d == 96 || d == 128 || d == 256) && sq_pad % BWD_ROW_PAD == 0 &&
          sq_pad >= sq;
+}
+
+// Whether the kernels take a call's band (dispatch/band.py band_args).
+bool valid_band(int causal, int right, int sink, int chunk, int band) {
+  return sink >= 0 && chunk >= 0 && !(causal && right != 0 && band);
 }
 
 // The head dims this source compiles; the others go to flash_bwd_wide.cu.
@@ -151,7 +172,10 @@ extern "C" int fa_bwd_preprocess(const void* dout, const void* out, const float*
 // the head dim contiguous, 16-byte aligned starts and strides (TMA); lse2 and
 // delta (b, h, sq_pad) from fa_bwd_preprocess; dq_accum (b, sq, h, d)
 // contiguous fp32, zeroed. block_q/block_k must name the tile the kernel is
-// compiled for at head dim d (dispatch/config.py dense_bwd_tiles). Returns a
+// compiled for at head dim d (dispatch/config.py dense_bwd_tiles). The band
+// (dispatch/band.py band_args): window extents left and right (-1: no
+// bound; right 0 under causal masking), sink tokens and the chunk, read
+// when `band` is set, which launches the band instantiation. Returns a
 // cudaError_t.
 extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse2,
@@ -164,9 +188,10 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            int64_t do_sb, int64_t do_ss, int64_t do_sh,
                            int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
                            int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
-                           float scale, int causal, int is_bf16, void* stream) {
+                           float scale, int causal, int left, int right, int sink,
+                           int chunk, int band, int is_bf16, void* stream) {
   if (block_q != BWD_KV_BM || block_k != bwd_block_rows(d) ||
-      !valid(b, sq, sk, sq_pad, h, h_k, d))
+      !valid(b, sq, sk, sq_pad, h, h_k, d) || !valid_band(causal, right, sink, chunk, band))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
@@ -174,18 +199,23 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
   cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, BWD_KV_BM,
                               bwd_block_rows(d));
   if (err != cudaSuccess) return (int)err;
-  BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal);
+  BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal,
+                            fa::band_from_args(left, right, sink, chunk));
   p.dk = dk;
   p.dv = dv;
   p.dq_accum = dq_accum;
   p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (band)
+    return (int)(wide(d) ? run_dkdv_band_wide(is_bf16, d, maps, p, b, h_k, st)
+                         : run_dkdv_band(is_bf16, d, maps, p, b, h_k, st));
   return (int)(wide(d) ? run_dkdv_wide(is_bf16, d, maps, p, b, h_k, st)
                        : dispatch_dims<Dkdv>(NarrowDims{}, is_bf16, d, maps, p, b, h_k, st));
 }
 
-// dQ (b, sq, h, d) in q's type, written once. Layouts as fa_bwd_dkdv.
+// dQ (b, sq, h, d) in q's type, written once. Layouts and the band as
+// fa_bwd_dkdv.
 extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse2,
                          const float* delta, void* dq, int b, int sq, int sk,
@@ -195,9 +225,10 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          int64_t v_sb, int64_t v_ss, int64_t v_sh,
                          int64_t do_sb, int64_t do_ss, int64_t do_sh,
                          int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
-                         float scale, int causal, int is_bf16, void* stream) {
+                         float scale, int causal, int left, int right, int sink,
+                         int chunk, int band, int is_bf16, void* stream) {
   if (block_q != bwd_block_rows(d) || block_k != BWD_Q_BN ||
-      !valid(b, sq, sk, sq_pad, h, h_k, d))
+      !valid(b, sq, sk, sq_pad, h, h_k, d) || !valid_band(causal, right, sink, chunk, band))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
@@ -205,10 +236,14 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
   cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, bwd_block_rows(d),
                               BWD_Q_BN);
   if (err != cudaSuccess) return (int)err;
-  BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal);
+  BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal,
+                            fa::band_from_args(left, right, sink, chunk));
   p.dq = dq;
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (band)
+    return (int)(wide(d) ? run_dq_band_wide(is_bf16, d, maps, p, b, st)
+                         : run_dq_band(is_bf16, d, maps, p, b, st));
   return (int)(wide(d) ? run_dq_wide(is_bf16, d, maps, p, b, st)
                        : dispatch_dims<Dq>(NarrowDims{}, is_bf16, d, maps, p, b, st));
 }

@@ -1,8 +1,10 @@
 // The dense attention backward's kernels and launches (see csrc/flash_bwd.cu
-// for what they replace and how they are designed), shared by the two
-// sources that compile them: csrc/flash_bwd.cu (the C entry points, head
-// dims 64 and 128) and csrc/flash_bwd_wide.cu (head dims 96 and 256), so
-// that the heavy instantiations build side by side.
+// for what they replace and how they are designed), shared by the sources
+// that compile them: csrc/flash_bwd.cu (the C entry points, head dims 64
+// and 128), csrc/flash_bwd_wide.cu (head dims 96 and 256) and, for the
+// band instantiations (BAND: window, chunk and sinks), csrc/flash_bwd_band.cu
+// (64 and 128) and csrc/flash_bwd_band_wide.cu (96 and 256), so that the
+// heavy instantiations build side by side.
 #pragma once
 
 #include "bwd_sm90.cuh"
@@ -26,6 +28,7 @@ struct BwdParams {
   int64_t dv_sb, dv_ss, dv_sh;
   int sq, sk, sq_pad, h, d;
   BwdArgs a;
+  Band band;  // read by the BAND instantiations alone
 };
 
 // The preprocess kernel's arguments (see fa_bwd_preprocess).
@@ -124,23 +127,32 @@ struct DenseSrc {
 
 // dK/dV (and the fused dQ): one block per (KV head, batch row, block of
 // bwd_block_rows(D) KV rows), KV tile 0 (the heaviest under causal masking)
-// first.
-template <typename T, int D, bool ACCUM_DQ>
+// first. BAND: the q tiles of the band (p.a.band) alone.
+template <typename T, int D, bool ACCUM_DQ, bool BAND>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     dkdv_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
-  bwd_dkdv<T, D, ACCUM_DQ>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
-                           blockIdx.z * BwdPlan<D>::ROWS, align_1024(smem_raw));
+  if constexpr (BAND)
+    bwd_dkdv_band<T, D, ACCUM_DQ>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                                  blockIdx.z * BwdPlan<D>::ROWS, align_1024(smem_raw), p.band);
+  else
+    bwd_dkdv<T, D, ACCUM_DQ>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                             blockIdx.z * BwdPlan<D>::ROWS, align_1024(smem_raw));
 }
 
 // dQ: one block per (head, batch row, block of bwd_block_rows(D) q rows),
-// the last (heaviest) q block first.
-template <typename T, int D>
+// the last (heaviest) q block first. BAND: the key tiles of the band alone.
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     dq_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
-  bwd_dq<T, D>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
-               (gridDim.z - 1 - blockIdx.z) * BwdPlan<D>::ROWS, align_1024(smem_raw));
+  if constexpr (BAND)
+    bwd_dq_band<T, D>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                      (gridDim.z - 1 - blockIdx.z) * BwdPlan<D>::ROWS, align_1024(smem_raw),
+                      p.band);
+  else
+    bwd_dq<T, D>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                 (gridDim.z - 1 - blockIdx.z) * BwdPlan<D>::ROWS, align_1024(smem_raw));
 }
 
 // ---- launches ---------------------------------------------------------------
@@ -164,33 +176,68 @@ struct Pre {
   }
 };
 
+template <typename T, int D, bool BAND>
+cudaError_t run_dkdv(const BwdMaps& maps, const BwdParams& p, int b, int h_k, cudaStream_t st) {
+  constexpr int rows = BwdPlan<D>::ROWS;
+  const dim3 grid(h_k, b, (p.sk + rows - 1) / rows);
+  if (p.dq_accum != nullptr)
+    return launch(dkdv_kernel<T, D, true, BAND>, grid, DkdvLayout<D, true>::SMEM, maps, p, st);
+  return launch(dkdv_kernel<T, D, false, BAND>, grid, DkdvLayout<D, false>::SMEM, maps, p, st);
+}
+
+template <typename T, int D, bool BAND>
+cudaError_t run_dq(const BwdMaps& maps, const BwdParams& p, int b, cudaStream_t st) {
+  constexpr int rows = BwdPlan<D>::ROWS;
+  const dim3 grid(p.h, b, (p.sq + rows - 1) / rows);
+  return launch(dq_kernel<T, D, BAND>, grid, DqLayout<D>::SMEM, maps, p, st);
+}
+
 template <typename T, int D>
 struct Dkdv {
   static cudaError_t run(const BwdMaps& maps, const BwdParams& p, int b, int h_k,
                          cudaStream_t st) {
-    constexpr int rows = BwdPlan<D>::ROWS;
-    const dim3 grid(h_k, b, (p.sk + rows - 1) / rows);
-    if (p.dq_accum != nullptr)
-      return launch(dkdv_kernel<T, D, true>, grid, DkdvLayout<D, true>::SMEM, maps, p, st);
-    return launch(dkdv_kernel<T, D, false>, grid, DkdvLayout<D, false>::SMEM, maps, p, st);
+    return run_dkdv<T, D, false>(maps, p, b, h_k, st);
   }
 };
 
 template <typename T, int D>
 struct Dq {
   static cudaError_t run(const BwdMaps& maps, const BwdParams& p, int b, cudaStream_t st) {
-    constexpr int rows = BwdPlan<D>::ROWS;
-    const dim3 grid(p.h, b, (p.sq + rows - 1) / rows);
-    return launch(dq_kernel<T, D>, grid, DqLayout<D>::SMEM, maps, p, st);
+    return run_dq<T, D, false>(maps, p, b, st);
   }
 };
 
-// The launches at head dims 96 and 256 (csrc/flash_bwd_wide.cu).
+template <typename T, int D>
+struct DkdvBand {
+  static cudaError_t run(const BwdMaps& maps, const BwdParams& p, int b, int h_k,
+                         cudaStream_t st) {
+    return run_dkdv<T, D, true>(maps, p, b, h_k, st);
+  }
+};
+
+template <typename T, int D>
+struct DqBand {
+  static cudaError_t run(const BwdMaps& maps, const BwdParams& p, int b, cudaStream_t st) {
+    return run_dq<T, D, true>(maps, p, b, st);
+  }
+};
+
+// The launches at head dims 96 and 256 (csrc/flash_bwd_wide.cu), and the
+// band's at 64 and 128 (csrc/flash_bwd_band.cu) and at 96 and 256
+// (csrc/flash_bwd_band_wide.cu).
 cudaError_t run_pre_wide(bool bf16, int d, const PreParams& p, cudaStream_t st);
 cudaError_t run_dkdv_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
                           int h_k, cudaStream_t st);
 cudaError_t run_dq_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
                         cudaStream_t st);
+cudaError_t run_dkdv_band(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                          int h_k, cudaStream_t st);
+cudaError_t run_dq_band(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                        cudaStream_t st);
+cudaError_t run_dkdv_band_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p,
+                               int b, int h_k, cudaStream_t st);
+cudaError_t run_dq_band_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                             cudaStream_t st);
 
 }  // namespace dense_bwd
 }  // namespace fa

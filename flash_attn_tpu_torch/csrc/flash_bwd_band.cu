@@ -1,0 +1,26 @@
+// The dense attention backward's band instantiations (BAND: window, chunk
+// and sinks; csrc/bwd_sm90.cuh) at head dims 64 and 128: the kernels of
+// csrc/flash_bwd.cuh compiled here, in a source of their own beside the
+// band-free ones of csrc/flash_bwd.cu, so that the two build side by side.
+// The C entry points in flash_bwd.cu call these launches for a call with a
+// band; csrc/flash_bwd_band_wide.cu compiles head dims 96 and 256.
+
+#include "flash_bwd.cuh"
+
+namespace fa {
+namespace dense_bwd {
+
+using BandDims = Dims<64, 128>;
+
+cudaError_t run_dkdv_band(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                          int h_k, cudaStream_t st) {
+  return dispatch_dims<DkdvBand>(BandDims{}, bf16, d, maps, p, b, h_k, st);
+}
+
+cudaError_t run_dq_band(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                        cudaStream_t st) {
+  return dispatch_dims<DqBand>(BandDims{}, bf16, d, maps, p, b, st);
+}
+
+}  // namespace dense_bwd
+}  // namespace fa

@@ -1,7 +1,10 @@
 // Packed varlen attention backward for Hopper (sm_90a) on wgmma and TMA,
 // bf16 / fp16, head dims 64, 96, 128 and 256: B6's preprocess, dK/dV and dQ
 // kernels (in flash_varlen.cuh; this source compiles 64 and 128 and holds
-// the C entry points, flash_varlen_wide.cu compiles 96 and 256).
+// the C entry points, flash_varlen_wide.cu compiles 96 and 256,
+// flash_varlen_band.cu and flash_varlen_band_wide.cu the band
+// instantiations: a window and attention_chunk per sequence, masked as
+// B3's band instantiations mask them, flash_varlen.py:47-76).
 // The forward (B6's and the persistent B7) runs the wgmma/TMA tile of
 // fwd_sm90.cuh in flash_varlen_fwd.cu.
 //
@@ -80,6 +83,11 @@ bool takes(int b, int total_q, int total_k, int h, int h_k, int d, int num_tiles
          (int64_t)num_tiles * h * (BWD_KV_ROWS / bwd_block_rows(d)) <= 0x7fffffff;
 }
 
+// Whether the kernels take a call's band (no sinks on the varlen route).
+bool valid_band(int causal, int right, int chunk, int band) {
+  return chunk >= 0 && !(causal && right != 0 && band);
+}
+
 // The maps (q/dout boxes of q_rows rows, k/v boxes of kv_rows) and the
 // parameters of one kernel's launch; see fa_varlen_bwd_dkdv.
 cudaError_t setup(BwdMaps* maps, VarlenParams* p, const void* q, const void* k,
@@ -88,8 +96,8 @@ cudaError_t setup(BwdMaps* maps, VarlenParams* p, const void* q, const void* k,
                   const int* tiles, int num_tiles, int b, int total_q, int total_k, int h,
                   int h_k, int d, int64_t rows_pad, int64_t q_st, int64_t q_sh,
                   int64_t k_st, int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t do_st,
-                  int64_t do_sh, float scale, int causal, int is_bf16, int q_rows,
-                  int kv_rows) {
+                  int64_t do_sh, float scale, int causal, const fa::Band& band, int is_bf16,
+                  int q_rows, int kv_rows) {
   if (!takes(b, total_q, total_k, h, h_k, d, num_tiles, rows_pad))
     return cudaErrorInvalidValue;
   cudaError_t err;
@@ -114,6 +122,7 @@ cudaError_t setup(BwdMaps* maps, VarlenParams* p, const void* q, const void* k,
   p->h = h;
   p->h_k = h_k;
   p->a = {scale, scale * FA_LOG2E, causal, h / h_k};
+  p->band = band;
   return cudaSuccess;
 }
 
@@ -152,8 +161,10 @@ extern "C" int fa_varlen_bwd_preprocess(
 // aligned starts and strides (TMA); lse2 and delta (h, rows_pad) from
 // fa_varlen_bwd_preprocess; cu_q, cu_k (b + 1,) and lens_q, lens_k (b,)
 // int32. block_q/block_k must name the tiles the kernels are compiled for
-// (dispatch/config.py VARLEN_BWD_TILE). Returns a cudaError_t (0 on
-// success).
+// (dispatch/config.py VARLEN_BWD_TILE). The band (dispatch/band.py
+// band_args, no sinks): window extents left and right (-1: no bound; right
+// 0 under causal masking) and the chunk, read when `band` is set, which
+// launches the band instantiation. Returns a cudaError_t (0 on success).
 extern "C" int fa_varlen_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout, const float* lse2,
     const float* delta, void* dk, void* dv, const int* cu_q, const int* cu_k,
@@ -161,45 +172,57 @@ extern "C" int fa_varlen_bwd_dkdv(
     int total_q, int total_k, int h, int h_k, int d, int block_q, int block_k,
     int64_t rows_pad, int64_t q_st, int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st,
     int64_t v_sh, int64_t do_st, int64_t do_sh, int64_t dk_st, int64_t dk_sh, int64_t dv_st,
-    int64_t dv_sh, float scale, int causal, int is_bf16, void* stream) {
-  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS) return (int)cudaErrorInvalidValue;
+    int64_t dv_sh, float scale, int causal, int left, int right, int chunk, int band,
+    int is_bf16, void* stream) {
+  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS || !valid_band(causal, right, chunk, band))
+    return (int)cudaErrorInvalidValue;
   BwdMaps maps;
   VarlenParams p;
   cudaError_t err = setup(&maps, &p, q, k, v, dout, lse2, delta, cu_q, cu_k, lens_q, lens_k,
                           tiles, num_tiles, b, total_q, total_k, h, h_k, d, rows_pad, q_st,
-                          q_sh, k_st, k_sh, v_st, v_sh, do_st, do_sh, scale, causal, is_bf16,
-                          BWD_KV_BM, bwd_block_rows(d));
+                          q_sh, k_st, k_sh, v_st, v_sh, do_st, do_sh, scale, causal,
+                          fa::band_from_args(left, right, 0, chunk), is_bf16, BWD_KV_BM,
+                          bwd_block_rows(d));
   if (err != cudaSuccess) return (int)err;
   p.dk = dk;
   p.dv = dv;
   p.dk_st = dk_st; p.dk_sh = dk_sh;
   p.dv_st = dv_st; p.dv_sh = dv_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (band)
+    return (int)(wide(d) ? run_dkdv_band_wide(is_bf16, d, maps, p, st)
+                         : run_dkdv_band(is_bf16, d, maps, p, st));
   return (int)(wide(d) ? run_dkdv_wide(is_bf16, d, maps, p, st)
                        : dispatch_dims<Dkdv>(NarrowDims{}, is_bf16, d, maps, p, st));
 }
 
 // dQ (total_q, h, d) in q's type over the query-side work list `tiles` of
-// block_q-row tiles, written once. Layouts as fa_varlen_bwd_dkdv.
+// block_q-row tiles, written once. Layouts and the band as
+// fa_varlen_bwd_dkdv.
 extern "C" int fa_varlen_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const float* lse2,
     const float* delta, void* dq, const int* cu_q, const int* cu_k, const int* lens_q,
     const int* lens_k, const int* tiles, int num_tiles, int b, int total_q, int total_k,
     int h, int h_k, int d, int block_q, int block_k, int64_t rows_pad, int64_t q_st,
     int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t do_st,
-    int64_t do_sh, int64_t dq_st, int64_t dq_sh, float scale, int causal, int is_bf16,
-    void* stream) {
-  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS) return (int)cudaErrorInvalidValue;
+    int64_t do_sh, int64_t dq_st, int64_t dq_sh, float scale, int causal, int left, int right,
+    int chunk, int band, int is_bf16, void* stream) {
+  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS || !valid_band(causal, right, chunk, band))
+    return (int)cudaErrorInvalidValue;
   BwdMaps maps;
   VarlenParams p;
   cudaError_t err = setup(&maps, &p, q, k, v, dout, lse2, delta, cu_q, cu_k, lens_q, lens_k,
                           tiles, num_tiles, b, total_q, total_k, h, h_k, d, rows_pad, q_st,
-                          q_sh, k_st, k_sh, v_st, v_sh, do_st, do_sh, scale, causal, is_bf16,
+                          q_sh, k_st, k_sh, v_st, v_sh, do_st, do_sh, scale, causal,
+                          fa::band_from_args(left, right, 0, chunk), is_bf16,
                           bwd_block_rows(d), BWD_Q_BN);
   if (err != cudaSuccess) return (int)err;
   p.dq = dq;
   p.dq_st = dq_st; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (band)
+    return (int)(wide(d) ? run_dq_band_wide(is_bf16, d, maps, p, st)
+                         : run_dq_band(is_bf16, d, maps, p, st));
   return (int)(wide(d) ? run_dq_wide(is_bf16, d, maps, p, st)
                        : dispatch_dims<Dq>(NarrowDims{}, is_bf16, d, maps, p, st));
 }

@@ -1,8 +1,10 @@
 // The packed varlen attention backward's kernels and launches (B6; see
 // csrc/flash_varlen.cu for what they replace and how they are designed),
-// shared by the two sources that compile them: csrc/flash_varlen.cu (the C
-// entry points, head dims 64 and 128) and csrc/flash_varlen_wide.cu (head
-// dims 96 and 256), so that the heavy instantiations build side by side.
+// shared by the sources that compile them: csrc/flash_varlen.cu (the C
+// entry points, head dims 64 and 128), csrc/flash_varlen_wide.cu (head dims
+// 96 and 256) and, for the band instantiations (BAND: window and chunk),
+// csrc/flash_varlen_band.cu (64 and 128) and csrc/flash_varlen_band_wide.cu
+// (96 and 256), so that the heavy instantiations build side by side.
 #pragma once
 
 #include "bwd_sm90.cuh"
@@ -39,6 +41,7 @@ struct VarlenParams {
   int64_t dq_st, dq_sh, dk_st, dk_sh, dv_st, dv_sh, rows_pad;
   int num_tiles, h, h_k;
   BwdArgs a;
+  Band band;  // read by the BAND instantiations alone
 };
 
 // Sequence `seq` of the packed operands: 3D maps, the padded lse2 / delta
@@ -193,8 +196,8 @@ __host__ __device__ constexpr int subtiles() { return BWD_KV_ROWS / BwdPlan<D>::
 
 // Item x = (tile, KV head, sub-tile) of the key-side schedule, the
 // heaviest tiles first; dead tiles (sorted last) and sub-tiles past the
-// sequence's keys exit.
-template <typename T, int D>
+// sequence's keys exit. BAND: the q tiles of the sequence's band alone.
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     varlen_dkdv_kernel(const __grid_constant__ BwdMaps maps, const VarlenParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -206,11 +209,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const PackedSrc<T> src(maps, p, seq);
   const int n0 = p.tiles[2 * tile + 1] + sub * BwdPlan<D>::ROWS;
   if (sub > 0 && n0 >= src.sk) return;
-  bwd_dkdv<T, D, false>(src, p.a, x - tile * p.h_k, n0, align_1024(smem_raw));
+  if constexpr (BAND)
+    bwd_dkdv_band<T, D, false>(src, p.a, x - tile * p.h_k, n0, align_1024(smem_raw), p.band);
+  else
+    bwd_dkdv<T, D, false>(src, p.a, x - tile * p.h_k, n0, align_1024(smem_raw));
 }
 
-// Item x = (tile, head, sub-tile) of the query-side schedule.
-template <typename T, int D>
+// Item x = (tile, head, sub-tile) of the query-side schedule. BAND: the key
+// tiles of the sequence's band alone.
+template <typename T, int D, bool BAND>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     varlen_dq_kernel(const __grid_constant__ BwdMaps maps, const VarlenParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -222,7 +229,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const PackedSrc<T> src(maps, p, seq);
   const int m0 = p.tiles[2 * tile + 1] + sub * BwdPlan<D>::ROWS;
   if (sub > 0 && m0 >= src.sq) return;
-  bwd_dq<T, D>(src, p.a, x - tile * p.h, m0, align_1024(smem_raw));
+  if constexpr (BAND)
+    bwd_dq_band<T, D>(src, p.a, x - tile * p.h, m0, align_1024(smem_raw), p.band);
+  else
+    bwd_dq<T, D>(src, p.a, x - tile * p.h, m0, align_1024(smem_raw));
 }
 
 // ---- launches ---------------------------------------------------------------
@@ -237,19 +247,43 @@ cudaError_t launch(Kernel kernel, int64_t blocks, int threads, int smem, cudaStr
   return cudaGetLastError();
 }
 
+template <typename T, int D, bool BAND>
+cudaError_t run_dkdv(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
+  return launch(varlen_dkdv_kernel<T, D, BAND>, (int64_t)p.num_tiles * p.h_k * subtiles<D>(),
+                BWD_THREADS, DkdvLayout<D, false>::SMEM, st, maps, p);
+}
+
+template <typename T, int D, bool BAND>
+cudaError_t run_dq(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
+  return launch(varlen_dq_kernel<T, D, BAND>, (int64_t)p.num_tiles * p.h * subtiles<D>(),
+                BWD_THREADS, DqLayout<D>::SMEM, st, maps, p);
+}
+
 template <typename T, int D>
 struct Dkdv {
   static cudaError_t run(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
-    return launch(varlen_dkdv_kernel<T, D>, (int64_t)p.num_tiles * p.h_k * subtiles<D>(),
-                  BWD_THREADS, DkdvLayout<D, false>::SMEM, st, maps, p);
+    return run_dkdv<T, D, false>(maps, p, st);
   }
 };
 
 template <typename T, int D>
 struct Dq {
   static cudaError_t run(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
-    return launch(varlen_dq_kernel<T, D>, (int64_t)p.num_tiles * p.h * subtiles<D>(),
-                  BWD_THREADS, DqLayout<D>::SMEM, st, maps, p);
+    return run_dq<T, D, false>(maps, p, st);
+  }
+};
+
+template <typename T, int D>
+struct DkdvBand {
+  static cudaError_t run(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
+    return run_dkdv<T, D, true>(maps, p, st);
+  }
+};
+
+template <typename T, int D>
+struct DqBand {
+  static cudaError_t run(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
+    return run_dq<T, D, true>(maps, p, st);
   }
 };
 
@@ -264,12 +298,22 @@ struct Pre {
   }
 };
 
-// The launches at head dims 96 and 256 (csrc/flash_varlen_wide.cu).
+// The launches at head dims 96 and 256 (csrc/flash_varlen_wide.cu), and
+// the band's at 64 and 128 (csrc/flash_varlen_band.cu) and at 96 and 256
+// (csrc/flash_varlen_band_wide.cu).
 cudaError_t run_pre_wide(bool bf16, int d, const PreParams& p, cudaStream_t st);
 cudaError_t run_dkdv_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
                           cudaStream_t st);
 cudaError_t run_dq_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
                         cudaStream_t st);
+cudaError_t run_dkdv_band(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                          cudaStream_t st);
+cudaError_t run_dq_band(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                        cudaStream_t st);
+cudaError_t run_dkdv_band_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                               cudaStream_t st);
+cudaError_t run_dq_band_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                             cudaStream_t st);
 
 }  // namespace varlen_bwd
 }  // namespace fa

@@ -213,25 +213,12 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
     // each score against its row's bounds, made once a tile: keys [lo, hi]
     // (the upper edge, the keys' end and the chunk) and the window's lower
     // edge wlo, which the first `sink` keys pass.
-    const int lo0 = band.chunk > 0 ? band.chunk_lo(r0 + shift) : 0;
-    const bool need_mask =
-        n0 + BN > sk || n0 + BN - 1 > r0 + shift + band.right ||
-        n0 < r0 + 63 + shift - band.left ||
-        (band.chunk > 0 && (band.chunk_lo(r0 + 63 + shift) != lo0 || n0 < lo0 ||
-                            n0 + BN > lo0 + band.chunk));
+    const bool need_mask = n0 + BN > sk || band_cuts(band, r0, r0 + 63, n0, n0 + BN - 1, shift);
     if (need_mask) {
       int lo[2], hi[2], wlo[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int rs = row_a + 8 * i + shift;
-        hi[i] = min(sk - 1, rs + band.right);
-        lo[i] = INT_MIN;
-        if (band.chunk > 0) {
-          lo[i] = band.chunk_lo(rs);
-          hi[i] = min(hi[i], lo[i] + band.chunk - 1);
-        }
-        wlo[i] = rs - band.left;
-      }
+      for (int i = 0; i < 2; ++i)
+        band_row_keys(band, row_a + 8 * i + shift, sk, lo[i], hi[i], wlo[i]);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll

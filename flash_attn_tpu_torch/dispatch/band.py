@@ -2,7 +2,9 @@
 
 Port of flash_attn_tpu/dispatch/band.py ``kv_band_static`` (:28), the
 host's mirror of the forward's key-tile bounds (flash_attn_tpu/kernels/
-flash_fwd.py:360 ``_kv_block_bounds``), as plain Python. ``PackedBand``
+flash_fwd.py:360 ``_kv_block_bounds``), as plain Python, and beside it
+:func:`q_band_static`, the mirror of the backward's query-tile bounds
+(flash_attn_tpu/kernels/flash_bwd.py:157 ``_q_block_bounds``). ``PackedBand``
 (:71) enumerates the in-band tile pairs as one flat grid axis for the
 TPU's sequential grid; the CUDA kernels run a loop over the band inside
 each block instead, and need no counterpart.
@@ -71,6 +73,44 @@ def kv_band_static(
         j_min_l.append(j_min)
         j_max_l.append(j_max)
     return tuple(j_min_l), tuple(j_max_l)
+
+
+def q_band_static(
+    nq: int,
+    nk: int,
+    block_q: int,
+    block_k: int,
+    shift: int,
+    causal: bool,
+    window_left: Optional[int],
+    window_right: Optional[int],
+    sink_token_length: int,
+    attention_chunk: int,
+) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(i_min, i_max) per key block as int tuples: the inclusive query-tile
+    band of key tile j, as the JAX backward's dK/dV grid bounds it (its
+    ``iclamp`` then clips each to [0, nq - 1]); i_max < i_min where no row
+    sees the tile. The chunk bounds i_max only without a left window and
+    sinks, as JAX's does; the CUDA kernels' QueryRange (csrc/common.cuh) is
+    tighter (the chunk's lower edge, and a key tile past the sinks), which
+    skips only tiles that these bounds leave fully masked."""
+    i_min_l, i_max_l = [], []
+    wr = 0 if causal else window_right
+    for j in range(nk):
+        i_min = 0
+        if causal or wr is not None:
+            i_min = max(0, (j * block_k - shift - wr) // block_q)
+        i_max = nq - 1
+        if window_left is not None and sink_token_length == 0:
+            row_hi = j * block_k + (block_k - 1) + window_left - shift
+            i_max = min(i_max, row_hi // block_q)
+        if attention_chunk > 0 and sink_token_length == 0 \
+                and window_left is None:
+            row_hi = j * block_k + (block_k - 1) + attention_chunk - shift
+            i_max = min(i_max, row_hi // block_q)
+        i_min_l.append(i_min)
+        i_max_l.append(i_max)
+    return tuple(i_min_l), tuple(i_max_l)
 
 
 def band_valid(rows, cols, shift, causal: bool,

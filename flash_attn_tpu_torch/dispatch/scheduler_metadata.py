@@ -52,12 +52,12 @@ def get_scheduler_metadata(
     device; without cu_seqlens_q, on ``device``, which is the CUDA card
     when None (raising without one, as the entry points do). As in JAX,
     the packed layouts are taken to hold batch_size x max_seqlen rows
-    (unpad_input's). A window raises NotImplementedError (ROADMAP.md queue
-    A, item 7)."""
-    if normalize_window(tuple(window_size)) != (None, None):
-        raise NotImplementedError(
-            f"get_scheduler_metadata: window_size={window_size!r} is not "
-            "ported yet (ROADMAP.md queue A, item 7)")
+    (unpad_input's). ``window_size`` (left, right; -1 or None for no bound)
+    orders the work lists by the window's bands, as JAX bounds its bands by
+    it; the lists serve a call with any band (the kernels bound each tile's
+    band themselves). ``headdim_v != headdim`` raises NotImplementedError
+    (ROADMAP.md queue A, item 7)."""
+    window = normalize_window(tuple(window_size))
     if (headdim_v or headdim) != headdim:
         raise NotImplementedError(
             "get_scheduler_metadata: headdim_v != headdim is not ported yet "
@@ -75,7 +75,7 @@ def get_scheduler_metadata(
         cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k, total_q,
         total_k, causal=causal, seqused_q=seqused_q, seqused_k=seqused_k,
         block_q=VARLEN_BWD_TILE.block_q, block_k=VARLEN_BWD_TILE.block_k,
-        schedule_block_q=bq, schedule_block_k=bk)
+        schedule_block_q=bq, schedule_block_k=bk, window_size=window)
     return SchedulerMetadata(
         meta=meta, block_q=bq, block_k=bk,
         num_q_tiles=num_tiles_bound(batch_size, max_seqlen_q, total_q, bq),

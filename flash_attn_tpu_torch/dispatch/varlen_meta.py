@@ -22,10 +22,13 @@ take work lists of per-sequence tile origins instead:
 Each list is sized by a static bound (``num_tiles_bound``), with sequence -1
 past the last live tile, so building it reads nothing back to the host. A
 tile's key or query range inside its sequence follows from ``cu_seqlens``,
-the lengths and the bottom-right causal shift, in the kernel.
+the lengths and the bottom-right causal shift, in the kernel. With a
+window or a chunk (JAX's :101-196 bound the bands by them), the lists sort
+by the band's true lengths: the key tiles a query tile's band holds (the
+kernels' KeyRange), the query rows that see a key tile (QueryRange).
 """
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -97,14 +100,38 @@ def _token_meta(cu, used_len, total: int, pad_seg: int):
     return torch.where(used, seg, pad_seg).to(torch.int32), pos, used
 
 
+def _chunk_lo(x, chunk: int):
+    """x rounded down (floor) to a multiple of chunk."""
+    return torch.div(x, chunk, rounding_mode="floor") * chunk
+
+
 def _band_tiles(q_tiles, lens_q, lens_k, block_q: int, block_k: int,
-                causal: bool):
-    """KV tiles in each query tile's band (bottom-right causal), -1 for a
-    dead tile."""
+                causal: bool, window=(None, None), chunk: int = 0):
+    """KV tiles in each query tile's band (bottom-right causal, and the
+    window and chunk when given), -1 for a dead tile."""
     seq = q_tiles[:, 0].long()
     row0 = q_tiles[:, 1].long()
     s = seq.clamp(min=0)
     lq, lk = lens_q.long()[s], lens_k.long()[s]
+    left, right = window
+    if left is not None or (not causal and right is not None) or chunk > 0:
+        # csrc/common.cuh KeyRange: keys [c_lo, c_hi] of the tile's rows
+        shift = lk - lq
+        r_hi = torch.minimum(row0 + block_q, lq) - 1
+        c_lo = torch.zeros_like(row0)
+        c_hi = lk - 1
+        right = 0 if causal else right
+        if right is not None:
+            c_hi = torch.minimum(c_hi, r_hi + shift + right)
+        if left is not None:
+            c_lo = torch.maximum(c_lo, row0 + shift - left)
+        if chunk > 0:
+            c_lo = torch.maximum(c_lo, _chunk_lo(row0 + shift, chunk))
+            c_hi = torch.minimum(
+                c_hi, _chunk_lo(r_hi + shift, chunk) + chunk - 1)
+        band = torch.where(c_hi < c_lo, 0,
+                           c_hi.clamp(min=0) // block_k - c_lo // block_k + 1)
+        return torch.where(seq >= 0, band, -1)
     band = (lk + block_k - 1) // block_k
     if causal:
         col_hi = torch.minimum(row0 + block_q, lq) - 1 + lk - lq
@@ -113,12 +140,32 @@ def _band_tiles(q_tiles, lens_q, lens_k, block_q: int, block_k: int,
     return torch.where(seq >= 0, band, -1)
 
 
-def _key_band(k_tiles, lens_q, lens_k, causal: bool):
+def _key_band(k_tiles, lens_q, lens_k, block_k: int, causal: bool,
+              window=(None, None), chunk: int = 0):
     """Query rows that see each key tile's first key (bottom-right causal),
-    -1 for a dead tile."""
+    or with a window or chunk the rows between the first and the last that
+    see some key of the tile; -1 for a dead tile."""
     seq = k_tiles[:, 0].long()
     s = seq.clamp(min=0)
     lq, lk = lens_q.long()[s], lens_k.long()[s]
+    left, right = window
+    if left is not None or (not causal and right is not None) or chunk > 0:
+        # csrc/common.cuh QueryRange: rows [r_lo, r_hi] of the tile's keys
+        shift = lk - lq
+        n0 = k_tiles[:, 1].long()
+        c_hi = torch.minimum(n0 + block_k, lk) - 1
+        r_lo = torch.zeros_like(n0)
+        r_hi = lq - 1
+        right = 0 if causal else right
+        if right is not None:
+            r_lo = torch.maximum(r_lo, n0 - shift - right)
+        if left is not None:
+            r_hi = torch.minimum(r_hi, c_hi - shift + left)
+        if chunk > 0:
+            r_lo = torch.maximum(r_lo, _chunk_lo(n0, chunk) - shift)
+            r_hi = torch.minimum(
+                r_hi, _chunk_lo(c_hi, chunk) + chunk - 1 - shift)
+        return torch.where(seq >= 0, (r_hi - r_lo + 1).clamp(min=0), -1)
     rows = lq
     if causal:  # row r sees key n0 when n0 <= r + lk - lq
         rows = (lq - (k_tiles[:, 1].long() - (lk - lq)).clamp(min=0)).clamp(min=0)
@@ -141,12 +188,17 @@ def compute_varlen_meta(
     schedule_block_q: Optional[int] = None,
     schedule_block_k: Optional[int] = None,
     device: Optional[torch.device] = None,
+    window_size: Tuple[Optional[int], Optional[int]] = (None, None),
+    attention_chunk: int = 0,
 ) -> VarlenMeta:
     """The per-token vectors and the work lists of packed sequences, on
     ``device`` (cu_seqlens_q's by default). ``max_seqlen_q/k`` must bound
     the sequences' lengths: they size the work lists. The schedule's tiles
     have ``schedule_block_q`` rows (``block_q`` when None); its bands count
-    ``schedule_block_k``-key tiles (``block_k`` when None)."""
+    ``schedule_block_k``-key tiles (``block_k`` when None). ``window_size``
+    (left, right; None for no bound) and ``attention_chunk`` order the
+    lists by the band's lengths; the lists hold the same tiles either
+    way."""
     device = device or cu_seqlens_q.device
     cu_q = cu_seqlens_q.to(device, torch.int32)
     cu_k = cu_seqlens_k.to(device, torch.int32)
@@ -172,9 +224,11 @@ def compute_varlen_meta(
     s_tiles = q_tiles if bq_s == block_q else varlen_tiles(
         lens_q, num_tiles_bound(b, max_seqlen_q, total_q, bq_s), bq_s)
     band = _band_tiles(s_tiles, lens_q, lens_k, bq_s,
-                       schedule_block_k or block_k, causal)
+                       schedule_block_k or block_k, causal, window_size,
+                       attention_chunk)
     order = torch.sort(band, descending=True, stable=True).indices
-    k_order = torch.sort(_key_band(k_tiles, lens_q, lens_k, causal),
+    k_order = torch.sort(_key_band(k_tiles, lens_q, lens_k, block_k, causal,
+                                   window_size, attention_chunk),
                          descending=True, stable=True).indices
     return VarlenMeta(
         seg_q=seg_q, pos_q=pos_q.to(torch.int32), seg_k=seg_k,

@@ -8,7 +8,11 @@ kernel of kernels/flash_fwd.py, the backward those of kernels/flash_bwd.py
 (the plain versions for CPU tensors). ``flash_attn_varlen_func`` (:403-496,
 ``custom_vjp`` :323-400) takes packed (total, nheads, head_dim) tensors: its
 dense route runs the persistent forward of kernels/flash_varlen_persistent.py
-and the backward of kernels/flash_varlen.py; its ``block_table=`` route
+and the backward of kernels/flash_varlen.py. Both train through the band
+masks (``flash_attn_func``: a window, attention_chunk and sink tokens; the
+dense varlen route: a window and attention_chunk), the band kept beside
+the forward's residuals as JAX's custom_vjp keeps it among its nondiff
+arguments. The varlen ``block_table=`` route
 (:499-546), the chunked prefill of the serving engine, runs
 kernels/flash_varlen_paged.py, forward only (with a sliding window), or,
 with the MLA second query
@@ -51,18 +55,11 @@ __all__ = ["flash_attn_func", "flash_attn_kvpacked_func",
            "require_no_grad"]
 
 
-def require_no_grad(name: str, *tensors, band: bool = False) -> None:
-    """Raise before any kernel runs when a gradient is asked of a call that
-    has none: a forward-only route, or (``band``) a band mask, whose
-    backward is not ported."""
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise before any kernel runs when a gradient is asked of a
+    forward-only route."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
-        if band:
-            raise NotImplementedError(
-                f"{name}: a window, attention_chunk or sink_token_length is "
-                "forward only so far: the band masks of the backward kernels "
-                "are ROADMAP.md queue A, item 7. Call it under "
-                "torch.no_grad() or torch.inference_mode().")
         raise NotImplementedError(
             f"{name}: forward only; it serves the engine's prefill and decode "
             "steps, which take no gradient in the JAX package either. Call "
@@ -123,32 +120,34 @@ def _kernel_layout(dout):
 
 
 class _FlashAttn(torch.autograd.Function):
-    """out, lse = attention(q, k, v) on (b, s, h, d) tensors; the lse is an
-    inspection output whose cotangent is dropped, as in JAX."""
+    """out, lse = attention(q, k, v) on (b, s, h, d) tensors under the
+    causal bound and ``band`` (window_size, sink_token_length and
+    attention_chunk), which the backward masks as the forward did; the lse
+    is an inspection output whose cotangent is dropped, as in JAX."""
 
     @staticmethod
-    def forward(ctx, q, k, v, softmax_scale, causal, deterministic):
+    def forward(ctx, q, k, v, softmax_scale, causal, deterministic, band):
         out_t, lse = flash_attention_fwd(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            softmax_scale=softmax_scale, causal=causal)
+            softmax_scale=softmax_scale, causal=causal, **band)
         out = out_t.transpose(1, 2)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (softmax_scale, causal, deterministic)
+        ctx.args = (softmax_scale, causal, deterministic, band)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        softmax_scale, causal, deterministic = ctx.args
+        softmax_scale, causal, deterministic, band = ctx.args
         dout = _kernel_layout(dout)
         dq, dk, dv = flash_attention_bwd(
             dout.transpose(1, 2), q.transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), out.transpose(1, 2), lse,
             softmax_scale=softmax_scale, causal=causal,
-            deterministic=deterministic)
+            deterministic=deterministic, **band)
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
-                None, None, None)
+                None, None, None, None)
 
 
 def flash_attn_func(
@@ -188,10 +187,9 @@ def flash_attn_func(
     256 (HEAD_DIMS; others raise before the forward runs).
     ``window_size`` (left, right; -1 or None for no bound),
     ``attention_chunk`` and ``sink_token_length`` mask as in JAX
-    (dispatch/band.py), forward only: with a band, a tensor that requires
-    a gradient raises NotImplementedError before the forward runs. Every
-    other option raises NotImplementedError (ROADMAP.md queue A, item
-    7)."""
+    (dispatch/band.py), forward and backward (the kernels' band
+    instantiations, in both ``deterministic`` modes). Every other option
+    raises NotImplementedError (ROADMAP.md queue A, item 7)."""
     reject_unsupported(
         "flash_attn_func", roadmap_item="queue A, item 7", dropout_p=dropout_p,
         softcap=softcap, alibi_slopes=alibi_slopes,
@@ -203,15 +201,8 @@ def flash_attn_func(
     window_size = normalize_window(tuple(window_size))
     band = dict(window_size=window_size, sink_token_length=sink_token_length,
                 attention_chunk=attention_chunk)
-    if has_band(causal, window_size, attention_chunk):
-        require_no_grad("flash_attn_func", q, k, v, band=True)
-        out_t, lse = flash_attention_fwd(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            softmax_scale=softmax_scale, causal=causal, **band)
-        out = out_t.transpose(1, 2)
-    else:
-        out, lse = _FlashAttn.apply(q, k, v, softmax_scale, causal,
-                                    deterministic)
+    out, lse = _FlashAttn.apply(q, k, v, softmax_scale, causal, deterministic,
+                                band)
     if not return_attn_probs:
         return out
     with torch.no_grad():
@@ -222,20 +213,21 @@ def flash_attn_func(
 
 class _FlashAttnVarlen(torch.autograd.Function):
     """out, lse = packed varlen attention; the forward is the persistent
-    kernel (B7), the backward the dK/dV + dQ kernels (B6). ``meta`` holds
-    the work lists of both; the lse is an inspection output whose cotangent
-    is dropped, as in JAX."""
+    kernel (B7), the backward the dK/dV + dQ kernels (B6), both under
+    ``band`` (window_size and attention_chunk). ``meta`` holds the work
+    lists of both; the lse is an inspection output whose cotangent is
+    dropped, as in JAX."""
 
     @staticmethod
     def forward(ctx, q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q,
                 seqused_k, meta, max_seqlen_q, max_seqlen_k, softmax_scale,
-                causal):
+                causal, band):
         args = (cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
                 seqused_q, seqused_k, softmax_scale, causal)
         out, lse = flash_attention_varlen_fwd_persistent(q, k, v, *args,
-                                                         meta=meta)
+                                                         meta=meta, **band)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args, ctx.meta = args, meta
+        ctx.args, ctx.meta, ctx.band = args, meta, band
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -243,8 +235,9 @@ class _FlashAttnVarlen(torch.autograd.Function):
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_varlen_bwd(
-            _kernel_layout(dout), q, k, v, out, lse, *ctx.args, meta=ctx.meta)
-        return (dq, dk, dv) + (None,) * 9
+            _kernel_layout(dout), q, k, v, out, lse, *ctx.args, meta=ctx.meta,
+            **ctx.band)
+        return (dq, dk, dv) + (None,) * 10
 
 
 def flash_attn_varlen_func(
@@ -297,20 +290,22 @@ def flash_attn_varlen_func(
     nheads, head_dim_v) and the scale defaults to 1/sqrt(head_dim +
     head_dim_v).
 
-    ``window_size`` (left, right; -1 or None for no bound) masks the
-    ``block_table`` route (B8) as in JAX. A window without ``block_table``
-    (the packed kernels B6 and B7), or with ``qv``, softcap, ALiBi,
-    chunking, sinks, dropout, descales, and ``qv`` without
-    ``block_table``, raise NotImplementedError (ROADMAP.md queue A, item 7).
-    JAX's paged route drops ``attention_chunk`` without a word
-    (flash_attn_tpu/interface.py:447-456); here it raises."""
+    ``window_size`` (left, right; -1 or None for no bound) masks both
+    routes as in JAX, and ``attention_chunk`` the dense one (each sequence
+    as the dense functions mask a batch row; forward and backward, the
+    kernels' band instantiations). The varlen routes take no sink tokens,
+    as in JAX. A window with ``qv``, softcap, ALiBi, dropout, descales, and
+    ``qv`` without ``block_table``, raise NotImplementedError (ROADMAP.md
+    queue A, item 7). JAX's paged route drops ``attention_chunk`` without
+    a word (flash_attn_tpu/interface.py:447-456); here it raises (queue C's
+    fault, ROADMAP.md queue A, item 7)."""
     window_size = normalize_window(tuple(window_size))
     reject_unsupported(
         "flash_attn_varlen_func", roadmap_item="queue A, item 7",
         dropout_p=dropout_p,
-        window_size=window_size if block_table is None or qv is not None
-        else (None, None), softcap=softcap,
-        alibi_slopes=alibi_slopes, attention_chunk=attention_chunk,
+        window_size=window_size if qv is not None else (None, None),
+        softcap=softcap, alibi_slopes=alibi_slopes,
+        attention_chunk=attention_chunk if block_table is not None else 0,
         learnable_sink=learnable_sink, dropout_rng=dropout_rng,
         qv=qv if block_table is None else None,
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
@@ -353,11 +348,13 @@ def flash_attn_varlen_func(
                 f"{away} are not on q's device {q.device} (build it with "
                 "cu_seqlens_q on that device, or get_scheduler_metadata("
                 "device=...))")
+    band = dict(window_size=window_size, attention_chunk=attention_chunk)
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, int(max_seqlen_q),
-                       int(max_seqlen_k), seqused_q, seqused_k, causal, meta)
+                       int(max_seqlen_k), seqused_q, seqused_k, causal, meta,
+                       **band)
     out, lse = _FlashAttnVarlen.apply(
         q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k, meta,
-        int(max_seqlen_q), int(max_seqlen_k), softmax_scale, causal)
+        int(max_seqlen_q), int(max_seqlen_k), softmax_scale, causal, band)
     return (out, lse, None) if return_attn_probs else out
 
 

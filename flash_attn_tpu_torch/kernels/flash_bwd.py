@@ -5,7 +5,12 @@ Port of flash_attn_tpu/kernels/flash_bwd.py ``flash_attention_bwd`` (:362,
 the deterministic dK/dV + dQ kernels) and flash_bwd_fused.py
 ``flash_attention_bwd_fused`` (:318) / ``flash_attention_bwd_auto`` (:601);
 the causal diagonal launch of flash_bwd_split.py is the kernels' masked
-phase. Layout (b, h, s, d) as in the JAX kernels. delta = rowsum(dO * O),
+phase. The band masks (``window_size``, ``attention_chunk``,
+``sink_token_length``: flash_bwd.py:103-139, flash_bwd_fused.py:363-383,
+dispatch/band.py) run in the kernels' band instantiations, which walk only
+the tiles of the band; a call without a band (or whose window reaches
+every key) runs the band-free ones, the kernels of the earlier releases
+bit for bit. Layout (b, h, s, d) as in the JAX kernels. delta = rowsum(dO * O),
 an XLA op before the JAX kernels (flash_bwd.py:406-413), is the preprocess
 kernel here; the fused path's final fp32 -> input-type cast of dQ stays a
 torch op. A tensor on the CPU takes the plain versions; a CUDA tensor
@@ -13,10 +18,16 @@ launches the kernels or raises.
 """
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.dispatch.band import (
+    band_args,
+    band_valid,
+    has_band,
+    reach_window,
+)
 from flash_attn_tpu_torch.dispatch.config import (
     DENSE_BWD_ROW_PAD,
     HEAD_DIMS,
@@ -28,11 +39,17 @@ from flash_attn_tpu_torch.kernels import _build
 # Kernel launches since the last reset (plain calls not counted): both
 # paths run fa_bwd_preprocess first; the deterministic path then runs
 # fa_bwd_dkdv and fa_bwd_dq, the fused path one fa_bwd_dkdv that adds dQ
-# into an fp32 buffer.
+# into an fp32 buffer. The *_band counters count the band
+# instantiations' launches among them.
 launches_preprocess = 0
 launches_dkdv = 0
 launches_dq = 0
 launches_fused = 0
+launches_dkdv_band = 0
+launches_dq_band = 0
+launches_fused_band = 0
+
+Window = Tuple[Optional[int], Optional[int]]
 
 
 def bwd_preprocess_plain(do, out, lse, row_pad: int = 1):
@@ -52,11 +69,16 @@ def bwd_preprocess_plain(do, out, lse, row_pad: int = 1):
 
 def flash_attention_bwd_plain(do, q, k, v, out, lse,
                               softmax_scale: Optional[float] = None,
-                              causal: bool = False):
+                              causal: bool = False,
+                              window_size: Window = (None, None),
+                              sink_token_length: int = 0,
+                              attention_chunk: int = 0):
     """Gradients of attention in fp32 from the saved forward. do/q/out
     (b, h, sq, d), k/v (b, h_k, sk, d), lse (b, h, sq) natural-log, -inf
-    for rows that see no key. Returns (dq, dk, dv) in q's, k's and v's
-    types and shapes; a GQA group's gradients sum into its KV head."""
+    for rows that see no key; the scores masked by the causal bound and the
+    band (dispatch/band.py band_valid). Returns (dq, dk, dv) in q's, k's
+    and v's types and shapes; a GQA group's gradients sum into its KV
+    head."""
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     group = h // h_k
@@ -65,10 +87,12 @@ def flash_attention_bwd_plain(do, q, k, v, out, lse,
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    if causal:
+    if causal or has_band(causal, window_size, attention_chunk):
         rows = torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows + (sk - sq), float("-inf"))
+        valid = band_valid(rows, cols, sk - sq, causal, window_size,
+                           sink_token_length, attention_chunk)
+        s = s.masked_fill(~valid, float("-inf"))
     lse_safe = torch.where(torch.isfinite(lse), lse.float(), float("inf"))
     p = torch.exp(s - lse_safe[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2))
@@ -133,7 +157,10 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
 
 def flash_attention_bwd(do, q, k, v, out, lse,
                         softmax_scale: Optional[float] = None,
-                        causal: bool = False, deterministic: bool = True):
+                        causal: bool = False, deterministic: bool = True,
+                        window_size: Window = (None, None),
+                        sink_token_length: int = 0,
+                        attention_chunk: int = 0):
     """dq, dk, dv for attention saved by ``flash_attention_fwd``. Layouts as
     :func:`flash_attention_bwd_plain`, any strides with the head dim
     contiguous and 16-byte aligned starts and strides (the kernels load
@@ -143,10 +170,14 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     buffer with atomics (run-to-run bits may differ). Returns (b, h, s, d)
     views of (b, s, h, d) tensors in the inputs' type. CUDA: bf16/fp16, d
     in HEAD_DIMS (at 256 on blocks of 64 rows, dense_bwd_tiles), h % h_k ==
-    0."""
+    0. ``window_size`` (left, right) with None for no bound,
+    ``sink_token_length`` and ``attention_chunk`` as in the forward
+    (dispatch/band.py): with a band, both paths launch the kernels' band
+    instantiations."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(do, q, k, v, out, lse,
-                                         softmax_scale, causal)
+        return flash_attention_bwd_plain(
+            do, q, k, v, out, lse, softmax_scale, causal, window_size,
+            sink_token_length, attention_chunk)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -179,6 +210,10 @@ def flash_attention_bwd(do, q, k, v, out, lse,
         (b, sq, h, d), dtype=torch.float32, device=q.device)
     delta, lse2 = bwd_preprocess(do, out, lse, dq_accum)
     sq_pad = delta.shape[-1]
+    window = reach_window(window_size, causal, sq, sk)
+    band = has_band(causal, window, attention_chunk)
+    banded = (*band_args(causal, window, sink_token_length, attention_chunk),
+              int(band))
     dkdv_tile, dq_tile = dense_bwd_tiles(d)
     lib = _build.load_library()
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -186,6 +221,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
                 lse2.data_ptr(), delta.data_ptr())
     strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(do))
     global launches_dkdv, launches_dq, launches_fused
+    global launches_dkdv_band, launches_dq_band, launches_fused_band
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_bwd_dkdv(
@@ -195,18 +231,21 @@ def flash_attention_bwd(do, q, k, v, out, lse,
             dkdv_tile.block_k, *strides,
             dk.stride(0), dk.stride(1), dk.stride(2),
             dv.stride(0), dv.stride(1), dv.stride(2),
-            scale, int(causal), is_bf16, stream)
+            scale, int(causal), *banded, is_bf16, stream)
         _build.check(err, "fa_bwd_dkdv")
         if deterministic:
             launches_dkdv += 1
+            launches_dkdv_band += band
             err = lib.fa_bwd_dq(
                 *operands, dq.data_ptr(), b, sq, sk, sq_pad, h, h_k, d,
                 dq_tile.block_q, dq_tile.block_k, *strides,
                 dq.stride(0), dq.stride(1), dq.stride(2),
-                scale, int(causal), is_bf16, stream)
+                scale, int(causal), *banded, is_bf16, stream)
             _build.check(err, "fa_bwd_dq")
             launches_dq += 1
+            launches_dq_band += band
         else:
             launches_fused += 1
+            launches_fused_band += band
             dq.copy_(dq_accum)
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)

@@ -9,8 +9,12 @@ Port of flash_attn_tpu/kernels/flash_varlen.py ``flash_attention_varlen_fwd``
 (:285) and ``flash_attention_varlen_bwd`` (:807): q (total_q, h, d) and k/v
 (total_k, h_k, d) packed by ``cu_seqlens``, ``seqused`` giving each
 sequence's true length inside its slot, bottom-right causal masking per
-sequence. Rows that see no key, rows past a sequence's length and rows past
-``cu_seqlens[-1]`` give out 0 and lse -inf, and zero gradients. The JAX
+sequence. ``window_size`` and ``attention_chunk`` mask each sequence as
+the dense functions mask a batch row (flash_varlen.py:47-76
+``_varlen_mask_and_bias``; no sink tokens, as in JAX): a call with a band
+launches the kernels' band instantiations. Rows that see no key, rows past
+a sequence's length and rows past ``cu_seqlens[-1]`` give out 0 and lse
+-inf, and zero gradients. The JAX
 kernels tile the flat token axis and mask by segment ids; here the wrapper
 builds per-sequence work lists with torch ops (dispatch/varlen_meta.py), so
 nothing is read back to the host: one VarlenMeta holds the forward's
@@ -24,10 +28,15 @@ kernels or raises.
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.dispatch.band import (
+    band_args,
+    has_band,
+    reach_window,
+)
 from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     HEAD_DIMS,
@@ -44,11 +53,17 @@ from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd_plain
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd_plain
 
 # Kernel launches since the last reset (plain calls not counted): the
-# forward, and the backward's preprocess, dK/dV and dQ kernels.
+# forward, and the backward's preprocess, dK/dV and dQ kernels; the *_band
+# counters count the band instantiations' launches among them.
 launches_fwd = 0
 launches_preprocess = 0
 launches_dkdv = 0
 launches_dq = 0
+launches_fwd_band = 0
+launches_dkdv_band = 0
+launches_dq_band = 0
+
+Window = Tuple[Optional[int], Optional[int]]
 
 LOG2E = math.log2(math.e)
 # Rows the backward's padded lse2 / delta buffers give each sequence beyond
@@ -74,9 +89,11 @@ def _heads_first(x):
 def flash_attention_varlen_fwd_plain(
         q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
-        softmax_scale: Optional[float] = None, causal: bool = False):
-    """One sequence at a time through the dense plain forward (fp32).
-    Returns out (total_q, h, dv) in q's type and lse (h, total_q) fp32."""
+        softmax_scale: Optional[float] = None, causal: bool = False,
+        window_size: Window = (None, None), attention_chunk: int = 0):
+    """One sequence at a time through the dense plain forward (fp32), the
+    band per sequence. Returns out (total_q, h, dv) in q's type and lse (h,
+    total_q) fp32."""
     total_q, h, _ = q.shape
     out = q.new_zeros((total_q, h, v.shape[-1]))
     lse = torch.full((h, total_q), float("-inf"), device=q.device)
@@ -86,7 +103,8 @@ def flash_attention_varlen_fwd_plain(
             continue
         o, l = flash_attention_fwd_plain(
             _heads_first(q[q0:q0 + lq]), _heads_first(k[k0:k0 + lk]),
-            _heads_first(v[k0:k0 + lk]), softmax_scale, causal)
+            _heads_first(v[k0:k0 + lk]), softmax_scale, causal, window_size,
+            attention_chunk=attention_chunk)
         out[q0:q0 + lq] = o[0].transpose(0, 1)
         lse[:, q0:q0 + lq] = l[0]
     return out, lse
@@ -95,10 +113,11 @@ def flash_attention_varlen_fwd_plain(
 def flash_attention_varlen_bwd_plain(
         do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
-        softmax_scale: Optional[float] = None, causal: bool = False):
-    """One sequence at a time through the dense plain backward (fp32).
-    Returns (dq, dk, dv) in q's, k's and v's types, zero outside the
-    sequences; a GQA group's gradients sum into its KV head."""
+        softmax_scale: Optional[float] = None, causal: bool = False,
+        window_size: Window = (None, None), attention_chunk: int = 0):
+    """One sequence at a time through the dense plain backward (fp32), the
+    band per sequence. Returns (dq, dk, dv) in q's, k's and v's types, zero
+    outside the sequences; a GQA group's gradients sum into its KV head."""
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
     for (q0, lq), (k0, lk) in zip(zip(*_host_lengths(cu_seqlens_q, seqused_q)),
                                   zip(*_host_lengths(cu_seqlens_k, seqused_k))):
@@ -108,7 +127,8 @@ def flash_attention_varlen_bwd_plain(
         g = flash_attention_bwd_plain(
             _heads_first(do[rows]), _heads_first(q[rows]),
             _heads_first(k[keys]), _heads_first(v[keys]),
-            _heads_first(out[rows]), lse[None, :, rows], softmax_scale, causal)
+            _heads_first(out[rows]), lse[None, :, rows], softmax_scale, causal,
+            window_size, attention_chunk=attention_chunk)
         dq[rows] = g[0][0].transpose(0, 1)
         dk[keys] = g[1][0].transpose(0, 1)
         dv[keys] = g[2][0].transpose(0, 1)
@@ -176,11 +196,12 @@ def check_kernel_inputs(name: str, q, k, v, cu_seqlens_q, cu_seqlens_k):
 
 
 def varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
-                seqused_q, seqused_k, causal, meta):
+                seqused_q, seqused_k, causal, meta,
+                window_size: Window = (None, None), attention_chunk: int = 0):
     """``meta`` if given (get_scheduler_metadata), else the work lists of
     this call on q's device: the forward's schedule of FWD_TILE's 128-row
     tiles (also the dQ kernel's), and the backward's lists of
-    VARLEN_BWD_TILE."""
+    VARLEN_BWD_TILE, each ordered by the band's true lengths."""
     if meta is not None:
         return meta
     return compute_varlen_meta(
@@ -188,7 +209,19 @@ def varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
         k.shape[0], causal=causal, seqused_q=seqused_q, seqused_k=seqused_k,
         block_q=VARLEN_BWD_TILE.block_q, block_k=VARLEN_BWD_TILE.block_k,
         schedule_block_q=FWD_TILE.block_q, schedule_block_k=FWD_TILE.block_k,
-        device=q.device)
+        device=q.device, window_size=window_size,
+        attention_chunk=attention_chunk)
+
+
+def kernel_band(causal: bool, window_size: Window, attention_chunk: int,
+                max_seqlen_q: int, max_seqlen_k: int):
+    """(left, right, chunk, band) for the varlen C entry points: the window
+    with each extent that reaches every key of every sequence dropped
+    (reach_window over max_seqlen_q/k), and band 1 when a band remains (the
+    band instantiations) or 0 (the band-free kernels)."""
+    window = reach_window(window_size, causal, max_seqlen_q, max_seqlen_k)
+    left, right, _, chunk = band_args(causal, window, 0, attention_chunk)
+    return left, right, chunk, int(has_band(causal, window, attention_chunk))
 
 
 def check_meta(name: str, meta, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
@@ -222,11 +255,12 @@ def _as_int32(x, device):
 
 
 def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
-               causal: bool, persistent: bool = False):
+               causal: bool, persistent: bool = False, band=(-1, -1, 0, 0)):
     """Allocate out (zeros) and lse (-inf) and launch, over the sorted work
     list ``meta.schedule`` of FWD_TILE rows, fa_varlen_fwd (B6) or, with
-    ``persistent``, fa_varlen_fwd_persistent (B7). Returns (out, lse,
-    grid), grid 0 for the former."""
+    ``persistent``, fa_varlen_fwd_persistent (B7); ``band`` is
+    :func:`kernel_band`'s. Returns (out, lse, grid), grid 0 for the
+    former."""
     total_q, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     out = torch.zeros((total_q, h, d), dtype=q.dtype, device=q.device)
@@ -241,7 +275,7 @@ def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
             tiles.shape[0], total_q, k.shape[0], h, k.shape[1], d,
             FWD_TILE.block_q, FWD_TILE.block_k, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            out.stride(0), out.stride(1), scale, int(causal),
+            out.stride(0), out.stride(1), scale, int(causal), *band,
             int(q.dtype == torch.bfloat16)]
     lib = _build.load_library()
     grid = ctypes.c_int(0)
@@ -261,18 +295,21 @@ def flash_attention_varlen_fwd(
         q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
-        meta=None):
+        meta=None, window_size: Window = (None, None),
+        attention_chunk: int = 0):
     """q (total_q, h, d), k/v (total_k, h_k, d) packed by cu_seqlens_q/k
     (b + 1,); seqused_q/k (b,) true lengths or None; ``max_seqlen_q/k``
     bound the sequences' lengths; ``meta`` a precomputed VarlenMeta whose
     schedule has the kernel's 128-row tiles (FWD_TILE; get_scheduler_metadata
-    builds one). Returns (out (total_q, h, d) in q's type, lse (h, total_q)
-    fp32). CUDA: one block per (128-row q tile, head), the longest KV bands
-    first."""
+    builds one); ``window_size`` (left, right; None for no bound) and
+    ``attention_chunk`` per sequence. Returns (out (total_q, h, d) in q's
+    type, lse (h, total_q) fp32). CUDA: one block per (128-row q tile,
+    head), the longest KV bands first."""
     if q.device.type == "cpu":
         return flash_attention_varlen_fwd_plain(
             q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
-            seqused_q, seqused_k, softmax_scale, causal)
+            seqused_q, seqused_k, softmax_scale, causal, window_size,
+            attention_chunk)
     check_kernel_inputs("flash_varlen_fwd", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
     if meta is not None:
@@ -283,11 +320,15 @@ def flash_attention_varlen_fwd(
         return (torch.zeros_like(q), torch.full(
             (q.shape[1], q.shape[0]), float("-inf"), device=q.device))
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
-                       max_seqlen_k, seqused_q, seqused_k, causal, meta)
+                       max_seqlen_k, seqused_q, seqused_k, causal, meta,
+                       window_size, attention_chunk)
+    band = kernel_band(causal, window_size, attention_chunk, max_seqlen_q,
+                       max_seqlen_k)
     out, lse, _ = launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta,
-                             softmax_scale, causal)
-    global launches_fwd
+                             softmax_scale, causal, band=band)
+    global launches_fwd, launches_fwd_band
     launches_fwd += 1
+    launches_fwd_band += band[-1]
     return out, lse
 
 
@@ -343,7 +384,8 @@ def flash_attention_varlen_bwd(
         do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
-        meta=None):
+        meta=None, window_size: Window = (None, None),
+        attention_chunk: int = 0):
     """dq, dk, dv of packed varlen attention saved by a varlen forward.
     do/out (total_q, h, d), lse (h, total_q); the rest as
     :func:`flash_attention_varlen_fwd`. Returns (dq, dk, dv) in the inputs'
@@ -351,13 +393,15 @@ def flash_attention_varlen_bwd(
     no sequence zeroed), then the dK/dV kernel (one block per (128-key
     tile, KV head), the group's heads summed in the block) and the dQ
     kernel (one block per (128-row q tile, head)), each writing its
-    gradient once: deterministic. The operands are read by TMA: a view
-    whose strides are not multiples of 16 bytes, or whose start is not
-    16-byte aligned, raises ValueError."""
+    gradient once: deterministic; with a band, the dK/dV and dQ kernels'
+    band instantiations. The operands are read by TMA: a view whose strides
+    are not multiples of 16 bytes, or whose start is not 16-byte aligned,
+    raises ValueError."""
     if q.device.type == "cpu":
         return flash_attention_varlen_bwd_plain(
             do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
-            max_seqlen_k, seqused_q, seqused_k, softmax_scale, causal)
+            max_seqlen_k, seqused_q, seqused_k, softmax_scale, causal,
+            window_size, attention_chunk)
     check_kernel_inputs("flash_varlen_bwd", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
     total_q, h, d = q.shape
@@ -375,7 +419,10 @@ def flash_attention_varlen_bwd(
     if total_q == 0 or total_k == 0:  # no row sees a key
         return tuple(torch.zeros_like(x) for x in (q, k, v))
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
-                       max_seqlen_k, seqused_q, seqused_k, causal, meta)
+                       max_seqlen_k, seqused_q, seqused_k, causal, meta,
+                       window_size, attention_chunk)
+    band = kernel_band(causal, window_size, attention_chunk, max_seqlen_q,
+                       max_seqlen_k)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     dq = torch.empty((total_q, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((total_k, h_k, d), dtype=k.dtype, device=q.device)
@@ -394,9 +441,9 @@ def flash_attention_varlen_bwd(
              do.stride(0), do.stride(1)]
     operands = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse2.data_ptr(), delta.data_ptr()]
-    tail = [scale, int(causal), int(q.dtype == torch.bfloat16)]
+    tail = [scale, int(causal), *band, int(q.dtype == torch.bfloat16)]
     lib = _build.load_library()
-    global launches_dkdv, launches_dq
+    global launches_dkdv, launches_dq, launches_dkdv_band, launches_dq_band
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_varlen_bwd_dkdv(
@@ -406,10 +453,12 @@ def flash_attention_varlen_bwd(
             stream)
         _build.check(err, "fa_varlen_bwd_dkdv")
         launches_dkdv += 1
+        launches_dkdv_band += band[-1]
         err = lib.fa_varlen_bwd_dq(
             *operands, dq.data_ptr(), *common, meta.schedule.data_ptr(),
             meta.schedule.shape[0], *shape, dq.stride(0), dq.stride(1),
             *tail, stream)
         _build.check(err, "fa_varlen_bwd_dq")
         launches_dq += 1
+        launches_dq_band += band[-1]
     return dq, dk, dv

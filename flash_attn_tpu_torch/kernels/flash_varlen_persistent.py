@@ -14,38 +14,93 @@ Each item runs the wgmma/TMA tile of csrc/fwd_sm90.cuh, as B6 does, so B7
 gives B6's bits; a block's two-stage K/V ring carries across its items,
 the next item's first K/V tile (and, at head dim 64, where a block keeps a
 second Q tile, its Q) loading under the current item's last tile and
-epilogue. A tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel or raises.
+epilogue. ``window_size`` and ``attention_chunk`` (per sequence, as B6)
+launch the kernel's band instantiation, whose items walk the key tiles of
+their band from its first. A tensor on the CPU takes the plain version; a
+CUDA tensor launches the kernel or raises.
 """
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
+from flash_attn_tpu_torch.dispatch.band import band_valid
 from flash_attn_tpu_torch.dispatch.config import FWD_TILE
-from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd_plain
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     check_kernel_inputs,
     check_meta,
+    kernel_band,
     launch_fwd,
     varlen_meta,
 )
 
-launches = 0  # kernel launches since the last reset (plain calls not counted)
+# Kernel launches since the last reset (plain calls not counted), and the
+# band instantiation's among them.
+launches = 0
+launches_band = 0
 last_grid = 0  # blocks of the last launch's grid
+
+Window = Tuple[Optional[int], Optional[int]]
+
+
+def _band_keys(row0: int, rows: int, lq: int, lk: int, causal: bool,
+               window: Window, chunk: int):
+    """[lo, hi) of the keys that some row of the tile [row0, row0 + rows)
+    of a sequence of lq rows over lk keys sees (bottom-right aligned), as
+    csrc/common.cuh KeyRange bounds them; hi <= lo when none."""
+    shift = lk - lq
+    r_hi = row0 + rows - 1
+    left, right = window
+    right = 0 if causal else right
+    lo, hi = 0, lk - 1
+    if right is not None:
+        hi = min(hi, r_hi + shift + right)
+    if left is not None:
+        lo = max(lo, row0 + shift - left)
+    if chunk > 0:
+        lo = max(lo, (row0 + shift) // chunk * chunk)
+        hi = min(hi, (r_hi + shift) // chunk * chunk + chunk - 1)
+    return lo, hi + 1
+
+
+def _tile_plain(q, k, v, row0, key0, shift, softmax_scale, causal, window,
+                chunk):
+    """Rows [row0, row0 + q rows) of one sequence against its keys [key0,
+    key0 + k rows), masked by the causal bound and the band at the
+    sequence's own row, key and shift (band_valid), in fp32. q (rows, h,
+    d), k/v (keys, h_k, d); returns out (1, h, rows, d) and lse (1, h,
+    rows)."""
+    qt, kt, vt = (x.transpose(0, 1)[None].float() for x in (q, k, v))
+    group = qt.shape[1] // kt.shape[1]
+    kt, vt = (x.repeat_interleave(group, dim=1) for x in (kt, vt))
+    scale = (1.0 / math.sqrt(q.shape[-1]) if softmax_scale is None
+             else softmax_scale)
+    s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+    rows = torch.arange(row0, row0 + q.shape[0], device=q.device)[:, None]
+    cols = torch.arange(key0, key0 + k.shape[0], device=q.device)[None, :]
+    s = s.masked_fill(~band_valid(rows, cols, shift, causal, window, 0,
+                                  chunk), float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    seen = torch.isfinite(lse)
+    p = torch.exp(s - torch.where(seen, lse, 0.0)[..., None])
+    return torch.matmul(p, vt).to(q.dtype), lse
 
 
 def flash_attention_varlen_fwd_persistent_plain(
         q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
-        meta=None):
+        meta=None, window_size: Window = (None, None),
+        attention_chunk: int = 0):
     """The kernel's walk in fp32: the items of the persistent schedule in
     order, each 128-row tile (all heads at once) against the keys of its
-    causal band through the dense plain forward. Returns out (total_q, h,
-    dv) in q's type and lse (h, total_q) fp32, as the B6 forward does."""
+    band (causal, window and chunk: from the band's first key to its last)
+    under the band's mask. Returns out (total_q, h, dv) in q's type and lse
+    (h, total_q) fp32, as the B6 forward does."""
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
-                       max_seqlen_k, seqused_q, seqused_k, causal, meta)
+                       max_seqlen_k, seqused_q, seqused_k, causal, meta,
+                       window_size, attention_chunk)
     total_q, h, _ = q.shape
     out = q.new_zeros((total_q, h, v.shape[-1]))
     lse = torch.full((h, total_q), float("-inf"), device=q.device)
@@ -56,16 +111,15 @@ def flash_attention_varlen_fwd_persistent_plain(
             break  # dead tiles sort last
         lq, lk = lens_q[seq], lens_k[seq]
         rows = min(FWD_TILE.block_q, lq - row0)
-        # the band: with bottom-right causal masking, the tile's last row
-        # sees keys up to row0 + rows - 1 + lk - lq
-        keys = min(lk, max(row0 + rows + lk - lq, 0)) if causal else lk
-        if keys == 0:
+        lo, hi = _band_keys(row0, rows, lq, lk, causal, window_size,
+                            attention_chunk)
+        if hi <= lo:
             continue  # rows that see no key keep zeros and -inf
-        q0, k0 = cu_q[seq] + row0, cu_k[seq]
-        o, l = flash_attention_fwd_plain(
-            q[q0:q0 + rows].transpose(0, 1)[None],
-            k[k0:k0 + keys].transpose(0, 1)[None],
-            v[k0:k0 + keys].transpose(0, 1)[None], softmax_scale, causal)
+        q0, k0 = cu_q[seq] + row0, cu_k[seq] + lo
+        o, l = _tile_plain(q[q0:q0 + rows], k[k0:k0 + hi - lo],
+                           v[k0:k0 + hi - lo], row0, lo, lk - lq,
+                           softmax_scale, causal, window_size,
+                           attention_chunk)
         out[q0:q0 + rows] = o[0].transpose(0, 1)
         lse[:, q0:q0 + rows] = l[0]
     return out, lse
@@ -75,29 +129,36 @@ def flash_attention_varlen_fwd_persistent(
         q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
-        meta=None):
+        meta=None, window_size: Window = (None, None),
+        attention_chunk: int = 0):
     """Arguments and results as kernels/flash_varlen.py
     ``flash_attention_varlen_fwd``. CUDA: a grid of SM count x resident
     blocks per SM walking the sorted (q tile, head) items with a stride."""
     if q.device.type == "cpu":
         return flash_attention_varlen_fwd_persistent_plain(
             q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
-            seqused_q, seqused_k, softmax_scale, causal, meta)
+            seqused_q, seqused_k, softmax_scale, causal, meta, window_size,
+            attention_chunk)
     check_kernel_inputs("flash_varlen_fwd_persistent", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
     if meta is not None:
         check_meta("flash_varlen_fwd_persistent", meta, cu_seqlens_q,
                    cu_seqlens_k, max_seqlen_q, max_seqlen_k, q.shape[0],
                    k.shape[0], backward=False)
-    global launches, last_grid
+    global launches, launches_band, last_grid
     if q.shape[0] == 0 or k.shape[0] == 0:  # no row sees a key
         last_grid = 0
         return (torch.zeros_like(q), torch.full(
             (q.shape[1], q.shape[0]), float("-inf"), device=q.device))
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
-                       max_seqlen_k, seqused_q, seqused_k, causal, meta)
+                       max_seqlen_k, seqused_q, seqused_k, causal, meta,
+                       window_size, attention_chunk)
+    band = kernel_band(causal, window_size, attention_chunk, max_seqlen_q,
+                       max_seqlen_k)
     out, lse, grid = launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta,
-                                softmax_scale, causal, persistent=True)
+                                softmax_scale, causal, persistent=True,
+                                band=band)
     launches += 1
+    launches_band += band[-1]
     last_grid = grid
     return out, lse

@@ -5,10 +5,10 @@ The configuration carries the JAX package's fields; the port runs rotary
 or learned positions, RMSNorm/LayerNorm, gated or plain MLP, GQA, the
 sequential and the parallel block (tied or untied norms), a tied, untied
 or NormHead head, the muP scalars, the paged cache, per-block
-activation rematerialization in train mode (``remat``) and, for serving,
-a sliding window (``window_size``, passed to every attention call; its
-gradient is not ported, and a Trainer on such a config raises), and raises
-NotImplementedError for the rest. Parameters mirror flax's values: the
+activation rematerialization in train mode (``remat``) and a sliding
+window (``window_size``, passed to every attention call, serving and
+training alike, packed input too), and raises NotImplementedError for the
+rest. Parameters mirror flax's values: the
 Dense and embedding weights in the compute type (flax keeps them in fp32
 and casts them to it at every call, which gives the same values), the norm
 weights in fp32. Training keeps fp32 master copies beside them

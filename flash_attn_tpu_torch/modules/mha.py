@@ -26,10 +26,9 @@ sequences or prefix caching, as in JAX.
 
 ``window_size`` (JAX mha.py:85; -1 for no bound) is passed to every
 attention call, as JAX's :225, :289, :352 and :381 pass it: the dense
-prefill and train mode (B1), decode (B4, linear and paged), the
-prefix-cached admission (B8) and the packed path, whose kernels (B6 and
-B7) take no band yet and raise. A window with a gradient raises too
-(interface.py): the backward kernels take no band yet.
+prefill and train mode (B1, and B3 or B2 for the gradient), decode (B4,
+linear and paged), the prefix-cached admission (B8) and the packed path
+(B7 forward, B6 backward), each on its kernels' band instantiation.
 
 The cache lives in a :class:`KVCache` the caller passes in (the JAX
 module's flax "cache" collection), in the JAX layouts: linear (n_slots,

@@ -35,7 +35,6 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from flash_attn_tpu_torch.dispatch.config import normalize_window
 from flash_attn_tpu_torch.models.gpt import (
     GPTConfig,
     GPTLMHeadModel,
@@ -205,12 +204,6 @@ class Trainer:
         if cfg.opt_state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"opt_state_dtype {cfg.opt_state_dtype!r}")
         _check_ported(cfg.model)
-        if normalize_window(tuple(cfg.model.window_size)) != (None, None):
-            raise NotImplementedError(
-                f"Trainer: GPTConfig.window_size={cfg.model.window_size!r} "
-                "trains through the band masks of the backward kernels, "
-                "which are not ported yet (ROADMAP.md queue A, item 7); the "
-                "port serves a windowed model only")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.schedule = make_schedule(cfg)

@@ -81,3 +81,23 @@ BAND_DECODE_CASES = [  # (name, b, sq, h, h_k, d, page (0: linear), keys,
 # lower edge (row 4608 sees from key 513) falls inside the shared pages
 BAND_VARLEN_CASE = ("Mistral-7B prefix admission", [512] * 8, [5120] * 8,
                     None, 32, 8, 128, 256, torch.bfloat16, True)
+# The band in training: B3's and B2's band instantiations and the packed
+# ones (B6's backward, B6's forward, B7) over the same rows. (name, b, sq,
+# sk, h, h_k, d, causal, window, attention_chunk, sink_token_length); the
+# first is Mistral-7B's training shape (one sequence of 8192 tokens, 32
+# query heads on 8 KV heads of 128, window (4095, 0)), timed into the
+# kernels line
+BAND_BWD_CASES = [
+    ("Mistral-7B training", 1, 8192, 8192, 32, 8, 128, True, MISTRAL_WINDOW,
+     0, 0),
+    ("attention_chunk 1024", 2, 4096, 4096, 32, 8, 128, True, (-1, -1), 1024,
+     0),
+    ("4 sinks under a window of 700, sq < sk, ragged keys", 2, 1200, 1999, 16,
+     4, 128, True, (700, 0), 0, 4),
+    ("window both ways", 2, 2048, 2048, 16, 16, 128, False, (256, 256), 0, 0),
+    ("window, causal sq > sk (rows with no key)", 2, 900, 500, 16, 4, 128,
+     True, (200, 0), 0, 0),
+    ("window at d=64", 4, 2048, 2048, 16, 16, 64, True, (511, 0), 0, 0),
+    ("window at d=96", 2, 2048, 2048, 64, 64, 96, True, (511, 0), 0, 0),
+    ("window at d=256", 2, 2048, 2048, 16, 16, 256, True, (511, 0), 0, 0),
+]

@@ -184,14 +184,16 @@ def attention_ref(
 
 def attention_ref_grads(q, k, v, dout, causal: bool = False,
                         softmax_scale: Optional[float] = None,
-                        upcast: bool = True):
+                        upcast: bool = True, **band):
     """(dq, dk, dv) of sum(attention_ref(q, k, v) * dout) by autograd: the
     fp32 reference of a backward (``upcast``), or the low-precision one
-    computed in the inputs' type, for :func:`check_against_ref`."""
+    computed in the inputs' type, for :func:`check_against_ref`. ``band``:
+    attention_ref's window_size, sink_token_length and attention_chunk."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         out, _ = attention_ref(*leaves, causal=causal,
-                               softmax_scale=softmax_scale, upcast=upcast)
+                               softmax_scale=softmax_scale, upcast=upcast,
+                               **band)
         return torch.autograd.grad(out, leaves, dout.to(out.dtype))
 
 

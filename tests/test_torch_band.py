@@ -8,8 +8,10 @@ order: atol/rtol 1e-5, and the same rows at lse -inf) and, for the dense
 forward, in bf16 under the 2x rule: the port's bf16 output against JAX's
 fp32 output on the same bf16-rounded inputs, within twice JAX's own bf16
 output's error (plus 1e-5). Then the host's tile bounds against JAX's
-``kv_band_static``, the reference masks against JAX's, and the refusals."""
+``kv_band_static``, the reference masks against JAX's, a gradient through
+a banded call against ``jax.grad``, and the refusals that remain."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -277,24 +279,38 @@ def test_kv_band_static_matches_jax(case):
     dict(window_size=(8, 0)), dict(attention_chunk=16),
     dict(window_size=(8, 0), sink_token_length=2)])
 def test_band_with_a_gradient_raises(kwargs):
-    """The band masks of the backward kernels are not ported: asking a
-    gradient of a banded call raises before the forward runs, naming queue
-    A item 7; under no_grad the same call runs."""
-    q = torch.randn(1, 8, 2, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        flash_attn_func(q, q, q, causal=True, **kwargs)
+    """A gradient of a banded call (the name is kept from when it raised):
+    it trains through the backward's band masks, and q's gradient of the
+    self-attention call (q = k = v) matches jax.grad of JAX's
+    flash_attn_func with the same band, in both deterministic modes; under
+    no_grad the same call runs, and a window that reaches every key is no
+    band."""
+    x = _rand(np.random.default_rng(11), 1, 40, 2, 64)
+    g = _rand(np.random.default_rng(12), 1, 40, 2, 64)
+
+    def jf(q):
+        return (jax_flash_attn_func(q, q, q, causal=True, **kwargs)
+                * g).sum()
+    want = np.asarray(jax.grad(jf)(jnp.asarray(x)))
+    for deterministic in (True, False):
+        q = _t(x).requires_grad_()
+        flash_attn_func(q, q, q, causal=True, deterministic=deterministic,
+                        **kwargs).backward(_t(g))
+        np.testing.assert_allclose(q.grad.numpy(), want, atol=1e-4, rtol=0)
     with torch.no_grad():
         assert flash_attn_func(q, q, q, causal=True,
                                **kwargs).shape == q.shape
-    # a window that reaches every key is no band: it trains
     flash_attn_func(q, q, q, causal=True, window_size=(-1, -1)).sum() \
         .backward()
 
 
 def test_varlen_band_refusals():
-    """The dense varlen route (B6, B7) and its packed forms take no band;
-    the paged route takes the window and refuses attention_chunk (which
-    JAX's paged route drops without a word); all name queue A item 7."""
+    """The refusals that remain on the varlen routes: the paged route
+    refuses attention_chunk (which JAX's paged route drops without a word)
+    and a window with qv (B8p), naming queue A item 7; neither route takes
+    sink tokens, as JAX's has no such argument. The dense route and its
+    packed forms take the window and the chunk (forward and backward:
+    tests/test_torch_band_varlen.py)."""
     from flash_attn_tpu_torch.interface import (
         flash_attn_varlen_kvpacked_func,
         flash_attn_varlen_qkvpacked_func,
@@ -303,14 +319,16 @@ def test_varlen_band_refusals():
     x = torch.randn(12, 2, 64)
     cu = torch.tensor([0, 5, 12], dtype=torch.int32)
     for kw in (dict(window_size=(4, 0)), dict(attention_chunk=4)):
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            flash_attn_varlen_func(x, x, x, cu, cu, 7, 7, causal=True, **kw)
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        flash_attn_varlen_qkvpacked_func(torch.stack([x, x, x], 1), cu, 7,
-                                         window_size=(4, 0))
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        flash_attn_varlen_kvpacked_func(x, torch.stack([x, x], 1), cu, cu,
-                                        7, 7, window_size=(4, 0))
+        assert flash_attn_varlen_func(x, x, x, cu, cu, 7, 7, causal=True,
+                                      **kw).shape == x.shape
+    with pytest.raises(TypeError, match="sink_token_length"):
+        flash_attn_varlen_func(x, x, x, cu, cu, 7, 7, causal=True,
+                               window_size=(4, 0), sink_token_length=2)
+    assert flash_attn_varlen_qkvpacked_func(
+        torch.stack([x, x, x], 1), cu, 7, window_size=(4, 0)).shape == x.shape
+    assert flash_attn_varlen_kvpacked_func(
+        x, torch.stack([x, x], 1), cu, cu, 7, 7,
+        window_size=(4, 0)).shape == x.shape
     pages = torch.randn(4, 2, PAGE, 64)
     table = torch.tensor([[1, 2], [3, 0]], dtype=torch.int32)
     lens = torch.tensor([5, 7], dtype=torch.int32)
@@ -322,3 +340,7 @@ def test_varlen_band_refusals():
                                  causal=True, block_table=table,
                                  seqused_k=lens, window_size=(4, 0))
     assert out.shape == x.shape
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_attn_varlen_func(x, pages, pages, cu, None, 7, 32, causal=True,
+                               block_table=table, seqused_k=lens, qv=x,
+                               window_size=(4, 0))

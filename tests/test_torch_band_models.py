@@ -11,8 +11,9 @@ tiny ``transformers`` MistralForCausalLM (``sliding_window=16``, random
 weights, its config written here) against the port built as the JAX
 package would build Mistral: the Llama adapter's config, then
 ``window_size=(15, 0)`` (atol 1e-3, rtol 1e-2, as the other HF
-families). Then the refusals: a Trainer on a windowed config, and packed
-input with a window."""
+families). Then the three calls that once raised run: a Trainer on a
+windowed config, a gradient through the windowed model, and packed input
+with a window (held to JAX in tests/test_torch_band_varlen.py)."""
 
 import dataclasses
 
@@ -210,22 +211,34 @@ def test_mistral_matches_hf_through_the_llama_adapter():
 
 
 def test_windowed_training_and_packed_input_raise():
-    """A Trainer on a windowed config raises at construction, naming queue
-    A item 7 (the backward kernels take no band yet); so does a gradient
-    through a windowed model, and packed input (cu_seqlens: B6 and B7)
-    with a window, before any attention runs."""
+    """The three calls that raised before the backward took the band (the
+    name is kept from then) now run: a Trainer on a windowed config is
+    built and takes a step with a finite loss; a gradient through a
+    windowed model reaches every parameter, finite; packed input
+    (cu_seqlens: B7 forward, B6 backward) with a window gives each
+    sequence's dense train-mode output, and gradients."""
     from flash_attn_tpu_torch.training.trainer import TrainConfig, Trainer
 
     cfg = GPTConfig(dtype=torch.float32, **FIELDS)
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        Trainer(TrainConfig(model=cfg), device="cpu")
+    tr = Trainer(TrainConfig(model=cfg, batch_size=1, seqlen=20,
+                             warmup_steps=1, zero1=False, log_every=1),
+                 device="cpu")
+    ids = torch.randint(0, 96, (1, 21), generator=torch.Generator()
+                        .manual_seed(3))
+    loss, gnorm = tr.train_step(ids[:, :-1], ids[:, 1:])
+    assert np.isfinite(float(loss)) and np.isfinite(float(gnorm))
     model = GPTLMHeadModel(cfg, device="cpu")
-    ids = torch.randint(0, 96, (1, 20))
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        model(ids).sum().backward()
+    model(ids[:, :-1]).sum().backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
     mha = model.transformer.layers[0].mixer
-    x = torch.randn(20, 64)
+    x = torch.randn(20, 64, generator=torch.Generator().manual_seed(4),
+                    requires_grad=True)
     cu = torch.tensor([0, 8, 20], dtype=torch.int32)
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="queue A, item 7"):
-        mha(x, cu_seqlens=cu, max_seqlen=12)
+    packed = mha(x, cu_seqlens=cu, max_seqlen=12)
+    packed.sum().backward()
+    assert bool(torch.isfinite(x.grad).all())
+    with torch.no_grad():
+        dense = torch.cat([mha(x[None, a:b])[0] for a, b in ((0, 8),
+                                                             (8, 20))])
+    torch.testing.assert_close(packed.detach(), dense, atol=1e-5, rtol=1e-5)

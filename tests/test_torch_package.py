@@ -19,6 +19,7 @@ from flash_attn_tpu_torch.cache.kvcache import kv_cache_update
 from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
 from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
 from flash_attn_tpu_torch.utils.cases import (
+    BAND_BWD_CASES,
     BAND_DECODE_CASES,
     BAND_FWD_CASES,
     BAND_VARLEN_CASE,
@@ -63,12 +64,12 @@ def test_no_library_attention_in_the_package():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(dropout_p=0.1), dict(window_size=(8, 0)), dict(softcap=5.0),
-    dict(alibi_slopes=torch.ones(2)), dict(qv=torch.ones(1)),
-    dict(score_mod=lambda s, *a: s)])
+    dict(dropout_p=0.1), dict(learnable_sink=torch.zeros(2)),
+    dict(softcap=5.0), dict(alibi_slopes=torch.ones(2)),
+    dict(qv=torch.ones(1)), dict(score_mod=lambda s, *a: s)])
 def test_flash_attn_func_rejects_unported_options(kwargs):
-    """Each raises before the forward runs; the window only with a gradient
-    (its backward is not ported; the forward is: tests/test_torch_band.py)."""
+    """Each raises before the forward runs (the band trains:
+    tests/test_torch_band_backward.py)."""
     q = torch.randn(1, 8, 2, 64, requires_grad=True)
     with pytest.raises(NotImplementedError):
         flash_attn_func(q, q, q, **kwargs)
@@ -2512,3 +2513,237 @@ def test_graphed_decode_with_a_window_equals_eager_on_the_card(mode):
         assert n_eager.get(pre + kernel, 0) == n_eager.get(pre + band, 0)
     assert sum(n for key, n in n_eager.items()
                if "band" in key and "decode" not in key) > 0
+
+
+def _band_of(case):
+    """The flash_attention_fwd / _bwd band arguments of a BAND_*_CASES
+    case."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+
+    *_, window, chunk, sink = case
+    return dict(window_size=normalize_window(window), sink_token_length=sink,
+                attention_chunk=chunk)
+
+
+def _band_bwd_inputs(case, rows: int = 1, seed: int = 0):
+    """q, k, v, do as (b, h, s, d) views of (b, s, h, d) bf16 tensors on
+    the card for ``rows`` batch rows of a BAND_BWD_CASES case, with B1's
+    band forward's out and lse."""
+    from flash_attn_tpu_torch.kernels import flash_fwd
+
+    _, _, sq, sk, h, h_k, d, causal, *_ = case
+    gen = torch.Generator(device="cuda").manual_seed(seed + sq + sk)
+    q, k, v, do = (torch.randn(rows, n, heads, d, device="cuda",
+                               generator=gen).bfloat16().transpose(1, 2)
+                   for n, heads in ((sq, h), (sk, h_k), (sk, h_k), (sq, h)))
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal,
+                                             **_band_of(case))
+    return q, k, v, do, out, lse
+
+
+def _band_bwd_refs(q, k, v, do, causal, band):
+    """The 2x rule's references of a band backward, a batch row and a KV
+    head's group at a time: the plain fp32 backward from fp32 copies and
+    autograd through attention_ref in bf16. Returns (grads32 (b, h, s, d),
+    grads_lp (b, s, h, d))."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import attention_ref_grads
+
+    b, h, sq, d = q.shape
+    h_k = k.shape[1]
+    g = h // h_k
+    g32 = [torch.empty(x.shape, device="cuda") for x in (q, k, v)]
+    glp = [torch.empty_like(x.transpose(1, 2)) for x in (q, k, v)]
+    for bi in range(b):
+        for kh in range(h_k):
+            qs, ks = slice(kh * g, kh * g + g), slice(kh, kh + 1)
+            qc, kc, vc, dc = (x[bi:bi + 1, hs] for x, hs in
+                              ((q, qs), (k, ks), (v, ks), (do, qs)))
+            f32 = [x.float() for x in (qc, kc, vc)]
+            o32, l32 = flash_fwd.flash_attention_fwd_plain(*f32, causal=causal,
+                                                           **band)
+            r = flash_bwd.flash_attention_bwd_plain(dc.float(), *f32, o32, l32,
+                                                    causal=causal, **band)
+            lp = attention_ref_grads(*(x.transpose(1, 2)
+                                       for x in (qc, kc, vc, dc)),
+                                     causal=causal, upcast=False, **band)
+            for i, hs in enumerate((qs, ks, ks)):
+                g32[i][bi:bi + 1, hs] = r[i]
+                glp[i][bi:bi + 1, :, hs] = lp[i]
+            del f32, o32, l32, r, lp
+    return g32, glp
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("deterministic", [True, False], ids=["B3", "B2"])
+@pytest.mark.parametrize("case", BAND_BWD_CASES, ids=lambda c: c[0])
+def test_band_backward_kernels_match_plain_version_on_the_card(case,
+                                                              deterministic):
+    """B3's (and B2's) band instantiation on every BAND_BWD_CASES case (one
+    batch row of it): dq, dk, dv by the 2x rule against the plain fp32 band
+    backward with a bf16 autograd reference, counted as the band's
+    launches; B3 the same bits twice."""
+    from flash_attn_tpu_torch.kernels import flash_bwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    causal, band = case[7], _band_of(case)
+    q, k, v, do, out, lse = _band_bwd_inputs(case)
+    counter = "launches_dkdv_band" if deterministic else "launches_fused_band"
+    before = getattr(flash_bwd, counter)
+    grads = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
+                                          deterministic=deterministic, **band)
+    torch.cuda.synchronize()
+    assert getattr(flash_bwd, counter) == before + 1
+    if deterministic:
+        again = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse,
+                                              causal=causal, **band)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    ref, ref_lp = _band_bwd_refs(q, k, v, do, causal, band)
+    for name, got, r, lp in zip("qkv", grads, ref, ref_lp):
+        check_against_ref(got.transpose(1, 2), r.transpose(1, 2), lp,
+                          atol=1e-4, msg=f"{case[0]} d{name}")
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", [c for c in BAND_BWD_CASES if c[10] == 0],
+                         ids=lambda c: c[0])
+def test_band_varlen_kernels_equal_dense_ones_on_the_card(case):
+    """Two batch rows of a BAND_BWD_CASES case (no sinks: the varlen route
+    takes none) packed as two sequences: B6's and B7's band forwards give
+    B1's band bits, B6's band backward gives B3's, each counted as its
+    band launch."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+
+    _, _, sq, sk, h, h_k, d, causal, *_ = case
+    band = _band_of(case)
+    vband = dict(window_size=band["window_size"],
+                 attention_chunk=band["attention_chunk"])
+    q, k, v, do, out, lse = _band_bwd_inputs(case, rows=2)
+    grads = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
+                                          **band)
+    cu_q, cu_k = (torch.arange(3, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    pq, pk, pv, pdo, po = (x.transpose(1, 2).reshape(2 * x.shape[2],
+                                                     x.shape[1], d)
+                           for x in (q, k, v, do, out))
+    plse = lse.permute(1, 0, 2).reshape(h, 2 * sq).contiguous()
+    args = (cu_q, cu_k, sq, sk)
+    before = (flash_varlen.launches_fwd_band, fvp.launches_band,
+              flash_varlen.launches_dkdv_band, flash_varlen.launches_dq_band)
+    for fwd in (flash_varlen.flash_attention_varlen_fwd,
+                fvp.flash_attention_varlen_fwd_persistent):
+        o, l = fwd(pq, pk, pv, *args, causal=causal, **vband)
+        assert torch.equal(o.reshape(2, sq, h, d), out.transpose(1, 2)), fwd
+        assert torch.equal(l.reshape(h, 2, sq).transpose(0, 1), lse), fwd
+    pg = flash_varlen.flash_attention_varlen_bwd(pdo, pq, pk, pv, po, plse,
+                                                 *args, causal=causal, **vband)
+    torch.cuda.synchronize()
+    for got, want in zip(pg, grads):
+        assert torch.equal(got.reshape(2, -1, *got.shape[1:]),
+                           want.transpose(1, 2))
+    after = (flash_varlen.launches_fwd_band, fvp.launches_band,
+             flash_varlen.launches_dkdv_band, flash_varlen.launches_dq_band)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("window, chunk", [((100, 0), 0), ((60, 30), 0),
+                                           ((-1, -1), 64)],
+                         ids=["causal window", "window both ways", "chunk"])
+def test_band_varlen_ragged_matches_plain_version_on_the_card(window, chunk):
+    """The packed band kernels on ragged sequences (zero-length ones, key
+    counts off the tiles, seqused, a packed tail, GQA) against their plain
+    versions: B6's and B7's band forwards by the 2x rule (bitwise equal to
+    each other), B6's band backward by the 2x rule, rows outside the
+    sequences zero."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    causal = window[1] == 0 or chunk > 0
+    lens = [300, 0, 129, 500, 77]
+    used = torch.tensor([300, 0, 100, 500, 77], dtype=torch.int32,
+                        device="cuda")
+    total = sum(lens) + 10  # a packed tail past the last sequence
+    cu = torch.tensor([0, *itertools.accumulate(lens)], dtype=torch.int32,
+                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn(total, 8, 128, device="cuda", generator=gen)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(total, 2, 128, device="cuda", generator=gen)
+            .bfloat16() for _ in range(2))
+    band = dict(window_size=normalize_window(window), attention_chunk=chunk)
+    args = (cu, cu, max(lens), max(lens), used, used)
+    out, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, *args,
+                                                       causal=causal, **band)
+    out7, lse7 = fvp.flash_attention_varlen_fwd_persistent(
+        q, k, v, *args, causal=causal, **band)
+    assert torch.equal(out, out7) and torch.equal(lse, lse7)
+    f32 = [x.float().cpu() for x in (q, k, v)]
+    cpu_args = tuple(x.cpu() if torch.is_tensor(x) else x for x in args)
+    ref, ref_lse = flash_varlen.flash_attention_varlen_fwd_plain(
+        *f32, *cpu_args, causal=causal, **band)
+    ref_p, ref_p_lse = fvp.flash_attention_varlen_fwd_persistent_plain(
+        *f32, *cpu_args, causal=causal, **band)
+    torch.testing.assert_close(ref_p, ref, atol=1e-5, rtol=1e-5)
+    lp = flash_varlen.flash_attention_varlen_fwd_plain(
+        *(x.cpu() for x in (q, k, v)), *cpu_args, causal=causal, **band)[0]
+    check_against_ref(out.cpu(), ref, lp, msg=f"B6 band {window} {chunk}")
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse.cpu()), fin)
+    torch.testing.assert_close(lse.cpu()[fin], ref_lse[fin], atol=1e-3,
+                               rtol=0)
+    grads = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse,
+                                                    *args, causal=causal,
+                                                    **band)
+    g32 = flash_varlen.flash_attention_varlen_bwd_plain(
+        do.float().cpu(), *f32, ref, ref_lse, *cpu_args, causal=causal,
+        **band)
+    glp = flash_varlen.flash_attention_varlen_bwd_plain(
+        *(x.cpu() for x in (do, q, k, v)), lp, ref_lse, *cpu_args,
+        causal=causal, **band)
+    for name, got, r, l_ in zip("qkv", grads, g32, glp):
+        check_against_ref(got.cpu(), r, l_, atol=1e-4,
+                          msg=f"B6 band backward d{name} {window} {chunk}")
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_band_backward_windows_that_reach_every_key_stay_band_free_on_the_card():
+    """A window that reaches every key masks nothing: the dense backward
+    (both modes) and the packed forwards and backward run their band-free
+    kernels (no band launch counted) and give the bits of the call without
+    a window."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+
+    case = ("reach", 2, 300, 300, 8, 2, 128, True, (-1, -1), 0, 0)
+    q, k, v, do, out, lse = _band_bwd_inputs(case, rows=2)
+    cu = torch.tensor([0, 300, 600], dtype=torch.int32, device="cuda")
+    pq, pk, pv, pdo, po = (x.transpose(1, 2).reshape(600, x.shape[1], 128)
+                           for x in (q, k, v, do, out))
+    plse = lse.permute(1, 0, 2).reshape(8, 600).contiguous()
+
+    def calls(window):
+        res = [flash_bwd.flash_attention_bwd(do, q, k, v, out, lse,
+                                             causal=True, deterministic=det,
+                                             window_size=window)
+               for det in (True, False)]
+        args = (cu, cu, 300, 300)
+        res.append(flash_varlen.flash_attention_varlen_fwd(
+            pq, pk, pv, *args, causal=True, window_size=window))
+        res.append(fvp.flash_attention_varlen_fwd_persistent(
+            pq, pk, pv, *args, causal=True, window_size=window))
+        res.append(flash_varlen.flash_attention_varlen_bwd(
+            pdo, pq, pk, pv, po, plse, *args, causal=True,
+            window_size=window))
+        return res
+
+    base = calls((None, None))
+    wide, n = _counted(lambda: calls((299, 0)))
+    assert n and not any("band" in key for key in n), n
+    for i, (a, b) in enumerate(zip(base, wide)):
+        same = [torch.equal(x, y) for x, y in zip(a, b)]
+        # B2's dq sums with atomics: its bits may vary from run to run
+        assert all(same if i != 1 else same[1:]), (i, same)

@@ -173,10 +173,10 @@ def test_varlen_paged_matches_jax(case):
 
 def test_varlen_refusals_point_at_queue_a():
     """Dense varlen (B6/B7, queue A item 5) is ported and runs; so is qv
-    over a paged cache (B8p, the MLA chunked prefill), and the window on the
-    paged route (B8), while qv on the dense route, the window on the dense
-    route, and attention_chunk, softcap and descales on both routes are
-    still item 7."""
+    over a paged cache (B8p, the MLA chunked prefill), the window on both
+    routes and attention_chunk on the dense one, while qv on the dense
+    route, attention_chunk on the paged one, and softcap and descales on
+    both routes are still item 7."""
     q = torch.zeros(4, 2, 64)
     cu = torch.tensor([0, 4], dtype=torch.int32)
     assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4).shape == q.shape
@@ -190,14 +190,18 @@ def test_varlen_refusals_point_at_queue_a():
                dict(k_descale=torch.ones(1, 2))):
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
             flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged, **kw)
+        if "attention_chunk" in kw:  # the dense route takes the chunk
+            assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, causal=True,
+                                          **kw).shape == q.shape
+            continue
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
             flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, **kw)
-    # the window: the paged route (B8) takes it, the dense one does not
+    # the window: both routes take it (B8; B7 and B6)
     window = dict(window_size=(8, 0))
     assert flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged,
                                   **window).shape == q.shape
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, **window)
+    assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4,
+                                  **window).shape == q.shape
 
 
 def test_paged_to_linear_gathers_pages():

@@ -31,7 +31,9 @@ With --sass it compiles the sources of the kernels that share B10's tiles
 (flash_fwd.cu, flash_varlen_fwd.cu, flash_varlen_paged.cu, flash_bwd.cu,
 flash_varlen.cu) in both trees with nvcc -cubin and says, kernel by
 kernel, whether the machine code (cuobjdump -sass, with the file-specific
-part of the names taken out) is the same; exit 1 if a kernel differs.
+part of the names taken out) is the same, under the kernel's own name or
+another one; exit 1 if a kernel of ROOT_A compiles to code that ROOT_B
+does not hold.
 """
 
 import hashlib
@@ -182,16 +184,25 @@ def sass(root: str, source: str, workdir: str) -> dict:
 
 
 def compare_sass(root_a: str, root_b: str) -> int:
+    """Each kernel of ROOT_A's sources against ROOT_B's: the same SASS
+    under its own name, or under another (a template argument added, such
+    as a band instantiation's flag, renames a kernel that compiles to the
+    same code); a kernel of ROOT_A whose SASS ROOT_B holds under no name
+    differs. ROOT_B's kernels that ROOT_A lacks are listed as new."""
     differ = 0
     with tempfile.TemporaryDirectory() as work:
         for source in SASS_SOURCES:
             a, b = sass(root_a, source, work), sass(root_b, source, work)
+            bodies = set(b.values())
             same = [n for n in a if a[n] == b.get(n)]
-            diff = sorted(set(a) ^ set(b) | {n for n in a if n in b
-                                             and a[n] != b[n]})
+            renamed = [n for n in a if n not in same and a[n] in bodies]
+            diff = sorted(n for n in a if a[n] not in bodies)
+            new = sorted(n for n in b if b[n] not in set(a.values()))
             differ += len(diff)
-            print(f"{source}: {len(same)} kernels with the same SASS"
-                  + (f"; differ: {', '.join(diff)}" if diff else ""))
+            print(f"{source}: {len(same)} kernels with the same SASS, "
+                  f"{len(renamed)} more under another name"
+                  + (f"; differ: {', '.join(diff)}" if diff else "")
+                  + (f"; new in {root_b}: {len(new)}" if new else ""))
     return 1 if differ else 0
 
 
