@@ -242,7 +242,33 @@
    in 5. (per step and layer one band forward, one preprocess, one band
    dK/dV and one band dQ launch, no band-free one; a falling loss, the
    fused-CE check) and a profiled step; prints the step time, tokens/s,
-   TFLOP/s and peak memory.
+   TFLOP/s and peak memory;
+22. softcap and ALiBi (utils/cases.py SCORE_*_CASES): B1's score
+   instantiation (the cap alone at 50 and 30, ALiBi with (h,) and (b, h)
+   slopes, causal and not, sq < sk, sq = sk and sq > sk, both together,
+   both under a window, GQA, d 64, 96, 128 and 256, bf16 and fp16), B4
+   with the cap and the slopes (linear and paged, sq = 1 and 5, one split
+   and the default splits, GQA groups) and B8 with the cap against their
+   plain versions (the 2x rule on out, lse within LSE_ATOL in JAX's
+   last-key form, the same bits twice, each launch counted as the score
+   map's), timed at Baichuan-13B's and the softcap GPT's serving shapes
+   beside the kernel without the map, the plain version, a library call
+   (SDPA with ALiBi as a float mask; compiled flex_attention with a tanh
+   score_mod and a block mask of the lengths, over the gathered cache for
+   the paged routes) and a bound that is the largest of the matmul's, the MUFU's (an ex2
+   and, under a cap, a tanh a score at 16 a clock an SM) and the bytes'
+   times;
+23. Baichuan-13B-Base at full width and depth (40 layers, 5120 wide, 40
+   heads of 128, ALiBi, 13.3B parameters) from a seeded checkpoint in HF's
+   names through the port's adapter: static serving as in 4. (every launch
+   the score map's), ALiBi in force (the logits without it differ by more
+   than the decode's bf16 noise), the paged engine (16 requests on 16
+   slots) and the speculative engine with the target as its own draft,
+   each held to a teacher-forced decode; the prefix-cached engine must
+   refuse it;
+24. the 913M GPT with softcap 50 (Gemma-2's attn_logit_softcapping):
+   static serving, the cap in force, the paged and the prefix-cached
+   engine (B8 under the cap), each held to a teacher-forced decode.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -256,6 +282,7 @@ without one, and when run outside a checkout of the repo.
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1118,7 +1145,7 @@ def check_decode_verify(gen):
 
 
 def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
-                      window=(None, None)):
+                      window=(None, None), softcap: float = 0.0):
     """B8 on one case of VARLEN_CASES' form against its plain version (the
     2x rule, lse within LSE_ATOL), bitwise equal over two runs and, where
     B6 takes the head dim (``with_b6``), to B6's forward over the same rows
@@ -1126,8 +1153,11 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
     the profiler, its kernel alone beside the bound and the plain version.
     With a ``window`` the band instantiation must run (its launch counted),
     the bound counts the pairs inside the window, and the band-free kernel
-    is timed at the same shape. Returns the error and the timing (None
-    untimed)."""
+    is timed at the same shape. With ``softcap`` the score instantiation
+    runs, the bound reckons the MUFU (an ex2 and a tanh a score), the
+    kernel without the cap is timed, and the library call is compiled
+    flex_attention with a tanh score_mod over the same padding and gather.
+    Returns the error and the timing (None untimed)."""
     from flash_attn_tpu_torch.kernels import flash_varlen
     from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
     from flash_attn_tpu_torch.utils.testing import (
@@ -1150,19 +1180,21 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
     args = (cu, max_q, seqlens_k, table)
     banded = window != (None, None)
     band_launches = fvp.launches_band
+    sc = dict(softcap=softcap) if softcap else {}
     out, lse = fvp.flash_attention_varlen_paged_fwd(
         q, kp, vp, *args, seqused_q=seqused, causal=causal,
-        window_size=window)
+        window_size=window, **sc)
     ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
         q.float(), kp.float(), vp.float(), *args, seqused_q=seqused,
-        causal=causal, window_size=window)
+        causal=causal, window_size=window, **sc)
     ref_lp = attention_varlen_paged_ref(
         q, kp, vp, cu, seqlens_k, table, seqused_q=seqused,
-        causal=causal, upcast=False, window_size=window)
+        causal=causal, upcast=False, window_size=window, **sc)
     torch.cuda.synchronize()
     desc = (f"{name}: lens_q {lens_q} lens_k {lens_k} seqused_q {used} "
             f"h={h} h_k={h_k} d={d} page={page} {str(dtype)[6:]} "
-            f"causal={causal}" + (f" window {window}" if banded else ""))
+            f"causal={causal}" + (f" window {window}" if banded else "")
+            + (f" softcap {softcap}" if softcap else ""))
     require(fvp.launches_band == band_launches + banded,
             f"flash_varlen_paged {desc}: the band instantiation ran "
             f"{fvp.launches_band - band_launches} times")
@@ -1176,7 +1208,7 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
     require(lse_err <= LSE_ATOL, f"varlen paged lse error {lse_err}")
     again = fvp.flash_attention_varlen_paged_fwd(
         q, kp, vp, *args, seqused_q=seqused, causal=causal,
-        window_size=window)
+        window_size=window, **sc)
     require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
             f"flash_varlen_paged {desc}: two runs differ")
     if with_b6:
@@ -1201,12 +1233,12 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
         return err, None
     call = lambda: fvp.flash_attention_varlen_paged_fwd(
         q, kp, vp, *args, seqused_q=seqused, causal=causal,
-        window_size=window)
+        window_size=window, **sc)
     ms = time_ms(call)
     kernel_ms = kernel_split_ms(call, ("varlen_paged_kernel",))
     plain_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
         q, kp, vp, *args, seqused_q=seqused, causal=causal,
-        window_size=window))
+        window_size=window, **sc))
     # the yardstick: the packed rows padded to (b, max_q) and the cache
     # gathered (paged_sdpa), the output packed again; rows past seqused_q
     # attend as the others (their output is not read)
@@ -1222,8 +1254,32 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
         qpad.zero_()
         qpad[seq, pos] = q
         return gathered().transpose(1, 2)[seq, pos]
-    lib_ms, sdpa_ms = time_ms(packed_lib), time_ms(sdpa_only)
+    lib_ms, sdpa_ms = ((None, None) if softcap else
+                       (time_ms(packed_lib), time_ms(sdpa_only)))
+    shift = seqlens_k - torch.tensor(lens_q, dtype=torch.int32, device="cuda")
+
+    def keep(bi, hi, qi, ki):
+        inside = ki < seqlens_k[bi]
+        if causal:
+            inside = inside & (ki <= qi + shift[bi])
+        if window[0] is not None:
+            inside = inside & (ki >= qi + shift[bi] - window[0])
+        if window[1] is not None:
+            inside = inside & (ki <= qi + shift[bi] + window[1])
+        return inside
+
+    def flex_call():
+        run = flex_softcap(softcap, keep, b, max_q, table.shape[1] * page)
+
+        def call():
+            qpad.zero_()
+            qpad[seq, pos] = q
+            return run(qpad.transpose(1, 2), *(
+                paged_to_linear(x, table, seqlens_k) for x in (kp, vp))
+            ).transpose(1, 2)[seq, pos]
+        return call
     total_q = int(cu[-1])
+    pairs = attended_pairs(used or lens_q, lens_k, causal, window)
     timing = {"ms": ms, "kernel_ms": kernel_ms["varlen_paged_kernel"],
               "wrapper_ops_ms": kernel_ms["other"],
               "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -1235,11 +1291,22 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
                               "again (the gather and the packing included)"
                               + (" and the window in the mask" if banded
                                  else ""),
-              **bound(4 * h * d * attended_pairs(
-                  used or lens_q, lens_k, causal, window),
-                  2 * 2 * total_q * h * d
-                  + 2 * 2 * band_keys(used or lens_q, lens_k, causal, window)
-                  * h_k * d + 4 * h * total_q)}
+              **score_bound(4 * h * d * pairs,
+                            2 * 2 * total_q * h * d
+                            + 2 * 2 * band_keys(used or lens_q, lens_k,
+                                                causal, window) * h_k * d
+                            + 4 * h * total_q,
+                            h * pairs * (1 + (softcap > 0)))}
+    if softcap:
+        timing.update(flex_row(
+            flex_call, ref, err_lp, "a block mask of the lengths, the causal "
+            "bound and the window, the packed rows padded and the cache "
+            "gathered through the block table (the gather and the packing "
+            "included)"))
+        timing["without_map_ms"] = time_ms(
+            lambda: fvp.flash_attention_varlen_paged_fwd(
+                q, kp, vp, *args, seqused_q=seqused, causal=causal,
+                window_size=window))
     if banded:
         timing["band_free_ms"] = time_ms(
             lambda: fvp.flash_attention_varlen_paged_fwd(
@@ -1250,9 +1317,14 @@ def varlen_paged_case(gen, case, with_b6: bool = True, timed: bool = False,
           f"call {ms:.4f} ms (median of 25), of which the kernel "
           f"{timing['kernel_ms']:.4f} ms and the wrapper's torch ops "
           f"{timing['wrapper_ops_ms']:.4f} ms (profiler, device time); "
-          f"plain {plain_ms:.4f} ms; padding, gather and masked "
-          f"scaled_dot_product_attention {lib_ms:.4f} ms (SDPA alone "
-          f"{sdpa_ms:.4f} ms); bound "
+          f"plain {plain_ms:.4f} ms; " + (
+              f"without the cap {timing['without_map_ms']:.4f} ms, "
+              + ("no library time" if timing["library_ms"] is None else
+                 f"library {timing['library_ms']:.4f} ms") + " ("
+              + timing["library_call"] + ")"
+              if softcap else
+              f"padding, gather and masked scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms (SDPA alone {sdpa_ms:.4f} ms)") + "; bound "
           f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
     return err, timing
 
@@ -1497,12 +1569,13 @@ def run_api_backward(gen):
 
 
 def serve_static(model, ids, name: str, new_tokens: int = NEW_TOKENS,
-                 band: bool = False):
+                 band: bool = False, score: bool = False):
     """Serve ``ids`` (BATCH prompts of PROMPT tokens, or any (b, prompt)) to
     prompt + ``new_tokens`` through serving.generation.decode, with the
     decode step captured as a CUDA graph and then eagerly: each run
     launches n_layer B1 and n_layer x (new_tokens - 1) B4 (counts at 0 just
-    before it; with ``band``, every launch that of the band masks), the
+    before it; with ``band``, every launch that of the band masks, with
+    ``score`` that of the score map: softcap or ALiBi), the
     tokens of both bitwise equal, the logits finite; then the decode steps'
     logits against one teacher-forced forward over the same tokens, taken
     at the decoded positions only (LOGIT_BOUND, MIN_ARGMAX_AGREEMENT).
@@ -1521,6 +1594,8 @@ def serve_static(model, ids, name: str, new_tokens: int = NEW_TOKENS,
     want = dict(flash_fwd=n, flash_decode=n * steps)
     if band:
         want.update(flash_fwd_band=n, flash_decode_band=n * steps)
+    if score:
+        want.update(flash_fwd_score=n, flash_decode_score=n * steps)
     runs = {}
     for cg in (True, False):  # the captured decode step, then eagerly
         reset_kernel_counts()
@@ -1633,8 +1708,8 @@ def engine_model():
 
 def kernel_counts():
     """Launches of the forward, decode, paged, varlen, MLA and block-sparse
-    kernels since the last reset_kernel_counts() (bwd_counts() has the
-    dense backward's)."""
+    kernels since the last reset_kernel_counts(), the band's and the score
+    map's among them (bwd_counts() has the dense backward's)."""
     from flash_attn_tpu_torch.kernels import (
         flash_blocksparse,
         flash_decode,
@@ -1647,11 +1722,15 @@ def kernel_counts():
 
     return {"flash_fwd": flash_fwd.launches,
             "flash_fwd_band": flash_fwd.launches_band,
+            "flash_fwd_score": flash_fwd.launches_score,
             "flash_decode": flash_decode.launches,
             "flash_decode_band": flash_decode.launches_band,
+            "flash_decode_score": flash_decode.launches_score,
             "flash_decode_paged": flash_decode.launches_paged,
             "flash_decode_paged_band": flash_decode.launches_paged_band,
+            "flash_decode_paged_score": flash_decode.launches_paged_score,
             "flash_varlen_paged_band": flash_varlen_paged.launches_band,
+            "flash_varlen_paged_score": flash_varlen_paged.launches_score,
             "flash_decode_mla": flash_decode.launches_mla,
             "flash_paged_prefill": flash_paged_prefill.launches,
             "flash_varlen_paged": flash_varlen_paged.launches,
@@ -1704,7 +1783,8 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
                draft=None, slots: int = ENGINE_SLOTS, name=None,
                max_len: int = ENGINE_MAX_LEN, new_tokens: int = ENGINE_NEW,
                admit_tokens: int = ENGINE_ARRIVAL * ENGINE_PROMPT,
-               warm_prompt: int = ENGINE_PROMPT, band: bool = False):
+               warm_prompt: int = ENGINE_PROMPT, band: bool = False,
+               score: bool = False):
     """Serve ``prompts`` through an InferenceEngine over the paged cache,
     submitted ENGINE_ARRIVAL at a time whenever the queue is empty (the
     closed-loop trace of bench.py:516-541), after warmup(), which captures
@@ -1717,7 +1797,8 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
     each request asks ``new_tokens``, an admission takes up to
     ``admit_tokens`` padded tokens (warm-up prefills ENGINE_ARRIVAL rows
     of ``warm_prompt``); with ``band`` every attention launch must be that
-    of the band masks."""
+    of the band masks, with ``score`` that of the score map (softcap or
+    ALiBi)."""
     from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
     from flash_attn_tpu_torch.serving.generation import GenerationConfig
 
@@ -1796,10 +1877,11 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
         want = want_counts(flash_fwd=(n + nd) * calls["prefill"],
                            flash_decode=nd * SPEC_K * calls["spec_round"],
                            flash_decode_paged=n * calls["spec_round"])
-    if band:
-        want.update({f"{k}_band": want[k] for k in (
-            "flash_fwd", "flash_decode", "flash_decode_paged",
-            "flash_varlen_paged")})
+    for flag, suffix in ((band, "_band"), (score, "_score")):
+        if flag:
+            want.update({k + suffix: want[k] for k in (
+                "flash_fwd", "flash_decode", "flash_decode_paged",
+                "flash_varlen_paged")})
     require(launches == want, f"{name} launch counts {launches}, want {want}")
     require(all(len(t) == new_tokens for t in tokens),
             f"{name}: a request did not finish with {new_tokens} tokens")
@@ -1888,6 +1970,13 @@ def model_view(model, **fields):
     view = GPTLMHeadModel(dataclasses.replace(model.config, **fields),
                           device="meta")
     view.load_state_dict(model.state_dict(), assign=True)
+    # the buffers outside the state dict (the ALiBi slopes) that the view
+    # keeps too
+    kept = dict(view.named_buffers())
+    for name, buf in model.named_buffers():
+        if name in kept:
+            mod, _, attr = name.rpartition(".")
+            setattr(view.get_submodule(mod), attr, buf)
     return view.requires_grad_(False)
 
 
@@ -1910,13 +1999,14 @@ def bf16_step(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
 
 
-def spec_vs_plain(model, prompts, spec, plain, name):
+def spec_vs_plain(model, prompts, spec, plain, name, tie_bound=None):
     """Hold a speculative engine's greedy tokens to the plain engine's:
     equal, or, from the first position where they part, both within
     TIE_STEPS bf16 steps of the top logit of one forward over the prompt
     and the tokens they share (a near-tie that the verify step's other
-    matmul shapes round the other way in bf16). Returns the share of
-    requests with equal tokens."""
+    matmul shapes round the other way in bf16); with ``tie_bound``, within
+    that many logits of it instead (a deeper model's own measured bf16
+    noise). Returns the share of requests with equal tokens."""
     equal, worst, worst_gap, worst_top = 0, 0.0, 0.0, 0.0
     for p, a, b in zip(prompts, spec, plain):
         j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -1935,8 +2025,11 @@ def spec_vs_plain(model, prompts, spec, plain, name):
     print(f"{name} vs the plain greedy engine: {equal} of {len(spec)} "
           f"requests equal; where they part, the largest top-logit gap of "
           f"either token {worst:.1f} bf16 steps ({worst_gap:.4f} below a top "
-          f"of {worst_top:.4f}; bound {TIE_STEPS} steps)")
-    require(worst <= TIE_STEPS,
+          f"of {worst_top:.4f}; bound "
+          + (f"{TIE_STEPS} steps)" if tie_bound is None else
+             f"{tie_bound:.4f}, the model's decode noise)"))
+    require(worst <= TIE_STEPS if tie_bound is None else
+            worst_gap <= tie_bound,
             f"{name}: a token parts from the plain engine's beyond a tie")
     return share
 
@@ -2218,20 +2311,29 @@ def run_training():
 
 def device_events(fn, runs: int = 1, tries: int = 3):
     """The CUDA events (torch.profiler key averages with device time) of
-    ``runs`` calls of fn(), after one warm-up call. A trace that recorded
-    no device activity at all (the profiler's CUDA tracing lost the window,
-    seen once in a long run on the card) is taken again, up to ``tries``
-    times, then the run fails."""
-    from torch.profiler import ProfilerActivity, profile
+    ``runs`` calls of fn(), after one warm-up call. The trace opens with one
+    more call in the warm-up step of the profiler's schedule, whose events
+    are dropped: a trace's first kernel can go missing (seen on the card,
+    four launches of the first kernel traced in five calls). A trace that
+    recorded no device activity at all (the profiler's CUDA tracing lost
+    the window, seen once in a long run on the card) is taken again, up to
+    ``tries`` times, then the run fails."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and getattr(e, "device_time_total", 0.0) > 0
@@ -2396,16 +2498,49 @@ def sdpa_varlen(q, k, v, cu_q, cu_k, lens_q, lens_k, causal, dout):
     raise RuntimeError("no library yardstick for packed attention ran")
 
 
-def kernel_split_ms(fn, names, runs: int = 5):
-    """Device ms per call of each kernel whose name contains one of
-    ``names`` (the first that matches), and under "other" of every other
-    device activity (torch's own kernels, copies), from torch.profiler over
-    ``runs`` calls."""
-    total = dict.fromkeys(list(names) + ["other"], 0.0)
-    for evt in device_events(fn, runs):
-        name = next((n for n in names if n in evt.key), "other")
-        total[name] += evt.device_time_total
-    return {name: us / runs / 1e3 for name, us in total.items()}
+def kernel_split_ms(fn, names, runs: int = 10, tries: int = 3):
+    """Device ms a launch of each kernel whose name contains one of
+    ``names`` (the first that matches), and under "other" ms a call of
+    every other device activity (torch's own kernels, copies), from
+    torch.profiler over ``runs`` calls, each of which launches each named
+    kernel once. The profiler can lose a trace's first launches (seen on
+    the card late in long runs: one of five launches of a kernel on every
+    retrace, 14 of 15 of a backward's three kernels once), so a trace that
+    holds another count than ``runs`` of a kernel is taken again, up to
+    ``tries`` times; if none holds every launch, each kernel's time is the
+    mean over its launches in the trace that held the most ("other" is
+    then low), said in a printed line. The run fails if no trace held a
+    launch of each kernel, or one held more than ``runs``."""
+    best = None
+    for _ in range(tries):
+        total = dict.fromkeys(list(names) + ["other"], 0.0)
+        count = dict.fromkeys(names, 0)
+        for evt in device_events(fn, runs):
+            name = next((n for n in names if n in evt.key), "other")
+            total[name] += evt.device_time_total
+            if name != "other":
+                count[name] += evt.count
+        if any(c > runs for c in count.values()):
+            raise RuntimeError(f"chip_smoke: the profiler traced {count} "
+                               f"launches of {runs} calls, one a call of "
+                               "each kernel wanted")
+        if all(c == runs for c in count.values()):
+            best = total, count
+            break
+        print(f"profiler: a trace of {runs} calls held {count} launches; "
+              "taken again", flush=True)
+        if best is None or min(count.values()) > min(best[1].values()):
+            best = total, count
+    total, count = best
+    if min(count.values()) == 0:
+        raise RuntimeError(f"chip_smoke: {tries} profiler traces of {runs} "
+                           f"calls held {count} launches, none of a kernel")
+    if min(count.values()) < runs:
+        print(f"profiler: no trace held every launch; each kernel's time "
+              f"is the mean of its {count} traced launches", flush=True)
+    split = {name: total[name] / count[name] / 1e3 for name in names}
+    split["other"] = total["other"] / runs / 1e3
+    return split
 
 
 def check_varlen(gen):
@@ -5941,6 +6076,670 @@ def run_mistral_training(card):
     return launches, res
 
 
+# ---- softcap and ALiBi in serving (B1, B4, B8's score map) ----------------
+
+# Baichuan-13B-Base (baichuan-inc/Baichuan-13B-Base config.json): a Llama
+# body with a fused W_pack QKV, 40 heads of 128, ALiBi (the adapter infers
+# it from the width, >= 5000, as the reference does) and no rotary; served
+# at full width and depth from a seeded checkpoint in HF's names
+BAICHUAN_13B = SimpleNamespace(
+    vocab_size=64000, hidden_size=5120, num_hidden_layers=40,
+    num_attention_heads=40, intermediate_size=13696, rms_norm_eps=1e-6,
+    tie_word_embeddings=False, model_max_length=4096)
+# The MUFU's rate: 16 special-function operations (ex2, tanh) a clock on
+# each SM (the H100's SM has four SFU quadrants of 4 lanes each)
+MUFU_PER_SM_CLOCK = 16
+
+
+@functools.lru_cache(maxsize=None)
+def mufu_rate() -> float:
+    """Special-function operations a second at the card's largest SM clock
+    (nvidia-smi clocks.max.sm) over all its SMs."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return MUFU_PER_SM_CLOCK * sms * mhz * 1e6
+
+
+def score_bound(flops: float, nbytes: float, mufu_ops: float) -> dict:
+    """bound() with a third floor: the special-function operations (an ex2
+    a score, and a tanh a score under a cap) at mufu_rate(); the largest of
+    the matmul's, the MUFU's and the bytes' times, each kept."""
+    parts = {"matmul_ms": flops / PEAK_FLOPS * 1e3,
+             "mufu_ms": mufu_ops / mufu_rate() * 1e3,
+             "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+    largest = max(parts, key=parts.get)
+    return {"bound_ms": parts[largest],
+            "bound_by": "bytes" if largest == "bytes_ms" else "operations",
+            "bound_largest": largest[:-3], "bound_parts": parts}
+
+
+def score_kw(case_softcap, kind, b, h, window=(None, None)):
+    from flash_attn_tpu_torch.utils.cases import score_slopes
+
+    return dict(softcap=case_softcap, window_size=window,
+                alibi_slopes=score_slopes(kind, b, h, "cuda"))
+
+
+def score_fwd_refs(q, k, v, causal, kw, heads_bytes: float = 2e9):
+    """band_fwd_refs with the score map: the fp32 plain forward and the
+    low-precision reference (attention_ref, upcast=False) a batch row and a
+    few KV heads at a time, each with its rows' slopes."""
+    from flash_attn_tpu_torch.dispatch.score import slopes_bh
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import attention_ref
+
+    b, sq, h, d = q.shape
+    sk, h_k = k.shape[1], k.shape[2]
+    group = h // h_k
+    per = max(1, int(heads_bytes // (group * sq * sk * 4)))
+    sl = slopes_bh(kw["alibi_slopes"], b, h)
+    ref = torch.empty(b, h, sq, d, device="cuda")
+    lse = torch.empty(b, h, sq, device="cuda")
+    ref_lp = torch.empty_like(q)
+    for bi in range(b):
+        for k0 in range(0, h_k, per):
+            ks, qs = slice(k0, k0 + per), slice(k0 * group,
+                                                (k0 + per) * group)
+            qc, kc, vc = (x[bi:bi + 1, :, hs] for x, hs in
+                          ((q, qs), (k, ks), (v, ks)))
+            part = dict(kw, alibi_slopes=None if sl is None
+                        else sl[bi:bi + 1, qs])
+            o, l = flash_fwd.flash_attention_fwd_plain(
+                *(x.transpose(1, 2).float() for x in (qc, kc, vc)),
+                causal=causal, **part)
+            ref[bi, qs], lse[bi, qs] = o[0], l[0]
+            o_lp, _ = attention_ref(qc, kc, vc, causal=causal, upcast=False,
+                                    **part)
+            ref_lp[bi, :, qs] = o_lp[0]
+            del o, l, o_lp
+    return ref, lse, ref_lp
+
+
+def alibi_sdpa_mask(sl, b, h, sq, sk, causal, window, dtype):
+    """SDPA's float mask of ALiBi (bias times slope, -inf outside the
+    causal bound and the window), (b, h, sq, sk) in the inputs' type."""
+    from flash_attn_tpu_torch.dispatch.score import alibi_bias, slopes_bh
+
+    rows = torch.arange(sq, device="cuda")[:, None]
+    cols = torch.arange(sk, device="cuda")[None, :]
+    bias = slopes_bh(sl, b, h)[..., None, None] * alibi_bias(
+        rows, cols, sq, sk, causal)
+    return bias.masked_fill(~band_mask(sq, sk, causal, window),
+                            float("-inf")).to(dtype)
+
+
+def flex_softcap(cap, keep, b, sq, sk):
+    """torch.compile(flex_attention) with a tanh score_mod and, where
+    ``keep(b, h, q_idx, kv_idx)`` is given, the keys it holds kept (a block
+    mask over b batch rows; b None: one mask for every row): a function of
+    (q, k, v) in (batch, heads, rows, d), GQA where k has fewer heads."""
+    from torch.nn.attention.flex_attention import (
+        create_block_mask,
+        flex_attention,
+    )
+
+    def cap_mod(score, bi, hi, qi, ki):
+        return torch.tanh(score / cap) * cap
+
+    mask = (None if keep is None else
+            create_block_mask(keep, b, None, sq, sk, device="cuda"))
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda q, k, v: fn(q, k, v, score_mod=cap_mod, block_mask=mask,
+                              enable_gqa=q.shape[1] != k.shape[1])
+
+
+def flex_row(make_call, ref, err_lp, what):
+    """The library keys of a row under the cap: make_call() gives a call of
+    flex_softcap's function on the kernel's inputs, its output in the
+    layout of ``ref``, the fp32 plain output; held to ref by the 2x rule of
+    the kernel's own check (err_lp: the low-precision reference's error),
+    then timed. Where flex_attention does not run here or misses that rule,
+    no time and the reason."""
+    try:
+        call = make_call()
+        got = call().float().to(ref.device)
+    except Exception as e:  # the yardstick is optional; the reason is kept
+        return {"library_ms": None, "library_call": (
+            f"none: flex_attention did not run here ({type(e).__name__}: "
+            f"{str(e)[:200]})")}
+    diff = (got - ref.float()).abs().max().item()
+    del got
+    if not diff <= 2 * err_lp + 1e-5:
+        return {"library_ms": None, "library_max_abs_err": diff,
+                "library_call": (
+                    f"none: flex_attention's output is {diff:.3e} off the "
+                    f"fp32 plain version, beyond twice the low-precision "
+                    f"reference's {err_lp:.3e}")}
+    return {"library_ms": time_ms(call, runs=10), "library_max_abs_err": diff,
+            "library_call": "torch.compile(flex_attention) with a tanh "
+                            f"score_mod and {what}"}
+
+
+def score_fwd_case(gen, case, timed: bool):
+    """B1's score instantiation on one SCORE_FWD_CASES case against its
+    plain version (the 2x rule against the fp32 plain forward with a
+    low-precision reference, lse within LSE_ATOL on the rows that see a key
+    and -inf on the same rows; the lse of causal ALiBi relative to the last
+    key), its launches counted as the score's, the same bits twice; with
+    ``timed``, timed beside the kernel without the map at the same shape,
+    the plain version, a library call (SDPA with ALiBi as a float mask;
+    flex_attention with a tanh score_mod for the cap) and a bound that
+    reckons the MUFU (an ex2 a score, a tanh a score under the cap)."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    name, b, sq, sk, h, h_k, d, causal, cap, kind, window, dtype = case
+    window = normalize_window(window)
+    kw = score_kw(cap, kind, b, h, window)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    q, k, v = randn(b, sq, h, d), randn(b, sk, h_k, d), randn(b, sk, h_k, d)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    before = flash_fwd.launches_score
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal, **kw)
+    again = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal, **kw)
+    torch.cuda.synchronize()
+    require(flash_fwd.launches_score == before + 2,
+            f"flash_fwd {name}: the score instantiation did not run")
+    ref, ref_lse, ref_lp = score_fwd_refs(q, k, v, causal, kw)
+    err, err_lp = check_against_ref(out.transpose(1, 2), ref.transpose(1, 2),
+                                    ref_lp, msg=f"flash_fwd score {name}")
+    fin = torch.isfinite(ref_lse)
+    require(torch.equal(torch.isfinite(lse), fin),
+            f"flash_fwd {name}: the rows that see no key differ")
+    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item()
+    require(lse_err <= LSE_ATOL, f"flash_fwd {name}: lse error {lse_err}")
+    require(torch.equal(again[0], out) and torch.equal(again[1], lse),
+            f"flash_fwd {name}: two runs differ")
+    del ref_lse, ref_lp, again
+    print(f"flash_fwd score {name} (b={b}, sq={sq}, sk={sk}, {h}/{h_k} heads "
+          f"of {d}, {str(dtype)[6:]}, causal={causal}, softcap {cap}, slopes "
+          f"{kind}, window {window}): out max abs err {err:.3e} (low-"
+          f"precision reference {err_lp:.3e}), lse max abs err "
+          f"{lse_err:.3e}, {int((~fin).sum())} rows with no key, bitwise "
+          f"equal twice")
+    if not timed:
+        return err, None
+    pairs = b * int(band_mask(sq, sk, causal, window).sum())
+    ms = time_ms(lambda: flash_fwd.flash_attention_fwd(
+        qt, kt, vt, causal=causal, **kw))
+    plain_kernel_ms = time_ms(lambda: flash_fwd.flash_attention_fwd(
+        qt, kt, vt, causal=causal, window_size=window))
+    plain_ms = time_ms(lambda: flash_fwd.flash_attention_fwd_plain(
+        qt, kt, vt, causal=causal, **kw), runs=3, batch=1)
+    timing = {"ms": ms, "plain_ms": plain_ms,
+              "without_map_ms": plain_kernel_ms,
+              **score_bound(4 * h * d * pairs,
+                            2 * (2 * b * sq * h * d + 2 * b * sk * h_k * d)
+                            + 4 * b * h * sq, h * pairs * (1 + (cap > 0)))}
+    if kw["alibi_slopes"] is not None and cap == 0:
+        mask = alibi_sdpa_mask(kw["alibi_slopes"], b, h, sq, sk, causal,
+                               window, dtype)
+        timing["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=h != h_k), runs=10)
+        timing["library_call"] = ("scaled_dot_product_attention with ALiBi's "
+                                  "bias and the causal bound as a float mask"
+                                  + ", enable_gqa=True" * (h != h_k))
+    else:
+        def keep(bi, hi, qi, ki):
+            return ki <= qi + (sk - sq)
+
+        def make_call():
+            run = flex_softcap(cap, keep if causal else None, None, sq, sk)
+            return lambda: run(qt, kt, vt)
+        timing.update(flex_row(make_call, ref, err_lp,
+                               "the causal block mask" if causal else
+                               "no mask"))
+    del ref
+    lib = timing["library_ms"]
+    print(f"flash_fwd score time at {name}: {ms:.4f} ms, the kernel without "
+          f"the map {plain_kernel_ms:.4f} ms, plain {plain_ms:.2f} ms, "
+          + (f"library {lib:.4f} ms" if lib is not None else "no library "
+             "time") + f" ({timing['library_call']}); bound "
+          f"{timing['bound_ms']:.4f} ms (largest: {timing['bound_largest']};"
+          f" matmul {timing['bound_parts']['matmul_ms']:.4f}, MUFU "
+          f"{timing['bound_parts']['mufu_ms']:.4f}, bytes "
+          f"{timing['bound_parts']['bytes_ms']:.4f})")
+    return err, timing
+
+
+def score_decode_case(gen, case, timed: bool):
+    """B4's d = dv route with softcap or ALiBi on one SCORE_DECODE_CASES
+    case, linear or paged, against its plain version (the 2x rule against
+    the fp32 plain decode on the CPU with a bf16 reference, lse within
+    LSE_ATOL: the lse of causal ALiBi relative to each row's own last key,
+    which every split partial keeps), the partials bitwise equal twice and
+    the launches counted as the score's; with ``timed``, beside the kernel
+    without the map at the same lengths, the plain version, a library call
+    over the linear cache, or the cache gathered first: SDPA with ALiBi as
+    a float mask, compiled flex_attention with a tanh score_mod and a block
+    mask of the lengths for the cap) and a bound that reckons the MUFU."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
+    from flash_attn_tpu_torch.dispatch.score import alibi_bias, slopes_bh
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    name, b, sq, h, h_k, d, page, keys, cap, kind, splits, causal = case
+    kw = score_kw(cap, kind, b, h)
+    del kw["window_size"]
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    if page:
+        kc, vc, table = paged_cache(gen, b, h_k, d, page, keys,
+                                    torch.bfloat16)
+    else:
+        s_max = -(-keys // 128) * 128
+        kc, vc = (torch.randn(b, h_k, s_max, d, device="cuda",
+                              generator=gen).to(torch.bfloat16)
+                  for _ in range(2))
+        table = None
+    seqlens = (keys - 37 * torch.arange(b, device="cuda")).clamp(
+        min=sq).to(torch.int32)
+    splits = splits or _default_num_splits(q, kc, vc, table, False)
+    counter = "launches_paged_score" if page else "launches_score"
+    before = getattr(flash_decode, counter)
+    out, lse = flash_decode.flash_attention_decode(
+        q, kc, vc, seqlens, causal=causal, num_splits=splits,
+        block_table=table, **kw)
+    cpu = dict(block_table=None if table is None else table.cpu(),
+               softcap=cap, alibi_slopes=None if kw["alibi_slopes"] is None
+               else kw["alibi_slopes"].cpu())
+    ref, ref_lse = flash_decode.flash_attention_decode(
+        q.float().cpu(), kc.float().cpu(), vc.float().cpu(), seqlens.cpu(),
+        causal=causal, num_splits=splits, **cpu)
+    scale = d ** -0.5
+    call = dict(block_table=table, **kw)
+    part = flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, causal, **call)
+    again = flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, causal, **call)
+    torch.cuda.synchronize()
+    require(getattr(flash_decode, counter) == before + 3,
+            f"{name}: the score map did not run")
+    require(torch.equal(part[0], again[0]) and torch.equal(part[1], again[1]),
+            f"{name}: two runs differ")
+    lin = [x if table is None else
+           paged_to_linear(x, table, seqlens) for x in (kc, vc)]
+    keep = torch.arange(lin[0].shape[2], device="cuda")[None] \
+        < seqlens[:, None]
+    # ALiBi with each row's own length: attention_ref's key padding
+    # measures it (non-causal), and under causal masking its bias is a
+    # per-row constant away from the kernel's (the outputs agree)
+    ref_lp, _ = attention_ref(q, lin[0].transpose(1, 2),
+                              lin[1].transpose(1, 2), key_padding_mask=keep,
+                              causal=causal, upcast=False, **kw)
+    err, err_lp = check_against_ref(out, ref, ref_lp,
+                                    msg=f"flash_decode score {name}")
+    lse_err = (lse.cpu() - ref_lse).abs().max().item()
+    require(lse_err <= LSE_ATOL, f"{name}: lse error {lse_err}")
+    print(f"flash_decode{'_paged' if page else ''} score {name} (b={b}, "
+          f"sq={sq}, {h}/{h_k} heads of {d}, lengths {int(seqlens.min())}.."
+          f"{keys}, softcap {cap}, slopes {kind}, {splits} splits, causal="
+          f"{causal}): out max abs err {err:.3e} (bf16 reference "
+          f"{err_lp:.3e}), lse max abs err {lse_err:.3e}, the partials "
+          f"bitwise equal twice")
+    if not timed:
+        return err, None
+    ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, causal, **call))
+    free_ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, causal, block_table=table))
+    plain = (flash_decode.flash_attention_decode_partials_plain
+             if table is None else
+             flash_decode.flash_attention_decode_paged_partials_plain)
+    extra = () if table is None else (table,)
+    plain_ms = wall_ms(lambda: plain(
+        q, kc, vc, seqlens, *extra, splits, DECODE_BLOCK_K, scale, causal,
+        **kw), runs=5)
+    n_keys = int(seqlens.sum())
+    pairs = sq * n_keys - b * sq * (sq - 1) // 2 if causal else sq * n_keys
+    timing = {"ms": ms, "without_map_ms": free_ms, "plain_ms": plain_ms,
+              "plain_clock": "host, between synchronisations",
+              "num_splits": splits,
+              **score_bound(4 * h * d * pairs,
+                            2 * 2 * n_keys * h_k * d + 2 * b * sq * h * d
+                            + 4 * splits * b * sq * h * (d + 1)
+                            + 4 * (b + (0 if table is None else
+                                        table.numel())) + 4 * b * h,
+                            h * pairs * (1 + (cap > 0)))}
+    if kw["alibi_slopes"] is not None and cap == 0:
+        width = lin[0].shape[2]
+        rows = torch.arange(sq, device="cuda")[:, None]
+        cols = torch.arange(width, device="cuda")[None, :]
+        sk = seqlens.long()[:, None, None, None]
+        bias = slopes_bh(kw["alibi_slopes"], b, h)[..., None, None] \
+            * alibi_bias(rows, cols, sq, sk, causal)
+        valid = keep[:, None, None, :] & (
+            (cols <= rows + sk - sq) if causal else True)
+        mask = bias.masked_fill(~valid, float("-inf")).to(torch.bfloat16)
+        qh = q.transpose(1, 2)
+        if table is None:
+            lib = lambda: F.scaled_dot_product_attention(
+                qh, kc, vc, attn_mask=mask, enable_gqa=h != h_k)
+            what = "over the linear cache"
+        else:
+            lib = lambda: F.scaled_dot_product_attention(
+                qh, *(paged_to_linear(x, table, seqlens) for x in (kc, vc)),
+                attn_mask=mask, enable_gqa=h != h_k)
+            what = ("over the cache gathered through the block table (the "
+                    "gather included)")
+        timing["library_ms"] = time_ms(lib)
+        timing["library_call"] = ("scaled_dot_product_attention with ALiBi's "
+                                  "bias, the lengths and the causal bound as "
+                                  f"a float mask {what}"
+                                  + ", enable_gqa=True" * (h != h_k))
+    else:
+        def keep(bi, hi, qi, ki):
+            inside = ki < seqlens[bi]
+            return (inside & (ki <= qi + seqlens[bi] - sq) if causal
+                    else inside)
+
+        def make_call():
+            run = flex_softcap(cap, keep, b, sq, lin[0].shape[2])
+            qh = q.transpose(1, 2)
+            if table is None:
+                return lambda: run(qh, kc, vc).transpose(1, 2)
+            return lambda: run(qh, *(paged_to_linear(x, table, seqlens)
+                                     for x in (kc, vc))).transpose(1, 2)
+        timing.update(flex_row(
+            make_call, ref, err_lp,
+            "a block mask of the lengths" + " and the causal bound" * causal
+            + (" over the linear cache" if table is None else " over the "
+               "cache gathered through the block table (the gather "
+               "included)")))
+    lib_ms = timing["library_ms"]
+    print(f"flash_decode score time at {name}: {ms:.4f} ms, without the map "
+          f"{free_ms:.4f} ms, plain {plain_ms:.4f} ms (host clock), "
+          + (f"library {lib_ms:.4f} ms" if lib_ms is not None else
+             "no library time") + f"; bound {timing['bound_ms']:.4f} ms "
+          f"(largest: {timing['bound_largest']})")
+    return err, timing
+
+
+def check_score_kernels(gen):
+    """softcap and ALiBi on the card: B1 on SCORE_FWD_CASES, B4 (linear,
+    paged, the verify step) on SCORE_DECODE_CASES and B8 with the cap on
+    SCORE_VARLEN_CASES against their plain versions, the timed shapes
+    (the first two of each list and B8's first) beside the kernel without
+    the map, the plain version, a library call and a bound that reckons the
+    MUFU. Returns errors and timings by kernels-line name."""
+    from flash_attn_tpu_torch.utils.cases import (
+        SCORE_DECODE_CASES,
+        SCORE_FWD_CASES,
+        SCORE_VARLEN_CASES,
+    )
+
+    rows = {"Baichuan-13B prefill": "flash_fwd_alibi",
+            "913M softcap prefill": "flash_fwd_softcap",
+            "Baichuan-13B decode step": "flash_decode_alibi",
+            "Baichuan-13B engine decode step": "flash_decode_paged_alibi",
+            "Baichuan-13B engine verify step":
+                "flash_decode_paged_alibi_verify",
+            "913M softcap decode step": "flash_decode_softcap",
+            "913M softcap engine decode step": "flash_decode_paged_softcap"}
+    errs, timings = {}, {}
+
+    def keep(name, row, err, t):
+        errs[row] = max(errs.get(row, 0.0), err)
+        if t is not None:
+            timings.setdefault(row, {}).update(t)
+
+    for case in SCORE_FWD_CASES:
+        row = rows.get(case[0], "flash_fwd_alibi" if case[9] else
+                       "flash_fwd_softcap")
+        err, t = score_fwd_case(gen, case, case[0] in rows)
+        keep(case[0], row, err, t)
+        torch.cuda.empty_cache()
+    for case in SCORE_DECODE_CASES:
+        paged, verify = case[6] > 0, case[2] > 1
+        row = rows.get(case[0], "flash_decode" + "_paged" * paged
+                       + ("_alibi" if case[9] else "_softcap")
+                       + "_verify" * (paged and verify and bool(case[9])))
+        err, t = score_decode_case(gen, case, case[0] in rows)
+        keep(case[0], row, err, t)
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+
+    for i, (case, cap, window) in enumerate(SCORE_VARLEN_CASES):
+        before = fvp.launches_score
+        err, t = varlen_paged_case(gen, case, with_b6=False, timed=i == 0,
+                                   window=tuple(None if x < 0 else x
+                                                for x in window),
+                                   softcap=cap)
+        require(fvp.launches_score - before >= 2,
+                f"flash_varlen_paged {case[0]}: the score map did not run")
+        keep(case[0], "flash_varlen_paged_softcap", err, t)
+    torch.cuda.empty_cache()
+    from flash_attn_tpu_torch.kernels import _build
+
+    ty, marks = "13__nv_bfloat16", {}
+    for d in (64, 96, 128, 256):
+        for band in (0, 1):
+            form = f"Li{d}ELb{band}ELb1E"
+            tag = f"d={d}" + " with the band" * band
+            marks[f"B1 score {tag}"] = ("9dense_fwd10fwd_kernel", ty, form)
+            marks[f"B8 score {tag}"] = (
+                "12varlen_paged19varlen_paged_kernel", ty, form)
+        marks[f"B4 d={d}"] = ("13decode_kernel", f"{ty}Li{d}E")
+    res = kernel_resources(_build.library_path(), marks)
+    print("score instantiations' and B4's registers / stack / local bytes a "
+          "thread (bf16; cuobjdump -res-usage; B4 every row and ring form): "
+          + "; ".join(f"{label} " + ", ".join(
+              f"{u.get('REG')}/{u.get('STACK')}/{u.get('LOCAL')}" for u in us)
+              for label, us in res.items()))
+    timings["kernel_resources"] = res
+    return errs, timings
+
+
+def baichuan_spec(c) -> HFSpec:
+    e, i_f = c.hidden_size, c.intermediate_size
+    spec = HFSpec()
+    spec.embedding("model.embed_tokens", c.vocab_size, e)
+    for i in range(c.num_hidden_layers):
+        p = f"model.layers.{i}."
+        spec.norm(p + "input_layernorm", e, bias=False)
+        spec.norm(p + "post_attention_layernorm", e, bias=False)
+        spec.linear(p + "self_attn.W_pack", 3 * e, e)
+        spec.linear(p + "self_attn.o_proj", e, e)
+        spec.linear(p + "mlp.gate_proj", i_f, e)
+        spec.linear(p + "mlp.up_proj", i_f, e)
+        spec.linear(p + "mlp.down_proj", e, i_f)
+    spec.norm("model.norm", e, bias=False)
+    spec.linear("lm_head", c.vocab_size, e)
+    return spec
+
+
+def effect_gap(model, other, ids):
+    """Largest difference of the last position's logits of two models over
+    the same prompts, and the share of rows with the same top token."""
+    with torch.inference_mode():
+        a = model.logits(model.forward_hidden(ids)[:, -1:]).float()
+        b = other.logits(other.forward_hidden(ids)[:, -1:]).float()
+    return ((a - b).abs().max().item(),
+            (a.argmax(-1) == b.argmax(-1)).float().mean().item())
+
+
+def run_baichuan(card):
+    """Baichuan-13B-Base at full width and depth (BAICHUAN_13B, its
+    published config.json numbers), a seeded checkpoint in HF's names
+    (W_pack) remapped a layer at a time through the port's adapter: static
+    serving of BATCH x PROMPT tokens to NEW_TOKENS new ones, graphed and
+    eager (serve_static with every launch the score map's: ALiBi in B1 and
+    B4), TTFT and the decode rate beside the weights' read; ALiBi in force
+    (the same weights with use_alibi=False give last-position logits that
+    differ by more than the decode's bf16 noise); then the paged engine
+    (BREADTH_REQUESTS prompts on BREADTH_SLOTS slots) and the speculative
+    engine with the target as its own draft (SPEC_K: B4's verify step under
+    ALiBi), held to a teacher-forced static decode and to the plain engine;
+    the prefix-cached engine must refuse the model (ROADMAP.md queue C).
+    Returns launches and measurements."""
+    from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
+    from flash_attn_tpu_torch.serving.generation import GenerationConfig
+
+    rng = np.random.default_rng(24)
+    launches, out = {}, {}
+    name = "Baichuan-13B"
+    t0 = time.perf_counter()
+    model, peak = hf_model("baichuan", BAICHUAN_13B, baichuan_spec, 18,
+                           max_decode_seqlen=PROMPT + NEW_TOKENS)
+    build_s = time.perf_counter() - t0
+    cfg = model.config
+    require(cfg.use_alibi and cfg.rotary_emb_fraction == 0.0
+            and cfg.n_layer == 40 and cfg.n_embd == 5120,
+            f"{name}: the adapter's config")
+    print(f"{name} built from its config (the Baichuan adapter: ALiBi, no "
+          f"rotary) and a seeded HF checkpoint in {build_s:.1f} s (peak "
+          f"{peak:.2f} GB) on {card}")
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)),
+                          device="cuda")
+    launches[name], _, noise = serve_static(model, ids, name, score=True)
+    ttft, tok_s = static_rates(model, ids, modes=(True, False))
+    model._decode_state = None
+    plain = model_view(model, use_alibi=False)
+    gap, same_top = effect_gap(model, plain, ids)
+    print(f"{name}: ALiBi in force: last-position logits with and without "
+          f"the slopes differ by {gap:.4f} at most (the decode's own bf16 "
+          f"noise against the teacher-forced forward: {noise:.4f}), the same "
+          f"top token in {same_top:.2f} of the rows")
+    require(gap > noise, f"{name}: ALiBi changes the logits by no more than "
+            "the bf16 noise")
+    del plain
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    out[name] = {"params_b": n_params / 1e9, "layers": cfg.n_layer,
+                 "build_s": build_s, "build_peak_gb": peak,
+                 "ttft_ms": ttft * 1e3,
+                 "decode_tokens_per_s": tok_s[True][0],
+                 "decode_tokens_per_s_eager": tok_s[False][0],
+                 "decode_step_ms": BATCH / tok_s[True][0] * 1e3,
+                 "weight_read_ms": weight_bytes / PEAK_BYTES * 1e3,
+                 "alibi_logit_gap": gap, "decode_noise": noise}
+    print(f"{name} ({n_params / 1e9:.2f}B parameters, {cfg.n_layer} layers, "
+          f"width {cfg.n_embd}, {cfg.n_head} heads, ALiBi): TTFT "
+          f"{ttft * 1e3:.2f} ms (b={BATCH} x {PROMPT}), decode "
+          f"{tok_s[True][0]:.1f} tokens/s graphed ({tok_s[False][0]:.1f} "
+          f"eager), a step {out[name]['decode_step_ms']:.3f} ms against "
+          f"{out[name]['weight_read_ms']:.3f} ms to read its "
+          f"{weight_bytes / 1e9:.2f} GB of weights once at 3.35 TB/s, on "
+          f"{card}")
+    torch.cuda.empty_cache()
+
+    paged = paged_view(model, BREADTH_SLOTS)
+    prompts = list(rng.integers(0, cfg.vocab_size,
+                                (BREADTH_REQUESTS, ENGINE_PROMPT)))
+    ename = f"{name} paged engine"
+    torch.cuda.reset_peak_memory_stats()
+    launches[ename], tokens, out[ename] = run_engine(
+        paged, prompts, False, card, slots=BREADTH_SLOTS, name=ename,
+        score=True)
+    out[ename]["agreement"], out[ename]["logit_gap"] = engine_agreement(
+        paged, prompts, tokens, ename, MIN_ARGMAX_AGREEMENT)
+    out[ename]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    sname = f"{name} speculative engine"
+    launches[sname], spec, out[sname] = run_engine(
+        paged, prompts, False, card, slots=BREADTH_SLOTS, name=sname,
+        draft=linear_view(paged), score=True)
+    # 40 layers hold more bf16 noise than the 913M's 16 (TIE_STEPS): the
+    # parted tokens are held to this model's own measured decode noise, and
+    # every token to the teacher-forced decode as the paged engine's are
+    out[sname]["equal_to_plain"] = spec_vs_plain(paged, prompts, spec, tokens,
+                                                 sname, tie_bound=noise)
+    out[sname]["agreement"], out[sname]["logit_gap"] = engine_agreement(
+        paged, prompts, spec, sname, MIN_ARGMAX_AGREEMENT)
+    try:
+        InferenceEngine(paged, BREADTH_SLOTS, GenerationConfig(top_k=1),
+                        page_pool=PagePool(paged.config.paged_kv_num_pages,
+                                           ENGINE_PAGE, 3, BREADTH_SLOTS),
+                        prefix_cache=True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "queue C" in refused,
+            f"{name}: the prefix-cached engine took an ALiBi model")
+    print(f"{name}: the prefix-cached engine refuses the model: {refused}")
+    out[name]["prefix_cache_refused"] = refused
+    del model, paged
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def run_softcap_gpt(card):
+    """The 913M GPT with softcap = GEMMA2_SOFTCAP (Gemma-2's
+    attn_logit_softcapping), random weights from a seed: static serving
+    (serve_static, every launch the score map's), the cap in force (its
+    last-position logits against the same weights with softcap = 0, the gap
+    printed beside the decode's bf16 noise and required nonzero; a cap of
+    2, which bites at these scores, required past the noise), then the
+    paged engine on bench.py's trace and the prefix-cached engine (B8 with
+    the cap) over shared-prefix prompts, each held to a teacher-forced
+    static decode. Returns launches and measurements."""
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel, gpt_913m
+    from flash_attn_tpu_torch.utils.cases import GEMMA2_SOFTCAP
+
+    rng = np.random.default_rng(25)
+    launches, out = {}, {}
+    name = "913M softcap"
+    cfg = dataclasses.replace(gpt_913m(max_decode_seqlen=ENGINE_MAX_LEN),
+                              softcap=GEMMA2_SOFTCAP)
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(3))
+    model.requires_grad_(False)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)),
+                          device="cuda")
+    launches[name], _, noise = serve_static(model, ids, name, score=True)
+    ttft, tok_s = static_rates(model, ids, modes=(True,))
+    model._decode_state = None
+    gap, same_top = effect_gap(model, model_view(model, softcap=0.0), ids)
+    gap2, _ = effect_gap(model_view(model, softcap=2.0),
+                         model_view(model, softcap=0.0), ids)
+    print(f"{name}: the cap in force: last-position logits with softcap "
+          f"{GEMMA2_SOFTCAP} and without differ by {gap:.4f} at most (the "
+          f"same top token in {same_top:.2f} of the rows); with softcap 2 by "
+          f"{gap2:.4f}; the decode's bf16 noise {noise:.4f}")
+    require(gap > 0, f"{name}: the cap changes no logit")
+    require(gap2 > noise, f"{name}: a cap of 2 changes the logits by no more "
+            "than the bf16 noise")
+    out[name] = {"ttft_ms": ttft * 1e3, "decode_tokens_per_s": tok_s[True][0],
+                 "cap_logit_gap": gap, "cap2_logit_gap": gap2,
+                 "decode_noise": noise}
+    print(f"{name} (913M, softcap {GEMMA2_SOFTCAP}): TTFT {ttft * 1e3:.2f} ms"
+          f" (b={BATCH} x {PROMPT}), decode {tok_s[True][0]:.1f} tokens/s "
+          f"graphed on {card}")
+    width = -(-ENGINE_MAX_LEN // ENGINE_PAGE)
+    paged = model_view(model, paged_kv_num_pages=ENGINE_SLOTS * width + 1,
+                       paged_kv_page_size=ENGINE_PAGE)
+    vocab = cfg.vocab_size
+    plain_prompts = list(rng.integers(0, vocab, (ENGINE_REQUESTS,
+                                                 ENGINE_PROMPT)))
+    shared = rng.integers(0, vocab, PREFIX_SHARED)
+    px = [np.concatenate([shared, rng.integers(
+        0, vocab, ENGINE_PROMPT - PREFIX_SHARED)])
+        for _ in range(PREFIX_REQUESTS)]
+    for prefix, prompts in ((False, plain_prompts), (True, px)):
+        ename = f"{name} {'prefix-cache' if prefix else 'paged'} engine"
+        launches[ename], tokens, out[ename] = run_engine(
+            paged, prompts, prefix, card, name=ename, score=True)
+        out[ename]["agreement"], out[ename]["logit_gap"] = engine_agreement(
+            paged, prompts, tokens, ename)
+        torch.cuda.empty_cache()
+    del model, paged
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -6060,6 +6859,9 @@ def main() -> int:
     bm_launches, bm_err = phase("windowed MHA", run_band_mha, gen, card)
     mt_launches, mistral_train = phase("Mistral-7B training",
                                        run_mistral_training, card)
+    sc_err, sc_t = phase("score kernel checks", check_score_kernels, gen)
+    bc_launches, baichuan = phase("Baichuan-13B", run_baichuan, card)
+    sg_launches, softcap_gpt = phase("913M softcap", run_softcap_gpt, card)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -6131,6 +6933,27 @@ def main() -> int:
           f"{b3b['band_free_ms']:.4f} ms, SDPA's masked backward "
           f"{b3b['library_ms']:.4f} ms and the bound {b3b['bound_ms']:.4f} ms "
           f"on {card}")
+    bc, bc_eng = baichuan["Baichuan-13B"], [
+        k for k in baichuan if k.startswith("Baichuan-13B ")]
+    print(f"Baichuan-13B (full width and depth, {bc['layers']} layers, "
+          f"{bc['params_b']:.2f}B parameters, ALiBi, b={BATCH} x {PROMPT} + "
+          f"{NEW_TOKENS}): TTFT {bc['ttft_ms']:.2f} ms, decode "
+          f"{bc['decode_tokens_per_s']:.1f} tokens/s graphed "
+          f"({bc['decode_tokens_per_s_eager']:.1f} eager; a step "
+          f"{bc['decode_step_ms']:.3f} ms, the weights' read "
+          f"{bc['weight_read_ms']:.3f} ms); " + "; ".join(
+              f"{k[len('Baichuan-13B '):]} ({BREADTH_REQUESTS} requests on "
+              f"{BREADTH_SLOTS} slots) {baichuan[k]['tokens_per_s']:.1f} "
+              f"tokens/s, TTFT p50 {baichuan[k]['ttft_p50_ms']:.1f} ms"
+              for k in bc_eng) + f" on {card}")
+    sg = softcap_gpt["913M softcap"]
+    print(f"913M GPT with softcap 50 (b={BATCH} x {PROMPT} + {NEW_TOKENS}): "
+          f"TTFT {sg['ttft_ms']:.2f} ms, decode "
+          f"{sg['decode_tokens_per_s']:.1f} tokens/s graphed; " + "; ".join(
+              f"{k[len('913M softcap '):]} {softcap_gpt[k]['tokens_per_s']:.1f}"
+              f" tokens/s, TTFT p50 {softcap_gpt[k]['ttft_p50_ms']:.1f} ms"
+              for k in softcap_gpt if k.startswith("913M softcap "))
+          + f" on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -6334,6 +7157,44 @@ def main() -> int:
               "flash_varlen.py:651",
               bm_launches["packed"]["fa_varlen_bwd_dq_band"],
               bb_err["fa_varlen_bwd_dq_band"], bb_t["fa_varlen_bwd_dq_band"]),
+        # softcap and ALiBi: B1's, B4's and B8's score instantiations, the
+        # launches those of Baichuan-13B's (ALiBi) and the softcap GPT's runs
+        entry("flash_fwd_alibi", "flash_fwd_score.cu", "flash_fwd.py:59",
+              bc_launches["Baichuan-13B"]["flash_fwd_score"],
+              sc_err["flash_fwd_alibi"], sc_t["flash_fwd_alibi"]),
+        entry("flash_fwd_softcap", "flash_fwd_score.cu", "flash_fwd.py:59",
+              sg_launches["913M softcap"]["flash_fwd_score"],
+              sc_err["flash_fwd_softcap"], sc_t["flash_fwd_softcap"]),
+        entry("flash_decode_alibi", "flash_decode.cu", "flash_decode.py:54",
+              bc_launches["Baichuan-13B"]["flash_decode_score"],
+              sc_err["flash_decode_alibi"], sc_t["flash_decode_alibi"]),
+        entry("flash_decode_paged_alibi", "flash_decode.cu",
+              "flash_decode.py:54",
+              bc_launches["Baichuan-13B paged engine"]
+              ["flash_decode_paged_score"],
+              sc_err["flash_decode_paged_alibi"],
+              sc_t["flash_decode_paged_alibi"]),
+        entry("flash_decode_paged_alibi_verify", "flash_decode.cu",
+              "flash_decode.py:54",
+              bc_launches["Baichuan-13B speculative engine"]
+              ["flash_decode_paged_score"],
+              sc_err["flash_decode_paged_alibi_verify"],
+              sc_t["flash_decode_paged_alibi_verify"]),
+        entry("flash_decode_softcap", "flash_decode.cu", "flash_decode.py:54",
+              sg_launches["913M softcap"]["flash_decode_score"],
+              sc_err["flash_decode_softcap"], sc_t["flash_decode_softcap"]),
+        entry("flash_decode_paged_softcap", "flash_decode.cu",
+              "flash_decode.py:54",
+              sg_launches["913M softcap paged engine"]
+              ["flash_decode_paged_score"],
+              sc_err["flash_decode_paged_softcap"],
+              sc_t["flash_decode_paged_softcap"]),
+        entry("flash_varlen_paged_softcap", "flash_varlen_paged_score.cu",
+              "flash_varlen_paged.py:69",
+              sg_launches["913M softcap prefix-cache engine"]
+              ["flash_varlen_paged_score"],
+              sc_err["flash_varlen_paged_softcap"],
+              sc_t["flash_varlen_paged_softcap"]),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -6352,7 +7213,9 @@ def main() -> int:
         "band": bd_t, "mistral": mistral,
         "band_training": {"mistral": mistral_train, "mha_err": bm_err,
                           "mha_launches": bm_launches,
-                          "kernel_resources": bb_res}}))
+                          "kernel_resources": bb_res},
+        "score": {"timings": sc_t, "baichuan": baichuan,
+                  "softcap_gpt": softcap_gpt}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

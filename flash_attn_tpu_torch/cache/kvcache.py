@@ -151,8 +151,12 @@ def flash_attn_with_kvcache(
     ``attention_chunk`` mask as in JAX's decode kernel (dispatch/band.py;
     the chunk bounds keys below only): query token t (of sq) sees positions
     within [t + shift - left, t + shift + right], shift = cache_seqlens +
-    s_new - sq, right 0 under ``causal``. cache_batch_idx, cache_leftpad,
-    softcap, ALiBi, descales and rotary_seqlens are not ported and raise
+    s_new - sq, right 0 under ``causal``. ``softcap`` (0: none) and
+    ``alibi_slopes`` ((h,) or (b, h), fp32) map the scores as JAX's decode
+    kernel does (dispatch/score.py): causal ALiBi's bias is relative to each
+    row's last key, cache_seqlens + s_new - 1, and the lse keeps that form;
+    the MLA route (``qv``, or dv != d) refuses both. cache_batch_idx,
+    cache_leftpad, descales and rotary_seqlens are not ported and raise
     NotImplementedError.
     """
     if block_table is not None and cache_batch_idx is not None:
@@ -160,7 +164,6 @@ def flash_attn_with_kvcache(
     reject_unsupported(
         "flash_attn_with_kvcache", rotary_seqlens=rotary_seqlens,
         cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad,
-        softcap=softcap, alibi_slopes=alibi_slopes,
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
     window_size = normalize_window(tuple(window_size))
     require_no_grad("flash_attn_with_kvcache", q, k, v, qv)
@@ -211,7 +214,8 @@ def flash_attn_with_kvcache(
     out, lse = flash_attention_decode(
         q, k_cache, v_cache, sk_eff, softmax_scale=softmax_scale,
         causal=causal, num_splits=num_splits, block_table=block_table, qv=qv,
-        window_size=window_size, attention_chunk=attention_chunk)
+        window_size=window_size, attention_chunk=attention_chunk,
+        softcap=softcap, alibi_slopes=alibi_slopes)
     if overflow is not None:
         out = out.masked_fill(overflow[:, None, None, None], float("nan"))
     return (out, lse) if return_softmax_lse else out

@@ -73,6 +73,17 @@
 // cut to it; the caller poisons such rows. Keys past the split's end or the
 // length are staged (a page's other slots, a NaN even) but never reach a
 // sum: their state update is skipped, not multiplied by 0.
+//
+// softcap and ALiBi (flash_decode.py:245-254) are runtime fields as the
+// band is: each score s2 (q pre-scaled by scale * log2(e)) becomes
+// tanh(s2 / (log2(e) cap)) cap log2(e) with a cap, then takes ALiBi's bias
+// times the row's query head's slope (times log2(e)): key - (sk - 1) under
+// causal masking, relative to the row's own cache length sk read from
+// cache_seqlens on the device (so that a graph replays it at every length,
+// and the split partials' lse all take JAX's form, which combine_splits
+// merges), and -|t + sk - sq - key| otherwise. The slopes and the bias's
+// base of a block's rows sit in shared memory, read a row a tile only when
+// there are slopes.
 
 #include <cooperative_groups.h>
 
@@ -100,6 +111,10 @@ struct DecodeParams {
   int page_size, box_rows, table_width, num_pages, cap;  // box_rows: set by the ring
   float scale_log2;
   Band band;  // right 0 for causal decode; sink unused
+  float cap_in, cap_out;  // 1 / (log2(e) softcap) and softcap log2(e); 0: no cap
+  const float* slopes;    // (b, h) fp32 at slopes[bb * slope_sb + hq], or nullptr
+  int64_t slope_sb;
+  int causal;             // the form of ALiBi's bias
 };
 
 struct DecodeMaps {
@@ -117,14 +132,15 @@ struct CacheView {
 
 // The ring: S stages of a K tile then a V tile (TK rows of D elements, row
 // after row), then the warps' (m, l, acc) states for the merge, then a
-// barrier a stage.
+// barrier a stage, then the rows' ALiBi slopes and bias bases.
 template <int D, int RM, int TK, int S>
 struct DecLayout {
   static constexpr int TILE_BYTES = TK * D * 2;
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
   static constexpr int MERGE_OFF = S * STAGE_BYTES;  // the warps' states
   static constexpr int BAR_OFF = MERGE_OFF + DEC_WARPS * RM * (D + 2) * 4;
-  static constexpr int BYTES = BAR_OFF + 8 * S;
+  static constexpr int ROW_OFF = BAR_OFF + 8 * S;
+  static constexpr int BYTES = ROW_OFF + 8 * RM;
   static constexpr int SMEM = BYTES + 1024;
 };
 
@@ -226,6 +242,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
   float* sm_m = reinterpret_cast<float*>(smem + L::MERGE_OFF);  // [DEC_WARPS][RM]
   float* sm_l = sm_m + DEC_WARPS * RM;                           // [DEC_WARPS][RM]
   float* sm_acc = sm_l + DEC_WARPS * RM;                         // [DEC_WARPS][RM][DS]
+  float* sm_slope = reinterpret_cast<float*>(smem + L::ROW_OFF);  // [RM], times log2(e)
+  int* sm_base = reinterpret_cast<int*>(sm_slope + RM);           // [RM], the bias's base
 
   const cg::cluster_group cluster = cg::this_cluster();
   const int csize = (int)cluster.num_blocks();
@@ -254,6 +272,15 @@ __global__ void __launch_bounds__(DEC_THREADS)
   if (tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&full[s], 1);
     fence_barrier_init();
+  }
+  if (p.slopes != nullptr && tid < RM) {
+    // row t * group + j: query head kh * group + j; the bias is
+    // key + base under causal masking (base 1 - sk), else -|base - key|
+    // (base t + sk - sq)
+    const int row = min(it.r_base + tid, p.rows - 1);
+    const int hq = it.kh * p.group + row % p.group;
+    sm_slope[tid] = p.slopes[it.bb * p.slope_sb + hq] * FA_LOG2E;
+    sm_base[tid] = p.causal ? 1 - it.sk : row / p.group + it.sk - p.sq;
   }
   __syncthreads();
   if (tid == 0)
@@ -325,6 +352,21 @@ __global__ void __launch_bounds__(DEC_THREADS)
       for (int off = LPK / 2; off >= 1; off >>= 1)
 #pragma unroll
         for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(0xffffffff, s[u], off);
+      if (p.cap_in != 0.f) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          s[u] = __fmul_rn(tanh_approx(__fmul_rn(s[u], p.cap_in)), p.cap_out);
+      }
+      if (p.slopes != nullptr) {
+        const float sl = sm_slope[r];
+        const int base = sm_base[r];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int key = key0 + u * KPW;
+          const int bias = p.causal ? key + base : -abs(base - key);
+          s[u] = __fmaf_rn(sl, (float)bias, s[u]);
+        }
+      }
       float mx = -INFINITY;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -536,8 +578,10 @@ cudaError_t launch_d(const CacheView& c, const DecodeParams& p, int cluster, cud
 // the wrapper (dispatch/config.py DECODE_BLOCK_K), the staged tile's 64
 // keys; cluster (1, 2 or 4) blocks share each split. The band
 // (dispatch/band.py band_args): window extents left and right (-1: no
-// bound; right 0 under causal masking) and the chunk (0: none). Returns a
-// cudaError_t (0 on success).
+// bound; right 0 under causal masking) and the chunk (0: none). softcap
+// (0: none) and the ALiBi slopes (b, h) fp32 at slopes[bb * slope_sb + hq]
+// (slope_sb 0: one slope a head; nullptr: no ALiBi). Returns a cudaError_t
+// (0 on success).
 extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
                          const int* seqlens, const int* table, float* out_p,
                          float* lse_p, int b, int sq, int h, int h_k, int d,
@@ -546,9 +590,10 @@ extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
                          int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                          int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
                          int64_t v_ss, int64_t t_sb, float scale_log2, int causal,
-                         int left, int right, int chunk, int is_bf16, void* stream) {
+                         int left, int right, int chunk, float softcap, const float* slopes,
+                         int64_t slope_sb, int is_bf16, void* stream) {
   if (block_k != DEC_BN || h_k < 1 || h % h_k != 0 || page_size < 1 || num_pages < 1 ||
-      (causal && right != 0) || chunk < 0 ||
+      (causal && right != 0) || chunk < 0 || softcap < 0.f ||
       num_splits < 1 || (table != nullptr && table_width < 1) ||
       (cluster != 1 && cluster != 2 && cluster != 4) ||
       (d != 64 && d != 96 && d != 128 && d != 256))
@@ -576,6 +621,11 @@ extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
   p.band.left = left < 0 ? BAND_NONE : left;
   p.band.right = right < 0 ? BAND_NONE : right;
   p.band.chunk = chunk;
+  p.cap_in = softcap > 0.f ? 1.f / (FA_LOG2E * softcap) : 0.f;
+  p.cap_out = softcap * FA_LOG2E;
+  p.slopes = slopes;
+  p.slope_sb = slope_sb;
+  p.causal = causal;
   const CacheView c = {kc, vc, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, d, is_bf16};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? launch_d<__nv_bfloat16>(c, p, cluster, st)

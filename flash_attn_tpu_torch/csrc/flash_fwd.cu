@@ -26,94 +26,29 @@
 // walk only the key tiles their rows' band reaches: a 4096-key window over
 // 6144 causal keys reads about 89% of the causal band's pairs. A call
 // without a band runs the band-free instantiation, the kernel of the
-// earlier releases, with the same bits and time.
+// earlier releases, with the same bits and time. softcap and ALiBi (B1's
+// part of flash_fwd.py:180-247) run in the SCORE instantiations, with and
+// without the band (csrc/flash_fwd_score.cu; the kernel in flash_fwd.cuh).
 //
 // Conventions: q (b, sq, h, d), k/v (b, sk, h_k, d) by element strides, the
 // head dim contiguous, 16-byte aligned starts and strides (TMA); out in q's
 // type, lse (b, h, sq) natural-log. The tensor maps are 4D over (d, s, h, b)
 // with rows past s zero-filled, encoded on the host for every call.
 
+#include "flash_fwd.cuh"
 #include "fwd_sm90.cuh"
 
 namespace {
 
 using namespace fa;
 using namespace fa::sm90;
-
-struct FwdParams {
-  void* out;
-  float* lse;  // (b, h, sq)
-  int64_t o_sb, o_ss, o_sh;
-  int sq, h, group;
-  int sk;
-  float scale_log2;
-  int causal;
-  Band band;  // read by the BAND instantiation alone
-};
-
-// Q rows of query head hq and K/V rows of KV head hk of batch row bb.
-struct DenseSrc {
-  const CUtensorMap* q;
-  const CUtensorMap* k;
-  const CUtensorMap* v;
-  int hq, hk, bb;
-  __device__ __forceinline__ void load_q(void* dst, uint64_t* bar, int col, int row) const {
-    tma_load_4d(dst, q, bar, col, row, hq, bb);
-  }
-  __device__ __forceinline__ void load_k(void* dst, uint64_t* bar, int col, int row) const {
-    tma_load_4d(dst, k, bar, col, row, hk, bb);
-  }
-  __device__ __forceinline__ void load_v(void* dst, uint64_t* bar, int col, int row) const {
-    tma_load_4d(dst, v, bar, col, row, hk, bb);
-  }
-};
-
-// One block per (128-row query tile, head, batch row), the last q tile
-// (the heaviest under causal masking) first. BAND: the band's key tiles
-// alone, masked by p.band.
-template <typename T, int D, bool BAND>
-__global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
-    fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParams p) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = align_1024(smem_raw);
-  const int hh = blockIdx.x;
-  const int bb = blockIdx.y;
-  const DenseSrc src{&maps.q, &maps.k, &maps.v, hh, hh / p.group, bb};
-  FwdRows<T> t;
-  t.out = reinterpret_cast<T*>(p.out) + bb * p.o_sb + hh * p.o_sh;
-  t.lse = p.lse + ((int64_t)bb * p.h + hh) * p.sq;
-  t.o_ss = p.o_ss;
-  t.sq = p.sq;
-  t.sk = p.sk;
-  t.m0 = (gridDim.z - 1 - blockIdx.z) * FWD_M;
-  fwd_tile<T, D, false, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
-}
-
-template <typename T, int D, bool BAND>
-cudaError_t launch(const FwdMaps& maps, const FwdParams& p, int b, cudaStream_t stream) {
-  constexpr int smem = FwdLayout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, D, BAND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.h, b, (p.sq + FWD_M - 1) / FWD_M);
-  fwd_kernel<T, D, BAND><<<grid, FWD_THREADS, smem, stream>>>(maps, p);
-  return cudaGetLastError();
-}
-
-template <typename T, bool BAND>
-cudaError_t launch_d(const FwdMaps& maps, const FwdParams& p, int b, int d, cudaStream_t st) {
-  switch (d) {
-    case 64: return launch<T, 64, BAND>(maps, p, b, st);
-    case 96: return launch<T, 96, BAND>(maps, p, b, st);
-    case 128: return launch<T, 128, BAND>(maps, p, b, st);
-    default: return launch<T, 256, BAND>(maps, p, b, st);
-  }
-}
+using namespace fa::dense_fwd;
 
 template <typename T>
 cudaError_t launch_band(const FwdMaps& maps, const FwdParams& p, int b, int d, bool band,
                         cudaStream_t st) {
-  return band ? launch_d<T, true>(maps, p, b, d, st) : launch_d<T, false>(maps, p, b, d, st);
+  return band ? launch_d<T, true, false>(maps, p, b, d, st)
+              : launch_d<T, false, false>(maps, p, b, d, st);
 }
 
 }  // namespace
@@ -123,8 +58,11 @@ cudaError_t launch_band(const FwdMaps& maps, const FwdParams& p, int b, int d, b
 // layout strides; lse (b, h, sq) fp32. The band (dispatch/band.py
 // band_args): window extents left and right (-1: no bound; right 0 under
 // causal masking), sink tokens and the chunk, read when `band` is set.
-// Returns a cudaError_t (0 on success); block_q/block_k must name the tile
-// the kernel is compiled for (dispatch/config.py FWD_TILE).
+// softcap (0: none) and the ALiBi slopes (b, h) fp32 at slopes[bb *
+// slope_sb + hh] (slope_sb 0 for one slope a head; nullptr: no ALiBi)
+// select the SCORE instantiation when either is given. Returns a
+// cudaError_t (0 on success); block_q/block_k must name the tile the
+// kernel is compiled for (dispatch/config.py FWD_TILE).
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, int b, int sq, int sk, int h, int h_k, int d,
                       int block_q, int block_k,
@@ -132,10 +70,11 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                       int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                       float scale_log2, int causal, int left, int right,
-                      int sink, int chunk, int band, int is_bf16, void* stream) {
+                      int sink, int chunk, int band, float softcap, const float* slopes,
+                      int64_t slope_sb, int is_bf16, void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || b < 1 || sq < 1 || sk < 1 || h_k < 1 ||
       h % h_k != 0 || (d != 64 && d != 96 && d != 128 && d != 256) || sink < 0 ||
-      chunk < 0 || (causal && right != 0 && band))
+      chunk < 0 || (causal && right != 0 && band) || softcap < 0.f)
     return (int)cudaErrorInvalidValue;
   FwdMaps maps;
   cudaError_t err;
@@ -160,7 +99,14 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
   p.band.right = right < 0 ? BAND_NONE : right;
   p.band.sink = sink;
   p.band.chunk = chunk;
+  p.score.cap_in = softcap > 0.f ? scale_log2 / (FA_LOG2E * softcap) : 0.f;
+  p.score.cap_out = softcap * FA_LOG2E;
+  p.score.causal = causal;
+  p.slopes = slopes;
+  p.slope_sb = slope_sb;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (softcap > 0.f || slopes != nullptr)
+    return (int)run_fwd_score(is_bf16, maps, p, b, d, band, st);
   return (int)(is_bf16 ? launch_band<__nv_bfloat16>(maps, p, b, d, band, st)
                        : launch_band<__half>(maps, p, b, d, band, st));
 }

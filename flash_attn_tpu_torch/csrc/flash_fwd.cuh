@@ -1,0 +1,105 @@
+// The dense forward's kernel (B1, csrc/flash_fwd.cu) as templates over the
+// element type, the head dim, BAND (the band masks) and SCORE (softcap and
+// ALiBi), shared by flash_fwd.cu, which holds the C entry point and the
+// instantiations without SCORE, and flash_fwd_score.cu, which holds those
+// with it, so that the two sources build side by side.
+#pragma once
+
+#include "fwd_sm90.cuh"
+
+namespace fa {
+namespace dense_fwd {
+
+using namespace fa::sm90;
+
+struct FwdParams {
+  void* out;
+  float* lse;  // (b, h, sq)
+  int64_t o_sb, o_ss, o_sh;
+  int sq, h, group;
+  int sk;
+  float scale_log2;
+  int causal;
+  Band band;  // read by the BAND instantiations alone
+  // read by the SCORE instantiations alone: the cap and the bias's form
+  // (score.slope is each block's own), the slopes (b, h) fp32 at
+  // slopes[bb * slope_sb + h] (slope_sb 0: one slope a head), or none
+  Score score;
+  const float* slopes;
+  int64_t slope_sb;
+};
+
+// Q rows of query head hq and K/V rows of KV head hk of batch row bb.
+struct DenseSrc {
+  const CUtensorMap* q;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  int hq, hk, bb;
+  __device__ __forceinline__ void load_q(void* dst, uint64_t* bar, int col, int row) const {
+    tma_load_4d(dst, q, bar, col, row, hq, bb);
+  }
+  __device__ __forceinline__ void load_k(void* dst, uint64_t* bar, int col, int row) const {
+    tma_load_4d(dst, k, bar, col, row, hk, bb);
+  }
+  __device__ __forceinline__ void load_v(void* dst, uint64_t* bar, int col, int row) const {
+    tma_load_4d(dst, v, bar, col, row, hk, bb);
+  }
+};
+
+// One block per (128-row query tile, head, batch row), the last q tile
+// (the heaviest under causal masking) first. BAND: the band's key tiles
+// alone, masked by p.band. SCORE: the scores mapped by p.score with the
+// block's head's slope.
+template <typename T, int D, bool BAND, bool SCORE>
+__global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
+    fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const int hh = blockIdx.x;
+  const int bb = blockIdx.y;
+  const DenseSrc src{&maps.q, &maps.k, &maps.v, hh, hh / p.group, bb};
+  FwdRows<T> t;
+  t.out = reinterpret_cast<T*>(p.out) + bb * p.o_sb + hh * p.o_sh;
+  t.lse = p.lse + ((int64_t)bb * p.h + hh) * p.sq;
+  t.o_ss = p.o_ss;
+  t.sq = p.sq;
+  t.sk = p.sk;
+  t.m0 = (gridDim.z - 1 - blockIdx.z) * FWD_M;
+  if constexpr (SCORE) {
+    Score sc = p.score;
+    if (p.slopes != nullptr) sc.slope = p.slopes[bb * p.slope_sb + hh] * FA_LOG2E;
+    fwd_tile<T, D, false, BAND, true>(src, t, p.scale_log2, p.causal, smem,
+                                      score_band<BAND>(p.band, p.causal), sc);
+  } else {
+    fwd_tile<T, D, false, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
+  }
+}
+
+template <typename T, int D, bool BAND, bool SCORE>
+cudaError_t launch(const FwdMaps& maps, const FwdParams& p, int b, cudaStream_t stream) {
+  constexpr int smem = FwdLayout<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<T, D, BAND, SCORE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.h, b, (p.sq + FWD_M - 1) / FWD_M);
+  fwd_kernel<T, D, BAND, SCORE><<<grid, FWD_THREADS, smem, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+template <typename T, bool BAND, bool SCORE>
+cudaError_t launch_d(const FwdMaps& maps, const FwdParams& p, int b, int d, cudaStream_t st) {
+  switch (d) {
+    case 64: return launch<T, 64, BAND, SCORE>(maps, p, b, st);
+    case 96: return launch<T, 96, BAND, SCORE>(maps, p, b, st);
+    case 128: return launch<T, 128, BAND, SCORE>(maps, p, b, st);
+    default: return launch<T, 256, BAND, SCORE>(maps, p, b, st);
+  }
+}
+
+// The SCORE instantiations' launch (csrc/flash_fwd_score.cu), with or
+// without the band.
+cudaError_t run_fwd_score(bool bf16, const FwdMaps& maps, const FwdParams& p, int b, int d,
+                          bool band, cudaStream_t st);
+
+}  // namespace dense_fwd
+}  // namespace fa

@@ -48,126 +48,27 @@
 // (ZERO_TAIL). Query rows past the sequence (a neighbour's, in the packed
 // tensor) are computed and never stored; rows past seqused_q are in no tile
 // and keep the wrapper's zeros and -inf. Over pages it gives B6's forward's
-// bits over the same rows packed. Left for later: one block for a GQA
+// bits over the same rows packed. With softcap (flash_varlen_paged.py
+// :225-233; JAX's paged route takes no ALiBi) the SCORE instantiations
+// (csrc/flash_varlen_paged_score.cu) cap the scores before the mask. Left
+// for later: one block for a GQA
 // group's query heads (each head's block reads its K/V tiles again) and a
 // persistent walk.
 
+#include "flash_varlen_paged.cuh"
 #include "fwd_sm90.cuh"
 
 namespace {
 
 using namespace fa;
 using namespace fa::sm90;
-
-struct VarlenPagedParams {
-  void* out;           // (total_q, h, d), zeroed by the wrapper
-  float* lse;          // (h, total_q), -inf-filled by the wrapper
-  const int* cu_q;     // (b + 1,) token offsets of the packed layout
-  const int* lens_q;   // (b,) true query lengths (seqused_q, cut to cu deltas)
-  const int* lens_k;   // (b,) key counts, the chunk included
-  const int* table;    // (b, table_width) page ids
-  const int* tile_ends;  // (b,) inclusive prefix sums of each sequence's tiles
-  int64_t o_st, o_sh, t_sb;
-  int b, num_tiles, total_q, h, group, page_size, box_rows, table_width, num_pages;
-  float scale_log2;
-  int causal;
-  Band band;  // the window (left, right), read by the BAND instantiation alone
-};
-
-// Q rows of one sequence from token q0 of the packed tensor at head hq; K/V
-// rows of KV head hk through the sequence's pages.
-struct PagedSrc {
-  const CUtensorMap* q;
-  const CUtensorMap* k;
-  const CUtensorMap* v;
-  PagedRows pages;
-  int q0, hq, hk, box_rows;
-  __device__ __forceinline__ void load_q(void* dst, uint64_t* bar, int col, int row) const {
-    tma_load_3d(dst, q, bar, col, q0 + row, hq);
-  }
-};
-
-// fwd_sm90.cuh's fwd_issue_kv for the paged source (the more specialised
-// overload, found by argument-dependent lookup from fwd_tile): K/V tile n
-// as boxes of box_rows keys, each box's page resolved once for K's and V's
-// panels.
-template <int D>
-__device__ __forceinline__ void fwd_issue_kv(const PagedSrc& src, unsigned char* stage,
-                                             uint64_t* bar, int n) {
-  using L = FwdLayout<D>;
-  mbar_expect_tx(bar, L::STAGE_BYTES);
-  for (int j = 0; j < FWD_N / src.box_rows; ++j) {
-    int pg, row;
-    src.pages.locate(n * FWD_N + j * src.box_rows, pg, row);
-    unsigned char* dst = stage + j * src.box_rows * 128;
-#pragma unroll
-    for (int c = 0; c < L::KT::PANELS; ++c) {
-      tma_load_4d(dst + c * L::KT::PANEL_BYTES, src.k, bar, c * 64, row, src.hk, pg);
-      tma_load_4d(dst + L::KT::BYTES + c * L::KT::PANEL_BYTES, src.v, bar, c * 64, row, src.hk,
-                  pg);
-    }
-  }
-}
-
-// Item w = (head, i) = (w / num_tiles, w % num_tiles): head by head, and in
-// a head the sequences' tiles in order, sequence s owning i in
-// [tile_ends[s - 1], tile_ends[s]), its last tile (the longest causal band)
-// first. Items past the last tile exit. BAND: the window's key tiles alone.
-template <typename T, int D, bool BAND>
-__global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
-    varlen_paged_kernel(const __grid_constant__ FwdMaps maps, const VarlenPagedParams p) {
-  extern __shared__ unsigned char smem_raw[];
-  const int hh = blockIdx.x / p.num_tiles;
-  const int i = blockIdx.x - hh * p.num_tiles;
-  if (i >= p.tile_ends[p.b - 1]) return;
-  int seq = 0;  // the first sequence whose tiles end past i
-  for (int hi = p.b - 1; seq < hi;) {
-    const int mid = (seq + hi) >> 1;
-    if (p.tile_ends[mid] > i)
-      hi = mid;
-    else
-      seq = mid + 1;
-  }
-  unsigned char* smem = align_1024(smem_raw);
-  const int q0 = p.cu_q[seq];
-  const PagedSrc src{&maps.q, &maps.k, &maps.v,
-                     PagedRows{p.table + (int64_t)seq * p.t_sb, 0, p.page_size,
-                               p.table_width, p.num_pages},
-                     q0, hh, hh / p.group, p.box_rows};
-  FwdRows<T> t;
-  t.out = reinterpret_cast<T*>(p.out) + (int64_t)q0 * p.o_st + hh * p.o_sh;
-  t.lse = p.lse + (int64_t)hh * p.total_q + q0;
-  t.o_ss = p.o_st;
-  t.sq = p.lens_q[seq];
-  t.sk = p.lens_k[seq];
-  t.m0 = (p.tile_ends[seq] - 1 - i) * FWD_M;
-  fwd_tile<T, D, true, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
-}
-
-template <typename T, int D, bool BAND>
-cudaError_t launch(const FwdMaps& maps, const VarlenPagedParams& p, cudaStream_t stream) {
-  constexpr int smem = FwdLayout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      varlen_paged_kernel<T, D, BAND>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  varlen_paged_kernel<T, D, BAND><<<p.num_tiles * p.h, FWD_THREADS, smem, stream>>>(maps, p);
-  return cudaGetLastError();
-}
-
-template <typename T, bool BAND>
-cudaError_t launch_d(const FwdMaps& maps, const VarlenPagedParams& p, int d, cudaStream_t st) {
-  switch (d) {
-    case 64: return launch<T, 64, BAND>(maps, p, st);
-    case 96: return launch<T, 96, BAND>(maps, p, st);
-    case 128: return launch<T, 128, BAND>(maps, p, st);
-    default: return launch<T, 256, BAND>(maps, p, st);
-  }
-}
+using namespace fa::varlen_paged;
 
 template <typename T>
 cudaError_t launch_band(const FwdMaps& maps, const VarlenPagedParams& p, int d, bool band,
                         cudaStream_t st) {
-  return band ? launch_d<T, true>(maps, p, d, st) : launch_d<T, false>(maps, p, d, st);
+  return band ? launch_d<T, true, false>(maps, p, d, st)
+              : launch_d<T, false, false>(maps, p, d, st);
 }
 
 }  // namespace
@@ -180,8 +81,9 @@ cudaError_t launch_band(const FwdMaps& maps, const VarlenPagedParams& p, int d, 
 // sequences, num_tiles at least its last entry. block_q/block_k must name
 // the tile the kernel is compiled for (dispatch/config.py FWD_TILE). The
 // window's extents left and right (-1: no bound; right 0 under causal
-// masking) are read when `band` is set. Returns a cudaError_t (0 on
-// success).
+// masking) are read when `band` is set; softcap > 0 selects the SCORE
+// instantiation, whose scores are capped (0: none). Returns a cudaError_t
+// (0 on success).
 extern "C" int fa_varlen_paged(
     const void* q, const void* kp, const void* vp, const int* cu_q,
     const int* lens_q, const int* lens_k, const int* table, const int* tile_ends,
@@ -190,11 +92,11 @@ extern "C" int fa_varlen_paged(
     int64_t q_st, int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_ss,
     int64_t v_sp, int64_t v_sh, int64_t v_ss, int64_t o_st, int64_t o_sh,
     int64_t t_sb, float scale_log2, int causal, int left, int right, int band,
-    int is_bf16, void* stream) {
+    float softcap, int is_bf16, void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || h_k < 1 || h % h_k != 0 ||
       (causal && right != 0 && band) ||
       (d != 64 && d != 96 && d != 128 && d != 256) ||
-      page_size < 1 || table_width < 1 || num_pages < 1 || b < 1 ||
+      page_size < 1 || table_width < 1 || num_pages < 1 || b < 1 || softcap < 0.f ||
       (int64_t)num_tiles * h > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   if (num_tiles == 0 || total_q == 0) return 0;
@@ -222,6 +124,8 @@ extern "C" int fa_varlen_paged(
   p.causal = causal;
   p.band.left = left < 0 ? BAND_NONE : left;
   p.band.right = right < 0 ? BAND_NONE : right;
+  p.score.cap_in = softcap > 0.f ? scale_log2 / (FA_LOG2E * softcap) : 0.f;
+  p.score.cap_out = softcap * FA_LOG2E;
   FwdMaps maps;
   cudaError_t err;
   if ((err = make_tile_map<3>(&maps.q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, FWD_M)) ||
@@ -231,6 +135,7 @@ extern "C" int fa_varlen_paged(
                               {v_ss, v_sh, v_sp}, p.box_rows)))
     return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (softcap > 0.f) return (int)run_varlen_paged_score(is_bf16, maps, p, d, band, st);
   return (int)(is_bf16 ? launch_band<__nv_bfloat16>(maps, p, d, band, st)
                        : launch_band<__half>(maps, p, d, band, st));
 }

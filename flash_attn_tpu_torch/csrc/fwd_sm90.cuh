@@ -19,7 +19,10 @@
 // masks of flash_fwd.py:270-287) walks only the key tiles of its rows'
 // band (KeyRange from the band's first tile, as _kv_block_bounds :360
 // bounds the TPU grid) and masks the tiles that cross an edge of it. The softmax runs in base 2
-// with scale * log2(e) folded into one multiply.
+// with scale * log2(e) folded into one multiply. The score instantiation
+// (SCORE, B1 and B8 with softcap or ALiBi) maps each score between the
+// product and the mask, in flash_fwd.py:180-247's order: the cap
+// (tanh(s scale / cap) cap, in base 2), then ALiBi's bias (Score).
 //
 // Layout (csrc/sm90.cuh): Q comes once by TMA into a 128-row tile of
 // 128B-swizzled panels; K and V tiles of 64 keys come through a two-stage
@@ -153,6 +156,62 @@ __device__ __forceinline__ void fwd_issue_q(const Src& src, unsigned char* Qs,
   for (int c = 0; c < L::QT::PANELS; ++c) src.load_q(Qs + c * L::QT::PANEL_BYTES, bar, c * 64, m0);
 }
 
+// The score map of softcap and ALiBi for one block's rows (one query head
+// of one sequence): with a cap, score s (Q K^T, unscaled) becomes
+// tanh(s cap_in) cap_out with cap_in = scale / cap and cap_out = cap
+// log2(e), else s scale log2(e); then ALiBi adds slope (the head's slope
+// times log2(e), 0 for none) times the bias, col - (sk - 1) under causal
+// masking (relative to the last key, as flash_fwd.py:243-245: the lse
+// keeps that form) and -|row + sk - sq - col| otherwise.
+struct Score {
+  float cap_in = 0.f, cap_out = 0.f;
+  float slope = 0.f;
+  int causal = 0;
+};
+
+// Score a thread's S accumulators of one tile (keys from n0; its rows
+// row_a and row_a + 8, the quad lane t4) into base 2 by `sc`. The bias is
+// a whole number below 2^24, so it is exact in fp32: one FMA a score.
+template <int BN>
+__device__ __forceinline__ void score_map(float* s, const Score& sc, float scale_log2, int n0,
+                                          int row_a, int t4, int sk, int shift) {
+  if (sc.cap_in != 0.f) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i)
+      s[i] = __fmul_rn(tanh_approx(__fmul_rn(s[i], sc.cap_in)), sc.cap_out);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = __fmul_rn(s[i], scale_log2);
+  }
+  if (sc.slope == 0.f) return;
+  if (sc.causal) {
+    const float base = (float)(n0 + 2 * t4 - (sk - 1));
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = __fmaf_rn(sc.slope, base + (float)(8 * j + (e & 1)), s[4 * j + e]);
+  } else {
+    float base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) base[i] = (float)(row_a + 8 * i + shift - n0 - 2 * t4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = __fmaf_rn(-sc.slope, fabsf(base[e >> 1] - (float)(8 * j + (e & 1))),
+                                 s[4 * j + e]);
+  }
+}
+
+// The band a SCORE instantiation masks by: without BAND, the causal bound
+// as a band of right extent 0 (none when not causal).
+template <bool BAND>
+__device__ __forceinline__ Band score_band(Band b, bool causal) {
+  if constexpr (!BAND) b.right = causal ? 0 : BAND_NONE;
+  return b;
+}
+
 // One K/V tile (keys [n0, n0 + 64), landed in `stage`) of the band of the
 // rows of `t`, for the whole block: S = Q K^T, the masks, the online softmax
 // and O += P V, then the block barrier that frees the stage. With owner >= 0
@@ -160,12 +219,14 @@ __device__ __forceinline__ void fwd_issue_q(const Src& src, unsigned char* Qs,
 // which leaves its O, max and sum bitwise as they were. BAND: mask by
 // `band` (common.cuh; its right bound stands for `causal`) instead of the
 // causal bound; the band-free instantiation compiles to the code it was.
-template <typename T, int D, bool ZERO_TAIL, bool BAND = false>
+// SCORE: map the scores by `score` before the mask (score_map).
+template <typename T, int D, bool ZERO_TAIL, bool BAND = false, bool SCORE = false>
 __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
                                          unsigned char* stage, int n0,
                                          const FwdRows<T>& t, float scale_log2,
                                          bool causal, int owner = -1,
-                                         const Band& band = Band{}) {
+                                         const Band& band = Band{},
+                                         const Score& score = Score{}) {
   using L = FwdLayout<D>;
   constexpr int BN = FWD_N;
   const int tid = threadIdx.x;
@@ -205,7 +266,14 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
   // scale into base 2; mask the diagonal and the ragged end of the keys,
   // and the other warpgroup's tile whole (its keys all count as past sk)
   const int sk = owner >= 0 && owner != wg ? n0 : t.sk;
-  if constexpr (BAND) {
+  if constexpr (SCORE) {
+    // the scores mapped into base 2 first (the band's loops below then
+    // scale by 1); then the mask of the band, which stands for the causal
+    // bound without BAND (score_band)
+    score_map<BN>(s, score, scale_log2, n0, row_a, t4, t.sk, shift);
+    scale_log2 = 1.f;
+  }
+  if constexpr (BAND || SCORE) {
     // the tile crosses the band's upper edge at the warpgroup's first row,
     // its lower edge at the last (sinks aside: a mask too many changes no
     // score), a chunk boundary of some row, or the end of the keys. The
@@ -347,12 +415,14 @@ __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* 
 // band's i + 1-th tile's loads as its i-th starts (its stage was freed at
 // i - 1). BAND: the key tiles of `band` (KeyRange), from the first tile that
 // holds a key some row sees; no tile at all (out 0, lse -inf) when no row
-// sees any.
-template <typename T, int D, bool ZERO_TAIL, bool BAND = false, typename Src>
+// sees any. SCORE: the scores mapped by `score` (fwd_step).
+template <typename T, int D, bool ZERO_TAIL, bool BAND = false, bool SCORE = false,
+          typename Src>
 __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
                                          float scale_log2, bool causal,
                                          unsigned char* smem,
-                                         const Band& band = Band{}) {
+                                         const Band& band = Band{},
+                                         const Score& score = Score{}) {
   using L = FwdLayout<D>;
   unsigned char* Qs = smem + L::Q_OFF;
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -384,8 +454,8 @@ __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
     if (tid == 0 && i + 1 < total)
       fwd_issue_kv<D>(src, stage(i + 1), &full[(i + 1) % FWD_STAGES], n_lo + i + 1);
     mbar_wait(&full[i % FWD_STAGES], (i / FWD_STAGES) & 1);
-    fwd_step<T, D, ZERO_TAIL, BAND>(a, Qs, stage(i), (n_lo + i) * FWD_N, t, scale_log2,
-                                    causal, -1, band);
+    fwd_step<T, D, ZERO_TAIL, BAND, SCORE>(a, Qs, stage(i), (n_lo + i) * FWD_N, t,
+                                           scale_log2, causal, -1, band, score);
   }
   fwd_epilogue<T, D>(a, Qs, t);
 }

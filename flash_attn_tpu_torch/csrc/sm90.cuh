@@ -97,6 +97,13 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// tanh on the special-function unit (relative error about 2^-11).
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- asynchronous copies ---------------------------------------------------
 
 // One box of a 3D tensor map (coordinates innermost first) into shared

@@ -12,9 +12,13 @@ and the backward of kernels/flash_varlen.py. Both train through the band
 masks (``flash_attn_func``: a window, attention_chunk and sink tokens; the
 dense varlen route: a window and attention_chunk), the band kept beside
 the forward's residuals as JAX's custom_vjp keeps it among its nondiff
-arguments. The varlen ``block_table=`` route
-(:499-546), the chunked prefill of the serving engine, runs
-kernels/flash_varlen_paged.py, forward only (with a sliding window), or,
+arguments. ``flash_attn_func`` and its packed forms take softcap and ALiBi
+in the forward (the kernels' score instantiations); a gradient through
+either raises, as does either option on the dense varlen route (their
+training half is ROADMAP.md queue A, item 1). The varlen ``block_table=``
+route (:499-546), the chunked prefill of the serving engine, runs
+kernels/flash_varlen_paged.py, forward only (with a sliding window and
+softcap; ALiBi raises, as JAX's route drops the slopes), or,
 with the MLA second query
 ``qv``, kernels/flash_paged_prefill.py (JAX sends ``qv`` there only when d
 or dv is not a multiple of 128, :520-527, and otherwise concatenates q and
@@ -31,6 +35,12 @@ from flash_attn_tpu_torch.dispatch.band import band_valid, has_band
 from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     normalize_window,
+)
+from flash_attn_tpu_torch.dispatch.score import (
+    alibi_bias,
+    has_score,
+    score_map,
+    slopes_bh,
 )
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd
@@ -52,7 +62,11 @@ __all__ = ["flash_attn_func", "flash_attn_kvpacked_func",
            "flash_attn_qkvpacked_func", "flash_attn_varlen_func",
            "flash_attn_varlen_kvpacked_func",
            "flash_attn_varlen_qkvpacked_func", "reject_unsupported",
-           "require_no_grad"]
+           "require_no_grad", "require_no_score_grad"]
+
+# Where softcap and ALiBi in training stand in ROADMAP.md.
+SCORE_TRAINING = ("queue A, item 1: softcap and ALiBi in training, the "
+                  "backward kernels' score map")
 
 
 def require_no_grad(name: str, *tensors) -> None:
@@ -64,6 +78,19 @@ def require_no_grad(name: str, *tensors) -> None:
             f"{name}: forward only; it serves the engine's prefill and decode "
             "steps, which take no gradient in the JAX package either. Call "
             "it under torch.no_grad() or torch.inference_mode().")
+
+
+def require_no_score_grad(name: str, softcap: float, alibi_slopes,
+                          *tensors) -> None:
+    """Raise before any kernel runs when a gradient is asked of a call
+    with softcap or ALiBi: the forward kernels map the scores, the backward
+    kernels do not yet."""
+    if has_score(softcap, alibi_slopes) and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: a gradient with softcap or alibi_slopes is not ported "
+            f"yet (ROADMAP.md {SCORE_TRAINING}); the forward runs under "
+            "torch.no_grad() or torch.inference_mode()")
 
 
 def reject_unsupported(name: str, roadmap_item: str = "", **args) -> None:
@@ -87,21 +114,28 @@ def reject_unsupported(name: str, roadmap_item: str = "", **args) -> None:
 
 def _reconstruct_s_dmask(q, k, lse, softmax_scale: float, causal: bool,
                          window_size=(None, None), sink_token_length: int = 0,
-                         attention_chunk: int = 0):
+                         attention_chunk: int = 0, softcap: float = 0.0,
+                         alibi_slopes=None):
     """The (b, h, sq, sk) fp32 attention probabilities that
     ``return_attn_probs`` returns (JAX ``_reconstruct_s_dmask``,
     flash_attn_tpu/interface.py:44): scores rebuilt with torch ops from q
-    and k (GQA by grouping query heads), bottom-right causal and under the
-    band, normalised by the kernel's own lse; 0 where masked and on rows
-    that see no key. A testing aid, not a kernel."""
+    and k (GQA by grouping query heads), capped and biased as the kernel
+    maps them (dispatch/score.py), bottom-right causal and under the band,
+    normalised by the kernel's own lse; 0 where masked and on rows that see
+    no key. A testing aid, not a kernel."""
     b, sq, h, d = q.shape
     sk, h_k = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, sq, h_k, h // h_k, d)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf * softmax_scale,
                           k.float()).reshape(b, h, sq, sk)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    slopes = slopes_bh(alibi_slopes, b, h, q.device)
+    if slopes is not None:
+        slopes = slopes[..., None, None]
+    scores = score_map(scores, softcap, slopes,
+                       alibi_bias(rows, cols, sq, sk, causal))
     if causal or has_band(causal, window_size, attention_chunk):
-        rows = torch.arange(sq, device=q.device)[:, None]
-        cols = torch.arange(sk, device=q.device)[None, :]
         valid = band_valid(rows, cols, sk - sq, causal, window_size,
                            sink_token_length, attention_chunk)
         scores = scores.masked_fill(~valid, float("-inf"))
@@ -122,14 +156,17 @@ def _kernel_layout(dout):
 class _FlashAttn(torch.autograd.Function):
     """out, lse = attention(q, k, v) on (b, s, h, d) tensors under the
     causal bound and ``band`` (window_size, sink_token_length and
-    attention_chunk), which the backward masks as the forward did; the lse
-    is an inspection output whose cotangent is dropped, as in JAX."""
+    attention_chunk), which the backward masks as the forward did, and the
+    forward's ``score`` map (softcap, alibi_slopes: the caller refuses a
+    gradient with either); the lse is an inspection output whose cotangent
+    is dropped, as in JAX."""
 
     @staticmethod
-    def forward(ctx, q, k, v, softmax_scale, causal, deterministic, band):
+    def forward(ctx, q, k, v, softmax_scale, causal, deterministic, band,
+                score):
         out_t, lse = flash_attention_fwd(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            softmax_scale=softmax_scale, causal=causal, **band)
+            softmax_scale=softmax_scale, causal=causal, **band, **score)
         out = out_t.transpose(1, 2)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (softmax_scale, causal, deterministic, band)
@@ -147,7 +184,7 @@ class _FlashAttn(torch.autograd.Function):
             softmax_scale=softmax_scale, causal=causal,
             deterministic=deterministic, **band)
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def flash_attn_func(
@@ -188,26 +225,31 @@ def flash_attn_func(
     ``window_size`` (left, right; -1 or None for no bound),
     ``attention_chunk`` and ``sink_token_length`` mask as in JAX
     (dispatch/band.py), forward and backward (the kernels' band
-    instantiations, in both ``deterministic`` modes). Every other option
+    instantiations, in both ``deterministic`` modes). ``softcap`` (0: none)
+    and ``alibi_slopes`` ((nheads,) or (batch, nheads), fp32) map the
+    scores as JAX's do (dispatch/score.py; the lse in JAX's form), in the
+    forward only: a gradient with either raises NotImplementedError before
+    the forward runs (ROADMAP.md queue A, item 1). Every other option
     raises NotImplementedError (ROADMAP.md queue A, item 7)."""
     reject_unsupported(
         "flash_attn_func", roadmap_item="queue A, item 7", dropout_p=dropout_p,
-        softcap=softcap, alibi_slopes=alibi_slopes,
         learnable_sink=learnable_sink, dropout_rng=dropout_rng,
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale, qv=qv,
         score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors)
+    require_no_score_grad("flash_attn_func", softcap, alibi_slopes, q, k, v)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     window_size = normalize_window(tuple(window_size))
     band = dict(window_size=window_size, sink_token_length=sink_token_length,
                 attention_chunk=attention_chunk)
+    score = dict(softcap=softcap, alibi_slopes=alibi_slopes)
     out, lse = _FlashAttn.apply(q, k, v, softmax_scale, causal, deterministic,
-                                band)
+                                band, score)
     if not return_attn_probs:
         return out
     with torch.no_grad():
         s_dmask = _reconstruct_s_dmask(q, k, lse, softmax_scale, causal,
-                                       **band)
+                                       **band, **score)
     return out, lse, s_dmask
 
 
@@ -294,17 +336,31 @@ def flash_attn_varlen_func(
     routes as in JAX, and ``attention_chunk`` the dense one (each sequence
     as the dense functions mask a batch row; forward and backward, the
     kernels' band instantiations). The varlen routes take no sink tokens,
-    as in JAX. A window with ``qv``, softcap, ALiBi, dropout, descales, and
-    ``qv`` without ``block_table``, raise NotImplementedError (ROADMAP.md
-    queue A, item 7). JAX's paged route drops ``attention_chunk`` without
-    a word (flash_attn_tpu/interface.py:447-456); here it raises (queue C's
-    fault, ROADMAP.md queue A, item 7)."""
+    as in JAX. ``softcap`` caps the paged route's scores (B8's score
+    instantiation, forward only); on the dense route softcap and ALiBi
+    raise NotImplementedError (ROADMAP.md queue A, item 1). A window or
+    softcap with ``qv``, dropout, descales, and ``qv`` without
+    ``block_table``, raise NotImplementedError (ROADMAP.md queue A, item
+    7). JAX's paged route drops ``attention_chunk`` and ``alibi_slopes``
+    without a word (flash_attn_tpu/interface.py:447-456); here both raise
+    (ROADMAP.md queue C)."""
     window_size = normalize_window(tuple(window_size))
+    if block_table is None:
+        reject_unsupported("flash_attn_varlen_func",
+                           roadmap_item=SCORE_TRAINING, softcap=softcap,
+                           alibi_slopes=alibi_slopes)
+    elif alibi_slopes is not None:
+        raise NotImplementedError(
+            "flash_attn_varlen_func: alibi_slopes with block_table is not "
+            "ported: the JAX package's paged route drops the slopes without "
+            "a word (flash_attn_tpu/interface.py:447-456), so that a "
+            "prefix-cached ALiBi model there attends without positions "
+            "(ROADMAP.md queue C)")
     reject_unsupported(
         "flash_attn_varlen_func", roadmap_item="queue A, item 7",
         dropout_p=dropout_p,
         window_size=window_size if qv is not None else (None, None),
-        softcap=softcap, alibi_slopes=alibi_slopes,
+        softcap=softcap if qv is not None else 0.0,
         attention_chunk=attention_chunk if block_table is not None else 0,
         learnable_sink=learnable_sink, dropout_rng=dropout_rng,
         qv=qv if block_table is None else None,
@@ -326,7 +382,7 @@ def flash_attn_varlen_func(
         out, lse = flash_attention_varlen_paged_fwd(
             q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k, block_table,
             seqused_q=seqused_q, softmax_scale=softmax_scale, causal=causal,
-            window_size=window_size)
+            window_size=window_size, softcap=softcap)
         return (out, lse) if return_attn_probs else out
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])

@@ -9,7 +9,12 @@ d = dv route: ``window_size`` and ``attention_chunk`` (the kernel masks
 :202-214; JAX's decode has no sink tokens). With a band the splits share
 out only the key tiles from the band's first (:func:`band_first_tile`);
 the tiles below it are masked for every row, so the merged result is
-JAX's, which reads and masks them. The MLA route refuses a band. The caches keep the JAX
+JAX's, which reads and masks them. ``softcap`` and ``alibi_slopes``
+(dispatch/score.py, :245-254) are runtime fields of the d = dv route as the
+band is; causal ALiBi's bias is relative to each batch row's own cache
+length, so the split partials' lse all take JAX's form and
+``combine_splits`` merges them as they are. The MLA route refuses a band,
+a cap and slopes. The caches keep the JAX
 layouts: linear (b_c, h_k, s_max, d), paged (num_pages, h_k, page_size, d)
 with a (b, max_pages) int32 block table, V the same with dv; a paged row's
 capacity is max_pages * page_size positions. Each split writes an fp32
@@ -43,18 +48,27 @@ from flash_attn_tpu_torch.dispatch.config import (
     is_mla_form,
     num_sms,
 )
+from flash_attn_tpu_torch.dispatch.score import (
+    alibi_bias,
+    has_score,
+    score_map,
+    slope_args,
+    slopes_bh,
+)
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
 LOG2E = math.log2(math.e)
 
 # Kernel launches since the last reset (plain calls not counted): the d = dv
-# route over a linear and over a paged cache, those of them with a band,
-# and the MLA route over either.
+# route over a linear and over a paged cache, those of them with a band and
+# those with softcap or ALiBi, and the MLA route over either.
 launches = 0
 launches_paged = 0
 launches_band = 0
 launches_paged_band = 0
+launches_score = 0
+launches_paged_score = 0
 launches_mla = 0
 
 
@@ -105,8 +119,12 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
                                           softmax_scale: float, causal: bool,
                                           qv=None,
                                           window_size=(None, None),
-                                          attention_chunk: int = 0):
-    """fp32 matmul, mask and softmax per split; scores q k^T (+ qv v^T).
+                                          attention_chunk: int = 0,
+                                          softcap: float = 0.0,
+                                          alibi_slopes=None):
+    """fp32 matmul, score map (dispatch/score.py: the cap, then ALiBi's
+    bias with each batch row's cache length as sk), mask and softmax per
+    split; scores q k^T (+ qv v^T).
     Returns (out_p (num_splits, b, h_k, sq * group, dv), lse_p (num_splits,
     b, h_k, sq * group))."""
     b, sq, h, d = q.shape
@@ -122,6 +140,13 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
     sk = cache_seqlens.long().clamp(max=s_max)  # the kernel cuts at capacity
     pos = torch.arange(s_max, device=q.device)
     tok = torch.arange(rows, device=q.device) // group
+    slopes = slopes_bh(alibi_slopes, b, h, q.device)
+    if slopes is not None:
+        # packed row t * group + j is query head kh * group + j
+        slopes = slopes.reshape(b, h_k, 1, group).expand(
+            b, h_k, sq, group).reshape(b, h_k, rows, 1)
+    s = score_map(s, softcap, slopes, alibi_bias(
+        tok[None, None, :, None], pos, sq, sk[:, None, None, None], causal))
     valid = band_valid(tok[None, :, None], pos[None, None, :],
                        (sk - sq)[:, None, None], causal, window_size,
                        attention_chunk=attention_chunk, chunk_upper=False) \
@@ -144,7 +169,8 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
 def flash_attention_decode_paged_partials_plain(
         q, k_pages, v_pages, cache_seqlens, block_table, num_splits: int,
         block_k: int, softmax_scale: float, causal: bool, qv=None,
-        window_size=(None, None), attention_chunk: int = 0):
+        window_size=(None, None), attention_chunk: int = 0,
+        softcap: float = 0.0, alibi_slopes=None):
     """The paged cache's plain version: gather the pages into the linear
     layout, then :func:`flash_attention_decode_partials_plain`."""
     cap = cache_capacity(k_pages, block_table)
@@ -153,14 +179,16 @@ def flash_attention_decode_paged_partials_plain(
         q, paged_to_linear(k_pages, block_table, lengths),
         paged_to_linear(v_pages, block_table, lengths), cache_seqlens,
         num_splits, block_k, softmax_scale, causal, qv=qv,
-        window_size=window_size, attention_chunk=attention_chunk)
+        window_size=window_size, attention_chunk=attention_chunk,
+        softcap=softcap, alibi_slopes=alibi_slopes)
 
 
 def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
                                     num_splits: int, softmax_scale: float,
                                     causal: bool, block_table=None, qv=None,
                                     window_size=(None, None),
-                                    attention_chunk: int = 0):
+                                    attention_chunk: int = 0,
+                                    softcap: float = 0.0, alibi_slopes=None):
     """Split partials of decode attention; see
     :func:`flash_attention_decode_partials_plain` for the shapes.
     ``cache_seqlens`` (b,) int32 are the cache lengths after any append;
@@ -172,15 +200,21 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     multiples of 16 bytes, or whose start is not 16-byte aligned, raises
     ValueError."""
     paged = block_table is not None
-    band = dict(window_size=window_size, attention_chunk=attention_chunk)
+    masks = dict(window_size=window_size, attention_chunk=attention_chunk,
+                 softcap=softcap, alibi_slopes=alibi_slopes)
+    if has_score(softcap, alibi_slopes) and is_mla_form(
+            q.shape[-1], v_cache.shape[-1], qv is not None):
+        raise NotImplementedError(
+            "flash_decode: softcap or ALiBi on the MLA route (qv, or dv != "
+            "d) is not ported yet (ROADMAP.md queue A, item 7)")
     if q.device.type == "cpu":
         if paged:
             return flash_attention_decode_paged_partials_plain(
                 q, k_cache, v_cache, cache_seqlens, block_table, num_splits,
-                DECODE_BLOCK_K, softmax_scale, causal, qv=qv, **band)
+                DECODE_BLOCK_K, softmax_scale, causal, qv=qv, **masks)
         return flash_attention_decode_partials_plain(
             q, k_cache, v_cache, cache_seqlens, num_splits, DECODE_BLOCK_K,
-            softmax_scale, causal, qv=qv, **band)
+            softmax_scale, causal, qv=qv, **masks)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     b, sq, h, d = q.shape
@@ -220,6 +254,8 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     lse_p = torch.empty((num_splits, b, h_k, rows), dtype=torch.float32,
                         device=q.device)
     blocks = b * h_k * num_splits * -(-rows // DECODE_ROWS_PER_BLOCK)
+    slopes = slopes_bh(alibi_slopes, b, h, q.device)
+    slope_ptr, slope_sb = slope_args(slopes)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.fa_decode(
@@ -237,17 +273,22 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
             block_table.stride(0) if paged else 0,
             softmax_scale * LOG2E, int(causal),
             *band_args(causal, window_size, 0, attention_chunk)[:2],
-            attention_chunk, int(q.dtype == torch.bfloat16),
+            attention_chunk, float(softcap), slope_ptr, slope_sb,
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_decode")
     global launches, launches_paged, launches_band, launches_paged_band
+    global launches_score, launches_paged_score
     band = has_band(causal, window_size, attention_chunk)
+    score = has_score(softcap, alibi_slopes)
     if paged:
         launches_paged += 1
         launches_paged_band += band
+        launches_paged_score += score
     else:
         launches += 1
         launches_band += band
+        launches_score += score
     return out_p, lse_p
 
 
@@ -329,14 +370,16 @@ def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
                            causal: bool = False, num_splits: int = 1,
                            block_table=None, qv=None,
                            window_size=(None, None),
-                           attention_chunk: int = 0):
+                           attention_chunk: int = 0, softcap: float = 0.0,
+                           alibi_slopes=None):
     """q (b, sq, h, d); caches (b_c, h_k, s_max, d) and (b_c, h_k, s_max,
     dv), or pages (num_pages, h_k, page_size, d / dv) with ``block_table``
     (b, max_pages) int32; cache_seqlens (b,) int32 cache lengths after any
     append; ``qv`` (b, sq, h, dv) adds qv v^T to the scores;
-    ``window_size`` (left, right) with None for no bound and
-    ``attention_chunk`` as in the JAX function. Returns (out (b, sq, h, dv)
-    in q's type, lse (b, h, sq) fp32)."""
+    ``window_size`` (left, right) with None for no bound,
+    ``attention_chunk``, ``softcap`` and ``alibi_slopes`` ((h,) or (b, h))
+    as in the JAX function. Returns (out (b, sq, h, dv) in q's type, lse
+    (b, h, sq) fp32)."""
     b, sq, h, d = q.shape
     h_k = k_cache.shape[1]
     group = h // h_k
@@ -348,7 +391,8 @@ def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
         q, k_cache, v_cache, cache_seqlens, num_splits, softmax_scale, causal,
         block_table=block_table, qv=qv,
         window_size=reach_window(window_size, causal, sq, cap),
-        attention_chunk=attention_chunk)
+        attention_chunk=attention_chunk, softcap=softcap,
+        alibi_slopes=alibi_slopes)
     if num_splits == 1:
         out, lse = out_p[0], lse_p[0]
     else:

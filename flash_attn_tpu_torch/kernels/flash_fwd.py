@@ -7,8 +7,10 @@ kernel does in a masked phase), with its band masks: ``window_size``,
 ``attention_chunk`` and ``sink_token_length`` (dispatch/band.py). A call
 with a band launches the kernel's band instantiation, which walks only the
 key tiles of the band; one without launches the band-free one, which is
-the kernel of the earlier releases bit for bit. Layout (b, h, s, d) as in
-the JAX function.
+the kernel of the earlier releases bit for bit. ``softcap`` and
+``alibi_slopes`` (dispatch/score.py) launch the kernel's score
+instantiation, with or without the band. Layout (b, h, s, d) as in the JAX
+function.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises (TMA takes only 16-byte aligned starts and strides: any
 other view raises ValueError, nothing is copied).
@@ -30,14 +32,22 @@ from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     check_head_dims,
 )
+from flash_attn_tpu_torch.dispatch.score import (
+    alibi_bias,
+    has_score,
+    score_map,
+    slope_args,
+    slopes_bh,
+)
 from flash_attn_tpu_torch.kernels import _build
 
 LOG2E = math.log2(math.e)
 
 # Kernel launches since the last reset (plain calls not counted): all of
-# them, and those of the band instantiation among them.
+# them, and those of the band and of the score instantiations among them.
 launches = 0
 launches_band = 0
+launches_score = 0
 
 Window = Tuple[Optional[int], Optional[int]]
 
@@ -46,10 +56,12 @@ def flash_attention_fwd_plain(q, k, v, softmax_scale: Optional[float] = None,
                               causal: bool = False,
                               window_size: Window = (None, None),
                               sink_token_length: int = 0,
-                              attention_chunk: int = 0):
-    """Matmul, mask and softmax in fp32. q (b, h, sq, d), k/v (b, h_k, sk,
-    d/dv). Returns out (b, h, sq, dv) in q's type and the natural-log lse
-    (b, h, sq) in fp32, -inf (and out 0) for rows that see no key."""
+                              attention_chunk: int = 0, softcap: float = 0.0,
+                              alibi_slopes=None):
+    """Matmul, score map (dispatch/score.py), mask and softmax in fp32. q
+    (b, h, sq, d), k/v (b, h_k, sk, d/dv); alibi_slopes (h,) or (b, h).
+    Returns out (b, h, sq, dv) in q's type and the natural-log lse (b, h,
+    sq) in fp32, -inf (and out 0) for rows that see no key."""
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     group = h // h_k
@@ -57,9 +69,13 @@ def flash_attention_fwd_plain(q, k, v, softmax_scale: Optional[float] = None,
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    slopes = slopes_bh(alibi_slopes, b, h, q.device)
+    if slopes is not None:
+        slopes = slopes[..., None, None]
+    s = score_map(s, softcap, slopes, alibi_bias(rows, cols, sq, sk, causal))
     if causal or has_band(causal, window_size, attention_chunk):
-        rows = torch.arange(sq, device=q.device)[:, None]
-        cols = torch.arange(sk, device=q.device)[None, :]
         valid = band_valid(rows, cols, sk - sq, causal, window_size,
                            sink_token_length, attention_chunk)
         s = s.masked_fill(~valid, float("-inf"))
@@ -74,17 +90,19 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
                         causal: bool = False,
                         window_size: Window = (None, None),
                         sink_token_length: int = 0,
-                        attention_chunk: int = 0):
+                        attention_chunk: int = 0, softcap: float = 0.0,
+                        alibi_slopes=None):
     """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
     contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
     fp32). CUDA: bf16/fp16, d in HEAD_DIMS (64, 96, 128, 256),
     h % h_k == 0. ``window_size`` (left, right) with None for no bound,
     ``sink_token_length`` and ``attention_chunk`` as in the JAX function
-    (dispatch/band.py)."""
+    (dispatch/band.py); ``softcap`` (0: none) and ``alibi_slopes`` ((h,) or
+    (b, h), read in fp32) as in JAX's (dispatch/score.py)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(
             q, k, v, softmax_scale, causal, window_size, sink_token_length,
-            attention_chunk)
+            attention_chunk, softcap, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -112,6 +130,8 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
         return out.transpose(1, 2), lse
     window = reach_window(window_size, causal, sq, sk)
     band = has_band(causal, window, attention_chunk)
+    slopes = slopes_bh(alibi_slopes, b, h, q.device)
+    slope_ptr, slope_sb = slope_args(slopes)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.fa_fwd(
@@ -124,10 +144,12 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
             out.stride(0), out.stride(1), out.stride(2),
             scale * LOG2E, int(causal),
             *band_args(causal, window, sink_token_length, attention_chunk),
-            int(band), int(q.dtype == torch.bfloat16),
+            int(band), float(softcap), slope_ptr, slope_sb,
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_fwd")
-    global launches, launches_band
+    global launches, launches_band, launches_score
     launches += 1
     launches_band += band
+    launches_score += has_score(softcap, alibi_slopes)
     return out.transpose(1, 2), lse

@@ -3,10 +3,11 @@
 
 Port of flash_attn_tpu/kernels/flash_varlen_paged.py
 ``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in HEAD_DIMS,
-with its sliding window, :249-254; no softcap, descales, learnable sink or
-``qv``: the JAX kernel has no chunk or sink tokens either). A call with a
-window launches the kernel's band instantiation, whose blocks read only
-the pages of their rows' window. Query chunks are
+with its sliding window, :249-254, and its softcap, :225-233; no descales,
+learnable sink or ``qv``: the JAX kernel has no chunk, sink tokens or
+ALiBi either). A call with a window launches the kernel's band
+instantiation, whose blocks read only the pages of their rows' window; one
+with a cap its score instantiation (with or without the window). Query chunks are
 packed along one token axis by ``cu_seqlens_q``; ``seqused_q`` gives each
 sequence's true length when the layout pads every slot to one length (the
 padded-flat layout of the engine's prefix-cached prefill). The JAX function
@@ -36,6 +37,7 @@ from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     check_head_dims,
 )
+from flash_attn_tpu_torch.dispatch.score import score_map
 from flash_attn_tpu_torch.dispatch.varlen_meta import (
     num_tiles_bound,
     sequence_lengths,
@@ -46,9 +48,10 @@ from flash_attn_tpu_torch.utils.testing import paged_to_linear
 LOG2E = math.log2(math.e)
 
 # Kernel launches since the last reset (plain calls not counted): all of
-# them, and those of the band instantiation among them.
+# them, and those of the band and of the score instantiations among them.
 launches = 0
 launches_band = 0
+launches_score = 0
 
 
 def tile_ends(lens_q, block_q: int):
@@ -68,9 +71,9 @@ def _lengths(cu_seqlens_q, seqused_q):
 def flash_attention_varlen_paged_fwd_plain(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
-        causal: bool = False, window_size=(None, None)):
+        causal: bool = False, window_size=(None, None), softcap: float = 0.0):
     """Gather the pages into the linear layout, pad the packed queries per
-    sequence, and compute masked attention in fp32. Returns out (total_q, h,
+    sequence, and compute capped (``softcap``), masked attention in fp32. Returns out (total_q, h,
     dv) in q's type and lse (h, total_q) fp32, with zeros and -inf for the
     rows that see no key."""
     total_q, h, d = q.shape
@@ -90,7 +93,8 @@ def flash_attention_varlen_paged_fwd_plain(
     qd = q.float()[rows] if total_q else q.float().new_zeros(
         rows.shape + (h, d))
     qd = qd.reshape(-1, max_seqlen_q, h_k, group, d).permute(0, 2, 3, 1, 4)
-    s = torch.einsum("bkgmd,bksd->bkgms", qd, k_lin) * scale
+    s = score_map(torch.einsum("bkgmd,bksd->bkgms", qd, k_lin) * scale,
+                  softcap)
     pos_k = torch.arange(k_lin.shape[2], device=dev)
     valid = (pos_q[None, :, None] < lens_q[:, None, None]) \
         & (pos_k[None, None, :] < lens_k[:, None, None])
@@ -119,17 +123,18 @@ def flash_attention_varlen_paged_fwd_plain(
 def flash_attention_varlen_paged_fwd(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
-        causal: bool = False, window_size=(None, None)):
+        causal: bool = False, window_size=(None, None), softcap: float = 0.0):
     """q (total_q, h, d) packed by cu_seqlens_q (b + 1,); pages (num_pages,
     h_k, page_size, d); seqlens_k (b,) key counts including the chunk;
     block_table (b, max_pages); seqused_q (b,) true query lengths or None.
     ``max_seqlen_q`` bounds cu_seqlens_q's deltas; ``window_size`` (left,
-    right) with None for no bound. Returns (out (total_q, h, d) in q's
-    type, lse (h, total_q) fp32)."""
+    right) with None for no bound; ``softcap`` (0: none). Returns (out
+    (total_q, h, d) in q's type, lse (h, total_q) fp32)."""
     if q.device.type == "cpu":
         return flash_attention_varlen_paged_fwd_plain(
             q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q, seqlens_k,
-            block_table, seqused_q, softmax_scale, causal, window_size)
+            block_table, seqused_q, softmax_scale, causal, window_size,
+            softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_varlen_paged: unsupported device {q.device}")
     total_q, h, d = q.shape
@@ -179,10 +184,11 @@ def flash_attention_varlen_paged_fwd(
             v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
             out.stride(0), out.stride(1), table.stride(0),
             scale * LOG2E, int(causal), *band_args(causal, window)[:2],
-            int(band), int(q.dtype == torch.bfloat16),
+            int(band), float(softcap), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_varlen_paged")
-    global launches, launches_band
+    global launches, launches_band, launches_score
     launches += 1
     launches_band += band
+    launches_score += softcap > 0.0
     return out, lse

@@ -5,10 +5,12 @@ The configuration carries the JAX package's fields; the port runs rotary
 or learned positions, RMSNorm/LayerNorm, gated or plain MLP, GQA, the
 sequential and the parallel block (tied or untied norms), a tied, untied
 or NormHead head, the muP scalars, the paged cache, per-block
-activation rematerialization in train mode (``remat``) and a sliding
+activation rematerialization in train mode (``remat``), a sliding
 window (``window_size``, passed to every attention call, serving and
-training alike, packed input too), and raises NotImplementedError for the
-rest. Parameters mirror flax's values: the
+training alike, packed input too) and, for serving, softcap and ALiBi
+(``softcap``, ``use_alibi``: the score map of every serving call; their
+gradient is not ported, and a Trainer on such a config raises; neither
+adds a parameter), and raises NotImplementedError for the rest. Parameters mirror flax's values: the
 Dense and embedding weights in the compute type (flax keeps them in fp32
 and casts them to it at every call, which gives the same values), the norm
 weights in fp32. Training keeps fp32 master copies beside them
@@ -104,8 +106,6 @@ def gpt_913m(max_decode_seqlen: int = 0, dtype=torch.bfloat16) -> GPTConfig:
 
 def _check_ported(cfg: GPTConfig) -> None:
     missing = {
-        "use_alibi (ROADMAP.md queue A item 7)": cfg.use_alibi,
-        "softcap (queue A item 7)": cfg.softcap > 0.0,
         "kv_cache_dtype (quantized caches, ROADMAP.md queue A item 7)":
             cfg.kv_cache_dtype is not None,
         "context_parallel (queue A item 8)": cfg.context_parallel,
@@ -169,7 +169,8 @@ def _make_mixer(cfg: GPTConfig, device):
         max_decode_seqlen=cfg.max_decode_seqlen,
         paged_kv_num_pages=cfg.paged_kv_num_pages,
         paged_kv_page_size=cfg.paged_kv_page_size,
-        window_size=cfg.window_size, dtype=cfg.dtype, device=device)
+        window_size=cfg.window_size, softcap=cfg.softcap,
+        use_alibi=cfg.use_alibi, dtype=cfg.dtype, device=device)
 
 
 def _make_block(cfg: GPTConfig, device):

@@ -1,5 +1,5 @@
 """HF config and checkpoint adapters for GPT-NeoX (Pythia), GPT-J, Falcon,
-OPT, BigCode (StarCoder) and Baichuan (port of the JAX package's
+OPT, BigCode (StarCoder), BTLM and Baichuan (port of the JAX package's
 models/hf_adapters.py). Each ``*_config_to_gpt_config``
 reads a HF config (or any object with its attributes) into a
 :class:`~flash_attn_tpu_torch.models.gpt.GPTConfig`; each
@@ -18,9 +18,11 @@ Where the JAX adapters differ, the port follows the HF model:
  - GPT-J's ``lm_head.bias``, which neither model has a place for, raises
    when it is not zero (JAX drops it);
  - OPT with a post-norm block or a projected embedding raises (JAX reads
-   them as OPT-6.7B's pre-norm shape).
-ALiBi (BTLM, Baichuan-13B) is ROADMAP.md queue A, item 7: those configs
-raise NotImplementedError.
+   them as OPT-6.7B's pre-norm shape);
+ - Falcon with ``alibi`` (Falcon-RW) raises: JAX's adapter ignores the flag
+   and maps the model as a rotary one (ROADMAP.md queue C).
+BTLM and Baichuan-13B take ALiBi positions (``use_alibi``; their training
+half is ROADMAP.md queue A, item 1).
 """
 
 from typing import Dict
@@ -35,11 +37,9 @@ __all__ = [
     "falcon_config_to_gpt_config", "remap_state_dict_hf_falcon",
     "opt_config_to_gpt_config", "remap_state_dict_hf_opt",
     "bigcode_config_to_gpt_config", "remap_state_dict_hf_bigcode",
-    "btlm_config_to_gpt_config",
+    "btlm_config_to_gpt_config", "remap_state_dict_hf_btlm",
     "baichuan_config_to_gpt_config", "remap_state_dict_hf_baichuan",
 ]
-
-_ALIBI = "ALiBi positions are not ported yet (ROADMAP.md queue A, item 7)"
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -175,7 +175,11 @@ def falcon_config_to_gpt_config(hf, dtype=torch.float32,
                                 max_decode_seqlen: int = 2048) -> GPTConfig:
     new_arch = getattr(hf, "new_decoder_architecture", False)
     if getattr(hf, "alibi", False):
-        raise NotImplementedError(f"Falcon with alibi: {_ALIBI}")
+        raise NotImplementedError(
+            "Falcon with alibi (Falcon-RW) is not ported: the JAX package's "
+            "adapter ignores the flag and maps the model as a rotary one "
+            "(flash_attn_tpu/models/hf_adapters.py:167-189), so there is no "
+            "reference to hold it to (ROADMAP.md queue C)")
     n_head_kv = (hf.num_kv_heads if new_arch
                  else (1 if getattr(hf, "multi_query", True)
                        else hf.num_attention_heads))
@@ -315,8 +319,55 @@ def remap_state_dict_hf_bigcode(sd: StateDict, cfg: GPTConfig) -> StateDict:
 
 def btlm_config_to_gpt_config(hf, dtype=torch.float32,
                               max_decode_seqlen: int = 2048) -> GPTConfig:
-    """Cerebras BTLM: a GPT-2 skeleton with ALiBi positions."""
-    raise NotImplementedError(f"BTLM: {_ALIBI}")
+    """Cerebras BTLM: a GPT-2 skeleton with ALiBi positions (learned ones
+    when position_embedding_type is not "alibi"), a SwiGLU MLP and muP's
+    scalars (mup_scale_qk_dot_by_d: softmax scale 1/d)."""
+    use_alibi = hf.position_embedding_type == "alibi"
+    return GPTConfig(
+        vocab_size=hf.vocab_size,
+        n_positions=0 if use_alibi else hf.n_positions,
+        n_embd=hf.hidden_size, n_layer=hf.num_hidden_layers,
+        n_head=hf.num_attention_heads,
+        n_inner=hf.n_inner,
+        glu_act=hf.activation_function == "swiglu",
+        use_alibi=use_alibi,
+        mup_width_scale=hf.mup_width_scale,
+        mup_embeddings_multiplier=hf.mup_embeddings_scale,
+        mup_output_multiplier=hf.mup_output_alpha,
+        mup_scale_qk_dot_by_d=hf.mup_scale_qk_dot_by_d,
+        mlp_bias=True,
+        norm_epsilon=hf.layer_norm_epsilon,
+        tie_word_embeddings=True,
+        max_decode_seqlen=max_decode_seqlen, dtype=dtype,
+    )
+
+
+def remap_state_dict_hf_btlm(sd: StateDict, cfg: GPTConfig) -> StateDict:
+    """BTLM keeps GPT-2's Conv1D weights, (in, out): each is transposed to
+    a Linear's (out, in). c_attn's columns are [q, k, v], the port's Wqkv;
+    the gated MLP's activated half is c_fc2, so fc1 = [c_fc2, c_fc] (the
+    port's GatedMlp is gate first). The ALiBi slopes are recomputed, not
+    read."""
+    out = {"transformer.embeddings.word_embeddings.weight":
+           sd["transformer.wte.weight"]}
+    if cfg.n_positions > 0:
+        out["transformer.embeddings.position_embeddings.weight"] = \
+            sd["transformer.wpe.weight"]
+    for i in range(cfg.n_layer):
+        src, dst = f"transformer.h.{i}.", f"transformer.layers.{i}."
+        _copy_norms(out, sd, dst, src, {"norm1": "ln_1", "norm2": "ln_2"})
+        for ours, theirs in (("mixer.Wqkv", "attn.c_attn"),
+                             ("mixer.out_proj", "attn.c_proj"),
+                             ("mlp.fc2", "mlp.c_proj")):
+            out[dst + ours + ".weight"] = sd[src + theirs + ".weight"].T
+            out[dst + ours + ".bias"] = sd[src + theirs + ".bias"]
+        fc = [src + "mlp.c_fc2.", src + "mlp.c_fc."]
+        out[dst + "mlp.fc1.weight"] = torch.cat(
+            [sd[p + "weight"].T for p in fc])
+        out[dst + "mlp.fc1.bias"] = torch.cat([sd[p + "bias"] for p in fc])
+    out["transformer.ln_f_weight"] = sd["transformer.ln_f.weight"]
+    out["transformer.ln_f_bias"] = sd["transformer.ln_f.bias"]
+    return out
 
 
 # ----------------------------- Baichuan ------------------------------------
@@ -325,18 +376,18 @@ def baichuan_config_to_gpt_config(hf, dtype=torch.float32,
                                   max_decode_seqlen: int = 2048) -> GPTConfig:
     """Baichuan: a Llama body with a fused W_pack QKV. The HF config does not
     record the position scheme or the head, so they are inferred as the
-    reference does: width < 5000 (7B) rotary, else (13B) ALiBi, which
-    raises; vocabulary > 70,000 (Baichuan 2) a NormHead."""
-    if hf.hidden_size >= 5000:
-        raise NotImplementedError(f"Baichuan-13B: {_ALIBI}")
+    reference does: width < 5000 (7B) rotary, else (13B) ALiBi;
+    vocabulary > 70,000 (Baichuan 2) a NormHead."""
+    use_rotary = hf.hidden_size < 5000
     return GPTConfig(
         vocab_size=hf.vocab_size, n_positions=0,
         n_embd=hf.hidden_size, n_layer=hf.num_hidden_layers,
         n_head=hf.num_attention_heads,
         n_inner=hf.intermediate_size,
         glu_act=True, use_rms_norm=True,
-        rotary_emb_fraction=1.0,
+        rotary_emb_fraction=1.0 if use_rotary else 0.0,
         rotary_emb_interleaved=False,
+        use_alibi=not use_rotary,
         norm_epsilon=hf.rms_norm_eps,
         tie_word_embeddings=getattr(hf, "tie_word_embeddings", False),
         norm_head=hf.vocab_size > 70000,

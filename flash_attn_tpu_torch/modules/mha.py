@@ -30,6 +30,19 @@ prefill and train mode (B1, and B3 or B2 for the gradient), decode (B4,
 linear and paged), the prefix-cached admission (B8) and the packed path
 (B7 forward, B6 backward), each on its kernels' band instantiation.
 
+``softcap`` and ``use_alibi`` (JAX mha.py:86, :91) map the scores of every
+serving call, as JAX's :226, :289 and :384 pass them: the dense prefill
+(B1), decode (B4, linear and paged, the speculative verify step too) and,
+for the cap, the prefix-cached admission (B8), each on its kernels' score
+instantiation. The slopes are the standard ALiBi schedule
+(:func:`alibi_slopes`), built once on the module's device as a buffer that
+a captured decode program reads in place. Their training half is
+ROADMAP.md queue A, item 1: a gradient through train mode raises, and so
+does packed input with either option. A prefix-cached admission of an ALiBi
+module raises too (the paged route refuses the slopes it is passed): JAX's
+drops the slopes there (mha.py:372-386), so its suffix would attend without
+positions (ROADMAP.md queue C).
+
 The cache lives in a :class:`KVCache` the caller passes in (the JAX
 module's flax "cache" collection), in the JAX layouts: linear (n_slots,
 h_k, s_alloc, d) with s_alloc = max_decode_seqlen rounded up to a multiple
@@ -40,6 +53,7 @@ the rows it admits (``slot_ids``) and the true prompt lengths
 """
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -52,11 +66,27 @@ from flash_attn_tpu_torch.cache.kvcache import (
 )
 from flash_attn_tpu_torch.dispatch.config import HEAD_DIMS
 from flash_attn_tpu_torch.interface import (
+    SCORE_TRAINING,
     flash_attn_func,
     flash_attn_varlen_func,
 )
 from flash_attn_tpu_torch.ops.rotary import apply_rotary_emb
 from flash_attn_tpu_torch.utils.device import resolve_device
+
+
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """The standard ALiBi slope schedule (JAX mha.py:120-130 ``_alibi_slopes``)
+    as (num_heads,) fp32: 2^(-8 (i + 1) / n) for the n = 2^floor(log2 h)
+    heads, then, for a head count that is not a power of two, every other
+    slope of the 2n-head schedule for the rest."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** (i + 1) for i in range(closest)]
+    if closest != num_heads:
+        extra = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        slopes += [extra ** (i + 1)
+                   for i in range(0, 2 * (num_heads - closest), 2)]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
 @dataclasses.dataclass
@@ -139,6 +169,7 @@ class MHA(nn.Module):
                  max_decode_seqlen: int = 2048, paged_kv_num_pages: int = 0,
                  paged_kv_page_size: int = 128,
                  window_size: Tuple[int, int] = (-1, -1),
+                 softcap: float = 0.0, use_alibi: bool = False,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
         device = resolve_device(device)
@@ -147,6 +178,13 @@ class MHA(nn.Module):
         self.head_dim = head_dim or embed_dim // num_heads
         self.causal = causal
         self.window_size = tuple(window_size)
+        self.softcap = softcap
+        self.use_alibi = use_alibi
+        # not in the state dict: the schedule is recomputed, as JAX's is
+        self.register_buffer(
+            "alibi_slopes",
+            alibi_slopes(num_heads, device) if use_alibi else None,
+            persistent=False)
         self.softmax_scale = softmax_scale
         self.max_decode_seqlen = max_decode_seqlen
         self.paged_kv_num_pages = paged_kv_num_pages
@@ -266,6 +304,7 @@ class MHA(nn.Module):
         if self.dwconv and mode == "prefill" and prefix_lengths is not None:
             raise NotImplementedError(
                 "MHA: prefix caching with dwconv is unsupported (as in JAX)")
+        score = dict(softcap=self.softcap, alibi_slopes=self.alibi_slopes)
         b, s = x.shape[:2]
         dev = x.device
         h, h_k, d = self.num_heads, self.num_heads_kv, self.head_dim
@@ -301,7 +340,7 @@ class MHA(nn.Module):
                 cache_seqlens=cache.offset, causal=self.causal,
                 window_size=self.window_size,
                 softmax_scale=self.softmax_scale,
-                block_table=self._table_rows(block_table, None))
+                block_table=self._table_rows(block_table, None), **score)
             cache.offset += s
             return self.out_proj(ctx.reshape(b, s, h * d))
 
@@ -331,7 +370,7 @@ class MHA(nn.Module):
                 self.max_decode_seqlen, causal=self.causal,
                 window_size=self.window_size,
                 softmax_scale=self.softmax_scale, block_table=table,
-                seqused_k=total_k, seqused_q=lengths)
+                seqused_k=total_k, seqused_q=lengths, **score)
             return self.out_proj(ctx.reshape(b, s, h * d))
 
         if rope is not None:
@@ -341,7 +380,7 @@ class MHA(nn.Module):
             k = apply_rotary_emb(k, cos, sin, rope.interleaved)
         ctx = flash_attn_func(q, k, v, causal=self.causal,
                               window_size=self.window_size,
-                              softmax_scale=self.softmax_scale)
+                              softmax_scale=self.softmax_scale, **score)
         if prefill:
             zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
             if self.paged:
@@ -358,6 +397,10 @@ class MHA(nn.Module):
 
     def _forward_packed(self, x, cu_seqlens, max_seqlen: int):
         """The packed path of JAX mha.py:207-229."""
+        if self.softcap > 0.0 or self.use_alibi:
+            raise NotImplementedError(
+                "MHA: packed input (cu_seqlens) with softcap or ALiBi is not "
+                f"ported yet (ROADMAP.md {SCORE_TRAINING})")
         total = x.shape[0]
         h, h_k, d = self.num_heads, self.num_heads_kv, self.head_dim
         q, k, v = self.Wqkv(x).split([h * d, h_k * d, h_k * d], dim=-1)

@@ -223,6 +223,13 @@ class InferenceEngine:
         if prefix_cache:
             if page_pool is None:
                 raise ValueError("prefix_cache needs a page pool")
+            if model.config.use_alibi:
+                # the JAX engine's admission drops the slopes (its MHA
+                # passes none to the paged route): ROADMAP.md queue C
+                raise ValueError(
+                    "prefix_cache with an ALiBi model (use_alibi): a cached "
+                    "prefix's suffix would attend without the slopes, as the "
+                    "JAX package's admission does (ROADMAP.md queue C)")
             self._prefix_index: Dict[bytes, int] = {}
             self._page_keys: Dict[int, bytes] = {}
             self.prefix_hit_pages = 0

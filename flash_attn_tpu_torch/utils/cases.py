@@ -101,3 +101,83 @@ BAND_BWD_CASES = [
     ("window at d=96", 2, 2048, 2048, 64, 64, 96, True, (511, 0), 0, 0),
     ("window at d=256", 2, 2048, 2048, 16, 16, 256, True, (511, 0), 0, 0),
 ]
+# softcap and ALiBi (dispatch/score.py) on the card. slopes: None, "1d"
+# ((h,) broadcast over the batch) or "2d" ((b, h)), from the standard
+# schedule of modules/mha.py alibi_slopes ("2d": each batch row's scaled
+# by 1 + row / b). Baichuan-13B's shape: 40 heads of 128, ALiBi; the
+# 913M GPT's: 16 heads of 128 with Gemma-2's attn_logit_softcapping, 50.
+BAICHUAN_HEADS = 40
+GEMMA2_SOFTCAP = 50.0
+SCORE_FWD_CASES = [  # (name, b, sq, sk, h, h_k, d, causal, softcap, slopes,
+    # window, dtype); the first two are timed into the kernels line: the
+    # static prefills of Baichuan-13B (8 x 512) and of the softcap GPT
+    ("Baichuan-13B prefill", 8, 512, 512, 40, 40, 128, True, 0.0, "1d",
+     (-1, -1), torch.bfloat16),
+    ("913M softcap prefill", 8, 512, 512, 16, 16, 128, True, GEMMA2_SOFTCAP,
+     None, (-1, -1), torch.bfloat16),
+    ("cap 30, sq < sk", 2, 700, 1300, 16, 4, 128, True, 30.0, None, (-1, -1),
+     torch.bfloat16),
+    ("alibi (b, h), not causal, sq < sk", 2, 600, 1000, 16, 4, 128, False,
+     0.0, "2d", (-1, -1), torch.bfloat16),
+    ("alibi (h,), causal, sq > sk (rows with no key)", 2, 900, 500, 16, 16,
+     128, True, 0.0, "1d", (-1, -1), torch.bfloat16),
+    ("alibi (b, h), not causal, sq = sk", 2, 1024, 1024, 16, 16, 128, False,
+     0.0, "2d", (-1, -1), torch.float16),
+    ("both, causal, GQA 32/8", 2, 1024, 1024, 32, 8, 128, True, 50.0, "2d",
+     (-1, -1), torch.bfloat16),
+    ("both under a window", 2, 2048, 2048, 16, 4, 128, True, 30.0, "1d",
+     (255, 0), torch.bfloat16),
+    ("both, d=64, fp16", 2, 1000, 1000, 16, 16, 64, True, 5.0, "2d",
+     (-1, -1), torch.float16),
+    ("both, d=96", 2, 1000, 1000, 16, 16, 96, True, 30.0, "1d", (-1, -1),
+     torch.bfloat16),
+    ("both, d=256", 2, 1000, 1000, 8, 8, 256, False, 30.0, "2d", (-1, -1),
+     torch.bfloat16),
+]
+SCORE_DECODE_CASES = [  # (name, b, sq, h, h_k, d, page (0: linear), keys,
+    # softcap, slopes, num_splits (0: flash_attn_with_kvcache's choice),
+    # causal); keys is each row's cache length after the append (the rows
+    # of a call get keys, keys - 37, keys - 74, ...). The timed ones:
+    # Baichuan-13B's static decode step (b=8, 543 keys), its engine's decode
+    # step (16 slots, pages of 256) and verify step (sq = 5), and the
+    # softcap GPT's static and engine decode steps (64 slots)
+    ("Baichuan-13B decode step", 8, 1, 40, 40, 128, 0, 543, 0.0, "1d", 0,
+     True),
+    ("Baichuan-13B engine decode step", 16, 1, 40, 40, 128, 256, 543, 0.0,
+     "1d", 0, True),
+    ("Baichuan-13B engine verify step", 16, 5, 40, 40, 128, 256, 543, 0.0,
+     "1d", 0, True),
+    ("913M softcap decode step", 8, 1, 16, 16, 128, 0, 543,
+     GEMMA2_SOFTCAP, None, 0, True),
+    ("913M softcap engine decode step", 64, 1, 16, 16, 128, 256, 543,
+     GEMMA2_SOFTCAP, None, 0, True),
+    ("alibi, 1 split", 8, 1, 40, 40, 128, 0, 543, 0.0, "2d", 1, True),
+    ("both, GQA group 4, 3 splits", 4, 1, 32, 8, 128, 0, 3000, 30.0, "2d", 3,
+     True),
+    ("both, verify step, GQA group 4, pages of 64", 4, 5, 32, 8, 128, 64,
+     3000, 30.0, "2d", 0, True),
+    ("alibi, not causal, sq = 5, 1 split, pages of 16", 4, 5, 16, 4, 64, 16,
+     900, 0.0, "2d", 1, False),
+    ("cap, d=256, sq = 5", 4, 5, 16, 16, 256, 0, 1200, 30.0, None, 0, True),
+    ("alibi, d=96", 4, 1, 64, 64, 96, 0, 1200, 0.0, "1d", 0, True),
+]
+# B8 with the cap: the softcap GPT's prefix-cached admission (VARLEN_CASES'
+# first shape), then a window under the cap
+SCORE_VARLEN_CASES = [  # (case of VARLEN_CASES' form, softcap, window)
+    (VARLEN_CASES[0], GEMMA2_SOFTCAP, (-1, -1)),
+    (("ragged, GQA 16/4", [300, 17, 128, 64], [812, 17, 400, 264], None, 16,
+      4, 128, 64, torch.bfloat16, True), 30.0, (100, 0)),
+]
+
+
+def score_slopes(kind, b: int, h: int, device=None):
+    """The slopes of a SCORE_* case: None, the (h,) schedule, or (b, h) rows
+    of it scaled by 1 + row / b."""
+    if kind is None:
+        return None
+    from flash_attn_tpu_torch.modules.mha import alibi_slopes
+
+    s = alibi_slopes(h, device)
+    if kind == "1d":
+        return s
+    return s[None] * (1 + torch.arange(b, device=device)[:, None] / b)

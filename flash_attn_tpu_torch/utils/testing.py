@@ -1,7 +1,8 @@
 """Golden reference attention and the repo's numerics contract.
 
 Port of flash_attn_tpu/utils/testing.py ``attention_ref`` (:177, with
-query and key padding masks, the sliding window, sink tokens and chunks),
+query and key padding masks, the sliding window, sink tokens and chunks,
+softcap and ALiBi), ``attn_bias_from_alibi_slopes`` (:115),
 ``construct_local_mask`` (:34), ``construct_chunk_mask`` (:81),
 ``generate_random_padding_mask`` (:154) and ``check_against_ref`` (:306),
 for the masks the port supports, with the
@@ -25,6 +26,7 @@ from flash_attn_tpu_torch.dispatch.config import default_scale
 
 __all__ = ["attention_ref", "attention_ref_grads", "attention_varlen_paged_ref",
            "attention_varlen_ref", "attention_varlen_ref_grads",
+           "attn_bias_from_alibi_slopes",
            "check_against_ref", "construct_chunk_mask",
            "construct_local_mask", "generate_random_padding_mask",
            "paged_to_linear"]
@@ -111,6 +113,27 @@ def construct_chunk_mask(seqlen_q: int, seqlen_k: int, attention_chunk: int,
     return (col < lo) | (col >= lo + attention_chunk)
 
 
+def attn_bias_from_alibi_slopes(slopes, seqlen_q: int, seqlen_k: int,
+                                query_padding_mask=None,
+                                key_padding_mask=None, causal: bool = False):
+    """ALiBi's bias, broadcastable to (b, h, sq, sk), from slopes (h,) or
+    (b, h): under ``causal`` col - (seqlen_k - 1) (relative to the last key
+    of the padded length, whatever the padding: a per-row constant), else
+    -|row + sk - sq - col| over the unpadded counts."""
+    if slopes.dim() == 1:
+        slopes = slopes[None, :]
+    slopes = slopes[:, :, None, None].float()
+    dev = slopes.device
+    if causal:
+        bias = torch.arange(-seqlen_k + 1, 1, dtype=torch.float32, device=dev)
+        return bias[None, None, None, :] * slopes
+    row = torch.arange(seqlen_q, device=dev)[:, None]
+    col = torch.arange(seqlen_k, device=dev)[None, :]
+    sq, sk = _unpadded_lengths(seqlen_q, seqlen_k, query_padding_mask,
+                               key_padding_mask)
+    return -slopes * (row + sk - sq - col).abs().float()
+
+
 def attention_ref(
     q,  # (b, sq, h, d)
     k,  # (b, sk, h_k, d)
@@ -124,10 +147,14 @@ def attention_ref(
     window_size=(None, None),
     sink_token_length: int = 0,
     attention_chunk: int = 0,
+    softcap: float = 0.0,
+    alibi_slopes=None,  # (h,) or (b, h)
 ):
     """Full-matrix attention, fp32 by default (``upcast``), else in the
     inputs' type. Scores are q k^T (+ qv v^T) times the scale, 1/sqrt(d)
-    (1/sqrt(d + dv) with ``qv``). Bottom-right aligned causal, local
+    (1/sqrt(d + dv) with ``qv``), capped (tanh(s / softcap) softcap) before
+    the masks and biased by ALiBi (:func:`attn_bias_from_alibi_slopes`)
+    after them, JAX's order. Bottom-right aligned causal, local
     (``window_size`` (left, right), None for no bound, with
     ``sink_token_length`` sink keys) and chunk masks (over the unpadded
     query and key counts), GQA by grouping the query heads of each KV head
@@ -152,6 +179,8 @@ def attention_ref(
         scores = scores + torch.einsum("btkgd,bskd->bkgts",
                                        grouped(qv * softmax_scale), v)
     scores = scores.reshape(b, h, seqlen_q, seqlen_k)
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
     neg_inf = float("-inf")
     if key_padding_mask is not None:
         scores = scores.masked_fill(~key_padding_mask[:, None, None, :], neg_inf)
@@ -165,6 +194,10 @@ def attention_ref(
         scores = scores.masked_fill(construct_chunk_mask(
             seqlen_q, seqlen_k, attention_chunk, query_padding_mask,
             key_padding_mask, q.device), neg_inf)
+    if alibi_slopes is not None:
+        scores = scores + attn_bias_from_alibi_slopes(
+            alibi_slopes.to(q.device), seqlen_q, seqlen_k, query_padding_mask,
+            key_padding_mask, causal)  # promotes, as jnp's does
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - torch.where(torch.isneginf(m), 0.0, m))
     e = torch.where(torch.isneginf(scores), 0.0, e)
@@ -217,12 +250,14 @@ def attention_varlen_paged_ref(q, k_pages, v_pages, cu_seqlens_q, seqlens_k,
                                causal: bool = False,
                                softmax_scale: Optional[float] = None,
                                upcast: bool = True, qv=None,
-                               window_size=(None, None)):
+                               window_size=(None, None),
+                               softcap: float = 0.0):
     """Packed-varlen attention over a paged cache, one :func:`attention_ref`
     call per sequence. Sequence i owns the packed rows cu_seqlens_q[i] ..
     cu_seqlens_q[i + 1]; its first seqused_q[i] rows (all when seqused_q
     is None) attend to its first seqlens_k[i] keys with bottom-right causal
-    alignment (and ``window_size``), the rest give zeros. ``qv`` (total_q,
+    alignment (and ``window_size``, and the scores capped by
+    ``softcap``), the rest give zeros. ``qv`` (total_q,
     h, dv) adds qv v^T to the scores. Returns out (total_q, h, dv)."""
     cu = cu_seqlens_q.tolist()
     lens_k = seqlens_k.tolist()
@@ -239,7 +274,7 @@ def attention_varlen_paged_ref(q, k_pages, v_pages, cu_seqlens_q, seqlens_k,
             q[None, lo:lo + lq], k_lin[i:i + 1, :lk], v_lin[i:i + 1, :lk],
             causal=causal, softmax_scale=softmax_scale, upcast=upcast,
             qv=None if qv is None else qv[None, lo:lo + lq],
-            window_size=window_size)
+            window_size=window_size, softcap=softcap)
         out[lo:lo + lq] = o[0]
     return out
 

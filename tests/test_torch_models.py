@@ -354,11 +354,14 @@ def test_alibi_families_raise_naming_item_7():
     falcon_alibi = transformers.FalconConfig(
         vocab_size=VOCAB, hidden_size=64, num_hidden_layers=1,
         num_attention_heads=4, alibi=True)
-    for make in (lambda: TA.btlm_config_to_gpt_config(btlm),
-                 lambda: TA.baichuan_config_to_gpt_config(baichuan_13b),
-                 lambda: TA.falcon_config_to_gpt_config(falcon_alibi),
-                 lambda: GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1,
-                                                  use_alibi=True),
-                                        device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            make()
+    # ALiBi serves (queue A item 1's serving half): BTLM and Baichuan-13B
+    # map onto use_alibi (tests/test_torch_alibi_models.py holds them to
+    # JAX); Falcon's alibi flag, which JAX's adapter ignores, raises
+    # (ROADMAP.md queue C)
+    assert TA.btlm_config_to_gpt_config(btlm).use_alibi
+    cfg = TA.baichuan_config_to_gpt_config(baichuan_13b)
+    assert cfg.use_alibi and cfg.rotary_emb_fraction == 0.0
+    assert GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1, use_alibi=True),
+                          device="cpu").transformer.layers[0].mixer.use_alibi
+    with pytest.raises(NotImplementedError, match="queue C"):
+        TA.falcon_config_to_gpt_config(falcon_alibi)

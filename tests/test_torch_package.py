@@ -24,7 +24,11 @@ from flash_attn_tpu_torch.utils.cases import (
     BAND_FWD_CASES,
     BAND_VARLEN_CASE,
     MISTRAL_WINDOW,
+    SCORE_DECODE_CASES,
+    SCORE_FWD_CASES,
+    SCORE_VARLEN_CASES,
     VARLEN_CASES,
+    score_slopes,
 )
 
 torch.set_num_threads(1)
@@ -118,8 +122,11 @@ def test_dropout_refusals_point_at_queue_a_7():
 
 
 def test_unported_model_options_raise():
-    with pytest.raises(NotImplementedError, match="use_alibi"):
-        GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1, use_alibi=True),
+    """Quantized caches are still unported (ALiBi and softcap serve:
+    tests/test_torch_alibi_models.py)."""
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
+        GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1,
+                                 kv_cache_dtype=torch.float8_e4m3fn),
                        device="cpu")
 
 
@@ -2747,3 +2754,235 @@ def test_band_backward_windows_that_reach_every_key_stay_band_free_on_the_card()
         same = [torch.equal(x, y) for x, y in zip(a, b)]
         # B2's dq sums with atomics: its bits may vary from run to run
         assert all(same if i != 1 else same[1:]), (i, same)
+
+
+def _score_refs(q, k, v, causal, kw):
+    """The fp32 plain forward (out (b, sq, h, d), lse) and the low-precision
+    reference of one batch row of a SCORE_FWD_CASES case."""
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import attention_ref
+
+    o, lse = flash_fwd.flash_attention_fwd_plain(
+        *(x.transpose(1, 2).float() for x in (q, k, v)), causal=causal, **kw)
+    ref_lp, _ = attention_ref(q, k, v, causal=causal, upcast=False, **kw)
+    return o.transpose(1, 2), lse, ref_lp
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", SCORE_FWD_CASES, ids=lambda c: c[0])
+def test_score_forward_kernel_matches_plain_version_on_the_card(case):
+    """B1's score instantiation (softcap, ALiBi, both, under a window) on
+    every SCORE_FWD_CASES case (two batch rows of it, the (b, h) slopes of
+    the case's first two rows): the 2x rule against the fp32 plain forward,
+    lse within 1e-3 in JAX's last-key form and -inf on the same rows, the
+    same bits twice, counted as the score map's launches."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    name, b, sq, sk, h, h_k, d, causal, cap, kind, window, dtype = case
+    b = min(b, 2)
+    kw = dict(softcap=cap, window_size=normalize_window(window),
+              alibi_slopes=score_slopes(kind, b, h, "cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + h)
+    q, k, v = (torch.randn(b, n, heads, d, device="cuda", generator=gen)
+               .to(dtype) for n, heads in ((sq, h), (sk, h_k), (sk, h_k)))
+    args = [x.transpose(1, 2) for x in (q, k, v)]
+    before = flash_fwd.launches_score
+    out, lse = flash_fwd.flash_attention_fwd(*args, causal=causal, **kw)
+    again = flash_fwd.flash_attention_fwd(*args, causal=causal, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches_score == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse, ref_lp = _score_refs(q, k, v, causal, kw)
+    check_against_ref(out.transpose(1, 2), ref, ref_lp, msg=name)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", SCORE_DECODE_CASES, ids=lambda c: c[0])
+def test_score_decode_kernel_matches_plain_version_on_the_card(case):
+    """B4 with softcap or ALiBi on every SCORE_DECODE_CASES case, linear and
+    paged: the split partials against the plain version's on the CPU (lse
+    within 1e-3 in the last-key form, which combine_splits merges, out
+    within 1e-3: both fp32 over the same bf16 inputs), the same bits twice,
+    the merged output by the 2x rule, counted as the score map's
+    launches."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+        paged_to_linear,
+    )
+
+    name, b, sq, h, h_k, d, page, keys, cap, kind, splits, causal = case
+    kw = dict(softcap=cap, alibi_slopes=score_slopes(kind, b, h, "cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(keys + sq + h)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).bfloat16()
+    if page:
+        width = -(-keys // page)
+        kc, vc = (torch.randn(b * width + 1, h_k, page, d, device="cuda",
+                              generator=gen).bfloat16() for _ in range(2))
+        table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+                 ).reshape(b, width).int()
+    else:
+        kc, vc = (torch.randn(b, h_k, -(-keys // 128) * 128, d, device="cuda",
+                              generator=gen).bfloat16() for _ in range(2))
+        table = None
+    lens = (keys - 37 * torch.arange(b, device="cuda")).clamp(min=sq).int()
+    splits = splits or _default_num_splits(q, kc, vc, table, False)
+    counter = "launches_paged_score" if page else "launches_score"
+    before = getattr(flash_decode, counter)
+    args = (q, kc, vc, lens, splits, d ** -0.5, causal)
+    out_p, lse_p = flash_decode.flash_attention_decode_partials(
+        *args, block_table=table, **kw)
+    again = flash_decode.flash_attention_decode_partials(
+        *args, block_table=table, **kw)
+    out, _ = flash_decode.flash_attention_decode(
+        q, kc, vc, lens, causal=causal, num_splits=splits, block_table=table,
+        **kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_decode, counter) == before + 3
+    assert torch.equal(out_p, again[0]) and torch.equal(lse_p, again[1])
+    cpu = [x.float().cpu() for x in (q, kc, vc)]
+    kw_cpu = dict(kw, alibi_slopes=None if kw["alibi_slopes"] is None
+                  else kw["alibi_slopes"].cpu())
+    table_cpu = None if table is None else table.cpu()
+    ref_p, ref_lse_p = flash_decode.flash_attention_decode_partials(
+        *cpu, lens.cpu(), splits, d ** -0.5, causal, block_table=table_cpu,
+        **kw_cpu)
+    empty = torch.isneginf(ref_lse_p)
+    assert torch.equal(torch.isneginf(lse_p.cpu()), empty)
+    torch.testing.assert_close(lse_p.cpu()[~empty], ref_lse_p[~empty],
+                               atol=1e-3, rtol=0)
+    torch.testing.assert_close(out_p.cpu(), ref_p, atol=1e-3, rtol=0)
+    ref, _ = flash_decode.flash_attention_decode(
+        *cpu, lens.cpu(), causal=causal, num_splits=splits,
+        block_table=table_cpu, **kw_cpu)
+    lin = [x if table is None else paged_to_linear(x, table, lens)
+           for x in (kc, vc)]
+    keep = torch.arange(lin[0].shape[2], device="cuda")[None] < lens[:, None]
+    ref_lp, _ = attention_ref(q, lin[0].transpose(1, 2),
+                              lin[1].transpose(1, 2), key_padding_mask=keep,
+                              causal=causal, upcast=False, **kw)
+    check_against_ref(out, ref, ref_lp, msg=name)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", SCORE_VARLEN_CASES, ids=lambda c: c[0][0])
+def test_score_varlen_paged_kernel_matches_plain_version_on_the_card(case):
+    """B8's score instantiation (the cap, with and without a window) on
+    SCORE_VARLEN_CASES: the 2x rule, lse within 1e-3 and -inf on the same
+    rows, the same bits twice, counted as the score map's launches."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_varlen_paged_ref,
+        check_against_ref,
+    )
+
+    (name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal), cap, \
+        window = case
+    kw = dict(softcap=cap, window_size=normalize_window(window))
+    b = len(lens_q)
+    gen = torch.Generator(device="cuda").manual_seed(b + h_k)
+    cu = torch.tensor([0] + list(itertools.accumulate(lens_q)),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    width = -(-max(lens_k) // page)
+    kp, vp = (torch.randn(b * width + 1, h_k, page, d, device="cuda",
+                          generator=gen).to(dtype) for _ in range(2))
+    table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+             ).reshape(b, width).int()
+    lens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    args = (cu, max(lens_q), lens_k, table)
+    before = fvp.launches_score
+    out, lse = fvp.flash_attention_varlen_paged_fwd(q, kp, vp, *args,
+                                                    causal=causal, **kw)
+    again = fvp.flash_attention_varlen_paged_fwd(q, kp, vp, *args,
+                                                 causal=causal, **kw)
+    torch.cuda.synchronize()
+    assert fvp.launches_score == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+        q.float(), kp.float(), vp.float(), *args, causal=causal, **kw)
+    ref_lp = attention_varlen_paged_ref(q, kp, vp, cu, lens_k, table,
+                                        causal=causal, upcast=False, **kw)
+    check_against_ref(out, ref, ref_lp, msg=name)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("mode", ["static", "engine"])
+def test_graphed_decode_equals_eager_with_alibi_on_the_card(mode):
+    """An ALiBi model decodes the same tokens (and static decode the same
+    scores) bitwise replaying its captured step as eagerly, every attention
+    launch the score map's: the slopes are a buffer the graph reads in
+    place, and the causal bias takes each row's length from the device at
+    every replay. Statically a softcap model too; through the engine over
+    a paged cache (B4 paged), with slot reuse."""
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    def score_launches(n):
+        score = [key for key in n if key.endswith("_score")]
+        return score and all(n[key] == n[key[:-len("_score")]]
+                             for key in score)
+
+    if mode == "engine":
+        model = _graph_model(True, use_alibi=True)
+        jobs = _engine_jobs(4)
+        (want, n_eager), (got, n_graph) = (
+            _serve(_engine(model, cg), jobs) for cg in (False, True))
+        assert got == want and n_graph == n_eager and score_launches(n_eager)
+        return
+    for fields in (dict(use_alibi=True), dict(softcap=5.0)):
+        model = _graph_model(False, **fields)
+        ids = torch.randint(
+            0, 512, (3, 20), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(1))
+        cfg = GenerationConfig(max_length=48)
+        want, n_eager = _counted(lambda: decode(ids, model, cfg,
+                                                output_scores=True, cg=False))
+        got, n_graph = _counted(lambda: decode(ids, model, cfg,
+                                               output_scores=True, cg=True))
+        assert n_eager == n_graph and score_launches(n_eager)
+        for x, y in zip(want, got):
+            assert x == y if isinstance(x, int) else torch.equal(x, y)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_score_refusals_on_the_card():
+    """On the card as on the CPU: a gradient with softcap or ALiBi, the
+    slopes on the paged route and softcap on the MLA decode route raise
+    NotImplementedError before any kernel runs."""
+    from flash_attn_tpu_torch.interface import flash_attn_varlen_func
+
+    q = torch.randn(1, 128, 4, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    for kw in (dict(softcap=30.0),
+               dict(alibi_slopes=torch.ones(4, device="cuda"))):
+        with pytest.raises(NotImplementedError, match="item 1"):
+            flash_attn_func(q, q, q, causal=True, **kw)
+    x = torch.randn(12, 2, 64, device="cuda", dtype=torch.bfloat16)
+    kp = torch.zeros(12, 2, 16, 64, device="cuda", dtype=torch.bfloat16)
+    cu = torch.tensor([0, 5, 12], dtype=torch.int32, device="cuda")
+    table = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="queue C"):
+        flash_attn_varlen_func(x, kp, kp, cu, None, 7, 32, block_table=table,
+                               seqused_k=torch.tensor([5, 7], device="cuda"),
+                               alibi_slopes=torch.ones(2, device="cuda"))
+    qd = torch.zeros(1, 1, 2, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 1, 128, 64, device="cuda", dtype=torch.bfloat16)
+    v = torch.zeros(1, 1, 128, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        flash_attn_with_kvcache(qd, k, v, cache_seqlens=4, softcap=5.0,
+                                qv=torch.zeros(1, 1, 2, 128, device="cuda",
+                                               dtype=torch.bfloat16))

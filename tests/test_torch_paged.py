@@ -175,8 +175,9 @@ def test_varlen_refusals_point_at_queue_a():
     """Dense varlen (B6/B7, queue A item 5) is ported and runs; so is qv
     over a paged cache (B8p, the MLA chunked prefill), the window on both
     routes and attention_chunk on the dense one, while qv on the dense
-    route, attention_chunk on the paged one, and softcap and descales on
-    both routes are still item 7."""
+    route, attention_chunk on the paged one, and descales on both routes
+    are still item 7; softcap runs on the paged route (B8) and, as ALiBi,
+    is item 1 on the dense one."""
     q = torch.zeros(4, 2, 64)
     cu = torch.tensor([0, 4], dtype=torch.int32)
     assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4).shape == q.shape
@@ -186,8 +187,11 @@ def test_varlen_refusals_point_at_queue_a():
                                   **paged).shape == q.shape
     with pytest.raises(NotImplementedError, match="queue A, item 7"):
         flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, qv=q)
-    for kw in (dict(attention_chunk=16), dict(softcap=5.0),
-               dict(k_descale=torch.ones(1, 2))):
+    assert flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged,
+                                  softcap=5.0).shape == q.shape
+    with pytest.raises(NotImplementedError, match="queue A, item 1"):
+        flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, softcap=5.0)
+    for kw in (dict(attention_chunk=16), dict(k_descale=torch.ones(1, 2))):
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
             flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged, **kw)
         if "attention_chunk" in kw:  # the dense route takes the chunk

@@ -507,10 +507,12 @@ def test_persistent_plain_equals_banded_plain(causal):
     dict(q_descale=torch.ones(1, 2))])
 def test_varlen_refusals_name_queue_a_7(kwargs):
     """Each option the dense route does not take raises (the window and the
-    chunk run: tests/test_torch_band_varlen.py)."""
+    chunk run: tests/test_torch_band_varlen.py), naming queue A item 7, or
+    item 1 for softcap and ALiBi (their training half)."""
     q = torch.zeros(8, 2, 64)
     cu = torch.tensor([0, 8], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+    item = 1 if set(kwargs) & {"softcap", "alibi_slopes"} else 7
+    with pytest.raises(NotImplementedError, match=f"queue A, item {item}"):
         flash_attn_varlen_func(q, q, q, cu, cu, 8, 8, **kwargs)
 
 

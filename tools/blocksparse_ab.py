@@ -28,8 +28,9 @@ changes). Give the roots in turns (A B B A) to compare two trees on the
 card they share.
 
 With --sass it compiles the sources of the kernels that share B10's tiles
-(flash_fwd.cu, flash_varlen_fwd.cu, flash_varlen_paged.cu, flash_bwd.cu,
-flash_varlen.cu) in both trees with nvcc -cubin and says, kernel by
+(flash_fwd.cu, flash_varlen_fwd.cu and its band instantiations,
+flash_varlen_paged.cu, flash_blocksparse.cu, flash_bwd.cu, flash_varlen.cu)
+in both trees with nvcc -cubin and says, kernel by
 kernel, whether the machine code (cuobjdump -sass, with the file-specific
 part of the names taken out) is the same, under the kernel's own name or
 another one; exit 1 if a kernel of ROOT_A compiles to code that ROOT_B
@@ -50,8 +51,9 @@ import torch
 SMOKE = Path(__file__).resolve().parent.parent / "chip_smoke.py"
 TRAINING = (4, 2048, 16, 128)  # b, s, h, d
 STRADDLE = ("local 4 + global, tiles of 64", 4, 2048, 64, "local", True)
-SASS_SOURCES = ["flash_fwd.cu", "flash_varlen_fwd.cu", "flash_varlen_paged.cu",
-                "flash_bwd.cu", "flash_varlen.cu"]
+SASS_SOURCES = ["flash_fwd.cu", "flash_varlen_fwd.cu", "flash_varlen_fwd_band.cu",
+                "flash_varlen_paged.cu", "flash_blocksparse.cu", "flash_bwd.cu",
+                "flash_varlen.cu"]
 
 
 def digest(*tensors) -> str:

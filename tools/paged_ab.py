@@ -12,7 +12,7 @@ every process): the prefix-cached admission (8 chunks of 256 rows over 512
 keys, 16 heads of 128, pages of 256, causal, bf16) and the ragged case. For
 each it prints the max abs error against the plain fp32 version, the whole
 call's device ms (CUDA events over a held stream, median of 25) and the
-kernel's alone (torch.profiler, device time a call over 5 calls), with
+kernel's alone (torch.profiler, device time a call over 10 calls), with
 chip_smoke.py's own timers, twice. Give the roots in turns (A B B A) to
 compare two trees on the card they share.
 """

@@ -13,7 +13,7 @@ bench.py's mixed lengths (16 sequences uniform in [2048, 4096], h=16,
 d=128, causal), bf16, on residuals of B6's forward. For each it prints the
 max abs error of dq, dk, dv against the plain fp32 backward, the whole
 call's device ms (CUDA events over a held stream, median of 25) and each
-kernel's alone (torch.profiler, device time a call over 5 calls; the torch
+kernel's alone (torch.profiler, device time a call over 10 calls; the torch
 ops around them under "other"), with chip_smoke.py's own timers, twice.
 Give the roots in turns (A B B A) to compare two trees on the card they
 share.
