@@ -268,7 +268,34 @@
    refuse it;
 24. the 913M GPT with softcap 50 (Gemma-2's attn_logit_softcapping):
    static serving, the cap in force, the paged and the prefix-cached
-   engine (B8 under the cap), each held to a teacher-forced decode.
+   engine (B8 under the cap), each held to a teacher-forced decode;
+25. softcap and ALiBi in training (utils/cases.py SCORE_BWD_CASES): B3's
+   and B2's score instantiations and the preprocess on 9 shapes
+   (Baichuan-13B's training shape, 2 x 4096 at 40 heads of 128 under causal
+   ALiBi; the 913M's, 4 x 2048 under a cap of 50; the cap at GQA 32/8 with
+   sq < sk; ALiBi (b, h) not causal with sq < sk; ALiBi (h,) causal with
+   rows that see no key; both under a window; both at d = 64 in fp16 with
+   a cap of 5, at 96 and at 256) against the plain fp32 score backward (the
+   2x rule), each launch counted as the score map's, B3 bitwise twice, a
+   requires_grad slopes tensor given exact zeros by flash_attn_func, B6's
+   score backward over the same rows packed bitwise B3's and B6's and B7's
+   score forwards bitwise B1's; at the two training shapes
+   flash_attn_func(...).backward() is counted both ways and each score
+   kernel is timed beside the pair without the map, a bound that reckons
+   the MUFU, its plain version and a library call (SDPA with ALiBi as a
+   float mask; compiled flex_attention forward and backward with a tanh
+   score_mod, held to the plain gradients first); the score
+   instantiations' registers;
+26. packed input through an MHA with ALiBi at Baichuan-13B's widths (B6's
+   score forward, as JAX routes ALiBi) and one with the cap at the 913M's
+   (B7's), forward and backward (B6's score backward), against the same
+   module on the CPU and the padded dense call on the card;
+27. Baichuan-13B-Base trained at full width (8 of 40 layers, the Baichuan
+   adapter: ALiBi, an untied head) at b=2 x 4096 with Trainer.fit as in 5.
+   (per step and layer one score forward, one preprocess, one score dK/dV
+   and one score dQ launch) and a profiled step;
+28. the 913M GPT with softcap 50 trained as in 5., every attention launch
+   the score map's, and a profiled step.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -1744,6 +1771,11 @@ def kernel_counts():
                 flash_varlen_persistent.launches_band,
             "fa_varlen_bwd_dkdv_band": flash_varlen.launches_dkdv_band,
             "fa_varlen_bwd_dq_band": flash_varlen.launches_dq_band,
+            "flash_varlen_fwd_score": flash_varlen.launches_fwd_score,
+            "flash_varlen_fwd_persistent_score":
+                flash_varlen_persistent.launches_score,
+            "fa_varlen_bwd_dkdv_score": flash_varlen.launches_dkdv_score,
+            "fa_varlen_bwd_dq_score": flash_varlen.launches_dq_score,
             "flash_blocksparse_fwd": flash_blocksparse.launches_fwd,
             "fa_blocksparse_bwd_preprocess":
                 flash_blocksparse.launches_preprocess,
@@ -1753,18 +1785,28 @@ def kernel_counts():
 
 def bwd_counts():
     """Launches of the dense forward and backward kernels since the last
-    reset_kernel_counts(), the band instantiations' among them."""
+    reset_kernel_counts(), the band and the score instantiations' among
+    them."""
     from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
 
     return {"flash_fwd": flash_fwd.launches,
             "flash_fwd_band": flash_fwd.launches_band,
+            "flash_fwd_score": flash_fwd.launches_score,
             "flash_bwd_preprocess": flash_bwd.launches_preprocess,
             "fa_bwd_dkdv": flash_bwd.launches_dkdv,
             "fa_bwd_dq": flash_bwd.launches_dq,
             "flash_bwd_fused": flash_bwd.launches_fused,
             "fa_bwd_dkdv_band": flash_bwd.launches_dkdv_band,
             "fa_bwd_dq_band": flash_bwd.launches_dq_band,
-            "flash_bwd_fused_band": flash_bwd.launches_fused_band}
+            "flash_bwd_fused_band": flash_bwd.launches_fused_band,
+            "fa_bwd_dkdv_score": flash_bwd.launches_dkdv_score,
+            "fa_bwd_dq_score": flash_bwd.launches_dq_score,
+            "flash_bwd_fused_score": flash_bwd.launches_fused_score}
+
+
+# bwd_counts()' score instantiations' keys, 0 in a run without the map
+NO_SCORE = {"flash_fwd_score": 0, "fa_bwd_dkdv_score": 0,
+            "fa_bwd_dq_score": 0, "flash_bwd_fused_score": 0}
 
 
 def reset_kernel_counts():
@@ -2193,13 +2235,14 @@ def make_loader(path: str, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ):
 
 
 def fit_checked(label, mcfg, path, batch: int = TRAIN_BATCH,
-                seq: int = TRAIN_SEQ, band: bool = False):
+                seq: int = TRAIN_SEQ, band: bool = False, score: bool = False):
     """Trainer.fit of the model of ``mcfg`` at batch x seq tokens a step
     (the repo's training shape, TRAIN_BATCH x TRAIN_SEQ, by default),
     TRAIN_STEPS steps over the token file at ``path``, with the checks of
     every training phase: per step and layer 1 forward, 1 preprocess, 1
     dK/dV and 1 dQ launch (with ``band``, every one of the forward's and
-    the backward's that of the band instantiation, none band-free); a
+    the backward's that of the band instantiation, none band-free; with
+    ``score``, every one that of the score instantiation); a
     finite loss near ln(vocab) that falls; the first step's fused-CE loss
     against torch's cross-entropy over the full fp32 logits of the same
     batch. Returns the launch counts, the measurements, the trainer and its
@@ -2241,7 +2284,9 @@ def fit_checked(label, mcfg, path, batch: int = TRAIN_BATCH,
         want = {"flash_fwd": m, "flash_bwd_preprocess": m, "fa_bwd_dkdv": m,
                 "fa_bwd_dq": m, "flash_bwd_fused": 0,
                 "flash_fwd_band": m * band, "fa_bwd_dkdv_band": m * band,
-                "fa_bwd_dq_band": m * band, "flash_bwd_fused_band": 0}
+                "fa_bwd_dq_band": m * band, "flash_bwd_fused_band": 0,
+                "flash_fwd_score": m * score, "fa_bwd_dkdv_score": m * score,
+                "fa_bwd_dq_score": m * score, "flash_bwd_fused_score": 0}
         require(c == want,
                 f"{label}: launch counts after training step {i + 1}: {c}")
     require(len(per_step) == TRAIN_STEPS and launches == per_step[-1],
@@ -4381,9 +4426,10 @@ def run_wide_families(card):
 
 
 def plain_bwd_refs(qt, kt, vt, dot, causal, lowprec: bool = True,
-                   heads_bytes: float = 1.1e9, **band):
+                   heads_bytes: float = 1.1e9, alibi_slopes=None, **band):
     """The 2x rule's references of a backward under the causal bound and
-    ``band`` (window_size, sink_token_length, attention_chunk), a batch row
+    ``band`` (window_size, sink_token_length, attention_chunk; softcap),
+    each chunk with its rows' and heads' ``alibi_slopes``, a batch row
     and as many KV heads at a time as keep each fp32 score matrix within
     ``heads_bytes`` (64 heads' 2048 x 2048 fit at once; Mistral-7B's 8192 x
     8192 take a KV head's group): the plain fp32 forward (out) and backward
@@ -4392,6 +4438,7 @@ def plain_bwd_refs(qt, kt, vt, dot, causal, lowprec: bool = True,
     inputs' type). Inputs (b, h, s, d) views; returns (out32, out_lp,
     grads32, grads_lp) with out32 and grads32 (b, h, s, d), out_lp and
     grads_lp (b, s, h, d) (left empty without ``lowprec``)."""
+    from flash_attn_tpu_torch.dispatch.score import slopes_bh
     from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
     from flash_attn_tpu_torch.utils.testing import (
         attention_ref,
@@ -4402,6 +4449,7 @@ def plain_bwd_refs(qt, kt, vt, dot, causal, lowprec: bool = True,
     h_k, sk = kt.shape[1], kt.shape[2]
     group = h // h_k
     per = max(1, int(heads_bytes // (group * sq * sk * 4)))
+    sl = slopes_bh(alibi_slopes, b, h)
     out32 = torch.empty(qt.shape, device="cuda")
     g32 = [torch.empty(x.shape, device="cuda") for x in (qt, kt, vt)]
     out_lp = torch.empty_like(qt.transpose(1, 2))
@@ -4412,11 +4460,13 @@ def plain_bwd_refs(qt, kt, vt, dot, causal, lowprec: bool = True,
             qs = slice(ks.start * group, ks.stop * group)
             chunk = [x[bi:bi + 1, hs] for x, hs in
                      ((qt, qs), (kt, ks), (vt, ks), (dot, qs))]
+            part = dict(band) if sl is None else dict(
+                band, alibi_slopes=sl[bi:bi + 1, qs])
             f32 = [x.float() for x in chunk[:3]]
             o, l = flash_fwd.flash_attention_fwd_plain(*f32, causal=causal,
-                                                       **band)
+                                                       **part)
             r = flash_bwd.flash_attention_bwd_plain(chunk[3].float(), *f32, o,
-                                                    l, causal=causal, **band)
+                                                    l, causal=causal, **part)
             out32[bi:bi + 1, qs] = o
             for i, hs in enumerate((qs, ks, ks)):
                 g32[i][bi:bi + 1, hs] = r[i]
@@ -4424,9 +4474,9 @@ def plain_bwd_refs(qt, kt, vt, dot, causal, lowprec: bool = True,
             if lowprec:
                 bshd = [x.transpose(1, 2) for x in chunk]
                 out_lp[bi:bi + 1, :, qs] = attention_ref(
-                    *bshd[:3], causal=causal, upcast=False, **band)[0]
+                    *bshd[:3], causal=causal, upcast=False, **part)[0]
                 lp = attention_ref_grads(*bshd, causal=causal, upcast=False,
-                                         **band)
+                                         **part)
                 for i, hs in enumerate((qs, ks, ks)):
                     glp[i][bi:bi + 1, :, hs] = lp[i]
                 del lp
@@ -5553,27 +5603,33 @@ def plain_band_chunks(qt, kt, vt, dot, out, lse, causal, band,
     """Functions running the plain fp32 band forward and backward over (b,
     h, s, d) views a few KV heads at a time (no fp32 score matrix past
     ``heads_bytes``): the plain versions' work at a shape whose whole
-    score matrices would not fit beside one another, for timing."""
+    score matrices would not fit beside one another, for timing. ``band``
+    may hold softcap and alibi_slopes too (each chunk takes its heads')."""
+    from flash_attn_tpu_torch.dispatch.score import slopes_bh
     from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
 
     b, h, sq, d = qt.shape
     h_k, sk = kt.shape[1], kt.shape[2]
     group = h // h_k
-    per = max(1, int(heads_bytes // (group * sq * sk * 4)))
+    per = max(1, int(heads_bytes // (b * group * sq * sk * 4)))
+    sl = slopes_bh(band.get("alibi_slopes"), b, h)
     parts = [(slice(k0 * group, min(k0 + per, h_k) * group),
               slice(k0, min(k0 + per, h_k))) for k0 in range(0, h_k, per)]
+
+    def kw(qs):
+        return dict(band, alibi_slopes=None if sl is None else sl[:, qs])
 
     def fwd():
         for qs, ks in parts:
             flash_fwd.flash_attention_fwd_plain(qt[:, qs], kt[:, ks],
                                                 vt[:, ks], causal=causal,
-                                                **band)
+                                                **kw(qs))
 
     def bwd():
         for qs, ks in parts:
             flash_bwd.flash_attention_bwd_plain(
                 dot[:, qs], qt[:, qs], kt[:, ks], vt[:, ks], out[:, qs],
-                lse[:, qs], causal=causal, **band)
+                lse[:, qs], causal=causal, **kw(qs))
     return fwd, bwd, len(parts)
 
 
@@ -5743,7 +5799,7 @@ def band_bwd_case(gen, case, timed: bool):
                     "flash_bwd_preprocess": 3, "fa_bwd_dkdv": 2,
                     "fa_bwd_dq": 2, "flash_bwd_fused": 1,
                     "fa_bwd_dkdv_band": 2, "fa_bwd_dq_band": 2,
-                    "flash_bwd_fused_band": 1},
+                    "flash_bwd_fused_band": 1, **NO_SCORE},
             f"band backward launches at {name}: {got}")
     require(all(torch.equal(a, c) for a, c in zip(b3, again)),
             f"B3's band instantiation differs between runs: {name}")
@@ -5844,7 +5900,8 @@ def band_bwd_case(gen, case, timed: bool):
                             "flash_bwd_fused": int(not det),
                             "fa_bwd_dkdv_band": int(det),
                             "fa_bwd_dq_band": int(det),
-                            "flash_bwd_fused_band": int(not det)},
+                            "flash_bwd_fused_band": int(not det),
+                            **NO_SCORE},
                     f"flash_attn_func band backward at {name} "
                     f"(deterministic={det}): {got}")
             if det:
@@ -5927,19 +5984,21 @@ def check_band_backward(gen, lib):
     marks = {}
     for d in (64, 96, 128, 256):
         ty = "13__nv_bfloat16"
+        # the band instantiations (BAND without SCORE: the last flag 0)
         marks.update({
             f"band dkdv d={d}": ("dense_bwd11dkdv_kernel", ty,
-                                 f"Li{d}ELb0ELb1E"),
+                                 f"Li{d}ELb0ELb1ELb0E"),
             f"band dkdv fused d={d}": ("dense_bwd11dkdv_kernel", ty,
-                                       f"Li{d}ELb1ELb1E"),
-            f"band dq d={d}": ("dense_bwd9dq_kernel", ty, f"Li{d}ELb1E"),
+                                       f"Li{d}ELb1ELb1ELb0E"),
+            f"band dq d={d}": ("dense_bwd9dq_kernel", ty, f"Li{d}ELb1ELb0E"),
             f"band varlen dkdv d={d}": ("varlen_dkdv_kernel", ty,
-                                        f"Li{d}ELb1E"),
-            f"band varlen dq d={d}": ("varlen_dq_kernel", ty, f"Li{d}ELb1E"),
+                                        f"Li{d}ELb1ELb0E"),
+            f"band varlen dq d={d}": ("varlen_dq_kernel", ty,
+                                      f"Li{d}ELb1ELb0E"),
             f"band B6 forward d={d}": ("17varlen_fwd_kernel", ty,
-                                       f"Li{d}ELb1E"),
+                                       f"Li{d}ELb1ELb0E"),
             f"band B7 d={d}": ("varlen_fwd_persistent_kernel", ty,
-                               f"Li{d}ELb1E")})
+                               f"Li{d}ELb1ELb0E")})
     res = kernel_resources(lib, marks)
     print("band instantiations' registers / stack / local bytes a thread "
           "(bf16; cuobjdump -res-usage): " + "; ".join(
@@ -6089,6 +6148,24 @@ BAICHUAN_13B = SimpleNamespace(
 # The MUFU's rate: 16 special-function operations (ex2, tanh) a clock on
 # each SM (the H100's SM has four SFU quadrants of 4 lanes each)
 MUFU_PER_SM_CLOCK = 16
+# softcap and ALiBi in training: Baichuan-13B-Base (BAICHUAN_13B) trained at
+# full width through the port's adapter with the depth cut to
+# BAICHUAN_TRAIN_LAYERS of 40 at BAICHUAN_TRAIN_BATCH x BAICHUAN_TRAIN_SEQ
+# (Mistral-7B's 8,192 tokens a step, at the model's own 4096 positions).
+# Reckoned before the run: 8 layers and both embeddings are 3.18B
+# parameters, about 38 GB of bf16 weights, fp32 masters, bf16 moments and
+# gradients, and about 17 GB of activations (Mistral-7B's share at 2.0B
+# parameters, 37.94 GB in all, scaled by the width): under the 70 GB at
+# which the depth would be cut to 6.
+BAICHUAN_TRAIN_LAYERS, BAICHUAN_TRAIN_BATCH, BAICHUAN_TRAIN_SEQ = 8, 2, 4096
+# The trained models' causality check (causal_check): the earlier
+# positions' logits may move by at most this when later tokens change (rows
+# of a product over other rows' inputs; a read of a later token moves them
+# by whole units)
+CAUSAL_GAP = 0.05
+# The packed score MHAs' sequences (run_score_mha): short enough for the
+# CPU reference at Baichuan-13B's widths, one past a 128-row tile
+SCORE_MHA_LENS = [300, 129, 183]
 
 
 @functools.lru_cache(maxsize=None)
@@ -6740,6 +6817,625 @@ def run_softcap_gpt(card):
     return launches, out
 
 
+# ---- softcap and ALiBi in training (B3, B2, B6's pair; B6's and B7's
+# forwards) ------------------------------------------------------------------
+
+
+def flex_bwd_row(make_call, refs, errs_lp, what):
+    """flex_row for a backward: make_call() gives a call of compiled
+    flex_attention's forward and backward on the kernel's inputs that
+    returns (dq, dk, dv) in the layout of ``refs``, the fp32 plain
+    gradients; each is held to its ref by the 2x rule of the kernel's own
+    check (errs_lp: the low-precision reference's error of each), then the
+    call is timed. Where flex_attention does not run here or misses that
+    rule, no time and the reason."""
+    try:
+        call = make_call()
+        got = call()
+        diffs = [(g.float() - r.float()).abs().max().item()
+                 for g, r in zip(got, refs)]
+    except Exception as e:  # the yardstick is optional; the reason is kept
+        return {"library_ms": None, "library_call": (
+            f"none: flex_attention's backward did not run here "
+            f"({type(e).__name__}: {str(e)[:200]})")}
+    del got
+    bad = [(n, x, lp) for n, x, lp in zip("qkv", diffs, errs_lp)
+           if not x <= 2 * lp + BWD_ATOL]
+    if bad:
+        return {"library_ms": None, "library_max_abs_err": max(diffs),
+                "library_call": "none: flex_attention's gradients are off the "
+                "fp32 plain version beyond twice the low-precision "
+                "reference's: " + ", ".join(
+                    f"d{n} {x:.3e} > 2 x {lp:.3e}" for n, x, lp in bad)}
+    return {"library_ms": time_ms(call, runs=10),
+            "library_max_abs_err": max(diffs),
+            "library_call": "torch.compile(flex_attention) with a tanh "
+                            f"score_mod and {what}, forward and backward "
+                            "(torch.autograd.grad)"}
+
+
+def score_bwd_timing(qt, kt, vt, dot, out, lse, causal, kw, name, refs):
+    """At a SCORE_BWD_CASES timed shape: B3's and B2's score
+    instantiations beside the kernels without the map at the same shape,
+    and B6's and B7's score forwards and B6's score backward (its kernels
+    by the profiler) over the same rows packed as b sequences, each beside
+    a bound that reckons the MUFU (score_bound: an ex2 a score and, under
+    the cap, a tanh, for the pairs the call attends), its plain version (a
+    few KV heads at a time) and a library call: SDPA with ALiBi as a float
+    mask (K and V repeated to the query heads), or compiled flex_attention
+    with a tanh score_mod and the causal block mask for the cap, held to
+    the fp32 plain gradients (refs: out32, grads32 and the low-precision
+    errors of out and of each gradient) first. Returns the timings by
+    kernels-line row (without the _alibi / _softcap suffix)."""
+    from flash_attn_tpu_torch.dispatch.score import slopes_bh
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+
+    b, h, sq, d = qt.shape
+    h_k, sk = kt.shape[1], kt.shape[2]
+    group = h // h_k
+    esz = qt.element_size()
+    cap, sl, window = kw["softcap"], kw["alibi_slopes"], kw["window_size"]
+    out32, grads32, err_out_lp, errs_lp = refs
+    pairs = b * int(band_mask(sq, sk, causal, window).sum())
+    mufu = h * pairs * (1 + (cap > 0))
+
+    def bwd(det):
+        return lambda: flash_bwd.flash_attention_bwd(
+            dot, qt, kt, vt, out, lse, causal=causal, deterministic=det, **kw)
+    ms, fused_ms = time_ms(bwd(True), runs=10), time_ms(bwd(False), runs=10)
+    names3 = ["preprocess_kernel", "dkdv_kernel", "dq_kernel"]
+    split = kernel_split_ms(bwd(True), names3)
+    fused_split = kernel_split_ms(bwd(False), names3[:2])
+    out_f, lse_f = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal,
+                                                 window_size=window)
+
+    def free():
+        return flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out_f, lse_f,
+                                             causal=causal, window_size=window)
+    free_ms = time_ms(free, runs=10)
+    free_split = kernel_split_ms(free, names3)
+    del out_f, lse_f
+    plain_fwd, plain_bwd, n_parts = plain_band_chunks(
+        qt, kt, vt, dot, out, lse, causal, dict(kw), heads_bytes=2.2e9)
+    plain_ms = time_ms(plain_bwd, runs=3, batch=1)
+    plain_fwd_ms = time_ms(plain_fwd, runs=3, batch=1)
+    plain_label = (f"the plain fp32 score version, {n_parts} calls of "
+                   f"{-(-h // n_parts)} query heads")
+    if sl is not None and cap == 0:
+        mask = alibi_sdpa_mask(sl, b, h, sq, sk, causal, window, qt.dtype)
+        rep = [x.repeat_interleave(group, dim=1) for x in (kt, vt)]
+        leaves = [x.detach().requires_grad_() for x in (qt, *rep)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        what = ("scaled_dot_product_attention with ALiBi's bias and the causal "
+                "bound as a float mask, K and V repeated to the query heads")
+        lib_b = {"library_ms": time_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, dot, retain_graph=True), runs=10),
+            "library_call": what + ", backward (torch.autograd.grad)"}
+        del sdpa_out, leaves
+        lib_f = {"library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, *rep, attn_mask=mask), runs=10), "library_call": what}
+        del mask, rep
+    else:
+        def keep(bi, hi, qi, ki):
+            return ki <= qi + (sk - sq)
+        mask_what = "the causal block mask" if causal else "no mask"
+
+        def make_bwd():
+            run = flex_softcap(cap, keep if causal else None, None, sq, sk)
+            leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            return lambda: torch.autograd.grad(run(*leaves), leaves, dot)
+
+        def make_fwd():
+            run = flex_softcap(cap, keep if causal else None, None, sq, sk)
+            return lambda: run(qt, kt, vt)
+        lib_b = flex_bwd_row(make_bwd, grads32, errs_lp, mask_what)
+        lib_f = flex_row(make_fwd, out32, err_out_lp, mask_what)
+    common = {"plain_ms": plain_ms, "plain_call": plain_label, **lib_b,
+              "score_pairs": pairs}
+    t = {"flash_bwd": {"ms": ms, "without_map_ms": free_ms,
+                       "kernel_split_ms": split,
+                       "without_map_kernel_split_ms": free_split, **common,
+                       **score_bound(10 * h * d * pairs,
+                                     esz * (4 * b * sq * h * d
+                                            + 4 * b * sk * h_k * d)
+                                     + 4 * b * h * sq, mufu)},
+         "flash_bwd_fused": {"ms": fused_ms, "kernel_split_ms": fused_split,
+                             **common,
+                             **score_bound(10 * h * d * pairs,
+                                           esz * (4 * b * sq * h * d
+                                                  + 4 * b * sk * h_k * d)
+                                           + 4 * b * h * sq, mufu)}}
+
+    # the same rows packed as b sequences, each with its row's slopes
+    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    q, k, v, do, o = (x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+                      for x in (qt, kt, vt, dot, out))
+    lse_p = lse.permute(1, 0, 2).reshape(h, b * sq).contiguous()
+    args = (cu_q, cu_k, sq, sk)
+    vkw = dict(kw, alibi_slopes=slopes_bh(sl, b, h))
+    b6 = lambda: flash_varlen.flash_attention_varlen_fwd(
+        q, k, v, *args, causal=causal, **vkw)
+    b7 = lambda: fvp.flash_attention_varlen_fwd_persistent(
+        q, k, v, *args, causal=causal, **vkw)
+    vbwd = lambda: flash_varlen.flash_attention_varlen_bwd(
+        do, q, k, v, o, lse_p, *args, causal=causal, **vkw)
+    vsplit = kernel_split_ms(vbwd, ("varlen_preprocess_kernel",
+                                    "varlen_dkdv_kernel", "varlen_dq_kernel"))
+    # the forwards with their work lists built beforehand (a call builds
+    # them with torch ops) beside B1's score instantiation over the same
+    # rows
+    meta = flash_varlen.varlen_meta(q, k, cu_q, cu_k, sq, sk, None, None,
+                                    causal, None, window_size=window)
+    b6_kernel = time_ms(lambda: flash_varlen.flash_attention_varlen_fwd(
+        q, k, v, *args, causal=causal, meta=meta, **vkw), runs=10)
+    b7_kernel = time_ms(lambda: fvp.flash_attention_varlen_fwd_persistent(
+        q, k, v, *args, causal=causal, meta=meta, **vkw), runs=10)
+    b1_kernel = time_ms(lambda: flash_fwd.flash_attention_fwd(
+        qt, kt, vt, causal=causal, **kw), runs=10)
+    fwd_b = score_bound(4 * h * d * pairs,
+                        esz * (2 * b * sq * h * d + 2 * b * sk * h_k * d)
+                        + 4 * b * h * sq, mufu)
+    qdo = esz * 2 * b * sq * h * d + 8 * b * h * sq
+    kv = esz * 2 * b * sk * h_k * d
+    packed = " (the dense call over the same rows)"
+    lib_pf = {**lib_f, "library_call": (lib_f["library_call"] + packed
+                                        if lib_f["library_ms"] is not None
+                                        else lib_f["library_call"]),
+              "plain_ms": plain_fwd_ms, "plain_call": plain_label,
+              "score_pairs": pairs}
+    lib_pb = {**lib_b, "library_call": (lib_b["library_call"] + packed
+                                        if lib_b["library_ms"] is not None
+                                        else lib_b["library_call"]),
+              "plain_ms": plain_ms, "plain_call": plain_label + " (the pair)",
+              "score_pairs": pairs}
+    t.update({
+        "flash_varlen_fwd": {"ms": time_ms(b6, runs=10),
+                             "with_lists_ms": b6_kernel,
+                             "dense_ms": b1_kernel, **lib_pf, **fwd_b},
+        "flash_varlen_fwd_persistent": {"ms": time_ms(b7, runs=10),
+                                        "with_lists_ms": b7_kernel,
+                                        "dense_ms": b1_kernel, **lib_pf,
+                                        **fwd_b},
+        "fa_varlen_bwd_dkdv": {
+            "ms": vsplit["varlen_dkdv_kernel"], **lib_pb,
+            **score_bound(8 * h * d * pairs,
+                          qdo + kv + 2 * esz * b * sk * h_k * d, mufu)},
+        "fa_varlen_bwd_dq": {
+            "ms": vsplit["varlen_dq_kernel"], **lib_pb,
+            **score_bound(6 * h * d * pairs,
+                          qdo + kv + esz * b * sq * h * d, mufu)}})
+    for row, r in t.items():
+        lib = r["library_ms"]
+        print(f"{row} score at {name}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_largest']}; matmul "
+              f"{r['bound_parts']['matmul_ms']:.4f}, MUFU "
+              f"{r['bound_parts']['mufu_ms']:.4f}, bytes "
+              f"{r['bound_parts']['bytes_ms']:.4f}; "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%), plain "
+              f"{r['plain_ms']:.3f} ms, "
+              + (f"library {lib:.4f} ms" if lib is not None else "no library "
+                 "time") + f" ({r['library_call']})"
+              + (f", the pair without the map {r['without_map_ms']:.4f} ms"
+                 if "without_map_ms" in r else "")
+              + (f"; with its work lists built beforehand "
+                 f"{r['with_lists_ms']:.4f} ms against B1's score "
+                 f"instantiation over the same rows {r['dense_ms']:.4f}"
+                 if "with_lists_ms" in r else ""))
+
+    def ms_list(x):
+        return ", ".join(f"{n} {v:.4f}" for n, v in x.items())
+    print(f"flash_bwd score profiler split at {name} (ms a call): "
+          f"{ms_list(split)}; without the map: {ms_list(free_split)}; B2: "
+          f"{ms_list(fused_split)}; B6's score backward a call: "
+          f"{ms_list(vsplit)}")
+    return t
+
+
+def score_bwd_case(gen, case, timed: bool):
+    """B3's (and, where the case asks, B2's) score instantiations and the
+    preprocess on one SCORE_BWD_CASES case: dq, dk, dv by the 2x rule
+    against the plain fp32 score backward (plain_bwd_refs, each chunk with
+    its rows' slopes), each launch counted as the score map's (and the
+    band's under a window), B3 the same bits twice; a requires_grad slopes
+    tensor gets exact zeros through flash_attn_func, whose gradients are
+    B3's bits; B6's score backward over the same rows packed (a sequence a
+    row, each with its row's slopes) gives B3's bits and B6's and B7's
+    score forwards give B1's. With ``timed`` (the training shapes of
+    Baichuan-13B and the softcap GPT), flash_attn_func(...).backward() is
+    counted both ways and score_bwd_timing times the kernels. Returns the
+    errors by kernels-line row (without the suffix), the timings and the
+    counted runs' launches."""
+    from flash_attn_tpu_torch import flash_attn_func
+    from flash_attn_tpu_torch.dispatch.band import has_band, reach_window
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.dispatch.score import slopes_bh
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    name, b, sq, sk, h, h_k, d, causal, cap, kind, window, dtype, fused = case
+    window = normalize_window(window)
+    kw = score_kw(cap, kind, b, h, window)
+    band = int(has_band(causal, reach_window(window, causal, sq, sk), 0))
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    q, k, v, dout = (randn(b, sq, h, d), randn(b, sk, h_k, d),
+                     randn(b, sk, h_k, d), randn(b, sq, h, d))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal, **kw)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    b3 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                       causal=causal, **kw)
+    again = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                          causal=causal, **kw)
+    b2 = (flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                        causal=causal, deterministic=False,
+                                        **kw) if fused else None)
+    torch.cuda.synchronize()
+    got = bwd_counts()
+    f = int(fused)
+    require(got == {"flash_fwd": 0, "flash_fwd_band": 0,
+                    "flash_fwd_score": 0, "flash_bwd_preprocess": 2 + f,
+                    "fa_bwd_dkdv": 2, "fa_bwd_dq": 2, "flash_bwd_fused": f,
+                    "fa_bwd_dkdv_band": 2 * band, "fa_bwd_dq_band": 2 * band,
+                    "flash_bwd_fused_band": f * band,
+                    "fa_bwd_dkdv_score": 2, "fa_bwd_dq_score": 2,
+                    "flash_bwd_fused_score": f},
+            f"score backward launches at {name}: {got}")
+    require(all(torch.equal(a, c) for a, c in zip(b3, again)),
+            f"B3's score instantiation differs between runs: {name}")
+    del again
+    out32, out_lp, ref, ref_lp = plain_bwd_refs(qt, kt, vt, dot, causal,
+                                                **kw)
+    err_f, err_f_lp = check_against_ref(
+        out.transpose(1, 2), out32.transpose(1, 2), out_lp,
+        msg=f"flash_fwd score {name}")
+    errs, line, errs_lp = {}, [], []
+    for row, grads in (("flash_bwd", b3), ("flash_bwd_fused", b2)):
+        if grads is None:
+            continue
+        for gname, g, r, lp in zip("qkv", grads, ref, ref_lp):
+            err, err_lp = check_against_ref(
+                g.transpose(1, 2), r.transpose(1, 2), lp, atol=BWD_ATOL,
+                msg=f"{row} score d{gname} {name}")
+            errs[row] = max(errs.get(row, 0.0), err)
+            if row == "flash_bwd":
+                errs_lp.append(err_lp)
+            line.append(f"{'B3' if row == 'flash_bwd' else 'B2'} d{gname} "
+                        f"{err:.3e} (low precision {err_lp:.3e})")
+    del ref_lp, b2, out_lp
+    extra = ""
+    if kw["alibi_slopes"] is not None:
+        sl = kw["alibi_slopes"].detach().clone().requires_grad_()
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        flash_attn_func(*leaves, causal=causal, softcap=cap, alibi_slopes=sl,
+                        window_size=window).backward(dout)
+        require(torch.equal(sl.grad, torch.zeros_like(sl)),
+                f"{name}: the slopes' gradient is not zero")
+        require(all(torch.equal(leaf.grad, g.transpose(1, 2))
+                    for leaf, g in zip(leaves, b3)),
+                f"{name}: flash_attn_func's score gradients differ from B3's")
+        extra = ("; a requires_grad slopes tensor gets exact zeros, "
+                 "flash_attn_func's gradients bitwise B3's")
+        del leaves, sl
+    vkw = dict(kw, alibi_slopes=slopes_bh(kw["alibi_slopes"], b, h))
+    reset_kernel_counts()
+    b6 = packed_b6_backward(dot, qt, kt, vt, out, lse, causal, **vkw)()
+    require(all(torch.equal(a, c) for a, c in zip(b3, b6)),
+            f"B6's score backward over the same rows packed differs from "
+            f"B3's: {name}")
+    for label, (o, l) in zip(("B6's score forward", "B7's"),
+                             packed_forwards(qt, kt, vt, causal, **vkw)):
+        require(torch.equal(o, out) and torch.equal(l, lse),
+                f"{label} over the same rows packed differs from B1's score "
+                f"instantiation: {name}")
+    torch.cuda.synchronize()
+    packed = got = kernel_counts()
+    require(got == want_counts(
+        flash_varlen_fwd=1, flash_varlen_fwd_score=1,
+        flash_varlen_fwd_band=band, flash_varlen_fwd_persistent=1,
+        flash_varlen_fwd_persistent_score=1,
+        flash_varlen_fwd_persistent_band=band, fa_varlen_bwd_preprocess=1,
+        fa_varlen_bwd_dkdv=1, fa_varlen_bwd_dkdv_score=1,
+        fa_varlen_bwd_dkdv_band=band, fa_varlen_bwd_dq=1,
+        fa_varlen_bwd_dq_score=1, fa_varlen_bwd_dq_band=band),
+        f"packed score launches at {name}: {got}")
+    del b6
+    errs.update({"fa_varlen_bwd_dkdv": errs["flash_bwd"],
+                 "fa_varlen_bwd_dq": errs["flash_bwd"],
+                 "flash_varlen_fwd": err_f,
+                 "flash_varlen_fwd_persistent": err_f})
+    no_key = int((~torch.isfinite(lse)).sum())
+    print(f"score backward {name} (b={b}, sq={sq}, sk={sk}, {h}/{h_k} heads "
+          f"of {d}, {str(dtype)[6:]}, causal={causal}, softcap {cap}, slopes "
+          f"{kind}, window {window}; {no_key} rows with no key): "
+          + ", ".join(line) + f"; B3 bitwise equal twice; B1's out "
+          f"{err_f:.3e} (low precision {err_f_lp:.3e}); B6's score backward "
+          f"over the same rows packed bitwise B3's, B6's score forward and "
+          f"B7's bitwise B1's" + extra)
+    timings, api = {}, {}
+    if timed:
+        api["packed"] = packed
+        for det in (True, False):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            torch.cuda.synchronize()
+            reset_kernel_counts()
+            flash_attn_func(*leaves, causal=causal, deterministic=det,
+                            **kw).backward(dout)
+            torch.cuda.synchronize()
+            got = bwd_counts()
+            require(got == {"flash_fwd": 1, "flash_fwd_band": band,
+                            "flash_fwd_score": 1, "flash_bwd_preprocess": 1,
+                            "fa_bwd_dkdv": int(det), "fa_bwd_dq": int(det),
+                            "flash_bwd_fused": int(not det),
+                            "fa_bwd_dkdv_band": int(det) * band,
+                            "fa_bwd_dq_band": int(det) * band,
+                            "flash_bwd_fused_band": int(not det) * band,
+                            "fa_bwd_dkdv_score": int(det),
+                            "fa_bwd_dq_score": int(det),
+                            "flash_bwd_fused_score": int(not det)},
+                    f"flash_attn_func score backward at {name} "
+                    f"(deterministic={det}): {got}")
+            api[det] = got
+            del leaves
+        print(f"flash_attn_func(..., softcap={cap}, alibi_slopes {kind})"
+              f".backward() at {name}: launches {api[True]} (deterministic) "
+              f"and {api[False]} (fused)")
+        timings = score_bwd_timing(qt, kt, vt, dot, out, lse, causal, kw,
+                                   name, (out32, ref, err_f_lp, errs_lp))
+    del ref, out32
+    return errs, timings, api
+
+
+def check_score_backward(gen, lib):
+    """softcap and ALiBi in training on the card: score_bwd_case on every
+    SCORE_BWD_CASES case (the first two, Baichuan-13B's and the softcap
+    GPT's training shapes, timed), and the score instantiations' registers
+    and spills (cuobjdump -res-usage). Returns the errors and timings by
+    kernels-line row (_alibi for the cases with slopes, _softcap for those
+    with a cap), the counted flash_attn_func runs' launches by the timed
+    case's kind, and the registers."""
+    from flash_attn_tpu_torch.utils.cases import SCORE_BWD_CASES
+
+    errs, timings, api = {}, {}, {}
+    for i, case in enumerate(SCORE_BWD_CASES):
+        kinds = ["alibi"] * (case[9] is not None) + ["softcap"] * (case[8] > 0)
+        e, t, a = score_bwd_case(gen, case, timed=i < 2)
+        for kind in kinds:
+            for row, x in e.items():
+                key = f"{row}_{kind}"
+                errs[key] = max(errs.get(key, 0.0), x)
+        if t:
+            timings.update({f"{row}_{kinds[0]}": r for row, r in t.items()})
+            api[kinds[0]] = a
+        torch.cuda.empty_cache()
+    marks = {}
+    for d in (64, 96, 128, 256):
+        ty = "13__nv_bfloat16"
+        marks.update({
+            f"score dkdv d={d}": ("dense_bwd11dkdv_kernel", ty,
+                                  f"Li{d}ELb0ELb1ELb1E"),
+            f"score dkdv fused d={d}": ("dense_bwd11dkdv_kernel", ty,
+                                        f"Li{d}ELb1ELb1ELb1E"),
+            f"score dq d={d}": ("dense_bwd9dq_kernel", ty, f"Li{d}ELb1ELb1E"),
+            f"score varlen dkdv d={d}": ("varlen_dkdv_kernel", ty,
+                                         f"Li{d}ELb1ELb1E"),
+            f"score varlen dq d={d}": ("varlen_dq_kernel", ty,
+                                       f"Li{d}ELb1ELb1E"),
+            f"score B6 forward d={d}": ("17varlen_fwd_kernel", ty,
+                                        f"Li{d}ELb1ELb1E"),
+            f"score B7 d={d}": ("varlen_fwd_persistent_kernel", ty,
+                                f"Li{d}ELb1ELb1E")})
+    res = kernel_resources(lib, marks)
+    print("score instantiations' registers / stack / local bytes a thread "
+          "(bf16; cuobjdump -res-usage): " + "; ".join(
+              f"{label} " + ", ".join(
+                  f"{u.get('REG')}/{u.get('STACK')}/{u.get('LOCAL')}"
+                  for u in us) for label, us in res.items()))
+    return errs, timings, api, res
+
+
+def run_score_mha(gen, card):
+    """Packed input (SCORE_MHA_LENS, cu_seqlens) through an MHA with ALiBi
+    at Baichuan-13B's widths (5120 wide, 40 heads of 128, no rotary: B6's
+    score forward, as JAX routes ALiBi) and one with the cap at the 913M
+    GPT's (2048 wide, 16 heads of 128, rotary: B7's score forward), forward
+    and backward (B6's score backward) on the card against the same module
+    on the CPU (the plain versions; fp32, and bf16 for the 2x rule) on the
+    output and the gradients of x and both weights, and against the padded
+    dense call of the same module on the card (each sequence alone, B1's
+    and B3's score instantiations: the packed output and x's gradient
+    within the 2x rule's own bf16 bound); each run's launches counted,
+    every attention launch the score map's. Returns the launches and the
+    errors."""
+    from flash_attn_tpu_torch.modules.mha import MHA
+    from flash_attn_tpu_torch.utils.cases import GEMMA2_SOFTCAP
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    forms = {
+        "alibi": dict(num_heads=BAICHUAN_13B.num_attention_heads,
+                      width=BAICHUAN_13B.hidden_size, use_alibi=True),
+        "softcap": dict(num_heads=16, width=2048, softcap=GEMMA2_SOFTCAP,
+                        rotary_emb_dim=128)}
+    lens = SCORE_MHA_LENS
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                      dtype=torch.int32)
+    launches, errs = {}, {}
+    for form, spec in forms.items():
+        width = spec.pop("width")
+        kw = dict(causal=True, qkv_proj_bias=False, out_proj_bias=False,
+                  **spec)
+        mods = {"cuda": MHA(width, dtype=torch.bfloat16, device="cuda", **kw),
+                "cpu": MHA(width, dtype=torch.float32, device="cpu", **kw),
+                "cpu_bf16": MHA(width, dtype=torch.bfloat16, device="cpu",
+                                **kw)}
+        with torch.no_grad():
+            for prm in mods["cuda"].parameters():
+                prm.normal_(0.0, width ** -0.5, generator=gen)
+        for key in ("cpu", "cpu_bf16"):
+            mods[key].load_state_dict({n: t.cpu() for n, t in
+                                       mods["cuda"].state_dict().items()})
+        x = torch.randn(sum(lens), width, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        g = torch.randn(sum(lens), width, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        results = {}
+        for key, mod in mods.items():
+            dev = "cuda" if key == "cuda" else "cpu"
+            xi = x.detach().to(dev, mod.Wqkv.weight.dtype).requires_grad_()
+            if key == "cuda":
+                torch.cuda.synchronize()
+                reset_kernel_counts()
+            out = mod(xi, cu_seqlens=cu.to(dev), max_seqlen=max(lens))
+            out.backward(g.to(dev, out.dtype))
+            if key == "cuda":
+                torch.cuda.synchronize()
+                got = {**kernel_counts(), **bwd_counts()}
+                launches[form] = {n: c for n, c in got.items() if c}
+                fwd = ({"flash_varlen_fwd": 1, "flash_varlen_fwd_score": 1}
+                       if form == "alibi" else
+                       {"flash_varlen_fwd_persistent": 1,
+                        "flash_varlen_fwd_persistent_score": 1})
+                want = {**fwd, "fa_varlen_bwd_preprocess": 1,
+                        "fa_varlen_bwd_dkdv": 1,
+                        "fa_varlen_bwd_dkdv_score": 1, "fa_varlen_bwd_dq": 1,
+                        "fa_varlen_bwd_dq_score": 1}
+                require(launches[form] == want,
+                        f"packed {form} MHA launches {launches[form]}")
+            results[key] = [out.detach(), xi.grad, mod.Wqkv.weight.grad,
+                            mod.out_proj.weight.grad]
+            for prm in mod.parameters():
+                prm.grad = None
+        line = []
+        for i, what in enumerate(("out", "dx", "dWqkv", "dWout")):
+            err, err_lp = check_against_ref(
+                results["cuda"][i], results["cpu"][i],
+                results["cpu_bf16"][i], atol=BWD_ATOL,
+                msg=f"packed {form} MHA {what}")
+            errs[f"{form} {what}"] = err
+            line.append(f"{what} {err:.3e} (bf16 plain {err_lp:.3e})")
+        # the padded dense call on the card: each sequence alone, unpacked
+        mod = mods["cuda"]
+        dense, dxs = [], []
+        for lo, hi in zip(cu[:-1].tolist(), cu[1:].tolist()):
+            xi = x[None, lo:hi].detach().requires_grad_()
+            o = mod(xi)
+            o.backward(g[None, lo:hi])
+            dense.append(o.detach()[0])
+            dxs.append(xi.grad[0])
+        for i, (what, d_) in enumerate((("out", torch.cat(dense)),
+                                        ("dx", torch.cat(dxs)))):
+            gap = (results["cuda"][i].float() - d_.float()).abs().max().item()
+            bound_lp = 2 * (results["cpu_bf16"][i].float().cpu()
+                            - results["cpu"][i].float()).abs().max().item()
+            require(gap <= bound_lp + BWD_ATOL,
+                    f"packed {form} MHA {what}: {gap} off the padded dense "
+                    f"call, beyond {bound_lp}")
+            line.append(f"{what} against the dense call {gap:.3e}")
+        print(f"packed MHA with {form} ({width} wide, {kw['num_heads']} heads "
+              f"of 128, lengths {lens}) on {card}: launches "
+              f"{launches[form]}; max abs err against the plain fp32 module on "
+              f"the CPU " + ", ".join(line))
+        del results, x, g, mods, mod, dense, dxs
+        torch.cuda.empty_cache()
+    return launches, errs
+
+
+def causal_check(trainer, loader, label):
+    """The trained model's forward is causal: the logits of the positions
+    before the middle of a batch of the run's data do not move (within
+    CAUSAL_GAP) when every token from the middle on is replaced, while the
+    later positions' do. (The run's windows repeat one period of tokens, so
+    a model that learned to read a later token would show it here.)
+    Returns the two gaps."""
+    ids = trainer._batch(next(iter(loader))[0])
+    half = ids.shape[1] // 2
+    other = ids.clone()
+    other[:, half:] = (ids[:, half:] + 1) % trainer.model.config.vocab_size
+    with torch.no_grad():
+        a, b = (trainer.model(x).float() for x in (ids, other))
+    before = (a[:, :half] - b[:, :half]).abs().max().item()
+    after = (a[:, half:] - b[:, half:]).abs().max().item()
+    del a, b
+    require(before <= CAUSAL_GAP,
+            f"{label}: the logits before the middle moved by {before} when "
+            "the tokens after it changed")
+    print(f"{label}: causal: replacing the tokens from the middle on moves "
+          f"the earlier positions' logits by {before:.4g} at most and the "
+          f"later ones' by {after:.4g}")
+    return before, after
+
+
+def run_baichuan_training(card):
+    """Baichuan-13B-Base trained at full width from its config.json numbers
+    (BAICHUAN_13B through the port's Baichuan adapter: ALiBi, no rotary, an
+    untied head) with the depth cut to BAICHUAN_TRAIN_LAYERS, seeded
+    weights (the trainer's initialisation) and bf16 training state, by
+    fit_checked at BAICHUAN_TRAIN_BATCH x BAICHUAN_TRAIN_SEQ with
+    score=True (per step and layer one score forward, one preprocess, one
+    score dK/dV and one score dQ, no launch without the map) and a profile
+    of one step. Returns the launches and measurements."""
+    from flash_attn_tpu_torch.models.hf_adapters import (
+        baichuan_config_to_gpt_config,
+    )
+
+    cut = SimpleNamespace(**{**vars(BAICHUAN_13B),
+                             "num_hidden_layers": BAICHUAN_TRAIN_LAYERS})
+    mcfg = baichuan_config_to_gpt_config(cut, dtype=torch.bfloat16)
+    require(mcfg.use_alibi and mcfg.rotary_emb_fraction == 0.0
+            and not mcfg.tie_word_embeddings,
+            "Baichuan-13B training: the adapter's config")
+    label = (f"Baichuan-13B training ({BAICHUAN_TRAIN_LAYERS} of "
+             f"{BAICHUAN_13B.num_hidden_layers} layers, ALiBi)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "baichuan.bin")
+        write_token_file(path, mcfg.vocab_size)
+        launches, res, trainer, loader = fit_checked(
+            label, mcfg, path, BAICHUAN_TRAIN_BATCH, BAICHUAN_TRAIN_SEQ,
+            score=True)
+        profile_step(trainer, loader, f"one {label} step",
+                     BAICHUAN_TRAIN_BATCH, BAICHUAN_TRAIN_SEQ)
+        res["causal_gaps"] = causal_check(trainer, loader, label)
+        print(f"{label}: step {res['step_ms']:.1f} ms (median of steps "
+              f"{TRAIN_WARM + 1}-{TRAIN_STEPS}), {res['tokens_per_s']:.0f} "
+              f"tokens/s, {res['tflops_per_s']:.1f} TFLOP/s "
+              f"(model_flops_per_token), peak {res['peak_gb']:.2f} GB "
+              f"(max_memory_allocated) on {card}")
+        del trainer, loader
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def run_softcap_training(card):
+    """The 913M GPT with softcap = GEMMA2_SOFTCAP trained at the repo's
+    training shape (TRAIN_BATCH x TRAIN_SEQ) by fit_checked with
+    score=True, and a profile of one step. Returns the launches and
+    measurements."""
+    from flash_attn_tpu_torch.models.gpt import gpt_913m
+    from flash_attn_tpu_torch.utils.cases import GEMMA2_SOFTCAP
+
+    mcfg = dataclasses.replace(gpt_913m(), softcap=GEMMA2_SOFTCAP)
+    label = f"913M training with softcap {GEMMA2_SOFTCAP}"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tokens.bin")
+        write_token_file(path, mcfg.vocab_size)
+        launches, res, trainer, loader = fit_checked(label, mcfg, path,
+                                                     score=True)
+        profile_step(trainer, loader, f"one {label} step")
+        res["causal_gaps"] = causal_check(trainer, loader, label)
+        print(f"{label}: step {res['step_ms']:.1f} ms, "
+              f"{res['tokens_per_s']:.0f} tokens/s, "
+              f"{res['tflops_per_s']:.1f} TFLOP/s, peak {res['peak_gb']:.2f} "
+              f"GB on {card}")
+        del trainer, loader
+    torch.cuda.empty_cache()
+    return launches, res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -6862,6 +7558,13 @@ def main() -> int:
     sc_err, sc_t = phase("score kernel checks", check_score_kernels, gen)
     bc_launches, baichuan = phase("Baichuan-13B", run_baichuan, card)
     sg_launches, softcap_gpt = phase("913M softcap", run_softcap_gpt, card)
+    sb_err, sb_t, sb_api, sb_res = phase("score backward kernel checks",
+                                         check_score_backward, gen, lib)
+    sm_launches, sm_err = phase("packed score MHA", run_score_mha, gen, card)
+    bt_launches, baichuan_train = phase("Baichuan-13B training",
+                                        run_baichuan_training, card)
+    st_launches, softcap_train = phase("913M softcap training",
+                                       run_softcap_training, card)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -6954,6 +7657,21 @@ def main() -> int:
               f" tokens/s, TTFT p50 {softcap_gpt[k]['ttft_p50_ms']:.1f} ms"
               for k in softcap_gpt if k.startswith("913M softcap "))
           + f" on {card}")
+    for label, r, row, cut in (
+            (f"Baichuan-13B trained at full width, {BAICHUAN_TRAIN_LAYERS} "
+             f"layers", baichuan_train, "flash_bwd_alibi",
+             f"b={BAICHUAN_TRAIN_BATCH} x {BAICHUAN_TRAIN_SEQ}"),
+            ("913M GPT trained with softcap 50", softcap_train,
+             "flash_bwd_softcap", f"b={TRAIN_BATCH} x {TRAIN_SEQ}")):
+        t3 = sb_t[row]
+        print(f"{label} ({r['params_b']:.2f}B parameters), {cut}: step "
+              f"{r['step_ms']:.1f} ms, {r['tokens_per_s']:.0f} tokens/s, "
+              f"{r['tflops_per_s']:.1f} TFLOP/s, peak {r['peak_gb']:.2f} GB; "
+              f"loss {r['first_loss']:.4f} -> {r['last3_loss']:.4f} "
+              f"(full-logits CE {r['ce_ref']:.4f}); B3's score pair at its "
+              f"shape (one layer) {t3['ms']:.4f} ms beside the pair without "
+              f"the map {t3['without_map_ms']:.4f} ms and the bound "
+              f"{t3['bound_ms']:.4f} ms ({t3['bound_largest']}) on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -7195,6 +7913,47 @@ def main() -> int:
               ["flash_varlen_paged_score"],
               sc_err["flash_varlen_paged_softcap"],
               sc_t["flash_varlen_paged_softcap"]),
+        # softcap and ALiBi in training: B3's score pair in the
+        # Baichuan-13B and softcap GPT training runs, B2's in the counted
+        # flash_attn_func(deterministic=False).backward() at their shapes,
+        # B6's score forward (ALiBi, as JAX routes it), B7's (the cap) and
+        # B6's score backward in the packed score MHAs, B6's forward under
+        # the cap and B7's under ALiBi in score_bwd_case's counted packed
+        # run at the timed shape
+        *(row for kind, train in (("alibi", bt_launches),
+                                  ("softcap", st_launches)) for row in (
+            entry(f"flash_bwd_{kind}", "flash_bwd_score.cu",
+                  "flash_bwd.py:181",
+                  train["fa_bwd_dkdv_score"] + train["fa_bwd_dq_score"],
+                  sb_err[f"flash_bwd_{kind}"], sb_t[f"flash_bwd_{kind}"]),
+            entry(f"flash_bwd_fused_{kind}", "flash_bwd_score.cu",
+                  "flash_bwd_fused.py:64",
+                  sb_api[kind][False]["flash_bwd_fused_score"],
+                  sb_err[f"flash_bwd_fused_{kind}"],
+                  sb_t[f"flash_bwd_fused_{kind}"]),
+            entry(f"flash_varlen_fwd_{kind}", "flash_varlen_fwd_score.cu",
+                  "flash_varlen.py:79",
+                  (sm_launches["alibi"] if kind == "alibi" else
+                   sb_api["softcap"]["packed"])["flash_varlen_fwd_score"],
+                  sb_err[f"flash_varlen_fwd_{kind}"],
+                  sb_t[f"flash_varlen_fwd_{kind}"]),
+            entry(f"flash_varlen_fwd_persistent_{kind}",
+                  "flash_varlen_fwd_score.cu", "flash_varlen_persistent.py:72",
+                  (sm_launches["softcap"] if kind == "softcap" else
+                   sb_api["alibi"]["packed"])
+                  ["flash_varlen_fwd_persistent_score"],
+                  sb_err[f"flash_varlen_fwd_persistent_{kind}"],
+                  sb_t[f"flash_varlen_fwd_persistent_{kind}"]),
+            entry(f"fa_varlen_bwd_dkdv_{kind}", "flash_varlen_score.cu",
+                  "flash_varlen.py:462",
+                  sm_launches[kind]["fa_varlen_bwd_dkdv_score"],
+                  sb_err[f"fa_varlen_bwd_dkdv_{kind}"],
+                  sb_t[f"fa_varlen_bwd_dkdv_{kind}"]),
+            entry(f"fa_varlen_bwd_dq_{kind}", "flash_varlen_score.cu",
+                  "flash_varlen.py:651",
+                  sm_launches[kind]["fa_varlen_bwd_dq_score"],
+                  sb_err[f"fa_varlen_bwd_dq_{kind}"],
+                  sb_t[f"fa_varlen_bwd_dq_{kind}"]))),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -7215,7 +7974,11 @@ def main() -> int:
                           "mha_launches": bm_launches,
                           "kernel_resources": bb_res},
         "score": {"timings": sc_t, "baichuan": baichuan,
-                  "softcap_gpt": softcap_gpt}}))
+                  "softcap_gpt": softcap_gpt},
+        "score_training": {"baichuan": baichuan_train,
+                           "softcap_gpt": softcap_train, "mha_err": sm_err,
+                           "mha_launches": sm_launches,
+                           "kernel_resources": sb_res}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -101,6 +101,22 @@
 // flag cost every tile: the band instantiation ran 1.21x the band-free
 // kernels over the same causal tiles, PERF.md §6). The band-free
 // instantiations take the walks above and compile to the code they were.
+//
+// softcap and ALiBi (Score, the forward's map: flash_bwd.py:55-101
+// _scores_log2) run in the SCORE instantiations, which are BAND ones: the
+// causal bound comes as a band of right extent 0 (dispatch/band.py
+// band_args), so one instantiation serves the map with and without a
+// window. Each rebuilt score is mapped before the band's mask, in the
+// forward's order (the cap, base 2, ALiBi's bias in its last-key form, the
+// form of the forward's lse, so that P = exp2(s2 - lse2) is the forward's),
+// by bwd_score_map in the orientation of the tile (keys in wgmma's M for
+// dK/dV); under a cap the tanh derivative of each score, 1 - t^2, is kept
+// beside S as a half2 pair a register (16 registers a thread beside the
+// 64-column tile of dK/dV's 228: fp32 would take 32 and spill) and
+// multiplies dS = P (dP - delta) before it is packed for the products
+// (flash_bwd.py:143-152 ds_chain), so dK = scale (dS dtanh)^T Q and dQ =
+// scale (dS dtanh) K are still scaled once at the end. ALiBi changes no
+// gradient; the slope is each query head's (dK/dV walks a GQA group's).
 #pragma once
 
 #include "sm90.cuh"
@@ -273,6 +289,74 @@ __device__ __forceinline__ float bwd_lse2(float lse) {
   return lse == -INFINITY ? INFINITY : lse * FA_LOG2E;
 }
 
+// The slope of query head hq times log2(e) from the sequence's (h,) row of
+// slopes (none: 0), as the forward's kernels take it.
+__device__ __forceinline__ float bwd_slope(const float* slopes, int hq) {
+  return slopes != nullptr ? slopes[hq] * FA_LOG2E : 0.f;
+}
+
+// SCORE: map a thread's scores of one backward tile (N columns) into base 2
+// as fwd_sm90.cuh's score_map does, by `sc` (its slope the tile's query
+// head's): score 4 j + e sits at M index m_a + 8 (e >> 1) and N index n_a
+// + 8 j + (e & 1) (n_a = the tile's first column + 2 (lane % 4)); the keys
+// are M (KEYS_IN_M, dK/dV's S^T) or N (dQ's S). Under a cap, dt[i] keeps
+// the tanh derivatives 1 - t^2 of scores 2 i and 2 i + 1 as a half2 pair.
+template <int N, bool KEYS_IN_M>
+__device__ __forceinline__ void bwd_score_map(float* s, uint32_t* dt, const Score& sc,
+                                              float scale_log2, int m_a, int n_a, int sk,
+                                              int shift) {
+  if (sc.cap_in != 0.f) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float t0 = tanh_approx(__fmul_rn(s[2 * i], sc.cap_in));
+      const float t1 = tanh_approx(__fmul_rn(s[2 * i + 1], sc.cap_in));
+      s[2 * i] = __fmul_rn(t0, sc.cap_out);
+      s[2 * i + 1] = __fmul_rn(t1, sc.cap_out);
+      dt[i] = Elem<__half>::pack(__fmaf_rn(-t0, t0, 1.f), __fmaf_rn(-t1, t1, 1.f));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) s[i] = __fmul_rn(s[i], scale_log2);
+  }
+  if (sc.slope == 0.f) return;
+  if (sc.causal) {
+    // col - (sk - 1): a whole number below 2^24, exact in fp32
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = KEYS_IN_M ? m_a + 8 * (e >> 1) : n_a + 8 * j + (e & 1);
+        s[4 * j + e] = __fmaf_rn(sc.slope, (float)(key - (sk - 1)), s[4 * j + e]);
+      }
+  } else {
+    // -|row + shift - col|
+    float base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      base[i] = KEYS_IN_M ? (float)(n_a + shift - m_a - 8 * i)
+                          : (float)(m_a + 8 * i + shift - n_a);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float off = (float)(8 * j + (e & 1));
+        const float v = KEYS_IN_M ? base[e >> 1] + off : base[e >> 1] - off;
+        s[4 * j + e] = __fmaf_rn(-sc.slope, fabsf(v), s[4 * j + e]);
+      }
+  }
+}
+
+// SCORE under a cap: dS times the tanh derivatives bwd_score_map kept, for
+// the scores [4 j, 4 j + 4) of a thread (dt pairs 2 j and 2 j + 1).
+__device__ __forceinline__ void bwd_dtanh4(float* ds, const uint32_t* dt, int j) {
+  const float2 a = Elem<__half>::unpack(dt[2 * j]);
+  const float2 b = Elem<__half>::unpack(dt[2 * j + 1]);
+  ds[4 * j] *= a.x;
+  ds[4 * j + 1] *= a.y;
+  ds[4 * j + 2] *= b.x;
+  ds[4 * j + 3] *= b.y;
+}
+
 // ---- dK / dV (and the fused dQ) --------------------------------------------
 
 template <int D, bool ACCUM_DQ>
@@ -303,10 +387,16 @@ struct DkdvLayout {
 // rows [n0, n0 + BwdPlan<D>::ROWS) of KV head hk of the sequence `src` over the q tiles
 // of `walk`. `smem` is the 1024-aligned base of DkdvLayout<D,
 // ACCUM_DQ>::BYTES. BAND: mask by walk.band (its right bound stands for
-// a.causal; a BandRangeQWalk) instead of the causal bound.
-template <typename T, int D, bool ACCUM_DQ, bool BAND = false, typename Src, typename Walk>
+// a.causal; a BandRangeQWalk) instead of the causal bound. SCORE (a BAND
+// instantiation): map the scores by `score`, each query head's slope from
+// `slopes` (the sequence's (h,) row, or none), and dS by the cap's dtanh.
+template <typename T, int D, bool ACCUM_DQ, bool BAND = false, bool SCORE = false,
+          typename Src, typename Walk>
 __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
-                                         int n0, unsigned char* smem, const Walk& walk) {
+                                         int n0, unsigned char* smem, const Walk& walk,
+                                         const Score& score = Score{},
+                                         const float* slopes = nullptr) {
+  static_assert(BAND || !SCORE, "bwd_dkdv: SCORE masks by the band");
   using L = DkdvLayout<D, ACCUM_DQ>;
   using P = BwdPlan<D>;
   constexpr int BM = BWD_KV_BM;
@@ -379,6 +469,8 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
     const WalkStep w = walk.at(t, st);
     const int m0 = w.row;
     const int hq = w.head;
+    Score sc = score;
+    if constexpr (SCORE) sc.slope = bwd_slope(slopes, hq);
     if constexpr (Src::ZERO_TAIL) {
       if (m0 + BM > sq) {  // the same for the whole block
         zero_tile_rows<BM, D>(Qs, sq - m0, BWD_THREADS);
@@ -458,7 +550,15 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
+        uint32_t dt[HQ / 4];  // SCORE under a cap: the tanh derivatives
         if constexpr (BAND) {
+          float sl2 = a.scale_log2;
+          if constexpr (SCORE) {
+            // mapped into base 2 first; the band's loops then scale by 1
+            bwd_score_map<HQ, true>(s, dt, sc, a.scale_log2, kv0 + warp * 16 + g,
+                                    m0 + q_off + 2 * t4, sk, shift);
+            sl2 = 1.f;
+          }
           const bool need_mask =
               band_cuts(walk.band, m0 + q_off, m0 + q_off + HQ - 1, kv0, kv0 + 63, shift) ||
               kv0 + 64 > sk;
@@ -473,7 +573,7 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
               const float2 l = *reinterpret_cast<const float2*>(lse_s + q_off + 8 * j + 2 * t4);
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
+                float x = fmaf(s[4 * j + e], sl2, -((e & 1) ? l.y : l.x));
                 const int qrow = m0 + q_off + 8 * j + 2 * t4 + (e & 1);
                 if (qrow < rlo[e >> 1] || qrow > rhi[e >> 1]) x = -INFINITY;
                 s[4 * j + e] = exp2f(x);
@@ -485,7 +585,7 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
               const float2 l = *reinterpret_cast<const float2*>(lse_s + q_off + 8 * j + 2 * t4);
 #pragma unroll
               for (int e = 0; e < 4; ++e)
-                s[4 * j + e] = exp2f(fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x)));
+                s[4 * j + e] = exp2f(fmaf(s[4 * j + e], sl2, -((e & 1) ? l.y : l.x)));
             }
           }
         } else {
@@ -513,6 +613,9 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          if constexpr (SCORE) {
+            if (sc.cap_in != 0.f) bwd_dtanh4(dp, dt, j);
+          }
           // accumulator pairs (e = 0, 1) and (2, 3) at KV rows g and
           // g + 8 of the warp, q columns q_off + 8 j + 2 t4
 #pragma unroll
@@ -576,7 +679,15 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
 
         // P^T = exp2(S^T * scale_log2 - lse2), masked on the diagonal and the
         // ragged end of the keys; rows past sq have lse2 = +inf
+        uint32_t dt[BM / 4];  // SCORE under a cap: the tanh derivatives
         if constexpr (BAND) {
+          float sl2 = a.scale_log2;
+          if constexpr (SCORE) {
+            // mapped into base 2 first; the band's loops then scale by 1
+            bwd_score_map<BM, true>(s, dt, sc, a.scale_log2, kv0 + warp * 16 + g, m0 + 2 * t4,
+                                    sk, shift);
+            sl2 = 1.f;
+          }
           const bool need_mask =
               band_cuts(walk.band, m0, m0 + BM - 1, kv0, kv0 + 63, shift) || kv0 + 64 > sk;
           if (need_mask) {
@@ -590,7 +701,7 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
               const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
+                float x = fmaf(s[4 * j + e], sl2, -((e & 1) ? l.y : l.x));
                 const int qrow = m0 + 8 * j + 2 * t4 + (e & 1);
                 if (qrow < rlo[e >> 1] || qrow > rhi[e >> 1]) x = -INFINITY;
                 s[4 * j + e] = exp2f(x);
@@ -602,7 +713,7 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
               const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t4);
 #pragma unroll
               for (int e = 0; e < 4; ++e)
-                s[4 * j + e] = exp2f(fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x)));
+                s[4 * j + e] = exp2f(fmaf(s[4 * j + e], sl2, -((e & 1) ? l.y : l.x)));
             }
           }
         } else {
@@ -644,6 +755,9 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             s[4 * j + e] *= dp[4 * j + e] - ((e & 1) ? dl.y : dl.x);
+          if constexpr (SCORE) {
+            if (sc.cap_in != 0.f) bwd_dtanh4(s, dt, j);
+          }
         }
         uint32_t da[BM / 16][4];
 #pragma unroll
@@ -715,13 +829,16 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
                            BandQWalk(src.sq, src.sk, n0, a.causal, a.group, hk));
 }
 
-// bwd_dkdv's BAND instantiation over the band walk of `band`.
-template <typename T, int D, bool ACCUM_DQ, typename Src>
+// bwd_dkdv's BAND instantiation over the band walk of `band`; SCORE: with
+// the score map (`score`, `slopes`).
+template <typename T, int D, bool ACCUM_DQ, bool SCORE = false, typename Src>
 __device__ __forceinline__ void bwd_dkdv_band(const Src& src, BwdArgs a, int hk, int n0,
-                                              unsigned char* smem, Band band) {
-  bwd_dkdv<T, D, ACCUM_DQ, true>(
+                                              unsigned char* smem, Band band,
+                                              const Score& score = Score{},
+                                              const float* slopes = nullptr) {
+  bwd_dkdv<T, D, ACCUM_DQ, true, SCORE>(
       src, a, hk, n0, smem,
-      BandRangeQWalk(src.sq, src.sk, n0, BwdPlan<D>::ROWS, band, a.group, hk));
+      BandRangeQWalk(src.sq, src.sk, n0, BwdPlan<D>::ROWS, band, a.group, hk), score, slopes);
 }
 
 // ---- dQ ---------------------------------------------------------------------
@@ -749,10 +866,14 @@ struct DqLayout {
 // dQ of query rows [m0, m0 + BwdPlan<D>::ROWS) of query head hh of the sequence `src`
 // over the key tiles of `walk`, written once. `smem` is the 1024-aligned
 // base of DqLayout<D>::BYTES. BAND: mask by walk.band (a BandRangeKWalk),
-// as bwd_dkdv.
-template <typename T, int D, bool BAND = false, typename Src, typename Walk>
+// as bwd_dkdv. SCORE (a BAND instantiation): the score map, as bwd_dkdv.
+template <typename T, int D, bool BAND = false, bool SCORE = false, typename Src,
+          typename Walk>
 __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
-                                       unsigned char* smem, const Walk& walk) {
+                                       unsigned char* smem, const Walk& walk,
+                                       const Score& score = Score{},
+                                       const float* slopes = nullptr) {
+  static_assert(BAND || !SCORE, "bwd_dq: SCORE masks by the band");
   using L = DqLayout<D>;
   using P = BwdPlan<D>;
   constexpr int BN = BWD_Q_BN;
@@ -821,6 +942,8 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
     lse2[i] = lse_s[qr + warp * 16 + g + 8 * i];
     delta[i] = delta_s[qr + warp * 16 + g + 8 * i];
   }
+  Score sc = score;
+  if constexpr (SCORE) sc.slope = bwd_slope(slopes, hh);
   for (int t = 0; t < total; ++t) {
     const int st = t % BWD_STAGES;
     if (tid == 0 && t + 1 < total) issue(t + 1);  // its stage was freed at t - 1
@@ -870,7 +993,15 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
         wgmma_wait<1>();
         fence_regs(s);
         const int c0 = n0 + k_off;  // this warpgroup's first key
+        uint32_t dt[HK / 4];        // SCORE under a cap: the tanh derivatives
         if constexpr (BAND) {
+          float sl2 = a.scale_log2;
+          if constexpr (SCORE) {
+            // mapped into base 2 first; the band's loops then scale by 1
+            bwd_score_map<HK, false>(s, dt, sc, a.scale_log2, r0 + warp * 16 + g, c0 + 2 * t4,
+                                     sk, shift);
+            sl2 = 1.f;
+          }
           const bool need_mask =
               band_cuts(walk.band, r0, r0 + 63, c0, c0 + HK - 1, shift) || c0 + HK > sk;
           if (need_mask) {
@@ -885,7 +1016,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
             for (int j = 0; j < HK / 8; ++j) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                float x = fmaf(s[4 * j + e], a.scale_log2, -lse2[e >> 1]);
+                float x = fmaf(s[4 * j + e], sl2, -lse2[e >> 1]);
                 const int col = c0 + 8 * j + 2 * t4 + (e & 1);
                 const int i = e >> 1;
                 if (col > khi[i] || col < klo[i] || (col < kwlo[i] && col >= walk.band.sink))
@@ -896,7 +1027,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
           } else {
 #pragma unroll
             for (int i = 0; i < HK / 2; ++i)
-              s[i] = exp2f(fmaf(s[i], a.scale_log2, -lse2[(i >> 1) & 1]));
+              s[i] = exp2f(fmaf(s[i], sl2, -lse2[(i >> 1) & 1]));
           }
         } else {
         const bool need_mask = (a.causal && c0 + HK - 1 > r0 + shift) || c0 + HK > sk;
@@ -918,12 +1049,24 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
         fence_regs(dp);
 #pragma unroll
         for (int j = 0; j < HK / 8; ++j) {
+          if constexpr (SCORE) {
+            // dS (times the cap's dtanh) in place of dP
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - delta[e >> 1]);
+            if (sc.cap_in != 0.f) bwd_dtanh4(dp, dt, j);
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi)
+              *reinterpret_cast<uint32_t*>(
+                  DSs + swz128(warp * 16 + g + 8 * hi, k_off + 8 * j + 2 * t4)) =
+                  Elem<T>::pack(dp[4 * j + 2 * hi], dp[4 * j + 2 * hi + 1]);
+          } else {
 #pragma unroll
           for (int hi = 0; hi < 2; ++hi)
             *reinterpret_cast<uint32_t*>(
                 DSs + swz128(warp * 16 + g + 8 * hi, k_off + 8 * j + 2 * t4)) =
                 Elem<T>::pack(s[4 * j + 2 * hi] * (dp[4 * j + 2 * hi] - delta[hi]),
                               s[4 * j + 2 * hi + 1] * (dp[4 * j + 2 * hi + 1] - delta[hi]));
+          }
         }
         fence_proxy_async();
         named_barrier(1, BWD_THREADS);  // both halves of dS are in
@@ -969,7 +1112,15 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
 
         // P = exp2(S * scale_log2 - lse2), masked on the diagonal and the
         // ragged end of the keys
+        uint32_t dt[BN / 4];  // SCORE under a cap: the tanh derivatives
         if constexpr (BAND) {
+          float sl2 = a.scale_log2;
+          if constexpr (SCORE) {
+            // mapped into base 2 first; the band's loops then scale by 1
+            bwd_score_map<BN, false>(s, dt, sc, a.scale_log2, r0 + warp * 16 + g, n0 + 2 * t4,
+                                     sk, shift);
+            sl2 = 1.f;
+          }
           const bool need_mask =
               band_cuts(walk.band, r0, r0 + 63, n0, n0 + BN - 1, shift) || n0 + BN > sk;
           if (need_mask) {
@@ -984,7 +1135,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
             for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) {
-                float x = fmaf(s[4 * j + e], a.scale_log2, -lse2[e >> 1]);
+                float x = fmaf(s[4 * j + e], sl2, -lse2[e >> 1]);
                 const int col = n0 + 8 * j + 2 * t4 + (e & 1);
                 const int i = e >> 1;
                 if (col > khi[i] || col < klo[i] || (col < kwlo[i] && col >= walk.band.sink))
@@ -995,7 +1146,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
           } else {
 #pragma unroll
             for (int i = 0; i < BN / 2; ++i)
-              s[i] = exp2f(fmaf(s[i], a.scale_log2, -lse2[(i >> 1) & 1]));
+              s[i] = exp2f(fmaf(s[i], sl2, -lse2[(i >> 1) & 1]));
           }
         } else {
         const bool need_mask = (a.causal && n0 + BN - 1 > r0 + shift) || n0 + BN > sk;
@@ -1019,6 +1170,12 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
         // dS = P (dP - delta); dQ += dS K (scaled once at the end)
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) s[i] *= dp[i] - delta[(i >> 1) & 1];
+        if constexpr (SCORE) {
+          if (sc.cap_in != 0.f) {
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) bwd_dtanh4(s, dt, j);
+          }
+        }
         uint32_t da[BN / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(da[kk], s, kk);
@@ -1056,12 +1213,16 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
                BandKWalk(src.sq, src.sk, m0, a.causal, hh, BwdPlan<D>::ROWS));
 }
 
-// bwd_dq's BAND instantiation over the band walk of `band`.
-template <typename T, int D, typename Src>
+// bwd_dq's BAND instantiation over the band walk of `band`; SCORE: with
+// the score map (`score`, `slopes`).
+template <typename T, int D, bool SCORE = false, typename Src>
 __device__ __forceinline__ void bwd_dq_band(const Src& src, BwdArgs a, int hh, int m0,
-                                            unsigned char* smem, Band band) {
-  bwd_dq<T, D, true>(src, a, hh, m0, smem,
-                     BandRangeKWalk(src.sq, src.sk, m0, BwdPlan<D>::ROWS, band, hh));
+                                            unsigned char* smem, Band band,
+                                            const Score& score = Score{},
+                                            const float* slopes = nullptr) {
+  bwd_dq<T, D, true, SCORE>(src, a, hh, m0, smem,
+                            BandRangeKWalk(src.sq, src.sk, m0, BwdPlan<D>::ROWS, band, hh),
+                            score, slopes);
 }
 
 }  // namespace sm90

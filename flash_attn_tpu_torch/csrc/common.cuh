@@ -3,7 +3,8 @@
 // the mma/exp2 overlap probe alone, csrc/probes.cu), the shared-memory
 // address of a pointer, the band masks, the key tiles of a row tile's
 // band, the query tiles of a key tile's band, the band's tile tests and
-// per-key and per-row bounds, and quad reductions.
+// per-key and per-row bounds, the score map's factors (softcap, ALiBi),
+// and quad reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -212,6 +213,30 @@ inline Band band_from_args(int left, int right, int sink, int chunk) {
   b.sink = sink;
   b.chunk = chunk;
   return b;
+}
+
+// The score map of softcap and ALiBi for one query head of one sequence
+// (fwd_sm90.cuh score_map, bwd_sm90.cuh bwd_score_map): with a cap, score
+// s (Q K^T, unscaled) becomes tanh(s cap_in) cap_out with cap_in = scale /
+// cap and cap_out = cap log2(e), else s scale log2(e); then ALiBi adds
+// slope (the head's slope times log2(e), 0 for none) times the bias, col -
+// (sk - 1) under causal masking (relative to the last key, as
+// flash_fwd.py:243-245: the lse keeps that form) and -|row + sk - sq - col|
+// otherwise.
+struct Score {
+  float cap_in = 0.f, cap_out = 0.f;
+  float slope = 0.f;
+  int causal = 0;
+};
+
+// The Score of a C entry point's softcap (0: none) at scale * log2(e); the
+// slope is each kernel's to set.
+inline Score score_from_args(float scale_log2, float softcap, int causal) {
+  Score s;
+  s.cap_in = softcap > 0.f ? scale_log2 / (FA_LOG2E * softcap) : 0.f;
+  s.cap_out = softcap * FA_LOG2E;
+  s.causal = causal;
+  return s;
 }
 
 // Reductions over the 4 lanes of a quad (the lanes that share one row of an

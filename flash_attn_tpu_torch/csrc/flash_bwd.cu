@@ -2,7 +2,8 @@
 // fp16, head dims 64, 96, 128 and 256 (the kernels are in flash_bwd.cuh;
 // this source compiles 64 and 128 and holds the C entry points,
 // flash_bwd_wide.cu compiles 96 and 256, flash_bwd_band.cu and
-// flash_bwd_band_wide.cu the band instantiations).
+// flash_bwd_band_wide.cu the band instantiations, flash_bwd_score.cu and
+// flash_bwd_score_wide.cu the score instantiations).
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_bwd.py:_dkdv_kernel
 // and :_dq_kernel (the deterministic two-kernel backward),
@@ -72,6 +73,15 @@
 // runs the band-free instantiations, the kernels of the earlier releases,
 // with the same bits and machine code.
 //
+// softcap and ALiBi (flash_bwd.py:55-101, the map flash_bwd_fused.py
+// recomputes too, its slopes at :176-179) run in the score instantiations
+// (SCORE) of all three products' kernels, which are band instantiations
+// with the causal bound as a band of right extent 0: each rebuilt score is
+// capped, taken to base 2 and biased by its query head's slope as the
+// forward maps it (the last-key form of the forward's lse), then masked by
+// the band; under a cap dS is multiplied by the tanh derivative, kept as a
+// half2 pair a register (bwd_sm90.cuh bwd_score_map).
+//
 // Conventions: softmax_scale is natural; lse is natural-log (b, h, sq) and
 // -inf for a row that sees no key (its P is 0). Causal masking is
 // bottom-right aligned (shift = sk - sq). The tensor maps are encoded on the
@@ -118,7 +128,8 @@ cudaError_t make_maps(BwdMaps* m, const Operands& o, bool bf16, int b, int sq, i
 }
 
 BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int sq_pad,
-                      int h, int h_k, int d, float scale, int causal, const fa::Band& band) {
+                      int h, int h_k, int d, float scale, int causal, const fa::Band& band,
+                      float softcap, const float* slopes, int64_t slope_sb) {
   BwdParams p = {};
   p.lse2 = lse2;
   p.delta = delta;
@@ -129,6 +140,9 @@ BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int
   p.d = d;
   p.a = {scale, scale * FA_LOG2E, causal, h / h_k};
   p.band = band;
+  p.score = fa::score_from_args(scale * FA_LOG2E, softcap, causal);
+  p.slopes = slopes;
+  p.slope_sb = slope_sb;
   return p;
 }
 
@@ -138,9 +152,11 @@ bool valid(int b, int sq, int sk, int sq_pad, int h, int h_k, int d) {
          sq_pad >= sq;
 }
 
-// Whether the kernels take a call's band (dispatch/band.py band_args).
-bool valid_band(int causal, int right, int sink, int chunk, int band) {
-  return sink >= 0 && chunk >= 0 && !(causal && right != 0 && band);
+// Whether the kernels take a call's band (dispatch/band.py band_args) and
+// cap; `masked`: the call runs a band or score instantiation, which takes
+// the causal bound as right = 0.
+bool valid_band(int causal, int right, int sink, int chunk, int masked, float softcap) {
+  return sink >= 0 && chunk >= 0 && !(causal && right != 0 && masked) && softcap >= 0.f;
 }
 
 // The head dims this source compiles; the others go to flash_bwd_wide.cu.
@@ -175,8 +191,11 @@ extern "C" int fa_bwd_preprocess(const void* dout, const void* out, const float*
 // compiled for at head dim d (dispatch/config.py dense_bwd_tiles). The band
 // (dispatch/band.py band_args): window extents left and right (-1: no
 // bound; right 0 under causal masking), sink tokens and the chunk, read
-// when `band` is set, which launches the band instantiation. Returns a
-// cudaError_t.
+// when `band` is set, which launches the band instantiation. softcap (0:
+// none) and the ALiBi slopes (b, h) fp32 at slopes[bb * slope_sb + hh]
+// (slope_sb 0 for one slope a head; nullptr: no ALiBi) launch the score
+// instantiation, which reads the band always (band_args' form: no bound
+// but the causal one when there is no band). Returns a cudaError_t.
 extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse2,
                            const float* delta, void* dk, void* dv,
@@ -189,9 +208,12 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            int64_t dk_sb, int64_t dk_ss, int64_t dk_sh,
                            int64_t dv_sb, int64_t dv_ss, int64_t dv_sh,
                            float scale, int causal, int left, int right, int sink,
-                           int chunk, int band, int is_bf16, void* stream) {
+                           int chunk, int band, float softcap, const float* slopes,
+                           int64_t slope_sb, int is_bf16, void* stream) {
+  const bool score = softcap > 0.f || slopes != nullptr;
   if (block_q != BWD_KV_BM || block_k != bwd_block_rows(d) ||
-      !valid(b, sq, sk, sq_pad, h, h_k, d) || !valid_band(causal, right, sink, chunk, band))
+      !valid(b, sq, sk, sq_pad, h, h_k, d) ||
+      !valid_band(causal, right, sink, chunk, band || score, softcap))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
@@ -200,13 +222,17 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                               bwd_block_rows(d));
   if (err != cudaSuccess) return (int)err;
   BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal,
-                            fa::band_from_args(left, right, sink, chunk));
+                            fa::band_from_args(left, right, sink, chunk), softcap, slopes,
+                            slope_sb);
   p.dk = dk;
   p.dv = dv;
   p.dq_accum = dq_accum;
   p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (score)
+    return (int)(wide(d) ? run_dkdv_score_wide(is_bf16, d, maps, p, b, h_k, st)
+                         : run_dkdv_score(is_bf16, d, maps, p, b, h_k, st));
   if (band)
     return (int)(wide(d) ? run_dkdv_band_wide(is_bf16, d, maps, p, b, h_k, st)
                          : run_dkdv_band(is_bf16, d, maps, p, b, h_k, st));
@@ -214,8 +240,8 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                        : dispatch_dims<Dkdv>(NarrowDims{}, is_bf16, d, maps, p, b, h_k, st));
 }
 
-// dQ (b, sq, h, d) in q's type, written once. Layouts and the band as
-// fa_bwd_dkdv.
+// dQ (b, sq, h, d) in q's type, written once. Layouts, the band and the
+// score map as fa_bwd_dkdv.
 extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse2,
                          const float* delta, void* dq, int b, int sq, int sk,
@@ -226,9 +252,12 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          int64_t do_sb, int64_t do_ss, int64_t do_sh,
                          int64_t dq_sb, int64_t dq_ss, int64_t dq_sh,
                          float scale, int causal, int left, int right, int sink,
-                         int chunk, int band, int is_bf16, void* stream) {
+                         int chunk, int band, float softcap, const float* slopes,
+                         int64_t slope_sb, int is_bf16, void* stream) {
+  const bool score = softcap > 0.f || slopes != nullptr;
   if (block_q != bwd_block_rows(d) || block_k != BWD_Q_BN ||
-      !valid(b, sq, sk, sq_pad, h, h_k, d) || !valid_band(causal, right, sink, chunk, band))
+      !valid(b, sq, sk, sq_pad, h, h_k, d) ||
+      !valid_band(causal, right, sink, chunk, band || score, softcap))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
@@ -237,10 +266,14 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                               BWD_Q_BN);
   if (err != cudaSuccess) return (int)err;
   BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal,
-                            fa::band_from_args(left, right, sink, chunk));
+                            fa::band_from_args(left, right, sink, chunk), softcap, slopes,
+                            slope_sb);
   p.dq = dq;
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (score)
+    return (int)(wide(d) ? run_dq_score_wide(is_bf16, d, maps, p, b, st)
+                         : run_dq_score(is_bf16, d, maps, p, b, st));
   if (band)
     return (int)(wide(d) ? run_dq_band_wide(is_bf16, d, maps, p, b, st)
                          : run_dq_band(is_bf16, d, maps, p, b, st));

@@ -1,10 +1,12 @@
 // The dense attention backward's kernels and launches (see csrc/flash_bwd.cu
 // for what they replace and how they are designed), shared by the sources
 // that compile them: csrc/flash_bwd.cu (the C entry points, head dims 64
-// and 128), csrc/flash_bwd_wide.cu (head dims 96 and 256) and, for the
-// band instantiations (BAND: window, chunk and sinks), csrc/flash_bwd_band.cu
-// (64 and 128) and csrc/flash_bwd_band_wide.cu (96 and 256), so that the
-// heavy instantiations build side by side.
+// and 128), csrc/flash_bwd_wide.cu (head dims 96 and 256), for the band
+// instantiations (BAND: window, chunk and sinks) csrc/flash_bwd_band.cu (64
+// and 128) and csrc/flash_bwd_band_wide.cu (96 and 256), and for the score
+// instantiations (SCORE: softcap and ALiBi, with or without a band)
+// csrc/flash_bwd_score.cu (64 and 128) and csrc/flash_bwd_score_wide.cu (96
+// and 256), so that the heavy instantiations build side by side.
 #pragma once
 
 #include "bwd_sm90.cuh"
@@ -29,6 +31,12 @@ struct BwdParams {
   int sq, sk, sq_pad, h, d;
   BwdArgs a;
   Band band;  // read by the BAND instantiations alone
+  // read by the SCORE instantiations alone: the cap and the bias's form,
+  // and the slopes (b, h) fp32 at slopes[bb * slope_sb + h] (slope_sb 0:
+  // one slope a head), or none
+  Score score;
+  const float* slopes;
+  int64_t slope_sb;
 };
 
 // The preprocess kernel's arguments (see fa_bwd_preprocess).
@@ -125,14 +133,24 @@ struct DenseSrc {
 
 // ---- the kernels ------------------------------------------------------------
 
+// The batch row's slopes (h,) of a SCORE instantiation, or none.
+__device__ __forceinline__ const float* row_slopes(const BwdParams& p, int bb) {
+  return p.slopes != nullptr ? p.slopes + bb * p.slope_sb : nullptr;
+}
+
 // dK/dV (and the fused dQ): one block per (KV head, batch row, block of
 // bwd_block_rows(D) KV rows), KV tile 0 (the heaviest under causal masking)
-// first. BAND: the q tiles of the band (p.a.band) alone.
-template <typename T, int D, bool ACCUM_DQ, bool BAND>
+// first. BAND: the q tiles of the band (p.band) alone. SCORE (with BAND;
+// p.band holds the causal bound): the scores mapped by p.score.
+template <typename T, int D, bool ACCUM_DQ, bool BAND, bool SCORE>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     dkdv_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
-  if constexpr (BAND)
+  if constexpr (SCORE)
+    bwd_dkdv_band<T, D, ACCUM_DQ, true>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                                        blockIdx.z * BwdPlan<D>::ROWS, align_1024(smem_raw),
+                                        p.band, p.score, row_slopes(p, blockIdx.y));
+  else if constexpr (BAND)
     bwd_dkdv_band<T, D, ACCUM_DQ>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
                                   blockIdx.z * BwdPlan<D>::ROWS, align_1024(smem_raw), p.band);
   else
@@ -142,11 +160,16 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
 // dQ: one block per (head, batch row, block of bwd_block_rows(D) q rows),
 // the last (heaviest) q block first. BAND: the key tiles of the band alone.
-template <typename T, int D, bool BAND>
+// SCORE: as dkdv_kernel.
+template <typename T, int D, bool BAND, bool SCORE>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     dq_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
-  if constexpr (BAND)
+  if constexpr (SCORE)
+    bwd_dq_band<T, D, true>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                            (gridDim.z - 1 - blockIdx.z) * BwdPlan<D>::ROWS,
+                            align_1024(smem_raw), p.band, p.score, row_slopes(p, blockIdx.y));
+  else if constexpr (BAND)
     bwd_dq_band<T, D>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
                       (gridDim.z - 1 - blockIdx.z) * BwdPlan<D>::ROWS, align_1024(smem_raw),
                       p.band);
@@ -176,20 +199,22 @@ struct Pre {
   }
 };
 
-template <typename T, int D, bool BAND>
+template <typename T, int D, bool BAND, bool SCORE = false>
 cudaError_t run_dkdv(const BwdMaps& maps, const BwdParams& p, int b, int h_k, cudaStream_t st) {
   constexpr int rows = BwdPlan<D>::ROWS;
   const dim3 grid(h_k, b, (p.sk + rows - 1) / rows);
   if (p.dq_accum != nullptr)
-    return launch(dkdv_kernel<T, D, true, BAND>, grid, DkdvLayout<D, true>::SMEM, maps, p, st);
-  return launch(dkdv_kernel<T, D, false, BAND>, grid, DkdvLayout<D, false>::SMEM, maps, p, st);
+    return launch(dkdv_kernel<T, D, true, BAND, SCORE>, grid, DkdvLayout<D, true>::SMEM, maps,
+                  p, st);
+  return launch(dkdv_kernel<T, D, false, BAND, SCORE>, grid, DkdvLayout<D, false>::SMEM, maps,
+                p, st);
 }
 
-template <typename T, int D, bool BAND>
+template <typename T, int D, bool BAND, bool SCORE = false>
 cudaError_t run_dq(const BwdMaps& maps, const BwdParams& p, int b, cudaStream_t st) {
   constexpr int rows = BwdPlan<D>::ROWS;
   const dim3 grid(p.h, b, (p.sq + rows - 1) / rows);
-  return launch(dq_kernel<T, D, BAND>, grid, DqLayout<D>::SMEM, maps, p, st);
+  return launch(dq_kernel<T, D, BAND, SCORE>, grid, DqLayout<D>::SMEM, maps, p, st);
 }
 
 template <typename T, int D>
@@ -222,9 +247,25 @@ struct DqBand {
   }
 };
 
-// The launches at head dims 96 and 256 (csrc/flash_bwd_wide.cu), and the
+template <typename T, int D>
+struct DkdvScore {
+  static cudaError_t run(const BwdMaps& maps, const BwdParams& p, int b, int h_k,
+                         cudaStream_t st) {
+    return run_dkdv<T, D, true, true>(maps, p, b, h_k, st);
+  }
+};
+
+template <typename T, int D>
+struct DqScore {
+  static cudaError_t run(const BwdMaps& maps, const BwdParams& p, int b, cudaStream_t st) {
+    return run_dq<T, D, true, true>(maps, p, b, st);
+  }
+};
+
+// The launches at head dims 96 and 256 (csrc/flash_bwd_wide.cu), the
 // band's at 64 and 128 (csrc/flash_bwd_band.cu) and at 96 and 256
-// (csrc/flash_bwd_band_wide.cu).
+// (csrc/flash_bwd_band_wide.cu), and the score map's at 64 and 128
+// (csrc/flash_bwd_score.cu) and at 96 and 256 (csrc/flash_bwd_score_wide.cu).
 cudaError_t run_pre_wide(bool bf16, int d, const PreParams& p, cudaStream_t st);
 cudaError_t run_dkdv_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
                           int h_k, cudaStream_t st);
@@ -238,6 +279,14 @@ cudaError_t run_dkdv_band_wide(bool bf16, int d, const BwdMaps& maps, const BwdP
                                int b, int h_k, cudaStream_t st);
 cudaError_t run_dq_band_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
                              cudaStream_t st);
+cudaError_t run_dkdv_score(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                           int h_k, cudaStream_t st);
+cudaError_t run_dq_score(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                         cudaStream_t st);
+cudaError_t run_dkdv_score_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p,
+                                int b, int h_k, cudaStream_t st);
+cudaError_t run_dq_score_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p,
+                              int b, cudaStream_t st);
 
 }  // namespace dense_bwd
 }  // namespace fa

@@ -99,9 +99,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
   p.band.right = right < 0 ? BAND_NONE : right;
   p.band.sink = sink;
   p.band.chunk = chunk;
-  p.score.cap_in = softcap > 0.f ? scale_log2 / (FA_LOG2E * softcap) : 0.f;
-  p.score.cap_out = softcap * FA_LOG2E;
-  p.score.causal = causal;
+  p.score = score_from_args(scale_log2, softcap, causal);
   p.slopes = slopes;
   p.slope_sb = slope_sb;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

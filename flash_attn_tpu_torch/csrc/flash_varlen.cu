@@ -4,7 +4,11 @@
 // the C entry points, flash_varlen_wide.cu compiles 96 and 256,
 // flash_varlen_band.cu and flash_varlen_band_wide.cu the band
 // instantiations: a window and attention_chunk per sequence, masked as
-// B3's band instantiations mask them, flash_varlen.py:47-76).
+// B3's band instantiations mask them, flash_varlen.py:47-76;
+// flash_varlen_score.cu and flash_varlen_score_wide.cu the score
+// instantiations: softcap and ALiBi, each sequence with its own slopes and
+// keys, mapped as B3's score instantiations map them, flash_varlen.py:
+// 554-557 and :717-720).
 // The forward (B6's and the persistent B7) runs the wgmma/TMA tile of
 // fwd_sm90.cuh in flash_varlen_fwd.cu.
 //
@@ -83,9 +87,11 @@ bool takes(int b, int total_q, int total_k, int h, int h_k, int d, int num_tiles
          (int64_t)num_tiles * h * (BWD_KV_ROWS / bwd_block_rows(d)) <= 0x7fffffff;
 }
 
-// Whether the kernels take a call's band (no sinks on the varlen route).
-bool valid_band(int causal, int right, int chunk, int band) {
-  return chunk >= 0 && !(causal && right != 0 && band);
+// Whether the kernels take a call's band (no sinks on the varlen route)
+// and cap; `masked`: a band or score instantiation, which takes the causal
+// bound as right = 0.
+bool valid_band(int causal, int right, int chunk, int masked, float softcap) {
+  return chunk >= 0 && !(causal && right != 0 && masked) && softcap >= 0.f;
 }
 
 // The maps (q/dout boxes of q_rows rows, k/v boxes of kv_rows) and the
@@ -96,8 +102,9 @@ cudaError_t setup(BwdMaps* maps, VarlenParams* p, const void* q, const void* k,
                   const int* tiles, int num_tiles, int b, int total_q, int total_k, int h,
                   int h_k, int d, int64_t rows_pad, int64_t q_st, int64_t q_sh,
                   int64_t k_st, int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t do_st,
-                  int64_t do_sh, float scale, int causal, const fa::Band& band, int is_bf16,
-                  int q_rows, int kv_rows) {
+                  int64_t do_sh, float scale, int causal, const fa::Band& band, float softcap,
+                  const float* slopes, int64_t slope_sb, int is_bf16, int q_rows,
+                  int kv_rows) {
   if (!takes(b, total_q, total_k, h, h_k, d, num_tiles, rows_pad))
     return cudaErrorInvalidValue;
   cudaError_t err;
@@ -123,6 +130,9 @@ cudaError_t setup(BwdMaps* maps, VarlenParams* p, const void* q, const void* k,
   p->h_k = h_k;
   p->a = {scale, scale * FA_LOG2E, causal, h / h_k};
   p->band = band;
+  p->score = fa::score_from_args(scale * FA_LOG2E, softcap, causal);
+  p->slopes = slopes;
+  p->slope_sb = slope_sb;
   return cudaSuccess;
 }
 
@@ -164,7 +174,10 @@ extern "C" int fa_varlen_bwd_preprocess(
 // (dispatch/config.py VARLEN_BWD_TILE). The band (dispatch/band.py
 // band_args, no sinks): window extents left and right (-1: no bound; right
 // 0 under causal masking) and the chunk, read when `band` is set, which
-// launches the band instantiation. Returns a cudaError_t (0 on success).
+// launches the band instantiation. softcap (0: none) and the ALiBi slopes
+// (b, h) fp32 at slopes[seq * slope_sb + hh] (slope_sb 0 for one slope a
+// head; nullptr: no ALiBi) launch the score instantiation, which reads the
+// band always (band_args' form). Returns a cudaError_t (0 on success).
 extern "C" int fa_varlen_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout, const float* lse2,
     const float* delta, void* dk, void* dv, const int* cu_q, const int* cu_k,
@@ -173,22 +186,27 @@ extern "C" int fa_varlen_bwd_dkdv(
     int64_t rows_pad, int64_t q_st, int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st,
     int64_t v_sh, int64_t do_st, int64_t do_sh, int64_t dk_st, int64_t dk_sh, int64_t dv_st,
     int64_t dv_sh, float scale, int causal, int left, int right, int chunk, int band,
-    int is_bf16, void* stream) {
-  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS || !valid_band(causal, right, chunk, band))
+    float softcap, const float* slopes, int64_t slope_sb, int is_bf16, void* stream) {
+  const bool score = softcap > 0.f || slopes != nullptr;
+  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS ||
+      !valid_band(causal, right, chunk, band || score, softcap))
     return (int)cudaErrorInvalidValue;
   BwdMaps maps;
   VarlenParams p;
   cudaError_t err = setup(&maps, &p, q, k, v, dout, lse2, delta, cu_q, cu_k, lens_q, lens_k,
                           tiles, num_tiles, b, total_q, total_k, h, h_k, d, rows_pad, q_st,
                           q_sh, k_st, k_sh, v_st, v_sh, do_st, do_sh, scale, causal,
-                          fa::band_from_args(left, right, 0, chunk), is_bf16, BWD_KV_BM,
-                          bwd_block_rows(d));
+                          fa::band_from_args(left, right, 0, chunk), softcap, slopes,
+                          slope_sb, is_bf16, BWD_KV_BM, bwd_block_rows(d));
   if (err != cudaSuccess) return (int)err;
   p.dk = dk;
   p.dv = dv;
   p.dk_st = dk_st; p.dk_sh = dk_sh;
   p.dv_st = dv_st; p.dv_sh = dv_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (score)
+    return (int)(wide(d) ? run_dkdv_score_wide(is_bf16, d, maps, p, st)
+                         : run_dkdv_score(is_bf16, d, maps, p, st));
   if (band)
     return (int)(wide(d) ? run_dkdv_band_wide(is_bf16, d, maps, p, st)
                          : run_dkdv_band(is_bf16, d, maps, p, st));
@@ -197,7 +215,7 @@ extern "C" int fa_varlen_bwd_dkdv(
 }
 
 // dQ (total_q, h, d) in q's type over the query-side work list `tiles` of
-// block_q-row tiles, written once. Layouts and the band as
+// block_q-row tiles, written once. Layouts, the band and the score map as
 // fa_varlen_bwd_dkdv.
 extern "C" int fa_varlen_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout, const float* lse2,
@@ -206,20 +224,26 @@ extern "C" int fa_varlen_bwd_dq(
     int h, int h_k, int d, int block_q, int block_k, int64_t rows_pad, int64_t q_st,
     int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t do_st,
     int64_t do_sh, int64_t dq_st, int64_t dq_sh, float scale, int causal, int left, int right,
-    int chunk, int band, int is_bf16, void* stream) {
-  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS || !valid_band(causal, right, chunk, band))
+    int chunk, int band, float softcap, const float* slopes, int64_t slope_sb, int is_bf16,
+    void* stream) {
+  const bool score = softcap > 0.f || slopes != nullptr;
+  if (block_q != BWD_Q_ROWS || block_k != BWD_KV_ROWS ||
+      !valid_band(causal, right, chunk, band || score, softcap))
     return (int)cudaErrorInvalidValue;
   BwdMaps maps;
   VarlenParams p;
   cudaError_t err = setup(&maps, &p, q, k, v, dout, lse2, delta, cu_q, cu_k, lens_q, lens_k,
                           tiles, num_tiles, b, total_q, total_k, h, h_k, d, rows_pad, q_st,
                           q_sh, k_st, k_sh, v_st, v_sh, do_st, do_sh, scale, causal,
-                          fa::band_from_args(left, right, 0, chunk), is_bf16,
-                          bwd_block_rows(d), BWD_Q_BN);
+                          fa::band_from_args(left, right, 0, chunk), softcap, slopes,
+                          slope_sb, is_bf16, bwd_block_rows(d), BWD_Q_BN);
   if (err != cudaSuccess) return (int)err;
   p.dq = dq;
   p.dq_st = dq_st; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (score)
+    return (int)(wide(d) ? run_dq_score_wide(is_bf16, d, maps, p, st)
+                         : run_dq_score(is_bf16, d, maps, p, st));
   if (band)
     return (int)(wide(d) ? run_dq_band_wide(is_bf16, d, maps, p, st)
                          : run_dq_band(is_bf16, d, maps, p, st));

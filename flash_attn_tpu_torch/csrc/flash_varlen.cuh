@@ -2,9 +2,12 @@
 // csrc/flash_varlen.cu for what they replace and how they are designed),
 // shared by the sources that compile them: csrc/flash_varlen.cu (the C
 // entry points, head dims 64 and 128), csrc/flash_varlen_wide.cu (head dims
-// 96 and 256) and, for the band instantiations (BAND: window and chunk),
+// 96 and 256), for the band instantiations (BAND: window and chunk)
 // csrc/flash_varlen_band.cu (64 and 128) and csrc/flash_varlen_band_wide.cu
-// (96 and 256), so that the heavy instantiations build side by side.
+// (96 and 256), and for the score instantiations (SCORE: softcap and
+// ALiBi) csrc/flash_varlen_score.cu (64 and 128) and
+// csrc/flash_varlen_score_wide.cu (96 and 256), so that the heavy
+// instantiations build side by side.
 #pragma once
 
 #include "bwd_sm90.cuh"
@@ -42,7 +45,18 @@ struct VarlenParams {
   int num_tiles, h, h_k;
   BwdArgs a;
   Band band;  // read by the BAND instantiations alone
+  // read by the SCORE instantiations alone: the cap and the bias's form,
+  // and the slopes (b, h) fp32 at slopes[seq * slope_sb + h] (slope_sb 0:
+  // one slope a head), or none
+  Score score;
+  const float* slopes;
+  int64_t slope_sb;
 };
+
+// Sequence seq's slopes (h,) of a SCORE instantiation, or none.
+__device__ __forceinline__ const float* seq_slopes(const VarlenParams& p, int seq) {
+  return p.slopes != nullptr ? p.slopes + seq * p.slope_sb : nullptr;
+}
 
 // Sequence `seq` of the packed operands: 3D maps, the padded lse2 / delta
 // rows, the gradients by element strides.
@@ -197,7 +211,9 @@ __host__ __device__ constexpr int subtiles() { return BWD_KV_ROWS / BwdPlan<D>::
 // Item x = (tile, KV head, sub-tile) of the key-side schedule, the
 // heaviest tiles first; dead tiles (sorted last) and sub-tiles past the
 // sequence's keys exit. BAND: the q tiles of the sequence's band alone.
-template <typename T, int D, bool BAND>
+// SCORE (with BAND; p.band holds the causal bound): the scores mapped by
+// p.score with the sequence's slopes.
+template <typename T, int D, bool BAND, bool SCORE = false>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     varlen_dkdv_kernel(const __grid_constant__ BwdMaps maps, const VarlenParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -209,15 +225,18 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const PackedSrc<T> src(maps, p, seq);
   const int n0 = p.tiles[2 * tile + 1] + sub * BwdPlan<D>::ROWS;
   if (sub > 0 && n0 >= src.sk) return;
-  if constexpr (BAND)
+  if constexpr (SCORE)
+    bwd_dkdv_band<T, D, false, true>(src, p.a, x - tile * p.h_k, n0, align_1024(smem_raw),
+                                     p.band, p.score, seq_slopes(p, seq));
+  else if constexpr (BAND)
     bwd_dkdv_band<T, D, false>(src, p.a, x - tile * p.h_k, n0, align_1024(smem_raw), p.band);
   else
     bwd_dkdv<T, D, false>(src, p.a, x - tile * p.h_k, n0, align_1024(smem_raw));
 }
 
 // Item x = (tile, head, sub-tile) of the query-side schedule. BAND: the key
-// tiles of the sequence's band alone.
-template <typename T, int D, bool BAND>
+// tiles of the sequence's band alone. SCORE: as varlen_dkdv_kernel.
+template <typename T, int D, bool BAND, bool SCORE = false>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     varlen_dq_kernel(const __grid_constant__ BwdMaps maps, const VarlenParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -229,7 +248,10 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const PackedSrc<T> src(maps, p, seq);
   const int m0 = p.tiles[2 * tile + 1] + sub * BwdPlan<D>::ROWS;
   if (sub > 0 && m0 >= src.sq) return;
-  if constexpr (BAND)
+  if constexpr (SCORE)
+    bwd_dq_band<T, D, true>(src, p.a, x - tile * p.h, m0, align_1024(smem_raw), p.band,
+                            p.score, seq_slopes(p, seq));
+  else if constexpr (BAND)
     bwd_dq_band<T, D>(src, p.a, x - tile * p.h, m0, align_1024(smem_raw), p.band);
   else
     bwd_dq<T, D>(src, p.a, x - tile * p.h, m0, align_1024(smem_raw));
@@ -247,15 +269,16 @@ cudaError_t launch(Kernel kernel, int64_t blocks, int threads, int smem, cudaStr
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool BAND>
+template <typename T, int D, bool BAND, bool SCORE = false>
 cudaError_t run_dkdv(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
-  return launch(varlen_dkdv_kernel<T, D, BAND>, (int64_t)p.num_tiles * p.h_k * subtiles<D>(),
-                BWD_THREADS, DkdvLayout<D, false>::SMEM, st, maps, p);
+  return launch(varlen_dkdv_kernel<T, D, BAND, SCORE>,
+                (int64_t)p.num_tiles * p.h_k * subtiles<D>(), BWD_THREADS,
+                DkdvLayout<D, false>::SMEM, st, maps, p);
 }
 
-template <typename T, int D, bool BAND>
+template <typename T, int D, bool BAND, bool SCORE = false>
 cudaError_t run_dq(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
-  return launch(varlen_dq_kernel<T, D, BAND>, (int64_t)p.num_tiles * p.h * subtiles<D>(),
+  return launch(varlen_dq_kernel<T, D, BAND, SCORE>, (int64_t)p.num_tiles * p.h * subtiles<D>(),
                 BWD_THREADS, DqLayout<D>::SMEM, st, maps, p);
 }
 
@@ -288,6 +311,20 @@ struct DqBand {
 };
 
 template <typename T, int D>
+struct DkdvScore {
+  static cudaError_t run(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
+    return run_dkdv<T, D, true, true>(maps, p, st);
+  }
+};
+
+template <typename T, int D>
+struct DqScore {
+  static cudaError_t run(const BwdMaps& maps, const VarlenParams& p, cudaStream_t st) {
+    return run_dq<T, D, true, true>(maps, p, st);
+  }
+};
+
+template <typename T, int D>
 struct Pre {
   static cudaError_t run(const PreParams& p, cudaStream_t st) {
     const int64_t zero_blocks =
@@ -298,9 +335,11 @@ struct Pre {
   }
 };
 
-// The launches at head dims 96 and 256 (csrc/flash_varlen_wide.cu), and
-// the band's at 64 and 128 (csrc/flash_varlen_band.cu) and at 96 and 256
-// (csrc/flash_varlen_band_wide.cu).
+// The launches at head dims 96 and 256 (csrc/flash_varlen_wide.cu), the
+// band's at 64 and 128 (csrc/flash_varlen_band.cu) and at 96 and 256
+// (csrc/flash_varlen_band_wide.cu), and the score map's at 64 and 128
+// (csrc/flash_varlen_score.cu) and at 96 and 256
+// (csrc/flash_varlen_score_wide.cu).
 cudaError_t run_pre_wide(bool bf16, int d, const PreParams& p, cudaStream_t st);
 cudaError_t run_dkdv_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
                           cudaStream_t st);
@@ -314,6 +353,14 @@ cudaError_t run_dkdv_band_wide(bool bf16, int d, const BwdMaps& maps, const Varl
                                cudaStream_t st);
 cudaError_t run_dq_band_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
                              cudaStream_t st);
+cudaError_t run_dkdv_score(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                           cudaStream_t st);
+cudaError_t run_dq_score(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                         cudaStream_t st);
+cudaError_t run_dkdv_score_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                                cudaStream_t st);
+cudaError_t run_dq_score_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                              cudaStream_t st);
 
 }  // namespace varlen_bwd
 }  // namespace fa

@@ -53,8 +53,14 @@
 // flash_varlen.py:47-76 _varlen_mask_and_bias) run in the band
 // instantiations (csrc/flash_varlen_fwd_band.cu) over fwd_sm90.cuh's band
 // tile, as B1's do: an item walks the key tiles of its band (KeyRange),
-// from the band's first, so B6 and B7 give B1's bits under a band too. The
-// kernels are in csrc/flash_varlen_fwd.cuh.
+// from the band's first, so B6 and B7 give B1's bits under a band too.
+// softcap and ALiBi (flash_varlen.py:181-187, _varlen_mask_and_bias's
+// bias) run in the score instantiations (csrc/flash_varlen_fwd_score.cu),
+// which are band ones with the causal bound as a band of right extent 0:
+// each item maps its scores by fwd_sm90.cuh's score_map with its
+// sequence's slope and keys (the bias relative to the sequence's last key
+// under causal masking), so B6 and B7 give B1's score instantiation's bits
+// over the same rows. The kernels are in csrc/flash_varlen_fwd.cuh.
 
 #include "flash_varlen_fwd.cuh"
 #include "fwd_sm90.cuh"
@@ -66,13 +72,13 @@ using namespace fa::sm90;
 using namespace fa::varlen_fwd;
 
 // The maps and parameters of one call (see fa_varlen_fwd).
-cudaError_t setup(FwdMaps* maps, VarlenFwdParams* p, const void* q, const void* k,
+cudaError_t setup(FwdMaps* maps, VarlenFwdScoreParams* p, const void* q, const void* k,
                   const void* v, void* out, float* lse, const int* cu_q, const int* cu_k,
                   const int* lens_q, const int* lens_k, const int* tiles, int num_tiles,
                   int total_q, int total_k, int h, int h_k, int d, int64_t q_st,
                   int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st, int64_t v_sh,
                   int64_t o_st, int64_t o_sh, float scale, int causal, const Band& band,
-                  int is_bf16) {
+                  float softcap, const float* slopes, int64_t slope_sb, int is_bf16) {
   cudaError_t err;
   if ((err = make_tile_map<3>(&maps->q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, FWD_M)) ||
       (err = make_tile_map<3>(&maps->k, k, is_bf16, {d, total_k, h_k}, {k_st, k_sh}, FWD_N)) ||
@@ -94,15 +100,19 @@ cudaError_t setup(FwdMaps* maps, VarlenFwdParams* p, const void* q, const void* 
   p->scale_log2 = scale * FA_LOG2E;
   p->causal = causal;
   p->band = band;
+  p->score = score_from_args(scale * FA_LOG2E, softcap, causal);
+  p->slopes = slopes;
+  p->slope_sb = slope_sb;
   return cudaSuccess;
 }
 
-// Whether the kernels take a call's tile, shapes and band.
+// Whether the kernels take a call's tile, shapes, band and cap; `masked`:
+// a band or score instantiation, which takes the causal bound as right = 0.
 bool takes(int block_q, int block_k, int h, int h_k, int d, int num_tiles, int causal,
-           int right, int chunk, int band) {
+           int right, int chunk, int masked, float softcap) {
   return block_q == FWD_M && block_k == FWD_N && h_k >= 1 && h % h_k == 0 &&
          (d == 64 || d == 96 || d == 128 || d == 256) && (int64_t)num_tiles * h <= 0x7fffffff &&
-         chunk >= 0 && !(causal && right != 0 && band);
+         chunk >= 0 && !(causal && right != 0 && masked) && softcap >= 0.f;
 }
 
 }  // namespace
@@ -116,32 +126,39 @@ bool takes(int block_q, int block_k, int h, int h_k, int d, int num_tiles, int c
 // The band (dispatch/band.py band_args, no sinks): window extents left and
 // right (-1: no bound; right 0 under causal masking) and the chunk, per
 // sequence, read when `band` is set, which launches the band
-// instantiation. Returns a cudaError_t (0 on success).
+// instantiation. softcap (0: none) and the ALiBi slopes (b, h) fp32 at
+// slopes[seq * slope_sb + hh] (slope_sb 0 for one slope a head; nullptr: no
+// ALiBi) launch the score instantiation, which reads the band always
+// (band_args' form). Returns a cudaError_t (0 on success).
 extern "C" int fa_varlen_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const int* cu_q, const int* cu_k, const int* lens_q, const int* lens_k,
     const int* tiles, int num_tiles, int total_q, int total_k, int h, int h_k,
     int d, int block_q, int block_k, int64_t q_st, int64_t q_sh, int64_t k_st,
     int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t o_st, int64_t o_sh,
-    float scale, int causal, int left, int right, int chunk, int band, int is_bf16,
-    void* stream) {
-  if (!takes(block_q, block_k, h, h_k, d, num_tiles, causal, right, chunk, band))
+    float scale, int causal, int left, int right, int chunk, int band, float softcap,
+    const float* slopes, int64_t slope_sb, int is_bf16, void* stream) {
+  const bool score = softcap > 0.f || slopes != nullptr;
+  if (!takes(block_q, block_k, h, h_k, d, num_tiles, causal, right, chunk, band || score,
+             softcap))
     return (int)cudaErrorInvalidValue;
   if (num_tiles == 0 || total_q == 0 || total_k == 0) return 0;  // no row sees a key
   FwdMaps maps;
-  VarlenFwdParams p;
+  VarlenFwdScoreParams p;
   cudaError_t err = setup(&maps, &p, q, k, v, out, lse, cu_q, cu_k, lens_q, lens_k, tiles,
                           num_tiles, total_q, total_k, h, h_k, d, q_st, q_sh, k_st, k_sh,
                           v_st, v_sh, o_st, o_sh, scale, causal,
-                          band_from_args(left, right, 0, chunk), is_bf16);
+                          band_from_args(left, right, 0, chunk), softcap, slopes, slope_sb,
+                          is_bf16);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (score) return (int)run_fwd_score(is_bf16, d, maps, p, st);
   if (band) return (int)run_fwd_band(is_bf16, d, maps, p, st);
   return (int)dispatch_dims<Launch>(VarlenDims{}, is_bf16, d, maps, p, st);
 }
 
-// B7 (varlen_fwd_persistent_kernel) over the same work list, arguments and
-// band as fa_varlen_fwd, with a grid of num_sms x the blocks that fit on
+// B7 (varlen_fwd_persistent_kernel) over the same work list, arguments,
+// band and score map as fa_varlen_fwd, with a grid of num_sms x the blocks that fit on
 // one SM (at most one block per item), written to *grid_out (host memory).
 // Returns a cudaError_t (0 on success).
 extern "C" int fa_varlen_fwd_persistent(
@@ -150,20 +167,26 @@ extern "C" int fa_varlen_fwd_persistent(
     const int* tiles, int num_tiles, int total_q, int total_k, int h, int h_k,
     int d, int block_q, int block_k, int64_t q_st, int64_t q_sh, int64_t k_st,
     int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t o_st, int64_t o_sh,
-    float scale, int causal, int left, int right, int chunk, int band, int is_bf16, int num_sms,
-    int* grid_out, void* stream) {
+    float scale, int causal, int left, int right, int chunk, int band, float softcap,
+    const float* slopes, int64_t slope_sb, int is_bf16, int num_sms, int* grid_out,
+    void* stream) {
   if (grid_out) *grid_out = 0;
-  if (!takes(block_q, block_k, h, h_k, d, num_tiles, causal, right, chunk, band) || num_sms < 1)
+  const bool score = softcap > 0.f || slopes != nullptr;
+  if (!takes(block_q, block_k, h, h_k, d, num_tiles, causal, right, chunk, band || score,
+             softcap) ||
+      num_sms < 1)
     return (int)cudaErrorInvalidValue;
   if (num_tiles == 0 || total_q == 0 || total_k == 0) return 0;  // no row sees a key
   FwdMaps maps;
-  VarlenFwdParams p;
+  VarlenFwdScoreParams p;
   cudaError_t err = setup(&maps, &p, q, k, v, out, lse, cu_q, cu_k, lens_q, lens_k, tiles,
                           num_tiles, total_q, total_k, h, h_k, d, q_st, q_sh, k_st, k_sh,
                           v_st, v_sh, o_st, o_sh, scale, causal,
-                          band_from_args(left, right, 0, chunk), is_bf16);
+                          band_from_args(left, right, 0, chunk), softcap, slopes, slope_sb,
+                          is_bf16);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (score) return (int)run_persistent_score(is_bf16, d, maps, p, num_sms, grid_out, st);
   if (band) return (int)run_persistent_band(is_bf16, d, maps, p, num_sms, grid_out, st);
   return (int)dispatch_dims<LaunchPersistent>(VarlenDims{}, is_bf16, d, maps, p, num_sms,
                                               grid_out, st);

@@ -2,9 +2,11 @@
 // item, B7's persistent walk; see csrc/flash_varlen_fwd.cu for what they
 // replace and how they are designed), shared by the sources that compile
 // them: csrc/flash_varlen_fwd.cu (the C entry points and the band-free
-// kernels) and csrc/flash_varlen_fwd_band.cu (the band instantiations:
-// BAND, a window and attention_chunk per sequence on fwd_sm90.cuh's band
-// tile), so that the two build side by side.
+// kernels), csrc/flash_varlen_fwd_band.cu (the band instantiations: BAND, a
+// window and attention_chunk per sequence on fwd_sm90.cuh's band tile) and
+// csrc/flash_varlen_fwd_score.cu (the score instantiations: SCORE, softcap
+// and ALiBi with each sequence's slopes, BAND ones that take the causal
+// bound as a band), so that they build side by side.
 #pragma once
 
 #include "fwd_sm90.cuh"
@@ -29,6 +31,27 @@ struct VarlenFwdParams {
   Band band;  // read by the BAND instantiations alone
 };
 
+// A SCORE instantiation's parameters: the cap and the bias's form, and the
+// slopes (b, h) fp32 at slopes[seq * slope_sb + h] (slope_sb 0: one slope a
+// head), or none. The other kernels take VarlenFwdParams alone, whose
+// parameter block stays what it was (a larger one changed their machine
+// code).
+struct VarlenFwdScoreParams : VarlenFwdParams {
+  Score score;
+  const float* slopes;
+  int64_t slope_sb;
+};
+
+template <bool SCORE>
+using FwdParamsOf = std::conditional_t<SCORE, VarlenFwdScoreParams, VarlenFwdParams>;
+
+// The Score of sequence seq's query head hh: p.score with its slope.
+__device__ __forceinline__ Score item_score(const VarlenFwdScoreParams& p, int seq, int hh) {
+  Score sc = p.score;
+  if (p.slopes != nullptr) sc.slope = p.slopes[seq * p.slope_sb + hh] * FA_LOG2E;
+  return sc;
+}
+
 // Rows of one sequence of the packed tensors: Q from token q0 at head hq,
 // K/V from token k0 at KV head hk.
 struct PackedSrc {
@@ -50,9 +73,12 @@ struct PackedSrc {
 // Item w = (head, tile) = (w / num_tiles, w % num_tiles) of the sorted
 // work list: head by head, each head's longest bands first; dead tiles
 // (sorted last) exit. BAND: the key tiles of the sequence's band alone.
-template <typename T, int D, bool BAND>
+// SCORE (with BAND; p.band holds the causal bound): the scores mapped by
+// the sequence's Score.
+template <typename T, int D, bool BAND, bool SCORE = false>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
-    varlen_fwd_kernel(const __grid_constant__ FwdMaps maps, const VarlenFwdParams p) {
+    varlen_fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParamsOf<SCORE> p) {
+  static_assert(BAND || !SCORE, "varlen_fwd_kernel: SCORE masks by the band");
   extern __shared__ unsigned char smem_raw[];
   const int hh = blockIdx.x / p.num_tiles;
   const int tile = blockIdx.x - hh * p.num_tiles;
@@ -68,7 +94,11 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
   t.sq = p.lens_q[seq];
   t.sk = p.lens_k[seq];
   t.m0 = p.tiles[2 * tile + 1];
-  fwd_tile<T, D, true, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
+  if constexpr (SCORE)
+    fwd_tile<T, D, true, true, true>(src, t, p.scale_log2, p.causal, smem, p.band,
+                                     item_score(p, seq, hh));
+  else
+    fwd_tile<T, D, true, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
 }
 
 // B7's view of item w = (head, tile) = (w / num_tiles, w % num_tiles); w < 0:
@@ -117,11 +147,13 @@ __device__ __forceinline__ Item next_item(const VarlenFwdParams& p, int w) {
 __host__ __device__ constexpr int persistent_q_buffers(int d) { return d == 64 ? 2 : 1; }
 
 // B7: a persistent block walks its items with a stride of the grid. BAND:
-// each item over the key tiles of its band, from the band's first.
-template <typename T, int D, bool BAND>
+// each item over the key tiles of its band, from the band's first. SCORE:
+// as varlen_fwd_kernel.
+template <typename T, int D, bool BAND, bool SCORE = false>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     varlen_fwd_persistent_kernel(const __grid_constant__ FwdMaps maps,
-                                 const VarlenFwdParams p) {
+                                 const FwdParamsOf<SCORE> p) {
+  static_assert(BAND || !SCORE, "varlen_fwd_persistent_kernel: SCORE masks by the band");
   constexpr int QBUF = persistent_q_buffers(D);
   using L = FwdLayout<D, QBUF>;
   extern __shared__ unsigned char smem_raw[];
@@ -164,6 +196,8 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     t.sk = cur.sk;
     t.m0 = cur.m0;
     unsigned char* Qs = q_tile(i);
+    Score sc;  // SCORE: the item's sequence's, read from its tile's entry
+    if constexpr (SCORE) sc = item_score(p, p.tiles[2 * (cur.w - cur.hh * p.num_tiles)], cur.hh);
     FwdAcc<D> a;
     a.init();
     mbar_wait(&q_bar[i % QBUF], (i / QBUF) & 1);
@@ -180,8 +214,12 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
         }
       }
       mbar_wait(&full[g % FWD_STAGES], (g / FWD_STAGES) & 1);
-      fwd_step<T, D, true, BAND>(a, Qs, stage(g), (first(cur) + n) * FWD_N, t, p.scale_log2,
-                                 p.causal, -1, p.band);
+      if constexpr (SCORE)
+        fwd_step<T, D, true, true, true>(a, Qs, stage(g), (first(cur) + n) * FWD_N, t,
+                                         p.scale_log2, p.causal, -1, p.band, sc);
+      else
+        fwd_step<T, D, true, BAND>(a, Qs, stage(g), (first(cur) + n) * FWD_N, t, p.scale_log2,
+                                   p.causal, -1, p.band);
     }
     fwd_epilogue<T, D>(a, Qs, t);
     fence_proxy_async();  // the epilogue's stores to Qs before a TMA load there
@@ -193,21 +231,22 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
   }
 }
 
-template <typename T, int D, bool BAND>
-cudaError_t run_fwd(const FwdMaps& maps, const VarlenFwdParams& p, cudaStream_t stream) {
+template <typename T, int D, bool BAND, bool SCORE = false>
+cudaError_t run_fwd(const FwdMaps& maps, const FwdParamsOf<SCORE>& p, cudaStream_t stream) {
   constexpr int smem = FwdLayout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(varlen_fwd_kernel<T, D, BAND>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = varlen_fwd_kernel<T, D, BAND, SCORE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  varlen_fwd_kernel<T, D, BAND><<<p.num_tiles * p.h, FWD_THREADS, smem, stream>>>(maps, p);
+  kernel<<<p.num_tiles * p.h, FWD_THREADS, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool BAND>
-cudaError_t run_persistent(const FwdMaps& maps, const VarlenFwdParams& p, int num_sms,
+template <typename T, int D, bool BAND, bool SCORE = false>
+cudaError_t run_persistent(const FwdMaps& maps, const FwdParamsOf<SCORE>& p, int num_sms,
                            int* grid_out, cudaStream_t stream) {
   constexpr int smem = FwdLayout<D, persistent_q_buffers(D)>::SMEM;
-  auto kernel = varlen_fwd_persistent_kernel<T, D, BAND>;
+  auto kernel = varlen_fwd_persistent_kernel<T, D, BAND, SCORE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -253,6 +292,22 @@ struct LaunchPersistentBand {
   }
 };
 
+template <typename T, int D>
+struct LaunchScore {
+  static cudaError_t run(const FwdMaps& maps, const VarlenFwdScoreParams& p,
+                         cudaStream_t stream) {
+    return run_fwd<T, D, true, true>(maps, p, stream);
+  }
+};
+
+template <typename T, int D>
+struct LaunchPersistentScore {
+  static cudaError_t run(const FwdMaps& maps, const VarlenFwdScoreParams& p, int num_sms,
+                         int* grid_out, cudaStream_t stream) {
+    return run_persistent<T, D, true, true>(maps, p, num_sms, grid_out, stream);
+  }
+};
+
 using VarlenDims = Dims<64, 96, 128, 256>;
 
 // The band instantiations' launches (csrc/flash_varlen_fwd_band.cu).
@@ -261,6 +316,12 @@ cudaError_t run_fwd_band(bool bf16, int d, const FwdMaps& maps, const VarlenFwdP
 cudaError_t run_persistent_band(bool bf16, int d, const FwdMaps& maps,
                                 const VarlenFwdParams& p, int num_sms, int* grid_out,
                                 cudaStream_t stream);
+// The score instantiations' launches (csrc/flash_varlen_fwd_score.cu).
+cudaError_t run_fwd_score(bool bf16, int d, const FwdMaps& maps,
+                          const VarlenFwdScoreParams& p, cudaStream_t stream);
+cudaError_t run_persistent_score(bool bf16, int d, const FwdMaps& maps,
+                                 const VarlenFwdScoreParams& p, int num_sms, int* grid_out,
+                                 cudaStream_t stream);
 
 }  // namespace varlen_fwd
 }  // namespace fa

@@ -124,8 +124,7 @@ extern "C" int fa_varlen_paged(
   p.causal = causal;
   p.band.left = left < 0 ? BAND_NONE : left;
   p.band.right = right < 0 ? BAND_NONE : right;
-  p.score.cap_in = softcap > 0.f ? scale_log2 / (FA_LOG2E * softcap) : 0.f;
-  p.score.cap_out = softcap * FA_LOG2E;
+  p.score = score_from_args(scale_log2, softcap, causal);
   FwdMaps maps;
   cudaError_t err;
   if ((err = make_tile_map<3>(&maps.q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, FWD_M)) ||

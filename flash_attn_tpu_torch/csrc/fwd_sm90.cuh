@@ -156,19 +156,6 @@ __device__ __forceinline__ void fwd_issue_q(const Src& src, unsigned char* Qs,
   for (int c = 0; c < L::QT::PANELS; ++c) src.load_q(Qs + c * L::QT::PANEL_BYTES, bar, c * 64, m0);
 }
 
-// The score map of softcap and ALiBi for one block's rows (one query head
-// of one sequence): with a cap, score s (Q K^T, unscaled) becomes
-// tanh(s cap_in) cap_out with cap_in = scale / cap and cap_out = cap
-// log2(e), else s scale log2(e); then ALiBi adds slope (the head's slope
-// times log2(e), 0 for none) times the bias, col - (sk - 1) under causal
-// masking (relative to the last key, as flash_fwd.py:243-245: the lse
-// keeps that form) and -|row + sk - sq - col| otherwise.
-struct Score {
-  float cap_in = 0.f, cap_out = 0.f;
-  float slope = 0.f;
-  int causal = 0;
-};
-
 // Score a thread's S accumulators of one tile (keys from n0; its rows
 // row_a and row_a + 8, the quad lane t4) into base 2 by `sc`. The bias is
 // a whole number below 2^24, so it is exact in fp32: one FMA a score.

@@ -12,10 +12,11 @@ and the backward of kernels/flash_varlen.py. Both train through the band
 masks (``flash_attn_func``: a window, attention_chunk and sink tokens; the
 dense varlen route: a window and attention_chunk), the band kept beside
 the forward's residuals as JAX's custom_vjp keeps it among its nondiff
-arguments. ``flash_attn_func`` and its packed forms take softcap and ALiBi
-in the forward (the kernels' score instantiations); a gradient through
-either raises, as does either option on the dense varlen route (their
-training half is ROADMAP.md queue A, item 1). The varlen ``block_table=``
+arguments, and through softcap and ALiBi (the kernels' score
+instantiations, forward and backward; the slopes an input whose gradient
+is zero, as JAX returns). The dense varlen route sends ALiBi to B6's
+forward (kernels/flash_varlen.py) and every other call to the persistent
+B7, as JAX does (:347-352). The varlen ``block_table=``
 route (:499-546), the chunked prefill of the serving engine, runs
 kernels/flash_varlen_paged.py, forward only (with a sliding window and
 softcap; ALiBi raises, as JAX's route drops the slopes), or,
@@ -38,7 +39,6 @@ from flash_attn_tpu_torch.dispatch.config import (
 )
 from flash_attn_tpu_torch.dispatch.score import (
     alibi_bias,
-    has_score,
     score_map,
     slopes_bh,
 )
@@ -49,6 +49,7 @@ from flash_attn_tpu_torch.kernels.flash_paged_prefill import (
 )
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     flash_attention_varlen_bwd,
+    flash_attention_varlen_fwd,
     varlen_meta,
 )
 from flash_attn_tpu_torch.kernels.flash_varlen_paged import (
@@ -62,11 +63,7 @@ __all__ = ["flash_attn_func", "flash_attn_kvpacked_func",
            "flash_attn_qkvpacked_func", "flash_attn_varlen_func",
            "flash_attn_varlen_kvpacked_func",
            "flash_attn_varlen_qkvpacked_func", "reject_unsupported",
-           "require_no_grad", "require_no_score_grad"]
-
-# Where softcap and ALiBi in training stand in ROADMAP.md.
-SCORE_TRAINING = ("queue A, item 1: softcap and ALiBi in training, the "
-                  "backward kernels' score map")
+           "require_no_grad"]
 
 
 def require_no_grad(name: str, *tensors) -> None:
@@ -78,19 +75,6 @@ def require_no_grad(name: str, *tensors) -> None:
             f"{name}: forward only; it serves the engine's prefill and decode "
             "steps, which take no gradient in the JAX package either. Call "
             "it under torch.no_grad() or torch.inference_mode().")
-
-
-def require_no_score_grad(name: str, softcap: float, alibi_slopes,
-                          *tensors) -> None:
-    """Raise before any kernel runs when a gradient is asked of a call
-    with softcap or ALiBi: the forward kernels map the scores, the backward
-    kernels do not yet."""
-    if has_score(softcap, alibi_slopes) and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: a gradient with softcap or alibi_slopes is not ported "
-            f"yet (ROADMAP.md {SCORE_TRAINING}); the forward runs under "
-            "torch.no_grad() or torch.inference_mode()")
 
 
 def reject_unsupported(name: str, roadmap_item: str = "", **args) -> None:
@@ -153,38 +137,48 @@ def _kernel_layout(dout):
     return dout
 
 
+def _slopes_grad(ctx, alibi_slopes):
+    """The slopes' cotangent: zeros when asked for (JAX returns zeros,
+    flash_attn_tpu/interface.py:182-184: the slopes are not learned)."""
+    if alibi_slopes is None or not ctx.needs_input_grad[3]:
+        return None
+    return torch.zeros_like(alibi_slopes)
+
+
 class _FlashAttn(torch.autograd.Function):
     """out, lse = attention(q, k, v) on (b, s, h, d) tensors under the
-    causal bound and ``band`` (window_size, sink_token_length and
-    attention_chunk), which the backward masks as the forward did, and the
-    forward's ``score`` map (softcap, alibi_slopes: the caller refuses a
-    gradient with either); the lse is an inspection output whose cotangent
-    is dropped, as in JAX."""
+    causal bound, ``band`` (window_size, sink_token_length and
+    attention_chunk) and the score map (``softcap``, ``alibi_slopes``), which
+    the backward applies as the forward did; the lse is an inspection
+    output whose cotangent is dropped, as in JAX, and the slopes' gradient
+    is zero."""
 
     @staticmethod
-    def forward(ctx, q, k, v, softmax_scale, causal, deterministic, band,
-                score):
+    def forward(ctx, q, k, v, alibi_slopes, softmax_scale, causal,
+                deterministic, band, softcap):
+        score = dict(softcap=softcap, alibi_slopes=alibi_slopes)
         out_t, lse = flash_attention_fwd(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             softmax_scale=softmax_scale, causal=causal, **band, **score)
         out = out_t.transpose(1, 2)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (softmax_scale, causal, deterministic, band)
+        ctx.save_for_backward(q, k, v, out, lse, alibi_slopes)
+        ctx.args = (softmax_scale, causal, deterministic, band, softcap)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        softmax_scale, causal, deterministic, band = ctx.args
+        q, k, v, out, lse, alibi_slopes = ctx.saved_tensors
+        softmax_scale, causal, deterministic, band, softcap = ctx.args
         dout = _kernel_layout(dout)
         dq, dk, dv = flash_attention_bwd(
             dout.transpose(1, 2), q.transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), out.transpose(1, 2), lse,
             softmax_scale=softmax_scale, causal=causal,
-            deterministic=deterministic, **band)
+            deterministic=deterministic, **band, softcap=softcap,
+            alibi_slopes=alibi_slopes)
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
-                None, None, None, None, None)
+                _slopes_grad(ctx, alibi_slopes), None, None, None, None, None)
 
 
 def flash_attn_func(
@@ -227,59 +221,63 @@ def flash_attn_func(
     (dispatch/band.py), forward and backward (the kernels' band
     instantiations, in both ``deterministic`` modes). ``softcap`` (0: none)
     and ``alibi_slopes`` ((nheads,) or (batch, nheads), fp32) map the
-    scores as JAX's do (dispatch/score.py; the lse in JAX's form), in the
-    forward only: a gradient with either raises NotImplementedError before
-    the forward runs (ROADMAP.md queue A, item 1). Every other option
-    raises NotImplementedError (ROADMAP.md queue A, item 7)."""
+    scores as JAX's do (dispatch/score.py; the lse in JAX's form), forward
+    and backward (the kernels' score instantiations, with or without a
+    band); a ``requires_grad`` slopes tensor gets a zero gradient, as in
+    JAX. Every other option raises NotImplementedError (ROADMAP.md queue
+    A, item 7)."""
     reject_unsupported(
         "flash_attn_func", roadmap_item="queue A, item 7", dropout_p=dropout_p,
         learnable_sink=learnable_sink, dropout_rng=dropout_rng,
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale, qv=qv,
         score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors)
-    require_no_score_grad("flash_attn_func", softcap, alibi_slopes, q, k, v)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     window_size = normalize_window(tuple(window_size))
     band = dict(window_size=window_size, sink_token_length=sink_token_length,
                 attention_chunk=attention_chunk)
-    score = dict(softcap=softcap, alibi_slopes=alibi_slopes)
-    out, lse = _FlashAttn.apply(q, k, v, softmax_scale, causal, deterministic,
-                                band, score)
+    out, lse = _FlashAttn.apply(q, k, v, alibi_slopes, softmax_scale, causal,
+                                deterministic, band, softcap)
     if not return_attn_probs:
         return out
     with torch.no_grad():
         s_dmask = _reconstruct_s_dmask(q, k, lse, softmax_scale, causal,
-                                       **band, **score)
+                                       **band, softcap=softcap,
+                                       alibi_slopes=alibi_slopes)
     return out, lse, s_dmask
 
 
 class _FlashAttnVarlen(torch.autograd.Function):
     """out, lse = packed varlen attention; the forward is the persistent
-    kernel (B7), the backward the dK/dV + dQ kernels (B6), both under
-    ``band`` (window_size and attention_chunk). ``meta`` holds the work
-    lists of both; the lse is an inspection output whose cotangent is
-    dropped, as in JAX."""
+    kernel (B7), or with ALiBi B6's forward (as JAX routes it), the
+    backward the dK/dV + dQ kernels (B6), all under ``band`` (window_size
+    and attention_chunk) and the score map (``softcap``, ``alibi_slopes``).
+    ``meta`` holds the work lists of both; the lse is an inspection output
+    whose cotangent is dropped, as in JAX, and the slopes' gradient is
+    zero."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q,
-                seqused_k, meta, max_seqlen_q, max_seqlen_k, softmax_scale,
-                causal, band):
+    def forward(ctx, q, k, v, alibi_slopes, cu_seqlens_q, cu_seqlens_k,
+                seqused_q, seqused_k, meta, max_seqlen_q, max_seqlen_k,
+                softmax_scale, causal, band, softcap):
         args = (cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
                 seqused_q, seqused_k, softmax_scale, causal)
-        out, lse = flash_attention_varlen_fwd_persistent(q, k, v, *args,
-                                                         meta=meta, **band)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args, ctx.meta, ctx.band = args, meta, band
+        score = dict(softcap=softcap, alibi_slopes=alibi_slopes)
+        fwd = (flash_attention_varlen_fwd if alibi_slopes is not None
+               else flash_attention_varlen_fwd_persistent)
+        out, lse = fwd(q, k, v, *args, meta=meta, **band, **score)
+        ctx.save_for_backward(q, k, v, out, lse, alibi_slopes)
+        ctx.args, ctx.meta, ctx.band, ctx.softcap = args, meta, band, softcap
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, alibi_slopes = ctx.saved_tensors
         dq, dk, dv = flash_attention_varlen_bwd(
             _kernel_layout(dout), q, k, v, out, lse, *ctx.args, meta=ctx.meta,
-            **ctx.band)
-        return (dq, dk, dv) + (None,) * 10
+            **ctx.band, softcap=ctx.softcap, alibi_slopes=alibi_slopes)
+        return (dq, dk, dv, _slopes_grad(ctx, alibi_slopes)) + (None,) * 11
 
 
 def flash_attn_varlen_func(
@@ -337,19 +335,17 @@ def flash_attn_varlen_func(
     as the dense functions mask a batch row; forward and backward, the
     kernels' band instantiations). The varlen routes take no sink tokens,
     as in JAX. ``softcap`` caps the paged route's scores (B8's score
-    instantiation, forward only); on the dense route softcap and ALiBi
-    raise NotImplementedError (ROADMAP.md queue A, item 1). A window or
-    softcap with ``qv``, dropout, descales, and ``qv`` without
+    instantiation, forward only); the dense route takes softcap and
+    ``alibi_slopes`` ((nheads,) or (batch, nheads) fp32, each sequence its
+    row) forward and backward (the kernels' score instantiations; ALiBi
+    through B6's forward, as JAX routes it), the slopes' gradient zero. A
+    window or softcap with ``qv``, dropout, descales, and ``qv`` without
     ``block_table``, raise NotImplementedError (ROADMAP.md queue A, item
     7). JAX's paged route drops ``attention_chunk`` and ``alibi_slopes``
     without a word (flash_attn_tpu/interface.py:447-456); here both raise
     (ROADMAP.md queue C)."""
     window_size = normalize_window(tuple(window_size))
-    if block_table is None:
-        reject_unsupported("flash_attn_varlen_func",
-                           roadmap_item=SCORE_TRAINING, softcap=softcap,
-                           alibi_slopes=alibi_slopes)
-    elif alibi_slopes is not None:
+    if block_table is not None and alibi_slopes is not None:
         raise NotImplementedError(
             "flash_attn_varlen_func: alibi_slopes with block_table is not "
             "ported: the JAX package's paged route drops the slopes without "
@@ -409,8 +405,9 @@ def flash_attn_varlen_func(
                        int(max_seqlen_k), seqused_q, seqused_k, causal, meta,
                        **band)
     out, lse = _FlashAttnVarlen.apply(
-        q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k, meta,
-        int(max_seqlen_q), int(max_seqlen_k), softmax_scale, causal, band)
+        q, k, v, alibi_slopes, cu_seqlens_q, cu_seqlens_k, seqused_q,
+        seqused_k, meta, int(max_seqlen_q), int(max_seqlen_k), softmax_scale,
+        causal, band, softcap)
     return (out, lse, None) if return_attn_probs else out
 
 

@@ -37,16 +37,22 @@ SIGNATURES = {
     "fa_varlen_paged": [_P] * 10 + [_I] * 11 + [_L] * 11 + [_F] + [_I] * 4
                        + [_F, _I, _P],
     "fa_bwd_preprocess": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_I, _P],
-    "fa_bwd_dkdv": [_P] * 9 + [_I] * 9 + [_L] * 18 + [_F] + [_I] * 7 + [_P],
-    "fa_bwd_dq": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_F] + [_I] * 7 + [_P],
-    "fa_varlen_fwd": [_P] * 10 + [_I] * 8 + [_L] * 8 + [_F] + [_I] * 6 + [_P],
+    "fa_bwd_dkdv": [_P] * 9 + [_I] * 9 + [_L] * 18 + [_F] + [_I] * 6
+                   + [_F, _P, _L, _I, _P],
+    "fa_bwd_dq": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_F] + [_I] * 6
+                 + [_F, _P, _L, _I, _P],
+    "fa_varlen_fwd": [_P] * 10 + [_I] * 8 + [_L] * 8 + [_F] + [_I] * 5
+                     + [_F, _P, _L, _I, _P],
     "fa_varlen_fwd_persistent":
-        [_P] * 10 + [_I] * 8 + [_L] * 8 + [_F] + [_I] * 7 + [_P, _P],
+        [_P] * 10 + [_I] * 8 + [_L] * 8 + [_F] + [_I] * 5
+        + [_F, _P, _L, _I, _I, _P, _P],
     "fa_varlen_bwd_preprocess": [_P] * 13 + [_I] * 7 + [_L] * 5 + [_I, _P],
     "fa_varlen_bwd_dkdv":
-        [_P] * 13 + [_I] * 9 + [_L] * 13 + [_F] + [_I] * 6 + [_P],
+        [_P] * 13 + [_I] * 9 + [_L] * 13 + [_F] + [_I] * 5
+        + [_F, _P, _L, _I, _P],
     "fa_varlen_bwd_dq":
-        [_P] * 12 + [_I] * 9 + [_L] * 11 + [_F] + [_I] * 6 + [_P],
+        [_P] * 12 + [_I] * 9 + [_L] * 11 + [_F] + [_I] * 5
+        + [_F, _P, _L, _I, _P],
     "fa_blocksparse_fwd": [_P] * 7 + [_I] * 8 + [_L] * 9 + [_F, _I, _I, _P],
     "fa_blocksparse_bwd_preprocess": [_P] * 9 + [_I] * 10 + [_L] * 6 + [_I, _P],
     "fa_blocksparse_bwd_dkdv":

@@ -10,7 +10,12 @@ phase. The band masks (``window_size``, ``attention_chunk``,
 dispatch/band.py) run in the kernels' band instantiations, which walk only
 the tiles of the band; a call without a band (or whose window reaches
 every key) runs the band-free ones, the kernels of the earlier releases
-bit for bit. Layout (b, h, s, d) as in the JAX kernels. delta = rowsum(dO * O),
+bit for bit. ``softcap`` and ``alibi_slopes`` (flash_bwd.py:38-154
+``_scores_log2``, dispatch/score.py) run in the kernels' score
+instantiations, with or without a band: each rebuilt score is mapped as
+the forward maps it and, under a cap, dS is multiplied by the tanh
+derivative (flash_bwd.py:143-152); ALiBi changes no gradient of q, k or v.
+Layout (b, h, s, d) as in the JAX kernels. delta = rowsum(dO * O),
 an XLA op before the JAX kernels (flash_bwd.py:406-413), is the preprocess
 kernel here; the fused path's final fp32 -> input-type cast of dQ stays a
 torch op. A tensor on the CPU takes the plain versions; a CUDA tensor
@@ -34,13 +39,19 @@ from flash_attn_tpu_torch.dispatch.config import (
     check_head_dims,
     dense_bwd_tiles,
 )
+from flash_attn_tpu_torch.dispatch.score import (
+    alibi_bias,
+    has_score,
+    slope_args,
+    slopes_bh,
+)
 from flash_attn_tpu_torch.kernels import _build
 
 # Kernel launches since the last reset (plain calls not counted): both
 # paths run fa_bwd_preprocess first; the deterministic path then runs
 # fa_bwd_dkdv and fa_bwd_dq, the fused path one fa_bwd_dkdv that adds dQ
-# into an fp32 buffer. The *_band counters count the band
-# instantiations' launches among them.
+# into an fp32 buffer. The *_band and *_score counters count the band and
+# the score instantiations' launches among them.
 launches_preprocess = 0
 launches_dkdv = 0
 launches_dq = 0
@@ -48,6 +59,9 @@ launches_fused = 0
 launches_dkdv_band = 0
 launches_dq_band = 0
 launches_fused_band = 0
+launches_dkdv_score = 0
+launches_dq_score = 0
+launches_fused_score = 0
 
 Window = Tuple[Optional[int], Optional[int]]
 
@@ -72,13 +86,17 @@ def flash_attention_bwd_plain(do, q, k, v, out, lse,
                               causal: bool = False,
                               window_size: Window = (None, None),
                               sink_token_length: int = 0,
-                              attention_chunk: int = 0):
+                              attention_chunk: int = 0, softcap: float = 0.0,
+                              alibi_slopes=None):
     """Gradients of attention in fp32 from the saved forward. do/q/out
     (b, h, sq, d), k/v (b, h_k, sk, d), lse (b, h, sq) natural-log, -inf
-    for rows that see no key; the scores masked by the causal bound and the
-    band (dispatch/band.py band_valid). Returns (dq, dk, dv) in q's, k's
-    and v's types and shapes; a GQA group's gradients sum into its KV
-    head."""
+    for rows that see no key; the scores mapped by ``softcap`` and
+    ``alibi_slopes`` ((h,) or (b, h)) as the forward maps them
+    (dispatch/score.py), then masked by the causal bound and the band
+    (dispatch/band.py band_valid); under a cap dS is multiplied by the tanh
+    derivative, 1 - tanh(s / softcap)^2 (JAX's ds_chain). Returns (dq, dk,
+    dv) in q's, k's and v's types and shapes; a GQA group's gradients sum
+    into its KV head."""
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     group = h // h_k
@@ -87,9 +105,18 @@ def flash_attention_bwd_plain(do, q, k, v, out, lse,
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    dtanh = None
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        dtanh = 1.0 - t * t
+        s = t * softcap
+    slopes = slopes_bh(alibi_slopes, b, h, q.device)
+    if slopes is not None:
+        s = s + slopes[..., None, None] * alibi_bias(rows, cols, sq, sk,
+                                                     causal)
     if causal or has_band(causal, window_size, attention_chunk):
-        rows = torch.arange(sq, device=q.device)[:, None]
-        cols = torch.arange(sk, device=q.device)[None, :]
         valid = band_valid(rows, cols, sk - sq, causal, window_size,
                            sink_token_length, attention_chunk)
         s = s.masked_fill(~valid, float("-inf"))
@@ -98,6 +125,8 @@ def flash_attention_bwd_plain(do, q, k, v, out, lse,
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     delta = bwd_preprocess_plain(do, out, lse)[0][..., None]
     ds = p * (dp - delta)
+    if dtanh is not None:
+        ds = ds * dtanh
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -160,7 +189,8 @@ def flash_attention_bwd(do, q, k, v, out, lse,
                         causal: bool = False, deterministic: bool = True,
                         window_size: Window = (None, None),
                         sink_token_length: int = 0,
-                        attention_chunk: int = 0):
+                        attention_chunk: int = 0, softcap: float = 0.0,
+                        alibi_slopes=None):
     """dq, dk, dv for attention saved by ``flash_attention_fwd``. Layouts as
     :func:`flash_attention_bwd_plain`, any strides with the head dim
     contiguous and 16-byte aligned starts and strides (the kernels load
@@ -173,11 +203,13 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     0. ``window_size`` (left, right) with None for no bound,
     ``sink_token_length`` and ``attention_chunk`` as in the forward
     (dispatch/band.py): with a band, both paths launch the kernels' band
-    instantiations."""
+    instantiations. ``softcap`` (0: none) and ``alibi_slopes`` ((h,) or
+    (b, h), read in fp32) as the forward took them (dispatch/score.py):
+    with either, both paths launch the kernels' score instantiations."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             do, q, k, v, out, lse, softmax_scale, causal, window_size,
-            sink_token_length, attention_chunk)
+            sink_token_length, attention_chunk, softcap, alibi_slopes)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -212,8 +244,10 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     sq_pad = delta.shape[-1]
     window = reach_window(window_size, causal, sq, sk)
     band = has_band(causal, window, attention_chunk)
+    score = has_score(softcap, alibi_slopes)
+    slopes = slopes_bh(alibi_slopes, b, h, q.device)
     banded = (*band_args(causal, window, sink_token_length, attention_chunk),
-              int(band))
+              int(band), float(softcap), *slope_args(slopes))
     dkdv_tile, dq_tile = dense_bwd_tiles(d)
     lib = _build.load_library()
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -222,6 +256,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     strides = (*_strides(q), *_strides(k), *_strides(v), *_strides(do))
     global launches_dkdv, launches_dq, launches_fused
     global launches_dkdv_band, launches_dq_band, launches_fused_band
+    global launches_dkdv_score, launches_dq_score, launches_fused_score
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_bwd_dkdv(
@@ -236,6 +271,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
         if deterministic:
             launches_dkdv += 1
             launches_dkdv_band += band
+            launches_dkdv_score += score
             err = lib.fa_bwd_dq(
                 *operands, dq.data_ptr(), b, sq, sk, sq_pad, h, h_k, d,
                 dq_tile.block_q, dq_tile.block_k, *strides,
@@ -244,8 +280,10 @@ def flash_attention_bwd(do, q, k, v, out, lse,
             _build.check(err, "fa_bwd_dq")
             launches_dq += 1
             launches_dq_band += band
+            launches_dq_score += score
         else:
             launches_fused += 1
             launches_fused_band += band
+            launches_fused_score += score
             dq.copy_(dq_accum)
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)

@@ -12,7 +12,11 @@ sequence's true length inside its slot, bottom-right causal masking per
 sequence. ``window_size`` and ``attention_chunk`` mask each sequence as
 the dense functions mask a batch row (flash_varlen.py:47-76
 ``_varlen_mask_and_bias``; no sink tokens, as in JAX): a call with a band
-launches the kernels' band instantiations. Rows that see no key, rows past
+launches the kernels' band instantiations. ``softcap`` and ALiBi's
+``alibi_slopes`` ((h,) or (b, h), each sequence taking its row's slopes,
+flash_varlen.py:369-376; the bias of each sequence's own keys) launch the
+kernels' score instantiations, forward and backward, with or without a
+band (dispatch/score.py). Rows that see no key, rows past
 a sequence's length and rows past ``cu_seqlens[-1]`` give out 0 and lse
 -inf, and zero gradients. The JAX
 kernels tile the flat token axis and mask by segment ids; here the wrapper
@@ -48,13 +52,19 @@ from flash_attn_tpu_torch.dispatch.varlen_meta import (
     compute_varlen_meta,
     num_tiles_bound,
 )
+from flash_attn_tpu_torch.dispatch.score import (
+    has_score,
+    slope_args,
+    slopes_bh,
+)
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd_plain
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd_plain
 
 # Kernel launches since the last reset (plain calls not counted): the
 # forward, and the backward's preprocess, dK/dV and dQ kernels; the *_band
-# counters count the band instantiations' launches among them.
+# and *_score counters count the band and the score instantiations'
+# launches among them.
 launches_fwd = 0
 launches_preprocess = 0
 launches_dkdv = 0
@@ -62,6 +72,9 @@ launches_dq = 0
 launches_fwd_band = 0
 launches_dkdv_band = 0
 launches_dq_band = 0
+launches_fwd_score = 0
+launches_dkdv_score = 0
+launches_dq_score = 0
 
 Window = Tuple[Optional[int], Optional[int]]
 
@@ -86,25 +99,35 @@ def _heads_first(x):
     return x.transpose(0, 1)[None]
 
 
+def seq_slopes(alibi_slopes, cu_seqlens_q, h: int, device=None):
+    """ALiBi's slopes as (b, h) fp32, a row a sequence (b + 1 =
+    cu_seqlens_q's length; an (h,) vector broadcast over them), or None."""
+    return slopes_bh(alibi_slopes, cu_seqlens_q.numel() - 1, h, device)
+
+
 def flash_attention_varlen_fwd_plain(
         q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
-        window_size: Window = (None, None), attention_chunk: int = 0):
+        window_size: Window = (None, None), attention_chunk: int = 0,
+        softcap: float = 0.0, alibi_slopes=None):
     """One sequence at a time through the dense plain forward (fp32), the
-    band per sequence. Returns out (total_q, h, dv) in q's type and lse (h,
-    total_q) fp32."""
+    band and the score map (each sequence's slopes) per sequence. Returns
+    out (total_q, h, dv) in q's type and lse (h, total_q) fp32."""
     total_q, h, _ = q.shape
     out = q.new_zeros((total_q, h, v.shape[-1]))
     lse = torch.full((h, total_q), float("-inf"), device=q.device)
-    for (q0, lq), (k0, lk) in zip(zip(*_host_lengths(cu_seqlens_q, seqused_q)),
-                                  zip(*_host_lengths(cu_seqlens_k, seqused_k))):
+    slopes = seq_slopes(alibi_slopes, cu_seqlens_q, h, q.device)
+    for i, ((q0, lq), (k0, lk)) in enumerate(zip(
+            zip(*_host_lengths(cu_seqlens_q, seqused_q)),
+            zip(*_host_lengths(cu_seqlens_k, seqused_k)))):
         if lq == 0:
             continue
         o, l = flash_attention_fwd_plain(
             _heads_first(q[q0:q0 + lq]), _heads_first(k[k0:k0 + lk]),
             _heads_first(v[k0:k0 + lk]), softmax_scale, causal, window_size,
-            attention_chunk=attention_chunk)
+            attention_chunk=attention_chunk, softcap=softcap,
+            alibi_slopes=None if slopes is None else slopes[i:i + 1])
         out[q0:q0 + lq] = o[0].transpose(0, 1)
         lse[:, q0:q0 + lq] = l[0]
     return out, lse
@@ -114,13 +137,17 @@ def flash_attention_varlen_bwd_plain(
         do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int,
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
-        window_size: Window = (None, None), attention_chunk: int = 0):
+        window_size: Window = (None, None), attention_chunk: int = 0,
+        softcap: float = 0.0, alibi_slopes=None):
     """One sequence at a time through the dense plain backward (fp32), the
-    band per sequence. Returns (dq, dk, dv) in q's, k's and v's types, zero
-    outside the sequences; a GQA group's gradients sum into its KV head."""
+    band and the score map (each sequence's slopes) per sequence. Returns
+    (dq, dk, dv) in q's, k's and v's types, zero outside the sequences; a
+    GQA group's gradients sum into its KV head."""
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
-    for (q0, lq), (k0, lk) in zip(zip(*_host_lengths(cu_seqlens_q, seqused_q)),
-                                  zip(*_host_lengths(cu_seqlens_k, seqused_k))):
+    slopes = seq_slopes(alibi_slopes, cu_seqlens_q, q.shape[1], q.device)
+    for i, ((q0, lq), (k0, lk)) in enumerate(zip(
+            zip(*_host_lengths(cu_seqlens_q, seqused_q)),
+            zip(*_host_lengths(cu_seqlens_k, seqused_k)))):
         if lq == 0 or lk == 0:
             continue
         rows, keys = slice(q0, q0 + lq), slice(k0, k0 + lk)
@@ -128,7 +155,8 @@ def flash_attention_varlen_bwd_plain(
             _heads_first(do[rows]), _heads_first(q[rows]),
             _heads_first(k[keys]), _heads_first(v[keys]),
             _heads_first(out[rows]), lse[None, :, rows], softmax_scale, causal,
-            window_size, attention_chunk=attention_chunk)
+            window_size, attention_chunk=attention_chunk, softcap=softcap,
+            alibi_slopes=None if slopes is None else slopes[i:i + 1])
         dq[rows] = g[0][0].transpose(0, 1)
         dk[keys] = g[1][0].transpose(0, 1)
         dv[keys] = g[2][0].transpose(0, 1)
@@ -255,12 +283,13 @@ def _as_int32(x, device):
 
 
 def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
-               causal: bool, persistent: bool = False, band=(-1, -1, 0, 0)):
+               causal: bool, persistent: bool = False, band=(-1, -1, 0, 0),
+               softcap: float = 0.0, alibi_slopes=None):
     """Allocate out (zeros) and lse (-inf) and launch, over the sorted work
     list ``meta.schedule`` of FWD_TILE rows, fa_varlen_fwd (B6) or, with
     ``persistent``, fa_varlen_fwd_persistent (B7); ``band`` is
-    :func:`kernel_band`'s. Returns (out, lse, grid), grid 0 for the
-    former."""
+    :func:`kernel_band`'s; ``softcap`` and ``alibi_slopes`` launch the score
+    instantiation. Returns (out, lse, grid), grid 0 for the former."""
     total_q, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     out = torch.zeros((total_q, h, d), dtype=q.dtype, device=q.device)
@@ -269,6 +298,7 @@ def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
     tiles = meta.schedule
     cu_q, cu_k, lens_q, lens_k = (_as_int32(x, q.device) for x in (
         cu_seqlens_q, cu_seqlens_k, meta.lens_q, meta.lens_k))
+    slopes = seq_slopes(alibi_slopes, cu_seqlens_q, h, q.device)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), cu_q.data_ptr(), cu_k.data_ptr(),
             lens_q.data_ptr(), lens_k.data_ptr(), tiles.data_ptr(),
@@ -276,7 +306,7 @@ def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
             FWD_TILE.block_q, FWD_TILE.block_k, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             out.stride(0), out.stride(1), scale, int(causal), *band,
-            int(q.dtype == torch.bfloat16)]
+            float(softcap), *slope_args(slopes), int(q.dtype == torch.bfloat16)]
     lib = _build.load_library()
     grid = ctypes.c_int(0)
     name = "fa_varlen_fwd_persistent" if persistent else "fa_varlen_fwd"
@@ -296,20 +326,22 @@ def flash_attention_varlen_fwd(
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
         meta=None, window_size: Window = (None, None),
-        attention_chunk: int = 0):
+        attention_chunk: int = 0, softcap: float = 0.0, alibi_slopes=None):
     """q (total_q, h, d), k/v (total_k, h_k, d) packed by cu_seqlens_q/k
     (b + 1,); seqused_q/k (b,) true lengths or None; ``max_seqlen_q/k``
     bound the sequences' lengths; ``meta`` a precomputed VarlenMeta whose
     schedule has the kernel's 128-row tiles (FWD_TILE; get_scheduler_metadata
     builds one); ``window_size`` (left, right; None for no bound) and
-    ``attention_chunk`` per sequence. Returns (out (total_q, h, d) in q's
-    type, lse (h, total_q) fp32). CUDA: one block per (128-row q tile,
-    head), the longest KV bands first."""
+    ``attention_chunk`` per sequence; ``softcap`` (0: none) and
+    ``alibi_slopes`` ((h,) or (b, h), a row a sequence) as the dense
+    forward's. Returns (out (total_q, h, d) in q's type, lse (h, total_q)
+    fp32). CUDA: one block per (128-row q tile, head), the longest KV bands
+    first."""
     if q.device.type == "cpu":
         return flash_attention_varlen_fwd_plain(
             q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
             seqused_q, seqused_k, softmax_scale, causal, window_size,
-            attention_chunk)
+            attention_chunk, softcap, alibi_slopes)
     check_kernel_inputs("flash_varlen_fwd", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
     if meta is not None:
@@ -325,10 +357,12 @@ def flash_attention_varlen_fwd(
     band = kernel_band(causal, window_size, attention_chunk, max_seqlen_q,
                        max_seqlen_k)
     out, lse, _ = launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta,
-                             softmax_scale, causal, band=band)
-    global launches_fwd, launches_fwd_band
+                             softmax_scale, causal, band=band,
+                             softcap=softcap, alibi_slopes=alibi_slopes)
+    global launches_fwd, launches_fwd_band, launches_fwd_score
     launches_fwd += 1
     launches_fwd_band += band[-1]
+    launches_fwd_score += has_score(softcap, alibi_slopes)
     return out, lse
 
 
@@ -385,7 +419,7 @@ def flash_attention_varlen_bwd(
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
         meta=None, window_size: Window = (None, None),
-        attention_chunk: int = 0):
+        attention_chunk: int = 0, softcap: float = 0.0, alibi_slopes=None):
     """dq, dk, dv of packed varlen attention saved by a varlen forward.
     do/out (total_q, h, d), lse (h, total_q); the rest as
     :func:`flash_attention_varlen_fwd`. Returns (dq, dk, dv) in the inputs'
@@ -394,14 +428,14 @@ def flash_attention_varlen_bwd(
     tile, KV head), the group's heads summed in the block) and the dQ
     kernel (one block per (128-row q tile, head)), each writing its
     gradient once: deterministic; with a band, the dK/dV and dQ kernels'
-    band instantiations. The operands are read by TMA: a view whose strides
-    are not multiples of 16 bytes, or whose start is not 16-byte aligned,
-    raises ValueError."""
+    band instantiations, with softcap or ALiBi their score instantiations.
+    The operands are read by TMA: a view whose strides are not multiples of
+    16 bytes, or whose start is not 16-byte aligned, raises ValueError."""
     if q.device.type == "cpu":
         return flash_attention_varlen_bwd_plain(
             do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
             max_seqlen_k, seqused_q, seqused_k, softmax_scale, causal,
-            window_size, attention_chunk)
+            window_size, attention_chunk, softcap, alibi_slopes)
     check_kernel_inputs("flash_varlen_bwd", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
     total_q, h, d = q.shape
@@ -441,9 +475,13 @@ def flash_attention_varlen_bwd(
              do.stride(0), do.stride(1)]
     operands = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse2.data_ptr(), delta.data_ptr()]
-    tail = [scale, int(causal), *band, int(q.dtype == torch.bfloat16)]
+    slopes = seq_slopes(alibi_slopes, cu_seqlens_q, h, q.device)
+    score = has_score(softcap, alibi_slopes)
+    tail = [scale, int(causal), *band, float(softcap), *slope_args(slopes),
+            int(q.dtype == torch.bfloat16)]
     lib = _build.load_library()
     global launches_dkdv, launches_dq, launches_dkdv_band, launches_dq_band
+    global launches_dkdv_score, launches_dq_score
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_varlen_bwd_dkdv(
@@ -454,6 +492,7 @@ def flash_attention_varlen_bwd(
         _build.check(err, "fa_varlen_bwd_dkdv")
         launches_dkdv += 1
         launches_dkdv_band += band[-1]
+        launches_dkdv_score += score
         err = lib.fa_varlen_bwd_dq(
             *operands, dq.data_ptr(), *common, meta.schedule.data_ptr(),
             meta.schedule.shape[0], *shape, dq.stride(0), dq.stride(1),
@@ -461,4 +500,5 @@ def flash_attention_varlen_bwd(
         _build.check(err, "fa_varlen_bwd_dq")
         launches_dq += 1
         launches_dq_band += band[-1]
+        launches_dq_score += score
     return dq, dk, dv

@@ -16,8 +16,9 @@ the next item's first K/V tile (and, at head dim 64, where a block keeps a
 second Q tile, its Q) loading under the current item's last tile and
 epilogue. ``window_size`` and ``attention_chunk`` (per sequence, as B6)
 launch the kernel's band instantiation, whose items walk the key tiles of
-their band from its first. A tensor on the CPU takes the plain version; a
-CUDA tensor launches the kernel or raises.
+their band from its first; ``softcap`` and ``alibi_slopes`` (as B6: each
+sequence its row of slopes) its score instantiation. A tensor on the CPU
+takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 import math
@@ -27,18 +28,21 @@ import torch
 
 from flash_attn_tpu_torch.dispatch.band import band_valid
 from flash_attn_tpu_torch.dispatch.config import FWD_TILE
+from flash_attn_tpu_torch.dispatch.score import alibi_bias, has_score, score_map
 from flash_attn_tpu_torch.kernels.flash_varlen import (
     check_kernel_inputs,
     check_meta,
     kernel_band,
     launch_fwd,
+    seq_slopes,
     varlen_meta,
 )
 
 # Kernel launches since the last reset (plain calls not counted), and the
-# band instantiation's among them.
+# band and the score instantiations' among them.
 launches = 0
 launches_band = 0
+launches_score = 0
 last_grid = 0  # blocks of the last launch's grid
 
 Window = Tuple[Optional[int], Optional[int]]
@@ -64,13 +68,14 @@ def _band_keys(row0: int, rows: int, lq: int, lk: int, causal: bool,
     return lo, hi + 1
 
 
-def _tile_plain(q, k, v, row0, key0, shift, softmax_scale, causal, window,
-                chunk):
-    """Rows [row0, row0 + q rows) of one sequence against its keys [key0,
-    key0 + k rows), masked by the causal bound and the band at the
-    sequence's own row, key and shift (band_valid), in fp32. q (rows, h,
-    d), k/v (keys, h_k, d); returns out (1, h, rows, d) and lse (1, h,
-    rows)."""
+def _tile_plain(q, k, v, row0, key0, lq, lk, softmax_scale, causal, window,
+                chunk, softcap=0.0, slopes=None):
+    """Rows [row0, row0 + q rows) of one sequence of lq rows over lk keys
+    against its keys [key0, key0 + k rows), mapped by ``softcap`` and the
+    sequence's ``slopes`` (h,) (dispatch/score.py) and masked by the causal
+    bound and the band at the sequence's own row, key and shift
+    (band_valid), in fp32. q (rows, h, d), k/v (keys, h_k, d); returns out
+    (1, h, rows, d) and lse (1, h, rows)."""
     qt, kt, vt = (x.transpose(0, 1)[None].float() for x in (q, k, v))
     group = qt.shape[1] // kt.shape[1]
     kt, vt = (x.repeat_interleave(group, dim=1) for x in (kt, vt))
@@ -79,7 +84,10 @@ def _tile_plain(q, k, v, row0, key0, shift, softmax_scale, causal, window,
     s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
     rows = torch.arange(row0, row0 + q.shape[0], device=q.device)[:, None]
     cols = torch.arange(key0, key0 + k.shape[0], device=q.device)[None, :]
-    s = s.masked_fill(~band_valid(rows, cols, shift, causal, window, 0,
+    s = score_map(s, softcap,
+                  None if slopes is None else slopes[:, None, None],
+                  alibi_bias(rows, cols, lq, lk, causal))
+    s = s.masked_fill(~band_valid(rows, cols, lk - lq, causal, window, 0,
                                   chunk), float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     seen = torch.isfinite(lse)
@@ -92,12 +100,12 @@ def flash_attention_varlen_fwd_persistent_plain(
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
         meta=None, window_size: Window = (None, None),
-        attention_chunk: int = 0):
+        attention_chunk: int = 0, softcap: float = 0.0, alibi_slopes=None):
     """The kernel's walk in fp32: the items of the persistent schedule in
     order, each 128-row tile (all heads at once) against the keys of its
     band (causal, window and chunk: from the band's first key to its last)
-    under the band's mask. Returns out (total_q, h, dv) in q's type and lse
-    (h, total_q) fp32, as the B6 forward does."""
+    under the score map and the band's mask. Returns out (total_q, h, dv)
+    in q's type and lse (h, total_q) fp32, as the B6 forward does."""
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                        max_seqlen_k, seqused_q, seqused_k, causal, meta,
                        window_size, attention_chunk)
@@ -106,6 +114,7 @@ def flash_attention_varlen_fwd_persistent_plain(
     lse = torch.full((h, total_q), float("-inf"), device=q.device)
     cu_q, cu_k = cu_seqlens_q.tolist(), cu_seqlens_k.tolist()
     lens_q, lens_k = meta.lens_q.tolist(), meta.lens_k.tolist()
+    slopes = seq_slopes(alibi_slopes, cu_seqlens_q, h, q.device)
     for seq, row0 in meta.schedule.tolist():
         if seq < 0:
             break  # dead tiles sort last
@@ -117,9 +126,10 @@ def flash_attention_varlen_fwd_persistent_plain(
             continue  # rows that see no key keep zeros and -inf
         q0, k0 = cu_q[seq] + row0, cu_k[seq] + lo
         o, l = _tile_plain(q[q0:q0 + rows], k[k0:k0 + hi - lo],
-                           v[k0:k0 + hi - lo], row0, lo, lk - lq,
+                           v[k0:k0 + hi - lo], row0, lo, lq, lk,
                            softmax_scale, causal, window_size,
-                           attention_chunk)
+                           attention_chunk, softcap,
+                           None if slopes is None else slopes[seq])
         out[q0:q0 + rows] = o[0].transpose(0, 1)
         lse[:, q0:q0 + rows] = l[0]
     return out, lse
@@ -130,7 +140,7 @@ def flash_attention_varlen_fwd_persistent(
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
         meta=None, window_size: Window = (None, None),
-        attention_chunk: int = 0):
+        attention_chunk: int = 0, softcap: float = 0.0, alibi_slopes=None):
     """Arguments and results as kernels/flash_varlen.py
     ``flash_attention_varlen_fwd``. CUDA: a grid of SM count x resident
     blocks per SM walking the sorted (q tile, head) items with a stride."""
@@ -138,14 +148,14 @@ def flash_attention_varlen_fwd_persistent(
         return flash_attention_varlen_fwd_persistent_plain(
             q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
             seqused_q, seqused_k, softmax_scale, causal, meta, window_size,
-            attention_chunk)
+            attention_chunk, softcap, alibi_slopes)
     check_kernel_inputs("flash_varlen_fwd_persistent", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
     if meta is not None:
         check_meta("flash_varlen_fwd_persistent", meta, cu_seqlens_q,
                    cu_seqlens_k, max_seqlen_q, max_seqlen_k, q.shape[0],
                    k.shape[0], backward=False)
-    global launches, launches_band, last_grid
+    global launches, launches_band, launches_score, last_grid
     if q.shape[0] == 0 or k.shape[0] == 0:  # no row sees a key
         last_grid = 0
         return (torch.zeros_like(q), torch.full(
@@ -157,8 +167,10 @@ def flash_attention_varlen_fwd_persistent(
                        max_seqlen_k)
     out, lse, grid = launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta,
                                 softmax_scale, causal, persistent=True,
-                                band=band)
+                                band=band, softcap=softcap,
+                                alibi_slopes=alibi_slopes)
     launches += 1
     launches_band += band[-1]
+    launches_score += has_score(softcap, alibi_slopes)
     last_grid = grid
     return out, lse

@@ -7,10 +7,10 @@ sequential and the parallel block (tied or untied norms), a tied, untied
 or NormHead head, the muP scalars, the paged cache, per-block
 activation rematerialization in train mode (``remat``), a sliding
 window (``window_size``, passed to every attention call, serving and
-training alike, packed input too) and, for serving, softcap and ALiBi
-(``softcap``, ``use_alibi``: the score map of every serving call; their
-gradient is not ported, and a Trainer on such a config raises; neither
-adds a parameter), and raises NotImplementedError for the rest. Parameters mirror flax's values: the
+training alike, packed input too), softcap and ALiBi (``softcap``,
+``use_alibi``: the score map of every attention call, serving and training
+alike, packed input too; neither adds a parameter), and raises
+NotImplementedError for the rest. Parameters mirror flax's values: the
 Dense and embedding weights in the compute type (flax keeps them in fp32
 and casts them to it at every call, which gives the same values), the norm
 weights in fp32. Training keeps fp32 master copies beside them

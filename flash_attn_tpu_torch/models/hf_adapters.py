@@ -21,8 +21,9 @@ Where the JAX adapters differ, the port follows the HF model:
    them as OPT-6.7B's pre-norm shape);
  - Falcon with ``alibi`` (Falcon-RW) raises: JAX's adapter ignores the flag
    and maps the model as a rotary one (ROADMAP.md queue C).
-BTLM and Baichuan-13B take ALiBi positions (``use_alibi``; their training
-half is ROADMAP.md queue A, item 1).
+BTLM and Baichuan-13B take ALiBi positions (``use_alibi``), served and
+trained (BTLM's head dim 80 on the CPU alone: the card's kernels take 64,
+96, 128 and 256).
 """
 
 from typing import Dict

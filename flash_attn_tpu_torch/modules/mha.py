@@ -31,14 +31,15 @@ linear and paged), the prefix-cached admission (B8) and the packed path
 (B7 forward, B6 backward), each on its kernels' band instantiation.
 
 ``softcap`` and ``use_alibi`` (JAX mha.py:86, :91) map the scores of every
-serving call, as JAX's :226, :289 and :384 pass them: the dense prefill
-(B1), decode (B4, linear and paged, the speculative verify step too) and,
-for the cap, the prefix-cached admission (B8), each on its kernels' score
+attention call, as JAX's :226, :289 and :384 pass them: the dense prefill
+and train mode (B1, and B3 or B2 for the gradient), decode (B4, linear and
+paged, the speculative verify step too), for the cap the prefix-cached
+admission (B8), and the packed path (:222-227: B7 forward, or B6's forward
+with ALiBi, as JAX routes it, and B6 backward), each on its kernels' score
 instantiation. The slopes are the standard ALiBi schedule
 (:func:`alibi_slopes`), built once on the module's device as a buffer that
-a captured decode program reads in place. Their training half is
-ROADMAP.md queue A, item 1: a gradient through train mode raises, and so
-does packed input with either option. A prefix-cached admission of an ALiBi
+a captured decode program reads in place; they are not learned (no
+gradient reaches them). A prefix-cached admission of an ALiBi
 module raises too (the paged route refuses the slopes it is passed): JAX's
 drops the slopes there (mha.py:372-386), so its suffix would attend without
 positions (ROADMAP.md queue C).
@@ -66,7 +67,6 @@ from flash_attn_tpu_torch.cache.kvcache import (
 )
 from flash_attn_tpu_torch.dispatch.config import HEAD_DIMS
 from flash_attn_tpu_torch.interface import (
-    SCORE_TRAINING,
     flash_attn_func,
     flash_attn_varlen_func,
 )
@@ -397,10 +397,6 @@ class MHA(nn.Module):
 
     def _forward_packed(self, x, cu_seqlens, max_seqlen: int):
         """The packed path of JAX mha.py:207-229."""
-        if self.softcap > 0.0 or self.use_alibi:
-            raise NotImplementedError(
-                "MHA: packed input (cu_seqlens) with softcap or ALiBi is not "
-                f"ported yet (ROADMAP.md {SCORE_TRAINING})")
         total = x.shape[0]
         h, h_k, d = self.num_heads, self.num_heads_kv, self.head_dim
         q, k, v = self.Wqkv(x).split([h * d, h_k * d, h_k * d], dim=-1)
@@ -417,7 +413,8 @@ class MHA(nn.Module):
         ctx = flash_attn_varlen_func(
             q, k, v, cu_seqlens, cu_seqlens, max_seqlen, max_seqlen,
             causal=self.causal, window_size=self.window_size,
-            softmax_scale=self.softmax_scale)
+            softmax_scale=self.softmax_scale, softcap=self.softcap,
+            alibi_slopes=self.alibi_slopes)
         return self.out_proj(ctx.reshape(total, h * d))
 
     def jax_param_arrays(self, params) -> Dict[str, object]:

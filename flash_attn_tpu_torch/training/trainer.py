@@ -35,7 +35,6 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from flash_attn_tpu_torch.interface import SCORE_TRAINING
 from flash_attn_tpu_torch.models.gpt import (
     GPTConfig,
     GPTLMHeadModel,
@@ -205,12 +204,6 @@ class Trainer:
         if cfg.opt_state_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"opt_state_dtype {cfg.opt_state_dtype!r}")
         _check_ported(cfg.model)
-        if cfg.model.softcap > 0.0 or cfg.model.use_alibi:
-            raise NotImplementedError(
-                f"Trainer: GPTConfig softcap={cfg.model.softcap!r} / use_alibi="
-                f"{cfg.model.use_alibi!r} trains through the score map of the "
-                "backward kernels, which is not ported yet (ROADMAP.md "
-                f"{SCORE_TRAINING}); the port serves such a model only")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.schedule = make_schedule(cfg)

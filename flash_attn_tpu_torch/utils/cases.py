@@ -170,6 +170,35 @@ SCORE_VARLEN_CASES = [  # (case of VARLEN_CASES' form, softcap, window)
 ]
 
 
+# softcap and ALiBi in training (the backwards' score instantiations, and
+# B6's and B7's forwards over the same rows packed): the two timed shapes
+# first, Baichuan-13B's training step (2 x 4096, 40 heads of 128, causal
+# ALiBi) and the 913M GPT's with Gemma-2's cap (4 x 2048, 16 heads of 128),
+# then the forms the map takes at small sizes. (name, b, sq, sk, h, h_k, d,
+# causal, softcap, slopes, window, dtype, fused): slopes and window as
+# SCORE_FWD_CASES; fused: B2 (deterministic=False) is checked too.
+SCORE_BWD_CASES = [
+    ("Baichuan-13B training", 2, 4096, 4096, BAICHUAN_HEADS, BAICHUAN_HEADS,
+     128, True, 0.0, "1d", (-1, -1), torch.bfloat16, True),
+    ("913M softcap training", 4, 2048, 2048, 16, 16, 128, True,
+     GEMMA2_SOFTCAP, None, (-1, -1), torch.bfloat16, True),
+    ("cap 30, GQA 32/8, sq < sk", 2, 700, 1300, 32, 8, 128, True, 30.0, None,
+     (-1, -1), torch.bfloat16, False),
+    ("alibi (b, h), not causal, sq < sk", 2, 600, 1000, 16, 4, 128, False,
+     0.0, "2d", (-1, -1), torch.bfloat16, True),
+    ("alibi (h,), causal, sq > sk (rows with no key)", 2, 900, 500, 16, 16,
+     128, True, 0.0, "1d", (-1, -1), torch.bfloat16, False),
+    ("both under a window", 2, 2048, 2048, 16, 4, 128, True, 30.0, "1d",
+     (255, 0), torch.bfloat16, False),
+    ("both, d=64, fp16, cap 5", 2, 1000, 1000, 16, 16, 64, True, 5.0, "2d",
+     (-1, -1), torch.float16, True),
+    ("both, d=96", 2, 1000, 1000, 16, 16, 96, True, 30.0, "1d", (-1, -1),
+     torch.bfloat16, False),
+    ("both, d=256", 2, 1000, 1000, 8, 8, 256, False, 30.0, "2d", (-1, -1),
+     torch.bfloat16, True),
+]
+
+
 def score_slopes(kind, b: int, h: int, device=None):
     """The slopes of a SCORE_* case: None, the (h,) schedule, or (b, h) rows
     of it scaled by 1 + row / b."""

@@ -217,15 +217,21 @@ def attention_ref(
 
 def attention_ref_grads(q, k, v, dout, causal: bool = False,
                         softmax_scale: Optional[float] = None,
-                        upcast: bool = True, **band):
+                        upcast: bool = True, softcap: float = 0.0,
+                        alibi_slopes=None, **band):
     """(dq, dk, dv) of sum(attention_ref(q, k, v) * dout) by autograd: the
     fp32 reference of a backward (``upcast``), or the low-precision one
     computed in the inputs' type, for :func:`check_against_ref`. ``band``:
-    attention_ref's window_size, sink_token_length and attention_chunk."""
+    attention_ref's window_size, sink_token_length and attention_chunk;
+    ``softcap`` and ``alibi_slopes`` map the scores as attention_ref does
+    (the cap before the masks, the bias after them: the masked scores stay
+    -inf either way), so that autograd carries the cap's tanh derivative
+    into dS as JAX's backward does (flash_bwd.py:143-152)."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         out, _ = attention_ref(*leaves, causal=causal,
                                softmax_scale=softmax_scale, upcast=upcast,
+                               softcap=softcap, alibi_slopes=alibi_slopes,
                                **band)
         return torch.autograd.grad(out, leaves, dout.to(out.dtype))
 
@@ -293,25 +299,37 @@ def _sequences(cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k):
         spans(cu_seqlens_q, seqused_q), spans(cu_seqlens_k, seqused_k))]
 
 
+def _seq_slopes(alibi_slopes, i: int):
+    """Sequence i's slopes (1, h) of (h,) or (b, h) ones, or None."""
+    if alibi_slopes is None:
+        return None
+    return (alibi_slopes if alibi_slopes.dim() == 1
+            else alibi_slopes[i])[None]
+
+
 def attention_varlen_ref(q, k, v, cu_seqlens_q, cu_seqlens_k, seqused_q=None,
                          seqused_k=None, causal: bool = False,
                          softmax_scale: Optional[float] = None,
-                         upcast: bool = True):
+                         upcast: bool = True, softcap: float = 0.0,
+                         alibi_slopes=None):
     """Packed-varlen attention, one :func:`attention_ref` call per
     sequence: sequence i's first seqused_q[i] rows from cu_seqlens_q[i]
     (all of its rows when seqused_q is None) attend to its first
     seqused_k[i] keys from cu_seqlens_k[i], bottom-right causal when
-    ``causal``; every other row is zero. Differentiable. Returns out
-    (total_q, h, dv) in q's type."""
+    ``causal``, the scores capped by ``softcap`` and biased by ALiBi with
+    the sequence's slopes (``alibi_slopes`` (h,) or (b, h)); every other row
+    is zero. Differentiable. Returns out (total_q, h, dv) in q's type."""
     parts, row = [], 0
-    for q0, lq, k0, lk in _sequences(cu_seqlens_q, cu_seqlens_k, seqused_q,
-                                     seqused_k):
+    for i, (q0, lq, k0, lk) in enumerate(_sequences(
+            cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k)):
         if lk == 0:
             continue  # its rows see no key: zeros
         parts.append(q.new_zeros((q0 - row,) + q.shape[1:-1] + v.shape[-1:]))
         o, _ = attention_ref(q[None, q0:q0 + lq], k[None, k0:k0 + lk],
                              v[None, k0:k0 + lk], causal=causal,
-                             softmax_scale=softmax_scale, upcast=upcast)
+                             softmax_scale=softmax_scale, upcast=upcast,
+                             softcap=softcap,
+                             alibi_slopes=_seq_slopes(alibi_slopes, i))
         parts.append(o[0])
         row = q0 + lq
     parts.append(q.new_zeros((q.shape[0] - row,) + q.shape[1:-1]
@@ -323,19 +341,23 @@ def attention_varlen_ref_grads(q, k, v, dout, cu_seqlens_q, cu_seqlens_k,
                                seqused_q=None, seqused_k=None,
                                causal: bool = False,
                                softmax_scale: Optional[float] = None,
-                               upcast: bool = True):
+                               upcast: bool = True, softcap: float = 0.0,
+                               alibi_slopes=None):
     """(dq, dk, dv) of sum(attention_varlen_ref(q, k, v) * dout), one
-    sequence at a time (:func:`attention_ref_grads`), in the inputs' types;
-    zero outside the sequences."""
+    sequence at a time (:func:`attention_ref_grads`, with ``softcap`` and
+    each sequence's ``alibi_slopes``), in the inputs' types; zero outside
+    the sequences."""
     grads = [torch.zeros_like(x) for x in (q, k, v)]
-    for q0, lq, k0, lk in _sequences(cu_seqlens_q, cu_seqlens_k, seqused_q,
-                                     seqused_k):
+    for i, (q0, lq, k0, lk) in enumerate(_sequences(
+            cu_seqlens_q, cu_seqlens_k, seqused_q, seqused_k)):
         if lq == 0 or lk == 0:
             continue
         rows, keys = slice(q0, q0 + lq), slice(k0, k0 + lk)
         g = attention_ref_grads(q[None, rows], k[None, keys], v[None, keys],
                                 dout[None, rows], causal=causal,
-                                softmax_scale=softmax_scale, upcast=upcast)
+                                softmax_scale=softmax_scale, upcast=upcast,
+                                softcap=softcap,
+                                alibi_slopes=_seq_slopes(alibi_slopes, i))
         for out, part, span in zip(grads, g, (rows, keys, keys)):
             out[span] = part[0]
     return tuple(grads)

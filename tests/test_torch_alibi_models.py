@@ -7,10 +7,12 @@ the same HF config into GPTConfigs equal field for field, the two remaps
 the same seeded HF-named state dict; the logits agree at atol 1e-4 (as
 tests/test_torch_models.py), and greedy static decode gives the tokens
 JAX's teacher-forced forward over the decoded sequence picks. Then the
-refusals of what stays unported: the Trainer, the prefix-cached engine and
-admission of an ALiBi model, packed input."""
+refusals of what stays unported (the prefix-cached engine and admission of
+an ALiBi model) and the runs of what trains since the backwards took the
+score map: the Trainer, packed input, a gradient through train mode."""
 
 import dataclasses
+import math
 from types import SimpleNamespace
 
 import jax
@@ -205,20 +207,28 @@ def _alibi_model(**fields):
                                   "prefix-cached admission", "packed input",
                                   "gradient"])
 def test_score_models_refuse_what_is_not_ported(what):
-    """A Trainer of an ALiBi or softcap config and a gradient through train
-    mode raise, naming queue A item 1 (the training half); the
-    prefix-cached engine and admission of an ALiBi model raise, naming
-    queue C (JAX's admission drops the slopes); packed input to an MHA with
-    softcap or ALiBi raises (item 1)."""
+    """The prefix-cached engine and admission of an ALiBi model raise,
+    naming queue C (JAX's admission drops the slopes). What was refused
+    until the backwards took the score map now runs: a Trainer of an ALiBi
+    or softcap config takes a step with a finite loss and gradient norm,
+    packed input to an MHA with softcap or ALiBi gives the padded dense
+    call's output and a finite input gradient, and a gradient through train
+    mode reaches every parameter (held to JAX in
+    tests/test_torch_score_training.py)."""
     from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
     from flash_attn_tpu_torch.training.trainer import TrainConfig, Trainer
 
     if what == "trainer":
-        for cfg in (GPTConfig(n_positions=0, n_layer=1, use_alibi=True),
-                    GPTConfig(n_positions=0, n_layer=1, softcap=30.0)):
-            with pytest.raises(NotImplementedError, match="item 1"):
-                Trainer(TrainConfig(model=cfg, batch_size=1, seqlen=8),
-                        device="cpu")
+        for fields in (dict(use_alibi=True), dict(softcap=30.0)):
+            cfg = GPTConfig(vocab_size=VOCAB, n_positions=0, n_embd=64,
+                            n_layer=1, n_head=4, dtype=torch.float32,
+                            **fields)
+            tr = Trainer(TrainConfig(model=cfg, batch_size=1, seqlen=8),
+                         device="cpu")
+            ids = torch.randint(0, VOCAB, (1, 9),
+                                generator=torch.Generator().manual_seed(0))
+            loss, gnorm = tr.train_step(ids[:, :-1], ids[:, 1:])
+            assert math.isfinite(float(loss)) and float(gnorm) > 0
     elif what == "prefix-cached engine":
         model = _alibi_model(paged_kv_num_pages=9, paged_kv_page_size=8)
         with pytest.raises(ValueError, match="queue C"):
@@ -234,18 +244,22 @@ def test_score_models_refuse_what_is_not_ported(what):
             mha(torch.randn(2, 4, 64), mode="prefill", cache=KVCache(),
                 block_table=table, prefix_lengths=torch.tensor([8, 8]))
     elif what == "packed input":
-        for kw in (dict(use_alibi=True), dict(softcap=30.0)):
+        for kw in (dict(use_alibi=True), dict(softcap=3.0)):
             mha = MHA(64, 4, causal=True, dtype=torch.float32, device="cpu",
                       **kw)
-            with pytest.raises(NotImplementedError, match="item 1"):
-                mha(torch.randn(10, 64),
-                    cu_seqlens=torch.tensor([0, 4, 10], dtype=torch.int32),
-                    max_seqlen=6)
+            x = torch.randn(10, 64, requires_grad=True)
+            out = mha(x, cu_seqlens=torch.tensor([0, 4, 10],
+                                                 dtype=torch.int32),
+                      max_seqlen=6)
+            for lo, hi in ((0, 4), (4, 10)):
+                torch.testing.assert_close(out[lo:hi],
+                                           mha(x[None, lo:hi])[0],
+                                           atol=1e-5, rtol=1e-5)
+            out.square().sum().backward()
+            assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
     else:
         model = _alibi_model()
-        with pytest.raises(NotImplementedError, match="item 1"):
-            model(torch.zeros((1, 6), dtype=torch.long)).sum().backward()
-        with torch.no_grad():
-            assert torch.isfinite(model(torch.zeros((1, 6),
-                                                    dtype=torch.long))).all()
+        model(torch.zeros((1, 6), dtype=torch.long)).sum().backward()
+        grads = [p.grad for p in model.parameters()]
+        assert all(g is not None and torch.isfinite(g).all() for g in grads)
     assert alibi_slopes(4).tolist() == [0.25, 0.0625, 0.015625, 0.00390625]

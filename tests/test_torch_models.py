@@ -354,7 +354,7 @@ def test_alibi_families_raise_naming_item_7():
     falcon_alibi = transformers.FalconConfig(
         vocab_size=VOCAB, hidden_size=64, num_hidden_layers=1,
         num_attention_heads=4, alibi=True)
-    # ALiBi serves (queue A item 1's serving half): BTLM and Baichuan-13B
+    # ALiBi serves and trains: BTLM and Baichuan-13B
     # map onto use_alibi (tests/test_torch_alibi_models.py holds them to
     # JAX); Falcon's alibi flag, which JAX's adapter ignores, raises
     # (ROADMAP.md queue C)

@@ -24,6 +24,7 @@ from flash_attn_tpu_torch.utils.cases import (
     BAND_FWD_CASES,
     BAND_VARLEN_CASE,
     MISTRAL_WINDOW,
+    SCORE_BWD_CASES,
     SCORE_DECODE_CASES,
     SCORE_FWD_CASES,
     SCORE_VARLEN_CASES,
@@ -69,11 +70,12 @@ def test_no_library_attention_in_the_package():
 
 @pytest.mark.parametrize("kwargs", [
     dict(dropout_p=0.1), dict(learnable_sink=torch.zeros(2)),
-    dict(softcap=5.0), dict(alibi_slopes=torch.ones(2)),
+    dict(q_descale=torch.ones(1)), dict(mask_mod=lambda *a: True),
     dict(qv=torch.ones(1)), dict(score_mod=lambda s, *a: s)])
 def test_flash_attn_func_rejects_unported_options(kwargs):
     """Each raises before the forward runs (the band trains:
-    tests/test_torch_band_backward.py)."""
+    tests/test_torch_band_backward.py; softcap and ALiBi too:
+    tests/test_torch_score_backward.py)."""
     q = torch.randn(1, 8, 2, 64, requires_grad=True)
     with pytest.raises(NotImplementedError):
         flash_attn_func(q, q, q, **kwargs)
@@ -2960,17 +2962,21 @@ def test_graphed_decode_equals_eager_with_alibi_on_the_card(mode):
 
 @pytest.mark.usefixtures("cuda_card")
 def test_score_refusals_on_the_card():
-    """On the card as on the CPU: a gradient with softcap or ALiBi, the
-    slopes on the paged route and softcap on the MLA decode route raise
-    NotImplementedError before any kernel runs."""
+    """On the card as on the CPU: the slopes on the paged route and softcap
+    on the MLA decode route raise NotImplementedError before any kernel
+    runs; a gradient with softcap or ALiBi runs the score instantiations
+    (finite gradients, the slopes' exactly zero)."""
     from flash_attn_tpu_torch.interface import flash_attn_varlen_func
 
     q = torch.randn(1, 128, 4, 64, device="cuda", dtype=torch.bfloat16,
                     requires_grad=True)
-    for kw in (dict(softcap=30.0),
-               dict(alibi_slopes=torch.ones(4, device="cuda"))):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            flash_attn_func(q, q, q, causal=True, **kw)
+    sl = torch.ones(4, device="cuda", requires_grad=True)
+    for kw in (dict(softcap=30.0), dict(alibi_slopes=sl)):
+        flash_attn_func(q, q, q, causal=True, **kw).float().square().sum(
+            ).backward()
+        assert torch.isfinite(q.grad).all()
+        q.grad = None
+    assert torch.equal(sl.grad, torch.zeros_like(sl))
     x = torch.randn(12, 2, 64, device="cuda", dtype=torch.bfloat16)
     kp = torch.zeros(12, 2, 16, 64, device="cuda", dtype=torch.bfloat16)
     cu = torch.tensor([0, 5, 12], dtype=torch.int32, device="cuda")
@@ -2986,3 +2992,196 @@ def test_score_refusals_on_the_card():
         flash_attn_with_kvcache(qd, k, v, cache_seqlens=4, softcap=5.0,
                                 qv=torch.zeros(1, 1, 2, 128, device="cuda",
                                                dtype=torch.bfloat16))
+
+
+def _score_bwd_inputs(case, rows: int, seed: int = 0):
+    """q, k, v, do as (b, h, s, d) views of (b, s, h, d) tensors on the card
+    for ``rows`` batch rows of a SCORE_BWD_CASES case, its score and band
+    arguments (the (b, h) slopes of its first ``rows`` rows), and B1's
+    score forward's out and lse."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_fwd
+
+    _, _, sq, sk, h, h_k, d, causal, cap, kind, window, dtype, _ = case
+    kw = dict(softcap=cap, window_size=normalize_window(window),
+              alibi_slopes=score_slopes(kind, rows, h, "cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(seed + sq + sk + h)
+    q, k, v, do = (torch.randn(rows, n, heads, d, device="cuda",
+                               generator=gen).to(dtype).transpose(1, 2)
+                   for n, heads in ((sq, h), (sk, h_k), (sk, h_k), (sq, h)))
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, causal=causal, **kw)
+    return q, k, v, do, out, lse, kw
+
+
+def _score_bwd_refs(q, k, v, do, causal, kw):
+    """The 2x rule's references of a score backward, a batch row and a KV
+    head's group at a time (each with its rows' slopes): the plain fp32
+    backward from fp32 copies and autograd through attention_ref in the
+    inputs' type. Returns (grads32 (b, h, s, d), grads_lp (b, s, h, d))."""
+    from flash_attn_tpu_torch.dispatch.score import slopes_bh
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import attention_ref_grads
+
+    b, h, sq, d = q.shape
+    h_k = k.shape[1]
+    g = h // h_k
+    sl = slopes_bh(kw["alibi_slopes"], b, h)
+    g32 = [torch.empty(x.shape, device="cuda") for x in (q, k, v)]
+    glp = [torch.empty_like(x.transpose(1, 2)) for x in (q, k, v)]
+    for bi in range(b):
+        for kh in range(h_k):
+            qs, ks = slice(kh * g, kh * g + g), slice(kh, kh + 1)
+            part = dict(kw, alibi_slopes=None if sl is None
+                        else sl[bi:bi + 1, qs])
+            qc, kc, vc, dc = (x[bi:bi + 1, hs] for x, hs in
+                              ((q, qs), (k, ks), (v, ks), (do, qs)))
+            f32 = [x.float() for x in (qc, kc, vc)]
+            o32, l32 = flash_fwd.flash_attention_fwd_plain(
+                *f32, causal=causal, **part)
+            r = flash_bwd.flash_attention_bwd_plain(dc.float(), *f32, o32, l32,
+                                                    causal=causal, **part)
+            lp = attention_ref_grads(*(x.transpose(1, 2)
+                                       for x in (qc, kc, vc, dc)),
+                                     causal=causal, upcast=False, **part)
+            for i, hs in enumerate((qs, ks, ks)):
+                g32[i][bi:bi + 1, hs] = r[i]
+                glp[i][bi:bi + 1, :, hs] = lp[i]
+            del f32, o32, l32, r, lp
+    return g32, glp
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case, deterministic", [
+    (c, det) for c in SCORE_BWD_CASES
+    for det in ((True, False) if c[12] else (True,))],
+    ids=lambda x: x[0] if isinstance(x, tuple) else "B3" if x else "B2")
+def test_score_backward_kernels_match_plain_version_on_the_card(
+        case, deterministic):
+    """B3's (and, where the case asks, B2's) score instantiation on every
+    SCORE_BWD_CASES case (one batch row of it): dq, dk, dv by the 2x rule
+    against the plain fp32 score backward with an autograd reference in
+    the inputs' type, counted as the score map's launches; B3 the same bits
+    twice."""
+    from flash_attn_tpu_torch.kernels import flash_bwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    causal = case[7]
+    q, k, v, do, out, lse, kw = _score_bwd_inputs(case, rows=1)
+    counter = "launches_dkdv_score" if deterministic else \
+        "launches_fused_score"
+    before = getattr(flash_bwd, counter)
+    grads = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
+                                          deterministic=deterministic, **kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_bwd, counter) == before + 1
+    if deterministic:
+        again = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse,
+                                              causal=causal, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    ref, ref_lp = _score_bwd_refs(q, k, v, do, causal, kw)
+    for name, got, r, lp in zip("qkv", grads, ref, ref_lp):
+        check_against_ref(got.transpose(1, 2), r.transpose(1, 2), lp,
+                          atol=1e-4, msg=f"{case[0]} d{name}")
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", SCORE_BWD_CASES, ids=lambda c: c[0])
+def test_score_varlen_kernels_equal_dense_ones_on_the_card(case):
+    """Two batch rows of a SCORE_BWD_CASES case packed as two sequences,
+    each taking its row's slopes: B6's and B7's score forwards give B1's
+    score bits, B6's score backward gives B3's, each counted as its score
+    launch."""
+    from flash_attn_tpu_torch.dispatch.score import slopes_bh
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+
+    _, _, sq, sk, h, h_k, d, causal, *_ = case
+    q, k, v, do, out, lse, kw = _score_bwd_inputs(case, rows=2)
+    grads = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
+                                          **kw)
+    vkw = dict(softcap=kw["softcap"], window_size=kw["window_size"],
+               alibi_slopes=slopes_bh(kw["alibi_slopes"], 2, h))
+    cu_q, cu_k = (torch.arange(3, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    pq, pk, pv, pdo, po = (x.transpose(1, 2).reshape(2 * x.shape[2],
+                                                     x.shape[1], d)
+                           for x in (q, k, v, do, out))
+    plse = lse.permute(1, 0, 2).reshape(h, 2 * sq).contiguous()
+    args = (cu_q, cu_k, sq, sk)
+    counters = ((flash_varlen, "launches_fwd_score"), (fvp, "launches_score"),
+                (flash_varlen, "launches_dkdv_score"),
+                (flash_varlen, "launches_dq_score"))
+    before = [getattr(m, n) for m, n in counters]
+    for fwd in (flash_varlen.flash_attention_varlen_fwd,
+                fvp.flash_attention_varlen_fwd_persistent):
+        o, l = fwd(pq, pk, pv, *args, causal=causal, **vkw)
+        assert torch.equal(o.reshape(2, sq, h, d), out.transpose(1, 2)), fwd
+        assert torch.equal(l.reshape(h, 2, sq).transpose(0, 1), lse), fwd
+    pg = flash_varlen.flash_attention_varlen_bwd(pdo, pq, pk, pv, po, plse,
+                                                 *args, causal=causal, **vkw)
+    torch.cuda.synchronize()
+    for got, want in zip(pg, grads):
+        assert torch.equal(got.reshape(2, -1, *got.shape[1:]),
+                           want.transpose(1, 2))
+    after = [getattr(m, n) for m, n in counters]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("cap, kind, window", [
+    (0.0, "2d", (-1, -1)), (5.0, None, (-1, -1)), (3.0, "1d", (60, 0))],
+    ids=["alibi (b, h)", "cap", "both under a window"])
+def test_score_varlen_ragged_matches_plain_version_on_the_card(cap, kind,
+                                                               window):
+    """The packed score kernels on ragged sequences (zero-length ones, key
+    counts off the tiles, seqused, a packed tail, GQA), each sequence with
+    its own slopes, against their plain versions: B6's and B7's score
+    forwards by the 2x rule (bitwise equal to each other), B6's score
+    backward by the 2x rule, rows outside the sequences zero."""
+    from flash_attn_tpu_torch.dispatch.config import normalize_window
+    from flash_attn_tpu_torch.kernels import flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    lens = [300, 0, 129, 500, 77]
+    used = torch.tensor([300, 0, 100, 500, 77], dtype=torch.int32,
+                        device="cuda")
+    total = sum(lens) + 10  # a packed tail past the last sequence
+    cu = torch.tensor([0, *itertools.accumulate(lens)], dtype=torch.int32,
+                      device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, do = (torch.randn(total, 8, 128, device="cuda", generator=gen)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn(total, 2, 128, device="cuda", generator=gen)
+            .bfloat16() for _ in range(2))
+    kw = dict(softcap=cap, window_size=normalize_window(window),
+              alibi_slopes=score_slopes(kind, len(lens), 8, "cuda"))
+    args = (cu, cu, max(lens), max(lens), used, used)
+    out, lse = flash_varlen.flash_attention_varlen_fwd(q, k, v, *args,
+                                                       causal=True, **kw)
+    out7, lse7 = fvp.flash_attention_varlen_fwd_persistent(
+        q, k, v, *args, causal=True, **kw)
+    assert torch.equal(out, out7) and torch.equal(lse, lse7)
+    ckw = dict(kw, alibi_slopes=None if kw["alibi_slopes"] is None
+               else kw["alibi_slopes"].cpu())
+    f32 = [x.float().cpu() for x in (q, k, v)]
+    cpu_args = tuple(x.cpu() if torch.is_tensor(x) else x for x in args)
+    ref, ref_lse = flash_varlen.flash_attention_varlen_fwd_plain(
+        *f32, *cpu_args, causal=True, **ckw)
+    lp = flash_varlen.flash_attention_varlen_fwd_plain(
+        *(x.cpu() for x in (q, k, v)), *cpu_args, causal=True, **ckw)[0]
+    check_against_ref(out.cpu(), ref, lp, msg=f"B6 score {cap} {kind}")
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse.cpu()), fin)
+    torch.testing.assert_close(lse.cpu()[fin], ref_lse[fin], atol=1e-3,
+                               rtol=0)
+    grads = flash_varlen.flash_attention_varlen_bwd(do, q, k, v, out, lse,
+                                                    *args, causal=True, **kw)
+    g32 = flash_varlen.flash_attention_varlen_bwd_plain(
+        do.float().cpu(), *f32, ref, ref_lse, *cpu_args, causal=True, **ckw)
+    glp = flash_varlen.flash_attention_varlen_bwd_plain(
+        *(x.cpu() for x in (do, q, k, v)), lp, ref_lse, *cpu_args,
+        causal=True, **ckw)
+    for name, got, r, l_ in zip("qkv", grads, g32, glp):
+        check_against_ref(got.cpu(), r, l_, atol=1e-4,
+                          msg=f"B6 score backward d{name} {cap} {kind}")

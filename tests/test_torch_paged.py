@@ -176,8 +176,8 @@ def test_varlen_refusals_point_at_queue_a():
     over a paged cache (B8p, the MLA chunked prefill), the window on both
     routes and attention_chunk on the dense one, while qv on the dense
     route, attention_chunk on the paged one, and descales on both routes
-    are still item 7; softcap runs on the paged route (B8) and, as ALiBi,
-    is item 1 on the dense one."""
+    are still item 7; softcap runs on the paged route (B8) and, with ALiBi,
+    on the dense one (forward and backward)."""
     q = torch.zeros(4, 2, 64)
     cu = torch.tensor([0, 4], dtype=torch.int32)
     assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4).shape == q.shape
@@ -189,8 +189,8 @@ def test_varlen_refusals_point_at_queue_a():
         flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, qv=q)
     assert flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged,
                                   softcap=5.0).shape == q.shape
-    with pytest.raises(NotImplementedError, match="queue A, item 1"):
-        flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, softcap=5.0)
+    assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4,
+                                  softcap=5.0).shape == q.shape
     for kw in (dict(attention_chunk=16), dict(k_descale=torch.ones(1, 2))):
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
             flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged, **kw)

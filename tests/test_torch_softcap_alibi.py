@@ -9,8 +9,9 @@ relative to the last key under causal ALiBi), the dense forward also in
 bf16 under the 2x rule (the port's bf16 output against JAX's fp32 output on
 the same bf16-rounded inputs, within twice JAX's own bf16 output's error,
 plus 1e-5). Then the oracles against JAX's, the split partials under causal
-ALiBi, and the refusals: a gradient, the dense varlen route and its packed
-forms, the slopes on the paged route, the MLA route."""
+ALiBi, and what the options reach: a gradient, the dense varlen route and
+its packed forms run (their training: tests/test_torch_score_backward.py),
+the slopes on the paged route and the MLA route raise."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -260,38 +261,40 @@ def test_oracles_match_jax(causal, kind):
 
 
 def _refusal(kind):
-    """The call that must raise, and the words its message must hold."""
+    """The call of one kind, and the words the message of its refusal must
+    hold (None: a call that runs)."""
     x = torch.randn(1, 8, 2, 64)
     packed = torch.randn(12, 2, 64)
     cu = torch.tensor([0, 5, 12], dtype=torch.int32)
     sl = torch.ones(2)
     if kind == "gradient, softcap":
         q = x.clone().requires_grad_()
-        return lambda: flash_attn_func(q, q, q, softcap=5.0), "item 1"
+        return lambda: flash_attn_func(q, q, q, softcap=5.0), None
     if kind == "gradient, alibi":
         q = x.clone().requires_grad_()
-        return lambda: flash_attn_func(q, q, q, alibi_slopes=sl), "item 1"
+        return lambda: flash_attn_func(q, q, q, alibi_slopes=sl), None
     if kind == "gradient, packed form":
         from flash_attn_tpu_torch.interface import flash_attn_qkvpacked_func
         qkv = torch.randn(1, 8, 3, 2, 64, requires_grad=True)
-        return lambda: flash_attn_qkvpacked_func(qkv, softcap=5.0), "item 1"
+        return lambda: flash_attn_qkvpacked_func(qkv, softcap=5.0), None
+    packed.requires_grad_()
     if kind in ("dense varlen, softcap", "dense varlen, alibi"):
         kw = dict(softcap=5.0) if "softcap" in kind else dict(alibi_slopes=sl)
         return (lambda: flash_attn_varlen_func(packed, packed, packed, cu, cu,
-                                               7, 7, **kw)), "item 1"
+                                               7, 7, **kw)), None
     if kind == "qkv-packed varlen, softcap":
         from flash_attn_tpu_torch.interface import (
             flash_attn_varlen_qkvpacked_func,
         )
         return (lambda: flash_attn_varlen_qkvpacked_func(
-            torch.stack([packed] * 3, 1), cu, 7, softcap=5.0)), "item 1"
+            torch.stack([packed] * 3, 1), cu, 7, softcap=5.0)), None
     if kind == "kv-packed varlen, alibi":
         from flash_attn_tpu_torch.interface import (
             flash_attn_varlen_kvpacked_func,
         )
         return (lambda: flash_attn_varlen_kvpacked_func(
             packed, torch.stack([packed] * 2, 1), cu, cu, 7, 7,
-            alibi_slopes=sl)), "item 1"
+            alibi_slopes=sl)), None
     if kind == "slopes on the paged route":
         kp = torch.zeros(12, 2, PAGE, 64)
         return (lambda: flash_attn_varlen_func(
@@ -314,13 +317,33 @@ def _refusal(kind):
     "slopes on the paged route", "the MLA route"])
 def test_score_refusals(kind):
     """What stays unported raises NotImplementedError before any kernel
-    runs, naming its ROADMAP.md item: a gradient (queue A item 1's training
-    half), the dense varlen route and its packed forms (item 1), the slopes
-    on the paged route (queue C: JAX's route drops them), the MLA route
-    (item 7). Under no_grad the forward of the gradient cases runs."""
+    runs, naming its ROADMAP.md item: the slopes on the paged route (queue
+    C: JAX's route drops them), the MLA route (item 7). What was refused
+    until the backwards took the score map runs: a gradient through
+    flash_attn_func and its packed forms, the dense varlen route and its
+    packed forms, forward and backward, with finite outputs and gradients
+    (held to JAX in tests/test_torch_score_backward.py)."""
     call, words = _refusal(kind)
-    with pytest.raises(NotImplementedError, match=words):
-        call()
-    if kind.startswith("gradient"):
-        with torch.no_grad():
-            assert torch.isfinite(call()).all()
+    if words is not None:
+        with pytest.raises(NotImplementedError, match=words):
+            call()
+        return
+    out = call()
+    assert torch.isfinite(out).all()
+    out.square().sum().backward()
+    leaf = next(t for t in _leaves(out) if t.grad is not None)
+    assert torch.isfinite(leaf.grad).all() and leaf.grad.abs().sum() > 0
+
+
+def _leaves(out):
+    """The leaf tensors that a graph's output reaches."""
+    seen, todo, leaves = set(), [out.grad_fn], []
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if hasattr(fn, "variable"):
+            leaves.append(fn.variable)
+        todo.extend(f for f, _ in fn.next_functions)
+    return leaves

@@ -501,18 +501,18 @@ def test_persistent_plain_equals_banded_plain(causal):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(alibi_slopes=torch.ones(2)), dict(k_descale=torch.ones(1, 2)),
-    dict(softcap=5.0), dict(dropout_p=0.1), dict(v_descale=torch.ones(1, 2)),
+    dict(dropout_rng=torch.zeros(2)), dict(k_descale=torch.ones(1, 2)),
+    dict(qv=torch.ones(1), softcap=5.0), dict(dropout_p=0.1),
+    dict(v_descale=torch.ones(1, 2)),
     dict(learnable_sink=torch.zeros(2)), dict(qv=torch.ones(1)),
     dict(q_descale=torch.ones(1, 2))])
 def test_varlen_refusals_name_queue_a_7(kwargs):
     """Each option the dense route does not take raises (the window and the
-    chunk run: tests/test_torch_band_varlen.py), naming queue A item 7, or
-    item 1 for softcap and ALiBi (their training half)."""
+    chunk run: tests/test_torch_band_varlen.py; softcap and ALiBi too:
+    tests/test_torch_score_backward.py), naming queue A item 7."""
     q = torch.zeros(8, 2, 64)
     cu = torch.tensor([0, 8], dtype=torch.int32)
-    item = 1 if set(kwargs) & {"softcap", "alibi_slopes"} else 7
-    with pytest.raises(NotImplementedError, match=f"queue A, item {item}"):
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
         flash_attn_varlen_func(q, q, q, cu, cu, 8, 8, **kwargs)
 
 

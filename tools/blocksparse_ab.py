@@ -29,14 +29,17 @@ card they share.
 
 With --sass it compiles the sources of the kernels that share B10's tiles
 (flash_fwd.cu, flash_varlen_fwd.cu and its band instantiations,
-flash_varlen_paged.cu, flash_blocksparse.cu, flash_bwd.cu, flash_varlen.cu)
-in both trees with nvcc -cubin and says, kernel by
+flash_varlen_paged.cu, flash_blocksparse.cu, and the dense and varlen
+backwards' sources: flash_bwd.cu, flash_varlen.cu, their head dims 96 and
+256 and their band instantiations) in both trees with nvcc -cubin, all
+side by side, and says, kernel by
 kernel, whether the machine code (cuobjdump -sass, with the file-specific
 part of the names taken out) is the same, under the kernel's own name or
 another one; exit 1 if a kernel of ROOT_A compiles to code that ROOT_B
 does not hold.
 """
 
+import concurrent.futures
 import hashlib
 import importlib.util
 import os
@@ -53,7 +56,9 @@ TRAINING = (4, 2048, 16, 128)  # b, s, h, d
 STRADDLE = ("local 4 + global, tiles of 64", 4, 2048, 64, "local", True)
 SASS_SOURCES = ["flash_fwd.cu", "flash_varlen_fwd.cu", "flash_varlen_fwd_band.cu",
                 "flash_varlen_paged.cu", "flash_blocksparse.cu", "flash_bwd.cu",
-                "flash_varlen.cu"]
+                "flash_bwd_wide.cu", "flash_bwd_band.cu", "flash_bwd_band_wide.cu",
+                "flash_varlen.cu", "flash_varlen_wide.cu", "flash_varlen_band.cu",
+                "flash_varlen_band_wide.cu"]
 
 
 def digest(*tensors) -> str:
@@ -192,9 +197,12 @@ def compare_sass(root_a: str, root_b: str) -> int:
     same code); a kernel of ROOT_A whose SASS ROOT_B holds under no name
     differs. ROOT_B's kernels that ROOT_A lacks are listed as new."""
     differ = 0
-    with tempfile.TemporaryDirectory() as work:
+    with tempfile.TemporaryDirectory() as work, \
+            concurrent.futures.ThreadPoolExecutor(os.cpu_count()) as pool:
+        jobs = {(root, source): pool.submit(sass, root, source, work)
+                for source in SASS_SOURCES for root in (root_a, root_b)}
         for source in SASS_SOURCES:
-            a, b = sass(root_a, source, work), sass(root_b, source, work)
+            a, b = (jobs[root, source].result() for root in (root_a, root_b))
             bodies = set(b.values())
             same = [n for n in a if a[n] == b.get(n)]
             renamed = [n for n in a if n not in same and a[n] in bodies]
