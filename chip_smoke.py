@@ -295,7 +295,24 @@
    (per step and layer one score forward, one preprocess, one score dK/dV
    and one score dQ launch) and a profiled step;
 28. the 913M GPT with softcap 50 trained as in 5., every attention launch
-   the score map's, and a profiled step.
+   the score map's, and a profiled step;
+29. quantized KV caches (utils/cases.py KVQUANT_*): B11's conversion held
+   bitwise (one key at d = 256 whose V row holds every e4m3 code but the
+   two NaN codes, and every int8 code, through B4 and through B8's
+   kv_dequant conversion), B4 over 1-byte caches (e4m3 and int8, linear,
+   paged and the verify step at every head dim, a window, ALiBi) and B8
+   with descales (every head dim, a window, softcap, a bf16 cache) against
+   their plain versions with distinct per-(row, KV head) descales, timed at
+   the 913M's steps beside the same kernels over a bf16 cache;
+30. the 913M GPT served from an fp8 cache at kv_cache_scale 1.0 and 2.0:
+   static decode graphed and eagerly (tokens bitwise equal, every decode
+   launch over the 1-byte cache), its logits teacher-forced with the bf16
+   cache's tokens within 0.15 of the bf16 cache's (JAX's own bound), the
+   decode rate beside the bf16 cache's in turns; the paged, prefix-cached
+   and speculative engines (the target as its own draft) on the first
+   requests of the engine traces, held to a teacher-forced static decode
+   over the fp8 cache and to the plain engine; and (in 14.) Llama-3-8B
+   served from an fp8 cache with the weights of its bf16 run.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -1735,8 +1752,9 @@ def engine_model():
 
 def kernel_counts():
     """Launches of the forward, decode, paged, varlen, MLA and block-sparse
-    kernels since the last reset_kernel_counts(), the band's and the score
-    map's among them (bwd_counts() has the dense backward's)."""
+    kernels since the last reset_kernel_counts(), the band's, the score
+    map's and the quantized cache's among them, and of the conversion of a
+    quantized cache's pages (bwd_counts() has the dense backward's)."""
     from flash_attn_tpu_torch.kernels import (
         flash_blocksparse,
         flash_decode,
@@ -1745,9 +1763,14 @@ def kernel_counts():
         flash_varlen,
         flash_varlen_paged,
         flash_varlen_persistent,
+        kv_dequant,
     )
 
     return {"flash_fwd": flash_fwd.launches,
+            "flash_decode_kv8": flash_decode.launches_kv8,
+            "flash_decode_paged_kv8": flash_decode.launches_paged_kv8,
+            "flash_varlen_paged_descale": flash_varlen_paged.launches_descale,
+            "kv_dequant": kv_dequant.launches,
             "flash_fwd_band": flash_fwd.launches_band,
             "flash_fwd_score": flash_fwd.launches_score,
             "flash_decode": flash_decode.launches,
@@ -1826,7 +1849,7 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
                max_len: int = ENGINE_MAX_LEN, new_tokens: int = ENGINE_NEW,
                admit_tokens: int = ENGINE_ARRIVAL * ENGINE_PROMPT,
                warm_prompt: int = ENGINE_PROMPT, band: bool = False,
-               score: bool = False):
+               score: bool = False, kv8: bool = False):
     """Serve ``prompts`` through an InferenceEngine over the paged cache,
     submitted ENGINE_ARRIVAL at a time whenever the queue is empty (the
     closed-loop trace of bench.py:516-541), after warmup(), which captures
@@ -1840,7 +1863,8 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
     ``admit_tokens`` padded tokens (warm-up prefills ENGINE_ARRIVAL rows
     of ``warm_prompt``); with ``band`` every attention launch must be that
     of the band masks, with ``score`` that of the score map (softcap or
-    ALiBi)."""
+    ALiBi), with ``kv8`` every decode launch over a 1-byte cache and every
+    paged prefill with descales, after the conversion of its pages."""
     from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
     from flash_attn_tpu_torch.serving.generation import GenerationConfig
 
@@ -1924,6 +1948,11 @@ def run_engine(model, prompts, prefix_cache: bool, card: str, cg: bool = True,
             want.update({k + suffix: want[k] for k in (
                 "flash_fwd", "flash_decode", "flash_decode_paged",
                 "flash_varlen_paged")})
+    if kv8:
+        want.update(flash_decode_kv8=want["flash_decode"],
+                    flash_decode_paged_kv8=want["flash_decode_paged"],
+                    flash_varlen_paged_descale=want["flash_varlen_paged"],
+                    kv_dequant=want["flash_varlen_paged"])
     require(launches == want, f"{name} launch counts {launches}, want {want}")
     require(all(len(t) == new_tokens for t in tokens),
             f"{name}: a request did not finish with {new_tokens} tokens")
@@ -2550,13 +2579,16 @@ def kernel_split_ms(fn, names, runs: int = 10, tries: int = 3):
     torch.profiler over ``runs`` calls, each of which launches each named
     kernel once. The profiler can lose a trace's first launches (seen on
     the card late in long runs: one of five launches of a kernel on every
-    retrace, 14 of 15 of a backward's three kernels once), so a trace that
-    holds another count than ``runs`` of a kernel is taken again, up to
-    ``tries`` times; if none holds every launch, each kernel's time is the
-    mean over its launches in the trace that held the most ("other" is
-    then low), said in a printed line. The run fails if no trace held a
-    launch of each kernel, or one held more than ``runs``."""
-    best = None
+    retrace, 14 of 15 of a backward's three kernels once) and then hand
+    one of them to the next trace (8 of 10, then 11 of 10, PR 21), so a
+    trace that holds another count than ``runs`` of a kernel is taken
+    again, up to ``tries`` times; if none holds every launch, each
+    kernel's time is the mean over its launches in the trace nearest to
+    ``runs`` ("other" is then off by the launches lost or gained), said in
+    a printed line. The run fails if no trace held a launch of each kernel,
+    or every trace held more than ``runs`` (a call that launches a kernel
+    twice)."""
+    best, over = None, 0
     for _ in range(tries):
         total = dict.fromkeys(list(names) + ["other"], 0.0)
         count = dict.fromkeys(names, 0)
@@ -2565,24 +2597,28 @@ def kernel_split_ms(fn, names, runs: int = 10, tries: int = 3):
             total[name] += evt.device_time_total
             if name != "other":
                 count[name] += evt.count
-        if any(c > runs for c in count.values()):
-            raise RuntimeError(f"chip_smoke: the profiler traced {count} "
-                               f"launches of {runs} calls, one a call of "
-                               "each kernel wanted")
         if all(c == runs for c in count.values()):
             best = total, count
             break
+        over += any(c > runs for c in count.values())
         print(f"profiler: a trace of {runs} calls held {count} launches; "
               "taken again", flush=True)
-        if best is None or min(count.values()) > min(best[1].values()):
+        off = max(abs(c - runs) for c in count.values())
+        if best is None or off < max(abs(c - runs)
+                                     for c in best[1].values()):
             best = total, count
+    if over == tries:
+        raise RuntimeError(f"chip_smoke: {tries} profiler traces of {runs} "
+                           f"calls each held more launches than calls "
+                           f"(the last {count}), one a call of each kernel "
+                           "wanted")
     total, count = best
     if min(count.values()) == 0:
         raise RuntimeError(f"chip_smoke: {tries} profiler traces of {runs} "
                            f"calls held {count} launches, none of a kernel")
-    if min(count.values()) < runs:
-        print(f"profiler: no trace held every launch; each kernel's time "
-              f"is the mean of its {count} traced launches", flush=True)
+    if any(c != runs for c in count.values()):
+        print(f"profiler: no trace held one launch a call; each kernel's "
+              f"time is the mean of its {count} traced launches", flush=True)
     split = {name: total[name] / count[name] / 1e3 for name in names}
     split["other"] = total["other"] / runs / 1e3
     return split
@@ -4306,7 +4342,8 @@ def serve_family(name, model, card, rng, rate_runs: int = 3):
 
 def run_breadth(card):
     """Serve Llama-3-8B at full width and depth (static decode, graphed and
-    eager, then BREADTH_REQUESTS requests through the paged engine), then
+    eager, then BREADTH_REQUESTS requests through the paged engine, then
+    static decode from an fp8 cache, kv_static), then
     Falcon-7B, Pythia-6.9B, OPT-6.7B (also through the prefix-cached
     engine) and StarCoder at full width and BREADTH_LAYERS layers, each
     model built from its published config through the port's adapter and
@@ -4332,7 +4369,13 @@ def run_breadth(card):
     # check's MIN_ARGMAX_AGREEMENT, the token's gap to LOGIT_BOUND as ever
     out[name]["agreement"], out[name]["logit_gap"] = engine_agreement(
         paged, prompts, tokens, name, MIN_ARGMAX_AGREEMENT)
-    del model, paged
+    del paged
+    # the same weights served from an fp8 cache (a quantized cache)
+    ids = torch.as_tensor(np.random.default_rng(22).integers(
+        0, model.config.vocab_size, (BATCH, PROMPT)), device="cuda")
+    name = "Llama-3-8B fp8 cache"
+    launches[name], out[name] = kv_static(model, ids, "Llama-3-8B", card, 1.0)
+    del model
     torch.cuda.empty_cache()
 
     cut = {"falcon": "num_hidden_layers", "gpt_neox": "num_hidden_layers",
@@ -7436,6 +7479,622 @@ def run_softcap_training(card):
     return launches, res
 
 
+# ---- Quantized KV caches: B4 and B8 over 1-byte caches with descales, B11's
+# conversion, and the 913M and Llama-3-8B served from an fp8 cache ----------
+
+# The logits of a model served from an fp8 cache against the same model
+# from a bf16 cache, teacher-forced with the bf16 run's tokens: the largest
+# |difference| of a decode step over that step's largest |logit|, below the
+# JAX package's own bound (tests/test_fp8.py:133-134).
+KV_DRIFT_BOUND = 0.15
+KV_SCALES = (1.0, 2.0)
+# Share of an fp8-cache engine's tokens that must be the argmax of a
+# teacher-forced static decode over the same fp8 cache: JAX's own fp8
+# engine test lets a quarter of the tokens part from a bf16 engine's
+# (tests/test_engine.py:205-211); where they part, the token stays within
+# LOGIT_BOUND of the top logit.
+KV_ENGINE_AGREEMENT = 0.75
+# The quantized engines serve the first requests of the engine traces over
+# as many slots, so that the paged engine's decode block is timed with all
+# of them busy.
+KV_ENGINE_REQUESTS, KV_SPEC_REQUESTS = 32, 16
+# v_descale of the conversion check: a power of two, so that a code's value
+# times it is exact in fp32 and bf16.
+KV_CODE_VD = 0.5
+
+
+def kv_dequantized(codes, table, seqlens, descale):
+    """The values a 1-byte cache (linear (b, h_k, s, d), or pages with a
+    block table) holds under (b, h_k) ``descale``, in the linear layout,
+    fp32."""
+    from flash_attn_tpu_torch.utils.testing import paged_to_linear
+
+    lin = (codes[:len(seqlens)].float() if table is None else
+           paged_to_linear(codes, table, seqlens))
+    return lin * descale[:, :, None, None]
+
+
+def kv_decode_bound(seqlens, b, sq, h, h_k, d, splits, table_entries,
+                    kv_bytes):
+    """Bound of one decode call over a cache of ``kv_bytes`` an element:
+    every cached K and V row read once, q read, the fp32 split partials,
+    the lengths, the table and the descales read or written once."""
+    keys = int(seqlens.sum())
+    pairs = sq * keys - b * sq * (sq - 1) // 2
+    return bound(4 * h * d * pairs,
+                 2 * kv_bytes * keys * h_k * d + 2 * b * sq * h * d
+                 + 4 * splits * b * sq * h * (d + 1)
+                 + 4 * (b + table_entries) + 2 * 4 * b * h_k)
+
+
+def kvquant_decode_case(gen, case, timed: bool):
+    """B4's d = dv route over a 1-byte cache (KVQUANT_DECODE_CASES) with
+    distinct per-(row, KV head) descales, against its plain version on the
+    CPU in fp32 (the 2x rule with a bf16 reference over the dequantized
+    values, lse within LSE_ATOL), the partials bitwise equal twice and the
+    launches counted as the 1-byte cache's; with ``timed``, beside the
+    same kernel over a bf16 cache of the same values without descales, the
+    plain version, and the library call: the cache dequantized (gathered
+    first when paged), then masked scaled_dot_product_attention."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.utils.cases import (
+        kv_codes,
+        kv_descales,
+        score_slopes,
+    )
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+    )
+
+    name, b, sq, h, h_k, d, page, keys, dt, window, slopes, splits = case
+    window = tuple(None if x < 0 else x for x in window)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    if page:
+        width = -(-keys // page)
+        x = torch.randn(2, b * width + 1, h_k, page, d, device="cuda",
+                        generator=gen)
+        table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+                 ).reshape(b, width).to(torch.int32)
+    else:
+        x = torch.randn(2, b, h_k, -(-keys // 128) * 128, d, device="cuda",
+                        generator=gen)
+        table = None
+    codes, unit = kv_codes(x, dt)
+    kc, vc = codes[0], codes[1]
+    del x
+    # lengths within 64 below ``keys`` (the engine's slots hold 513..544)
+    seqlens = (keys - (37 * torch.arange(b, device="cuda"))
+               % max(1, min(keys - sq, 64))).to(torch.int32)
+    qd, kd, vd = kv_descales(b, h_k, "cuda")
+    qk, vs = (qd * kd * unit).contiguous(), (vd * unit).contiguous()
+    al = score_slopes(slopes, b, h, "cuda")
+    splits = splits or _default_num_splits(q, kc, vc, table, False)
+    kw = dict(window_size=window, alibi_slopes=al)
+    counter = "launches_paged_kv8" if page else "launches_kv8"
+    before = getattr(flash_decode, counter)
+    out, lse = flash_decode.flash_attention_decode(
+        q, kc, vc, seqlens, causal=True, num_splits=splits, block_table=table,
+        qk_descale=qk, v_descale=vs, **kw)
+    cpu = lambda t: None if t is None else t.cpu()
+    ref, ref_lse = flash_decode.flash_attention_decode(
+        q.float().cpu(), kc.cpu(), vc.cpu(), seqlens.cpu(), causal=True,
+        num_splits=splits, block_table=cpu(table), qk_descale=qk.cpu(),
+        v_descale=vs.cpu(), window_size=window, alibi_slopes=cpu(al))
+    scale = d ** -0.5
+    call = dict(block_table=table, qk_descale=qk, v_descale=vs, **kw)
+    part = flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, True, **call)
+    again = flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, True, **call)
+    torch.cuda.synchronize()
+    require(getattr(flash_decode, counter) == before + 3,
+            f"{name}: the 1-byte cache's kernel did not run")
+    require(torch.equal(part[0], again[0]) and torch.equal(part[1], again[1]),
+            f"{name}: two runs differ")
+    kval = kv_dequantized(kc, table, seqlens, kd * unit)
+    vval = kv_dequantized(vc, table, seqlens, vd * unit)
+    q_eff = q.float() * qd.repeat_interleave(h // h_k, 1)[:, None, :, None]
+    keep = torch.arange(kval.shape[2], device="cuda")[None] < seqlens[:, None]
+    ref_lp, _ = attention_ref(
+        q_eff.to(torch.bfloat16), kval.transpose(1, 2).to(torch.bfloat16),
+        vval.transpose(1, 2).to(torch.bfloat16), key_padding_mask=keep,
+        causal=True, upcast=False, **kw)
+    err, err_lp = check_against_ref(out, ref, ref_lp,
+                                    msg=f"flash_decode 1-byte cache {name}")
+    lse_err = (lse.cpu() - ref_lse).abs().max().item()
+    require(lse_err <= LSE_ATOL, f"{name}: lse error {lse_err}")
+    print(f"flash_decode{'_paged' if page else ''} {str(dt)[6:]} cache "
+          f"{name} (b={b}, sq={sq}, {h}/{h_k} heads of {d}, lengths "
+          f"{int(seqlens.min())}..{keys}, {splits} splits, window {window}, "
+          f"slopes {slopes}): out max abs err {err:.3e} (bf16 reference "
+          f"{err_lp:.3e}), lse max abs err {lse_err:.3e}, the partials "
+          f"bitwise equal twice")
+    if not timed:
+        return err, None
+    ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+        q, kc, vc, seqlens, splits, scale, True, **call))
+    kb, vb = (x.float().to(torch.bfloat16) for x in (kc, vc))
+    bf16_ms = time_ms(lambda: flash_decode.flash_attention_decode_partials(
+        q, kb, vb, seqlens, splits, scale, True, block_table=table))
+    plain = (flash_decode.flash_attention_decode_partials_plain
+             if table is None else
+             flash_decode.flash_attention_decode_paged_partials_plain)
+    extra = () if table is None else (table,)
+    plain_ms = time_ms(lambda: plain(
+        q, kc, vc, seqlens, *extra, splits, DECODE_BLOCK_K, scale, True,
+        qk_descale=qk, v_descale=vs))
+    qdh = qd.repeat_interleave(h // h_k, 1)[:, :, None, None]
+    rows = torch.arange(sq, device="cuda")[:, None]
+    cols = torch.arange(kval.shape[2], device="cuda")[None, :]
+    mask = (keep[:, None, :] & (cols[None] <= rows[None]
+                                + seqlens[:, None, None] - sq))[:, None]
+
+    def library():
+        k_l = kv_dequantized(kc, table, seqlens, kd * unit).to(torch.bfloat16)
+        v_l = kv_dequantized(vc, table, seqlens, vd * unit).to(torch.bfloat16)
+        qh = (q.transpose(1, 2).float() * qdh).to(torch.bfloat16)
+        return F.scaled_dot_product_attention(qh, k_l, v_l, attn_mask=mask,
+                                              enable_gqa=h != h_k)
+    lib_ms = time_ms(library)
+    timing = {"ms": ms, "bf16_cache_ms": bf16_ms, "plain_ms": plain_ms,
+              "library_ms": lib_ms, "num_splits": splits,
+              "library_call": "the cache dequantized with its descales ("
+              + ("gathered through the block table first, " if page else "")
+              + "torch ops), then scaled_dot_product_attention with a "
+              "boolean causal length mask (the dequantization included)",
+              **kv_decode_bound(seqlens, b, sq, h, h_k, d, splits,
+                                0 if table is None else table.numel(), 1)}
+    print(f"flash_decode {str(dt)[6:]} cache time at {name}: kernel "
+          f"{ms:.4f} ms, over a bf16 cache {bf16_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, dequantize + masked SDPA {lib_ms:.4f} ms; "
+          f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}, 1-byte "
+          f"K/V)")
+    return err, timing
+
+
+def kvquant_varlen_case(gen, case, window, softcap: float, timed: bool):
+    """B8 with descales on one KVQUANT_VARLEN_CASES case: over 1-byte pages
+    (converted by kv_dequant's kernel first, the pool bitwise equal to the
+    plain conversion on every page a row reaches) or over a bf16 cache,
+    against its plain version (the 2x rule with a bf16 reference over the
+    dequantized values, lse within LSE_ATOL), bitwise equal twice, the
+    launches counted as the descales' (and the conversion's); with
+    ``timed``, the kernel over the converted pool, the conversion alone,
+    the whole call, B8 without descales over a bf16 cache of the same
+    values, the plain version and the library call (the cache dequantized,
+    then the padded, gathered, masked scaled_dot_product_attention)."""
+    from flash_attn_tpu_torch.dispatch.kvquant import is_quantized
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.kernels import kv_dequant
+    from flash_attn_tpu_torch.utils.cases import kv_codes, kv_descales
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_varlen_paged_ref,
+        check_against_ref,
+    )
+
+    name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal, cdt = case
+    window = tuple(None if x < 0 else x for x in window)
+    b = len(lens_q)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    total_q = int(cu[-1])
+    q = torch.randn(total_q, h, d, device="cuda", generator=gen).to(dtype)
+    width = -(-max(max(lens_k), 1) // page)
+    x = torch.randn(2, b * width + 1, h_k, page, d, device="cuda",
+                    generator=gen)
+    codes, unit = kv_codes(x, cdt)
+    kp, vp = codes[0], codes[1]
+    del x
+    table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+             ).reshape(b, width).to(torch.int32)
+    seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    seqused = (None if used is None else
+               torch.tensor(used, dtype=torch.int32, device="cuda"))
+    qd, kd, vd = kv_descales(b, h_k, "cuda")
+    qk, vs = (qd * kd * unit).contiguous(), (vd * unit).contiguous()
+    max_q = max(max(lens_q), 1)
+    args = (cu, max_q, seqlens_k, table)
+    kw = dict(seqused_q=seqused, causal=causal, window_size=window,
+              softcap=softcap)
+    quant = is_quantized(cdt)
+    before = fvp.launches_descale, kv_dequant.launches
+    out, lse = fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, *args, qk_descale=qk, v_descale=vs, **kw)
+    ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+        q.float(), kp, vp, *args, qk_descale=qk, v_descale=vs, **kw)
+    # each page is one row's: its values under that row's descales
+    page_k = torch.ones(kp.shape[0], h_k, device="cuda")
+    page_v = torch.ones(kp.shape[0], h_k, device="cuda")
+    page_k[table.long()] = (kd * unit)[:, None, :].expand(b, width, h_k)
+    page_v[table.long()] = (vd * unit)[:, None, :].expand(b, width, h_k)
+    kval = (kp.float() * page_k[:, :, None, None]).to(dtype)
+    vval = (vp.float() * page_v[:, :, None, None]).to(dtype)
+    seq = torch.repeat_interleave(torch.arange(b, device="cuda"),
+                                  torch.tensor(lens_q, device="cuda"))
+    q_eff = (q.float() * qd[seq].repeat_interleave(h // h_k, 1)[:, :, None]
+             ).to(dtype)
+    ref_lp = attention_varlen_paged_ref(
+        q_eff, kval, vval, cu, seqlens_k, table, seqused_q=seqused,
+        causal=causal, upcast=False, window_size=window, softcap=softcap)
+    again = fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, *args, qk_descale=qk, v_descale=vs, **kw)
+    torch.cuda.synchronize()
+    require(fvp.launches_descale == before[0] + 2
+            and kv_dequant.launches == before[1] + 2 * quant,
+            f"flash_varlen_paged {name}: launches of the descales "
+            f"{fvp.launches_descale - before[0]}, of the conversion "
+            f"{kv_dequant.launches - before[1]}")
+    require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+            f"flash_varlen_paged {name}: two runs differ")
+    err, err_lp = check_against_ref(out, ref, ref_lp,
+                                    msg=f"flash_varlen_paged descales {name}")
+    fin = torch.isfinite(ref_lse)
+    require(torch.equal(torch.isfinite(lse), fin),
+            f"flash_varlen_paged {name}: rows without keys differ")
+    lse_err = (lse[fin] - ref_lse[fin]).abs().max().item() \
+        if fin.any() else 0.0
+    require(lse_err <= LSE_ATOL, f"flash_varlen_paged {name}: lse error "
+            f"{lse_err}")
+    if quant:
+        pools = kv_dequant.dequant_pages(kp, vp, table, seqlens_k, dtype)
+        plain_pools = kv_dequant.dequant_pages_plain(kp, vp, table,
+                                                     seqlens_k, dtype)
+        reached = kv_dequant.pages_reached(seqlens_k, page, width).reshape(-1)
+        require(all(torch.equal(a[reached].view(torch.int16),
+                                p[reached].view(torch.int16))
+                    for a, p in zip(pools[:2], plain_pools[:2])),
+                f"flash_varlen_paged {name}: the converted pages differ from "
+                "the plain conversion")
+    print(f"flash_varlen_paged descales {name} ({str(cdt)[6:]} cache, "
+          f"lens_q {lens_q} lens_k {lens_k} seqused_q {used}, {h}/{h_k} "
+          f"heads of {d}, pages of {page}, window {window}, softcap "
+          f"{softcap}): out max abs err {err:.3e} (bf16 reference "
+          f"{err_lp:.3e}), lse max abs err {lse_err:.3e}; bitwise equal "
+          "twice" + ("; the converted pages bitwise equal to the plain "
+                     "conversion" if quant else ""))
+    if not timed:
+        return err, None
+    pool_k, pool_v, pool_t = kv_dequant.dequant_pages(kp, vp, table,
+                                                      seqlens_k, dtype)
+    call = lambda: fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, *args, qk_descale=qk, v_descale=vs, **kw)
+    whole_ms = time_ms(call)
+    split = kernel_split_ms(call, ("varlen_paged_kernel", "kv_dequant_kernel"))
+    pool_args = (cu, max_q, seqlens_k, pool_t)
+    ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd(
+        q, pool_k, pool_v, *pool_args, qk_descale=qk, v_descale=vs, **kw))
+    bf16_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd(
+        q, pool_k, pool_v, *pool_args, **kw))
+    dq_ms = time_ms(lambda: kv_dequant.dequant_pages(kp, vp, table,
+                                                     seqlens_k, dtype))
+    dq_plain_ms = time_ms(lambda: kv_dequant.dequant_pages_plain(
+        kp, vp, table, seqlens_k, dtype))
+    plain_ms = time_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
+        q, kp, vp, *args, qk_descale=qk, v_descale=vs, **kw))
+    qpad = q.new_zeros(b, max_q, h, d)
+    pos = torch.arange(total_q, device="cuda") - cu[seq].long()
+    gathered, _ = paged_sdpa(qpad, kval, vval, table, seqlens_k, causal,
+                             lens_q, window)
+
+    def library():
+        kval.copy_((kp.float() * page_k[:, :, None, None]).to(dtype))
+        vval.copy_((vp.float() * page_v[:, :, None, None]).to(dtype))
+        qpad.zero_()
+        qpad[seq, pos] = (q.float() * qd[seq].repeat_interleave(
+            h // h_k, 1)[:, :, None]).to(dtype)
+        return gathered().transpose(1, 2)[seq, pos]
+    lib_ms = time_ms(library)
+    pairs = attended_pairs(used or lens_q, lens_k, causal, window)
+    n_keys = band_keys(used or lens_q, lens_k, causal, window)
+    esz = 1 if quant else 2
+    reached = int(kv_dequant.pages_reached(seqlens_k, page, width).sum())
+    timing = {"ms": ms, "whole_call_ms": whole_ms,
+              "kernel_ms": split["varlen_paged_kernel"],
+              "kv_dequant_kernel_ms": split["kv_dequant_kernel"],
+              "kv_dequant_ms": dq_ms, "bf16_cache_ms": bf16_ms,
+              "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library_call": "the cache dequantized with its descales "
+              "(torch ops), the packed rows padded, the cache gathered "
+              "through the block table, scaled_dot_product_attention with a "
+              "boolean causal length mask, the rows packed again (all "
+              "included)",
+              **bound(4 * h * d * pairs,
+                      2 * 2 * total_q * h * d + 2 * esz * n_keys * h_k * d
+                      + 4 * h * total_q + 2 * 4 * b * h_k)}
+    dq = {"ms": dq_ms, "plain_ms": dq_plain_ms, "library_ms": None,
+          "library_call": None, "pages": reached,
+          **bound(0, 2 * reached * h_k * page * d * (1 + 2))}
+    print(f"flash_varlen_paged descales time at {name}: B8 over the converted "
+          f"pool {ms:.4f} ms (without descales {bf16_ms:.4f} ms), the "
+          f"conversion {dq_ms:.4f} ms ({reached} pages; plain "
+          f"{dq_plain_ms:.4f} ms, bound {dq['bound_ms']:.4f} ms), the whole "
+          f"call {whole_ms:.4f} ms (profiler: B8 "
+          f"{split['varlen_paged_kernel']:.4f}, conversion "
+          f"{split['kv_dequant_kernel']:.4f}, torch ops "
+          f"{split['other']:.4f}); plain {plain_ms:.4f} ms, library "
+          f"{lib_ms:.4f} ms; bound {timing['bound_ms']:.4f} ms "
+          f"({timing['bound_by']}, 1-byte K/V)")
+    return err, (timing, dq)
+
+
+def kvquant_conversion_check(gen):
+    """B11's conversion held bitwise on the card: one key at d = 256 whose V
+    row holds every code (the two e4m3 NaN codes, 0x7F and 0xFF, left out:
+    the store never writes them), scaled by v_descale KV_CODE_VD, through
+    B4 (the fp32 partial) and through B8 (via kv_dequant's kernel; bf16
+    out): each output column must be its code's value times KV_CODE_VD
+    exactly (-0 as +0: an accumulator from 0). Returns the number of codes
+    held for each type."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+
+    held = {}
+    for dt in (torch.float8_e4m3fn, torch.int8):
+        c = torch.arange(256, dtype=torch.int32, device="cuda").to(
+            torch.uint8)
+        keep = torch.ones(256, dtype=torch.bool, device="cuda")
+        if dt == torch.float8_e4m3fn:
+            keep = (c != 0x7F) & (c != 0xFF)
+            c = torch.where(keep, c, torch.zeros_like(c))
+        # + 0.0: e4m3's -0 (0x80) sums to +0 in an accumulator from 0
+        want = c.view(dt).float() * KV_CODE_VD + 0.0
+        vs = torch.full((1, 1), KV_CODE_VD, device="cuda")
+        q = torch.randn(1, 1, 1, 256, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        kc = torch.zeros(1, 1, 128, 256, dtype=torch.uint8, device="cuda")
+        vc = kc.clone()
+        vc[0, 0, 0] = c
+        one = torch.ones(1, dtype=torch.int32, device="cuda")
+        out_p, _ = flash_decode.flash_attention_decode_partials(
+            q, kc.view(dt), vc.view(dt), one, 1, 1 / 16, True,
+            v_descale=vs)
+        got = out_p[0, 0, 0, 0]
+        b4 = torch.equal(got[keep].view(torch.int32),
+                         want[keep].view(torch.int32))
+        kp = torch.zeros(2, 1, 16, 256, dtype=torch.uint8, device="cuda")
+        vp = kp.clone()
+        vp[1, 0, 0] = c
+        cu = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+        out, _ = fvp.flash_attention_varlen_paged_fwd(
+            q[0], kp.view(dt), vp.view(dt), cu, 1, one,
+            torch.ones(1, 1, dtype=torch.int32, device="cuda"), causal=True,
+            v_descale=vs)
+        b8 = torch.equal(out[0, 0][keep].view(torch.int16),
+                         want[keep].to(torch.bfloat16).view(torch.int16))
+        held[str(dt)[6:]] = int(keep.sum())
+        print(f"B11's conversion ({str(dt)[6:]}): {int(keep.sum())} codes "
+              f"through B4 bitwise {b4}, through B8 (kv_dequant) bitwise "
+              f"{b8}")
+        require(b4 and b8, f"the {dt} conversion is not exact")
+    return held
+
+
+def check_kvquant_kernels(gen):
+    """Quantized caches on the card: B11's conversion bitwise, B4 on
+    KVQUANT_DECODE_CASES and B8 with descales on KVQUANT_VARLEN_CASES
+    against their plain versions, the timed shapes (the 913M's decode,
+    engine decode and verify steps and its prefix-cached admission, fp8)
+    beside the same kernel over a bf16 cache. Returns errors and timings by
+    kernels-line name."""
+    from flash_attn_tpu_torch.utils.cases import (
+        KVQUANT_DECODE_CASES,
+        KVQUANT_VARLEN_CASES,
+    )
+
+    held = kvquant_conversion_check(gen)
+    timed = {"913M decode step, fp8": "flash_decode_kv8",
+             "913M engine decode step, fp8": "flash_decode_paged_kv8",
+             "913M engine verify step, fp8": "flash_decode_paged_kv8_verify"}
+    errs, timings = {"kv_dequant": 0.0}, {"conversion_codes": held}
+    for case in KVQUANT_DECODE_CASES:
+        row = timed.get(case[0], "flash_decode_kv8" if not case[6] else
+                        "flash_decode_paged_kv8" + "_verify" * (case[2] > 1))
+        err, t = kvquant_decode_case(gen, case, case[0] in timed)
+        errs[row] = max(errs.get(row, 0.0), err)
+        if t is not None:
+            timings[row] = t
+    torch.cuda.empty_cache()
+    for i, (case, window, cap) in enumerate(KVQUANT_VARLEN_CASES):
+        err, t = kvquant_varlen_case(gen, case, window, cap, i == 0)
+        errs["flash_varlen_paged_descale"] = max(
+            errs.get("flash_varlen_paged_descale", 0.0), err)
+        if t is not None:
+            timings["flash_varlen_paged_descale"], timings["kv_dequant"] = t
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+def kv_static(model, ids, name, card, scale, rate_runs: int = 3):
+    """Serve ``ids`` from the model's weights over an fp8 cache of
+    ``kv_cache_scale`` ``scale`` (a view of the same weights): graphed and
+    eagerly (tokens bitwise equal; launches n_layer B1 and n_layer x steps
+    B4, every one over the 1-byte cache), then teacher-forced with the
+    bf16-cache run's tokens: each decode step's logits within
+    KV_DRIFT_BOUND of the bf16 cache's, relative to their largest, and
+    wherever the argmax moves, a near-tie the change can flip; then the
+    graphed decode rates of the bf16 and the fp8 cache in turns."""
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    n = model.config.n_layer
+    batch, prompt = ids.shape
+    steps = NEW_TOKENS - 1
+    gcfg = GenerationConfig(max_length=prompt + NEW_TOKENS)
+    ref_seqs, _, ref_scores = decode(ids, model, gcfg, output_scores=True)
+    model._decode_state = None
+    view = model_view(model, kv_cache_dtype=torch.float8_e4m3fn,
+                      kv_cache_scale=scale)
+    label = f"{name} from an fp8 cache (kv_cache_scale {scale})"
+    runs = {}
+    for cg in (True, False):
+        reset_kernel_counts()
+        seqs, length, scores = decode(ids, view, gcfg, output_scores=True,
+                                      cg=cg)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        runs[cg] = seqs, launches
+        print(f"{label} ({'graphed' if cg else 'eager'}): served {batch} x "
+              f"{prompt}-token prompts to length {length}; launches "
+              f"{launches}")
+        require(launches == want_counts(flash_fwd=n, flash_decode=n * steps,
+                                        flash_decode_kv8=n * steps),
+                f"{label}: launch counts {launches}")
+        require(bool(torch.isfinite(scores).all()),
+                f"{label}: non-finite decode logits")
+    require(torch.equal(runs[True][0], runs[False][0]),
+            f"{label}: graphed and eager tokens differ")
+    view._decode_state = None
+    _, _, tf = decode(ids, view, gcfg, output_scores=True,
+                      teacher_outputs=ref_seqs)
+    view._decode_state = None
+    tf, ref = tf[1:steps + 1], ref_scores[1:steps + 1]  # the decode steps
+    drift = [float((tf[t] - ref[t]).abs().max() / ref[t].abs().max())
+             for t in range(steps)]
+    # where the argmax moves, the fp8 cache's token is a near-tie of the
+    # bf16 cache's: its bf16 logit below the top by no more than twice the
+    # row's largest logit change (a flip the change itself can make)
+    top = tf.argmax(-1)
+    same = top == ref.argmax(-1)
+    agree = float(same.float().mean())
+    gap = ref.max(-1).values - ref.gather(-1, top[..., None])[..., 0]
+    moved = (tf - ref).abs().amax(-1)
+    tie_ratio = float(torch.where(same, 0.0, gap / (2 * moved)).max())
+    print(f"{label}: decode logits teacher-forced with the bf16 cache's "
+          f"tokens against the bf16 cache's: relative drift largest "
+          f"{max(drift):.4f}, last step {drift[-1]:.4f} (bound "
+          f"{KV_DRIFT_BOUND}); argmax agreement {agree:.4f}, where the "
+          f"argmax moves the bf16 logit gap at most {tie_ratio:.3f} of "
+          f"twice the row's change (bound 1); fp8 tokens equal to the bf16 "
+          f"cache's {float((runs[True][0] == ref_seqs).float().mean()):.4f}")
+    require(max(drift) < KV_DRIFT_BOUND and tie_ratio <= 1.0,
+            f"{label}: logits drift from the bf16 cache's")
+    rates = {"bf16": [], "fp8": []}
+    for m, key in ((model, "bf16"), (view, "fp8"), (view, "fp8"),
+                   (model, "bf16")):
+        _, tok_s = static_rates(m, ids, modes=(True,), runs=rate_runs)
+        rates[key].append(tok_s[True][0])
+    model._decode_state = view._decode_state = None
+    torch.cuda.empty_cache()
+    res = {"scale": scale, "drift_max": max(drift), "drift_last": drift[-1],
+           "argmax_agreement": agree, "tie_ratio": tie_ratio,
+           "decode_tokens_per_s": statistics.mean(rates["fp8"]),
+           "bf16_decode_tokens_per_s": statistics.mean(rates["bf16"]),
+           "rates_in_turns": rates}
+    print(f"{label}: decode {res['decode_tokens_per_s']:.1f} tokens/s "
+          f"graphed against {res['bf16_decode_tokens_per_s']:.1f} from the "
+          f"bf16 cache (in turns: bf16 {rates['bf16'][0]:.1f}, fp8 "
+          f"{rates['fp8'][0]:.1f}, fp8 {rates['fp8'][1]:.1f}, bf16 "
+          f"{rates['bf16'][1]:.1f}) on {card}")
+    return runs[True][1], res
+
+
+def kv_logit_noise(model, view, prompts) -> float:
+    """The largest |logit| the fp8 cache of ``view`` moves from ``model``'s
+    bf16 cache (the same weights): static decode of ``prompts`` from the
+    bf16 cache, then both teacher-forced over its tokens (linear caches),
+    the decode steps' logits compared."""
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    ids = torch.as_tensor(np.stack(prompts), device="cuda", dtype=torch.long)
+    gcfg = GenerationConfig(max_length=ids.shape[1] + NEW_TOKENS)
+    bf16, fp8 = linear_view(model), linear_view(view)
+    seqs, _, ref = decode(ids, bf16, gcfg, output_scores=True, cg=False)
+    _, _, tf = decode(ids, fp8, gcfg, output_scores=True, cg=False,
+                      teacher_outputs=seqs)
+    noise = float((tf[1:] - ref[1:]).abs().max())
+    print(f"the fp8 cache moves the engine model's decode logits by up to "
+          f"{noise:.4f} from the bf16 cache's ({len(prompts)} prompts, "
+          f"teacher-forced)")
+    return noise
+
+
+def run_kvquant_913m(gen, card):
+    """The 913M GPT served from an fp8 cache at kv_cache_scale 1.0 and 2.0:
+    static decode (kv_static, run_slice's weights), then the paged, the
+    prefix-cached and the speculative engine (the target as its own draft)
+    on the first KV_ENGINE_REQUESTS / KV_SPEC_REQUESTS requests of the
+    engine traces over KV_ENGINE_REQUESTS slots (engine_model's weights),
+    graphed; the engines' tokens
+    held to a teacher-forced static decode over the same fp8 cache
+    (engine_agreement), the speculative engine's to the plain engine's
+    (spec_vs_plain, where they part both within the fp8 cache's measured
+    logit movement of the top, kv_logit_noise). Returns the launches of
+    each run and the measurements."""
+    from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel, gpt_913m
+
+    launches, out = {}, {}
+    cfg = gpt_913m(max_decode_seqlen=PROMPT + NEW_TOKENS + 8)
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(1))
+    model.requires_grad_(False)
+    ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda",
+                        generator=gen)
+    for scale in KV_SCALES:
+        key = f"913M fp8 x{scale}"
+        launches[key], out[key] = kv_static(model, ids, "913M", card, scale)
+    del model
+    torch.cuda.empty_cache()
+
+    model = engine_model()
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = list(rng.integers(0, vocab, (ENGINE_REQUESTS, ENGINE_PROMPT),
+                                dtype=np.int64))[:KV_ENGINE_REQUESTS]
+    shared = rng.integers(0, vocab, PREFIX_SHARED, dtype=np.int64)
+    px = [np.concatenate([shared, rng.integers(
+        0, vocab, ENGINE_PROMPT - PREFIX_SHARED, dtype=np.int64)])
+        for _ in range(KV_ENGINE_REQUESTS)]
+    for scale in KV_SCALES:
+        view = model_view(model, kv_cache_dtype=torch.float8_e4m3fn,
+                          kv_cache_scale=scale)
+        tokens = {}
+        for kind, trace, prefix in (("paged", prompts, False),
+                                    ("prefix-cache", px, True)):
+            key = f"913M fp8 x{scale} {kind} engine"
+            launches[key], tokens[kind], out[key] = run_engine(
+                view, trace, prefix, card, name=key, kv8=True,
+                slots=KV_ENGINE_REQUESTS)
+            # the prefix-cached admission attends over the quantized
+            # prefix (B8 over the converted pages) where the static
+            # prefill attends over bf16 K/V, as JAX's does, so near-ties
+            # flip more often than between two bf16 paths: the share is
+            # held to KV_ENGINE_AGREEMENT, the token's gap to LOGIT_BOUND
+            # as ever
+            out[key]["agreement"], out[key]["logit_gap"] = engine_agreement(
+                view, trace, tokens[kind], key, KV_ENGINE_AGREEMENT)
+        key = f"913M fp8 x{scale} speculative engine"
+        spec_prompts = prompts[:KV_SPEC_REQUESTS]
+        launches[key], spec, out[key] = run_engine(
+            view, spec_prompts, False, card, draft=linear_view(view),
+            name=key, kv8=True, slots=KV_ENGINE_REQUESTS)
+        # where the two engines part, spec_vs_plain judges the tokens by one
+        # bf16 forward, whose logits the fp8 cache moves: the tie bound is
+        # that movement, measured on these weights (kv_logit_noise)
+        noise = kv_logit_noise(model, view, spec_prompts[:BATCH])
+        out[key]["fp8_logit_noise"] = noise
+        out[key]["equal_to_plain"] = spec_vs_plain(
+            view, spec_prompts, spec, tokens["paged"][:KV_SPEC_REQUESTS], key,
+            tie_bound=noise)
+        require(out[key]["mean_accepted"] >= MIN_SELF_ACCEPTED,
+                f"{key}: proposals rejected ({out[key]['mean_accepted']:.3f} "
+                f"accepted of {SPEC_K} a round, bound "
+                f"{MIN_SELF_ACCEPTED:.3f})")
+        del view
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -7565,6 +8224,10 @@ def main() -> int:
                                         run_baichuan_training, card)
     st_launches, softcap_train = phase("913M softcap training",
                                        run_softcap_training, card)
+    kq_err, kq_t = phase("quantized-cache kernel checks",
+                         check_kvquant_kernels, gen)
+    kq_launches, kvq = phase("913M from an fp8 cache", run_kvquant_913m, gen,
+                             card)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -7672,6 +8335,32 @@ def main() -> int:
               f"shape (one layer) {t3['ms']:.4f} ms beside the pair without "
               f"the map {t3['without_map_ms']:.4f} ms and the bound "
               f"{t3['bound_ms']:.4f} ms ({t3['bound_largest']}) on {card}")
+    for scale in KV_SCALES:
+        st, key = kvq[f"913M fp8 x{scale}"], f"913M fp8 x{scale}"
+        print(f"913M from an fp8 cache, kv_cache_scale {scale} (b={BATCH} x "
+              f"{PROMPT} + {NEW_TOKENS}): decode "
+              f"{st['decode_tokens_per_s']:.1f} tokens/s graphed against "
+              f"{st['bf16_decode_tokens_per_s']:.1f} from the bf16 cache; "
+              f"logit drift {st['drift_max']:.4f} (last step "
+              f"{st['drift_last']:.4f}, bound {KV_DRIFT_BOUND}); " + "; ".join(
+                  f"{kind} engine ({n} requests on {KV_ENGINE_REQUESTS} "
+                  f"slots) {kvq[f'{key} {kind} engine']['tokens_per_s']:.1f}"
+                  " tokens/s" for kind, n in (
+                      ("paged", KV_ENGINE_REQUESTS),
+                      ("prefix-cache", KV_ENGINE_REQUESTS),
+                      ("speculative", KV_SPEC_REQUESTS)))
+              + f" on {card}")
+    dk, dpk = kq_t["flash_decode_kv8"], kq_t["flash_decode_paged_kv8"]
+    print(f"B4 over the fp8 cache at the 913M's decode step {dk['ms']:.4f} ms "
+          f"against {dk['bf16_cache_ms']:.4f} ms over a bf16 cache; at the "
+          f"engine's {dpk['ms']:.4f} against {dpk['bf16_cache_ms']:.4f} ms on "
+          f"{card}")
+    lq = breadth["Llama-3-8B fp8 cache"]
+    print(f"Llama-3-8B from an fp8 cache (full width and depth, b={BATCH} x "
+          f"{PROMPT} + {NEW_TOKENS}): decode {lq['decode_tokens_per_s']:.1f} "
+          f"tokens/s graphed against {lq['bf16_decode_tokens_per_s']:.1f} "
+          f"from the bf16 cache; logit drift {lq['drift_max']:.4f} (last "
+          f"step {lq['drift_last']:.4f}, bound {KV_DRIFT_BOUND}) on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -7954,6 +8643,34 @@ def main() -> int:
                   sm_launches[kind]["fa_varlen_bwd_dq_score"],
                   sb_err[f"fa_varlen_bwd_dq_{kind}"],
                   sb_t[f"fa_varlen_bwd_dq_{kind}"]))),
+        # quantized caches: B4 over the fp8 cache at the 913M's static
+        # decode step, engine decode step and verify step, B8 with descales
+        # at its prefix-cached admission over the converted pages, and that
+        # conversion (B11's role); the launches those of the runs at
+        # kv_cache_scale 1.0
+        entry("flash_decode_kv8", "flash_decode_kv8.cu", "flash_decode.py:54",
+              kq_launches["913M fp8 x1.0"]["flash_decode_kv8"],
+              kq_err["flash_decode_kv8"], kq_t["flash_decode_kv8"]),
+        entry("flash_decode_paged_kv8", "flash_decode_kv8.cu",
+              "flash_decode.py:54",
+              kq_launches["913M fp8 x1.0 paged engine"]
+              ["flash_decode_paged_kv8"], kq_err["flash_decode_paged_kv8"],
+              kq_t["flash_decode_paged_kv8"]),
+        entry("flash_decode_paged_kv8_verify", "flash_decode_kv8.cu",
+              "flash_decode.py:54",
+              kq_launches["913M fp8 x1.0 speculative engine"]
+              ["flash_decode_paged_kv8"],
+              kq_err["flash_decode_paged_kv8_verify"],
+              kq_t["flash_decode_paged_kv8_verify"]),
+        entry("flash_varlen_paged_descale", "flash_varlen_paged.cu",
+              "flash_varlen_paged.py:69",
+              kq_launches["913M fp8 x1.0 prefix-cache engine"]
+              ["flash_varlen_paged_descale"],
+              kq_err["flash_varlen_paged_descale"],
+              kq_t["flash_varlen_paged_descale"]),
+        entry("kv_dequant", "kv_dequant.cu", "fp8_cast.py:28",
+              kq_launches["913M fp8 x1.0 prefix-cache engine"]["kv_dequant"],
+              kq_err["kv_dequant"], kq_t["kv_dequant"]),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -7975,6 +8692,8 @@ def main() -> int:
                           "kernel_resources": bb_res},
         "score": {"timings": sc_t, "baichuan": baichuan,
                   "softcap_gpt": softcap_gpt},
+        "kvquant": {"timings": kq_t, "serving": kvq,
+                    "llama": breadth["Llama-3-8B fp8 cache"]},
         "score_training": {"baichuan": baichuan_train,
                            "softcap_gpt": softcap_train, "mha_err": sm_err,
                            "mha_launches": sm_launches,

@@ -5,7 +5,10 @@ Port of flash_attn_tpu/cache/kvcache.py ``kv_cache_update`` (:30) and
 linear (batch_cache, kv_heads, seqlen_max, head_dim), paged (num_pages,
 kv_heads, page_size, head_dim) with a (batch, max_pages) int32 block
 table. Where the JAX functions return new caches, these update the given
-caches in place and return only the attention output.
+caches in place and return only the attention output. A cache may hold
+1-byte codes (float8_e4m3fn or int8, dispatch/kvquant.py): new rows enter
+it through the saturating store :func:`quantize_kv`, and the attention
+takes (b, h_k) descales, as JAX's does (:149-151, :249).
 """
 
 from typing import Optional, Tuple
@@ -17,8 +20,14 @@ from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
     decode_rows_per_block,
     default_scale,
+    is_mla_form,
     normalize_window,
     num_splits_heuristic,
+)
+from flash_attn_tpu_torch.dispatch.kvquant import (
+    as_store,
+    combined_descales,
+    quantize_kv,
 )
 from flash_attn_tpu_torch.interface import reject_unsupported, require_no_grad
 from flash_attn_tpu_torch.kernels.flash_decode import (
@@ -46,12 +55,16 @@ def kv_cache_update(k_cache, v_cache, k_new, v_new, cache_seqlens,
     as real; the paged path drops the padding tail's writes, as JAX's
     ``mode="drop"`` scatter does (a boolean selection, so one host sync: the
     admission path). Without it no write syncs: the one-token decode append
-    is one indexed assignment per cache."""
+    is one indexed assignment per cache. The rows enter the caches' type
+    through :func:`quantize_kv` (a 1-byte cache saturates and rounds to
+    nearest even; JAX's ``astype`` does not, ROADMAP.md queue C)."""
     b, s_new = k_new.shape[:2]
+    k_in, v_in = k_cache, v_cache
     dev = k_cache.device
     offs = cache_seqlens.to(dev, torch.long)
-    k_new = k_new.to(k_cache.dtype)
-    v_new = v_new.to(v_cache.dtype)
+    k_new = as_store(quantize_kv(k_new, k_cache.dtype))
+    v_new = as_store(quantize_kv(v_new, v_cache.dtype))
+    k_cache, v_cache = as_store(k_cache), as_store(v_cache)
     steps = torch.arange(s_new, device=dev)
     if block_table is not None:
         page_size = k_cache.shape[2]
@@ -67,14 +80,14 @@ def kv_cache_update(k_cache, v_cache, k_new, v_new, cache_seqlens,
         # block is (..., h_k, d), the layout of the new rows.
         k_cache[page, :, inpage] = k_new
         v_cache[page, :, inpage] = v_new
-        return k_cache, v_cache
+        return k_in, v_in
     rows = (torch.arange(b, device=dev) if cache_batch_idx is None
             else cache_batch_idx.to(dev, torch.long))
     start = offs.clamp(0, k_cache.shape[2] - s_new)
     pos = start[:, None] + steps[None, :]
     k_cache[rows[:, None], :, pos] = k_new
     v_cache[rows[:, None], :, pos] = v_new
-    return k_cache, v_cache
+    return k_in, v_in
 
 
 def _default_num_splits(q, k_cache, v_cache, block_table, has_qv,
@@ -156,15 +169,40 @@ def flash_attn_with_kvcache(
     kernel does (dispatch/score.py): causal ALiBi's bias is relative to each
     row's last key, cache_seqlens + s_new - 1, and the lse keeps that form;
     the MLA route (``qv``, or dv != d) refuses both. cache_batch_idx,
-    cache_leftpad, descales and rotary_seqlens are not ported and raise
+    cache_leftpad and rotary_seqlens are not ported and raise
     NotImplementedError.
+
+    ``q_descale``, ``k_descale`` and ``v_descale`` ((b, h_k) fp32, a
+    missing one counting as ones) dequantize a cache of 1-byte codes
+    (float8_e4m3fn or int8; a 2-byte cache takes them too, as in JAX): the
+    scores are scaled by q_descale · k_descale and the output by v_descale
+    (JAX flash_decode.py:289-308). With any of them q is read in bf16 (in
+    the cache's type over a 2-byte cache) and the output is bf16, as JAX's
+    (:434-435). softcap with q_descale or k_descale raises ValueError, as
+    JAX asserts (flash_decode.py:554-555); the MLA route and an fp8 q raise
+    NotImplementedError (ROADMAP.md queue A, item 7).
     """
     if block_table is not None and cache_batch_idx is not None:
         raise ValueError("Paged KVcache does not support cache_batch_idx")
     reject_unsupported(
         "flash_attn_with_kvcache", rotary_seqlens=rotary_seqlens,
-        cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad,
-        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
+        cache_batch_idx=cache_batch_idx, cache_leftpad=cache_leftpad)
+    descaled = any(x is not None for x in (q_descale, k_descale, v_descale))
+    if descaled:
+        if softcap > 0.0 and (q_descale is not None or k_descale is not None):
+            raise ValueError(
+                "flash_attn_with_kvcache: softcap with q_descale or "
+                "k_descale is unsupported, as the JAX package asserts "
+                "(\"softcap + FP8 descale unsupported\", "
+                "flash_attn_tpu/kernels/flash_decode.py:554-555)")
+        if is_mla_form(q.shape[-1], v_cache.shape[-1], qv is not None):
+            raise NotImplementedError(
+                "flash_attn_with_kvcache: descales on the MLA route (qv, or "
+                "dv != d) are not ported yet (ROADMAP.md queue A, item 7)")
+    if q.element_size() == 1:
+        raise NotImplementedError(
+            f"flash_attn_with_kvcache: a {q.dtype} q is not ported yet "
+            "(fp8 q/k/v are ROADMAP.md queue A, item 7)")
     window_size = normalize_window(tuple(window_size))
     require_no_grad("flash_attn_with_kvcache", q, k, v, qv)
     b, sq, h, d = q.shape
@@ -207,6 +245,14 @@ def flash_attn_with_kvcache(
         q = apply_rotary_emb(q, rotary_cos, rotary_sin,
                              interleaved=rotary_interleaved,
                              seqlen_offsets=cache_seqlens)
+    qk_descale = v_scale = None
+    if descaled:
+        # JAX reads q in bf16 under descales (flash_decode.py:171-172); over
+        # a 2-byte cache the kernel reads q in the cache's type
+        q = q.to(k_cache.dtype if k_cache.element_size() == 2
+                 else torch.bfloat16)
+        qk_descale, v_scale = combined_descales(
+            b, k_cache.shape[1], q_descale, k_descale, v_descale, q.device)
     if num_splits <= 0:
         num_splits = _default_num_splits(
             q, k_cache, v_cache, block_table, qv is not None,
@@ -215,7 +261,10 @@ def flash_attn_with_kvcache(
         q, k_cache, v_cache, sk_eff, softmax_scale=softmax_scale,
         causal=causal, num_splits=num_splits, block_table=block_table, qv=qv,
         window_size=window_size, attention_chunk=attention_chunk,
-        softcap=softcap, alibi_slopes=alibi_slopes)
+        softcap=softcap, alibi_slopes=alibi_slopes, qk_descale=qk_descale,
+        v_descale=v_scale)
+    if descaled:
+        out = out.to(torch.bfloat16)
     if overflow is not None:
         out = out.masked_fill(overflow[:, None, None, None], float("nan"))
     return (out, lse) if return_softmax_lse else out

@@ -15,7 +15,12 @@
 // seqused_q - left, and a block reads only the pages of its rows' band
 // (the list bounds of :408-417): pages wholly below the window are not
 // read. Rows past seqused_q, and rows that see no key, give out = 0 and
-// lse = -inf, as the TPU kernel's do.
+// lse = -inf, as the TPU kernel's do. Descales (flash_varlen_paged.py
+// :225-241, :276-277) are runtime fields: q_descale * k_descale of the
+// block's (sequence, KV head) multiplies its scale (and the cap's input
+// factor), v_descale its 1 / l; pages of 1-byte codes are converted first
+// by csrc/kv_dequant.cu (kernels/kv_dequant.py), over whose pool this
+// kernel runs as it is.
 //
 // What bounds it on this card: a chunk of sq query rows over sk keys does
 // 4 * sq * sk * d flops per head (about half that under the causal mask)
@@ -82,8 +87,10 @@ cudaError_t launch_band(const FwdMaps& maps, const VarlenPagedParams& p, int d, 
 // the tile the kernel is compiled for (dispatch/config.py FWD_TILE). The
 // window's extents left and right (-1: no bound; right 0 under causal
 // masking) are read when `band` is set; softcap > 0 selects the SCORE
-// instantiation, whose scores are capped (0: none). Returns a cudaError_t
-// (0 on success).
+// instantiation, whose scores are capped (0: none). qk_descale and
+// v_descale: (b, h_k) fp32, contiguous, or nullptr (ones): the scores of
+// sequence s and KV head kh are scaled by qk_descale[s, kh] (before the
+// cap) and its O by v_descale[s, kh]. Returns a cudaError_t (0 on success).
 extern "C" int fa_varlen_paged(
     const void* q, const void* kp, const void* vp, const int* cu_q,
     const int* lens_q, const int* lens_k, const int* table, const int* tile_ends,
@@ -92,7 +99,8 @@ extern "C" int fa_varlen_paged(
     int64_t q_st, int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_ss,
     int64_t v_sp, int64_t v_sh, int64_t v_ss, int64_t o_st, int64_t o_sh,
     int64_t t_sb, float scale_log2, int causal, int left, int right, int band,
-    float softcap, int is_bf16, void* stream) {
+    float softcap, const float* qk_descale, const float* v_descale, int is_bf16,
+    void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || h_k < 1 || h % h_k != 0 ||
       (causal && right != 0 && band) ||
       (d != 64 && d != 96 && d != 128 && d != 256) ||
@@ -125,6 +133,8 @@ extern "C" int fa_varlen_paged(
   p.band.left = left < 0 ? BAND_NONE : left;
   p.band.right = right < 0 ? BAND_NONE : right;
   p.score = score_from_args(scale_log2, softcap, causal);
+  p.qk_descale = qk_descale;
+  p.v_descale = v_descale;
   FwdMaps maps;
   cudaError_t err;
   if ((err = make_tile_map<3>(&maps.q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, FWD_M)) ||

@@ -26,6 +26,8 @@ struct VarlenPagedParams {
   int causal;
   Band band;  // the window (left, right), read by the BAND instantiations alone
   Score score;  // the cap, read by the SCORE instantiations alone (no ALiBi)
+  const float* qk_descale;  // (b, h_k) q_descale * k_descale, or nullptr (ones)
+  const float* v_descale;   // (b, h_k), or nullptr (ones)
 };
 
 // Q rows of one sequence from token q0 of the packed tensor at head hq; K/V
@@ -96,11 +98,23 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
   t.sq = p.lens_q[seq];
   t.sk = p.lens_k[seq];
   t.m0 = (p.tile_ends[seq] - 1 - i) * FWD_M;
+  // The descales of (sequence, KV head), runtime fields (JAX
+  // flash_varlen_paged.py:225-241, :276-277): q_descale * k_descale scales
+  // the scores, before the cap; v_descale scales O with 1 / l.
+  const int64_t dix = (int64_t)seq * (p.h / p.group) + hh / p.group;
+  float scale_log2 = p.scale_log2;
+  Score score = p.score;
+  if (p.qk_descale != nullptr) {
+    scale_log2 *= p.qk_descale[dix];
+    score.cap_in *= p.qk_descale[dix];
+  }
+  const float o_scale = p.v_descale == nullptr ? 1.f : p.v_descale[dix];
   if constexpr (SCORE)
-    fwd_tile<T, D, true, BAND, true>(src, t, p.scale_log2, p.causal, smem,
-                                     score_band<BAND>(p.band, p.causal), p.score);
+    fwd_tile<T, D, true, BAND, true>(src, t, scale_log2, p.causal, smem,
+                                     score_band<BAND>(p.band, p.causal), score, o_scale);
   else
-    fwd_tile<T, D, true, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
+    fwd_tile<T, D, true, BAND>(src, t, scale_log2, p.causal, smem, p.band, Score{},
+                               o_scale);
 }
 
 template <typename T, int D, bool BAND, bool SCORE>

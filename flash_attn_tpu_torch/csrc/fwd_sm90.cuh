@@ -357,10 +357,11 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
 // Normalise and write the rows of `t`: O in the input type goes through this
 // warpgroup's rows of the Q tile Qs (its last product has read them) and
 // out in 16-byte chunks of the head dim's D columns, rows past sq skipped;
-// the natural-log lse.
+// the natural-log lse. O is scaled by o_scale / l (o_scale: B8's v_descale,
+// else 1).
 template <typename T, int D>
 __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* Qs,
-                                             const FwdRows<T>& t) {
+                                             const FwdRows<T>& t, float o_scale = 1.f) {
   using L = FwdLayout<D>;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -374,7 +375,7 @@ __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* 
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + g + 8 * i;
     const float l = quad_sum(a.l_r[i]);
-    const float inv = l == 0.f ? 0.f : 1.f / l;
+    const float inv = l == 0.f ? 0.f : o_scale / l;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(ow + (j / 8) * L::QT::PANEL_BYTES +
@@ -402,14 +403,16 @@ __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* 
 // band's i + 1-th tile's loads as its i-th starts (its stage was freed at
 // i - 1). BAND: the key tiles of `band` (KeyRange), from the first tile that
 // holds a key some row sees; no tile at all (out 0, lse -inf) when no row
-// sees any. SCORE: the scores mapped by `score` (fwd_step).
+// sees any. SCORE: the scores mapped by `score` (fwd_step). o_scale: the
+// epilogue's.
 template <typename T, int D, bool ZERO_TAIL, bool BAND = false, bool SCORE = false,
           typename Src>
 __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
                                          float scale_log2, bool causal,
                                          unsigned char* smem,
                                          const Band& band = Band{},
-                                         const Score& score = Score{}) {
+                                         const Score& score = Score{},
+                                         float o_scale = 1.f) {
   using L = FwdLayout<D>;
   unsigned char* Qs = smem + L::Q_OFF;
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -444,7 +447,7 @@ __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
     fwd_step<T, D, ZERO_TAIL, BAND, SCORE>(a, Qs, stage(i), (n_lo + i) * FWD_N, t,
                                            scale_log2, causal, -1, band, score);
   }
-  fwd_epilogue<T, D>(a, Qs, t);
+  fwd_epilogue<T, D>(a, Qs, t, o_scale);
 }
 
 // The maps of one forward call.

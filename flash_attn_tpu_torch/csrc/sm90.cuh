@@ -425,17 +425,19 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// The tensor map of a RANK-dimensional operand of 2-byte elements whose
-// innermost dim (the head dim, `dims[0]` elements) is contiguous: `dims`
-// innermost first, `strides` the element strides of dims 1 .. RANK - 1.
-// Boxes of `cols` columns by `rows` indices of dim 1 by `rows2` of dim 2
-// (RANK >= 3) and one index of every outer dim, zero fill past each dim's
-// end; 64 columns with the 128-byte swizzle (the panel layout above), or,
-// with `swizzle` false, up to 256 columns stored row after row.
+// The tensor map of a RANK-dimensional operand of `type`, elements of
+// `elem_bytes`, whose innermost dim (the head dim, `dims[0]` elements) is
+// contiguous: `dims` innermost first, `strides` the element strides of dims
+// 1 .. RANK - 1. Boxes of `cols` columns by `rows` indices of dim 1 by
+// `rows2` of dim 2 (RANK >= 3) and one index of every outer dim, zero fill
+// past each dim's end; 64 columns of 2 bytes with the 128-byte swizzle (the
+// panel layout above), or, with `swizzle` false, up to 256 columns stored
+// row after row.
 template <int RANK>
-cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, bool bf16,
-                          const int64_t (&dims)[RANK], const int64_t (&strides)[RANK - 1],
-                          int rows, int rows2 = 1, int cols = 64, bool swizzle = true) {
+cudaError_t make_typed_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                           int elem_bytes, const int64_t (&dims)[RANK],
+                           const int64_t (&strides)[RANK - 1], int rows, int rows2 = 1,
+                           int cols = 64, bool swizzle = true) {
   auto encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[RANK], st[RANK - 1];
@@ -445,14 +447,24 @@ cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, bool bf16,
     box[i] = i == 0 ? (cuuint32_t)cols : i == 1 ? (cuuint32_t)rows : i == 2 ? (cuuint32_t)rows2 : 1;
     elem[i] = 1;
   }
-  for (int i = 0; i < RANK - 1; ++i) st[i] = (cuuint64_t)strides[i] * 2;
+  for (int i = 0; i < RANK - 1; ++i) st[i] = (cuuint64_t)strides[i] * elem_bytes;
   const CUresult r = encode(
-      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, RANK,
+      map, type, RANK,
       const_cast<void*>(ptr), d, st, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// make_typed_map for an operand of bf16 (else fp16) elements.
+template <int RANK>
+cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, bool bf16,
+                          const int64_t (&dims)[RANK], const int64_t (&strides)[RANK - 1],
+                          int rows, int rows2 = 1, int cols = 64, bool swizzle = true) {
+  return make_typed_map<RANK>(
+      map, ptr, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2,
+      dims, strides, rows, rows2, cols, swizzle);
 }
 
 }  // namespace sm90

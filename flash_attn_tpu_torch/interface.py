@@ -37,6 +37,7 @@ from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     normalize_window,
 )
+from flash_attn_tpu_torch.dispatch.kvquant import combined_descales
 from flash_attn_tpu_torch.dispatch.score import (
     alibi_bias,
     score_map,
@@ -335,12 +336,18 @@ def flash_attn_varlen_func(
     as the dense functions mask a batch row; forward and backward, the
     kernels' band instantiations). The varlen routes take no sink tokens,
     as in JAX. ``softcap`` caps the paged route's scores (B8's score
-    instantiation, forward only); the dense route takes softcap and
+    instantiation, forward only) and, with ``block_table`` and no ``qv``,
+    ``q_descale``, ``k_descale`` and ``v_descale`` ((batch, nheads_k) fp32,
+    a missing one counting as ones) over pages of q's type or of 1-byte
+    codes (float8_e4m3fn, int8): the scores are scaled by q_descale ·
+    k_descale before the cap and the output by v_descale, in q's type, as
+    JAX's B8 (flash_varlen_paged.py:225-241, :276-277); the dense route takes softcap and
     ``alibi_slopes`` ((nheads,) or (batch, nheads) fp32, each sequence its
     row) forward and backward (the kernels' score instantiations; ALiBi
     through B6's forward, as JAX routes it), the slopes' gradient zero. A
-    window or softcap with ``qv``, dropout, descales, and ``qv`` without
-    ``block_table``, raise NotImplementedError (ROADMAP.md queue A, item
+    window, softcap or descales with ``qv``, dropout, descales on the dense
+    route, an fp8 q, and ``qv`` without ``block_table``, raise
+    NotImplementedError (ROADMAP.md queue A, item
     7). JAX's paged route drops ``attention_chunk`` and ``alibi_slopes``
     without a word (flash_attn_tpu/interface.py:447-456); here both raise
     (ROADMAP.md queue C)."""
@@ -359,8 +366,17 @@ def flash_attn_varlen_func(
         softcap=softcap if qv is not None else 0.0,
         attention_chunk=attention_chunk if block_table is not None else 0,
         learnable_sink=learnable_sink, dropout_rng=dropout_rng,
-        qv=qv if block_table is None else None,
-        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
+        qv=qv if block_table is None else None)
+    descaled = any(x is not None for x in (q_descale, k_descale, v_descale))
+    if descaled and (block_table is None or qv is not None):
+        raise NotImplementedError(
+            "flash_attn_varlen_func: descales are ported on the paged route "
+            "without qv (B8) alone; the dense route's and B8p's are not "
+            "ported yet (ROADMAP.md queue A, item 7)")
+    if q.element_size() == 1:
+        raise NotImplementedError(
+            f"flash_attn_varlen_func: a {q.dtype} q is not ported yet (fp8 "
+            "q/k/v are ROADMAP.md queue A, item 7)")
     if block_table is not None:
         if scheduler_metadata is not None:
             raise NotImplementedError(
@@ -375,10 +391,14 @@ def flash_attn_varlen_func(
                 block_table, seqused_q=seqused_q, qv=qv,
                 softmax_scale=softmax_scale, causal=causal)
             return (out, lse) if return_attn_probs else out
+        qk_descale, v_scale = combined_descales(
+            cu_seqlens_q.shape[0] - 1, k.shape[1], q_descale, k_descale,
+            v_descale, q.device)
         out, lse = flash_attention_varlen_paged_fwd(
             q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k, block_table,
             seqused_q=seqused_q, softmax_scale=softmax_scale, causal=causal,
-            window_size=window_size, softcap=softcap)
+            window_size=window_size, softcap=softcap, qk_descale=qk_descale,
+            v_descale=v_scale)
         return (out, lse) if return_attn_probs else out
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])

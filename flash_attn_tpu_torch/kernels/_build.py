@@ -31,11 +31,12 @@ SIGNATURES = {
     "fa_fwd": [_P] * 5 + [_I] * 8 + [_L] * 12 + [_F] + [_I] * 6
               + [_F, _P, _L, _I, _P],
     "fa_decode": [_P] * 7 + [_I] * 12 + [_L] * 10 + [_F] + [_I] * 4
-                 + [_F, _P, _L, _I, _P],
+                 + [_F, _P, _L, _I, _P, _P, _I, _P],
     "fa_decode_mla": [_P] * 8 + [_I] * 13 + [_L] * 13 + [_F, _I, _I, _P],
     "fa_paged_prefill": [_P] * 10 + [_I] * 11 + [_L] * 15 + [_F, _I, _I, _P],
     "fa_varlen_paged": [_P] * 10 + [_I] * 11 + [_L] * 11 + [_F] + [_I] * 4
-                       + [_F, _I, _P],
+                       + [_F, _P, _P, _I, _P],
+    "fa_kv_dequant": [_P] * 6 + [_I] * 7 + [_L] * 7 + [_I, _P],
     "fa_bwd_preprocess": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_I, _P],
     "fa_bwd_dkdv": [_P] * 9 + [_I] * 9 + [_L] * 18 + [_F] + [_I] * 6
                    + [_F, _P, _L, _I, _P],
@@ -148,15 +149,17 @@ def check(err: int, name: str) -> None:
 
 
 def check_operand(kernel: str, name: str, x, dtype, device) -> None:
-    """What the C entry points assume of a tensor: q's device and type, a
-    contiguous last dim, other strides in multiples of 8 elements and a
-    16-byte aligned start (the kernels move 16-byte chunks)."""
+    """What the C entry points assume of a tensor: the device and type
+    given (q's, or a cache's own), a contiguous last dim, other strides in
+    multiples of 16 bytes (8 elements of 2 bytes) and a 16-byte aligned
+    start (the kernels move 16-byte chunks)."""
     if x.device != device or x.dtype != dtype:
         raise ValueError(f"{kernel}: {name} is {x.dtype} on {x.device}, "
-                         f"q is {dtype} on {device}")
-    if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:-1]) \
+                         f"want {dtype} on {device}")
+    per = max(1, 16 // x.element_size())
+    if x.stride(-1) != 1 or any(st % per for st in x.stride()[:-1]) \
             or x.data_ptr() % 16:
         raise ValueError(
             f"{kernel}: {name} needs a contiguous last dim, strides that are "
-            f"multiples of 8 and a 16-byte aligned start; got strides "
+            f"multiples of {per} and a 16-byte aligned start; got strides "
             f"{x.stride()}")

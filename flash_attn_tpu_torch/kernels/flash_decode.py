@@ -14,8 +14,14 @@ JAX's, which reads and masks them. ``softcap`` and ``alibi_slopes``
 band is; causal ALiBi's bias is relative to each batch row's own cache
 length, so the split partials' lse all take JAX's form and
 ``combine_splits`` merges them as they are. The MLA route refuses a band,
-a cap and slopes. The caches keep the JAX
-layouts: linear (b_c, h_k, s_max, d), paged (num_pages, h_k, page_size, d)
+a cap and slopes. The d = dv route also reads caches of 1-byte
+codes (float8_e4m3fn, int8; dispatch/kvquant.py) with q in bf16, converting
+each staged row on the card (B11's role, flash_attn_tpu/kernels/
+fp8_cast.py:28, here Hopper's native e4m3 -> f16x2 conversion, exact for
+every finite code), and (b, h_k) descales over any cache: q_descale ·
+k_descale scales the scores and v_descale each split's partial out (JAX
+:186, :248-249, :307-308); the MLA route refuses both. The caches keep the
+JAX layouts: linear (b_c, h_k, s_max, d), paged (num_pages, h_k, page_size, d)
 with a (b, max_pages) int32 block table, V the same with dv; a paged row's
 capacity is max_pages * page_size positions. Each split writes an fp32
 partial (out, lse) for the sq * group query rows of one KV head (the GQA
@@ -48,6 +54,11 @@ from flash_attn_tpu_torch.dispatch.config import (
     is_mla_form,
     num_sms,
 )
+from flash_attn_tpu_torch.dispatch.kvquant import (
+    KV_CODES,
+    check_cache_dtype,
+    is_quantized,
+)
 from flash_attn_tpu_torch.dispatch.score import (
     alibi_bias,
     has_score,
@@ -61,10 +72,13 @@ from flash_attn_tpu_torch.utils.testing import paged_to_linear
 LOG2E = math.log2(math.e)
 
 # Kernel launches since the last reset (plain calls not counted): the d = dv
-# route over a linear and over a paged cache, those of them with a band and
-# those with softcap or ALiBi, and the MLA route over either.
+# route over a linear and over a paged cache, those of them with a band,
+# those with softcap or ALiBi and those over a cache of 1-byte codes, and
+# the MLA route over either.
 launches = 0
 launches_paged = 0
+launches_kv8 = 0
+launches_paged_kv8 = 0
 launches_band = 0
 launches_paged_band = 0
 launches_score = 0
@@ -121,10 +135,14 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
                                           window_size=(None, None),
                                           attention_chunk: int = 0,
                                           softcap: float = 0.0,
-                                          alibi_slopes=None):
+                                          alibi_slopes=None,
+                                          qk_descale=None, v_descale=None):
     """fp32 matmul, score map (dispatch/score.py: the cap, then ALiBi's
     bias with each batch row's cache length as sk), mask and softmax per
-    split; scores q k^T (+ qv v^T).
+    split; scores q k^T (+ qv v^T). The caches are read exactly in fp32 (a
+    1-byte cache's codes too); ``qk_descale`` and ``v_descale`` ((b, h_k)
+    fp32) scale the scores before the map and each split's out, as JAX's
+    kernel does (flash_decode.py:248-249, :307-308).
     Returns (out_p (num_splits, b, h_k, sq * group, dv), lse_p (num_splits,
     b, h_k, sq * group))."""
     b, sq, h, d = q.shape
@@ -137,6 +155,8 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
     if qv is not None:
         s = s + torch.matmul(_pack_rows(qv, h_k), vf.transpose(-1, -2))
     s = s * softmax_scale
+    if qk_descale is not None:
+        s = s * qk_descale.float()[:, :, None, None]
     sk = cache_seqlens.long().clamp(max=s_max)  # the kernel cuts at capacity
     pos = torch.arange(s_max, device=q.device)
     tok = torch.arange(rows, device=q.device) // group
@@ -161,7 +181,9 @@ def flash_attention_decode_partials_plain(q, k_cache, v_cache, cache_seqlens,
         ss = s.masked_fill(~m[:, None], float("-inf"))
         lse = torch.logsumexp(ss, dim=-1)
         p = torch.exp(ss - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
-        outs.append(torch.matmul(p, vf))
+        o = torch.matmul(p, vf)
+        outs.append(o if v_descale is None
+                    else o * v_descale.float()[:, :, None, None])
         lses.append(lse)
     return torch.stack(outs), torch.stack(lses)
 
@@ -170,7 +192,8 @@ def flash_attention_decode_paged_partials_plain(
         q, k_pages, v_pages, cache_seqlens, block_table, num_splits: int,
         block_k: int, softmax_scale: float, causal: bool, qv=None,
         window_size=(None, None), attention_chunk: int = 0,
-        softcap: float = 0.0, alibi_slopes=None):
+        softcap: float = 0.0, alibi_slopes=None, qk_descale=None,
+        v_descale=None):
     """The paged cache's plain version: gather the pages into the linear
     layout, then :func:`flash_attention_decode_partials_plain`."""
     cap = cache_capacity(k_pages, block_table)
@@ -180,7 +203,8 @@ def flash_attention_decode_paged_partials_plain(
         paged_to_linear(v_pages, block_table, lengths), cache_seqlens,
         num_splits, block_k, softmax_scale, causal, qv=qv,
         window_size=window_size, attention_chunk=attention_chunk,
-        softcap=softcap, alibi_slopes=alibi_slopes)
+        softcap=softcap, alibi_slopes=alibi_slopes, qk_descale=qk_descale,
+        v_descale=v_descale)
 
 
 def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
@@ -188,7 +212,8 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
                                     causal: bool, block_table=None, qv=None,
                                     window_size=(None, None),
                                     attention_chunk: int = 0,
-                                    softcap: float = 0.0, alibi_slopes=None):
+                                    softcap: float = 0.0, alibi_slopes=None,
+                                    qk_descale=None, v_descale=None):
     """Split partials of decode attention; see
     :func:`flash_attention_decode_partials_plain` for the shapes.
     ``cache_seqlens`` (b,) int32 are the cache lengths after any append;
@@ -198,12 +223,21 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     by TMA (a linear cache as b_c pages of s_max rows) and shares each split
     among a cluster of decode_cluster's blocks: a view whose strides are not
     multiples of 16 bytes, or whose start is not 16-byte aligned, raises
-    ValueError."""
+    ValueError. The d = dv route on the card reads a cache of q's type, or
+    of 1-byte codes (float8_e4m3fn, int8) with a bf16 q; ``qk_descale``
+    and ``v_descale`` (b, h_k) fp32 (None: ones) scale the scores and each
+    split's out; the MLA route refuses them."""
     paged = block_table is not None
+    descaled = qk_descale is not None or v_descale is not None
     masks = dict(window_size=window_size, attention_chunk=attention_chunk,
-                 softcap=softcap, alibi_slopes=alibi_slopes)
-    if has_score(softcap, alibi_slopes) and is_mla_form(
-            q.shape[-1], v_cache.shape[-1], qv is not None):
+                 softcap=softcap, alibi_slopes=alibi_slopes,
+                 qk_descale=qk_descale, v_descale=v_descale)
+    mla = is_mla_form(q.shape[-1], v_cache.shape[-1], qv is not None)
+    if (descaled or is_quantized(k_cache.dtype)) and mla:
+        raise NotImplementedError(
+            "flash_decode: descales or a 1-byte cache on the MLA route (qv, "
+            "or dv != d) are not ported yet (ROADMAP.md queue A, item 7)")
+    if has_score(softcap, alibi_slopes) and mla:
         raise NotImplementedError(
             "flash_decode: softcap or ALiBi on the MLA route (qv, or dv != "
             "d) is not ported yet (ROADMAP.md queue A, item 7)")
@@ -221,6 +255,12 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     b_c, h_k, s_max, dk = k_cache.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_decode kernel: dtype {q.dtype} (bf16/fp16)")
+    check_cache_dtype("flash_decode kernel", k_cache.dtype, q.dtype)
+    kv8 = is_quantized(k_cache.dtype)
+    if kv8 and (q.dtype != torch.bfloat16 or v_cache.dtype != k_cache.dtype):
+        raise ValueError(
+            f"flash_decode kernel: a {k_cache.dtype} cache needs a bf16 q and "
+            f"a V cache of its type; got q {q.dtype}, v {v_cache.dtype}")
     if ((not paged and b > b_c) or h % h_k or b * h_k > 2**31 - 1
             or num_splits > 65535 or dk != d
             or v_cache.shape[:-1] != k_cache.shape[:-1]):
@@ -237,7 +277,7 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
     if not cache_seqlens.is_contiguous() or cache_seqlens.dim() != 1:
         raise ValueError("flash_decode kernel: cache_seqlens must be a "
                          "contiguous (b,) tensor")
-    if is_mla_form(d, v_cache.shape[-1], qv is not None):
+    if mla:
         if has_band(causal, window_size, attention_chunk):
             raise NotImplementedError(
                 "flash_decode kernel: a window or attention_chunk on the MLA "
@@ -246,8 +286,14 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
                              softmax_scale, causal, block_table, qv)
     check_head_dims("flash_decode (the d = dv route)", d, dk,
                     v_cache.shape[-1], HEAD_DIMS)
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        _build.check_operand("flash_decode", name, x, q.dtype, q.device)
+    _build.check_operand("flash_decode", "q", q, q.dtype, q.device)
+    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _build.check_operand("flash_decode", name, x, k_cache.dtype, q.device)
+    for name, x in (("qk_descale", qk_descale), ("v_descale", v_descale)):
+        if x is not None and (x.device != q.device or x.dtype != torch.float32
+                              or x.shape != (b, h_k) or not x.is_contiguous()):
+            raise ValueError(f"flash_decode kernel: {name} must be a "
+                             f"contiguous (b, h_k) fp32 tensor on q's device")
     rows = sq * (h // h_k)
     out_p = torch.empty((num_splits, b, h_k, rows, d), dtype=torch.float32,
                         device=q.device)
@@ -274,21 +320,27 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
             softmax_scale * LOG2E, int(causal),
             *band_args(causal, window_size, 0, attention_chunk)[:2],
             attention_chunk, float(softcap), slope_ptr, slope_sb,
+            KV_CODES.get(k_cache.dtype, 0),
+            qk_descale.data_ptr() if qk_descale is not None else None,
+            v_descale.data_ptr() if v_descale is not None else None,
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_decode")
     global launches, launches_paged, launches_band, launches_paged_band
-    global launches_score, launches_paged_score
+    global launches_score, launches_paged_score, launches_kv8
+    global launches_paged_kv8
     band = has_band(causal, window_size, attention_chunk)
     score = has_score(softcap, alibi_slopes)
     if paged:
         launches_paged += 1
         launches_paged_band += band
         launches_paged_score += score
+        launches_paged_kv8 += kv8
     else:
         launches += 1
         launches_band += band
         launches_score += score
+        launches_kv8 += kv8
     return out_p, lse_p
 
 
@@ -371,15 +423,17 @@ def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
                            block_table=None, qv=None,
                            window_size=(None, None),
                            attention_chunk: int = 0, softcap: float = 0.0,
-                           alibi_slopes=None):
+                           alibi_slopes=None, qk_descale=None,
+                           v_descale=None):
     """q (b, sq, h, d); caches (b_c, h_k, s_max, d) and (b_c, h_k, s_max,
     dv), or pages (num_pages, h_k, page_size, d / dv) with ``block_table``
     (b, max_pages) int32; cache_seqlens (b,) int32 cache lengths after any
     append; ``qv`` (b, sq, h, dv) adds qv v^T to the scores;
     ``window_size`` (left, right) with None for no bound,
     ``attention_chunk``, ``softcap`` and ``alibi_slopes`` ((h,) or (b, h))
-    as in the JAX function. Returns (out (b, sq, h, dv) in q's type, lse
-    (b, h, sq) fp32)."""
+    as in the JAX function; ``qk_descale`` (q_descale · k_descale) and
+    ``v_descale``, (b, h_k) fp32 or None. Returns (out (b, sq, h, dv) in
+    q's type, lse (b, h, sq) fp32)."""
     b, sq, h, d = q.shape
     h_k = k_cache.shape[1]
     group = h // h_k
@@ -392,7 +446,7 @@ def flash_attention_decode(q, k_cache, v_cache, cache_seqlens,
         block_table=block_table, qv=qv,
         window_size=reach_window(window_size, causal, sq, cap),
         attention_chunk=attention_chunk, softcap=softcap,
-        alibi_slopes=alibi_slopes)
+        alibi_slopes=alibi_slopes, qk_descale=qk_descale, v_descale=v_descale)
     if num_splits == 1:
         out, lse = out_p[0], lse_p[0]
     else:

@@ -3,9 +3,15 @@
 
 Port of flash_attn_tpu/kernels/flash_varlen_paged.py
 ``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in HEAD_DIMS,
-with its sliding window, :249-254, and its softcap, :225-233; no descales,
-learnable sink or ``qv``: the JAX kernel has no chunk, sink tokens or
-ALiBi either). A call with a window launches the kernel's band
+with its sliding window, :249-254, its softcap, :225-233, and its
+descales, :230-241, :276-277, over pages of q's type or of 1-byte codes;
+no learnable sink or ``qv``: the JAX kernel has no chunk, sink tokens or
+ALiBi either). The descales ((b, h_k) fp32) are runtime fields of the
+kernel: q_descale · k_descale scales each block's scores (before the cap,
+as JAX's :225-233) and v_descale its 1 / l. Pages of 1-byte codes
+(float8_e4m3fn, int8) are first converted, the pages each row reaches
+alone, into a pool of q's type by ``kernels/kv_dequant.py`` (B11's
+conversion), over which B8 runs as it is. A call with a window launches the kernel's band
 instantiation, whose blocks read only the pages of their rows' window; one
 with a cap its score instantiation (with or without the window). Query chunks are
 packed along one token axis by ``cu_seqlens_q``; ``seqused_q`` gives each
@@ -37,21 +43,28 @@ from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
     check_head_dims,
 )
+from flash_attn_tpu_torch.dispatch.kvquant import (
+    check_cache_dtype,
+    is_quantized,
+)
 from flash_attn_tpu_torch.dispatch.score import score_map
 from flash_attn_tpu_torch.dispatch.varlen_meta import (
     num_tiles_bound,
     sequence_lengths,
 )
 from flash_attn_tpu_torch.kernels import _build
+from flash_attn_tpu_torch.kernels.kv_dequant import dequant_pages
 from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
 LOG2E = math.log2(math.e)
 
 # Kernel launches since the last reset (plain calls not counted): all of
-# them, and those of the band and of the score instantiations among them.
+# them, those of the band and of the score instantiations among them, and
+# those with descales.
 launches = 0
 launches_band = 0
 launches_score = 0
+launches_descale = 0
 
 
 def tile_ends(lens_q, block_q: int):
@@ -71,11 +84,14 @@ def _lengths(cu_seqlens_q, seqused_q):
 def flash_attention_varlen_paged_fwd_plain(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
-        causal: bool = False, window_size=(None, None), softcap: float = 0.0):
-    """Gather the pages into the linear layout, pad the packed queries per
-    sequence, and compute capped (``softcap``), masked attention in fp32. Returns out (total_q, h,
-    dv) in q's type and lse (h, total_q) fp32, with zeros and -inf for the
-    rows that see no key."""
+        causal: bool = False, window_size=(None, None), softcap: float = 0.0,
+        qk_descale=None, v_descale=None):
+    """Gather the pages into the linear layout (1-byte codes read exactly),
+    pad the packed queries per sequence, and compute capped (``softcap``),
+    masked attention in fp32, the scores scaled by ``qk_descale`` before the
+    cap and the output by ``v_descale`` ((b, h_k) fp32). Returns out
+    (total_q, h, dv) in q's type and lse (h, total_q) fp32, with zeros and
+    -inf for the rows that see no key."""
     total_q, h, d = q.shape
     h_k = k_pages.shape[1]
     group = h // h_k
@@ -93,8 +109,10 @@ def flash_attention_varlen_paged_fwd_plain(
     qd = q.float()[rows] if total_q else q.float().new_zeros(
         rows.shape + (h, d))
     qd = qd.reshape(-1, max_seqlen_q, h_k, group, d).permute(0, 2, 3, 1, 4)
-    s = score_map(torch.einsum("bkgmd,bksd->bkgms", qd, k_lin) * scale,
-                  softcap)
+    s = torch.einsum("bkgmd,bksd->bkgms", qd, k_lin) * scale
+    if qk_descale is not None:
+        s = s * qk_descale.to(dev).float()[:, :, None, None, None]
+    s = score_map(s, softcap)
     pos_k = torch.arange(k_lin.shape[2], device=dev)
     valid = (pos_q[None, :, None] < lens_q[:, None, None]) \
         & (pos_k[None, None, :] < lens_k[:, None, None])
@@ -105,8 +123,10 @@ def flash_attention_varlen_paged_fwd_plain(
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
     lse = torch.logsumexp(s, dim=-1)                        # (b, h_k, g, M)
     p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
-    out = torch.einsum("bkgms,bksd->bmkgd", p, v_lin).reshape(
-        -1, max_seqlen_q, h, v_pages.shape[-1])
+    out = torch.einsum("bkgms,bksd->bmkgd", p, v_lin)
+    if v_descale is not None:
+        out = out * v_descale.to(dev).float()[:, None, :, None, None]
+    out = out.reshape(-1, max_seqlen_q, h, v_pages.shape[-1])
     lse = lse.reshape(-1, h, max_seqlen_q)
     # back to the packed layout: token t is row t - cu[s] of its sequence s
     tok = torch.arange(total_q, device=dev)
@@ -123,18 +143,21 @@ def flash_attention_varlen_paged_fwd_plain(
 def flash_attention_varlen_paged_fwd(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
-        causal: bool = False, window_size=(None, None), softcap: float = 0.0):
+        causal: bool = False, window_size=(None, None), softcap: float = 0.0,
+        qk_descale=None, v_descale=None):
     """q (total_q, h, d) packed by cu_seqlens_q (b + 1,); pages (num_pages,
-    h_k, page_size, d); seqlens_k (b,) key counts including the chunk;
-    block_table (b, max_pages); seqused_q (b,) true query lengths or None.
-    ``max_seqlen_q`` bounds cu_seqlens_q's deltas; ``window_size`` (left,
-    right) with None for no bound; ``softcap`` (0: none). Returns (out
-    (total_q, h, d) in q's type, lse (h, total_q) fp32)."""
+    h_k, page_size, d) of q's type or of 1-byte codes; seqlens_k (b,) key
+    counts including the chunk; block_table (b, max_pages); seqused_q (b,)
+    true query lengths or None. ``max_seqlen_q`` bounds cu_seqlens_q's
+    deltas; ``window_size`` (left, right) with None for no bound;
+    ``softcap`` (0: none); ``qk_descale`` (q_descale · k_descale) and
+    ``v_descale`` (b, h_k) fp32 or None. Returns (out (total_q, h, d) in
+    q's type, lse (h, total_q) fp32)."""
     if q.device.type == "cpu":
         return flash_attention_varlen_paged_fwd_plain(
             q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q, seqlens_k,
             block_table, seqused_q, softmax_scale, causal, window_size,
-            softcap)
+            softcap, qk_descale, v_descale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_varlen_paged: unsupported device {q.device}")
     total_q, h, d = q.shape
@@ -145,13 +168,21 @@ def flash_attention_varlen_paged_fwd(
                          "(bf16/fp16 only)")
     check_head_dims("flash_varlen_paged", d, dk, v_pages.shape[-1],
                     HEAD_DIMS)
+    check_cache_dtype("flash_varlen_paged kernel", k_pages.dtype, q.dtype)
+    for name, x in (("qk_descale", qk_descale), ("v_descale", v_descale)):
+        if x is not None and (x.device != q.device or x.dtype != torch.float32
+                              or x.shape != (b, h_k) or not x.is_contiguous()):
+            raise ValueError(f"flash_varlen_paged kernel: {name} must be a "
+                             "contiguous (b, h_k) fp32 tensor on q's device")
     if h % h_k or block_table.shape[0] != b or b < 1 \
             or v_pages.shape != k_pages.shape:
         raise ValueError(f"flash_varlen_paged kernel: shapes q {tuple(q.shape)}"
                          f", pages {tuple(k_pages.shape)}, table "
                          f"{tuple(block_table.shape)}, {b} sequences")
-    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        _build.check_operand("flash_varlen_paged", name, x, q.dtype, q.device)
+    _build.check_operand("flash_varlen_paged", "q", q, q.dtype, q.device)
+    for name, x in (("k_pages", k_pages), ("v_pages", v_pages)):
+        _build.check_operand("flash_varlen_paged", name, x, k_pages.dtype,
+                             q.device)
 
     def as_int32(x):
         return x.to(q.device, torch.int32).contiguous()
@@ -159,6 +190,11 @@ def flash_attention_varlen_paged_fwd(
     cu = as_int32(cu_seqlens_q)
     lens_q, lens_k, table = (as_int32(x) for x in (
         sequence_lengths(cu, seqused_q), seqlens_k, block_table))
+    if is_quantized(k_pages.dtype):
+        # B11's conversion: the pages each row reaches, into q's type
+        k_pages, v_pages, table = dequant_pages(k_pages, v_pages, table,
+                                                lens_k, q.dtype)
+        num_pages = k_pages.shape[0]
     tile = FWD_TILE
     # rows past seqused_q are in no tile: they keep out's zeros and lse's -inf
     ends = tile_ends(lens_q, tile.block_q)
@@ -184,11 +220,15 @@ def flash_attention_varlen_paged_fwd(
             v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
             out.stride(0), out.stride(1), table.stride(0),
             scale * LOG2E, int(causal), *band_args(causal, window)[:2],
-            int(band), float(softcap), int(q.dtype == torch.bfloat16),
+            int(band), float(softcap),
+            qk_descale.data_ptr() if qk_descale is not None else None,
+            v_descale.data_ptr() if v_descale is not None else None,
+            int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_varlen_paged")
-    global launches, launches_band, launches_score
+    global launches, launches_band, launches_score, launches_descale
     launches += 1
     launches_band += band
     launches_score += softcap > 0.0
+    launches_descale += qk_descale is not None or v_descale is not None
     return out, lse

@@ -106,8 +106,6 @@ def gpt_913m(max_decode_seqlen: int = 0, dtype=torch.bfloat16) -> GPTConfig:
 
 def _check_ported(cfg: GPTConfig) -> None:
     missing = {
-        "kv_cache_dtype (quantized caches, ROADMAP.md queue A item 7)":
-            cfg.kv_cache_dtype is not None,
         "context_parallel (queue A item 8)": cfg.context_parallel,
         "sequence_parallel (queue A item 8)": cfg.sequence_parallel,
     }
@@ -170,7 +168,8 @@ def _make_mixer(cfg: GPTConfig, device):
         paged_kv_num_pages=cfg.paged_kv_num_pages,
         paged_kv_page_size=cfg.paged_kv_page_size,
         window_size=cfg.window_size, softcap=cfg.softcap,
-        use_alibi=cfg.use_alibi, dtype=cfg.dtype, device=device)
+        use_alibi=cfg.use_alibi, kv_cache_dtype=cfg.kv_cache_dtype,
+        kv_cache_scale=cfg.kv_cache_scale, dtype=cfg.dtype, device=device)
 
 
 def _make_block(cfg: GPTConfig, device):

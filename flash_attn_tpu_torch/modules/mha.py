@@ -44,6 +44,20 @@ module raises too (the paged route refuses the slopes it is passed): JAX's
 drops the slopes there (mha.py:372-386), so its suffix would attend without
 positions (ROADMAP.md queue C).
 
+``kv_cache_dtype`` and ``kv_cache_scale`` (JAX mha.py:96-102) keep K/V
+in the cache as x / kv_cache_scale in a 1-byte type (float8_e4m3fn or int8
+on the card; any type on the CPU), stored through the saturating
+``dispatch/kvquant.py quantize_kv``, and attend with (b, h_k) descales of
+kv_cache_scale, as JAX's :242-291, :328-355 and :379-428 do: decode
+through ``flash_attn_with_kvcache(k_descale=, v_descale=)`` (B4 reading the
+codes), the prefix-cached admission through the paged
+``flash_attn_varlen_func`` with descales (B8 over the converted pages), and
+the full prefill through B1 over the unquantized K/V before the store. The
+descales are made once per cache (``KVCache.descale``); a call reads a
+view of their first rows, so a captured decode program sees fixed
+addresses. The attention output is cast back to the module's type before
+``out_proj`` (under descales it is bf16, as JAX's).
+
 The cache lives in a :class:`KVCache` the caller passes in (the JAX
 module's flax "cache" collection), in the JAX layouts: linear (n_slots,
 h_k, s_alloc, d) with s_alloc = max_decode_seqlen rounded up to a multiple
@@ -66,6 +80,7 @@ from flash_attn_tpu_torch.cache.kvcache import (
     kv_cache_update,
 )
 from flash_attn_tpu_torch.dispatch.config import HEAD_DIMS
+from flash_attn_tpu_torch.dispatch.kvquant import check_cache_dtype
 from flash_attn_tpu_torch.interface import (
     flash_attn_func,
     flash_attn_varlen_func,
@@ -92,14 +107,16 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
 @dataclasses.dataclass
 class KVCache:
     """One layer's decode state: the caches (linear or paged), the
-    lengths (n_slots,) int32 of every slot and, for a module with dwconv,
-    the last two pre-conv qkv rows of every slot (n_slots, 2, qkv_dim).
-    Filled by a prefill, or allocated up front by
+    lengths (n_slots,) int32 of every slot, for a module with dwconv the
+    last two pre-conv qkv rows of every slot (n_slots, 2, qkv_dim) and, for
+    a quantized cache, the descales (n_slots, h_k) fp32 (kv_cache_scale
+    throughout). Filled by a prefill, or allocated up front by
     :meth:`MHA.allocate_cache`; prefill and decode update them in place."""
     k: Optional[torch.Tensor] = None
     v: Optional[torch.Tensor] = None
     offset: Optional[torch.Tensor] = None
     dwconv_state: Optional[torch.Tensor] = None
+    descale: Optional[torch.Tensor] = None
 
 
 class RotaryEmbedding:
@@ -170,9 +187,20 @@ class MHA(nn.Module):
                  paged_kv_page_size: int = 128,
                  window_size: Tuple[int, int] = (-1, -1),
                  softcap: float = 0.0, use_alibi: bool = False,
+                 kv_cache_dtype=None, kv_cache_scale: float = 1.0,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
         device = resolve_device(device)
+        if kv_cache_dtype is not None and softcap > 0.0:
+            raise ValueError(
+                "MHA: softcap with a quantized KV cache (kv_cache_dtype) "
+                "fails at the first decode step in the JAX package, whose "
+                "decode kernel asserts \"softcap + FP8 descale unsupported\" "
+                "(flash_attn_tpu/kernels/flash_decode.py:554-555)")
+        if kv_cache_dtype is not None and device.type == "cuda":
+            check_cache_dtype("MHA", kv_cache_dtype, dtype)
+        self.kv_cache_dtype = kv_cache_dtype
+        self.kv_cache_scale = kv_cache_scale
         self.num_heads = num_heads
         self.num_heads_kv = num_heads_kv or num_heads
         self.head_dim = head_dim or embed_dim // num_heads
@@ -217,9 +245,12 @@ class MHA(nn.Module):
                        device=None) -> KVCache:
         """A zeroed cache for ``n_slots`` sequences: pages (num_pages, h_k,
         page_size, d) for a paged module, else (n_slots, h_k, s_alloc, d);
-        the offsets (n_slots,) int32. Type and device default to the
-        module's weights'."""
+        the offsets (n_slots,) int32; the descales (n_slots, h_k) of a
+        quantized cache. The caches' type defaults to kv_cache_dtype, else
+        the weights' (the dwconv state's to the weights'), the device to
+        the weights'."""
         w = self.out_proj.weight
+        cache_dtype = dtype or self.kv_cache_dtype or w.dtype
         dtype, device = dtype or w.dtype, device or w.device
         h_k, d = self.num_heads_kv, self.head_dim
         if self.paged:
@@ -231,10 +262,14 @@ class MHA(nn.Module):
         if self.dwconv:
             dw = torch.zeros((n_slots, 2, self.Wqkv.out_features),
                              dtype=dtype, device=device)
-        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device),
+        descale = None
+        if self.kv_cache_dtype is not None:
+            descale = torch.full((n_slots, h_k), self.kv_cache_scale,
+                                 dtype=torch.float32, device=device)
+        return KVCache(torch.zeros(shape, dtype=cache_dtype, device=device),
+                       torch.zeros(shape, dtype=cache_dtype, device=device),
                        torch.zeros((n_slots,), dtype=torch.int32,
-                                   device=device), dw)
+                                   device=device), dw, descale)
 
     def _conv(self, x):
         """The width-3 causal depthwise conv over rows already padded by
@@ -314,10 +349,10 @@ class MHA(nn.Module):
             if cache.k is None:
                 n_slots = (block_table.shape[0]
                            if self.paged and block_table is not None else b)
-                fresh = self.allocate_cache(n_slots, self.Wqkv.weight.dtype,
-                                            dev)
+                fresh = self.allocate_cache(n_slots, device=dev)
                 cache.k, cache.v, cache.offset = fresh.k, fresh.v, fresh.offset
                 cache.dwconv_state = fresh.dwconv_state
+                cache.descale = fresh.descale
             lengths = (torch.full((b,), s, dtype=torch.int32, device=dev)
                        if prefill_lengths is None
                        else prefill_lengths.to(dev, torch.int32))
@@ -329,20 +364,28 @@ class MHA(nn.Module):
         k = k.unflatten(-1, (h_k, d))
         v = v.unflatten(-1, (h_k, d))
         rope = self.rotary
+        quant = self.kv_cache_dtype is not None
+        # per (query-batch row, KV head), as JAX's _descales (mha.py:245-249)
+        descale = cache.descale[:b] if quant and cache is not None else None
         if mode == "decode":
             cos = sin = None
             if rope is not None:
                 cos, sin = rope.cos_sin(self.max_decode_seqlen, dev)
+            # store x / scale: the rotation is linear, so dividing first
+            # commutes with the call's rotary on the appended keys
+            k_st, v_st = self._to_store(k, v)
             ctx = flash_attn_with_kvcache(
-                q, cache.k, cache.v, k=k, v=v, rotary_cos=cos,
+                q, cache.k, cache.v, k=k_st, v=v_st, rotary_cos=cos,
                 rotary_sin=sin,
                 rotary_interleaved=rope is not None and rope.interleaved,
                 cache_seqlens=cache.offset, causal=self.causal,
                 window_size=self.window_size,
                 softmax_scale=self.softmax_scale,
-                block_table=self._table_rows(block_table, None), **score)
+                block_table=self._table_rows(block_table, None),
+                k_descale=descale, v_descale=descale, **score)
             cache.offset += s
-            return self.out_proj(ctx.reshape(b, s, h * d))
+            return self.out_proj(ctx.reshape(b, s, h * d).to(
+                self.out_proj.weight.dtype))
 
         if prefill and prefix_lengths is not None:
             # prefix-cached chunked prefill: the suffix is written at offset
@@ -358,8 +401,8 @@ class MHA(nn.Module):
                 k = apply_rotary_emb(k, cos, sin, rope.interleaved,
                                      seqlen_offsets=pref)
             table = self._table_rows(block_table, slot_ids)
-            kv_cache_update(cache.k, cache.v, k, v, pref, block_table=table,
-                            new_lengths=lengths)
+            kv_cache_update(cache.k, cache.v, *self._to_store(k, v), pref,
+                            block_table=table, new_lengths=lengths)
             total_k = pref + lengths
             self._set_offsets(cache, slot_ids, total_k)
             # the padded-flat layout: row i's queries at [i * s, i * s + s),
@@ -370,8 +413,10 @@ class MHA(nn.Module):
                 self.max_decode_seqlen, causal=self.causal,
                 window_size=self.window_size,
                 softmax_scale=self.softmax_scale, block_table=table,
-                seqused_k=total_k, seqused_q=lengths, **score)
-            return self.out_proj(ctx.reshape(b, s, h * d))
+                seqused_k=total_k, seqused_q=lengths, k_descale=descale,
+                v_descale=descale, **score)
+            return self.out_proj(ctx.reshape(b, s, h * d).to(
+                self.out_proj.weight.dtype))
 
         if rope is not None:
             cos, sin = rope.cos_sin(
@@ -383,6 +428,7 @@ class MHA(nn.Module):
                               softmax_scale=self.softmax_scale, **score)
         if prefill:
             zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
+            k, v = self._to_store(k, v)
             if self.paged:
                 # padded rows must not write past their pages
                 kv_cache_update(cache.k, cache.v, k, v, zeros,
@@ -394,6 +440,13 @@ class MHA(nn.Module):
                                 cache_batch_idx=slot_ids)
             self._set_offsets(cache, slot_ids, lengths)
         return self.out_proj(ctx.reshape(b, s, h * d))
+
+    def _to_store(self, k, v):
+        """K and V as a quantized cache stores them: x / kv_cache_scale in
+        the module's type (then the store's cast), as JAX's mha.py:278-282."""
+        if self.kv_cache_dtype is None or self.kv_cache_scale == 1.0:
+            return k, v
+        return k / self.kv_cache_scale, v / self.kv_cache_scale
 
     def _forward_packed(self, x, cu_seqlens, max_seqlen: int):
         """The packed path of JAX mha.py:207-229."""

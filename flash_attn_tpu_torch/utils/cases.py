@@ -210,3 +210,75 @@ def score_slopes(kind, b: int, h: int, device=None):
     if kind == "1d":
         return s
     return s[None] * (1 + torch.arange(b, device=device)[:, None] / b)
+
+
+# Quantized KV caches on the card (dispatch/kvquant.py): B4's d = dv route
+# over 1-byte caches with per-(row, KV head) descales, every head dim, both
+# codes, linear, paged and the verify step (sq = 5), one window and one
+# ALiBi case; the first three are the 913M's static decode step, engine
+# decode step and verify step with an fp8 cache, timed. (name, b, sq, h,
+# h_k, d, page (0: linear), keys, cache dtype, window, slopes (None,
+# "1d", "2d"), num_splits (0: flash_attn_with_kvcache's choice)); keys is
+# each row's cache length after the append.
+KVQUANT_DECODE_CASES = [
+    ("913M decode step, fp8", 8, 1, 16, 16, 128, 0, 543,
+     torch.float8_e4m3fn, (-1, -1), None, 0),
+    ("913M engine decode step, fp8", 64, 1, 16, 16, 128, 256, 543,
+     torch.float8_e4m3fn, (-1, -1), None, 0),
+    ("913M engine verify step, fp8", 64, 5, 16, 16, 128, 256, 520,
+     torch.float8_e4m3fn, (-1, -1), None, 0),
+    *((f"{kind}, {form}, d={d}, {dname}", 4, sq, 16, 4, d, page, 700, dt,
+       (-1, -1), None, 0)
+      for d in (64, 96, 128, 256)
+      for dname, dt in (("fp8", torch.float8_e4m3fn), ("int8", torch.int8))
+      for kind, form, page, sq in (("GQA 16/4", "linear", 0, 1),
+                                   ("GQA 16/4", "pages of 64", 64, 1),
+                                   ("GQA 16/4", "verify step", 64, 5))),
+    ("window, fp8, 3 splits", 4, 1, 32, 8, 128, 0, 3000,
+     torch.float8_e4m3fn, (511, 0), None, 3),
+    ("alibi, int8, pages of 16, verify step", 4, 5, 16, 4, 128, 16, 900,
+     torch.int8, (-1, -1), "2d", 0),
+]
+# B8 with descales: the 913M's prefix-cached admission over an fp8 cache
+# (timed), each head dim over 1-byte pages, one window and one softcap
+# case, and descales over a bf16 cache. (case of VARLEN_CASES' form with
+# the cache dtype last, window, softcap)
+KVQUANT_VARLEN_CASES = [
+    (("prefix admission, fp8", [256] * 8, [512] * 8, None, 16, 16, 128, 256,
+      torch.bfloat16, True, torch.float8_e4m3fn), (-1, -1), 0.0),
+    *(((f"ragged, GQA 16/4, d={d}, {dname}", [300, 17, 128, 64],
+        [812, 17, 400, 264], None, 16, 4, d, 64, torch.bfloat16, True, dt),
+       (-1, -1), 0.0)
+      for d in (64, 96, 128, 256)
+      for dname, dt in (("fp8", torch.float8_e4m3fn), ("int8", torch.int8))),
+    (("window, fp8, seqused_q", [128] * 4, [384, 77, 0, 517],
+      [128, 77, 0, 5], 16, 4, 128, 256, torch.bfloat16, True,
+      torch.float8_e4m3fn), (100, 0), 0.0),
+    (("softcap, int8", [256, 256], [600, 256], None, 16, 4, 128, 64,
+      torch.bfloat16, True, torch.int8), (-1, -1), 30.0),
+    (("descales over a bf16 cache", [200, 56], [300, 256], None, 8, 8, 64,
+      64, torch.bfloat16, False, torch.bfloat16), (-1, -1), 0.0),
+]
+
+
+def kv_descales(b: int, h_k: int, device=None):
+    """Distinct per-(row, KV head) descales (q, k, v), each in [0.5, 1.5)
+    and none equal to 1: a (b, h_k) fp32 grid of three seeded rows."""
+    g = torch.Generator().manual_seed(b * 1000 + h_k)
+    out = []
+    for _ in range(3):
+        x = 0.5 + torch.rand(b, h_k, generator=g)
+        out.append(torch.where(x == 1.0, x + 0.25, x).to(device))
+    return tuple(out)
+
+
+def kv_codes(x, dtype):
+    """x (fp32, of about unit scale) as cache codes of ``dtype`` and the
+    value one code step stands for (multiply the descale to pass by it):
+    float8_e4m3fn holds x (unit 1), int8 round(32 x) clamped to [-127,
+    127] (unit 1 / 32), another type x cast."""
+    if dtype == torch.int8:
+        return torch.round(x * 32.0).clamp_(-127, 127).to(dtype), 1.0 / 32
+    if dtype == torch.float8_e4m3fn:
+        return x.clamp(-448.0, 448.0).to(dtype), 1.0
+    return x.to(dtype), 1.0

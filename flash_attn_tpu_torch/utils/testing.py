@@ -240,12 +240,17 @@ def paged_to_linear(k_pages, block_table, lengths):
     """Gather a paged cache (num_pages, h_k, page_size, d) through its block
     table (b, max_pages) into the linear layout (b, h_k, max_pages *
     page_size, d), zero at positions >= lengths (b,). Table entries out of
-    range read the nearest page, as the kernels clamp them."""
+    range read the nearest page, as the kernels clamp them. Pages of 1-byte
+    codes (a quantized cache) come back as their values in fp32."""
     num_pages, h_k, page_size, d = k_pages.shape
     b, width = block_table.shape
     table = block_table.to(k_pages.device, torch.long).clamp(0, num_pages - 1)
-    lin = k_pages[table].permute(0, 2, 1, 3, 4).reshape(
-        b, h_k, width * page_size, d)
+    if k_pages.element_size() == 1:
+        # gathered as bytes (float8 has no indexing kernel everywhere)
+        lin = k_pages.view(torch.uint8)[table].view(k_pages.dtype).float()
+    else:
+        lin = k_pages[table]
+    lin = lin.permute(0, 2, 1, 3, 4).reshape(b, h_k, width * page_size, d)
     pos = torch.arange(width * page_size, device=k_pages.device)
     keep = pos[None, :] < lengths.to(k_pages.device, torch.long)[:, None]
     return lin * keep[:, None, :, None].to(lin.dtype)

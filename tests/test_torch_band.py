@@ -25,9 +25,6 @@ from flash_attn_tpu.interface import flash_attn_func as jax_flash_attn_func
 from flash_attn_tpu.kernels.flash_fwd import (
     flash_attention_fwd as jax_flash_attention_fwd,
 )
-from flash_attn_tpu.interface import (
-    flash_attn_varlen_func as jax_flash_attn_varlen_func,
-)
 from flash_attn_tpu.utils import testing as jax_testing
 from flash_attn_tpu_torch import (
     flash_attn_func,
@@ -42,6 +39,8 @@ from flash_attn_tpu_torch.kernels.flash_decode import (
 )
 from flash_attn_tpu_torch.utils import testing
 from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+from jax_paged_refs import jax_kvcache_paged, jax_varlen_paged
 
 torch.set_num_threads(1)
 
@@ -177,10 +176,17 @@ def test_flash_attn_with_kvcache_band_matches_jax(case, paged):
     table = dict(block_table=TABLE) if paged else {}
     band = dict(causal=causal, window_size=window, attention_chunk=chunk,
                 num_splits=splits, return_softmax_lse=True)
-    out_j, kc_j, vc_j, lse_j = jax_flash_attn_with_kvcache(
-        *(jnp.asarray(x) for x in (q, kc, vc)), k=jnp.asarray(k_new),
-        v=jnp.asarray(v_new), cache_seqlens=jnp.asarray(seqlens), **band,
-        **{n: jnp.asarray(x) for n, x in table.items()})
+    if paged:  # JAX's paged decode at a KV tile of one page
+        jband = dict(band)
+        del jband["num_splits"], jband["return_softmax_lse"]
+        out_j, kc_j, vc_j, lse_j = jax_kvcache_paged(
+            *(jnp.asarray(x) for x in (q, kc, vc)), jnp.asarray(seqlens),
+            jnp.asarray(TABLE), splits, k=jnp.asarray(k_new),
+            v=jnp.asarray(v_new), **jband)
+    else:
+        out_j, kc_j, vc_j, lse_j = jax_flash_attn_with_kvcache(
+            *(jnp.asarray(x) for x in (q, kc, vc)), k=jnp.asarray(k_new),
+            v=jnp.asarray(v_new), cache_seqlens=jnp.asarray(seqlens), **band)
     kc_t, vc_t = _t(kc), _t(vc)
     out_t, lse_t = flash_attn_with_kvcache(
         _t(q), kc_t, vc_t, k=_t(k_new), v=_t(v_new),
@@ -238,11 +244,10 @@ def test_flash_attn_varlen_paged_window_matches_jax():
     kp, vp = _rand(rng, 12, 2, PAGE, 64), _rand(rng, 12, 2, PAGE, 64)
     lens_k, used = np.array(lens_k, np.int32), np.array(used, np.int32)
     for causal, window in ((True, (10, 0)), (False, (6, 3))):
-        out_j, lse_j = jax_flash_attn_varlen_func(
-            *(jnp.asarray(x) for x in (q, kp, vp)), jnp.asarray(cu), None,
-            max(lens_q), 96, causal=causal, window_size=window,
-            block_table=jnp.asarray(TABLE), seqused_k=jnp.asarray(lens_k),
-            seqused_q=jnp.asarray(used), return_attn_probs=True)
+        out_j, lse_j = jax_varlen_paged(
+            *(jnp.asarray(x) for x in (q, kp, vp)), jnp.asarray(cu),
+            max(lens_q), jnp.asarray(lens_k), jnp.asarray(TABLE),
+            seqused_q=jnp.asarray(used), causal=causal, window_size=window)
         out_t, lse_t = flash_attn_varlen_func(
             _t(q), _t(kp), _t(vp), _t(cu), None, max(lens_q), 96,
             causal=causal, window_size=window, block_table=_t(TABLE),

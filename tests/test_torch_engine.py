@@ -25,7 +25,18 @@ from flash_attn_tpu_torch.models.gpt import (
 from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
 from flash_attn_tpu_torch.serving.generation import GenerationConfig
 
+from jax_paged_refs import one_page_tiles
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_paged_kernels_at_one_page_tiles():
+    """JAX's paged kernels run at a KV tile of one page wherever its package
+    calls them (tests/jax_paged_refs.py): the same functions, lowered
+    faster."""
+    with one_page_tiles():
+        yield
 
 FIELDS = dict(vocab_size=96, n_positions=0, n_embd=64, n_layer=2, n_head=4,
               rotary_emb_fraction=1.0, use_rms_norm=True, glu_act=True,

@@ -35,7 +35,18 @@ from flash_attn_tpu_torch.kernels.flash_paged_prefill import (
 )
 from flash_attn_tpu_torch.utils.testing import attention_varlen_paged_ref
 
+from jax_paged_refs import jax_varlen_paged, one_page_tiles
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_paged_kernels_at_one_page_tiles():
+    """JAX's paged kernels run at a KV tile of one page wherever its package
+    calls them (tests/jax_paged_refs.py): the same functions, lowered
+    faster."""
+    with one_page_tiles():
+        yield
 
 # fp32 on both sides: the two differ only in summation order (and JAX
 # rounds q * scale * log2(e) once before its product).
@@ -120,10 +131,15 @@ def test_varlen_paged_qv_matches_both_jax_routes(d):
     q = _rand(rng, int(cu[-1]), h, d)
     qv = _rand(rng, int(cu[-1]), h, dv)
     kp, vp = _rand(rng, 10, h_k, page, d), _rand(rng, 10, h_k, page, dv)
-    out_j, lse_j = jax_varlen_func(
-        _j(q), _j(kp), _j(vp), _j(cu), None, max(lens_q), 48, causal=True,
-        block_table=_j(table), seqused_k=_j(lens_k), seqused_q=_j(used),
-        qv=_j(qv), return_attn_probs=True)
+    if d % 128 == 0:  # JAX's B8 route, over q || qv
+        out_j, lse_j = jax_varlen_paged(
+            _j(q), _j(kp), _j(vp), _j(cu), max(lens_q), _j(lens_k),
+            _j(table), seqused_q=_j(used), qv=_j(qv), causal=True)
+    else:
+        out_j, lse_j = jax_varlen_func(
+            _j(q), _j(kp), _j(vp), _j(cu), None, max(lens_q), 48,
+            causal=True, block_table=_j(table), seqused_k=_j(lens_k),
+            seqused_q=_j(used), qv=_j(qv), return_attn_probs=True)
     out_t, lse_t = flash_attn_varlen_func(
         _t(q), _t(kp), _t(vp), _t(cu), None, max(lens_q), 48, causal=True,
         block_table=_t(table), seqused_k=_t(lens_k),
@@ -252,44 +268,69 @@ DECODE_PARTIAL_FORMS = {
 }
 
 
+@pytest.fixture(scope="module")
+def mla_decode_refs():
+    """Per form of DECODE_PARTIAL_FORMS, made once for the module: seeded
+    inputs and JAX's flash_attention_decode over them (one split, a KV tile
+    of one page over a paged cache; JAX's merged result depends on
+    neither), so that every split count of the port is held to one JAX
+    compile."""
+    from flash_attn_tpu.kernels.flash_decode import (
+        flash_attention_decode as jax_decode,
+    )
+
+    refs = {}
+
+    def get(form):
+        if form in refs:
+            return refs[form]
+        f = DECODE_PARTIAL_FORMS[form]
+        d, dv = f["d"], f["dv"]
+        rng = np.random.default_rng(len(form))
+        b, sq, h, h_k = 2, 2, 4, 1
+        seqlens = np.array([1, 581], np.int32)
+        q = _rand(rng, b, sq, h, d)
+        qv = _rand(rng, b, sq, h, dv) if f["qv"] else None
+        if f["page"]:
+            width = -(-600 // f["page"])
+            table = rng.permutation(b * width).reshape(b, width).astype(
+                np.int32)
+            kc = _rand(rng, b * width, h_k, f["page"], d)
+            vc = _rand(rng, b * width, h_k, f["page"], dv)
+        else:
+            table = None
+            kc = _rand(rng, b, h_k, 600, d)
+            vc = None
+        scale = 1.0 / math.sqrt(d + dv if f["qv"] else d)
+        kc_j = jnp.asarray(kc)
+        vc_j = kc_j[..., :dv] if vc is None else jnp.asarray(vc)
+        out_j, lse_j = jax_decode(
+            _j(q), kc_j, vc_j, _j(seqlens), block_table=_j(table),
+            qv=_j(qv), softmax_scale=scale, causal=True, num_splits=1,
+            block_k=f["page"] or None, interpret=True)
+        refs[form] = (q, qv, kc, vc, table, seqlens, scale, out_j, lse_j)
+        return refs[form]
+    return get
+
+
 @pytest.mark.parametrize("splits", [1, 3, 8])
 @pytest.mark.parametrize("form", list(DECODE_PARTIAL_FORMS))
-def test_mla_decode_partials_combine_to_jax(form, splits):
+def test_mla_decode_partials_combine_to_jax(form, splits, mla_decode_refs):
     """The contract the MLA decode kernel keeps: the plain split partials
     (out_p (splits, b, h_k, sq * group, dv), lse_p), cut in runs of 64-key
     tiles, merged by combine_splits, equal JAX's flash_attention_decode at
     sq = 2, causal, with a row of length 1 (so that, at 3 and 8 splits,
-    splits are empty: zeros and lse -inf)."""
-    from flash_attn_tpu.kernels.flash_decode import (
-        flash_attention_decode as jax_decode,
-    )
+    splits are empty: zeros and lse -inf). The inputs and JAX's result are
+    the module's (mla_decode_refs), one per form."""
     from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
     from flash_attn_tpu_torch.kernels import flash_decode
 
     f = DECODE_PARTIAL_FORMS[form]
-    d, dv = f["d"], f["dv"]
-    rng = np.random.default_rng(splits)
+    dv = f["dv"]
     b, sq, h, h_k = 2, 2, 4, 1
-    seqlens = np.array([1, 581], np.int32)
-    q = _rand(rng, b, sq, h, d)
-    qv = _rand(rng, b, sq, h, dv) if f["qv"] else None
-    if f["page"]:
-        width = -(-600 // f["page"])
-        table = rng.permutation(b * width).reshape(b, width).astype(np.int32)
-        kc = _rand(rng, b * width, h_k, f["page"], d)
-        vc = _rand(rng, b * width, h_k, f["page"], dv)
-    else:
-        table = None
-        kc = _rand(rng, b, h_k, 600, d)
-        vc = None
-    scale = 1.0 / math.sqrt(d + dv if f["qv"] else d)
+    q, qv, kc, vc, table, seqlens, scale, out_j, lse_j = mla_decode_refs(form)
     kc_t = _t(kc)
     vc_t = kc_t[..., :dv] if vc is None else _t(vc)
-    kc_j = jnp.asarray(kc)
-    vc_j = kc_j[..., :dv] if vc is None else jnp.asarray(vc)
-    out_j, lse_j = jax_decode(
-        _j(q), kc_j, vc_j, _j(seqlens), block_table=_j(table), qv=_j(qv),
-        softmax_scale=scale, causal=True, num_splits=splits, interpret=True)
     args = (_t(q), kc_t, vc_t, _t(seqlens))
     if table is None:
         out_p, lse_p = flash_decode.flash_attention_decode_partials_plain(

@@ -23,12 +23,16 @@ from flash_attn_tpu_torch.utils.cases import (
     BAND_DECODE_CASES,
     BAND_FWD_CASES,
     BAND_VARLEN_CASE,
+    KVQUANT_DECODE_CASES,
+    KVQUANT_VARLEN_CASES,
     MISTRAL_WINDOW,
     SCORE_BWD_CASES,
     SCORE_DECODE_CASES,
     SCORE_FWD_CASES,
     SCORE_VARLEN_CASES,
     VARLEN_CASES,
+    kv_codes,
+    kv_descales,
     score_slopes,
 )
 
@@ -85,7 +89,9 @@ def test_flash_attn_func_rejects_unported_options(kwargs):
     dict(rotary_seqlens=torch.zeros(1, dtype=torch.int32)),
     dict(cache_batch_idx=torch.zeros(1, dtype=torch.int32)),
     dict(cache_leftpad=torch.zeros(1, dtype=torch.int32)),
-    dict(k_descale=torch.ones(1, 2))])
+    # descales run on the d = dv route; on the MLA route (qv) they are
+    # still item 7
+    dict(k_descale=torch.ones(1, 2), qv=torch.randn(1, 1, 2, 64))])
 def test_flash_attn_with_kvcache_rejects_unported_options(kwargs):
     q = torch.randn(1, 1, 2, 64)
     cache = torch.zeros(1, 2, 128, 64)
@@ -124,12 +130,20 @@ def test_dropout_refusals_point_at_queue_a_7():
 
 
 def test_unported_model_options_raise():
-    """Quantized caches are still unported (ALiBi and softcap serve:
-    tests/test_torch_alibi_models.py)."""
-    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
-        GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1,
-                                 kv_cache_dtype=torch.float8_e4m3fn),
-                       device="cpu")
+    """The parallel options are still unported (queue A item 8); quantized
+    caches build (tests/test_torch_kvquant.py), but not beside softcap,
+    whose first decode step JAX's kernel refuses; ALiBi and softcap serve
+    (tests/test_torch_alibi_models.py)."""
+    for opt in ("context_parallel", "sequence_parallel"):
+        with pytest.raises(NotImplementedError, match=f"{opt}.*item 8"):
+            GPTLMHeadModel(GPTConfig(n_positions=0, n_layer=1, **{opt: True}),
+                           device="cpu")
+    small = dict(vocab_size=64, n_positions=0, n_embd=32, n_layer=1,
+                 n_head=2, kv_cache_dtype=torch.float8_e4m3fn)
+    model = GPTLMHeadModel(GPTConfig(**small), device="cpu")
+    assert model.allocate_cache(2)[0].k.dtype == torch.float8_e4m3fn
+    with pytest.raises(ValueError, match="softcap"):
+        GPTLMHeadModel(GPTConfig(softcap=30.0, **small), device="cpu")
 
 
 def test_entry_points_default_to_the_card():
@@ -256,14 +270,17 @@ def test_dense_backward_sources_use_wgmma_and_tma(source):
 
 
 def test_decode_source_copies_tiles_by_bulk_copies_under_mbarriers():
-    """The d = dv decode route (csrc/flash_decode.cu with its headers) moves
-    its K/V tiles by cp.async.bulk into shared memory, each stage completed
-    by an mbarrier (expect_tx, then a wait on its phase), not by loads of
-    its threads."""
-    text = _included_sources(PKG / "csrc" / "flash_decode.cu")
-    assert "cp.async.bulk" in text
-    assert "mbarrier.arrive.expect_tx" in text and "mbarrier.try_wait" in text
-    own = (PKG / "csrc" / "flash_decode.cu").read_text()
+    """The d = dv decode route (csrc/flash_decode.cu and flash_decode_kv8.cu
+    with their headers) moves its K/V tiles by cp.async.bulk into shared
+    memory, each stage completed by an mbarrier (expect_tx, then a wait on
+    its phase), not by loads of its threads; the kernel itself is
+    csrc/flash_decode.cuh, which both sources instantiate."""
+    for src in ("flash_decode.cu", "flash_decode_kv8.cu"):
+        text = _included_sources(PKG / "csrc" / src)
+        assert "cp.async.bulk" in text
+        assert "mbarrier.arrive.expect_tx" in text
+        assert "mbarrier.try_wait" in text
+    own = (PKG / "csrc" / "flash_decode.cuh").read_text()
     assert "tma_load_4d(" in own and "mbar_wait(" in own
     assert "__ldg(" not in own
 
@@ -3185,3 +3202,231 @@ def test_score_varlen_ragged_matches_plain_version_on_the_card(cap, kind,
     for name, got, r, l_ in zip("qkv", grads, g32, glp):
         check_against_ref(got.cpu(), r, l_, atol=1e-4,
                           msg=f"B6 score backward d{name} {cap} {kind}")
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", KVQUANT_DECODE_CASES, ids=lambda c: c[0])
+def test_kvquant_decode_kernel_matches_plain_version_on_the_card(case):
+    """B4 over a 1-byte cache with distinct (b, h_k) descales on every
+    KVQUANT_DECODE_CASES case: the split partials against the plain
+    version's on the CPU over the same codes (both fp32; out and lse
+    within 1e-3), the same bits twice, counted as the 1-byte cache's
+    launches."""
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.kernels import flash_decode
+
+    name, b, sq, h, h_k, d, page, keys, dt, window, slopes, splits = case
+    window = tuple(None if x < 0 else x for x in window)
+    gen = torch.Generator(device="cuda").manual_seed(keys + sq + d)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).bfloat16()
+    if page:
+        width = -(-keys // page)
+        x = torch.randn(2, b * width + 1, h_k, page, d, device="cuda",
+                        generator=gen)
+        table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+                 ).reshape(b, width).int()
+    else:
+        x = torch.randn(2, b, h_k, -(-keys // 128) * 128, d, device="cuda",
+                        generator=gen)
+        table = None
+    (kc, vc), unit = kv_codes(x, dt)
+    lens = (keys - (37 * torch.arange(b, device="cuda"))
+            % max(1, min(keys - sq, 64))).int()
+    qd, kd, vd = kv_descales(b, h_k, "cuda")
+    kw = dict(qk_descale=(qd * kd * unit).contiguous(),
+              v_descale=(vd * unit).contiguous(), window_size=window,
+              alibi_slopes=score_slopes(slopes, b, h, "cuda"))
+    splits = splits or _default_num_splits(q, kc, vc, table, False)
+    counter = "launches_paged_kv8" if page else "launches_kv8"
+    before = getattr(flash_decode, counter)
+    args = (q, kc, vc, lens, splits, d ** -0.5, True)
+    out_p, lse_p = flash_decode.flash_attention_decode_partials(
+        *args, block_table=table, **kw)
+    again = flash_decode.flash_attention_decode_partials(
+        *args, block_table=table, **kw)
+    torch.cuda.synchronize()
+    assert getattr(flash_decode, counter) == before + 2
+    assert torch.equal(out_p, again[0]) and torch.equal(lse_p, again[1])
+    cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()}
+    ref_p, ref_lse_p = flash_decode.flash_attention_decode_partials(
+        q.float().cpu(), kc.cpu(), vc.cpu(), lens.cpu(), splits, d ** -0.5,
+        True, block_table=None if table is None else table.cpu(), **cpu)
+    empty = torch.isneginf(ref_lse_p)
+    assert torch.equal(torch.isneginf(lse_p.cpu()), empty)
+    torch.testing.assert_close(lse_p.cpu()[~empty], ref_lse_p[~empty],
+                               atol=1e-3, rtol=0)
+    torch.testing.assert_close(out_p.cpu(), ref_p, atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", KVQUANT_VARLEN_CASES, ids=lambda c: c[0][0])
+def test_kvquant_varlen_paged_matches_plain_version_on_the_card(case):
+    """B8 with descales on every KVQUANT_VARLEN_CASES case, over 1-byte
+    pages (through kv_dequant's conversion, whose pool equals the plain
+    conversion bitwise on every page a row reaches) or a bf16 cache: out
+    within 2e-2 and lse within 1e-3 of the plain version's, the same bits
+    twice, counted as the descales' launches (and the conversion's)."""
+    from flash_attn_tpu_torch.dispatch.kvquant import is_quantized
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.kernels import kv_dequant
+
+    (name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal, cdt), \
+        window, cap = case
+    window = tuple(None if x < 0 else x for x in window)
+    b = len(lens_q)
+    gen = torch.Generator(device="cuda").manual_seed(sum(lens_k) + d)
+    cu = torch.tensor([0] + list(itertools.accumulate(lens_q)),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    width = -(-max(max(lens_k), 1) // page)
+    x = torch.randn(2, b * width + 1, h_k, page, d, device="cuda",
+                    generator=gen)
+    (kp, vp), unit = kv_codes(x, cdt)
+    table = (1 + torch.randperm(b * width, device="cuda", generator=gen)
+             ).reshape(b, width).int()
+    lens = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    qd, kd, vd = kv_descales(b, h_k, "cuda")
+    kw = dict(seqused_q=None if used is None else torch.tensor(
+        used, dtype=torch.int32, device="cuda"), causal=causal,
+        window_size=window, softcap=cap,
+        qk_descale=(qd * kd * unit).contiguous(),
+        v_descale=(vd * unit).contiguous())
+    args = (cu, max(max(lens_q), 1), lens, table)
+    before = fvp.launches_descale, kv_dequant.launches
+    out, lse = fvp.flash_attention_varlen_paged_fwd(q, kp, vp, *args, **kw)
+    again = fvp.flash_attention_varlen_paged_fwd(q, kp, vp, *args, **kw)
+    torch.cuda.synchronize()
+    quant = is_quantized(cdt)
+    assert fvp.launches_descale == before[0] + 2
+    assert kv_dequant.launches == before[1] + 2 * quant
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+        q.float(), kp, vp, *args, **kw)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)
+    fin = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], ref_lse[fin], atol=1e-3, rtol=0)
+    if quant:
+        pools = kv_dequant.dequant_pages(kp, vp, table, lens, dtype)
+        plain = kv_dequant.dequant_pages_plain(kp, vp, table, lens, dtype)
+        reached = kv_dequant.pages_reached(lens, page, width).reshape(-1)
+        for got, want in zip(pools[:2], plain[:2]):
+            assert torch.equal(got[reached].view(torch.int16),
+                               want[reached].view(torch.int16))
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("dt", [torch.float8_e4m3fn, torch.int8],
+                         ids=["e4m3", "int8"])
+def test_kv_conversion_is_exact_on_the_card(dt):
+    """B11's conversion: one key at d = 256 whose V row holds every code
+    (e4m3's two NaN codes left out) gives, through B4's fp32 partial and
+    through B8's bf16 out, each code's value times v_descale 0.5 exactly."""
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+
+    c = torch.arange(256, dtype=torch.int32, device="cuda").to(torch.uint8)
+    keep = torch.ones(256, dtype=torch.bool, device="cuda")
+    if dt == torch.float8_e4m3fn:
+        keep = (c != 0x7F) & (c != 0xFF)
+    c = torch.where(keep, c, torch.zeros_like(c))
+    want = c.view(dt).float() * 0.5 + 0.0
+    vs = torch.full((1, 1), 0.5, device="cuda")
+    q = torch.randn(1, 1, 1, 256, device="cuda").bfloat16()
+    kc = torch.zeros(1, 1, 128, 256, dtype=torch.uint8, device="cuda")
+    vc = kc.clone()
+    vc[0, 0, 0] = c
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    out_p, _ = flash_decode.flash_attention_decode_partials(
+        q, kc.view(dt), vc.view(dt), one, 1, 1 / 16, True, v_descale=vs)
+    assert torch.equal(out_p[0, 0, 0, 0].view(torch.int32),
+                       want.view(torch.int32))
+    kp = torch.zeros(2, 1, 16, 256, dtype=torch.uint8, device="cuda")
+    vp = kp.clone()
+    vp[1, 0, 0] = c
+    out, _ = fvp.flash_attention_varlen_paged_fwd(
+        q[0], kp.view(dt), vp.view(dt), torch.tensor(
+            [0, 1], dtype=torch.int32, device="cuda"), 1, one,
+        one[:, None], causal=True, v_descale=vs)
+    assert torch.equal(out[0, 0].view(torch.int16),
+                       want.bfloat16().view(torch.int16))
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_quantized_cache_refusals_on_the_card():
+    """On the card the kernels read a cache of q's type or of 1-byte codes
+    with a bf16 q: other cache types raise naming queue A item 7, in MHA
+    and in flash_attn_with_kvcache."""
+    from flash_attn_tpu_torch.modules.mha import MHA
+
+    with pytest.raises(NotImplementedError, match="item 7"):
+        MHA(128, 2, kv_cache_dtype=torch.float8_e5m2, device="cuda")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        MHA(128, 2, kv_cache_dtype=torch.float16, device="cuda")
+    q = torch.randn(1, 1, 2, 64, device="cuda").bfloat16()
+    for dt in (torch.float8_e5m2, torch.float16):
+        kc = torch.zeros(1, 2, 128, 64, device="cuda").to(dt)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            flash_attn_with_kvcache(q, kc, kc.clone(), cache_seqlens=1)
+    kc = torch.zeros(1, 2, 128, 64, device="cuda").to(torch.float8_e4m3fn)
+    from flash_attn_tpu_torch.kernels import flash_decode
+
+    with pytest.raises(ValueError, match="bf16 q"):
+        flash_decode.flash_attention_decode(
+            q.half(), kc, kc.clone(), one_len(), num_splits=1)
+
+
+def one_len():
+    return torch.ones(1, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("dt", [torch.float8_e4m3fn, torch.int8],
+                         ids=["e4m3", "int8"])
+def test_quantized_cache_model_graphed_equals_eager_on_the_card(dt):
+    """A small GPT over a 1-byte cache (kv_cache_scale 2): graphed decode
+    gives the eager tokens and logits, every decode launch over the 1-byte
+    cache, and the prefix-cached engine admits through B8 with descales
+    after the conversion."""
+    from flash_attn_tpu_torch.kernels import flash_decode, kv_dequant
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
+    from flash_attn_tpu_torch.serving.generation import (
+        GenerationConfig,
+        decode,
+    )
+
+    cfg = GPTConfig(vocab_size=512, n_positions=0, n_embd=256, n_layer=2,
+                    n_head=4, n_head_kv=2, rotary_emb_fraction=1.0,
+                    use_rms_norm=True, glu_act=True, max_decode_seqlen=192,
+                    kv_cache_dtype=dt, kv_cache_scale=2.0)
+    model = GPTLMHeadModel(cfg, device="cuda")
+    model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(False)
+    ids = torch.randint(0, 512, (3, 40), device="cuda")
+    gc = GenerationConfig(max_length=60)
+    before = flash_decode.launches_kv8
+    seqs, _, scores = decode(ids, model, gc, output_scores=True, cg=True)
+    eager, _, eager_scores = decode(ids, model, gc, output_scores=True,
+                                    cg=False)
+    torch.cuda.synchronize()
+    assert torch.equal(seqs, eager) and torch.equal(scores, eager_scores)
+    assert flash_decode.launches_kv8 - before == 2 * 2 * 19
+    import dataclasses
+
+    paged = GPTLMHeadModel(dataclasses.replace(
+        cfg, paged_kv_num_pages=13, paged_kv_page_size=64), device="cuda")
+    paged.load_state_dict(model.state_dict())
+    paged.requires_grad_(False)
+    eng = InferenceEngine(paged, 2, GenerationConfig(top_k=1),
+                          page_pool=PagePool(13, 64, 3, 2),
+                          prefix_cache=True)
+    before = fvp.launches_descale, kv_dequant.launches
+    shared = list(range(64))
+    for tail in (list(range(100, 110)), list(range(200, 220))):
+        eng.submit(shared + tail, max_new_tokens=8)
+    out = eng.run()
+    eng.close()
+    assert all(len(t) == 8 for t in out.values())
+    assert fvp.launches_descale > before[0]
+    assert kv_dequant.launches - before[1] == fvp.launches_descale - before[0]

@@ -13,11 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from flash_attn_tpu.cache.kvcache import (
-    flash_attn_with_kvcache as jax_flash_attn_with_kvcache,
-)
 from flash_attn_tpu.cache.kvcache import kv_cache_update as jax_kv_cache_update
-from flash_attn_tpu.interface import flash_attn_varlen_func as jax_varlen_func
 from flash_attn_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from flash_attn_tpu.models.gpt import GPTLMHeadModel as JaxGPTLMHeadModel
 from flash_attn_tpu.modules.mha import MHA as JaxMHA
@@ -36,7 +32,22 @@ from flash_attn_tpu_torch.utils.testing import (
     paged_to_linear,
 )
 
+from jax_paged_refs import (
+    jax_kvcache_paged,
+    jax_varlen_paged,
+    one_page_tiles,
+)
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_paged_kernels_at_one_page_tiles():
+    """JAX's paged kernels run at a KV tile of one page wherever its package
+    calls them (tests/jax_paged_refs.py): the same functions, lowered
+    faster."""
+    with one_page_tiles():
+        yield
 
 # fp32 on both sides: the two differ only in summation order (JAX's own
 # paged-varlen test reports ~1e-6 for the same math).
@@ -79,12 +90,12 @@ def test_paged_decode_with_append_matches_jax(num_splits):
     kp, vp = _rand(rng, 12, h_k, PAGE, d), _rand(rng, 12, h_k, PAGE, d)
     seqlens = np.array([5, 30, 47], np.int32)  # before the append
     cos, sin = _rope(d)
-    out_j, kc_j, vc_j = jax_flash_attn_with_kvcache(
+    out_j, kc_j, vc_j, _ = jax_kvcache_paged(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(seqlens), jnp.asarray(TABLE), num_splits,
         k=jnp.asarray(k_new), v=jnp.asarray(v_new),
         rotary_cos=jnp.asarray(cos), rotary_sin=jnp.asarray(sin),
-        cache_seqlens=jnp.asarray(seqlens), block_table=jnp.asarray(TABLE),
-        causal=True, num_splits=num_splits)
+        causal=True)
     kp_t, vp_t = _t(kp), _t(vp)
     out_t = flash_attn_with_kvcache(
         _t(q), kp_t, vp_t, k=_t(k_new), v=_t(v_new), rotary_cos=_t(cos),
@@ -152,12 +163,10 @@ def test_varlen_paged_matches_jax(case):
     lens_k = np.array(c["lens_k"], np.int32)
     seqused = None if c["seqused"] is None else np.array(c["seqused"], np.int32)
     max_q = max(c["lens_q"])
-    out_j, lse_j = jax_varlen_func(
+    out_j, lse_j = jax_varlen_paged(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(cu),
-        None, max_q, 64, causal=c["causal"], block_table=jnp.asarray(TABLE),
-        seqused_k=jnp.asarray(lens_k),
-        seqused_q=None if seqused is None else jnp.asarray(seqused),
-        return_attn_probs=True)
+        max_q, jnp.asarray(lens_k), jnp.asarray(TABLE), causal=c["causal"],
+        seqused_q=None if seqused is None else jnp.asarray(seqused))
     out_t, lse_t = flash_attn_varlen_func(
         _t(q), _t(kp), _t(vp), _t(cu), None, max_q, 64, causal=c["causal"],
         block_table=_t(TABLE), seqused_k=_t(lens_k),
@@ -175,9 +184,11 @@ def test_varlen_refusals_point_at_queue_a():
     """Dense varlen (B6/B7, queue A item 5) is ported and runs; so is qv
     over a paged cache (B8p, the MLA chunked prefill), the window on both
     routes and attention_chunk on the dense one, while qv on the dense
-    route, attention_chunk on the paged one, and descales on both routes
-    are still item 7; softcap runs on the paged route (B8) and, with ALiBi,
-    on the dense one (forward and backward)."""
+    route, attention_chunk on the paged one, and descales on the dense
+    route and with qv (B8p) are still item 7; descales run on the paged
+    route without qv (B8: tests/test_torch_kvquant.py); softcap runs on the
+    paged route (B8) and, with ALiBi, on the dense one (forward and
+    backward)."""
     q = torch.zeros(4, 2, 64)
     cu = torch.tensor([0, 4], dtype=torch.int32)
     assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4).shape == q.shape
@@ -191,15 +202,20 @@ def test_varlen_refusals_point_at_queue_a():
                                   softcap=5.0).shape == q.shape
     assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4,
                                   softcap=5.0).shape == q.shape
-    for kw in (dict(attention_chunk=16), dict(k_descale=torch.ones(1, 2))):
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged, **kw)
-        if "attention_chunk" in kw:  # the dense route takes the chunk
-            assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, causal=True,
-                                          **kw).shape == q.shape
-            continue
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, **kw)
+    descale = dict(k_descale=torch.ones(1, 2))
+    assert flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged,
+                                  **descale).shape == q.shape
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, qv=q, **paged,
+                               **descale)
+    chunk = dict(attention_chunk=16)
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged, **chunk)
+    # the dense route takes the chunk, not the descales
+    assert flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, causal=True,
+                                  **chunk).shape == q.shape
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, **descale)
     # the window: both routes take it (B8; B7 and B6)
     window = dict(window_size=(8, 0))
     assert flash_attn_varlen_func(q, kp, kp, cu, None, 4, 64, **paged,
@@ -271,16 +287,18 @@ def test_mha_slot_paged_and_prefix_prefill_then_decode_match_jax():
 
 
 def test_gpt_slot_prefill_then_decode_matches_jax():
-    """GPTLMHeadModel at the engine's tiny configuration over a paged cache
-    of 3 slots: a slot-mapped, padded prefill, a prefix-cached admission
-    that shares the first slot's first page, logits at each prompt's last
-    position, then a decode step of every slot. (The linear cache's
-    slot-mapped prefill is held against JAX through the engine, in
+    """GPTLMHeadModel at the engine's tiny configuration (with GQA 4/2) over
+    a paged cache of 4 slots: a slot-mapped, padded prefill, a
+    prefix-cached admission that shares the first slot's first page (with a
+    zero-length dummy row), logits at each prompt's last position, then two
+    decode steps of every slot. Its attention runs at the shapes of the
+    MHA test above, so JAX's kernels compile once for both. (The linear
+    cache's slot-mapped prefill is held against JAX through the engine, in
     tests/test_torch_engine.py.)"""
     fields = dict(vocab_size=96, n_positions=0, n_embd=64, n_layer=2,
-                  n_head=4, rotary_emb_fraction=1.0, use_rms_norm=True,
-                  glu_act=True, max_decode_seqlen=64,
-                  paged_kv_num_pages=10, paged_kv_page_size=PAGE)
+                  n_head=4, n_head_kv=2, rotary_emb_fraction=1.0,
+                  use_rms_norm=True, glu_act=True, max_decode_seqlen=64,
+                  paged_kv_num_pages=12, paged_kv_page_size=PAGE)
     jmodel = JaxGPTLMHeadModel(JaxGPTConfig(dtype=jnp.float32, **fields))
     params = jmodel.init(jax.random.PRNGKey(0),
                          jnp.zeros((1, 8), jnp.int32))["params"]
@@ -288,22 +306,25 @@ def test_gpt_slot_prefill_then_decode_matches_jax():
                             device="cpu")
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
     rng = np.random.default_rng(4)
-    table = np.array([[1, 2, 0, 0], [3, 4, 0, 0], [1, 5, 6, 0]], np.int32)
+    table = np.array([[4, 5, 0, 0], [4, 8, 9, 0], [2, 3, 0, 0], [0, 0, 0, 0]],
+                     np.int32)
     kw_table = {"block_table": table}
-    first = dict(slot_ids=[0, 1], prefill_lengths=[20, 9], **kw_table)
-    # slot 2 shares slot 0's first page
-    second = dict(slot_ids=[2], prefill_lengths=[5], prefix_lengths=[16],
-                  **kw_table)
-    calls = [(rng.integers(0, 96, (2, 32)), first, "prefill"),
-             (rng.integers(0, 96, (1, 16)), second, "prefill"),
-             (rng.integers(0, 96, (3, 1)), dict(**kw_table), "decode")]
-    cache = tmodel.allocate_cache(3)
+    first = dict(slot_ids=[0, 2], prefill_lengths=[24, 10], **kw_table)
+    # slot 1 shares slot 0's first page; slot 3 is a zero-length dummy row
+    second = dict(slot_ids=[1, 3], prefill_lengths=[7, 0],
+                  prefix_lengths=[16, 0], **kw_table)
+    calls = [(rng.integers(0, 96, (2, 24)), first, "prefill"),
+             (rng.integers(0, 96, (2, 16)), second, "prefill"),
+             (rng.integers(0, 96, (4, 1)), dict(**kw_table), "decode"),
+             (rng.integers(0, 96, (4, 1)), dict(**kw_table), "decode")]
+    cache = tmodel.allocate_cache(4)
     state = None  # JAX makes its cache in the first prefill: a slot a row
     for ids, args, mode in calls:
         args = {n: np.array(v, np.int32) for n, v in args.items()}
         extra = {}
         if mode == "prefill":
-            extra["logits_positions"] = args["prefill_lengths"] - 1
+            extra["logits_positions"] = np.maximum(
+                args["prefill_lengths"] - 1, 0)
         variables = {"params": params}
         if state is not None:
             variables["cache"] = state

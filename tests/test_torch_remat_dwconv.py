@@ -30,7 +30,18 @@ from flash_attn_tpu_torch.models.gpt import (
 from flash_attn_tpu_torch.modules.mha import MHA, KVCache
 from flash_attn_tpu_torch.training.trainer import TrainConfig, Trainer
 
+from jax_paged_refs import one_page_tiles
+
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_paged_kernels_at_one_page_tiles():
+    """JAX's paged kernels run at a KV tile of one page wherever its package
+    calls them (tests/jax_paged_refs.py): the same functions, lowered
+    faster."""
+    with one_page_tiles():
+        yield
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 JCFG = _tiny_config(dtype=jnp.float32, vocab=128, embd=64)

@@ -22,9 +22,6 @@ from flash_attn_tpu.cache.kvcache import (
     flash_attn_with_kvcache as jax_flash_attn_with_kvcache,
 )
 from flash_attn_tpu.interface import flash_attn_func as jax_flash_attn_func
-from flash_attn_tpu.interface import (
-    flash_attn_varlen_func as jax_flash_attn_varlen_func,
-)
 from flash_attn_tpu.utils import testing as jax_testing
 from flash_attn_tpu_torch import (
     flash_attn_func,
@@ -37,6 +34,8 @@ from flash_attn_tpu_torch.kernels.flash_decode import (
 )
 from flash_attn_tpu_torch.utils import testing
 from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+from jax_paged_refs import jax_kvcache_paged, jax_varlen_paged
 
 torch.set_num_threads(1)
 
@@ -145,10 +144,20 @@ def test_flash_attn_with_kvcache_score_matches_jax(case, paged):
         table["alibi_slopes"] = sl
     kw = dict(causal=causal, softcap=cap, window_size=window,
               num_splits=splits, return_softmax_lse=True)
-    out_j, kc_j, vc_j, lse_j = jax_flash_attn_with_kvcache(
-        *(jnp.asarray(x) for x in (q, kc, vc)), k=jnp.asarray(k_new),
-        v=jnp.asarray(v_new), cache_seqlens=jnp.asarray(seqlens), **kw,
-        **{n: jnp.asarray(x) for n, x in table.items()})
+    if paged:  # JAX's paged decode at a KV tile of one page
+        jkw = {n: x for n, x in kw.items()
+               if n not in ("num_splits", "return_softmax_lse")}
+        out_j, kc_j, vc_j, lse_j = jax_kvcache_paged(
+            *(jnp.asarray(x) for x in (q, kc, vc)), jnp.asarray(seqlens),
+            jnp.asarray(TABLE), splits, k=jnp.asarray(k_new),
+            v=jnp.asarray(v_new), **jkw,
+            **{n: jnp.asarray(x) for n, x in table.items()
+               if n != "block_table"})
+    else:
+        out_j, kc_j, vc_j, lse_j = jax_flash_attn_with_kvcache(
+            *(jnp.asarray(x) for x in (q, kc, vc)), k=jnp.asarray(k_new),
+            v=jnp.asarray(v_new), cache_seqlens=jnp.asarray(seqlens), **kw,
+            **{n: jnp.asarray(x) for n, x in table.items()})
     kc_t, vc_t = _t(kc), _t(vc)
     out_t, lse_t = flash_attn_with_kvcache(
         _t(q), kc_t, vc_t, k=_t(k_new), v=_t(v_new),
@@ -212,11 +221,10 @@ def test_flash_attn_varlen_paged_softcap_matches_jax():
             block_table=_t(TABLE), seqused_k=_t(lens_k), seqused_q=_t(used),
             return_attn_probs=True, **kw)
         if window[0] > 0:
-            out_j, lse_j = jax_flash_attn_varlen_func(
+            out_j, lse_j = jax_varlen_paged(
                 *(jnp.asarray(x) for x in (q, kp, vp)), jnp.asarray(cu),
-                None, max(lens_q), 96, block_table=jnp.asarray(TABLE),
-                seqused_k=jnp.asarray(lens_k), seqused_q=jnp.asarray(used),
-                return_attn_probs=True, **kw)
+                max(lens_q), jnp.asarray(lens_k), jnp.asarray(TABLE),
+                seqused_q=jnp.asarray(used), **kw)
             np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
                                        **TOL)
             _assert_lse(lse_t, lse_j)

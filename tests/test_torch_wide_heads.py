@@ -19,9 +19,6 @@ from flash_attn_tpu.cache.kvcache import (
     flash_attn_with_kvcache as jax_flash_attn_with_kvcache,
 )
 from flash_attn_tpu.interface import flash_attn_func as jax_flash_attn_func
-from flash_attn_tpu.interface import (
-    flash_attn_varlen_func as jax_flash_attn_varlen_func,
-)
 from flash_attn_tpu_torch import (
     flash_attn_func,
     flash_attn_varlen_func,
@@ -34,6 +31,8 @@ from flash_attn_tpu_torch.dispatch.config import (
 )
 from flash_attn_tpu_torch.kernels import flash_bwd
 from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+from jax_paged_refs import jax_kvcache_paged, jax_varlen_paged
 
 torch.set_num_threads(1)
 
@@ -105,11 +104,16 @@ def test_flash_attn_with_kvcache_matches_jax(d, paged):
     table = dict(block_table=TABLE) if paged else {}
 
     def jax_run(dtype, q, k_new, v_new, kc, vc):
+        if paged:  # JAX's paged decode at a KV tile of one page
+            return jax_kvcache_paged(
+                *(jnp.asarray(x, dtype) for x in (q, kc, vc)),
+                jnp.asarray(seqlens), jnp.asarray(TABLE), 2,
+                k=jnp.asarray(k_new, dtype), v=jnp.asarray(v_new, dtype),
+                causal=True)[:3]
         return jax_flash_attn_with_kvcache(
             *(jnp.asarray(x, dtype) for x in (q, kc, vc)),
             k=jnp.asarray(k_new, dtype), v=jnp.asarray(v_new, dtype),
-            cache_seqlens=jnp.asarray(seqlens), causal=True, num_splits=2,
-            **{n: jnp.asarray(x) for n, x in table.items()})
+            cache_seqlens=jnp.asarray(seqlens), causal=True, num_splits=2)
 
     def port_run(q, k_new, v_new, kc, vc):
         return flash_attn_with_kvcache(
@@ -143,11 +147,10 @@ def test_varlen_paged_matches_jax(d):
     lens_k, used = np.array(lens_k, np.int32), np.array(used, np.int32)
 
     def jax_run(dtype, q, kp, vp):
-        return jax_flash_attn_varlen_func(
+        return jax_varlen_paged(
             *(jnp.asarray(x, dtype) for x in (q, kp, vp)), jnp.asarray(cu),
-            None, max(lens_q), 64, causal=True, block_table=jnp.asarray(TABLE),
-            seqused_k=jnp.asarray(lens_k), seqused_q=jnp.asarray(used),
-            return_attn_probs=True)
+            max(lens_q), jnp.asarray(lens_k), jnp.asarray(TABLE),
+            seqused_q=jnp.asarray(used), causal=True)
 
     def port_run(q, kp, vp):
         return flash_attn_varlen_func(
