@@ -312,7 +312,20 @@
    and speculative engines (the target as its own draft) on the first
    requests of the engine traces, held to a teacher-forced static decode
    over the fp8 cache and to the plain engine; and (in 14.) Llama-3-8B
-   served from an fp8 cache with the weights of its bf16 run.
+   served from an fp8 cache with the weights of its bf16 run;
+31. head dim 80 (utils/cases.py HD80_*): B1 (with ALiBi at BTLM-3B-8K's
+   prefill and softmax scale 1/80, without the map at a GQA shape, under
+   the band), B4 (linear, paged and the verify step under ALiBi at BTLM's
+   steps, the band, 1-byte caches with descales) and B8 (plain, a window,
+   the cap, descales over 1-byte pages) at 80 against their plain
+   versions, timed at BTLM's shapes; then flash_attn_varlen_func(
+   block_table=) and flash_attn_with_kvcache over an fp8 page pool, which
+   no model path at 80 reaches, counted once each at BTLM's shapes;
+32. BTLM-3B-8K (cerebras/btlm-3b-8k-base config.json: 32 heads of 80,
+   ALiBi, muP, SwiGLU, tied embeddings) at full width and depth from a
+   seeded checkpoint through the BTLM adapter: static serving graphed and
+   eager, ALiBi in force, the paged and the speculative engine as for
+   Baichuan-13B in 23.; the prefix-cached engine refuses it (queue C).
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -666,11 +679,11 @@ MISTRAL_BATCH, MISTRAL_PROMPT, MISTRAL_NEW = 2, 6144, 64
 MISTRAL_SLOTS, MISTRAL_ENGINE_PROMPT, MISTRAL_ENGINE_NEW = 8, 5120, 32
 MISTRAL_PREFIX, MISTRAL_ENGINE_MAX_LEN = 4608, 5376
 # The depth at which the serving phases run GPT-NeoX-20B (44 layers) and
-# Mistral-7B (32), at full width: halved to keep the whole script near
-# half its time limit as it grows; every kernel and shape of those
-# paths is the same at any depth, and each phase's launch checks count its
-# layers.
-SERVE_LAYERS = {"GPT-NeoX-20B": 22, "Mistral-7B": 16}
+# Mistral-7B (32), at full width: halved, then halved again when the head
+# dim 80 phases came, to keep the whole script near 900 s as it grows;
+# every kernel and shape of those paths is the same at any depth, and
+# each phase's launch checks count its layers.
+SERVE_LAYERS = {"GPT-NeoX-20B": 11, "Mistral-7B": 8}
 # The band in training: Mistral-7B-v0.1 (MISTRAL_7B) trained at full width
 # through the Llama adapter with window_size = (4095, 0) and the depth cut
 # to MISTRAL_TRAIN_LAYERS of 32 (2.0B parameters, as GPT-J-6B's 8 of 28),
@@ -2383,6 +2396,10 @@ def run_training():
                       "peak_gb": res["peak_gb"], "same_losses": same}
 
 
+class ProfilerLost(RuntimeError):
+    """torch.profiler traced no device activity where kernels ran."""
+
+
 def device_events(fn, runs: int = 1, tries: int = 3):
     """The CUDA events (torch.profiler key averages with device time) of
     ``runs`` calls of fn(), after one warm-up call. The trace opens with one
@@ -2390,8 +2407,8 @@ def device_events(fn, runs: int = 1, tries: int = 3):
     are dropped: a trace's first kernel can go missing (seen on the card,
     four launches of the first kernel traced in five calls). A trace that
     recorded no device activity at all (the profiler's CUDA tracing lost
-    the window, seen once in a long run on the card) is taken again, up to
-    ``tries`` times, then the run fails."""
+    the window, seen late in long runs on the card) is taken again, up to
+    ``tries`` times, then ProfilerLost is raised."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -2414,16 +2431,23 @@ def device_events(fn, runs: int = 1, tries: int = 3):
                   and not e.key.startswith("ProfilerStep")]
         if events:
             return events
-    raise RuntimeError(f"chip_smoke: {tries} profiler traces recorded no "
+    raise ProfilerLost(f"chip_smoke: {tries} profiler traces recorded no "
                        f"device activity")
 
 
 def device_families(fn, families, what: str) -> float:
     """Device time of fn() by kernel family (torch.profiler): prints each
-    family's share and the 12 costliest kernels; returns the total ms."""
+    family's share and the 12 costliest kernels; returns the total ms, or
+    NaN (printed as not measured) where the profiler traced no device
+    activity."""
     totals = dict.fromkeys(list(families) + ["elementwise, reductions, other"], 0.0)
     kernels = []
-    for evt in device_events(fn):
+    try:
+        events = device_events(fn)
+    except ProfilerLost as e:
+        print(f"profile: {what}: not measured ({e})")
+        return math.nan
+    for evt in events:
         dev = evt.device_time_total
         fam = next((f for f, keys in families.items()
                     if any(k.lower() in evt.key.lower() for k in keys)),
@@ -2572,6 +2596,83 @@ def sdpa_varlen(q, k, v, cu_q, cu_k, lens_q, lens_k, causal, dout):
     raise RuntimeError("no library yardstick for packed attention ran")
 
 
+def entry_kernel(entry: str) -> str:
+    """The kernel a C entry point of the kernels' library launches (each
+    launches one): fa_bwd_dq -> dq_kernel, fa_varlen_bwd_dkdv ->
+    varlen_dkdv_kernel, fa_blocksparse_bwd_dq -> bs_dq_kernel."""
+    return (entry.removeprefix("fa_").replace("blocksparse_", "bs_")
+            .replace("bwd_", "") + "_kernel")
+
+
+def entry_split_ms(fn, names, runs: int = 10):
+    """kernel_split_ms's split timed with CUDA events in place of the
+    profiler: every C entry point of the kernels' library records an event
+    pair around its call while a sleep kernel holds the stream and the
+    ``runs`` calls are enqueued behind it, so that each pair brackets its
+    launch on the device (the launch's own gap of a few microseconds
+    included); "other" is the runs' whole span less the named kernels', a
+    call. A batch whose enqueueing outlasted the sleep is taken again under
+    a sleep twice as long. Fails unless each named kernel launched once a
+    call."""
+    from flash_attn_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    originals = {e: getattr(lib, e) for e in _build.SIGNATURES}
+    spans = []
+
+    def timed(entry, launch):
+        kernel = entry_kernel(entry)
+
+        def call(*args):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            err = launch(*args)
+            end.record()
+            spans.append((kernel, start, end))
+            return err
+        return call
+
+    fn()
+    torch.cuda.synchronize()
+    sleep_cycles = 100_000_000
+    while True:
+        spans.clear()
+        first, last = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for e, launch in originals.items():
+            setattr(lib, e, timed(e, launch))
+        try:
+            torch.cuda._sleep(sleep_cycles)
+            first.record()
+            for _ in range(runs):
+                fn()
+            last.record()
+            caught_up = first.query()
+            torch.cuda.synchronize()
+        finally:
+            for e, launch in originals.items():
+                setattr(lib, e, launch)
+        if not caught_up:
+            break
+        require(sleep_cycles < 6_400_000_000,
+                "entry_split_ms: the device caught up with the host while "
+                "runs were enqueued, under a sleep of 6.4e9 cycles")
+        sleep_cycles *= 2
+    total = dict.fromkeys(names, 0.0)
+    count = dict.fromkeys(names, 0)
+    for kernel, start, end in spans:
+        name = next((n for n in names if n in kernel), None)
+        if name is not None:
+            total[name] += start.elapsed_time(end)
+            count[name] += 1
+    require(all(c == runs for c in count.values()),
+            f"entry_split_ms: {runs} calls launched {count}, one a call of "
+            f"each kernel wanted")
+    split = {name: total[name] / runs for name in names}
+    split["other"] = (first.elapsed_time(last) - sum(total.values())) / runs
+    return split
+
+
 def kernel_split_ms(fn, names, runs: int = 10, tries: int = 3):
     """Device ms a launch of each kernel whose name contains one of
     ``names`` (the first that matches), and under "other" ms a call of
@@ -2585,37 +2686,42 @@ def kernel_split_ms(fn, names, runs: int = 10, tries: int = 3):
     again, up to ``tries`` times; if none holds every launch, each
     kernel's time is the mean over its launches in the trace nearest to
     ``runs`` ("other" is then off by the launches lost or gained), said in
-    a printed line. The run fails if no trace held a launch of each kernel,
-    or every trace held more than ``runs`` (a call that launches a kernel
-    twice)."""
+    a printed line. Where no trace held a launch of each kernel, or every
+    trace held more than ``runs``, or the profiler recorded no device
+    activity at all, the split is timed with CUDA events around the
+    kernels' launches instead (entry_split_ms), said in a printed line."""
     best, over = None, 0
-    for _ in range(tries):
-        total = dict.fromkeys(list(names) + ["other"], 0.0)
-        count = dict.fromkeys(names, 0)
-        for evt in device_events(fn, runs):
-            name = next((n for n in names if n in evt.key), "other")
-            total[name] += evt.device_time_total
-            if name != "other":
-                count[name] += evt.count
-        if all(c == runs for c in count.values()):
-            best = total, count
-            break
-        over += any(c > runs for c in count.values())
-        print(f"profiler: a trace of {runs} calls held {count} launches; "
-              "taken again", flush=True)
-        off = max(abs(c - runs) for c in count.values())
-        if best is None or off < max(abs(c - runs)
-                                     for c in best[1].values()):
-            best = total, count
-    if over == tries:
-        raise RuntimeError(f"chip_smoke: {tries} profiler traces of {runs} "
-                           f"calls each held more launches than calls "
-                           f"(the last {count}), one a call of each kernel "
-                           "wanted")
+    try:
+        for _ in range(tries):
+            total = dict.fromkeys(list(names) + ["other"], 0.0)
+            count = dict.fromkeys(names, 0)
+            for evt in device_events(fn, runs):
+                name = next((n for n in names if n in evt.key), "other")
+                total[name] += evt.device_time_total
+                if name != "other":
+                    count[name] += evt.count
+            if all(c == runs for c in count.values()):
+                best = total, count
+                break
+            over += any(c > runs for c in count.values())
+            print(f"profiler: a trace of {runs} calls held {count} launches; "
+                  "taken again", flush=True)
+            off = max(abs(c - runs) for c in count.values())
+            if best is None or off < max(abs(c - runs)
+                                         for c in best[1].values()):
+                best = total, count
+        lost = None
+        if over == tries:
+            lost = f"every trace held more launches than calls ({count})"
+        elif min(best[1].values()) == 0:
+            lost = f"the nearest trace held {best[1]} launches"
+    except ProfilerLost as e:
+        lost = str(e)
+    if lost is not None:
+        print(f"profiler: {lost}; the split is timed with CUDA events around "
+              f"each launch instead", flush=True)
+        return entry_split_ms(fn, names, runs)
     total, count = best
-    if min(count.values()) == 0:
-        raise RuntimeError(f"chip_smoke: {tries} profiler traces of {runs} "
-                           f"calls held {count} launches, none of a kernel")
     if any(c != runs for c in count.values()):
         print(f"profiler: no trace held one launch a call; each kernel's "
               f"time is the mean of its {count} traced launches", flush=True)
@@ -3742,8 +3848,18 @@ def check_blocksparse(gen, card):
         t["bwd_ms"] = time_ms(lambda: bs.flash_attention_blocksparse_bwd(
             dout, q, k, v, out, lse, num, idx, **kw), runs=10)
         t["bwd_split_ms"] = {}
-        for evt in device_events(lambda: bs.flash_attention_blocksparse_bwd(
-                dout, q, k, v, out, lse, num, idx, **kw), 5):
+
+        def bs_bwd():
+            return bs.flash_attention_blocksparse_bwd(
+                dout, q, k, v, out, lse, num, idx, **kw)
+        try:
+            events = device_events(bs_bwd, 5)
+        except ProfilerLost as e:
+            print(f"profiler: {e}; the split is timed with CUDA events "
+                  f"around each launch instead", flush=True)
+            t["bwd_split_ms"] = entry_split_ms(bs_bwd, bwd_kernels, 5)
+            events = []
+        for evt in events:
             key = next((n for n in bwd_kernels if n in evt.key), evt.key[:60])
             t["bwd_split_ms"][key] = (t["bwd_split_ms"].get(key, 0.0)
                                       + evt.device_time_total / 5 / 1e3)
@@ -3751,6 +3867,8 @@ def check_blocksparse(gen, card):
             *pre_args, block, block), runs=10)
         t["plain_pre_ms"] = time_ms(lambda: bs.blocksparse_bwd_preprocess_plain(
             *pre_args), runs=10)
+        t["lib_pre_ms"] = time_ms(lambda: torch.linalg.vecdot(dout, out),
+                                  runs=10)
         # dO and O read once, lse and the kv lists read; delta and lse2
         # written in fp32 over the padded rows, the inverse lists' used
         # entries and their counts written; a multiply-add a head-dim
@@ -3807,9 +3925,10 @@ def check_blocksparse(gen, card):
         "flash_blocksparse_bwd_preprocess": {
             "ms": tb["pre_ms"], "plain_ms": tb["plain_pre_ms"],
             "bound_ms": tb["pre_bound_ms"], "bound_by": tb["pre_bound_by"],
-            "library_ms": None,
-            "library_call": "none: no one call computes delta, lse2 and the "
-                            "inverse lists"},
+            "library_ms": tb["lib_pre_ms"],
+            "library_call": "torch.linalg.vecdot(dO, O) (in bf16): the delta "
+                            "alone, as for B3's and B6's preprocess; no call "
+                            "computes lse2 or the inverse lists"},
         "flash_blocksparse_bwd": {
             "ms": tb["bwd_ms"], "plain_ms": tb["plain_bwd_ms"],
             "bound_ms": tb["bwd_bound_ms"], "bound_by": tb["bwd_bound_by"],
@@ -6338,8 +6457,9 @@ def flex_row(make_call, ref, err_lp, what):
                             f"score_mod and {what}"}
 
 
-def score_fwd_case(gen, case, timed: bool):
-    """B1's score instantiation on one SCORE_FWD_CASES case against its
+def score_fwd_case(gen, case, timed: bool, scale=None):
+    """B1's score instantiation on one SCORE_FWD_CASES case (at softmax
+    scale ``scale``, None: 1/sqrt(d)) against its
     plain version (the 2x rule against the fp32 plain forward with a
     low-precision reference, lse within LSE_ATOL on the rows that see a key
     and -inf on the same rows; the lse of causal ALiBi relative to the last
@@ -6355,6 +6475,8 @@ def score_fwd_case(gen, case, timed: bool):
     name, b, sq, sk, h, h_k, d, causal, cap, kind, window, dtype = case
     window = normalize_window(window)
     kw = score_kw(cap, kind, b, h, window)
+    if scale is not None:
+        kw["softmax_scale"] = scale
 
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
@@ -6390,7 +6512,7 @@ def score_fwd_case(gen, case, timed: bool):
     ms = time_ms(lambda: flash_fwd.flash_attention_fwd(
         qt, kt, vt, causal=causal, **kw))
     plain_kernel_ms = time_ms(lambda: flash_fwd.flash_attention_fwd(
-        qt, kt, vt, causal=causal, window_size=window))
+        qt, kt, vt, causal=causal, window_size=window, softmax_scale=scale))
     plain_ms = time_ms(lambda: flash_fwd.flash_attention_fwd_plain(
         qt, kt, vt, causal=causal, **kw), runs=3, batch=1)
     timing = {"ms": ms, "plain_ms": plain_ms,
@@ -6403,10 +6525,12 @@ def score_fwd_case(gen, case, timed: bool):
                                window, dtype)
         timing["library_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=h != h_k), runs=10)
+                qt, kt, vt, attn_mask=mask, enable_gqa=h != h_k,
+                scale=scale), runs=10)
         timing["library_call"] = ("scaled_dot_product_attention with ALiBi's "
                                   "bias and the causal bound as a float mask"
-                                  + ", enable_gqa=True" * (h != h_k))
+                                  + ", enable_gqa=True" * (h != h_k)
+                                  + f", scale={scale}" * (scale is not None))
     else:
         def keep(bi, hi, qi, ki):
             return ki <= qi + (sk - sq)
@@ -6430,9 +6554,10 @@ def score_fwd_case(gen, case, timed: bool):
     return err, timing
 
 
-def score_decode_case(gen, case, timed: bool):
+def score_decode_case(gen, case, timed: bool, scale=None):
     """B4's d = dv route with softcap or ALiBi on one SCORE_DECODE_CASES
-    case, linear or paged, against its plain version (the 2x rule against
+    case (at softmax scale ``scale``, None: 1/sqrt(d)), linear or paged,
+    against its plain version (the 2x rule against
     the fp32 plain decode on the CPU with a bf16 reference, lse within
     LSE_ATOL: the lse of causal ALiBi relative to each row's own last key,
     which every split partial keeps), the partials bitwise equal twice and
@@ -6470,16 +6595,16 @@ def score_decode_case(gen, case, timed: bool):
     splits = splits or _default_num_splits(q, kc, vc, table, False)
     counter = "launches_paged_score" if page else "launches_score"
     before = getattr(flash_decode, counter)
+    scale = d ** -0.5 if scale is None else scale
     out, lse = flash_decode.flash_attention_decode(
         q, kc, vc, seqlens, causal=causal, num_splits=splits,
-        block_table=table, **kw)
+        block_table=table, softmax_scale=scale, **kw)
     cpu = dict(block_table=None if table is None else table.cpu(),
                softcap=cap, alibi_slopes=None if kw["alibi_slopes"] is None
                else kw["alibi_slopes"].cpu())
     ref, ref_lse = flash_decode.flash_attention_decode(
         q.float().cpu(), kc.float().cpu(), vc.float().cpu(), seqlens.cpu(),
-        causal=causal, num_splits=splits, **cpu)
-    scale = d ** -0.5
+        softmax_scale=scale, causal=causal, num_splits=splits, **cpu)
     call = dict(block_table=table, **kw)
     part = flash_decode.flash_attention_decode_partials(
         q, kc, vc, seqlens, splits, scale, causal, **call)
@@ -6499,7 +6624,8 @@ def score_decode_case(gen, case, timed: bool):
     # per-row constant away from the kernel's (the outputs agree)
     ref_lp, _ = attention_ref(q, lin[0].transpose(1, 2),
                               lin[1].transpose(1, 2), key_padding_mask=keep,
-                              causal=causal, upcast=False, **kw)
+                              causal=causal, upcast=False,
+                              softmax_scale=scale, **kw)
     err, err_lp = check_against_ref(out, ref, ref_lp,
                                     msg=f"flash_decode score {name}")
     lse_err = (lse.cpu() - ref_lse).abs().max().item()
@@ -6547,12 +6673,12 @@ def score_decode_case(gen, case, timed: bool):
         qh = q.transpose(1, 2)
         if table is None:
             lib = lambda: F.scaled_dot_product_attention(
-                qh, kc, vc, attn_mask=mask, enable_gqa=h != h_k)
+                qh, kc, vc, attn_mask=mask, enable_gqa=h != h_k, scale=scale)
             what = "over the linear cache"
         else:
             lib = lambda: F.scaled_dot_product_attention(
                 qh, *(paged_to_linear(x, table, seqlens) for x in (kc, vc)),
-                attn_mask=mask, enable_gqa=h != h_k)
+                attn_mask=mask, enable_gqa=h != h_k, scale=scale)
             what = ("over the cache gathered through the block table (the "
                     "gather included)")
         timing["library_ms"] = time_ms(lib)
@@ -7805,8 +7931,16 @@ def kvquant_varlen_case(gen, case, window, softcap: float, timed: bool):
               **bound(4 * h * d * pairs,
                       2 * 2 * total_q * h * d + 2 * esz * n_keys * h_k * d
                       + 4 * h * total_q + 2 * 4 * b * h_k)}
-    dq = {"ms": dq_ms, "plain_ms": dq_plain_ms, "library_ms": None,
-          "library_call": None, "pages": reached,
+    # the library's conversion: Tensor.to over the same bytes, the codes of
+    # the pages the rows reach gathered beforehand (untimed)
+    ids = table.long()[kv_dequant.pages_reached(seqlens_k, page, width)]
+    k_r, v_r = kp[ids], vp[ids]
+    dq_lib_ms = time_ms(lambda: (k_r.to(dtype), v_r.to(dtype)))
+    del k_r, v_r
+    dq = {"ms": dq_ms, "plain_ms": dq_plain_ms, "library_ms": dq_lib_ms,
+          "library_call": f"Tensor.to({dtype}) of the K and V codes of the "
+                          "pages the rows reach, gathered beforehand",
+          "pages": reached,
           **bound(0, 2 * reached * h_k * page * d * (1 + 2))}
     print(f"flash_varlen_paged descales time at {name}: B8 over the converted "
           f"pool {ms:.4f} ms (without descales {bf16_ms:.4f} ms), the "
@@ -8095,6 +8229,318 @@ def run_kvquant_913m(gen, card):
     return launches, out
 
 
+# ---- head dim 80 in serving (B1, B4 d = dv and B8 at 80) --------------------
+
+# BTLM-3B-8K (cerebras/btlm-3b-8k-base config.json): a GPT-2 body with ALiBi
+# positions, a SwiGLU MLP of 6826, muP's scalars (mup_scale_qk_dot_by_d: a
+# softmax scale of 1/80) and tied embeddings, 32 heads of 80; served at full
+# width and depth from a seeded checkpoint in HF's names (GPT-2's Conv1D
+# layouts) through the port's adapter. The attribute names are those the
+# HF config answers to (its attribute_map: hidden_size for n_embd, ...).
+BTLM_3B = SimpleNamespace(
+    vocab_size=50257, n_positions=8192, hidden_size=2560,
+    num_hidden_layers=32, num_attention_heads=32, n_inner=6826,
+    position_embedding_type="alibi", activation_function="swiglu",
+    layer_norm_epsilon=1e-5, mup_width_scale=0.1, mup_embeddings_scale=14.6,
+    mup_output_alpha=2.22, mup_scale_qk_dot_by_d=True)
+
+
+def check_head_dim_80_kernels(gen):
+    """Head dim 80 on the card (B1, B4 d = dv and B8, the kernels of
+    flash_fwd_80.cu, flash_decode_80.cu and flash_varlen_paged_80.cu):
+    B1 with the score map (HD80_SCORE_FWD_CASES, BTLM's prefill at its own
+    scale 1/80), without the band or the map (HD80_FWD_CASES) and with the
+    band (HD80_BAND_FWD_CASES); B4 linear, paged and at the verify step
+    under ALiBi (HD80_SCORE_DECODE_CASES, BTLM's steps at 1/80), under the
+    band (HD80_BAND_DECODE_CASES) and over 1-byte caches with descales
+    (HD80_KVQUANT_DECODE_CASES); B8 plain, under a window and the cap
+    (HD80_VARLEN_CASES) and with descales over 1-byte pages
+    (HD80_KVQUANT_VARLEN_CASES): each against its plain version, the timed
+    shapes beside their bounds, plain versions and library calls. Then the
+    entry points a user calls for B8 and for B4 over a 1-byte cache at 80,
+    which no model path at 80 reaches (BTLM's prefix cache is refused,
+    ROADMAP.md queue C, and it serves from a bf16 cache), each once at
+    BTLM's shape with the counts at 0 just before: flash_attn_varlen_func
+    (block_table=) and flash_attn_with_kvcache over an fp8 page pool with
+    descales, each bitwise equal to its wrapper's own call. Returns errors,
+    timings and those launches by kernels-line name."""
+    from flash_attn_tpu_torch import (
+        flash_attn_varlen_func,
+        flash_attn_with_kvcache,
+    )
+    from flash_attn_tpu_torch.cache.kvcache import _default_num_splits
+    from flash_attn_tpu_torch.dispatch.kvquant import combined_descales
+    from flash_attn_tpu_torch.kernels import flash_decode
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.cases import (
+        BTLM_SCALE,
+        HD80_BAND_DECODE_CASES,
+        HD80_BAND_FWD_CASES,
+        HD80_FWD_CASES,
+        HD80_KVQUANT_DECODE_CASES,
+        HD80_KVQUANT_VARLEN_CASES,
+        HD80_SCORE_DECODE_CASES,
+        HD80_SCORE_FWD_CASES,
+        HD80_VARLEN_CASES,
+        kv_codes,
+        kv_descales,
+        score_slopes,
+    )
+
+    errs, timings = {}, {}
+
+    def keep(row, err, t=None, case=None):
+        errs[row] = max(errs.get(row, 0.0), err)
+        if t is not None:
+            if case is None:
+                timings.setdefault(row, {}).update(t)
+            else:
+                timings.setdefault(row, {}).setdefault("cases", {})[case] = t
+
+    for case in HD80_SCORE_FWD_CASES:
+        btlm = case[0].startswith("BTLM")
+        err, t = score_fwd_case(gen, case, btlm, BTLM_SCALE if btlm else None)
+        keep("flash_fwd_d80", err, t)
+        torch.cuda.empty_cache()
+    for i, case in enumerate(HD80_FWD_CASES):
+        (qt, kt, vt), _, _, err = fwd_case(gen, case)
+        keep("flash_fwd_d80", err,
+             fwd_timing(qt, kt, vt, case, "a GQA shape at d=80")
+             if i == 0 else None, "without the map, GQA 32/8")
+        del qt, kt, vt
+    for case in HD80_BAND_FWD_CASES:
+        err, t = band_fwd_case(gen, case, timed=False)
+        keep("flash_fwd_d80", err, t, case[0])
+        torch.cuda.empty_cache()
+    rows = {"BTLM-3B-8K decode step": "flash_decode_d80",
+            "BTLM-3B-8K engine decode step": "flash_decode_paged_d80",
+            "BTLM-3B-8K engine verify step": "flash_decode_paged_d80_verify"}
+    for case in HD80_SCORE_DECODE_CASES:
+        timed = case[0] in rows
+        row = rows.get(case[0], "flash_decode_paged_d80" if case[6]
+                       else "flash_decode_d80")
+        err, t = score_decode_case(gen, case, timed,
+                                   BTLM_SCALE if timed else None)
+        keep(row, err, t)
+    for case in HD80_BAND_DECODE_CASES:
+        err, t, _ = band_decode_case(gen, case, False)
+        keep("flash_decode_paged_d80", err, t, case[0])
+    for i, case in enumerate(HD80_KVQUANT_DECODE_CASES):
+        err, t = kvquant_decode_case(gen, case, i == 0)
+        keep("flash_decode_kv8_d80", err, t)
+    torch.cuda.empty_cache()
+    for i, (case, cap, window) in enumerate(HD80_VARLEN_CASES):
+        before = fvp.launches_score
+        err, t = varlen_paged_case(gen, case, with_b6=False, timed=i == 0,
+                                   window=tuple(None if x < 0 else x
+                                                for x in window),
+                                   softcap=cap)
+        require(fvp.launches_score - before >= 2 * (cap > 0),
+                f"flash_varlen_paged {case[0]}: the score map did not run")
+        keep("flash_varlen_paged_d80", err, t)
+    for case, window, cap in HD80_KVQUANT_VARLEN_CASES:
+        err, _ = kvquant_varlen_case(gen, case, window, cap, False)
+        keep("flash_varlen_paged_d80", err)
+    torch.cuda.empty_cache()
+
+    # the entry points, counted: B8 at BTLM's admission (8 chunks of 256
+    # over 512 keys, pages of 256, scale 1/80)
+    (_, lens_q, lens_k, _, h, h_k, d, page, dtype, causal), _, _ = \
+        HD80_VARLEN_CASES[0]
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    kp, vp, table = paged_cache(gen, len(lens_q), h_k, d, page, max(lens_k),
+                                dtype)
+    seqlens_k = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    launches = {}
+    reset_kernel_counts()
+    out = flash_attn_varlen_func(
+        q, kp, vp, cu, None, max(lens_q), max(lens_k), causal=causal,
+        softmax_scale=BTLM_SCALE, block_table=table, seqused_k=seqlens_k)
+    torch.cuda.synchronize()
+    launches["flash_varlen_paged_d80"] = got = kernel_counts()
+    require(got == want_counts(flash_varlen_paged=1),
+            f"flash_attn_varlen_func(block_table=) at d=80: launches {got}")
+    want, _ = fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, cu, max(lens_q), seqlens_k, table, causal=causal,
+        softmax_scale=BTLM_SCALE)
+    require(torch.equal(out, want) and bool(torch.isfinite(out).all()),
+            "flash_attn_varlen_func(block_table=) at d=80 differs from B8's "
+            "wrapper")
+    del q, kp, vp, table, out, want
+    # B4 over an fp8 page pool with descales at BTLM's engine decode step
+    # (16 slots of 543 keys, pages of 256, ALiBi, scale 1/80)
+    _, b, sq, h, h_k, d, page, keys, cdt, _, _, _ = \
+        HD80_KVQUANT_DECODE_CASES[0]
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    kp, vp, table = paged_cache(gen, b, h_k, d, page, keys, torch.float32)
+    (kc, unit), (vc, _) = kv_codes(kp, cdt), kv_codes(vp, cdt)
+    qd, kd, vd = (x.cuda() for x in kv_descales(b, h_k))
+    kd, vd = kd * unit, vd * unit
+    seqlens = torch.full((b,), keys, dtype=torch.int32, device="cuda")
+    slopes = score_slopes("1d", b, h, "cuda")
+    reset_kernel_counts()
+    out = flash_attn_with_kvcache(
+        q, kc, vc, cache_seqlens=seqlens, block_table=table,
+        softmax_scale=BTLM_SCALE, causal=True, alibi_slopes=slopes,
+        q_descale=qd, k_descale=kd, v_descale=vd)
+    torch.cuda.synchronize()
+    launches["flash_decode_kv8_d80"] = got = kernel_counts()
+    require(got == want_counts(flash_decode_paged=1, flash_decode_paged_kv8=1,
+                               flash_decode_paged_score=1),
+            f"flash_attn_with_kvcache over an fp8 cache at d=80: launches "
+            f"{got}")
+    qk, vs = combined_descales(b, h_k, qd, kd, vd, q.device)
+    want, _ = flash_decode.flash_attention_decode(
+        q, kc, vc, seqlens, softmax_scale=BTLM_SCALE, causal=True,
+        num_splits=_default_num_splits(q, kc, vc, table, False),
+        block_table=table, alibi_slopes=slopes, qk_descale=qk, v_descale=vs)
+    require(torch.equal(out, want) and bool(torch.isfinite(out).all()),
+            "flash_attn_with_kvcache over an fp8 cache at d=80 differs from "
+            "B4's wrapper")
+    print(f"head dim 80 entry points, counted: flash_attn_varlen_func("
+          f"block_table=) at BTLM's admission: "
+          f"{launches['flash_varlen_paged_d80']}; flash_attn_with_kvcache "
+          f"over an fp8 page pool with descales at its engine decode step: "
+          f"{launches['flash_decode_kv8_d80']}")
+    del q, kp, vp, kc, vc, table, out, want
+    torch.cuda.empty_cache()
+    return errs, timings, launches
+
+
+def btlm_spec(c) -> HFSpec:
+    e, f = c.hidden_size, c.n_inner
+    spec = HFSpec()
+    spec.embedding("transformer.wte", c.vocab_size, e)
+    for i in range(c.num_hidden_layers):
+        p = f"transformer.h.{i}."
+        spec.norm(p + "ln_1", e)
+        spec.norm(p + "ln_2", e)
+        # GPT-2's Conv1D weights are (in, out)
+        for name, n_in, n_out in (("attn.c_attn", e, 3 * e),
+                                  ("attn.c_proj", e, e),
+                                  ("mlp.c_fc", e, f), ("mlp.c_fc2", e, f),
+                                  ("mlp.c_proj", f, e)):
+            spec[p + name + ".weight"] = ((n_in, n_out), n_in ** -0.5)
+            spec[p + name + ".bias"] = ((n_out,), 0.02)
+    spec.norm("transformer.ln_f", e)
+    return spec
+
+
+def run_btlm(card):
+    """BTLM-3B-8K at full width and depth (BTLM_3B, its published
+    config.json numbers), a seeded checkpoint in HF's names remapped a
+    layer at a time through the port's adapter (every MHA at the softmax
+    scale 1/80 that muP's mup_scale_qk_dot_by_d sets): static serving of
+    BATCH x PROMPT tokens to NEW_TOKENS new ones, graphed and eager
+    (serve_static with every launch the score map's at head dim 80: ALiBi
+    in B1 and B4), TTFT, the decode rate beside the weights' read and the
+    peak memory; ALiBi in force (the same weights with use_alibi=False
+    give last-position logits that differ by more than the decode's bf16
+    noise); then the paged engine (BREADTH_REQUESTS prompts on
+    BREADTH_SLOTS slots) and the speculative engine with the target as its
+    own draft (SPEC_K: B4's verify step at 80 under ALiBi), held to a
+    teacher-forced static decode and to the plain engine; the prefix-cached
+    engine must refuse the model (ROADMAP.md queue C). Returns launches and
+    measurements."""
+    from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
+    from flash_attn_tpu_torch.serving.generation import GenerationConfig
+    from flash_attn_tpu_torch.utils.cases import BTLM_SCALE
+
+    rng = np.random.default_rng(25)
+    launches, out = {}, {}
+    name = "BTLM-3B-8K"
+    t0 = time.perf_counter()
+    model, peak = hf_model("btlm", BTLM_3B, btlm_spec, 19,
+                           max_decode_seqlen=PROMPT + NEW_TOKENS)
+    build_s = time.perf_counter() - t0
+    cfg = model.config
+    mixers = [layer.mixer for layer in model.transformer.layers]
+    require(cfg.use_alibi and cfg.n_layer == 32 and cfg.n_embd == 2560
+            and cfg.n_head == 32 and cfg.n_inner == 6826 and cfg.glu_act
+            and cfg.tie_word_embeddings
+            and all(m.head_dim == 80 and m.softmax_scale == BTLM_SCALE
+                    for m in mixers),
+            f"{name}: the adapter's config")
+    print(f"{name} built from its config (the BTLM adapter: ALiBi, SwiGLU, "
+          f"muP, 32 heads of 80 at softmax scale 1/80) and a seeded HF "
+          f"checkpoint in {build_s:.1f} s (peak {peak:.2f} GB) on {card}")
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (BATCH, PROMPT)),
+                          device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launches[name], _, noise = serve_static(model, ids, name, score=True)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    ttft, tok_s = static_rates(model, ids, modes=(True, False))
+    model._decode_state = None
+    plain = model_view(model, use_alibi=False)
+    gap, same_top = effect_gap(model, plain, ids)
+    print(f"{name}: ALiBi in force: last-position logits with and without "
+          f"the slopes differ by {gap:.4f} at most (the decode's own bf16 "
+          f"noise against the teacher-forced forward: {noise:.4f}), the same "
+          f"top token in {same_top:.2f} of the rows")
+    require(gap > noise, f"{name}: ALiBi changes the logits by no more than "
+            "the bf16 noise")
+    del plain
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    out[name] = {"params_b": n_params / 1e9, "layers": cfg.n_layer,
+                 "build_s": build_s, "build_peak_gb": peak,
+                 "serve_peak_gb": serve_peak, "ttft_ms": ttft * 1e3,
+                 "decode_tokens_per_s": tok_s[True][0],
+                 "decode_tokens_per_s_eager": tok_s[False][0],
+                 "decode_step_ms": BATCH / tok_s[True][0] * 1e3,
+                 "weight_read_ms": weight_bytes / PEAK_BYTES * 1e3,
+                 "alibi_logit_gap": gap, "decode_noise": noise}
+    print(f"{name} ({n_params / 1e9:.2f}B parameters, {cfg.n_layer} layers, "
+          f"width {cfg.n_embd}, {cfg.n_head} heads of 80, ALiBi): TTFT "
+          f"{ttft * 1e3:.2f} ms (b={BATCH} x {PROMPT}), decode "
+          f"{tok_s[True][0]:.1f} tokens/s graphed ({tok_s[False][0]:.1f} "
+          f"eager), a step {out[name]['decode_step_ms']:.3f} ms against "
+          f"{out[name]['weight_read_ms']:.3f} ms to read its "
+          f"{weight_bytes / 1e9:.2f} GB of weights once at 3.35 TB/s; peak "
+          f"{serve_peak:.2f} GB serving, on {card}")
+    torch.cuda.empty_cache()
+
+    paged = paged_view(model, BREADTH_SLOTS)
+    prompts = list(rng.integers(0, cfg.vocab_size,
+                                (BREADTH_REQUESTS, ENGINE_PROMPT)))
+    ename = f"{name} paged engine"
+    torch.cuda.reset_peak_memory_stats()
+    launches[ename], tokens, out[ename] = run_engine(
+        paged, prompts, False, card, slots=BREADTH_SLOTS, name=ename,
+        score=True)
+    out[ename]["agreement"], out[ename]["logit_gap"] = engine_agreement(
+        paged, prompts, tokens, ename, MIN_ARGMAX_AGREEMENT)
+    out[ename]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    sname = f"{name} speculative engine"
+    launches[sname], spec, out[sname] = run_engine(
+        paged, prompts, False, card, slots=BREADTH_SLOTS, name=sname,
+        draft=linear_view(paged), score=True)
+    out[sname]["equal_to_plain"] = spec_vs_plain(paged, prompts, spec, tokens,
+                                                 sname, tie_bound=noise)
+    out[sname]["agreement"], out[sname]["logit_gap"] = engine_agreement(
+        paged, prompts, spec, sname, MIN_ARGMAX_AGREEMENT)
+    try:
+        InferenceEngine(paged, BREADTH_SLOTS, GenerationConfig(top_k=1),
+                        page_pool=PagePool(paged.config.paged_kv_num_pages,
+                                           ENGINE_PAGE, 3, BREADTH_SLOTS),
+                        prefix_cache=True)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "queue C" in refused,
+            f"{name}: the prefix-cached engine took an ALiBi model")
+    print(f"{name}: the prefix-cached engine refuses the model: {refused}")
+    out[name]["prefix_cache_refused"] = refused
+    del model, paged
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -8228,6 +8674,9 @@ def main() -> int:
                          check_kvquant_kernels, gen)
     kq_launches, kvq = phase("913M from an fp8 cache", run_kvquant_913m, gen,
                              card)
+    h8_err, h8_t, h8_api = phase("head dim 80 kernel checks",
+                                 check_head_dim_80_kernels, gen)
+    bl_launches, btlm = phase("BTLM-3B-8K", run_btlm, card)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -8361,6 +8810,20 @@ def main() -> int:
           f"tokens/s graphed against {lq['bf16_decode_tokens_per_s']:.1f} "
           f"from the bf16 cache; logit drift {lq['drift_max']:.4f} (last "
           f"step {lq['drift_last']:.4f}, bound {KV_DRIFT_BOUND}) on {card}")
+    bl, bl_eng = btlm["BTLM-3B-8K"], [
+        k for k in btlm if k.startswith("BTLM-3B-8K ")]
+    print(f"BTLM-3B-8K (full width and depth, {bl['layers']} layers, "
+          f"{bl['params_b']:.2f}B parameters, 32 heads of 80, ALiBi, softmax "
+          f"scale 1/80, b={BATCH} x {PROMPT} + {NEW_TOKENS}): TTFT "
+          f"{bl['ttft_ms']:.2f} ms, decode {bl['decode_tokens_per_s']:.1f} "
+          f"tokens/s graphed ({bl['decode_tokens_per_s_eager']:.1f} eager; a "
+          f"step {bl['decode_step_ms']:.3f} ms, the weights' read "
+          f"{bl['weight_read_ms']:.3f} ms), peak {bl['serve_peak_gb']:.2f} GB; "
+          + "; ".join(
+              f"{k[len('BTLM-3B-8K '):]} ({BREADTH_REQUESTS} requests on "
+              f"{BREADTH_SLOTS} slots) {btlm[k]['tokens_per_s']:.1f} "
+              f"tokens/s, TTFT p50 {btlm[k]['ttft_p50_ms']:.1f} ms"
+              for k in bl_eng) + f" on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -8671,6 +9134,36 @@ def main() -> int:
         entry("kv_dequant", "kv_dequant.cu", "fp8_cast.py:28",
               kq_launches["913M fp8 x1.0 prefix-cache engine"]["kv_dequant"],
               kq_err["kv_dequant"], kq_t["kv_dequant"]),
+        # head dim 80: B1's, B4's and B8's instantiations at 80, the
+        # launches those of the BTLM-3B-8K runs (B1 and B4 under ALiBi); B8
+        # and B4 over a 1-byte cache at 80, which no model path reaches,
+        # those of the counted entry-point calls at BTLM's shapes
+        entry("flash_fwd_d80", "flash_fwd_80.cu", "flash_fwd.py:59",
+              bl_launches["BTLM-3B-8K"]["flash_fwd"],
+              h8_err["flash_fwd_d80"], h8_t["flash_fwd_d80"]),
+        entry("flash_decode_d80", "flash_decode_80.cu", "flash_decode.py:54",
+              bl_launches["BTLM-3B-8K"]["flash_decode"],
+              h8_err["flash_decode_d80"], h8_t["flash_decode_d80"]),
+        entry("flash_decode_paged_d80", "flash_decode_80.cu",
+              "flash_decode.py:54",
+              bl_launches["BTLM-3B-8K paged engine"]["flash_decode_paged"],
+              h8_err["flash_decode_paged_d80"],
+              h8_t["flash_decode_paged_d80"]),
+        entry("flash_decode_paged_d80_verify", "flash_decode_80.cu",
+              "flash_decode.py:54",
+              bl_launches["BTLM-3B-8K speculative engine"]
+              ["flash_decode_paged"],
+              h8_err["flash_decode_paged_d80_verify"],
+              h8_t["flash_decode_paged_d80_verify"]),
+        entry("flash_decode_kv8_d80", "flash_decode_80.cu",
+              "flash_decode.py:54",
+              h8_api["flash_decode_kv8_d80"]["flash_decode_paged_kv8"],
+              h8_err["flash_decode_kv8_d80"], h8_t["flash_decode_kv8_d80"]),
+        entry("flash_varlen_paged_d80", "flash_varlen_paged_80.cu",
+              "flash_varlen_paged.py:69",
+              h8_api["flash_varlen_paged_d80"]["flash_varlen_paged"],
+              h8_err["flash_varlen_paged_d80"],
+              h8_t["flash_varlen_paged_d80"]),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -8697,7 +9190,9 @@ def main() -> int:
         "score_training": {"baichuan": baichuan_train,
                            "softcap_gpt": softcap_train, "mha_err": sm_err,
                            "mha_launches": sm_launches,
-                           "kernel_resources": sb_res}}))
+                           "kernel_resources": sb_res},
+        "head_dim_80": {"timings": h8_t, "api_launches": h8_api,
+                        "btlm": btlm}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

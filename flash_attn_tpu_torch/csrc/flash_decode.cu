@@ -1,5 +1,5 @@
 // Split-KV decode attention over a linear or a paged KV cache for Hopper
-// (sm_90a), bf16 / fp16, head dim 64, 96, 128 or 256: the d = dv route (the
+// (sm_90a), bf16 / fp16, head dim 64, 80, 96, 128 or 256: the d = dv route (the
 // MLA route is csrc/flash_decode_mla.cu).
 //
 // Replaces the TPU kernel flash_attn_tpu/kernels/flash_decode.py:_decode_kernel
@@ -30,7 +30,8 @@
 // the tensor cores): a staged row of DS = staged_dim(D) columns (a head dim
 // of 96 is staged as 128: the TMA box past the cache's 96 columns fills
 // zeros, which add nothing to a score, and their output columns are never
-// written) is split across DS / 8 lanes, each lane reads its
+// written; 80 likewise, csrc/flash_decode_80.cu) is split across DS / 8
+// lanes, each lane reads its
 // 16 bytes of K and V from the stage, and a tile's scores of a lane's keys
 // are reduced across their lanes together and folded into the lane's (m, l,
 // acc) state in one step (one rescale a tile, one exp2 a key), with one
@@ -136,7 +137,7 @@ extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
       (causal && right != 0) || chunk < 0 || softcap < 0.f ||
       num_splits < 1 || (table != nullptr && table_width < 1) ||
       (cluster != 1 && cluster != 2 && cluster != 4) ||
-      (d != 64 && d != 96 && d != 128 && d != 256) ||
+      (d != 64 && d != 80 && d != 96 && d != 128 && d != 256) ||
       (kv_code != 0 && kv_code != KV_E4M3 && kv_code != KV_INT8) || (kv_code != 0 && !is_bf16))
     return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
@@ -172,6 +173,7 @@ extern "C" int fa_decode(const void* q, const void* kc, const void* vc,
   p.v_descale = v_descale;
   const CacheView c = {kc, vc, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, d, is_bf16};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80) return (int)run_decode_80(c, p, cluster, st);
   if (kv_code != 0) return (int)run_decode_kv8(c, p, cluster, st);
   return (int)(is_bf16 ? launch_d<__nv_bfloat16, 2>(c, p, cluster, st)
                        : launch_d<__half, 2>(c, p, cluster, st));

@@ -1,9 +1,10 @@
 // B4's d = dv route (csrc/flash_decode.cu) as templates over the query
 // type, the head dim, the rows a block holds, the ring and the bytes of a
 // cache element, shared by flash_decode.cu, which holds the C entry point
-// and the instantiations over caches of q's type, and
-// flash_decode_kv8.cu, which holds those over 1-byte caches (bf16 q), so
-// that the two sources build side by side. See flash_decode.cu for the
+// and the instantiations over caches of q's type, flash_decode_kv8.cu,
+// which holds those over 1-byte caches (bf16 q), and flash_decode_80.cu,
+// which holds both kinds at head dim 80, so that the three sources build
+// side by side. See flash_decode.cu for the
 // design.
 #pragma once
 
@@ -87,10 +88,10 @@ constexpr int wide_tk() { return DS == 256 ? 32 : 64; }
 template <int DS>
 constexpr int wide_stages() { return DS == 64 ? 4 : DS == 128 ? 3 : 2; }
 
-// Columns a staged K or V row takes: the head dim, 96 padded to 128 so that
-// a key's lanes divide a warp.
+// Columns a staged K or V row takes: the head dim, 80 and 96 padded to 128
+// so that a key's lanes divide a warp.
 template <int D>
-__host__ __device__ constexpr int staged_dim() { return D == 96 ? 128 : D; }
+__host__ __device__ constexpr int staged_dim() { return D == 80 || D == 96 ? 128 : D; }
 
 template <typename T>
 __device__ __forceinline__ void unpack8(const uint4& u, float* f) {
@@ -519,6 +520,11 @@ cudaError_t launch_d(const CacheView& c, const DecodeParams& p, int cluster, cud
 // The instantiations over 1-byte caches (bf16 q), in csrc/flash_decode_kv8.cu.
 cudaError_t run_decode_kv8(const CacheView& c, const DecodeParams& p, int cluster,
                            cudaStream_t st);
+
+// The instantiations at head dim 80, over caches of q's type and of 1-byte
+// codes, in csrc/flash_decode_80.cu.
+cudaError_t run_decode_80(const CacheView& c, const DecodeParams& p, int cluster,
+                          cudaStream_t st);
 
 
 }  // namespace decode

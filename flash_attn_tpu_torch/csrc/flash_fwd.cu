@@ -1,5 +1,5 @@
 // Dense attention forward for Hopper (sm_90a) on wgmma and TMA, bf16 / fp16,
-// head dim 64, 96, 128 or 256.
+// head dim 64, 80, 96, 128 or 256.
 //
 // Replaces the TPU kernel flash_attn_tpu/kernels/flash_fwd.py:_fwd_kernel,
 // together with the causal diagonal work of
@@ -29,6 +29,9 @@
 // earlier releases, with the same bits and time. softcap and ALiBi (B1's
 // part of flash_fwd.py:180-247) run in the SCORE instantiations, with and
 // without the band (csrc/flash_fwd_score.cu; the kernel in flash_fwd.cuh).
+// Head dim 80 (BTLM) runs every form in instantiations of its own
+// (csrc/flash_fwd_80.cu), the tile of 96: two 64-column panels whose
+// columns past 80 TMA fills with zeros.
 //
 // Conventions: q (b, sq, h, d), k/v (b, sk, h_k, d) by element strides, the
 // head dim contiguous, 16-byte aligned starts and strides (TMA); out in q's
@@ -73,7 +76,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       int sink, int chunk, int band, float softcap, const float* slopes,
                       int64_t slope_sb, int is_bf16, void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || b < 1 || sq < 1 || sk < 1 || h_k < 1 ||
-      h % h_k != 0 || (d != 64 && d != 96 && d != 128 && d != 256) || sink < 0 ||
+      h % h_k != 0 || (d != 64 && d != 80 && d != 96 && d != 128 && d != 256) || sink < 0 ||
       chunk < 0 || (causal && right != 0 && band) || softcap < 0.f)
     return (int)cudaErrorInvalidValue;
   FwdMaps maps;
@@ -103,8 +106,9 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
   p.slopes = slopes;
   p.slope_sb = slope_sb;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (softcap > 0.f || slopes != nullptr)
-    return (int)run_fwd_score(is_bf16, maps, p, b, d, band, st);
+  const bool score = softcap > 0.f || slopes != nullptr;
+  if (d == 80) return (int)run_fwd_80(is_bf16, maps, p, b, band, score, st);
+  if (score) return (int)run_fwd_score(is_bf16, maps, p, b, d, band, st);
   return (int)(is_bf16 ? launch_band<__nv_bfloat16>(maps, p, b, d, band, st)
                        : launch_band<__half>(maps, p, b, d, band, st));
 }

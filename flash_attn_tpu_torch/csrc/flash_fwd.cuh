@@ -1,8 +1,9 @@
 // The dense forward's kernel (B1, csrc/flash_fwd.cu) as templates over the
 // element type, the head dim, BAND (the band masks) and SCORE (softcap and
 // ALiBi), shared by flash_fwd.cu, which holds the C entry point and the
-// instantiations without SCORE, and flash_fwd_score.cu, which holds those
-// with it, so that the two sources build side by side.
+// instantiations without SCORE, flash_fwd_score.cu, which holds those
+// with it, and flash_fwd_80.cu, which holds every form at head dim 80, so
+// that the three sources build side by side.
 #pragma once
 
 #include "fwd_sm90.cuh"
@@ -100,6 +101,11 @@ cudaError_t launch_d(const FwdMaps& maps, const FwdParams& p, int b, int d, cuda
 // without the band.
 cudaError_t run_fwd_score(bool bf16, const FwdMaps& maps, const FwdParams& p, int b, int d,
                           bool band, cudaStream_t st);
+
+// The head dim 80 instantiations' launch (csrc/flash_fwd_80.cu): every form
+// the other head dims take, with or without the band and the score map.
+cudaError_t run_fwd_80(bool bf16, const FwdMaps& maps, const FwdParams& p, int b, bool band,
+                       bool score, cudaStream_t st);
 
 }  // namespace dense_fwd
 }  // namespace fa

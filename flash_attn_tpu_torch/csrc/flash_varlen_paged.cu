@@ -1,6 +1,7 @@
 // Packed-varlen prefill attention over a paged KV cache for Hopper (sm_90a)
-// on wgmma and TMA, bf16 / fp16, head dim 64, 96, 128 or 256: the prefix-cached
-// chunked prefill of the serving engine.
+// on wgmma and TMA, bf16 / fp16, head dim 64, 80, 96, 128 or 256: the
+// prefix-cached chunked prefill of the serving engine (head dim 80 in
+// csrc/flash_varlen_paged_80.cu).
 //
 // Replaces the TPU kernel
 // flash_attn_tpu/kernels/flash_varlen_paged.py:_varlen_paged_kernel (B8).
@@ -103,7 +104,7 @@ extern "C" int fa_varlen_paged(
     void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || h_k < 1 || h % h_k != 0 ||
       (causal && right != 0 && band) ||
-      (d != 64 && d != 96 && d != 128 && d != 256) ||
+      (d != 64 && d != 80 && d != 96 && d != 128 && d != 256) ||
       page_size < 1 || table_width < 1 || num_pages < 1 || b < 1 || softcap < 0.f ||
       (int64_t)num_tiles * h > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
@@ -144,6 +145,7 @@ extern "C" int fa_varlen_paged(
                               {v_ss, v_sh, v_sp}, p.box_rows)))
     return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80) return (int)run_varlen_paged_80(is_bf16, maps, p, band, softcap > 0.f, st);
   if (softcap > 0.f) return (int)run_varlen_paged_score(is_bf16, maps, p, d, band, st);
   return (int)(is_bf16 ? launch_band<__nv_bfloat16>(maps, p, d, band, st)
                        : launch_band<__half>(maps, p, d, band, st));

@@ -1,8 +1,9 @@
 // B8's kernel (csrc/flash_varlen_paged.cu) as templates over the element
 // type, the head dim, BAND (a window) and SCORE (softcap), shared by
 // flash_varlen_paged.cu, which holds the C entry point and the
-// instantiations without SCORE, and flash_varlen_paged_score.cu, which
-// holds those with it, so that the two sources build side by side.
+// instantiations without SCORE, flash_varlen_paged_score.cu, which holds
+// those with it, and flash_varlen_paged_80.cu, which holds every form at
+// head dim 80, so that the three sources build side by side.
 #pragma once
 
 #include "fwd_sm90.cuh"
@@ -142,6 +143,11 @@ cudaError_t launch_d(const FwdMaps& maps, const VarlenPagedParams& p, int d, cud
 // or without the window.
 cudaError_t run_varlen_paged_score(bool bf16, const FwdMaps& maps, const VarlenPagedParams& p,
                                    int d, bool band, cudaStream_t st);
+
+// The head dim 80 instantiations' launch (csrc/flash_varlen_paged_80.cu),
+// with or without the window and the cap.
+cudaError_t run_varlen_paged_80(bool bf16, const FwdMaps& maps, const VarlenPagedParams& p,
+                                bool band, bool score, cudaStream_t st);
 
 }  // namespace varlen_paged
 }  // namespace fa

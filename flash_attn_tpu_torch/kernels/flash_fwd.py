@@ -28,7 +28,7 @@ from flash_attn_tpu_torch.dispatch.band import (
     reach_window,
 )
 from flash_attn_tpu_torch.dispatch.config import (
-    HEAD_DIMS,
+    FWD_HEAD_DIMS,
     FWD_TILE,
     check_head_dims,
 )
@@ -94,7 +94,7 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
                         alibi_slopes=None):
     """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
     contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
-    fp32). CUDA: bf16/fp16, d in HEAD_DIMS (64, 96, 128, 256),
+    fp32). CUDA: bf16/fp16, d in FWD_HEAD_DIMS (64, 80, 96, 128, 256),
     h % h_k == 0. ``window_size`` (left, right) with None for no bound,
     ``sink_token_length`` and ``attention_chunk`` as in the JAX function
     (dispatch/band.py); ``softcap`` (0: none) and ``alibi_slopes`` ((h,) or
@@ -109,7 +109,7 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
     bk_, h_k, sk, dk = k.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_fwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    check_head_dims("flash_fwd", d, dk, v.shape[-1], HEAD_DIMS)
+    check_head_dims("flash_fwd", d, dk, v.shape[-1], FWD_HEAD_DIMS)
     if bk_ != b or h % h_k or v.shape != k.shape:
         raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")

@@ -2,7 +2,7 @@
 ``csrc/flash_varlen_paged.cu`` and its plain PyTorch version.
 
 Port of flash_attn_tpu/kernels/flash_varlen_paged.py
-``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in HEAD_DIMS,
+``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in FWD_HEAD_DIMS,
 with its sliding window, :249-254, its softcap, :225-233, and its
 descales, :230-241, :276-277, over pages of q's type or of 1-byte codes;
 no learnable sink or ``qv``: the JAX kernel has no chunk, sink tokens or
@@ -39,7 +39,7 @@ from flash_attn_tpu_torch.dispatch.band import (
     reach_window,
 )
 from flash_attn_tpu_torch.dispatch.config import (
-    HEAD_DIMS,
+    FWD_HEAD_DIMS,
     FWD_TILE,
     check_head_dims,
 )
@@ -167,7 +167,7 @@ def flash_attention_varlen_paged_fwd(
         raise ValueError(f"flash_varlen_paged kernel: dtype {q.dtype} "
                          "(bf16/fp16 only)")
     check_head_dims("flash_varlen_paged", d, dk, v_pages.shape[-1],
-                    HEAD_DIMS)
+                    FWD_HEAD_DIMS)
     check_cache_dtype("flash_varlen_paged kernel", k_pages.dtype, q.dtype)
     for name, x in (("qk_descale", qk_descale), ("v_descale", v_descale)):
         if x is not None and (x.device != q.device or x.dtype != torch.float32

@@ -22,8 +22,10 @@ Where the JAX adapters differ, the port follows the HF model:
  - Falcon with ``alibi`` (Falcon-RW) raises: JAX's adapter ignores the flag
    and maps the model as a rotary one (ROADMAP.md queue C).
 BTLM and Baichuan-13B take ALiBi positions (``use_alibi``), served and
-trained (BTLM's head dim 80 on the CPU alone: the card's kernels take 64,
-96, 128 and 256).
+trained. BTLM's head dim 80 serves on the card (the forward kernels' 80
+instantiations: prefill, decode and the engines) and trains on the CPU
+alone: the card's backward kernels take 64, 96, 128 and 256 (ROADMAP.md
+queue A, item 7).
 """
 
 from typing import Dict

@@ -282,3 +282,86 @@ def kv_codes(x, dtype):
     if dtype == torch.float8_e4m3fn:
         return x.clamp(-448.0, 448.0).to(dtype), 1.0
     return x.to(dtype), 1.0
+
+
+# Head dim 80 on the card (B1, B4 d = dv and B8 at 80, in sources of their
+# own). BTLM-3B-8K (cerebras/btlm-3b-8k-base config.json): 32 heads of 80,
+# ALiBi, and muP's mup_scale_qk_dot_by_d, a softmax scale of 1/d; the cases
+# named after it run at BTLM_SCALE, the rest at 1/sqrt(d).
+BTLM_HEADS, BTLM_HEAD_DIM = 32, 80
+BTLM_SCALE = 1.0 / BTLM_HEAD_DIM
+HD80_FWD_CASES = [  # (b, sq, sk, h, h_k, d, causal), FWD_CASES' form: B1
+    # without the band or the map at a GQA shape, and sq < sk not causal
+    (2, 2048, 2048, 32, 8, 80, True),
+    (2, 1000, 1300, 16, 16, 80, False),
+]
+HD80_BAND_FWD_CASES = [  # BAND_FWD_CASES' form
+    ("window at a GQA shape, d=80", 2, 2048, 2048, 32, 8, 80, True,
+     (511, 0), 0, 0),
+    ("attention_chunk 512, d=80", 2, 2048, 2048, 16, 4, 80, True, (-1, -1),
+     512, 0),
+    ("4 sinks under a window of 300, sq < sk, d=80", 2, 1200, 1500, 16, 4, 80,
+     True, (300, 0), 0, 4),
+]
+HD80_SCORE_FWD_CASES = [  # SCORE_FWD_CASES' form; the first is BTLM's static
+    # prefill (8 x 512, ALiBi), timed into the kernels line
+    ("BTLM-3B-8K prefill", 8, 512, 512, BTLM_HEADS, BTLM_HEADS, 80, True,
+     0.0, "1d", (-1, -1), torch.bfloat16),
+    ("alibi (b, h), not causal, GQA 32/8, sq < sk, d=80", 2, 600, 1000, 32,
+     8, 80, False, 0.0, "2d", (-1, -1), torch.bfloat16),
+    ("alibi under a window, causal sq > sk (rows with no key), d=80", 2, 900,
+     500, 16, 16, 80, True, 0.0, "1d", (200, 0), torch.bfloat16),
+    ("both under a window, d=80, fp16", 2, 1000, 1000, 16, 4, 80, True, 30.0,
+     "2d", (255, 0), torch.float16),
+]
+HD80_SCORE_DECODE_CASES = [  # SCORE_DECODE_CASES' form; the first three
+    # timed: BTLM's static decode step (b = 8), its engine's decode step (16
+    # slots, pages of 256) and verify step (sq = 5), ALiBi
+    ("BTLM-3B-8K decode step", 8, 1, BTLM_HEADS, BTLM_HEADS, 80, 0, 543, 0.0,
+     "1d", 0, True),
+    ("BTLM-3B-8K engine decode step", 16, 1, BTLM_HEADS, BTLM_HEADS, 80, 256,
+     543, 0.0, "1d", 0, True),
+    ("BTLM-3B-8K engine verify step", 16, 5, BTLM_HEADS, BTLM_HEADS, 80, 256,
+     543, 0.0, "1d", 0, True),
+    ("both, GQA group 4, 3 splits, d=80", 4, 1, 32, 8, 80, 0, 3000, 30.0,
+     "2d", 3, True),
+    ("alibi, not causal, sq = 5, 1 split, pages of 16, d=80", 4, 5, 16, 4,
+     80, 16, 900, 0.0, "2d", 1, False),
+]
+HD80_BAND_DECODE_CASES = [  # BAND_DECODE_CASES' form
+    ("window, verify step, pages of 64, d=80", 4, 5, 32, 8, 80, 64, 3000,
+     (511, 0), 0, 0),
+]
+HD80_KVQUANT_DECODE_CASES = [  # KVQUANT_DECODE_CASES' form; the first timed:
+    # BTLM's engine decode step over an fp8 page pool with descales (no
+    # slopes, so that the timed yardsticks compute the same function; the
+    # last case takes them)
+    ("BTLM-3B-8K engine decode step, fp8", 16, 1, BTLM_HEADS, BTLM_HEADS, 80,
+     256, 543, torch.float8_e4m3fn, (-1, -1), None, 0),
+    ("GQA 16/4, linear, d=80, int8", 4, 1, 16, 4, 80, 0, 700, torch.int8,
+     (-1, -1), None, 0),
+    ("alibi, GQA 16/4, verify step, d=80, fp8", 4, 5, 16, 4, 80, 64, 700,
+     torch.float8_e4m3fn, (-1, -1), "2d", 0),
+]
+# B8 at 80: BTLM's width at the engine's prefix-cached admission (8 chunks
+# of 256 over 512 keys, pages of 256; timed), ragged under a window and
+# under the cap, then with descales over 1-byte pages (KVQUANT_VARLEN_CASES'
+# form)
+HD80_VARLEN_CASES = [  # (case of VARLEN_CASES' form, softcap, window)
+    (("prefix admission, d=80", [256] * 8, [512] * 8, None, BTLM_HEADS,
+      BTLM_HEADS, 80, 256, torch.bfloat16, True), 0.0, (-1, -1)),
+    (("ragged, GQA 16/4, window, d=80", [300, 17, 128, 64],
+      [812, 17, 400, 264], None, 16, 4, 80, 64, torch.bfloat16, True), 0.0,
+     (100, 0)),
+    (("ragged, GQA 16/4, cap, d=80, fp16", [300, 17, 128, 64],
+      [812, 17, 400, 264], None, 16, 4, 80, 64, torch.float16, True), 30.0,
+     (-1, -1)),
+]
+HD80_KVQUANT_VARLEN_CASES = [
+    (("prefix admission, fp8, d=80", [256] * 8, [512] * 8, None, BTLM_HEADS,
+      BTLM_HEADS, 80, 256, torch.bfloat16, True, torch.float8_e4m3fn),
+     (-1, -1), 0.0),
+    (("ragged, GQA 16/4, d=80, int8", [300, 17, 128, 64],
+      [812, 17, 400, 264], None, 16, 4, 80, 64, torch.bfloat16, True,
+      torch.int8), (-1, -1), 0.0),
+]

@@ -23,6 +23,14 @@ from flash_attn_tpu_torch.utils.cases import (
     BAND_DECODE_CASES,
     BAND_FWD_CASES,
     BAND_VARLEN_CASE,
+    HD80_BAND_DECODE_CASES,
+    HD80_BAND_FWD_CASES,
+    HD80_FWD_CASES,
+    HD80_KVQUANT_DECODE_CASES,
+    HD80_KVQUANT_VARLEN_CASES,
+    HD80_SCORE_DECODE_CASES,
+    HD80_SCORE_FWD_CASES,
+    HD80_VARLEN_CASES,
     KVQUANT_DECODE_CASES,
     KVQUANT_VARLEN_CASES,
     MISTRAL_WINDOW,
@@ -1444,7 +1452,9 @@ VARLEN_PAGED_WIDE_CASES = [
 
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("case", VARLEN_CASES + VARLEN_PAGED_EDGE_CASES
-                         + VARLEN_PAGED_WIDE_CASES, ids=lambda c: c[0])
+                         + VARLEN_PAGED_WIDE_CASES
+                         + [c[0] for c in HD80_VARLEN_CASES],
+                         ids=lambda c: c[0])
 def test_varlen_paged_kernel_cases_on_the_card(case):
     """B8 against its plain version on chip_smoke.py's shapes and the edge
     cases above, with NaN in every page slot past seqlens_k (and in the
@@ -2204,12 +2214,104 @@ def test_wide_head_dim_refusals_on_the_card():
 
 
 @pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", HD80_FWD_CASES, ids=str)
+def test_head_dim_80_forward_matches_plain_version_on_the_card(case):
+    """B1 at head dim 80 without the band or the map (the instantiation of
+    flash_fwd_80.cu): the 2x rule against the fp32 plain forward with a
+    bf16 reference, lse within 1e-3, the same bits twice, one launch a
+    call; over a q whose heads of 80 sit in rows of 96 columns, the last 16
+    NaN, the same bits (the maps carry 80 columns: TMA fills the tile's
+    columns past them with zeros, not with the neighbours')."""
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        check_against_ref,
+    )
+
+    b, sq, sk, h, h_k, d, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(sq + h)
+    q, k, v = (torch.randn(b, n, heads, d, device="cuda", generator=gen)
+               .bfloat16() for n, heads in ((sq, h), (sk, h_k), (sk, h_k)))
+    args = [x.transpose(1, 2) for x in (q, k, v)]
+    before = flash_fwd.launches
+    out, lse = flash_fwd.flash_attention_fwd(*args, causal=causal)
+    again = flash_fwd.flash_attention_fwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(
+        *(x.float() for x in args), causal=causal)
+    ref_lp, _ = attention_ref(q, k, v, causal=causal, upcast=False)
+    check_against_ref(out.transpose(1, 2), ref.transpose(1, 2), ref_lp,
+                      msg=str(case))
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    wide = torch.full((b, sq, h, 96), float("nan"), device="cuda",
+                      dtype=torch.bfloat16)
+    wide[..., :d] = q
+    out_w, _ = flash_fwd.flash_attention_fwd(
+        wide[..., :d].transpose(1, 2), *args[1:], causal=causal)
+    assert torch.equal(out_w, out)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_head_dim_80_training_refusals_on_the_card():
+    """Head dim 80 serves on the card and trains on the CPU alone: a
+    gradient through flash_attn_func (and its packed form), the dense
+    flash_attn_varlen_func (packed input: B6's and B7's forwards), MHA in
+    train mode with parameters that require grad and MHA on packed input
+    raise NotImplementedError naming queue A, item 7, before any kernel
+    launches; the same calls without a gradient run the forward kernels at
+    80 (flash_attn_func, MHA's train mode under no_grad, prefill and
+    decode)."""
+    from flash_attn_tpu_torch import (
+        flash_attn_qkvpacked_func,
+        flash_attn_varlen_func,
+    )
+    from flash_attn_tpu_torch.modules.mha import MHA, KVCache
+
+    def randn(*shape, **kw):
+        return torch.randn(*shape, device="cuda", dtype=torch.bfloat16, **kw)
+
+    q = randn(1, 64, 2, 80, requires_grad=True)
+    qkv = randn(1, 64, 3, 2, 80, requires_grad=True)
+    x = randn(64, 2, 80, requires_grad=True)
+    cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
+    mha = MHA(160, 2, causal=True, use_alibi=True, dtype=torch.bfloat16,
+              max_decode_seqlen=128)
+    before = _counts()
+    for call in (lambda: flash_attn_func(q, q, q, causal=True),
+                 lambda: flash_attn_qkvpacked_func(qkv, causal=True),
+                 lambda: flash_attn_varlen_func(x, x, x, cu, cu, 64, 64),
+                 lambda: flash_attn_varlen_func(x.detach(), x.detach(),
+                                                x.detach(), cu, cu, 64, 64),
+                 lambda: mha(randn(1, 64, 160)),
+                 lambda: mha(randn(64, 160), cu_seqlens=cu, max_seqlen=64)):
+        with pytest.raises(NotImplementedError, match="queue A, item 7"):
+            call()
+    assert _counts() == before
+    fwd = "flash_attn_tpu_torch.kernels.flash_fwd.launches"
+    dec = "flash_attn_tpu_torch.kernels.flash_decode.launches"
+    with torch.no_grad():
+        out, n = _counted(lambda: flash_attn_func(q, q, q, causal=True))
+        assert bool(torch.isfinite(out).all()) and n == {fwd: 1}
+        y, n = _counted(lambda: mha(randn(2, 64, 160)))
+        assert bool(torch.isfinite(y).all())
+        assert n == {fwd: 1, fwd + "_score": 1}
+        cache = KVCache()
+        mha(randn(2, 64, 160), mode="prefill", cache=cache)
+        y, n = _counted(lambda: mha(randn(2, 1, 160), mode="decode",
+                                    cache=cache))
+        assert bool(torch.isfinite(y).all())
+        assert n == {dec: 1, dec + "_score": 1}
+
+
+@pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("mode", ["static", "paged", "prefix"])
-@pytest.mark.parametrize("n_embd, n_head", [(384, 4), (512, 2)],
-                         ids=["d96", "d256"])
+@pytest.mark.parametrize("n_embd, n_head", [(384, 4), (512, 2), (320, 4)],
+                         ids=["d96", "d256", "d80"])
 def test_graphed_decode_at_wide_head_dims_equals_eager_on_the_card(
         n_embd, n_head, mode):
-    """A 2-layer GPT at head dim 96 and 256 serves on the card: static
+    """A 2-layer GPT at head dim 96, 256 and 80 serves on the card: static
     decode replaying its captured step (B1, then B4 over a linear cache)
     gives the eager step's tokens and scores bitwise, and the engine's
     captured decode block (B4 over pages; admissions through B1, or B8
@@ -2309,7 +2411,8 @@ def _band_refs(q, k, v, causal, band):
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", BAND_FWD_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", BAND_FWD_CASES + HD80_BAND_FWD_CASES,
+                         ids=lambda c: c[0])
 def test_band_forward_kernel_matches_plain_version_on_the_card(case):
     """B1's band instantiation on every BAND_FWD_CASES case (one batch row
     of it): the 2x rule against the fp32 plain forward with a bf16
@@ -2340,7 +2443,8 @@ def test_band_forward_kernel_matches_plain_version_on_the_card(case):
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", BAND_DECODE_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", BAND_DECODE_CASES + HD80_BAND_DECODE_CASES,
+                         ids=lambda c: c[0])
 def test_band_decode_kernel_matches_plain_version_on_the_card(case):
     """B4 under the band on every BAND_DECODE_CASES case, linear and paged:
     the split partials against the plain version's on the CPU (lse -inf
@@ -2788,7 +2892,8 @@ def _score_refs(q, k, v, causal, kw):
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", SCORE_FWD_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", SCORE_FWD_CASES + HD80_SCORE_FWD_CASES,
+                         ids=lambda c: c[0])
 def test_score_forward_kernel_matches_plain_version_on_the_card(case):
     """B1's score instantiation (softcap, ALiBi, both, under a window) on
     every SCORE_FWD_CASES case (two batch rows of it, the (b, h) slopes of
@@ -2821,7 +2926,8 @@ def test_score_forward_kernel_matches_plain_version_on_the_card(case):
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", SCORE_DECODE_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", SCORE_DECODE_CASES + HD80_SCORE_DECODE_CASES,
+                         ids=lambda c: c[0])
 def test_score_decode_kernel_matches_plain_version_on_the_card(case):
     """B4 with softcap or ALiBi on every SCORE_DECODE_CASES case, linear and
     paged: the split partials against the plain version's on the CPU (lse
@@ -2891,7 +2997,9 @@ def test_score_decode_kernel_matches_plain_version_on_the_card(case):
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", SCORE_VARLEN_CASES, ids=lambda c: c[0][0])
+@pytest.mark.parametrize("case", SCORE_VARLEN_CASES
+                         + [c for c in HD80_VARLEN_CASES if c[1] > 0],
+                         ids=lambda c: c[0][0])
 def test_score_varlen_paged_kernel_matches_plain_version_on_the_card(case):
     """B8's score instantiation (the cap, with and without a window) on
     SCORE_VARLEN_CASES: the 2x rule, lse within 1e-3 and -inf on the same
@@ -3205,7 +3313,8 @@ def test_score_varlen_ragged_matches_plain_version_on_the_card(cap, kind,
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", KVQUANT_DECODE_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", KVQUANT_DECODE_CASES
+                         + HD80_KVQUANT_DECODE_CASES, ids=lambda c: c[0])
 def test_kvquant_decode_kernel_matches_plain_version_on_the_card(case):
     """B4 over a 1-byte cache with distinct (b, h_k) descales on every
     KVQUANT_DECODE_CASES case: the split partials against the plain
@@ -3259,7 +3368,8 @@ def test_kvquant_decode_kernel_matches_plain_version_on_the_card(case):
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", KVQUANT_VARLEN_CASES, ids=lambda c: c[0][0])
+@pytest.mark.parametrize("case", KVQUANT_VARLEN_CASES
+                         + HD80_KVQUANT_VARLEN_CASES, ids=lambda c: c[0][0])
 def test_kvquant_varlen_paged_matches_plain_version_on_the_card(case):
     """B8 with descales on every KVQUANT_VARLEN_CASES case, over 1-byte
     pages (through kv_dequant's conversion, whose pool equals the plain

@@ -31,8 +31,9 @@ With --sass it compiles the sources of the kernels that share B10's tiles
 (flash_fwd.cu, flash_varlen_fwd.cu and its band instantiations,
 flash_varlen_paged.cu, flash_blocksparse.cu, and the dense and varlen
 backwards' sources: flash_bwd.cu, flash_varlen.cu, their head dims 96 and
-256 and their band instantiations) in both trees with nvcc -cubin, all
-side by side, and says, kernel by
+256 and their band instantiations), the score instantiations of B1 and B8
+and the decode route's sources (flash_decode.cu, flash_decode_kv8.cu) in
+both trees with nvcc -cubin, all side by side, and says, kernel by
 kernel, whether the machine code (cuobjdump -sass, with the file-specific
 part of the names taken out) is the same, under the kernel's own name or
 another one; exit 1 if a kernel of ROOT_A compiles to code that ROOT_B
@@ -58,7 +59,9 @@ SASS_SOURCES = ["flash_fwd.cu", "flash_varlen_fwd.cu", "flash_varlen_fwd_band.cu
                 "flash_varlen_paged.cu", "flash_blocksparse.cu", "flash_bwd.cu",
                 "flash_bwd_wide.cu", "flash_bwd_band.cu", "flash_bwd_band_wide.cu",
                 "flash_varlen.cu", "flash_varlen_wide.cu", "flash_varlen_band.cu",
-                "flash_varlen_band_wide.cu"]
+                "flash_varlen_band_wide.cu", "flash_fwd_score.cu",
+                "flash_varlen_paged_score.cu", "flash_decode.cu",
+                "flash_decode_kv8.cu"]
 
 
 def digest(*tensors) -> str:
