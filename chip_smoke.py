@@ -680,10 +680,11 @@ MISTRAL_SLOTS, MISTRAL_ENGINE_PROMPT, MISTRAL_ENGINE_NEW = 8, 5120, 32
 MISTRAL_PREFIX, MISTRAL_ENGINE_MAX_LEN = 4608, 5376
 # The depth at which the serving phases run GPT-NeoX-20B (44 layers) and
 # Mistral-7B (32), at full width: halved, then halved again when the head
-# dim 80 phases came, to keep the whole script near 900 s as it grows;
-# every kernel and shape of those paths is the same at any depth, and
-# each phase's launch checks count its layers.
-SERVE_LAYERS = {"GPT-NeoX-20B": 11, "Mistral-7B": 8}
+# dim 80 serving phases came, and cut again when its training phases
+# came, to keep the whole script near 900 s as it grows; every kernel and
+# shape of those paths is the same at any depth, and each phase's launch
+# checks count its layers.
+SERVE_LAYERS = {"GPT-NeoX-20B": 6, "Mistral-7B": 4}
 # The band in training: Mistral-7B-v0.1 (MISTRAL_7B) trained at full width
 # through the Llama adapter with window_size = (4095, 0) and the depth cut
 # to MISTRAL_TRAIN_LAYERS of 32 (2.0B parameters, as GPT-J-6B's 8 of 28),
@@ -7075,15 +7076,19 @@ def score_bwd_timing(qt, kt, vt, dot, out, lse, causal, kw, name, refs):
         mask = alibi_sdpa_mask(sl, b, h, sq, sk, causal, window, qt.dtype)
         rep = [x.repeat_interleave(group, dim=1) for x in (kt, vt)]
         leaves = [x.detach().requires_grad_() for x in (qt, *rep)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        scale = kw.get("softmax_scale")
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                  scale=scale)
         what = ("scaled_dot_product_attention with ALiBi's bias and the causal "
-                "bound as a float mask, K and V repeated to the query heads")
+                "bound as a float mask, K and V repeated to the query heads"
+                + ("" if scale is None else f", scale {scale:g}"))
         lib_b = {"library_ms": time_ms(lambda: torch.autograd.grad(
             sdpa_out, leaves, dot, retain_graph=True), runs=10),
             "library_call": what + ", backward (torch.autograd.grad)"}
         del sdpa_out, leaves
         lib_f = {"library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, *rep, attn_mask=mask), runs=10), "library_call": what}
+            qt, *rep, attn_mask=mask, scale=scale), runs=10),
+            "library_call": what}
         del mask, rep
     else:
         def keep(bi, hi, qi, ki):
@@ -7202,9 +7207,10 @@ def score_bwd_timing(qt, kt, vt, dot, out, lse, causal, kw, name, refs):
     return t
 
 
-def score_bwd_case(gen, case, timed: bool):
+def score_bwd_case(gen, case, timed: bool, scale=None):
     """B3's (and, where the case asks, B2's) score instantiations and the
-    preprocess on one SCORE_BWD_CASES case: dq, dk, dv by the 2x rule
+    preprocess on one SCORE_BWD_CASES case (at softmax scale ``scale``,
+    None: 1/sqrt(d)): dq, dk, dv by the 2x rule
     against the plain fp32 score backward (plain_bwd_refs, each chunk with
     its rows' slopes), each launch counted as the score map's (and the
     band's under a window), B3 the same bits twice; a requires_grad slopes
@@ -7226,6 +7232,8 @@ def score_bwd_case(gen, case, timed: bool):
     name, b, sq, sk, h, h_k, d, causal, cap, kind, window, dtype, fused = case
     window = normalize_window(window)
     kw = score_kw(cap, kind, b, h, window)
+    if scale is not None:
+        kw["softmax_scale"] = scale
     band = int(has_band(causal, reach_window(window, causal, sq, sk), 0))
 
     def randn(*shape):
@@ -7282,7 +7290,8 @@ def score_bwd_case(gen, case, timed: bool):
         sl = kw["alibi_slopes"].detach().clone().requires_grad_()
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         flash_attn_func(*leaves, causal=causal, softcap=cap, alibi_slopes=sl,
-                        window_size=window).backward(dout)
+                        window_size=window,
+                        softmax_scale=kw.get("softmax_scale")).backward(dout)
         require(torch.equal(sl.grad, torch.zeros_like(sl)),
                 f"{name}: the slopes' gradient is not zero")
         require(all(torch.equal(leaf.grad, g.transpose(1, 2))
@@ -7408,11 +7417,12 @@ def check_score_backward(gen, lib):
     return errs, timings, api, res
 
 
-def run_score_mha(gen, card):
+def run_score_mha(gen, card, forms=None):
     """Packed input (SCORE_MHA_LENS, cu_seqlens) through an MHA with ALiBi
     at Baichuan-13B's widths (5120 wide, 40 heads of 128, no rotary: B6's
     score forward, as JAX routes ALiBi) and one with the cap at the 913M
-    GPT's (2048 wide, 16 heads of 128, rotary: B7's score forward), forward
+    GPT's (2048 wide, 16 heads of 128, rotary: B7's score forward), or the
+    MHA arguments of ``forms`` (form -> MHA keywords and its "width"), forward
     and backward (B6's score backward) on the card against the same module
     on the CPU (the plain versions; fp32, and bf16 for the 2x rule) on the
     output and the gradients of x and both weights, and against the padded
@@ -7425,7 +7435,7 @@ def run_score_mha(gen, card):
     from flash_attn_tpu_torch.utils.cases import GEMMA2_SOFTCAP
     from flash_attn_tpu_torch.utils.testing import check_against_ref
 
-    forms = {
+    forms = forms or {
         "alibi": dict(num_heads=BAICHUAN_13B.num_attention_heads,
                       width=BAICHUAN_13B.hidden_size, use_alibi=True),
         "softcap": dict(num_heads=16, width=2048, softcap=GEMMA2_SOFTCAP,
@@ -7506,7 +7516,9 @@ def run_score_mha(gen, card):
                     f"call, beyond {bound_lp}")
             line.append(f"{what} against the dense call {gap:.3e}")
         print(f"packed MHA with {form} ({width} wide, {kw['num_heads']} heads "
-              f"of 128, lengths {lens}) on {card}: launches "
+              f"of {width // kw['num_heads']}, softmax scale "
+              f"{kw.get('softmax_scale') or 'the default'}, lengths {lens}) "
+              f"on {card}: launches "
               f"{launches[form]}; max abs err against the plain fp32 module on "
               f"the CPU " + ", ".join(line))
         del results, x, g, mods, mod, dense, dxs
@@ -8541,6 +8553,322 @@ def run_btlm(card):
     return launches, out
 
 
+# ---- Head dim 80 in training: B2, B3, B6's backward and their preprocess
+# and the packed forwards B6 and B7 at 80 (the *_80.cu sources), and
+# BTLM-3B-8K trained at full width ------------------------------------------
+
+# BTLM-3B-8K (BTLM_3B through the port's BTLM adapter: ALiBi, SwiGLU, muP's
+# scales, softmax scale 1/80) trained at full width at BTLM_TRAIN_BATCH x
+# BTLM_TRAIN_SEQ: its own 8K positions under ALiBi, the 8,192 tokens a step
+# of the other training cells. Reckoned before the run: 2.65B parameters at
+# ~12 bytes of training state each (bf16 weights and gradients, fp32
+# masters, bf16 moments) are ~32 GB; the activations of 8192 tokens ~0.95
+# GB a layer (Mistral-7B's ~1.75 GB a layer, scaled by 8 x its width + 3 x
+# its MLP's width), ~30 GB at 32 layers; with the ~13 GB by which
+# Baichuan-13B's peak passed its reckoning, ~75 GB at 32 layers.
+BTLM_TRAIN_LAYERS, BTLM_TRAIN_BATCH, BTLM_TRAIN_SEQ = 32, 1, 8192
+
+
+def hd80_bwd_case(gen, case):
+    """B3, B2 and the preprocess at head dim 80 without the band or the map
+    on one HD80_BWD_CASES case: dq, dk, dv by the 2x rule against the plain
+    fp32 backward (plain_bwd_refs), every launch counted, B3 the same bits
+    twice, the preprocess against its plain version; over the same rows
+    packed as b sequences B6's backward gives B3's bits, B6's forward and
+    B7 give B1's, and B6's preprocess the dense one's rows. Returns the
+    errors by kernels-line row (without the _d80 suffix)."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    b, sq, sk, h, h_k, d, causal, dtype = case
+    q, k, v, dout = (torch.randn(b, s, n, d, device="cuda",
+                                 generator=gen).to(dtype)
+                     for s, n in ((sq, h), (sk, h_k), (sk, h_k), (sq, h)))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    b3 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                       causal=causal)
+    again = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                          causal=causal)
+    b2 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                       causal=causal, deterministic=False)
+    torch.cuda.synchronize()
+    got = bwd_counts()
+    require(got == {"flash_fwd": 0, "flash_bwd_preprocess": 3,
+                    "fa_bwd_dkdv": 2, "fa_bwd_dq": 2, "flash_bwd_fused": 1,
+                    "flash_fwd_band": 0, "fa_bwd_dkdv_band": 0,
+                    "fa_bwd_dq_band": 0, "flash_bwd_fused_band": 0,
+                    **NO_SCORE},
+            f"backward launches at d=80 {case}: {got}")
+    require(all(torch.equal(a, c) for a, c in zip(b3, again)),
+            f"B3 differs between runs at d=80: {case}")
+    del again
+    out32, out_lp, ref, ref_lp = plain_bwd_refs(qt, kt, vt, dot, causal)
+    err_f, _ = check_against_ref(out.transpose(1, 2), out32.transpose(1, 2),
+                                 out_lp, msg=f"flash_fwd d=80 {case}")
+    errs, line = {}, []
+    for row, grads in (("flash_bwd", b3), ("flash_bwd_fused", b2)):
+        for gname, g, r, lp in zip("qkv", grads, ref, ref_lp):
+            err, err_lp = check_against_ref(
+                g.transpose(1, 2), r.transpose(1, 2), lp, atol=BWD_ATOL,
+                msg=f"{row} d{gname} d=80 {case}")
+            errs[row] = max(errs.get(row, 0.0), err)
+            line.append(f"{'B3' if row == 'flash_bwd' else 'B2'} d{gname} "
+                        f"{err:.3e} (low precision {err_lp:.3e})")
+    del out32, out_lp, ref, ref_lp, b2
+    delta, lse2 = flash_bwd.bwd_preprocess(dot, out, lse)
+    want_delta, want_lse2 = flash_bwd.bwd_preprocess_plain(
+        dot, out, lse, delta.shape[-1])
+    fin = torch.isfinite(want_lse2)
+    require(torch.equal(torch.isfinite(lse2), fin)
+            and float((lse2[fin] - want_lse2[fin]).abs().max()) <= 1e-5,
+            f"preprocess lse2 at d=80: {case}")
+    pre_err = float((delta - want_delta).abs().max())
+    require(pre_err <= 1e-3, f"preprocess delta err {pre_err} at d=80: {case}")
+    reset_kernel_counts()
+    b6 = packed_b6_backward(dot, qt, kt, vt, out, lse, causal)()
+    require(all(torch.equal(a, c) for a, c in zip(b3, b6)),
+            f"B6's backward over the same rows packed differs from B3's at "
+            f"d=80: {case}")
+    for label, (o, l) in zip(("B6's forward", "B7"),
+                             packed_forwards(qt, kt, vt, causal)):
+        require(torch.equal(o, out) and torch.equal(l, lse),
+                f"{label} over the same rows packed differs from B1's at "
+                f"d=80: {case}")
+    torch.cuda.synchronize()
+    got = kernel_counts()
+    require(got == want_counts(flash_varlen_fwd=1,
+                               flash_varlen_fwd_persistent=1,
+                               fa_varlen_bwd_preprocess=1,
+                               fa_varlen_bwd_dkdv=1, fa_varlen_bwd_dq=1),
+            f"packed launches at d=80 {case}: {got}")
+    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    pk = [x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+          for x in (dot, qt, kt, vt, out)]
+    lse_p = lse.permute(1, 0, 2).reshape(h, b * sq).contiguous()
+    meta = flash_varlen.varlen_meta(pk[1], pk[2], cu_q, cu_k, sq, sk, None,
+                                    None, causal, None)
+    vdelta, vlse2 = flash_varlen.varlen_bwd_preprocess(
+        pk[0], pk[4], lse_p, cu_q, cu_k, meta,
+        *(torch.empty_like(x) for x in pk[1:4]))
+    for i in range(b):
+        p0 = flash_varlen.padded_row(i * sq, i)
+        require(torch.equal(vdelta[:, p0:p0 + sq], delta[i, :, :sq])
+                and torch.equal(vlse2[:, p0:p0 + sq], lse2[i, :, :sq]),
+                f"B6's preprocess differs from the dense one's at d=80: "
+                f"{case}")
+    del b3, b6, pk
+    errs.update({"flash_bwd_preprocess": pre_err,
+                 "flash_varlen_bwd_preprocess": pre_err,
+                 "fa_varlen_bwd_dkdv": errs["flash_bwd"],
+                 "fa_varlen_bwd_dq": errs["flash_bwd"],
+                 "flash_varlen_fwd": err_f,
+                 "flash_varlen_fwd_persistent": err_f})
+    print(f"backward at d=80, b={b} sq={sq} sk={sk} {h}/{h_k} heads, "
+          f"{str(dtype)[6:]}, causal={causal}: B1 out {err_f:.3e}; "
+          + ", ".join(line) + f"; B3 bitwise equal twice, B6's backward "
+          f"over the same rows packed bitwise B3's, B6's forward and B7 "
+          f"bitwise B1's, B6's preprocess the dense one's rows; preprocess "
+          f"delta max abs err {pre_err:.3e}, lse2 within 1e-5")
+    return errs
+
+
+def hd80_preprocess_timing(gen, case):
+    """The dense and the packed preprocess at a HD80_SCORE_BWD_CASES case's
+    shape (BTLM-3B-8K's training shape: b x sq rows of 32 heads of 80,
+    the rows packed as b sequences for B6's), each beside its plain
+    version (the packed one, which reads the lengths back, on the host's
+    clock), torch.linalg.vecdot(dO, O) and a bound (the bytes of dO, O,
+    lse and the two padded outputs, against fp32's rate for the products).
+    Returns the timings by kernels-line row."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+
+    _, b, sq, sk, h, h_k, d, causal, _, _, _, dtype, _ = case
+    q, k, v, dout = (torch.randn(b, s, n, d, device="cuda",
+                                 generator=gen).to(dtype)
+                     for s, n in ((sq, h), (sk, h_k), (sk, h_k), (sq, h)))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal)
+    esz = qt.element_size()
+    lib = {"library_ms": time_ms(lambda: torch.linalg.vecdot(dot, out)),
+           "library_call": f"torch.linalg.vecdot(dO, O) (in "
+                           f"{str(dtype)[6:]})"}
+    sq_pad = -(-sq // 128) * 128
+    t = {"flash_bwd_preprocess": {
+        "ms": time_ms(lambda: flash_bwd.bwd_preprocess(dot, out, lse)),
+        "plain_ms": time_ms(lambda: flash_bwd.bwd_preprocess_plain(
+            dot, out, lse, 128)), **lib,
+        **bound(2 * b * h * sq * d, esz * 2 * b * h * sq * d + 4 * b * h * sq
+                + 2 * 4 * b * h * sq_pad, PEAK_FP32)}}
+    cu = torch.arange(b + 1, dtype=torch.int32, device="cuda") * sq
+    pk = [x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+          for x in (dot, out, qt, kt, vt)]
+    lse_p = lse.permute(1, 0, 2).reshape(h, b * sq).contiguous()
+    meta = flash_varlen.varlen_meta(pk[2], pk[3], cu, cu, sq, sk, None, None,
+                                    causal, None)
+    grads = [torch.empty_like(x) for x in pk[2:]]
+    rows = b * sq
+    t["flash_varlen_bwd_preprocess"] = {
+        "ms": time_ms(lambda: flash_varlen.varlen_bwd_preprocess(
+            pk[0], pk[1], lse_p, cu, cu, meta, *grads)),
+        "plain_ms": wall_ms(lambda: flash_varlen.varlen_bwd_preprocess_plain(
+            pk[0], pk[1], lse_p, cu, None)), **lib,
+        **bound(2 * h * rows * d, esz * 2 * rows * h * d + 4 * h * rows
+                + 2 * 4 * h * (rows + 132 * b), PEAK_FP32)}
+    for row, r in t.items():
+        print(f"{row}_d80 at {case[0]}: {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+              f"({r['library_call']})")
+    return t
+
+
+def check_head_dim_80_backward(gen, lib):
+    """Head dim 80 in training on the card (the kernels of flash_bwd_80.cu,
+    flash_bwd_score_80.cu, flash_varlen_80.cu, flash_varlen_score_80.cu and
+    flash_varlen_fwd_80.cu): B3, B2 and the preprocess without the band or
+    the map (HD80_BWD_CASES, hd80_bwd_case), with the band
+    (HD80_BAND_BWD_CASES, band_bwd_case) and with the score map
+    (HD80_SCORE_BWD_CASES, score_bwd_case; BTLM-3B-8K's training shape at
+    its scale 1/80 timed, with the counted
+    flash_attn_func(deterministic=False).backward() that is B2's only run
+    at 80, since no model path selects it), each against its plain version
+    by the 2x rule and the same bits twice, B6's backward over the same
+    rows bitwise B3's and B7's and B6's forwards bitwise B1's; the
+    preprocess kernels timed at BTLM's shape (hd80_preprocess_timing); no
+    kernel reading or writing past column 80 (kept_columns_check in each
+    form); and the registers and spills of every kernel at 80
+    (cuobjdump -res-usage). Returns the errors and timings by kernels-line
+    row, the counted flash_attn_func runs' launches and the registers."""
+    from flash_attn_tpu_torch.utils.cases import (
+        HD80_BAND_BWD_CASES,
+        HD80_BWD_CASES,
+        HD80_SCORE_BWD_CASES,
+        case_scale,
+    )
+    from flash_attn_tpu_torch.utils.testing import kept_columns_check
+
+    errs, timings, api = {}, {}, {}
+
+    def keep(row, err):
+        key = f"{row}_d80"
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    for case in HD80_BWD_CASES:
+        for row, e in hd80_bwd_case(gen, case).items():
+            keep(row, e)
+        torch.cuda.empty_cache()
+    for case in HD80_BAND_BWD_CASES:
+        e, _, _ = band_bwd_case(gen, case, timed=False)
+        for row, x in e.items():
+            keep(row.removesuffix("_band"), x)
+        torch.cuda.empty_cache()
+    for case in HD80_SCORE_BWD_CASES:
+        timed = case[0].startswith("BTLM")
+        e, t, a = score_bwd_case(gen, case, timed, case_scale(case[0]))
+        for row, x in e.items():
+            keep(row, x)
+        if timed:
+            timings.update({f"{row}_d80": r for row, r in t.items()})
+            api = a
+            timings.update({f"{row}_d80": r for row, r in
+                            hd80_preprocess_timing(gen, case).items()})
+        torch.cuda.empty_cache()
+    for form in ("plain", "band", "score"):
+        tails, gap = kept_columns_check(form)
+        print(f"head dim 80 ({form}): over inputs whose heads of 80 sit in "
+              f"rows of 96 (the last 16 NaN) every kernel gives the bits of "
+              f"contiguous inputs; {tails} outputs written into rows of 96 "
+              f"with a sentinel past column 80 (and B2's fp32 dQ buffer with "
+              f"a sentinel tail) keep every sentinel; B2's dq within "
+              f"{gap:.3e} of its contiguous run")
+    torch.cuda.empty_cache()
+    ty = "13__nv_bfloat16"
+    marks = {"preprocess": ("dense_bwd17preprocess_kernel", ty, "Li80E"),
+             "varlen preprocess": ("varlen_preprocess_kernel", ty, "Li80E")}
+    for form, flags in (("", "Lb0E"), ("band ", "Lb1ELb0E"),
+                        ("score ", "Lb1ELb1E")):
+        tail = "Lb0E" if not form else ""
+        marks.update({
+            f"{form}dkdv": ("dense_bwd11dkdv_kernel", ty,
+                            f"Li80ELb0E{flags}{tail}"),
+            f"{form}dkdv fused": ("dense_bwd11dkdv_kernel", ty,
+                                  f"Li80ELb1E{flags}{tail}"),
+            f"{form}dq": ("dense_bwd9dq_kernel", ty, f"Li80E{flags}{tail}"),
+            f"{form}varlen dkdv": ("varlen_dkdv_kernel", ty, f"Li80E{flags}"),
+            f"{form}varlen dq": ("varlen_dq_kernel", ty, f"Li80E{flags}"),
+            f"{form}B6 forward": ("17varlen_fwd_kernel", ty, f"Li80E{flags}"),
+            f"{form}B7": ("varlen_fwd_persistent_kernel", ty,
+                          f"Li80E{flags}")})
+    res = kernel_resources(lib, marks)
+    print("head dim 80 training kernels' registers / stack / local bytes a "
+          "thread (bf16; cuobjdump -res-usage): " + "; ".join(
+              f"{label} " + ", ".join(
+                  f"{u.get('REG')}/{u.get('STACK')}/{u.get('LOCAL')}"
+                  for u in us) for label, us in res.items()))
+    return errs, timings, api, res
+
+
+def run_btlm_training(card):
+    """BTLM-3B-8K trained at full width from its config.json numbers
+    (BTLM_3B through the port's BTLM adapter: ALiBi, SwiGLU, muP's scales,
+    32 heads of 80 at softmax scale 1/80, tied embeddings) with the depth
+    at BTLM_TRAIN_LAYERS, seeded weights (the trainer's initialisation) and
+    bf16 training state, by fit_checked at BTLM_TRAIN_BATCH x
+    BTLM_TRAIN_SEQ with score=True (per step and layer one score forward,
+    one preprocess, one score dK/dV and one score dQ at 80, no launch
+    without the map), a profile of one step and causal_check; then the
+    packed MHAs at BTLM's widths and scale (run_score_mha: B6's score
+    forward and backward under ALiBi, as JAX routes ALiBi, and B7 under
+    Gemma-2's cap), counted.
+    Returns the training's launches and measurements, and the packed
+    MHAs' launches and errors."""
+    from flash_attn_tpu_torch.models.hf_adapters import (
+        btlm_config_to_gpt_config,
+    )
+    from flash_attn_tpu_torch.utils.cases import BTLM_SCALE, GEMMA2_SOFTCAP
+
+    cut = SimpleNamespace(**{**vars(BTLM_3B),
+                             "num_hidden_layers": BTLM_TRAIN_LAYERS})
+    mcfg = btlm_config_to_gpt_config(cut, dtype=torch.bfloat16)
+    require(mcfg.use_alibi and mcfg.n_embd == 2560 and mcfg.n_head == 32
+            and mcfg.glu_act and mcfg.tie_word_embeddings
+            and mcfg.n_layer == BTLM_TRAIN_LAYERS,
+            "BTLM-3B-8K training: the adapter's config")
+    label = (f"BTLM-3B-8K training ({BTLM_TRAIN_LAYERS} of "
+             f"{BTLM_3B.num_hidden_layers} layers, 32 heads of 80, ALiBi, "
+             f"softmax scale 1/80)")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "btlm.bin")
+        write_token_file(path, mcfg.vocab_size)
+        launches, res, trainer, loader = fit_checked(
+            label, mcfg, path, BTLM_TRAIN_BATCH, BTLM_TRAIN_SEQ, score=True)
+        require(all(layer.mixer.head_dim == 80
+                    and layer.mixer.softmax_scale == BTLM_SCALE
+                    for layer in trainer.model.transformer.layers),
+                f"{label}: every MHA at head dim 80 and scale 1/80")
+        profile_step(trainer, loader, f"one {label} step", BTLM_TRAIN_BATCH,
+                     BTLM_TRAIN_SEQ)
+        res["causal_gaps"] = causal_check(trainer, loader, label)
+        print(f"{label}: step {res['step_ms']:.1f} ms (median of steps "
+              f"{TRAIN_WARM + 1}-{TRAIN_STEPS}), {res['tokens_per_s']:.0f} "
+              f"tokens/s, {res['tflops_per_s']:.1f} TFLOP/s "
+              f"(model_flops_per_token), peak {res['peak_gb']:.2f} GB "
+              f"(max_memory_allocated) on {card}")
+        del trainer, loader
+    torch.cuda.empty_cache()
+    widths = dict(num_heads=BTLM_3B.num_attention_heads,
+                  width=BTLM_3B.hidden_size, softmax_scale=BTLM_SCALE)
+    forms = {"alibi": dict(widths, use_alibi=True),
+             "softcap": dict(widths, softcap=GEMMA2_SOFTCAP)}
+    mha_launches, mha_errs = run_score_mha(torch.Generator(
+        device="cuda").manual_seed(80), card, forms)
+    return launches, res, mha_launches, mha_errs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -8677,6 +9005,11 @@ def main() -> int:
     h8_err, h8_t, h8_api = phase("head dim 80 kernel checks",
                                  check_head_dim_80_kernels, gen)
     bl_launches, btlm = phase("BTLM-3B-8K", run_btlm, card)
+    hb_err, hb_t, hb_api, hb_res = phase(
+        "head dim 80 backward kernel checks", check_head_dim_80_backward, gen,
+        lib)
+    btt_launches, btlm_train, hm_launches, hm_err = phase(
+        "BTLM-3B-8K training", run_btlm_training, card)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -8824,6 +9157,20 @@ def main() -> int:
               f"{BREADTH_SLOTS} slots) {btlm[k]['tokens_per_s']:.1f} "
               f"tokens/s, TTFT p50 {btlm[k]['ttft_p50_ms']:.1f} ms"
               for k in bl_eng) + f" on {card}")
+    bt3 = hb_t["flash_bwd_d80"]
+    print(f"BTLM-3B-8K trained at full width, {btlm_train['layers']} layers "
+          f"({btlm_train['params_b']:.2f}B parameters, 32 heads of 80, "
+          f"ALiBi, softmax scale 1/80), b={BTLM_TRAIN_BATCH} x "
+          f"{BTLM_TRAIN_SEQ}: step {btlm_train['step_ms']:.1f} ms, "
+          f"{btlm_train['tokens_per_s']:.0f} tokens/s, "
+          f"{btlm_train['tflops_per_s']:.1f} TFLOP/s, peak "
+          f"{btlm_train['peak_gb']:.2f} GB; loss "
+          f"{btlm_train['first_loss']:.4f} -> {btlm_train['last3_loss']:.4f} "
+          f"(full-logits CE {btlm_train['ce_ref']:.4f}); B3's score pair at "
+          f"80 at its shape (one layer) {bt3['ms']:.4f} ms beside the pair "
+          f"without the map {bt3['without_map_ms']:.4f} ms, SDPA's backward "
+          f"{bt3['library_ms']:.4f} ms and the bound {bt3['bound_ms']:.4f} ms "
+          f"({bt3['bound_largest']}) on {card}")
     print("phase wall times: " + ", ".join(
         f"{name} {sec:.1f} s" for name, sec in phases.items()))
 
@@ -9164,6 +9511,40 @@ def main() -> int:
               h8_api["flash_varlen_paged_d80"]["flash_varlen_paged"],
               h8_err["flash_varlen_paged_d80"],
               h8_t["flash_varlen_paged_d80"]),
+        # head dim 80 in training: B3's score pair and the preprocess in the
+        # BTLM-3B-8K training run, B2's in the counted
+        # flash_attn_func(deterministic=False).backward() at its shape (no
+        # model path selects B2), B6's score forward and backward and its
+        # preprocess in the packed ALiBi MHA at BTLM's widths, B7's in the
+        # packed capped one; timed at BTLM's training shape
+        entry("flash_bwd_preprocess_d80", "flash_bwd_80.cu",
+              "flash_bwd.py:408", btt_launches["flash_bwd_preprocess"],
+              hb_err["flash_bwd_preprocess_d80"],
+              hb_t["flash_bwd_preprocess_d80"]),
+        entry("flash_bwd_d80", "flash_bwd_score_80.cu", "flash_bwd.py:181",
+              btt_launches["fa_bwd_dkdv"] + btt_launches["fa_bwd_dq"],
+              hb_err["flash_bwd_d80"], hb_t["flash_bwd_d80"]),
+        entry("flash_bwd_fused_d80", "flash_bwd_score_80.cu",
+              "flash_bwd_fused.py:64", hb_api[False]["flash_bwd_fused"],
+              hb_err["flash_bwd_fused_d80"], hb_t["flash_bwd_fused_d80"]),
+        entry("flash_varlen_fwd_d80", "flash_varlen_fwd_80.cu",
+              "flash_varlen.py:79", hm_launches["alibi"]["flash_varlen_fwd"],
+              hb_err["flash_varlen_fwd_d80"], hb_t["flash_varlen_fwd_d80"]),
+        entry("flash_varlen_fwd_persistent_d80", "flash_varlen_fwd_80.cu",
+              "flash_varlen_persistent.py:72",
+              hm_launches["softcap"]["flash_varlen_fwd_persistent"],
+              hb_err["flash_varlen_fwd_persistent_d80"],
+              hb_t["flash_varlen_fwd_persistent_d80"]),
+        *(entry(f"{name}_d80", source, replaces,
+                sum(hm_launches[form][count] for form in hm_launches),
+                hb_err[f"{name}_d80"], hb_t[f"{name}_d80"])
+          for name, source, replaces, count in (
+              ("flash_varlen_bwd_preprocess", "flash_varlen_80.cu",
+               "flash_varlen.py:854", "fa_varlen_bwd_preprocess"),
+              ("fa_varlen_bwd_dkdv", "flash_varlen_score_80.cu",
+               "flash_varlen.py:462", "fa_varlen_bwd_dkdv"),
+              ("fa_varlen_bwd_dq", "flash_varlen_score_80.cu",
+               "flash_varlen.py:651", "fa_varlen_bwd_dq"))),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -9192,7 +9573,11 @@ def main() -> int:
                            "mha_launches": sm_launches,
                            "kernel_resources": sb_res},
         "head_dim_80": {"timings": h8_t, "api_launches": h8_api,
-                        "btlm": btlm}}))
+                        "btlm": btlm},
+        "head_dim_80_training": {"timings": hb_t, "api_launches": hb_api,
+                                 "kernel_resources": hb_res,
+                                 "btlm": btlm_train, "mha_err": hm_err,
+                                 "mha_launches": hm_launches}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

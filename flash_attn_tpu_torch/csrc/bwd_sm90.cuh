@@ -64,9 +64,13 @@
 // panel's last 32 with zeros: S^T and dP^T run over the 96 true columns
 // (6 slices of 16), dV, dK and dQ over both panels as at d = 128 (their
 // columns 96-127 sum those zeros and are never stored), so the register
-// plan is d = 128's. At d = 256 a 128-row block does not fit: 64 + 64 KV
-// rows a block would hold 2 x 64 x 256 fp32 accumulators a warpgroup (256
-// registers a thread before S^T and dP^T), and resident K and V of 128
+// plan is d = 128's. d = 80 runs on 96's plan: the second panel's last 48
+// columns are zeros, S^T and dP^T run 5 slices, the epilogues store 80
+// columns (10 16-byte chunks a bf16 row) and the fused pass's reductions
+// the 16 columns of the second panel that the head dim holds. At d = 256
+// a 128-row block does not fit: 64 + 64 KV rows a block would hold
+// 2 x 64 x 256 fp32 accumulators a warpgroup (256 registers a thread
+// before S^T and dP^T), and resident K and V of 128
 // rows (128 KB) beside two stages of 64-row Q + dO (128 KB) exceed the
 // 227 KB a block may use. So at 256 a block owns 64 rows (COL_SPLIT) and
 // both warpgroups work on them: each computes S^T and dP^T (dQ: S and dP)
@@ -252,8 +256,9 @@ struct BandRangeKWalk {
 };
 
 // The first element of a row that a lane takes in bwd_preprocess_row:
-// D / 32 consecutive elements a lane, or at d = 96 the pair 2 lane and,
-// for lanes below 16, the pair 64 + 2 lane.
+// D / 32 consecutive elements a lane, or at d = 80 and 96 the pair 2 lane
+// and, for lanes below (D - 64) / 2 (8 at 80, 16 at 96), the pair 64 +
+// 2 lane.
 template <int D>
 __device__ __forceinline__ int bwd_lane_elem(int lane) {
   return D % 64 == 0 ? lane * (D / 32) : 2 * lane;
@@ -275,9 +280,9 @@ __device__ __forceinline__ float bwd_preprocess_row(const T* dr, const T* orow) 
 #pragma unroll
     for (int i = 0; i < D / 32; i += 2) pair(i);
   } else {
-    static_assert(D == 96, "bwd_preprocess_row: head dim");
+    static_assert(D == 80 || D == 96, "bwd_preprocess_row: head dim");
     pair(0);
-    if ((threadIdx.x & 31) < 16) pair(64);
+    if ((threadIdx.x & 31) < (D - 64) / 2) pair(64);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffff, acc, off);

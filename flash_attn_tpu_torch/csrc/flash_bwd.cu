@@ -1,9 +1,10 @@
 // Dense attention backward for Hopper (sm_90a) on wgmma and TMA, bf16 /
-// fp16, head dims 64, 96, 128 and 256 (the kernels are in flash_bwd.cuh;
-// this source compiles 64 and 128 and holds the C entry points,
-// flash_bwd_wide.cu compiles 96 and 256, flash_bwd_band.cu and
+// fp16, head dims 64, 80, 96, 128 and 256 (the kernels are in
+// flash_bwd.cuh; this source compiles 64 and 128 and holds the C entry
+// points, flash_bwd_wide.cu compiles 96 and 256, flash_bwd_band.cu and
 // flash_bwd_band_wide.cu the band instantiations, flash_bwd_score.cu and
-// flash_bwd_score_wide.cu the score instantiations).
+// flash_bwd_score_wide.cu the score instantiations, flash_bwd_80.cu and
+// flash_bwd_score_80.cu every form at 80).
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_bwd.py:_dkdv_kernel
 // and :_dq_kernel (the deterministic two-kernel backward),
@@ -42,7 +43,9 @@
 // 64 + 64 fp32 accumulators of dK and dV at d = 128 within the 255
 // registers that a 256-thread block allows, so no register rebalancing
 // (setmaxnreg) or separate producer warp is needed. At d = 96 the tiles
-// run as at 128 over TMA's zero-filled columns past 96; at d = 256 a block
+// run as at 128 over TMA's zero-filled columns past 96 (and at d = 80,
+// BTLM-3B-8K's, past 80, in instantiations of their own so that no other
+// head dim's kernels change machine code); at d = 256 a block
 // owns 64 rows, its warpgroups split S and dP by rows of the streamed tile
 // and then the gradients' columns (bwd_sm90.cuh's note has the register
 // and shared-memory plan). One block barrier a
@@ -148,7 +151,8 @@ BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int
 
 bool valid(int b, int sq, int sk, int sq_pad, int h, int h_k, int d) {
   return b > 0 && sq > 0 && sk > 0 && h_k > 0 && h % h_k == 0 &&
-         (d == 64 || d == 96 || d == 128 || d == 256) && sq_pad % BWD_ROW_PAD == 0 &&
+         (d == 64 || d == 80 || d == 96 || d == 128 || d == 256) &&
+         sq_pad % BWD_ROW_PAD == 0 &&
          sq_pad >= sq;
 }
 
@@ -159,7 +163,8 @@ bool valid_band(int causal, int right, int sink, int chunk, int masked, float so
   return sink >= 0 && chunk >= 0 && !(causal && right != 0 && masked) && softcap >= 0.f;
 }
 
-// The head dims this source compiles; the others go to flash_bwd_wide.cu.
+// The head dims this source compiles; 96 and 256 go to flash_bwd_wide.cu,
+// 80 to flash_bwd_80.cu.
 using NarrowDims = Dims<64, 128>;
 bool wide(int d) { return d == 96 || d == 256; }
 
@@ -179,6 +184,7 @@ extern "C" int fa_bwd_preprocess(const void* dout, const void* out, const float*
   const PreParams p = {dout, out, lse, lse2, delta, dq_accum, b, sq, sq_pad, h,
                        do_sb, do_ss, do_sh, o_sb, o_ss, o_sh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80) return (int)run_pre_80(is_bf16, d, p, st);
   return (int)(wide(d) ? run_pre_wide(is_bf16, d, p, st)
                        : dispatch_dims<Pre>(NarrowDims{}, is_bf16, d, p, st));
 }
@@ -230,6 +236,9 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
   p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80)
+    return (int)(score ? run_dkdv_score_80(is_bf16, d, maps, p, b, h_k, st)
+                       : run_dkdv_80(is_bf16, d, maps, p, b, h_k, band, st));
   if (score)
     return (int)(wide(d) ? run_dkdv_score_wide(is_bf16, d, maps, p, b, h_k, st)
                          : run_dkdv_score(is_bf16, d, maps, p, b, h_k, st));
@@ -271,6 +280,9 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
   p.dq = dq;
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80)
+    return (int)(score ? run_dq_score_80(is_bf16, d, maps, p, b, st)
+                       : run_dq_80(is_bf16, d, maps, p, b, band, st));
   if (score)
     return (int)(wide(d) ? run_dq_score_wide(is_bf16, d, maps, p, b, st)
                          : run_dq_score(is_bf16, d, maps, p, b, st));

@@ -6,7 +6,9 @@
 // and 128) and csrc/flash_bwd_band_wide.cu (96 and 256), and for the score
 // instantiations (SCORE: softcap and ALiBi, with or without a band)
 // csrc/flash_bwd_score.cu (64 and 128) and csrc/flash_bwd_score_wide.cu (96
-// and 256), so that the heavy instantiations build side by side.
+// and 256), and at head dim 80 csrc/flash_bwd_80.cu (the preprocess, the
+// band-free and the band instantiations) and csrc/flash_bwd_score_80.cu
+// (the score ones), so that the heavy instantiations build side by side.
 #pragma once
 
 #include "bwd_sm90.cuh"
@@ -287,6 +289,19 @@ cudaError_t run_dkdv_score_wide(bool bf16, int d, const BwdMaps& maps, const Bwd
                                 int b, int h_k, cudaStream_t st);
 cudaError_t run_dq_score_wide(bool bf16, int d, const BwdMaps& maps, const BwdParams& p,
                               int b, cudaStream_t st);
+
+// The launches at head dim 80: the preprocess and the band-free and band
+// instantiations (`band`) in csrc/flash_bwd_80.cu, the score ones in
+// csrc/flash_bwd_score_80.cu.
+cudaError_t run_pre_80(bool bf16, int d, const PreParams& p, cudaStream_t st);
+cudaError_t run_dkdv_80(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                        int h_k, bool band, cudaStream_t st);
+cudaError_t run_dq_80(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                      bool band, cudaStream_t st);
+cudaError_t run_dkdv_score_80(bool bf16, int d, const BwdMaps& maps, const BwdParams& p,
+                              int b, int h_k, cudaStream_t st);
+cudaError_t run_dq_score_80(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
+                            cudaStream_t st);
 
 }  // namespace dense_bwd
 }  // namespace fa

@@ -1,7 +1,9 @@
 // Packed varlen attention backward for Hopper (sm_90a) on wgmma and TMA,
-// bf16 / fp16, head dims 64, 96, 128 and 256: B6's preprocess, dK/dV and dQ
-// kernels (in flash_varlen.cuh; this source compiles 64 and 128 and holds
-// the C entry points, flash_varlen_wide.cu compiles 96 and 256,
+// bf16 / fp16, head dims 64, 80, 96, 128 and 256: B6's preprocess, dK/dV
+// and dQ kernels (in flash_varlen.cuh; this source compiles 64 and 128 and
+// holds the C entry points, flash_varlen_wide.cu compiles 96 and 256,
+// flash_varlen_80.cu and flash_varlen_score_80.cu every form at 80 on the
+// tile plan of 96,
 // flash_varlen_band.cu and flash_varlen_band_wide.cu the band
 // instantiations: a window and attention_chunk per sequence, masked as
 // B3's band instantiations mask them, flash_varlen.py:47-76;
@@ -73,7 +75,8 @@ using namespace fa::varlen_bwd;
 
 // ---- host side --------------------------------------------------------------
 
-// The head dims this source compiles; the others go to flash_varlen_wide.cu.
+// The head dims this source compiles; 96 and 256 go to
+// flash_varlen_wide.cu, 80 to flash_varlen_80.cu.
 using NarrowDims = Dims<64, 128>;
 bool wide(int d) { return d == 96 || d == 256; }
 
@@ -82,7 +85,7 @@ bool wide(int d) { return d == 96 || d == 256; }
 bool takes(int b, int total_q, int total_k, int h, int h_k, int d, int num_tiles,
            int64_t rows_pad) {
   return b > 0 && total_q > 0 && total_k > 0 && h_k > 0 && h % h_k == 0 &&
-         (d == 64 || d == 96 || d == 128 || d == 256) && rows_pad % 4 == 0 &&
+         (d == 64 || d == 80 || d == 96 || d == 128 || d == 256) && rows_pad % 4 == 0 &&
          rows_pad >= (int64_t)total_q + (int64_t)SEQ_GAP * b &&
          (int64_t)num_tiles * h * (BWD_KV_ROWS / bwd_block_rows(d)) <= 0x7fffffff;
 }
@@ -160,6 +163,7 @@ extern "C" int fa_varlen_bwd_preprocess(
                        do_sh,  o_st,   o_sh,    rows_pad, num_tiles, b,    total_q,
                        total_k, h,     h_k};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80) return (int)run_pre_80(is_bf16, d, p, st);
   return (int)(wide(d) ? run_pre_wide(is_bf16, d, p, st)
                        : dispatch_dims<Pre>(NarrowDims{}, is_bf16, d, p, st));
 }
@@ -204,6 +208,9 @@ extern "C" int fa_varlen_bwd_dkdv(
   p.dk_st = dk_st; p.dk_sh = dk_sh;
   p.dv_st = dv_st; p.dv_sh = dv_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80)
+    return (int)(score ? run_dkdv_score_80(is_bf16, d, maps, p, st)
+                       : run_dkdv_80(is_bf16, d, maps, p, band, st));
   if (score)
     return (int)(wide(d) ? run_dkdv_score_wide(is_bf16, d, maps, p, st)
                          : run_dkdv_score(is_bf16, d, maps, p, st));
@@ -241,6 +248,9 @@ extern "C" int fa_varlen_bwd_dq(
   p.dq = dq;
   p.dq_st = dq_st; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80)
+    return (int)(score ? run_dq_score_80(is_bf16, d, maps, p, st)
+                       : run_dq_80(is_bf16, d, maps, p, band, st));
   if (score)
     return (int)(wide(d) ? run_dq_score_wide(is_bf16, d, maps, p, st)
                          : run_dq_score(is_bf16, d, maps, p, st));

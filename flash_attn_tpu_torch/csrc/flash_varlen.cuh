@@ -6,8 +6,10 @@
 // csrc/flash_varlen_band.cu (64 and 128) and csrc/flash_varlen_band_wide.cu
 // (96 and 256), and for the score instantiations (SCORE: softcap and
 // ALiBi) csrc/flash_varlen_score.cu (64 and 128) and
-// csrc/flash_varlen_score_wide.cu (96 and 256), so that the heavy
-// instantiations build side by side.
+// csrc/flash_varlen_score_wide.cu (96 and 256), and at head dim 80
+// csrc/flash_varlen_80.cu (the preprocess, the band-free and the band
+// instantiations) and csrc/flash_varlen_score_80.cu (the score ones), so
+// that the heavy instantiations build side by side.
 #pragma once
 
 #include "bwd_sm90.cuh"
@@ -361,6 +363,19 @@ cudaError_t run_dkdv_score_wide(bool bf16, int d, const BwdMaps& maps, const Var
                                 cudaStream_t st);
 cudaError_t run_dq_score_wide(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
                               cudaStream_t st);
+
+// The launches at head dim 80: the preprocess and the band-free and band
+// instantiations (`band`) in csrc/flash_varlen_80.cu, the score ones in
+// csrc/flash_varlen_score_80.cu.
+cudaError_t run_pre_80(bool bf16, int d, const PreParams& p, cudaStream_t st);
+cudaError_t run_dkdv_80(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                        bool band, cudaStream_t st);
+cudaError_t run_dq_80(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p, bool band,
+                      cudaStream_t st);
+cudaError_t run_dkdv_score_80(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                              cudaStream_t st);
+cudaError_t run_dq_score_80(bool bf16, int d, const BwdMaps& maps, const VarlenParams& p,
+                            cudaStream_t st);
 
 }  // namespace varlen_bwd
 }  // namespace fa

@@ -1,8 +1,9 @@
 // Packed varlen attention forward for Hopper (sm_90a) on wgmma and TMA,
-// bf16 / fp16, head dims 64, 96, 128 and 256: B6's forward (one block per
-// work item) and B7 (a persistent grid that walks the same items), on the
-// forward tile that B1 runs at the same head dims (fwd_sm90.cuh: 96 as two
-// zero-filled panels, 256 with one block an SM).
+// bf16 / fp16, head dims 64, 80, 96, 128 and 256: B6's forward (one block
+// per work item) and B7 (a persistent grid that walks the same items), on
+// the forward tile that B1 runs at the same head dims (fwd_sm90.cuh: 80 and
+// 96 as two zero-filled panels, 80 in csrc/flash_varlen_fwd_80.cu, 256 with
+// one block an SM).
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_varlen.py:
 // _varlen_fwd_stream_kernel (B6) and flash_attn_tpu/kernels/
@@ -111,7 +112,8 @@ cudaError_t setup(FwdMaps* maps, VarlenFwdScoreParams* p, const void* q, const v
 bool takes(int block_q, int block_k, int h, int h_k, int d, int num_tiles, int causal,
            int right, int chunk, int masked, float softcap) {
   return block_q == FWD_M && block_k == FWD_N && h_k >= 1 && h % h_k == 0 &&
-         (d == 64 || d == 96 || d == 128 || d == 256) && (int64_t)num_tiles * h <= 0x7fffffff &&
+         (d == 64 || d == 80 || d == 96 || d == 128 || d == 256) &&
+         (int64_t)num_tiles * h <= 0x7fffffff &&
          chunk >= 0 && !(causal && right != 0 && masked) && softcap >= 0.f;
 }
 
@@ -152,6 +154,7 @@ extern "C" int fa_varlen_fwd(
                           is_bf16);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80) return (int)run_fwd_80(is_bf16, maps, p, band, score, st);
   if (score) return (int)run_fwd_score(is_bf16, d, maps, p, st);
   if (band) return (int)run_fwd_band(is_bf16, d, maps, p, st);
   return (int)dispatch_dims<Launch>(VarlenDims{}, is_bf16, d, maps, p, st);
@@ -186,6 +189,8 @@ extern "C" int fa_varlen_fwd_persistent(
                           is_bf16);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (d == 80)
+    return (int)run_persistent_80(is_bf16, maps, p, band, score, num_sms, grid_out, st);
   if (score) return (int)run_persistent_score(is_bf16, d, maps, p, num_sms, grid_out, st);
   if (band) return (int)run_persistent_band(is_bf16, d, maps, p, num_sms, grid_out, st);
   return (int)dispatch_dims<LaunchPersistent>(VarlenDims{}, is_bf16, d, maps, p, num_sms,

@@ -6,7 +6,8 @@
 // window and attention_chunk per sequence on fwd_sm90.cuh's band tile) and
 // csrc/flash_varlen_fwd_score.cu (the score instantiations: SCORE, softcap
 // and ALiBi with each sequence's slopes, BAND ones that take the causal
-// bound as a band), so that they build side by side.
+// bound as a band), and csrc/flash_varlen_fwd_80.cu (every form at head dim
+// 80), so that they build side by side.
 #pragma once
 
 #include "fwd_sm90.cuh"
@@ -322,6 +323,15 @@ cudaError_t run_fwd_score(bool bf16, int d, const FwdMaps& maps,
 cudaError_t run_persistent_score(bool bf16, int d, const FwdMaps& maps,
                                  const VarlenFwdScoreParams& p, int num_sms, int* grid_out,
                                  cudaStream_t stream);
+// The head dim 80 instantiations' launches (csrc/flash_varlen_fwd_80.cu):
+// B6's forward and B7 in every form the other head dims take, with or
+// without the band and the score map (VarlenDims stays as it is: a head dim
+// added there would change the machine code of every kernel it lists).
+cudaError_t run_fwd_80(bool bf16, const FwdMaps& maps, const VarlenFwdScoreParams& p, bool band,
+                       bool score, cudaStream_t stream);
+cudaError_t run_persistent_80(bool bf16, const FwdMaps& maps, const VarlenFwdScoreParams& p,
+                              bool band, bool score, int num_sms, int* grid_out,
+                              cudaStream_t stream);
 
 }  // namespace varlen_fwd
 }  // namespace fa

@@ -10,34 +10,43 @@ not for VMEM (the TPU's VMEM budgeting helpers have no counterpart here).
 import dataclasses
 import functools
 import math
+import struct
 from typing import Optional, Tuple
 
 import torch
 
-# Head dims (q, k and v alike) the forward attention kernels of serving
-# are compiled for: the dense forward B1 (csrc/flash_fwd.cu) and the paged
-# varlen prefill B8 (csrc/flash_varlen_paged.cu), both on the forward tile
-# of fwd_sm90.cuh, and the d = dv decode route B4 (csrc/flash_decode.cu,
-# linear and paged). 80 (BTLM-3B-8K), 96 (GPT-NeoX-20B) and 256 (GPT-J)
-# run there in whole 64-column panels (80 and 96 as 128 with TMA's zero
-# fill past the tensor's columns; 80 in sources of its own,
-# flash_fwd_80.cu, flash_decode_80.cu and flash_varlen_paged_80.cu).
-FWD_HEAD_DIMS = (64, 80, 96, 128, 256)
-
-# Head dims of the kernels of training and packed input: the backwards B2,
-# B3 (csrc/flash_bwd.cu, flash_bwd_wide.cu) and B6 (csrc/flash_varlen.cu,
-# flash_varlen_wide.cu) on the tiles of bwd_sm90.cuh, their preprocess,
-# and the packed-varlen forwards B6 and B7 (csrc/flash_varlen_fwd.cu). The
-# backward at 256 runs on blocks of 64 rows whose warpgroups split the
-# columns. Head dim 80 there (BTLM-3B-8K's training) is ROADMAP.md queue
-# A, item 7: a gradient or packed input at 80 on the card raises before
-# any kernel runs (check_training_head_dim).
-BWD_HEAD_DIMS = (64, 96, 128, 256)
+# Head dims (q, k and v alike) the attention kernels are compiled for, in
+# serving and in training alike: the dense forward B1 (csrc/flash_fwd.cu),
+# the paged varlen prefill B8 (csrc/flash_varlen_paged.cu) and the
+# packed-varlen forwards B6 and B7 (csrc/flash_varlen_fwd.cu), all on the
+# forward tile of fwd_sm90.cuh; the d = dv decode route B4
+# (csrc/flash_decode.cu, linear and paged); and the backwards B2, B3
+# (csrc/flash_bwd.cu) and B6 (csrc/flash_varlen.cu) with their preprocess,
+# on the tiles of bwd_sm90.cuh. 80 (BTLM-3B-8K), 96 (GPT-NeoX-20B) and 256
+# (GPT-J) run there in whole 64-column panels (80 and 96 as 128 with TMA's
+# zero fill past the tensor's columns, 80 in sources of its own, the
+# *_80.cu files; the backward at 256 on blocks of 64 rows whose warpgroups
+# split the columns).
+HEAD_DIMS = (64, 80, 96, 128, 256)
 
 # Head dims of the block-sparse kernels B10 (csrc/flash_blocksparse.cu).
 # The rest (and d != dv, and every head dim of the MLA route but its
 # compiled forms, MLA_DECODE_DIMS) is ROADMAP.md queue A, item 7.
 BLOCKSPARSE_HEAD_DIMS = (64, 128)
+
+
+def _fp32(x: float) -> float:
+    return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def scale_log2(scale: float) -> float:
+    """softmax_scale * log2(e) as the kernels' C entry points form it
+    (csrc/common.cuh FA_LOG2E: the fp32 product of the fp32 scale and the
+    fp32 log2(e)), for the wrappers that pass it formed (B1, B8), so that
+    every kernel on the forward tile of fwd_sm90.cuh maps the same scores
+    to the same base-2 scores as B6, B7 and the backwards (1/sqrt(80) times
+    log2(e) in double precision rounds to another fp32 value)."""
+    return _fp32(_fp32(scale) * _fp32(math.log2(math.e)))
 
 
 def check_head_dims(kernel: str, d: int, dk: int, dv: int, dims) -> None:
@@ -47,19 +56,6 @@ def check_head_dims(kernel: str, d: int, dk: int, dv: int, dims) -> None:
         raise ValueError(
             f"{kernel} kernel: head dims q {d}, k {dk}, v {dv}; it takes "
             f"equal dims in {dims} (others are ROADMAP.md queue A, item 7)")
-
-
-def check_training_head_dim(name: str, d: int, what: str) -> None:
-    """Raise NotImplementedError for ``what`` (a gradient, or packed input)
-    at head dim ``d`` on the card when the kernels of training and packed
-    input are not compiled for it: a head dim of FWD_HEAD_DIMS outside
-    BWD_HEAD_DIMS (any other is refused by the kernels' own checks)."""
-    if d in FWD_HEAD_DIMS and d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{name}: {what} at head dim {d} on the card: the kernels of "
-            f"training and packed input take {BWD_HEAD_DIMS} (head dim {d} "
-            "serves on the card and trains on the CPU until ROADMAP.md "
-            "queue A, item 7 ports it)")
 
 
 @dataclasses.dataclass(frozen=True)

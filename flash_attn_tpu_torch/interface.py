@@ -35,7 +35,6 @@ import torch
 from flash_attn_tpu_torch.dispatch.band import band_valid, has_band
 from flash_attn_tpu_torch.dispatch.config import (
     FWD_TILE,
-    check_training_head_dim,
     normalize_window,
 )
 from flash_attn_tpu_torch.dispatch.kvquant import combined_descales
@@ -216,10 +215,8 @@ def flash_attn_func(
     gradients). Differentiable in q, k and v: ``deterministic`` (the
     default, as in JAX) runs the dK/dV and dQ backward kernels, each
     writing its gradient once; False runs the fused backward with atomic
-    dQ. On the card the forward takes head dims 64, 80, 96, 128 and 256
-    (FWD_HEAD_DIMS) and the backward 64, 96, 128 and 256 (BWD_HEAD_DIMS):
-    a gradient at 80 raises NotImplementedError before the forward runs
-    (ROADMAP.md queue A, item 7), and other head dims ValueError.
+    dQ. On the card the forward and the backward take head dims 64, 80,
+    96, 128 and 256 (HEAD_DIMS); other head dims raise ValueError.
     ``window_size`` (left, right; -1 or None for no bound),
     ``attention_chunk`` and ``sink_token_length`` mask as in JAX
     (dispatch/band.py), forward and backward (the kernels' band
@@ -237,9 +234,6 @@ def flash_attn_func(
         score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.is_cuda and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, alibi_slopes)):
-        check_training_head_dim("flash_attn_func", q.shape[-1], "a gradient")
     window_size = normalize_window(tuple(window_size))
     band = dict(window_size=window_size, sink_token_length=sink_token_length,
                 attention_chunk=attention_chunk)
@@ -354,10 +348,8 @@ def flash_attn_varlen_func(
     window, softcap or descales with ``qv``, dropout, descales on the dense
     route, an fp8 q, and ``qv`` without ``block_table``, raise
     NotImplementedError (ROADMAP.md queue A, item
-    7). On the card the paged route takes head dims 64, 80, 96, 128 and
-    256 (FWD_HEAD_DIMS) and the dense route 64, 96, 128 and 256
-    (BWD_HEAD_DIMS: head dim 80 raises NotImplementedError there before any
-    kernel runs, queue A, item 7). JAX's paged route drops
+    7). On the card both routes take head dims 64, 80, 96, 128 and 256
+    (HEAD_DIMS). JAX's paged route drops
     ``attention_chunk`` and ``alibi_slopes``
     without a word (flash_attn_tpu/interface.py:447-456); here both raise
     (ROADMAP.md queue C)."""
@@ -410,11 +402,6 @@ def flash_attn_varlen_func(
             window_size=window_size, softcap=softcap, qk_descale=qk_descale,
             v_descale=v_scale)
         return (out, lse) if return_attn_probs else out
-    if q.is_cuda:
-        check_training_head_dim(
-            "flash_attn_varlen_func", q.shape[-1],
-            "the dense route (packed input: B6's and B7's forwards, B6's "
-            "backward)")
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     meta = None

@@ -34,8 +34,8 @@ from flash_attn_tpu_torch.dispatch.band import (
     reach_window,
 )
 from flash_attn_tpu_torch.dispatch.config import (
-    BWD_HEAD_DIMS,
     DENSE_BWD_ROW_PAD,
+    HEAD_DIMS,
     check_head_dims,
     dense_bwd_tiles,
 )
@@ -146,7 +146,7 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
     and O once in their own type; with ``dq_accum`` ((b, sq, h, d) fp32,
     contiguous) given, it also zeroes it for the fused backward. do/out
     (b, h, sq, d) with the head dim contiguous, lse (b, h, sq). A tensor on
-    the CPU takes the plain version. CUDA: bf16/fp16, d in BWD_HEAD_DIMS."""
+    the CPU takes the plain version. CUDA: bf16/fp16, d in HEAD_DIMS."""
     if do.device.type == "cpu":
         if dq_accum is not None:
             dq_accum.zero_()
@@ -158,7 +158,7 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
             f"bwd_preprocess kernel: do {tuple(do.shape)} {do.dtype}, out "
             f"{tuple(out.shape)}, lse {tuple(lse.shape)}; needs bf16/fp16 "
             f"and sq > 0")
-    check_head_dims("bwd_preprocess", d, d, d, BWD_HEAD_DIMS)
+    check_head_dims("bwd_preprocess", d, d, d, HEAD_DIMS)
     for name, x in (("do", do), ("out", out)):
         _build.check_operand("bwd_preprocess", name, x, do.dtype, do.device)
     if dq_accum is not None and (dq_accum.shape != (b, sq, h, d)
@@ -199,9 +199,10 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     its gradient once; otherwise one fused launch adds dQ into an fp32
     buffer with atomics (run-to-run bits may differ). Returns (b, h, s, d)
     views of (b, s, h, d) tensors in the inputs' type. CUDA: bf16/fp16, d
-    in BWD_HEAD_DIMS (at 256 on blocks of 64 rows, dense_bwd_tiles), h % h_k ==
-    0. ``window_size`` (left, right) with None for no bound,
-    ``sink_token_length`` and ``attention_chunk`` as in the forward
+    in HEAD_DIMS (80 on the tile plan of 96, 256 on blocks of 64 rows,
+    dense_bwd_tiles), h % h_k == 0. ``window_size`` (left, right) with
+    None for no bound, ``sink_token_length`` and ``attention_chunk`` as in
+    the forward
     (dispatch/band.py): with a band, both paths launch the kernels' band
     instantiations. ``softcap`` (0: none) and ``alibi_slopes`` ((h,) or
     (b, h), read in fp32) as the forward took them (dispatch/score.py):
@@ -216,7 +217,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     bk_, h_k, sk, dk_ = k.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_bwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    check_head_dims("flash_bwd", d, dk_, v.shape[-1], BWD_HEAD_DIMS)
+    check_head_dims("flash_bwd", d, dk_, v.shape[-1], HEAD_DIMS)
     if bk_ != b or h % h_k or v.shape != k.shape or do.shape != q.shape \
             or out.shape != q.shape \
             or lse.shape != (b, h, sq):

@@ -46,7 +46,7 @@ from flash_attn_tpu_torch.dispatch.band import (
 from flash_attn_tpu_torch.dispatch.config import (
     DECODE_BLOCK_K,
     DECODE_ROWS_PER_BLOCK,
-    FWD_HEAD_DIMS,
+    HEAD_DIMS,
     MLA_DECODE_DIMS,
     MLA_TILE,
     check_head_dims,
@@ -285,7 +285,7 @@ def flash_attention_decode_partials(q, k_cache, v_cache, cache_seqlens,
         return _mla_partials(q, k_cache, v_cache, cache_seqlens, num_splits,
                              softmax_scale, causal, block_table, qv)
     check_head_dims("flash_decode (the d = dv route)", d, dk,
-                    v_cache.shape[-1], FWD_HEAD_DIMS)
+                    v_cache.shape[-1], HEAD_DIMS)
     _build.check_operand("flash_decode", "q", q, q.dtype, q.device)
     for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
         _build.check_operand("flash_decode", name, x, k_cache.dtype, q.device)

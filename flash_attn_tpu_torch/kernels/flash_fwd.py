@@ -28,9 +28,10 @@ from flash_attn_tpu_torch.dispatch.band import (
     reach_window,
 )
 from flash_attn_tpu_torch.dispatch.config import (
-    FWD_HEAD_DIMS,
     FWD_TILE,
+    HEAD_DIMS,
     check_head_dims,
+    scale_log2,
 )
 from flash_attn_tpu_torch.dispatch.score import (
     alibi_bias,
@@ -41,7 +42,6 @@ from flash_attn_tpu_torch.dispatch.score import (
 )
 from flash_attn_tpu_torch.kernels import _build
 
-LOG2E = math.log2(math.e)
 
 # Kernel launches since the last reset (plain calls not counted): all of
 # them, and those of the band and of the score instantiations among them.
@@ -94,7 +94,7 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
                         alibi_slopes=None):
     """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
     contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
-    fp32). CUDA: bf16/fp16, d in FWD_HEAD_DIMS (64, 80, 96, 128, 256),
+    fp32). CUDA: bf16/fp16, d in HEAD_DIMS (64, 80, 96, 128, 256),
     h % h_k == 0. ``window_size`` (left, right) with None for no bound,
     ``sink_token_length`` and ``attention_chunk`` as in the JAX function
     (dispatch/band.py); ``softcap`` (0: none) and ``alibi_slopes`` ((h,) or
@@ -109,7 +109,7 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
     bk_, h_k, sk, dk = k.shape
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_fwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    check_head_dims("flash_fwd", d, dk, v.shape[-1], FWD_HEAD_DIMS)
+    check_head_dims("flash_fwd", d, dk, v.shape[-1], HEAD_DIMS)
     if bk_ != b or h % h_k or v.shape != k.shape:
         raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -142,7 +142,7 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
             k.stride(0), k.stride(2), k.stride(1),
             v.stride(0), v.stride(2), v.stride(1),
             out.stride(0), out.stride(1), out.stride(2),
-            scale * LOG2E, int(causal),
+            scale_log2(scale), int(causal),
             *band_args(causal, window, sink_token_length, attention_chunk),
             int(band), float(softcap), slope_ptr, slope_sb,
             int(q.dtype == torch.bfloat16),

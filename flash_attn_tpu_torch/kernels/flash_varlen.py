@@ -42,8 +42,8 @@ from flash_attn_tpu_torch.dispatch.band import (
     reach_window,
 )
 from flash_attn_tpu_torch.dispatch.config import (
-    BWD_HEAD_DIMS,
     FWD_TILE,
+    HEAD_DIMS,
     VARLEN_BWD_TILE,
     check_head_dims,
     num_sms,
@@ -201,7 +201,7 @@ def varlen_bwd_preprocess_plain(do, out, lse, cu_seqlens_q, seqused_q=None):
 
 def check_kernel_inputs(name: str, q, k, v, cu_seqlens_q, cu_seqlens_k):
     """What the varlen kernels take: bf16/fp16 (total, heads, d) tensors on
-    one card with equal head dims in BWD_HEAD_DIMS, h % h_k == 0, 16-byte
+    one card with equal head dims in HEAD_DIMS, h % h_k == 0, 16-byte
     rows, and b + 1 offsets on both sides."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -212,7 +212,7 @@ def check_kernel_inputs(name: str, q, k, v, cu_seqlens_q, cu_seqlens_k):
             f"{name} kernel: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}; needs (total, heads, d)")
     check_head_dims(name, q.shape[-1], k.shape[-1], v.shape[-1],
-                    BWD_HEAD_DIMS)
+                    HEAD_DIMS)
     h, h_k = q.shape[1], k.shape[1]
     if h % h_k or h > 65535 or cu_seqlens_q.numel() != cu_seqlens_k.numel() \
             or cu_seqlens_q.numel() < 2:

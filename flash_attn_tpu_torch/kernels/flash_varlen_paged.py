@@ -2,7 +2,7 @@
 ``csrc/flash_varlen_paged.cu`` and its plain PyTorch version.
 
 Port of flash_attn_tpu/kernels/flash_varlen_paged.py
-``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in FWD_HEAD_DIMS,
+``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in HEAD_DIMS,
 with its sliding window, :249-254, its softcap, :225-233, and its
 descales, :230-241, :276-277, over pages of q's type or of 1-byte codes;
 no learnable sink or ``qv``: the JAX kernel has no chunk, sink tokens or
@@ -39,9 +39,10 @@ from flash_attn_tpu_torch.dispatch.band import (
     reach_window,
 )
 from flash_attn_tpu_torch.dispatch.config import (
-    FWD_HEAD_DIMS,
     FWD_TILE,
+    HEAD_DIMS,
     check_head_dims,
+    scale_log2,
 )
 from flash_attn_tpu_torch.dispatch.kvquant import (
     check_cache_dtype,
@@ -56,7 +57,6 @@ from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.kv_dequant import dequant_pages
 from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
-LOG2E = math.log2(math.e)
 
 # Kernel launches since the last reset (plain calls not counted): all of
 # them, those of the band and of the score instantiations among them, and
@@ -167,7 +167,7 @@ def flash_attention_varlen_paged_fwd(
         raise ValueError(f"flash_varlen_paged kernel: dtype {q.dtype} "
                          "(bf16/fp16 only)")
     check_head_dims("flash_varlen_paged", d, dk, v_pages.shape[-1],
-                    FWD_HEAD_DIMS)
+                    HEAD_DIMS)
     check_cache_dtype("flash_varlen_paged kernel", k_pages.dtype, q.dtype)
     for name, x in (("qk_descale", qk_descale), ("v_descale", v_descale)):
         if x is not None and (x.device != q.device or x.dtype != torch.float32
@@ -219,7 +219,7 @@ def flash_attention_varlen_paged_fwd(
             k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
             v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
             out.stride(0), out.stride(1), table.stride(0),
-            scale * LOG2E, int(causal), *band_args(causal, window)[:2],
+            scale_log2(scale), int(causal), *band_args(causal, window)[:2],
             int(band), float(softcap),
             qk_descale.data_ptr() if qk_descale is not None else None,
             v_descale.data_ptr() if v_descale is not None else None,

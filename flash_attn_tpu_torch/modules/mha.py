@@ -79,7 +79,7 @@ from flash_attn_tpu_torch.cache.kvcache import (
     flash_attn_with_kvcache,
     kv_cache_update,
 )
-from flash_attn_tpu_torch.dispatch.config import FWD_HEAD_DIMS
+from flash_attn_tpu_torch.dispatch.config import HEAD_DIMS
 from flash_attn_tpu_torch.dispatch.kvquant import check_cache_dtype
 from flash_attn_tpu_torch.interface import (
     flash_attn_func,
@@ -322,12 +322,10 @@ class MHA(nn.Module):
         already cached in each slot's shared pages, x carrying only the
         rest. A paged cache needs ``block_table`` (n_slots, max_pages) in
         prefill and decode."""
-        if x.is_cuda and self.head_dim not in FWD_HEAD_DIMS:
-            # (a gradient or packed input at a head dim the backwards lack
-            # is refused by flash_attn_func and flash_attn_varlen_func)
+        if x.is_cuda and self.head_dim not in HEAD_DIMS:
             raise NotImplementedError(
                 f"MHA: head dim {self.head_dim} on the card; its kernels "
-                f"take {FWD_HEAD_DIMS} (others are ROADMAP.md queue A, item "
+                f"take {HEAD_DIMS} (others are ROADMAP.md queue A, item "
                 "7; the CPU runs any head dim)")
         if cu_seqlens is not None:
             if self.dwconv:

@@ -365,3 +365,47 @@ HD80_KVQUANT_VARLEN_CASES = [
       [812, 17, 400, 264], None, 16, 4, 80, 64, torch.bfloat16, True,
       torch.int8), (-1, -1), 0.0),
 ]
+# Head dim 80 in training and on packed input (B2, B3, B6's backward and
+# their preprocess, the packed forwards B6 and B7 at 80, in sources of
+# their own): the plain form at a GQA shape, not causal with sq < sk and
+# ragged keys, fp16, and causal sq > sk (rows that see no key); the band's
+# window, chunk and sinks; the score map, whose first case is BTLM-3B-8K's
+# training shape (b = 1 x 8192, 32 heads of 80, causal ALiBi over (h,)
+# slopes, timed into the kernels line at BTLM_SCALE), then the cap at a GQA
+# shape, (b, h) slopes not causal, both under a window in fp16, and rows
+# with no key. No case runs sq = sk = 1 causal (JAX's dv fault at one row,
+# ROADMAP.md queue C).
+HD80_BWD_CASES = [  # BWD_CASES' form (b, sq, sk, h, h_k, d, causal, dtype)
+    (2, 1024, 1024, 32, 8, 80, True, torch.bfloat16),
+    (2, 1000, 1300, 16, 16, 80, False, torch.bfloat16),
+    (2, 700, 900, 8, 8, 80, True, torch.float16),
+    (2, 300, 200, 8, 2, 80, True, torch.bfloat16),
+]
+HD80_BAND_BWD_CASES = [  # BAND_BWD_CASES' form
+    ("window at a GQA shape, d=80", 2, 2048, 2048, 32, 8, 80, True, (511, 0),
+     0, 0),
+    ("attention_chunk 512, d=80", 2, 2048, 2048, 16, 4, 80, True, (-1, -1),
+     512, 0),
+    ("4 sinks under a window of 300, sq < sk, d=80", 2, 1200, 1500, 16, 4, 80,
+     True, (300, 0), 0, 4),
+    ("window both ways, d=80", 2, 1000, 1000, 16, 16, 80, False, (128, 128),
+     0, 0),
+]
+HD80_SCORE_BWD_CASES = [  # SCORE_BWD_CASES' form
+    ("BTLM-3B-8K training", 1, 8192, 8192, BTLM_HEADS, BTLM_HEADS, 80, True,
+     0.0, "1d", (-1, -1), torch.bfloat16, True),
+    ("cap 30, GQA 32/8, sq < sk, d=80", 2, 700, 1300, 32, 8, 80, True, 30.0,
+     None, (-1, -1), torch.bfloat16, True),
+    ("alibi (b, h), not causal, sq < sk, d=80", 2, 600, 1000, 16, 4, 80,
+     False, 0.0, "2d", (-1, -1), torch.bfloat16, False),
+    ("both under a window, d=80, fp16", 2, 2048, 2048, 16, 4, 80, True, 30.0,
+     "1d", (255, 0), torch.float16, True),
+    ("alibi (h,), causal, sq > sk (rows with no key), d=80", 2, 900, 500, 16,
+     16, 80, True, 0.0, "1d", (-1, -1), torch.bfloat16, False),
+]
+
+
+def case_scale(name: str):
+    """The softmax scale of a named HD80_* case: BTLM_SCALE for the cases
+    named after BTLM-3B-8K, else None (1/sqrt(d))."""
+    return BTLM_SCALE if name.startswith("BTLM") else None

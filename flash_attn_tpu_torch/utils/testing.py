@@ -29,7 +29,7 @@ __all__ = ["attention_ref", "attention_ref_grads", "attention_varlen_paged_ref",
            "attn_bias_from_alibi_slopes",
            "check_against_ref", "construct_chunk_mask",
            "construct_local_mask", "generate_random_padding_mask",
-           "paged_to_linear"]
+           "kept_columns_check", "paged_to_linear"]
 
 
 def generate_random_padding_mask(max_seqlen: int, batch_size: int, rng,
@@ -385,3 +385,135 @@ def check_against_ref(out, out_ref_fp32, out_ref_lowprec, *, mult: float = 2.0,
             f"{msg} kernel max err {err:.3e} > {mult} x lowprec ref err "
             f"{err_lp:.3e} + {atol:.1e}")
     return err, err_lp
+
+
+# Written into the columns past the head dim of the outputs in
+# kept_columns_check: exact in bf16, fp16 and fp32.
+SENTINEL = 768.0
+
+
+def kept_columns_check(form: str, d: int = 80, row: int = 96,
+                       seed: int = 80):
+    """On the card: whether the attention kernels at head dim ``d`` (below
+    ``row``, a multiple of 16) keep to a row's d columns, reading and
+    writing, under ``form``: "plain", "band" (a causal window of 100) or
+    "score" (the cap and (b, h) ALiBi slopes at softmax scale 1/d); b = 2
+    rows of 300, 8 query heads over 4 KV heads, bf16, causal.
+
+    Reads: q, k, v, out and dout whose heads of d sit in rows of ``row``
+    columns, the rest NaN, must give B1's out and lse, B3's gradients, B2's
+    dk and dv, B6's and B7's forwards and B6's backward bitwise equal to
+    those of contiguous inputs (B2's dq, summed by atomics in a varying
+    order, within 1e-2). Writes: with every 16-bit output of last dim d
+    allocated as the first d columns of rows of ``row`` whose rest holds
+    SENTINEL (the C entry points take the outputs' strides) and B2's fp32
+    dQ buffer followed by a SENTINEL tail, every tail must survive and
+    every output keep its bits. B6's preprocess, which zeroes the gradient
+    rows that lie in no sequence and so takes contiguous gradients, gets
+    contiguous ones of its own (these sequences leave no such row, so it
+    writes none). Raises AssertionError; returns (the tails checked, B2's
+    dq's largest difference)."""
+    import math
+    from unittest import mock
+
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+    from flash_attn_tpu_torch.modules.mha import alibi_slopes
+
+    b, s, h, h_k = 2, 300, 8, 4
+    slopes = alibi_slopes(h, "cuda")[None] * torch.tensor(
+        [[1.0], [1.5]], device="cuda")
+    kw = {"plain": {}, "band": dict(window_size=(100, 0)),
+          "score": dict(softcap=30.0, softmax_scale=1.0 / d,
+                        alibi_slopes=slopes)}[form]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def padded(*shape):
+        x = torch.full((*shape, row), float("nan"), device="cuda",
+                       dtype=torch.bfloat16)
+        x[..., :d] = torch.randn(*shape, d, device="cuda", generator=gen)
+        return x[..., :d]
+
+    wide_in = [padded(b, s, n) for n in (h, h_k, h_k, h)]
+    dense_in = [x.contiguous() for x in wide_in]
+    cu = torch.arange(b + 1, dtype=torch.int32, device="cuda") * s
+
+    def run(q, k, v, do):
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=True,
+                                                 **kw)
+        if q.stride(2) == row:  # out padded as q is
+            wide = torch.full((b, s, h, row), float("nan"), device="cuda",
+                              dtype=out.dtype)
+            wide[..., :d] = out.transpose(1, 2)
+            out = wide[..., :d].transpose(1, 2)
+        b3 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                           causal=True, **kw)
+        b2 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                           causal=True, deterministic=False,
+                                           **kw)
+        pk = [x.reshape(b * s, x.shape[2], d) for x in (q, k, v, do)]
+        po = out.transpose(1, 2).reshape(b * s, h, d)
+        plse = lse.permute(1, 0, 2).reshape(h, b * s).contiguous()
+        args = (cu, cu, s, s)
+        b6 = flash_varlen.flash_attention_varlen_fwd(*pk[:3], *args,
+                                                     causal=True, **kw)
+        b7 = fvp.flash_attention_varlen_fwd_persistent(*pk[:3], *args,
+                                                       causal=True, **kw)
+        b6g = flash_varlen.flash_attention_varlen_bwd(pk[3], *pk[:3], po,
+                                                      plse, *args,
+                                                      causal=True, **kw)
+        bits = [out.transpose(1, 2), lse, *b3, *b2[1:], *b6, *b7, *b6g]
+        return [x.contiguous() for x in bits], b2[0]
+
+    want, want_dq2 = run(*dense_in)
+    assert all(bool(torch.isfinite(x).all()) for x in want[2:5]), \
+        f"{form}: B3's gradients are not finite"
+    got, dq2 = run(*wide_in)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+        f"{form}: an output over inputs in rows of {row} differs"
+    gap = float((dq2.float() - want_dq2.float()).abs().max())
+    assert gap <= 1e-2, f"{form}: B2's dq over inputs in rows of {row}: {gap}"
+
+    tails = []
+    empty, zeros = torch.empty, torch.zeros
+
+    def tailed(make):
+        def alloc(*args, dtype=None, device=None, **kw_):
+            shape = tuple(args[0]) if len(args) == 1 and isinstance(
+                args[0], (tuple, list, torch.Size)) else args
+            if shape and shape[-1] == d and dtype in (torch.bfloat16,
+                                                      torch.float16):
+                buf = zeros((*shape[:-1], row), dtype=dtype, device=device)
+                buf[..., d:] = SENTINEL
+                tails.append(buf[..., d:])
+                return buf[..., :d]
+            if len(shape) == 4 and shape[-1] == d and dtype == torch.float32:
+                n = math.prod(shape)  # B2's dQ buffer, contiguous
+                buf = zeros(n + 64, dtype=dtype, device=device)
+                buf[n:] = SENTINEL
+                tails.append(buf[n:])
+                return buf[:n].view(shape)
+            return make(*args, dtype=dtype, device=device, **kw_)
+        return alloc
+
+    pre = flash_varlen.varlen_bwd_preprocess
+
+    def own_grads(do, out, lse, cu_q, cu_k, meta, *grads):
+        return pre(do, out, lse, cu_q, cu_k, meta,
+                   *(empty(g.shape, dtype=g.dtype, device=g.device)
+                     for g in grads))
+
+    with mock.patch.object(flash_varlen, "varlen_bwd_preprocess", own_grads), \
+            mock.patch.object(torch, "empty", tailed(empty)), \
+            mock.patch.object(torch, "zeros", tailed(zeros)):
+        got, dq2 = run(*dense_in)
+        torch.cuda.synchronize()
+    assert len(tails) >= 12, f"{form}: {len(tails)} outputs allocated"
+    assert all(bool((t == SENTINEL).all()) for t in tails), \
+        f"{form}: a kernel wrote past column {d}"
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+        f"{form}: an output written into rows of {row} differs"
+    gap = max(gap, float((dq2.float() - want_dq2.float()).abs().max()))
+    assert gap <= 1e-2, f"{form}: B2's dq written into rows of {row}: {gap}"
+    return len(tails), gap

@@ -1,9 +1,9 @@
 """Head dim 80 (BTLM-3B-8K: 32 heads of 80, ALiBi, softmax scale 1/d), which
-the port's forward and decode kernels (B1, B4 d = dv, B8) take on the card,
-against the JAX package on the same seeded numpy inputs, on the CPU: the
-port runs the plain versions of its kernels, JAX its Pallas kernels in
-interpret mode (the paged ones at a KV tile of one page,
-tests/jax_paged_refs.py).
+every kernel of the port takes on the card (the forwards B1, B4 d = dv, B8,
+B6 and B7, the backwards B2, B3 and B6), against the JAX package on the
+same seeded numpy inputs, on the CPU: the port runs the plain versions of
+its kernels, JAX its Pallas kernels in interpret mode (the paged ones at a
+KV tile of one page, tests/jax_paged_refs.py).
 
 The attention functions are held to JAX in fp32 (atol/rtol 1e-5) and in
 bf16 under the 2x rule (the port's bf16 output against JAX's fp32 output on
@@ -14,6 +14,12 @@ tests/test_torch_kvquant.py does. A tiny BTLM at its own head dim (2 heads
 of 80) from both packages' adapters over one seeded HF state dict: logits
 against JAX's, greedy static decode against JAX's teacher-forced forward,
 and the paged and speculative engines' tokens against the static decode's.
+In training (fp32 on both sides, gradients at atol 1e-4 as
+tests/test_torch_score_backward.py): flash_attn_func's gradients in both
+deterministic modes under ALiBi at 1/80, the cap and a window against
+jax.grad, the dense flash_attn_varlen_func's (B6 under ALiBi, B7 under the
+cap) against jax.vjp, the packed MHA under ALiBi at 1/80 against JAX's, and
+the tiny BTLM's Trainer against JAX's Trainer for 4 steps.
 The plain forms at 80 (flash_attn_func, flash_attn_with_kvcache linear and
 paged with an append, flash_attn_varlen_func(block_table=)) are in
 tests/test_torch_wide_heads.py."""
@@ -21,6 +27,7 @@ tests/test_torch_wide_heads.py."""
 import dataclasses
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,11 +37,21 @@ from flash_attn_tpu.cache.kvcache import (
     flash_attn_with_kvcache as jax_flash_attn_with_kvcache,
 )
 from flash_attn_tpu.interface import flash_attn_func as jax_flash_attn_func
+from flash_attn_tpu.interface import flash_attn_varlen_func as jax_varlen
 from flash_attn_tpu.models import hf_adapters as JA
 from flash_attn_tpu.models.gpt import GPTLMHeadModel as JaxGPTLMHeadModel
-from flash_attn_tpu_torch import flash_attn_func, flash_attn_with_kvcache
+from flash_attn_tpu.modules.mha import MHA as JaxMHA
+from flash_attn_tpu.training.trainer import TrainConfig as JaxTrainConfig
+from flash_attn_tpu.training.trainer import Trainer as JaxTrainer
+from flash_attn_tpu_torch import (
+    flash_attn_func,
+    flash_attn_varlen_func,
+    flash_attn_with_kvcache,
+)
 from flash_attn_tpu_torch.models import hf_adapters as TA
-from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel
+from flash_attn_tpu_torch.models.gpt import GPTLMHeadModel, jax_param_arrays
+from flash_attn_tpu_torch.modules.mha import MHA
+from flash_attn_tpu_torch.training.trainer import TrainConfig, Trainer
 from flash_attn_tpu_torch.serving.engine import InferenceEngine, PagePool
 from flash_attn_tpu_torch.serving.generation import GenerationConfig, decode
 from flash_attn_tpu_torch.utils import testing
@@ -47,6 +64,7 @@ torch.set_num_threads(1)
 D = 80
 SCALE = 1.0 / D  # BTLM's mup_scale_qk_dot_by_d
 TOL = dict(atol=1e-5, rtol=1e-5)
+GRAD_ATOL = 1e-4  # gradients, fp32 on both sides: summation order only
 PAGE = 16
 TABLE = np.array([[3, 0, 0, 0], [7, 1, 0, 0], [2, 9, 11, 0]], np.int32)
 
@@ -324,3 +342,183 @@ def test_tiny_btlm_at_80_engines_match_static_decode(btlm, btlm_decoded,
     out = eng.run()
     for rid, row in zip(req, seqs.numpy()):
         np.testing.assert_array_equal(out[rid], row[PROMPT:])
+
+
+# (name, sq, sk, h, h_k, causal, window, softcap, slopes, scale): ALiBi over
+# (h,) slopes at BTLM's scale with GQA and sq < sk under the causal shift;
+# the cap under a causal window; (b, h) slopes and the cap, not causal,
+# sq > sk. No case runs sq = sk = 1 causal (JAX's dv fault at one row,
+# ROADMAP.md queue C).
+GRAD_CASES = [
+    ("alibi (h,), causal, GQA 4/2, sq < sk, scale 1/80", 37, 70, 4, 2, True,
+     (-1, -1), 0.0, "h", SCALE),
+    ("cap 5 under a causal window, GQA 4/1", 64, 64, 4, 1, True, (9, 0), 5.0,
+     None, None),
+    ("alibi (b, h) and cap 3, not causal, sq > sk", 70, 37, 2, 2, False,
+     (-1, -1), 3.0, "bh", None),
+]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: c[0])
+def test_flash_attn_func_grads_at_80_match_jax(case):
+    """dq, dk, dv of flash_attn_func at 80, deterministic (B3) and not
+    (B2), against jax.grad of JAX's flash_attn_func; a requires_grad
+    slopes tensor gets exact zeros, as JAX returns."""
+    name, sq, sk, h, h_k, causal, window, cap, slopes, scale = case
+    rng = np.random.default_rng(sq + sk + h)
+    q, k, v = _rand(rng, 2, sq, h, D), _rand(rng, 2, sk, h_k, D), \
+        _rand(rng, 2, sk, h_k, D)
+    g = _rand(rng, 2, sq, h, D)
+    sl = None if slopes is None else _slopes(
+        rng, (h,) if slopes == "h" else (2, h))
+    kw = dict(causal=causal, window_size=window, softcap=cap,
+              softmax_scale=scale)
+
+    def loss(q_, k_, v_):
+        return (jax_flash_attn_func(
+            q_, k_, v_, alibi_slopes=None if sl is None else jnp.asarray(sl),
+            **kw) * g).sum()
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for deterministic in (True, False):
+        leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+        tsl = None if sl is None else _t(sl).requires_grad_()
+        out = flash_attn_func(*leaves, alibi_slopes=tsl,
+                              deterministic=deterministic, **kw)
+        (out * _t(g)).sum().backward()
+        for gname, leaf, ref in zip("qkv", leaves, want):
+            np.testing.assert_allclose(
+                leaf.grad.numpy(), np.asarray(ref), atol=GRAD_ATOL, rtol=0,
+                err_msg=f"{name} d{gname} deterministic={deterministic}")
+        if tsl is not None:
+            assert torch.equal(tsl.grad, torch.zeros_like(tsl))
+
+
+def _cu(lens):
+    return np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+
+
+# (name, lens_q, lens_k, causal, softcap, slopes, h, h_k, scale): ALiBi
+# through B6's forward (as JAX routes it) at BTLM's scale with a
+# zero-length sequence and GQA; the cap through B7 with sq != sk under the
+# causal shift (rows that see no key)
+VARLEN_GRAD_CASES = [
+    ("B6 under alibi (b, h), causal, GQA 4/2, scale 1/80", [40, 0, 70],
+     [40, 0, 70], True, 0.0, "bh", 4, 2, SCALE),
+    ("B7 under cap 4, sq != sk, causal", [50, 21, 64], [30, 40, 64],
+     True, 4.0, None, 2, 2, None),
+]
+
+
+@pytest.mark.parametrize("case", VARLEN_GRAD_CASES, ids=lambda c: c[0])
+def test_varlen_func_grads_at_80_match_jax(case):
+    """The dense flash_attn_varlen_func at 80: out, lse and dq, dk, dv
+    against jax.vjp of JAX's flash_attn_varlen_func (out and lse atol/rtol
+    1e-5, the lse in JAX's last-key form)."""
+    name, lens_q, lens_k, causal, cap, slopes, h, h_k, scale = case
+    rng = np.random.default_rng(sum(lens_q) + h)
+    cu_q, cu_k = _cu(lens_q), _cu(lens_k)
+    tq, tk = int(cu_q[-1]), int(cu_k[-1])
+    q, k, v = _rand(rng, tq, h, D), _rand(rng, tk, h_k, D), \
+        _rand(rng, tk, h_k, D)
+    g = _rand(rng, tq, h, D)
+    sl = None if slopes is None else _slopes(rng, (len(lens_q), h))
+    kw = dict(causal=causal, softcap=cap, softmax_scale=scale)
+    args = (max(lens_q), max(lens_k))
+
+    def jfn(q_, k_, v_):
+        out, lse, _ = jax_varlen(
+            q_, k_, v_, jnp.asarray(cu_q), jnp.asarray(cu_k), *args,
+            alibi_slopes=None if sl is None else jnp.asarray(sl), **kw,
+            return_attn_probs=True)
+        return out, lse
+
+    (out_j, lse_j), vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+    grads_j = vjp((jnp.asarray(g), jnp.zeros_like(lse_j)))
+    leaves = [_t(x).requires_grad_() for x in (q, k, v)]
+    out_t, lse_t, _ = flash_attn_varlen_func(
+        *leaves, _t(cu_q), _t(cu_k), *args,
+        alibi_slopes=None if sl is None else _t(sl), **kw,
+        return_attn_probs=True)
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               **TOL)
+    fin = np.isfinite(np.asarray(lse_j))
+    np.testing.assert_array_equal(np.isfinite(lse_t.numpy()), fin)
+    np.testing.assert_allclose(lse_t.numpy()[fin], np.asarray(lse_j)[fin],
+                               **TOL)
+    out_t.backward(_t(g))
+    for gname, leaf, gj in zip("qkv", leaves, grads_j):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(gj),
+                                   atol=GRAD_ATOL, rtol=0,
+                                   err_msg=f"{name} d{gname}")
+
+
+def test_packed_alibi_mha_at_80_matches_jax():
+    """The packed MHA (cu_seqlens, a zero-length sequence among them) with
+    ALiBi at BTLM's scale, 2 heads of 80 and no biases (BTLM's attention
+    without its biases, whose key bias softmax cancels) against JAX's MHA
+    on the same cu_seqlens: the output (atol/rtol 1e-5) and the input's
+    gradient (atol 1e-4)."""
+    rng = np.random.default_rng(23)
+    kw = dict(num_heads=2, causal=True, use_alibi=True, softmax_scale=SCALE,
+              qkv_proj_bias=False, out_proj_bias=False)
+    jm = JaxMHA(embed_dim=2 * D, dtype=jnp.float32, **kw)
+    tm = MHA(2 * D, dtype=torch.float32, device="cpu", **kw)
+    cu = _cu([30, 0, 47])
+    x, g = _rand(rng, 77, 2 * D), _rand(rng, 77, 2 * D)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                     cu_seqlens=jnp.asarray(cu), max_seqlen=47)["params"]
+    tm.load_state_dict({n: _t(a) for n, a in tm.jax_param_arrays(
+        jax.tree_util.tree_map(np.asarray, params)).items()})
+
+    def jf(x_):
+        out = jm.apply({"params": params}, x_, cu_seqlens=jnp.asarray(cu),
+                       max_seqlen=47)
+        return (out * g).sum(), out
+    (_, out_j), dx_j = jax.value_and_grad(jf, has_aux=True)(jnp.asarray(x))
+    xt = _t(x).requires_grad_()
+    out_t = tm(xt, cu_seqlens=_t(cu), max_seqlen=47)
+    out_t.backward(_t(g))
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j),
+                               atol=GRAD_ATOL, rtol=0)
+
+
+def test_tiny_btlm_trainer_at_80_matches_jax_trainer():
+    """A Trainer on the tiny BTLM (2 heads of 80, ALiBi, muP's scales and
+    the softmax scale 1/80, from the port's adapter) against JAX's Trainer
+    on JAX's adapter's config, 4 steps over sequences of 64 tokens, fp32
+    optimizer state: the losses and gradient norms at every step (rtol
+    1e-4) and the parameters after (atol 1e-4), all but the key bias: a
+    key bias adds a constant to each row's scores, which softmax cancels,
+    so its gradient is zero up to rounding and Adam's step on that noise
+    compares nothing (tests/test_torch_score_training.py drops the biases
+    for that reason; BTLM has them)."""
+    jcfg = JA.btlm_config_to_gpt_config(BTLM, dtype=jnp.float32)
+    cfg = TA.btlm_config_to_gpt_config(BTLM, dtype=torch.float32)
+    train = dict(batch_size=2, seqlen=64, lr=1e-2, warmup_steps=1,
+                 total_steps=10, zero1=False, fused_ce=True,
+                 fused_ce_chunk=48, log_every=1, opt_state_dtype="float32")
+    jtr = JaxTrainer(JaxTrainConfig(model=jcfg, **train))
+    tr = Trainer(TrainConfig(model=cfg, **train), device="cpu")
+    mixer = tr.model.transformer.layers[0].mixer
+    assert mixer.head_dim == D and mixer.softmax_scale == SCALE
+    tr.load_jax_params(jax.tree_util.tree_map(np.asarray, jtr.params))
+    rng = np.random.default_rng(24)
+    for _ in range(4):
+        b = rng.integers(0, VOCAB, (2, 65)).astype(np.int32)
+        out = jtr._step(jtr.params, jtr.opt_state, jnp.asarray(b[:, :-1]),
+                        jnp.asarray(b[:, 1:]), jtr.ema_params, jtr.scaler)
+        jtr.params, jtr.opt_state = out[0], out[1]
+        loss, gnorm = tr.train_step(torch.from_numpy(b[:, :-1]).long(),
+                                    torch.from_numpy(b[:, 1:]).long())
+        np.testing.assert_allclose(float(loss), float(out[2]), rtol=1e-4)
+        np.testing.assert_allclose(float(gnorm), float(out[3]), rtol=1e-4)
+    want = jax_param_arrays(tr.model,
+                            jax.tree_util.tree_map(np.asarray, jtr.params))
+    e = BTLM.hidden_size
+    for n, a in want.items():
+        diff = np.abs(tr.masters[n].numpy() - a)
+        if n.endswith("mixer.Wqkv.bias"):
+            diff[e:2 * e] = 0.0  # the key bias
+        assert diff.max() <= 1e-4, n

@@ -23,11 +23,14 @@ from flash_attn_tpu_torch.utils.cases import (
     BAND_DECODE_CASES,
     BAND_FWD_CASES,
     BAND_VARLEN_CASE,
+    HD80_BAND_BWD_CASES,
     HD80_BAND_DECODE_CASES,
     HD80_BAND_FWD_CASES,
+    HD80_BWD_CASES,
     HD80_FWD_CASES,
     HD80_KVQUANT_DECODE_CASES,
     HD80_KVQUANT_VARLEN_CASES,
+    HD80_SCORE_BWD_CASES,
     HD80_SCORE_DECODE_CASES,
     HD80_SCORE_FWD_CASES,
     HD80_VARLEN_CASES,
@@ -41,6 +44,7 @@ from flash_attn_tpu_torch.utils.cases import (
     VARLEN_CASES,
     kv_codes,
     kv_descales,
+    case_scale,
     score_slopes,
 )
 
@@ -825,7 +829,7 @@ def test_varlen_kernels_match_plain_versions_on_the_card(causal, d, dtype):
 # B6's backward against B3 over the same rows (b, s, h, h_k, d, causal,
 # dtype): b equal-length sequences packed run the tiles of bwd_sm90.cuh over
 # the same rows as the dense batch, so the bits must agree: lengths either
-# side of the 64- and 128-row tiles, GQA, both head dims, fp16.
+# side of the 64- and 128-row tiles, GQA, every head dim, fp16.
 VARLEN_DENSE_BWD_CASES = [
     (3, 300, 16, 4, 128, True, torch.bfloat16),
     (2, 256, 8, 8, 64, False, torch.float16),
@@ -835,6 +839,8 @@ VARLEN_DENSE_BWD_CASES = [
     (2, 129, 4, 4, 96, False, torch.float16),
     (3, 200, 4, 2, 256, True, torch.bfloat16),
     (2, 129, 4, 4, 256, False, torch.float16),
+    (3, 300, 8, 4, 80, True, torch.bfloat16),
+    (2, 129, 4, 4, 80, False, torch.float16),
 ]
 
 
@@ -900,7 +906,7 @@ def test_varlen_backward_refuses_views_tma_cannot_take_on_the_card():
 
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 def test_persistent_varlen_forward_equals_b6_on_the_card(causal, d):
     """B7 against B6's forward bit for bit (two Q tiles a block at d = 64,
     one at 128), over a work list of more than 3 x its grid's items (so that blocks walk three
@@ -956,7 +962,7 @@ def test_persistent_varlen_forward_equals_b6_on_the_card(causal, d):
 
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [64, 96, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 def test_varlen_forwards_equal_dense_forward_on_the_card(causal, d):
     """B6's forward and B7 over b equal-length sequences packed give B1's
     out and lse over the same (b, s) rows, bit for bit (the three run the
@@ -1482,8 +1488,9 @@ def test_varlen_paged_kernel_cases_on_the_card(case):
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", VARLEN_CASES + VARLEN_PAGED_EDGE_CASES,
-                         ids=lambda c: c[0])
+@pytest.mark.parametrize("case", VARLEN_CASES + VARLEN_PAGED_EDGE_CASES + [
+    c for c, cap, window in HD80_VARLEN_CASES if not cap and window[0] < 0],
+    ids=lambda c: c[0])
 def test_varlen_paged_equals_b6_forward_on_the_card(case):
     """B8 runs B6's forward tile with a paged source: over pages it gives
     B6's forward's bits over the same rows packed (cu_seqlens_k in place of
@@ -2255,14 +2262,13 @@ def test_head_dim_80_forward_matches_plain_version_on_the_card(case):
 
 @pytest.mark.usefixtures("cuda_card")
 def test_head_dim_80_training_refusals_on_the_card():
-    """Head dim 80 serves on the card and trains on the CPU alone: a
-    gradient through flash_attn_func (and its packed form), the dense
-    flash_attn_varlen_func (packed input: B6's and B7's forwards), MHA in
-    train mode with parameters that require grad and MHA on packed input
-    raise NotImplementedError naming queue A, item 7, before any kernel
-    launches; the same calls without a gradient run the forward kernels at
-    80 (flash_attn_func, MHA's train mode under no_grad, prefill and
-    decode)."""
+    """Head dim 80 trains on the card: a gradient through flash_attn_func
+    (and its packed form), the dense flash_attn_varlen_func (B7's forward,
+    B6's under ALiBi, B6's backward), MHA in train mode and MHA on packed
+    input run the kernels at 80, each launch counted, with finite
+    gradients; without a gradient the forward kernels run alone. Head dim
+    192 and d != dv still raise before any launch, naming queue A, item
+    7."""
     from flash_attn_tpu_torch import (
         flash_attn_qkvpacked_func,
         flash_attn_varlen_func,
@@ -2278,22 +2284,41 @@ def test_head_dim_80_training_refusals_on_the_card():
     cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
     mha = MHA(160, 2, causal=True, use_alibi=True, dtype=torch.bfloat16,
               max_decode_seqlen=128)
-    before = _counts()
-    for call in (lambda: flash_attn_func(q, q, q, causal=True),
-                 lambda: flash_attn_qkvpacked_func(qkv, causal=True),
-                 lambda: flash_attn_varlen_func(x, x, x, cu, cu, 64, 64),
-                 lambda: flash_attn_varlen_func(x.detach(), x.detach(),
-                                                x.detach(), cu, cu, 64, 64),
-                 lambda: mha(randn(1, 64, 160)),
-                 lambda: mha(randn(64, 160), cu_seqlens=cu, max_seqlen=64)):
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            call()
-    assert _counts() == before
-    fwd = "flash_attn_tpu_torch.kernels.flash_fwd.launches"
-    dec = "flash_attn_tpu_torch.kernels.flash_decode.launches"
+    mod = "flash_attn_tpu_torch.kernels."
+    fwd, dec = mod + "flash_fwd.launches", mod + "flash_decode.launches"
+    pre, dkdv = mod + "flash_bwd.launches_preprocess", \
+        mod + "flash_bwd.launches_dkdv"
+    dq = mod + "flash_bwd.launches_dq"
+    b3 = {pre: 1, dkdv: 1, dq: 1}
+    vpre, vdkdv, vdq = (mod + "flash_varlen.launches_" + n
+                        for n in ("preprocess", "dkdv", "dq"))
+    b6 = {vpre: 1, vdkdv: 1, vdq: 1}
+    b7 = mod + "flash_varlen_persistent.launches"
+    score = {n + "_score": 1 for n in (dkdv, dq)}
+    for call, want, leaf in (
+            (lambda: flash_attn_func(q, q, q, causal=True), {fwd: 1, **b3}, q),
+            (lambda: flash_attn_qkvpacked_func(qkv, causal=True),
+             {fwd: 1, **b3}, qkv),
+            (lambda: flash_attn_varlen_func(x, x, x, cu, cu, 64, 64),
+             {b7: 1, **b6}, x)):
+        leaf.grad = None
+        _, n = _counted(lambda: call().float().square().sum().backward())
+        assert n == want and bool(torch.isfinite(leaf.grad).all())
+    xi = randn(1, 64, 160, requires_grad=True)
+    _, n = _counted(lambda: mha(xi).float().square().sum().backward())
+    assert n == {fwd: 1, fwd + "_score": 1, **b3, **score}
+    assert bool(torch.isfinite(xi.grad).all())
+    xp = randn(64, 160, requires_grad=True)
+    _, n = _counted(lambda: mha(xp, cu_seqlens=cu, max_seqlen=64).float()
+                    .square().sum().backward())
+    assert n == {mod + "flash_varlen.launches_fwd": 1,
+                 mod + "flash_varlen.launches_fwd_score": 1, **b6,
+                 vdkdv + "_score": 1, vdq + "_score": 1}
+    assert bool(torch.isfinite(xp.grad).all())
     with torch.no_grad():
-        out, n = _counted(lambda: flash_attn_func(q, q, q, causal=True))
-        assert bool(torch.isfinite(out).all()) and n == {fwd: 1}
+        out, n = _counted(lambda: flash_attn_varlen_func(x, x, x, cu, cu, 64,
+                                                         64))
+        assert bool(torch.isfinite(out).all()) and n == {b7: 1}
         y, n = _counted(lambda: mha(randn(2, 64, 160)))
         assert bool(torch.isfinite(y).all())
         assert n == {fwd: 1, fwd + "_score": 1}
@@ -2303,6 +2328,81 @@ def test_head_dim_80_training_refusals_on_the_card():
                                     cache=cache))
         assert bool(torch.isfinite(y).all())
         assert n == {dec: 1, dec + "_score": 1}
+    before = _counts()
+    y = randn(1, 64, 2, 192, requires_grad=True)
+    z = randn(64, 2, 192, requires_grad=True)
+    cu = torch.tensor([0, 64], dtype=torch.int32, device="cuda")
+    v = randn(1, 64, 2, 64)
+    for call in (lambda: flash_attn_func(y, y, y, causal=True),
+                 lambda: flash_attn_varlen_func(z, z, z, cu, cu, 64, 64),
+                 lambda: flash_attn_func(q, q, v)):
+        with pytest.raises(ValueError, match="queue A, item 7"):
+            call()
+    with pytest.raises(NotImplementedError, match="item 7"):
+        MHA(384, 2, causal=True, dtype=torch.bfloat16)(randn(1, 64, 384))
+    assert _counts() == before
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("deterministic", [True, False], ids=["B3", "B2"])
+@pytest.mark.parametrize("case", HD80_BWD_CASES, ids=str)
+def test_head_dim_80_backward_kernels_match_plain_version_on_the_card(
+        case, deterministic):
+    """B3 and B2 at head dim 80 without the band or the map (the
+    instantiations of flash_bwd_80.cu): dq, dk, dv by the 2x rule against
+    the plain fp32 backward with an autograd reference in the inputs'
+    type, one launch of each kernel a call; B3 the same bits twice; the
+    preprocess's delta within 1e-3 of its plain version's and its lse2
+    within 1e-5 (+inf on the same rows)."""
+    from flash_attn_tpu_torch.kernels import flash_bwd
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref_grads,
+        check_against_ref,
+    )
+
+    b, sq, sk, h, h_k, d, causal, dtype = case
+    q, k, v, do, out, lse = _dense_bwd_inputs(case, seed=sq + h)
+    grads, n = _counted(lambda: flash_bwd.flash_attention_bwd(
+        do, q, k, v, out, lse, causal=causal, deterministic=deterministic))
+    mod = "flash_attn_tpu_torch.kernels.flash_bwd.launches_"
+    want = {"dkdv": 1, "dq": 1} if deterministic else {"fused": 1}
+    assert n == {mod + "preprocess": 1, **{mod + k_: c
+                                           for k_, c in want.items()}}
+    if deterministic:
+        again = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse,
+                                              causal=causal)
+        assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    f32 = [x.float() for x in (do, q, k, v)]
+    ref = flash_bwd.flash_attention_bwd_plain(*f32, out.float(), lse,
+                                              causal=causal)
+    ref_lp = attention_ref_grads(*(x.transpose(1, 2) for x in (q, k, v, do)),
+                                 causal=causal, upcast=False)
+    for name, got, r, lp in zip("qkv", grads, ref, ref_lp):
+        check_against_ref(got.transpose(1, 2), r.transpose(1, 2), lp,
+                          atol=1e-4, msg=f"{case} d{name}")
+    delta, lse2 = flash_bwd.bwd_preprocess(do, out, lse)
+    want_delta, want_lse2 = flash_bwd.bwd_preprocess_plain(
+        do, out, lse, delta.shape[-1])
+    fin = torch.isfinite(want_lse2)
+    assert torch.equal(torch.isfinite(lse2), fin)
+    torch.testing.assert_close(lse2[fin], want_lse2[fin], atol=1e-5, rtol=0)
+    torch.testing.assert_close(delta, want_delta, atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("form", ["plain", "band", "score"])
+def test_head_dim_80_kernels_keep_to_their_80_columns_on_the_card(form):
+    """No kernel at head dim 80 reads or writes past a row's 80 columns
+    (utils/testing.py kept_columns_check): over q, k, v, out and dout whose
+    heads of 80 sit in rows of 96, the last 16 NaN, B1, B3, B2, B6's and
+    B7's forwards and B6's backward give the bits of contiguous inputs;
+    with their outputs in rows of 96 whose last 16 columns hold a sentinel,
+    and B2's fp32 dQ buffer followed by a sentinel tail, every sentinel
+    survives and every output keeps its bits."""
+    from flash_attn_tpu_torch.utils.testing import kept_columns_check
+
+    tails, _ = kept_columns_check(form)
+    assert tails >= 12
 
 
 @pytest.mark.usefixtures("cuda_card")
@@ -2706,7 +2806,8 @@ def _band_bwd_refs(q, k, v, do, causal, band):
 
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("deterministic", [True, False], ids=["B3", "B2"])
-@pytest.mark.parametrize("case", BAND_BWD_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", BAND_BWD_CASES + HD80_BAND_BWD_CASES,
+                         ids=lambda c: c[0])
 def test_band_backward_kernels_match_plain_version_on_the_card(case,
                                                               deterministic):
     """B3's (and B2's) band instantiation on every BAND_BWD_CASES case (one
@@ -2735,7 +2836,8 @@ def test_band_backward_kernels_match_plain_version_on_the_card(case,
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", [c for c in BAND_BWD_CASES if c[10] == 0],
+@pytest.mark.parametrize("case", [c for c in BAND_BWD_CASES
+                                  + HD80_BAND_BWD_CASES if c[10] == 0],
                          ids=lambda c: c[0])
 def test_band_varlen_kernels_equal_dense_ones_on_the_card(case):
     """Two batch rows of a BAND_BWD_CASES case (no sinks: the varlen route
@@ -3122,14 +3224,16 @@ def test_score_refusals_on_the_card():
 def _score_bwd_inputs(case, rows: int, seed: int = 0):
     """q, k, v, do as (b, h, s, d) views of (b, s, h, d) tensors on the card
     for ``rows`` batch rows of a SCORE_BWD_CASES case, its score and band
-    arguments (the (b, h) slopes of its first ``rows`` rows), and B1's
-    score forward's out and lse."""
+    arguments (the (b, h) slopes of its first ``rows`` rows; the softmax
+    scale of a case named after BTLM-3B-8K, case_scale), and B1's score
+    forward's out and lse."""
     from flash_attn_tpu_torch.dispatch.config import normalize_window
     from flash_attn_tpu_torch.kernels import flash_fwd
 
-    _, _, sq, sk, h, h_k, d, causal, cap, kind, window, dtype, _ = case
+    name, _, sq, sk, h, h_k, d, causal, cap, kind, window, dtype, _ = case
     kw = dict(softcap=cap, window_size=normalize_window(window),
-              alibi_slopes=score_slopes(kind, rows, h, "cuda"))
+              alibi_slopes=score_slopes(kind, rows, h, "cuda"),
+              softmax_scale=case_scale(name))
     gen = torch.Generator(device="cuda").manual_seed(seed + sq + sk + h)
     q, k, v, do = (torch.randn(rows, n, heads, d, device="cuda",
                                generator=gen).to(dtype).transpose(1, 2)
@@ -3177,7 +3281,7 @@ def _score_bwd_refs(q, k, v, do, causal, kw):
 
 @pytest.mark.usefixtures("cuda_card")
 @pytest.mark.parametrize("case, deterministic", [
-    (c, det) for c in SCORE_BWD_CASES
+    (c, det) for c in SCORE_BWD_CASES + HD80_SCORE_BWD_CASES
     for det in ((True, False) if c[12] else (True,))],
     ids=lambda x: x[0] if isinstance(x, tuple) else "B3" if x else "B2")
 def test_score_backward_kernels_match_plain_version_on_the_card(
@@ -3210,7 +3314,8 @@ def test_score_backward_kernels_match_plain_version_on_the_card(
 
 
 @pytest.mark.usefixtures("cuda_card")
-@pytest.mark.parametrize("case", SCORE_BWD_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", SCORE_BWD_CASES + HD80_SCORE_BWD_CASES,
+                         ids=lambda c: c[0])
 def test_score_varlen_kernels_equal_dense_ones_on_the_card(case):
     """Two batch rows of a SCORE_BWD_CASES case packed as two sequences,
     each taking its row's slopes: B6's and B7's score forwards give B1's
@@ -3225,6 +3330,7 @@ def test_score_varlen_kernels_equal_dense_ones_on_the_card(case):
     grads = flash_bwd.flash_attention_bwd(do, q, k, v, out, lse, causal=causal,
                                           **kw)
     vkw = dict(softcap=kw["softcap"], window_size=kw["window_size"],
+               softmax_scale=kw["softmax_scale"],
                alibi_slopes=slopes_bh(kw["alibi_slopes"], 2, h))
     cu_q, cu_k = (torch.arange(3, dtype=torch.int32, device="cuda") * n
                   for n in (sq, sk))

@@ -1,4 +1,5 @@
-"""Training at head dims 96 (GPT-NeoX-20B) and 256 (GPT-J): the port's
+"""Training at head dims 80 (BTLM-3B-8K), 96 (GPT-NeoX-20B) and 256
+(GPT-J): the port's
 gradients against the JAX package's on the same numpy inputs, on the CPU in
 fp32. The port runs the plain versions of its backward kernels (B3 and B2
 through flash_attn_func, B6 and B7 through flash_attn_varlen_func and the
@@ -10,7 +11,8 @@ masking is left out: JAX's dv there is not the group's sum of dO (ROADMAP
 queue C), as tests/test_torch_backward.py leaves it out too.
 
 One training step of each family's shape is in
-tests/test_torch_wide_training.py."""
+tests/test_torch_wide_training.py; ALiBi, the cap and the band at 80, and a
+tiny BTLM's Trainer, are in tests/test_torch_head_dim_80.py."""
 
 import jax
 import jax.numpy as jnp
@@ -50,9 +52,9 @@ FUNC_CASES = [(37, 70, 2, 1, True), (70, 37, 2, 2, True),
 
 
 @pytest.mark.parametrize("sq, sk, h, h_k, causal", FUNC_CASES)
-@pytest.mark.parametrize("d", [96, 256])
+@pytest.mark.parametrize("d", [80, 96, 256])
 def test_flash_attn_func_grads_match_jax(d, sq, sk, h, h_k, causal):
-    """dq, dk, dv of flash_attn_func at 96 and 256, deterministic (B3) and
+    """dq, dk, dv of flash_attn_func at 80, 96 and 256, deterministic (B3) and
     not (B2), against jax.grad of JAX's flash_attn_func."""
     rng = np.random.default_rng(d + sq)
     q, k, v = _rand(rng, 2, sq, h, d), _rand(rng, 2, sk, h_k, d), \
@@ -78,7 +80,8 @@ def test_flash_attn_func_grads_match_jax(d, sq, sk, h, h_k, causal):
 def test_varlen_func_grads_match_jax(d, causal):
     """The dense flash_attn_varlen_func (B7 forward, B6 backward) at 96 and
     256: out and dq, dk, dv against jax.vjp of JAX's, with a zero-length
-    sequence, sq != sk and GQA 2/1."""
+    sequence, sq != sk and GQA 2/1 (at 80 under ALiBi and the cap in
+    tests/test_torch_head_dim_80.py)."""
     rng = np.random.default_rng(d)
     lens_q, lens_k = [40, 0, 70], [55, 10, 70]
     cu_q, cu_k = _cu(lens_q), _cu(lens_k)
@@ -105,7 +108,9 @@ def test_varlen_func_grads_match_jax(d, causal):
 
 
 # (embed_dim, heads, rotary dim, interleaved): GPT-J's head of 256 with
-# interleaved rotary on 64 columns, GPT-NeoX-20B's of 96 with rotary on 24.
+# interleaved rotary on 64 columns, GPT-NeoX-20B's of 96 with rotary on 24
+# (BTLM-3B-8K's head of 80, under ALiBi, is in
+# tests/test_torch_head_dim_80.py).
 MHA_CASES = {256: (512, 2, 64, True), 96: (192, 2, 24, False)}
 
 

@@ -1,11 +1,9 @@
 """Head dims 80 (BTLM-3B-8K), 96 (GPT-NeoX-20B) and 256 (GPT-J), which the
-port's forward and decode kernels (B1, B8, B4 d = dv) take, against the JAX
-package on the
-same numpy inputs, on the CPU: the port runs the plain versions of its
-kernels, JAX its Pallas kernels in interpret mode. The backwards and the
-packed forwards at 96 and 256 are in tests/test_torch_wide_backward.py; at
-80 they are refused on the card (ROADMAP.md queue A, item 7), and ALiBi,
-the band and an fp8 cache at 80 are in tests/test_torch_head_dim_80.py.
+port's kernels take, against the JAX package on the same numpy inputs, on
+the CPU: the port runs the plain versions of its kernels, JAX its Pallas
+kernels in interpret mode. The backwards and the packed forwards at 80, 96
+and 256 are in tests/test_torch_wide_backward.py, and ALiBi, the band, the
+cap, an fp8 cache and training at 80 are in tests/test_torch_head_dim_80.py.
 
 Each attention function is held to JAX twice: in fp32 (the two differ only
 in summation order, atol/rtol 1e-5) and in bf16 under the 2x rule, the
@@ -27,12 +25,12 @@ from flash_attn_tpu_torch import (
     flash_attn_varlen_func,
     flash_attn_with_kvcache,
 )
+from flash_attn_tpu_torch import interface
+from flash_attn_tpu_torch.dispatch import config
 from flash_attn_tpu_torch.dispatch.config import (
     BLOCKSPARSE_HEAD_DIMS,
-    BWD_HEAD_DIMS,
-    FWD_HEAD_DIMS,
+    HEAD_DIMS,
     check_head_dims,
-    check_training_head_dim,
 )
 from flash_attn_tpu_torch.kernels import flash_bwd
 from flash_attn_tpu_torch.utils.testing import check_against_ref
@@ -175,47 +173,35 @@ def test_varlen_paged_matches_jax(d):
 
 
 def test_head_dim_refusals_name_item_7():
-    """The wrappers' checks (a kernel cannot launch here): the forwards of
-    serving, B1, B8 and B4, take 80, 96 and 256 (FWD_HEAD_DIMS); the kernels
-    of training and packed input, the backwards B2, B3 and B6, their
-    preprocess and the packed forwards B6/B7, take 96 and 256 but not 80
-    (BWD_HEAD_DIMS), so a gradient or packed input at 80 on the card is
-    refused (check_training_head_dim) before any kernel runs, naming queue
-    A item 7, while flash_attn_func no longer refuses a gradient at 96 or
-    256 (its old check, check_backward_head_dim, is gone); B10 takes 64 and
-    128 only; 192 and d != dv are refused everywhere, by the forward's
-    check before anything runs. Each refusal names queue A item 7; the CPU
-    runs any head dim."""
-    assert FWD_HEAD_DIMS == (64, 80, 96, 128, 256)
-    assert BWD_HEAD_DIMS == (64, 96, 128, 256)
+    """The wrappers' checks (a kernel cannot launch here): every kernel of
+    serving and of training, the forwards B1, B8 and B4, the backwards B2,
+    B3 and B6, their preprocess and the packed forwards B6/B7, takes one
+    set of head dims, 64, 80, 96, 128 and 256 (HEAD_DIMS), so a gradient or
+    packed input at 80 is no longer refused (check_training_head_dim and
+    the two sets it kept apart are gone), nor is a gradient at 96 or 256
+    (check_backward_head_dim is gone too); B10 takes 64 and 128 only; 192
+    and d != dv are refused everywhere, by the forward's check before
+    anything runs. Each refusal names queue A item 7; the CPU runs any head
+    dim."""
+    assert HEAD_DIMS == (64, 80, 96, 128, 256)
     assert BLOCKSPARSE_HEAD_DIMS == (64, 128)
+    for gone in ("FWD_HEAD_DIMS", "BWD_HEAD_DIMS", "check_training_head_dim"):
+        assert not hasattr(config, gone) and not hasattr(interface, gone)
     assert not hasattr(flash_bwd, "check_backward_head_dim")
-    for kernel in ("flash_fwd", "flash_varlen_paged",
-                   "flash_decode (the d = dv route)"):
-        check_head_dims(kernel, 80, 80, 80, FWD_HEAD_DIMS)
-    for kernel in ("flash_varlen_fwd", "flash_varlen_fwd_persistent",
-                   "flash_varlen_bwd", "flash_bwd", "bwd_preprocess"):
-        with pytest.raises(ValueError, match="queue A, item 7"):
-            check_head_dims(kernel, 80, 80, 80, BWD_HEAD_DIMS)
-    for what in ("a gradient", "packed input"):
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            check_training_head_dim("kernel", 80, what)
-    for d in (64, 96, 128, 256, 192):  # trained, or refused by the forward
-        check_training_head_dim("kernel", d, "a gradient")
     for d in (80, 96, 256):
+        for kernel in ("flash_fwd", "flash_varlen_paged",
+                       "flash_decode (the d = dv route)", "flash_varlen_fwd",
+                       "flash_varlen_fwd_persistent", "flash_varlen_bwd",
+                       "flash_bwd", "bwd_preprocess"):
+            check_head_dims(kernel, d, d, d, HEAD_DIMS)
+        with pytest.raises(ValueError, match="queue A, item 7"):
+            check_head_dims("flash_blocksparse", d, d, d,
+                            BLOCKSPARSE_HEAD_DIMS)
         q = torch.zeros(1, 8, 2, d, requires_grad=True)
         out = flash_attn_func(q, q, q, causal=True)  # the CPU takes grads
         out.sum().backward()
         assert q.grad.shape == q.shape
-    for d in (96, 256):
-        for kernel in ("flash_fwd", "flash_varlen_fwd", "flash_bwd",
-                       "bwd_preprocess"):
-            check_head_dims(kernel, d, d, d, BWD_HEAD_DIMS)
-            check_head_dims(kernel, d, d, d, FWD_HEAD_DIMS)
-        with pytest.raises(ValueError, match="queue A, item 7"):
-            check_head_dims("flash_blocksparse", d, d, d,
-                            BLOCKSPARSE_HEAD_DIMS)
-    for dims in (FWD_HEAD_DIMS, BWD_HEAD_DIMS, BLOCKSPARSE_HEAD_DIMS):
+    for dims in (HEAD_DIMS, BLOCKSPARSE_HEAD_DIMS):
         with pytest.raises(ValueError, match="queue A, item 7"):
             check_head_dims("kernel", 192, 192, 192, dims)
         with pytest.raises(ValueError, match="queue A, item 7"):

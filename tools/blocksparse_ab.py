@@ -28,16 +28,18 @@ changes). Give the roots in turns (A B B A) to compare two trees on the
 card they share.
 
 With --sass it compiles the sources of the kernels that share B10's tiles
-(flash_fwd.cu, flash_varlen_fwd.cu and its band instantiations,
+(flash_fwd.cu, flash_varlen_fwd.cu and its band and score instantiations,
 flash_varlen_paged.cu, flash_blocksparse.cu, and the dense and varlen
 backwards' sources: flash_bwd.cu, flash_varlen.cu, their head dims 96 and
-256 and their band instantiations), the score instantiations of B1 and B8
-and the decode route's sources (flash_decode.cu, flash_decode_kv8.cu) in
+256 and their band and score instantiations), the score instantiations of
+B1 and B8, the decode route's sources (flash_decode.cu,
+flash_decode_kv8.cu) and the head dim 80 sources (the *_80.cu files) in
 both trees with nvcc -cubin, all side by side, and says, kernel by
 kernel, whether the machine code (cuobjdump -sass, with the file-specific
 part of the names taken out) is the same, under the kernel's own name or
 another one; exit 1 if a kernel of ROOT_A compiles to code that ROOT_B
-does not hold.
+does not hold. A source that ROOT_A lacks holds no kernel there (its
+kernels are all new in ROOT_B).
 """
 
 import concurrent.futures
@@ -56,12 +58,17 @@ SMOKE = Path(__file__).resolve().parent.parent / "chip_smoke.py"
 TRAINING = (4, 2048, 16, 128)  # b, s, h, d
 STRADDLE = ("local 4 + global, tiles of 64", 4, 2048, 64, "local", True)
 SASS_SOURCES = ["flash_fwd.cu", "flash_varlen_fwd.cu", "flash_varlen_fwd_band.cu",
-                "flash_varlen_paged.cu", "flash_blocksparse.cu", "flash_bwd.cu",
-                "flash_bwd_wide.cu", "flash_bwd_band.cu", "flash_bwd_band_wide.cu",
-                "flash_varlen.cu", "flash_varlen_wide.cu", "flash_varlen_band.cu",
-                "flash_varlen_band_wide.cu", "flash_fwd_score.cu",
-                "flash_varlen_paged_score.cu", "flash_decode.cu",
-                "flash_decode_kv8.cu"]
+                "flash_varlen_fwd_score.cu", "flash_varlen_paged.cu",
+                "flash_blocksparse.cu", "flash_bwd.cu", "flash_bwd_wide.cu",
+                "flash_bwd_band.cu", "flash_bwd_band_wide.cu", "flash_bwd_score.cu",
+                "flash_bwd_score_wide.cu", "flash_varlen.cu", "flash_varlen_wide.cu",
+                "flash_varlen_band.cu", "flash_varlen_band_wide.cu",
+                "flash_varlen_score.cu", "flash_varlen_score_wide.cu",
+                "flash_fwd_score.cu", "flash_varlen_paged_score.cu", "flash_decode.cu",
+                "flash_decode_kv8.cu", "flash_fwd_80.cu", "flash_decode_80.cu",
+                "flash_varlen_paged_80.cu", "flash_bwd_80.cu", "flash_bwd_score_80.cu",
+                "flash_varlen_80.cu", "flash_varlen_score_80.cu",
+                "flash_varlen_fwd_80.cu"]
 
 
 def digest(*tensors) -> str:
@@ -171,12 +178,14 @@ def measure(root: str) -> None:
 def sass(root: str, source: str, workdir: str) -> dict:
     """Kernel name -> its SASS, with the file-specific hash of the
     anonymous namespace and the addresses taken out."""
+    path = os.path.join(root, "flash_attn_tpu_torch", "csrc", source)
+    if not os.path.exists(path):
+        return {}
     cubin = os.path.join(workdir, f"{abs(hash(root))}_{source}.cubin")
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
                         "nvcc")
     subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-cubin", "-o", cubin,
-                    os.path.join(root, "flash_attn_tpu_torch", "csrc", source)],
+                    "-std=c++17", "-O3", "-cubin", "-o", cubin, path],
                    check=True)
     text = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
                            "-sass", cubin], capture_output=True, text=True,
