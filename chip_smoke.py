@@ -325,7 +325,22 @@
    ALiBi, muP, SwiGLU, tied embeddings) at full width and depth from a
    seeded checkpoint through the BTLM adapter: static serving graphed and
    eager, ALiBi in force, the paged and the speculative engine as for
-   Baichuan-13B in 23.; the prefix-cached engine refuses it (queue C).
+   Baichuan-13B in 23.; the prefix-cached engine refuses it (queue C);
+   then trained at full width (BTLM_TRAIN_LAYERS of its 32 layers);
+33. the learnable sink (run_gpt_oss_sinks): gpt-oss-20b's attention stack
+   with seeded tensors at its published widths (24 layers of 64 query
+   heads on 8 KV heads of 64, alternately a 128-key window and full
+   causal, a trained sink logit a head and layer) through
+   flash_attn_func(learnable_sink=) at 2 x 4,096 and packed through
+   flash_attn_varlen_func, forward and backward, counted; B1, B3 and B2
+   with the sink's gradient against the plain fp32 versions by the 2x
+   rule, B3 bitwise twice; B7 = B6 = B1 and B6's backward = B3 bitwise
+   under a sink; ALiBi with a sink through B6's forward; the prefix-cached
+   admission through B8 (sliding, full, an fp8 pool with descales; B8 =
+   B6 bitwise); B8p with a sink at DeepSeek-V3's serving chunk; rows that
+   see no key at out 0 and lse = sink; each sink form timed beside its
+   sink-free form, its plain version and SDPA with the sink as one more
+   key.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -598,7 +613,7 @@ VIT_L16 = SimpleNamespace(  # google/vit-large-patch16-224 config.json
     num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096,
     layer_norm_eps=1e-12)
 VIT_CLASSES, VIT_BATCH = 1000, 32
-BREADTH_LAYERS = 4
+BREADTH_LAYERS = 2
 # The Llama-3-8B engine: BREADTH_REQUESTS prompts of ENGINE_PROMPT tokens
 # on BREADTH_SLOTS slots (pages of ENGINE_PAGE), ENGINE_NEW new tokens each;
 # OPT's prefix-cached engine: as many prompts sharing PREFIX_SHARED tokens.
@@ -653,7 +668,7 @@ WIDE_BWD_CASES = [(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, True),
 # Adam moments: ~12 bytes a parameter, plus the update's fp32 transients)
 # and the activations at b = 4 x 2048 (~2-3 GB a layer) fit 80 GB: GPT-J-6B
 # at 8 of 28 layers (2.0B parameters), GPT-NeoX-20B at 4 of 44 (2.4B).
-WIDE_TRAIN_LAYERS = {"GPT-J-6B": 8, "GPT-NeoX-20B": 4}
+WIDE_TRAIN_LAYERS = {"GPT-J-6B": 4, "GPT-NeoX-20B": 4}
 # The packed MHA at each family's widths on the card, against the same
 # module on the CPU (plain versions; fp32, and bf16 for the 2x rule): ragged
 # sequences whose key counts are not multiples of the 64-key tile.
@@ -691,7 +706,7 @@ SERVE_LAYERS = {"GPT-NeoX-20B": 6, "Mistral-7B": 4}
 # at MISTRAL_TRAIN_BATCH x MISTRAL_TRAIN_SEQ: the tokens of the repo's
 # 4 x 2048 step in one sequence, long enough for the window to mask (it
 # keeps 0.750 of the causal pairs).
-MISTRAL_TRAIN_LAYERS, MISTRAL_TRAIN_BATCH, MISTRAL_TRAIN_SEQ = 8, 1, 8192
+MISTRAL_TRAIN_LAYERS, MISTRAL_TRAIN_BATCH, MISTRAL_TRAIN_SEQ = 4, 1, 8192
 # The windowed MHA at Mistral-7B's widths (4096 wide, 32/8 heads of 128,
 # rotary over the whole head) on the card against the same module on the
 # CPU: a window of BAND_MHA_WINDOW keys over BAND_MHA_LENS packed and
@@ -5767,7 +5782,8 @@ def plain_band_chunks(qt, kt, vt, dot, out, lse, causal, band,
     h, s, d) views a few KV heads at a time (no fp32 score matrix past
     ``heads_bytes``): the plain versions' work at a shape whose whole
     score matrices would not fit beside one another, for timing. ``band``
-    may hold softcap and alibi_slopes too (each chunk takes its heads')."""
+    may hold softcap, alibi_slopes and learnable_sink too (each chunk takes
+    its heads')."""
     from flash_attn_tpu_torch.dispatch.score import slopes_bh
     from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
 
@@ -5776,11 +5792,13 @@ def plain_band_chunks(qt, kt, vt, dot, out, lse, causal, band,
     group = h // h_k
     per = max(1, int(heads_bytes // (b * group * sq * sk * 4)))
     sl = slopes_bh(band.get("alibi_slopes"), b, h)
+    sink = band.get("learnable_sink")
     parts = [(slice(k0 * group, min(k0 + per, h_k) * group),
               slice(k0, min(k0 + per, h_k))) for k0 in range(0, h_k, per)]
 
     def kw(qs):
-        return dict(band, alibi_slopes=None if sl is None else sl[:, qs])
+        return dict(band, alibi_slopes=None if sl is None else sl[:, qs],
+                    learnable_sink=None if sink is None else sink[qs])
 
     def fwd():
         for qs, ks in parts:
@@ -6320,7 +6338,7 @@ MUFU_PER_SM_CLOCK = 16
 # gradients, and about 17 GB of activations (Mistral-7B's share at 2.0B
 # parameters, 37.94 GB in all, scaled by the width): under the 70 GB at
 # which the depth would be cut to 6.
-BAICHUAN_TRAIN_LAYERS, BAICHUAN_TRAIN_BATCH, BAICHUAN_TRAIN_SEQ = 8, 2, 4096
+BAICHUAN_TRAIN_LAYERS, BAICHUAN_TRAIN_BATCH, BAICHUAN_TRAIN_SEQ = 4, 2, 4096
 # The trained models' causality check (causal_check): the earlier
 # positions' logits may move by at most this when later tokens change (rows
 # of a product over other rows' inputs; a read of a later token moves them
@@ -8566,7 +8584,7 @@ def run_btlm(card):
 # GB a layer (Mistral-7B's ~1.75 GB a layer, scaled by 8 x its width + 3 x
 # its MLP's width), ~30 GB at 32 layers; with the ~13 GB by which
 # Baichuan-13B's peak passed its reckoning, ~75 GB at 32 layers.
-BTLM_TRAIN_LAYERS, BTLM_TRAIN_BATCH, BTLM_TRAIN_SEQ = 32, 1, 8192
+BTLM_TRAIN_LAYERS, BTLM_TRAIN_BATCH, BTLM_TRAIN_SEQ = 8, 1, 8192
 
 
 def hd80_bwd_case(gen, case):
@@ -8869,6 +8887,851 @@ def run_btlm_training(card):
     return launches, res, mha_launches, mha_errs
 
 
+# gpt-oss-20b's attention stack (the openai/gpt-oss-20b config.json and
+# model card, arXiv 2508.10925): 24 layers of 64 query heads on 8 KV heads
+# of 64, alternately a sliding window of 128 keys (layer_types
+# "sliding_attention", window_size (127, 0) under causal masking) and full
+# causal attention, a learnable sink logit a head and layer, at its
+# initial_context_length of 4,096 tokens. The JAX package has no model with
+# a sink, so the phase drives the attention stack with seeded tensors.
+GPT_OSS_20B = SimpleNamespace(num_hidden_layers=24, num_attention_heads=64,
+                              num_key_value_heads=8, head_dim=64,
+                              sliding_window=128,
+                              initial_context_length=4096)
+GPT_OSS_BATCH = 2
+GPT_OSS_DOCS = [1024, 2048, 3072, 2048]  # the packed stack's documents
+# dsink, an fp32 sum over every row of a head, against the plain fp32
+# backward's by the 2x rule with the low-precision reference's: this floor
+DSINK_ATOL = 1e-3
+
+
+def gpt_oss_window(layer: int):
+    """gpt-oss's layer form: even layers slide (127, 0), odd ones attend
+    to every earlier key."""
+    return (GPT_OSS_20B.sliding_window - 1, 0) if layer % 2 == 0 \
+        else (None, None)
+
+
+def sink_counts():
+    """The sink forms' launches since the last reset_kernel_counts()."""
+    from flash_attn_tpu_torch.kernels import (
+        flash_fwd,
+        flash_paged_prefill,
+        flash_varlen,
+        flash_varlen_paged,
+        flash_varlen_persistent,
+    )
+
+    return {"flash_fwd_sink": flash_fwd.launches_sink,
+            "flash_varlen_fwd_sink": flash_varlen.launches_fwd_sink,
+            "flash_varlen_fwd_persistent_sink":
+                flash_varlen_persistent.launches_sink,
+            "flash_varlen_paged_sink": flash_varlen_paged.launches_sink,
+            "flash_paged_prefill_sink": flash_paged_prefill.launches_sink}
+
+
+# keys the library yardstick appends: the sink's zero key, then zero keys
+# masked out, so that the key count stays a multiple of 8
+SINK_KEYS = 8
+
+
+def sink_key_mask(sink, b_mask, dtype):
+    """The library yardstick's float mask: the (sq, sk) bool mask of the
+    pairs attended as 0 / -inf, then SINK_KEYS columns, the first holding
+    each head's sink (the score of an extra zero key), the rest -inf;
+    (1, h, sq, sk + SINK_KEYS) in ``dtype``."""
+    h, (sq, sk) = sink.shape[0], b_mask.shape[-2:]
+    m = torch.full((1, h, sq, sk + SINK_KEYS), float("-inf"), dtype=dtype,
+                   device="cuda")
+    m[..., :sk].masked_fill_(b_mask, 0.0)
+    m[..., sk] = sink.to(dtype)[None, :, None]
+    return m
+
+
+def sink_sdpa(qt, kt, vt, mask, scale=None):
+    """scaled_dot_product_attention with the sink as one more key:
+    SINK_KEYS zero K and V rows appended to each KV head and ``mask``
+    (sink_key_mask) as a float mask, GQA through enable_gqa. Returns
+    (forward, backward over dout) functions to time."""
+    zero = qt.new_zeros(kt.shape[0], kt.shape[1], SINK_KEYS, kt.shape[3])
+    kk = torch.cat([kt, zero], 2)
+    vv = torch.cat([vt, zero[..., :1].expand(*zero.shape[:3], vt.shape[3])],
+                   2)
+    gqa = qt.shape[1] != kt.shape[1]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kk, vv, attn_mask=mask,
+                                              enable_gqa=gqa, scale=scale)
+
+    def bwd(dot):
+        leaves = [x.detach().requires_grad_() for x in (qt, kk, vv)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             enable_gqa=gqa, scale=scale)
+        return lambda: torch.autograd.grad(out, leaves, dot,
+                                           retain_graph=True)
+    return fwd, bwd
+
+
+def sink_refs(qt, kt, vt, dot, sink, causal, window,
+              heads_bytes: float = 1.1e9):
+    """The 2x rule's references of a sink layer, a batch row and as many KV
+    heads at a time as keep each fp32 score matrix within ``heads_bytes``:
+    the plain fp32 forward and backward (out, lse, dq, dk, dv, dsink) from
+    fp32 copies, and the low-precision ones (attention_ref and autograd
+    through it, in the inputs' type; its sink path in fp32 as JAX's).
+    Inputs (b, h, s, d) views and the (h,) sink; returns (ref, ref_lp):
+    ref = (out, lse, dq, dk, dv, dsink), out and grads (b, h, s, d);
+    ref_lp = (out, dq, dk, dv, dsink), (b, s, h, d)."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        attention_ref_grads,
+    )
+
+    b, h, sq, d = qt.shape
+    h_k, sk = kt.shape[1], kt.shape[2]
+    group = h // h_k
+    per = max(1, int(heads_bytes // (group * sq * sk * 4)))
+    kw = dict(causal=causal, window_size=window)
+    out32 = torch.empty(qt.shape, device="cuda")
+    lse32 = torch.empty(qt.shape[:3], device="cuda")
+    g32 = [torch.empty(x.shape, device="cuda") for x in (qt, kt, vt)]
+    ds32 = torch.zeros(h, device="cuda")
+    out_lp = torch.empty_like(qt.transpose(1, 2))
+    glp = [torch.empty_like(x.transpose(1, 2)) for x in (qt, kt, vt)]
+    ds_lp = torch.zeros(h, device="cuda")
+    for bi in range(b):
+        for k0 in range(0, h_k, per):
+            ks = slice(k0, min(k0 + per, h_k))
+            qs = slice(ks.start * group, ks.stop * group)
+            chunk = [x[bi:bi + 1, hs] for x, hs in
+                     ((qt, qs), (kt, ks), (vt, ks), (dot, qs))]
+            f32 = [x.float() for x in chunk[:3]]
+            o, l = flash_fwd.flash_attention_fwd_plain(
+                *f32, learnable_sink=sink[qs], **kw)
+            r = flash_bwd.flash_attention_bwd_plain(
+                chunk[3].float(), *f32, o, l, learnable_sink=sink[qs], **kw)
+            out32[bi:bi + 1, qs], lse32[bi:bi + 1, qs] = o, l
+            for i, hs in enumerate((qs, ks, ks)):
+                g32[i][bi:bi + 1, hs] = r[i]
+            ds32[qs] += r[3]
+            del f32, o, l, r
+            bshd = [x.transpose(1, 2) for x in chunk]
+            out_lp[bi:bi + 1, :, qs] = attention_ref(
+                *bshd[:3], upcast=False, learnable_sink=sink[qs], **kw)[0]
+            lp = attention_ref_grads(*bshd, upcast=False,
+                                     learnable_sink=sink[qs], **kw)
+            for i, hs in enumerate((qs, ks, ks)):
+                glp[i][bi:bi + 1, :, hs] = lp[i]
+            ds_lp[qs] += lp[3]
+            del lp
+    return (out32, lse32, *g32, ds32), (out_lp, *glp, ds_lp)
+
+
+def gpt_oss_layer(layer: int, b: int, s: int, packed: bool = False):
+    """Seeded bf16 q, k, v, dout and the (h,) sink of one gpt-oss layer:
+    (b, s, h, d) tensors, or (b * s, h, d) ones with ``packed``; the sinks
+    from utils/cases.py sink_logits (they bite at s keys)."""
+    from flash_attn_tpu_torch.utils.cases import sink_logits
+
+    c = GPT_OSS_20B
+    gen = torch.Generator(device="cuda").manual_seed(2400 + layer)
+    h, h_k, d = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+    shape = (lambda n: (b * s, n, d)) if packed else (lambda n: (b, s, n, d))
+    q, k, v, do = (torch.randn(*shape(n), device="cuda", generator=gen)
+                   .to(torch.bfloat16) for n in (h, h_k, h_k, h))
+    sink = sink_logits(h, s, "cuda", gen).to(torch.bfloat16)
+    return q, k, v, do, sink
+
+
+def gpt_oss_stack(packed: bool):
+    """All 24 layers of gpt-oss-20b's attention at 2 x 4,096 tokens (or
+    packed as GPT_OSS_DOCS through flash_attn_varlen_func), forward and
+    backward, each with its trained sink, the counts at 0 before: requires
+    every output and gradient finite. Returns the launches."""
+    from flash_attn_tpu_torch import flash_attn_func, flash_attn_varlen_func
+
+    c = GPT_OSS_20B
+    b, s = GPT_OSS_BATCH, c.initial_context_length
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(GPT_OSS_DOCS)]),
+                      dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    bad = []
+    for i in range(c.num_hidden_layers):
+        q, k, v, do, sink = gpt_oss_layer(i, b, s, packed)
+        leaves = [x.requires_grad_() for x in (q, k, v, sink)]
+        kw = dict(causal=True, window_size=gpt_oss_window(i),
+                  learnable_sink=leaves[3])
+        if packed:
+            out = flash_attn_varlen_func(*leaves[:3], cu, cu,
+                                         max(GPT_OSS_DOCS),
+                                         max(GPT_OSS_DOCS), **kw)
+        else:
+            out = flash_attn_func(*leaves[:3], **kw)
+        out.backward(do)
+        if not all(bool(torch.isfinite(x).all())
+                   for x in (out, *(l.grad for l in leaves))):
+            bad.append(i)
+    torch.cuda.synchronize()
+    got = {**bwd_counts(), **kernel_counts(), **sink_counts()}
+    require(not bad, f"gpt-oss stack (packed={packed}): non-finite outputs "
+                     f"or gradients at layers {bad}")
+    n, half = c.num_hidden_layers, c.num_hidden_layers // 2
+    if packed:
+        want = {"flash_varlen_fwd_persistent": n,
+                "flash_varlen_fwd_persistent_band": half,
+                "flash_varlen_fwd_persistent_sink": n,
+                "fa_varlen_bwd_preprocess": n, "fa_varlen_bwd_dkdv": n,
+                "fa_varlen_bwd_dq": n, "fa_varlen_bwd_dkdv_band": half,
+                "fa_varlen_bwd_dq_band": half}
+    else:
+        want = {"flash_fwd": n, "flash_fwd_band": half, "flash_fwd_sink": n,
+                "flash_bwd_preprocess": n, "fa_bwd_dkdv": n, "fa_bwd_dq": n,
+                "fa_bwd_dkdv_band": half, "fa_bwd_dq_band": half}
+    odd = {key: val for key, val in got.items() if val != want.get(key, 0)}
+    require(not odd, f"gpt-oss stack (packed={packed}): launches {odd}, "
+                     f"want {want}")
+    print(f"gpt-oss-20b attention stack ({n} layers, {half} sliding, "
+          f"{'packed as ' + str(GPT_OSS_DOCS) if packed else f'b={b} x {s}'}"
+          f", 64/8 heads of 64, a trained sink a layer): forward and "
+          f"backward finite; launches {want}")
+    return got
+
+
+def sink_dense_checks(errs):
+    """Layers 0 (sliding) and 1 (full) at 2 x 4,096: B1's out and lse and
+    B3's and B2's dq, dk, dv and dsink against sink_refs by the 2x rule (lse
+    within LSE_ATOL), B3 the same bits twice; the counted
+    flash_attn_func(deterministic=False).backward(). Returns B2's counts."""
+    from flash_attn_tpu_torch import flash_attn_func
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    b, s = GPT_OSS_BATCH, GPT_OSS_20B.initial_context_length
+    for layer in (0, 1):
+        window = gpt_oss_window(layer)
+        q, k, v, do, sink = gpt_oss_layer(layer, b, s)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        kw = dict(causal=True, window_size=window)
+        out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt,
+                                                 learnable_sink=sink, **kw)
+        b3 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                           learnable_sink=sink, **kw)
+        again = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                              learnable_sink=sink, **kw)
+        require(all(torch.equal(x, y) for x, y in zip(b3, again)),
+                f"B3 with a sink differs between runs (layer {layer})")
+        b2 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                           deterministic=False,
+                                           learnable_sink=sink, **kw)
+        del again
+        ref, ref_lp = sink_refs(qt, kt, vt, dot, sink.float(), True, window)
+        line = []
+        e, _ = check_against_ref(out.transpose(1, 2), ref[0].transpose(1, 2),
+                                 ref_lp[0], msg=f"B1 sink layer {layer}")
+        lse_err = float((lse - ref[1]).abs().max())
+        require(lse_err <= LSE_ATOL, f"B1 sink lse err {lse_err}")
+        errs["flash_fwd_sink"] = max(errs.get("flash_fwd_sink", 0.0), e)
+        line.append(f"B1 out {e:.3e}, lse {lse_err:.3e}")
+        for row, g in (("flash_bwd_sink", b3), ("flash_bwd_fused_sink", b2)):
+            for name, x, r, lp in zip(("dq", "dk", "dv"), g, ref[2:5],
+                                      ref_lp[1:4]):
+                e, e_lp = check_against_ref(
+                    x.transpose(1, 2), r.transpose(1, 2), lp, atol=BWD_ATOL,
+                    msg=f"{row} {name} layer {layer}")
+                errs[row] = max(errs.get(row, 0.0), e)
+            e, e_lp = check_against_ref(g[3], ref[5], ref_lp[4],
+                                        atol=DSINK_ATOL,
+                                        msg=f"{row} dsink layer {layer}")
+            errs[row] = max(errs[row], e)
+            line.append(f"{row} dsink {e:.3e} (low precision {e_lp:.3e}, "
+                        f"|dsink| up to {float(ref[5].abs().max()):.3e})")
+        print(f"gpt-oss layer {layer} (window {window}) against the plain "
+              f"fp32 versions by the 2x rule: " + "; ".join(line)
+              + "; B3 bitwise twice")
+        del ref, ref_lp, b2, b3
+    leaves = [x.requires_grad_() for x in (q, k, v, sink)]
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    flash_attn_func(*leaves[:3], causal=True, learnable_sink=leaves[3],
+                    deterministic=False).backward(do)
+    torch.cuda.synchronize()
+    got = {**bwd_counts(), **sink_counts()}
+    require(got["flash_bwd_fused"] == 1 and got["flash_fwd_sink"] == 1
+            and got["fa_bwd_dkdv"] == 0 and got["flash_bwd_preprocess"] == 1
+            and leaves[3].grad is not None,
+            f"counted deterministic=False call with a sink: {got}")
+    return got
+
+
+def sink_packed_checks(errs):
+    """The packed stack's layers 0 and 1: B7 gives B6's forward's bits over
+    the packed rows and B1's over each document alone (b = 1); B6's
+    backward gives B3's dq, dk, dv bits over each document and dsink within
+    1e-5 of the documents' sum (relative to the largest head's); then a small ALiBi + sink case
+    through B6's forward (as JAX routes ALiBi), B6 equal to B1 over the same
+    rows and B1 against its plain version. Returns B6's counts."""
+    from flash_attn_tpu_torch import flash_attn_varlen_func
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+    from flash_attn_tpu_torch.utils.cases import SINK_FWD_CASES, score_slopes
+    from flash_attn_tpu_torch.utils.cases import sink_logits
+
+    b, s = GPT_OSS_BATCH, GPT_OSS_20B.initial_context_length
+    docs = GPT_OSS_DOCS
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(docs)]),
+                      dtype=torch.int32, device="cuda")
+    mx = max(docs)
+    for layer in (0, 1):
+        window = gpt_oss_window(layer)
+        q, k, v, do, sink = gpt_oss_layer(layer, b, s, packed=True)
+        kw = dict(causal=True, window_size=window, learnable_sink=sink)
+        b7 = fvp.flash_attention_varlen_fwd_persistent(q, k, v, cu, cu, mx,
+                                                       mx, **kw)
+        b6 = flash_varlen.flash_attention_varlen_fwd(q, k, v, cu, cu, mx, mx,
+                                                     **kw)
+        require(torch.equal(b7[0], b6[0]) and torch.equal(b7[1], b6[1]),
+                f"B7 differs from B6's forward with a sink (layer {layer})")
+        g6 = flash_varlen.flash_attention_varlen_bwd(
+            do, q, k, v, b7[0], b7[1], cu, cu, mx, mx, **kw)
+        dsink = torch.zeros_like(g6[3])
+        for i, (a, n) in enumerate(zip(cu.tolist(), docs)):
+            qt, kt, vt, dot = (x[None, a:a + n].transpose(1, 2)
+                               for x in (q, k, v, do))
+            o1, l1 = flash_fwd.flash_attention_fwd(qt, kt, vt, **kw)
+            require(torch.equal(o1.transpose(1, 2)[0], b7[0][a:a + n])
+                    and torch.equal(l1[0], b7[1][:, a:a + n]),
+                    f"B7 differs from B1 over document {i} (layer {layer})")
+            g3 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, o1, l1, **kw)
+            for x, y in zip(g6[:3], g3[:3]):
+                require(torch.equal(x[a:a + n], y.transpose(1, 2)[0]),
+                        f"B6's backward differs from B3's over document {i}"
+                        f" (layer {layer})")
+            dsink += g3[3]
+        # the same fp32 terms summed in another order: within 1e-5 of the
+        # largest head's |dsink|
+        gap = float((g6[3] - dsink).abs().max() / dsink.abs().max())
+        require(gap <= 1e-5, f"B6's dsink against the documents' B3 sum: "
+                             f"gap {gap:.3e} of the largest (layer {layer})")
+        # against the plain fp32 versions over the packed rows
+        f32 = [x.float() for x in (q, k, v)]
+        ref_o, ref_l = flash_varlen.flash_attention_varlen_fwd_plain(
+            *f32, cu, cu, mx, mx, **kw)
+        e7 = float((b7[0].float() - ref_o).abs().max())
+        lse_err = float((b7[1] - ref_l).abs().max())
+        ref_g = flash_varlen.flash_attention_varlen_bwd_plain(
+            do.float(), *f32, ref_o, ref_l, cu, cu, mx, mx, **kw)
+        e6 = max(float((x.float() - r).abs().max())
+                 for x, r in zip(g6, ref_g))
+        require(e7 <= 2e-2 and lse_err <= LSE_ATOL
+                and all(bool(torch.isfinite(x).all()) for x in g6),
+                f"B7 with a sink against its plain version: out {e7:.3e}, "
+                f"lse {lse_err:.3e} (layer {layer})")
+        errs["flash_varlen_fwd_persistent_sink"] = max(
+            errs.get("flash_varlen_fwd_persistent_sink", 0.0), e7)
+        errs["flash_varlen_bwd_sink"] = max(
+            errs.get("flash_varlen_bwd_sink", 0.0), e6)
+        print(f"gpt-oss packed layer {layer} (window {window}, documents "
+              f"{docs}): B7 bitwise B6's forward and B1's over each "
+              f"document, out {e7:.3e} and lse {lse_err:.3e} from the plain "
+              f"fp32 version; B6's backward bitwise B3's over each document "
+              f"(B3 held by the 2x rule above), dq, dk, dv and dsink within "
+              f"{e6:.3e} of the plain fp32 version's, dsink within "
+              f"{gap:.2e} of the documents' sum (relative to the largest "
+              f"head's)")
+        del b6, b7, g6, f32, ref_o, ref_l, ref_g
+    case = SINK_FWD_CASES[5]
+    _, bb, sq, _, h, _, d, causal, _, _, kind, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    q, k, v = (torch.randn(bb, sq, h, d, device="cuda", generator=gen)
+               .to(dtype) for _ in range(3))
+    sink = sink_logits(h, sq, "cuda", gen)
+    slopes = score_slopes(kind, bb, h, "cuda")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    o1, l1 = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal,
+                                           alibi_slopes=slopes,
+                                           learnable_sink=sink)
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(
+        qt.float(), kt.float(), vt.float(), causal=causal,
+        alibi_slopes=slopes, learnable_sink=sink)
+    e = float((o1.float() - ref).abs().max())
+    lse_err = float((l1 - ref_lse).abs().max())
+    require(e <= 2e-2 and lse_err <= LSE_ATOL,
+            f"B1 ALiBi + sink against its plain version: {e}, {lse_err}")
+    cu1 = torch.arange(bb + 1, dtype=torch.int32, device="cuda") * sq
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    o6, l6 = flash_attn_varlen_func(
+        q.reshape(bb * sq, h, d), k.reshape(bb * sq, h, d),
+        v.reshape(bb * sq, h, d), cu1, cu1, sq, sq, causal=causal,
+        alibi_slopes=slopes, learnable_sink=sink, return_attn_probs=True)[:2]
+    torch.cuda.synchronize()
+    got = {**kernel_counts(), **sink_counts()}
+    require(got["flash_varlen_fwd_sink"] == 1
+            and got["flash_varlen_fwd_score"] == 1
+            and got["flash_varlen_fwd_persistent"] == 0,
+            f"ALiBi + sink through B6's forward: {got}")
+    require(torch.equal(o6, o1.transpose(1, 2).reshape(bb * sq, h, d))
+            and torch.equal(l6, l1.transpose(0, 1).reshape(h, bb * sq)),
+            "B6's forward under ALiBi with a sink differs from B1's")
+    errs["flash_varlen_fwd_sink"] = e
+    print(f"ALiBi + sink at {case[0]} through flash_attn_varlen_func: B6's "
+          f"forward (1 launch) bitwise B1's over the same rows; B1 out "
+          f"{e:.3e}, lse {lse_err:.3e} from its plain version")
+    return got
+
+
+def sink_paged_checks(errs):
+    """The prefix-cached admission of gpt-oss (8 chunks of 256 over 512
+    keys, pages of 256) through flash_attn_varlen_func(block_table=,
+    learnable_sink=), sliding and full, then over an e4m3 page pool with
+    descales, the counts at 0 before: each against its plain version (out
+    within 2e-2, lse within LSE_ATOL), the full one bitwise equal to B6's
+    forward over the same rows packed; then B8p with a sink at DeepSeek-V3's
+    serving chunk (128 heads, 64 + 512, 8 chunks of 512 over 2,048 keys)
+    against its plain version. Returns (B8's counts, B8p's counts)."""
+    from flash_attn_tpu_torch import flash_attn_varlen_func
+    from flash_attn_tpu_torch.dispatch.kvquant import quantize_kv
+    from flash_attn_tpu_torch.kernels import flash_paged_prefill as fpp
+    from flash_attn_tpu_torch.kernels import flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.cases import SINK_VARLEN_CASES
+    from flash_attn_tpu_torch.utils.cases import sink_logits
+    from flash_attn_tpu_torch.utils.testing import paged_to_linear
+
+    (name, lens_q, lens_k, _, h, h_k, d, page, dtype, causal), _, window = \
+        SINK_VARLEN_CASES[3]
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    b = len(lens_q)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    kp, vp, table = paged_cache(gen, b, h_k, d, page, max(lens_k), dtype)
+    seqlens = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    sink = sink_logits(h, max(lens_k), "cuda", gen)
+    qd, vd = (0.5 + torch.rand(b, h_k, device="cuda", generator=gen)
+              for _ in range(2))
+    kq, vq = (quantize_kv(x, torch.float8_e4m3fn) for x in (kp, vp))
+    forms = [("sliding", kp, vp, dict(window_size=window)),
+             ("full", kp, vp, {}),
+             ("fp8 pool, descales", kq, vq,
+              dict(q_descale=qd, k_descale=torch.ones_like(qd),
+                   v_descale=vd))]
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    outs = [flash_attn_varlen_func(
+        q, kc, vc, cu, None, max(lens_q), max(lens_k), block_table=table,
+        seqused_k=seqlens, causal=causal, learnable_sink=sink,
+        return_attn_probs=True, **kw) for _, kc, vc, kw in forms]
+    torch.cuda.synchronize()
+    got8 = {**kernel_counts(), **sink_counts()}
+    require(got8["flash_varlen_paged_sink"] == 3
+            and got8["flash_varlen_paged"] == 3
+            and got8["flash_varlen_paged_band"] == 1
+            and got8["flash_varlen_paged_descale"] == 1
+            and got8["kv_dequant"] == 1,
+            f"gpt-oss prefix admission with a sink: {got8}")
+    line = []
+    for (form, kc, vc, kw), (out, lse) in zip(forms, outs):
+        plain = dict(window_size=kw.get("window_size", (None, None)))
+        if "q_descale" in kw:
+            plain.update(qk_descale=kw["q_descale"], v_descale=kw["v_descale"])
+        ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+            q.float(), kc if kc.element_size() == 1 else kc.float(),
+            vc if vc.element_size() == 1 else vc.float(), cu, max(lens_q),
+            seqlens, table, causal=causal, learnable_sink=sink, **plain)
+        e = float((out.float() - ref.float()).abs().max())
+        lse_err = float((lse - ref_lse).abs().max())
+        require(e <= 2e-2 and lse_err <= LSE_ATOL,
+                f"B8 with a sink ({form}) against its plain version: out "
+                f"{e:.3e}, lse {lse_err:.3e}")
+        errs["flash_varlen_paged_sink"] = max(
+            errs.get("flash_varlen_paged_sink", 0.0), e)
+        line.append(f"{form} out {e:.3e}, lse {lse_err:.3e}")
+    k, v = (torch.cat([lin[s, :, :n].transpose(0, 1)
+                       for s, n in enumerate(lens_k)])
+            for lin in (paged_to_linear(x, table, seqlens) for x in (kp, vp)))
+    cu_k = torch.tensor(np.concatenate([[0], np.cumsum(lens_k)]),
+                        dtype=torch.int32, device="cuda")
+    b6 = flash_varlen.flash_attention_varlen_fwd(
+        q, k.contiguous(), v.contiguous(), cu, cu_k, max(lens_q),
+        max(lens_k), causal=causal, learnable_sink=sink)
+    require(torch.equal(outs[1][0], b6[0]) and torch.equal(outs[1][1], b6[1]),
+            "B8 with a sink differs from B6's forward over the same rows")
+    print(f"gpt-oss prefix admission ({name}: 8 chunks of 256 over 512 keys, "
+          f"pages of 256) with a sink, against the plain version: "
+          + "; ".join(line) + "; the full form bitwise B6's forward over the "
+          "same rows packed")
+    del outs, b6, k, v, kq, vq
+    # B8p at DeepSeek-V3's serving chunk
+    rows, nseq, cached = 512, 8, 1536
+    keys = cached + rows
+    kp, vp, table = paged_cache(gen, nseq, 1, 64, 64, keys, torch.bfloat16,
+                                512)
+    q, qv = (torch.randn(nseq * rows, 128, w, device="cuda", generator=gen)
+             .to(torch.bfloat16) for w in (64, 512))
+    cu = torch.arange(nseq + 1, dtype=torch.int32, device="cuda") * rows
+    seqlens = torch.full((nseq,), keys, dtype=torch.int32, device="cuda")
+    sink = sink_logits(128, keys, "cuda", gen)
+    used = torch.full((nseq,), rows, dtype=torch.int32, device="cuda")
+    used[-1] = rows - 100  # rows past seqused_q: out 0, lse = sink
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    out, lse = fpp.flash_attention_paged_prefill_varlen(
+        q, kp, vp, cu, rows, seqlens, table, seqused_q=used, qv=qv,
+        softmax_scale=MLA_SCALE, causal=True, learnable_sink=sink)
+    torch.cuda.synchronize()
+    got8p = sink_counts()
+    require(got8p["flash_paged_prefill_sink"] == 1,
+            f"B8p with a sink: {got8p}")
+    ref, ref_lse = fpp.flash_attention_paged_prefill_varlen_plain(
+        q.float(), kp.float(), vp.float(), cu, rows, seqlens, table,
+        seqused_q=used, qv=qv.float(), softmax_scale=MLA_SCALE, causal=True,
+        learnable_sink=sink)
+    e = float((out.float() - ref.float()).abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    require(e <= 2e-2 and lse_err <= LSE_ATOL,
+            f"B8p with a sink against its plain version: {e}, {lse_err}")
+    tail = slice(int(cu[-2]) + rows - 100, int(cu[-1]))
+    require(torch.equal(lse[:, tail], sink[:, None].expand(128, 100))
+            and not out[tail].any(), "B8p: rows past seqused_q with a sink")
+    errs["flash_paged_prefill_sink"] = e
+    print(f"B8p with a sink at DeepSeek-V3's serving chunk (8 x 512 over "
+          f"2,048 keys, 128 heads, 64 + 512, pages of 64), the last chunk's "
+          f"last 100 rows past seqused_q: out {e:.3e}, lse {lse_err:.3e} "
+          f"from its plain version; those rows out 0 and lse = sink")
+    return got8, got8p
+
+
+def sink_no_key_rows():
+    """A row that sees no key gives out 0 and lse equal to its head's sink
+    in B1, B6's forward and B7 (causal sq > sk, SINK_FWD_CASES[2]) and B8
+    (a sequence with no keys and rows past seqused_q, VARLEN_CASES[3]);
+    B8p's is checked in sink_paged_checks."""
+    from flash_attn_tpu_torch.dispatch.band import band_valid
+    from flash_attn_tpu_torch.kernels import flash_fwd
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.cases import (
+        SINK_FWD_CASES,
+        VARLEN_CASES,
+        sink_logits,
+    )
+
+    _, b, sq, sk, h, h_k, d, causal, *_ = SINK_FWD_CASES[2]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qt, kt, vt = (torch.randn(b, n, s, d, device="cuda", generator=gen)
+                  .to(torch.bfloat16) for n, s in ((h, sq), (h_k, sk),
+                                                   (h_k, sk)))
+    sink = sink_logits(h, sk, "cuda", gen)
+    rows = torch.arange(sq, device="cuda")[:, None]
+    cols = torch.arange(sk, device="cuda")[None, :]
+    empty = ~band_valid(rows, cols, sk - sq, causal, (None, None)).any(1)
+    got = [flash_fwd.flash_attention_fwd(qt, kt, vt, causal=causal,
+                                         learnable_sink=sink)]
+    got += packed_forwards(qt, kt, vt, causal, learnable_sink=sink)
+    n = int(empty.sum())
+    for label, (out, lse) in zip(("B1", "B6's forward", "B7"), got):
+        require(torch.equal(lse[:, :, empty],
+                            sink[None, :, None].expand(b, h, n))
+                and not out[:, :, empty].any(),
+                f"{label}: rows with no key under a sink")
+    name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal = \
+        VARLEN_CASES[3]
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    kp, vp, table = paged_cache(gen, len(lens_q), h_k, d, page, max(lens_k),
+                                dtype)
+    sink = sink_logits(h, max(lens_k), "cuda", gen)
+    out, lse = fvp.flash_attention_varlen_paged_fwd(
+        q, kp, vp, cu, max(lens_q), torch.tensor(lens_k, dtype=torch.int32,
+                                                 device="cuda"),
+        table, seqused_q=torch.tensor(used, dtype=torch.int32, device="cuda"),
+        causal=causal, learnable_sink=sink)
+    dead = torch.ones(int(cu[-1]), dtype=torch.bool, device="cuda")
+    for a, u, lk in zip(cu.tolist(), used, lens_k):
+        dead[a:a + (u if lk else 0)] = False
+    require(torch.equal(lse[:, dead], sink[:, None].expand(h, int(dead.sum())))
+            and not out[dead].any(), "B8: rows with no key under a sink")
+    print(f"rows with no key under a sink: {n} a head and batch row in B1, "
+          f"B6's forward and B7 ({SINK_FWD_CASES[2][0]}), "
+          f"{int(dead.sum())} in B8 ({name}): out 0 and lse equal to the "
+          f"head's sink")
+
+
+def sink_timings():
+    """Each sink form beside its sink-free form at the same shape (CUDA
+    events around whole calls), its plain version (a few KV heads at a
+    time), the library yardstick (scaled_dot_product_attention with the
+    sink as one more key: a zero K and V row and the sink as a float-mask
+    column) and the sink-free form's bound: B1, B3 (with the dsink epilogue
+    timed alone beside the pair) and B2 at gpt-oss's training shape (the
+    full layer; B1 also sliding), B6's forward, B7 and B6's backward at its
+    packing, B8 at its prefix admission and B8p at DeepSeek-V3's serving
+    chunk. Returns the timings by kernels-line row."""
+    from flash_attn_tpu_torch.dispatch.sink import sink_arg, sink_grad
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_paged_prefill as fpp
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp7
+    from flash_attn_tpu_torch.utils.cases import SINK_VARLEN_CASES
+    from flash_attn_tpu_torch.utils.cases import sink_logits
+    from flash_attn_tpu_torch.utils.testing import paged_to_linear
+
+    b, s = GPT_OSS_BATCH, GPT_OSS_20B.initial_context_length
+    t = {}
+    q, k, v, do, sink = gpt_oss_layer(1, b, s)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    h, h_k, d = qt.shape[1], kt.shape[1], qt.shape[3]
+    esz = qt.element_size()
+    pairs = b * attended_pairs([s], [s], True)
+    fwd_bound = bound(4 * h * d * pairs, esz * (2 * b * s * h * d
+                                                + 2 * b * s * h_k * d)
+                      + 4 * b * h * s)
+    bwd_bound = bound(10 * h * d * pairs, esz * (4 * b * s * h * d
+                                                 + 4 * b * s * h_k * d)
+                      + 4 * b * h * s)
+    mask = sink_key_mask(sink, band_mask(s, s, True), qt.dtype)
+    lib_fwd, lib_bwd = sink_sdpa(qt, kt, vt, mask)
+    lib = ("scaled_dot_product_attention with the sink as one more key (a "
+           "zero K and V row, the sink a float-mask column), enable_gqa")
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=True,
+                                             learnable_sink=sink)
+    out_f, lse_f = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=True)
+    band = dict(window_size=(None, None), learnable_sink=sink.float())
+    plain_fwd, plain_bwd, parts = plain_band_chunks(qt, kt, vt, dot, out, lse,
+                                                    True, band)
+    plain = f"the plain fp32 version, {parts} calls of {h // parts} heads"
+    sliding = time_ms(lambda: flash_fwd.flash_attention_fwd(
+        qt, kt, vt, causal=True, window_size=gpt_oss_window(0),
+        learnable_sink=sink))
+    sliding_free = time_ms(lambda: flash_fwd.flash_attention_fwd(
+        qt, kt, vt, causal=True, window_size=gpt_oss_window(0)))
+    t["flash_fwd_sink"] = {
+        "ms": time_ms(lambda: flash_fwd.flash_attention_fwd(
+            qt, kt, vt, causal=True, learnable_sink=sink)),
+        "sink_free_ms": time_ms(lambda: flash_fwd.flash_attention_fwd(
+            qt, kt, vt, causal=True)),
+        "sliding_ms": sliding, "sliding_sink_free_ms": sliding_free,
+        "plain_ms": time_ms(plain_fwd, runs=3, batch=1), "plain_call": plain,
+        "library_ms": time_ms(lib_fwd, runs=10), "library_call": lib,
+        **fwd_bound}
+
+    def bwd(det, sink_=sink, o=out, l=lse):
+        return lambda: flash_bwd.flash_attention_bwd(
+            dot, qt, kt, vt, o, l, causal=True, deterministic=det,
+            learnable_sink=sink_)
+    delta, _ = flash_bwd.bwd_preprocess(dot, out, lse)
+    s32 = sink_arg("dsink", sink, h, qt.device)
+    dsink_ms = time_ms(lambda: sink_grad(s32, lse, delta[..., :s], 1))
+    lib_b = {"library_ms": time_ms(lib_bwd(dot), runs=10),
+             "library_call": lib + ", backward (torch.autograd.grad)",
+             "plain_ms": time_ms(plain_bwd, runs=3, batch=1),
+             "plain_call": plain}
+    t["flash_bwd_sink"] = {
+        "ms": time_ms(bwd(True), runs=10),
+        "sink_free_ms": time_ms(bwd(True, None, out_f, lse_f), runs=10),
+        "dsink_ms": dsink_ms, **lib_b, **bwd_bound}
+    t["flash_bwd_fused_sink"] = {
+        "ms": time_ms(bwd(False), runs=10),
+        "sink_free_ms": time_ms(bwd(False, None, out_f, lse_f), runs=10),
+        "dsink_ms": dsink_ms, **lib_b, **bwd_bound}
+    del out, lse, out_f, lse_f, delta, plain_fwd, plain_bwd, mask
+    torch.cuda.empty_cache()
+
+    # the packed stack's layer 1 (full) over GPT_OSS_DOCS
+    docs = GPT_OSS_DOCS
+    q, k, v, do, sink = gpt_oss_layer(1, b, s, packed=True)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(docs)]),
+                      dtype=torch.int32, device="cuda")
+    mx = max(docs)
+    args = (q, k, v, cu, cu, mx, mx)
+    ppairs = attended_pairs(docs, docs, True)
+    pfwd = bound(4 * h * d * ppairs, esz * (2 * b * s * h * d
+                                           + 2 * b * s * h_k * d)
+                 + 4 * h * b * s)
+    pbwd = bound(10 * h * d * ppairs, esz * (4 * b * s * h * d
+                                            + 4 * b * s * h_k * d)
+                 + 4 * h * b * s)
+    seg = torch.repeat_interleave(torch.arange(len(docs), device="cuda"),
+                                  torch.tensor(docs, device="cuda"))
+    block = (seg[:, None] == seg[None, :]) & band_mask(b * s, b * s, True)
+    mask = sink_key_mask(sink, block, q.dtype)
+    del block, seg
+    pl = lambda x: x.transpose(0, 1)[None]  # noqa: E731
+    lib_fwd, lib_bwd = sink_sdpa(pl(q), pl(k), pl(v), mask)
+    lib_p = ("scaled_dot_product_attention over the packed rows with the "
+             "documents' causal blocks and the sink column as a float mask "
+             "(a zero K and V row), enable_gqa")
+    out, lse = fvp7.flash_attention_varlen_fwd_persistent(
+        *args, causal=True, learnable_sink=sink)
+
+    def plain_packed_fwd():
+        flash_varlen.flash_attention_varlen_fwd_plain(
+            *args, causal=True, learnable_sink=sink)
+
+    def plain_packed_bwd():
+        flash_varlen.flash_attention_varlen_bwd_plain(
+            do, q, k, v, out, lse, cu, cu, mx, mx, causal=True,
+            learnable_sink=sink)
+    pf_ms = wall_ms(plain_packed_fwd)
+    plain_p = ("the plain fp32 version, a document at a time (on the host's "
+               "clock: it reads the lengths back)")
+    lib_pf = {"library_ms": time_ms(lib_fwd, runs=10), "library_call": lib_p,
+              "plain_ms": pf_ms, "plain_call": plain_p}
+    t["flash_varlen_fwd_sink"] = {
+        "ms": time_ms(lambda: flash_varlen.flash_attention_varlen_fwd(
+            *args, causal=True, learnable_sink=sink)),
+        "sink_free_ms": time_ms(lambda: flash_varlen.flash_attention_varlen_fwd(
+            *args, causal=True)), **lib_pf, **pfwd}
+    t["flash_varlen_fwd_persistent_sink"] = {
+        "ms": time_ms(lambda: fvp7.flash_attention_varlen_fwd_persistent(
+            *args, causal=True, learnable_sink=sink)),
+        "sink_free_ms": time_ms(
+            lambda: fvp7.flash_attention_varlen_fwd_persistent(
+                *args, causal=True)), **lib_pf, **pfwd}
+    out_f, lse_f = fvp7.flash_attention_varlen_fwd_persistent(*args,
+                                                              causal=True)
+    meta = flash_varlen.varlen_meta(q, k, cu, cu, mx, mx, None, None, True,
+                                    None)
+    delta, _ = flash_varlen.varlen_bwd_preprocess(
+        do, out, lse, cu, cu, meta, *(torch.empty_like(x) for x in (q, k, v)))
+    s32 = sink_arg("dsink", sink, h, q.device)
+    t["flash_varlen_bwd_sink"] = {
+        "ms": time_ms(lambda: flash_varlen.flash_attention_varlen_bwd(
+            do, q, k, v, out, lse, cu, cu, mx, mx, causal=True, meta=meta,
+            learnable_sink=sink), runs=10),
+        "sink_free_ms": time_ms(lambda: flash_varlen.flash_attention_varlen_bwd(
+            do, q, k, v, out_f, lse_f, cu, cu, mx, mx, causal=True,
+            meta=meta), runs=10),
+        "dsink_ms": time_ms(lambda: flash_varlen.varlen_sink_grad(
+            s32, lse, delta, cu, meta.lens_q)),
+        "library_ms": time_ms(lib_bwd(pl(do)), runs=10),
+        "library_call": lib_p + ", backward (torch.autograd.grad)",
+        "plain_ms": wall_ms(plain_packed_bwd), "plain_call": plain_p,
+        **pbwd}
+    del out, lse, out_f, lse_f, delta, mask, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
+
+    # B8 at gpt-oss's prefix admission (sliding), B8p at the serving chunk
+    (_, lens_q, lens_k, _, h, h_k, d, page, dtype, causal), _, window = \
+        SINK_VARLEN_CASES[3]
+    gen = torch.Generator(device="cuda").manual_seed(257)
+    nb = len(lens_q)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(dtype)
+    kp, vp, table = paged_cache(gen, nb, h_k, d, page, max(lens_k), dtype)
+    seqlens = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    sink = sink_logits(h, max(lens_k), "cuda", gen)
+    pargs = (q, kp, vp, cu, max(lens_q), seqlens, table)
+    kw = dict(causal=causal, window_size=window)
+    lq, lk = lens_q[0], lens_k[0]
+    vmask = band_mask(lq, lk, causal, window)
+    k_lin, v_lin = (paged_to_linear(x, table, seqlens)
+                    for x in (kp, vp))  # (b, h_k, keys, d)
+    lib8, _ = sink_sdpa(q.reshape(nb, lq, h, d).transpose(1, 2), k_lin,
+                        v_lin, sink_key_mask(sink, vmask, dtype))
+    vpairs = nb * int(vmask.sum())
+    keys8 = nb * int(vmask.any(0).sum())
+    t["flash_varlen_paged_sink"] = {
+        "ms": time_ms(lambda: fvp.flash_attention_varlen_paged_fwd(
+            *pargs, learnable_sink=sink, **kw)),
+        "sink_free_ms": time_ms(lambda: fvp.flash_attention_varlen_paged_fwd(
+            *pargs, **kw)),
+        "plain_ms": wall_ms(lambda: fvp.flash_attention_varlen_paged_fwd_plain(
+            q.float(), kp.float(), vp.float(), *pargs[3:], learnable_sink=sink,
+            **kw)),
+        "plain_call": "the plain fp32 version (on the host's clock)",
+        "library_ms": time_ms(lib8, runs=10),
+        "library_call": "scaled_dot_product_attention over the pre-gathered "
+                        "cache with the sink as one more key, enable_gqa",
+        **bound(4 * h * d * vpairs, esz * (2 * int(cu[-1]) * h * d
+                                           + 2 * keys8 * h_k * d)
+                + 4 * h * int(cu[-1]))}
+    del k_lin, v_lin, lib8
+    rows, nseq, cached = 512, 8, 1536
+    keys = cached + rows
+    kp, vp, table = paged_cache(gen, nseq, 1, 64, 64, keys, torch.bfloat16,
+                                512)
+    q, qv = (torch.randn(nseq * rows, 128, w, device="cuda", generator=gen)
+             .to(torch.bfloat16) for w in (64, 512))
+    cu = torch.arange(nseq + 1, dtype=torch.int32, device="cuda") * rows
+    seqlens = torch.full((nseq,), keys, dtype=torch.int32, device="cuda")
+    sink = sink_logits(128, keys, "cuda", gen)
+    mla_args = (q, kp, vp, cu, rows, seqlens, table)
+    mla_kw = dict(qv=qv, softmax_scale=MLA_SCALE, causal=True)
+    mpairs = nseq * attended_pairs([rows], [keys], True)
+    flops, nbytes = mla_flops_bytes(mpairs, nseq * rows, nseq * keys, 128, 1,
+                                    64, 512, True, 2,
+                                    2 * nseq * rows * 128 * 512, table.numel())
+    k_lin, v_lin = (paged_to_linear(x, table, seqlens)
+                    for x in (kp, vp))  # (b, 1, keys, w)
+    qq = torch.cat([q, qv], -1).reshape(nseq, rows, 128, 576).transpose(1, 2)
+    kk = torch.cat([k_lin, v_lin], -1)
+    lib8p, _ = sink_sdpa(qq, kk, v_lin,
+                         sink_key_mask(sink, band_mask(rows, keys, True),
+                                       torch.bfloat16), scale=MLA_SCALE)
+    t["flash_paged_prefill_sink"] = {
+        "ms": time_ms(lambda: fpp.flash_attention_paged_prefill_varlen(
+            *mla_args, learnable_sink=sink, **mla_kw)),
+        "sink_free_ms": time_ms(lambda: fpp.flash_attention_paged_prefill_varlen(
+            *mla_args, **mla_kw)),
+        "plain_ms": wall_ms(
+            lambda: fpp.flash_attention_paged_prefill_varlen_plain(
+                q.float(), kp.float(), vp.float(), cu, rows, seqlens, table,
+                qv=qv.float(), softmax_scale=MLA_SCALE, causal=True,
+                learnable_sink=sink)),
+        "plain_call": "the plain fp32 version (on the host's clock)",
+        "library_ms": time_ms(lib8p, runs=10),
+        "library_call": "scaled_dot_product_attention of q || qv against "
+                        "k || v over the pre-gathered cache with the sink "
+                        "as one more key",
+        **bound(flops, nbytes)}
+    for row, r in t.items():
+        print(f"{row}: {r['ms']:.4f} ms with the sink, "
+              f"{r['sink_free_ms']:.4f} ms without ("
+              f"{r['ms'] / r['sink_free_ms']:.3f}x)"
+              + (f", the dsink epilogue alone {r['dsink_ms']:.4f} ms"
+                 if "dsink_ms" in r else "")
+              + (f", sliding layer {r['sliding_ms']:.4f} / "
+                 f"{r['sliding_sink_free_ms']:.4f} ms"
+                 if "sliding_ms" in r else "")
+              + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.4f} ms")
+    return t
+
+
+def run_gpt_oss_sinks(card):
+    """gpt-oss-20b's attention stack on the card with its learnable sinks:
+    the 24 layers at 2 x 4,096 through flash_attn_func and packed through
+    flash_attn_varlen_func, forward and backward with the sinks trained
+    (gpt_oss_stack, counted), the kernels against their plain versions and
+    the bitwise identities under a sink (sink_dense_checks,
+    sink_packed_checks, sink_paged_checks, sink_no_key_rows), and each sink
+    form timed beside its sink-free form (sink_timings). Returns the
+    launches of the counted runs, the errors and the timings by
+    kernels-line row."""
+    errs = {}
+    launches = {"dense": gpt_oss_stack(False)}
+    torch.cuda.empty_cache()
+    launches["packed"] = gpt_oss_stack(True)
+    torch.cuda.empty_cache()
+    launches["fused"] = sink_dense_checks(errs)
+    torch.cuda.empty_cache()
+    launches["alibi"] = sink_packed_checks(errs)
+    torch.cuda.empty_cache()
+    launches["paged"], launches["mla"] = sink_paged_checks(errs)
+    torch.cuda.empty_cache()
+    sink_no_key_rows()
+    torch.cuda.empty_cache()
+    timings = sink_timings()
+    print(f"gpt-oss-20b's attention with learnable sinks on {card}: every "
+          f"check held")
+    return launches, errs, timings
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -9010,6 +9873,8 @@ def main() -> int:
         lib)
     btt_launches, btlm_train, hm_launches, hm_err = phase(
         "BTLM-3B-8K training", run_btlm_training, card)
+    go_launches, go_err, go_t = phase("gpt-oss-20b attention with sinks",
+                                      run_gpt_oss_sinks, card)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -9545,6 +10410,37 @@ def main() -> int:
                "flash_varlen.py:462", "fa_varlen_bwd_dkdv"),
               ("fa_varlen_bwd_dq", "flash_varlen_score_80.cu",
                "flash_varlen.py:651", "fa_varlen_bwd_dq"))),
+        # the learnable sink: B1's, B7's and B3's pair (with the dsink
+        # epilogue) launches those of gpt-oss-20b's 24-layer stack at 2 x
+        # 4,096 and packed, B2's the counted deterministic=False call, B6's
+        # forward the ALiBi + sink call, B8's the three admissions, B8p's
+        # the serving chunk; timed beside the sink-free forms (sink_timings)
+        *(entry(name, source, replaces, n, go_err[name], go_t[name])
+          for name, source, replaces, n in (
+              ("flash_fwd_sink", "flash_fwd.cu", "flash_fwd.py:59",
+               go_launches["dense"]["flash_fwd_sink"]),
+              ("flash_bwd_sink", "flash_bwd.cu", "flash_bwd.py:181",
+               go_launches["dense"]["fa_bwd_dkdv"]
+               + go_launches["dense"]["fa_bwd_dq"]),
+              ("flash_bwd_fused_sink", "flash_bwd.cu",
+               "flash_bwd_fused.py:64",
+               go_launches["fused"]["flash_bwd_fused"]),
+              ("flash_varlen_fwd_sink", "flash_varlen_fwd_score.cu",
+               "flash_varlen.py:79",
+               go_launches["alibi"]["flash_varlen_fwd_sink"]),
+              ("flash_varlen_fwd_persistent_sink", "flash_varlen_fwd.cu",
+               "flash_varlen_persistent.py:72",
+               go_launches["packed"]["flash_varlen_fwd_persistent_sink"]),
+              ("flash_varlen_bwd_sink", "flash_varlen.cu",
+               "flash_varlen.py:462",
+               go_launches["packed"]["fa_varlen_bwd_dkdv"]
+               + go_launches["packed"]["fa_varlen_bwd_dq"]),
+              ("flash_varlen_paged_sink", "flash_varlen_paged.cu",
+               "flash_varlen_paged.py:69",
+               go_launches["paged"]["flash_varlen_paged_sink"]),
+              ("flash_paged_prefill_sink", "flash_paged_prefill.cu",
+               "flash_paged_prefill.py:60",
+               go_launches["mla"]["flash_paged_prefill_sink"]))),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -9577,7 +10473,8 @@ def main() -> int:
         "head_dim_80_training": {"timings": hb_t, "api_launches": hb_api,
                                  "kernel_resources": hb_res,
                                  "btlm": btlm_train, "mha_err": hm_err,
-                                 "mha_launches": hm_launches}}))
+                                 "mha_launches": hm_launches},
+        "learnable_sink": {"timings": go_t, "launches": go_launches}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

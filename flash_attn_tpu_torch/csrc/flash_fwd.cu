@@ -63,7 +63,10 @@ cudaError_t launch_band(const FwdMaps& maps, const FwdParams& p, int b, int d, b
 // causal masking), sink tokens and the chunk, read when `band` is set.
 // softcap (0: none) and the ALiBi slopes (b, h) fp32 at slopes[bb *
 // slope_sb + hh] (slope_sb 0 for one slope a head; nullptr: no ALiBi)
-// select the SCORE instantiation when either is given. Returns a
+// select the SCORE instantiation when either is given. learnable_sink: (h,)
+// fp32 logits, one per query head, that every instantiation's epilogue
+// adds to its rows' softmax (nullptr: none; no instantiation of its own,
+// JAX flash_fwd.py:340-356). Returns a
 // cudaError_t (0 on success); block_q/block_k must name the tile the
 // kernel is compiled for (dispatch/config.py FWD_TILE).
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
@@ -74,7 +77,8 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                       float scale_log2, int causal, int left, int right,
                       int sink, int chunk, int band, float softcap, const float* slopes,
-                      int64_t slope_sb, int is_bf16, void* stream) {
+                      int64_t slope_sb, const float* learnable_sink, int is_bf16,
+                      void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || b < 1 || sq < 1 || sk < 1 || h_k < 1 ||
       h % h_k != 0 || (d != 64 && d != 80 && d != 96 && d != 128 && d != 256) || sink < 0 ||
       chunk < 0 || (causal && right != 0 && band) || softcap < 0.f)
@@ -105,6 +109,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
   p.score = score_from_args(scale_log2, softcap, causal);
   p.slopes = slopes;
   p.slope_sb = slope_sb;
+  p.sink = learnable_sink;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bool score = softcap > 0.f || slopes != nullptr;
   if (d == 80) return (int)run_fwd_80(is_bf16, maps, p, b, band, score, st);

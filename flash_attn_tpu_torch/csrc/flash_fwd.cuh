@@ -28,6 +28,7 @@ struct FwdParams {
   Score score;
   const float* slopes;
   int64_t slope_sb;
+  const float* sink;  // (h,) fp32 learnable sink logits, or nullptr
 };
 
 // Q rows of query head hq and K/V rows of KV head hk of batch row bb.
@@ -50,7 +51,7 @@ struct DenseSrc {
 // One block per (128-row query tile, head, batch row), the last q tile
 // (the heaviest under causal masking) first. BAND: the band's key tiles
 // alone, masked by p.band. SCORE: the scores mapped by p.score with the
-// block's head's slope.
+// block's head's slope. p.sink: the head's sink in the epilogue.
 template <typename T, int D, bool BAND, bool SCORE>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParams p) {
@@ -66,6 +67,7 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
   t.sq = p.sq;
   t.sk = p.sk;
   t.m0 = (gridDim.z - 1 - blockIdx.z) * FWD_M;
+  t.sink = p.sink != nullptr ? p.sink + hh : nullptr;
   if constexpr (SCORE) {
     Score sc = p.score;
     if (p.slopes != nullptr) sc.slope = p.slopes[bb * p.slope_sb + hh] * FA_LOG2E;

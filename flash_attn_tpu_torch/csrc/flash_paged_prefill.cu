@@ -10,7 +10,8 @@
 // p sees key positions <= cache_seqlens[s] - seqused_q[s] + p. Scores are
 // [q | qv] . [k | v]^T (one product of depth D + DV), out = softmax(scale S)
 // V. Rows at or past seqused_q, and rows that see no key, give zeros and
-// lse -inf (the wrapper allocates them so, and no block writes them).
+// lse -inf, or the head's sink under a learnable sink (the wrapper
+// allocates them so, and no block writes them).
 //
 // What bounds it on this card: each (query row, key) pair and head costs
 // 2 (D + DV) + 2 DV flops (2,176 at 64 + 512), against 1,152 bytes a key and
@@ -49,6 +50,7 @@ struct PrefillParams {
   int h_k, group, gb, pb, head_blocks, page_size, box_rows, table_width, num_pages;
   float scale_log2;
   int causal;
+  const float* sink;  // (h,) fp32 learnable sink logits, or nullptr
 };
 
 struct PrefillMaps {
@@ -113,7 +115,19 @@ __global__ void __launch_bounds__(MLA_THREADS, 1)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + g + 8 * i;
-    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+    float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+    float lse_sink = 0.f;
+    if (p.sink != nullptr) {
+      // the sink of the row's own head (rows pack gb heads of a position):
+      // fwd_sm90.cuh fwd_epilogue's formula, both warpgroups alike
+      const float sink = p.sink[head0 + r % p.gb];
+      const float m_nat = a.m_r[i] * FA_LN2;
+      const float m_tot = fmaxf(m_nat, sink);
+      const float c = expf(m_nat - m_tot);
+      const float l_tot = __fmaf_rn(l[i], c, expf(sink - m_tot));
+      inv = c / l_tot;
+      lse_sink = m_tot + logf(l_tot);
+    }
 #pragma unroll
     for (int b = 0; b < DVH / NB; ++b)
 #pragma unroll
@@ -125,7 +139,9 @@ __global__ void __launch_bounds__(MLA_THREADS, 1)
     const int pos = p0 + r / p.gb;
     if (wg == 0 && t4 == 0 && pos < sq)
       p.lse[(int64_t)(start + pos) * p.l_st + (int64_t)(head0 + r % p.gb) * p.l_sh] =
-          l[i] == 0.f ? -INFINITY : __fmaf_rn(a.m_r[i], FA_LN2, logf(l[i]));
+          p.sink != nullptr ? lse_sink
+          : l[i] == 0.f     ? -INFINITY
+                            : __fmaf_rn(a.m_r[i], FA_LN2, logf(l[i]));
   }
   named_barrier(2 + wg, 128);
   for (int i = tid & 127; i < BM * (DVH / 8); i += 128) {
@@ -166,8 +182,11 @@ cudaError_t launch(const PrefillMaps& maps, const PrefillParams& p, int b, int r
 // starts[s] .. starts[s] + lens_q[s]; row_tiles bounds, over the batch,
 // ceil(lens_q[s] / PB) * (group / GB) with GB = gcd(h / h_k, 64) and PB =
 // 64 / GB (blocks past a sequence's rows return at once). The forms of
-// dispatch/config.py PAGED_PREFILL_DIMS, qv only. Returns a cudaError_t (0
-// on success).
+// dispatch/config.py PAGED_PREFILL_DIMS, qv only. sink: (h,) fp32 learnable
+// sink logits, each row's own head's added to its softmax in the epilogue
+// (JAX flash_paged_prefill.py:231-243), or nullptr; the wrapper then fills
+// lse with each head's sink, which the rows no block writes keep. Returns a
+// cudaError_t (0 on success).
 extern "C" int fa_paged_prefill(
     const void* q, const void* qv, const void* kp, const void* vp,
     const int* starts, const int* lens_q, const int* lens_k, const int* table,
@@ -176,7 +195,7 @@ extern "C" int fa_paged_prefill(
     int64_t q_sh, int64_t qv_st, int64_t qv_sh, int64_t k_sp, int64_t k_sh,
     int64_t k_ss, int64_t v_sp, int64_t v_sh, int64_t v_ss, int64_t o_st,
     int64_t o_sh, int64_t l_st, int64_t l_sh, int64_t t_sb, float scale_log2,
-    int causal, int is_bf16, void* stream) {
+    int causal, const float* sink, int is_bf16, void* stream) {
   if (!has_qv || h_k < 1 || h % h_k != 0 || page_size < 1 || table_width < 1 ||
       num_pages < 1)
     return (int)cudaErrorInvalidValue;
@@ -201,6 +220,7 @@ extern "C" int fa_paged_prefill(
   p.num_pages = num_pages;
   p.scale_log2 = scale_log2;
   p.causal = causal;
+  p.sink = sink;
   PrefillMaps maps;
   cudaError_t err;
   if ((err = make_tile_map<3>(&maps.q, q, is_bf16, {d, h, total}, {q_sh, q_st}, p.gb, p.pb)) ||

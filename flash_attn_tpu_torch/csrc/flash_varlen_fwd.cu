@@ -79,7 +79,8 @@ cudaError_t setup(FwdMaps* maps, VarlenFwdScoreParams* p, const void* q, const v
                   int total_q, int total_k, int h, int h_k, int d, int64_t q_st,
                   int64_t q_sh, int64_t k_st, int64_t k_sh, int64_t v_st, int64_t v_sh,
                   int64_t o_st, int64_t o_sh, float scale, int causal, const Band& band,
-                  float softcap, const float* slopes, int64_t slope_sb, int is_bf16) {
+                  float softcap, const float* slopes, int64_t slope_sb, const float* sink,
+                  int is_bf16) {
   cudaError_t err;
   if ((err = make_tile_map<3>(&maps->q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, FWD_M)) ||
       (err = make_tile_map<3>(&maps->k, k, is_bf16, {d, total_k, h_k}, {k_st, k_sh}, FWD_N)) ||
@@ -104,6 +105,7 @@ cudaError_t setup(FwdMaps* maps, VarlenFwdScoreParams* p, const void* q, const v
   p->score = score_from_args(scale * FA_LOG2E, softcap, causal);
   p->slopes = slopes;
   p->slope_sb = slope_sb;
+  p->sink = sink;
   return cudaSuccess;
 }
 
@@ -131,7 +133,10 @@ bool takes(int block_q, int block_k, int h, int h_k, int d, int num_tiles, int c
 // instantiation. softcap (0: none) and the ALiBi slopes (b, h) fp32 at
 // slopes[seq * slope_sb + hh] (slope_sb 0 for one slope a head; nullptr: no
 // ALiBi) launch the score instantiation, which reads the band always
-// (band_args' form). Returns a cudaError_t (0 on success).
+// (band_args' form). sink: (h,) fp32 learnable sink logits that every
+// instantiation's epilogue adds to its rows' softmax, or nullptr; the
+// wrapper then fills lse with each head's sink, which the rows of no tile
+// keep. Returns a cudaError_t (0 on success).
 extern "C" int fa_varlen_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const int* cu_q, const int* cu_k, const int* lens_q, const int* lens_k,
@@ -139,7 +144,7 @@ extern "C" int fa_varlen_fwd(
     int d, int block_q, int block_k, int64_t q_st, int64_t q_sh, int64_t k_st,
     int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t o_st, int64_t o_sh,
     float scale, int causal, int left, int right, int chunk, int band, float softcap,
-    const float* slopes, int64_t slope_sb, int is_bf16, void* stream) {
+    const float* slopes, int64_t slope_sb, const float* sink, int is_bf16, void* stream) {
   const bool score = softcap > 0.f || slopes != nullptr;
   if (!takes(block_q, block_k, h, h_k, d, num_tiles, causal, right, chunk, band || score,
              softcap))
@@ -151,7 +156,7 @@ extern "C" int fa_varlen_fwd(
                           num_tiles, total_q, total_k, h, h_k, d, q_st, q_sh, k_st, k_sh,
                           v_st, v_sh, o_st, o_sh, scale, causal,
                           band_from_args(left, right, 0, chunk), softcap, slopes, slope_sb,
-                          is_bf16);
+                          sink, is_bf16);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d == 80) return (int)run_fwd_80(is_bf16, maps, p, band, score, st);
@@ -171,8 +176,8 @@ extern "C" int fa_varlen_fwd_persistent(
     int d, int block_q, int block_k, int64_t q_st, int64_t q_sh, int64_t k_st,
     int64_t k_sh, int64_t v_st, int64_t v_sh, int64_t o_st, int64_t o_sh,
     float scale, int causal, int left, int right, int chunk, int band, float softcap,
-    const float* slopes, int64_t slope_sb, int is_bf16, int num_sms, int* grid_out,
-    void* stream) {
+    const float* slopes, int64_t slope_sb, const float* sink, int is_bf16, int num_sms,
+    int* grid_out, void* stream) {
   if (grid_out) *grid_out = 0;
   const bool score = softcap > 0.f || slopes != nullptr;
   if (!takes(block_q, block_k, h, h_k, d, num_tiles, causal, right, chunk, band || score,
@@ -186,7 +191,7 @@ extern "C" int fa_varlen_fwd_persistent(
                           num_tiles, total_q, total_k, h, h_k, d, q_st, q_sh, k_st, k_sh,
                           v_st, v_sh, o_st, o_sh, scale, causal,
                           band_from_args(left, right, 0, chunk), softcap, slopes, slope_sb,
-                          is_bf16);
+                          sink, is_bf16);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (d == 80)

@@ -30,6 +30,7 @@ struct VarlenFwdParams {
   float scale_log2;
   int causal;
   Band band;  // read by the BAND instantiations alone
+  const float* sink;  // (h,) fp32 learnable sink logits, or nullptr
 };
 
 // A SCORE instantiation's parameters: the cap and the bias's form, and the
@@ -75,7 +76,8 @@ struct PackedSrc {
 // work list: head by head, each head's longest bands first; dead tiles
 // (sorted last) exit. BAND: the key tiles of the sequence's band alone.
 // SCORE (with BAND; p.band holds the causal bound): the scores mapped by
-// the sequence's Score.
+// the sequence's Score. p.sink: the head's sink in the epilogue (the rows
+// of no tile keep the wrapper's fill, the sink).
 template <typename T, int D, bool BAND, bool SCORE = false>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     varlen_fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParamsOf<SCORE> p) {
@@ -95,6 +97,7 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
   t.sq = p.lens_q[seq];
   t.sk = p.lens_k[seq];
   t.m0 = p.tiles[2 * tile + 1];
+  t.sink = p.sink != nullptr ? p.sink + hh : nullptr;
   if constexpr (SCORE)
     fwd_tile<T, D, true, true, true>(src, t, p.scale_log2, p.causal, smem, p.band,
                                      item_score(p, seq, hh));
@@ -148,8 +151,9 @@ __device__ __forceinline__ Item next_item(const VarlenFwdParams& p, int w) {
 __host__ __device__ constexpr int persistent_q_buffers(int d) { return d == 64 ? 2 : 1; }
 
 // B7: a persistent block walks its items with a stride of the grid. BAND:
-// each item over the key tiles of its band, from the band's first. SCORE:
-// as varlen_fwd_kernel.
+// each item over the key tiles of its band, from the band's first. SCORE
+// and p.sink: as varlen_fwd_kernel (an item whose rows see no key is
+// skipped: its rows keep the wrapper's fill).
 template <typename T, int D, bool BAND, bool SCORE = false>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     varlen_fwd_persistent_kernel(const __grid_constant__ FwdMaps maps,
@@ -196,6 +200,7 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     t.sq = cur.sq;
     t.sk = cur.sk;
     t.m0 = cur.m0;
+    t.sink = p.sink != nullptr ? p.sink + cur.hh : nullptr;
     unsigned char* Qs = q_tile(i);
     Score sc;  // SCORE: the item's sequence's, read from its tile's entry
     if constexpr (SCORE) sc = item_score(p, p.tiles[2 * (cur.w - cur.hh * p.num_tiles)], cur.hh);

@@ -91,7 +91,10 @@ cudaError_t launch_band(const FwdMaps& maps, const VarlenPagedParams& p, int d, 
 // instantiation, whose scores are capped (0: none). qk_descale and
 // v_descale: (b, h_k) fp32, contiguous, or nullptr (ones): the scores of
 // sequence s and KV head kh are scaled by qk_descale[s, kh] (before the
-// cap) and its O by v_descale[s, kh]. Returns a cudaError_t (0 on success).
+// cap) and its O by v_descale[s, kh]. sink: (h,) fp32 learnable sink
+// logits that the epilogue adds to every row's softmax, or nullptr; the
+// wrapper then fills lse with each head's sink, which the rows of no tile
+// keep. Returns a cudaError_t (0 on success).
 extern "C" int fa_varlen_paged(
     const void* q, const void* kp, const void* vp, const int* cu_q,
     const int* lens_q, const int* lens_k, const int* table, const int* tile_ends,
@@ -100,8 +103,8 @@ extern "C" int fa_varlen_paged(
     int64_t q_st, int64_t q_sh, int64_t k_sp, int64_t k_sh, int64_t k_ss,
     int64_t v_sp, int64_t v_sh, int64_t v_ss, int64_t o_st, int64_t o_sh,
     int64_t t_sb, float scale_log2, int causal, int left, int right, int band,
-    float softcap, const float* qk_descale, const float* v_descale, int is_bf16,
-    void* stream) {
+    float softcap, const float* qk_descale, const float* v_descale, const float* sink,
+    int is_bf16, void* stream) {
   if (block_q != FWD_M || block_k != FWD_N || h_k < 1 || h % h_k != 0 ||
       (causal && right != 0 && band) ||
       (d != 64 && d != 80 && d != 96 && d != 128 && d != 256) ||
@@ -136,6 +139,7 @@ extern "C" int fa_varlen_paged(
   p.score = score_from_args(scale_log2, softcap, causal);
   p.qk_descale = qk_descale;
   p.v_descale = v_descale;
+  p.sink = sink;
   FwdMaps maps;
   cudaError_t err;
   if ((err = make_tile_map<3>(&maps.q, q, is_bf16, {d, total_q, h}, {q_st, q_sh}, FWD_M)) ||

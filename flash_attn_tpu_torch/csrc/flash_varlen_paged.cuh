@@ -29,6 +29,7 @@ struct VarlenPagedParams {
   Score score;  // the cap, read by the SCORE instantiations alone (no ALiBi)
   const float* qk_descale;  // (b, h_k) q_descale * k_descale, or nullptr (ones)
   const float* v_descale;   // (b, h_k), or nullptr (ones)
+  const float* sink;        // (h,) fp32 learnable sink logits, or nullptr
 };
 
 // Q rows of one sequence from token q0 of the packed tensor at head hq; K/V
@@ -70,7 +71,8 @@ __device__ __forceinline__ void fwd_issue_kv(const PagedSrc& src, unsigned char*
 // a head the sequences' tiles in order, sequence s owning i in
 // [tile_ends[s - 1], tile_ends[s]), its last tile (the longest causal band)
 // first. Items past the last tile exit. BAND: the window's key tiles alone.
-// SCORE: the scores capped by p.score.
+// SCORE: the scores capped by p.score. p.sink: the head's sink in the
+// epilogue, with v_descale still scaling 1 / l'.
 template <typename T, int D, bool BAND, bool SCORE>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     varlen_paged_kernel(const __grid_constant__ FwdMaps maps, const VarlenPagedParams p) {
@@ -110,6 +112,7 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     score.cap_in *= p.qk_descale[dix];
   }
   const float o_scale = p.v_descale == nullptr ? 1.f : p.v_descale[dix];
+  t.sink = p.sink != nullptr ? p.sink + hh : nullptr;
   if constexpr (SCORE)
     fwd_tile<T, D, true, BAND, true>(src, t, scale_log2, p.causal, smem,
                                      score_band<BAND>(p.band, p.causal), score, o_scale);

@@ -98,6 +98,9 @@ struct FwdRows {
   float* lse;
   int64_t o_ss;  // out's row stride in elements
   int sq, sk, m0;
+  // the learnable sink of the block's query head, a natural-log logit (JAX
+  // flash_fwd.py:340-348), or none
+  const float* sink = nullptr;
 };
 
 // What a thread carries through a tile's band: its share of O (the
@@ -358,7 +361,11 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
 // warpgroup's rows of the Q tile Qs (its last product has read them) and
 // out in 16-byte chunks of the head dim's D columns, rows past sq skipped;
 // the natural-log lse. O is scaled by o_scale / l (o_scale: B8's v_descale,
-// else 1).
+// else 1). With t.sink, the sink is one more logit of every row's softmax,
+// unscaled, uncapped and unbiased (JAX flash_fwd.py:340-356): in natural
+// units m_tot = max(m ln 2, sink), l' = l e^(m ln 2 - m_tot) + e^(sink -
+// m_tot), O = acc e^(m ln 2 - m_tot) o_scale / l', lse = m_tot + log l'; a row
+// that sees no key gives out 0 and lse = sink.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* Qs,
                                              const FwdRows<T>& t, float o_scale = 1.f) {
@@ -371,18 +378,30 @@ __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* 
   const int t4 = lane & 3;
   const int r0 = t.m0 + wg * 64;
   unsigned char* ow = Qs + wg * 64 * 128;
+  const float sink = t.sink != nullptr ? *t.sink : 0.f;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + g + 8 * i;
     const float l = quad_sum(a.l_r[i]);
-    const float inv = l == 0.f ? 0.f : o_scale / l;
+    float inv = l == 0.f ? 0.f : o_scale / l;
+    float lse_sink = 0.f;
+    if (t.sink != nullptr) {
+      const float m_nat = a.m_r[i] * FA_LN2;  // -inf for a row that saw no key
+      const float m_tot = fmaxf(m_nat, sink);
+      const float c = expf(m_nat - m_tot);
+      const float l_tot = __fmaf_rn(l, c, expf(sink - m_tot));
+      inv = o_scale * c / l_tot;
+      lse_sink = m_tot + logf(l_tot);
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(ow + (j / 8) * L::QT::PANEL_BYTES +
                                    swz128(r, 8 * (j % 8) + 2 * t4)) =
           Elem<T>::pack(a.at(4 * j + 2 * i) * inv, a.at(4 * j + 2 * i + 1) * inv);
     if (t4 == 0 && r0 + r < t.sq)
-      t.lse[r0 + r] = l == 0.f ? -INFINITY : __fmaf_rn(a.m_r[i], FA_LN2, logf(l));
+      t.lse[r0 + r] = t.sink != nullptr ? lse_sink
+                      : l == 0.f        ? -INFINITY
+                                        : __fmaf_rn(a.m_r[i], FA_LN2, logf(l));
   }
   named_barrier(1 + wg, 128);
   for (int i = tid & 127; i < 64 * (D / 8); i += 128) {
@@ -403,8 +422,8 @@ __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* 
 // band's i + 1-th tile's loads as its i-th starts (its stage was freed at
 // i - 1). BAND: the key tiles of `band` (KeyRange), from the first tile that
 // holds a key some row sees; no tile at all (out 0, lse -inf) when no row
-// sees any. SCORE: the scores mapped by `score` (fwd_step). o_scale: the
-// epilogue's.
+// sees any (with t.sink, lse = sink). SCORE: the scores mapped by `score`
+// (fwd_step). o_scale: the epilogue's.
 template <typename T, int D, bool ZERO_TAIL, bool BAND = false, bool SCORE = false,
           typename Src>
 __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,

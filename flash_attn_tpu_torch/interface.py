@@ -14,17 +14,22 @@ dense varlen route: a window and attention_chunk), the band kept beside
 the forward's residuals as JAX's custom_vjp keeps it among its nondiff
 arguments, and through softcap and ALiBi (the kernels' score
 instantiations, forward and backward; the slopes an input whose gradient
-is zero, as JAX returns). The dense varlen route sends ALiBi to B6's
+is zero, as JAX returns), and with a learnable sink (one logit a query
+head, in every forward kernel's epilogue; its gradient an epilogue of
+torch ops over the backward's delta, as JAX's :185-200 and :384-394 are
+XLA ops: dispatch/sink.py). The dense varlen route sends ALiBi to B6's
 forward (kernels/flash_varlen.py) and every other call to the persistent
 B7, as JAX does (:347-352). The varlen ``block_table=``
 route (:499-546), the chunked prefill of the serving engine, runs
-kernels/flash_varlen_paged.py, forward only (with a sliding window and
-softcap; ALiBi raises, as JAX's route drops the slopes), or,
+kernels/flash_varlen_paged.py, forward only (with a sliding window,
+softcap and the learnable sink; ALiBi raises, as JAX's route drops the
+slopes), or,
 with the MLA second query
 ``qv``, kernels/flash_paged_prefill.py (JAX sends ``qv`` there only when d
 or dv is not a multiple of 128, :520-527, and otherwise concatenates q and
 qv for B8, :528-543: a split for the TPU's 128 lanes; the function is the
-same). The packed forms (:594-680) slice q, k and v out of one tensor.
+same; the sink too). The packed forms (:594-680) slice q, k and v out of
+one tensor, and take no sink, as in JAX.
 """
 
 import math
@@ -107,7 +112,8 @@ def _reconstruct_s_dmask(q, k, lse, softmax_scale: float, causal: bool,
     and k (GQA by grouping query heads), capped and biased as the kernel
     maps them (dispatch/score.py), bottom-right causal and under the band,
     normalised by the kernel's own lse; 0 where masked and on rows that see
-    no key. A testing aid, not a kernel."""
+    no key (with a learnable sink the rows then sum to less than 1, as in
+    JAX, where the lse holds the sink). A testing aid, not a kernel."""
     b, sq, h, d = q.shape
     sk, h_k = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, sq, h_k, h // h_k, d)
@@ -146,40 +152,54 @@ def _slopes_grad(ctx, alibi_slopes):
     return torch.zeros_like(alibi_slopes)
 
 
+def _sink_for_grad(ctx, learnable_sink):
+    """The sink for the backward kernels' wrappers when its gradient is
+    asked for (they then return it after dv), else None."""
+    if learnable_sink is None or not ctx.needs_input_grad[4]:
+        return None
+    return learnable_sink
+
+
 class _FlashAttn(torch.autograd.Function):
     """out, lse = attention(q, k, v) on (b, s, h, d) tensors under the
     causal bound, ``band`` (window_size, sink_token_length and
-    attention_chunk) and the score map (``softcap``, ``alibi_slopes``), which
-    the backward applies as the forward did; the lse is an inspection
-    output whose cotangent is dropped, as in JAX, and the slopes' gradient
-    is zero."""
+    attention_chunk), the score map (``softcap``, ``alibi_slopes``), which
+    the backward applies as the forward did, and the learnable sink, whose
+    gradient is the backward's epilogue; the lse is an inspection output
+    whose cotangent is dropped, as in JAX, and the slopes' gradient is
+    zero."""
 
     @staticmethod
-    def forward(ctx, q, k, v, alibi_slopes, softmax_scale, causal,
-                deterministic, band, softcap):
+    def forward(ctx, q, k, v, alibi_slopes, learnable_sink, softmax_scale,
+                causal, deterministic, band, softcap):
         score = dict(softcap=softcap, alibi_slopes=alibi_slopes)
         out_t, lse = flash_attention_fwd(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            softmax_scale=softmax_scale, causal=causal, **band, **score)
+            softmax_scale=softmax_scale, causal=causal, **band, **score,
+            learnable_sink=learnable_sink)
         out = out_t.transpose(1, 2)
-        ctx.save_for_backward(q, k, v, out, lse, alibi_slopes)
+        ctx.save_for_backward(q, k, v, out, lse, alibi_slopes,
+                              learnable_sink)
         ctx.args = (softmax_scale, causal, deterministic, band, softcap)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, alibi_slopes = ctx.saved_tensors
+        q, k, v, out, lse, alibi_slopes, learnable_sink = ctx.saved_tensors
         softmax_scale, causal, deterministic, band, softcap = ctx.args
         dout = _kernel_layout(dout)
-        dq, dk, dv = flash_attention_bwd(
+        sink = _sink_for_grad(ctx, learnable_sink)
+        dq, dk, dv, *dsink = flash_attention_bwd(
             dout.transpose(1, 2), q.transpose(1, 2), k.transpose(1, 2),
             v.transpose(1, 2), out.transpose(1, 2), lse,
             softmax_scale=softmax_scale, causal=causal,
             deterministic=deterministic, **band, softcap=softcap,
-            alibi_slopes=alibi_slopes)
+            alibi_slopes=alibi_slopes, learnable_sink=sink)
         return (dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2),
-                _slopes_grad(ctx, alibi_slopes), None, None, None, None, None)
+                _slopes_grad(ctx, alibi_slopes),
+                dsink[0].to(sink.dtype) if dsink else None,
+                None, None, None, None, None)
 
 
 def flash_attn_func(
@@ -225,20 +245,26 @@ def flash_attn_func(
     scores as JAX's do (dispatch/score.py; the lse in JAX's form), forward
     and backward (the kernels' score instantiations, with or without a
     band); a ``requires_grad`` slopes tensor gets a zero gradient, as in
-    JAX. Every other option raises NotImplementedError (ROADMAP.md queue
-    A, item 7)."""
+    JAX. ``learnable_sink`` ((nheads,), any float type on q's device: one
+    natural-log logit a query head, not scaled, capped or biased) adds one
+    more logit to every row's softmax (dispatch/sink.py; a row that sees
+    no key gives out 0 and lse equal to its sink), forward and backward
+    in both ``deterministic`` modes; a ``requires_grad`` sink gets its
+    gradient in its own type. Every other option raises
+    NotImplementedError (ROADMAP.md queue A, item 7)."""
     reject_unsupported(
         "flash_attn_func", roadmap_item="queue A, item 7", dropout_p=dropout_p,
-        learnable_sink=learnable_sink, dropout_rng=dropout_rng,
-        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale, qv=qv,
-        score_mod=score_mod, mask_mod=mask_mod, aux_tensors=aux_tensors)
+        dropout_rng=dropout_rng, q_descale=q_descale, k_descale=k_descale,
+        v_descale=v_descale, qv=qv, score_mod=score_mod, mask_mod=mask_mod,
+        aux_tensors=aux_tensors)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     window_size = normalize_window(tuple(window_size))
     band = dict(window_size=window_size, sink_token_length=sink_token_length,
                 attention_chunk=attention_chunk)
-    out, lse = _FlashAttn.apply(q, k, v, alibi_slopes, softmax_scale, causal,
-                                deterministic, band, softcap)
+    out, lse = _FlashAttn.apply(q, k, v, alibi_slopes, learnable_sink,
+                                softmax_scale, causal, deterministic, band,
+                                softcap)
     if not return_attn_probs:
         return out
     with torch.no_grad():
@@ -252,33 +278,39 @@ class _FlashAttnVarlen(torch.autograd.Function):
     """out, lse = packed varlen attention; the forward is the persistent
     kernel (B7), or with ALiBi B6's forward (as JAX routes it), the
     backward the dK/dV + dQ kernels (B6), all under ``band`` (window_size
-    and attention_chunk) and the score map (``softcap``, ``alibi_slopes``).
+    and attention_chunk), the score map (``softcap``, ``alibi_slopes``) and
+    the learnable sink, whose gradient is the backward's epilogue.
     ``meta`` holds the work lists of both; the lse is an inspection output
     whose cotangent is dropped, as in JAX, and the slopes' gradient is
     zero."""
 
     @staticmethod
-    def forward(ctx, q, k, v, alibi_slopes, cu_seqlens_q, cu_seqlens_k,
-                seqused_q, seqused_k, meta, max_seqlen_q, max_seqlen_k,
-                softmax_scale, causal, band, softcap):
+    def forward(ctx, q, k, v, alibi_slopes, learnable_sink, cu_seqlens_q,
+                cu_seqlens_k, seqused_q, seqused_k, meta, max_seqlen_q,
+                max_seqlen_k, softmax_scale, causal, band, softcap):
         args = (cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
                 seqused_q, seqused_k, softmax_scale, causal)
         score = dict(softcap=softcap, alibi_slopes=alibi_slopes)
         fwd = (flash_attention_varlen_fwd if alibi_slopes is not None
                else flash_attention_varlen_fwd_persistent)
-        out, lse = fwd(q, k, v, *args, meta=meta, **band, **score)
-        ctx.save_for_backward(q, k, v, out, lse, alibi_slopes)
+        out, lse = fwd(q, k, v, *args, meta=meta, **band, **score,
+                       learnable_sink=learnable_sink)
+        ctx.save_for_backward(q, k, v, out, lse, alibi_slopes,
+                              learnable_sink)
         ctx.args, ctx.meta, ctx.band, ctx.softcap = args, meta, band, softcap
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, dout, _dlse):
-        q, k, v, out, lse, alibi_slopes = ctx.saved_tensors
-        dq, dk, dv = flash_attention_varlen_bwd(
+        q, k, v, out, lse, alibi_slopes, learnable_sink = ctx.saved_tensors
+        sink = _sink_for_grad(ctx, learnable_sink)
+        dq, dk, dv, *dsink = flash_attention_varlen_bwd(
             _kernel_layout(dout), q, k, v, out, lse, *ctx.args, meta=ctx.meta,
-            **ctx.band, softcap=ctx.softcap, alibi_slopes=alibi_slopes)
-        return (dq, dk, dv, _slopes_grad(ctx, alibi_slopes)) + (None,) * 11
+            **ctx.band, softcap=ctx.softcap, alibi_slopes=alibi_slopes,
+            learnable_sink=sink)
+        return (dq, dk, dv, _slopes_grad(ctx, alibi_slopes),
+                dsink[0].to(sink.dtype) if dsink else None) + (None,) * 11
 
 
 def flash_attn_varlen_func(
@@ -341,7 +373,10 @@ def flash_attn_varlen_func(
     a missing one counting as ones) over pages of q's type or of 1-byte
     codes (float8_e4m3fn, int8): the scores are scaled by q_descale ·
     k_descale before the cap and the output by v_descale, in q's type, as
-    JAX's B8 (flash_varlen_paged.py:225-241, :276-277); the dense route takes softcap and
+    JAX's B8 (flash_varlen_paged.py:225-241, :276-277); ``learnable_sink``
+    ((nheads,), one logit a query head, dispatch/sink.py) on both routes and
+    both paged kernels, differentiable on the dense route (its gradient in
+    its own type); the dense route takes softcap and
     ``alibi_slopes`` ((nheads,) or (batch, nheads) fp32, each sequence its
     row) forward and backward (the kernels' score instantiations; ALiBi
     through B6's forward, as JAX routes it), the slopes' gradient zero. A
@@ -367,8 +402,7 @@ def flash_attn_varlen_func(
         window_size=window_size if qv is not None else (None, None),
         softcap=softcap if qv is not None else 0.0,
         attention_chunk=attention_chunk if block_table is not None else 0,
-        learnable_sink=learnable_sink, dropout_rng=dropout_rng,
-        qv=qv if block_table is None else None)
+        dropout_rng=dropout_rng, qv=qv if block_table is None else None)
     descaled = any(x is not None for x in (q_descale, k_descale, v_descale))
     if descaled and (block_table is None or qv is not None):
         raise NotImplementedError(
@@ -384,14 +418,16 @@ def flash_attn_varlen_func(
             raise NotImplementedError(
                 "flash_attn_varlen_func: scheduler_metadata with block_table "
                 "is not ported yet (ROADMAP.md queue A, item 7)")
-        require_no_grad("flash_attn_varlen_func", q, k, v, qv)
+        require_no_grad("flash_attn_varlen_func", q, k, v, qv,
+                        learnable_sink)
         if seqused_k is None:
             seqused_k = cu_seqlens_k[1:] - cu_seqlens_k[:-1]
         if qv is not None:
             out, lse = flash_attention_paged_prefill_varlen(
                 q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k,
                 block_table, seqused_q=seqused_q, qv=qv,
-                softmax_scale=softmax_scale, causal=causal)
+                softmax_scale=softmax_scale, causal=causal,
+                learnable_sink=learnable_sink)
             return (out, lse) if return_attn_probs else out
         qk_descale, v_scale = combined_descales(
             cu_seqlens_q.shape[0] - 1, k.shape[1], q_descale, k_descale,
@@ -400,7 +436,7 @@ def flash_attn_varlen_func(
             q, k, v, cu_seqlens_q, int(max_seqlen_q), seqused_k, block_table,
             seqused_q=seqused_q, softmax_scale=softmax_scale, causal=causal,
             window_size=window_size, softcap=softcap, qk_descale=qk_descale,
-            v_descale=v_scale)
+            v_descale=v_scale, learnable_sink=learnable_sink)
         return (out, lse) if return_attn_probs else out
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
@@ -427,9 +463,9 @@ def flash_attn_varlen_func(
                        int(max_seqlen_k), seqused_q, seqused_k, causal, meta,
                        **band)
     out, lse = _FlashAttnVarlen.apply(
-        q, k, v, alibi_slopes, cu_seqlens_q, cu_seqlens_k, seqused_q,
-        seqused_k, meta, int(max_seqlen_q), int(max_seqlen_k), softmax_scale,
-        causal, band, softcap)
+        q, k, v, alibi_slopes, learnable_sink, cu_seqlens_q, cu_seqlens_k,
+        seqused_q, seqused_k, meta, int(max_seqlen_q), int(max_seqlen_k),
+        softmax_scale, causal, band, softcap)
     return (out, lse, None) if return_attn_probs else out
 
 

@@ -29,13 +29,14 @@ _F = ctypes.c_float
 # c_void_p: ctypes would otherwise pass them as 32-bit ints).
 SIGNATURES = {
     "fa_fwd": [_P] * 5 + [_I] * 8 + [_L] * 12 + [_F] + [_I] * 6
-              + [_F, _P, _L, _I, _P],
+              + [_F, _P, _L, _P, _I, _P],
     "fa_decode": [_P] * 7 + [_I] * 12 + [_L] * 10 + [_F] + [_I] * 4
                  + [_F, _P, _L, _I, _P, _P, _I, _P],
     "fa_decode_mla": [_P] * 8 + [_I] * 13 + [_L] * 13 + [_F, _I, _I, _P],
-    "fa_paged_prefill": [_P] * 10 + [_I] * 11 + [_L] * 15 + [_F, _I, _I, _P],
+    "fa_paged_prefill": [_P] * 10 + [_I] * 11 + [_L] * 15
+                        + [_F, _I, _P, _I, _P],
     "fa_varlen_paged": [_P] * 10 + [_I] * 11 + [_L] * 11 + [_F] + [_I] * 4
-                       + [_F, _P, _P, _I, _P],
+                       + [_F, _P, _P, _P, _I, _P],
     "fa_kv_dequant": [_P] * 6 + [_I] * 7 + [_L] * 7 + [_I, _P],
     "fa_bwd_preprocess": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_I, _P],
     "fa_bwd_dkdv": [_P] * 9 + [_I] * 9 + [_L] * 18 + [_F] + [_I] * 6
@@ -43,10 +44,10 @@ SIGNATURES = {
     "fa_bwd_dq": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_F] + [_I] * 6
                  + [_F, _P, _L, _I, _P],
     "fa_varlen_fwd": [_P] * 10 + [_I] * 8 + [_L] * 8 + [_F] + [_I] * 5
-                     + [_F, _P, _L, _I, _P],
+                     + [_F, _P, _L, _P, _I, _P],
     "fa_varlen_fwd_persistent":
         [_P] * 10 + [_I] * 8 + [_L] * 8 + [_F] + [_I] * 5
-        + [_F, _P, _L, _I, _I, _P, _P],
+        + [_F, _P, _L, _P, _I, _I, _P, _P],
     "fa_varlen_bwd_preprocess": [_P] * 13 + [_I] * 7 + [_L] * 5 + [_I, _P],
     "fa_varlen_bwd_dkdv":
         [_P] * 13 + [_I] * 9 + [_L] * 13 + [_F] + [_I] * 5

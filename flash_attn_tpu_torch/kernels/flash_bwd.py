@@ -18,7 +18,10 @@ derivative (flash_bwd.py:143-152); ALiBi changes no gradient of q, k or v.
 Layout (b, h, s, d) as in the JAX kernels. delta = rowsum(dO * O),
 an XLA op before the JAX kernels (flash_bwd.py:406-413), is the preprocess
 kernel here; the fused path's final fp32 -> input-type cast of dQ stays a
-torch op. A tensor on the CPU takes the plain versions; a CUDA tensor
+torch op. With a ``learnable_sink`` the kernels run as they are (the lse
+folds the sink in) and the sink's gradient is an epilogue of torch ops
+over the preprocess kernel's delta (dispatch/sink.py sink_grad), as it is
+an XLA epilogue in JAX (interface.py:185-200). A tensor on the CPU takes the plain versions; a CUDA tensor
 launches the kernels or raises.
 """
 
@@ -45,6 +48,7 @@ from flash_attn_tpu_torch.dispatch.score import (
     slope_args,
     slopes_bh,
 )
+from flash_attn_tpu_torch.dispatch.sink import sink_arg, sink_grad
 from flash_attn_tpu_torch.kernels import _build
 
 # Kernel launches since the last reset (plain calls not counted): both
@@ -87,7 +91,7 @@ def flash_attention_bwd_plain(do, q, k, v, out, lse,
                               window_size: Window = (None, None),
                               sink_token_length: int = 0,
                               attention_chunk: int = 0, softcap: float = 0.0,
-                              alibi_slopes=None):
+                              alibi_slopes=None, learnable_sink=None):
     """Gradients of attention in fp32 from the saved forward. do/q/out
     (b, h, sq, d), k/v (b, h_k, sk, d), lse (b, h, sq) natural-log, -inf
     for rows that see no key; the scores mapped by ``softcap`` and
@@ -96,7 +100,9 @@ def flash_attention_bwd_plain(do, q, k, v, out, lse,
     (dispatch/band.py band_valid); under a cap dS is multiplied by the tanh
     derivative, 1 - tanh(s / softcap)^2 (JAX's ds_chain). Returns (dq, dk,
     dv) in q's, k's and v's types and shapes; a GQA group's gradients sum
-    into its KV head."""
+    into its KV head; with ``learnable_sink`` (h,) (folded into lse by the
+    forward) also its gradient, (h,) fp32."""
+    sink = sink_arg("flash_bwd", learnable_sink, q.shape[1], q.device)
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     group = h // h_k
@@ -132,7 +138,10 @@ def flash_attention_bwd_plain(do, q, k, v, out, lse,
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dk = dk.unflatten(1, (h_k, group)).sum(2)
     dv = dv.unflatten(1, (h_k, group)).sum(2)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    grads = dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    if sink is None:
+        return grads
+    return grads + (sink_grad(sink, lse.float(), delta[..., 0], 1),)
 
 
 def _strides(x):
@@ -190,7 +199,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
                         window_size: Window = (None, None),
                         sink_token_length: int = 0,
                         attention_chunk: int = 0, softcap: float = 0.0,
-                        alibi_slopes=None):
+                        alibi_slopes=None, learnable_sink=None):
     """dq, dk, dv for attention saved by ``flash_attention_fwd``. Layouts as
     :func:`flash_attention_bwd_plain`, any strides with the head dim
     contiguous and 16-byte aligned starts and strides (the kernels load
@@ -206,11 +215,15 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     (dispatch/band.py): with a band, both paths launch the kernels' band
     instantiations. ``softcap`` (0: none) and ``alibi_slopes`` ((h,) or
     (b, h), read in fp32) as the forward took them (dispatch/score.py):
-    with either, both paths launch the kernels' score instantiations."""
+    with either, both paths launch the kernels' score instantiations.
+    ``learnable_sink`` (h,): the forward's sink, whose gradient, (h,) fp32
+    from the preprocess's delta and lse (dispatch/sink.py sink_grad),
+    follows dv in the result."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             do, q, k, v, out, lse, softmax_scale, causal, window_size,
-            sink_token_length, attention_chunk, softcap, alibi_slopes)
+            sink_token_length, attention_chunk, softcap, alibi_slopes,
+            learnable_sink)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -229,6 +242,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
         raise ValueError("flash_bwd kernel: batch and heads must be <= 65535")
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do), ("out", out)):
         _build.check_operand("flash_bwd", name, x, q.dtype, q.device)
+    sink = sink_arg("flash_bwd", learnable_sink, h, q.device)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     # Gradients are allocated (b, s, h, d) so that the public bshd views
     # are contiguous; they are returned as their (b, h, s, d) views.
@@ -236,8 +250,9 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     dk = alloc((b, sk, h_k, d), dtype=k.dtype, device=q.device)
     dv = alloc((b, sk, h_k, d), dtype=v.dtype, device=q.device)
     dq = alloc((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if sq == 0 or sk == 0:
-        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    if sq == 0 or sk == 0:  # out is 0: so is dsink
+        grads = dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+        return grads if sink is None else grads + (torch.zeros_like(sink),)
     # the fused path's fp32 dQ, zeroed by the preprocess kernel
     dq_accum = None if deterministic else torch.empty(
         (b, sq, h, d), dtype=torch.float32, device=q.device)
@@ -287,4 +302,7 @@ def flash_attention_bwd(do, q, k, v, out, lse,
             launches_fused_band += band
             launches_fused_score += score
             dq.copy_(dq_accum)
-    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    grads = dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    if sink is None:
+        return grads
+    return grads + (sink_grad(sink, lse.float(), delta[..., :sq], 1),)

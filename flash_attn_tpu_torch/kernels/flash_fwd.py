@@ -9,8 +9,9 @@ with a band launches the kernel's band instantiation, which walks only the
 key tiles of the band; one without launches the band-free one, which is
 the kernel of the earlier releases bit for bit. ``softcap`` and
 ``alibi_slopes`` (dispatch/score.py) launch the kernel's score
-instantiation, with or without the band. Layout (b, h, s, d) as in the JAX
-function.
+instantiation, with or without the band. ``learnable_sink`` (dispatch/
+sink.py) runs in every instantiation's epilogue, read from a runtime
+pointer. Layout (b, h, s, d) as in the JAX function.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises (TMA takes only 16-byte aligned starts and strides: any
 other view raises ValueError, nothing is copied).
@@ -40,14 +41,17 @@ from flash_attn_tpu_torch.dispatch.score import (
     slope_args,
     slopes_bh,
 )
+from flash_attn_tpu_torch.dispatch.sink import sink_arg, sink_ptr, with_sink
 from flash_attn_tpu_torch.kernels import _build
 
 
 # Kernel launches since the last reset (plain calls not counted): all of
-# them, and those of the band and of the score instantiations among them.
+# them, and those of the band and of the score instantiations and those
+# with a learnable sink among them.
 launches = 0
 launches_band = 0
 launches_score = 0
+launches_sink = 0
 
 Window = Tuple[Optional[int], Optional[int]]
 
@@ -57,11 +61,13 @@ def flash_attention_fwd_plain(q, k, v, softmax_scale: Optional[float] = None,
                               window_size: Window = (None, None),
                               sink_token_length: int = 0,
                               attention_chunk: int = 0, softcap: float = 0.0,
-                              alibi_slopes=None):
+                              alibi_slopes=None, learnable_sink=None):
     """Matmul, score map (dispatch/score.py), mask and softmax in fp32. q
-    (b, h, sq, d), k/v (b, h_k, sk, d/dv); alibi_slopes (h,) or (b, h).
-    Returns out (b, h, sq, dv) in q's type and the natural-log lse (b, h,
-    sq) in fp32, -inf (and out 0) for rows that see no key."""
+    (b, h, sq, d), k/v (b, h_k, sk, d/dv); alibi_slopes (h,) or (b, h);
+    learnable_sink (h,) one more logit in each row's softmax. Returns out
+    (b, h, sq, dv) in q's type and the natural-log lse (b, h, sq) in fp32,
+    -inf (the sink with one) and out 0 for rows that see no key."""
+    sink = sink_arg("flash_fwd", learnable_sink, q.shape[1], q.device)
     b, h, sq, d = q.shape
     h_k, sk = k.shape[1], k.shape[2]
     group = h // h_k
@@ -79,7 +85,7 @@ def flash_attention_fwd_plain(q, k, v, softmax_scale: Optional[float] = None,
         valid = band_valid(rows, cols, sk - sq, causal, window_size,
                            sink_token_length, attention_chunk)
         s = s.masked_fill(~valid, float("-inf"))
-    lse = torch.logsumexp(s, dim=-1)
+    lse = with_sink(torch.logsumexp(s, dim=-1), sink)
     seen = torch.isfinite(lse)
     p = torch.exp(s - torch.where(seen, lse, 0.0)[..., None])
     out = torch.matmul(p, vf).to(q.dtype)
@@ -91,18 +97,20 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
                         window_size: Window = (None, None),
                         sink_token_length: int = 0,
                         attention_chunk: int = 0, softcap: float = 0.0,
-                        alibi_slopes=None):
+                        alibi_slopes=None, learnable_sink=None):
     """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
     contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
     fp32). CUDA: bf16/fp16, d in HEAD_DIMS (64, 80, 96, 128, 256),
     h % h_k == 0. ``window_size`` (left, right) with None for no bound,
     ``sink_token_length`` and ``attention_chunk`` as in the JAX function
     (dispatch/band.py); ``softcap`` (0: none) and ``alibi_slopes`` ((h,) or
-    (b, h), read in fp32) as in JAX's (dispatch/score.py)."""
+    (b, h), read in fp32) as in JAX's (dispatch/score.py);
+    ``learnable_sink`` (h,) on q's device, any float type, read in fp32
+    (dispatch/sink.py)."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(
             q, k, v, softmax_scale, causal, window_size, sink_token_length,
-            attention_chunk, softcap, alibi_slopes)
+            attention_chunk, softcap, alibi_slopes, learnable_sink)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -117,6 +125,7 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
         raise ValueError("flash_fwd kernel: batch and heads must be <= 65535")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _build.check_operand("flash_fwd", name, x, q.dtype, q.device)
+    sink = sink_arg("flash_fwd", learnable_sink, h, q.device)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     # out is allocated (b, sq, h, d) so that the public bshd result is
     # contiguous; it is returned as its (b, h, sq, d) view.
@@ -126,7 +135,10 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
         return out.transpose(1, 2), lse
     if sk == 0:  # no row sees a key: nothing to launch
         out.zero_()
-        lse.fill_(float("-inf"))
+        if sink is None:
+            lse.fill_(float("-inf"))
+        else:
+            lse.copy_(sink[None, :, None].expand(b, h, sq))
         return out.transpose(1, 2), lse
     window = reach_window(window_size, causal, sq, sk)
     band = has_band(causal, window, attention_chunk)
@@ -144,12 +156,13 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
             out.stride(0), out.stride(1), out.stride(2),
             scale_log2(scale), int(causal),
             *band_args(causal, window, sink_token_length, attention_chunk),
-            int(band), float(softcap), slope_ptr, slope_sb,
+            int(band), float(softcap), slope_ptr, slope_sb, sink_ptr(sink),
             int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_fwd")
-    global launches, launches_band, launches_score
+    global launches, launches_band, launches_score, launches_sink
     launches += 1
     launches_band += band
     launches_score += has_score(softcap, alibi_slopes)
+    launches_sink += sink is not None
     return out.transpose(1, 2), lse

@@ -8,8 +8,10 @@ Port of flash_attn_tpu/kernels/flash_paged_prefill.py
 attends to the first cache_seqlens[s] keys of its pages (the chunk's own
 keys included), bottom-right causal: query row r sits at key position
 cache_seqlens[s] - seqused_q[s] + r. Scores are q k^T + qv v^T; the value
-width dv may differ from d. Rows at or past seqused_q give zeros and lse
--inf. The JAX function pads d and dv to 128 lanes and batch-chunks its page
+width dv may differ from d. ``learnable_sink`` (h,) adds one more logit
+to each row's softmax, its own head's (JAX :231-243, dispatch/sink.py).
+Rows at or past seqused_q give zeros and lse -inf (the sink under one).
+The JAX function pads d and dv to 128 lanes and batch-chunks its page
 table for the TPU compiler; neither is needed here.
 
 The kernel (wgmma and TMA page copies, csrc/flash_paged_prefill.cu) reads
@@ -18,7 +20,7 @@ q, qv and out in the packed layout of
 :func:`flash_attention_paged_prefill_varlen` serves the varlen entry point
 without padding, and the dense signature views its batch as packed rows.
 bf16/fp16 on the card, in the forms of ``PAGED_PREFILL_DIMS``; window,
-softcap, descales and the learnable sink raise. A tensor on the CPU takes
+softcap and descales raise. A tensor on the CPU takes
 the plain version; a CUDA tensor launches the kernel or raises.
 """
 
@@ -33,22 +35,34 @@ from flash_attn_tpu_torch.dispatch.config import (
     default_scale,
     normalize_window,
 )
+from flash_attn_tpu_torch.dispatch.sink import (
+    lse_fill,
+    sink_arg,
+    sink_ptr,
+    with_sink,
+)
 from flash_attn_tpu_torch.dispatch.varlen_meta import sequence_lengths
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
 LOG2E = math.log2(math.e)
 
-launches = 0  # kernel launches since the last reset (plain calls not counted)
+# Kernel launches since the last reset (plain calls not counted), and
+# those with a learnable sink among them.
+launches = 0
+launches_sink = 0
 
 
 def flash_attention_paged_prefill_plain(
         q, k_cache, v_cache, seqused_q, cache_seqlens, block_table, qv=None,
-        softmax_scale: Optional[float] = None, causal: bool = True):
+        softmax_scale: Optional[float] = None, causal: bool = True,
+        learnable_sink=None):
     """Gather the pages into the linear layout and compute masked attention
-    in fp32. Returns (out (b, sq_max, h, dv) in q's type, lse (b, h,
-    sq_max) fp32), zeros and -inf for rows that see no key."""
+    in fp32, with the (h,) ``learnable_sink`` in each row's softmax.
+    Returns (out (b, sq_max, h, dv) in q's type, lse (b, h, sq_max) fp32),
+    zeros and -inf (the sink under one) for rows that see no key."""
     b, sq_max, h, d = q.shape
+    sink = sink_arg("flash_paged_prefill", learnable_sink, h, q.device)
     h_k, dv = k_cache.shape[1], v_cache.shape[-1]
     group = h // h_k
     dev = q.device
@@ -74,7 +88,8 @@ def flash_attention_paged_prefill_plain(
         shift = (lens_k - lens_q)[:, None, None]
         valid = valid & (pos_k[None, None, :] <= pos_q[None, :, None] + shift)
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
-    lse = torch.logsumexp(s, dim=-1)                            # (b, h_k, g, M)
+    lse = with_sink(torch.logsumexp(s, dim=-1),                 # (b, h_k, g, M)
+                    None if sink is None else sink.view(h_k, group))
     p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
     out = torch.einsum("bkgms,bksd->bmkgd", p, v_lin).reshape(
         b, sq_max, h, dv).to(q.dtype)
@@ -90,11 +105,12 @@ def prefill_row_tiles(max_rows_q: int, group: int) -> int:
 
 
 def _launch(q, qv, k_cache, v_cache, starts, lens_q, lens_k, block_table,
-            max_rows_q: int, softmax_scale: float, causal: bool, out, lse):
+            max_rows_q: int, softmax_scale: float, causal: bool, out, lse,
+            sink=None):
     """The kernel over packed q (total, h, d), qv (total, h, dv): sequence
     s owns rows starts[s] .. starts[s] + lens_q[s] (lens_q <= max_rows_q);
     writes those rows of out (total, h, dv) and lse (h, total), leaving the
-    others as the caller filled them."""
+    others as the caller filled them; ``sink`` is sink_arg's."""
     total, h, d = q.shape
     num_pages, h_k, page_size, dk = k_cache.shape
     dv = v_cache.shape[-1]
@@ -142,11 +158,12 @@ def _launch(q, qv, k_cache, v_cache, starts, lens_q, lens_k, block_table,
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
             out.stride(0), out.stride(1), lse.stride(1), lse.stride(0),
             table.stride(0), softmax_scale * LOG2E, int(causal),
-            int(q.dtype == torch.bfloat16),
+            sink_ptr(sink), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_paged_prefill")
-    global launches
+    global launches, launches_sink
     launches += 1
+    launches_sink += sink is not None
 
 
 def flash_attention_paged_prefill(
@@ -158,36 +175,36 @@ def flash_attention_paged_prefill(
     """q (b, sq_max, h, d) dense padded; pages (num_pages, h_k, page_size,
     d) and (num_pages, h_k, page_size, dv); seqused_q (b,) query rows in
     use; cache_seqlens (b,) keys of each sequence, the chunk included;
-    block_table (b, max_pages) int32; qv (b, sq_max, h, dv). The scale
-    defaults to 1/sqrt(d) (1/sqrt(d + dv) with qv). Returns (out (b,
-    sq_max, h, dv) in q's type, lse (b, h, sq_max) fp32); rows at or past
-    seqused_q give zeros and -inf."""
+    block_table (b, max_pages) int32; qv (b, sq_max, h, dv); learnable_sink
+    (h,) on q's device. The scale defaults to 1/sqrt(d) (1/sqrt(d + dv)
+    with qv). Returns (out (b, sq_max, h, dv) in q's type, lse (b, h,
+    sq_max) fp32); rows at or past seqused_q give zeros and -inf (the sink
+    under one)."""
     from flash_attn_tpu_torch.interface import reject_unsupported
 
     reject_unsupported(
         "flash_attention_paged_prefill", roadmap_item="queue A, item 7",
         window_size=normalize_window(tuple(window_size)), softcap=softcap,
-        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
-        learnable_sink=learnable_sink)
+        q_descale=q_descale, k_descale=k_descale, v_descale=v_descale)
     if q.device.type == "cpu":
         return flash_attention_paged_prefill_plain(
             q, k_cache, v_cache, seqused_q, cache_seqlens, block_table, qv,
-            softmax_scale, causal)
+            softmax_scale, causal, learnable_sink)
     if q.device.type != "cuda":
         raise ValueError(f"flash_paged_prefill: unsupported device {q.device}")
     b, sq_max, h, d = q.shape
+    sink = sink_arg("flash_paged_prefill", learnable_sink, h, q.device)
     dv = v_cache.shape[-1]
     if softmax_scale is None:
         softmax_scale = default_scale(d, dv, qv is not None)
     starts = torch.arange(b, dtype=torch.int32, device=q.device) * sq_max
     lens_q = seqused_q.to(q.device, torch.int32).clamp(0, sq_max)
     out = torch.zeros((b * sq_max, h, dv), dtype=q.dtype, device=q.device)
-    lse = torch.full((h, b * sq_max), float("-inf"), dtype=torch.float32,
-                     device=q.device)
+    lse = lse_fill(sink, h, b * sq_max, q.device)
     _launch(q.reshape(b * sq_max, h, d),
             None if qv is None else qv.reshape(b * sq_max, h, dv),
             k_cache, v_cache, starts, lens_q, cache_seqlens, block_table,
-            sq_max, softmax_scale, causal, out, lse)
+            sq_max, softmax_scale, causal, out, lse, sink)
     return (out.reshape(b, sq_max, h, dv),
             lse.reshape(h, b, sq_max).permute(1, 0, 2))
 
@@ -195,11 +212,13 @@ def flash_attention_paged_prefill(
 def flash_attention_paged_prefill_varlen_plain(
         q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, qv=None,
-        softmax_scale: Optional[float] = None, causal: bool = False):
+        softmax_scale: Optional[float] = None, causal: bool = False,
+        learnable_sink=None):
     """Pack -> pad per sequence -> :func:`flash_attention_paged_prefill_plain`
     -> unpack, as the JAX package pads for its kernel
     (interface.py:549-591), but keeping ``seqused_q``."""
     total_q, h, d = q.shape
+    sink = sink_arg("flash_paged_prefill", learnable_sink, h, q.device)
     b = cu_seqlens_q.numel() - 1
     sq_max = max(int(max_seqlen_q), 1)
     cu = cu_seqlens_q.to(q.device, torch.long)
@@ -214,26 +233,29 @@ def flash_attention_paged_prefill_varlen_plain(
 
     out_d, lse_d = flash_attention_paged_prefill_plain(
         dense(q), k_cache, v_cache, lens_q, seqlens_k, block_table,
-        None if qv is None else dense(qv), softmax_scale, causal)
+        None if qv is None else dense(qv), softmax_scale, causal, sink)
     tok = torch.arange(total_q, device=q.device)
     seq = torch.searchsorted(cu[1:], tok, right=True).clamp(max=max(b - 1, 0))
     loc = tok - cu[seq]
     live = loc < lens_q[seq]
     loc = loc.clamp(0, sq_max - 1)
     out = torch.where(live[:, None, None], out_d[seq, loc], 0.0).to(q.dtype)
-    lse = torch.where(live[None], lse_d[seq, :, loc].T, float("-inf"))
+    lse = torch.where(live[None], lse_d[seq, :, loc].T,
+                      lse_fill(sink, h, total_q, q.device))
     return out, lse
 
 
 def flash_attention_paged_prefill_varlen(
         q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, qv=None,
-        softmax_scale: Optional[float] = None, causal: bool = False):
+        softmax_scale: Optional[float] = None, causal: bool = False,
+        learnable_sink=None):
     """The same over packed queries: q (total_q, h, d) and qv (total_q, h,
     dv) by cu_seqlens_q (b + 1,), sequence s's first seqused_q[s] rows (all
     of them when None) in use. Returns (out (total_q, h, dv), lse (h,
-    total_q) fp32), zeros and -inf on rows in no sequence or past
-    seqused_q. The kernel reads the packed layout in place."""
+    total_q) fp32), zeros and -inf (the sink under one) on rows in no
+    sequence or past seqused_q. The kernel reads the packed layout in
+    place."""
     total_q, h, d = q.shape
     dv = v_cache.shape[-1]
     if softmax_scale is None:
@@ -241,14 +263,14 @@ def flash_attention_paged_prefill_varlen(
     if q.device.type == "cpu":
         return flash_attention_paged_prefill_varlen_plain(
             q, k_cache, v_cache, cu_seqlens_q, max_seqlen_q, seqlens_k,
-            block_table, seqused_q, qv, softmax_scale, causal)
+            block_table, seqused_q, qv, softmax_scale, causal, learnable_sink)
     if q.device.type != "cuda":
         raise ValueError(f"flash_paged_prefill: unsupported device {q.device}")
+    sink = sink_arg("flash_paged_prefill", learnable_sink, h, q.device)
     out = torch.zeros((total_q, h, dv), dtype=q.dtype, device=q.device)
-    lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
-                     device=q.device)
+    lse = lse_fill(sink, h, total_q, q.device)
     _launch(q, qv, k_cache, v_cache, cu_seqlens_q[:-1],
             sequence_lengths(cu_seqlens_q.to(q.device), seqused_q),
             seqlens_k, block_table, int(max_seqlen_q), softmax_scale, causal,
-            out, lse)
+            out, lse, sink)
     return out, lse

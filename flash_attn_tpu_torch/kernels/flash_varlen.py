@@ -16,9 +16,12 @@ launches the kernels' band instantiations. ``softcap`` and ALiBi's
 ``alibi_slopes`` ((h,) or (b, h), each sequence taking its row's slopes,
 flash_varlen.py:369-376; the bias of each sequence's own keys) launch the
 kernels' score instantiations, forward and backward, with or without a
-band (dispatch/score.py). Rows that see no key, rows past
+band (dispatch/score.py). ``learnable_sink`` (dispatch/sink.py; JAX
+flash_varlen.py:260) runs in every forward instantiation's epilogue, and
+its gradient is an epilogue of torch ops over the preprocess kernel's
+delta (JAX interface.py:384-394). Rows that see no key, rows past
 a sequence's length and rows past ``cu_seqlens[-1]`` give out 0 and lse
--inf, and zero gradients. The JAX
+-inf (the sink under one, as in JAX), and zero gradients. The JAX
 kernels tile the flat token axis and mask by segment ids; here the wrapper
 builds per-sequence work lists with torch ops (dispatch/varlen_meta.py), so
 nothing is read back to the host: one VarlenMeta holds the forward's
@@ -57,6 +60,12 @@ from flash_attn_tpu_torch.dispatch.score import (
     slope_args,
     slopes_bh,
 )
+from flash_attn_tpu_torch.dispatch.sink import (
+    lse_fill,
+    sink_arg,
+    sink_grad,
+    sink_ptr,
+)
 from flash_attn_tpu_torch.kernels import _build
 from flash_attn_tpu_torch.kernels.flash_bwd import flash_attention_bwd_plain
 from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd_plain
@@ -64,7 +73,8 @@ from flash_attn_tpu_torch.kernels.flash_fwd import flash_attention_fwd_plain
 # Kernel launches since the last reset (plain calls not counted): the
 # forward, and the backward's preprocess, dK/dV and dQ kernels; the *_band
 # and *_score counters count the band and the score instantiations'
-# launches among them.
+# launches among them, launches_fwd_sink the forward's with a learnable
+# sink.
 launches_fwd = 0
 launches_preprocess = 0
 launches_dkdv = 0
@@ -75,6 +85,7 @@ launches_dq_band = 0
 launches_fwd_score = 0
 launches_dkdv_score = 0
 launches_dq_score = 0
+launches_fwd_sink = 0
 
 Window = Tuple[Optional[int], Optional[int]]
 
@@ -110,13 +121,15 @@ def flash_attention_varlen_fwd_plain(
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
         window_size: Window = (None, None), attention_chunk: int = 0,
-        softcap: float = 0.0, alibi_slopes=None):
+        softcap: float = 0.0, alibi_slopes=None, learnable_sink=None):
     """One sequence at a time through the dense plain forward (fp32), the
-    band and the score map (each sequence's slopes) per sequence. Returns
-    out (total_q, h, dv) in q's type and lse (h, total_q) fp32."""
+    band, the score map (each sequence's slopes) and the sink per
+    sequence. Returns out (total_q, h, dv) in q's type and lse (h, total_q)
+    fp32 (the sink on rows in no sequence under one)."""
     total_q, h, _ = q.shape
+    sink = sink_arg("flash_varlen_fwd", learnable_sink, h, q.device)
     out = q.new_zeros((total_q, h, v.shape[-1]))
-    lse = torch.full((h, total_q), float("-inf"), device=q.device)
+    lse = lse_fill(sink, h, total_q, q.device)
     slopes = seq_slopes(alibi_slopes, cu_seqlens_q, h, q.device)
     for i, ((q0, lq), (k0, lk)) in enumerate(zip(
             zip(*_host_lengths(cu_seqlens_q, seqused_q)),
@@ -127,7 +140,8 @@ def flash_attention_varlen_fwd_plain(
             _heads_first(q[q0:q0 + lq]), _heads_first(k[k0:k0 + lk]),
             _heads_first(v[k0:k0 + lk]), softmax_scale, causal, window_size,
             attention_chunk=attention_chunk, softcap=softcap,
-            alibi_slopes=None if slopes is None else slopes[i:i + 1])
+            alibi_slopes=None if slopes is None else slopes[i:i + 1],
+            learnable_sink=sink)
         out[q0:q0 + lq] = o[0].transpose(0, 1)
         lse[:, q0:q0 + lq] = l[0]
     return out, lse
@@ -138,11 +152,13 @@ def flash_attention_varlen_bwd_plain(
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
         window_size: Window = (None, None), attention_chunk: int = 0,
-        softcap: float = 0.0, alibi_slopes=None):
+        softcap: float = 0.0, alibi_slopes=None, learnable_sink=None):
     """One sequence at a time through the dense plain backward (fp32), the
     band and the score map (each sequence's slopes) per sequence. Returns
     (dq, dk, dv) in q's, k's and v's types, zero outside the sequences; a
-    GQA group's gradients sum into its KV head."""
+    GQA group's gradients sum into its KV head; with ``learnable_sink``
+    also its gradient, (h,) fp32, over every packed row."""
+    sink = sink_arg("flash_varlen_bwd", learnable_sink, q.shape[1], q.device)
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
     slopes = seq_slopes(alibi_slopes, cu_seqlens_q, q.shape[1], q.device)
     for i, ((q0, lq), (k0, lk)) in enumerate(zip(
@@ -160,7 +176,10 @@ def flash_attention_varlen_bwd_plain(
         dq[rows] = g[0][0].transpose(0, 1)
         dk[keys] = g[1][0].transpose(0, 1)
         dv[keys] = g[2][0].transpose(0, 1)
-    return dq, dk, dv
+    if sink is None:
+        return dq, dk, dv
+    delta = (do.float() * out.float()).sum(-1).T
+    return dq, dk, dv, sink_grad(sink, lse.float(), delta, 0)
 
 
 def padded_rows(total_q: int, b: int) -> int:
@@ -284,17 +303,18 @@ def _as_int32(x, device):
 
 def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
                causal: bool, persistent: bool = False, band=(-1, -1, 0, 0),
-               softcap: float = 0.0, alibi_slopes=None):
-    """Allocate out (zeros) and lse (-inf) and launch, over the sorted work
-    list ``meta.schedule`` of FWD_TILE rows, fa_varlen_fwd (B6) or, with
-    ``persistent``, fa_varlen_fwd_persistent (B7); ``band`` is
-    :func:`kernel_band`'s; ``softcap`` and ``alibi_slopes`` launch the score
-    instantiation. Returns (out, lse, grid), grid 0 for the former."""
+               softcap: float = 0.0, alibi_slopes=None, sink=None):
+    """Allocate out (zeros) and lse (-inf, or the sink's fill: lse_fill)
+    and launch, over the sorted work list ``meta.schedule`` of FWD_TILE
+    rows, fa_varlen_fwd (B6) or, with ``persistent``,
+    fa_varlen_fwd_persistent (B7); ``band`` is :func:`kernel_band`'s;
+    ``softcap`` and ``alibi_slopes`` launch the score instantiation;
+    ``sink`` is sink_arg's. Returns (out, lse, grid), grid 0 for the
+    former."""
     total_q, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     out = torch.zeros((total_q, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
-                     device=q.device)
+    lse = lse_fill(sink, h, total_q, q.device)
     tiles = meta.schedule
     cu_q, cu_k, lens_q, lens_k = (_as_int32(x, q.device) for x in (
         cu_seqlens_q, cu_seqlens_k, meta.lens_q, meta.lens_k))
@@ -306,7 +326,8 @@ def launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta, softmax_scale,
             FWD_TILE.block_q, FWD_TILE.block_k, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             out.stride(0), out.stride(1), scale, int(causal), *band,
-            float(softcap), *slope_args(slopes), int(q.dtype == torch.bfloat16)]
+            float(softcap), *slope_args(slopes), sink_ptr(sink),
+            int(q.dtype == torch.bfloat16)]
     lib = _build.load_library()
     grid = ctypes.c_int(0)
     name = "fa_varlen_fwd_persistent" if persistent else "fa_varlen_fwd"
@@ -326,31 +347,33 @@ def flash_attention_varlen_fwd(
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
         meta=None, window_size: Window = (None, None),
-        attention_chunk: int = 0, softcap: float = 0.0, alibi_slopes=None):
+        attention_chunk: int = 0, softcap: float = 0.0, alibi_slopes=None,
+        learnable_sink=None):
     """q (total_q, h, d), k/v (total_k, h_k, d) packed by cu_seqlens_q/k
     (b + 1,); seqused_q/k (b,) true lengths or None; ``max_seqlen_q/k``
     bound the sequences' lengths; ``meta`` a precomputed VarlenMeta whose
     schedule has the kernel's 128-row tiles (FWD_TILE; get_scheduler_metadata
     builds one); ``window_size`` (left, right; None for no bound) and
     ``attention_chunk`` per sequence; ``softcap`` (0: none) and
-    ``alibi_slopes`` ((h,) or (b, h), a row a sequence) as the dense
-    forward's. Returns (out (total_q, h, d) in q's type, lse (h, total_q)
-    fp32). CUDA: one block per (128-row q tile, head), the longest KV bands
-    first."""
+    ``alibi_slopes`` ((h,) or (b, h), a row a sequence) and
+    ``learnable_sink`` (h,) as the dense forward's. Returns (out (total_q,
+    h, d) in q's type, lse (h, total_q) fp32). CUDA: one block per (128-row
+    q tile, head), the longest KV bands first."""
     if q.device.type == "cpu":
         return flash_attention_varlen_fwd_plain(
             q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q, max_seqlen_k,
             seqused_q, seqused_k, softmax_scale, causal, window_size,
-            attention_chunk, softcap, alibi_slopes)
+            attention_chunk, softcap, alibi_slopes, learnable_sink)
     check_kernel_inputs("flash_varlen_fwd", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
+    sink = sink_arg("flash_varlen_fwd", learnable_sink, q.shape[1], q.device)
     if meta is not None:
         check_meta("flash_varlen_fwd", meta, cu_seqlens_q, cu_seqlens_k,
                    max_seqlen_q, max_seqlen_k, q.shape[0], k.shape[0],
                    backward=False)
     if q.shape[0] == 0 or k.shape[0] == 0:  # no row sees a key
-        return (torch.zeros_like(q), torch.full(
-            (q.shape[1], q.shape[0]), float("-inf"), device=q.device))
+        return (torch.zeros_like(q),
+                lse_fill(sink, q.shape[1], q.shape[0], q.device))
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                        max_seqlen_k, seqused_q, seqused_k, causal, meta,
                        window_size, attention_chunk)
@@ -358,11 +381,14 @@ def flash_attention_varlen_fwd(
                        max_seqlen_k)
     out, lse, _ = launch_fwd(q, k, v, cu_seqlens_q, cu_seqlens_k, meta,
                              softmax_scale, causal, band=band,
-                             softcap=softcap, alibi_slopes=alibi_slopes)
+                             softcap=softcap, alibi_slopes=alibi_slopes,
+                             sink=sink)
     global launches_fwd, launches_fwd_band, launches_fwd_score
+    global launches_fwd_sink
     launches_fwd += 1
     launches_fwd_band += band[-1]
     launches_fwd_score += has_score(softcap, alibi_slopes)
+    launches_fwd_sink += sink is not None
     return out, lse
 
 
@@ -419,7 +445,8 @@ def flash_attention_varlen_bwd(
         max_seqlen_k: int, seqused_q=None, seqused_k=None,
         softmax_scale: Optional[float] = None, causal: bool = False,
         meta=None, window_size: Window = (None, None),
-        attention_chunk: int = 0, softcap: float = 0.0, alibi_slopes=None):
+        attention_chunk: int = 0, softcap: float = 0.0, alibi_slopes=None,
+        learnable_sink=None):
     """dq, dk, dv of packed varlen attention saved by a varlen forward.
     do/out (total_q, h, d), lse (h, total_q); the rest as
     :func:`flash_attention_varlen_fwd`. Returns (dq, dk, dv) in the inputs'
@@ -430,12 +457,16 @@ def flash_attention_varlen_bwd(
     gradient once: deterministic; with a band, the dK/dV and dQ kernels'
     band instantiations, with softcap or ALiBi their score instantiations.
     The operands are read by TMA: a view whose strides are not multiples of
-    16 bytes, or whose start is not 16-byte aligned, raises ValueError."""
+    16 bytes, or whose start is not 16-byte aligned, raises ValueError.
+    ``learnable_sink`` (h,): the forward's sink, whose gradient, (h,) fp32
+    from the preprocess's delta and lse (:func:`varlen_sink_grad`), follows
+    dv in the result."""
     if q.device.type == "cpu":
         return flash_attention_varlen_bwd_plain(
             do, q, k, v, out, lse, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
             max_seqlen_k, seqused_q, seqused_k, softmax_scale, causal,
-            window_size, attention_chunk, softcap, alibi_slopes)
+            window_size, attention_chunk, softcap, alibi_slopes,
+            learnable_sink)
     check_kernel_inputs("flash_varlen_bwd", q, k, v, cu_seqlens_q,
                         cu_seqlens_k)
     total_q, h, d = q.shape
@@ -446,12 +477,14 @@ def flash_attention_varlen_bwd(
             f"flash_varlen_bwd kernel: shapes q {tuple(q.shape)}, do "
             f"{tuple(do.shape)}, out {tuple(out.shape)}, lse {tuple(lse.shape)}")
     _build.check_operand("flash_varlen_bwd", "do", do, q.dtype, q.device)
+    sink = sink_arg("flash_varlen_bwd", learnable_sink, h, q.device)
     if meta is not None:
         check_meta("flash_varlen_bwd", meta, cu_seqlens_q, cu_seqlens_k,
                    max_seqlen_q, max_seqlen_k, total_q, total_k,
                    backward=True)
-    if total_q == 0 or total_k == 0:  # no row sees a key
-        return tuple(torch.zeros_like(x) for x in (q, k, v))
+    if total_q == 0 or total_k == 0:  # no row sees a key: out and dsink 0
+        grads = tuple(torch.zeros_like(x) for x in (q, k, v))
+        return grads if sink is None else grads + (torch.zeros_like(sink),)
     meta = varlen_meta(q, k, cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
                        max_seqlen_k, seqused_q, seqused_k, causal, meta,
                        window_size, attention_chunk)
@@ -501,4 +534,25 @@ def flash_attention_varlen_bwd(
         launches_dq += 1
         launches_dq_band += band[-1]
         launches_dq_score += score
-    return dq, dk, dv
+    if sink is None:
+        return dq, dk, dv
+    return dq, dk, dv, varlen_sink_grad(sink, lse, delta, cu_seqlens_q,
+                                        meta.lens_q)
+
+
+def varlen_sink_grad(sink, lse, delta, cu_seqlens_q, lens_q):
+    """dsink (h,) fp32 from the backward preprocess's padded delta (h,
+    padded_rows) and lse (h, total_q): each packed row of a sequence reads
+    its padded row (padded_row), a row in no sequence (whose out is 0)
+    weighs 0."""
+    h, total_q = lse.shape
+    cu = cu_seqlens_q.to(lse.device, torch.long)
+    b = cu.numel() - 1
+    tok = torch.arange(total_q, device=lse.device)
+    seq = (torch.searchsorted(cu, tok, right=True) - 1).clamp(0, b - 1)
+    pos = tok - cu[seq]
+    live = (tok >= cu[0]) & (tok < cu[b]) & (pos < lens_q.to(
+        lse.device, torch.long)[seq])
+    row = torch.where(live, (cu[seq] + 3) // 4 * 4 + SEQ_GAP * seq + pos, 0)
+    rows = torch.where(live[None], delta[:, row], 0.0)
+    return sink_grad(sink, lse.float(), rows, 0)

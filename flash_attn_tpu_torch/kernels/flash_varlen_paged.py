@@ -4,16 +4,18 @@
 Port of flash_attn_tpu/kernels/flash_varlen_paged.py
 ``flash_attention_varlen_paged_fwd`` (bf16/fp16, head dims in HEAD_DIMS,
 with its sliding window, :249-254, its softcap, :225-233, and its
-descales, :230-241, :276-277, over pages of q's type or of 1-byte codes;
-no learnable sink or ``qv``: the JAX kernel has no chunk, sink tokens or
-ALiBi either). The descales ((b, h_k) fp32) are runtime fields of the
+descales, :230-241, :276-277, over pages of q's type or of 1-byte codes,
+and its learnable sink, :194-207, dispatch/sink.py; no ``qv``: the JAX
+kernel has no chunk, sink tokens or ALiBi either). The descales ((b, h_k) fp32) are runtime fields of the
 kernel: q_descale · k_descale scales each block's scores (before the cap,
 as JAX's :225-233) and v_descale its 1 / l. Pages of 1-byte codes
 (float8_e4m3fn, int8) are first converted, the pages each row reaches
 alone, into a pool of q's type by ``kernels/kv_dequant.py`` (B11's
 conversion), over which B8 runs as it is. A call with a window launches the kernel's band
 instantiation, whose blocks read only the pages of their rows' window; one
-with a cap its score instantiation (with or without the window). Query chunks are
+with a cap its score instantiation (with or without the window); the sink
+runs in every instantiation's epilogue, with v_descale still scaling its
+1 / l. Query chunks are
 packed along one token axis by ``cu_seqlens_q``; ``seqused_q`` gives each
 sequence's true length when the layout pads every slot to one length (the
 padded-flat layout of the engine's prefix-cached prefill). The JAX function
@@ -49,6 +51,12 @@ from flash_attn_tpu_torch.dispatch.kvquant import (
     is_quantized,
 )
 from flash_attn_tpu_torch.dispatch.score import score_map
+from flash_attn_tpu_torch.dispatch.sink import (
+    lse_fill,
+    sink_arg,
+    sink_ptr,
+    with_sink,
+)
 from flash_attn_tpu_torch.dispatch.varlen_meta import (
     num_tiles_bound,
     sequence_lengths,
@@ -60,11 +68,12 @@ from flash_attn_tpu_torch.utils.testing import paged_to_linear
 
 # Kernel launches since the last reset (plain calls not counted): all of
 # them, those of the band and of the score instantiations among them, and
-# those with descales.
+# those with descales and those with a learnable sink.
 launches = 0
 launches_band = 0
 launches_score = 0
 launches_descale = 0
+launches_sink = 0
 
 
 def tile_ends(lens_q, block_q: int):
@@ -85,14 +94,16 @@ def flash_attention_varlen_paged_fwd_plain(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
         causal: bool = False, window_size=(None, None), softcap: float = 0.0,
-        qk_descale=None, v_descale=None):
+        qk_descale=None, v_descale=None, learnable_sink=None):
     """Gather the pages into the linear layout (1-byte codes read exactly),
     pad the packed queries per sequence, and compute capped (``softcap``),
     masked attention in fp32, the scores scaled by ``qk_descale`` before the
-    cap and the output by ``v_descale`` ((b, h_k) fp32). Returns out
-    (total_q, h, dv) in q's type and lse (h, total_q) fp32, with zeros and
-    -inf for the rows that see no key."""
+    cap and the output by ``v_descale`` ((b, h_k) fp32), the (h,)
+    ``learnable_sink`` in each row's softmax. Returns out (total_q, h, dv)
+    in q's type and lse (h, total_q) fp32, with zeros and -inf (the sink
+    under one) for the rows that see no key."""
     total_q, h, d = q.shape
+    sink = sink_arg("flash_varlen_paged", learnable_sink, h, q.device)
     h_k = k_pages.shape[1]
     group = h // h_k
     dev = q.device
@@ -121,7 +132,8 @@ def flash_attention_varlen_paged_fwd_plain(
         valid = valid & band_valid(pos_q[None, :, None], pos_k[None, None, :],
                                    shift, causal, window_size)
     s = s.masked_fill(~valid[:, None, None], float("-inf"))
-    lse = torch.logsumexp(s, dim=-1)                        # (b, h_k, g, M)
+    lse = with_sink(torch.logsumexp(s, dim=-1),             # (b, h_k, g, M)
+                    None if sink is None else sink.view(h_k, group))
     p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0.0)[..., None])
     out = torch.einsum("bkgms,bksd->bmkgd", p, v_lin)
     if v_descale is not None:
@@ -136,7 +148,8 @@ def flash_attention_varlen_paged_fwd_plain(
                                torch.full_like(loc, max_seqlen_q))
     loc = loc.clamp(0, max_seqlen_q - 1)
     out_p = torch.where(live[:, None, None], out[seq, loc], 0.0).to(q.dtype)
-    lse_p = torch.where(live[None], lse[seq, :, loc].T, float("-inf"))
+    lse_p = torch.where(live[None], lse[seq, :, loc].T,
+                        lse_fill(sink, h, total_q, dev))
     return out_p, lse_p
 
 
@@ -144,20 +157,21 @@ def flash_attention_varlen_paged_fwd(
         q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q: int, seqlens_k,
         block_table, seqused_q=None, softmax_scale: Optional[float] = None,
         causal: bool = False, window_size=(None, None), softcap: float = 0.0,
-        qk_descale=None, v_descale=None):
+        qk_descale=None, v_descale=None, learnable_sink=None):
     """q (total_q, h, d) packed by cu_seqlens_q (b + 1,); pages (num_pages,
     h_k, page_size, d) of q's type or of 1-byte codes; seqlens_k (b,) key
     counts including the chunk; block_table (b, max_pages); seqused_q (b,)
     true query lengths or None. ``max_seqlen_q`` bounds cu_seqlens_q's
     deltas; ``window_size`` (left, right) with None for no bound;
     ``softcap`` (0: none); ``qk_descale`` (q_descale · k_descale) and
-    ``v_descale`` (b, h_k) fp32 or None. Returns (out (total_q, h, d) in
-    q's type, lse (h, total_q) fp32)."""
+    ``v_descale`` (b, h_k) fp32 or None; ``learnable_sink`` (h,) on q's
+    device (dispatch/sink.py). Returns (out (total_q, h, d) in q's type,
+    lse (h, total_q) fp32)."""
     if q.device.type == "cpu":
         return flash_attention_varlen_paged_fwd_plain(
             q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q, seqlens_k,
             block_table, seqused_q, softmax_scale, causal, window_size,
-            softcap, qk_descale, v_descale)
+            softcap, qk_descale, v_descale, learnable_sink)
     if q.device.type != "cuda":
         raise ValueError(f"flash_varlen_paged: unsupported device {q.device}")
     total_q, h, d = q.shape
@@ -174,6 +188,7 @@ def flash_attention_varlen_paged_fwd(
                               or x.shape != (b, h_k) or not x.is_contiguous()):
             raise ValueError(f"flash_varlen_paged kernel: {name} must be a "
                              "contiguous (b, h_k) fp32 tensor on q's device")
+    sink = sink_arg("flash_varlen_paged", learnable_sink, h, q.device)
     if h % h_k or block_table.shape[0] != b or b < 1 \
             or v_pages.shape != k_pages.shape:
         raise ValueError(f"flash_varlen_paged kernel: shapes q {tuple(q.shape)}"
@@ -196,13 +211,13 @@ def flash_attention_varlen_paged_fwd(
                                                 lens_k, q.dtype)
         num_pages = k_pages.shape[0]
     tile = FWD_TILE
-    # rows past seqused_q are in no tile: they keep out's zeros and lse's -inf
+    # rows past seqused_q are in no tile: they keep out's zeros and lse's
+    # fill (-inf, or the sink)
     ends = tile_ends(lens_q, tile.block_q)
     num_tiles = num_tiles_bound(b, max_seqlen_q, total_q, tile.block_q)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
     out = torch.zeros_like(q)
-    lse = torch.full((h, total_q), float("-inf"), dtype=torch.float32,
-                     device=q.device)
+    lse = lse_fill(sink, h, total_q, q.device)
     # keys a sequence can hold: its pages
     window = reach_window(window_size, causal, max_seqlen_q,
                           table.shape[1] * page_size)
@@ -223,11 +238,13 @@ def flash_attention_varlen_paged_fwd(
             int(band), float(softcap),
             qk_descale.data_ptr() if qk_descale is not None else None,
             v_descale.data_ptr() if v_descale is not None else None,
-            int(q.dtype == torch.bfloat16),
+            sink_ptr(sink), int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_varlen_paged")
     global launches, launches_band, launches_score, launches_descale
+    global launches_sink
     launches += 1
+    launches_sink += sink is not None
     launches_band += band
     launches_score += softcap > 0.0
     launches_descale += qk_descale is not None or v_descale is not None

@@ -409,3 +409,48 @@ def case_scale(name: str):
     """The softmax scale of a named HD80_* case: BTLM_SCALE for the cases
     named after BTLM-3B-8K, else None (1/sqrt(d))."""
     return BTLM_SCALE if name.startswith("BTLM") else None
+
+
+# The learnable sink (gpt-oss-20b: a natural-log logit a query head, 64 heads
+# on 8 KV heads of 64, alternating a sliding window of 128 keys and full
+# causal attention). B1, and B6's forward and B7 over the same rows packed:
+# gpt-oss's two layer forms, then the edges (rows that see no key, a window
+# that leaves rows empty, the cap, ALiBi, head dims 80, 128 and 256, fp16).
+# (name, b, sq, sk, h, h_k, d, causal, window, softcap, slopes, dtype);
+# slopes as SCORE_FWD_CASES.
+GPT_OSS_WINDOW = (127, 0)
+SINK_FWD_CASES = [
+    ("gpt-oss sliding layer", 2, 1000, 1000, 64, 8, 64, True, GPT_OSS_WINDOW,
+     0.0, None, torch.bfloat16),
+    ("gpt-oss full layer", 2, 1000, 1000, 64, 8, 64, True, (-1, -1), 0.0,
+     None, torch.bfloat16),
+    ("causal, sq > sk (rows with no key), d=128", 2, 300, 129, 8, 2, 128,
+     True, (-1, -1), 0.0, None, torch.bfloat16),
+    ("window (10, 10) leaves rows empty, fp16", 1, 400, 200, 8, 4, 64, False,
+     (10, 10), 0.0, None, torch.float16),
+    ("cap 30, not causal, d=256", 1, 200, 260, 4, 4, 256, False, (-1, -1),
+     30.0, None, torch.bfloat16),
+    ("alibi, d=80", 2, 257, 257, 8, 8, 80, True, (-1, -1), 0.0, "1d",
+     torch.bfloat16),
+]
+# B8 with a sink: its VARLEN_CASES' shapes (rows past seqused_q and a
+# sequence with no key among them) under gpt-oss's window and the cap
+SINK_VARLEN_CASES = [  # (case of VARLEN_CASES' form, softcap, window)
+    (VARLEN_CASES[0], 0.0, GPT_OSS_WINDOW),
+    (VARLEN_CASES[2], 0.0, (-1, -1)),
+    (VARLEN_CASES[3], 30.0, (-1, -1)),
+    (("gpt-oss prefix admission", [256] * 8, [512] * 8, None, 64, 8, 64, 256,
+      torch.bfloat16, True), 0.0, GPT_OSS_WINDOW),
+]
+
+
+def sink_logits(h: int, keys: int, device=None, gen=None):
+    """(h,) fp32 sink logits that bite at ``keys`` keys of N(0, 1) scores
+    (a row's log-sum about log keys + 1/2): every fourth head's 4 above it,
+    the next near -30, the next at 0, the rest drawn from N(lse - 1, 1)."""
+    lse = float(torch.tensor(max(keys, 1)).log()) + 0.5
+    s = torch.randn(h, generator=gen, device=device) + (lse - 1.0)
+    idx = torch.arange(h, device=device) % 4
+    s = torch.where(idx == 0, lse + 4.0, s)
+    s = torch.where(idx == 1, -30.0, s)
+    return torch.where(idx == 2, 0.0, s).float()

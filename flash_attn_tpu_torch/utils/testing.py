@@ -149,6 +149,7 @@ def attention_ref(
     attention_chunk: int = 0,
     softcap: float = 0.0,
     alibi_slopes=None,  # (h,) or (b, h)
+    learnable_sink=None,  # (h,)
 ):
     """Full-matrix attention, fp32 by default (``upcast``), else in the
     inputs' type. Scores are q k^T (+ qv v^T) times the scale, 1/sqrt(d)
@@ -159,8 +160,10 @@ def attention_ref(
     ``sink_token_length`` sink keys) and chunk masks (over the unpadded
     query and key counts), GQA by grouping the query heads of each KV head
     (K and V are not repeated), zero output for rows that see no key and
-    for padded query rows. Returns (output (b, sq, h, dv), attention (b, h,
-    sq, sk))."""
+    for padded query rows. ``learnable_sink`` adds one more logit a query
+    head to each row's softmax, in fp32 whatever the inputs' type (JAX
+    utils/testing.py:273-281). Returns (output (b, sq, h, dv), attention
+    (b, h, sq, sk))."""
     dtype_og = q.dtype
     if upcast:
         q, k, v = q.float(), k.float(), v.float()
@@ -198,11 +201,20 @@ def attention_ref(
         scores = scores + attn_bias_from_alibi_slopes(
             alibi_slopes.to(q.device), seqlen_q, seqlen_k, query_padding_mask,
             key_padding_mask, causal)  # promotes, as jnp's does
-    m = scores.amax(dim=-1, keepdim=True)
-    e = torch.exp(scores - torch.where(torch.isneginf(m), 0.0, m))
-    e = torch.where(torch.isneginf(scores), 0.0, e)
-    denom = e.sum(dim=-1, keepdim=True)
-    attention = (e / torch.where(denom == 0, 1.0, denom)).to(v.dtype)
+    if learnable_sink is None:
+        m = scores.amax(dim=-1, keepdim=True)
+        e = torch.exp(scores - torch.where(torch.isneginf(m), 0.0, m))
+        e = torch.where(torch.isneginf(scores), 0.0, e)
+        denom = e.sum(dim=-1, keepdim=True)
+        attention = (e / torch.where(denom == 0, 1.0, denom)).to(v.dtype)
+    else:
+        scores32 = scores.float()
+        sink = learnable_sink.to(q.device).float().reshape(1, -1, 1, 1)
+        m = torch.maximum(sink, scores32.amax(dim=-1, keepdim=True))
+        e = torch.exp(scores32 - m)
+        e = torch.where(torch.isneginf(scores32), 0.0, e)
+        attention = (e / (e.sum(dim=-1, keepdim=True)
+                          + torch.exp(sink - m))).to(v.dtype)
     if query_padding_mask is not None:
         attention = attention.masked_fill(
             ~query_padding_mask[:, None, :, None], 0.0)
@@ -218,7 +230,7 @@ def attention_ref(
 def attention_ref_grads(q, k, v, dout, causal: bool = False,
                         softmax_scale: Optional[float] = None,
                         upcast: bool = True, softcap: float = 0.0,
-                        alibi_slopes=None, **band):
+                        alibi_slopes=None, learnable_sink=None, **band):
     """(dq, dk, dv) of sum(attention_ref(q, k, v) * dout) by autograd: the
     fp32 reference of a backward (``upcast``), or the low-precision one
     computed in the inputs' type, for :func:`check_against_ref`. ``band``:
@@ -226,13 +238,17 @@ def attention_ref_grads(q, k, v, dout, causal: bool = False,
     ``softcap`` and ``alibi_slopes`` map the scores as attention_ref does
     (the cap before the masks, the bias after them: the masked scores stay
     -inf either way), so that autograd carries the cap's tanh derivative
-    into dS as JAX's backward does (flash_bwd.py:143-152)."""
+    into dS as JAX's backward does (flash_bwd.py:143-152). With
+    ``learnable_sink`` the result ends with its gradient, (h,) fp32."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        out, _ = attention_ref(*leaves, causal=causal,
+        if learnable_sink is not None:
+            leaves.append(learnable_sink.detach().float().requires_grad_())
+        out, _ = attention_ref(*leaves[:3], causal=causal,
                                softmax_scale=softmax_scale, upcast=upcast,
                                softcap=softcap, alibi_slopes=alibi_slopes,
-                               **band)
+                               learnable_sink=(leaves[3] if len(leaves) > 3
+                                               else None), **band)
         return torch.autograd.grad(out, leaves, dout.to(out.dtype))
 
 

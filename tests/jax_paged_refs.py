@@ -35,7 +35,7 @@ def jax_varlen_paged(q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q,
                      seqlens_k, block_table, seqused_q=None, qv=None,
                      causal=False, window_size=(-1, -1), softcap=0.0,
                      softmax_scale=None, q_descale=None, k_descale=None,
-                     v_descale=None):
+                     v_descale=None, learnable_sink=None):
     """(out (total_q, h, dv), lse (h, total_q)) of JAX's B8 route over jax
     arrays, as ``flash_attn_varlen_func(block_table=...,
     return_attn_probs=True)`` returns them."""
@@ -51,7 +51,8 @@ def jax_varlen_paged(q, k_pages, v_pages, cu_seqlens_q, max_seqlen_q,
         q, k_pages, v_pages, cu_seqlens_q, int(max_seqlen_q),
         jnp.asarray(seqlens_k, jnp.int32), block_table, seqused_q=seqused_q,
         q_descale=q_descale, k_descale=k_descale, v_descale=v_descale,
-        softmax_scale=softmax_scale, causal=causal,
+        learnable_sink=learnable_sink, softmax_scale=softmax_scale,
+        causal=causal,
         window_size=normalize_window(tuple(window_size)), softcap=softcap,
         kv_concat_dim=kv_concat_dim, block_k=k_pages.shape[2],
         interpret=True)

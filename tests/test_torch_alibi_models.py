@@ -166,19 +166,21 @@ def test_model_logits_and_decode_match_jax(name):
             mixer.alibi_slopes.numpy(),
             np.asarray(_jax_slopes(cfg.n_head)), rtol=1e-6)
     ids = np.random.default_rng(2).integers(0, VOCAB, (2, PROMPT))
-    want = np.asarray(jmodel.apply({"params": params},
-                                   jnp.asarray(ids, jnp.int32)))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(ids).long())
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
-
     seqs, length, scores = decode(torch.from_numpy(ids), tmodel,
                                   GenerationConfig(max_length=MAX_LEN),
                                   output_scores=True)
     assert length == MAX_LEN
-    tf = np.asarray(jmodel.apply({"params": params},
-                                 jnp.asarray(seqs[:, :-1].numpy(),
-                                             jnp.int32)))[:, PROMPT - 1:]
+    # one JAX forward over the decoded sequences: its first PROMPT rows are
+    # the prompt's logits (causal; ALiBi's last-key form changes no output),
+    # the rest the teacher-forced steps'
+    full = np.asarray(jmodel.apply({"params": params},
+                                   jnp.asarray(seqs[:, :-1].numpy(),
+                                               jnp.int32)))
+    np.testing.assert_allclose(got.numpy(), full[:, :PROMPT], atol=1e-4,
+                               rtol=0)
+    tf = full[:, PROMPT - 1:]
     np.testing.assert_allclose(scores.transpose(0, 1).numpy(), tf, atol=1e-4,
                                rtol=0)
     np.testing.assert_array_equal(seqs[:, PROMPT:].numpy(), tf.argmax(-1))

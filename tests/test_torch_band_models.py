@@ -82,22 +82,24 @@ def test_windowed_model_and_static_decode_match_jax(params):
     jmodel = JaxGPTLMHeadModel(JaxGPTConfig(dtype=jnp.float32, **FIELDS))
     tmodel = _port(params)
     ids = np.random.default_rng(2).integers(0, 96, (2, PROMPT))
-    want = np.asarray(jmodel.apply({"params": params},
-                                   jnp.asarray(ids, jnp.int32)))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(ids).long())
         unwindowed = _port(params, window_size=(-1, -1))(
             torch.from_numpy(ids).long())
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
-    assert np.abs(unwindowed.numpy() - want)[:, WINDOW[0] + 1:].max() > 1e-2
-
     seqs, length, scores = decode(torch.from_numpy(ids), tmodel,
                                   GenerationConfig(max_length=MAX_LEN),
                                   output_scores=True)
     assert length == MAX_LEN
-    tf = np.asarray(jmodel.apply({"params": params},
-                                 jnp.asarray(seqs[:, :-1].numpy(),
-                                             jnp.int32)))[:, PROMPT - 1:]
+    # one JAX forward over the decoded sequences: its first PROMPT rows are
+    # the prompt's logits (causal, windowed), the rest the teacher-forced
+    # steps'
+    full = np.asarray(jmodel.apply({"params": params},
+                                   jnp.asarray(seqs[:, :-1].numpy(),
+                                               jnp.int32)))
+    want = full[:, :PROMPT]
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    assert np.abs(unwindowed.numpy() - want)[:, WINDOW[0] + 1:].max() > 1e-2
+    tf = full[:, PROMPT - 1:]
     np.testing.assert_allclose(scores.transpose(0, 1).numpy(), tf, atol=1e-4,
                                rtol=0)
     np.testing.assert_array_equal(seqs[:, PROMPT:].numpy(), tf.argmax(-1))

@@ -136,8 +136,8 @@ def test_pretraining_logits_and_mlm_grads_match_jax(pretraining):
                                   nsp_labels[:, None], -1).sum()
         return lm + ns, (mlm, nsp)
 
-    (_, (mlm_j, nsp_j)), grads_j = jax.value_and_grad(loss_j, has_aux=True)(
-        params)
+    (_, (mlm_j, nsp_j)), grads_j = jax.jit(jax.value_and_grad(
+        loss_j, has_aux=True))(params)
     tmodel.zero_grad()
     mlm_t, nsp_t = tmodel(*map(_t, (ids, mask, types, pos)))
     np.testing.assert_allclose(mlm_t.detach().numpy(), np.asarray(mlm_j), **TOL)

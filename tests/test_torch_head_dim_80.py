@@ -309,14 +309,17 @@ def test_tiny_btlm_at_80_matches_jax(btlm, btlm_decoded):
     tmodel = port["linear"]
     mixer = tmodel.transformer.layers[0].mixer
     assert mixer.head_dim == D and mixer.softmax_scale == SCALE
-    want = np.asarray(jmodel.apply({"params": params},
-                                   jnp.asarray(ids, jnp.int32)))
+    # one JAX forward over the decoded sequences: its first PROMPT rows are
+    # the prompt's logits (causal; ALiBi's last-key form changes no output),
+    # the rest the teacher-forced steps'
+    full = np.asarray(jmodel.apply({"params": params},
+                                   jnp.asarray(seqs[:, :-1].numpy(),
+                                               jnp.int32)))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(ids).long())
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
-    tf = np.asarray(jmodel.apply({"params": params},
-                                 jnp.asarray(seqs[:, :-1].numpy(),
-                                             jnp.int32)))[:, PROMPT - 1:]
+    np.testing.assert_allclose(got.numpy(), full[:, :PROMPT], atol=1e-4,
+                               rtol=0)
+    tf = full[:, PROMPT - 1:]
     np.testing.assert_allclose(scores.transpose(0, 1).numpy(), tf, atol=1e-4,
                                rtol=0)
     np.testing.assert_array_equal(seqs[:, PROMPT:].numpy(), tf.argmax(-1))

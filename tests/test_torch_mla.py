@@ -241,7 +241,8 @@ def test_latent_cache_576_512_matches_jax():
 
 def test_mla_refusals_name_queue_a_7():
     """qv without a paged cache (B1/B6/B7 at hdim_qk != hdim_v) and B8p's
-    window, softcap, descales and sinks are still queue A item 7."""
+    window, softcap and descales are still queue A item 7 (B8p takes the
+    learnable sink: tests/test_torch_learnable_sink.py)."""
     q = torch.zeros(4, 2, 64)
     cu = torch.tensor([0, 4], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="queue A, item 7"):
@@ -253,7 +254,7 @@ def test_mla_refusals_name_queue_a_7():
             torch.tensor([[1]], dtype=torch.int32))
     for kw in (dict(window_size=(8, 0)), dict(softcap=5.0),
                dict(k_descale=torch.ones(1, 1)),
-               dict(learnable_sink=torch.zeros(2))):
+               dict(v_descale=torch.ones(1, 1))):
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
             flash_attention_paged_prefill(*args, **kw)
 

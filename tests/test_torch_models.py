@@ -314,11 +314,17 @@ def test_engine_with_learned_positions_matches_teacher_forcing(learned,
     out = eng.run()
     if prefix:
         assert eng.stats()["prefix_hit_pages"] > 0
-    for rid, (prompt, m) in zip(req, jobs):
+    seqs = [prompt + out[rid] for rid, (prompt, _) in zip(req, jobs)]
+    # one JAX forward over every sequence, right-padded with token 0: a
+    # row's logits over its own tokens are its own (causal)
+    padded = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
+    for i, seq in enumerate(seqs):
+        padded[i, :len(seq)] = seq
+    tf_all = _teacher_forced(jmodel, params, padded)
+    for i, (rid, (prompt, m)) in enumerate(zip(req, jobs)):
         toks = out[rid]
         assert len(toks) == m
-        seq = np.asarray([prompt + toks])
-        tf = _teacher_forced(jmodel, params, seq)[0, len(prompt) - 1:]
+        tf = tf_all[i, len(prompt) - 1:len(seqs[i]) - 1]
         np.testing.assert_array_equal(toks, tf.argmax(-1))
 
 

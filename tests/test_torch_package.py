@@ -41,11 +41,14 @@ from flash_attn_tpu_torch.utils.cases import (
     SCORE_DECODE_CASES,
     SCORE_FWD_CASES,
     SCORE_VARLEN_CASES,
+    SINK_FWD_CASES,
+    SINK_VARLEN_CASES,
     VARLEN_CASES,
     kv_codes,
     kv_descales,
     case_scale,
     score_slopes,
+    sink_logits,
 )
 
 torch.set_num_threads(1)
@@ -85,13 +88,14 @@ def test_no_library_attention_in_the_package():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(dropout_p=0.1), dict(learnable_sink=torch.zeros(2)),
+    dict(dropout_p=0.1), dict(aux_tensors=(torch.ones(1),)),
     dict(q_descale=torch.ones(1)), dict(mask_mod=lambda *a: True),
     dict(qv=torch.ones(1)), dict(score_mod=lambda s, *a: s)])
 def test_flash_attn_func_rejects_unported_options(kwargs):
     """Each raises before the forward runs (the band trains:
     tests/test_torch_band_backward.py; softcap and ALiBi too:
-    tests/test_torch_score_backward.py)."""
+    tests/test_torch_score_backward.py; the learnable sink too:
+    tests/test_torch_learnable_sink.py)."""
     q = torch.randn(1, 8, 2, 64, requires_grad=True)
     with pytest.raises(NotImplementedError):
         flash_attn_func(q, q, q, **kwargs)
@@ -3646,3 +3650,263 @@ def test_quantized_cache_model_graphed_equals_eager_on_the_card(dt):
     assert all(len(t) == 8 for t in out.values())
     assert fvp.launches_descale > before[0]
     assert kv_dequant.launches - before[1] == fvp.launches_descale - before[0]
+
+
+# ---- the learnable sink on the card ---------------------------------------
+
+
+def _sink_fwd_inputs(case, seed):
+    """q, k, v as (b, h, s, d) views of (b, s, h, d) tensors on the card,
+    the case's slopes and sinks, and its keyword arguments."""
+    name, b, sq, sk, h, h_k, d, causal, window, cap, slopes, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, s, n, d, device="cuda", generator=gen).to(
+        dtype).transpose(1, 2) for s, n in ((sq, h), (sk, h_k), (sk, h_k)))
+    sink = sink_logits(h, sk, "cuda", gen)
+    kw = dict(causal=causal, softcap=cap,
+              window_size=tuple(None if x < 0 else x for x in window),
+              alibi_slopes=score_slopes(slopes, b, h, "cuda"))
+    return q, k, v, sink, kw
+
+
+def _rows_without_keys(sq, sk, causal, window):
+    """(sq,) bool on the card: the rows that see no key."""
+    from flash_attn_tpu_torch.dispatch.band import band_valid
+
+    rows = torch.arange(sq, device="cuda")[:, None]
+    cols = torch.arange(sk, device="cuda")[None, :]
+    return ~band_valid(rows, cols, sk - sq, causal, window).any(1)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", SINK_FWD_CASES, ids=lambda c: c[0])
+def test_sink_forward_kernels_match_plain_version_on_the_card(case):
+    """B1 with a learnable sink against the plain fp32 forward (out within
+    2e-2, lse within 1e-3), the same bits twice, lse = sink exactly and out
+    0 on the rows that see no key; B6's forward and B7 over the same rows
+    packed give B1's bits; every launch counted among the sink's."""
+    from flash_attn_tpu_torch.kernels import flash_fwd, flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_persistent as fvp
+
+    q, k, v, sink, kw = _sink_fwd_inputs(case, 24)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    before = (flash_fwd.launches_sink, flash_varlen.launches_fwd_sink,
+              fvp.launches_sink)
+    out, lse = flash_fwd.flash_attention_fwd(q, k, v, learnable_sink=sink,
+                                             **kw)
+    again = flash_fwd.flash_attention_fwd(q, k, v, learnable_sink=sink, **kw)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = flash_fwd.flash_attention_fwd_plain(
+        q.float(), k.float(), v.float(), learnable_sink=sink, **kw)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    empty = _rows_without_keys(sq, sk, kw["causal"], kw["window_size"])
+    assert torch.equal(lse[:, :, empty],
+                       sink[None, :, None].expand(b, h, int(empty.sum())))
+    assert not out[:, :, empty].any()
+    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    packed = [x.transpose(1, 2).reshape(b * x.shape[2], x.shape[1], d)
+              for x in (q, k, v)]
+    band = dict(window_size=kw["window_size"], softcap=kw["softcap"],
+                alibi_slopes=kw["alibi_slopes"])
+    for fwd in (flash_varlen.flash_attention_varlen_fwd,
+                fvp.flash_attention_varlen_fwd_persistent):
+        o, l = fwd(*packed, cu_q, cu_k, sq, sk, causal=kw["causal"],
+                   learnable_sink=sink, **band)
+        assert torch.equal(o, out.transpose(1, 2).reshape(b * sq, h, d))
+        assert torch.equal(l, lse.transpose(0, 1).reshape(h, b * sq))
+    assert (flash_fwd.launches_sink, flash_varlen.launches_fwd_sink,
+            fvp.launches_sink) == (before[0] + 2, before[1] + 1,
+                                   before[2] + 1)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", SINK_VARLEN_CASES,
+                         ids=lambda c: c[0][0])
+def test_sink_varlen_paged_matches_plain_version_on_the_card(case):
+    """B8 with a learnable sink (under the case's window and cap) against
+    its plain version (out within 2e-2, lse within 1e-3), the same bits
+    twice, the sink on every row no tile writes; over the same rows packed
+    B6's forward gives its bits where B6 takes the form (no cap); and with
+    descales over an fp8 pool against its plain version."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.dispatch.kvquant import quantize_kv
+    from flash_attn_tpu_torch.kernels import flash_varlen
+    from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
+    from flash_attn_tpu_torch.utils.testing import paged_to_linear
+
+    shape, cap, window = case
+    window = tuple(None if x < 0 else x for x in window)
+    q, kp, vp, cu, max_q, seqlens_k, table, seqused = _varlen_paged_inputs(
+        shape, 24 + len(shape[1]))
+    causal, lens_k, h = shape[-1], shape[2], shape[4]
+    sink = sink_logits(h, max(lens_k), "cuda")
+    kw = dict(seqused_q=seqused, causal=causal, window_size=window,
+              softcap=cap, learnable_sink=sink)
+    args = (cu, max_q, seqlens_k, table)
+    before = fvp.launches_sink
+    out, lse = fvp.flash_attention_varlen_paged_fwd(q, kp, vp, *args, **kw)
+    again = fvp.flash_attention_varlen_paged_fwd(q, kp, vp, *args, **kw)
+    assert fvp.launches_sink == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+        q.float(), *(torch.nan_to_num(x.float()) for x in (kp, vp)), *args,
+        **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    used = seqused.tolist() if seqused is not None else \
+        [b - a for a, b in zip(cu.tolist()[:-1], cu.tolist()[1:])]
+    dead = torch.ones(q.shape[0], dtype=torch.bool, device="cuda")
+    for a, n in zip(cu.tolist(), used):
+        dead[a:a + n] = False
+    assert torch.equal(lse[:, dead], sink[:, None].expand(h, int(dead.sum())))
+    if cap == 0.0:
+        k, v = (torch.cat([lin[s, :, :n].transpose(0, 1)
+                           for s, n in enumerate(lens_k)])
+                for lin in (paged_to_linear(x, table, seqlens_k)
+                            for x in (kp, vp)))
+        cu_k = torch.tensor(np.concatenate([[0], np.cumsum(lens_k)]),
+                            dtype=torch.int32, device="cuda")
+        b6, b6_lse = flash_varlen.flash_attention_varlen_fwd(
+            q, k.contiguous(), v.contiguous(), cu, cu_k, max_q,
+            max(max(lens_k), 1), seqused_q=seqused, causal=causal,
+            window_size=window, learnable_sink=sink)
+        assert torch.equal(out, b6) and torch.equal(lse, b6_lse)
+    h_k = kp.shape[1]
+    b = len(lens_k)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qk_d, v_d = (0.5 + torch.rand(b, h_k, device="cuda", generator=gen)
+                 for _ in range(2))
+    kq, vq = (quantize_kv(torch.nan_to_num(x), torch.float8_e4m3fn)
+              for x in (kp, vp))
+    kw.update(qk_descale=qk_d, v_descale=v_d)
+    out, lse = fvp.flash_attention_varlen_paged_fwd(q, kq, vq, *args, **kw)
+    ref, ref_lse = fvp.flash_attention_varlen_paged_fwd_plain(
+        q.float(), kq, vq, *args, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", PAGED_PREFILL_EDGE_CASES[:4])
+def test_sink_paged_prefill_matches_plain_version_on_the_card(case):
+    """B8p with a learnable sink, each packed row its own head's, against
+    its plain version (out within 2e-2, lse within 1e-3), the same bits
+    twice, the sink on rows past seqused_q."""
+    import numpy as np
+
+    from flash_attn_tpu_torch.kernels import flash_paged_prefill as fpp
+
+    h, h_k, d, dv, page, lens_q, used, cached, causal, dtype = case
+    gen = torch.Generator(device="cuda").manual_seed(h + d + page)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
+                      dtype=torch.int32, device="cuda")
+    q, qv = (torch.randn(int(cu[-1]), h, w, device="cuda", generator=gen)
+             .to(dtype) for w in (d, dv))
+    lens_k = [c + n for c, n in zip(cached, used)]
+    (kp, vp), table = _holed_pages(gen, lens_k, h_k, (d, dv), page, dtype)
+    seqlens = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
+    seqused = torch.tensor(used, dtype=torch.int32, device="cuda")
+    sink = sink_logits(h, max(lens_k), "cuda", gen)
+    args = (q, kp, vp, cu, max(lens_q), seqlens, table)
+    kw = dict(seqused_q=seqused, qv=qv, causal=causal, learnable_sink=sink)
+    before = fpp.launches_sink
+    out, lse = fpp.flash_attention_paged_prefill_varlen(*args, **kw)
+    again = fpp.flash_attention_paged_prefill_varlen(*args, **kw)
+    assert fpp.launches_sink == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = fpp.flash_attention_paged_prefill_varlen_plain(
+        q.float(), *(torch.nan_to_num(x.float()) for x in (kp, vp)),
+        *args[3:], seqused_q=seqused,
+        qv=qv.float(), causal=causal, learnable_sink=sink)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    for a, n, u in zip(cu.tolist(), lens_q, used):
+        assert torch.equal(lse[:, a + u:a + n],
+                           sink[:, None].expand(h, n - u))
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", SINK_FWD_CASES[1:4], ids=lambda c: c[0])
+def test_sink_gradients_match_plain_version_on_the_card(case):
+    """flash_attn_func with a trained sink, both deterministic modes: dq,
+    dk, dv and dsink by the 2x rule against the plain fp32 backward's, with
+    attention_ref_grads in the inputs' type as the low-precision reference
+    (+1e-4; dsink, an fp32 sum over every row, +1e-3); B3 the same bits
+    twice; the dense flash_attn_varlen_func over the same rows packed gives
+    B3's dq, dk, dv bits and dsink within 1e-5 relative (another summation
+    order)."""
+    from flash_attn_tpu_torch import flash_attn_varlen_func
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref_grads,
+        check_against_ref,
+    )
+
+    q, k, v, sink, kw = _sink_fwd_inputs(case, 25)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    do = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(q.dtype)
+    ref_o, ref_l = flash_fwd.flash_attention_fwd_plain(
+        q.float(), k.float(), v.float(), learnable_sink=sink, **kw)
+    ref = flash_bwd.flash_attention_bwd_plain(
+        do.transpose(1, 2).float(), q.float(), k.float(), v.float(), ref_o,
+        ref_l, learnable_sink=sink, **kw)
+    del ref_o, ref_l
+    ref_lp = attention_ref_grads(*(x.transpose(1, 2) for x in (q, k, v)), do,
+                                 upcast=False, learnable_sink=sink, **kw)
+    runs = []
+    for deterministic in (True, True, False):
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)] + [sink.clone().requires_grad_()]
+        out = flash_attn_func(*leaves[:3], learnable_sink=leaves[3],
+                              deterministic=deterministic, **kw)
+        out.backward(do)
+        runs.append([x.grad for x in leaves])
+    assert all(torch.equal(a, c) for a, c in zip(runs[0], runs[1]))
+    for grads in (runs[0], runs[2]):
+        for name, g, r, lp in zip(("dq", "dk", "dv"), grads, ref, ref_lp):
+            check_against_ref(g, r.transpose(1, 2), lp, atol=1e-4,
+                              msg=f"{case[0]} {name}")
+        check_against_ref(grads[3], ref[3], ref_lp[3], atol=1e-3,
+                          msg=f"{case[0]} dsink")
+    cu_q, cu_k = (torch.arange(b + 1, dtype=torch.int32, device="cuda") * n
+                  for n in (sq, sk))
+    leaves = [x.transpose(1, 2).reshape(-1, x.shape[1], d).detach()
+              .requires_grad_() for x in (q, k, v)] + [
+        sink.clone().requires_grad_()]
+    out = flash_attn_varlen_func(
+        *leaves[:3], cu_q, cu_k, sq, sk, learnable_sink=leaves[3],
+        causal=kw["causal"], window_size=kw["window_size"],
+        softcap=kw["softcap"], alibi_slopes=kw["alibi_slopes"])
+    out.backward(do.reshape(b * sq, h, d))
+    for g, want in zip(leaves[:3], runs[0][:3]):
+        assert torch.equal(g.grad, want.reshape(g.grad.shape))
+    torch.testing.assert_close(leaves[3].grad, runs[0][3], atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_sink_free_outputs_match_a_parent_build_on_the_card():
+    """With no sink, B1, B6, B7, B8, B8p, B10 and the MLA decode route give
+    the bits of a parent tree's build (tools/fwd_ab.py, paged_ab.py and
+    mla_ab.py --digests PARENT .: exit 0 when every digest agrees). The
+    parent is an unpacked archive of the commit before the sink, named by
+    FA_PARENT_TREE."""
+    import os
+
+    parent = os.environ.get("FA_PARENT_TREE")
+    if not parent:
+        pytest.skip("set FA_PARENT_TREE to an unpacked archive of the parent "
+                    "commit to compare the sink-free kernels' bits with it")
+    for tool in ("fwd_ab.py", "paged_ab.py", "mla_ab.py"):
+        res = subprocess.run(
+            [sys.executable, str(REPO / "tools" / tool), "--digests", parent,
+             str(REPO)], cwd=REPO, capture_output=True, text=True,
+            timeout=900)
+        assert res.returncode == 0, (tool, res.stdout[-3000:],
+                                     res.stderr[-3000:])

@@ -504,12 +504,13 @@ def test_persistent_plain_equals_banded_plain(causal):
     dict(dropout_rng=torch.zeros(2)), dict(k_descale=torch.ones(1, 2)),
     dict(qv=torch.ones(1), softcap=5.0), dict(dropout_p=0.1),
     dict(v_descale=torch.ones(1, 2)),
-    dict(learnable_sink=torch.zeros(2)), dict(qv=torch.ones(1)),
+    dict(qv=torch.ones(1), window_size=(4, 0)), dict(qv=torch.ones(1)),
     dict(q_descale=torch.ones(1, 2))])
 def test_varlen_refusals_name_queue_a_7(kwargs):
     """Each option the dense route does not take raises (the window and the
     chunk run: tests/test_torch_band_varlen.py; softcap and ALiBi too:
-    tests/test_torch_score_backward.py), naming queue A item 7."""
+    tests/test_torch_score_backward.py; the learnable sink too:
+    tests/test_torch_learnable_sink.py), naming queue A item 7."""
     q = torch.zeros(8, 2, 64)
     cu = torch.tensor([0, 8], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="queue A, item 7"):

@@ -143,9 +143,8 @@ def test_packed_mha_grads_match_jax(d):
         out = jm.apply({"params": p}, x_, cu_seqlens=jnp.asarray(cu),
                        max_seqlen=47)
         return (out * g).sum(), out
-    (_, out_j), (gp, gx) = jax.value_and_grad(loss, argnums=(0, 1),
-                                              has_aux=True)(params,
-                                                            jnp.asarray(x))
+    (_, out_j), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
     xt = _t(x).requires_grad_()
     out_t = tm(xt, cu_seqlens=_t(cu), max_seqlen=47)
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),

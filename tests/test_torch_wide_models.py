@@ -73,19 +73,20 @@ def test_family_logits_and_decode_match_jax(name):
     against JAX's teacher-forced forward over the decoded sequences."""
     jmodel, params, tmodel = _pair(FAMILIES[name])
     ids = np.random.default_rng(2).integers(0, VOCAB, (2, PROMPT))
-    want = np.asarray(jmodel.apply({"params": params},
-                                   jnp.asarray(ids, jnp.int32)))
     with torch.no_grad():
         got = tmodel(torch.from_numpy(ids).long())
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
-
     seqs, length, scores = decode(torch.from_numpy(ids), tmodel,
                                   GenerationConfig(max_length=MAX_LEN),
                                   output_scores=True)
     assert length == MAX_LEN
-    tf = np.asarray(jmodel.apply({"params": params},
-                                 jnp.asarray(seqs[:, :-1].numpy(),
-                                             jnp.int32)))[:, PROMPT - 1:]
+    # one JAX forward over the decoded sequences: its first PROMPT rows are
+    # the prompt's logits (causal), the rest the teacher-forced steps'
+    full = np.asarray(jmodel.apply({"params": params},
+                                   jnp.asarray(seqs[:, :-1].numpy(),
+                                               jnp.int32)))
+    np.testing.assert_allclose(got.numpy(), full[:, :PROMPT], atol=1e-4,
+                               rtol=0)
+    tf = full[:, PROMPT - 1:]
     np.testing.assert_allclose(scores.transpose(0, 1).numpy(), tf, atol=1e-4,
                                rtol=0)
     np.testing.assert_array_equal(seqs[:, PROMPT:].numpy(), tf.argmax(-1))

@@ -1,7 +1,7 @@
 """Device time of the attention forward kernels (B1, B6's forward and B7),
 for comparing trees of the port on one card.
 
-    python3 tools/fwd_ab.py ROOT [ROOT ...]
+    python3 tools/fwd_ab.py [--digests] ROOT [ROOT ...]
 
 For each ROOT (a directory holding a ``flash_attn_tpu_torch`` package, such
 as an unpacked archive of another commit), in a fresh process each, it
@@ -16,13 +16,21 @@ B6's forward (one block per item) and B7 (the persistent walk over the same
 list, built beforehand by get_scheduler_metadata), and prints max |B6 - B7|.
 Each round runs twice. Give the roots in turns (A B B A) to compare two
 trees on the card they share; a variant of a kernel (another Q buffering of
-B7, say) is timed as a tree of its own.
+B7, say) is timed as a tree of its own. Every tree also prints a SHA-256 of
+each kernel's out and lse on each shape (and of B10's over the full causal
+block mask at the training shape, chip_smoke.py's
+blocksparse_full_mask_forward), none of them with a learnable sink, and at
+the end whether every tree gave the same bits (exit 1 if not); with
+``--digests`` it prints the digests alone and times nothing.
 """
 
+import hashlib
+import importlib.util
 import inspect
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -31,6 +39,30 @@ import torch.nn.functional as F
 DENSE = [(8, 512), (4, 2048)]  # (b, s) at h=16, d=128, causal
 H, D = 16, 128
 MIXED = [int(x) for x in np.random.default_rng(0).integers(2048, 4097, 16)]
+SMOKE = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def same_digests(runs) -> int:
+    """Print, for each "digest NAME: VALUE" line of the trees' ``runs``
+    (their standard outputs), whether every tree gave the same bits;
+    returns the exit code: 1 if any differ."""
+    digests = {}
+    for out in runs:
+        for line in out.splitlines():
+            if line.startswith("digest "):
+                name, value = line[len("digest "):].rsplit(": ", 1)
+                digests.setdefault(name, set()).add(value)
+    for name, values in digests.items():
+        print(f"{name}: " + ("the same bits in every tree" if len(values) == 1
+                             else "DIFFERENT bits"))
+    return 0 if all(len(v) == 1 for v in digests.values()) else 1
 
 
 def time_ms(fn, runs: int = 25, batch: int = 5) -> float:
@@ -61,7 +93,10 @@ VARLEN = [  # (name, lengths, packed tail rows, h, d, causal)
 ]
 
 
-def measure(root: str) -> None:
+def measure(root: str, timed: bool = True) -> None:
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     sys.path.insert(0, root)
     from flash_attn_tpu_torch import get_scheduler_metadata
     from flash_attn_tpu_torch.dispatch.varlen_meta import compute_varlen_meta
@@ -76,7 +111,14 @@ def measure(root: str) -> None:
         q, k, v = (torch.randn(b, s, H, D, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        out, _ = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=True)
+        out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=True)
+        print(f"digest B1 b={b} x {s}: {digest(out, lse)}", flush=True)
+        if (b, s) == DENSE[-1]:
+            print(f"digest B10 full causal mask b={b} x {s}: "
+                  f"{digest(*smoke.blocksparse_full_mask_forward(qt, kt, vt, True))}",
+                  flush=True)
+        if not timed:
+            continue
         ref, _ = flash_fwd.flash_attention_fwd_plain(
             qt.float(), kt.float(), vt.float(), causal=True)
         err = float((out.float() - ref).abs().max())
@@ -105,6 +147,8 @@ def measure(root: str) -> None:
                                                      meta=meta6)
         b7 = fvp.flash_attention_varlen_fwd_persistent(*args, causal=causal,
                                                        meta=meta)
+        print(f"digest B6 {name}: {digest(*b6)}", flush=True)
+        print(f"digest B7 {name}: {digest(*b7)}", flush=True)
         diff = float((b6[0].float() - b7[0].float()).abs().max())
         fns = {"B6": lambda a=args, c=causal, m=meta6:
                flash_varlen.flash_attention_varlen_fwd(*a, causal=c, meta=m),
@@ -112,7 +156,7 @@ def measure(root: str) -> None:
                fvp.flash_attention_varlen_fwd_persistent(*a, causal=c, meta=m)}
         cases.append((f"{name} (max |B6 - B7| {diff:.3e}, B7 grid "
                       f"{fvp.last_grid})", fns))
-    for _ in range(2):
+    for _ in range(2 if timed else 0):
         for name, fns in cases:
             times = ", ".join(f"{k} {time_ms(fn):.4f}" for k, fn in fns.items())
             print(f"{name}: {times} ms", flush=True)
@@ -122,18 +166,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fwd_ab: needs a CUDA card", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        measure(sys.argv[2])
+    args = sys.argv[1:]
+    if args[:1] in (["--one"], ["--one-digests"]):
+        measure(args[1], timed=args[0] == "--one")
         return 0
+    mode = "--one"
+    if args[:1] == ["--digests"]:
+        mode, args = "--one-digests", args[1:]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    for root in sys.argv[1:]:
+    runs = []
+    for root in args:
         print(f"== {root}", flush=True)
-        rc = subprocess.run([sys.executable, __file__, "--one", root]).returncode
-        if rc:
-            return rc
-    return 0
+        run = subprocess.run([sys.executable, __file__, mode, root],
+                             stdout=subprocess.PIPE, text=True)
+        print(run.stdout, end="", flush=True)
+        if run.returncode:
+            return run.returncode
+        runs.append(run.stdout)
+    return same_digests(runs)
 
 
 if __name__ == "__main__":

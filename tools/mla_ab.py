@@ -2,7 +2,7 @@
 prefill) and the MLA route of split-KV decode, for comparing trees of the
 port on one card.
 
-    python3 tools/mla_ab.py ROOT [ROOT ...]
+    python3 tools/mla_ab.py [--digests] ROOT [ROOT ...]
 
 For each ROOT (a directory holding a ``flash_attn_tpu_torch`` package, such
 as an unpacked archive of another commit), in a fresh process each, it
@@ -19,7 +19,8 @@ rows of 2,080 keys), at lengths 1..2080 and at b=32 x 8192, against the
 plain version's (max abs err). Each time is
 the device ms a call (CUDA events over a held stream, median of 10), taken
 twice. Give the roots in turns (A B B A) to compare two trees on the card
-they share.
+they share. The decode route's partials at each decode shape get a digest
+too; with ``--digests`` it prints the digests alone and times nothing.
 """
 
 import hashlib
@@ -75,7 +76,7 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def measure(root: str) -> None:
+def measure(root: str, timed: bool = True) -> None:
     spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
@@ -102,7 +103,7 @@ def measure(root: str) -> None:
             softmax_scale=smoke.MLA_SCALE, causal=causal)
         print(f"B8p digest {name}: {digest(out, lse)}", flush=True)
     calls = []
-    for name, rows, b, cached in CASES:
+    for name, rows, b, cached in CASES if timed else ():
         keys = cached + rows
         width = -(-keys // PAGE)
         table = torch.randperm(b * width, device="cuda", generator=gen) \
@@ -135,8 +136,11 @@ def measure(root: str) -> None:
         splits = _default_num_splits(q, kc, vc, table, True)
         splits = max(1, min(splits, -(-flash_decode.cache_capacity(kc, table)
                                       // 64)))
-        out_p, _ = flash_decode.flash_attention_decode_partials(
+        out_p, lse_p = flash_decode.flash_attention_decode_partials(
             q, kc, vc, seqlens, splits, SCALE, True, block_table=table, qv=qv)
+        print(f"B8p digest {name}: {digest(out_p, lse_p)}", flush=True)
+        if not timed:
+            continue
         ref_p, _ = flash_decode.flash_attention_decode_paged_partials_plain(
             q, kc, vc, seqlens, table, splits, 64, SCALE, True, qv=qv)
         err = float((out_p - ref_p).abs().max())
@@ -146,7 +150,7 @@ def measure(root: str) -> None:
                       t=table, qv=qv:
                       flash_decode.flash_attention_decode_partials(
                           *a, block_table=t, qv=qv)))
-    for _ in range(2):
+    for _ in range(2 if timed else 0):
         for name, fn in calls:
             print(f"{name}: {time_ms(fn):.4f} ms", flush=True)
 
@@ -155,16 +159,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("mla_ab: needs a CUDA card", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        measure(sys.argv[2])
+    args = sys.argv[1:]
+    if args[:1] in (["--one"], ["--one-digests"]):
+        measure(args[1], timed=args[0] == "--one")
         return 0
+    mode = "--one"
+    if args[:1] == ["--digests"]:
+        mode, args = "--one-digests", args[1:]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
     digests = {}
-    for root in sys.argv[1:]:
+    for root in args:
         print(f"== {root}", flush=True)
-        run = subprocess.run([sys.executable, __file__, "--one", root],
+        run = subprocess.run([sys.executable, __file__, mode, root],
                              stdout=subprocess.PIPE, text=True)
         print(run.stdout, end="", flush=True)
         if run.returncode:
@@ -175,7 +183,7 @@ def main() -> int:
                 digests.setdefault(name, set()).add(value)
     for name, values in digests.items():
         same = len(values) == 1
-        print(f"B8p {name}: "
+        print(f"{name}: "
               f"{'the same bits in every tree' if same else 'DIFFERENT bits'}")
     return 0 if all(len(v) == 1 for v in digests.values()) else 1
 

@@ -1,7 +1,7 @@
 """Device time of the paged varlen prefill (B8), for comparing trees of the
 port on one card.
 
-    python3 tools/paged_ab.py ROOT [ROOT ...]
+    python3 tools/paged_ab.py [--digests] ROOT [ROOT ...]
 
 For each ROOT (a directory holding a ``flash_attn_tpu_torch`` package, such
 as an unpacked archive of another commit), in a fresh process each, it
@@ -14,7 +14,10 @@ each it prints the max abs error against the plain fp32 version, the whole
 call's device ms (CUDA events over a held stream, median of 25) and the
 kernel's alone (torch.profiler, device time a call over 10 calls), with
 chip_smoke.py's own timers, twice. Give the roots in turns (A B B A) to
-compare two trees on the card they share.
+compare two trees on the card they share. Every tree also prints a SHA-256
+of B8's out and lse on every VARLEN_CASES shape, with no learnable sink,
+and at the end whether every tree gave the same bits (exit 1 if not); with
+``--digests`` it prints the digests alone and times nothing.
 """
 
 import importlib.util
@@ -39,9 +42,10 @@ def load(name: str, path: Path):
     return module
 
 
-def measure(root: str) -> None:
+def measure(root: str, timed: bool = True) -> None:
     smoke = load("chip_smoke", SMOKE)
     cases = load("cases", CASES)
+    ab = load("fwd_ab", ROOT / "tools" / "fwd_ab.py")
     sys.path.insert(0, root)
     from flash_attn_tpu_torch.kernels import _build
     from flash_attn_tpu_torch.kernels import flash_varlen_paged as fvp
@@ -52,17 +56,21 @@ def measure(root: str) -> None:
     calls = []
     for name, lens_q, lens_k, used, h, h_k, d, page, dtype, causal in \
             cases.VARLEN_CASES:
-        if name not in TIMED:
-            continue
         cu = torch.tensor(np.concatenate([[0], np.cumsum(lens_q)]),
                           dtype=torch.int32, device="cuda")
         q = torch.randn(int(cu[-1]), h, d, device="cuda", generator=gen).to(
             dtype)
         kp, vp, table = smoke.paged_cache(gen, len(lens_q), h_k, d, page,
-                                          max(lens_k), dtype)
+                                          max(max(lens_k), 1), dtype)
         seqlens = torch.tensor(lens_k, dtype=torch.int32, device="cuda")
-        args = (q, kp, vp, cu, max(lens_q), seqlens, table)
-        out, _ = fvp.flash_attention_varlen_paged_fwd(*args, causal=causal)
+        args = (q, kp, vp, cu, max(max(lens_q), 1), seqlens, table)
+        used = None if used is None else torch.tensor(
+            used, dtype=torch.int32, device="cuda")
+        out, lse = fvp.flash_attention_varlen_paged_fwd(
+            *args, seqused_q=used, causal=causal)
+        print(f"digest B8 {name}: {ab.digest(out, lse)}", flush=True)
+        if name not in TIMED or not timed:
+            continue
         ref, _ = fvp.flash_attention_varlen_paged_fwd_plain(
             q.float(), kp.float(), vp.float(), *args[3:], causal=causal)
         err = float((out.float() - ref.float()).abs().max())
@@ -70,7 +78,7 @@ def measure(root: str) -> None:
         calls.append((f"B8 {name} (max abs err {err:.3e})",
                       lambda a=args, c=causal:
                       fvp.flash_attention_varlen_paged_fwd(*a, causal=c)))
-    for _ in range(2):
+    for _ in range(2 if timed else 0):
         for name, fn in calls:
             kernel = smoke.kernel_split_ms(fn, ("varlen_paged_kernel",))
             print(f"{name}: whole call {smoke.time_ms(fn):.4f} ms, kernel "
@@ -81,18 +89,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("paged_ab: needs a CUDA card", file=sys.stderr)
         return 2
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        measure(sys.argv[2])
+    args = sys.argv[1:]
+    if args[:1] in (["--one"], ["--one-digests"]):
+        measure(args[1], timed=args[0] == "--one")
         return 0
+    mode = "--one"
+    if args[:1] == ["--digests"]:
+        mode, args = "--one-digests", args[1:]
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    for root in sys.argv[1:]:
+    runs = []
+    for root in args:
         print(f"== {root}", flush=True)
-        rc = subprocess.run([sys.executable, __file__, "--one", root]).returncode
-        if rc:
-            return rc
-    return 0
+        run = subprocess.run([sys.executable, __file__, mode, root],
+                             stdout=subprocess.PIPE, text=True)
+        print(run.stdout, end="", flush=True)
+        if run.returncode:
+            return run.returncode
+        runs.append(run.stdout)
+    return load("fwd_ab", ROOT / "tools" / "fwd_ab.py").same_digests(runs)
 
 
 if __name__ == "__main__":
