@@ -340,7 +340,20 @@
    B6 bitwise); B8p with a sink at DeepSeek-V3's serving chunk; rows that
    see no key at out 0 and lse = sink; each sink form timed beside its
    sink-free form, its plain version and SDPA with the sink as one more
-   key.
+   key;
+34. q/k head dim 192 beside v head dim 128 (run_deepseek_v3_attention):
+   DeepSeek-V3's attention trained without absorbing its MLA, seeded
+   tensors at its published widths (61 layers of 128 heads, q and k 128 +
+   64 rope columns, v 128, causal, its softmax scale 0.135234) through
+   flash_attn_func at 1 x 4,096, forward and backward, counted (61 each of
+   B1, the preprocess, dK/dV and dQ, all the 192 / 128 form) and finite,
+   its peak printed; B1, B3, B2 and the preprocess at 192 / 128 on
+   utils/cases.py DV_CASES (that layer, GQA, non-causal, sq < sk, sq > sk,
+   a learnable sink, fp16) against the plain fp32 versions by the 2x rule,
+   B3 bitwise twice; the counted deterministic=False call at the layer
+   shape; flash_attn_func(qv=) at (64, 128) bitwise equal to the explicit
+   concatenated call; each kernel timed at the layer shape beside the same
+   kernels at d = dv = 128, the plain versions, SDPA and its bound.
 
 It prints the card's name and power limit, one JSON line with the kernels'
 launches, errors and times, and as its last line
@@ -8973,15 +8986,16 @@ def sink_sdpa(qt, kt, vt, mask, scale=None):
 
 
 def sink_refs(qt, kt, vt, dot, sink, causal, window,
-              heads_bytes: float = 1.1e9):
+              heads_bytes: float = 1.1e9, scale=None):
     """The 2x rule's references of a sink layer, a batch row and as many KV
     heads at a time as keep each fp32 score matrix within ``heads_bytes``:
     the plain fp32 forward and backward (out, lse, dq, dk, dv, dsink) from
     fp32 copies, and the low-precision ones (attention_ref and autograd
-    through it, in the inputs' type; its sink path in fp32 as JAX's).
-    Inputs (b, h, s, d) views and the (h,) sink; returns (ref, ref_lp):
-    ref = (out, lse, dq, dk, dv, dsink), out and grads (b, h, s, d);
-    ref_lp = (out, dq, dk, dv, dsink), (b, s, h, d)."""
+    through it, in the inputs' type; its sink path in fp32 as JAX's), at
+    softmax scale ``scale`` (1/sqrt(d) unless given). Inputs (b, h, s, d)
+    views (v, dout: dv columns) and the (h,) sink, or None (dsink then 0);
+    returns (ref, ref_lp): ref = (out, lse, dq, dk, dv, dsink), out and
+    grads (b, h, s, d); ref_lp = (out, dq, dk, dv, dsink), (b, s, h, d)."""
     from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
     from flash_attn_tpu_torch.utils.testing import (
         attention_ref,
@@ -8989,15 +9003,15 @@ def sink_refs(qt, kt, vt, dot, sink, causal, window,
     )
 
     b, h, sq, d = qt.shape
-    h_k, sk = kt.shape[1], kt.shape[2]
+    h_k, sk, dv = kt.shape[1], kt.shape[2], vt.shape[3]
     group = h // h_k
     per = max(1, int(heads_bytes // (group * sq * sk * 4)))
-    kw = dict(causal=causal, window_size=window)
-    out32 = torch.empty(qt.shape, device="cuda")
+    kw = dict(causal=causal, window_size=window, softmax_scale=scale)
+    out32 = torch.empty(b, h, sq, dv, device="cuda")
     lse32 = torch.empty(qt.shape[:3], device="cuda")
     g32 = [torch.empty(x.shape, device="cuda") for x in (qt, kt, vt)]
     ds32 = torch.zeros(h, device="cuda")
-    out_lp = torch.empty_like(qt.transpose(1, 2))
+    out_lp = qt.new_empty(b, sq, h, dv)
     glp = [torch.empty_like(x.transpose(1, 2)) for x in (qt, kt, vt)]
     ds_lp = torch.zeros(h, device="cuda")
     for bi in range(b):
@@ -9006,24 +9020,27 @@ def sink_refs(qt, kt, vt, dot, sink, causal, window,
             qs = slice(ks.start * group, ks.stop * group)
             chunk = [x[bi:bi + 1, hs] for x, hs in
                      ((qt, qs), (kt, ks), (vt, ks), (dot, qs))]
+            sk_ = None if sink is None else sink[qs]
             f32 = [x.float() for x in chunk[:3]]
             o, l = flash_fwd.flash_attention_fwd_plain(
-                *f32, learnable_sink=sink[qs], **kw)
+                *f32, learnable_sink=sk_, **kw)
             r = flash_bwd.flash_attention_bwd_plain(
-                chunk[3].float(), *f32, o, l, learnable_sink=sink[qs], **kw)
+                chunk[3].float(), *f32, o, l, learnable_sink=sk_, **kw)
             out32[bi:bi + 1, qs], lse32[bi:bi + 1, qs] = o, l
             for i, hs in enumerate((qs, ks, ks)):
                 g32[i][bi:bi + 1, hs] = r[i]
-            ds32[qs] += r[3]
+            if sink is not None:
+                ds32[qs] += r[3]
             del f32, o, l, r
             bshd = [x.transpose(1, 2) for x in chunk]
             out_lp[bi:bi + 1, :, qs] = attention_ref(
-                *bshd[:3], upcast=False, learnable_sink=sink[qs], **kw)[0]
+                *bshd[:3], upcast=False, learnable_sink=sk_, **kw)[0]
             lp = attention_ref_grads(*bshd, upcast=False,
-                                     learnable_sink=sink[qs], **kw)
+                                     learnable_sink=sk_, **kw)
             for i, hs in enumerate((qs, ks, ks)):
                 glp[i][bi:bi + 1, :, hs] = lp[i]
-            ds_lp[qs] += lp[3]
+            if sink is not None:
+                ds_lp[qs] += lp[3]
             del lp
     return (out32, lse32, *g32, ds32), (out_lp, *glp, ds_lp)
 
@@ -9732,6 +9749,440 @@ def run_gpt_oss_sinks(card):
     return launches, errs, timings
 
 
+def dv_counts():
+    """The launches at a v head dim of its own (192 / 128) since the last
+    reset_kernel_counts()."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    return {"flash_fwd_dv": flash_fwd.launches_dv,
+            "flash_bwd_preprocess_dv": flash_bwd.launches_preprocess_dv,
+            "fa_bwd_dkdv_dv": flash_bwd.launches_dkdv_dv,
+            "fa_bwd_dq_dv": flash_bwd.launches_dq_dv,
+            "flash_bwd_fused_dv": flash_bwd.launches_fused_dv}
+
+
+def all_counts():
+    """Every launch counter this script reads, by its name."""
+    return {**kernel_counts(), **bwd_counts(), **sink_counts(),
+            **dv_counts()}
+
+
+def dv_inputs(seed: int, b: int, sq: int, sk: int, h: int, h_k: int,
+              dtype=torch.bfloat16):
+    """Seeded q (b, sq, h, 192), k (b, sk, h_k, 192), v (b, sk, h_k, 128)
+    and dout (b, sq, h, 128)."""
+    from flash_attn_tpu_torch.utils.cases import DSV3_D, DSV3_DV
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b, s, n, w, device="cuda", generator=gen).to(dtype)
+            for s, n, w in ((sq, h, DSV3_D), (sk, h_k, DSV3_D),
+                            (sk, h_k, DSV3_DV), (sq, h, DSV3_DV))]
+
+
+def dsv3_layer(layer: int):
+    """dv_inputs of one layer of DeepSeek-V3's attention at its training
+    shape: 1 x 4,096 rows of 128 heads."""
+    from flash_attn_tpu_torch.utils.cases import DSV3_HEADS, DSV3_SEQ
+
+    return dv_inputs(2500 + layer, 1, DSV3_SEQ, DSV3_SEQ, DSV3_HEADS,
+                     DSV3_HEADS)
+
+
+def dsv3_stack():
+    """All 61 layers of DeepSeek-V3's attention trained without absorbing
+    its MLA (128 heads, q/k 192 = 128 + 64 rope, v 128, causal, 1 x 4,096,
+    its softmax scale) through flash_attn_func forward and backward
+    (deterministic, as its trainer runs), a layer at a time, the counts at
+    0 before: every output and gradient finite, and exactly one B1, one
+    preprocess, one dK/dV and one dQ launch a layer, each the 192 / 128
+    form. Returns the launches and the peak memory (GB)."""
+    from flash_attn_tpu_torch import flash_attn_func
+    from flash_attn_tpu_torch.utils.cases import DSV3_LAYERS, DSV3_SCALE
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    bad = []
+    for i in range(DSV3_LAYERS):
+        q, k, v, do = dsv3_layer(i)
+        leaves = [x.requires_grad_() for x in (q, k, v)]
+        out = flash_attn_func(*leaves, causal=True, softmax_scale=DSV3_SCALE)
+        out.backward(do)
+        if not all(bool(torch.isfinite(x).all())
+                   for x in (out, *(l.grad for l in leaves))):
+            bad.append(i)
+        del q, k, v, do, leaves, out
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = all_counts()
+    n = DSV3_LAYERS
+    want = {"flash_fwd": n, "flash_fwd_dv": n, "flash_bwd_preprocess": n,
+            "flash_bwd_preprocess_dv": n, "fa_bwd_dkdv": n,
+            "fa_bwd_dkdv_dv": n, "fa_bwd_dq": n, "fa_bwd_dq_dv": n}
+    odd = {key: val for key, val in got.items() if val != want.get(key, 0)}
+    require(not bad, f"DeepSeek-V3 stack: non-finite outputs or gradients at "
+                     f"layers {bad}")
+    require(not odd, f"DeepSeek-V3 stack: launches {odd}, want {want}")
+    print(f"DeepSeek-V3 attention stack ({n} layers, 128 heads, q/k 192, v "
+          f"128, causal, 1 x 4096, scale {DSV3_SCALE:.6f}): forward and "
+          f"backward finite, launches {want}, peak {peak:.2f} GB")
+    return got, peak
+
+
+def finite_close(got, want, what: str, atol: float):
+    """lse-like tensors: -inf at the same places, the rest within atol.
+    Returns the largest difference."""
+    fin = torch.isfinite(want)
+    require(torch.equal(torch.isfinite(got), fin), f"{what}: -inf rows differ")
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    require(err <= atol, f"{what}: max abs err {err:.3e} > {atol}")
+    return err
+
+
+def dv_case(case):
+    """B1, B3, B2 and the preprocess at 192 / 128 on one DV_CASES case
+    against the plain fp32 versions by the 2x rule (sink_refs: a batch row
+    and a few heads at a time; lse within LSE_ATOL, dsink with its floor),
+    every launch counted as the 192 / 128 form, B3 the same bits twice,
+    the preprocess's delta and lse2 against its plain version and its
+    clearing of the fused pass's 192-column fp32 dQ rows. Returns the
+    errors by kernels-line row (without the _d192 suffix)."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.cases import dv_case_scale, sink_logits
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    name, b, sq, sk, h, h_k, causal, dtype, with_sink = case
+    scale = dv_case_scale(name)
+    q, k, v, do = dv_inputs(3000 + sq + sk + h, b, sq, sk, h, h_k, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    sink = sink_logits(h, sk, "cuda", gen) if with_sink else None
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    kw = dict(softmax_scale=scale, causal=causal, learnable_sink=sink)
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, **kw)
+    b3 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse, **kw)
+    again = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse, **kw)
+    b2 = flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse,
+                                       deterministic=False, **kw)
+    torch.cuda.synchronize()
+    got = all_counts()
+    want = {"flash_fwd": 1, "flash_fwd_dv": 1, "flash_bwd_preprocess": 3,
+            "flash_bwd_preprocess_dv": 3, "fa_bwd_dkdv": 2,
+            "fa_bwd_dkdv_dv": 2, "fa_bwd_dq": 2, "fa_bwd_dq_dv": 2,
+            "flash_bwd_fused": 1, "flash_bwd_fused_dv": 1,
+            "flash_fwd_sink": int(with_sink)}
+    odd = {key: val for key, val in got.items() if val != want.get(key, 0)}
+    require(not odd, f"launches at 192 / 128 ({name}): {odd}, want {want}")
+    require(all(torch.equal(x, y) for x, y in zip(b3, again)),
+            f"B3 at 192 / 128 differs between runs ({name})")
+    del again
+    ref, ref_lp = sink_refs(qt, kt, vt, dot,
+                            None if sink is None else sink.float(), causal,
+                            (None, None), scale=scale)
+    errs, line = {}, []
+    e, _ = check_against_ref(out.transpose(1, 2), ref[0].transpose(1, 2),
+                             ref_lp[0], msg=f"B1 192/128 {name}")
+    lse_err = finite_close(lse, ref[1], f"B1 192/128 lse ({name})", LSE_ATOL)
+    errs["flash_fwd"] = e
+    line.append(f"B1 out {e:.3e}, lse {lse_err:.3e}")
+    for row, g in (("flash_bwd", b3), ("flash_bwd_fused", b2)):
+        for gname, x, r, lp in zip(("dq", "dk", "dv"), g, ref[2:5],
+                                   ref_lp[1:4]):
+            e, e_lp = check_against_ref(
+                x.transpose(1, 2), r.transpose(1, 2), lp, atol=BWD_ATOL,
+                msg=f"{row} {gname} 192/128 {name}")
+            errs[row] = max(errs.get(row, 0.0), e)
+            line.append(f"{'B3' if row == 'flash_bwd' else 'B2'} {gname} "
+                        f"{e:.3e} (low precision {e_lp:.3e})")
+        if sink is not None:
+            e, e_lp = check_against_ref(g[3], ref[5], ref_lp[4],
+                                        atol=DSINK_ATOL,
+                                        msg=f"{row} dsink 192/128 {name}")
+            errs[row] = max(errs[row], e)
+            line.append(f"{row} dsink {e:.3e}")
+    del ref, ref_lp, b2, b3
+    dq_accum = torch.full((b, sq, h, q.shape[-1]), float("nan"),
+                          device="cuda")
+    delta, lse2 = flash_bwd.bwd_preprocess(dot, out, lse, dq_accum,
+                                           q.shape[-1])
+    want_delta, want_lse2 = flash_bwd.bwd_preprocess_plain(
+        dot, out, lse, delta.shape[-1])
+    require(bool((dq_accum == 0).all()),
+            f"the preprocess at 192 / 128 left fp32 dQ columns uncleared "
+            f"({name})")
+    finite_close(lse2, want_lse2, f"preprocess lse2 192/128 ({name})", 1e-5)
+    pre_err = float((delta - want_delta).abs().max())
+    require(pre_err <= 1e-3, f"preprocess delta err {pre_err} at 192 / 128 "
+                             f"({name})")
+    errs["flash_bwd_preprocess"] = pre_err
+    print(f"192 / 128, {name}: b={b} sq={sq} sk={sk} {h}/{h_k} heads, "
+          f"{str(dtype)[6:]}, causal={causal}, scale "
+          f"{scale if scale is not None else 'default'}"
+          f"{', a learnable sink' if with_sink else ''}: " + ", ".join(line)
+          + f"; B3 bitwise equal twice; preprocess delta {pre_err:.3e}, "
+          f"lse2 within 1e-5, the fused pass's 192 columns cleared")
+    return errs
+
+
+def dv_api_checks(errs):
+    """flash_attn_func at DeepSeek-V3's layer shape with
+    deterministic=False, counted (the only B2 run on a model's path shape:
+    no model path selects it), its gradients by the 2x rule; then
+    ``qv`` at (64, 128) against the explicit concatenated call, forward and
+    every gradient bitwise, counted. Returns the two runs' launches."""
+    from flash_attn_tpu_torch import flash_attn_func
+    from flash_attn_tpu_torch.utils.cases import DSV3_SCALE
+    from flash_attn_tpu_torch.utils.testing import check_against_ref
+
+    q, k, v, do = dsv3_layer(1)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    flash_attn_func(*leaves, causal=True, softmax_scale=DSV3_SCALE,
+                    deterministic=False).backward(do)
+    torch.cuda.synchronize()
+    fused = all_counts()
+    want = {"flash_fwd": 1, "flash_fwd_dv": 1, "flash_bwd_preprocess": 1,
+            "flash_bwd_preprocess_dv": 1, "flash_bwd_fused": 1,
+            "flash_bwd_fused_dv": 1}
+    odd = {key: val for key, val in fused.items() if val != want.get(key, 0)}
+    require(not odd, f"counted deterministic=False call at 192 / 128: {odd}")
+    qt, kt, vt, dot = (x.detach().transpose(1, 2) for x in (q, k, v, do))
+    ref, ref_lp = sink_refs(qt, kt, vt, dot, None, True, (None, None),
+                            scale=DSV3_SCALE)
+    line = []
+    for gname, x, r, lp in zip(("dq", "dk", "dv"), leaves, ref[2:5],
+                               ref_lp[1:4]):
+        e, e_lp = check_against_ref(x.grad, r.transpose(1, 2), lp,
+                                    atol=BWD_ATOL,
+                                    msg=f"flash_attn_func B2 {gname}")
+        errs["flash_bwd_fused"] = max(errs.get("flash_bwd_fused", 0.0), e)
+        line.append(f"{gname} {e:.3e} (low precision {e_lp:.3e})")
+    del ref, ref_lp, leaves, q, k, v, do, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    print("flash_attn_func(deterministic=False).backward() at DeepSeek-V3's "
+          "layer shape, counted (1 B1, 1 preprocess, 1 fused dK/dV at 192 / "
+          "128): " + ", ".join(line) + " by the 2x rule")
+
+    # qv at (64, 128): JAX's concatenation identity
+    gen = torch.Generator(device="cuda").manual_seed(2564)
+    b, s, h = 2, 1024, 16
+    q, k = (torch.randn(b, s, h, 64, device="cuda", generator=gen)
+            .to(torch.bfloat16) for _ in range(2))
+    v, qv, do = (torch.randn(b, s, h, 128, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for _ in range(3))
+    leaves = [x.requires_grad_() for x in (q, k, v, qv)]
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    out = flash_attn_func(*leaves[:3], qv=leaves[3], causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    qv_counts = all_counts()
+    qc = torch.cat([q, qv], -1).detach().requires_grad_()
+    kc = torch.cat([k, v], -1).detach().requires_grad_()
+    vc = v.detach().requires_grad_()
+    out2 = flash_attn_func(qc, kc, vc, causal=True)
+    out2.backward(do)
+    pairs = [("out", out, out2), ("dq", q.grad, qc.grad[..., :64]),
+             ("dqv", qv.grad, qc.grad[..., 64:]),
+             ("dk", k.grad, kc.grad[..., :64]),
+             ("dv", v.grad, vc.grad + kc.grad[..., 64:])]
+    differ = [n for n, x, y in pairs if not torch.equal(x, y)]
+    require(not differ, f"flash_attn_func(qv=) differs from the explicit "
+                        f"concatenated call: {differ}")
+    want = {"flash_fwd": 1, "flash_fwd_dv": 1, "flash_bwd_preprocess": 1,
+            "flash_bwd_preprocess_dv": 1, "fa_bwd_dkdv": 1,
+            "fa_bwd_dkdv_dv": 1, "fa_bwd_dq": 1, "fa_bwd_dq_dv": 1}
+    odd = {key: val for key, val in qv_counts.items()
+           if val != want.get(key, 0)}
+    require(not odd, f"flash_attn_func(qv=) launches: {odd}")
+    print(f"flash_attn_func(q, k, v, qv=qv) at (64, 128), b={b} x {s}, {h} "
+          f"heads, causal: out, dq, dqv, dk and dv bitwise equal to the "
+          f"explicit call on q || qv, k || v (dv the P V side plus the score "
+          f"side); launches {want}")
+    return {"fused": fused, "qv": qv_counts}
+
+
+def sdpa_row(qt, kt, vt, dot, scale, causal=True):
+    """scaled_dot_product_attention's forward and backward (ms) at these
+    shapes, through the first of its backends that takes q/k head dim 192
+    beside v head dim 128, and that backend's name."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+                o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                   scale=scale)
+                torch.autograd.grad(o, leaves, dot, retain_graph=True)
+                torch.cuda.synchronize()
+        except Exception:  # noqa: BLE001 (a backend refuses these shapes)
+            continue
+        with sdpa_kernel(backend):
+            fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale), runs=10)
+            bwd = time_ms(lambda: torch.autograd.grad(
+                o, leaves, dot, retain_graph=True), runs=10)
+        return fwd, bwd, backend.name
+    raise RuntimeError("sdpa_row: no backend of scaled_dot_product_attention "
+                       "ran")
+
+
+def dv_timings():
+    """At DeepSeek-V3's layer shape (1 x 4,096, 128 heads, causal, its
+    scale): B1, the B3 pair (whole call, and its three kernels by CUDA
+    events around each launch: entry_split_ms), B2 and the preprocess at
+    192 / 128, each beside the same kernels at d = dv = 128 over the same
+    rows (what the wider Q and K cost), the plain fp32 versions (a few
+    heads at a time), scaled_dot_product_attention (the backend it took)
+    and a bound in operations: 2 h pairs (d + dv) flops forward, 2 h pairs
+    (3 d + 2 dv) backward, over the attended pairs. Returns the timings by
+    kernels-line row."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.cases import DSV3_SCALE
+
+    q, k, v, do = dsv3_layer(0)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    b, h, s, d = qt.shape
+    dv = vt.shape[-1]
+    kw = dict(causal=True, softmax_scale=DSV3_SCALE)
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, **kw)
+    pairs = b * h * attended_pairs([s], [s], True)
+    esz = qt.element_size()
+    rows = b * h * s
+    fwd_bound = bound(2 * pairs * (d + dv),
+                      esz * rows * (2 * d + 2 * dv) + 4 * rows)
+    bwd_bound = bound(2 * pairs * (3 * d + 2 * dv),
+                      esz * rows * (4 * d + 4 * dv) + 4 * rows)
+    sq_pad = -(-s // 128) * 128
+    pre_bound = bound(2 * rows * dv, esz * 2 * rows * dv + 4 * rows
+                      + 2 * 4 * b * h * sq_pad, PEAK_FP32)
+
+    def bwd(det, tensors=(qt, kt, vt, dot, out, lse)):
+        qq, kk, vv, dd, oo, ll = tensors
+        return lambda: flash_bwd.flash_attention_bwd(
+            dd, qq, kk, vv, oo, ll, deterministic=det, **kw)
+    t_fwd = time_ms(lambda: flash_fwd.flash_attention_fwd(qt, kt, vt, **kw),
+                    runs=10)
+    t_b3 = time_ms(bwd(True), runs=10)
+    t_b2 = time_ms(bwd(False), runs=10)
+    t_pre = time_ms(lambda: flash_bwd.bwd_preprocess(dot, out, lse, None, d),
+                    runs=10)
+    split = entry_split_ms(bwd(True), ["preprocess_kernel", "dkdv_kernel",
+                                       "dq_kernel"])
+    split_b2 = entry_split_ms(bwd(False), ["preprocess_kernel",
+                                           "dkdv_kernel"])
+    plain_fwd, plain_bwd, parts = plain_band_chunks(
+        qt, kt, vt, dot, out, lse, True, {"softmax_scale": DSV3_SCALE})
+    plain = f"the plain fp32 version, {parts} calls of {h // parts} heads"
+    p_fwd = time_ms(plain_fwd, runs=3, batch=1)
+    p_bwd = time_ms(plain_bwd, runs=3, batch=1)
+    p_pre = time_ms(lambda: flash_bwd.bwd_preprocess_plain(dot, out, lse, 128),
+                    runs=10)
+    lib_fwd, lib_bwd, backend = sdpa_row(qt, kt, vt, dot, DSV3_SCALE)
+    lib = f"scaled_dot_product_attention(is_causal=True, scale=) ({backend})"
+    # the same rows at d = dv = 128: q and k cut to their first 128 columns
+    q128, k128 = (x[..., :128].contiguous() for x in (q, k))
+    t128 = (q128.transpose(1, 2), k128.transpose(1, 2), vt, dot)
+    out128, lse128 = flash_fwd.flash_attention_fwd(*t128[:3], **kw)
+    d128 = {"fwd": time_ms(lambda: flash_fwd.flash_attention_fwd(
+        *t128[:3], **kw), runs=10),
+        "b3": time_ms(bwd(True, (*t128, out128, lse128)), runs=10),
+        "b2": time_ms(bwd(False, (*t128, out128, lse128)), runs=10)}
+    pre_lib = time_ms(lambda: torch.linalg.vecdot(dot, out), runs=10)
+    t = {"flash_fwd": {"ms": t_fwd, "d128_ms": d128["fwd"], "plain_ms": p_fwd,
+                       "plain_call": plain, "library_ms": lib_fwd,
+                       "library_call": lib, **fwd_bound},
+         "flash_bwd": {"ms": t_b3, "d128_ms": d128["b3"],
+                       "entry_split_ms": split, "plain_ms": p_bwd,
+                       "plain_call": plain, "library_ms": lib_bwd,
+                       "library_call": lib + ", backward "
+                                             "(torch.autograd.grad)",
+                       **bwd_bound},
+         "flash_bwd_fused": {"ms": t_b2, "d128_ms": d128["b2"],
+                             "entry_split_ms": split_b2, "plain_ms": p_bwd,
+                             "plain_call": plain, "library_ms": lib_bwd,
+                             "library_call": lib + ", backward "
+                                                   "(torch.autograd.grad)",
+                             **bwd_bound},
+         "flash_bwd_preprocess": {"ms": t_pre, "plain_ms": p_pre,
+                                  "library_ms": pre_lib,
+                                  "library_call": "torch.linalg.vecdot(dO, O)"
+                                                  " (in bf16)", **pre_bound}}
+    for row, r in t.items():
+        r["to_bound"] = r["bound_ms"] / r["ms"]
+        print(f"{row} at 192 / 128, DeepSeek-V3's layer (1 x {s}, {h} heads, "
+              f"causal): {r['ms']:.4f} ms, {100 * r['to_bound']:.1f}% of the "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + (f", {r['d128_ms']:.4f} ms at d = dv = 128 over the same rows"
+                 if "d128_ms" in r else "")
+              + (", its kernels by CUDA events " + ", ".join(
+                  f"{n} {x:.4f}" for n, x in r["entry_split_ms"].items())
+                 if "entry_split_ms" in r else "")
+              + f"; plain {r['plain_ms']:.3f} ms; library "
+              f"{r['library_ms']:.4f} ms ({r['library_call']}, "
+              f"{r['ms'] / r['library_ms']:.2f}x)")
+    return t
+
+
+def check_dv_kernels(lib):
+    """B1, B3, B2 and the preprocess at q/k head dim 192 beside v head dim
+    128 (csrc/flash_fwd_192.cu, csrc/flash_bwd_192.cu) on every DV_CASES
+    case (dv_case), and their registers, stack and spilled bytes a thread
+    (cuobjdump -res-usage). Returns the errors by kernels-line row and the
+    resources."""
+    from flash_attn_tpu_torch.utils.cases import DV_CASES
+
+    errs = {}
+    for case in DV_CASES:
+        for row, e in dv_case(case).items():
+            errs[row] = max(errs.get(row, 0.0), e)
+        torch.cuda.empty_cache()
+    res = {}
+    for ty in ("13__nv_bfloat16", "6__half"):
+        res.update({f"{label} {ty.lstrip('0123456789')}": u for label, u in
+                    kernel_resources(lib, {
+                        "B1": ("dense_fwd10fwd_kernel", ty,
+                               "Li192ELb0ELb0ELi128E"),
+                        "preprocess": ("dense_bwd17preprocess_kernel", ty,
+                                       "Li192ELi128E"),
+                        "dkdv": ("dense_bwd11dkdv_kernel", ty,
+                                 "Li192ELb0ELb0ELb0ELi128E"),
+                        "dkdv fused": ("dense_bwd11dkdv_kernel", ty,
+                                       "Li192ELb1ELb0ELb0ELi128E"),
+                        "dq": ("dense_bwd9dq_kernel", ty,
+                               "Li192ELb0ELb0ELi128E")}).items()})
+    print("192 / 128 kernels' registers / stack / local bytes a thread "
+          "(cuobjdump -res-usage): " + "; ".join(
+              f"{label} " + ", ".join(
+                  f"{u.get('REG')}/{u.get('STACK')}/{u.get('LOCAL')}"
+                  for u in us) for label, us in res.items()))
+    return errs, res
+
+
+def run_deepseek_v3_attention(card, lib):
+    """DeepSeek-V3's attention trained without absorbing its MLA on the
+    card: the 61-layer stack through flash_attn_func (dsv3_stack, counted),
+    the kernels at 192 / 128 against their plain versions on DV_CASES
+    (check_dv_kernels), the counted deterministic=False call and qv on
+    flash_attn_func (dv_api_checks), and the timings at its layer shape
+    (dv_timings). Returns the launches of the counted runs, the errors,
+    the timings by kernels-line row and the kernels' resources."""
+    launches, peak = dsv3_stack()
+    torch.cuda.empty_cache()
+    errs, res = check_dv_kernels(lib)
+    launches = {"stack": launches, **dv_api_checks(errs)}
+    torch.cuda.empty_cache()
+    timings = dv_timings()
+    timings["flash_fwd"]["stack_peak_gb"] = peak
+    print(f"DeepSeek-V3's non-absorbed attention at 192 / 128 on {card}: "
+          f"every check held")
+    return launches, errs, timings, res
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -9875,6 +10326,9 @@ def main() -> int:
         "BTLM-3B-8K training", run_btlm_training, card)
     go_launches, go_err, go_t = phase("gpt-oss-20b attention with sinks",
                                       run_gpt_oss_sinks, card)
+    dv_launches, dv_err, dv_t, dv_res = phase(
+        "DeepSeek-V3 attention at 192 / 128", run_deepseek_v3_attention, card,
+        lib)
     for name, r in wide_train.items():
         print(f"{name} trained at full width, {r['layers']} layers "
               f"({r['params_b']:.2f}B parameters), b={TRAIN_BATCH} x "
@@ -10441,6 +10895,22 @@ def main() -> int:
               ("flash_paged_prefill_sink", "flash_paged_prefill.cu",
                "flash_paged_prefill.py:60",
                go_launches["mla"]["flash_paged_prefill_sink"]))),
+        # q/k head dim 192 beside v head dim 128: B1's, the preprocess's and
+        # B3's pair's launches those of DeepSeek-V3's 61-layer stack, B2's
+        # the counted deterministic=False call at its layer shape; timed
+        # at that shape (dv_timings)
+        *(entry(f"{row}_d192", "flash_fwd_192.cu" if row == "flash_fwd"
+                else "flash_bwd_192.cu", replaces, n, dv_err[row], dv_t[row])
+          for row, replaces, n in (
+              ("flash_fwd", "flash_fwd.py:59",
+               dv_launches["stack"]["flash_fwd_dv"]),
+              ("flash_bwd_preprocess", "flash_bwd.py:408",
+               dv_launches["stack"]["flash_bwd_preprocess_dv"]),
+              ("flash_bwd", "flash_bwd.py:181",
+               dv_launches["stack"]["fa_bwd_dkdv_dv"]
+               + dv_launches["stack"]["fa_bwd_dq_dv"]),
+              ("flash_bwd_fused", "flash_bwd_fused.py:64",
+               dv_launches["fused"]["flash_bwd_fused_dv"]))),
         entry("smem_probe", "probes.cu", "benchmarks/vmem_probe.py:18",
               pr_launches["smem_probe"], pr_err["smem_probe"],
               pr_t["smem_probe"]),
@@ -10474,7 +10944,9 @@ def main() -> int:
                                  "kernel_resources": hb_res,
                                  "btlm": btlm_train, "mha_err": hm_err,
                                  "mha_launches": hm_launches},
-        "learnable_sink": {"timings": go_t, "launches": go_launches}}))
+        "learnable_sink": {"timings": go_t, "launches": go_launches},
+        "head_dims_192_128": {"timings": dv_t, "launches": dv_launches,
+                              "kernel_resources": dv_res}}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -84,7 +84,11 @@
 // dP. K and V of 64 rows (64 KB), two stages of Q + dO (128 KB), the two
 // A tiles (16 KB) and lse2 / delta take 209 KB of shared memory (dQ: Q +
 // dO 64 KB, two K + V stages 128 KB, one A tile: 201 KB), with one block
-// an SM. B10's walks, whose
+// an SM. V (and dO) may have a head dim of their own (DV: 128 beside q's
+// and k's 192, BwdPlan's Q_SPLIT and DqPlan): a dK/dV block then owns 64
+// KV rows whose warpgroups split each tile's q rows for all four products
+// and sum their partial dK and dV at the end, and a dQ block 128 q rows of
+// d = 128's plan over D's three panels. B10's walks, whose
 // tiles may be one warpgroup's alone, stay at d <= 128.
 //
 // Every product sits on uniform control flow (ptxas crashed on a wgmma
@@ -143,17 +147,64 @@ constexpr int BWD_ROW_PAD = 128;  // lse2 / delta rows are padded to this
 // Rows a dK/dV or dQ block owns at head dim d (host and device).
 __host__ __device__ constexpr int bwd_block_rows(int d) { return d > 128 ? 64 : 128; }
 
-template <int D>
+// Rows a dQ block owns at q/k head dim d and v head dim dv (host and
+// device): bwd_block_rows(d) at d = dv, 128 beside a dv of its own.
+__host__ __device__ constexpr int bwd_dq_rows(int d, int dv) {
+  return dv == d ? bwd_block_rows(d) : 128;
+}
+
+// DV: V's and dO's head dim, D's unless given. With a DV of its own (192 /
+// 128, Q_SPLIT) the dK/dV block owns 64 KV rows as under COL_SPLIT, and
+// its warpgroups split each streamed tile's q rows for all four products:
+// a warpgroup computes S^T and dP^T over its 32 q rows (N = 32), then dV
+// += P^T dO and dK += dS^T Q from its own registers at depth 32, over all
+// of dV's 128 and dK's 192 columns (64 + 96 fp32 a thread beside 16 + 16
+// of S^T and dP^T); the two partial sums meet once, at the block's end,
+// through the idle stage ring. So every product is the same instruction
+// in both warpgroups (no wgmma behind a warpgroup-divergent branch, which
+// ptxas serialises), no A tile goes through shared memory mid-tile, and
+// the tensor work splits evenly. A column split (COL_SPLIT's) would start
+// one warpgroup's MN-major B operand at Q's column 96, inside a panel.
+template <int D, int DV = D>
 struct BwdPlan {
   static constexpr bool COL_SPLIT = D > 128;
+  static constexpr bool Q_SPLIT = DV != D;
+  static_assert(!Q_SPLIT || (D == 192 && DV == 128), "BwdPlan: (d, dv)");
   static constexpr int ROWS = bwd_block_rows(D);
   static constexpr int DP = Tile<64, D>::PANELS * 64;
-  static constexpr int NACC = COL_SPLIT ? DP / 2 : DP;
+  // dK's accumulator columns of a warpgroup (under Q_SPLIT all of D's),
+  // and dV's (under Q_SPLIT all of DV's)
+  static constexpr int NACC = Q_SPLIT ? DP : COL_SPLIT ? DP / 2 : DP;
+  static constexpr int NACC_V = Q_SPLIT ? Tile<64, DV>::PANELS * 64 : NACC;
   static constexpr int STORE = COL_SPLIT ? NACC : D;
   // this warpgroup's first row in the block, and first column
   static __device__ __forceinline__ int row0(int wg) { return COL_SPLIT ? 0 : wg * 64; }
+  static __device__ __forceinline__ int col0(int wg) {
+    return COL_SPLIT && !Q_SPLIT ? wg * NACC : 0;
+  }
+};
+
+// dQ's block plan: BwdPlan's at DV = D; beside a DV of its own 128 q rows,
+// a warpgroup's 64 over all of D's columns (dQ 96 + S 32 + dP 32 fp32 a
+// thread at 192 / 128), whose product runs as N = 128 over Q's first two
+// panels and N = 64 over the third.
+template <int D, int DV = D>
+struct DqPlan {
+  static constexpr bool COL_SPLIT = BwdPlan<D>::COL_SPLIT && DV == D;
+  static constexpr int ROWS = bwd_dq_rows(D, DV);
+  static constexpr int DP = BwdPlan<D>::DP;
+  static constexpr int NACC = COL_SPLIT ? DP / 2 : DP;
+  static constexpr int STORE = COL_SPLIT ? NACC : D;
+  static __device__ __forceinline__ int row0(int wg) { return COL_SPLIT ? 0 : wg * 64; }
   static __device__ __forceinline__ int col0(int wg) { return COL_SPLIT ? wg * NACC : 0; }
 };
+
+// Registers [first, first + N / 2) of an accumulator array, as the
+// accumulators of one product over N of its columns.
+template <int N, int M>
+__device__ __forceinline__ auto acc_part(float (&acc)[M], int first) -> float (&)[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(acc + first);
+}
 
 struct BwdMaps {
   CUtensorMap q, k, v, dout;
@@ -364,10 +415,14 @@ __device__ __forceinline__ void bwd_dtanh4(float* ds, const uint32_t* dt, int j)
 
 // ---- dK / dV (and the fused dQ) --------------------------------------------
 
-template <int D, bool ACCUM_DQ>
+// K, V, two stages of Q + dO (then lse2 and delta), the A tiles, the
+// barriers; DV: V's and dO's head dim (BwdPlan), D's unless given.
+template <int D, bool ACCUM_DQ, int DV = D>
 struct DkdvLayout {
-  using KV = Tile<BwdPlan<D>::ROWS, D>;
+  using KV = Tile<BwdPlan<D>::ROWS, D>;   // K
+  using VT = Tile<BwdPlan<D>::ROWS, DV>;  // V
   using QT = Tile<BWD_KV_BM, D>;
+  using OT = Tile<BWD_KV_BM, DV>;  // dO
   using DS = Tile<64, BWD_KV_BM>;  // 64 KV rows' dS^T (or P^T) x KV_BM q
   static constexpr bool SPLIT = BwdPlan<D>::COL_SPLIT;
   // dS^T tiles: the fused pass's, one a warpgroup; under COL_SPLIT one
@@ -375,8 +430,8 @@ struct DkdvLayout {
   static constexpr int DS_TILES = SPLIT ? 1 : ACCUM_DQ ? 2 : 0;
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = KV::BYTES;
-  static constexpr int STAGE_OFF = 2 * KV::BYTES;
-  static constexpr int STAGE_BYTES = 2 * QT::BYTES;  // Q then dO
+  static constexpr int STAGE_OFF = KV::BYTES + VT::BYTES;
+  static constexpr int STAGE_BYTES = QT::BYTES + OT::BYTES;  // Q then dO
   static constexpr int DS_OFF = STAGE_OFF + BWD_STAGES * STAGE_BYTES;
   static constexpr int PT_OFF = DS_OFF + DS_TILES * DS::BYTES;
   static constexpr int VEC_OFF = PT_OFF + (SPLIT ? DS::BYTES : 0);  // lse2 then delta a stage
@@ -384,7 +439,7 @@ struct DkdvLayout {
   static constexpr int BYTES = BAR_OFF + 8 * (1 + BWD_STAGES);
   // what a launch asks for: the base is rounded up to 1024 bytes
   static constexpr int SMEM = BYTES + 1024;
-  static constexpr uint32_t KV_TX = 2 * KV::BYTES;
+  static constexpr uint32_t KV_TX = KV::BYTES + VT::BYTES;
   static constexpr uint32_t STAGE_TX = STAGE_BYTES + 2 * BWD_KV_BM * 4;
 };
 
@@ -395,15 +450,18 @@ struct DkdvLayout {
 // a.causal; a BandRangeQWalk) instead of the causal bound. SCORE (a BAND
 // instantiation): map the scores by `score`, each query head's slope from
 // `slopes` (the sequence's (h,) row, or none), and dS by the cap's dtanh.
-template <typename T, int D, bool ACCUM_DQ, bool BAND = false, bool SCORE = false,
+// DV: V's and dO's head dim (BwdPlan's Q_SPLIT), D's unless given.
+template <typename T, int D, bool ACCUM_DQ, bool BAND = false, bool SCORE = false, int DV = D,
           typename Src, typename Walk>
 __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
                                          int n0, unsigned char* smem, const Walk& walk,
                                          const Score& score = Score{},
                                          const float* slopes = nullptr) {
   static_assert(BAND || !SCORE, "bwd_dkdv: SCORE masks by the band");
-  using L = DkdvLayout<D, ACCUM_DQ>;
-  using P = BwdPlan<D>;
+  using L = DkdvLayout<D, ACCUM_DQ, DV>;
+  using P = BwdPlan<D, DV>;
+  static_assert(!P::Q_SPLIT || (!BAND && !Src::ZERO_TAIL),
+                "bwd_dkdv: a DV of its own takes the dense, band-free form");
   constexpr int BM = BWD_KV_BM;
   unsigned char* Ks = smem + L::K_OFF;
   unsigned char* Vs = smem + L::V_OFF;
@@ -429,10 +487,19 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
     const int hq = w.head;
     const int m0 = w.row;
     mbar_expect_tx(&full[st], L::STAGE_TX);
+    if constexpr (DV == D) {
 #pragma unroll
-    for (int c = 0; c < L::QT::PANELS; ++c) {
-      src.load_q(stage + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
-      src.load_do(stage + L::QT::BYTES + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
+      for (int c = 0; c < L::QT::PANELS; ++c) {
+        src.load_q(stage + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
+        src.load_do(stage + L::QT::BYTES + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < L::QT::PANELS; ++c)
+        src.load_q(stage + c * L::QT::PANEL_BYTES, &full[st], c * 64, m0, hq);
+#pragma unroll
+      for (int c = 0; c < L::OT::PANELS; ++c)
+        src.load_do(stage + L::QT::BYTES + c * L::OT::PANEL_BYTES, &full[st], c * 64, m0, hq);
     }
     bulk_load(vec, src.lse2(hq, m0), BM * 4, &full[st]);
     bulk_load(vec + BM, src.delta(hq, m0), BM * 4, &full[st]);
@@ -446,17 +513,34 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(kv_bar, L::KV_TX);
+    if constexpr (DV == D) {
 #pragma unroll
-    for (int c = 0; c < L::KV::PANELS; ++c) {
-      src.load_k(Ks + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
-      src.load_v(Vs + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
+      for (int c = 0; c < L::KV::PANELS; ++c) {
+        src.load_k(Ks + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
+        src.load_v(Vs + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < L::KV::PANELS; ++c)
+        src.load_k(Ks + c * L::KV::PANEL_BYTES, kv_bar, c * 64, n0, hk);
+#pragma unroll
+      for (int c = 0; c < L::VT::PANELS; ++c)
+        src.load_v(Vs + c * L::VT::PANEL_BYTES, kv_bar, c * 64, n0, hk);
     }
     if (total > 0) issue(0);
   }
 
-  float dk[P::NACC / 2], dv[P::NACC / 2];
+  // under Q_SPLIT this warpgroup's partial sums over its q rows
+  float dk[P::NACC / 2], dv[P::NACC_V / 2];
+  if constexpr (P::Q_SPLIT) {
 #pragma unroll
-  for (int i = 0; i < P::NACC / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < P::NACC / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < P::NACC_V / 2; ++i) dv[i] = 0.f;
+  } else {
+#pragma unroll
+    for (int i = 0; i < P::NACC / 2; ++i) dk[i] = dv[i] = 0.f;
+  }
 
   const int kr = P::row0(wg);  // this warpgroup's KV rows in the block
   const int kv0 = n0 + kr;
@@ -479,7 +563,7 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
     if constexpr (Src::ZERO_TAIL) {
       if (m0 + BM > sq) {  // the same for the whole block
         zero_tile_rows<BM, D>(Qs, sq - m0, BWD_THREADS);
-        zero_tile_rows<BM, D>(dOs, sq - m0, BWD_THREADS);
+        zero_tile_rows<BM, DV>(dOs, sq - m0, BWD_THREADS);
         fence_proxy_async();  // before wgmma reads them
         __syncthreads();
       }
@@ -522,7 +606,108 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
         }
       }
     };
-    if constexpr (P::COL_SPLIT) {
+    if constexpr (P::Q_SPLIT) {
+      // both warpgroups own the block's 64 KV rows (`active` is the
+      // block's), each the tile's q rows [q_off, q_off + 32) for all four
+      // products: S^T and dP^T at N = 32, then dV += P^T dO and dK += dS^T
+      // Q with P^T and dS^T packed from its own accumulators (depth 32)
+      // over all of dV's and dK's columns (dK as N = 128 over Q's first two
+      // panels and N = 64 over the third); the fused pass's dS^T halves go
+      // to the shared tile for add_dq
+      constexpr int HQ = BM / 2;
+      const int q_off = wg * HQ;
+      const bool active = kv0 < sk && (!a.causal || kv0 <= m0 + BM - 1 + shift);
+      if (active) {
+        float s[HQ / 2], dp[HQ / 2];
+#pragma unroll
+        for (int i = 0; i < HQ / 2; ++i) s[i] = dp[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<T, HQ, 0, 0>(s, L::KV::k_slice(Ks, 0, kk), L::QT::k_slice(Qs, q_off, kk),
+                                kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DV / 16; ++kk)
+          wgmma_ss<T, HQ, 0, 0>(dp, L::VT::k_slice(Vs, 0, kk), L::OT::k_slice(dOs, q_off, kk),
+                                kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        // P^T = exp2(S^T * scale_log2 - lse2), masked on the diagonal and
+        // the ragged end of the keys
+        const bool need_mask = (a.causal && kv0 + 63 > m0 + q_off + shift) || kv0 + 64 > sk;
+#pragma unroll
+        for (int j = 0; j < HQ / 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + q_off + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(s[4 * j + e], a.scale_log2, -((e & 1) ? l.y : l.x));
+            if (need_mask) {
+              const int kv = kv0 + warp * 16 + g + 8 * (e >> 1);
+              const int qrow = m0 + q_off + 8 * j + 2 * t4 + (e & 1);
+              if (kv >= sk || (a.causal && kv > qrow + shift)) x = -INFINITY;
+            }
+            s[4 * j + e] = exp2f(x);
+          }
+        }
+        uint32_t pa[HQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < HQ / 16; ++kk) pack_a<T>(pa[kk], s, kk);
+        // dV += P^T dO over this warpgroup's q rows
+        fence_regs(dv);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HQ / 16; ++kk)
+          wgmma_rs<T, P::NACC_V, 1>(dv, pa[kk], L::OT::mn_slice(dOs, q_off + 16 * kk), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T is in; dV may still run
+        fence_regs(dp);
+        // dS^T = P^T (dP^T - delta)
+#pragma unroll
+        for (int j = 0; j < HQ / 8; ++j) {
+          const float2 dl = *reinterpret_cast<const float2*>(delta_s + q_off + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[4 * j + e] *= dp[4 * j + e] - ((e & 1) ? dl.y : dl.x);
+        }
+        uint32_t da[HQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < HQ / 16; ++kk) pack_a<T>(da[kk], s, kk);
+        // dK += dS^T Q (scaled once at the end)
+        fence_regs(dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HQ / 16; ++kk) {
+          wgmma_rs<T, 128, 1>(acc_part<128>(dk, 0), da[kk],
+                              L::QT::mn_slice(Qs, q_off + 16 * kk), 1);
+          wgmma_rs<T, 64, 1>(acc_part<64>(dk, 64), da[kk],
+                             L::QT::mn_slice(Qs + 2 * L::QT::PANEL_BYTES, q_off + 16 * kk), 1);
+        }
+        wgmma_commit();
+        if constexpr (ACCUM_DQ) {
+          // this warpgroup's columns of the shared dS^T tile (add_dq)
+          unsigned char* DSs = smem + L::DS_OFF;
+#pragma unroll
+          for (int kk = 0; kk < HQ / 16; ++kk) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              // da[kk][i]: row g + 8 (i & 1), columns 16 kk + 8 (i >> 1) + 2 t4
+              const int row = warp * 16 + g + 8 * (i & 1);
+              const int col = q_off + 16 * kk + 8 * (i >> 1) + 2 * t4;
+              *reinterpret_cast<uint32_t*>(DSs + swz128(row, col)) = da[kk][i];
+            }
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(dv);
+        if constexpr (ACCUM_DQ) {
+          fence_proxy_async();
+          named_barrier(1, BWD_THREADS);  // both halves of dS^T are in
+          add_dq();
+        }
+      }
+    } else if constexpr (P::COL_SPLIT) {
       // both warpgroups own the block's 64 KV rows (the same for both, so
       // `active` is the block's): each computes S^T and dP^T over its 32
       // of the tile's q rows (N = 32) and writes its half of P^T and dS^T
@@ -549,8 +734,8 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
                                 kk > 0);
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<T, HQ, 0, 0>(dp, L::KV::k_slice(Vs, 0, kk), L::QT::k_slice(dOs, q_off, kk),
+        for (int kk = 0; kk < DV / 16; ++kk)
+          wgmma_ss<T, HQ, 0, 0>(dp, L::VT::k_slice(Vs, 0, kk), L::OT::k_slice(dOs, q_off, kk),
                                 kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
@@ -809,6 +994,48 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
     __syncthreads();  // both warpgroups are done with stage st
   }
 
+  if constexpr (P::Q_SPLIT) {
+    // the two warpgroups' partial sums meet in the idle stage ring, in the
+    // accumulators' own order (thread t's register i of each at one
+    // float): warpgroup 1 leaves its dK, warpgroup 0 its dV; then
+    // warpgroup 0 stores dK (scaled) over D columns and warpgroup 1 dV over
+    // DV, rows past sk skipped
+    static_assert((P::NACC + P::NACC_V) / 2 * 128 * 4 <= BWD_STAGES * L::STAGE_BYTES,
+                  "bwd_dkdv: the partial sums fit the stage ring");
+    float* part = reinterpret_cast<float*>(smem + L::STAGE_OFF);
+    const int lt = tid & 127;
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < P::NACC / 2; ++i) part[i * 128 + lt] = dk[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < P::NACC_V / 2; ++i) part[(P::NACC / 2 + i) * 128 + lt] = dv[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = kv0 + warp * 16 + g + 8 * i;
+      if (row >= sk) continue;
+      if (wg == 0) {
+        auto* dkg = src.dk(row, hk);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int e = 4 * j + 2 * i;
+          store_pair(dkg + 8 * j + 2 * t4, (dk[e] + part[e * 128 + lt]) * a.scale,
+                     (dk[e + 1] + part[(e + 1) * 128 + lt]) * a.scale);
+        }
+      } else {
+        auto* dvg = src.dv(row, hk);
+        const float* pv = part + (P::NACC / 2) * 128;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+          const int e = 4 * j + 2 * i;
+          store_pair(dvg + 8 * j + 2 * t4, dv[e] + pv[e * 128 + lt],
+                     dv[e + 1] + pv[(e + 1) * 128 + lt]);
+        }
+      }
+    }
+  } else {
   // dK (scaled) and dV in the inputs' type, this warpgroup's STORE columns
   // from col0, rows past sk skipped
 #pragma unroll
@@ -824,14 +1051,15 @@ __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
       store_pair(dvg + 8 * j + 2 * t4, dv[4 * j + 2 * i], dv[4 * j + 2 * i + 1]);
     }
   }
+  }
 }
 
 // bwd_dkdv over the dense walk: the causal band of the group's query heads.
-template <typename T, int D, bool ACCUM_DQ, typename Src>
+template <typename T, int D, bool ACCUM_DQ, int DV = D, typename Src>
 __device__ __forceinline__ void bwd_dkdv(const Src& src, BwdArgs a, int hk,
                                          int n0, unsigned char* smem) {
-  bwd_dkdv<T, D, ACCUM_DQ>(src, a, hk, n0, smem,
-                           BandQWalk(src.sq, src.sk, n0, a.causal, a.group, hk));
+  bwd_dkdv<T, D, ACCUM_DQ, false, false, DV>(
+      src, a, hk, n0, smem, BandQWalk(src.sq, src.sk, n0, a.causal, a.group, hk));
 }
 
 // bwd_dkdv's BAND instantiation over the band walk of `band`; SCORE: with
@@ -848,39 +1076,46 @@ __device__ __forceinline__ void bwd_dkdv_band(const Src& src, BwdArgs a, int hk,
 
 // ---- dQ ---------------------------------------------------------------------
 
-template <int D>
+// Q, dO, two stages of K + V, the A tile, lse2 and delta, the barriers;
+// DV: V's and dO's head dim (DqPlan), D's unless given.
+template <int D, int DV = D>
 struct DqLayout {
-  static constexpr int ROWS = BwdPlan<D>::ROWS;
+  static constexpr int ROWS = DqPlan<D, DV>::ROWS;
   using QT = Tile<ROWS, D>;
+  using OT = Tile<ROWS, DV>;  // dO
   using KT = Tile<BWD_Q_BN, D>;
+  using VT = Tile<BWD_Q_BN, DV>;
   using DS = Tile<64, BWD_Q_BN>;  // under COL_SPLIT: dS, 64 q rows x the keys
   static constexpr int Q_OFF = 0;
   static constexpr int DO_OFF = QT::BYTES;
-  static constexpr int STAGE_OFF = 2 * QT::BYTES;
-  static constexpr int STAGE_BYTES = 2 * KT::BYTES;  // K then V
+  static constexpr int STAGE_OFF = QT::BYTES + OT::BYTES;
+  static constexpr int STAGE_BYTES = KT::BYTES + VT::BYTES;  // K then V
   static constexpr int DS_OFF = STAGE_OFF + BWD_STAGES * STAGE_BYTES;
   static constexpr int VEC_OFF =
-      DS_OFF + (BwdPlan<D>::COL_SPLIT ? DS::BYTES : 0);  // lse2, delta
+      DS_OFF + (DqPlan<D, DV>::COL_SPLIT ? DS::BYTES : 0);  // lse2, delta
   static constexpr int BAR_OFF = VEC_OFF + 2 * ROWS * 4;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + BWD_STAGES);
   static constexpr int SMEM = BYTES + 1024;
-  static constexpr uint32_t Q_TX = 2 * QT::BYTES + 2 * ROWS * 4;
+  static constexpr uint32_t Q_TX = QT::BYTES + OT::BYTES + 2 * ROWS * 4;
   static constexpr uint32_t STAGE_TX = STAGE_BYTES;
 };
 
-// dQ of query rows [m0, m0 + BwdPlan<D>::ROWS) of query head hh of the sequence `src`
+// dQ of query rows [m0, m0 + DqPlan<D, DV>::ROWS) of query head hh of the sequence `src`
 // over the key tiles of `walk`, written once. `smem` is the 1024-aligned
-// base of DqLayout<D>::BYTES. BAND: mask by walk.band (a BandRangeKWalk),
+// base of DqLayout<D, DV>::BYTES. BAND: mask by walk.band (a BandRangeKWalk),
 // as bwd_dkdv. SCORE (a BAND instantiation): the score map, as bwd_dkdv.
-template <typename T, int D, bool BAND = false, bool SCORE = false, typename Src,
+// DV: V's and dO's head dim (DqPlan), D's unless given.
+template <typename T, int D, bool BAND = false, bool SCORE = false, int DV = D, typename Src,
           typename Walk>
 __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
                                        unsigned char* smem, const Walk& walk,
                                        const Score& score = Score{},
                                        const float* slopes = nullptr) {
   static_assert(BAND || !SCORE, "bwd_dq: SCORE masks by the band");
-  using L = DqLayout<D>;
-  using P = BwdPlan<D>;
+  using L = DqLayout<D, DV>;
+  using P = DqPlan<D, DV>;
+  static_assert(DV == D || (!BAND && !Src::ZERO_TAIL && !P::COL_SPLIT && P::NACC == 192),
+                "bwd_dq: a DV of its own takes the dense, band-free form at 192");
   constexpr int BN = BWD_Q_BN;
   constexpr int ROWS = P::ROWS;
   unsigned char* Qs = smem + L::Q_OFF;
@@ -907,10 +1142,19 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
     unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE_BYTES;
     const int n0 = walk.next(t, st).row;
     mbar_expect_tx(&full[st], L::STAGE_TX);
+    if constexpr (DV == D) {
 #pragma unroll
-    for (int c = 0; c < L::KT::PANELS; ++c) {
-      src.load_k(stage + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
-      src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
+      for (int c = 0; c < L::KT::PANELS; ++c) {
+        src.load_k(stage + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
+        src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < L::KT::PANELS; ++c)
+        src.load_k(stage + c * L::KT::PANEL_BYTES, &full[st], c * 64, n0, hk);
+#pragma unroll
+      for (int c = 0; c < L::VT::PANELS; ++c)
+        src.load_v(stage + L::KT::BYTES + c * L::VT::PANEL_BYTES, &full[st], c * 64, n0, hk);
     }
   };
 
@@ -922,10 +1166,19 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(q_bar, L::Q_TX);
+    if constexpr (DV == D) {
 #pragma unroll
-    for (int c = 0; c < L::QT::PANELS; ++c) {
-      src.load_q(Qs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
-      src.load_do(dOs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
+      for (int c = 0; c < L::QT::PANELS; ++c) {
+        src.load_q(Qs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
+        src.load_do(dOs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < L::QT::PANELS; ++c)
+        src.load_q(Qs + c * L::QT::PANEL_BYTES, q_bar, c * 64, m0, hh);
+#pragma unroll
+      for (int c = 0; c < L::OT::PANELS; ++c)
+        src.load_do(dOs + c * L::OT::PANEL_BYTES, q_bar, c * 64, m0, hh);
     }
     bulk_load(lse_s, src.lse2(hh, m0), ROWS * 4, q_bar);
     bulk_load(delta_s, src.delta(hh, m0), ROWS * 4, q_bar);
@@ -960,7 +1213,7 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
     if constexpr (Src::ZERO_TAIL) {
       if (n0 + BN > sk) {  // the same for the whole block
         zero_tile_rows<BN, D>(Ks, sk - n0, BWD_THREADS);
-        zero_tile_rows<BN, D>(Vs, sk - n0, BWD_THREADS);
+        zero_tile_rows<BN, DV>(Vs, sk - n0, BWD_THREADS);
         fence_proxy_async();  // before wgmma reads them
         __syncthreads();
       }
@@ -1108,9 +1361,9 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
                                 L::KT::k_slice(Ks, 0, kk), kk > 0);
         wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<T, BN, 0, 0>(dp, L::QT::k_slice(dOs, qr, kk),
-                                L::KT::k_slice(Vs, 0, kk), kk > 0);
+        for (int kk = 0; kk < DV / 16; ++kk)
+          wgmma_ss<T, BN, 0, 0>(dp, L::OT::k_slice(dOs, qr, kk),
+                                L::VT::k_slice(Vs, 0, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
@@ -1186,10 +1439,20 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
         for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(da[kk], s, kk);
         fence_regs(dq);
         wgmma_fence();
+        if constexpr (P::NACC == 192) {
+          // over K's first two panels (N = 128) and its third (N = 64)
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk) {
+            wgmma_rs<T, 128, 1>(acc_part<128>(dq, 0), da[kk], L::KT::mn_slice(Ks, 16 * kk), 1);
+            wgmma_rs<T, 64, 1>(acc_part<64>(dq, 64), da[kk],
+                               L::KT::mn_slice(Ks + 2 * L::KT::PANEL_BYTES, 16 * kk), 1);
+          }
+        } else {
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
           wgmma_rs<T, P::NACC, 1>(
               dq, da[kk], L::KT::mn_slice(Ks + cpanel * L::KT::PANEL_BYTES, 16 * kk), 1);
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -1211,11 +1474,11 @@ __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0
 }
 
 // bwd_dq over the dense walk: the key tiles of the causal band.
-template <typename T, int D, typename Src>
+template <typename T, int D, int DV = D, typename Src>
 __device__ __forceinline__ void bwd_dq(const Src& src, BwdArgs a, int hh, int m0,
                                        unsigned char* smem) {
-  bwd_dq<T, D>(src, a, hh, m0, smem,
-               BandKWalk(src.sq, src.sk, m0, a.causal, hh, BwdPlan<D>::ROWS));
+  bwd_dq<T, D, false, false, DV>(
+      src, a, hh, m0, smem, BandKWalk(src.sq, src.sk, m0, a.causal, hh, DqPlan<D, DV>::ROWS));
 }
 
 // bwd_dq's BAND instantiation over the band walk of `band`; SCORE: with

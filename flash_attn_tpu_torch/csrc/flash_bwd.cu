@@ -1,10 +1,11 @@
 // Dense attention backward for Hopper (sm_90a) on wgmma and TMA, bf16 /
-// fp16, head dims 64, 80, 96, 128 and 256 (the kernels are in
-// flash_bwd.cuh; this source compiles 64 and 128 and holds the C entry
-// points, flash_bwd_wide.cu compiles 96 and 256, flash_bwd_band.cu and
-// flash_bwd_band_wide.cu the band instantiations, flash_bwd_score.cu and
-// flash_bwd_score_wide.cu the score instantiations, flash_bwd_80.cu and
-// flash_bwd_score_80.cu every form at 80).
+// fp16, head dims 64, 80, 96, 128 and 256, and q/k head dim 192 beside v
+// head dim 128 (the kernels are in flash_bwd.cuh; this source compiles 64
+// and 128 and holds the C entry points, flash_bwd_wide.cu compiles 96 and
+// 256, flash_bwd_band.cu and flash_bwd_band_wide.cu the band
+// instantiations, flash_bwd_score.cu and flash_bwd_score_wide.cu the score
+// instantiations, flash_bwd_80.cu and flash_bwd_score_80.cu every form at
+// 80, flash_bwd_192.cu the band-free, score-free form at 192 / 128).
 //
 // Replaces the TPU kernels flash_attn_tpu/kernels/flash_bwd.py:_dkdv_kernel
 // and :_dq_kernel (the deterministic two-kernel backward),
@@ -117,15 +118,16 @@ struct Operands {
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, do_sb, do_ss, do_sh;
 };
 
-// Maps of q and dout with boxes of q_rows rows, k and v of kv_rows rows.
+// Maps of q (d columns) and dout (dv) with boxes of q_rows rows, k (d) and
+// v (dv) of kv_rows rows.
 cudaError_t make_maps(BwdMaps* m, const Operands& o, bool bf16, int b, int sq, int sk,
-                      int h, int h_k, int d, int q_rows, int kv_rows) {
+                      int h, int h_k, int d, int dv, int q_rows, int kv_rows) {
   cudaError_t err;
   if ((err = make_map(&m->q, o.q, bf16, d, sq, h, b, o.q_ss, o.q_sh, o.q_sb, q_rows)) ||
-      (err = make_map(&m->dout, o.dout, bf16, d, sq, h, b, o.do_ss, o.do_sh, o.do_sb,
+      (err = make_map(&m->dout, o.dout, bf16, dv, sq, h, b, o.do_ss, o.do_sh, o.do_sb,
                       q_rows)) ||
       (err = make_map(&m->k, o.k, bf16, d, sk, h_k, b, o.k_ss, o.k_sh, o.k_sb, kv_rows)) ||
-      (err = make_map(&m->v, o.v, bf16, d, sk, h_k, b, o.v_ss, o.v_sh, o.v_sb, kv_rows)))
+      (err = make_map(&m->v, o.v, bf16, dv, sk, h_k, b, o.v_ss, o.v_sh, o.v_sb, kv_rows)))
     return err;
   return cudaSuccess;
 }
@@ -149,9 +151,13 @@ BwdParams make_params(const float* lse2, const float* delta, int sq, int sk, int
   return p;
 }
 
-bool valid(int b, int sq, int sk, int sq_pad, int h, int h_k, int d) {
+// (d, dv) = (192, 128): the q/k and v head dims of flash_bwd_192.cu's form.
+bool mla_dims(int d, int dv) { return d == 192 && dv == 128; }
+
+bool valid(int b, int sq, int sk, int sq_pad, int h, int h_k, int d, int dv) {
   return b > 0 && sq > 0 && sk > 0 && h_k > 0 && h % h_k == 0 &&
-         (d == 64 || d == 80 || d == 96 || d == 128 || d == 256) &&
+         (mla_dims(d, dv) ||
+          (dv == d && (d == 64 || d == 80 || d == 96 || d == 128 || d == 256))) &&
          sq_pad % BWD_ROW_PAD == 0 &&
          sq_pad >= sq;
 }
@@ -173,24 +179,27 @@ bool wide(int d) { return d == 96 || d == 256; }
 // delta = rowsum(dout * out) (b, h, sq_pad) fp32 and lse2 = lse * log2(e)
 // (+inf where lse is -inf), delta 0 and lse2 +inf on the rows [sq, sq_pad);
 // with dq_accum (b, sq, h, d) fp32 given, also zeroes it. dout/out (b, sq,
-// h, d) by element strides with the head dim contiguous; lse (b, h, sq)
-// contiguous fp32. Returns a cudaError_t (0 on success).
+// h, dv) by element strides with the head dim contiguous; lse (b, h, sq)
+// contiguous fp32. d is q's head dim (dq_accum's columns). Returns a
+// cudaError_t (0 on success).
 extern "C" int fa_bwd_preprocess(const void* dout, const void* out, const float* lse,
                                  float* lse2, float* delta, float* dq_accum, int b,
-                                 int sq, int sq_pad, int h, int d, int64_t do_sb,
+                                 int sq, int sq_pad, int h, int d, int dv, int64_t do_sb,
                                  int64_t do_ss, int64_t do_sh, int64_t o_sb,
                                  int64_t o_ss, int64_t o_sh, int is_bf16, void* stream) {
-  if (!valid(b, sq, 1, sq_pad, h, 1, d)) return (int)cudaErrorInvalidValue;
+  if (!valid(b, sq, 1, sq_pad, h, 1, d, dv)) return (int)cudaErrorInvalidValue;
   const PreParams p = {dout, out, lse, lse2, delta, dq_accum, b, sq, sq_pad, h,
                        do_sb, do_ss, do_sh, o_sb, o_ss, o_sh};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (mla_dims(d, dv)) return (int)run_pre_192(is_bf16, p, st);
   if (d == 80) return (int)run_pre_80(is_bf16, d, p, st);
   return (int)(wide(d) ? run_pre_wide(is_bf16, d, p, st)
                        : dispatch_dims<Pre>(NarrowDims{}, is_bf16, d, p, st));
 }
 
-// dK and dV (and, with dq_accum given, dQ * scale added into it). q/dout
-// (b, sq, h, d), k/v and dk/dv (b, sk, h_k, d), all by element strides with
+// dK and dV (and, with dq_accum given, dQ * scale added into it). q (b, sq,
+// h, d), dout (b, sq, h, dv), k and dk (b, sk, h_k, d), v and dv (b, sk,
+// h_k, dv), all by element strides with
 // the head dim contiguous, 16-byte aligned starts and strides (TMA); lse2 and
 // delta (b, h, sq_pad) from fa_bwd_preprocess; dq_accum (b, sq, h, d)
 // contiguous fp32, zeroed. block_q/block_k must name the tile the kernel is
@@ -201,12 +210,13 @@ extern "C" int fa_bwd_preprocess(const void* dout, const void* out, const float*
 // none) and the ALiBi slopes (b, h) fp32 at slopes[bb * slope_sb + hh]
 // (slope_sb 0 for one slope a head; nullptr: no ALiBi) launch the score
 // instantiation, which reads the band always (band_args' form: no bound
-// but the causal one when there is no band). Returns a cudaError_t.
+// but the causal one when there is no band). (d, dv) = (192, 128) takes
+// neither the band nor the score map. Returns a cudaError_t.
 extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse2,
                            const float* delta, void* dk, void* dv,
                            float* dq_accum, int b, int sq, int sk, int sq_pad,
-                           int h, int h_k, int d, int block_q, int block_k,
+                           int h, int h_k, int d, int d_v, int block_q, int block_k,
                            int64_t q_sb, int64_t q_ss, int64_t q_sh,
                            int64_t k_sb, int64_t k_ss, int64_t k_sh,
                            int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -218,13 +228,14 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
                            int64_t slope_sb, int is_bf16, void* stream) {
   const bool score = softcap > 0.f || slopes != nullptr;
   if (block_q != BWD_KV_BM || block_k != bwd_block_rows(d) ||
-      !valid(b, sq, sk, sq_pad, h, h_k, d) ||
-      !valid_band(causal, right, sink, chunk, band || score, softcap))
+      !valid(b, sq, sk, sq_pad, h, h_k, d, d_v) ||
+      !valid_band(causal, right, sink, chunk, band || score, softcap) ||
+      (mla_dims(d, d_v) && (band || score)))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   BwdMaps maps;
-  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, BWD_KV_BM,
+  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, d_v, BWD_KV_BM,
                               bwd_block_rows(d));
   if (err != cudaSuccess) return (int)err;
   BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal,
@@ -236,6 +247,7 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
   p.dk_sb = dk_sb; p.dk_ss = dk_ss; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_ss = dv_ss; p.dv_sh = dv_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (mla_dims(d, d_v)) return (int)run_dkdv_192(is_bf16, maps, p, b, h_k, st);
   if (d == 80)
     return (int)(score ? run_dkdv_score_80(is_bf16, d, maps, p, b, h_k, st)
                        : run_dkdv_80(is_bf16, d, maps, p, b, h_k, band, st));
@@ -250,11 +262,11 @@ extern "C" int fa_bwd_dkdv(const void* q, const void* k, const void* v,
 }
 
 // dQ (b, sq, h, d) in q's type, written once. Layouts, the band and the
-// score map as fa_bwd_dkdv.
+// score map as fa_bwd_dkdv; block_q names bwd_dq_rows(d, d_v).
 extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          const void* dout, const float* lse2,
                          const float* delta, void* dq, int b, int sq, int sk,
-                         int sq_pad, int h, int h_k, int d, int block_q, int block_k,
+                         int sq_pad, int h, int h_k, int d, int d_v, int block_q, int block_k,
                          int64_t q_sb, int64_t q_ss, int64_t q_sh,
                          int64_t k_sb, int64_t k_ss, int64_t k_sh,
                          int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -264,15 +276,16 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
                          int chunk, int band, float softcap, const float* slopes,
                          int64_t slope_sb, int is_bf16, void* stream) {
   const bool score = softcap > 0.f || slopes != nullptr;
-  if (block_q != bwd_block_rows(d) || block_k != BWD_Q_BN ||
-      !valid(b, sq, sk, sq_pad, h, h_k, d) ||
-      !valid_band(causal, right, sink, chunk, band || score, softcap))
+  if (block_q != bwd_dq_rows(d, d_v) || block_k != BWD_Q_BN ||
+      !valid(b, sq, sk, sq_pad, h, h_k, d, d_v) ||
+      !valid_band(causal, right, sink, chunk, band || score, softcap) ||
+      (mla_dims(d, d_v) && (band || score)))
     return (int)cudaErrorInvalidValue;
   const Operands o = {q, k, v, dout, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                       v_sb, v_ss, v_sh, do_sb, do_ss, do_sh};
   BwdMaps maps;
-  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, bwd_block_rows(d),
-                              BWD_Q_BN);
+  cudaError_t err = make_maps(&maps, o, is_bf16, b, sq, sk, h, h_k, d, d_v,
+                              bwd_dq_rows(d, d_v), BWD_Q_BN);
   if (err != cudaSuccess) return (int)err;
   BwdParams p = make_params(lse2, delta, sq, sk, sq_pad, h, h_k, d, scale, causal,
                             fa::band_from_args(left, right, sink, chunk), softcap, slopes,
@@ -280,6 +293,7 @@ extern "C" int fa_bwd_dq(const void* q, const void* k, const void* v,
   p.dq = dq;
   p.dq_sb = dq_sb; p.dq_ss = dq_ss; p.dq_sh = dq_sh;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (mla_dims(d, d_v)) return (int)run_dq_192(is_bf16, maps, p, b, st);
   if (d == 80)
     return (int)(score ? run_dq_score_80(is_bf16, d, maps, p, b, st)
                        : run_dq_80(is_bf16, d, maps, p, b, band, st));

@@ -8,7 +8,10 @@
 // csrc/flash_bwd_score.cu (64 and 128) and csrc/flash_bwd_score_wide.cu (96
 // and 256), and at head dim 80 csrc/flash_bwd_80.cu (the preprocess, the
 // band-free and the band instantiations) and csrc/flash_bwd_score_80.cu
-// (the score ones), so that the heavy instantiations build side by side.
+// (the score ones), and at q/k head dim 192 beside v head dim 128
+// csrc/flash_bwd_192.cu (the preprocess, dK/dV with and without the fused
+// pass's dQ, and dQ, band-free), so that the heavy instantiations build
+// side by side.
 #pragma once
 
 #include "bwd_sm90.cuh"
@@ -25,7 +28,7 @@ struct BwdParams {
   const float* delta;  // (b, h, sq_pad)
   void* dq;            // dq kernel: (b, sq, h, d) in q's type
   void* dk;
-  void* dv;
+  void* dv;            // (b, sk, h_k, dv)
   float* dq_accum;  // fused dkdv: (b, sq, h, d) fp32, zeroed
   int64_t dq_sb, dq_ss, dq_sh;
   int64_t dk_sb, dk_ss, dk_sh;
@@ -55,7 +58,9 @@ struct PreParams {
 
 // ---- preprocess -------------------------------------------------------------
 
-template <typename T, int D>
+// delta over dO's and O's DV columns; the fused pass's fp32 dQ rows of D
+// columns cleared (DV: D's unless given).
+template <typename T, int D, int DV = D>
 __global__ void __launch_bounds__(PRE_ROWS * 32) preprocess_kernel(const PreParams p) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * PRE_ROWS + (threadIdx.x >> 5);
@@ -70,8 +75,8 @@ __global__ void __launch_bounds__(PRE_ROWS * 32) preprocess_kernel(const PrePara
     }
     return;
   }
-  const int e = bwd_lane_elem<D>(lane);
-  const float acc = bwd_preprocess_row<T, D>(
+  const int e = bwd_lane_elem<DV>(lane);
+  const float acc = bwd_preprocess_row<T, DV>(
       reinterpret_cast<const T*>(p.dout) + bb * p.do_sb + row * p.do_ss + hh * p.do_sh + e,
       reinterpret_cast<const T*>(p.out) + bb * p.o_sb + row * p.o_ss + hh * p.o_sh + e);
   if (lane == 0) {
@@ -143,12 +148,17 @@ __device__ __forceinline__ const float* row_slopes(const BwdParams& p, int bb) {
 // dK/dV (and the fused dQ): one block per (KV head, batch row, block of
 // bwd_block_rows(D) KV rows), KV tile 0 (the heaviest under causal masking)
 // first. BAND: the q tiles of the band (p.band) alone. SCORE (with BAND;
-// p.band holds the causal bound): the scores mapped by p.score.
-template <typename T, int D, bool ACCUM_DQ, bool BAND, bool SCORE>
+// p.band holds the causal bound): the scores mapped by p.score. DV: v's and
+// dout's head dim, D's unless given (the band-free form alone beside
+// another).
+template <typename T, int D, bool ACCUM_DQ, bool BAND, bool SCORE, int DV = D>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     dkdv_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
-  if constexpr (SCORE)
+  if constexpr (DV != D)
+    bwd_dkdv<T, D, ACCUM_DQ, DV>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                                 blockIdx.z * BwdPlan<D>::ROWS, align_1024(smem_raw));
+  else if constexpr (SCORE)
     bwd_dkdv_band<T, D, ACCUM_DQ, true>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
                                         blockIdx.z * BwdPlan<D>::ROWS, align_1024(smem_raw),
                                         p.band, p.score, row_slopes(p, blockIdx.y));
@@ -162,12 +172,15 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 
 // dQ: one block per (head, batch row, block of bwd_block_rows(D) q rows),
 // the last (heaviest) q block first. BAND: the key tiles of the band alone.
-// SCORE: as dkdv_kernel.
-template <typename T, int D, bool BAND, bool SCORE>
+// SCORE and DV: as dkdv_kernel (the block's rows: DqPlan).
+template <typename T, int D, bool BAND, bool SCORE, int DV = D>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     dq_kernel(const __grid_constant__ BwdMaps maps, const BwdParams p) {
   extern __shared__ unsigned char smem_raw[];
-  if constexpr (SCORE)
+  if constexpr (DV != D)
+    bwd_dq<T, D, DV>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
+                     (gridDim.z - 1 - blockIdx.z) * DqPlan<D, DV>::ROWS, align_1024(smem_raw));
+  else if constexpr (SCORE)
     bwd_dq_band<T, D, true>(DenseSrc<T>(maps, p, blockIdx.y), p.a, blockIdx.x,
                             (gridDim.z - 1 - blockIdx.z) * BwdPlan<D>::ROWS,
                             align_1024(smem_raw), p.band, p.score, row_slopes(p, blockIdx.y));
@@ -192,31 +205,34 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, const BwdMaps& maps,
   return cudaGetLastError();
 }
 
+template <typename T, int D, int DV = D>
+cudaError_t run_pre(const PreParams& p, cudaStream_t st) {
+  const dim3 grid((p.sq_pad + PRE_ROWS - 1) / PRE_ROWS, p.h, p.b);
+  preprocess_kernel<T, D, DV><<<grid, PRE_ROWS * 32, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 struct Pre {
-  static cudaError_t run(const PreParams& p, cudaStream_t st) {
-    const dim3 grid((p.sq_pad + PRE_ROWS - 1) / PRE_ROWS, p.h, p.b);
-    preprocess_kernel<T, D><<<grid, PRE_ROWS * 32, 0, st>>>(p);
-    return cudaGetLastError();
-  }
+  static cudaError_t run(const PreParams& p, cudaStream_t st) { return run_pre<T, D>(p, st); }
 };
 
-template <typename T, int D, bool BAND, bool SCORE = false>
+template <typename T, int D, bool BAND, bool SCORE = false, int DV = D>
 cudaError_t run_dkdv(const BwdMaps& maps, const BwdParams& p, int b, int h_k, cudaStream_t st) {
   constexpr int rows = BwdPlan<D>::ROWS;
   const dim3 grid(h_k, b, (p.sk + rows - 1) / rows);
   if (p.dq_accum != nullptr)
-    return launch(dkdv_kernel<T, D, true, BAND, SCORE>, grid, DkdvLayout<D, true>::SMEM, maps,
-                  p, st);
-  return launch(dkdv_kernel<T, D, false, BAND, SCORE>, grid, DkdvLayout<D, false>::SMEM, maps,
-                p, st);
+    return launch(dkdv_kernel<T, D, true, BAND, SCORE, DV>, grid,
+                  DkdvLayout<D, true, DV>::SMEM, maps, p, st);
+  return launch(dkdv_kernel<T, D, false, BAND, SCORE, DV>, grid,
+                DkdvLayout<D, false, DV>::SMEM, maps, p, st);
 }
 
-template <typename T, int D, bool BAND, bool SCORE = false>
+template <typename T, int D, bool BAND, bool SCORE = false, int DV = D>
 cudaError_t run_dq(const BwdMaps& maps, const BwdParams& p, int b, cudaStream_t st) {
-  constexpr int rows = BwdPlan<D>::ROWS;
+  constexpr int rows = DqPlan<D, DV>::ROWS;
   const dim3 grid(p.h, b, (p.sq + rows - 1) / rows);
-  return launch(dq_kernel<T, D, BAND, SCORE>, grid, DqLayout<D>::SMEM, maps, p, st);
+  return launch(dq_kernel<T, D, BAND, SCORE, DV>, grid, DqLayout<D, DV>::SMEM, maps, p, st);
 }
 
 template <typename T, int D>
@@ -302,6 +318,15 @@ cudaError_t run_dkdv_score_80(bool bf16, int d, const BwdMaps& maps, const BwdPa
                               int b, int h_k, cudaStream_t st);
 cudaError_t run_dq_score_80(bool bf16, int d, const BwdMaps& maps, const BwdParams& p, int b,
                             cudaStream_t st);
+
+// The launches at q/k head dim 192 and v head dim 128 (csrc/flash_bwd_192.cu):
+// the preprocess, dK/dV (the fused pass's with p.dq_accum) and dQ, without
+// the band and the score map.
+cudaError_t run_pre_192(bool bf16, const PreParams& p, cudaStream_t st);
+cudaError_t run_dkdv_192(bool bf16, const BwdMaps& maps, const BwdParams& p, int b, int h_k,
+                         cudaStream_t st);
+cudaError_t run_dq_192(bool bf16, const BwdMaps& maps, const BwdParams& p, int b,
+                       cudaStream_t st);
 
 }  // namespace dense_bwd
 }  // namespace fa

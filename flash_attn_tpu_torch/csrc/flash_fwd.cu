@@ -1,5 +1,6 @@
 // Dense attention forward for Hopper (sm_90a) on wgmma and TMA, bf16 / fp16,
-// head dim 64, 80, 96, 128 or 256.
+// head dim 64, 80, 96, 128 or 256, or q/k head dim 192 beside v head dim
+// 128.
 //
 // Replaces the TPU kernel flash_attn_tpu/kernels/flash_fwd.py:_fwd_kernel,
 // together with the causal diagonal work of
@@ -31,12 +32,15 @@
 // without the band (csrc/flash_fwd_score.cu; the kernel in flash_fwd.cuh).
 // Head dim 80 (BTLM) runs every form in instantiations of its own
 // (csrc/flash_fwd_80.cu), the tile of 96: two 64-column panels whose
-// columns past 80 TMA fills with zeros.
+// columns past 80 TMA fills with zeros. q/k 192 beside v 128 (DeepSeek's
+// MLA, not absorbed) runs the band-free, score-free form in its own
+// (csrc/flash_fwd_192.cu): Q and K three panels, V and O two.
 //
-// Conventions: q (b, sq, h, d), k/v (b, sk, h_k, d) by element strides, the
-// head dim contiguous, 16-byte aligned starts and strides (TMA); out in q's
-// type, lse (b, h, sq) natural-log. The tensor maps are 4D over (d, s, h, b)
-// with rows past s zero-filled, encoded on the host for every call.
+// Conventions: q (b, sq, h, d), k (b, sk, h_k, d), v (b, sk, h_k, dv) by
+// element strides, the head dim contiguous, 16-byte aligned starts and
+// strides (TMA); out (dv columns) in q's type, lse (b, h, sq) natural-log.
+// The tensor maps are 4D over (d or dv, s, h, b) with rows past s
+// zero-filled, encoded on the host for every call.
 
 #include "flash_fwd.cuh"
 #include "fwd_sm90.cuh"
@@ -56,9 +60,11 @@ cudaError_t launch_band(const FwdMaps& maps, const FwdParams& p, int b, int d, b
 
 }  // namespace
 
-// q (b, sq, h, d), k/v (b, sk, h_k, d) given by element strides, the head
-// dim contiguous, 16-byte aligned starts and strides; out has q's type and
-// layout strides; lse (b, h, sq) fp32. The band (dispatch/band.py
+// q (b, sq, h, d), k (b, sk, h_k, d), v (b, sk, h_k, dv) given by element
+// strides, the head dim contiguous, 16-byte aligned starts and strides; out
+// (b, sq, h, dv) has q's type and layout strides; lse (b, h, sq) fp32.
+// (d, dv): one of 64, 80, 96, 128 and 256 twice, or (192, 128), which takes
+// neither the band nor the score map. The band (dispatch/band.py
 // band_args): window extents left and right (-1: no bound; right 0 under
 // causal masking), sink tokens and the chunk, read when `band` is set.
 // softcap (0: none) and the ALiBi slopes (b, h) fp32 at slopes[bb *
@@ -71,7 +77,7 @@ cudaError_t launch_band(const FwdMaps& maps, const FwdParams& p, int b, int d, b
 // kernel is compiled for (dispatch/config.py FWD_TILE).
 extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, int b, int sq, int sk, int h, int h_k, int d,
-                      int block_q, int block_k,
+                      int dv, int block_q, int block_k,
                       int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                       int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                       int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
@@ -79,9 +85,13 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                       int sink, int chunk, int band, float softcap, const float* slopes,
                       int64_t slope_sb, const float* learnable_sink, int is_bf16,
                       void* stream) {
+  const bool score = softcap > 0.f || slopes != nullptr;
+  const bool mla = d == 192 && dv == 128;  // the band-free, score-free form
   if (block_q != FWD_M || block_k != FWD_N || b < 1 || sq < 1 || sk < 1 || h_k < 1 ||
-      h % h_k != 0 || (d != 64 && d != 80 && d != 96 && d != 128 && d != 256) || sink < 0 ||
-      chunk < 0 || (causal && right != 0 && band) || softcap < 0.f)
+      h % h_k != 0 ||
+      !(mla ? !band && !score
+            : dv == d && (d == 64 || d == 80 || d == 96 || d == 128 || d == 256)) ||
+      sink < 0 || chunk < 0 || (causal && right != 0 && band) || softcap < 0.f)
     return (int)cudaErrorInvalidValue;
   FwdMaps maps;
   cudaError_t err;
@@ -89,7 +99,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
                               FWD_M)) ||
       (err = make_tile_map<4>(&maps.k, k, is_bf16, {d, sk, h_k, b}, {k_ss, k_sh, k_sb},
                               FWD_N)) ||
-      (err = make_tile_map<4>(&maps.v, v, is_bf16, {d, sk, h_k, b}, {v_ss, v_sh, v_sb},
+      (err = make_tile_map<4>(&maps.v, v, is_bf16, {dv, sk, h_k, b}, {v_ss, v_sh, v_sb},
                               FWD_N)))
     return (int)err;
   FwdParams p;
@@ -111,7 +121,7 @@ extern "C" int fa_fwd(const void* q, const void* k, const void* v, void* out,
   p.slope_sb = slope_sb;
   p.sink = learnable_sink;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool score = softcap > 0.f || slopes != nullptr;
+  if (mla) return (int)run_fwd_192(is_bf16, maps, p, b, st);
   if (d == 80) return (int)run_fwd_80(is_bf16, maps, p, b, band, score, st);
   if (score) return (int)run_fwd_score(is_bf16, maps, p, b, d, band, st);
   return (int)(is_bf16 ? launch_band<__nv_bfloat16>(maps, p, b, d, band, st)

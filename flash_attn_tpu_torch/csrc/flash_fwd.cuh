@@ -2,8 +2,9 @@
 // element type, the head dim, BAND (the band masks) and SCORE (softcap and
 // ALiBi), shared by flash_fwd.cu, which holds the C entry point and the
 // instantiations without SCORE, flash_fwd_score.cu, which holds those
-// with it, and flash_fwd_80.cu, which holds every form at head dim 80, so
-// that the three sources build side by side.
+// with it, flash_fwd_80.cu, which holds every form at head dim 80, and
+// flash_fwd_192.cu, which holds q/k head dim 192 beside v head dim 128, so
+// that the four sources build side by side.
 #pragma once
 
 #include "fwd_sm90.cuh"
@@ -51,8 +52,10 @@ struct DenseSrc {
 // One block per (128-row query tile, head, batch row), the last q tile
 // (the heaviest under causal masking) first. BAND: the band's key tiles
 // alone, masked by p.band. SCORE: the scores mapped by p.score with the
-// block's head's slope. p.sink: the head's sink in the epilogue.
-template <typename T, int D, bool BAND, bool SCORE>
+// block's head's slope. p.sink: the head's sink in the epilogue. DV: v's
+// and out's head dim, D's unless given (the band-free, score-free form
+// alone beside another).
+template <typename T, int D, bool BAND, bool SCORE, int DV = D>
 __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
     fwd_kernel(const __grid_constant__ FwdMaps maps, const FwdParams p) {
   extern __shared__ unsigned char smem_raw[];
@@ -69,23 +72,27 @@ __global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
   t.m0 = (gridDim.z - 1 - blockIdx.z) * FWD_M;
   t.sink = p.sink != nullptr ? p.sink + hh : nullptr;
   if constexpr (SCORE) {
+    static_assert(DV == D, "fwd_kernel: the score map at dv != d");
     Score sc = p.score;
     if (p.slopes != nullptr) sc.slope = p.slopes[bb * p.slope_sb + hh] * FA_LOG2E;
     fwd_tile<T, D, false, BAND, true>(src, t, p.scale_log2, p.causal, smem,
                                       score_band<BAND>(p.band, p.causal), sc);
-  } else {
+  } else if constexpr (DV == D) {
     fwd_tile<T, D, false, BAND>(src, t, p.scale_log2, p.causal, smem, p.band);
+  } else {
+    static_assert(!BAND, "fwd_kernel: the band at dv != d");
+    fwd_tile<T, D, false, false, false, DV>(src, t, p.scale_log2, p.causal, smem);
   }
 }
 
-template <typename T, int D, bool BAND, bool SCORE>
+template <typename T, int D, bool BAND, bool SCORE, int DV = D>
 cudaError_t launch(const FwdMaps& maps, const FwdParams& p, int b, cudaStream_t stream) {
-  constexpr int smem = FwdLayout<D>::SMEM;
+  constexpr int smem = FwdLayout<D, 1, DV>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, D, BAND, SCORE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fwd_kernel<T, D, BAND, SCORE, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.h, b, (p.sq + FWD_M - 1) / FWD_M);
-  fwd_kernel<T, D, BAND, SCORE><<<grid, FWD_THREADS, smem, stream>>>(maps, p);
+  fwd_kernel<T, D, BAND, SCORE, DV><<<grid, FWD_THREADS, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -108,6 +115,11 @@ cudaError_t run_fwd_score(bool bf16, const FwdMaps& maps, const FwdParams& p, in
 // the other head dims take, with or without the band and the score map.
 cudaError_t run_fwd_80(bool bf16, const FwdMaps& maps, const FwdParams& p, int b, bool band,
                        bool score, cudaStream_t st);
+
+// The instantiation at q/k head dim 192 and v head dim 128
+// (csrc/flash_fwd_192.cu): without the band and the score map.
+cudaError_t run_fwd_192(bool bf16, const FwdMaps& maps, const FwdParams& p, int b,
+                        cudaStream_t st);
 
 }  // namespace dense_fwd
 }  // namespace fa

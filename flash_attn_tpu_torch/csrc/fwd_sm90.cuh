@@ -43,6 +43,9 @@
 // products hold the tensor cores: measured faster than one block an SM with
 // 64- or 128-key tiles, and than issuing tile t + 1's scores before tile t's
 // softmax within a block, which spills at 128 registers (PERF.md §6).
+// V may have a head dim of its own (DV; DeepSeek's non-absorbed MLA: q and
+// k 192 = 128 + 64 rope columns, v 128): Q and K span D's panels (QK^T runs
+// D / 16 depth slices), V and O DV's, and the epilogue stores DV columns.
 // The epilogue stages the normalised O of each warpgroup in its own rows of
 // the Q tile (swizzled, so the stores are free of bank conflicts) and
 // writes it out in 16-byte row chunks, rows past sq skipped: 7% faster at
@@ -70,19 +73,25 @@ constexpr int FWD_STAGES = 2;
 
 // Blocks an SM holds at head dim D (the kernels' __launch_bounds__): two up
 // to d = 128 (128 registers a thread), one at d = 256, whose 128 fp32 O
-// accumulators a thread and 193 KB of shared memory leave room for one.
+// accumulators a thread and 193 KB of shared memory leave room for one, and
+// one at d = 192 beside dv = 128: 64 O accumulators as at 128, but Q (48 KB)
+// and two stages of K (24 KB) + V (16 KB) take 128 KB of shared memory (a
+// third stage, 168 KB, measured 0.6% slower at DeepSeek-V3's layer: PERF.md
+// §6).
 template <int D>
 constexpr int fwd_min_blocks() { return D > 128 ? 1 : 2; }
 
 // QBUF Q tiles (the persistent varlen forward may keep a second one), then
-// the K/V stages, then the barriers: QBUF Q barriers, one a stage.
-template <int D, int QBUF = 1>
+// the K/V stages, then the barriers: QBUF Q barriers, one a stage. DV: V's
+// head dim (192 / 128: DeepSeek's non-absorbed MLA), D's unless given.
+template <int D, int QBUF = 1, int DV = D>
 struct FwdLayout {
   using QT = Tile<FWD_M, D>;
   using KT = Tile<FWD_N, D>;
+  using VT = Tile<FWD_N, DV>;
   static constexpr int Q_OFF = 0;
   static constexpr int STAGE_OFF = QBUF * QT::BYTES;
-  static constexpr int STAGE_BYTES = 2 * KT::BYTES;  // K then V
+  static constexpr int STAGE_BYTES = KT::BYTES + VT::BYTES;  // K then V
   static constexpr int BAR_OFF = STAGE_OFF + FWD_STAGES * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (QBUF + FWD_STAGES);
   // what a launch asks for: the base is rounded up to 1024 bytes
@@ -133,19 +142,28 @@ struct FwdAcc {
 };
 
 // Issue the TMA loads of K/V tile n (keys [64 n, 64 n + 64)) of `src` into
-// `stage`, counted on `bar`: one box a panel. A source whose tiles are not
-// one box a panel overloads fwd_issue_kv for its own type, found by
-// argument-dependent lookup (B8's paged source copies a tile as boxes of one
-// page's rows).
-template <int D, typename Src>
+// `stage`, counted on `bar`: one box a panel (K's D columns, V's DV). A
+// source whose tiles are not one box a panel overloads fwd_issue_kv for its
+// own type, found by argument-dependent lookup (B8's paged source copies a
+// tile as boxes of one page's rows).
+template <int D, int DV = D, typename Src>
 __device__ __forceinline__ void fwd_issue_kv(const Src& src, unsigned char* stage,
                                              uint64_t* bar, int n) {
-  using L = FwdLayout<D>;
+  using L = FwdLayout<D, 1, DV>;
   mbar_expect_tx(bar, L::STAGE_BYTES);
+  if constexpr (DV == D) {
 #pragma unroll
-  for (int c = 0; c < L::KT::PANELS; ++c) {
-    src.load_k(stage + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
-    src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
+    for (int c = 0; c < L::KT::PANELS; ++c) {
+      src.load_k(stage + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
+      src.load_v(stage + L::KT::BYTES + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < L::KT::PANELS; ++c)
+      src.load_k(stage + c * L::KT::PANEL_BYTES, bar, c * 64, n * FWD_N);
+#pragma unroll
+    for (int c = 0; c < L::VT::PANELS; ++c)
+      src.load_v(stage + L::KT::BYTES + c * L::VT::PANEL_BYTES, bar, c * 64, n * FWD_N);
   }
 }
 
@@ -209,15 +227,16 @@ __device__ __forceinline__ Band score_band(Band b, bool causal) {
 // which leaves its O, max and sum bitwise as they were. BAND: mask by
 // `band` (common.cuh; its right bound stands for `causal`) instead of the
 // causal bound; the band-free instantiation compiles to the code it was.
-// SCORE: map the scores by `score` before the mask (score_map).
-template <typename T, int D, bool ZERO_TAIL, bool BAND = false, bool SCORE = false>
-__device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
+// SCORE: map the scores by `score` before the mask (score_map). DV: V's
+// and O's head dim (FwdLayout), D's unless given.
+template <typename T, int D, bool ZERO_TAIL, bool BAND = false, bool SCORE = false, int DV = D>
+__device__ __forceinline__ void fwd_step(FwdAcc<DV>& a, const unsigned char* Qs,
                                          unsigned char* stage, int n0,
                                          const FwdRows<T>& t, float scale_log2,
                                          bool causal, int owner = -1,
                                          const Band& band = Band{},
                                          const Score& score = Score{}) {
-  using L = FwdLayout<D>;
+  using L = FwdLayout<D, 1, DV>;
   constexpr int BN = FWD_N;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;
@@ -233,7 +252,7 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
 
   if constexpr (ZERO_TAIL) {
     if (n0 + BN > t.sk) {  // the same for the whole block
-      zero_tile_rows<BN, D>(Vs, t.sk - n0, FWD_THREADS);
+      zero_tile_rows<BN, DV>(Vs, t.sk - n0, FWD_THREADS);
       fence_proxy_async();  // before wgmma reads them
       __syncthreads();
     }
@@ -331,7 +350,7 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
     }
     a.l_r[i] = __fmaf_rn(a.l_r[i], corr, rs);
 #pragma unroll
-    for (int j = 0; j < FwdAcc<D>::DP / 8; ++j) {
+    for (int j = 0; j < FwdAcc<DV>::DP / 8; ++j) {
       a.at(4 * j + 2 * i) = __fmul_rn(a.at(4 * j + 2 * i), corr);
       a.at(4 * j + 2 * i + 1) = __fmul_rn(a.at(4 * j + 2 * i + 1), corr);
     }
@@ -339,7 +358,7 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
 
   // O += P V, P packed from the S accumulators; one product a block of O's
   // columns (V's panels 2 b and 2 b + 1 at N = 128)
-  using A = FwdAcc<D>;
+  using A = FwdAcc<DV>;
   uint32_t pa[BN / 16][4];
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) pack_a<T>(pa[kk], s, kk);
@@ -350,7 +369,7 @@ __device__ __forceinline__ void fwd_step(FwdAcc<D>& a, const unsigned char* Qs,
 #pragma unroll
     for (int b = 0; b < A::NBLK; ++b)
       wgmma_rs<T, A::NB, 1>(a.o[b], pa[kk],
-                            L::KT::mn_slice(Vs + b * (A::NB / 64) * L::KT::PANEL_BYTES, 16 * kk), 1);
+                            L::VT::mn_slice(Vs + b * (A::NB / 64) * L::VT::PANEL_BYTES, 16 * kk), 1);
   wgmma_commit();
   wgmma_wait<0>();
   a.fence();
@@ -423,8 +442,11 @@ __device__ __forceinline__ void fwd_epilogue(const FwdAcc<D>& a, unsigned char* 
 // i - 1). BAND: the key tiles of `band` (KeyRange), from the first tile that
 // holds a key some row sees; no tile at all (out 0, lse -inf) when no row
 // sees any (with t.sink, lse = sink). SCORE: the scores mapped by `score`
-// (fwd_step). o_scale: the epilogue's.
-template <typename T, int D, bool ZERO_TAIL, bool BAND = false, bool SCORE = false,
+// (fwd_step). o_scale: the epilogue's. DV: V's and O's head dim (128 beside
+// D = 192: V's tiles two panels and O 64 accumulators a thread as at d =
+// 128, beside Q's and K's three panels; the epilogue stores DV columns), D's
+// unless given.
+template <typename T, int D, bool ZERO_TAIL, bool BAND = false, bool SCORE = false, int DV = D,
           typename Src>
 __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
                                          float scale_log2, bool causal,
@@ -432,7 +454,7 @@ __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
                                          const Band& band = Band{},
                                          const Score& score = Score{},
                                          float o_scale = 1.f) {
-  using L = FwdLayout<D>;
+  using L = FwdLayout<D, 1, DV>;
   unsigned char* Qs = smem + L::Q_OFF;
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* full = q_bar + 1;
@@ -451,22 +473,30 @@ __device__ __forceinline__ void fwd_tile(const Src& src, const FwdRows<T>& t,
     fence_barrier_init();
   }
   __syncthreads();
+  // fwd_issue_kv<D> at DV = D, the call B8's paged source overloads
   if (tid == 0 && total > 0) {
     fwd_issue_q<D>(src, Qs, q_bar, t.m0);
-    fwd_issue_kv<D>(src, stage(0), &full[0], n_lo);
+    if constexpr (DV == D) fwd_issue_kv<D>(src, stage(0), &full[0], n_lo);
+    else fwd_issue_kv<D, DV>(src, stage(0), &full[0], n_lo);
   }
 
-  FwdAcc<D> a;
+  FwdAcc<DV> a;
   a.init();
   if (total > 0) mbar_wait(q_bar, 0);
   for (int i = 0; i < total; ++i) {
-    if (tid == 0 && i + 1 < total)
-      fwd_issue_kv<D>(src, stage(i + 1), &full[(i + 1) % FWD_STAGES], n_lo + i + 1);
+    if (tid == 0 && i + 1 < total) {
+      if constexpr (DV == D)
+        fwd_issue_kv<D>(src, stage(i + 1), &full[(i + 1) % FWD_STAGES], n_lo + i + 1);
+      else
+        fwd_issue_kv<D, DV>(src, stage(i + 1), &full[(i + 1) % FWD_STAGES], n_lo + i + 1);
+    }
     mbar_wait(&full[i % FWD_STAGES], (i / FWD_STAGES) & 1);
-    fwd_step<T, D, ZERO_TAIL, BAND, SCORE>(a, Qs, stage(i), (n_lo + i) * FWD_N, t,
-                                           scale_log2, causal, -1, band, score);
+    fwd_step<T, D, ZERO_TAIL, BAND, SCORE, DV>(a, Qs, stage(i), (n_lo + i) * FWD_N, t,
+                                               scale_log2, causal, -1, band, score);
   }
-  fwd_epilogue<T, D>(a, Qs, t, o_scale);
+  // O's DV columns go out through the Q tile's first panels (the
+  // epilogue's layout is O's alone: its panels span 128 rows at any D)
+  fwd_epilogue<T, DV>(a, Qs, t, o_scale);
 }
 
 // The maps of one forward call.

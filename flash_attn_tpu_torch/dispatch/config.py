@@ -29,6 +29,18 @@ import torch
 # split the columns).
 HEAD_DIMS = (64, 80, 96, 128, 256)
 
+# (q/k, v) head-dim pairs with a value head dim of its own: 192 / 128, the
+# attention of DeepSeek's MLA when it is not absorbed (128 "nope" + 64 rope
+# columns of q and k, 128 of v), and so ``flash_attn_func(qv=)`` at (64,
+# 128) through JAX's concatenation. Only the dense forward B1, the dense
+# backwards B2 and B3 and their preprocess are compiled for it
+# (csrc/flash_fwd_192.cu, csrc/flash_bwd_192.cu, band-free and without the
+# score map), so they take DENSE_HEAD_DIMS; every other kernel takes
+# HEAD_DIMS alone (the packed and paged routes at 192 / 128 are ROADMAP.md
+# queue A, item 7).
+HEAD_DIM_PAIRS = ((192, 128),)
+DENSE_HEAD_DIMS = HEAD_DIMS + HEAD_DIM_PAIRS
+
 # Head dims of the block-sparse kernels B10 (csrc/flash_blocksparse.cu).
 # The rest (and d != dv, and every head dim of the MLA route but its
 # compiled forms, MLA_DECODE_DIMS) is ROADMAP.md queue A, item 7.
@@ -50,12 +62,29 @@ def scale_log2(scale: float) -> float:
 
 
 def check_head_dims(kernel: str, d: int, dk: int, dv: int, dims) -> None:
-    """Raise ValueError unless q, k and v share one head dim in ``dims``,
-    the set ``kernel`` is compiled for."""
-    if d not in dims or dk != d or dv != d:
+    """Raise ValueError unless q and k share a head dim and (d, v's) is in
+    ``dims``, the set ``kernel`` is compiled for: a head dim there is one
+    that q, k and v share, a (d, dv) pair one with a v head dim of its own
+    (HEAD_DIM_PAIRS)."""
+    if dk != d or not ((dv == d and d in dims) or (d, dv) in dims):
         raise ValueError(
             f"{kernel} kernel: head dims q {d}, k {dk}, v {dv}; it takes "
-            f"equal dims in {dims} (others are ROADMAP.md queue A, item 7)")
+            f"{dims} (an int: q, k and v alike; a pair: q/k and v) and no "
+            f"other (ROADMAP.md queue A, item 7)")
+
+
+def refuse_dv_forms(kernel: str, d: int, dv: int, band: bool,
+                    score: bool) -> None:
+    """Raise NotImplementedError for the band or the score map at a v head
+    dim of its own: the kernels at HEAD_DIM_PAIRS compile neither (each is
+    a template flag that would double their instantiations)."""
+    if dv == d or not (band or score):
+        return
+    form = ("the band (window, chunk, sink tokens)" if band
+            else "the score map (softcap, ALiBi)")
+    raise NotImplementedError(
+        f"{kernel} kernel: {form} at head dims {d} / {dv} is not ported yet "
+        f"(ROADMAP.md queue A, item 7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +137,19 @@ DENSE_BWD_TILES_256 = (BwdConfig(block_q=64, block_k=64),
                        BwdConfig(block_q=64, block_k=64))
 
 
-def dense_bwd_tiles(d: int) -> Tuple[BwdConfig, BwdConfig]:
-    """The dense backward's (dK/dV, dQ) tiles at head dim ``d``."""
+# The same at q/k head dim 192 beside v head dim 128: the dK/dV block owns
+# 64 KV rows (warpgroup 0 keeps dK's 192 columns, warpgroup 1 dV's 128),
+# the dQ block 128 query rows (a warpgroup's 64 over all 192 columns).
+DENSE_BWD_TILES_192_128 = (BwdConfig(block_q=64, block_k=64),
+                           BwdConfig(block_q=128, block_k=64))
+
+
+def dense_bwd_tiles(d: int, dv: Optional[int] = None) -> Tuple[BwdConfig,
+                                                             BwdConfig]:
+    """The dense backward's (dK/dV, dQ) tiles at q/k head dim ``d`` and v
+    head dim ``dv`` (d's unless given)."""
+    if dv is not None and dv != d:
+        return DENSE_BWD_TILES_192_128
     return DENSE_BWD_TILES_256 if d > 128 else DENSE_BWD_TILES
 
 # Rows of the preprocess kernel's lse and delta buffers are padded to a

@@ -83,6 +83,14 @@ def require_no_grad(name: str, *tensors) -> None:
             "it under torch.no_grad() or torch.inference_mode().")
 
 
+def _described(val) -> str:
+    """An argument as a refusal names it: a tensor by its shape and dtype
+    (its values would fill the message), anything else by its repr."""
+    if isinstance(val, torch.Tensor):
+        return f"<tensor of shape {tuple(val.shape)}, {val.dtype}>"
+    return repr(val)
+
+
 def reject_unsupported(name: str, roadmap_item: str = "", **args) -> None:
     """Raise for every argument set away from its default (value None,
     False, 0 or a (None, None) window), naming the ROADMAP.md item that
@@ -98,7 +106,7 @@ def reject_unsupported(name: str, roadmap_item: str = "", **args) -> None:
                 isinstance(val, tuple) and val == (None, None)):
             continue
         raise NotImplementedError(
-            f"{name}: {key}={val!r} is not ported yet (ROADMAP.md "
+            f"{name}: {key}={_described(val)} is not ported yet (ROADMAP.md "
             f"{roadmap_item or 'lists the arguments still to port'})")
 
 
@@ -226,9 +234,10 @@ def flash_attn_func(
     mask_mod=None,
     aux_tensors=None,
 ):
-    """q (batch, seqlen_q, nheads, head_dim), k/v (batch, seqlen_k,
-    nheads_k, head_dim) with nheads % nheads_k == 0. Causal masking is
-    bottom-right aligned. Returns out (batch, seqlen_q, nheads, head_dim);
+    """q (batch, seqlen_q, nheads, head_dim), k (batch, seqlen_k, nheads_k,
+    head_dim), v (batch, seqlen_k, nheads_k, head_dim_v) with nheads %
+    nheads_k == 0. Causal masking is bottom-right aligned. Returns out
+    (batch, seqlen_q, nheads, head_dim_v);
     with ``return_attn_probs``, (out, lse (batch, nheads, seqlen_q) fp32,
     S_dmask): the (batch, nheads, seqlen_q, seqlen_k) fp32 probabilities
     normalised by lse, rebuilt with torch ops as JAX does (for tests, not
@@ -236,7 +245,17 @@ def flash_attn_func(
     default, as in JAX) runs the dK/dV and dQ backward kernels, each
     writing its gradient once; False runs the fused backward with atomic
     dQ. On the card the forward and the backward take head dims 64, 80,
-    96, 128 and 256 (HEAD_DIMS); other head dims raise ValueError.
+    96, 128 and 256 (HEAD_DIMS), and head_dim 192 beside head_dim_v 128
+    (DENSE_HEAD_DIMS: DeepSeek's MLA when it is not absorbed, without the
+    band and the score map, which raise NotImplementedError there); other
+    head dims raise ValueError. ``qv`` (batch, seqlen_q, nheads,
+    head_dim_v), the MLA second query scored against v, runs as JAX's
+    (flash_attn_tpu/interface.py:257-276) by the concatenation q.k^T +
+    qv.v^T = [q, qv].[k, v]^T: the kernels at head_dim + head_dim_v beside
+    head_dim_v, forward and backward (dqv a slice of the concatenation's
+    gradient, v's the P V side plus the score side), the scale 1/sqrt(
+    head_dim + head_dim_v) unless given; on the card (64, 128) alone
+    reaches a compiled pair (192, 128).
     ``window_size`` (left, right; -1 or None for no bound),
     ``attention_chunk`` and ``sink_token_length`` mask as in JAX
     (dispatch/band.py), forward and backward (the kernels' band
@@ -250,13 +269,18 @@ def flash_attn_func(
     more logit to every row's softmax (dispatch/sink.py; a row that sees
     no key gives out 0 and lse equal to its sink), forward and backward
     in both ``deterministic`` modes; a ``requires_grad`` sink gets its
-    gradient in its own type. Every other option raises
-    NotImplementedError (ROADMAP.md queue A, item 7)."""
+    gradient in its own type. Every other option (descales, with ``qv`` or
+    without) raises NotImplementedError (ROADMAP.md queue A, item 7)."""
     reject_unsupported(
         "flash_attn_func", roadmap_item="queue A, item 7", dropout_p=dropout_p,
         dropout_rng=dropout_rng, q_descale=q_descale, k_descale=k_descale,
-        v_descale=v_descale, qv=qv, score_mod=score_mod, mask_mod=mask_mod,
+        v_descale=v_descale, score_mod=score_mod, mask_mod=mask_mod,
         aux_tensors=aux_tensors)
+    if qv is not None:
+        # one differentiable concatenation ahead of the kernels, as JAX's
+        # autodiff sees it
+        q = torch.cat([q, qv], dim=-1)
+        k = torch.cat([k, v], dim=-1)
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     window_size = normalize_window(tuple(window_size))

@@ -28,7 +28,7 @@ _F = ctypes.c_float
 # C entry points and their argument types (every pointer and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints).
 SIGNATURES = {
-    "fa_fwd": [_P] * 5 + [_I] * 8 + [_L] * 12 + [_F] + [_I] * 6
+    "fa_fwd": [_P] * 5 + [_I] * 9 + [_L] * 12 + [_F] + [_I] * 6
               + [_F, _P, _L, _P, _I, _P],
     "fa_decode": [_P] * 7 + [_I] * 12 + [_L] * 10 + [_F] + [_I] * 4
                  + [_F, _P, _L, _I, _P, _P, _I, _P],
@@ -38,10 +38,10 @@ SIGNATURES = {
     "fa_varlen_paged": [_P] * 10 + [_I] * 11 + [_L] * 11 + [_F] + [_I] * 4
                        + [_F, _P, _P, _P, _I, _P],
     "fa_kv_dequant": [_P] * 6 + [_I] * 7 + [_L] * 7 + [_I, _P],
-    "fa_bwd_preprocess": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_I, _P],
-    "fa_bwd_dkdv": [_P] * 9 + [_I] * 9 + [_L] * 18 + [_F] + [_I] * 6
+    "fa_bwd_preprocess": [_P] * 6 + [_I] * 6 + [_L] * 6 + [_I, _P],
+    "fa_bwd_dkdv": [_P] * 9 + [_I] * 10 + [_L] * 18 + [_F] + [_I] * 6
                    + [_F, _P, _L, _I, _P],
-    "fa_bwd_dq": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_F] + [_I] * 6
+    "fa_bwd_dq": [_P] * 7 + [_I] * 10 + [_L] * 15 + [_F] + [_I] * 6
                  + [_F, _P, _L, _I, _P],
     "fa_varlen_fwd": [_P] * 10 + [_I] * 8 + [_L] * 8 + [_F] + [_I] * 5
                      + [_F, _P, _L, _P, _I, _P],

@@ -21,8 +21,13 @@ kernel here; the fused path's final fp32 -> input-type cast of dQ stays a
 torch op. With a ``learnable_sink`` the kernels run as they are (the lse
 folds the sink in) and the sink's gradient is an epilogue of torch ops
 over the preprocess kernel's delta (dispatch/sink.py sink_grad), as it is
-an XLA epilogue in JAX (interface.py:185-200). A tensor on the CPU takes the plain versions; a CUDA tensor
-launches the kernels or raises.
+an XLA epilogue in JAX (interface.py:185-200). v (and so out and dO) may
+have a head dim of its own, 128 beside q's and k's 192 (HEAD_DIM_PAIRS:
+DeepSeek's MLA trained without absorbing it), in instantiations of their
+own (csrc/flash_bwd_192.cu) without the band and the score map, as JAX's
+kernels take dv (flash_bwd.py:363-386, flash_bwd_fused.py:58-71). A tensor
+on the CPU takes the plain versions; a CUDA tensor launches the kernels or
+raises.
 """
 
 import math
@@ -38,9 +43,10 @@ from flash_attn_tpu_torch.dispatch.band import (
 )
 from flash_attn_tpu_torch.dispatch.config import (
     DENSE_BWD_ROW_PAD,
-    HEAD_DIMS,
+    DENSE_HEAD_DIMS,
     check_head_dims,
     dense_bwd_tiles,
+    refuse_dv_forms,
 )
 from flash_attn_tpu_torch.dispatch.score import (
     alibi_bias,
@@ -55,7 +61,8 @@ from flash_attn_tpu_torch.kernels import _build
 # paths run fa_bwd_preprocess first; the deterministic path then runs
 # fa_bwd_dkdv and fa_bwd_dq, the fused path one fa_bwd_dkdv that adds dQ
 # into an fp32 buffer. The *_band and *_score counters count the band and
-# the score instantiations' launches among them.
+# the score instantiations' launches among them, the *_dv ones those at a v
+# head dim of its own (192 / 128).
 launches_preprocess = 0
 launches_dkdv = 0
 launches_dq = 0
@@ -66,6 +73,10 @@ launches_fused_band = 0
 launches_dkdv_score = 0
 launches_dq_score = 0
 launches_fused_score = 0
+launches_preprocess_dv = 0
+launches_dkdv_dv = 0
+launches_dq_dv = 0
+launches_fused_dv = 0
 
 Window = Tuple[Optional[int], Optional[int]]
 
@@ -75,7 +86,7 @@ def bwd_preprocess_plain(do, out, lse, row_pad: int = 1):
     and lse2 = lse * log2(e) (+inf where lse is -inf, so that P = 2^(S *
     scale * log2(e) - lse2) is 0 there), both (b, h, sq_pad) with sq_pad
     the next multiple of ``row_pad``; padded rows hold delta 0 and lse2
-    +inf. do/out (b, h, sq, d), lse (b, h, sq) natural-log."""
+    +inf. do/out (b, h, sq, dv), lse (b, h, sq) natural-log."""
     sq = do.shape[2]
     pad = -(-sq // row_pad) * row_pad - sq
     delta = (do.float() * out.float()).sum(-1)
@@ -92,8 +103,9 @@ def flash_attention_bwd_plain(do, q, k, v, out, lse,
                               sink_token_length: int = 0,
                               attention_chunk: int = 0, softcap: float = 0.0,
                               alibi_slopes=None, learnable_sink=None):
-    """Gradients of attention in fp32 from the saved forward. do/q/out
-    (b, h, sq, d), k/v (b, h_k, sk, d), lse (b, h, sq) natural-log, -inf
+    """Gradients of attention in fp32 from the saved forward. q (b, h, sq,
+    d), do/out (b, h, sq, dv), k (b, h_k, sk, d), v (b, h_k, sk, dv), lse
+    (b, h, sq) natural-log, -inf
     for rows that see no key; the scores mapped by ``softcap`` and
     ``alibi_slopes`` ((h,) or (b, h)) as the forward maps them
     (dispatch/score.py), then masked by the causal bound and the band
@@ -149,25 +161,28 @@ def _strides(x):
     return x.stride(0), x.stride(2), x.stride(1)
 
 
-def bwd_preprocess(do, out, lse, dq_accum=None):
+def bwd_preprocess(do, out, lse, dq_accum=None, d: Optional[int] = None):
     """The preprocess kernel: (delta, lse2) as
     ``bwd_preprocess_plain(do, out, lse, DENSE_BWD_ROW_PAD)``, reading dO
     and O once in their own type; with ``dq_accum`` ((b, sq, h, d) fp32,
     contiguous) given, it also zeroes it for the fused backward. do/out
-    (b, h, sq, d) with the head dim contiguous, lse (b, h, sq). A tensor on
-    the CPU takes the plain version. CUDA: bf16/fp16, d in HEAD_DIMS."""
+    (b, h, sq, dv) with the head dim contiguous, lse (b, h, sq); ``d``: q's
+    head dim (dv unless given). A tensor on the CPU takes the plain
+    version. CUDA: bf16/fp16, (d, dv) in DENSE_HEAD_DIMS (at 192 / 128 the
+    sum runs over dv's 128 columns, the clearing over d's 192)."""
     if do.device.type == "cpu":
         if dq_accum is not None:
             dq_accum.zero_()
         return bwd_preprocess_plain(do, out, lse, DENSE_BWD_ROW_PAD)
-    b, h, sq, d = do.shape
+    b, h, sq, dv = do.shape
+    d = dv if d is None else d
     if do.dtype not in (torch.bfloat16, torch.float16) \
             or out.shape != do.shape or lse.shape != (b, h, sq) or sq == 0:
         raise ValueError(
             f"bwd_preprocess kernel: do {tuple(do.shape)} {do.dtype}, out "
             f"{tuple(out.shape)}, lse {tuple(lse.shape)}; needs bf16/fp16 "
             f"and sq > 0")
-    check_head_dims("bwd_preprocess", d, d, d, HEAD_DIMS)
+    check_head_dims("bwd_preprocess", d, d, dv, DENSE_HEAD_DIMS)
     for name, x in (("do", do), ("out", out)):
         _build.check_operand("bwd_preprocess", name, x, do.dtype, do.device)
     if dq_accum is not None and (dq_accum.shape != (b, sq, h, d)
@@ -179,17 +194,18 @@ def bwd_preprocess(do, out, lse, dq_accum=None):
     sq_pad = -(-sq // DENSE_BWD_ROW_PAD) * DENSE_BWD_ROW_PAD
     delta = torch.empty((b, h, sq_pad), dtype=torch.float32, device=do.device)
     lse2 = torch.empty_like(delta)
-    global launches_preprocess
+    global launches_preprocess, launches_preprocess_dv
     with torch.cuda.device(do.device):
         err = _build.load_library().fa_bwd_preprocess(
             do.data_ptr(), out.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
             delta.data_ptr(),
             None if dq_accum is None else dq_accum.data_ptr(),
-            b, sq, sq_pad, h, d, *_strides(do), *_strides(out),
+            b, sq, sq_pad, h, d, dv, *_strides(do), *_strides(out),
             int(do.dtype == torch.bfloat16),
             torch.cuda.current_stream(do.device).cuda_stream)
         _build.check(err, "fa_bwd_preprocess")
         launches_preprocess += 1
+        launches_preprocess_dv += dv != d
     return delta, lse2
 
 
@@ -207,9 +223,11 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     ``deterministic`` runs the dK/dV kernel and the dQ kernel, each writing
     its gradient once; otherwise one fused launch adds dQ into an fp32
     buffer with atomics (run-to-run bits may differ). Returns (b, h, s, d)
-    views of (b, s, h, d) tensors in the inputs' type. CUDA: bf16/fp16, d
-    in HEAD_DIMS (80 on the tile plan of 96, 256 on blocks of 64 rows,
-    dense_bwd_tiles), h % h_k == 0. ``window_size`` (left, right) with
+    views of (b, s, h, d) tensors in the inputs' type (dv's (b, h_k, sk,
+    dv)). CUDA: bf16/fp16, d = dv in HEAD_DIMS (80 on the tile plan of 96,
+    256 on blocks of 64 rows, dense_bwd_tiles) or (d, dv) = (192, 128)
+    (DENSE_HEAD_DIMS; neither the band nor the score map there,
+    NotImplementedError), h % h_k == 0. ``window_size`` (left, right) with
     None for no bound, ``sink_token_length`` and ``attention_chunk`` as in
     the forward
     (dispatch/band.py): with a band, both paths launch the kernels' band
@@ -228,27 +246,32 @@ def flash_attention_bwd(do, q, k, v, out, lse,
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
     b, h, sq, d = q.shape
     bk_, h_k, sk, dk_ = k.shape
+    dv_ = v.shape[-1]
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_bwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    check_head_dims("flash_bwd", d, dk_, v.shape[-1], HEAD_DIMS)
-    if bk_ != b or h % h_k or v.shape != k.shape or do.shape != q.shape \
-            or out.shape != q.shape \
+    check_head_dims("flash_bwd", d, dk_, dv_, DENSE_HEAD_DIMS)
+    if bk_ != b or h % h_k or v.shape[:3] != k.shape[:3] \
+            or do.shape != (b, h, sq, dv_) or out.shape != do.shape \
             or lse.shape != (b, h, sq):
         raise ValueError(
             f"flash_bwd kernel: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"do {tuple(do.shape)}, out {tuple(out.shape)}, "
-            f"lse {tuple(lse.shape)}")
+            f"v {tuple(v.shape)}, do {tuple(do.shape)}, out "
+            f"{tuple(out.shape)}, lse {tuple(lse.shape)}")
     if b > 65535 or h > 65535:
         raise ValueError("flash_bwd kernel: batch and heads must be <= 65535")
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do), ("out", out)):
         _build.check_operand("flash_bwd", name, x, q.dtype, q.device)
     sink = sink_arg("flash_bwd", learnable_sink, h, q.device)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
+    window = reach_window(window_size, causal, sq, sk)
+    band = has_band(causal, window, attention_chunk)
+    score = has_score(softcap, alibi_slopes)
+    refuse_dv_forms("flash_bwd", d, dv_, band, score)
     # Gradients are allocated (b, s, h, d) so that the public bshd views
     # are contiguous; they are returned as their (b, h, s, d) views.
     alloc = torch.zeros if sq == 0 or sk == 0 else torch.empty
     dk = alloc((b, sk, h_k, d), dtype=k.dtype, device=q.device)
-    dv = alloc((b, sk, h_k, d), dtype=v.dtype, device=q.device)
+    dv = alloc((b, sk, h_k, dv_), dtype=v.dtype, device=q.device)
     dq = alloc((b, sq, h, d), dtype=q.dtype, device=q.device)
     if sq == 0 or sk == 0:  # out is 0: so is dsink
         grads = dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
@@ -256,15 +279,13 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     # the fused path's fp32 dQ, zeroed by the preprocess kernel
     dq_accum = None if deterministic else torch.empty(
         (b, sq, h, d), dtype=torch.float32, device=q.device)
-    delta, lse2 = bwd_preprocess(do, out, lse, dq_accum)
+    delta, lse2 = bwd_preprocess(do, out, lse, dq_accum, d)
     sq_pad = delta.shape[-1]
-    window = reach_window(window_size, causal, sq, sk)
-    band = has_band(causal, window, attention_chunk)
-    score = has_score(softcap, alibi_slopes)
     slopes = slopes_bh(alibi_slopes, b, h, q.device)
     banded = (*band_args(causal, window, sink_token_length, attention_chunk),
               int(band), float(softcap), *slope_args(slopes))
-    dkdv_tile, dq_tile = dense_bwd_tiles(d)
+    dkdv_tile, dq_tile = dense_bwd_tiles(d, dv_)
+    own_dv = dv_ != d
     lib = _build.load_library()
     is_bf16 = int(q.dtype == torch.bfloat16)
     operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -273,12 +294,13 @@ def flash_attention_bwd(do, q, k, v, out, lse,
     global launches_dkdv, launches_dq, launches_fused
     global launches_dkdv_band, launches_dq_band, launches_fused_band
     global launches_dkdv_score, launches_dq_score, launches_fused_score
+    global launches_dkdv_dv, launches_dq_dv, launches_fused_dv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_bwd_dkdv(
             *operands, dk.data_ptr(), dv.data_ptr(),
             None if dq_accum is None else dq_accum.data_ptr(),
-            b, sq, sk, sq_pad, h, h_k, d, dkdv_tile.block_q,
+            b, sq, sk, sq_pad, h, h_k, d, dv_, dkdv_tile.block_q,
             dkdv_tile.block_k, *strides,
             dk.stride(0), dk.stride(1), dk.stride(2),
             dv.stride(0), dv.stride(1), dv.stride(2),
@@ -288,8 +310,9 @@ def flash_attention_bwd(do, q, k, v, out, lse,
             launches_dkdv += 1
             launches_dkdv_band += band
             launches_dkdv_score += score
+            launches_dkdv_dv += own_dv
             err = lib.fa_bwd_dq(
-                *operands, dq.data_ptr(), b, sq, sk, sq_pad, h, h_k, d,
+                *operands, dq.data_ptr(), b, sq, sk, sq_pad, h, h_k, d, dv_,
                 dq_tile.block_q, dq_tile.block_k, *strides,
                 dq.stride(0), dq.stride(1), dq.stride(2),
                 scale, int(causal), *banded, is_bf16, stream)
@@ -297,10 +320,12 @@ def flash_attention_bwd(do, q, k, v, out, lse,
             launches_dq += 1
             launches_dq_band += band
             launches_dq_score += score
+            launches_dq_dv += own_dv
         else:
             launches_fused += 1
             launches_fused_band += band
             launches_fused_score += score
+            launches_fused_dv += own_dv
             dq.copy_(dq_accum)
     grads = dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
     if sink is None:

@@ -11,7 +11,10 @@ the kernel of the earlier releases bit for bit. ``softcap`` and
 ``alibi_slopes`` (dispatch/score.py) launch the kernel's score
 instantiation, with or without the band. ``learnable_sink`` (dispatch/
 sink.py) runs in every instantiation's epilogue, read from a runtime
-pointer. Layout (b, h, s, d) as in the JAX function.
+pointer. v may have a head dim of its own, 128 beside q's and k's 192
+(DeepSeek's MLA when it is not absorbed: HEAD_DIM_PAIRS), in an
+instantiation of its own (csrc/flash_fwd_192.cu) without the band and the
+score map. Layout (b, h, s, d) as in the JAX function.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises (TMA takes only 16-byte aligned starts and strides: any
 other view raises ValueError, nothing is copied).
@@ -29,9 +32,10 @@ from flash_attn_tpu_torch.dispatch.band import (
     reach_window,
 )
 from flash_attn_tpu_torch.dispatch.config import (
+    DENSE_HEAD_DIMS,
     FWD_TILE,
-    HEAD_DIMS,
     check_head_dims,
+    refuse_dv_forms,
     scale_log2,
 )
 from flash_attn_tpu_torch.dispatch.score import (
@@ -46,12 +50,14 @@ from flash_attn_tpu_torch.kernels import _build
 
 
 # Kernel launches since the last reset (plain calls not counted): all of
-# them, and those of the band and of the score instantiations and those
-# with a learnable sink among them.
+# them, and those of the band and of the score instantiations, those with a
+# learnable sink and those at a v head dim of its own (192 / 128) among
+# them.
 launches = 0
 launches_band = 0
 launches_score = 0
 launches_sink = 0
+launches_dv = 0
 
 Window = Tuple[Optional[int], Optional[int]]
 
@@ -98,10 +104,12 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
                         sink_token_length: int = 0,
                         attention_chunk: int = 0, softcap: float = 0.0,
                         alibi_slopes=None, learnable_sink=None):
-    """q (b, h, sq, d), k/v (b, h_k, sk, d), any strides with the head dim
-    contiguous. Returns (out (b, h, sq, d) in q's type, lse (b, h, sq)
-    fp32). CUDA: bf16/fp16, d in HEAD_DIMS (64, 80, 96, 128, 256),
-    h % h_k == 0. ``window_size`` (left, right) with None for no bound,
+    """q (b, h, sq, d), k (b, h_k, sk, d), v (b, h_k, sk, dv), any strides
+    with the head dim contiguous. Returns (out (b, h, sq, dv) in q's type,
+    lse (b, h, sq) fp32). CUDA: bf16/fp16, d = dv in HEAD_DIMS (64, 80, 96,
+    128, 256) or (d, dv) = (192, 128) (DENSE_HEAD_DIMS: neither the band
+    nor the score map there, NotImplementedError), h % h_k == 0.
+    ``window_size`` (left, right) with None for no bound,
     ``sink_token_length`` and ``attention_chunk`` as in the JAX function
     (dispatch/band.py); ``softcap`` (0: none) and ``alibi_slopes`` ((h,) or
     (b, h), read in fp32) as in JAX's (dispatch/score.py);
@@ -115,21 +123,26 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     b, h, sq, d = q.shape
     bk_, h_k, sk, dk = k.shape
+    dv = v.shape[-1]
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"flash_fwd kernel: dtype {q.dtype} (bf16/fp16 only)")
-    check_head_dims("flash_fwd", d, dk, v.shape[-1], HEAD_DIMS)
-    if bk_ != b or h % h_k or v.shape != k.shape:
+    check_head_dims("flash_fwd", d, dk, dv, DENSE_HEAD_DIMS)
+    if bk_ != b or h % h_k or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_fwd kernel: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if b > 65535 or h > 65535:
         raise ValueError("flash_fwd kernel: batch and heads must be <= 65535")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _build.check_operand("flash_fwd", name, x, q.dtype, q.device)
     sink = sink_arg("flash_fwd", learnable_sink, h, q.device)
     scale = 1.0 / math.sqrt(d) if softmax_scale is None else softmax_scale
-    # out is allocated (b, sq, h, d) so that the public bshd result is
-    # contiguous; it is returned as its (b, h, sq, d) view.
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    window = reach_window(window_size, causal, sq, sk)
+    band = has_band(causal, window, attention_chunk)
+    refuse_dv_forms("flash_fwd", d, dv, band,
+                    has_score(softcap, alibi_slopes))
+    # out is allocated (b, sq, h, dv) so that the public bshd result is
+    # contiguous; it is returned as its (b, h, sq, dv) view.
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if sq == 0 or b == 0:
         return out.transpose(1, 2), lse
@@ -140,15 +153,13 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
         else:
             lse.copy_(sink[None, :, None].expand(b, h, sq))
         return out.transpose(1, 2), lse
-    window = reach_window(window_size, causal, sq, sk)
-    band = has_band(causal, window, attention_chunk)
     slopes = slopes_bh(alibi_slopes, b, h, q.device)
     slope_ptr, slope_sb = slope_args(slopes)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         err = lib.fa_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, sq, sk, h, h_k, d,
+            lse.data_ptr(), b, sq, sk, h, h_k, d, dv,
             FWD_TILE.block_q, FWD_TILE.block_k,
             q.stride(0), q.stride(2), q.stride(1),
             k.stride(0), k.stride(2), k.stride(1),
@@ -161,8 +172,10 @@ def flash_attention_fwd(q, k, v, softmax_scale: Optional[float] = None,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "fa_fwd")
     global launches, launches_band, launches_score, launches_sink
+    global launches_dv
     launches += 1
     launches_band += band
     launches_score += has_score(softcap, alibi_slopes)
     launches_sink += sink is not None
+    launches_dv += dv != d
     return out.transpose(1, 2), lse

@@ -5,6 +5,8 @@ compares trees of the port (``tools/paged_ab.py``) can load it by path
 without importing one tree's package before another's.
 """
 
+import math
+
 import torch
 
 VARLEN_CASES = [  # (name, lens_q, lens_k, seqused_q, h, h_k, d, page, dtype,
@@ -454,3 +456,33 @@ def sink_logits(h: int, keys: int, device=None, gen=None):
     s = torch.where(idx == 0, lse + 4.0, s)
     s = torch.where(idx == 1, -30.0, s)
     return torch.where(idx == 2, 0.0, s).float()
+
+
+# q/k head dim 192 beside v head dim 128 (dispatch/config.py
+# HEAD_DIM_PAIRS): DeepSeek-V3's attention when its MLA is not absorbed
+# (deepseek-ai/DeepSeek-V3 config.json: qk_nope_head_dim 128 +
+# qk_rope_head_dim 64, v_head_dim 128, 128 heads; arXiv 2412.19437 §4.2),
+# at its softmax scale: 192^-0.5 times mscale^2, mscale = 0.1 ln(40) + 1
+# from its YaRN rope_scaling (factor 40, mscale_all_dim 1.0), as HF's
+# modeling_deepseek.py applies it.
+DSV3_D, DSV3_DV, DSV3_HEADS, DSV3_SEQ, DSV3_LAYERS = 192, 128, 128, 4096, 61
+DSV3_SCALE = (0.1 * math.log(40.0) + 1.0) ** 2 / math.sqrt(DSV3_D)
+DV_CASES = [  # (name, b, sq, sk, h, h_k, causal, dtype, sink): B1, B3, B2
+    # and the preprocess at 192 / 128; the first is one DeepSeek-V3 layer
+    # at its training shape and scale, the rest at 1/sqrt(192)
+    ("DeepSeek-V3 layer", 1, DSV3_SEQ, DSV3_SEQ, DSV3_HEADS, DSV3_HEADS,
+     True, torch.bfloat16, False),
+    ("GQA 16/4", 2, 640, 640, 16, 4, True, torch.bfloat16, False),
+    ("non-causal, ragged", 1, 700, 700, 8, 8, False, torch.bfloat16, False),
+    ("sq < sk", 2, 333, 1000, 8, 8, True, torch.bfloat16, False),
+    ("sq > sk, rows that see no key", 1, 1000, 333, 8, 8, True,
+     torch.bfloat16, False),
+    ("learnable sink", 2, 512, 512, 8, 8, True, torch.bfloat16, True),
+    ("fp16 at GQA 8/2", 1, 777, 777, 8, 2, True, torch.float16, False),
+]
+
+
+def dv_case_scale(name: str):
+    """A DV_CASES case's softmax scale: DSV3_SCALE for DeepSeek-V3's,
+    the default (None) for the rest."""
+    return DSV3_SCALE if name.startswith("DeepSeek") else None

@@ -162,8 +162,10 @@ def test_packed_mha_with_a_window_matches_jax():
     tm = MHA(64, dtype=torch.float32, device="cpu", **kw)
     cu = _cu([30, 0, 47])
     x, g = _rand(rng, 77, 64), _rand(rng, 77, 64)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                     cu_seqlens=jnp.asarray(cu), max_seqlen=47)["params"]
+    # the parameters depend on the widths alone: a tiny dense input gives
+    # the same ones without lowering the packed kernels for init
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((1, 8, 64), jnp.float32))["params"]
     tm.load_state_dict({n: _t(a) for n, a in tm.jax_param_arrays(
         jax.tree_util.tree_map(np.asarray, params)).items()})
 

@@ -468,8 +468,10 @@ def test_packed_alibi_mha_at_80_matches_jax():
     tm = MHA(2 * D, dtype=torch.float32, device="cpu", **kw)
     cu = _cu([30, 0, 47])
     x, g = _rand(rng, 77, 2 * D), _rand(rng, 77, 2 * D)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                     cu_seqlens=jnp.asarray(cu), max_seqlen=47)["params"]
+    # the parameters depend on the widths alone: a tiny dense input gives
+    # the same ones without lowering the packed kernels for init
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((1, 8, 2 * D), jnp.float32))["params"]
     tm.load_state_dict({n: _t(a) for n, a in tm.jax_param_arrays(
         jax.tree_util.tree_map(np.asarray, params)).items()})
 

@@ -240,15 +240,18 @@ def test_latent_cache_576_512_matches_jax():
 
 
 def test_mla_refusals_name_queue_a_7():
-    """qv without a paged cache (B1/B6/B7 at hdim_qk != hdim_v) and B8p's
-    window, softcap and descales are still queue A item 7 (B8p takes the
-    learnable sink: tests/test_torch_learnable_sink.py)."""
+    """qv on the dense varlen route (B6/B7 at hdim_qk != hdim_v), qv with
+    descales on flash_attn_func (JAX's forward-only fp8 route; qv alone
+    runs there: tests/test_torch_head_dims_192_128.py) and B8p's window,
+    softcap and descales are still queue A item 7 (B8p takes the learnable
+    sink: tests/test_torch_learnable_sink.py)."""
     q = torch.zeros(4, 2, 64)
     cu = torch.tensor([0, 4], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="queue A, item 7"):
         flash_attn_varlen_func(q, q, q, cu, cu, 4, 4, qv=q)
     with pytest.raises(NotImplementedError, match="queue A, item 7"):
-        flash_attn_func(q[None], q[None], q[None], qv=q[None])
+        flash_attn_func(q[None], q[None], q[None], qv=q[None],
+                        v_descale=torch.ones(1, 2))
     qd, kp = torch.zeros(1, 4, 2, 64), torch.zeros(3, 1, 16, 64)
     args = (qd, kp, kp, torch.tensor([4]), torch.tensor([4]),
             torch.tensor([[1]], dtype=torch.int32))

@@ -19,6 +19,7 @@ from flash_attn_tpu_torch.cache.kvcache import kv_cache_update
 from flash_attn_tpu_torch.dispatch.config import DECODE_BLOCK_K
 from flash_attn_tpu_torch.models.gpt import GPTConfig, GPTLMHeadModel
 from flash_attn_tpu_torch.utils.cases import (
+    DV_CASES,
     BAND_BWD_CASES,
     BAND_DECODE_CASES,
     BAND_FWD_CASES,
@@ -47,6 +48,7 @@ from flash_attn_tpu_torch.utils.cases import (
     kv_codes,
     kv_descales,
     case_scale,
+    dv_case_scale,
     score_slopes,
     sink_logits,
 )
@@ -90,12 +92,15 @@ def test_no_library_attention_in_the_package():
 @pytest.mark.parametrize("kwargs", [
     dict(dropout_p=0.1), dict(aux_tensors=(torch.ones(1),)),
     dict(q_descale=torch.ones(1)), dict(mask_mod=lambda *a: True),
-    dict(qv=torch.ones(1)), dict(score_mod=lambda s, *a: s)])
+    dict(qv=torch.ones(1, 8, 2, 64), k_descale=torch.ones(1, 2)),
+    dict(score_mod=lambda s, *a: s)])
 def test_flash_attn_func_rejects_unported_options(kwargs):
     """Each raises before the forward runs (the band trains:
     tests/test_torch_band_backward.py; softcap and ALiBi too:
     tests/test_torch_score_backward.py; the learnable sink too:
-    tests/test_torch_learnable_sink.py)."""
+    tests/test_torch_learnable_sink.py; qv without descales too:
+    tests/test_torch_head_dims_192_128.py, so qv stands here with the
+    descales of JAX's forward-only fp8 route)."""
     q = torch.randn(1, 8, 2, 64, requires_grad=True)
     with pytest.raises(NotImplementedError):
         flash_attn_func(q, q, q, **kwargs)
@@ -3906,6 +3911,169 @@ def test_sink_free_outputs_match_a_parent_build_on_the_card():
     for tool in ("fwd_ab.py", "paged_ab.py", "mla_ab.py"):
         res = subprocess.run(
             [sys.executable, str(REPO / "tools" / tool), "--digests", parent,
+             str(REPO)], cwd=REPO, capture_output=True, text=True,
+            timeout=900)
+        assert res.returncode == 0, (tool, res.stdout[-3000:],
+                                     res.stderr[-3000:])
+
+
+def _dv_inputs(case):
+    """Seeded q, k (192 columns), v, dout (128) on the card and the call's
+    keywords of a DV_CASES case."""
+    name, b, sq, sk, h, h_k, causal, dtype, with_sink = case
+    gen = torch.Generator(device="cuda").manual_seed(sq + 3 * sk + h)
+    q, k, v, do = (torch.randn(b, s, n, w, device="cuda", generator=gen)
+                   .to(dtype) for s, n, w in ((sq, h, 192), (sk, h_k, 192),
+                                              (sk, h_k, 128), (sq, h, 128)))
+    sink = sink_logits(h, sk, "cuda", gen) if with_sink else None
+    return q, k, v, do, dict(causal=causal, softmax_scale=dv_case_scale(name),
+                             learnable_sink=sink)
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("case", DV_CASES[1:], ids=lambda c: c[0])
+def test_head_dims_192_128_kernels_match_plain_version_on_the_card(case):
+    """B1, B3 and B2 at q/k head dim 192 beside v head dim 128
+    (csrc/flash_fwd_192.cu, csrc/flash_bwd_192.cu) on a DV_CASES case: out
+    and dq, dk, dv (and dsink) by the 2x rule against the plain fp32
+    versions with an autograd reference in the inputs' type, lse within
+    1e-3 (-inf where a row sees no key), B3 the same bits twice, every
+    launch counted as the 192 / 128 form."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+    from flash_attn_tpu_torch.utils.testing import (
+        attention_ref,
+        attention_ref_grads,
+        check_against_ref,
+    )
+
+    q, k, v, do, kw = _dv_inputs(case)
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+
+    def run():
+        out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, **kw)
+        return out, lse, [flash_bwd.flash_attention_bwd(
+            dot, qt, kt, vt, out, lse, deterministic=det, **kw)
+            for det in (True, True, False)]
+    (out, lse, (b3, again, b2)), n = _counted(run)
+    mod = "flash_attn_tpu_torch.kernels."
+    assert {key: n.get(mod + key, 0) for key in (
+        "flash_fwd.launches_dv", "flash_bwd.launches_preprocess_dv",
+        "flash_bwd.launches_dkdv_dv", "flash_bwd.launches_dq_dv",
+        "flash_bwd.launches_fused_dv")} == {
+        "flash_fwd.launches_dv": 1, "flash_bwd.launches_preprocess_dv": 3,
+        "flash_bwd.launches_dkdv_dv": 2, "flash_bwd.launches_dq_dv": 2,
+        "flash_bwd.launches_fused_dv": 1}
+    assert all(torch.equal(x, y) for x, y in zip(b3, again))
+    f32 = [x.float() for x in (qt, kt, vt)]
+    out32, lse32 = flash_fwd.flash_attention_fwd_plain(*f32, **kw)
+    ref = flash_bwd.flash_attention_bwd_plain(dot.float(), *f32, out32,
+                                              lse32, **kw)
+    out_lp, _ = attention_ref(q, k, v, upcast=False, **kw)
+    ref_lp = attention_ref_grads(q, k, v, do, upcast=False, **kw)
+    check_against_ref(out.transpose(1, 2), out32.transpose(1, 2), out_lp,
+                      msg=f"B1 {case[0]}")
+    fin = torch.isfinite(lse32)
+    assert torch.equal(torch.isfinite(lse), fin)
+    torch.testing.assert_close(lse[fin], lse32[fin], atol=1e-3, rtol=0)
+    for label, grads in (("B3", b3), ("B2", b2)):
+        for i, name in enumerate("qkv"):
+            check_against_ref(grads[i].transpose(1, 2),
+                              ref[i].transpose(1, 2), ref_lp[i], atol=1e-4,
+                              msg=f"{label} d{name} {case[0]}")
+        if kw["learnable_sink"] is not None:
+            check_against_ref(grads[3], ref[3], ref_lp[3], atol=1e-3,
+                              msg=f"{label} dsink {case[0]}")
+
+
+@pytest.mark.usefixtures("cuda_card")
+@pytest.mark.parametrize("form", [
+    dict(window_size=(100, 0)), dict(attention_chunk=64),
+    dict(window_size=(100, 0), sink_token_length=4), dict(softcap=30.0),
+    dict(alibi_slopes="slopes")],
+    ids=["window", "chunk", "sink tokens", "softcap", "alibi"])
+def test_band_and_score_at_192_128_refused_before_any_launch_on_the_card(
+        form):
+    """The band and the score map at 192 / 128 (not compiled: each a
+    template flag) raise NotImplementedError naming queue A item 7 from
+    flash_attn_func and from the backward's wrapper, before any launch; a
+    window that reaches every key runs the band-free kernel."""
+    from flash_attn_tpu_torch.kernels import flash_bwd, flash_fwd
+
+    q, k, v, do, _ = _dv_inputs(("form", 1, 256, 256, 2, 2, True,
+                                 torch.bfloat16, False))
+    if form.get("alibi_slopes") == "slopes":
+        form = dict(alibi_slopes=torch.tensor([0.25, 0.5], device="cuda"))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = flash_fwd.flash_attention_fwd(qt, kt, vt, causal=True)
+    before = _counts()
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_attn_func(q, k, v, causal=True, **form)
+    with pytest.raises(NotImplementedError, match="queue A, item 7"):
+        flash_bwd.flash_attention_bwd(dot, qt, kt, vt, out, lse, causal=True,
+                                      **form)
+    assert _counts() == before
+    _, n = _counted(lambda: flash_attn_func(q, k, v, causal=True,
+                                            window_size=(255, 0)))
+    assert n == {"flash_attn_tpu_torch.kernels.flash_fwd.launches": 1,
+                 "flash_attn_tpu_torch.kernels.flash_fwd.launches_dv": 1}
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_qv_equals_the_concatenated_call_on_the_card():
+    """flash_attn_func(q, k, v, qv=qv) at (64, 128) runs B1, B3 and the
+    preprocess at 192 / 128 and gives the bits of the explicit call on q ||
+    qv, k || v: out, dq, dqv, dk, and dv (the P V side plus the score
+    side)."""
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    q, k = (torch.randn(2, 300, 4, 64, device="cuda", generator=gen)
+            .bfloat16() for _ in range(2))
+    v, qv, do = (torch.randn(2, 300, 4, 128, device="cuda", generator=gen)
+                 .bfloat16() for _ in range(3))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, qv)]
+
+    def call():
+        out = flash_attn_func(*leaves[:3], qv=leaves[3], causal=True)
+        out.backward(do)
+        return out
+    out, n = _counted(call)
+    mod = "flash_attn_tpu_torch.kernels."
+    assert n == {mod + key: 1 for key in (
+        "flash_fwd.launches", "flash_fwd.launches_dv",
+        "flash_bwd.launches_preprocess", "flash_bwd.launches_preprocess_dv",
+        "flash_bwd.launches_dkdv", "flash_bwd.launches_dkdv_dv",
+        "flash_bwd.launches_dq", "flash_bwd.launches_dq_dv")}
+    qc = torch.cat([q, qv], -1).requires_grad_()
+    kc = torch.cat([k, v], -1).requires_grad_()
+    vc = v.clone().requires_grad_()
+    out2 = flash_attn_func(qc, kc, vc, causal=True)
+    out2.backward(do)
+    assert torch.equal(out, out2)
+    assert torch.equal(leaves[0].grad, qc.grad[..., :64])
+    assert torch.equal(leaves[3].grad, qc.grad[..., 64:])
+    assert torch.equal(leaves[1].grad, kc.grad[..., :64])
+    assert torch.equal(leaves[2].grad, vc.grad + kc.grad[..., 64:])
+
+
+@pytest.mark.usefixtures("cuda_card")
+def test_d_eq_dv_kernels_match_a_parent_build_on_the_card():
+    """Beside the 192 / 128 forms, the d = dv kernels keep their bits: B1,
+    B6, B7, B8, B8p, B10 and the MLA decode route give a parent tree's
+    (tools/fwd_ab.py, paged_ab.py and mla_ab.py --digests PARENT .), and
+    B3 and B2 on every BWD_CASES shape too (tools/dense_bwd_ab.py PARENT
+    ., which exits 1 when a digest differs). The parent is an unpacked
+    archive of the commit before the 192 / 128 forms, named by
+    FA_PARENT_TREE."""
+    import os
+
+    parent = os.environ.get("FA_PARENT_TREE")
+    if not parent:
+        pytest.skip("set FA_PARENT_TREE to an unpacked archive of the parent "
+                    "commit to compare the d = dv kernels' bits with it")
+    for tool, args in (("fwd_ab.py", ["--digests"]),
+                       ("paged_ab.py", ["--digests"]),
+                       ("mla_ab.py", ["--digests"]), ("dense_bwd_ab.py", [])):
+        res = subprocess.run(
+            [sys.executable, str(REPO / "tools" / tool), *args, parent,
              str(REPO)], cwd=REPO, capture_output=True, text=True,
             timeout=900)
         assert res.returncode == 0, (tool, res.stdout[-3000:],

@@ -543,8 +543,10 @@ def test_packed_mha_with_rotary_matches_jax():
     tm = MHA(64, dtype=torch.float32, device="cpu", **kw)
     cu = _cu([30, 0, 47])
     x = _rand(rng, 80, 64)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
-                     cu_seqlens=jnp.asarray(cu), max_seqlen=47)["params"]
+    # the parameters depend on the widths alone: a tiny dense input gives
+    # the same ones without lowering the packed kernels for init
+    params = jm.init(jax.random.PRNGKey(0),
+                     jnp.zeros((1, 8, 64), jnp.float32))["params"]
     with torch.no_grad():
         for lin, name in ((tm.Wqkv, "Wqkv"), (tm.out_proj, "out_proj")):
             lin.weight.copy_(_t(params[name]["kernel"]).T)

@@ -182,8 +182,19 @@ def test_head_dim_refusals_name_item_7():
     (check_backward_head_dim is gone too); B10 takes 64 and 128 only; 192
     and d != dv are refused everywhere, by the forward's check before
     anything runs. Each refusal names queue A item 7; the CPU runs any head
-    dim."""
+    dim. The one pair with a v head dim of its own, (192, 128), is in the
+    set of B1, B2, B3 and their preprocess alone (DENSE_HEAD_DIMS), not in
+    HEAD_DIMS nor B10's."""
     assert HEAD_DIMS == (64, 80, 96, 128, 256)
+    assert config.HEAD_DIM_PAIRS == ((192, 128),)
+    assert config.DENSE_HEAD_DIMS == HEAD_DIMS + ((192, 128),)
+    check_head_dims("flash_fwd", 192, 192, 128, config.DENSE_HEAD_DIMS)
+    for dims in (HEAD_DIMS, BLOCKSPARSE_HEAD_DIMS):
+        with pytest.raises(ValueError, match="queue A, item 7"):
+            check_head_dims("kernel", 192, 192, 128, dims)
+    for d, dk, dv in ((192, 192, 192), (256, 256, 128), (128, 128, 192)):
+        with pytest.raises(ValueError, match="queue A, item 7"):
+            check_head_dims("flash_fwd", d, dk, dv, config.DENSE_HEAD_DIMS)
     assert BLOCKSPARSE_HEAD_DIMS == (64, 128)
     for gone in ("FWD_HEAD_DIMS", "BWD_HEAD_DIMS", "check_training_head_dim"):
         assert not hasattr(config, gone) and not hasattr(interface, gone)

@@ -33,7 +33,8 @@ flash_varlen_paged.cu, flash_blocksparse.cu, and the dense and varlen
 backwards' sources: flash_bwd.cu, flash_varlen.cu, their head dims 96 and
 256 and their band and score instantiations), the score instantiations of
 B1 and B8, the decode route's sources (flash_decode.cu,
-flash_decode_kv8.cu) and the head dim 80 sources (the *_80.cu files) in
+flash_decode_kv8.cu), the head dim 80 sources (the *_80.cu files) and the
+q/k 192 beside v 128 ones (flash_fwd_192.cu, flash_bwd_192.cu) in
 both trees with nvcc -cubin, all side by side, and says, kernel by
 kernel, whether the machine code (cuobjdump -sass, with the file-specific
 part of the names taken out) is the same, under the kernel's own name or
@@ -68,7 +69,7 @@ SASS_SOURCES = ["flash_fwd.cu", "flash_varlen_fwd.cu", "flash_varlen_fwd_band.cu
                 "flash_decode_kv8.cu", "flash_fwd_80.cu", "flash_decode_80.cu",
                 "flash_varlen_paged_80.cu", "flash_bwd_80.cu", "flash_bwd_score_80.cu",
                 "flash_varlen_80.cu", "flash_varlen_score_80.cu",
-                "flash_varlen_fwd_80.cu"]
+                "flash_varlen_fwd_80.cu", "flash_fwd_192.cu", "flash_bwd_192.cu"]
 
 
 def digest(*tensors) -> str:
